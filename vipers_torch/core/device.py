@@ -1,0 +1,26 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU. There is
+no silent fallback: asking for ``cuda`` (the default) on a host without a
+usable card raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means ``cuda``. A CUDA device that is not available raises
+    ``RuntimeError``; pass ``device="cpu"`` to run the plain versions."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "vipers_torch runs on an NVIDIA GPU by default and none is "
+            "available here; pass device='cpu' to run the plain PyTorch "
+            "versions of the kernels on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
