@@ -5,18 +5,26 @@ NVIDIA GPU. Run from the repository root:
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: both CUDA kernels from ``vipers_torch/csrc``, one nvcc each, in
-     parallel;
-  3. kernels against their plain PyTorch versions at the main path's shapes
-     (flash attention f32 and bf16, fused LN->fc1->GELU bf16): max error
-     against the stated tolerance, kernel / plain / library times (CUDA
-     events, median), and the bound from the work's FLOPs and bytes;
-  4. main path: full-width ViT-S/16 (12 layers, D=384, 6 heads, mlp 1536)
+  2. build: the three CUDA sources of ``vipers_torch/csrc``, one nvcc each,
+     in parallel;
+  3. kernels against their plain PyTorch versions at their main path's
+     shapes (flash attention f32 and bf16, fused LN->fc1->GELU bf16, the
+     training attention forward and backward bf16): max error against the
+     stated tolerance, kernel / plain / library times (CUDA events, median),
+     and the bound from the work's FLOPs and bytes;
+  4. LOST path: full-width ViT-S/16 (12 layers, D=384, 6 heads, mlp 1536)
      from a seeded generator, 50% global magnitude mask, 512x384 uint8
      images, ``make_batched_pipeline`` in f32 and bf16 at B=128 on an
      exact-fit and a mixed-size bucket; the launch counters must show every
      block went through the kernels; B=4 against the same extractor on the
-     CPU (plain versions); img/s at B=128 and p50 latency at B=1.
+     CPU (plain versions); img/s at B=128 and p50 latency at B=1;
+  5. train path: the masked bf16 train step of full-width ViT-S/16 at
+     224x224 (T=197 seq-padded to 256), 1000 classes, SGD momentum with a
+     cosine LR, uint8 images normalized on the card: 12 forward and 12
+     backward launches of the training attention kernels per step, finite
+     losses, pruned slots unchanged, img/s at B=128, card vs CPU at B=4,
+     one LRR round (train, prune 20% more, bake, reset, train).
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -38,6 +46,7 @@ K_PATCHES = 100
 N_CPU = 4
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
+TRAIN_HW, TRAIN_BATCH = 224, 128
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -138,6 +147,78 @@ def check_fused_mlp(fm, gen):
             "bound_by": by, "library_ms": lib_ms}
 
 
+def check_attention_train(at, gen):
+    """Training attention kernels vs plain at the train shape: B*H = 128*6,
+    T = 256 (197 tokens seq-padded; on every other image a ragged run of pad
+    keys inside the 197), hd = 64, bf16, packed (3, B, H, T, hd) q|k|v with
+    the backward writing one packed dqkv."""
+    b, h, t, hd = TRAIN_BATCH, 6, 256, 64
+    qkv = torch.randn(3, b, h, t, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    cot = torch.randn(b, h, t, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    valid = torch.zeros(b, t, dtype=torch.bool, device="cuda")
+    valid[:, :197] = True
+    valid[1::2, 120:197:3] = False
+    q, k, v = qkv.unbind(0)
+    scale = hd ** -0.5
+    out, lse = at.attention_train_fwd(q, k, v, valid, scale)
+    dqkv = torch.empty_like(qkv)
+    at.attention_train_bwd(q, k, v, out, lse, cot, valid, scale, out=dqkv.unbind(0))
+    want, want_lse = at.attention_train_fwd_plain(q, k, v, valid, scale)
+    want_g = at.attention_train_bwd_plain(q, k, v, out, lse, cot, valid, scale)
+    torch.cuda.synchronize()
+
+    def err_of(got, ref):
+        scale_ = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * scale_, (err, scale_)
+        return err, scale_
+
+    fwd_err, fwd_scale = err_of(out, want)
+    lse_err = (lse - want_lse).abs().max().item()
+    assert lse_err <= 2e-2 * want_lse.abs().max().item(), lse_err
+    bwd = [err_of(dqkv[i], want_g[i]) for i in range(3)]
+    bwd_err = max(e / sc for e, sc in bwd)
+
+    dbuf = dqkv.unbind(0)
+    fwd_ms = cuda_ms(lambda: at.attention_train_fwd(q, k, v, valid, scale))
+    fwd_plain = cuda_ms(lambda: at.attention_train_fwd_plain(q, k, v, valid, scale), reps=5)
+    amask = valid[:, None, None, :]
+    fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask))
+    bwd_ms = cuda_ms(lambda: at.attention_train_bwd(q, k, v, out, lse, cot, valid, scale,
+                                                    out=dbuf))
+    bwd_plain = cuda_ms(lambda: at.attention_train_bwd_plain(q, k, v, out, lse, cot, valid,
+                                                             scale), reps=5)
+    lq, lk, lv = (z.detach().clone().requires_grad_(True) for z in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)
+    bwd_lib = cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), cot, retain_graph=True))
+
+    elt = 2
+    n = b * h * t * hd
+    fwd_flops = 4 * b * h * t * t * hd
+    fwd_bytes = 4 * n * elt + lse.numel() * 4 + valid.numel()
+    bwd_flops = 10 * b * h * t * t * hd
+    bwd_bytes = 8 * n * elt + lse.numel() * 4 + valid.numel()
+    rows = []
+    for name, ms, plain, lib, flops, nbytes, err, tol, rep in (
+            ("attention_train_fwd[bf16]", fwd_ms, fwd_plain, fwd_lib, fwd_flops, fwd_bytes,
+             fwd_err, f"2e-2 of output scale {fwd_scale:.3g}; lse {lse_err:.2e}",
+             "vipers/ops/attention_train.py:276"),
+            ("attention_train_bwd[bf16]", bwd_ms, bwd_plain, bwd_lib, bwd_flops, bwd_bytes,
+             max(e for e, _ in bwd), "2e-2 of each of dq, dk, dv's scale "
+             f"({', '.join(f'{sc:.3g}' for _, sc in bwd)}); worst {bwd_err:.2e} of it",
+             "vipers/ops/attention_train.py:294")):
+        bms, by = bound(flops, nbytes, PEAK_BF16)
+        lib_name = "sdpa" if "fwd" in name else "sdpa-backward"
+        print(f"{name} max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms plain {plain:.3f} ms "
+              f"{lib_name} {lib:.3f} ms bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.0f} MB)")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "vipers_torch/csrc/attention_train.cu", "replaces": rep,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                     "bound_by": by, "library_ms": lib})
+    return rows
+
+
 def make_images(rng, exact_hw):
     """Tier-1-padded uint8 images, zero beyond the exact pixel extent, each
     with a bright block on textured noise."""
@@ -182,6 +263,131 @@ def compare_with_cpu(tag, spec, params, masks, dtype, ex, imgs, exact_hw, lost_c
                 assert s[gseed[i]] == s[cseed[i]] == s.max(), (i, gseed[i], cseed[i])
 
 
+def reset_counts(*counters):
+    for counts in counters:
+        for key in counts:
+            counts[key] = 0
+
+
+def train_phase(card, counters):
+    """The masked bf16 train step of full-width ViT-S/16 at 224x224 (12
+    layers, D=384, 6 heads, mlp 1536, 1000 classes) with 50% global
+    magnitude masks on unbaked f32 masters, SGD momentum 0.9, wd 1e-4, lr
+    0.1 cosine: launches per step, finite losses, pruned slots unchanged,
+    img/s at B=128 (best of 3 windows of 6 steps), card vs CPU at B=4 (f32
+    params after 2 steps; bf16 loss and gradients), one LRR round. Returns
+    the launch counts of the counted steps."""
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data.preprocess import make_device_normalize
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.pruning import init_masks, magnitude_prune
+    from vipers_torch.train.loop import magnitude_pruning_round, reset_for_round
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import (create_train_state, loss_and_grads,
+                                          make_eval_step, make_train_step)
+
+    t0 = time.time()
+    hw, b = TRAIN_HW, TRAIN_BATCH
+    spec = build_model("vit_s_16", num_classes=1000, image_size=(hw, hw))
+    params = spec.init(torch.Generator().manual_seed(0))
+    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), SPARSITY)
+    ocfg = OptimConfig(opt="sgd", lr=0.1, momentum=0.9, weight_decay=1e-4, epochs=10,
+                       lr_scheduler="cosineannealinglr")
+    state = create_train_state(spec, params, masks, ocfg, steps_per_epoch=100)
+    rng = np.random.default_rng(2)
+    u8 = torch.from_numpy(rng.integers(0, 256, (b, hw, hw, 3), dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 1000, (b,))).cuda()
+    normalize = make_device_normalize()
+    x = normalize(u8)
+    step = make_train_step(1000, compute_dtype=torch.bfloat16)
+    pruned = {k: state.params[k].detach()[~m].clone() for k, m in state.masks.items()}
+    torch.cuda.synchronize()
+    print(f"train vit_s_16 {hw}x{hw} bf16 B={b}: set-up {time.time() - t0:.1f} s")
+
+    # the counted steps
+    n_steps = 3
+    reset_counts(*counters)
+    losses = []
+    for _ in range(n_steps):
+        state, m = step(state, (x, labels))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {"fwd": at.LAUNCHES["fwd"], "bwd": at.LAUNCHES["bwd"],
+                "flash": sum(fa.LAUNCHES.values()), "fused_mlp": fm.LAUNCHES["bfloat16"]}
+    losses = [float(v) for v in losses]
+    layers = spec.cfg.num_layers
+    print(f"train steps: losses {losses}; launches in {n_steps} steps {launches}")
+    assert launches == {"fwd": layers * n_steps, "bwd": layers * n_steps, "flash": 0,
+                        "fused_mlp": 0}, launches
+    assert all(np.isfinite(losses)), losses
+    for k, m in state.masks.items():
+        assert torch.equal(state.params[k].detach()[~m], pruned[k]), k
+
+    # img/s, bench.py's scheme: best of 3 windows of 6 steps
+    best = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(6):
+            state, m = step(state, (x, labels))
+        torch.cuda.synchronize()
+        best = max(best, b * 6 / (time.perf_counter() - t1))
+    print(f"train throughput bf16 {best:.1f} img/s at B={b} ({card})")
+
+    # card vs CPU at B=4
+    xs, ys = u8[:N_CPU], labels[:N_CPU]
+    f32 = {}
+    for dev in ("cuda", "cpu"):
+        st = create_train_state(spec, params, masks, ocfg, 100, device=dev)
+        st_step = make_train_step(1000)
+        batch = (normalize(xs.to(dev)), ys.to(dev))
+        for _ in range(2):
+            st, _ = st_step(st, batch)
+        f32[dev] = {k: p.detach().cpu() for k, p in st.params.items()}
+        if dev == "cuda":
+            bf = loss_and_grads(st.model, st.masks, batch, 1000, compute_dtype=torch.bfloat16)
+            bf_masks, bf_state = st.masks, {k: p.detach().cpu() for k, p in st.params.items()}
+    f32_err = max((f32["cuda"][k] - f32["cpu"][k]).abs().max().item() for k in f32["cpu"])
+    print(f"cpu-vs-card train f32: params after 2 steps max_abs_err {f32_err:.3e} (atol 1e-4)")
+    assert f32_err <= 1e-4, f32_err
+    cpu_model = spec.module()
+    cpu_model.load_state_dict(bf_state)
+    cpu_bf = loss_and_grads(cpu_model, {k: m.cpu() for k, m in bf_masks.items()},
+                            (normalize(xs.cpu()), ys.cpu()), 1000,
+                            compute_dtype=torch.bfloat16)
+    loss_gap = abs(float(bf[0]) - float(cpu_bf[0]))
+    gg = torch.cat([g.flatten().cpu() for g in bf[2].values()])
+    gc = torch.cat([cpu_bf[2][k].flatten() for k in bf[2]])
+    g_rel = ((gg - gc).norm() / gc.norm()).item()
+    print(f"cpu-vs-card train bf16: loss {float(bf[0]):.5f} vs {float(cpu_bf[0]):.5f} "
+          f"(gap {loss_gap:.2e}, tol 2e-2 relative); gradients relative L2 error "
+          f"{g_rel:.3e} (tol 3e-2)")
+    assert loss_gap <= 2e-2 * abs(float(cpu_bf[0])), loss_gap
+    assert g_rel <= 3e-2, g_rel
+
+    # one LRR round: reset -> train -> prune 20% more -> bake; then train on
+    t1 = time.time()
+    eval_step = make_eval_step(1000, compute_dtype=torch.bfloat16)
+    loader = [(x, labels)] * 2
+    state, acc1, sparsity = magnitude_pruning_round(
+        step, eval_step, state, lambda e: loader, lambda: loader[:1], epochs=1,
+        pruning_rate=0.2, print_freq=0)
+    kept = sum(int(m.sum()) for m in state.masks.values())
+    total = sum(m.numel() for m in state.masks.values())
+    assert abs(sparsity - 60.0) < 0.01 and abs(100.0 * (1 - kept / total) - 60.0) < 0.01, sparsity
+    reset_for_round(state)
+    for _ in range(2):
+        state, m = step(state, (x, labels))
+    torch.cuda.synchronize()
+    for k, msk in state.masks.items():
+        assert bool((state.params[k].detach()[~msk] == 0).all()), k
+    print(f"LRR round: sparsity 50% -> {sparsity:.4f}%, pruned slots exact zeros after 2 "
+          f"more steps (loss {float(m['loss']):.4f}), {time.time() - t1:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -190,6 +396,7 @@ def main():
     from vipers_torch.discovery.driver import LostFeatureExtractor
     from vipers_torch.discovery.lost import lost_core
     from vipers_torch.ops import _build
+    from vipers_torch.ops import attention_train as at
     from vipers_torch.ops import flash_attention as fa
     from vipers_torch.ops import fused_mlp as fm
     from vipers_torch.pruning import init_masks, magnitude_prune
@@ -206,7 +413,8 @@ def main():
 
     # 2. build
     t0 = time.time()
-    logs = _build.build(["flash_attention_fwd", "fused_mlp"], ptxas_verbose=True)
+    logs = _build.build(["flash_attention_fwd", "fused_mlp", "attention_train"],
+                        ptxas_verbose=True)
     print(f"build {time.time() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -216,7 +424,7 @@ def main():
     # 3. kernels against their plain versions at the main path's shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_flash(fa, torch.float32, gen), check_flash(fa, torch.bfloat16, gen),
-               check_fused_mlp(fm, gen)]
+               check_fused_mlp(fm, gen), *check_attention_train(at, gen)]
 
     # 4. main path
     t0 = time.time()
@@ -243,21 +451,19 @@ def main():
     pipes = {e: ex.make_batched_pipeline(K_PATCHES) for e, ex in extractors.items()}
     torch.cuda.synchronize()
 
-    for counts in (fa.LAUNCHES, fm.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    counters = (fa.LAUNCHES, fm.LAUNCHES, at.LAUNCHES)
+    reset_counts(*counters)
     outs = {key: pipes[key[0]](*inp) for key, inp in inputs.items()}
     torch.cuda.synchronize()
     launches = {"flash_attention_fwd[f32]": fa.LAUNCHES["float32"],
                 "flash_attention_fwd[bf16]": fa.LAUNCHES["bfloat16"],
                 "fused_ln_fc1_gelu[bf16]": fm.LAUNCHES["bfloat16"]}
-    print(f"main path launches (4 forwards, 12 blocks each): {launches}")
+    print(f"LOST path launches (4 forwards, 12 blocks each): {launches}")
+    assert at.LAUNCHES == {"fwd": 0, "bwd": 0}, at.LAUNCHES
     layers = spec.cfg.num_layers
     assert launches == {"flash_attention_fwd[f32]": 2 * layers,
                         "flash_attention_fwd[bf16]": 2 * layers,
                         "fused_ln_fc1_gelu[bf16]": 2 * layers}, launches
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
 
     gh, gw = H // PATCH, W // PATCH
     for (e, b), (box, seed, bg) in outs.items():
@@ -297,6 +503,13 @@ def main():
             lats.append(1e3 * (time.perf_counter() - t0))
         print(f"throughput [{e}] {ips:.1f} img/s at B={BATCH}; p50 latency "
               f"{statistics.median(lats[3:]):.2f} ms at B=1 ({card})")
+
+    # 5. train path
+    tl = train_phase(card, counters)
+    launches.update({"attention_train_fwd[bf16]": tl["fwd"],
+                     "attention_train_bwd[bf16]": tl["bwd"]})
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
 
     print(f"chip_smoke total {time.time() - t_start:.1f} s")
     print(card)

@@ -97,3 +97,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_flash_min_t_matches_jax():
     assert tfa.flash_min_t() == jfa.FLASH_MIN_T == 512
+
+
+def test_autograd_backward_matches_jax_custom_vjp():
+    """The port's flash Function backward (its explicit recomputation VJP,
+    run here on the CPU) against the JAX package's ``_flash_vjp_bwd`` on the
+    same residuals, f32, at the JAX test's 2e-5."""
+    import jax
+
+    rng = np.random.default_rng(0)
+    b, h, t, hd = 2, 3, 24, 64
+    q, k, v, cot = (rng.normal(size=(b, h, t, hd)).astype(np.float32) for _ in range(4))
+    valid = rng.random((b, t)) > 0.2
+    scale = hd ** -0.5
+    jq, jk, jv, jvalid = map(jnp.asarray, (q, k, v, valid))
+    logits = jnp.where(jvalid[:, None, None, :],
+                       jnp.einsum("bhqd,bhkd->bhqk", jq * scale, jk), jfa.NEG_INF)
+    lse = jax.scipy.special.logsumexp(logits, axis=-1)
+    out, _ = jfa.attention_reference(jq, jk, jv, scale=scale, mask=jvalid[:, None, None, :])
+    want = jfa._flash_vjp_bwd(scale, 128, 128, (jq, jk, jv, jvalid, out, lse),
+                              jnp.asarray(cot))[:3]
+    tq, tk, tv = (torch.from_numpy(z).requires_grad_(True) for z in (q, k, v))
+    got_out = tfa.flash_attention(tq, tk, tv, valid=torch.from_numpy(valid), scale=scale)
+    got = torch.autograd.grad(got_out, (tq, tk, tv), torch.from_numpy(cot))
+    direct = tfa.flash_attention_bwd(
+        *map(torch.from_numpy, (q, k, v, valid, np.array(out), np.array(lse), cot)), scale)
+    for a, d, c in zip(got, direct, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), atol=2e-5)
+        np.testing.assert_allclose(d.numpy(), np.asarray(c), atol=2e-5)

@@ -66,6 +66,13 @@ def test_default_device_raises_without_a_card():
     params = spec.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LostFeatureExtractor(spec, params)
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import create_train_state
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(spec, params, None, OptimConfig(), steps_per_epoch=1)
+    assert create_train_state(spec, params, None, OptimConfig(), 1,
+                              device="cpu").model.head is None
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

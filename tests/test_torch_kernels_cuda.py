@@ -65,3 +65,96 @@ def test_fused_mlp_kernel_matches_plain(cuda, m, d, f):
     want = tfm.fused_ln_dense_gelu_plain(x, w_t, b, 1e-6)
     scale = want.float().abs().max().item()
     assert (out.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+def _attention_train_inputs(b, h, t, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qkv = torch.randn(3, b, h, t, 64, generator=g).to(dev, torch.bfloat16)
+    cot = torch.randn(b, h, t, 64, generator=g).to(dev, torch.bfloat16)
+    valid = torch.ones(b, t, dtype=torch.bool)
+    valid[1::2, t - t // 5:] = False  # ragged pad keys on half the batch
+    return qkv, cot, valid.to(dev)
+
+
+def _close_to_scale(got, want, frac=2e-2):
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= frac * scale, (err, scale)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("t", [256, 197, 1024])
+def test_attention_train_kernels_match_plain(cuda, t, packed):
+    """Forward and backward kernels (through the entries and their autograd
+    Functions) against the plain versions on the same padded inputs, bf16
+    at 2e-2 of each output's scale. One kernel pair serves both entries."""
+    from vipers_torch.ops import attention_train as tat
+    from vipers_torch.ops.tokens import round_up
+
+    qkv, cot, valid = _attention_train_inputs(4, 3, t, cuda, seed=t)
+    n0 = dict(tat.LAUNCHES)
+    if packed:
+        x = qkv.clone().requires_grad_(True)
+        out = tat.attention_train_packed(x, valid=valid)
+        (grad,) = torch.autograd.grad(out, x, cot)
+    else:
+        q, k, v = (z.clone().requires_grad_(True) for z in qkv.unbind(0))
+        out = tat.attention_train(q, k, v, valid=valid)
+        grad = torch.stack(torch.autograd.grad(out, (q, k, v), cot))
+    torch.cuda.synchronize()
+    assert tat.LAUNCHES["fwd"] == n0["fwd"] + 1 and tat.LAUNCHES["bwd"] == n0["bwd"] + 1
+
+    tp, scale = round_up(t, 128), 64 ** -0.5
+    pad = lambda z: torch.nn.functional.pad(z, (0, 0, 0, tp - t))  # noqa: E731
+    q, k, v = (pad(z) for z in qkv.unbind(0))
+    ok = torch.nn.functional.pad(valid, (0, tp - t))
+    o, lse = tat.attention_train_fwd_plain(q, k, v, ok, scale)
+    want = tat.attention_train_bwd_plain(q, k, v, o, lse, pad(cot), ok, scale)
+    _close_to_scale(out, o[:, :, :t])
+    for a, c in zip(grad, want):
+        _close_to_scale(a, c[:, :, :t])
+
+
+def test_flash_attention_gradient_through_kernel(cuda):
+    """The flash Function's gradient on the card equals autograd through the
+    plain version (the wrapper once returned tensors without autograd
+    history, so the gradient was lost on the card)."""
+    for dtype, frac in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        qkv, cot, valid = _attention_train_inputs(2, 3, 640, cuda, seed=5)
+        ins = [z.to(dtype).requires_grad_(True) for z in qkv.unbind(0)]
+        out = tfa.flash_attention(*ins, valid=valid)
+        got = torch.autograd.grad(out, ins, cot.to(dtype))
+        ref_ins = [z.detach().clone().requires_grad_(True) for z in ins]
+        ref, _ = tfa.flash_attention_plain(*ref_ins, valid)
+        want = torch.autograd.grad(ref, ref_ins, cot.to(dtype))
+        for a, c in zip(got, want):
+            _close_to_scale(a, c, frac)
+
+
+def test_fused_mlp_gradient_through_kernel(cuda):
+    """The fused LN->fc1->GELU Function's gradients (x, ln_2 scale and bias,
+    fc1 kernel and bias) on the card equal autograd through the plain
+    version."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    d, f = 384, 1536
+    x = torch.randn(2, 256, d, generator=g).to(cuda, torch.bfloat16)
+    leaves = [1 + 0.3 * torch.randn(d, generator=g), 0.1 * torch.randn(d, generator=g),
+              torch.randn(d, f, generator=g) / np.sqrt(d), 0.1 * torch.randn(f, generator=g)]
+    dy = torch.randn(2, 256, f, generator=g).to(cuda, torch.bfloat16)
+
+    def run(fused):
+        xs = x.clone().requires_grad_(True)
+        ps = [p.to(cuda).requires_grad_(True) for p in leaves]
+        if fused:
+            y = tfm.fused_ln_dense_gelu(xs, *ps)
+        else:
+            w_t, b_eff = tfm.fold_ln_affine(*ps, torch.bfloat16)
+            y = tfm.fused_ln_dense_gelu_plain(xs.reshape(-1, d), w_t, b_eff, 1e-6)
+        return torch.autograd.grad(y.reshape(-1, f), [xs] + ps, dy.reshape(-1, f))
+
+    n0 = tfm.LAUNCHES["bfloat16"]
+    got = run(True)
+    torch.cuda.synchronize()
+    assert tfm.LAUNCHES["bfloat16"] == n0 + 1
+    for a, c in zip(got, run(False)):
+        _close_to_scale(a, c)

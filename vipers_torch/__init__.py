@@ -11,7 +11,8 @@ Every TPU kernel on the ported path is a hand-written CUDA kernel for
 CPU tensor each kernel wrapper runs its plain PyTorch version instead.
 
 Ported so far: the batched ViT LOST pipeline
-(``vipers_torch.discovery.driver.LostFeatureExtractor``).
+(``vipers_torch.discovery.driver.LostFeatureExtractor``) and the bf16
+masked ViT train step (``vipers_torch.train``).
 """
 
 __version__ = "0.1.0"

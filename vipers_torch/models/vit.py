@@ -1,5 +1,6 @@
-"""torchvision-style Vision Transformer, inference forward with aux outputs
-(port of ``vipers/models/vit.py``).
+"""torchvision-style Vision Transformer, forward with aux outputs, for
+inference and training (port of ``vipers/models/vit.py``; ``self.training``
+is the JAX package's ``train``).
 
 Input is NHWC, like the JAX package. The forward returns
 ``(logits, {"qkv_input", "attn", "cls"})``: the last block's ln_1 output
@@ -8,8 +9,12 @@ Input is NHWC, like the JAX package. The forward returns
 
 Kernel routing follows the JAX package exactly:
   * attention at T >= ``flash_min_t()`` without ``need_attn`` goes to the
-    flash kernel (``ops/flash_attention.py``); below it, the key-masked
-    einsum,
+    flash kernel (``ops/flash_attention.py``); below it, in training, in
+    bf16 and within the kernel's envelope, to the short-T training kernel
+    on the packed (3, N, H, T, hd) projection
+    (``ops/attention_train.py``); otherwise the key-masked einsum,
+  * training forwards pad the tokens once to a 128 multiple where a kernel
+    will engage (``_auto_seq_pad``): T = 197 -> 256 at 224x224,
   * in bf16 at inference, when the row count passes the JAX block rule,
     ln_2 -> fc1 -> GELU goes to the fused kernel (``ops/fused_mlp.py``);
     otherwise LayerNorm -> Dense -> GELU (tanh in bf16, erf in f32).
@@ -30,10 +35,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from vipers_torch.core.registry import ModelSpec, register_model
+from vipers_torch.ops.attention_train import (attention_train_enabled,
+                                              attention_train_packed,
+                                              fused_attention_supported)
 from vipers_torch.ops.flash_attention import (attention_reference,
                                               flash_attention, flash_min_t)
 from vipers_torch.ops.fused_mlp import fused_ln_dense_gelu, fused_supported
-from vipers_torch.ops.tokens import pad_tokens, unpad_tokens
+from vipers_torch.ops.tokens import pad_tokens, round_up, unpad_tokens
 
 
 def layer_norm(x, scale, bias, eps: float):
@@ -74,7 +82,12 @@ class MultiHeadAttention(nn.Module):
         hd = d // h
         scale = float(hd) ** -0.5
         qkv = self.qkv(x).reshape(n, t, 3, h, hd).permute(2, 0, 3, 1, 4)
-        if not need_attn and t >= flash_min_t():
+        if (self.training and not need_attn and t < flash_min_t()
+                and fused_attention_supported(t, hd)
+                and attention_train_enabled(x.dtype)):
+            out = attention_train_packed(qkv, valid=token_mask, scale=scale)
+            attn = None
+        elif not need_attn and t >= flash_min_t():
             q, k, v = qkv.contiguous().unbind(0)
             out = flash_attention(q, k, v, valid=token_mask, scale=scale)
             attn = None
@@ -130,6 +143,26 @@ class EncoderBlock(nn.Module):
         return x + z, ln1, attn
 
 
+def _auto_seq_pad(seq_len: int, dtype, train: bool, need_attn: bool, cfg):
+    """128-multiple token padding, once at the embedding, for training
+    forwards where an attention kernel will engage (both kernels pad to a
+    128 multiple inside, so padding once is compute-identical). Inference
+    stays unpadded. A pad that would push T across ``flash_min_t()`` is not
+    made: the gate then decides on the true length."""
+    if not train or need_attn or seq_len % 128 == 0:
+        return None
+    pad_t = round_up(seq_len, 128)
+    min_t = flash_min_t()
+    if seq_len < min_t <= pad_t:
+        return None
+    if seq_len >= min_t:
+        return 128
+    hd = cfg.hidden_dim // cfg.num_heads
+    if fused_attention_supported(seq_len, hd) and attention_train_enabled(dtype):
+        return 128
+    return None
+
+
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
     patch_size: int = 16
@@ -174,13 +207,17 @@ class VisionTransformer(nn.Module):
                 need_attn: bool = True, seq_pad_multiple: Optional[int] = None):
         """``seq_pad_multiple``: pad the token axis once (zeros, masked
         invalid) to this multiple before the encoder and slice once after,
-        so the flash kernel sees an aligned length."""
+        so the flash kernel sees an aligned length. In training it defaults
+        to ``_auto_seq_pad``'s choice."""
         c = self.cfg
         p = c.patch_size
         n, h, w, _ = x.shape
         if h % p or w % p:
             raise ValueError(f"input {h}x{w} not divisible by patch size {p}")
         seq_len = (h // p) * (w // p) + 1
+        if seq_pad_multiple is None:
+            seq_pad_multiple = _auto_seq_pad(seq_len, x.dtype, self.training,
+                                             need_attn, c)
         x = self.patch_embed(x)
         x = torch.cat([self.class_token.expand(n, -1, -1), x], dim=1)
         pos = (override_pos_embedding if override_pos_embedding is not None

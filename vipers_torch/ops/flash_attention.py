@@ -13,6 +13,8 @@ LOST shape the bf16 instance is bound by its operations (158 GFLOP against
 ``flash_attention_fwd`` launches the kernel for CUDA tensors and runs the
 plain version, ``flash_attention_plain``, for CPU tensors; a build or
 launch failure raises. ``LAUNCHES`` counts kernel launches per instance.
+``flash_attention`` is a ``torch.autograd.Function`` whose backward is the
+JAX package's recomputation VJP in plain torch (it is plain XLA there too).
 """
 
 from __future__ import annotations
@@ -126,6 +128,45 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
     return out, lse
 
 
+def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
+    """The JAX package's recomputation VJP (``_flash_vjp_bwd``): f32 scores
+    from the saved lse, ``delta = sum(g * out)``, dq and dk times
+    ``scale``; gradients in the inputs' dtypes. Plain XLA on the TPU too."""
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    if valid is not None:
+        s = torch.where(valid[:, None, None, :], s,
+                        torch.full((), NEG_INF, device=s.device))
+    p = torch.exp(s - lse[..., None])
+    g32 = g.float()
+    dv = torch.matmul(p.transpose(-1, -2), g32)
+    dp = torch.matmul(g32, v.float().transpose(-1, -2))
+    delta = (g32 * out.float()).sum(dim=-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through the kernel (plain version on the CPU), backward by
+    the JAX package's recomputation VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, scale):
+        out, lse = flash_attention_fwd(q, k, v, valid, scale)
+        ctx.save_for_backward(q, k, v, valid, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, valid, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, valid, out, lse, g, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, valid=None, scale: Optional[float] = None):
-    """(B, H, T, 64) attention without materializing (T, T); returns out."""
-    return flash_attention_fwd(q, k, v, valid, scale)[0]
+    """(B, H, T, 64) attention without materializing (T, T) in the forward;
+    returns out, differentiable in q, k and v."""
+    scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
+    return _FlashAttention.apply(q, k, v, valid, scale)

@@ -13,7 +13,9 @@ The LayerNorm affine is folded into the weights in f32 outside the kernel,
 ``W_eff = gamma * W`` and ``b_eff = beta @ W + b``, as the JAX wrapper does.
 ``fused_ln_dense_gelu_core`` launches the kernel for CUDA tensors and runs
 ``fused_ln_dense_gelu_plain`` for CPU tensors; a build or launch failure
-raises. ``LAUNCHES`` counts kernel launches.
+raises. ``LAUNCHES`` counts kernel launches. ``fused_ln_dense_gelu`` is a
+``torch.autograd.Function`` whose backward is the JAX package's recompute
+VJP in plain torch; the gradients reach ln_2 and fc1 through the fold.
 """
 
 from __future__ import annotations
@@ -116,11 +118,52 @@ def fold_ln_affine(ln_scale, ln_bias, kernel, bias, dtype):
     return w_eff.t().contiguous(), b_eff
 
 
+def fused_ln_dense_gelu_bwd(x2d, w_eff_t, b_eff, eps: float, dy):
+    """The JAX package's recompute VJP (``fused_mlp.py`` ``_make_bwd``):
+    xhat again, the tanh-GELU derivative, dW_eff^T, db, and dx through the
+    LayerNorm statistics. Returns (dx, dW_eff^T, db) in the inputs' dtypes."""
+    x = x2d.float()
+    mu = x.mean(dim=1, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=1, keepdim=True) - mu * mu, min=0.0)
+    r = torch.rsqrt(var + eps)
+    xhat = (x - mu) * r
+    xh = xhat.to(w_eff_t.dtype).float()
+    y = torch.matmul(xh, w_eff_t.float().t()) + b_eff.float()
+    t = torch.tanh(_SQRT_2_OVER_PI * (y + 0.044715 * y * y * y))
+    inner_p = _SQRT_2_OVER_PI * (1.0 + 3 * 0.044715 * y * y)
+    dgelu = 0.5 * (1.0 + t) + 0.5 * y * (1.0 - t * t) * inner_p
+    g = dy.float() * dgelu
+    gb = g.to(w_eff_t.dtype).float()
+    dw_t = torch.matmul(gb.t(), xh)
+    db = g.sum(dim=0)
+    dxhat = torch.matmul(gb, w_eff_t.float())
+    m1 = dxhat.mean(dim=1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
+    dx = r * (dxhat - m1 - xhat * m2)
+    return dx.to(x2d.dtype), dw_t.to(w_eff_t.dtype), db.to(b_eff.dtype)
+
+
+class _FusedLnDenseGelu(torch.autograd.Function):
+    """Forward through the kernel (plain version on the CPU), backward by
+    the JAX package's recompute VJP."""
+
+    @staticmethod
+    def forward(ctx, x2d, w_eff_t, b_eff, eps):
+        ctx.save_for_backward(x2d, w_eff_t, b_eff)
+        ctx.eps = eps
+        return fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, w_eff_t, b_eff = ctx.saved_tensors
+        return (*fused_ln_dense_gelu_bwd(x2d, w_eff_t, b_eff, ctx.eps, dy), None)
+
+
 def fused_ln_dense_gelu(x, ln_scale, ln_bias, kernel, bias, *, eps=1e-6):
     """``gelu_tanh(LayerNorm(x; scale, bias) @ kernel + bias)`` in one
     kernel pass over rows; ``x`` is (..., D) bf16, ``kernel`` (D, F) as in
     the JAX package. Returns (..., F)."""
     d = x.shape[-1]
     w_eff_t, b_eff = fold_ln_affine(ln_scale, ln_bias, kernel, bias, x.dtype)
-    out = fused_ln_dense_gelu_core(x.reshape(-1, d), w_eff_t, b_eff, float(eps))
+    out = _FusedLnDenseGelu.apply(x.reshape(-1, d), w_eff_t, b_eff, float(eps))
     return out.reshape(*x.shape[:-1], w_eff_t.shape[0])

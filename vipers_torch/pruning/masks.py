@@ -52,6 +52,20 @@ def apply_masks(params, masks: MaskTree):
     return unflatten_dict(flat)
 
 
+def compute_sparsity_global(params, masks: MaskTree) -> float:
+    """Global % of zero weights over the masked kernels, counted on the
+    effective weight ``where(mask, w, 0)`` (pruned slots plus kept weights
+    that are exactly zero)."""
+    flat = flatten_dict(params)
+    total = zeros = 0
+    for path, mask in masks.items():
+        w = as_tensor(flat[path])
+        w_eff = torch.where(as_tensor(mask).to(torch.bool), w, torch.zeros((), dtype=w.dtype))
+        total += w_eff.numel()
+        zeros += int((w_eff == 0).sum())
+    return 100.0 * zeros / total if total else 0.0
+
+
 def concat_masked_scores(scores: MaskTree):
     """Flatten score tensors into one vector in sorted-path order. Returns
     (vector, layout) with layout = [(path, shape, size)]."""
