@@ -5,33 +5,44 @@ NVIDIA GPU. Run from the repository root:
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: the three CUDA sources of ``vipers_torch/csrc``, one nvcc each,
+  2. build: the five CUDA sources of ``vipers_torch/csrc``, one nvcc each,
      in parallel;
   3. kernels against their plain PyTorch versions at their main path's
-     shapes (flash attention f32 and bf16, fused LN->fc1->GELU bf16, the
-     training attention forward and backward bf16): max error against the
-     stated tolerance, kernel / plain / library times (CUDA events, median),
-     and the bound from the work's FLOPs and bytes;
+     shapes (flash attention f32 and bf16, packed token-major attention f32
+     and bf16, fused LN->fc1->GELU bf16, the training attention forward and
+     backward bf16 and their softmax-precision variants, every splash
+     instance): max error against the stated tolerance (each variant also
+     clearly nearer its own plain version than f32's), kernel / plain /
+     library times (CUDA events, median), and the bound from the work's
+     FLOPs and bytes;
   4. LOST path: full-width ViT-S/16 (12 layers, D=384, 6 heads, mlp 1536)
      from a seeded generator, 50% global magnitude mask, 512x384 uint8
      images, ``make_batched_pipeline`` in f32 and bf16 at B=128 on an
      exact-fit and a mixed-size bucket; the launch counters must show every
      block went through the kernels; B=4 against the same extractor on the
      CPU (plain versions); img/s at B=128 and p50 latency at B=1;
-  5. train path: the masked bf16 train step of full-width ViT-S/16 at
+  5. packed LOST path: the same pipeline on the mixed-size bucket with
+     ``VIPERS_PACKED_ATTENTION=1``: 12 packed and 0 flash launches per
+     forward (and 12 fused MLP in bf16), f32 features within 2e-4 of the
+     default route's scale with equal boxes, bf16 img/s and p50 of both
+     routes;
+  6. train path: the masked bf16 train step of full-width ViT-S/16 at
      224x224 (T=197 seq-padded to 256), 1000 classes, SGD momentum with a
      cosine LR, uint8 images normalized on the card: 12 forward and 12
      backward launches of the training attention kernels per step, finite
      losses, pruned slots unchanged, img/s at B=128, card vs CPU at B=4,
-     one LRR round (train, prune 20% more, bake, reset, train).
+     one LRR round;
+  7. the A/B tools at their shapes: ``vipers_torch.tools.bench_softmax_prec``
+     (the softmax-precision variants) and ``vipers_torch.tools.bench_splash``
+     (the splash instances against the flash kernel), their lines printed.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -147,6 +158,102 @@ def check_fused_mlp(fm, gen):
             "bound_by": by, "library_ms": lib_ms}
 
 
+def check_flash_packed(fa, dtype, gen):
+    """Packed token-major kernel vs plain at the LOST shape: B = 128, T =
+    896, D = 384 in 6 heads, the (B, T, 3D) qkv in head-pair stripes, 769
+    valid keys on every other image. SDPA runs on the unpacked strided
+    views with the bool mask."""
+    b, t, heads, hd = BATCH, 896, 6, 64
+    d = heads * hd
+    qkv = torch.randn(b, t, 3 * d, generator=gen, device="cuda").to(dtype)
+    valid = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    valid[1::2, 769:] = False
+    scale = hd ** -0.5
+    out = fa.flash_attention_packed_fwd(qkv, valid, heads, scale)
+    want = fa.flash_attention_packed_plain(qkv, valid, heads, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
+        tol = "atol 1e-5 rtol 1e-4"
+    else:
+        sc = want.float().abs().max().item()
+        assert err <= 2e-2 * sc, (err, sc)
+        tol = f"2e-2 of output scale {sc:.3g}"
+    ms = cuda_ms(lambda: fa.flash_attention_packed_fwd(qkv, valid, heads, scale))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_packed_plain(qkv, valid, heads, scale),
+                       reps=5)
+    q, k, v = fa._unpack_bhtd(qkv, heads)
+    amask = valid[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask))
+    flops = 4 * b * heads * t * t * hd
+    nbytes = (qkv.numel() + out.numel()) * qkv.element_size() + valid.numel()
+    bms, by = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    name = f"flash_attention_packed[{'f32' if dtype == torch.float32 else 'bf16'}]"
+    print(f"{name} max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+          f"sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.0f} MB)")
+    return {"name": name, "route": "cuda",
+            "source": "vipers_torch/csrc/flash_attention_packed.cu",
+            "replaces": "vipers/ops/flash_attention.py:358",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def scaled_err(got, ref, frac=2e-2):
+    """Max abs error of ``got`` against ``ref``, asserted within ``frac`` of
+    ``ref``'s scale (its max abs); returns (error, scale)."""
+    sc = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= frac * sc, (err, sc)
+    return err, sc
+
+
+def own_variant(got, want, want_f32):
+    """A softmax variant differs from f32 by less than 2e-2 of the output's
+    scale, so the tolerance alone would pass an instance that computed f32.
+    This asserts that ``got`` is clearly its own variant: its mean distance
+    from the variant's plain version ``want`` is at most half the distance
+    from ``want`` to f32's plain version ``want_f32`` (so it also lies
+    farther from ``want_f32`` than from ``want``). Returns that ratio."""
+    gap = (want.float() - want_f32.float()).abs().mean().item()
+    ratio = (got.float() - want.float()).abs().mean().item() / gap if gap else float("inf")
+    assert ratio <= 0.5, (ratio, gap)
+    return ratio
+
+
+def attention_rows(checks):
+    """Print one line and make one row of the kernels JSON for each
+    (name, ms, plain ms, library ms, flops, bytes, error, tolerance text,
+    replaces) of a bf16 attention kernel check."""
+    rows = []
+    for name, ms, plain, lib, flops, nbytes, err, tol, rep in checks:
+        bms, by = bound(flops, nbytes, PEAK_BF16)
+        lib_name = "sdpa" if "fwd" in name else "sdpa-backward"
+        print(f"{name} max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms plain {plain:.3f} ms "
+              f"{lib_name} {lib:.3f} ms bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.0f} MB)")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "vipers_torch/csrc/attention_train.cu", "replaces": rep,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                     "bound_by": by, "library_ms": lib})
+    return rows
+
+
+def sdpa_bwd_ms(q, k, v, cot, amask):
+    """Median ms of ``torch.autograd.grad`` of SDPA alone (retained graph)."""
+    lq, lk, lv = (z.detach().clone().requires_grad_(True) for z in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)
+    return cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), cot, retain_graph=True))
+
+
+def attention_work(b, h, t, hd, valid):
+    """(flops, bytes) of the training attention forward and backward."""
+    n, lse_bytes = b * h * t * hd, b * h * t * 4
+    return ((4 * b * h * t * t * hd, 4 * n * 2 + lse_bytes + valid.numel()),
+            (10 * b * h * t * t * hd, 8 * n * 2 + lse_bytes + valid.numel()))
+
+
 def check_attention_train(at, gen):
     """Training attention kernels vs plain at the train shape: B*H = 128*6,
     T = 256 (197 tokens seq-padded; on every other image a ragged run of pad
@@ -167,16 +274,9 @@ def check_attention_train(at, gen):
     want_g = at.attention_train_bwd_plain(q, k, v, out, lse, cot, valid, scale)
     torch.cuda.synchronize()
 
-    def err_of(got, ref):
-        scale_ = ref.float().abs().max().item()
-        err = (got.float() - ref.float()).abs().max().item()
-        assert err <= 2e-2 * scale_, (err, scale_)
-        return err, scale_
-
-    fwd_err, fwd_scale = err_of(out, want)
-    lse_err = (lse - want_lse).abs().max().item()
-    assert lse_err <= 2e-2 * want_lse.abs().max().item(), lse_err
-    bwd = [err_of(dqkv[i], want_g[i]) for i in range(3)]
+    fwd_err, fwd_scale = scaled_err(out, want)
+    lse_err, _ = scaled_err(lse, want_lse)
+    bwd = [scaled_err(dqkv[i], want_g[i]) for i in range(3)]
     bwd_err = max(e / sc for e, sc in bwd)
 
     dbuf = dqkv.unbind(0)
@@ -188,34 +288,104 @@ def check_attention_train(at, gen):
                                                     out=dbuf))
     bwd_plain = cuda_ms(lambda: at.attention_train_bwd_plain(q, k, v, out, lse, cot, valid,
                                                              scale), reps=5)
-    lq, lk, lv = (z.detach().clone().requires_grad_(True) for z in (q, k, v))
-    lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)
-    bwd_lib = cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), cot, retain_graph=True))
+    bwd_lib = sdpa_bwd_ms(q, k, v, cot, amask)
 
-    elt = 2
-    n = b * h * t * hd
-    fwd_flops = 4 * b * h * t * t * hd
-    fwd_bytes = 4 * n * elt + lse.numel() * 4 + valid.numel()
-    bwd_flops = 10 * b * h * t * t * hd
-    bwd_bytes = 8 * n * elt + lse.numel() * 4 + valid.numel()
+    (fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes) = attention_work(b, h, t, hd, valid)
+    return attention_rows((
+        ("attention_train_fwd[bf16]", fwd_ms, fwd_plain, fwd_lib, fwd_flops, fwd_bytes,
+         fwd_err, f"2e-2 of output scale {fwd_scale:.3g}; lse {lse_err:.2e}",
+         "vipers/ops/attention_train.py:276"),
+        ("attention_train_bwd[bf16]", bwd_ms, bwd_plain, bwd_lib, bwd_flops, bwd_bytes,
+         max(e for e, _ in bwd), "2e-2 of each of dq, dk, dv's scale "
+         f"({', '.join(f'{sc:.3g}' for _, sc in bwd)}); worst {bwd_err:.2e} of it",
+         "vipers/ops/attention_train.py:294")))
+
+
+def check_softmax_variants(at, gen):
+    """The softmax-precision instances of the training kernels (the A/B
+    tool's bf16exp and normP forward, bf16exp backward; normP's backward is
+    f32's) vs their plain versions at the tool's shape: (128, 6, 256, 64)
+    bf16, all keys valid. Each is within 2e-2 of its output's scale and
+    clearly its own variant, not f32 (``own_variant``); the backward runs on
+    the bf16exp forward's residuals."""
+    b, h, t, hd = TRAIN_BATCH, 6, 256, 64
+    q, k, v, cot = (torch.randn(b, h, t, hd, generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(4))
+    valid = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    scale = hd ** -0.5
+    amask = valid[:, None, None, :]
+    (fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes) = attention_work(b, h, t, hd, valid)
+    fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask))
+    want_f32, _ = at.attention_train_fwd_plain(q, k, v, valid, scale)
+    checks = []
+    for variant in ("bf16exp", "normP"):
+        out, lse = at.attention_train_fwd(q, k, v, valid, scale, variant=variant)
+        want, want_lse = at.attention_train_fwd_plain(q, k, v, valid, scale, variant)
+        torch.cuda.synchronize()
+        err, sc = scaled_err(out, want)
+        lse_err, _ = scaled_err(lse, want_lse)
+        ratio = own_variant(out, want, want_f32)
+        ms = cuda_ms(lambda: at.attention_train_fwd(q, k, v, valid, scale, variant=variant))
+        plain = cuda_ms(lambda: at.attention_train_fwd_plain(q, k, v, valid, scale, variant),
+                        reps=5)
+        checks.append((f"attention_train_fwd[{variant}]", ms, plain, fwd_lib, fwd_flops,
+                       fwd_bytes, err, f"2e-2 of output scale {sc:.3g}; lse {lse_err:.2e}; "
+                       f"own variant: {ratio:.3f} of its gap to f32",
+                       "tools/bench_softmax_prec.py:124"))
+
+    out, lse = at.attention_train_fwd(q, k, v, valid, scale, variant="bf16exp")
+    grads = at.attention_train_bwd(q, k, v, out, lse, cot, valid, scale, variant="bf16exp")
+    want = at.attention_train_bwd_plain(q, k, v, out, lse, cot, valid, scale, "bf16exp")
+    want_f32 = at.attention_train_bwd_plain(q, k, v, out, lse, cot, valid, scale)
+    torch.cuda.synchronize()
+    bwd = [scaled_err(g, w) for g, w in zip(grads, want)]
+    ratios = [own_variant(g, w, w32) for g, w, w32 in zip(grads, want, want_f32)]
+    ms = cuda_ms(lambda: at.attention_train_bwd(q, k, v, out, lse, cot, valid, scale,
+                                                variant="bf16exp"))
+    plain = cuda_ms(lambda: at.attention_train_bwd_plain(q, k, v, out, lse, cot, valid, scale,
+                                                         "bf16exp"), reps=5)
+    checks.append(("attention_train_bwd[bf16exp]", ms, plain, sdpa_bwd_ms(q, k, v, cot, amask),
+                   bwd_flops, bwd_bytes, max(e for e, _ in bwd),
+                   "2e-2 of each of dq, dk, dv's scale "
+                   f"({', '.join(f'{sc:.3g}' for _, sc in bwd)}); own variant: "
+                   f"{', '.join(f'{r:.3f}' for r in ratios)} of their gaps to f32",
+                   "tools/bench_softmax_prec.py:137"))
+    return attention_rows(checks)
+
+
+def check_splash(sa, gen):
+    """Every splash instance vs plain at the A/B's shape: (32, 6, 896, 64)
+    bf16, q pre-scaled, K head-dim-minor or seq-minor (a transposed copy).
+    SDPA runs without a mask on the same q, k, v with scale 1."""
+    b, h, t, hd = 32, 6, 896, 64
+    q, k, v = (torch.randn(b, h, t, hd, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    q = (q * hd ** -0.5).to(torch.bfloat16)
+    k_of = {"head_dim_minor": k, "seq_minor": k.transpose(-1, -2).contiguous()}
+    want = sa.splash_attention_plain(q, k, v)
+    sc = want.float().abs().max().item()
+    plain_ms = cuda_ms(lambda: sa.splash_attention_plain(q, k, v), reps=5)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    flops = 4 * b * h * t * t * hd
+    nbytes = 4 * q.numel() * q.element_size()
+    bms, by = bound(flops, nbytes, PEAK_BF16)
     rows = []
-    for name, ms, plain, lib, flops, nbytes, err, tol, rep in (
-            ("attention_train_fwd[bf16]", fwd_ms, fwd_plain, fwd_lib, fwd_flops, fwd_bytes,
-             fwd_err, f"2e-2 of output scale {fwd_scale:.3g}; lse {lse_err:.2e}",
-             "vipers/ops/attention_train.py:276"),
-            ("attention_train_bwd[bf16]", bwd_ms, bwd_plain, bwd_lib, bwd_flops, bwd_bytes,
-             max(e for e, _ in bwd), "2e-2 of each of dq, dk, dv's scale "
-             f"({', '.join(f'{sc:.3g}' for _, sc in bwd)}); worst {bwd_err:.2e} of it",
-             "vipers/ops/attention_train.py:294")):
-        bms, by = bound(flops, nbytes, PEAK_BF16)
-        lib_name = "sdpa" if "fwd" in name else "sdpa-backward"
-        print(f"{name} max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms plain {plain:.3f} ms "
-              f"{lib_name} {lib:.3f} ms bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
-              f"{nbytes / 1e6:.0f} MB)")
+    for bq, bkv, layout in sa.INSTANCES:
+        kk = k_of[layout]
+        out = sa.splash_attention(q, kk, v, bq, bkv, layout)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * sc, (bq, bkv, layout, err, sc)
+        ms = cuda_ms(lambda: sa.splash_attention(q, kk, v, bq, bkv, layout))
+        name = f"splash_attention[{sa.instance_name(bq, bkv, layout)}]"
+        print(f"{name} max_abs_err {err:.3e} (2e-2 of output scale {sc:.3g}) kernel {ms:.3f} ms "
+              f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
         rows.append({"name": name, "route": "cuda",
-                     "source": "vipers_torch/csrc/attention_train.cu", "replaces": rep,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                     "bound_by": by, "library_ms": lib})
+                     "source": "vipers_torch/csrc/splash_attention.cu",
+                     "replaces": "tools/bench_splash.py:79",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": lib_ms})
     return rows
 
 
@@ -267,6 +437,102 @@ def reset_counts(*counters):
     for counts in counters:
         for key in counts:
             counts[key] = 0
+
+
+def throughput(pipe, inp, one):
+    """img/s of ``pipe`` on the batch ``inp`` (3 calls after one warm-up,
+    host clock to the boxes on the host) and its p50 ms on the one-image
+    batch ``one`` (20 calls after 3)."""
+    pipe(*inp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        out = pipe(*inp)
+    out[0].cpu()
+    ips = 3 * inp[0].shape[0] / (time.perf_counter() - t0)
+    lats = []
+    for _ in range(23):
+        t0 = time.perf_counter()
+        pipe(*one)[0].cpu()
+        lats.append(1e3 * (time.perf_counter() - t0))
+    return ips, statistics.median(lats[3:])
+
+
+def packed_lost_phase(card, spec, extractors, imgs, hw, default_outs, lost_core):
+    """The LOST pipeline on the mixed-size bucket with
+    VIPERS_PACKED_ATTENTION=1: launches per forward (12 packed, 0 flash, 12
+    fused MLP in bf16), f32 features and boxes against the default route's,
+    bf16 img/s and p50 of both routes, measured here in turns. Returns the
+    packed launches of the counted forwards."""
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+
+    layers = spec.cfg.num_layers
+    inputs = {e: ex.prepare_batch(imgs, PATCH, exact_hw=hw) for e, ex in extractors.items()}
+    default_feats = extractors["f32"].batched_features(*inputs["f32"]).float()
+    pipes = {e: ex.make_batched_pipeline(K_PATCHES) for e, ex in extractors.items()}
+    os.environ["VIPERS_PACKED_ATTENTION"] = "1"
+    try:
+        torch.cuda.synchronize()
+        reset_counts(fa.LAUNCHES, fa.PACKED_LAUNCHES, fm.LAUNCHES)
+        outs = {e: pipes[e](*inputs[e]) for e in extractors}
+        torch.cuda.synchronize()
+        launches = {"flash_attention_packed[f32]": fa.PACKED_LAUNCHES["float32"],
+                    "flash_attention_packed[bf16]": fa.PACKED_LAUNCHES["bfloat16"],
+                    "flash": sum(fa.LAUNCHES.values()), "fused_mlp": fm.LAUNCHES["bfloat16"]}
+        print(f"packed LOST path launches (f32 and bf16 forward, {layers} blocks each): "
+              f"{launches}")
+        assert launches == {"flash_attention_packed[f32]": layers,
+                            "flash_attention_packed[bf16]": layers,
+                            "flash": 0, "fused_mlp": layers}, launches
+        feats = extractors["f32"].batched_features(*inputs["f32"]).float()
+        one = extractors["bf16"].prepare_batch(imgs[:1], PATCH, exact_hw=hw[:1])
+        packed_ips, packed_p50 = throughput(pipes["bf16"], inputs["bf16"], one)
+    finally:
+        del os.environ["VIPERS_PACKED_ATTENTION"]
+    default_ips, default_p50 = throughput(pipes["bf16"], inputs["bf16"], one)
+
+    sc = default_feats.abs().max().item()
+    ferr = (feats - default_feats).abs().max().item()
+    box, seed, bg = (z.cpu() for z in outs["f32"])
+    dbox, dseed, dbg = (z.cpu() for z in default_outs)
+    same_seed = seed == dseed
+    scores = lost_core(default_feats, inputs["f32"][3], (H // PATCH, W // PATCH),
+                       K_PATCHES)["scores"].cpu()
+    for i in range(BATCH):
+        if same_seed[i]:
+            assert bool((box[i] == dbox[i]).all()) and bg[i] == dbg[i], (i, box[i], dbox[i])
+        else:  # a tie at the top score, broken the same way only by chance
+            assert scores[i, seed[i]] == scores[i, dseed[i]] == scores[i].max(), i
+    print(f"packed vs default route [f32, mixed] features max_abs_err {ferr:.3e} "
+          f"(tol 2e-4 of scale {sc:.3g}); seeds equal {int(same_seed.sum())}/{BATCH}, boxes "
+          f"equal {int((box == dbox).all(dim=1).sum())}/{BATCH}")
+    assert ferr <= 2e-4 * sc, (ferr, sc)
+    print(f"throughput [bf16, mixed] packed route {packed_ips:.1f} img/s, p50 {packed_p50:.2f} ms; "
+          f"default route {default_ips:.1f} img/s, p50 {default_p50:.2f} ms at B={BATCH} / "
+          f"B=1 ({card})")
+    return launches
+
+
+def tools_phase(counters):
+    """Both A/B tools' ``main()`` at their shapes, each with the launch
+    counts set to 0 just before it and read just after."""
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import splash_attention as sa
+    from vipers_torch.tools import bench_softmax_prec, bench_splash
+
+    reset_counts(*counters)
+    bench_softmax_prec.main([])
+    torch.cuda.synchronize()
+    launches = {f"attention_train_{k[:3]}[{k[4:-1]}]": n for k, n in at.LAUNCHES.items()
+                if "[" in k}
+    reset_counts(*counters)
+    bench_splash.main([])
+    torch.cuda.synchronize()
+    launches.update({f"splash_attention[{k}]": n for k, n in sa.LAUNCHES.items()})
+    print(f"A/B tools' launches: {launches}")
+    assert all(launches.values()), launches
+    return launches
 
 
 def train_phase(card, counters):
@@ -392,6 +658,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from vipers_torch.core.device import card_line
     from vipers_torch.core.registry import build_model
     from vipers_torch.discovery.driver import LostFeatureExtractor
     from vipers_torch.discovery.lost import lost_core
@@ -399,13 +666,12 @@ def main():
     from vipers_torch.ops import attention_train as at
     from vipers_torch.ops import flash_attention as fa
     from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.ops import splash_attention as sa
     from vipers_torch.pruning import init_masks, magnitude_prune
 
     t_start = time.time()
     # 1. card
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], check=True, capture_output=True,
-                          text=True).stdout.strip().splitlines()[0]
+    card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
@@ -413,18 +679,21 @@ def main():
 
     # 2. build
     t0 = time.time()
-    logs = _build.build(["flash_attention_fwd", "fused_mlp", "attention_train"],
-                        ptxas_verbose=True)
+    logs = _build.build(["flash_attention_fwd", "flash_attention_packed", "fused_mlp",
+                         "attention_train", "splash_attention"], ptxas_verbose=True)
     print(f"build {time.time() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # 3. kernels against their plain versions at the main path's shapes
+    # 3. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_flash(fa, torch.float32, gen), check_flash(fa, torch.bfloat16, gen),
-               check_fused_mlp(fm, gen), *check_attention_train(at, gen)]
+               check_flash_packed(fa, torch.float32, gen),
+               check_flash_packed(fa, torch.bfloat16, gen),
+               check_fused_mlp(fm, gen), *check_attention_train(at, gen),
+               *check_softmax_variants(at, gen), *check_splash(sa, gen)]
 
     # 4. main path
     t0 = time.time()
@@ -451,7 +720,7 @@ def main():
     pipes = {e: ex.make_batched_pipeline(K_PATCHES) for e, ex in extractors.items()}
     torch.cuda.synchronize()
 
-    counters = (fa.LAUNCHES, fm.LAUNCHES, at.LAUNCHES)
+    counters = (fa.LAUNCHES, fa.PACKED_LAUNCHES, fm.LAUNCHES, at.LAUNCHES, sa.LAUNCHES)
     reset_counts(*counters)
     outs = {key: pipes[key[0]](*inp) for key, inp in inputs.items()}
     torch.cuda.synchronize()
@@ -459,7 +728,8 @@ def main():
                 "flash_attention_fwd[bf16]": fa.LAUNCHES["bfloat16"],
                 "fused_ln_fc1_gelu[bf16]": fm.LAUNCHES["bfloat16"]}
     print(f"LOST path launches (4 forwards, 12 blocks each): {launches}")
-    assert at.LAUNCHES == {"fwd": 0, "bwd": 0}, at.LAUNCHES
+    assert not any(at.LAUNCHES.values()), at.LAUNCHES
+    assert not any(fa.PACKED_LAUNCHES.values()), fa.PACKED_LAUNCHES
     layers = spec.cfg.num_layers
     assert launches == {"flash_attention_fwd[f32]": 2 * layers,
                         "flash_attention_fwd[bf16]": 2 * layers,
@@ -487,27 +757,22 @@ def main():
 
     # throughput at B=128 (exact bucket) and p50 latency at B=1, bf16 and f32
     for e, ex in extractors.items():
-        inp = inputs[e, "exact"]
-        pipes[e](*inp)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            out = pipes[e](*inp)
-        out[0].cpu()
-        ips = 3 * BATCH / (time.perf_counter() - t0)
         one = ex.prepare_batch(buckets["exact"][0][:1], PATCH, exact_hw=exact_hw[:1])
-        lats = []
-        for _ in range(23):
-            t0 = time.perf_counter()
-            pipes[e](*one)[0].cpu()
-            lats.append(1e3 * (time.perf_counter() - t0))
+        ips, p50 = throughput(pipes[e], inputs[e, "exact"], one)
         print(f"throughput [{e}] {ips:.1f} img/s at B={BATCH}; p50 latency "
-              f"{statistics.median(lats[3:]):.2f} ms at B=1 ({card})")
+              f"{p50:.2f} ms at B=1 ({card})")
 
-    # 5. train path
+    # 5. packed LOST path
+    launches.update(packed_lost_phase(card, spec, extractors, *buckets["mixed"],
+                                      outs["f32", "mixed"], lost_core))
+
+    # 6. train path
     tl = train_phase(card, counters)
     launches.update({"attention_train_fwd[bf16]": tl["fwd"],
                      "attention_train_bwd[bf16]": tl["bwd"]})
+
+    # 7. the A/B tools
+    launches.update(tools_phase(counters))
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

@@ -158,3 +158,117 @@ def test_fused_mlp_gradient_through_kernel(cuda):
     assert tfm.LAUNCHES["bfloat16"] == n0 + 1
     for a, c in zip(got, run(False)):
         _close_to_scale(a, c)
+
+
+def _packed_inputs(b, t, heads, dtype, dev, seed):
+    """Packed (B, T, 3D) qkv and a key mask with a ragged tail of pad keys
+    on every other image."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qkv = torch.randn(b, t, 3 * heads * 64, generator=g).to(dev, dtype)
+    cot = torch.randn(b, t, heads * 64, generator=g).to(dev, dtype)
+    valid = torch.ones(b, t, dtype=torch.bool)
+    valid[1::2, t - t // 7:] = False
+    return qkv, cot, valid.to(dev)
+
+
+@pytest.mark.parametrize("dtype,frac", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [896, 577])
+def test_packed_kernel_matches_plain(cuda, dtype, frac, t):
+    """The packed token-major kernel against its plain version, forward and
+    the gradient through the autograd Function against autograd through
+    the plain version (T = 577 pads to 640 inside the wrapper)."""
+    qkv, cot, valid = _packed_inputs(3, t, 6, dtype, cuda, seed=t)
+    key = str(dtype)[6:]
+    n0 = tfa.PACKED_LAUNCHES[key]
+    out = tfa.flash_attention_packed_fwd(qkv, valid, 6, 0.125)
+    torch.cuda.synchronize()
+    assert tfa.PACKED_LAUNCHES[key] == n0 + 1
+    _close_to_scale(out, tfa.flash_attention_packed_plain(qkv, valid, 6, 0.125), frac)
+
+    x = qkv.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(tfa.flash_attention_packed(x, valid, num_heads=6), x, cot)
+    xr = qkv.clone().requires_grad_(True)
+    ref = tfa.flash_attention_packed_plain(xr, valid, 6, 0.125)
+    (want,) = torch.autograd.grad(ref, xr, cot)
+    _close_to_scale(got, want, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+def _own_variant(got, want, want_f32):
+    """``got`` is its variant's result and not f32's (which lies within the
+    2e-2 tolerance): its mean distance from the variant's plain version is
+    at most half the distance from that to f32's plain version."""
+    gap = (want.float() - want_f32.float()).abs().mean().item()
+    err = (got.float() - want.float()).abs().mean().item()
+    assert gap > 0 and err <= 0.5 * gap, (err, gap)
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16exp", "normP"])
+def test_softmax_variants_match_plain(cuda, variant):
+    """Each softmax-precision instance of the training kernels against its
+    plain version (normP's backward is f32's), bf16 at 2e-2 of each output's
+    scale, with a ragged key mask; bf16exp and normP are also clearly their
+    own variant, not f32."""
+    from vipers_torch.ops import attention_train as tat
+
+    qkv, cot, valid = _attention_train_inputs(4, 3, 256, cuda, seed=11)
+    q, k, v = qkv.unbind(0)
+    bwd_variant = "f32" if variant == "normP" else variant
+    n0 = dict(tat.LAUNCHES)
+    o, lse = tat.attention_train_fwd(q, k, v, valid, 0.125, variant=variant)
+    grads = tat.attention_train_bwd(q, k, v, o, lse, cot, valid, 0.125, variant=bwd_variant)
+    torch.cuda.synchronize()
+    fkey = "fwd" if variant == "f32" else f"fwd[{variant}]"
+    bkey = "bwd" if bwd_variant == "f32" else f"bwd[{bwd_variant}]"
+    assert tat.LAUNCHES[fkey] == n0[fkey] + 1 and tat.LAUNCHES[bkey] == n0[bkey] + 1
+    want_o, want_lse = tat.attention_train_fwd_plain(q, k, v, valid, 0.125, variant)
+    _close_to_scale(o, want_o)
+    _close_to_scale(lse, want_lse)
+    want = tat.attention_train_bwd_plain(q, k, v, o, lse, cot, valid, 0.125, bwd_variant)
+    for a, c in zip(grads, want):
+        _close_to_scale(a, c)
+    if variant != "f32":
+        _own_variant(o, want_o, tat.attention_train_fwd_plain(q, k, v, valid, 0.125)[0])
+    if bwd_variant != "f32":
+        want_f32 = tat.attention_train_bwd_plain(q, k, v, o, lse, cot, valid, 0.125)
+        for a, c, c32 in zip(grads, want, want_f32):
+            _own_variant(a, c, c32)
+
+
+@pytest.mark.parametrize("variant", ["bf16exp", "normP"])
+def test_own_variant_rejects_the_f32_instance(cuda, variant):
+    """The own-variant check fails the f32 instance held against a
+    variant's plain version, as it would fail a variant's launch that
+    computed f32 (which the 2e-2 tolerance alone lets through)."""
+    from vipers_torch.ops import attention_train as tat
+
+    qkv, cot, valid = _attention_train_inputs(4, 3, 256, cuda, seed=11)
+    q, k, v = qkv.unbind(0)
+    o, lse = tat.attention_train_fwd(q, k, v, valid, 0.125)
+    want = tat.attention_train_fwd_plain(q, k, v, valid, 0.125, variant)[0]
+    _close_to_scale(o, want)
+    with pytest.raises(AssertionError):
+        _own_variant(o, want, tat.attention_train_fwd_plain(q, k, v, valid, 0.125)[0])
+    if variant == "bf16exp":
+        grads = tat.attention_train_bwd(q, k, v, o, lse, cot, valid, 0.125)
+        want = tat.attention_train_bwd_plain(q, k, v, o, lse, cot, valid, 0.125, variant)
+        want_f32 = tat.attention_train_bwd_plain(q, k, v, o, lse, cot, valid, 0.125)
+        for a, c, c32 in zip(grads, want, want_f32):
+            with pytest.raises(AssertionError):
+                _own_variant(a, c, c32)
+
+
+@pytest.mark.parametrize("layout", ["head_dim_minor", "seq_minor"])
+@pytest.mark.parametrize("block_q,block_kv", [(64, 64), (64, 128), (128, 64), (128, 128)])
+def test_splash_instances_match_plain(cuda, block_q, block_kv, layout):
+    from vipers_torch.ops import splash_attention as tsa
+
+    q, k, v = _qkv(2, 3, 384, torch.bfloat16, cuda, seed=block_q + block_kv)
+    q = (q * 0.125).to(torch.bfloat16)
+    kk = k.transpose(-1, -2).contiguous() if layout == "seq_minor" else k
+    name = tsa.instance_name(block_q, block_kv, layout)
+    n0 = tsa.LAUNCHES[name]
+    out = tsa.splash_attention(q, kk, v, block_q, block_kv, layout)
+    torch.cuda.synchronize()
+    assert tsa.LAUNCHES[name] == n0 + 1
+    _close_to_scale(out, tsa.splash_attention_plain(q, k, v))

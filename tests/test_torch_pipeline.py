@@ -7,7 +7,9 @@ integer degree counts, so a seed may legitimately differ only inside a tie
 at the top score (as in tests/test_reference_parity.py); then both seeds
 must hold the maximal score. The small config (2 layers, D=128, 2 heads of
 64, mlp 256) reaches the seq-pad/flash route once both packages' flash
-threshold is lowered to 16 tokens.
+threshold is lowered to 16 tokens (``VIPERS_FLASH_MIN_T``, which both read
+at call time), and the packed token-major route with
+``VIPERS_PACKED_ATTENTION=1`` besides.
 """
 
 import importlib
@@ -19,7 +21,6 @@ import pytest
 
 import vipers.models.vit as jvit
 import vipers_torch.models.vit as tvit
-import vipers_torch.ops.flash_attention as tfa
 from vipers.pruning import init_masks, magnitude_prune
 from vipers_torch.discovery.driver import LostFeatureExtractor
 from vipers_torch.discovery.lost import lost_core
@@ -66,14 +67,23 @@ BUCKETS = {
 }
 
 
-@pytest.mark.parametrize("bucket,flash", [("exact", True), ("masked", True),
-                                          ("masked", False)],
-                         ids=["exact-flash", "masked-flash", "masked-einsum"])
-def test_batched_pipeline_matches_jax(model, monkeypatch, bucket, flash):
+@pytest.mark.parametrize("bucket,flash,packed", [("exact", True, False),
+                                                 ("masked", True, False),
+                                                 ("masked", False, False),
+                                                 ("masked", True, True)],
+                         ids=["exact-flash", "masked-flash", "masked-einsum",
+                              "masked-packed"])
+def test_batched_pipeline_matches_jax(model, monkeypatch, bucket, flash, packed):
     spec, variables, masks, tspec, params, tmasks = model
+    monkeypatch.delenv("VIPERS_PACKED_ATTENTION", raising=False)
     if flash:
         monkeypatch.setenv("VIPERS_FLASH_MIN_T", "16")
-        monkeypatch.setattr(tfa, "FLASH_MIN_T", 16)
+    if packed:
+        monkeypatch.setenv("VIPERS_PACKED_ATTENTION", "1")
+        calls = []
+        real = tvit.flash_attention_packed
+        monkeypatch.setattr(tvit, "flash_attention_packed",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
     exact_hw = BUCKETS[bucket]
     imgs = _images(exact_hw, seed=len(bucket))
 
@@ -85,6 +95,8 @@ def test_batched_pipeline_matches_jax(model, monkeypatch, bucket, flash):
     tin = tex.prepare_batch(imgs, 16, exact_hw=exact_hw)
     assert (tin[2] is None) == (bucket == "exact") and (tin[4] is None) == (bucket == "exact")
     tbox, tseed, tbg = (z.numpy() for z in tex.make_batched_pipeline(k_patches=K)(*tin))
+    if packed:  # one call per block of the port's forward
+        assert len(calls) == CFG["num_layers"]
 
     np.testing.assert_array_equal(tbg, jbg)
     feats = tex.batched_features(*tin)

@@ -13,7 +13,6 @@ import vipers.models.vit as jvit
 import vipers.ops.tokens as jtok
 import vipers_torch.models.interpolate as tinterp
 import vipers_torch.models.vit as tvit
-import vipers_torch.ops.flash_attention as tfa
 import vipers_torch.ops.tokens as ttok
 from vipers_torch.core.checkpoint import vit_state_dict_from_flax
 from vipers_torch.core.registry import build_model
@@ -58,7 +57,6 @@ def test_forward_matches_jax_f32(models, monkeypatch, mode):
     if mode == "seq-pad-flash":
         # lower both packages' threshold so the padded flash route runs
         monkeypatch.setenv("VIPERS_FLASH_MIN_T", "16")
-        monkeypatch.setattr(tfa, "FLASH_MIN_T", 16)
         kw_j["seq_pad_multiple"] = kw_t["seq_pad_multiple"] = 128
     logits_j, aux_j = jspec.module.apply(variables, jnp.asarray(x), train=False,
                                          need_attn=need_attn, **kw_j)

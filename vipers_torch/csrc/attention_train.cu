@@ -38,6 +38,19 @@
 // bf16(dQ * scale) instead. D, lse and the key mask of the whole row sit in
 // shared memory from a prologue.
 //
+// Softmax-precision variants (the TPU's tools/bench_softmax_prec.py fwd
+// :124 and bwd :137, bodies fwd_kernel :38 and bwd_kernel :75), a template
+// parameter of both kernels; the model path runs F32 only:
+//   F32:     the arithmetic above (the train kernels, instruction for
+//            instruction);
+//   BF16EXP: p = exp(bf16(s - m)) evaluated on bf16 pairs (h2exp), l summed
+//            in f32 from the bf16 p; the backward's p = exp(bf16(s - lse))
+//            stays bf16 into both dV and dS = bf16((dP - D) * p);
+//   NORMP:   forward only, p / l rounded to bf16 before P.V and no division
+//            after. It needs l before the P.V pass, so pass 1 carries l
+//            online next to the row max (rescaled on a new max), which
+//            differs from the exact sum by f32 rounding only.
+//
 // Bound on the card: at the ViT-S/16 train shape (B*H = 768, T = 256,
 // bf16) the forward does 12.9 GFLOP on ~101 MB of I/O and the backward
 // 32.2 GFLOP on ~202 MB, so both are bound by bytes (0.030 and 0.060 ms at
@@ -151,6 +164,15 @@ struct FwdSmem {
   float ok[MAX_T];    // key mask of this batch row
 };
 
+enum FwdVariant { FWD_F32 = 0, FWD_BF16EXP = 1, FWD_NORMP = 2 };
+enum BwdVariant { BWD_F32 = 0, BWD_BF16EXP = 1 };
+
+// exp(bf16(a)), exp(bf16(b)) on one bf16 pair, back in f32
+__device__ __forceinline__ float2 exp_bf16x2(float a, float b) {
+  return __bfloat1622float2(h2exp(__floats2bfloat162_rn(a, b)));
+}
+
+template <int VARIANT>
 __global__ void __launch_bounds__(THREADS)
 attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v,
@@ -177,37 +199,70 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int n_kt = t / TILE;
   float sc[TILE / 8][4];
 
-  // pass 1: the exact row max over all keys (rows g and g+8 of the warp)
+  // pass 1: the exact row max over all keys (rows g and g+8 of the warp);
+  // NORMP also carries this thread's share of l against its running max
   float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();  // previous tile's readers are done
     load_rows(s.k, k + base + (size_t)k0 * HD, tid);
     __syncthreads();
     mma_16x64(sc, qa, s.k, g, tg);
+    float mt0 = m0, mt1 = m1;
 #pragma unroll
     for (int nt = 0; nt < TILE / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool ok = s.ok[k0 + nt * 8 + tg * 2 + e] != 0.f;
-        m0 = fmaxf(m0, ok ? sc[nt][e] : NEG);
-        m1 = fmaxf(m1, ok ? sc[nt][e + 2] : NEG);
+        if (VARIANT == FWD_NORMP) {
+          sc[nt][e] = ok ? sc[nt][e] : NEG;
+          sc[nt][e + 2] = ok ? sc[nt][e + 2] : NEG;
+        }
+        mt0 = fmaxf(mt0, ok ? sc[nt][e] : NEG);
+        mt1 = fmaxf(mt1, ok ? sc[nt][e + 2] : NEG);
       }
     }
+    if (VARIANT == FWD_NORMP) {
+      l0 *= expf(m0 - mt0);
+      l1 *= expf(m1 - mt1);
+#pragma unroll
+      for (int nt = 0; nt < TILE / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          l0 += expf(sc[nt][e] - mt0);
+          l1 += expf(sc[nt][e + 2] - mt1);
+        }
+      }
+    }
+    m0 = mt0;
+    m1 = mt1;
   }
+  float mq0 = m0, mq1 = m1;
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a quad share a row
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    mq0 = fmaxf(mq0, __shfl_xor_sync(0xffffffffu, mq0, off));
+    mq1 = fmaxf(mq1, __shfl_xor_sync(0xffffffffu, mq1, off));
   }
+  if (VARIANT == FWD_NORMP) {
+    l0 *= expf(m0 - mq0);
+    l1 *= expf(m1 - mq1);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+  }
+  m0 = mq0;
+  m1 = mq1;
 
-  // pass 2: p = exp(s - m), l = sum p, acc = bf16(p) . V
+  // pass 2: p = exp(s - m), l = sum p, acc = bf16(p) . V (NORMP:
+  // acc = bf16(p / l) . V)
   float acc[HD / 8][4];
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
@@ -217,31 +272,55 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     mma_16x64(sc, qa, s.k, g, tg);
 #pragma unroll
     for (int nt = 0; nt < TILE / 8; ++nt) {
+      if (VARIANT == FWD_BF16EXP) {
+        const bool ok0 = s.ok[k0 + nt * 8 + tg * 2] != 0.f;
+        const bool ok1 = s.ok[k0 + nt * 8 + tg * 2 + 1] != 0.f;
+        const float2 p0 = exp_bf16x2((ok0 ? sc[nt][0] : NEG) - m0,
+                                     (ok1 ? sc[nt][1] : NEG) - m0);
+        const float2 p1 = exp_bf16x2((ok0 ? sc[nt][2] : NEG) - m1,
+                                     (ok1 ? sc[nt][3] : NEG) - m1);
+        sc[nt][0] = p0.x;
+        sc[nt][1] = p0.y;
+        sc[nt][2] = p1.x;
+        sc[nt][3] = p1.y;
+        l0 += p0.x + p0.y;
+        l1 += p1.x + p1.y;
+        continue;
+      }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool ok = s.ok[k0 + nt * 8 + tg * 2 + e] != 0.f;
         sc[nt][e] = expf((ok ? sc[nt][e] : NEG) - m0);
         sc[nt][e + 2] = expf((ok ? sc[nt][e + 2] : NEG) - m1);
-        l0 += sc[nt][e];
-        l1 += sc[nt][e + 2];
+        if (VARIANT == FWD_NORMP) {
+          sc[nt][e] /= l0;
+          sc[nt][e + 2] /= l1;
+        } else {
+          l0 += sc[nt][e];
+          l1 += sc[nt][e + 2];
+        }
       }
     }
     mma_p(acc, sc, s.vt, g, tg);
   }
+  if (VARIANT != FWD_NORMP) {
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
   }
 
+  const float od0 = VARIANT == FWD_NORMP ? 1.f : l0;
+  const float od1 = VARIANT == FWD_NORMP ? 1.f : l1;
   const int r0 = q0 + wr + g, r1 = r0 + 8;
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt) {
     const int c = dt * 8 + tg * 2;
     *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)r0 * HD + c) =
-        __floats2bfloat162_rn(acc[dt][0] / l0, acc[dt][1] / l0);
+        __floats2bfloat162_rn(acc[dt][0] / od0, acc[dt][1] / od0);
     *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)r1 * HD + c) =
-        __floats2bfloat162_rn(acc[dt][2] / l1, acc[dt][3] / l1);
+        __floats2bfloat162_rn(acc[dt][2] / od1, acc[dt][3] / od1);
   }
   if (tg == 0) {
     lse[(size_t)bh * t + r0] = m0 + logf(l0);
@@ -264,6 +343,7 @@ struct BwdSmem {
   float dsum[MAX_T];   // D = rowsum(dO * O)
 };
 
+template <int VARIANT>
 __global__ void __launch_bounds__(THREADS)
 attention_train_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -331,6 +411,19 @@ attention_train_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       mma_16x64(pt, fa, s.q, g, tg);
 #pragma unroll
       for (int nt = 0; nt < TILE / 8; ++nt) {
+        if (VARIANT == BWD_BF16EXP) {
+          const float lq0 = s.lse[q0 + nt * 8 + tg * 2];
+          const float lq1 = s.lse[q0 + nt * 8 + tg * 2 + 1];
+          const float2 p0 = exp_bf16x2((ok0 ? pt[nt][0] : NEG) - lq0,
+                                       (ok0 ? pt[nt][1] : NEG) - lq1);
+          const float2 p1 = exp_bf16x2((ok1 ? pt[nt][2] : NEG) - lq0,
+                                       (ok1 ? pt[nt][3] : NEG) - lq1);
+          pt[nt][0] = p0.x;
+          pt[nt][1] = p0.y;
+          pt[nt][2] = p1.x;
+          pt[nt][3] = p1.y;
+          continue;
+        }
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float lq = s.lse[q0 + nt * 8 + tg * 2 + e];
@@ -420,33 +513,69 @@ bool shape_ok(int bh, int heads, int t, int head_dim) {
          t % TILE == 0 && t <= MAX_T;
 }
 
-}  // namespace
-
-// q, k, v, o: (bh, t, 64) bf16, contiguous each; valid: (bh / heads, t)
-// bytes, nonzero = attend; lse: (bh, t) float32. t % 64 == 0, t <= 1024.
-// Returns a cudaError_t (0 = launched).
-extern "C" int vipers_attention_train_fwd(const void* q, const void* k,
-                                          const void* v, const uint8_t* valid,
-                                          void* o, float* lse, int bh,
-                                          int heads, int t, int head_dim,
-                                          float scale, void* stream) {
-  if (!shape_ok(bh, heads, t, head_dim) || valid == nullptr)
-    return (int)cudaErrorInvalidValue;
+template <int VARIANT>
+int launch_fwd(const void* q, const void* k, const void* v, const uint8_t* valid,
+               void* o, float* lse, int bh, int heads, int t, float scale,
+               cudaStream_t stream) {
   const int smem = (int)sizeof(FwdSmem);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(attention_train_fwd_kernel<VARIANT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
   if (err != cudaSuccess) return (int)err;
-  attention_train_fwd_kernel<<<dim3(bh, t / TILE), THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
+  attention_train_fwd_kernel<VARIANT><<<dim3(bh, t / TILE), THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), valid, static_cast<bf16*>(o), lse, heads, t,
       scale);
   return (int)cudaGetLastError();
 }
 
+template <int VARIANT>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const float* lse, const void* dout, const uint8_t* valid, void* dq,
+               void* dk, void* dv, float* dq_acc, int bh, int heads, int t,
+               float scale, cudaStream_t stream) {
+  const int smem = (int)sizeof(BwdSmem);
+  cudaError_t err = cudaFuncSetAttribute(attention_train_bwd_kernel<VARIANT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_train_bwd_kernel<VARIANT><<<bh, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o), lse,
+      static_cast<const bf16*>(dout), valid, static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), dq_acc, heads, t, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, o: (bh, t, 64) bf16, contiguous each; valid: (bh / heads, t)
+// bytes, nonzero = attend; lse: (bh, t) float32. t % 64 == 0, t <= 1024.
+// variant: 0 = F32, 1 = BF16EXP, 2 = NORMP. Returns a cudaError_t
+// (0 = launched).
+extern "C" int vipers_attention_train_fwd(const void* q, const void* k,
+                                          const void* v, const uint8_t* valid,
+                                          void* o, float* lse, int bh,
+                                          int heads, int t, int head_dim,
+                                          float scale, int variant,
+                                          void* stream) {
+  if (!shape_ok(bh, heads, t, head_dim) || valid == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case FWD_F32:
+      return launch_fwd<FWD_F32>(q, k, v, valid, o, lse, bh, heads, t, scale, st);
+    case FWD_BF16EXP:
+      return launch_fwd<FWD_BF16EXP>(q, k, v, valid, o, lse, bh, heads, t, scale, st);
+    case FWD_NORMP:
+      return launch_fwd<FWD_NORMP>(q, k, v, valid, o, lse, bh, heads, t, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // Inputs as for the forward plus o, lse and dout (bh, t, 64) bf16; outputs
 // dq, dk, dv (bh, t, 64) bf16 and an f32 scratch dq_acc (bh, t, 64) that
-// needs no initialisation.
+// needs no initialisation. variant: 0 = F32, 1 = BF16EXP.
 extern "C" int vipers_attention_train_bwd(const void* q, const void* k,
                                           const void* v, const void* o,
                                           const float* lse, const void* dout,
@@ -454,17 +583,17 @@ extern "C" int vipers_attention_train_bwd(const void* q, const void* k,
                                           void* dk, void* dv, float* dq_acc,
                                           int bh, int heads, int t,
                                           int head_dim, float scale,
-                                          void* stream) {
+                                          int variant, void* stream) {
   if (!shape_ok(bh, heads, t, head_dim) || valid == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(BwdSmem);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_train_bwd_kernel<<<bh, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o), lse,
-      static_cast<const bf16*>(dout), valid, static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), dq_acc, heads, t, scale);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case BWD_F32:
+      return launch_bwd<BWD_F32>(q, k, v, o, lse, dout, valid, dq, dk, dv, dq_acc,
+                                 bh, heads, t, scale, st);
+    case BWD_BF16EXP:
+      return launch_bwd<BWD_BF16EXP>(q, k, v, o, lse, dout, valid, dq, dk, dv,
+                                     dq_acc, bh, heads, t, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

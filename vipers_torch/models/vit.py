@@ -7,9 +7,14 @@ Input is NHWC, like the JAX package. The forward returns
 (the reference's qkv dump that LOST reads), its per-head softmax when
 ``need_attn`` and the final CLS feature.
 
-Kernel routing follows the JAX package exactly:
+Kernel routing follows the JAX package exactly, switches included
+(``VIPERS_FLASH_MIN_T``, ``VIPERS_PACKED_ATTENTION``, ``VIPERS_FUSED_MLP``,
+``VIPERS_FUSED_ATTN``, read at call time):
   * attention at T >= ``flash_min_t()`` without ``need_attn`` goes to the
-    flash kernel (``ops/flash_attention.py``); below it, in training, in
+    flash kernel (``ops/flash_attention.py``), or with
+    ``VIPERS_PACKED_ATTENTION=1`` and a packed layout to the token-major
+    packed kernel on one projection with head-pair-permuted weight rows;
+    below it, in training, in
     bf16 and within the kernel's envelope, to the short-T training kernel
     on the packed (3, N, H, T, hd) projection
     (``ops/attention_train.py``); otherwise the key-masked einsum,
@@ -27,7 +32,9 @@ global precision setting, which defaults to full f32 on the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -39,7 +46,11 @@ from vipers_torch.ops.attention_train import (attention_train_enabled,
                                               attention_train_packed,
                                               fused_attention_supported)
 from vipers_torch.ops.flash_attention import (attention_reference,
-                                              flash_attention, flash_min_t)
+                                              flash_attention,
+                                              flash_attention_packed,
+                                              flash_min_t,
+                                              packed_layout_supported,
+                                              packed_qkv_permutation)
 from vipers_torch.ops.fused_mlp import fused_ln_dense_gelu, fused_supported
 from vipers_torch.ops.tokens import pad_tokens, round_up, unpad_tokens
 
@@ -65,6 +76,12 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+@functools.lru_cache(maxsize=None)
+def _packed_rows(d: int, num_heads: int, device: torch.device):
+    """The packed stripe permutation as an index tensor on ``device``."""
+    return torch.from_numpy(packed_qkv_permutation(d, num_heads)).to(device)
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention with torch ``nn.MultiheadAttention`` semantics: fused
     qkv projection (q, k, v row blocks), per-head softmax returned when
@@ -81,13 +98,22 @@ class MultiHeadAttention(nn.Module):
         h = self.num_heads
         hd = d // h
         scale = float(hd) ** -0.5
+        use_flash = not need_attn and t >= flash_min_t()
+        if (use_flash and packed_layout_supported(d, h)
+                and os.environ.get("VIPERS_PACKED_ATTENTION") == "1"):
+            # one projection with head-pair-permuted weight rows feeds the
+            # token-major kernel, which writes (N, T, D) h-major
+            rows = _packed_rows(d, h, x.device)
+            qkv_p = F.linear(x, self.qkv.weight[rows], self.qkv.bias[rows])
+            y = flash_attention_packed(qkv_p, valid=token_mask, num_heads=h, scale=scale)
+            return self.out(y), None
         qkv = self.qkv(x).reshape(n, t, 3, h, hd).permute(2, 0, 3, 1, 4)
-        if (self.training and not need_attn and t < flash_min_t()
+        if (self.training and not need_attn and not use_flash
                 and fused_attention_supported(t, hd)
                 and attention_train_enabled(x.dtype)):
             out = attention_train_packed(qkv, valid=token_mask, scale=scale)
             attn = None
-        elif not need_attn and t >= flash_min_t():
+        elif use_flash:
             q, k, v = qkv.contiguous().unbind(0)
             out = flash_attention(q, k, v, valid=token_mask, scale=scale)
             attn = None

@@ -16,12 +16,18 @@ ViT-S/16 train shape (B*H = 768, T = 256, bf16) both are bound by bytes
 ``attention_train_fwd`` / ``attention_train_bwd`` launch the kernels for
 CUDA tensors (bf16 and head dim 64 only; anything else raises) and run the
 plain versions, ``attention_train_fwd_plain`` / ``attention_train_bwd_plain``,
-for CPU tensors. ``LAUNCHES`` counts kernel launches.
+for CPU tensors. ``LAUNCHES`` counts kernel launches per variant.
+
+``variant=`` selects the softmax precision of the TPU's A/B tool
+``tools/bench_softmax_prec.py`` (forward ``f32`` / ``bf16exp`` / ``normP``,
+backward ``f32`` / ``bf16exp``), template instances of the same kernels;
+the model path runs ``f32``, today's kernels, and never passes it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -33,9 +39,22 @@ from vipers_torch.ops.tokens import round_up
 
 MAX_T = 1024
 HEAD_DIM = 64
+FWD_VARIANTS = ("f32", "bf16exp", "normP")
+BWD_VARIANTS = ("f32", "bf16exp")
 
-# kernel launches; chip_smoke.py resets and reads these
-LAUNCHES = {"fwd": 0, "bwd": 0}
+# kernel launches per variant ("fwd", "bwd": the f32 variant the model
+# runs); chip_smoke.py resets and reads these
+LAUNCHES = {"fwd": 0, "bwd": 0, "fwd[bf16exp]": 0, "fwd[normP]": 0,
+            "bwd[bf16exp]": 0}
+
+
+def _launch_key(kind: str, variant: str) -> str:
+    return kind if variant == "f32" else f"{kind}[{variant}]"
+
+
+def _check_variant(variant: str, allowed):
+    if variant not in allowed:
+        raise ValueError(f"variant must be one of {allowed}, got {variant!r}")
 
 
 def fused_attention_supported(t: int, hd: int) -> bool:
@@ -47,7 +66,10 @@ def fused_attention_supported(t: int, hd: int) -> bool:
 
 def attention_train_enabled(dtype) -> bool:
     """Product-path gate: bf16 compute only, on any device (the f32 path
-    keeps the einsum, the parity anchor)."""
+    keeps the einsum, the parity anchor); ``VIPERS_FUSED_ATTN=0`` turns it
+    off, as in the JAX package."""
+    if os.environ.get("VIPERS_FUSED_ATTN") == "0":
+        return False
     return dtype == torch.bfloat16
 
 
@@ -59,27 +81,44 @@ def _check_envelope(name: str, t: int, hd: int):
             "ops.flash_attention for long sequences")
 
 
-def attention_train_fwd_plain(q, k, v, ok, scale: float):
+def attention_train_fwd_plain(q, k, v, ok, scale: float, variant: str = "f32"):
     """Plain PyTorch version of the forward kernel: (B, H, T, hd) q, k, v,
-    (B, T) bool key mask -> (out in the input dtype, lse (B, H, T) f32)."""
+    (B, T) bool key mask -> (out in the input dtype, lse (B, H, T) f32).
+    ``variant`` follows ``tools/bench_softmax_prec.py``'s ``fwd_kernel``."""
+    _check_variant(variant, FWD_VARIANTS)
     qs = q * torch.tensor(scale, dtype=q.dtype)
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     s = torch.where(ok[:, None, None, :], s, torch.full((), NEG_INF, device=s.device))
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    if variant == "bf16exp":
+        pb = torch.exp((s - m).to(torch.bfloat16))
+        l = pb.float().sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        pb = p.to(v.dtype)
+    if variant == "normP":
+        o = torch.matmul((p / l).to(v.dtype).float(), v.float())
+        return o.to(q.dtype), (m + torch.log(l))[..., 0]
+    o = torch.matmul(pb.float(), v.float())
     return (o / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def attention_train_bwd_plain(q, k, v, o, lse, do, ok, scale: float):
+def attention_train_bwd_plain(q, k, v, o, lse, do, ok, scale: float,
+                              variant: str = "f32"):
     """Plain PyTorch version of the backward kernel: (dq, dk, dv) in the
-    input dtype from the forward's residuals and the cotangent ``do``."""
+    input dtype from the forward's residuals and the cotangent ``do``.
+    ``variant`` follows ``tools/bench_softmax_prec.py``'s ``bwd_kernel``:
+    ``bf16exp`` keeps p = exp(bf16(s - lse)) in bf16 for dV and dS."""
+    _check_variant(variant, BWD_VARIANTS)
     dt = q.dtype
     qs = (q * torch.tensor(scale, dtype=dt)).float()
     s = torch.matmul(qs, k.float().transpose(-1, -2))
     s = torch.where(ok[:, None, None, :], s, torch.full((), NEG_INF, device=s.device))
-    p = torch.exp(s - lse[..., None])
+    if variant == "bf16exp":
+        p = torch.exp((s - lse[..., None]).to(torch.bfloat16)).float()
+    else:
+        p = torch.exp(s - lse[..., None])
     do32 = do.float()
     d = (do32 * o.float()).sum(dim=-1, keepdim=True)
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do32).to(dt)
@@ -94,7 +133,7 @@ def _fn(name, nptr):
     fn = getattr(_build.load("attention_train"), name)
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p] * nptr + [ctypes.c_int] * 4 + [ctypes.c_float, p]
+        fn.argtypes = [p] * nptr + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -118,10 +157,11 @@ def _launch(name, fn, args, q):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def attention_train_fwd(q, k, v, ok, scale: float):
+def attention_train_fwd(q, k, v, ok, scale: float, variant: str = "f32"):
     """(out, lse) for (B, H, T, hd) q, k, v and a (B, T) bool key mask."""
+    _check_variant(variant, FWD_VARIANTS)
     if q.device.type == "cpu":
-        return attention_train_fwd_plain(q, k, v, ok, scale)
+        return attention_train_fwd_plain(q, k, v, ok, scale, variant)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, ok)
@@ -132,17 +172,20 @@ def attention_train_fwd(q, k, v, ok, scale: float):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     _launch("attention_train_fwd", _fn("vipers_attention_train_fwd", 6),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), okb.data_ptr(),
-             out.data_ptr(), lse.data_ptr(), b * h, h, t, hd, float(scale)), q)
-    LAUNCHES["fwd"] += 1
+             out.data_ptr(), lse.data_ptr(), b * h, h, t, hd, float(scale),
+             FWD_VARIANTS.index(variant)), q)
+    LAUNCHES[_launch_key("fwd", variant)] += 1
     return out, lse
 
 
-def attention_train_bwd(q, k, v, o, lse, do, ok, scale: float, out=None):
+def attention_train_bwd(q, k, v, o, lse, do, ok, scale: float, out=None,
+                        variant: str = "f32"):
     """(dq, dk, dv) for the forward's residuals and cotangent ``do``. On the
     card the kernel writes into ``out`` (three contiguous (B, H, T, hd)
     tensors, e.g. the slabs of one packed dqkv) when given."""
+    _check_variant(variant, BWD_VARIANTS)
     if q.device.type == "cpu":
-        grads = attention_train_bwd_plain(q, k, v, o, lse, do, ok, scale)
+        grads = attention_train_bwd_plain(q, k, v, o, lse, do, ok, scale, variant)
         if out is not None:
             for dst, src in zip(out, grads):
                 dst.copy_(src)
@@ -165,8 +208,8 @@ def attention_train_bwd(q, k, v, o, lse, do, ok, scale: float, out=None):
             (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
              lse.data_ptr(), doc.data_ptr(), okb.data_ptr(), out[0].data_ptr(),
              out[1].data_ptr(), out[2].data_ptr(), scratch.data_ptr(),
-             b * h, h, t, hd, float(scale)), q)
-    LAUNCHES["bwd"] += 1
+             b * h, h, t, hd, float(scale), BWD_VARIANTS.index(variant)), q)
+    LAUNCHES[_launch_key("bwd", variant)] += 1
     return tuple(out)
 
 

@@ -15,16 +15,29 @@ plain version, ``flash_attention_plain``, for CPU tensors; a build or
 launch failure raises. ``LAUNCHES`` counts kernel launches per instance.
 ``flash_attention`` is a ``torch.autograd.Function`` whose backward is the
 JAX package's recomputation VJP in plain torch (it is plain XLA there too).
+
+The packed token-major route (``flash_attention_packed``, opt-in with
+``VIPERS_PACKED_ATTENTION=1`` in the models, as in the JAX package) reads q,
+k and v straight from the (B, T, 3D) output of one projection whose columns
+are permuted into head-pair stripes (``packed_qkv_permutation``) and writes
+(B, T, D) h-major. Kernel: ``vipers_torch/csrc/flash_attention_packed.cu``,
+replacing the TPU's ``_packed_fwd_kernel`` (``_packed_fwd``); it runs the
+same tile as the head-major kernel on strided rows. ``PACKED_LAUNCHES``
+counts its launches per instance.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vipers_torch.ops import _build
+from vipers_torch.ops.tokens import round_up
 
 NEG_INF = -1e9
 FLASH_MIN_T = 512
@@ -33,13 +46,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches per instance; chip_smoke.py resets and reads these
 LAUNCHES = {"float32": 0, "bfloat16": 0}
+PACKED_LAUNCHES = {"float32": 0, "bfloat16": 0}
 
 
 def flash_min_t() -> int:
     """T at and above which the models route attention to the kernel (the
-    JAX package's threshold). Read at call time by the models and the LOST
-    driver's seq-pad decision, so the three stay consistent."""
-    return FLASH_MIN_T
+    JAX package's threshold; ``VIPERS_FLASH_MIN_T`` overrides it, as there).
+    Read at call time by the models and the LOST driver's seq-pad decision,
+    so the three stay consistent."""
+    return int(os.environ.get("VIPERS_FLASH_MIN_T", FLASH_MIN_T))
 
 
 def attention_reference(q, k, v, scale: Optional[float] = None, mask=None):
@@ -55,16 +70,23 @@ def attention_reference(q, k, v, scale: Optional[float] = None, mask=None):
     return torch.matmul(probs, v), probs
 
 
+def _scores(q, k, valid, scale: float):
+    """f32 scores (q * scale) . k^T with -1e9 on the keys ``valid`` (a (B,
+    T) bool mask, or None) marks invalid."""
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    if valid is not None:
+        s = torch.where(valid[:, None, None, :], s,
+                        torch.full((), NEG_INF, device=s.device))
+    return s
+
+
 def flash_attention_plain(q, k, v, valid=None, scale: Optional[float] = None):
     """Plain PyTorch version of the kernel: (out, lse) with the kernel's
     arithmetic (q in f32 times scale, f32 scores, -1e9 key mask, f32
     softmax, out in the input dtype, f32 logsumexp)."""
     hd = q.shape[-1]
     scale = (hd ** -0.5) if scale is None else scale
-    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
-    if valid is not None:
-        s = torch.where(valid[:, None, None, :], s,
-                        torch.full((), NEG_INF, device=s.device))
+    s = _scores(q, k, valid, scale)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     return torch.matmul(p, v.float()).to(q.dtype), lse
@@ -132,11 +154,7 @@ def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
     """The JAX package's recomputation VJP (``_flash_vjp_bwd``): f32 scores
     from the saved lse, ``delta = sum(g * out)``, dq and dk times
     ``scale``; gradients in the inputs' dtypes. Plain XLA on the TPU too."""
-    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
-    if valid is not None:
-        s = torch.where(valid[:, None, None, :], s,
-                        torch.full((), NEG_INF, device=s.device))
-    p = torch.exp(s - lse[..., None])
+    p = torch.exp(_scores(q, k, valid, scale) - lse[..., None])
     g32 = g.float()
     dv = torch.matmul(p.transpose(-1, -2), g32)
     dp = torch.matmul(g32, v.float().transpose(-1, -2))
@@ -170,3 +188,176 @@ def flash_attention(q, k, v, valid=None, scale: Optional[float] = None):
     returns out, differentiable in q, k and v."""
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     return _FlashAttention.apply(q, k, v, valid, scale)
+
+
+# ------------------------- packed token-major route ------------------------
+
+def packed_qkv_permutation(d: int, num_heads: int) -> np.ndarray:
+    """Index permutation taking a fused qkv projection laid out [q(D) | k(D)
+    | v(D)] to the packed stripe layout [q h0 h1 | k h0 h1 | v h0 h1] per
+    head pair (``128 // hd`` heads a stripe). int64 (3D,); the permuted
+    torch weight is ``W[perm]`` (rows of the (out, in) layout)."""
+    if not packed_layout_supported(d, num_heads):
+        raise ValueError(f"no packed layout for D={d} with {num_heads} heads")
+    hd = d // num_heads
+    pack = 128 // hd
+    cols = []
+    for p in range(num_heads // pack):
+        for s in range(3):  # q, k, v
+            for h in range(p * pack, (p + 1) * pack):
+                base = s * d + h * hd
+                cols.extend(range(base, base + hd))
+    return np.asarray(cols, np.int64)
+
+
+def packed_layout_supported(d: int, num_heads: int) -> bool:
+    hd = d // num_heads
+    return hd <= 128 and 128 % hd == 0 and num_heads % (128 // hd) == 0
+
+
+def _unpack_bhtd(qkv, num_heads: int):
+    """(B, T, 3D) packed stripes -> (q, k, v) each (B, H, T, hd)."""
+    b, t, three_d = qkv.shape
+    hd = three_d // 3 // num_heads
+    pack = 128 // hd
+    z = qkv.reshape(b, t, num_heads // pack, 3, pack, hd)
+    z = z.permute(3, 0, 2, 4, 1, 5).reshape(3, b, num_heads, t, hd)
+    return z[0], z[1], z[2]
+
+
+def _pack_bhtd(dq, dk, dv, num_heads: int):
+    """Inverse of ``_unpack_bhtd``: three (B, H, T, hd) -> (B, T, 3D)."""
+    b, h, t, hd = dq.shape
+    pack = 128 // hd
+    z = torch.stack([dq, dk, dv]).reshape(3, b, h // pack, pack, t, hd)
+    return z.permute(1, 4, 2, 0, 3, 5).reshape(b, t, 3 * h * hd)
+
+
+def _ntd_to_bhtd(x, num_heads: int):
+    b, t, d = x.shape
+    return x.reshape(b, t, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _bhtd_to_ntd(x):
+    b, h, t, hd = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * hd)
+
+
+def flash_attention_packed_plain(qkv, valid, num_heads: int, scale: float):
+    """Plain PyTorch version of the packed kernel, with the TPU kernel's
+    arithmetic: f32 scores times ``scale``, -1e9 on invalid keys, exact
+    softmax with p rounded to the input dtype before P.V, the output divided
+    by l = max(sum p, 1e-20). (B, T, 3D) -> (B, T, D) h-major."""
+    q, k, v = _unpack_bhtd(qkv, num_heads)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if valid is not None:
+        s = torch.where(valid[:, None, None, :], s,
+                        torch.full((), NEG_INF, device=s.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    return _bhtd_to_ntd(o.to(qkv.dtype))
+
+
+def _check_packed(qkv, valid, num_heads: int):
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads):
+        raise ValueError(f"qkv must be (B, T, 3 * heads * hd), got {tuple(qkv.shape)} "
+                         f"with {num_heads} heads")
+    d = qkv.shape[2] // 3
+    if not packed_layout_supported(d, num_heads):
+        raise ValueError(f"no packed layout for D={d} with {num_heads} heads")
+    if qkv.dtype not in _DTYPE_CODE:
+        raise ValueError(f"packed attention takes float32 or bfloat16, got {qkv.dtype}")
+    if valid is not None and (valid.dtype != torch.bool
+                              or tuple(valid.shape) != tuple(qkv.shape[:2])
+                              or valid.device != qkv.device):
+        raise ValueError(f"valid must be a (B, T) bool mask on the device of qkv, got "
+                         f"{valid.dtype} {tuple(valid.shape)} on {valid.device}")
+
+
+def _packed_lib():
+    fn = _build.load("flash_attention_packed").vipers_flash_attention_packed
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_packed_fwd(qkv, valid, num_heads: int, scale: float):
+    """(B, T, 3D) packed qkv and a (B, T) bool key mask (or None) -> (B, T,
+    D) h-major attention output in qkv's dtype. The kernel needs head dim
+    64; the plain version (CPU tensors) takes any packed layout."""
+    _check_packed(qkv, valid, num_heads)
+    if qkv.device.type == "cpu":
+        return flash_attention_packed_plain(qkv, valid, num_heads, scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    b, t, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // num_heads
+    if hd != HEAD_DIM:
+        raise ValueError(f"the packed attention kernel needs head dim {HEAD_DIM}, got {hd}")
+    fn = _packed_lib()
+    qkv = qkv.contiguous()
+    vmask = valid.contiguous().view(torch.uint8) if valid is not None else None
+    out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = fn(qkv.data_ptr(), vmask.data_ptr() if vmask is not None else None,
+                out.data_ptr(), b, num_heads, t, hd, float(scale),
+                _DTYPE_CODE[qkv.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_packed kernel launch failed: CUDA error {rc}")
+    PACKED_LAUNCHES[str(qkv.dtype).replace("torch.", "")] += 1
+    return out
+
+
+def flash_attention_packed_bwd(qkv, valid, out, g, num_heads: int, scale: float):
+    """The JAX package's einsum-recompute VJP (``_packed_vjp_bwd``), which is
+    the head-major flash VJP on the unpacked views: the logsumexp again from
+    q and k, then dq, dk, dv repacked into one (B, T, 3D) gradient in qkv's
+    dtype. Plain XLA on the TPU too."""
+    q, k, v = _unpack_bhtd(qkv, num_heads)
+    lse = torch.logsumexp(_scores(q, k, valid, scale), dim=-1)
+    grads = flash_attention_bwd(q, k, v, valid, _ntd_to_bhtd(out, num_heads), lse,
+                                _ntd_to_bhtd(g, num_heads), scale)
+    return _pack_bhtd(*grads, num_heads)
+
+
+class _FlashAttentionPacked(torch.autograd.Function):
+    """Forward through the packed kernel (plain version on the CPU),
+    backward by the JAX package's einsum-recompute VJP."""
+
+    @staticmethod
+    def forward(ctx, qkv, valid, num_heads, scale):
+        out = flash_attention_packed_fwd(qkv, valid, num_heads, scale)
+        ctx.save_for_backward(qkv, valid, out)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, valid, out = ctx.saved_tensors
+        return (flash_attention_packed_bwd(qkv, valid, out, g, ctx.num_heads, ctx.scale),
+                None, None, None)
+
+
+def flash_attention_packed(qkv, valid=None, *, num_heads: int,
+                           scale: Optional[float] = None):
+    """Token-major attention on a packed (B, T, 3D) qkv (columns permuted by
+    ``packed_qkv_permutation``), differentiable in qkv. Returns (B, T, D)
+    with the heads h-major, ready for a plain out-projection. T is padded to
+    a 128 multiple inside (pad keys masked) and sliced back, as in the JAX
+    wrapper."""
+    b, t, three_d = qkv.shape
+    hd = three_d // 3 // num_heads
+    scale = (hd ** -0.5) if scale is None else float(scale)
+    if valid is None:
+        valid = torch.ones((b, t), dtype=torch.bool, device=qkv.device)
+    pad = round_up(t, 128) - t
+    if pad:
+        qkv = F.pad(qkv, (0, 0, 0, pad))
+        valid = F.pad(valid, (0, pad))
+    return _FlashAttentionPacked.apply(qkv, valid, num_heads, scale)[:, :t]

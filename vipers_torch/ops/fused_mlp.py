@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional
 
 import torch
@@ -50,7 +51,10 @@ def pick_block_m(m: int) -> Optional[int]:
 
 def fused_supported(x, train: bool = False) -> bool:
     """The product-path gate: inference, bf16, and a row count the JAX
-    kernel's block rule accepts."""
+    kernel's block rule accepts; ``VIPERS_FUSED_MLP=0`` turns it off, as in
+    the JAX package."""
+    if os.environ.get("VIPERS_FUSED_MLP") == "0":
+        return False
     rows = x.numel() // x.shape[-1]
     return (not train and x.dtype == torch.bfloat16
             and pick_block_m(rows) is not None)
