@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; nothing is caught):
      instance): max error against the stated tolerance (each variant also
      clearly nearer its own plain version than f32's), kernel / plain /
      library times (CUDA events, median), and the bound from the work's
-     FLOPs and bytes;
+     FLOPs and bytes; for the flash and packed kernels also TFLOP/s and
+     the share of the bound, and the bf16 attention tile's shape (query
+     rows, key tile, stages);
   4. LOST path: full-width ViT-S/16 (12 layers, D=384, 6 heads, mlp 1536)
      from a seeded generator, 50% global magnitude mask, 512x384 uint8
      images, ``make_batched_pipeline`` in f32 and bf16 at B=128 on an
@@ -24,8 +26,8 @@ Phases (any failure exits non-zero; nothing is caught):
   5. packed LOST path: the same pipeline on the mixed-size bucket with
      ``VIPERS_PACKED_ATTENTION=1``: 12 packed and 0 flash launches per
      forward (and 12 fused MLP in bf16), f32 features within 2e-4 of the
-     default route's scale with equal boxes, bf16 img/s and p50 of both
-     routes;
+     default route's scale with equal boxes; bf16 img/s and p50 of both
+     routes on both buckets;
   6. train path: the masked bf16 train step of full-width ViT-S/16 at
      224x224 (T=197 seq-padded to 256), 1000 classes, SGD momentum with a
      cosine LR, uint8 images normalized on the card: 12 forward and 12
@@ -80,6 +82,11 @@ def bound(flops, nbytes, peak):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bf16_tile(fa):
+    """The bf16 attention tile's shape as compiled, for the kernel lines."""
+    return "; tile {block_q} x {block_k}, {stages} stages".format(**fa.tile_shape())
+
+
 def check_flash(fa, dtype, gen):
     """Flash kernel vs plain at (B*H = 128*6, T = 896, hd = 64) with a
     ragged key mask: 769 real tokens padded to 896, and a bucket-pad
@@ -96,14 +103,16 @@ def check_flash(fa, dtype, gen):
     want, want_lse = fa.flash_attention_plain(q, k, v, valid)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
     if dtype == torch.float32:
         torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
         torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
-        tol = "atol 1e-5 rtol 1e-4"
+        tol = f"atol 1e-5 rtol 1e-4; lse {lse_err:.2e} (atol 1e-4 rtol 1e-4)"
     else:
         scale = want.float().abs().max().item()
         assert err <= 2e-2 * scale, (err, scale)
-        tol = f"2e-2 of output scale {scale:.3g}"
+        torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+        tol = f"2e-2 of output scale {scale:.3g}; lse {lse_err:.2e} (atol 1e-3)"
     ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, valid))
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, valid), reps=5)
     amask = valid[:, None, None, :]
@@ -113,7 +122,9 @@ def check_flash(fa, dtype, gen):
     nbytes = 4 * q.numel() * elt + lse.numel() * 4 + valid.numel()
     bms, by = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
     name = "f32" if dtype == torch.float32 else "bf16"
+    tile = bf16_tile(fa) if dtype == torch.bfloat16 else ""
     print(f"flash_attention_fwd[{name}] max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.0f} TFLOP/s, {bms / ms:.1%} of the bound{tile}) "
           f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
     return {"name": f"flash_attention_fwd[{name}]", "route": "cuda",
@@ -190,7 +201,9 @@ def check_flash_packed(fa, dtype, gen):
     nbytes = (qkv.numel() + out.numel()) * qkv.element_size() + valid.numel()
     bms, by = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
     name = f"flash_attention_packed[{'f32' if dtype == torch.float32 else 'bf16'}]"
-    print(f"{name} max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+    tile = bf16_tile(fa) if dtype == torch.bfloat16 else ""
+    print(f"{name} max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms ({flops / ms / 1e9:.0f} "
+          f"TFLOP/s, {bms / ms:.1%} of the bound{tile}) plain {plain_ms:.3f} ms "
           f"sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.0f} MB)")
     return {"name": name, "route": "cuda",
@@ -458,15 +471,16 @@ def throughput(pipe, inp, one):
     return ips, statistics.median(lats[3:])
 
 
-def packed_lost_phase(card, spec, extractors, imgs, hw, default_outs, lost_core):
+def packed_lost_phase(card, spec, extractors, buckets, default_outs, lost_core):
     """The LOST pipeline on the mixed-size bucket with
     VIPERS_PACKED_ATTENTION=1: launches per forward (12 packed, 0 flash, 12
-    fused MLP in bf16), f32 features and boxes against the default route's,
-    bf16 img/s and p50 of both routes, measured here in turns. Returns the
-    packed launches of the counted forwards."""
+    fused MLP in bf16), f32 features and boxes against the default route's;
+    then bf16 img/s and p50 of both routes on both buckets, measured here
+    in turns. Returns the packed launches of the counted forwards."""
     from vipers_torch.ops import flash_attention as fa
     from vipers_torch.ops import fused_mlp as fm
 
+    imgs, hw = buckets["mixed"]
     layers = spec.cfg.num_layers
     inputs = {e: ex.prepare_batch(imgs, PATCH, exact_hw=hw) for e, ex in extractors.items()}
     default_feats = extractors["f32"].batched_features(*inputs["f32"]).float()
@@ -486,11 +500,8 @@ def packed_lost_phase(card, spec, extractors, imgs, hw, default_outs, lost_core)
                             "flash_attention_packed[bf16]": layers,
                             "flash": 0, "fused_mlp": layers}, launches
         feats = extractors["f32"].batched_features(*inputs["f32"]).float()
-        one = extractors["bf16"].prepare_batch(imgs[:1], PATCH, exact_hw=hw[:1])
-        packed_ips, packed_p50 = throughput(pipes["bf16"], inputs["bf16"], one)
     finally:
         del os.environ["VIPERS_PACKED_ATTENTION"]
-    default_ips, default_p50 = throughput(pipes["bf16"], inputs["bf16"], one)
 
     sc = default_feats.abs().max().item()
     ferr = (feats - default_feats).abs().max().item()
@@ -508,9 +519,19 @@ def packed_lost_phase(card, spec, extractors, imgs, hw, default_outs, lost_core)
           f"(tol 2e-4 of scale {sc:.3g}); seeds equal {int(same_seed.sum())}/{BATCH}, boxes "
           f"equal {int((box == dbox).all(dim=1).sum())}/{BATCH}")
     assert ferr <= 2e-4 * sc, (ferr, sc)
-    print(f"throughput [bf16, mixed] packed route {packed_ips:.1f} img/s, p50 {packed_p50:.2f} ms; "
-          f"default route {default_ips:.1f} img/s, p50 {default_p50:.2f} ms at B={BATCH} / "
-          f"B=1 ({card})")
+    ex = extractors["bf16"]
+    for b, (b_imgs, b_hw) in buckets.items():
+        batch = ex.prepare_batch(b_imgs, PATCH, exact_hw=b_hw)
+        one = ex.prepare_batch(b_imgs[:1], PATCH, exact_hw=b_hw[:1])
+        os.environ["VIPERS_PACKED_ATTENTION"] = "1"
+        try:
+            packed_ips, packed_p50 = throughput(pipes["bf16"], batch, one)
+        finally:
+            del os.environ["VIPERS_PACKED_ATTENTION"]
+        default_ips, default_p50 = throughput(pipes["bf16"], batch, one)
+        print(f"throughput [bf16, {b}] packed route {packed_ips:.1f} img/s, p50 "
+              f"{packed_p50:.2f} ms; default route {default_ips:.1f} img/s, p50 "
+              f"{default_p50:.2f} ms at B={BATCH} / B=1 ({card})")
     return launches
 
 
@@ -763,8 +784,8 @@ def main():
               f"{p50:.2f} ms at B=1 ({card})")
 
     # 5. packed LOST path
-    launches.update(packed_lost_phase(card, spec, extractors, *buckets["mixed"],
-                                      outs["f32", "mixed"], lost_core))
+    launches.update(packed_lost_phase(card, spec, extractors, buckets, outs["f32", "mixed"],
+                                      lost_core))
 
     # 6. train path
     tl = train_phase(card, counters)

@@ -60,6 +60,26 @@ def test_plain_matches_pallas_kernel_interpret(masked):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=1e-4, rtol=1e-4)
 
 
+def test_plain_all_invalid_image_matches_pallas_kernel_interpret():
+    """An image whose keys are all invalid: every score is -1e9, so the JAX
+    kernel's online softmax gives each key p = 1 and divides by l = T: O is
+    the uniform average of V and lse = -1e9 + log(T). The plain version (the
+    kernel's contract on the card) must do the same, not sum V."""
+    q, k, v = _rand(2, 2, 256, 64, seed=9)
+    valid = _valid(2, 256, seed=10)
+    valid[1] = False
+    scale = 64 ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        want_o, want_lse = jfa._flash_fwd(*map(jnp.asarray, (q, k, v)),
+                                          jnp.asarray(valid), scale, 128, 128)
+    got_o, got_lse = tfa.flash_attention_plain(
+        *map(torch.from_numpy, (q, k, v)), torch.from_numpy(valid), scale)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=2e-5, rtol=1e-3)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_o[1].numpy(), np.broadcast_to(v[1].mean(axis=1, keepdims=True),
+                                                                 v[1].shape), atol=1e-5)
+
+
 def test_flash_matches_einsum_on_valid_rows():
     """The flash route and the einsum route of the model agree on every
     valid query row at a ragged (non-64-multiple) length."""
@@ -93,6 +113,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         valid = torch.ones(1, 15, dtype=torch.bool)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q, k, v, valid)
+
+
+def test_alignment_check_rejects_an_offset_view():
+    """The card's wrappers refuse, rather than copy, a tensor whose base is
+    not 16-byte aligned (TMA reads from aligned addresses only): a view one
+    element into its storage fails the check, the storage itself passes."""
+    base = torch.zeros(1 + 2 * 16 * 64)
+    tfa._check_aligned(base)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._check_aligned(base[1:].view(1, 2, 16, 64))
 
 
 def test_flash_min_t_matches_jax():

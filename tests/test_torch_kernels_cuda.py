@@ -37,10 +37,14 @@ def _qkv(b, h, t, dtype, dev, seed):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("t", [896, 200, 64])
 def test_flash_kernel_matches_plain(cuda, dtype, atol, rtol, t):
+    """Both instances against the plain version with a ragged key mask and
+    one image (1) whose keys are all invalid: its rows are the average of v
+    over the t keys (t = 200 is not a multiple of the 64-key tile)."""
     q, k, v = _qkv(3, 2, t, dtype, cuda, seed=t)
     g = torch.Generator(device="cpu").manual_seed(1)
     valid = (torch.rand(3, t, generator=g) < 0.8).to(cuda)
     valid[:, 0] = True
+    valid[1] = False
     valid[2] = True
     n0 = tfa.LAUNCHES[str(dtype)[6:]]
     out, lse = tfa.flash_attention_fwd(q, k, v, valid)
@@ -50,6 +54,68 @@ def test_flash_kernel_matches_plain(cuda, dtype, atol, rtol, t):
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == torch.float32 else 2e-2,
                                rtol=1e-4)
+    mean_v = v[1].float().mean(dim=1, keepdim=True).expand(2, t, 64)
+    torch.testing.assert_close(out[1].float(), mean_v, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("t", [896, 769, 200, 64, 1])
+def test_flash_bf16_tile_matches_plain(cuda, t):
+    """The bf16 Hopper tile against the plain version at B*H = 3*5, a ragged
+    key mask, and one image whose keys are all invalid: its rows are the
+    uniform average of v over the t keys and lse is -1e9 + log(t), as in the
+    JAX kernel."""
+    q, k, v = _qkv(3, 5, t, torch.bfloat16, cuda, seed=t)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    valid = (torch.rand(3, t, generator=g) < 0.8).to(cuda)
+    valid[0, 0] = True
+    valid[1] = False
+    want, want_lse = tfa.flash_attention_plain(q, k, v, valid)
+    mean_v = v[1].float().mean(dim=1, keepdim=True).expand(5, t, 64)
+    n0 = tfa.LAUNCHES["bfloat16"]
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["bfloat16"] == n0 + 1
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=1e-4)
+    torch.testing.assert_close(out[1].float(), mean_v, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[1], torch.full_like(lse[1], -1e9 + np.log(t)),
+                               atol=0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("heads", [6, 12])
+@pytest.mark.parametrize("t", [896, 577])
+def test_packed_bf16_tile_matches_plain(cuda, t, heads):
+    """The bf16 Hopper tile on the packed layout against the plain version
+    (T = 577 padded to 640 as the wrapper does)."""
+    tp = -(-t // 128) * 128
+    qkv, _, valid = _packed_inputs(3, tp, heads, torch.bfloat16, cuda, seed=t + heads)
+    valid[:, t:] = False
+    want = tfa.flash_attention_packed_plain(qkv, valid, heads, 0.125)
+    n0 = tfa.PACKED_LAUNCHES["bfloat16"]
+    out = tfa.flash_attention_packed_fwd(qkv, valid, heads, 0.125)
+    torch.cuda.synchronize()
+    assert tfa.PACKED_LAUNCHES["bfloat16"] == n0 + 1
+    _close_to_scale(out, want)
+
+
+def test_bf16_tile_shape(cuda):
+    """The compiled tile: 192 query rows (three consumer warpgroups),
+    128-key K/V tiles, a ring of 3 stages."""
+    assert tfa.tile_shape() == {"block_q": 192, "block_k": 128, "stages": 3}
+
+
+def test_wrappers_reject_unaligned_cuda_tensors(cuda):
+    """TMA needs 16-byte-aligned base pointers: a view one element into its
+    storage is refused, not copied, by the flash and packed wrappers."""
+    n = 2 * 3 * 128 * 64
+    base = torch.randn(2 * 64 * 3 * 6 * 64 + 1, device=cuda).to(torch.bfloat16)
+    q = base[1:1 + n].view(2, 3, 128, 64)
+    k = v = torch.randn(2, 3, 128, 64, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_attention_fwd(q, k, v)
+    qkv = base[1:1 + 2 * 64 * 3 * 6 * 64].view(2, 64, 3 * 6 * 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_attention_packed_fwd(qkv, None, 6, 0.125)
 
 
 @pytest.mark.parametrize("m,d,f", [(128 * 64, 384, 1536), (1000, 128, 256)])

@@ -1,33 +1,34 @@
-// The blockwise attention forward tile shared by the port's flash kernels:
-// flash_attention_fwd.cu (head-major (B*H, T, 64)), flash_attention_packed.cu
-// (token-major packed qkv stripes) and splash_attention.cu (unmasked, K
-// optionally seq-minor). A caller hands one (head, query tile) to a tile
-// function as base pointers plus row strides, so the layout lives only in
-// the kernel that computes those pointers.
+// The blockwise attention forward tiles of the port's flash kernels:
+// flash_attention_fwd.cu (head-major (B*H, T, 64)) and
+// flash_attention_packed.cu (token-major packed qkv stripes). A caller
+// hands one head to a tile as base pointers and row strides (f32) or as
+// tensor-map coordinates and output rows (bf16), so the layout lives only
+// in the kernel that computes them.
 //
-// One block owns BQ query rows of one head and streams BK-key tiles of K/V
-// through shared memory. The running row max m and sum l stay in f32
-// registers (online softmax), so the (T, T) matrix never reaches device
-// memory. Keys beyond t and keys whose valid byte is 0 get -1e9 on the f32
-// scores (the JAX kernels' mask: exp underflows to 0 once a valid key has
-// been seen); keys beyond t read as zero rows. Query rows beyond t are not
-// written. Final: l_safe = max(l, 1e-20), O = acc / l_safe and, where an
-// lse row is given, lse = m + log(l_safe).
+// Both stream K/V tiles past a block of query rows and keep the running
+// row max m and sum l in f32 registers (online softmax), so the (T, T)
+// matrix never reaches device memory. Keys whose valid byte is 0 get -1e9
+// on the f32 scores (the JAX kernels' mask: exp underflows to 0 once a
+// valid key has been seen); keys beyond t are excluded, so a row whose keys
+// are all invalid is the average of v over the t keys, as in JAX. Final:
+// l_safe = max(l, 1e-20), O = acc / l_safe and, where an lse row is given,
+// lse = m + log(l_safe).
 //
 //   f32 tile:  64 queries, 64-key tiles, 256 threads; a 16x16 thread grid,
 //              each thread owns a 4x4 tile of S and a 4x16 strip of O; FMA
 //              from padded shared memory (no TF32). q is multiplied by the
-//              scale as it is loaded.
-//   bf16 tile: BQ / 16 warps, each owns 16 query rows; S = Q K^T and
-//              O += P V on mma.sync m16n8k16 with f32 accumulation, the
-//              scale applied to the f32 scores; P goes from the S
-//              accumulators to A fragments in registers (no smem trip), so
-//              p is rounded to bf16 against the running max.
-// These first versions are simple and right; they use no TMA or wgmma.
+//              scale as it is loaded; keys beyond t read as zero rows and
+//              get -inf.
+//   bf16 tile: Hopper's TMA, mbarriers and wgmma (namespace hopper below).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "mma_bf16.cuh"
 
@@ -49,7 +50,7 @@ struct F32Smem {
   float k[F32_BK][F32_LD];
   float v[F32_BK][F32_LD];
   float p[F32_BQ][F32_LD];
-  float ok[F32_BK];
+  float fill[F32_BK];  // 0: keep the key's score; else the score it gets
 };
 
 // q, k, v: element (row, c) at ptr[row * ld + c]; o at o[row * ldo + c];
@@ -92,7 +93,7 @@ __device__ void fwd_f32(const float* __restrict__ q, const float* __restrict__ k
     }
     if (tid < F32_BK) {
       const int gk = k0 + tid;
-      s.ok[tid] = (gk < t && (valid == nullptr || valid[gk])) ? 1.f : 0.f;
+      s.fill[tid] = gk >= t ? -INFINITY : (valid == nullptr || valid[gk]) ? 0.f : NEG;
     }
     __syncthreads();
 
@@ -119,7 +120,8 @@ __device__ void fwd_f32(const float* __restrict__ q, const float* __restrict__ k
       float mx = NEG;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (s.ok[tx + 16 * i] == 0.f) sc[a][i] = NEG;
+        const float fill = s.fill[tx + 16 * i];
+        if (fill != 0.f) sc[a][i] = fill;
         mx = fmaxf(mx, sc[a][i]);
       }
       // the 16 threads sharing a row are the 16 lanes of one half-warp
@@ -171,200 +173,527 @@ __device__ void fwd_f32(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-// ------------------------------------------------------ bf16 / mma.sync
-template <int BQ>
-__host__ __device__ constexpr int bf16_threads() {
-  return BQ / 16 * 32;
-}
+// ------------------------------------------------- bf16 / Hopper (sm_90a)
+//
+// One CTA walks over (head, query tile) pairs, head-major: a persistent grid
+// of at most one CTA per SM, so the next tile's Q arrives while this one
+// finishes. WGS = 3 consumer warpgroups own 64 query rows each (BQ = 192);
+// one thread of the last warpgroup produces: Q by one TMA load into one of
+// two buffers, then K and V tiles of BK = 128 keys by TMA into a ring of
+// STAGES = 3 stages, each 64-wide bf16 row 128 bytes with the 128-byte
+// swizzle. That shape was the fastest of those timed at the LOST shape on
+// an H100 (128 or 192 queries, 2-4 stages; see PERF.md).
+// full/empty mbarriers hand the buffers over; setmaxnreg moves the
+// producer's registers to the consumers.
+//
+// Consumers: S = Q K^T by wgmma m64nBKk16 from shared memory (both
+// K-major); O += P V by the register-A wgmma m64n64k16, V read in its
+// [key][dim] layout through the descriptor's transpose bit, so nothing is
+// transposed in shared memory. S of key tile j starts together with P V
+// of tile j - 1, so one tile's softmax runs while the tensor cores finish
+// the last one's product.
+//
+// Softmax: running m and l per row in f32, in log2 units; p = exp2(s *
+// scale*log2(e) - m), by one FMA where a tile has no masked key, rounded to
+// bf16 for P V. Keys whose valid byte is 0 get the JAX kernels' -1e9 (in
+// log2 units), keys beyond t are excluded (TMA reads them as zero rows);
+// each warp reads the tile's valid bytes once and ballots them. The end:
+// l_safe = max(l, 1e-20), O = acc / l_safe, lse = m ln 2 + log(l_safe),
+// exactly -1e9 + log(l_safe) for a row that saw only masked keys (the
+// uniform average); query rows beyond t are not written.
+namespace hopper {
 
-constexpr int BF16_LD = HD + 8;  // 144-byte rows: conflict-free fragments
+constexpr int ROW = HD * 2;  // bytes in a row: one 128-byte swizzle row
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float NEG2 = NEG * LOG2E;  // the -1e9 mask in log2 units
 
-template <int BQ, int BK>
-struct Bf16Smem {
-  bf16 q[BQ][BF16_LD];
-  bf16 k[BK][BF16_LD];     // [key][dim]
-  bf16 vt[HD][BK + 8];     // V transposed: [dim][key]
-  float ok[BK];
+constexpr int WGS = 3;                   // consumer warpgroups, 64 query rows each
+constexpr int BQ = 64 * WGS;             // query rows of a tile
+constexpr int BK = 128;                  // keys of a K/V tile
+constexpr int STAGES = 3;                // K/V tiles in the ring
+constexpr int THREADS = 128 * (WGS + 1);  // + the producer warpgroup
+constexpr int MAX_DEVICES = 64;
+
+struct Smem {
+  bf16 q[2][BQ * HD];  // every tile 1024-byte aligned: the swizzle atom
+  bf16 k[STAGES][BK * HD];
+  bf16 v[STAGES][BK * HD];
+  uint64_t q_full[2], q_empty[2], kv_full[STAGES], kv_empty[STAGES];
+};
+constexpr int SMEM_BYTES = (int)sizeof(Smem) + 1024;  // + the alignment slack
+
+// Where one head lives: tensor-map coordinates (outer index, column of q, k
+// and v), its output rows, its lse row (null: not written) and its key
+// bytes (null: all valid).
+struct HeadView {
+  int z, qcol, kcol, vcol;
+  bf16* o;
+  int ldo;
+  float* lse;
+  const uint8_t* valid;
 };
 
-// ROWS rows of src (row stride ld) from row r0 into dst, zero beyond t.
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(bf16 (*dst)[BF16_LD],
-                                          const bf16* __restrict__ src, int ld,
-                                          int r0, int t, int tid) {
-  for (int idx = tid; idx < ROWS * (HD / 8); idx += THREADS) {
-    const int r = idx / (HD / 8), ch = idx % (HD / 8);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + ch * 8);
-    *reinterpret_cast<uint4*>(&dst[r][ch * 8]) = val;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// q, v: element (row, c) at ptr[row * ld + c]. k: (key, c) at k[key * ldk +
-// c], or with K_SEQ_MINOR (c, key) at k[c * ldk + key], which needs t % 8
-// == 0. o: (row, c) at o[row * ldo + c]. valid and lse as for fwd_f32. The
-// block computes query rows q0 .. q0 + BQ - 1 with bf16_threads<BQ>()
-// threads and sizeof(Bf16Smem<BQ, BK>) bytes of dynamic shared memory.
-template <int BQ, int BK, bool K_SEQ_MINOR>
-__device__ void fwd_bf16(const bf16* __restrict__ q, int ldq,
-                         const bf16* __restrict__ k, int ldk,
-                         const bf16* __restrict__ v, int ldv,
-                         const uint8_t* __restrict__ valid, bf16* __restrict__ o,
-                         int ldo, float* __restrict__ lse, int t, float scale,
-                         int q0, char* smem_raw) {
-  constexpr int THREADS = bf16_threads<BQ>();
-  Bf16Smem<BQ, BK>& s = *reinterpret_cast<Bf16Smem<BQ, BK>*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int wr = warp * 16;  // this warp's first query row in the tile
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
 
-  load_rows<BQ, THREADS>(s.q, q, ldq, q0, t, tid);
-  __syncthreads();
-  uint32_t qa[HD / 16][4];
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// One box of `map` at (c0, c1, c2) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile at `addr`:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+// (SWIZZLE_128B); 8-row groups lie 1024 bytes apart (the stride offset).
+// K-major tiles (Q, K) leave the leading offset unused (16). For V,
+// MN-major, the 64 dims are one swizzle row, so no second group along them
+// exists and the leading offset is given the same 1024.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N of this thread's wgmma groups are pending (groups
+// complete in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 + tg * 2;
-    qa[kk][0] = ld_bf16x2(&s.q[wr + g][c]);
-    qa[kk][1] = ld_bf16x2(&s.q[wr + g + 8][c]);
-    qa[kk][2] = ld_bf16x2(&s.q[wr + g][c + 8]);
-    qa[kk][3] = ld_bf16x2(&s.q[wr + g + 8][c + 8]);
-  }
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
 
-  float acc[HD / 8][4];
+// D (64 x 128, f32) {=, +=} A (64 x 16) . B (16 x 128), both bf16 K-major in
+// shared memory (descriptors); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers, the mma.sync A layout
+// per warp) . B (16 x 64, bf16 MN-major in shared memory: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[8][4], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Start S (this warpgroup's 64 rows x BK keys) = Q K^T on wgmma as one
+// group; qb and kb are the shared addresses of the warpgroup's Q rows and of
+// the K tile. The caller fences and waits.
+__device__ __forceinline__ void start_scores(float (&s)[BK / 8][4], uint32_t qb, uint32_t kb) {
+  const uint64_t dq = desc_sw128(qb, 16), dk = desc_sw128(kb, 16);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)  // 16 dims = 32 bytes along the swizzled row
+    wgmma_ss_n128(s, dq + 2 * kk, dk + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// Start O += P V on wgmma as one group: P from registers, V MN-major
+// through the transpose bit.
+__device__ __forceinline__ void start_pv(float (&o)[HD / 8][4], const uint32_t (&p)[BK / 16][4],
+                                         uint32_t vb) {
+  const uint64_t dv = desc_sw128(vb, 1024);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys = 2048 bytes
+    wgmma_rs_n64_tb(o, p[kk], dv + 128 * kk);
+  wgmma_commit();
+}
+
+// The mask of keys k0 .. k0 + BK - 1 on this thread's raw scores (columns
+// 8j + 2tg + e%2 of the mma C layout, tg = lane % 4). Each warp reads the
+// tile's valid bytes once, 4 a lane, and ballots them. A tile whose keys
+// are all valid is left as it is and the softmax applies the scale
+// (returns scale_log2); else every score is scaled here, -1e9 (log2 units)
+// where the valid byte is 0 and -inf beyond t (returns 1).
+__device__ __forceinline__ float mask_scores(float (&s)[BK / 8][4], const uint8_t* valid, int k0,
+                                             int t, float scale_log2, int lane) {
+  static_assert(BK == 128, "one ballot word per 32 x 4 keys");
+  if (valid == nullptr && k0 + BK <= t) return scale_log2;
+  const int tg = lane & 3;
+  uint32_t w[4];
+  bool all = true;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + lane * 4 + i;
+    w[i] = __ballot_sync(0xffffffffu, key < t && (valid == nullptr || __ldg(valid + key) != 0));
+    all = all && w[i] == 0xffffffffu;
+  }
+  if (all) return scale_log2;
+  // key 8j + 2tg + e is bit 2j + (2tg + e) / 4 of word (2tg + e) % 4
+  uint32_t sel[2];  // this thread's even / odd columns, bit 2j
+#pragma unroll
+  for (int e = 0; e < 2; ++e) sel[e] = ((tg & 1) ? w[2 + e] : w[e]) >> (tg >> 1);
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * tg + (e & 1);
+      const bool ok = (sel[e & 1] >> (2 * j)) & 1u;
+      s[j][e] = key >= t ? -INFINITY : (ok ? s[j][e] * scale_log2 : NEG2);
+    }
+  return 1.f;
+}
+
+// Online softmax of one tile of scores for this thread's two rows (g and
+// g + 8 of its 16): in log2 units the scores are s * c (c = scale * log2(e),
+// or 1 for a tile already scaled and masked). Updates the running max m and
+// l (this thread's partial sum; the quad sums it at the end), returns alpha
+// and leaves p = exp2(s c - m) in s.
+__device__ __forceinline__ void softmax_scores(float (&s)[BK / 8][4], float (&m)[2], float (&l)[2],
+                                               float (&al)[2], float c) {
+  float mx[2] = {s[0][0], s[0][2]};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)  // the 4 lanes of a quad share a row
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+    mx[r] = fmaxf(m[r], mx[r] * c);  // c > 0: the max of the scaled scores
+    al[r] = ex2(m[r] - mx[r]);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex2(fmaf(s[j][e], c, -mx[e / 2]));
+      sum[e / 2] += s[j][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * al[r] + sum[r];
+}
+
+// O times alpha, and p rounded to bf16 as A fragments: the C layout of key
+// groups 2kk and 2kk+1 is the A layout of the 16-key step kk.
+__device__ __forceinline__ void rescale_pack(float (&o)[HD / 8][4], const float (&al)[2],
+                                             const float (&s)[BK / 8][4],
+                                             uint32_t (&p)[BK / 16][4]) {
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // rows g and g+8
-
-  const int n_kt = (t + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's readers are done
-    if constexpr (K_SEQ_MINOR) {
-      for (int idx = tid; idx < HD * (BK / 8); idx += THREADS) {
-        const int c = idx / (BK / 8), ch = idx % (BK / 8);
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + ch * 8 < t)
-          val = *reinterpret_cast<const uint4*>(k + (size_t)c * ldk + k0 + ch * 8);
-        const bf16* e8 = reinterpret_cast<const bf16*>(&val);
+    for (int e = 0; e < 4; ++e) o[dt][e] *= al[e / 2];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) s.k[ch * 8 + e][c] = e8[e];
-      }
-    } else {
-      load_rows<BK, THREADS>(s.k, k, ldk, k0, t, tid);
-    }
-    for (int idx = tid; idx < BK * (HD / 8); idx += THREADS) {
-      const int r = idx / (HD / 8), ch = idx % (HD / 8);
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < t)
-        val = *reinterpret_cast<const uint4*>(v + (size_t)(k0 + r) * ldv + ch * 8);
-      const bf16* e8 = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s.vt[ch * 8 + e][r] = e8[e];
-    }
-    for (int j = tid; j < BK; j += THREADS) {
-      const int gk = k0 + j;
-      s.ok[j] = (gk < t && (valid == nullptr || valid[gk])) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    float sc[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int c = kk * 16 + tg * 2;
-        mma_bf16_16816(sc[nt], qa[kk], ld_bf16x2(&s.k[nt * 8 + g][c]),
-                       ld_bf16x2(&s.k[nt * 8 + g][c + 8]));
-      }
-    }
-
-    float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = s.ok[nt * 8 + tg * 2 + e] != 0.f;
-        sc[nt][e] = ok ? sc[nt][e] * scale : NEG;
-        sc[nt][e + 2] = ok ? sc[nt][e + 2] * scale : NEG;
-        mx0 = fmaxf(mx0, sc[nt][e]);
-        mx1 = fmaxf(mx1, sc[nt][e + 2]);
-      }
-    }
-    // the 4 lanes of a quad share a row
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sc[nt][e] = expf(sc[nt][e] - mn0);
-        sc[nt][e + 2] = expf(sc[nt][e + 2] - mn1);
-        sum0 += sc[nt][e];
-        sum1 += sc[nt][e + 2];
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l0 = l0 * al0 + sum0;
-    l1 = l1 * al1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      acc[dt][0] *= al0;
-      acc[dt][1] *= al0;
-      acc[dt][2] *= al1;
-      acc[dt][3] *= al1;
-    }
-
-    // P (16 x BK per warp) as A fragments: the C layout of n-tiles 2kk and
-    // 2kk+1 is exactly the A layout of the 16-key step kk.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]),
-          pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]),
-          pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-          pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const int c = kk * 16 + tg * 2;
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
-        mma_bf16_16816(acc[dt], pa, ld_bf16x2(&s.vt[dt * 8 + g][c]),
-                       ld_bf16x2(&s.vt[dt * 8 + g][c + 8]));
-    }
-  }
-
-  const float ls0 = fmaxf(l0, 1e-20f), ls1 = fmaxf(l1, 1e-20f);
-  const int r0 = q0 + wr + g, r1 = r0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int c = dt * 8 + tg * 2;
-    if (r0 < t)
-      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r0 * ldo + c) =
-          __floats2bfloat162_rn(acc[dt][0] / ls0, acc[dt][1] / ls0);
-    if (r1 < t)
-      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r1 * ldo + c) =
-          __floats2bfloat162_rn(acc[dt][2] / ls1, acc[dt][3] / ls1);
-  }
-  if (lse != nullptr && tg == 0) {
-    if (r0 < t) lse[r0] = m0 + logf(ls0);
-    if (r1 < t) lse[r1] = m1 + logf(ls1);
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    p[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+    p[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+    p[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    p[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
   }
 }
+
+// The kernel. Layout maps a head index (0 .. n_tiles / tiles-a-head - 1) to
+// its HeadView: the only difference between the flash and packed kernels.
+// map_q boxes BQ rows, map_k and map_v BK rows, 64 columns each.
+template <class Layout>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+         const __grid_constant__ CUtensorMap map_v, const Layout lay, int t, int n_tiles,
+         float scale_log2) {
+  constexpr int CONSUMERS = 4 * WGS;  // consumer warps
+  // Registers a thread: R0 at launch (the launch bounds' share, in 8s),
+  // CREGS for a consumer, 24 for the producer. setmaxnreg.inc draws only on
+  // what the producer warpgroup gave back, and waits for it forever.
+  constexpr int R0 = (65536 / THREADS) & ~7;
+  constexpr int CREGS = 160;
+  static_assert(WGS * 128 * (CREGS - R0) <= 128 * (R0 - 24), "consumer registers");
+  extern __shared__ __align__(128) char smem_dyn[];
+  Smem& s = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_dyn) + 1023) &
+                                     ~uintptr_t(1023));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nq = (t + BQ - 1) / BQ, n_kt = (t + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&s.q_full[i], 1);
+      mbar_init(&s.q_empty[i], CONSUMERS);
+    }
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&s.kv_full[i], 1);
+      mbar_init(&s.kv_empty[i], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS) {  // ------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (warp == CONSUMERS && lane == 0) {
+      uint32_t it = 0;  // K/V tiles requested, over all of this CTA's tiles
+      int i = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+        const HeadView hv = lay.head(tile / nq);
+        const int qb = i & 1;
+        mbar_wait(&s.q_empty[qb], ((i >> 1) & 1) ^ 1);
+        mbar_expect_tx(&s.q_full[qb], BQ * ROW);
+        tma_load_3d(s.q[qb], &map_q, &s.q_full[qb], hv.qcol, (tile % nq) * BQ, hv.z);
+        for (int j = 0; j < n_kt; ++j, ++it) {
+          const int st = it % STAGES;
+          mbar_wait(&s.kv_empty[st], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&s.kv_full[st], 2 * BK * ROW);
+          tma_load_3d(s.k[st], &map_k, &s.kv_full[st], hv.kcol, j * BK, hv.z);
+          tma_load_3d(s.v[st], &map_v, &s.kv_full[st], hv.vcol, j * BK, hv.z);
+        }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CREGS));
+    const int g = lane / 4, tg = lane % 4;
+    const int wr = warp * 16;  // this warp's first row of the tile
+    uint32_t it = 0;
+    int i = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const HeadView hv = lay.head(tile / nq);
+      const int q0 = (tile % nq) * BQ;
+      const int qb = i & 1;
+      mbar_wait(&s.q_full[qb], (i >> 1) & 1);
+
+      float o[HD / 8][4], m[2] = {NEG2, NEG2}, l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
+      // S of key tile j starts with P V of tile j - 1, so the softmax of
+      // one tile runs while the tensor cores multiply the last one.
+      {
+        const uint32_t qs = smem_u32(s.q[qb]) + (warp / 4) * 64 * ROW;
+        uint32_t p[BK / 16][4];
+        float al[2];
+        int prev = it % STAGES;  // the stage whose P V is next
+        {
+          mbar_wait(&s.kv_full[prev], (it / STAGES) & 1);
+          float sc[BK / 8][4];
+          wgmma_fence();
+          start_scores(sc, qs, smem_u32(s.k[prev]));
+          wgmma_wait<0>();
+          fence_regs(sc);
+          if (n_kt == 1 && lane == 0) mbar_arrive(&s.q_empty[qb]);
+          softmax_scores(sc, m, l, al, mask_scores(sc, hv.valid, 0, t, scale_log2, lane));
+          rescale_pack(o, al, sc, p);
+          ++it;
+        }
+        for (int j = 1; j < n_kt; ++j, ++it) {
+          const int st = it % STAGES;
+          mbar_wait(&s.kv_full[st], (it / STAGES) & 1);
+          float sc[BK / 8][4];
+          fence_regs(o);
+          wgmma_fence();
+          start_scores(sc, qs, smem_u32(s.k[st]));
+          start_pv(o, p, smem_u32(s.v[prev]));
+          wgmma_wait<1>();  // S ready; P V may still run
+          fence_regs(sc);
+          if (j == n_kt - 1 && lane == 0) mbar_arrive(&s.q_empty[qb]);
+          softmax_scores(sc, m, l, al, mask_scores(sc, hv.valid, j * BK, t, scale_log2, lane));
+          wgmma_wait<0>();
+          fence_regs(o);
+          if (lane == 0) mbar_arrive(&s.kv_empty[prev]);
+          rescale_pack(o, al, sc, p);
+          prev = st;
+        }
+        fence_regs(o);
+        wgmma_fence();
+        start_pv(o, p, smem_u32(s.v[prev]));
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(&s.kv_empty[prev]);
+      }
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = fmaxf(l[r], 1e-20f);
+        inv[r] = 1.f / l[r];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + wr + g + 8 * r;
+        if (row >= t) continue;
+        bf16* orow = hv.o + (size_t)row * hv.ldo + 2 * tg;
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt)
+          *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
+              __floats2bfloat162_rn(o[dt][2 * r] * inv[r], o[dt][2 * r + 1] * inv[r]);
+        if (hv.lse != nullptr && tg == 0)
+          hv.lse[row] = (m[r] == NEG2 ? NEG : m[r] * LN2) + logf(l[r]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the libraries link nothing beyond the CUDA runtime (by version
+// from CUDA 12.5 on, where the unversioned query is deprecated).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over bf16 (outer, rows, cols): row stride ld and outer stride
+// outer_ld elements, boxes of box_rows x 64 columns with the 128-byte
+// swizzle; rows beyond `rows` read as zeros. Returns a cudaError_t.
+inline int encode_map(CUtensorMap* map, const void* base, long long cols, long long rows,
+                      long long outer, long long ld, long long outer_ld, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)outer_ld * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)HD, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Launch fwd_bf16 over n_heads heads of t tokens: `maps` builds the three
+// tensor maps, Q in boxes of BQ rows, K and V of BK (fn(map_q, map_k,
+// map_v) -> error). The kernel's shared-memory limit and the SM count are
+// looked up once a device, not at every launch.
+template <class Layout, class Maps>
+int launch_bf16(const Maps& maps, const Layout& lay, int n_heads, int t, float scale,
+                cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = maps(&mq, &mk, &mv);
+  if (err != 0) return err;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  static std::atomic<int> sm_count[MAX_DEVICES];  // 0: not yet set up on that device
+  int sms = sm_count[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    e = cudaFuncSetAttribute(fwd_bf16<Layout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    sm_count[dev].store(sms, std::memory_order_relaxed);
+  }
+  const int n_tiles = n_heads * ((t + BQ - 1) / BQ);
+  fwd_bf16<Layout><<<n_tiles < sms ? n_tiles : sms, THREADS, SMEM_BYTES, stream>>>(
+      mq, mk, mv, lay, t, n_tiles, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hopper
 
 }  // namespace attn_tile

@@ -3,12 +3,15 @@
 Kernel: ``vipers_torch/csrc/flash_attention_fwd.cu``, hand-written CUDA for
 ``sm_90a``. It replaces the TPU's ``_fwd_kernel`` (``_flash_fwd``) and the
 library Pallas kernel behind ``flash_attention_official``, which the TPU
-build ran at T >= 512. One block per (batch*head, 64-query tile) streams
-64-key K/V tiles through shared memory with an f32 online softmax; pad keys
-get -1e9 on the f32 scores. The f32 instance runs on plain FMA (no TF32);
-the bf16 instance on ``mma.sync`` with f32 accumulation. At the ViT-S/16
-LOST shape the bf16 instance is bound by its operations (158 GFLOP against
-352 MB of I/O).
+build ran at T >= 512. K/V stream past a block of queries with an f32
+online softmax; pad keys get -1e9 on the f32 scores. The f32 instance runs
+on plain FMA (no TF32). The bf16 instance is Hopper's: TMA loads of query
+and K/V tiles into a ring of shared-memory stages, mbarriers, a producer
+warp, ``wgmma`` for both products (``csrc/attention_tile.cuh``; its shape
+in ``tile_shape``). TMA needs 16-byte-aligned base pointers, so the
+wrappers raise on a CUDA tensor that is not. At the ViT-S/16 LOST shape
+the bf16 instance is bound by its operations (158 GFLOP against 352 MB of
+I/O).
 
 ``flash_attention_fwd`` launches the kernel for CUDA tensors and runs the
 plain version, ``flash_attention_plain``, for CPU tensors; a build or
@@ -22,8 +25,8 @@ k and v straight from the (B, T, 3D) output of one projection whose columns
 are permuted into head-pair stripes (``packed_qkv_permutation``) and writes
 (B, T, D) h-major. Kernel: ``vipers_torch/csrc/flash_attention_packed.cu``,
 replacing the TPU's ``_packed_fwd_kernel`` (``_packed_fwd``); it runs the
-same tile as the head-major kernel on strided rows. ``PACKED_LAUNCHES``
-counts its launches per instance.
+same tile as the head-major kernel, the head's stripe a TMA coordinate.
+``PACKED_LAUNCHES`` counts its launches per instance.
 """
 
 from __future__ import annotations
@@ -82,14 +85,19 @@ def _scores(q, k, valid, scale: float):
 
 def flash_attention_plain(q, k, v, valid=None, scale: Optional[float] = None):
     """Plain PyTorch version of the kernel: (out, lse) with the kernel's
-    arithmetic (q in f32 times scale, f32 scores, -1e9 key mask, f32
-    softmax, out in the input dtype, f32 logsumexp)."""
+    arithmetic (q in f32 times scale, f32 scores, -1e9 key mask, p =
+    exp(s - m), l_safe = max(sum p, 1e-20), out = p.v / l_safe in the input
+    dtype, lse = m + log(l_safe) in f32). A row whose keys are all invalid
+    is the uniform average of v, as in the JAX kernel (lse rounds to -1e9
+    there, so exp(s - lse) would sum v instead)."""
     hd = q.shape[-1]
     scale = (hd ** -0.5) if scale is None else scale
     s = _scores(q, k, valid, scale)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
-    return torch.matmul(p, v.float()).to(q.dtype), lse
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
+    out = torch.matmul(p, v.float()) / l_safe
+    return out.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
 def _check(q, k, v, valid):
@@ -122,6 +130,29 @@ def _lib():
     return fn
 
 
+def tile_shape() -> dict:
+    """The bf16 tile's query rows, key-tile width and K/V ring stages, as
+    compiled into the kernels (``attn_tile::hopper``). Builds the flash
+    library if needed."""
+    fn = _build.load("flash_attention_fwd").vipers_flash_attention_tile
+    if fn.argtypes is None:
+        pi = ctypes.POINTER(ctypes.c_int)
+        fn.argtypes = [pi, pi, pi]
+        fn.restype = None
+    vals = [ctypes.c_int() for _ in range(3)]
+    fn(*map(ctypes.byref, vals))
+    return dict(zip(("block_q", "block_k", "stages"), (v.value for v in vals)))
+
+
+def _check_aligned(*tensors):
+    """TMA reads from 16-byte-aligned base pointers only: raise rather than
+    copy a CUDA tensor that is not (a view at an odd offset)."""
+    for z in tensors:
+        if z is not None and z.data_ptr() % 16:
+            raise ValueError(f"CUDA tensors must be 16-byte aligned, got data_ptr "
+                             f"{z.data_ptr():#x} (a view at an offset?)")
+
+
 def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
     """(B, H, T, 64) masked attention -> (out in the input dtype, lse f32
     (B, H, T)). ``valid``: (B, T) bool key mask (True = attend). Query rows
@@ -135,6 +166,7 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
         raise ValueError(f"unsupported device {q.device}")
     fn = _lib()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_aligned(q, k, v)
     vmask = valid.contiguous().view(torch.uint8) if valid is not None else None
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -301,6 +333,7 @@ def flash_attention_packed_fwd(qkv, valid, num_heads: int, scale: float):
         raise ValueError(f"the packed attention kernel needs head dim {HEAD_DIM}, got {hd}")
     fn = _packed_lib()
     qkv = qkv.contiguous()
+    _check_aligned(qkv)
     vmask = valid.contiguous().view(torch.uint8) if valid is not None else None
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
