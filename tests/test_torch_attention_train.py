@@ -145,3 +145,37 @@ def test_cpu_runs_plain_and_counts_no_launch():
     want, _ = tat.attention_train_fwd_plain(*_t(q, k, v), torch.from_numpy(valid), HD ** -0.5)
     assert torch.equal(out.detach(), want)
     assert tat.LAUNCHES == before
+
+
+def test_all_invalid_image_contract_at_t256():
+    """An image whose keys are all invalid, at T = 256: its lse rounds to
+    -1e9 in f32, so the forward is the uniform average of V and the
+    backward's p = exp(s - lse) is 1 for every key (not 1/T). The port's
+    plain versions meet that contract three ways: against the JAX kernels in
+    interpret mode (f32 tolerances), against the average of V, and against
+    the p = 1 backward written out in numpy. The CUDA kernels are held to
+    these plain versions on the card."""
+    q, k, v, valid, g = _inputs(5, b=2, t=256)
+    valid[1] = False
+    scale = HD ** -0.5
+    ok = jnp.asarray(valid)[:, None, :].astype(jnp.int8)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    o, lse = jat._fwd(jq, jk, jv, ok, scale, True)
+    want = jat._bwd(jq, jk, jv, o, lse, jg, ok, scale, True)
+    tvalid = torch.from_numpy(valid)
+    to, tlse = tat.attention_train_fwd(*_t(q, k, v), tvalid, scale)
+    got = tat.attention_train_bwd(*_t(q, k, v), to, tlse, *_t(g), tvalid, scale)
+    np.testing.assert_allclose(to.numpy(), np.asarray(o), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(lse)[:, :, 0], atol=2e-5, rtol=0)
+    for a, c in zip(got, want):
+        assert float(np.abs(a.numpy() - np.asarray(c)).max()) < 5e-5
+
+    assert np.all(tlse[1].numpy() == np.float32(-1e9))
+    np.testing.assert_allclose(to[1].numpy(), np.broadcast_to(v[1].mean(axis=1, keepdims=True),
+                                                               v[1].shape), atol=2e-5, rtol=0)
+    qs, o1, g1 = (q[1] * np.float32(scale)), to[1].numpy(), g[1]
+    d = (g1 * o1).sum(-1, keepdims=True)
+    ds = g1 @ v[1].transpose(0, 2, 1) - d  # (dP - D) * p with p = 1
+    for a, c in zip(got, ((ds @ k[1]) * scale, ds.transpose(0, 2, 1) @ qs,
+                          np.broadcast_to(g1.sum(axis=1, keepdims=True), g1.shape))):
+        np.testing.assert_allclose(a[1].numpy(), c, atol=5e-4, rtol=1e-5)

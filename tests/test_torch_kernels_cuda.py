@@ -133,12 +133,14 @@ def test_fused_mlp_kernel_matches_plain(cuda, m, d, f):
     assert (out.float() - want.float()).abs().max().item() <= 2e-2 * scale
 
 
-def _attention_train_inputs(b, h, t, dev, seed):
+def _attention_train_inputs(b, h, t, dev, seed, all_invalid=False):
     g = torch.Generator(device="cpu").manual_seed(seed)
     qkv = torch.randn(3, b, h, t, 64, generator=g).to(dev, torch.bfloat16)
     cot = torch.randn(b, h, t, 64, generator=g).to(dev, torch.bfloat16)
     valid = torch.ones(b, t, dtype=torch.bool)
     valid[1::2, t - t // 5:] = False  # ragged pad keys on half the batch
+    if all_invalid:
+        valid[-1] = False  # the last image attends no key
     return qkv, cot, valid.to(dev)
 
 
@@ -149,15 +151,19 @@ def _close_to_scale(got, want, frac=2e-2):
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
-@pytest.mark.parametrize("t", [256, 197, 1024])
+@pytest.mark.parametrize("t", [128, 197, 256, 384, 1024])
 def test_attention_train_kernels_match_plain(cuda, t, packed):
     """Forward and backward kernels (through the entries and their autograd
     Functions) against the plain versions on the same padded inputs, bf16
-    at 2e-2 of each output's scale. One kernel pair serves both entries."""
+    at 2e-2 of each output's scale. One kernel pair serves both entries.
+    T <= 256 (padded) takes the one-pass forward and the backward without
+    scratch, 384 and 1024 the two-pass forward and the key rounds. The last
+    image attends no key: its forward is the average of v over the padded
+    T and its backward the p = 1 one, as in JAX."""
     from vipers_torch.ops import attention_train as tat
     from vipers_torch.ops.tokens import round_up
 
-    qkv, cot, valid = _attention_train_inputs(4, 3, t, cuda, seed=t)
+    qkv, cot, valid = _attention_train_inputs(4, 3, t, cuda, seed=t, all_invalid=True)
     n0 = dict(tat.LAUNCHES)
     if packed:
         x = qkv.clone().requires_grad_(True)
@@ -177,8 +183,56 @@ def test_attention_train_kernels_match_plain(cuda, t, packed):
     o, lse = tat.attention_train_fwd_plain(q, k, v, ok, scale)
     want = tat.attention_train_bwd_plain(q, k, v, o, lse, pad(cot), ok, scale)
     _close_to_scale(out, o[:, :, :t])
+    _close_to_scale(out[-1], v[-1].float().mean(dim=1, keepdim=True).expand(3, tp, 64)[:, :t])
     for a, c in zip(grad, want):
         _close_to_scale(a, c[:, :, :t])
+
+
+@pytest.mark.parametrize("t", [256, 640])
+def test_attention_train_backward_is_deterministic(cuda, t):
+    """Two backward calls on the same inputs give bit-equal dq, dk and dv:
+    dQ is summed in a fixed order with no atomics (at T = 640 across key
+    rounds in the f32 scratch), so an LRR round repeats."""
+    from vipers_torch.ops import attention_train as tat
+
+    qkv, cot, valid = _attention_train_inputs(8, 6, t, cuda, seed=3, all_invalid=True)
+    q, k, v = qkv.unbind(0)
+    o, lse = tat.attention_train_fwd(q, k, v, valid, 0.125)
+    first = tat.attention_train_bwd(q, k, v, o, lse, cot, valid, 0.125)
+    second = tat.attention_train_bwd(q, k, v, o, lse, cot, valid, 0.125)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def test_attention_train_rejects_unaligned_cuda_tensors(cuda):
+    """TMA needs 16-byte-aligned base pointers: the training attention
+    wrappers refuse a view one element into its storage (an input, or an
+    ``out`` slab of the backward), and copy nothing."""
+    from vipers_torch.ops import attention_train as tat
+
+    n = 2 * 3 * 128 * 64
+    qkv, cot, valid = _attention_train_inputs(2, 3, 128, cuda, seed=4)
+    q, k, v = qkv.unbind(0)
+    base = torch.zeros(n + 1, device=cuda, dtype=torch.bfloat16)
+    odd = base[1:].view(2, 3, 128, 64)
+    odd.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tat.attention_train_fwd(odd, k, v, valid, 0.125)
+    o, lse = tat.attention_train_fwd(q, k, v, valid, 0.125)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tat.attention_train_bwd(q, k, v, o, lse, cot, valid, 0.125,
+                                out=(odd, torch.empty_like(q), torch.empty_like(q)))
+
+
+def test_attention_train_design(cuda):
+    """The compiled training kernels: 128-query forward tiles over 256-key
+    chunks in two K/V stages; 64-query backward blocks in three ring
+    stages."""
+    from vipers_torch.ops import attention_train as tat
+
+    assert tat.design() == {"fwd_block_q": 128, "chunk": 256, "fwd_stages": 2,
+                            "bwd_block_q": 64, "bwd_stages": 3}
 
 
 def test_flash_attention_gradient_through_kernel(cuda):

@@ -19,7 +19,8 @@
 //              from padded shared memory (no TF32). q is multiplied by the
 //              scale as it is loaded; keys beyond t read as zero rows and
 //              get -inf.
-//   bf16 tile: Hopper's TMA, mbarriers and wgmma (namespace hopper below).
+//   bf16 tile: Hopper's TMA, mbarriers and wgmma (namespace hopper below,
+//              on the building blocks of hopper.cuh).
 #pragma once
 
 #include <cuda.h>
@@ -28,8 +29,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
-
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace attn_tile {
@@ -203,6 +203,8 @@ __device__ void fwd_f32(const float* __restrict__ q, const float* __restrict__ k
 // uniform average); query rows beyond t are not written.
 namespace hopper {
 
+using namespace ::hopper;  // the building blocks, hopper.cuh
+
 constexpr int ROW = HD * 2;  // bytes in a row: one 128-byte swizzle row
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -213,7 +215,6 @@ constexpr int BQ = 64 * WGS;             // query rows of a tile
 constexpr int BK = 128;                  // keys of a K/V tile
 constexpr int STAGES = 3;                // K/V tiles in the ring
 constexpr int THREADS = 128 * (WGS + 1);  // + the producer warpgroup
-constexpr int MAX_DEVICES = 64;
 
 struct Smem {
   bf16 q[2][BQ * HD];  // every tile 1024-byte aligned: the swizzle atom
@@ -233,142 +234,6 @@ struct HeadView {
   float* lse;
   const uint8_t* valid;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-
-// One box of `map` at (c0, c1, c2) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile at `addr`:
-// start address, leading and stride byte offsets (16-byte units), layout 1
-// (SWIZZLE_128B); 8-row groups lie 1024 bytes apart (the stride offset).
-// K-major tiles (Q, K) leave the leading offset unused (16). For V,
-// MN-major, the 64 dims are one swizzle row, so no second group along them
-// exists and the leading offset is given the same 1024.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N of this thread's wgmma groups are pending (groups
-// complete in order).
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of wgmma accumulators
-// across the asynchronous product.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
-}
-
-// D (64 x 128, f32) {=, +=} A (64 x 16) . B (16 x 128), both bf16 K-major in
-// shared memory (descriptors); scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 in registers, the mma.sync A layout
-// per warp) . B (16 x 64, bf16 MN-major in shared memory: the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[8][4], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // Start S (this warpgroup's 64 rows x BK keys) = Q K^T on wgmma as one
 // group; qb and kb are the shared addresses of the warpgroup's Q rows and of
@@ -622,49 +487,6 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
 
 // ------------------------------------------------------------------ host
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// so that the libraries link nothing beyond the CUDA runtime (by version
-// from CUDA 12.5 on, where the unversioned query is deprecated).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 3-D map over bf16 (outer, rows, cols): row stride ld and outer stride
-// outer_ld elements, boxes of box_rows x 64 columns with the 128-byte
-// swizzle; rows beyond `rows` read as zeros. Returns a cudaError_t.
-inline int encode_map(CUtensorMap* map, const void* base, long long cols, long long rows,
-                      long long outer, long long ld, long long outer_ld, int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)outer_ld * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)HD, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 // Launch fwd_bf16 over n_heads heads of t tokens: `maps` builds the three
 // tensor maps, Q in boxes of BQ rows, K and V of BK (fn(map_q, map_k,
 // map_v) -> error). The kernel's shared-memory limit and the SM count are
@@ -675,19 +497,10 @@ int launch_bf16(const Maps& maps, const Layout& lay, int n_heads, int t, float s
   CUtensorMap mq, mk, mv;
   int err = maps(&mq, &mk, &mv);
   if (err != 0) return err;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  static std::atomic<int> sm_count[MAX_DEVICES];  // 0: not yet set up on that device
-  int sms = sm_count[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    e = cudaFuncSetAttribute(fwd_bf16<Layout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    sm_count[dev].store(sms, std::memory_order_relaxed);
-  }
+  static LaunchSetup setup;
+  int sms = 0;
+  err = setup.sms(fwd_bf16<Layout>, SMEM_BYTES, &sms);
+  if (err != 0) return err;
   const int n_tiles = n_heads * ((t + BQ - 1) / BQ);
   fwd_bf16<Layout><<<n_tiles < sms ? n_tiles : sms, THREADS, SMEM_BYTES, stream>>>(
       mq, mk, mv, lay, t, n_tiles, scale * LOG2E);

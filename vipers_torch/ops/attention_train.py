@@ -2,26 +2,30 @@
 ``vipers/ops/attention_train.py``).
 
 Kernel: ``vipers_torch/csrc/attention_train.cu``, hand-written CUDA for
-``sm_90a``. Its forward replaces the TPU's ``_fwd`` and ``_fwd_packed``, its
-backward ``_bwd`` and ``_bwd_packed``: both take q, k, v (and write dq, dk,
-dv) through three base pointers over (B, H, T, 64), so the packed entry hands
-them the three slabs of one (3, B, H, T, 64) buffer and gets one packed dqkv
-back, and the unpacked entry hands them three tensors. The forward keeps the
-exact softmax with two passes over the key tiles per query tile (row max,
-then P.V against it); the backward is one block per (b, h) with dK/dV in
-registers and dQ summed in an f32 scratch only that block touches. At the
-ViT-S/16 train shape (B*H = 768, T = 256, bf16) both are bound by bytes
-(12.9 GFLOP on ~101 MB forward, 32.2 GFLOP on ~202 MB backward).
+``sm_90a`` on Hopper's TMA, mbarriers and ``wgmma`` (the building blocks in
+``csrc/hopper.cuh``). Its forward replaces the TPU's ``_fwd`` and
+``_fwd_packed``, its backward ``_bwd`` and ``_bwd_packed``: both take q, k,
+v (and write dq, dk, dv) through three base pointers over (B, H, T, 64), so
+the packed entry hands them the three slabs of one (3, B, H, T, 64) buffer
+and gets one packed dqkv back, and the unpacked entry hands them three
+tensors. The forward keeps the exact softmax in one pass where T <= 256
+(two passes over 256-key chunks beyond); the backward is one CTA per (b, h)
+at a time with dK/dV in registers and dQ from a staged dS, summed in an
+f32 scratch only where T > 256. TMA needs 16-byte-aligned base pointers, so
+the wrappers raise on a CUDA tensor that is not. At the ViT-S/16 train
+shape (B*H = 768, T = 256, bf16) both are bound by bytes (12.9 GFLOP on
+~101 MB forward, 32.2 GFLOP on ~202 MB backward).
 
 ``attention_train_fwd`` / ``attention_train_bwd`` launch the kernels for
 CUDA tensors (bf16 and head dim 64 only; anything else raises) and run the
 plain versions, ``attention_train_fwd_plain`` / ``attention_train_bwd_plain``,
-for CPU tensors. ``LAUNCHES`` counts kernel launches per variant.
+for CPU tensors. ``LAUNCHES`` counts kernel launches per variant;
+``design()`` reads back the compiled block shapes.
 
 ``variant=`` selects the softmax precision of the TPU's A/B tool
 ``tools/bench_softmax_prec.py`` (forward ``f32`` / ``bf16exp`` / ``normP``,
 backward ``f32`` / ``bf16exp``), template instances of the same kernels;
-the model path runs ``f32``, today's kernels, and never passes it.
+the model path runs ``f32`` and never passes it.
 """
 
 from __future__ import annotations
@@ -34,11 +38,12 @@ import torch
 import torch.nn.functional as F
 
 from vipers_torch.ops import _build
-from vipers_torch.ops.flash_attention import NEG_INF
+from vipers_torch.ops.flash_attention import NEG_INF, _check_aligned
 from vipers_torch.ops.tokens import round_up
 
 MAX_T = 1024
 HEAD_DIM = 64
+CHUNK = 256  # keys the kernels hold at once; beyond, dQ sums in an f32 scratch
 FWD_VARIANTS = ("f32", "bf16exp", "normP")
 BWD_VARIANTS = ("f32", "bf16exp")
 
@@ -133,9 +138,23 @@ def _fn(name, nptr):
     fn = getattr(_build.load("attention_train"), name)
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p] * nptr + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, p]
+        fn.argtypes = [p] * nptr + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2 + [p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def design() -> dict:
+    """The compiled kernels' shapes: the forward's query rows a tile, keys a
+    chunk (the backward's keys a round) and K/V stages; the backward's
+    query rows a block and ring stages. Builds the library if needed."""
+    fn = _build.load("attention_train").vipers_attention_train_design
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+        fn.restype = None
+    vals = [ctypes.c_int() for _ in range(5)]
+    fn(*map(ctypes.byref, vals))
+    return dict(zip(("fwd_block_q", "chunk", "fwd_stages", "bwd_block_q", "bwd_stages"),
+                    (v.value for v in vals)))
 
 
 def _check_cuda(q, ok):
@@ -167,13 +186,14 @@ def attention_train_fwd(q, k, v, ok, scale: float, variant: str = "f32"):
     _check_cuda(q, ok)
     b, h, t, hd = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_aligned(q, k, v)
     okb = ok.contiguous().view(torch.uint8)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     _launch("attention_train_fwd", _fn("vipers_attention_train_fwd", 6),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), okb.data_ptr(),
              out.data_ptr(), lse.data_ptr(), b * h, h, t, hd, float(scale),
-             FWD_VARIANTS.index(variant)), q)
+             FWD_VARIANTS.index(variant), q.device.index), q)
     LAUNCHES[_launch_key("fwd", variant)] += 1
     return out, lse
 
@@ -202,13 +222,16 @@ def attention_train_bwd(q, k, v, o, lse, do, ok, scale: float, out=None,
         out = tuple(torch.empty_like(ins[0]) for _ in range(3))
     if any(not z.is_contiguous() or z.shape != q.shape or z.dtype != q.dtype for z in out):
         raise ValueError("out must be three contiguous tensors shaped like q")
-    scratch = torch.empty((b, h, t, hd), dtype=torch.float32, device=q.device)
+    _check_aligned(*ins, lse, *out)
+    scratch = (torch.empty((b, h, t, hd), dtype=torch.float32, device=q.device)
+               if t > CHUNK else None)
     qc, kc, vc, oc, doc = ins
     _launch("attention_train_bwd", _fn("vipers_attention_train_bwd", 11),
             (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
              lse.data_ptr(), doc.data_ptr(), okb.data_ptr(), out[0].data_ptr(),
-             out[1].data_ptr(), out[2].data_ptr(), scratch.data_ptr(),
-             b * h, h, t, hd, float(scale), BWD_VARIANTS.index(variant)), q)
+             out[1].data_ptr(), out[2].data_ptr(),
+             scratch.data_ptr() if scratch is not None else None,
+             b * h, h, t, hd, float(scale), BWD_VARIANTS.index(variant), q.device.index), q)
     LAUNCHES[_launch_key("bwd", variant)] += 1
     return tuple(out)
 
