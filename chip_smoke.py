@@ -14,12 +14,15 @@ Phases (any failure exits non-zero; nothing is caught):
      instance): max error against the stated tolerance (each variant also
      clearly nearer its own plain version than f32's), kernel / plain /
      library times (CUDA events, median), and the bound from the work's
-     FLOPs and bytes; for the flash and packed kernels also TFLOP/s and
-     the share of the bound, and the bf16 attention tile's shape (query
-     rows, key tile, stages); for the training kernels the share of the
-     bound and their design (tiles, chunk, stages), and one more check at
-     T = 640 (the two-pass forward and the backward's key rounds, which the
-     main path does not run);
+     FLOPs and bytes; for the flash, packed, fused-MLP and splash kernels
+     also TFLOP/s and the share of the bound, and for flash and packed the
+     bf16 attention tile's shape (query rows, key tile, stages); for the
+     fused MLP its design (rows a CTA, column tile, stages); for the
+     training kernels the share of the bound and their design (tiles,
+     chunk, stages); more checks the main path does not run: the training
+     kernels at T = 640 (the two-pass forward and the backward's key
+     rounds) and the fused MLP at vit_b's and vit_h's widths (D = 768 and
+     1280, F = 4D; timed, beside the library's sequence);
   4. LOST path: full-width ViT-S/16 (12 layers, D=384, 6 heads, mlp 1536)
      from a seeded generator, 50% global magnitude mask, 512x384 uint8
      images, ``make_batched_pipeline`` in f32 and bf16 at B=128 on an
@@ -38,8 +41,10 @@ Phases (any failure exits non-zero; nothing is caught):
      losses, pruned slots unchanged, img/s at B=128, card vs CPU at B=4,
      one LRR round;
   7. the A/B tools at their shapes: ``vipers_torch.tools.bench_softmax_prec``
-     (the softmax-precision variants) and ``vipers_torch.tools.bench_splash``
-     (the splash instances against the flash kernel), their lines printed.
+     (the softmax-precision variants), ``vipers_torch.tools.bench_splash``
+     (the splash instances against the flash kernel) and
+     ``vipers_torch.tools.bench_fused_mlp`` (the fused MLP against the
+     layer_norm -> linear -> GELU sequence), their lines printed.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``.
@@ -137,39 +142,82 @@ def check_flash(fa, dtype, gen):
             "bound_by": by, "library_ms": lib_ms}
 
 
-def check_fused_mlp(fm, gen):
-    """Fused LN->fc1->GELU kernel vs plain at (128*896, 384) x (384, 1536)."""
-    m, d, f = BATCH * 896, 384, 1536
+def fused_mlp_inputs(fm, m, d, f, gen):
+    """x (m, d) bf16 and the folded (W_eff^T, b_eff) of a LayerNorm and fc1,
+    plus the unfolded bf16 weights for the library's sequence."""
     x = torch.randn(m, d, generator=gen, device="cuda").to(torch.bfloat16)
     gamma = 1 + 0.3 * torch.randn(d, generator=gen, device="cuda")
     beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
     kernel = torch.randn(d, f, generator=gen, device="cuda") / d ** 0.5
     bias = 0.1 * torch.randn(f, generator=gen, device="cuda")
     w_eff_t, b_eff = fm.fold_ln_affine(gamma, beta, kernel, bias, torch.bfloat16)
-    out = fm.fused_ln_dense_gelu_core(x, w_eff_t, b_eff)
-    want = fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6)
-    torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    assert err <= 2e-2 * scale, (err, scale)
+    lib_w = (gamma.bfloat16(), beta.bfloat16(), kernel.t().contiguous().bfloat16(),
+             bias.bfloat16())
+    return x, w_eff_t, b_eff, lib_w
+
+
+def fused_mlp_design(fm, d):
+    ds = fm.design(d)
+    return (f"{ds['rows']} rows a CTA, {ds['block_n']}-column tiles, {ds['stages']} W_eff stages "
+            f"of 64 k, "
+            f"{'an epilogue warpgroup a consumer' if ds['staged'] else 'epilogue in the consumer'}")
+
+
+def fused_mlp_times(fm, x, w_eff_t, b_eff, lib_w):
+    """Kernel and layer_norm+linear+gelu milliseconds, and the bound."""
+    (m, d), f = x.shape, w_eff_t.shape[0]
+    g16, b16, wt16, bb16 = lib_w
     ms = cuda_ms(lambda: fm.fused_ln_dense_gelu_core(x, w_eff_t, b_eff))
-    plain_ms = cuda_ms(lambda: fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6), reps=5)
-    g16, b16 = gamma.bfloat16(), beta.bfloat16()
-    wt16, bb16 = kernel.t().contiguous().bfloat16(), bias.bfloat16()
     lib_ms = cuda_ms(lambda: F.gelu(F.linear(F.layer_norm(x, (d,), g16, b16, 1e-6),
                                              wt16, bb16), approximate="tanh"))
     flops = 2 * m * d * f
-    nbytes = (x.numel() + w_eff_t.numel() + out.numel()) * 2 + b_eff.numel() * 4
+    nbytes = (x.numel() + w_eff_t.numel() + m * f) * 2 + b_eff.numel() * 4
     bms, by = bound(flops, nbytes, PEAK_BF16)
-    print(f"fused_ln_fc1_gelu[bf16] max_abs_err {err:.3e} (2e-2 of output scale "
-          f"{scale:.3g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-          f"layer_norm+linear+gelu {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
-          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
+    line = (f"kernel {ms:.3f} ms ({flops / ms / 1e9:.0f} TFLOP/s, {bms / ms:.1%} of the bound; "
+            f"{fused_mlp_design(fm, d)}) layer_norm+linear+gelu {lib_ms:.3f} ms bound "
+            f"{bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
+    return ms, lib_ms, bms, by, line
+
+
+def check_fused_mlp(fm, gen):
+    """Fused LN->fc1->GELU kernel vs plain at (128*896, 384) x (384, 1536):
+    2e-2 of the output scale (the kernel's tanh is tanh.approx.f32, the
+    plain version's torch.tanh)."""
+    m, d, f = BATCH * 896, 384, 1536
+    x, w_eff_t, b_eff, lib_w = fused_mlp_inputs(fm, m, d, f, gen)
+    out = fm.fused_ln_dense_gelu_core(x, w_eff_t, b_eff)
+    want = fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6)
+    torch.cuda.synchronize()
+    err, scale = scaled_err(out, want)
+    ms, lib_ms, bms, by, line = fused_mlp_times(fm, x, w_eff_t, b_eff, lib_w)
+    plain_ms = cuda_ms(lambda: fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6), reps=5)
+    print(f"fused_ln_fc1_gelu[bf16] max_abs_err {err:.3e} (2e-2 of output scale {scale:.3g}) "
+          f"{line} plain {plain_ms:.3f} ms")
     return {"name": "fused_ln_fc1_gelu[bf16]", "route": "cuda",
             "source": "vipers_torch/csrc/fused_mlp.cu",
             "replaces": "vipers/ops/fused_mlp.py:123",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "tflops": 2 * m * d * f / ms / 1e9, "share_of_bound": bms / ms,
+            "design": fm.design(d)}
+
+
+def check_fused_mlp_wide(fm, gen):
+    """The fused MLP at vit_b's and vit_h's widths, (16*896, D) x (D, 4D)
+    for D = 768 and 1280 (the one-consumer instance): the kernel against
+    its plain version (2e-2 of the output scale), and its time beside the
+    layer_norm+linear+gelu sequence's, with no gate on the times."""
+    m = 16 * 896
+    for d in (768, 1280):
+        f = 4 * d
+        x, w_eff_t, b_eff, lib_w = fused_mlp_inputs(fm, m, d, f, gen)
+        out = fm.fused_ln_dense_gelu_core(x, w_eff_t, b_eff)
+        want = fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6)
+        torch.cuda.synchronize()
+        err, sc = scaled_err(out, want)
+        line = fused_mlp_times(fm, x, w_eff_t, b_eff, lib_w)[-1]
+        print(f"fused_ln_fc1_gelu[bf16, D={d}, F={f}, M={m}] max_abs_err {err:.3e} (2e-2 of "
+              f"output scale {sc:.3g}) {line}")
 
 
 def check_flash_packed(fa, dtype, gen):
@@ -437,7 +485,8 @@ def check_splash(sa, gen):
         ms = cuda_ms(lambda: sa.splash_attention(q, kk, v, bq, bkv, layout))
         name = f"splash_attention[{sa.instance_name(bq, bkv, layout)}]"
         print(f"{name} max_abs_err {err:.3e} (2e-2 of output scale {sc:.3g}) kernel {ms:.3f} ms "
-              f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
+              f"({flops / ms / 1e9:.0f} TFLOP/s, {bms / ms:.1%} of the bound) plain "
+              f"{plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
         rows.append({"name": name, "route": "cuda",
                      "source": "vipers_torch/csrc/splash_attention.cu",
@@ -581,11 +630,12 @@ def packed_lost_phase(card, spec, extractors, buckets, default_outs, lost_core):
 
 
 def tools_phase(counters):
-    """Both A/B tools' ``main()`` at their shapes, each with the launch
+    """The A/B tools' ``main()`` at their shapes, each with the launch
     counts set to 0 just before it and read just after."""
     from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import fused_mlp as fm
     from vipers_torch.ops import splash_attention as sa
-    from vipers_torch.tools import bench_softmax_prec, bench_splash
+    from vipers_torch.tools import bench_fused_mlp, bench_softmax_prec, bench_splash
 
     reset_counts(*counters)
     bench_softmax_prec.main([])
@@ -596,6 +646,10 @@ def tools_phase(counters):
     bench_splash.main([])
     torch.cuda.synchronize()
     launches.update({f"splash_attention[{k}]": n for k, n in sa.LAUNCHES.items()})
+    reset_counts(*counters)
+    bench_fused_mlp.main([])
+    torch.cuda.synchronize()
+    launches["bench_fused_mlp: fused_ln_fc1_gelu[bf16]"] = fm.LAUNCHES["bfloat16"]
     print(f"A/B tools' launches: {launches}")
     assert all(launches.values()), launches
     return launches
@@ -761,6 +815,7 @@ def main():
                check_fused_mlp(fm, gen), *check_attention_train(at, gen),
                *check_softmax_variants(at, gen), *check_splash(sa, gen)]
     check_attention_train_rounds(at, gen)
+    check_fused_mlp_wide(fm, gen)
 
     # 4. main path
     t0 = time.time()
@@ -847,7 +902,8 @@ def main():
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in kernels]}))
+    # the contract's keys first, then a row's own (the fused MLP's rate and design)
+    print(json.dumps({"kernels": [{**{k: kd[k] for k in keys}, **kd} for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -80,11 +80,10 @@ def test_plain_matches_pallas_packed_kernel(dtype):
         assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
 
 
-def test_autograd_backward_matches_jax_grad():
-    """Gradient of <out, g> through the port's autograd Function (plain
-    forward on the CPU, the einsum-recompute backward) against jax.grad
-    through the interpret-mode ``_packed_flash`` and its custom VJP."""
-    qkv, valid, g = _inputs(2)
+def _packed_grads(qkv, valid, g):
+    """(port, JAX) gradients of <out, g> in qkv: the port's autograd
+    Function (plain forward on the CPU, the einsum-recompute backward) and
+    jax.grad through the interpret-mode ``_packed_flash`` and its VJP."""
     jvalid, jg = jnp.asarray(valid), jnp.asarray(g)
 
     def jloss(x):
@@ -94,7 +93,29 @@ def test_autograd_backward_matches_jax_grad():
     x = torch.from_numpy(qkv).requires_grad_(True)
     out = tfa.flash_attention_packed(x, torch.from_numpy(valid), num_heads=H, scale=0.125)
     (got,) = torch.autograd.grad(out, x, torch.from_numpy(g))
-    np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=0)
+    return got.numpy(), want
+
+
+def test_autograd_backward_matches_jax_grad():
+    """Gradient of <out, g> through the port's autograd Function (plain
+    forward on the CPU, the einsum-recompute backward with p normalized by
+    its row sum, as ``_packed_vjp_bwd`` computes it) against jax.grad
+    through the interpret-mode ``_packed_flash`` and its custom VJP, on
+    200 valid keys of 256 on the second image."""
+    got, want = _packed_grads(*_inputs(2))
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+
+
+def test_autograd_backward_all_invalid_image_matches_jax_grad():
+    """An image whose keys are all invalid: JAX's backward normalizes p
+    explicitly, so p = 1/T on every key there. A p taken from the logsumexp
+    of its -1e9 scores (which rounds to -1e9) would be 1 on every key and
+    give T times the gradient. Both images held at atol 2e-3."""
+    qkv, valid, g = _inputs(5)
+    valid[1] = False
+    got, want = _packed_grads(qkv, valid, g)
+    assert np.abs(want[1]).max() > 0.1  # the all-invalid image has a gradient
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
 
 
 def test_wrapper_pads_to_128_and_matches_the_jax_wrapper():

@@ -205,3 +205,15 @@ def test_autograd_backward_matches_jax_vjp_bf16():
         a, c = a.float().numpy(), np.asarray(c.astype(jnp.float32))
         assert a.shape == c.shape, name
         assert np.abs(a - c).max() <= 2 ** -7 * np.abs(c).max(), (name, np.abs(a - c).max())
+
+
+def test_port_tool_runs_on_the_cpu(capsys):
+    """The port of tools/bench_fused_mlp.py at a tiny M on the plain
+    versions: one line each for the sequence and the fused path."""
+    from vipers_torch.tools import bench_fused_mlp
+
+    res = bench_fused_mlp.main(["--device", "cpu", "--m", "256", "--iters", "2"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "cpu (plain versions)"
+    assert [ln.split()[0] for ln in lines[1:]] == ["seq", "fused"]
+    assert set(res["ms"]) == {"seq", "fused"} and all(v > 0 for v in res["ms"].values())

@@ -118,12 +118,23 @@ def test_wrappers_reject_unaligned_cuda_tensors(cuda):
         tfa.flash_attention_packed_fwd(qkv, None, 6, 0.125)
 
 
-@pytest.mark.parametrize("m,d,f", [(128 * 64, 384, 1536), (1000, 128, 256)])
-def test_fused_mlp_kernel_matches_plain(cuda, m, d, f):
+def _fused_mlp_inputs(m, d, f, dev):
     g = torch.Generator(device="cpu").manual_seed(m)
-    x = torch.randn(m, d, generator=g).to(cuda, torch.bfloat16)
-    w_t = (torch.randn(f, d, generator=g) / np.sqrt(d)).to(cuda, torch.bfloat16)
-    b = (torch.randn(f, generator=g) * 0.1).to(cuda)
+    x = torch.randn(m, d, generator=g).to(dev, torch.bfloat16)
+    w_t = (torch.randn(f, d, generator=g) / np.sqrt(d)).to(dev, torch.bfloat16)
+    b = (torch.randn(f, generator=g) * 0.1).to(dev)
+    return x, w_t, b
+
+
+# (16*896, 768, 3072): vit_b's width, one consumer warpgroup; (130, 1280,
+# 5120): vit_h's, on the instance without an epilogue warpgroup (4 stages),
+# a ragged last row tile; (200, 1664, 256): the widest the kernel takes,
+# the same instance on one stage
+@pytest.mark.parametrize("m,d,f", [(128 * 64, 384, 1536), (1000, 128, 256),
+                                   (16 * 896, 768, 3072), (130, 1280, 5120),
+                                   (200, 1664, 256)])
+def test_fused_mlp_kernel_matches_plain(cuda, m, d, f):
+    x, w_t, b = _fused_mlp_inputs(m, d, f, cuda)
     n0 = tfm.LAUNCHES["bfloat16"]
     out = tfm.fused_ln_dense_gelu_core(x, w_t, b)
     torch.cuda.synchronize()
@@ -131,6 +142,30 @@ def test_fused_mlp_kernel_matches_plain(cuda, m, d, f):
     want = tfm.fused_ln_dense_gelu_plain(x, w_t, b, 1e-6)
     scale = want.float().abs().max().item()
     assert (out.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+def test_fused_mlp_deterministic(cuda):
+    """At (1000, 384, 1536) two calls give bit-equal outputs (no atomics, a
+    fixed order of sums), within 2e-2 of the plain version's scale."""
+    x, w_t, b = _fused_mlp_inputs(1000, 384, 1536, cuda)
+    out = tfm.fused_ln_dense_gelu_core(x, w_t, b)
+    again = tfm.fused_ln_dense_gelu_core(x, w_t, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    want = tfm.fused_ln_dense_gelu_plain(x, w_t, b, 1e-6)
+    scale = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+def test_fused_mlp_design_and_rejection(cuda):
+    assert tfm.design(384) == {"rows": 128, "block_n": 128, "stages": 4, "staged": 1}
+    assert tfm.design(768) == {"rows": 64, "block_n": 128, "stages": 4, "staged": 1}
+    assert tfm.design(1280) == {"rows": 64, "block_n": 128, "stages": 4, "staged": 0}
+    assert tfm.design(1664) == {"rows": 64, "block_n": 128, "stages": 1, "staged": 0}
+    assert tfm.design(1728)["rows"] == 0
+    x, w_t, b = _fused_mlp_inputs(64, 1728, 128, cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfm.fused_ln_dense_gelu_core(x, w_t, b)
 
 
 def _attention_train_inputs(b, h, t, dev, seed, all_invalid=False):

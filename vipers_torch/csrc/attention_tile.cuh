@@ -1,6 +1,7 @@
 // The blockwise attention forward tiles of the port's flash kernels:
 // flash_attention_fwd.cu (head-major (B*H, T, 64)) and
-// flash_attention_packed.cu (token-major packed qkv stripes). A caller
+// flash_attention_packed.cu (token-major packed qkv stripes), and of
+// splash_attention.cu. A caller
 // hands one head to a tile as base pointers and row strides (f32) or as
 // tensor-map coordinates and output rows (bf16), so the layout lives only
 // in the kernel that computes them.
@@ -20,7 +21,9 @@
 //              scale as it is loaded; keys beyond t read as zero rows and
 //              get -inf.
 //   bf16 tile: Hopper's TMA, mbarriers and wgmma (namespace hopper below,
-//              on the building blocks of hopper.cuh).
+//              on the building blocks of hopper.cuh), also the splash
+//              kernel's (splash_attention.cu: no mask, other tile shapes,
+//              K optionally seq-minor).
 #pragma once
 
 #include <cuda.h>
@@ -30,7 +33,6 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "mma_bf16.cuh"
 
 namespace attn_tile {
 
@@ -210,19 +212,21 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG2 = NEG * LOG2E;  // the -1e9 mask in log2 units
 
+// The flash and packed kernels' tile. The kernel below takes its shape as
+// template parameters (NWG consumer warpgroups, KEYS keys a K/V tile, RING
+// stages): the splash kernel runs other shapes.
 constexpr int WGS = 3;                   // consumer warpgroups, 64 query rows each
 constexpr int BQ = 64 * WGS;             // query rows of a tile
 constexpr int BK = 128;                  // keys of a K/V tile
 constexpr int STAGES = 3;                // K/V tiles in the ring
-constexpr int THREADS = 128 * (WGS + 1);  // + the producer warpgroup
 
+template <int NWG, int KEYS, int RING>
 struct Smem {
-  bf16 q[2][BQ * HD];  // every tile 1024-byte aligned: the swizzle atom
-  bf16 k[STAGES][BK * HD];
-  bf16 v[STAGES][BK * HD];
-  uint64_t q_full[2], q_empty[2], kv_full[STAGES], kv_empty[STAGES];
+  bf16 q[2][64 * NWG * HD];  // every tile 1024-byte aligned: the swizzle atom
+  bf16 k[RING][KEYS * HD];
+  bf16 v[RING][KEYS * HD];
+  uint64_t q_full[2], q_empty[2], kv_full[RING], kv_empty[RING];
 };
-constexpr int SMEM_BYTES = (int)sizeof(Smem) + 1024;  // + the alignment slack
 
 // Where one head lives: tensor-map coordinates (outer index, column of q, k
 // and v), its output rows, its lse row (null: not written) and its key
@@ -235,24 +239,34 @@ struct HeadView {
   const uint8_t* valid;
 };
 
-// Start S (this warpgroup's 64 rows x BK keys) = Q K^T on wgmma as one
+// Start S (this warpgroup's 64 rows x KEYS keys) = Q K^T on wgmma as one
 // group; qb and kb are the shared addresses of the warpgroup's Q rows and of
-// the K tile. The caller fences and waits.
-__device__ __forceinline__ void start_scores(float (&s)[BK / 8][4], uint32_t qb, uint32_t kb) {
-  const uint64_t dq = desc_sw128(qb, 16), dk = desc_sw128(kb, 16);
+// the K tile. K is [key][dim] (K-major: 16 dims = 32 bytes along the
+// swizzled row) or, with K_T, [dim][key] in 64-key swizzled tiles 8 KB
+// apart (MN-major through the transpose bit: 16 dims = 16 rows = 2048
+// bytes, the next 64 keys at the leading offset). The caller fences and
+// waits.
+template <int KEYS, bool K_T = false>
+__device__ __forceinline__ void start_scores(float (&s)[KEYS / 8][4], uint32_t qb, uint32_t kb) {
+  const uint64_t dq = desc_sw128(qb, 16), dk = desc_sw128(kb, K_T ? 64 * ROW : 16);
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)  // 16 dims = 32 bytes along the swizzled row
-    wgmma_ss_n128(s, dq + 2 * kk, dk + 2 * kk, kk);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if constexpr (KEYS == 128)
+      wgmma_ss_n128<K_T>(s, dq + 2 * kk, dk + (K_T ? 128 : 2) * kk, kk);
+    else
+      wgmma_ss_n64<K_T>(s, dq + 2 * kk, dk + (K_T ? 128 : 2) * kk, kk);
+  }
   wgmma_commit();
 }
 
 // Start O += P V on wgmma as one group: P from registers, V MN-major
 // through the transpose bit.
-__device__ __forceinline__ void start_pv(float (&o)[HD / 8][4], const uint32_t (&p)[BK / 16][4],
+template <int KEYS>
+__device__ __forceinline__ void start_pv(float (&o)[HD / 8][4], const uint32_t (&p)[KEYS / 16][4],
                                          uint32_t vb) {
   const uint64_t dv = desc_sw128(vb, 1024);
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys = 2048 bytes
+  for (int kk = 0; kk < KEYS / 16; ++kk)  // 16 keys = 2048 bytes
     wgmma_rs_n64_tb(o, p[kk], dv + 128 * kk);
   wgmma_commit();
 }
@@ -297,11 +311,12 @@ __device__ __forceinline__ float mask_scores(float (&s)[BK / 8][4], const uint8_
 // or 1 for a tile already scaled and masked). Updates the running max m and
 // l (this thread's partial sum; the quad sums it at the end), returns alpha
 // and leaves p = exp2(s c - m) in s.
-__device__ __forceinline__ void softmax_scores(float (&s)[BK / 8][4], float (&m)[2], float (&l)[2],
-                                               float (&al)[2], float c) {
+template <int KEYS>
+__device__ __forceinline__ void softmax_scores(float (&s)[KEYS / 8][4], float (&m)[2],
+                                               float (&l)[2], float (&al)[2], float c) {
   float mx[2] = {s[0][0], s[0][2]};
 #pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
+  for (int j = 0; j < KEYS / 8; ++j) {
     mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
   }
@@ -316,7 +331,7 @@ __device__ __forceinline__ void softmax_scores(float (&s)[BK / 8][4], float (&m)
     m[r] = mx[r];
   }
 #pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
+  for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[j][e] = ex2(fmaf(s[j][e], c, -mx[e / 2]));
@@ -328,15 +343,16 @@ __device__ __forceinline__ void softmax_scores(float (&s)[BK / 8][4], float (&m)
 
 // O times alpha, and p rounded to bf16 as A fragments: the C layout of key
 // groups 2kk and 2kk+1 is the A layout of the 16-key step kk.
+template <int KEYS>
 __device__ __forceinline__ void rescale_pack(float (&o)[HD / 8][4], const float (&al)[2],
-                                             const float (&s)[BK / 8][4],
-                                             uint32_t (&p)[BK / 16][4]) {
+                                             const float (&s)[KEYS / 8][4],
+                                             uint32_t (&p)[KEYS / 16][4]) {
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] *= al[e / 2];
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
+  for (int kk = 0; kk < KEYS / 16; ++kk) {
     p[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
     p[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
     p[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
@@ -344,33 +360,46 @@ __device__ __forceinline__ void rescale_pack(float (&o)[HD / 8][4], const float 
   }
 }
 
-// The kernel. Layout maps a head index (0 .. n_tiles / tiles-a-head - 1) to
-// its HeadView: the only difference between the flash and packed kernels.
-// map_q boxes BQ rows, map_k and map_v BK rows, 64 columns each.
-template <class Layout>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int NWG>
+__host__ __device__ constexpr int tile_threads() {
+  return 128 * (NWG + 1);  // + the producer warpgroup
+}
+
+// The kernel: NWG consumer warpgroups (64 * NWG query rows a tile), K/V
+// tiles of KEYS keys in a ring of RING stages; K_T: K is [dim][key] (the
+// splash kernel's seq-minor K), loaded as 64-key boxes and read MN-major;
+// MASKED: valid bytes and keys beyond t as described above, else every key
+// of a tile is valid (t a multiple of KEYS). Layout maps a head index (0 ..
+// n_tiles / tiles-a-head - 1) to its HeadView: the only difference between
+// the flash, packed and splash kernels. map_q boxes 64 * NWG rows, map_v
+// KEYS rows, map_k KEYS rows (or 64 dims of 64 keys with K_T), 64 columns
+// each.
+template <class Layout, int NWG, int KEYS, int RING, bool K_T, bool MASKED>
+__global__ void __launch_bounds__(tile_threads<NWG>(), 1)
 fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
          const __grid_constant__ CUtensorMap map_v, const Layout lay, int t, int n_tiles,
          float scale_log2) {
-  constexpr int CONSUMERS = 4 * WGS;  // consumer warps
+  constexpr int TQ = 64 * NWG;        // query rows of a tile
+  constexpr int CONSUMERS = 4 * NWG;  // consumer warps
   // Registers a thread: R0 at launch (the launch bounds' share, in 8s),
   // CREGS for a consumer, 24 for the producer. setmaxnreg.inc draws only on
   // what the producer warpgroup gave back, and waits for it forever.
-  constexpr int R0 = (65536 / THREADS) & ~7;
-  constexpr int CREGS = 160;
-  static_assert(WGS * 128 * (CREGS - R0) <= 128 * (R0 - 24), "consumer registers");
+  constexpr int R0 = (65536 / tile_threads<NWG>()) & ~7;
+  constexpr int CREGS = R0 < 160 ? 160 : R0;
+  static_assert(NWG * 128 * (CREGS - R0) <= 128 * (R0 - 24), "consumer registers");
+  typedef Smem<NWG, KEYS, RING> Shared;
   extern __shared__ __align__(128) char smem_dyn[];
-  Smem& s = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_dyn) + 1023) &
-                                     ~uintptr_t(1023));
+  Shared& s = *reinterpret_cast<Shared*>((reinterpret_cast<uintptr_t>(smem_dyn) + 1023) &
+                                         ~uintptr_t(1023));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nq = (t + BQ - 1) / BQ, n_kt = (t + BK - 1) / BK;
+  const int nq = (t + TQ - 1) / TQ, n_kt = (t + KEYS - 1) / KEYS;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       mbar_init(&s.q_full[i], 1);
       mbar_init(&s.q_empty[i], CONSUMERS);
     }
-    for (int i = 0; i < STAGES; ++i) {
+    for (int i = 0; i < RING; ++i) {
       mbar_init(&s.kv_full[i], 1);
       mbar_init(&s.kv_empty[i], CONSUMERS);
     }
@@ -387,26 +416,33 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
         const HeadView hv = lay.head(tile / nq);
         const int qb = i & 1;
         mbar_wait(&s.q_empty[qb], ((i >> 1) & 1) ^ 1);
-        mbar_expect_tx(&s.q_full[qb], BQ * ROW);
-        tma_load_3d(s.q[qb], &map_q, &s.q_full[qb], hv.qcol, (tile % nq) * BQ, hv.z);
+        mbar_expect_tx(&s.q_full[qb], TQ * ROW);
+        tma_load_3d(s.q[qb], &map_q, &s.q_full[qb], hv.qcol, (tile % nq) * TQ, hv.z);
         for (int j = 0; j < n_kt; ++j, ++it) {
-          const int st = it % STAGES;
-          mbar_wait(&s.kv_empty[st], ((it / STAGES) & 1) ^ 1);
-          mbar_expect_tx(&s.kv_full[st], 2 * BK * ROW);
-          tma_load_3d(s.k[st], &map_k, &s.kv_full[st], hv.kcol, j * BK, hv.z);
-          tma_load_3d(s.v[st], &map_v, &s.kv_full[st], hv.vcol, j * BK, hv.z);
+          const int st = it % RING;
+          mbar_wait(&s.kv_empty[st], ((it / RING) & 1) ^ 1);
+          mbar_expect_tx(&s.kv_full[st], 2 * KEYS * ROW);
+          if constexpr (K_T) {
+#pragma unroll
+            for (int h = 0; h < KEYS / 64; ++h)
+              tma_load_3d(s.k[st] + h * 64 * HD, &map_k, &s.kv_full[st], j * KEYS + h * 64, 0,
+                          hv.z);
+          } else {
+            tma_load_3d(s.k[st], &map_k, &s.kv_full[st], hv.kcol, j * KEYS, hv.z);
+          }
+          tma_load_3d(s.v[st], &map_v, &s.kv_full[st], hv.vcol, j * KEYS, hv.z);
         }
       }
     }
   } else {  // ------------------------------------------------ consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CREGS));
+    if constexpr (CREGS > R0) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CREGS));
     const int g = lane / 4, tg = lane % 4;
     const int wr = warp * 16;  // this warp's first row of the tile
     uint32_t it = 0;
     int i = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
       const HeadView hv = lay.head(tile / nq);
-      const int q0 = (tile % nq) * BQ;
+      const int q0 = (tile % nq) * TQ;
       const int qb = i & 1;
       mbar_wait(&s.q_full[qb], (i >> 1) & 1);
 
@@ -420,42 +456,49 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
       // one tile runs while the tensor cores multiply the last one.
       {
         const uint32_t qs = smem_u32(s.q[qb]) + (warp / 4) * 64 * ROW;
-        uint32_t p[BK / 16][4];
+        // the softmax's scale: the mask scales masked tiles itself
+        auto scores_scale = [&](float (&sc)[KEYS / 8][4], int k0) {
+          if constexpr (MASKED)
+            return mask_scores(sc, hv.valid, k0, t, scale_log2, lane);
+          else
+            return scale_log2;
+        };
+        uint32_t p[KEYS / 16][4];
         float al[2];
-        int prev = it % STAGES;  // the stage whose P V is next
+        int prev = it % RING;  // the stage whose P V is next
         {
-          mbar_wait(&s.kv_full[prev], (it / STAGES) & 1);
-          float sc[BK / 8][4];
+          mbar_wait(&s.kv_full[prev], (it / RING) & 1);
+          float sc[KEYS / 8][4];
           wgmma_fence();
-          start_scores(sc, qs, smem_u32(s.k[prev]));
+          start_scores<KEYS, K_T>(sc, qs, smem_u32(s.k[prev]));
           wgmma_wait<0>();
           fence_regs(sc);
           if (n_kt == 1 && lane == 0) mbar_arrive(&s.q_empty[qb]);
-          softmax_scores(sc, m, l, al, mask_scores(sc, hv.valid, 0, t, scale_log2, lane));
-          rescale_pack(o, al, sc, p);
+          softmax_scores<KEYS>(sc, m, l, al, scores_scale(sc, 0));
+          rescale_pack<KEYS>(o, al, sc, p);
           ++it;
         }
         for (int j = 1; j < n_kt; ++j, ++it) {
-          const int st = it % STAGES;
-          mbar_wait(&s.kv_full[st], (it / STAGES) & 1);
-          float sc[BK / 8][4];
+          const int st = it % RING;
+          mbar_wait(&s.kv_full[st], (it / RING) & 1);
+          float sc[KEYS / 8][4];
           fence_regs(o);
           wgmma_fence();
-          start_scores(sc, qs, smem_u32(s.k[st]));
-          start_pv(o, p, smem_u32(s.v[prev]));
+          start_scores<KEYS, K_T>(sc, qs, smem_u32(s.k[st]));
+          start_pv<KEYS>(o, p, smem_u32(s.v[prev]));
           wgmma_wait<1>();  // S ready; P V may still run
           fence_regs(sc);
           if (j == n_kt - 1 && lane == 0) mbar_arrive(&s.q_empty[qb]);
-          softmax_scores(sc, m, l, al, mask_scores(sc, hv.valid, j * BK, t, scale_log2, lane));
+          softmax_scores<KEYS>(sc, m, l, al, scores_scale(sc, j * KEYS));
           wgmma_wait<0>();
           fence_regs(o);
           if (lane == 0) mbar_arrive(&s.kv_empty[prev]);
-          rescale_pack(o, al, sc, p);
+          rescale_pack<KEYS>(o, al, sc, p);
           prev = st;
         }
         fence_regs(o);
         wgmma_fence();
-        start_pv(o, p, smem_u32(s.v[prev]));
+        start_pv<KEYS>(o, p, smem_u32(s.v[prev]));
         wgmma_wait<0>();
         fence_regs(o);
         if (lane == 0) mbar_arrive(&s.kv_empty[prev]);
@@ -487,24 +530,34 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
 
 // ------------------------------------------------------------------ host
 
-// Launch fwd_bf16 over n_heads heads of t tokens: `maps` builds the three
-// tensor maps, Q in boxes of BQ rows, K and V of BK (fn(map_q, map_k,
-// map_v) -> error). The kernel's shared-memory limit and the SM count are
-// looked up once a device, not at every launch.
-template <class Layout, class Maps>
-int launch_bf16(const Maps& maps, const Layout& lay, int n_heads, int t, float scale,
+// Launch fwd_bf16<Layout, NWG, KEYS, RING, K_T, MASKED> over n_heads heads
+// of t tokens: `maps` builds the three tensor maps (fn(map_q, map_k, map_v)
+// -> error) with the boxes the kernel reads. The kernel's shared-memory limit
+// and the SM count are looked up once a device, not at every launch.
+template <class Layout, int NWG, int KEYS, int RING, bool K_T, bool MASKED, class Maps>
+int launch_tile(const Maps& maps, const Layout& lay, int n_heads, int t, float scale,
                 cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   int err = maps(&mq, &mk, &mv);
   if (err != 0) return err;
   static LaunchSetup setup;
+  const auto kernel = fwd_bf16<Layout, NWG, KEYS, RING, K_T, MASKED>;
+  constexpr int smem = (int)sizeof(Smem<NWG, KEYS, RING>) + 1024;  // + the alignment slack
   int sms = 0;
-  err = setup.sms(fwd_bf16<Layout>, SMEM_BYTES, &sms);
+  err = setup.sms(kernel, smem, &sms);
   if (err != 0) return err;
-  const int n_tiles = n_heads * ((t + BQ - 1) / BQ);
-  fwd_bf16<Layout><<<n_tiles < sms ? n_tiles : sms, THREADS, SMEM_BYTES, stream>>>(
+  const int n_tiles = n_heads * ((t + 64 * NWG - 1) / (64 * NWG));
+  kernel<<<n_tiles < sms ? n_tiles : sms, tile_threads<NWG>(), smem, stream>>>(
       mq, mk, mv, lay, t, n_tiles, scale * LOG2E);
   return (int)cudaGetLastError();
+}
+
+// The flash and packed kernels' launch: the tile WGS x BK x STAGES, masked;
+// Q in boxes of BQ rows, K and V of BK.
+template <class Layout, class Maps>
+int launch_bf16(const Maps& maps, const Layout& lay, int n_heads, int t, float scale,
+                cudaStream_t stream) {
+  return launch_tile<Layout, WGS, BK, STAGES, false, true>(maps, lay, n_heads, t, scale, stream);
 }
 
 }  // namespace hopper

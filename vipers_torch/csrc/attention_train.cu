@@ -97,7 +97,6 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "mma_bf16.cuh"  // pack_bf16x2
 
 namespace {
 

@@ -1,14 +1,17 @@
-// Hopper (sm_90a) building blocks of the port's attention kernels, shared
-// by attention_tile.cuh (the flash and packed bf16 tile) and
-// attention_train.cu (the training forward and backward). Device side:
+// Hopper (sm_90a) building blocks of the port's kernels, shared by
+// attention_tile.cuh (the flash, packed and splash bf16 tile),
+// attention_train.cu (the training forward and backward) and fused_mlp.cu
+// (LN -> fc1 -> GELU). Device side:
 // shared-memory addresses, mbarriers, TMA loads (tensor maps and plain bulk
-// copies), the async-proxy fence, named barriers, stmatrix, ex2, the
-// 128-byte-swizzle wgmma descriptor and the wgmma shapes the kernels use.
+// copies), the async-proxy fence, named barriers, stmatrix, bf16 packing,
+// ex2, the 128-byte-swizzle wgmma descriptor and the wgmma shapes the
+// kernels use.
 // Host side: cuTensorMapEncodeTiled through the runtime's driver entry
 // point, 3-D bf16 maps, and the once-a-device launch set-up.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,6 +97,13 @@ __device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t
                : "memory");
 }
 
+// Round two f32 to bf16 (nearest-even) and pack, lo in the low half (the
+// order of an mma fragment register).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -106,9 +116,9 @@ __device__ __forceinline__ float ex2(float x) {
 // (SWIZZLE_128B); 8-row groups lie 1024 bytes apart (the stride offset).
 // K-major operands ([row][k], 64 k a row) leave the leading offset unused
 // (16) and step 16 k as 32 bytes along the row. MN-major operands ([k][row],
-// 64 rows of M or N a row, read through the transpose bit) hold one swizzle
-// row along M or N, so no second group along it exists and the leading
-// offset is given the same 1024; they step 16 k as 2048 bytes.
+// 64 of M or N a row, read through the transpose bit) step 16 k as 2048
+// bytes; the leading offset is the distance to the tile of the next 64 of M
+// or N, unused where there is one (given 1024 there).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -186,8 +196,34 @@ __device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[8][4], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 128, f32) {=, +=} A (64 x 16) . B (16 x 128), both bf16 K-major in
-// shared memory (descriptors); scale_d = 0 overwrites D.
+// D (64 x 64, f32) {=, +=} A (64 x 16) . B (16 x 64), A bf16 K-major in
+// shared memory, B K-major (TB = 0) or MN-major through the transpose bit
+// (TB = 1); scale_d = 0 overwrites D.
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D (64 x 128, f32) {=, +=} A (64 x 16) . B (16 x 128), A bf16 K-major in
+// shared memory, B K-major (TB = 0) or MN-major through the transpose bit
+// (TB = 1); scale_d = 0 overwrites D.
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -198,7 +234,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -215,7 +251,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // D (64 x 64, f32) += A (64 x 16, bf16 in registers, the mma.sync A layout

@@ -182,11 +182,9 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
-    """The JAX package's recomputation VJP (``_flash_vjp_bwd``): f32 scores
-    from the saved lse, ``delta = sum(g * out)``, dq and dk times
-    ``scale``; gradients in the inputs' dtypes. Plain XLA on the TPU too."""
-    p = torch.exp(_scores(q, k, valid, scale) - lse[..., None])
+def _vjp_from_p(p, q, k, v, out, g, scale: float):
+    """The attention VJP given the f32 probabilities p: dv, dp, ``delta =
+    sum(g * out)``, ds = p (dp - delta), dq and dk times ``scale``; f32."""
     g32 = g.float()
     dv = torch.matmul(p.transpose(-1, -2), g32)
     dp = torch.matmul(g32, v.float().transpose(-1, -2))
@@ -194,6 +192,15 @@ def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
     ds = p * (dp - delta[..., None])
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
+    """The JAX package's recomputation VJP (``_flash_vjp_bwd``): p from the
+    f32 scores and the saved lse, then ``_vjp_from_p``; gradients in the
+    inputs' dtypes. Plain XLA on the TPU too."""
+    p = torch.exp(_scores(q, k, valid, scale) - lse[..., None])
+    dq, dk, dv = _vjp_from_p(p, q, k, v, out, g, scale)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -348,15 +355,19 @@ def flash_attention_packed_fwd(qkv, valid, num_heads: int, scale: float):
 
 
 def flash_attention_packed_bwd(qkv, valid, out, g, num_heads: int, scale: float):
-    """The JAX package's einsum-recompute VJP (``_packed_vjp_bwd``), which is
-    the head-major flash VJP on the unpacked views: the logsumexp again from
-    q and k, then dq, dk, dv repacked into one (B, T, 3D) gradient in qkv's
-    dtype. Plain XLA on the TPU too."""
+    """The JAX package's einsum-recompute VJP (``_packed_vjp_bwd``) on the
+    unpacked views: p normalized explicitly (exp of the scores less their
+    row max, over its row sum), so an image whose keys are all invalid gets
+    p = 1/T as in JAX (a logsumexp of -1e9 scores rounds to -1e9 and would
+    give p = 1); then ``_vjp_from_p``, repacked into one (B, T, 3D)
+    gradient in qkv's dtype. Plain XLA on the TPU too."""
     q, k, v = _unpack_bhtd(qkv, num_heads)
-    lse = torch.logsumexp(_scores(q, k, valid, scale), dim=-1)
-    grads = flash_attention_bwd(q, k, v, valid, _ntd_to_bhtd(out, num_heads), lse,
-                                _ntd_to_bhtd(g, num_heads), scale)
-    return _pack_bhtd(*grads, num_heads)
+    s = _scores(q, k, valid, scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    grads = _vjp_from_p(p, q, k, v, _ntd_to_bhtd(out, num_heads), _ntd_to_bhtd(g, num_heads),
+                        scale)
+    return _pack_bhtd(*grads, num_heads).to(qkv.dtype)
 
 
 class _FlashAttentionPacked(torch.autograd.Function):

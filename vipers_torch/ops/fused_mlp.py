@@ -2,18 +2,20 @@
 ``vipers/ops/fused_mlp.py``).
 
 Kernel: ``vipers_torch/csrc/fused_mlp.cu``, hand-written CUDA for
-``sm_90a``; it replaces the TPU's ``_kernel`` (``_fused_fwd_impl``). One
-block normalizes a 64-row tile of x in f32 (no affine), keeps xhat as bf16
-in shared memory and multiplies it by column tiles of W_eff on ``mma.sync``
-with f32 accumulation, then adds b_eff and applies tanh-GELU in f32. At the
-ViT-S/16 LOST shape its operation and byte bounds nearly coincide (135 GFLOP,
-441 MB).
+``sm_90a``; it replaces the TPU's ``_kernel`` (``_fused_fwd_impl``). A
+persistent CTA per SM takes row tiles of x by TMA into shared memory,
+normalizes them there in f32 (no affine) to bf16 xhat, and multiplies
+xhat by 128-column tiles of W_eff streamed by TMA on wgmma with f32
+accumulation; an epilogue warpgroup adds b_eff, applies tanh-GELU in f32
+and stores bf16 while the next tile multiplies. At the ViT-S/16 LOST shape
+its operation and byte bounds nearly coincide (135 GFLOP, 441 MB).
 
 The LayerNorm affine is folded into the weights in f32 outside the kernel,
 ``W_eff = gamma * W`` and ``b_eff = beta @ W + b``, as the JAX wrapper does.
 ``fused_ln_dense_gelu_core`` launches the kernel for CUDA tensors and runs
 ``fused_ln_dense_gelu_plain`` for CPU tensors; a build or launch failure
-raises. ``LAUNCHES`` counts kernel launches. ``fused_ln_dense_gelu`` is a
+raises, and so does a CUDA tensor that is not 16-byte aligned (TMA). ``LAUNCHES`` counts kernel launches; ``design(d)`` reads back the
+compiled instance that width ``d`` runs. ``fused_ln_dense_gelu`` is a
 ``torch.autograd.Function`` whose backward is the JAX package's recompute
 VJP in plain torch; the gradients reach ln_2 and fc1 through the fold.
 """
@@ -28,6 +30,7 @@ from typing import Optional
 import torch
 
 from vipers_torch.ops import _build
+from vipers_torch.ops.flash_attention import _check_aligned
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -81,6 +84,18 @@ def _lib():
     return fn
 
 
+def design(d: int) -> dict:
+    """The compiled instance that width ``d`` runs on the card: rows a CTA
+    owns, output columns a tile, W_eff ring stages (64 k each), and whether
+    an epilogue warpgroup takes the staged tiles (rows 0: no instance
+    fits)."""
+    fn = _build.load("fused_mlp").vipers_fused_mlp_design
+    keys = ("rows", "block_n", "stages", "staged")
+    vals = [ctypes.c_int() for _ in keys]
+    fn(ctypes.c_int(d), *(ctypes.byref(v) for v in vals))
+    return dict(zip(keys, (v.value for v in vals)))
+
+
 def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
     """gelu_tanh(LN_noaffine(x2d) @ W_eff + b_eff): x2d (M, D) bf16,
     w_eff_t (F, D) bf16, b_eff (F,) f32; D % 64 == 0, F % 128 == 0."""
@@ -102,6 +117,7 @@ def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
         raise ValueError(f"unsupported device {x2d.device}")
     fn = _lib()
     x2d, w_eff_t, b_eff = x2d.contiguous(), w_eff_t.contiguous(), b_eff.contiguous()
+    _check_aligned(x2d, w_eff_t, b_eff)
     out = torch.empty((m, f), dtype=x2d.dtype, device=x2d.device)
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream

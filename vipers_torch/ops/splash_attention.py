@@ -7,15 +7,18 @@ Kernel: ``vipers_torch/csrc/splash_attention.cu``, hand-written CUDA for
 vmapped over the batch): O = softmax(q K^T) V on (B, H, T, 64) with q
 already multiplied by the scale and rounded to bf16 by the caller, f32
 scores and softmax, bf16 out. The tool builds only full masks, so there are
-no block-sparse masks here. Its instances run the shared attention tile
-(``csrc/attention_tile.cuh``) at ``block_q`` x ``block_kv`` in {64, 128}^2,
-with K either (T, 64) per head (``"head_dim_minor"``) or (64, T)
-(``"seq_minor"``, the caller's transposed copy). At the tool's shape (B*H =
-32*6, T = 896) the work is bound by its operations (39.5 GFLOP on 88 MB).
+no block-sparse masks here. Its instances run the flash kernels' Hopper tile
+(``csrc/attention_tile.cuh``: TMA, mbarriers, wgmma) with ``block_q`` query
+rows a CTA (64 or 128: one or two consumer warpgroups) and ``block_kv``
+keys a K/V ring stage (64 or 128), with K either (T, 64) per head
+(``"head_dim_minor"``) or (64, T) (``"seq_minor"``, the caller's transposed
+copy, read as it lies). At the tool's shape (B*H = 32*6, T = 896) the work
+is bound by its operations (39.5 GFLOP on 88 MB).
 
 ``splash_attention`` launches the kernel for CUDA tensors and runs the
 plain version, ``splash_attention_plain``, for CPU tensors; a build or
-launch failure raises. ``LAUNCHES`` counts kernel launches per instance.
+launch failure raises, and so does a CUDA tensor that is not 16-byte
+aligned (TMA). ``LAUNCHES`` counts kernel launches per instance.
 The model path never calls it: it is the A/B tool's kernel.
 """
 
@@ -26,6 +29,7 @@ import ctypes
 import torch
 
 from vipers_torch.ops import _build
+from vipers_torch.ops.flash_attention import _check_aligned
 
 HEAD_DIM = 64
 BLOCKS = (64, 128)
@@ -89,6 +93,7 @@ def splash_attention(q, k, v, block_q: int = 128, block_kv: int = 128,
                          f"got T={t}, hd={hd}")
     fn = _lib()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_aligned(q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
