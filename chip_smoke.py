@@ -5,21 +5,23 @@ NVIDIA GPU. Run from the repository root:
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: the five CUDA sources of ``vipers_torch/csrc``, one nvcc each,
+  2. build: the six CUDA sources of ``vipers_torch/csrc``, one nvcc each,
      in parallel;
   3. kernels against their plain PyTorch versions at their main path's
-     shapes (flash attention f32 and bf16, packed token-major attention f32
+     shapes (flash attention f32 and bf16, the flash backward f32 and bf16
+     at the 384x384 train shape, packed token-major attention f32
      and bf16, fused LN->fc1->GELU bf16, the training attention forward and
      backward bf16 and their softmax-precision variants, every splash
      instance): max error against the stated tolerance (each variant also
      clearly nearer its own plain version than f32's), kernel / plain /
      library times (CUDA events, median), and the bound from the work's
-     FLOPs and bytes; for the flash, packed, fused-MLP and splash kernels
-     also TFLOP/s and the share of the bound, and for flash and packed the
-     bf16 attention tile's shape (query rows, key tile, stages); for the
-     fused MLP its design (rows a CTA, column tile, stages); for the
-     training kernels the share of the bound and their design (tiles,
-     chunk, stages); more checks the main path does not run: the training
+     FLOPs and bytes; for the flash, flash backward, packed, fused-MLP and
+     splash kernels also TFLOP/s and the share of the bound, and for flash
+     and packed the bf16 attention tile's shape (query rows, key tile,
+     stages); for the fused MLP its design (rows a CTA, column tile,
+     stages); for the training kernels the share of the bound and their
+     design (tiles, chunk, stages); more checks the main path does not
+     run: the training
      kernels at T = 640 (the two-pass forward and the backward's key
      rounds) and the fused MLP at vit_b's and vit_h's widths (D = 768 and
      1280, F = 4D; timed, beside the library's sequence);
@@ -40,7 +42,13 @@ Phases (any failure exits non-zero; nothing is caught):
      backward launches of the training attention kernels per step, finite
      losses, pruned slots unchanged, img/s at B=128, card vs CPU at B=4,
      one LRR round;
-  7. the A/B tools at their shapes: ``vipers_torch.tools.bench_softmax_prec``
+  7. flash train path: the same step at 384x384 (T=577 seq-padded to 640,
+     at least ``flash_min_t()``): 12 flash forward and 12 flash backward
+     launches per step and none of the training kernels, finite losses,
+     pruned slots unchanged, img/s at B=128, card vs CPU at B=2 (f32 params
+     after 2 steps through the f32 flash kernels, counted; bf16 loss and
+     gradients);
+  8. the A/B tools at their shapes: ``vipers_torch.tools.bench_softmax_prec``
      (the softmax-precision variants), ``vipers_torch.tools.bench_splash``
      (the splash instances against the flash kernel) and
      ``vipers_torch.tools.bench_fused_mlp`` (the fused MLP against the
@@ -68,6 +76,7 @@ N_CPU = 4
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
 TRAIN_HW, TRAIN_BATCH = 224, 128
+TRAIN_HW_FLASH = 384  # the ViT/DeiT fine-tuning resolution: T = 577 takes flash
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -140,6 +149,52 @@ def check_flash(fa, dtype, gen):
             "replaces": "vipers/ops/flash_attention.py:91",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": lib_ms}
+
+
+def check_flash_bwd(fa, dtype, gen):
+    """Flash backward kernel vs plain at the 384x384 train shape: B*H =
+    128*6, T = 640 (577 tokens seq-padded; a ragged run of pad keys inside
+    the 577 on every other image; the last image attends no key), hd = 64,
+    residuals from the forward kernel, cotangents on every row (so the
+    kernel is held to the plain version on every row): each of dq, dk, dv
+    within 1e-4 (f32) or 2e-2 (bf16) of its scale, and two calls bit-equal.
+    Library: ``torch.autograd.grad`` of SDPA with the bool mask."""
+    b, h, t, hd = TRAIN_BATCH, 6, 640, 64
+    q, k, v, cot = (torch.randn(b, h, t, hd, generator=gen, device="cuda").to(dtype)
+                    for _ in range(4))
+    valid = torch.zeros(b, t, dtype=torch.bool, device="cuda")
+    valid[:, :577] = True
+    valid[1::2, 300:577:3] = False
+    valid[-1] = False
+    scale = hd ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, valid, scale)
+    args = (q, k, v, valid, out, lse, cot, scale)
+    got = fa.flash_attention_bwd(*args)
+    again = fa.flash_attention_bwd(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again)), "backward not deterministic"
+    frac = 1e-4 if dtype == torch.float32 else 2e-2
+    errs = [scaled_err(a, c, frac) for a, c in zip(got, want)]
+    ms = cuda_ms(lambda: fa.flash_attention_bwd(*args))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), reps=5)
+    lib_ms = sdpa_bwd_ms(q, k, v, cot, valid[:, None, None, :])
+    n = q.numel()
+    flops = 10 * b * h * t * t * hd
+    nbytes = 8 * n * q.element_size() + lse.numel() * 4 + valid.numel()
+    bms, by = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    name = f"flash_attention_bwd[{'f32' if dtype == torch.float32 else 'bf16'}]"
+    print(f"{name} max_abs_err {max(e for e, _ in errs):.3e} ({frac:g} of each of dq, dk, dv's "
+          f"scale ({', '.join(f'{sc:.3g}' for _, sc in errs)}); worst "
+          f"{max(e / sc for e, sc in errs):.2e} of it; two calls bit-equal) kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.0f} TFLOP/s, {bms / ms:.1%} of the bound) plain {plain_ms:.3f} ms "
+          f"sdpa-backward {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.0f} MB)")
+    return {"name": name, "route": "cuda", "source": "vipers_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
+                        "(_flash_attention_bwd_dkv) and :1287 (_flash_attention_bwd_dq)",
+            "max_abs_err": max(e for e, _ in errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
 def fused_mlp_inputs(fm, m, d, f, gen):
@@ -655,14 +710,32 @@ def tools_phase(counters):
     return launches
 
 
-def train_phase(card, counters):
-    """The masked bf16 train step of full-width ViT-S/16 at 224x224 (12
-    layers, D=384, 6 heads, mlp 1536, 1000 classes) with 50% global
-    magnitude masks on unbaked f32 masters, SGD momentum 0.9, wd 1e-4, lr
-    0.1 cosine: launches per step, finite losses, pruned slots unchanged,
-    img/s at B=128 (best of 3 windows of 6 steps), card vs CPU at B=4 (f32
-    params after 2 steps; bf16 loss and gradients), one LRR round. Returns
-    the launch counts of the counted steps."""
+def train_launches(at, fa, fm):
+    """The launch counts a train step can show, by kernel row."""
+    return {"attention_train_fwd[bf16]": at.LAUNCHES["fwd"],
+            "attention_train_bwd[bf16]": at.LAUNCHES["bwd"],
+            "flash_attention_fwd[f32]": fa.LAUNCHES["float32"],
+            "flash_attention_fwd[bf16]": fa.LAUNCHES["bfloat16"],
+            "flash_attention_bwd[f32]": fa.BWD_LAUNCHES["float32"],
+            "flash_attention_bwd[bf16]": fa.BWD_LAUNCHES["bfloat16"],
+            "fused_ln_fc1_gelu[bf16]": fm.LAUNCHES["bfloat16"]}
+
+
+def train_phase(card, counters, hw, n_cpu, lrr):
+    """The masked train step of full-width ViT-S/16 at hw x hw (12 layers,
+    D=384, 6 heads, mlp 1536, 1000 classes) with 50% global magnitude masks
+    on unbaked f32 masters, SGD momentum 0.9, wd 1e-4, lr 0.1 cosine, uint8
+    images normalized on the card. At 224 (T = 197 seq-padded to 256) every
+    block's attention goes through the training kernels; at 384 (T = 577,
+    at least ``flash_min_t()``, seq-padded to 640) through the flash forward
+    and backward kernels. Checks: launches per bf16 step (12 of the route's
+    forward and 12 of its backward, none of the other route's, no fused
+    MLP), finite losses, pruned slots unchanged; img/s at B=128 (best of 3
+    windows of 6 steps); card vs CPU at B=n_cpu: f32 params after 2 steps
+    within 1e-4 (counted too: the f32 kernels' launches), bf16 loss within
+    2e-2 and gradients within 3e-2; with ``lrr``, one LRR round. Returns
+    the launch counts of the counted bf16 steps, with the f32 flash
+    backward's from the f32 card steps."""
     from vipers_torch.core.registry import build_model
     from vipers_torch.data.preprocess import make_device_normalize
     from vipers_torch.ops import attention_train as at
@@ -675,7 +748,7 @@ def train_phase(card, counters):
                                           make_eval_step, make_train_step)
 
     t0 = time.time()
-    hw, b = TRAIN_HW, TRAIN_BATCH
+    b = TRAIN_BATCH
     spec = build_model("vit_s_16", num_classes=1000, image_size=(hw, hw))
     params = spec.init(torch.Generator().manual_seed(0))
     masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), SPARSITY)
@@ -689,8 +762,12 @@ def train_phase(card, counters):
     x = normalize(u8)
     step = make_train_step(1000, compute_dtype=torch.bfloat16)
     pruned = {k: state.params[k].detach()[~m].clone() for k, m in state.masks.items()}
+    tokens = (hw // PATCH) ** 2 + 1
+    flash = tokens >= fa.flash_min_t()
     torch.cuda.synchronize()
-    print(f"train vit_s_16 {hw}x{hw} bf16 B={b}: set-up {time.time() - t0:.1f} s")
+    print(f"train vit_s_16 {hw}x{hw} bf16 B={b} (T={tokens}, "
+          f"{'flash' if flash else 'training'} attention kernels): set-up "
+          f"{time.time() - t0:.1f} s")
 
     # the counted steps
     n_steps = 3
@@ -700,13 +777,13 @@ def train_phase(card, counters):
         state, m = step(state, (x, labels))
         losses.append(m["loss"])
     torch.cuda.synchronize()
-    launches = {"fwd": at.LAUNCHES["fwd"], "bwd": at.LAUNCHES["bwd"],
-                "flash": sum(fa.LAUNCHES.values()), "fused_mlp": fm.LAUNCHES["bfloat16"]}
+    launches = train_launches(at, fa, fm)
     losses = [float(v) for v in losses]
-    layers = spec.cfg.num_layers
-    print(f"train steps: losses {losses}; launches in {n_steps} steps {launches}")
-    assert launches == {"fwd": layers * n_steps, "bwd": layers * n_steps, "flash": 0,
-                        "fused_mlp": 0}, launches
+    n = spec.cfg.num_layers * n_steps
+    print(f"train steps {hw}x{hw}: losses {losses}; launches in {n_steps} steps {launches}")
+    route = (("flash_attention_fwd[bf16]", "flash_attention_bwd[bf16]") if flash else
+             ("attention_train_fwd[bf16]", "attention_train_bwd[bf16]"))
+    assert launches == {k: n if k in route else 0 for k in launches}, launches
     assert all(np.isfinite(losses)), losses
     for k, m in state.masks.items():
         assert torch.equal(state.params[k].detach()[~m], pruned[k]), k
@@ -720,23 +797,34 @@ def train_phase(card, counters):
             state, m = step(state, (x, labels))
         torch.cuda.synchronize()
         best = max(best, b * 6 / (time.perf_counter() - t1))
-    print(f"train throughput bf16 {best:.1f} img/s at B={b} ({card})")
+    print(f"train throughput {hw}x{hw} bf16 {best:.1f} img/s at B={b} ({card})")
 
-    # card vs CPU at B=4
-    xs, ys = u8[:N_CPU], labels[:N_CPU]
+    # card vs CPU at B=n_cpu; the f32 card steps counted
+    xs, ys = u8[:n_cpu], labels[:n_cpu]
     f32 = {}
     for dev in ("cuda", "cpu"):
         st = create_train_state(spec, params, masks, ocfg, 100, device=dev)
         st_step = make_train_step(1000)
         batch = (normalize(xs.to(dev)), ys.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            reset_counts(*counters)
         for _ in range(2):
             st, _ = st_step(st, batch)
         f32[dev] = {k: p.detach().cpu() for k, p in st.params.items()}
         if dev == "cuda":
+            f32_launches = train_launches(at, fa, fm)
             bf = loss_and_grads(st.model, st.masks, batch, 1000, compute_dtype=torch.bfloat16)
             bf_masks, bf_state = st.masks, {k: p.detach().cpu() for k, p in st.params.items()}
+    print(f"train f32 {hw}x{hw} B={n_cpu} on the card: launches in 2 steps {f32_launches}")
+    if flash:
+        n2 = 2 * spec.cfg.num_layers
+        assert f32_launches["flash_attention_fwd[f32]"] == n2, f32_launches
+        assert f32_launches["flash_attention_bwd[f32]"] == n2, f32_launches
+        launches["flash_attention_bwd[f32]"] = f32_launches["flash_attention_bwd[f32]"]
     f32_err = max((f32["cuda"][k] - f32["cpu"][k]).abs().max().item() for k in f32["cpu"])
-    print(f"cpu-vs-card train f32: params after 2 steps max_abs_err {f32_err:.3e} (atol 1e-4)")
+    print(f"cpu-vs-card train {hw}x{hw} f32: params after 2 steps max_abs_err {f32_err:.3e} "
+          f"(atol 1e-4)")
     assert f32_err <= 1e-4, f32_err
     cpu_model = spec.module()
     cpu_model.load_state_dict(bf_state)
@@ -747,11 +835,13 @@ def train_phase(card, counters):
     gg = torch.cat([g.flatten().cpu() for g in bf[2].values()])
     gc = torch.cat([cpu_bf[2][k].flatten() for k in bf[2]])
     g_rel = ((gg - gc).norm() / gc.norm()).item()
-    print(f"cpu-vs-card train bf16: loss {float(bf[0]):.5f} vs {float(cpu_bf[0]):.5f} "
+    print(f"cpu-vs-card train {hw}x{hw} bf16: loss {float(bf[0]):.5f} vs {float(cpu_bf[0]):.5f} "
           f"(gap {loss_gap:.2e}, tol 2e-2 relative); gradients relative L2 error "
           f"{g_rel:.3e} (tol 3e-2)")
     assert loss_gap <= 2e-2 * abs(float(cpu_bf[0])), loss_gap
     assert g_rel <= 3e-2, g_rel
+    if not lrr:
+        return launches
 
     # one LRR round: reset -> train -> prune 20% more -> bake; then train on
     t1 = time.time()
@@ -799,8 +889,9 @@ def main():
 
     # 2. build
     t0 = time.time()
-    logs = _build.build(["flash_attention_fwd", "flash_attention_packed", "fused_mlp",
-                         "attention_train", "splash_attention"], ptxas_verbose=True)
+    logs = _build.build(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_packed",
+                         "fused_mlp", "attention_train", "splash_attention"],
+                        ptxas_verbose=True)
     print(f"build {time.time() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -810,6 +901,7 @@ def main():
     # 3. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_flash(fa, torch.float32, gen), check_flash(fa, torch.bfloat16, gen),
+               check_flash_bwd(fa, torch.float32, gen), check_flash_bwd(fa, torch.bfloat16, gen),
                check_flash_packed(fa, torch.float32, gen),
                check_flash_packed(fa, torch.bfloat16, gen),
                check_fused_mlp(fm, gen), *check_attention_train(at, gen),
@@ -842,7 +934,8 @@ def main():
     pipes = {e: ex.make_batched_pipeline(K_PATCHES) for e, ex in extractors.items()}
     torch.cuda.synchronize()
 
-    counters = (fa.LAUNCHES, fa.PACKED_LAUNCHES, fm.LAUNCHES, at.LAUNCHES, sa.LAUNCHES)
+    counters = (fa.LAUNCHES, fa.PACKED_LAUNCHES, fa.BWD_LAUNCHES, fm.LAUNCHES, at.LAUNCHES,
+                sa.LAUNCHES)
     reset_counts(*counters)
     outs = {key: pipes[key[0]](*inp) for key, inp in inputs.items()}
     torch.cuda.synchronize()
@@ -852,6 +945,7 @@ def main():
     print(f"LOST path launches (4 forwards, 12 blocks each): {launches}")
     assert not any(at.LAUNCHES.values()), at.LAUNCHES
     assert not any(fa.PACKED_LAUNCHES.values()), fa.PACKED_LAUNCHES
+    assert not any(fa.BWD_LAUNCHES.values()), fa.BWD_LAUNCHES
     layers = spec.cfg.num_layers
     assert launches == {"flash_attention_fwd[f32]": 2 * layers,
                         "flash_attention_fwd[bf16]": 2 * layers,
@@ -888,12 +982,15 @@ def main():
     launches.update(packed_lost_phase(card, spec, extractors, buckets, outs["f32", "mixed"],
                                       lost_core))
 
-    # 6. train path
-    tl = train_phase(card, counters)
-    launches.update({"attention_train_fwd[bf16]": tl["fwd"],
-                     "attention_train_bwd[bf16]": tl["bwd"]})
+    # 6. train path at 224x224: the training attention kernels
+    tl = train_phase(card, counters, TRAIN_HW, N_CPU, lrr=True)
+    launches.update({k: tl[k] for k in ("attention_train_fwd[bf16]", "attention_train_bwd[bf16]")})
 
-    # 7. the A/B tools
+    # 7. train path at 384x384: the flash forward and backward kernels
+    tl = train_phase(card, counters, TRAIN_HW_FLASH, 2, lrr=False)
+    launches.update({k: tl[k] for k in ("flash_attention_bwd[f32]", "flash_attention_bwd[bf16]")})
+
+    # 8. the A/B tools
     launches.update(tools_phase(counters))
     for k in kernels:
         k["launches"] = launches[k["name"]]

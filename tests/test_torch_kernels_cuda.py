@@ -273,17 +273,85 @@ def test_attention_train_design(cuda):
 def test_flash_attention_gradient_through_kernel(cuda):
     """The flash Function's gradient on the card equals autograd through the
     plain version (the wrapper once returned tensors without autograd
-    history, so the gradient was lost on the card)."""
+    history, so the gradient was lost on the card), and comes from the
+    backward kernel."""
     for dtype, frac in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         qkv, cot, valid = _attention_train_inputs(2, 3, 640, cuda, seed=5)
         ins = [z.to(dtype).requires_grad_(True) for z in qkv.unbind(0)]
+        n0 = tfa.BWD_LAUNCHES[str(dtype)[6:]]
         out = tfa.flash_attention(*ins, valid=valid)
         got = torch.autograd.grad(out, ins, cot.to(dtype))
+        torch.cuda.synchronize()
+        assert tfa.BWD_LAUNCHES[str(dtype)[6:]] == n0 + 1
         ref_ins = [z.detach().clone().requires_grad_(True) for z in ins]
         ref, _ = tfa.flash_attention_plain(*ref_ins, valid)
         want = torch.autograd.grad(ref, ref_ins, cot.to(dtype))
         for a, c in zip(got, want):
             _close_to_scale(a, c, frac)
+
+
+def _flash_bwd_inputs(t, dtype, dev, seed):
+    """B*H = 3*5 at (3, 5, t, 64), a ragged key mask (about 20% pad keys,
+    key 0 valid), image 1 attending no key, residuals from the forward
+    kernel, cotangents on every row."""
+    q, k, v = _qkv(3, 5, t, dtype, dev, seed)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    cot = torch.randn(3, 5, t, 64, generator=g).to(dev, dtype)
+    valid = torch.rand(3, t, generator=g) < 0.8
+    valid[:, 0] = True
+    valid[1] = False
+    valid = valid.to(dev)
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid)
+    return q, k, v, valid, out, lse, cot, 0.125
+
+
+@pytest.mark.parametrize("dtype,frac", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 64, 200, 577, 640, 896, 1152])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, frac, t):
+    """dq, dk, dv of the backward kernel against the plain version within
+    1e-4 (f32) or 2e-2 (bf16) of each gradient's scale, at ragged and
+    multiple-of-64 t, one round of 256 keys and several (bf16 sums dq over
+    rounds in its f32 scratch), with an image whose keys are all invalid
+    and cotangents on every row. At t = 1 the softmax over one key is
+    constant, so the exact dq and dk are 0 and both versions give rounding
+    noise: there they are held to dv's scale."""
+    args = _flash_bwd_inputs(t, dtype, cuda, seed=t)
+    n0 = tfa.BWD_LAUNCHES[str(dtype)[6:]]
+    got = tfa.flash_attention_bwd(*args)
+    want = tfa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert tfa.BWD_LAUNCHES[str(dtype)[6:]] == n0 + 1
+    dv_scale = want[2].float().abs().max().item()
+    for a, c in zip(got, want):
+        assert a.dtype == dtype and a.shape == c.shape
+        if t == 1:
+            assert (a.float() - c.float()).abs().max().item() <= frac * dv_scale
+        else:
+            _close_to_scale(a, c, frac)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_backward_is_deterministic(cuda, dtype):
+    """Two backward calls give bit-equal dq, dk and dv: no float atomics
+    (bf16 at t = 640 sums dq across three key rounds in the f32 scratch)."""
+    args = _flash_bwd_inputs(640, dtype, cuda, seed=11)
+    first = tfa.flash_attention_bwd(*args)
+    second = tfa.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def test_flash_backward_rejects_unaligned_cuda_tensors(cuda):
+    """The backward wrapper refuses a CUDA input one element into its
+    storage, and copies nothing."""
+    q, k, v, valid, out, lse, cot, scale = _flash_bwd_inputs(128, torch.bfloat16, cuda, seed=12)
+    base = torch.zeros(cot.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    odd = base[1:].view(cot.shape)
+    odd.copy_(cot)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_attention_bwd(q, k, v, valid, out, lse, odd, scale)
 
 
 def test_fused_mlp_gradient_through_kernel(cuda):

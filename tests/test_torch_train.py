@@ -94,6 +94,7 @@ def _flax_np(named):
 CASES = {
     "einsum": dict(ocfg=dict(opt="sgd")),
     "kernel": dict(ocfg=dict(opt="sgd"), kernel=True),
+    "flash": dict(ocfg=dict(opt="sgd"), flash=True),
     "sgd_nesterov-clip": dict(ocfg=dict(opt="sgd_nesterov", clip_grad_norm=0.5)),
     "rmsprop-clip": dict(ocfg=dict(opt="rmsprop", lr=0.01, clip_grad_norm=0.5)),
     "adamw-clip": dict(ocfg=dict(opt="adamw", lr=1e-3, weight_decay=0.05,
@@ -107,7 +108,10 @@ def test_masked_train_step_matches_jax(setup, monkeypatch, case):
     """3 f32 steps: loss, acc1, acc5 per step, params (and the EMA) after.
     "kernel": the JAX packed kernel in interpret mode and the port's gate on
     for f32, so T=17 is seq-padded to 128 and every block's attention goes
-    through attention_train_packed on both sides."""
+    through attention_train_packed on both sides. "flash": VIPERS_FLASH_MIN_T=16
+    for both packages, so T=17 is seq-padded to 128 and every block's
+    attention goes through flash_attention on the port side (forward and
+    backward: the kernels' plain versions here)."""
     jspec, tspec, params, masks, batches = setup
     spec = CASES[case]
     kw = dict(lr=0.1, weight_decay=1e-4, epochs=10, lr_scheduler="cosineannealinglr")
@@ -126,12 +130,23 @@ def test_masked_train_step_matches_jax(setup, monkeypatch, case):
         monkeypatch.setattr(tvit, "attention_train_packed", spy)
     else:
         monkeypatch.delenv("VIPERS_FUSED_ATTN_INTERPRET", raising=False)
+    if spec.get("flash"):
+        monkeypatch.setenv("VIPERS_FLASH_MIN_T", "16")
+        orig_flash = tvit.flash_attention
+
+        def flash_spy(q, k, v, **kw):
+            calls.append(tuple(q.shape))
+            return orig_flash(q, k, v, **kw)
+
+        monkeypatch.setattr(tvit, "flash_attention", flash_spy)
     jstate, jm = _run_jax(jspec, params, masks, batches, joptim.OptimConfig(**kw),
                           ema_decay, ema_warmup)
     tstate, tm = _run_torch(tspec, params, masks, batches, toptim.OptimConfig(**kw),
                             ema_decay, ema_warmup)
     if spec.get("kernel"):
         assert calls == [(3, B, 2, 128, 64)] * (2 * STEPS)
+    if spec.get("flash"):
+        assert calls == [(B, 2, 128, 64)] * (2 * STEPS)
     for a, c in zip(tm, jm):
         assert abs(a["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]), (a, c)
         assert a["acc1"] == c["acc1"] and a["acc5"] == c["acc5"], (a, c)

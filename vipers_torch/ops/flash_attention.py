@@ -16,8 +16,16 @@ I/O).
 ``flash_attention_fwd`` launches the kernel for CUDA tensors and runs the
 plain version, ``flash_attention_plain``, for CPU tensors; a build or
 launch failure raises. ``LAUNCHES`` counts kernel launches per instance.
-``flash_attention`` is a ``torch.autograd.Function`` whose backward is the
-JAX package's recomputation VJP in plain torch (it is plain XLA there too).
+``flash_attention`` is a ``torch.autograd.Function`` whose backward,
+``flash_attention_bwd``, launches ``vipers_torch/csrc/flash_attention_bwd.cu``
+for CUDA tensors. On the TPU the product path's backward is the library's
+two Pallas kernels, ``_flash_attention_bwd_dkv`` and
+``_flash_attention_bwd_dq``, which that file replaces (f32 on FMA as two
+kernels, dk/dv then dq; bf16 as one TMA + wgmma kernel with keys in rounds
+and a deterministic dq). Its plain version, ``flash_attention_bwd_plain``,
+is the JAX package's ``_flash_vjp_bwd``, the ``use_official=False`` VJP,
+and runs for CPU tensors. ``BWD_LAUNCHES`` counts backward calls that
+launched the kernels, per instance.
 
 The packed token-major route (``flash_attention_packed``, opt-in with
 ``VIPERS_PACKED_ATTENTION=1`` in the models, as in the JAX package) reads q,
@@ -50,6 +58,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches per instance; chip_smoke.py resets and reads these
 LAUNCHES = {"float32": 0, "bfloat16": 0}
 PACKED_LAUNCHES = {"float32": 0, "bfloat16": 0}
+# backward calls on the card per instance: one count a call, which is one
+# kernel in bf16 and two (dk/dv, then dq) in f32
+BWD_LAUNCHES = {"float32": 0, "bfloat16": 0}
 
 
 def flash_min_t() -> int:
@@ -195,18 +206,72 @@ def _vjp_from_p(p, q, k, v, out, g, scale: float):
     return dq, dk, dv
 
 
-def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
-    """The JAX package's recomputation VJP (``_flash_vjp_bwd``): p from the
-    f32 scores and the saved lse, then ``_vjp_from_p``; gradients in the
-    inputs' dtypes. Plain XLA on the TPU too."""
+def flash_attention_bwd_plain(q, k, v, valid, out, lse, g, scale: float):
+    """Plain PyTorch version of the backward kernel: the JAX package's
+    recomputation VJP (``_flash_vjp_bwd``), p from the f32 scores and the
+    saved lse, then ``_vjp_from_p``; gradients in the inputs' dtypes."""
     p = torch.exp(_scores(q, k, valid, scale) - lse[..., None])
     dq, dk, dv = _vjp_from_p(p, q, k, v, out, g, scale)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _check_bwd(q, k, v, valid, out, lse, g):
+    _check(q, k, v, valid)
+    for name, z in (("out", out), ("g", g)):
+        if z.shape != q.shape or z.dtype != q.dtype or z.device != q.device:
+            raise ValueError(f"{name} must match q's shape, dtype and device: {tuple(z.shape)} "
+                             f"{z.dtype} on {z.device}, q {tuple(q.shape)} {q.dtype}")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != tuple(q.shape[:3])
+            or lse.device != q.device):
+        raise ValueError(f"lse must be a float32 (B, H, T) = {tuple(q.shape[:3])} tensor on "
+                         f"q's device, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
+def _bwd_lib():
+    fn = _build.load("flash_attention_bwd").vipers_flash_attention_bwd
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
+    """(dq, dk, dv) in the input dtype for (B, H, T, 64) q, k, v, the (B, T)
+    bool key mask (or None), the forward's ``out`` and f32 ``lse`` and the
+    cotangent ``g``. CUDA tensors go to the kernel (any T; a build or launch
+    failure raises), CPU tensors to ``flash_attention_bwd_plain``."""
+    _check_bwd(q, k, v, valid, out, lse, g)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, valid, out, lse, g, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, h, t, hd = q.shape
+    fn = _bwd_lib()
+    q, k, v, out, g = (z.contiguous() for z in (q, k, v, out, g))
+    lse = lse.contiguous()
+    _check_aligned(q, k, v, out, g)
+    vmask = valid.contiguous().view(torch.uint8) if valid is not None else None
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    # bf16 beyond one 256-key round sums dq in an f32 scratch
+    scratch = (torch.empty((b, h, t, hd), dtype=torch.float32, device=q.device)
+               if q.dtype == torch.bfloat16 and t > 256 else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                g.data_ptr(), vmask.data_ptr() if vmask is not None else None,
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None,
+                b * h, h, t, hd, float(scale), _DTYPE_CODE[q.dtype], q.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    BWD_LAUNCHES[str(q.dtype).replace("torch.", "")] += 1
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward through the kernel (plain version on the CPU), backward by
-    the JAX package's recomputation VJP."""
+    """Forward and backward through the kernels (plain versions on the
+    CPU); the backward is the JAX package's recomputation VJP."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, scale):
@@ -218,7 +283,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, valid, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, valid, out, lse, g, ctx.scale)
+        dq, dk, dv = flash_attention_bwd(q, k, v, valid, out, lse, g.to(q.dtype), ctx.scale)
         return dq, dk, dv, None, None
 
 

@@ -1,14 +1,17 @@
 """Where the time goes in the port's masked bf16 train step on one GPU.
 
-Builds the same full-width ViT-S/16 at 224x224 as ``chip_smoke.py``'s train
-phase (random weights from a seed, 50% global magnitude masks on unbaked f32
-masters, SGD momentum 0.9, wd 1e-4, lr 0.1 cosine, uint8 images normalized
-on the card) and profiles ``make_train_step`` with ``torch.profiler``:
-device time by kernel, the device's busy share of the wall-clock window, and
-the host time per step, with the host's enqueue time against the wall time
-of an unprofiled window beside them. Needs a card:
+Builds the same full-width ViT-S/16 as ``chip_smoke.py``'s train phases, at
+224x224 by default or at ``--image-size`` (384: T = 577 takes the flash
+forward and backward kernels) (random weights from a seed, 50% global
+magnitude masks on unbaked f32 masters, SGD momentum 0.9, wd 1e-4, lr 0.1
+cosine, uint8 images normalized on the card) and profiles
+``make_train_step`` with ``torch.profiler``: device time by kernel, the
+device's busy share of the wall-clock window, and the host time per step,
+with the host's enqueue time against the wall time of unprofiled windows
+beside them (img/s: the best of 3 windows of 6 steps, ``chip_smoke.py``'s
+scheme). Needs a card:
 
-    python -m vipers_torch.tools.profile_train [--batch 128] [--steps 3]
+    python -m vipers_torch.tools.profile_train [--batch 128] [--steps 3] [--image-size 224]
 
 Writes the full kernel table and a Chrome trace under ``--out``
 (default ``build/profile_train/``).
@@ -27,13 +30,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from vipers_torch.tools.profile_lost import _intervals_union
 
-HW = 224
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--image-size", type=int, default=224,
+                    help="square training crop (224: the training attention kernels; "
+                         "384: T = 577, the flash kernels)")
     ap.add_argument("--out", default=os.path.join("build", "profile_train"),
                     help="directory for the kernel table and the Chrome trace")
     args = ap.parse_args(argv)
@@ -44,14 +48,15 @@ def main(argv=None):
     from vipers_torch.train.optim import OptimConfig
     from vipers_torch.train.steps import create_train_state, make_train_step
 
-    spec = build_model("vit_s_16", num_classes=1000, image_size=(HW, HW))
+    hw = args.image_size
+    spec = build_model("vit_s_16", num_classes=1000, image_size=(hw, hw))
     params = spec.init(torch.Generator().manual_seed(0))
     masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), 0.5)
     ocfg = OptimConfig(opt="sgd", lr=0.1, momentum=0.9, weight_decay=1e-4, epochs=10,
                        lr_scheduler="cosineannealinglr")
     state = create_train_state(spec, params, masks, ocfg, steps_per_epoch=100)
     rng = np.random.default_rng(2)
-    u8 = torch.from_numpy(rng.integers(0, 256, (args.batch, HW, HW, 3), dtype=np.uint8)).cuda()
+    u8 = torch.from_numpy(rng.integers(0, 256, (args.batch, hw, hw, 3), dtype=np.uint8)).cuda()
     labels = torch.from_numpy(rng.integers(0, 1000, (args.batch,))).cuda()
     x = make_device_normalize()(u8)
     step = make_train_step(1000, compute_dtype=torch.bfloat16)
@@ -60,15 +65,17 @@ def main(argv=None):
     torch.cuda.synchronize()
 
     # without the profiler: host time to enqueue the steps against the wall
-    # time to finish them (enqueue close to wall = the host bounds the step)
-    t0 = time.perf_counter()
-    for _ in range(6):
-        state, _ = step(state, (x, labels))
-    enqueue_ms = 1e3 * (time.perf_counter() - t0) / 6
-    torch.cuda.synchronize()
-    plain_wall_ms = 1e3 * (time.perf_counter() - t0) / 6
-    print(f"without the profiler: {plain_wall_ms:.2f} ms/step wall, host enqueue "
-          f"{enqueue_ms:.2f} ms/step ({args.batch * 1e3 / plain_wall_ms:.1f} img/s)")
+    # time to finish them (enqueue close to wall = the host bounds the step),
+    # in 3 windows of 6 steps
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(6):
+            state, _ = step(state, (x, labels))
+        enqueue_ms = 1e3 * (time.perf_counter() - t0) / 6
+        torch.cuda.synchronize()
+        plain_wall_ms = 1e3 * (time.perf_counter() - t0) / 6
+        print(f"without the profiler ({hw}x{hw}): {plain_wall_ms:.2f} ms/step wall, host "
+              f"enqueue {enqueue_ms:.2f} ms/step ({args.batch * 1e3 / plain_wall_ms:.1f} img/s)")
 
     host = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -89,14 +96,14 @@ def main(argv=None):
         d[1] += 1
     total = sum(v[0] for v in by_name.values())
     card = torch.cuda.get_device_name(0)
-    print(f"{card}; bf16 train B={args.batch}: {args.steps} steps, wall "
+    print(f"{card}; bf16 train {hw}x{hw} B={args.batch}: {args.steps} steps, wall "
           f"{wall_ms / args.steps:.2f} ms/step (median host enqueue "
           f"{statistics.median(host):.2f} ms), device busy {busy_ms / args.steps:.2f} ms/step "
           f"= {100 * busy_ms / wall_ms:.1f}% of the window, "
           f"{len(events) / args.steps:.0f} kernels/step, loss {float(m['loss']):.4f}")
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     os.makedirs(args.out, exist_ok=True)
-    stem = os.path.join(args.out, f"profile_train_bf16_b{args.batch}")
+    stem = os.path.join(args.out, f"profile_train_bf16_{hw}_b{args.batch}")
     with open(stem + ".txt", "w") as f:
         for name, (ms, n) in rows:
             f.write(f"{ms / args.steps:10.3f} ms/step {100 * ms / total:5.1f}% "
