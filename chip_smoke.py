@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing is caught):
      FLOPs and bytes; for the flash, flash backward, packed, fused-MLP and
      splash kernels also TFLOP/s and the share of the bound, and for flash
      and packed the bf16 attention tile's shape (query rows, key tile,
-     stages); for the fused MLP its design (rows a CTA, column tile,
+     stages); for the flash backward also the share of the bound of the
+     seven products its split does and, in bf16, its design (tiles,
+     stages, kernels); for the fused MLP its design (rows a CTA, column tile,
      stages); for the training kernels the share of the bound and their
      design (tiles, chunk, stages); more checks the main path does not
      run: the training
@@ -104,6 +106,15 @@ def bf16_tile(fa):
     return "; tile {block_q} x {block_k}, {stages} stages".format(**fa.tile_shape())
 
 
+def bwd_design(fa):
+    """The bf16 flash backward's design as compiled, for its kernel line."""
+    d = fa.bwd_design()
+    return (f"; {d['kernels']} kernels after a row pass (D, lse in log2 units): dk/dv on "
+            f"{d['dkv_keys']}-key tiles over {d['dkv_queries']}-query stages, "
+            f"{d['dkv_stages']} stages; dq on {d['dq_queries']}-query tiles over "
+            f"{d['dq_keys']}-key stages, {d['dq_stages']} stages")
+
+
 def check_flash(fa, dtype, gen):
     """Flash kernel vs plain at (B*H = 128*6, T = 896, hd = 64) with a
     ragged key mask: 769 real tokens padded to 896, and a bucket-pad
@@ -180,14 +191,21 @@ def check_flash_bwd(fa, dtype, gen):
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), reps=5)
     lib_ms = sdpa_bwd_ms(q, k, v, cot, valid[:, None, None, :])
     n = q.numel()
-    flops = 10 * b * h * t * t * hd
+    flops = 10 * b * h * t * t * hd  # the function: five T x T x 64 products
     nbytes = 8 * n * q.element_size() + lse.numel() * 4 + valid.numel()
-    bms, by = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    bms, by = bound(flops, nbytes, peak)
+    # both instances split dk/dv from dq as the library does: S and dP twice
+    design_flops = 14 * b * h * t * t * hd
+    design_ms, _ = bound(design_flops, nbytes, peak)
     name = f"flash_attention_bwd[{'f32' if dtype == torch.float32 else 'bf16'}]"
     print(f"{name} max_abs_err {max(e for e, _ in errs):.3e} ({frac:g} of each of dq, dk, dv's "
           f"scale ({', '.join(f'{sc:.3g}' for _, sc in errs)}); worst "
           f"{max(e / sc for e, sc in errs):.2e} of it; two calls bit-equal) kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.0f} TFLOP/s, {bms / ms:.1%} of the bound) plain {plain_ms:.3f} ms "
+          f"({flops / ms / 1e9:.0f} TFLOP/s of the function's work, {bms / ms:.1%} of its bound; "
+          f"{design_flops / ms / 1e9:.0f} TFLOP/s done, {design_ms / ms:.1%} of the bound of "
+          f"the {design_flops / 1e9:.1f} GFLOP the split does, {design_ms:.3f} ms"
+          f"{bwd_design(fa) if dtype == torch.bfloat16 else ''}) plain {plain_ms:.3f} ms "
           f"sdpa-backward {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.0f} MB)")
     return {"name": name, "route": "cuda", "source": "vipers_torch/csrc/flash_attention_bwd.cu",

@@ -307,15 +307,16 @@ def _flash_bwd_inputs(t, dtype, dev, seed):
 
 @pytest.mark.parametrize("dtype,frac", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("t", [1, 64, 200, 577, 640, 896, 1152])
+@pytest.mark.parametrize("t", [1, 64, 128, 129, 200, 577, 640, 896, 1025, 1152])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, frac, t):
-    """dq, dk, dv of the backward kernel against the plain version within
+    """dq, dk, dv of the backward kernels against the plain version within
     1e-4 (f32) or 2e-2 (bf16) of each gradient's scale, at ragged and
-    multiple-of-64 t, one round of 256 keys and several (bf16 sums dq over
-    rounds in its f32 scratch), with an image whose keys are all invalid
-    and cotangents on every row. At t = 1 the softmax over one key is
-    constant, so the exact dq and dk are 0 and both versions give rounding
-    noise: there they are held to dv's scale."""
+    multiple-of-64 t: one 128-key (dk/dv) and 128-query (dq) tile and
+    several, and t one past a tile's edge (129, 1025: a last tile of one
+    row), with an image whose keys are all invalid and cotangents on every
+    row. At t = 1 the softmax over one key is constant, so the exact dq
+    and dk are 0 and both versions give rounding noise: there they are held
+    to dv's scale."""
     args = _flash_bwd_inputs(t, dtype, cuda, seed=t)
     n0 = tfa.BWD_LAUNCHES[str(dtype)[6:]]
     got = tfa.flash_attention_bwd(*args)
@@ -331,11 +332,13 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, frac, t):
             _close_to_scale(a, c, frac)
 
 
+@pytest.mark.parametrize("t", [640, 1152])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_flash_backward_is_deterministic(cuda, dtype):
-    """Two backward calls give bit-equal dq, dk and dv: no float atomics
-    (bf16 at t = 640 sums dq across three key rounds in the f32 scratch)."""
-    args = _flash_bwd_inputs(640, dtype, cuda, seed=11)
+def test_flash_backward_is_deterministic(cuda, dtype, t):
+    """Two backward calls give bit-equal dq, dk and dv: no float atomics,
+    every block owns its outputs (bf16 sums dq over 5 or 9 key tiles in
+    one block's registers)."""
+    args = _flash_bwd_inputs(t, dtype, cuda, seed=11)
     first = tfa.flash_attention_bwd(*args)
     second = tfa.flash_attention_bwd(*args)
     torch.cuda.synchronize()
@@ -352,6 +355,16 @@ def test_flash_backward_rejects_unaligned_cuda_tensors(cuda):
     odd.copy_(cot)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa.flash_attention_bwd(q, k, v, valid, out, lse, odd, scale)
+
+
+def test_flash_backward_design(cuda):
+    """The bf16 backward's compiled design: 128-key dk/dv tiles (64 keys a
+    consumer warpgroup) over 64-query stages, 128-query dq tiles over
+    128-key stages, two kernels, and the workspace padding the wrapper
+    allocates by."""
+    d = tfa.bwd_design()
+    assert d == {"dkv_keys": 128, "dkv_queries": 64, "dkv_stages": 4, "dq_queries": 128,
+                 "dq_keys": 128, "dq_stages": 3, "row_pad": 128, "kernels": 2}
 
 
 def test_fused_mlp_gradient_through_kernel(cuda):

@@ -1,44 +1,35 @@
-// The one-pass attention backward for Hopper (sm_90a), bf16 in and out,
-// f32 accumulation, and the warp layout the training forward shares with
-// it. Two kernels instantiate it:
-//   attention_train.cu (FLASH = false): the training kernels' backward,
-//     replacing vipers/ops/attention_train.py _bwd (:225) and _bwd_packed
-//     (:294) and the softmax-precision tool's bwd (bench_softmax_prec.py
-//     :137); t % 64 == 0, t <= 1024;
-//   flash_attention_bwd.cu (FLASH = true): flash's backward, replacing the
-//     library's _flash_attention_bwd_dkv and _flash_attention_bwd_dq
-//     (jax/experimental/pallas/ops/tpu/flash_attention.py :941, :1287);
-//     any t >= 1.
+// The training kernels' one-pass attention backward for Hopper (sm_90a),
+// bf16 in and out, f32 accumulation, instantiated by attention_train.cu
+// (replacing vipers/ops/attention_train.py _bwd (:225) and _bwd_packed
+// (:294) and the softmax-precision tool's bwd (bench_softmax_prec.py
+// :137)); t % 64 == 0, t <= 1024, a key mask always given.
 //
-// Arithmetic:
-//   s = qs . k^T in f32 (train: qs = bf16(q * scale), the Pallas kernels';
-//   flash: s = (q . k^T) * scale in f32, q left unrounded); keys whose
-//   valid byte is 0 get -1e9, keys beyond t -inf (p = 0);
+// Arithmetic (the Pallas kernels'):
+//   qs = bf16(q * scale); s = qs . k^T in f32; keys whose valid byte is 0
+//   get -1e9, keys beyond t -inf (p = 0);
 //   p = exp(s - lse), D = rowsum(f32(dO) * f32(O)),
 //   dV = bf16(p)^T . dO, dP = dO . V^T, dS = bf16((dP - D) * p),
-//   dQ = (dS . K) * scale, dK = dS^T . qs (flash: (dS^T . q) * scale);
-//   stored in bf16.
-// Query rows beyond t read as zeros (q, dO, O; lse 0 in flash), so they add
-// nothing to dK, dV. Pad-query rows inside t are computed like any other
-// row; the model's cotangents on them are zero. A row whose keys are all
-// invalid has lse = -1e9 (the forward's -1e9 + log l rounds to it in f32),
-// so p = exp(-1e9 - lse) = 1 for each of its t keys, as in JAX.
+//   dQ = (dS . K) * scale, dK = dS^T . qs; stored in bf16.
+// Pad-query rows are computed like any other row; the model's cotangents
+// on them are zero. A row whose keys are all invalid has lse = -1e9 (the
+// forward's -1e9 + log l rounds to it in f32), so p = exp(-1e9 - lse) = 1
+// for each of its t keys, as in JAX.
 //
 // Design: one CTA per (b, h) at a time, persistent over the heads, and a
 // deterministic dQ with no atomics. Two consumer warpgroups own 128 keys of
 // the head each, as two m64 halves, with dK and dV accumulating in
 // registers; a round's 256 keys are resident as K and V (64 KB). Q, dO, O
-// (and in train the lse row) stream through a TMA ring of three 64-query
-// stages. A pre-pass over each block (train: multiplies Q by the scale in
-// place) loads the lse row and sums D = rowsum(dO * O) (fence.proxy.async
-// and a named barrier before wgmma reads them). Per key half and 32 queries
-// of the block (N = 32 keeps S^T and dP^T at 16 registers each beside dK
-// and dV's 128: at N = 64 ptxas spilled and serialized the wgmma pipeline),
-// every product is one wgmma with its operands K-major or through the
-// transpose bit:
-//   S^T = K . q^T and dP^T = V . dO^T (both K-major), one group;
+// and the lse row stream through a TMA ring of three 64-query stages. A
+// pre-pass over each block multiplies Q by the scale in place, takes lse
+// to log2 units and sums D = rowsum(dO * O) (fence.proxy.async and a named
+// barrier before wgmma reads them). Per key half and 32 queries of the
+// block (N = 32 keeps S^T and dP^T at 16 registers each beside dK and dV's
+// 128: at N = 64 ptxas spilled and serialized the wgmma pipeline), every
+// product is one wgmma with its operands K-major or through the transpose
+// bit:
+//   S^T = K . qs^T and dP^T = V . dO^T (both K-major), one group;
 //   P^T = exp(S^T - lse); dS^T = bf16((dP^T - D) * P^T);
-//   dV += bf16(P^T) . dO and dK += dS^T . q (register A; dO and q
+//   dV += bf16(P^T) . dO and dK += dS^T . qs (register A; dO and qs
 //   MN-major), one group.
 // dS^T goes to a staging buffer by stmatrix in the 128-byte swizzle,
 // [key][query]. After a named barrier one warpgroup, alternating by block,
@@ -122,7 +113,7 @@ constexpr int SUB = 32;        // queries of one S^T / dP^T product
 constexpr int BWD_STAGES = 3;  // query blocks in the ring
 
 struct alignas(1024) BwdStage {
-  bf16 q[BWD_BQ * HD];  // q (train: q * scale after the block's pre-pass)
+  bf16 q[BWD_BQ * HD];  // q, then q * scale after the block's pre-pass
   bf16 dout[BWD_BQ * HD];
   bf16 o[BWD_BQ * HD];
   float lse[BWD_BQ];   // in log2 units after the pre-pass
@@ -137,13 +128,10 @@ struct BwdSmem {
   uint64_t full[BWD_STAGES], empty[BWD_STAGES], kv_full, kv_empty;
 };
 constexpr int BWD_SMEM = (int)sizeof(BwdSmem) + 1024;
-constexpr int TILES_TX = 3 * BWD_BQ * ROW;  // Q, dO and O tiles of a block
+constexpr int BWD_STAGE_TX = 3 * BWD_BQ * ROW + BWD_BQ * 4;  // Q, dO, O tiles and the lse row
 
-// ONE: t <= CHUNK, one round of keys and no f32 scratch, compiled on its
-// own. FLASH: flash's contract (unrounded q with the scale in f32, lse
-// read by the consumers with the ragged edge masked, any t, valid may be
-// null); else the training kernels' (t % 64 == 0, lse by bulk copy).
-template <int VARIANT, bool ONE, bool FLASH>
+// ONE: t <= CHUNK, one round of keys and no f32 scratch, compiled on its own.
+template <int VARIANT, bool ONE>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -157,7 +145,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
   BwdSmem& s = *reinterpret_cast<BwdSmem*>((reinterpret_cast<uintptr_t>(smem_dyn) + 1023) &
                                            ~uintptr_t(1023));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_blk = (t + BWD_BQ - 1) / BWD_BQ, n_rounds = ONE ? 1 : (t + CHUNK - 1) / CHUNK;
+  const int n_blk = t / BWD_BQ, n_rounds = ONE ? 1 : (t + CHUNK - 1) / CHUNK;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < BWD_STAGES; ++i) {
@@ -180,12 +168,11 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
             const int st = it % BWD_STAGES;
             mbar_wait(&s.empty[st], ((it / BWD_STAGES) & 1) ^ 1);
             BwdStage& sb = s.st[st];
-            mbar_expect_tx(&s.full[st], FLASH ? TILES_TX : TILES_TX + BWD_BQ * 4);
+            mbar_expect_tx(&s.full[st], BWD_STAGE_TX);
             tma_load_3d(sb.q, &map_q, &s.full[st], 0, i * BWD_BQ, bh);
             tma_load_3d(sb.dout, &map_do, &s.full[st], 0, i * BWD_BQ, bh);
             tma_load_3d(sb.o, &map_o, &s.full[st], 0, i * BWD_BQ, bh);
-            if (!FLASH)
-              bulk_load(sb.lse, lse + (size_t)bh * t + i * BWD_BQ, BWD_BQ * 4, &s.full[st]);
+            bulk_load(sb.lse, lse + (size_t)bh * t + i * BWD_BQ, BWD_BQ * 4, &s.full[st]);
             if (i == 0) {  // the round's K and V, once its first block is on its way
               mbar_wait(&s.kv_empty, (kv_i & 1) ^ 1);
               mbar_expect_tx(&s.kv_full, 2 * CHUNK * ROW);
@@ -199,11 +186,9 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
     const int wg = warp / 4, w = warp % 4, g = lane / 4, tg = lane % 4;
     const int ctid = threadIdx.x;  // 0 .. 255
     const float qscale = __bfloat162float(__float2bfloat16_rn(scale));
-    const float s2 = FLASH ? scale * LOG2E : LOG2E;  // score to log2 units
-    const float dk_scale = FLASH ? scale : 1.f;
     uint32_t it = 0, kv_i = 0;
     for (int bh = blockIdx.x; bh < n_bh; bh += gridDim.x) {
-      const uint8_t* vrow = valid ? valid + (size_t)(bh / heads) * t : nullptr;
+      const uint8_t* vrow = valid + (size_t)(bh / heads) * t;
       const size_t base = (size_t)bh * t * HD;
       for (int r = 0; r < n_rounds; ++r, ++kv_i) {
         // this thread's keys: k0 + 64h + 16w + g + 8e of the warpgroup's 128
@@ -214,8 +199,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int key = k0 + 64 * h + 16 * w + g + 8 * e;
-            const uint32_t ks = key >= t ? 2u : (vrow == nullptr || __ldg(vrow + key)) ? 0u : 1u;
-            kstate |= ks << (2 * (2 * h + e));
+            kstate |= (key >= t ? 2u : (__ldg(vrow + key) ? 0u : 1u)) << (2 * (2 * h + e));
           }
         float dka[2][HD / 8][4], dva[2][HD / 8][4];
 #pragma unroll
@@ -230,19 +214,11 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
           const int st = it % BWD_STAGES;
           BwdStage& sb = s.st[st];
           mbar_wait(&s.full[st], (it / BWD_STAGES) & 1);
-          // pre-pass: (train) q *= scale in place; lse in log2 units; D of
-          // the block's 64 rows (4 threads a row, 16 elements each: the
-          // swizzle permutes chunks within a row only, the same way in O
-          // and dO)
-          if (!FLASH) scale_rows(sb.q, BWD_BQ, qscale, ctid, 128 * WGS);
-          if (ctid < BWD_BQ) {
-            if (FLASH) {
-              const int row = i * BWD_BQ + ctid;
-              sb.lse[ctid] = row < t ? __ldg(lse + (size_t)bh * t + row) * LOG2E : 0.f;
-            } else {
-              sb.lse[ctid] *= LOG2E;
-            }
-          }
+          // pre-pass: q *= scale and lse *= log2(e) in place; D of the
+          // block's 64 rows (4 threads a row, 16 elements each: the swizzle
+          // permutes chunks within a row only, the same way in O and dO)
+          scale_rows(sb.q, BWD_BQ, qscale, ctid, 128 * WGS);
+          if (ctid < BWD_BQ) sb.lse[ctid] *= LOG2E;
           {
             const int row = ctid / 4, part = ctid % 4;
             float d = 0.f;
@@ -275,7 +251,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
             const int h = hu / 2, u = hu % 2;
             const uint32_t krow = (uint32_t)(128 * wg + 64 * h) * ROW;
             const uint32_t qrow = (uint32_t)(SUB * u) * ROW;
-            // S^T = K_h . q_u^T and dP^T = V_h . dO_u^T (64 keys x 32
+            // S^T = K_h . qs_u^T and dP^T = V_h . dO_u^T (64 keys x 32
             // queries each), one group
             float pt[SUB / 8][4], dpt[SUB / 8][4];
             wgmma_fence();
@@ -291,7 +267,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
             wgmma_wait<0>();
             fence_regs(pt);
             fence_regs(dpt);
-            // P^T = exp(S^T - lse) in log2 units: s s2 - lse log2e;
+            // P^T = exp(S^T - lse) in log2 units: s log2e - lse log2e;
             // dS^T = bf16((dP^T - D) * P^T), both packed as A fragments
             // (the C layout of query groups 2kk and 2kk + 1 is the A layout
             // of step kk)
@@ -309,7 +285,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
                 for (int e = 0; e < 2; ++e)
                   x[e] = ks == 2 ? -INFINITY
-                                 : (ks == 0 ? fmaf(pt[j][2 * rr + e], s2, -l2[e]) : NEG2 - l2[e]);
+                                 : (ks == 0 ? fmaf(pt[j][2 * rr + e], LOG2E, -l2[e]) : NEG2 - l2[e]);
                 const float2 p = VARIANT == BWD_BF16EXP ? exp_bf16x2(x[0] * LN2, x[1] * LN2)
                                                         : make_float2(ex2(x[0]), ex2(x[1]));
                 const int kk = j / 2, e4 = (j & 1) * 2 + rr;
@@ -331,7 +307,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
                             dsf[kk][2], dsf[kk][3]);
               }
             }
-            // dV_h += bf16(P^T) . dO_u; dK_h += dS^T . q_u (16 queries =
+            // dV_h += bf16(P^T) . dO_u; dK_h += dS^T . qs_u (16 queries =
             // 2048 bytes a step)
             fence_regs(dva[h]);
             fence_regs(dka[h]);
@@ -364,11 +340,10 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
             fence_regs(dqa);
 #pragma unroll
             for (int rr = 0; rr < 2; ++rr) {
-              const int row = i * BWD_BQ + 16 * w + g + 8 * rr;
-              if (FLASH && row >= t) continue;
+              const size_t row = (size_t)i * BWD_BQ + 16 * w + g + 8 * rr;
 #pragma unroll
               for (int dt = 0; dt < HD / 8; ++dt) {
-                const size_t at = base + (size_t)row * HD + dt * 8 + 2 * tg;
+                const size_t at = base + row * HD + dt * 8 + 2 * tg;
                 float2 val = make_float2(dqa[dt][2 * rr], dqa[dt][2 * rr + 1]);
                 if (r > 0) {
                   const float2 prev = *reinterpret_cast<const float2*>(dq_acc + at);
@@ -396,8 +371,8 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
             for (int dt = 0; dt < HD / 8; ++dt) {
               const size_t at = base + (size_t)key * HD + dt * 8 + 2 * tg;
-              *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
-                  dka[h][dt][2 * rr] * dk_scale, dka[h][dt][2 * rr + 1] * dk_scale);
+              *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+                  __floats2bfloat162_rn(dka[h][dt][2 * rr], dka[h][dt][2 * rr + 1]);
               *reinterpret_cast<__nv_bfloat162*>(dv + at) =
                   __floats2bfloat162_rn(dva[h][dt][2 * rr], dva[h][dt][2 * rr + 1]);
             }
@@ -407,7 +382,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int VARIANT, bool ONE, bool FLASH>
+template <int VARIANT, bool ONE>
 int launch_bwd_one(const void* q, const void* k, const void* v, const void* o, const float* lse,
                    const void* dout, const uint8_t* valid, void* dq, void* dk, void* dv,
                    float* dq_acc, int bh, int heads, int t, float scale, cudaStream_t stream) {
@@ -420,9 +395,9 @@ int launch_bwd_one(const void* q, const void* k, const void* v, const void* o, c
   if (err != 0) return err;
   static LaunchSetup setup;
   int sms = 0;
-  err = setup.sms(attention_bwd_kernel<VARIANT, ONE, FLASH>, BWD_SMEM, &sms);
+  err = setup.sms(attention_bwd_kernel<VARIANT, ONE>, BWD_SMEM, &sms);
   if (err != 0) return err;
-  attention_bwd_kernel<VARIANT, ONE, FLASH><<<bh < sms ? bh : sms, THREADS, BWD_SMEM, stream>>>(
+  attention_bwd_kernel<VARIANT, ONE><<<bh < sms ? bh : sms, THREADS, BWD_SMEM, stream>>>(
       mq, mk, mv, mo, mdo, lse, valid, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dq_acc, bh, heads, t, scale);
   return (int)cudaGetLastError();
@@ -431,15 +406,15 @@ int launch_bwd_one(const void* q, const void* k, const void* v, const void* o, c
 // q, k, v, o, dout, dq, dk, dv: (bh, t, 64) bf16, contiguous each, 16-byte
 // aligned; lse: (bh, t) f32; dq_acc: an f32 (bh, t, 64) scratch, unused
 // where t <= 256. Returns a cudaError_t.
-template <int VARIANT, bool FLASH>
+template <int VARIANT>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const float* lse,
                const void* dout, const uint8_t* valid, void* dq, void* dk, void* dv,
                float* dq_acc, int bh, int heads, int t, float scale, cudaStream_t stream) {
   return t <= CHUNK
-             ? launch_bwd_one<VARIANT, true, FLASH>(q, k, v, o, lse, dout, valid, dq, dk, dv,
-                                                    dq_acc, bh, heads, t, scale, stream)
-             : launch_bwd_one<VARIANT, false, FLASH>(q, k, v, o, lse, dout, valid, dq, dk, dv,
-                                                     dq_acc, bh, heads, t, scale, stream);
+             ? launch_bwd_one<VARIANT, true>(q, k, v, o, lse, dout, valid, dq, dk, dv, dq_acc,
+                                             bh, heads, t, scale, stream)
+             : launch_bwd_one<VARIANT, false>(q, k, v, o, lse, dout, valid, dq, dk, dv, dq_acc,
+                                              bh, heads, t, scale, stream);
 }
 
 }  // namespace attn_bwd

@@ -66,10 +66,10 @@
 //            l is the exact sum in one pass, and carried online next to
 //            the row max by pass 1 of two.
 //
-// Backward: attention_bwd.cuh's one-pass kernel with the training contract
-// (FLASH = false), its design described there: one CTA per (b, h), dK and
-// dV in registers, dQ from dS^T staged by stmatrix, keys in rounds of 256
-// with dQ summed in an f32 scratch beyond.
+// Backward: attention_bwd.cuh's one-pass kernel, its design described
+// there: one CTA per (b, h), dK and dV in registers, dQ from dS^T staged
+// by stmatrix, keys in rounds of 256 with dQ summed in an f32 scratch
+// beyond.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -473,11 +473,11 @@ extern "C" int vipers_attention_train_bwd(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case BWD_F32:
-      return launch_bwd<BWD_F32, false>(q, k, v, o, lse, dout, valid, dq, dk, dv, dq_acc,
-                                        bh, heads, t, scale, st);
+      return launch_bwd<BWD_F32>(q, k, v, o, lse, dout, valid, dq, dk, dv, dq_acc, bh, heads,
+                                 t, scale, st);
     case BWD_BF16EXP:
-      return launch_bwd<BWD_BF16EXP, false>(q, k, v, o, lse, dout, valid, dq, dk, dv,
-                                            dq_acc, bh, heads, t, scale, st);
+      return launch_bwd<BWD_BF16EXP>(q, k, v, o, lse, dout, valid, dq, dk, dv, dq_acc, bh,
+                                     heads, t, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

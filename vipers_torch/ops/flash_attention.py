@@ -20,9 +20,11 @@ launch failure raises. ``LAUNCHES`` counts kernel launches per instance.
 ``flash_attention_bwd``, launches ``vipers_torch/csrc/flash_attention_bwd.cu``
 for CUDA tensors. On the TPU the product path's backward is the library's
 two Pallas kernels, ``_flash_attention_bwd_dkv`` and
-``_flash_attention_bwd_dq``, which that file replaces (f32 on FMA as two
-kernels, dk/dv then dq; bf16 as one TMA + wgmma kernel with keys in rounds
-and a deterministic dq). Its plain version, ``flash_attention_bwd_plain``,
+``_flash_attention_bwd_dq``, which that file replaces with the same split
+(f32 on FMA; bf16 on TMA + wgmma after a row pass that computes D and lse
+in log2 units into a small workspace, its design in ``bwd_design``): each
+block owns its outputs, so dq is deterministic with no atomics and no
+scratch. Its plain version, ``flash_attention_bwd_plain``,
 is the JAX package's ``_flash_vjp_bwd``, the ``use_official=False`` VJP,
 and runs for CPU tensors. ``BWD_LAUNCHES`` counts backward calls that
 launched the kernels, per instance.
@@ -40,6 +42,7 @@ same tile as the head-major kernel, the head's stripe a TMA coordinate.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Optional
 
@@ -58,8 +61,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches per instance; chip_smoke.py resets and reads these
 LAUNCHES = {"float32": 0, "bfloat16": 0}
 PACKED_LAUNCHES = {"float32": 0, "bfloat16": 0}
-# backward calls on the card per instance: one count a call, which is one
-# kernel in bf16 and two (dk/dv, then dq) in f32
+# backward calls on the card per instance: one count a call, which launches
+# the dk/dv and the dq kernel (bf16: after the row pass)
 BWD_LAUNCHES = {"float32": 0, "bfloat16": 0}
 
 
@@ -236,6 +239,23 @@ def _bwd_lib():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_design() -> dict:
+    """The bf16 backward's design as compiled: the dk/dv kernel's keys a
+    tile, queries a stage and ring stages, the dq kernel's queries a tile,
+    keys a stage and ring stages, the workspace's row padding and the
+    number of main kernels. Builds the backward library if needed."""
+    fn = _build.load("flash_attention_bwd").vipers_flash_attention_bwd_design
+    keys = ("dkv_keys", "dkv_queries", "dkv_stages", "dq_queries", "dq_keys", "dq_stages",
+            "row_pad", "kernels")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(keys)
+        fn.restype = None
+    vals = [ctypes.c_int() for _ in keys]
+    fn(*map(ctypes.byref, vals))
+    return dict(zip(keys, (v.value for v in vals)))
+
+
 def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
     """(dq, dk, dv) in the input dtype for (B, H, T, 64) q, k, v, the (B, T)
     bool key mask (or None), the forward's ``out`` and f32 ``lse`` and the
@@ -253,15 +273,15 @@ def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
     _check_aligned(q, k, v, out, g)
     vmask = valid.contiguous().view(torch.uint8) if valid is not None else None
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # bf16 beyond one 256-key round sums dq in an f32 scratch
-    scratch = (torch.empty((b, h, t, hd), dtype=torch.float32, device=q.device)
-               if q.dtype == torch.bfloat16 and t > 256 else None)
+    # bf16: lse in log2 units and D of every query row, rows padded
+    rows = (torch.empty((2, b * h, round_up(t, bwd_design()["row_pad"])), dtype=torch.float32,
+                        device=q.device) if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 g.data_ptr(), vmask.data_ptr() if vmask is not None else None,
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                scratch.data_ptr() if scratch is not None else None,
+                rows.data_ptr() if rows is not None else None,
                 b * h, h, t, hd, float(scale), _DTYPE_CODE[q.dtype], q.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")

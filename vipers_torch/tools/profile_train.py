@@ -14,21 +14,39 @@ scheme). Needs a card:
     python -m vipers_torch.tools.profile_train [--batch 128] [--steps 3] [--image-size 224]
 
 Writes the full kernel table and a Chrome trace under ``--out``
-(default ``build/profile_train/``).
+(default ``build/profile_train/``), and prints the rows of the port's own
+kernels (the ``__global__`` functions of ``vipers_torch/csrc``, such as the
+flash backward's row pass, dk/dv and dq kernels) with their sum.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import statistics
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from vipers_torch.tools.profile_lost import _intervals_union
+
+
+def port_kernels() -> set:
+    """Names of the port's CUDA kernels: the ``__global__`` functions of
+    ``vipers_torch/csrc``."""
+    pat = re.compile(r"__global__ void (?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)\(")
+    csrc = Path(__file__).resolve().parents[1] / "csrc"
+    return {n for f in csrc.glob("*.cu*") for n in pat.findall(f.read_text())}
+
+
+def port_kernel_pattern() -> re.Pattern:
+    """Finds a port kernel's name in a profiler row (the name followed by
+    its argument list or template arguments)."""
+    return re.compile(r"\b(?:%s)[(<]" % "|".join(sorted(port_kernels())))
 
 
 def main(argv=None):
@@ -112,6 +130,12 @@ def main(argv=None):
     for name, (ms, n) in rows[:25]:
         print(f"  {ms / args.steps:9.3f} ms/step {100 * ms / total:5.1f}% "
               f"{n // args.steps:5d}x  {name[:110]}")
+    own = port_kernel_pattern()
+    mine = [(name, v) for name, v in rows if own.search(name)]
+    print(f"the port's kernels: {sum(v[0] for _, v in mine) / args.steps:.3f} ms/step in "
+          f"{sum(v[1] for _, v in mine) // args.steps} launches a step")
+    for name, (ms, n) in mine:
+        print(f"  {ms / args.steps:9.3f} ms/step {n // args.steps:5d}x  {name[:110]}")
 
 
 if __name__ == "__main__":
