@@ -4,7 +4,8 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
+  1. card: name and power limit (nvidia-smi), torch and CUDA versions,
+     both TF32 switches (cuBLAS matmuls, cuDNN convolutions);
   2. build: the six CUDA sources of ``vipers_torch/csrc``, one nvcc each,
      in parallel;
   3. kernels against their plain PyTorch versions at their main path's
@@ -19,8 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
      splash kernels also TFLOP/s and the share of the bound, and for flash
      and packed the bf16 attention tile's shape (query rows, key tile,
      stages); for the flash backward also the share of the bound of the
-     seven products its split does and, in bf16, its design (tiles,
-     stages, kernels); for the fused MLP its design (rows a CTA, column tile,
+     seven products its split does and its design (tiles, stages,
+     kernels), and in f32 the shares of both the 3xTF32 and the FMA bounds
+     and the error of the plain version under cuBLAS TF32, which the
+     kernel must beat tenfold; for the fused MLP its design (rows a CTA, column tile,
      stages); for the training kernels the share of the bound and their
      design (tiles, chunk, stages); more checks the main path does not
      run: the training
@@ -77,6 +80,7 @@ K_PATCHES = 100
 N_CPU = 4
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
+PEAK_TF32 = 494.7e12  # TF32 tensor cores, dense: the f32 flash backward's 3xTF32 products
 TRAIN_HW, TRAIN_BATCH = 224, 128
 TRAIN_HW_FLASH = 384  # the ViT/DeiT fine-tuning resolution: T = 577 takes flash
 
@@ -106,13 +110,15 @@ def bf16_tile(fa):
     return "; tile {block_q} x {block_k}, {stages} stages".format(**fa.tile_shape())
 
 
-def bwd_design(fa):
-    """The bf16 flash backward's design as compiled, for its kernel line."""
-    d = fa.bwd_design()
+def bwd_design(fa, dtype):
+    """The flash backward's design for ``dtype`` as compiled, for its line."""
+    d = fa.bwd_design(dtype)
+    arith = (f"; every product {d['tf32_products']} TF32 products (3xTF32)"
+             if d["tf32_products"] else "")
     return (f"; {d['kernels']} kernels after a row pass (D, lse in log2 units): dk/dv on "
             f"{d['dkv_keys']}-key tiles over {d['dkv_queries']}-query stages, "
             f"{d['dkv_stages']} stages; dq on {d['dq_queries']}-query tiles over "
-            f"{d['dq_keys']}-key stages, {d['dq_stages']} stages")
+            f"{d['dq_keys']}-key stages, {d['dq_stages']} stages{arith}")
 
 
 def check_flash(fa, dtype, gen):
@@ -169,8 +175,12 @@ def check_flash_bwd(fa, dtype, gen):
     residuals from the forward kernel, cotangents on every row (so the
     kernel is held to the plain version on every row): each of dq, dk, dv
     within 1e-4 (f32) or 2e-2 (bf16) of its scale, and two calls bit-equal.
-    Library: ``torch.autograd.grad`` of SDPA with the bool mask."""
+    f32: the plain version in exact f32 (cuBLAS TF32 off), and the kernel
+    at least 10x nearer it than the same plain version in cuBLAS TF32 (one
+    TF32 product a product, the yardstick). Library: ``torch.autograd.grad``
+    of SDPA with the bool mask."""
     b, h, t, hd = TRAIN_BATCH, 6, 640, 64
+    f32 = dtype == torch.float32
     q, k, v, cot = (torch.randn(b, h, t, hd, generator=gen, device="cuda").to(dtype)
                     for _ in range(4))
     valid = torch.zeros(b, t, dtype=torch.bool, device="cuda")
@@ -182,32 +192,57 @@ def check_flash_bwd(fa, dtype, gen):
     args = (q, k, v, valid, out, lse, cot, scale)
     got = fa.flash_attention_bwd(*args)
     again = fa.flash_attention_bwd(*args)
+    assert not torch.backends.cuda.matmul.allow_tf32, "the plain reference must be exact f32"
     want = fa.flash_attention_bwd_plain(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(got, again)), "backward not deterministic"
-    frac = 1e-4 if dtype == torch.float32 else 2e-2
+    frac = 1e-4 if f32 else 2e-2
     errs = [scaled_err(a, c, frac) for a, c in zip(got, want)]
+    yard = ""
+    if f32:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = fa.flash_attention_bwd_plain(*args)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        y_errs = [(y.float() - c.float()).abs().max().item() for y, c in zip(tf32, want)]
+        near = min(ye / e if e else float("inf") for ye, (e, _) in zip(y_errs, errs))
+        assert near >= 10, (near, y_errs, errs)
+        yard = (f"; cuBLAS-TF32 yardstick {max(y_errs):.3e}, worst "
+                f"{max(ye / sc for ye, (_, sc) in zip(y_errs, errs)):.2e} of a scale, the "
+                f"kernel {near:.0f}x nearer f32")
     ms = cuda_ms(lambda: fa.flash_attention_bwd(*args))
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), reps=5)
     lib_ms = sdpa_bwd_ms(q, k, v, cot, valid[:, None, None, :])
     n = q.numel()
     flops = 10 * b * h * t * t * hd  # the function: five T x T x 64 products
     nbytes = 8 * n * q.element_size() + lse.numel() * 4 + valid.numel()
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-    bms, by = bound(flops, nbytes, peak)
     # both instances split dk/dv from dq as the library does: S and dP twice
     design_flops = 14 * b * h * t * t * hd
-    design_ms, _ = bound(design_flops, nbytes, peak)
-    name = f"flash_attention_bwd[{'f32' if dtype == torch.float32 else 'bf16'}]"
+    name = f"flash_attention_bwd[{'f32' if f32 else 'bf16'}]"
+    if f32:
+        # every f32 product is three TF32 products on the tensor cores
+        bms, by = bound(3 * flops, nbytes, PEAK_TF32)
+        design_ms = bound(3 * design_flops, nbytes, PEAK_TF32)[0]
+        fma_ms, fma_design_ms = (bound(f, nbytes, PEAK_F32)[0] for f in (flops, design_flops))
+        shares = (f"{bms / ms:.1%} of its 3xTF32 bound {bms:.3f} ms, {fma_ms / ms:.1%} of its FMA "
+                  f"bound {fma_ms:.3f} ms; {design_flops / ms / 1e9:.0f} TFLOP/s done, "
+                  f"{design_ms / ms:.1%} of the 3xTF32 bound {design_ms:.3f} ms and "
+                  f"{fma_design_ms / ms:.1%} of the FMA bound {fma_design_ms:.3f} ms of the "
+                  f"{design_flops / 1e9:.1f} GFLOP the split does")
+    else:
+        bms, by = bound(flops, nbytes, PEAK_BF16)
+        design_ms = bound(design_flops, nbytes, PEAK_BF16)[0]
+        shares = (f"{bms / ms:.1%} of its bound; {design_flops / ms / 1e9:.0f} TFLOP/s done, "
+                  f"{design_ms / ms:.1%} of the bound of the {design_flops / 1e9:.1f} GFLOP the "
+                  f"split does, {design_ms:.3f} ms")
     print(f"{name} max_abs_err {max(e for e, _ in errs):.3e} ({frac:g} of each of dq, dk, dv's "
           f"scale ({', '.join(f'{sc:.3g}' for _, sc in errs)}); worst "
-          f"{max(e / sc for e, sc in errs):.2e} of it; two calls bit-equal) kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.0f} TFLOP/s of the function's work, {bms / ms:.1%} of its bound; "
-          f"{design_flops / ms / 1e9:.0f} TFLOP/s done, {design_ms / ms:.1%} of the bound of "
-          f"the {design_flops / 1e9:.1f} GFLOP the split does, {design_ms:.3f} ms"
-          f"{bwd_design(fa) if dtype == torch.bfloat16 else ''}) plain {plain_ms:.3f} ms "
-          f"sdpa-backward {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.0f} MB)")
+          f"{max(e / sc for e, sc in errs):.2e} of it; two calls bit-equal{yard}) kernel "
+          f"{ms:.3f} ms ({flops / ms / 1e9:.0f} TFLOP/s of the function's work, {shares}"
+          f"{bwd_design(fa, dtype)}) plain {plain_ms:.3f} ms sdpa-backward {lib_ms:.3f} ms "
+          f"bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
     return {"name": name, "route": "cuda", "source": "vipers_torch/csrc/flash_attention_bwd.cu",
             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
                         "(_flash_attention_bwd_dkv) and :1287 (_flash_attention_bwd_dq)",
@@ -904,6 +939,10 @@ def main():
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
           f"count {torch.cuda.device_count()}")
+    # cuBLAS TF32 off keeps the f32 plain versions exact; cuDNN's is on by
+    # default, so the f32 patch conv runs in TF32
+    print(f"TF32: torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
 
     # 2. build
     t0 = time.time()

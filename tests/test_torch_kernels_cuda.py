@@ -358,13 +358,36 @@ def test_flash_backward_rejects_unaligned_cuda_tensors(cuda):
 
 
 def test_flash_backward_design(cuda):
-    """The bf16 backward's compiled design: 128-key dk/dv tiles (64 keys a
-    consumer warpgroup) over 64-query stages, 128-query dq tiles over
-    128-key stages, two kernels, and the workspace padding the wrapper
-    allocates by."""
-    d = tfa.bwd_design()
-    assert d == {"dkv_keys": 128, "dkv_queries": 64, "dkv_stages": 4, "dq_queries": 128,
-                 "dq_keys": 128, "dq_stages": 3, "row_pad": 128, "kernels": 2}
+    """Both instances' compiled designs. bf16: 128-key dk/dv tiles (64 keys
+    a consumer warpgroup) over 64-query stages, 128-query dq tiles over
+    128-key stages. f32: the same tiles over 32-query and 32-key stages of
+    a 2- and a 3-stage ring, every product three TF32 products. Two kernels
+    each, and the workspace padding the wrapper allocates by."""
+    assert tfa.bwd_design(torch.bfloat16) == {
+        "dkv_keys": 128, "dkv_queries": 64, "dkv_stages": 4, "dq_queries": 128, "dq_keys": 128,
+        "dq_stages": 3, "row_pad": 128, "kernels": 2, "tf32_products": 0}
+    assert tfa.bwd_design(torch.float32) == {
+        "dkv_keys": 128, "dkv_queries": 32, "dkv_stages": 2, "dq_queries": 128, "dq_keys": 32,
+        "dq_stages": 3, "row_pad": 128, "kernels": 2, "tf32_products": 3}
+
+
+def test_flash_backward_f32_nearer_f32_than_tf32(cuda):
+    """The f32 kernel (three TF32 products a product) lies at least 10x
+    nearer the exact-f32 plain version than that plain version run with
+    cuBLAS in TF32 (one TF32 product a product), in each of dq, dk, dv."""
+    args = _flash_bwd_inputs(640, torch.float32, cuda, seed=13)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got = tfa.flash_attention_bwd(*args)
+    want = tfa.flash_attention_bwd_plain(*args)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = tfa.flash_attention_bwd_plain(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    for a, c, y in zip(got, want, tf32):
+        err, yard = (a - c).abs().max().item(), (y - c).abs().max().item()
+        assert 10 * err <= yard, (err, yard)
 
 
 def test_fused_mlp_gradient_through_kernel(cuda):

@@ -18,18 +18,22 @@
 // T = 577 padded to 640, hd 64) the function is five T x T x 64 products,
 // 201.3 GFLOP, on 505 MB of I/O in bf16 (q, k, v, out, dO read; dq, dk, dv
 // written; lse, mask) and 1009 MB in f32. bf16 is bound by operations
-// (0.204 ms at 989 TFLOP/s against 0.151 ms of bytes), f32 by the 67
-// TFLOP/s of its FMA pipes (3.0 ms). Both instances split the work as the
-// library does, so each block owns its outputs and nothing is summed
-// across blocks (no atomics, no scratch, dq deterministic); S and dP are
-// computed twice, seven products in place of five (bf16: 281.8 GFLOP,
-// 0.285 ms at the tensor cores' peak).
+// (0.204 ms at 989 TFLOP/s against 0.151 ms of bytes). f32 runs every
+// product as three TF32 products (below), so its operations bound it at 3 x
+// 201.3 GFLOP over the TF32 tensor cores' 494.7 TFLOP/s, 1.221 ms (bytes:
+// 0.301 ms); on the 67 TFLOP/s FMA pipes the same 201.3 GFLOP would take
+// 3.005 ms. Both instances split the work as the library does, so each
+// block owns its outputs and nothing is summed across blocks (no atomics,
+// no scratch, dq deterministic); S and dP are computed twice, seven products
+// in place of five (281.8 GFLOP: bf16 0.285 ms at the tensor cores' peak,
+// f32 1.710 ms as 3xTF32, 4.207 ms on FMA).
 //
-// bf16: a row pass and two kernels on TMA, mbarriers and wgmma.
+// Both instances: a row pass and two kernels on TMA, mbarriers and wgmma.
 //   flash_bwd_rows: lse in log2 units and D = rowsum(f32(dO) * f32(out)) of
 //     every query row, once (XLA computes D outside the library's kernels,
 //     flash_attention.py:273), into a (2, B*H, Tp) f32 workspace, Tp = T
 //     rounded up to 128, zero on the rows t .. Tp - 1; out is read here only.
+// bf16:
 //   flash_bwd_dkv (_flash_attention_bwd_dkv): a persistent grid over (b*h,
 //     128-key tile). Two consumer warpgroups own 64 keys each; their K and V
 //     rows are loaded once into registers as wgmma A fragments (ldmatrix),
@@ -50,16 +54,51 @@
 //     P (dP - D), dQ += bf16(dS) K (register A, K MN-major through the
 //     transpose bit, as the forward reads V); dq is written once, times the
 //     scale.
+// f32 (the parity anchor, within 1e-4 of each gradient's scale of the exact
+// plain version): the same split and structure on TF32 wgmma, every product
+// as three TF32 products into one f32 sum (hopper.cuh: small.big + big.small
+// + big.big, CUTLASS's OpMultiplyAddFastF32, which SDPA's f32 kernels run
+// too). Exponentials, D and dS stay in f32. TMA brings f32 tiles in two
+// 32-column boxes (128-byte swizzled halves); each operand is split into
+// TF32 big and small, in registers where it is a register A, else once in
+// shared memory by the consumers.
+//   flash_bwd_dkv_f32: a persistent grid over (b*h, 128-key tile), two
+//     consumer warpgroups of 64 keys; once a tile K is loaded into
+//     registers as split A fragments and V split in place (shared A). Q,
+//     dO, lse and D stream past in 32-query stages through a 2-stage TMA
+//     ring of raw f32; per stage both warpgroups split it (a thread a query
+//     row and 8 dims) into Q and dO, big and small, [query][dim], plus the
+//     K-major copies [dim][query] that dV += P^T dO and dK += dS^T Q read
+//     as B (wgmma has no transpose bit for TF32), then free the raw stage.
+//     S^T = K Q^T (register A) and dP^T = V dO^T (shared A), P^T from S^T
+//     while dP^T runs, dV from P^T in registers while dP^T finishes, dS^T,
+//     dK.
+//   flash_bwd_dq_f32: a persistent grid over (b*h, 128-query tile), two
+//     consumer warpgroups of 64 queries; once a tile Q is loaded into
+//     registers as split A fragments and dO split in place (shared A). K
+//     and V stream in 32-key stages through a 3-stage ring; per stage K and
+//     V are split, with a K-major copy of K [dim][key] for dQ += dS K. S =
+//     Q K^T (register A), dP = dO V^T, P while dP runs, dS, dQ; dq is
+//     written once, times the scale.
+//   Accumulator into A: a TF32 A fragment of an 8-deep k step holds columns
+//   tg and tg + 4 of its rows, the accumulator columns 2tg and 2tg + 1, so
+//   P^T, dS^T and dS enter as A unchanged, their k permuted within each
+//   8-group (tf32_a_frag), and the transposed B copies store their k rows in
+//   the same order (tf32_perm); only the order of the sum changes.
+//   Cost of the split: a stage's split copies are written by the consumers
+//   between two barriers of both warpgroups, so no product overlaps them;
+//   Q, dO and K are written three times over (big, small, transposed big
+//   and small), V twice. Shared memory: dk/dv 194 KB (K 32 KB until it is
+//   in registers, V big and small 64 KB, the split stage 64 KB, the ring 32
+//   KB), dq 194 KB (Q 32 KB, dO big and small 64 KB, the split stage 48 KB,
+//   the ring 48 KB), one CTA an SM. Registers a consumer thread, of the 240
+//   it gets: dk/dv the K fragments 64, dK and dV 64, S^T and dP^T 32, the
+//   P^T and dS^T fragments 64; dq the Q fragments 64, dQ 32, S and dP 32,
+//   the dS fragments 32. ptxas -v: no spills, no serialized wgmma. Tried
+//   and dropped: leaving dQ running under the next stage's split (two K^T
+//   buffers) made ptxas serialize the dq kernel's wgmma (C7515).
 // Any t >= 1: rows beyond t read as TMA's zeros (lse, D 0), add nothing and
 // are not written; keys beyond t get -inf.
-//
-// f32: two kernels on plain FMA (no TF32), the parity anchor:
-// flash_bwd_dkv_f32, one block per (b*h, 64-key tile) streaming 64-query
-// tiles past its keys (S^T, dP^T, then dV += P^T dO and dK += dS^T qs from
-// shared memory), and flash_bwd_dq_f32, one block per (b*h, 64-query tile)
-// streaming key tiles (S, dP, then dQ += dS K). 256 threads a block, a
-// 16 x 16 grid of 4 x 4 tiles each, rows padded to 65 floats; each computes
-// its rows' D from out itself.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -74,282 +113,7 @@ namespace {
 using attn_tile::HD;
 using attn_tile::NEG;
 
-// ------------------------------------------------------------ f32 / FMA
-constexpr int F32_B = 64;  // queries of a query tile, keys of a key tile
-constexpr int F32_THREADS = 256;
-constexpr int F32_LD = HD + 1;  // padded row: conflict-free column reads
-constexpr int F32_MAX_TILES = 65535;  // gridDim.y
-
-typedef float Tile[F32_B][F32_LD];
-
-struct DkvSmem {
-  Tile k, v;    // the block's keys
-  Tile q, g;    // the query tile: q * scale, dO
-  Tile pt, dst;  // P^T and dS^T, [key][query]
-  float lse[F32_B], dsum[F32_B], fill[F32_B];
-};
-
-struct DqSmem {
-  Tile q, g;  // the block's queries: q * scale, dO
-  Tile k, v;  // the key tile
-  Tile ds;    // dS, [query][key]
-  float lse[F32_B], dsum[F32_B], fill[F32_B];
-};
-
-// Rows row0 .. row0 + 63 of one head's (t, 64) operand times `mul` into a
-// padded tile; rows beyond t are zeros.
-__device__ __forceinline__ void load_rows(Tile& dst, const float* __restrict__ src, int row0,
-                                          int t, float mul) {
-  for (int idx = threadIdx.x; idx < F32_B * HD; idx += F32_THREADS) {
-    const int r = idx / HD, c = idx % HD, gr = row0 + r;
-    dst[r][c] = gr < t ? src[(size_t)gr * HD + c] * mul : 0.f;
-  }
-}
-
-// lse and D = rowsum(dO * out) of query rows q0 .. q0 + 63 (four threads a
-// row); rows beyond t get lse 0 and D 0 (their q and dO are zeros, so they
-// add nothing).
-__device__ __forceinline__ void row_stats(float* s_lse, float* s_dsum, const float* __restrict__ lse,
-                                          const float* __restrict__ o,
-                                          const float* __restrict__ g, int q0, int t) {
-  const int r = threadIdx.x / 4, part = threadIdx.x % 4, gr = q0 + r;
-  float d = 0.f;
-  if (gr < t)
-    for (int c = part * 16; c < part * 16 + 16; ++c)
-      d = fmaf(g[(size_t)gr * HD + c], o[(size_t)gr * HD + c], d);
-  d += __shfl_xor_sync(0xffffffffu, d, 1);
-  d += __shfl_xor_sync(0xffffffffu, d, 2);
-  if (part == 0) {
-    s_dsum[r] = d;
-    s_lse[r] = gr < t ? lse[gr] : 0.f;
-  }
-}
-
-// What key `key` does to its score: 0 keeps it, -1e9 masks it (the JAX
-// kernel's mask), -inf excludes a key beyond t.
-__device__ __forceinline__ float key_fill(const uint8_t* vrow, int key, int t) {
-  return key >= t ? -INFINITY : (vrow == nullptr || vrow[key]) ? 0.f : NEG;
-}
-
-__device__ __forceinline__ float prob(float s, float fill, float lse) {
-  return expf((fill == 0.f ? s : fill) - lse);
-}
-
-__global__ void __launch_bounds__(F32_THREADS)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ o,
-                  const float* __restrict__ lse, const float* __restrict__ g,
-                  const uint8_t* __restrict__ valid, float* __restrict__ dk,
-                  float* __restrict__ dv, int heads, int t, float scale) {
-  extern __shared__ __align__(16) char smem_raw[];
-  DkvSmem& s = *reinterpret_cast<DkvSmem*>(smem_raw);
-  const int bh = blockIdx.x, k0 = blockIdx.y * F32_B, tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;  // keys ty*4 + a; queries or dims tx + 16 i
-  const size_t base = (size_t)bh * t * HD;
-  const uint8_t* vrow = valid ? valid + (size_t)(bh / heads) * t : nullptr;
-
-  load_rows(s.k, k + base, k0, t, 1.f);
-  load_rows(s.v, v + base, k0, t, 1.f);
-  if (tid < F32_B) s.fill[tid] = key_fill(vrow, k0 + tid, t);
-  float dka[4][4], dva[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[a][i] = dva[a][i] = 0.f;
-
-  for (int q0 = 0; q0 < t; q0 += F32_B) {
-    __syncthreads();  // the last tile's readers are done
-    load_rows(s.q, q + base, q0, t, scale);
-    load_rows(s.g, g + base, q0, t, 1.f);
-    row_stats(s.lse, s.dsum, lse + (size_t)bh * t, o + base, g + base, q0, t);
-    __syncthreads();
-
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st[a][i] = dpt[a][i] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float ka[4], va[4], qb[4], gb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        ka[a] = s.k[ty * 4 + a][d];
-        va[a] = s.v[ty * 4 + a][d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qb[i] = s.q[tx + 16 * i][d];
-        gb[i] = s.g[tx + 16 * i][d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          st[a][i] = fmaf(ka[a], qb[i], st[a][i]);
-          dpt[a][i] = fmaf(va[a], gb[i], dpt[a][i]);
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int key = ty * 4 + a;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = tx + 16 * i;
-        const float p = prob(st[a][i], s.fill[key], s.lse[qi]);
-        s.pt[key][qi] = p;
-        s.dst[key][qi] = p * (dpt[a][i] - s.dsum[qi]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int qq = 0; qq < F32_B; ++qq) {
-      float pa[4], da[4], gb[4], qb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        pa[a] = s.pt[ty * 4 + a][qq];
-        da[a] = s.dst[ty * 4 + a][qq];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        gb[i] = s.g[qq][tx + 16 * i];
-        qb[i] = s.q[qq][tx + 16 * i];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dva[a][i] = fmaf(pa[a], gb[i], dva[a][i]);
-          dka[a][i] = fmaf(da[a], qb[i], dka[a][i]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int key = k0 + ty * 4 + a;
-    if (key >= t) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t at = base + (size_t)key * HD + tx + 16 * i;
-      dk[at] = dka[a][i];
-      dv[at] = dva[a][i];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(F32_THREADS)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ o,
-                 const float* __restrict__ lse, const float* __restrict__ g,
-                 const uint8_t* __restrict__ valid, float* __restrict__ dq, int heads, int t,
-                 float scale) {
-  extern __shared__ __align__(16) char smem_raw[];
-  DqSmem& s = *reinterpret_cast<DqSmem*>(smem_raw);
-  const int bh = blockIdx.x, q0 = blockIdx.y * F32_B, tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;  // queries ty*4 + a; keys or dims tx + 16 i
-  const size_t base = (size_t)bh * t * HD;
-  const uint8_t* vrow = valid ? valid + (size_t)(bh / heads) * t : nullptr;
-
-  load_rows(s.q, q + base, q0, t, scale);
-  load_rows(s.g, g + base, q0, t, 1.f);
-  row_stats(s.lse, s.dsum, lse + (size_t)bh * t, o + base, g + base, q0, t);
-  float dqa[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dqa[a][i] = 0.f;
-
-  for (int k0 = 0; k0 < t; k0 += F32_B) {
-    __syncthreads();  // the last tile's readers are done
-    load_rows(s.k, k + base, k0, t, 1.f);
-    load_rows(s.v, v + base, k0, t, 1.f);
-    if (tid < F32_B) s.fill[tid] = key_fill(vrow, k0 + tid, t);
-    __syncthreads();
-
-    float sc[4][4], dp[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[a][i] = dp[a][i] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qa[4], ga[4], kb[4], vb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qa[a] = s.q[ty * 4 + a][d];
-        ga[a] = s.g[ty * 4 + a][d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kb[i] = s.k[tx + 16 * i][d];
-        vb[i] = s.v[tx + 16 * i][d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sc[a][i] = fmaf(qa[a], kb[i], sc[a][i]);
-          dp[a][i] = fmaf(ga[a], vb[i], dp[a][i]);
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qi = ty * 4 + a;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = tx + 16 * i;
-        s.ds[qi][key] = prob(sc[a][i], s.fill[key], s.lse[qi]) * (dp[a][i] - s.dsum[qi]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < F32_B; ++kk) {
-      float da[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) da[a] = s.ds[ty * 4 + a][kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) kb[i] = s.k[kk][tx + 16 * i];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dqa[a][i] = fmaf(da[a], kb[i], dqa[a][i]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty * 4 + a;
-    if (row >= t) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dq[base + (size_t)row * HD + tx + 16 * i] = dqa[a][i] * scale;
-  }
-}
-
-int launch_f32(const float* q, const float* k, const float* v, const float* o, const float* lse,
-               const float* dout, const uint8_t* valid, float* dq, float* dk, float* dv, int bh,
-               int heads, int t, float scale, cudaStream_t st) {
-  const int tiles = (t + F32_B - 1) / F32_B;
-  if (tiles > F32_MAX_TILES) return (int)cudaErrorInvalidValue;
-  const int dkv_smem = (int)sizeof(DkvSmem), dq_smem = (int)sizeof(DqSmem);
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_bwd_dkv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dq_smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_f32<<<dim3(bh, tiles), F32_THREADS, dkv_smem, st>>>(q, k, v, o, lse, dout, valid,
-                                                                    dk, dv, heads, t, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_f32<<<dim3(bh, tiles), F32_THREADS, dq_smem, st>>>(q, k, v, o, lse, dout, valid,
-                                                                  dq, heads, t, scale);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------- bf16 / Hopper
+// --------------------------------------- Hopper: what both share, then bf16
 using namespace attn_tile::hopper;  // ROW, LOG2E, NEG2, mask_scores, start_scores,
                                     // start_pv, tile_threads; hopper.cuh's blocks
 typedef __nv_bfloat16 bf16;
@@ -438,13 +202,37 @@ inline int head_map(CUtensorMap* map, const void* base, int bh, int t, int rows)
   return encode_map(map, base, HD, t, bh, HD, (long long)t * HD, rows);
 }
 
+// rowsum(f32(a) * f32(b)) over 8 elements at a and b (16-byte aligned).
+__device__ __forceinline__ float dot8(const bf16* a, const bf16* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a), y = *reinterpret_cast<const uint4*>(b);
+  const __nv_bfloat162* ex = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* ey = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float d = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 fa = __bfloat1622float2(ex[e]), fb = __bfloat1622float2(ey[e]);
+    d = fmaf(fa.x, fb.x, fmaf(fa.y, fb.y, d));
+  }
+  return d;
+}
+
+__device__ __forceinline__ float dot8(const float* a, const float* b) {
+  float d = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 x = reinterpret_cast<const float4*>(a)[h], y = reinterpret_cast<const float4*>(b)[h];
+    d = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, fmaf(x.w, y.w, d))));
+  }
+  return d;
+}
+
 // lse in log2 units and D = rowsum(f32(dO) * f32(out)) of each of the
 // bh * tp workspace rows (row r of head h at h * tp + r), zero where r >= t:
-// 8 threads a row, 16 bytes of out and dO each.
+// 8 threads a row, 8 elements of out and dO each.
+template <class T>
 __global__ void __launch_bounds__(256)
-flash_bwd_rows(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, float* __restrict__ lse2,
-               float* __restrict__ dsum, int n_rows, int t, int tp) {
+flash_bwd_rows(const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
+               float* __restrict__ lse2, float* __restrict__ dsum, int n_rows, int t, int tp) {
   const int idx = blockIdx.x * 256 + threadIdx.x;
   const int row = idx / 8, part = idx % 8;
   const int bh = row / tp, r = row % tp;
@@ -452,15 +240,7 @@ flash_bwd_rows(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   float d = 0.f;
   if (in) {
     const size_t at = ((size_t)bh * t + r) * HD + part * 8;
-    const uint4 a = *reinterpret_cast<const uint4*>(o + at);
-    const uint4 b = *reinterpret_cast<const uint4*>(dout + at);
-    const __nv_bfloat162* ea = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* eb = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 fa = __bfloat1622float2(ea[e]), fb = __bfloat1622float2(eb[e]);
-      d = fmaf(fa.x, fb.x, fmaf(fa.y, fb.y, d));
-    }
+    d = dot8(o + at, dout + at);
   }
 #pragma unroll
   for (int off = 1; off < 8; off <<= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
@@ -823,7 +603,7 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o, 
   if (err == 0) err = dq_setup.sms(flash_bwd_dq, DQ_SMEM, &sms);
   if (err != 0) return err;
 
-  flash_bwd_rows<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+  flash_bwd_rows<bf16><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, lse2, dsum, bh * tp, t,
       tp);
   cudaError_t e = cudaGetLastError();
@@ -841,49 +621,558 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o, 
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ f32 / Hopper, 3xTF32
+constexpr int FK_KEYS = 128;   // keys of an f32 dk/dv tile: 64 a consumer warpgroup
+constexpr int FK_BQ = 32;      // queries of an f32 dk/dv stage
+constexpr int FK_STAGES = 2;   // raw Q/dO stages in the dk/dv ring
+constexpr int FQ_ROWS = 128;   // queries of an f32 dq tile: 64 a consumer warpgroup
+constexpr int FQ_BK = 32;      // keys of an f32 dq stage
+constexpr int FQ_STAGES = 3;   // raw K/V stages in the dq ring
+constexpr int TF32_TERMS = 3;  // TF32 products an f32 product
+constexpr int PAIR_BAR = 1;    // named barrier of both consumer warpgroups (2 + wg: one's own)
+constexpr int SMEM_MAX = 232448;
+static_assert(FK_KEYS == 64 * BWD_WGS && FQ_ROWS == 64 * BWD_WGS, "64 rows a warpgroup");
+static_assert(FK_BQ == 32 && FQ_BK == 32, "a stage is one 32-row tile: one lane a row");
+
+struct alignas(1024) F32DkvShared {
+  float k[FK_KEYS * HD];                     // the tile's K, until held as register A
+  float vb[FK_KEYS * HD], vs[FK_KEYS * HD];  // its V: TF32 big (over TMA's f32), small
+  float qb[FK_BQ * HD], qs[FK_BQ * HD];      // the stage's Q, [query][dim]
+  float gb[FK_BQ * HD], gs[FK_BQ * HD];      // and dO
+  float qtb[HD * FK_BQ], qts[HD * FK_BQ];    // Q^T, [dim][query in tf32_perm order]
+  float gtb[HD * FK_BQ], gts[HD * FK_BQ];    // dO^T
+  float raw_q[FK_STAGES][FK_BQ * HD], raw_g[FK_STAGES][FK_BQ * HD];  // the TMA ring
+  float lse[FK_STAGES][FK_BQ], dsum[FK_STAGES][FK_BQ];
+  uint64_t full[FK_STAGES], empty[FK_STAGES], kv_full, kv_empty;
+};
+constexpr int FK_SMEM = (int)sizeof(F32DkvShared) + 1024;  // + the alignment slack
+static_assert(FK_SMEM <= SMEM_MAX, "f32 dk/dv shared memory");
+
+struct alignas(1024) F32DqShared {
+  float q[FQ_ROWS * HD];                     // the tile's Q, until held as register A
+  float gb[FQ_ROWS * HD], gs[FQ_ROWS * HD];  // its dO: TF32 big (over TMA's f32), small
+  float kb[FQ_BK * HD], ks[FQ_BK * HD];      // the stage's K, [key][dim]
+  float vb[FQ_BK * HD], vs[FQ_BK * HD];      // and V
+  float ktb[HD * FQ_BK], kts[HD * FQ_BK];    // K^T, [dim][key in tf32_perm order]
+  float raw_k[FQ_STAGES][FQ_BK * HD], raw_v[FQ_STAGES][FQ_BK * HD];  // the TMA ring
+  uint64_t q_full, q_empty, full[FQ_STAGES], empty[FQ_STAGES];
+};
+constexpr int FQ_SMEM = (int)sizeof(F32DqShared) + 1024;
+static_assert(FQ_SMEM <= SMEM_MAX, "f32 dq shared memory");
+
+// One (rows x 64) f32 box of `map` at row `row` of head `bh` into `dst`, as
+// two 32-column loads into its halves (f32_at), completing on `bar`.
+template <int ROWS>
+__device__ __forceinline__ void tma_load_f32(float* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int row, int bh) {
+  tma_load_3d(dst, map, bar, 0, row, bh);
+  tma_load_3d(dst + ROWS * 32, map, bar, 32, row, bh);
+}
+
+__device__ __forceinline__ void split4(float4 x, float4& b, float4& s) {
+  tf32_split(x.x, b.x, s.x);
+  tf32_split(x.y, b.y, s.y);
+  tf32_split(x.z, b.z, s.z);
+  tf32_split(x.w, b.w, s.w);
+}
+
+// Rows r0 .. r0 + 63 of an f32 tile of ROWS rows, both halves: TF32 big in
+// place, small into `small` at the same index. The 128 threads of one
+// warpgroup (t128 its thread).
+template <int ROWS>
+__device__ __forceinline__ void split_rows(float* big, float* small, int r0, int t128) {
+#pragma unroll 2
+  for (int i = t128; i < 64 * HD / 4; i += 128) {
+    const int at = (i >> 9) * ROWS * 32 + r0 * 32 + (i & 511) * 4;
+    float4 b, s;
+    split4(*reinterpret_cast<const float4*>(big + at), b, s);
+    *reinterpret_cast<float4*>(big + at) = b;
+    *reinterpret_cast<float4*>(small + at) = s;
+  }
+}
+
+// A raw 32-row f32 stage (TMA's layout) into TF32 big and small copies in
+// the same layout and, unless tb is null, into a transposed [dim][row] tile
+// with the rows in tf32_perm order, big and small: both consumer warpgroups,
+// row `lane` and columns 8 warp .. 8 warp + 7 a thread (a warp's 32 lanes
+// reach 32 distinct banks in every store).
+__device__ __forceinline__ void split_stage(const float* raw, float* b, float* s, float* tb,
+                                            float* ts, int warp, int lane) {
+  const int col = tf32_perm(lane);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = 8 * warp + 4 * h, at = f32_at<32>(lane, c);
+    float4 xb, xs;
+    split4(*reinterpret_cast<const float4*>(raw + at), xb, xs);
+    *reinterpret_cast<float4*>(b + at) = xb;
+    *reinterpret_cast<float4*>(s + at) = xs;
+    if (tb != nullptr) {
+      const float eb[4] = {xb.x, xb.y, xb.z, xb.w}, es[4] = {xs.x, xs.y, xs.z, xs.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tb[f32_at<64>(c + e, col)] = eb[e];
+        ts[f32_at<64>(c + e, col)] = es[e];
+      }
+    }
+  }
+}
+
+// Start D (64 x 32) = A B^T over the 64 dims, every k step as three TF32
+// products: A the warpgroup's 64 rows (shared addresses ab, as of its first
+// row, big and small) of a ROWS-row tile, B a 32-row tile (bb, bs), both
+// K-major. One wgmma group, which the caller commits.
+template <int ROWS>
+__device__ __forceinline__ void product_ss(float (&d)[4][4], uint32_t ab, uint32_t as,
+                                           uint32_t bb, uint32_t bs) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    wgmma_tf32_ss_n32(d, desc_f32<ROWS>(as, kk), desc_f32<32>(bb, kk), kk);
+    wgmma_tf32_ss_n32(d, desc_f32<ROWS>(ab, kk), desc_f32<32>(bs, kk), 1);
+    wgmma_tf32_ss_n32(d, desc_f32<ROWS>(ab, kk), desc_f32<32>(bb, kk), 1);
+  }
+}
+
+// Start D (64 x 64) += A B over 32 k, every k step as three TF32 products:
+// A from registers in tf32_a_frag's order (big ab, small as), B a [64][32]
+// K-major tile with its k rows in tf32_perm order (bb, bs). One group.
+__device__ __forceinline__ void product_rs(float (&d)[8][4], const float (&ab)[4][4],
+                                           const float (&as)[4][4], uint32_t bb, uint32_t bs) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_tf32_rs_n64(d, as[kk], desc_f32<64>(bb, kk), 1);
+    wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bs, kk), 1);
+    wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bb, kk), 1);
+  }
+}
+
+// Start D (64 x 32) = A B^T over the 64 dims, every k step as three TF32
+// products: A from registers (load_a_f32's: big ab, small as), B a 32-row
+// K-major tile (bb, bs). One group.
+__device__ __forceinline__ void product_rs_n32(float (&d)[4][4], const float (&ab)[HD / 8][4],
+                                               const float (&as)[HD / 8][4], uint32_t bb,
+                                               uint32_t bs) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    wgmma_tf32_rs_n32(d, as[kk], desc_f32<32>(bb, kk), kk);
+    wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bs, kk), 1);
+    wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bb, kk), 1);
+  }
+}
+
+template <class Shared>
+__device__ __forceinline__ Shared& aligned_smem(char* raw) {
+  return *reinterpret_cast<Shared*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// dk, dv of 128-key tiles in f32 (tile = bh * n_kt + key tile).
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse2,
+                  const float* __restrict__ dsum, const uint8_t* __restrict__ valid,
+                  float* __restrict__ dk, float* __restrict__ dv, int heads, int t, int tp,
+                  int n_tiles, float scale) {
+  extern __shared__ __align__(128) char smem_dyn[];
+  F32DkvShared& s = aligned_smem<F32DkvShared>(smem_dyn);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_kt = (t + FK_KEYS - 1) / FK_KEYS, n_qs = (t + FK_BQ - 1) / FK_BQ;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < FK_STAGES; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], BWD_CONSUMERS);
+    }
+    mbar_init(&s.kv_full, 1);
+    mbar_init(&s.kv_empty, BWD_CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= BWD_CONSUMERS) {  // --------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (warp == BWD_CONSUMERS && lane == 0) {
+      uint32_t it = 0;  // query stages requested
+      int i = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+        const int bh = tile / n_kt, kt = tile % n_kt;
+        mbar_wait(&s.kv_empty, (i & 1) ^ 1);
+        mbar_expect_tx(&s.kv_full, 2 * FK_KEYS * HD * 4);
+        tma_load_f32<FK_KEYS>(s.k, &map_k, &s.kv_full, kt * FK_KEYS, bh);
+        tma_load_f32<FK_KEYS>(s.vb, &map_v, &s.kv_full, kt * FK_KEYS, bh);
+        const float* rl = lse2 + (size_t)bh * tp;
+        const float* rd = dsum + (size_t)bh * tp;
+        for (int qs = 0; qs < n_qs; ++qs, ++it) {
+          const int st = it % FK_STAGES;
+          mbar_wait(&s.empty[st], ((it / FK_STAGES) & 1) ^ 1);
+          mbar_expect_tx(&s.full[st], 2 * FK_BQ * HD * 4 + 2 * FK_BQ * 4);
+          tma_load_f32<FK_BQ>(s.raw_q[st], &map_q, &s.full[st], qs * FK_BQ, bh);
+          tma_load_f32<FK_BQ>(s.raw_g[st], &map_do, &s.full[st], qs * FK_BQ, bh);
+          bulk_load(s.lse[st], rl + qs * FK_BQ, FK_BQ * 4, &s.full[st]);
+          bulk_load(s.dsum[st], rd + qs * FK_BQ, FK_BQ * 4, &s.full[st]);
+        }
+      }
+    }
+  } else {  // -------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(BWD_CREGS));
+    const int wg = warp / 4, w = warp % 4, g = lane / 4, tg = lane % 4;
+    const int t128 = threadIdx.x % 128;
+    const float s2 = scale * LOG2E;  // score to log2 units
+    // this warpgroup's 64 key rows of V (64 rows of 128 bytes a half)
+    const uint32_t vb = smem_u32(s.vb) + wg * 64 * 128, vs = smem_u32(s.vs) + wg * 64 * 128;
+    uint32_t it = 0;
+    int i = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const int bh = tile / n_kt, kt = tile % n_kt;
+      const uint8_t* vrow = valid ? valid + (size_t)(bh / heads) * t : nullptr;
+      // this thread's keys (rows of S^T) k0 + 16w + g + 8rr: a valid key's
+      // score scales to log2 units, a masked one is -1e9, one beyond t -inf
+      const int k0 = kt * FK_KEYS + 64 * wg;
+      bool ok[2];
+      float kfill[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int key = k0 + 16 * w + g + 8 * rr;
+        const bool in = key < t;
+        ok[rr] = in && (vrow == nullptr || __ldg(vrow + key) != 0);
+        kfill[rr] = in ? NEG2 : -INFINITY;
+      }
+
+      // K rows of this warp as register A, split; V rows of this
+      // warpgroup split in place
+      mbar_wait(&s.kv_full, i & 1);
+      float kfb[HD / 8][4], kfs[HD / 8][4];
+      load_a_f32<FK_KEYS>(s.k, 16 * warp + g, tg, kfb, kfs);
+      split_rows<FK_KEYS>(s.vb, s.vs, 64 * wg, t128);
+      fence_proxy_async();
+      bar_sync(2 + wg, 128);
+
+      float dka[HD / 8][4], dva[HD / 8][4];
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
+      for (int qs = 0; qs < n_qs; ++qs, ++it) {
+        const int st = it % FK_STAGES;
+        mbar_wait(&s.full[st], (it / FK_STAGES) & 1);
+        bar_sync(PAIR_BAR, 128 * BWD_WGS);  // both warpgroups' last products are done
+        split_stage(s.raw_q[st], s.qb, s.qs, s.qtb, s.qts, warp, lane);
+        split_stage(s.raw_g[st], s.gb, s.gs, s.gtb, s.gts, warp, lane);
+        float2 lr[FK_BQ / 8], dd[FK_BQ / 8];  // columns 8j + 2tg + e%2 are queries
+#pragma unroll
+        for (int j = 0; j < FK_BQ / 8; ++j) {
+          lr[j] = *reinterpret_cast<const float2*>(&s.lse[st][8 * j + 2 * tg]);
+          dd[j] = *reinterpret_cast<const float2*>(&s.dsum[st][8 * j + 2 * tg]);
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&s.empty[st]);
+        bar_sync(PAIR_BAR, 128 * BWD_WGS);  // the split stage is written
+
+        // S^T = K Q^T and dP^T = V dO^T (64 keys x 32 queries), two groups
+        float sa[FK_BQ / 8][4], dpa[FK_BQ / 8][4];
+        wgmma_fence();
+        product_rs_n32(sa, kfb, kfs, smem_u32(s.qb), smem_u32(s.qs));
+        wgmma_commit();
+        product_ss<FK_KEYS>(dpa, vb, vs, smem_u32(s.gb), smem_u32(s.gs));
+        wgmma_commit();
+        wgmma_wait<1>();  // S^T
+        fence_regs(sa);
+        // P^T = exp2(S^T s2 - lse), in f32
+        float pb[FK_BQ / 8][4], ps[FK_BQ / 8][4];
+#pragma unroll
+        for (int j = 0; j < FK_BQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float le = (e & 1) ? lr[j].y : lr[j].x;
+            sa[j][e] = ex2(ok[e / 2] ? fmaf(sa[j][e], s2, -le) : kfill[e / 2] - le);
+          }
+          tf32_a_frag(sa[j], pb[j], ps[j]);
+        }
+        // dV += P^T dO while dP^T finishes
+        wgmma_fence();
+        product_rs(dva, pb, ps, smem_u32(s.gtb), smem_u32(s.gts));
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T
+        fence_regs(dpa);
+        // dS^T = P^T (dP^T - D)
+        float db[FK_BQ / 8][4], ds[FK_BQ / 8][4];
+#pragma unroll
+        for (int j = 0; j < FK_BQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpa[j][e] = sa[j][e] * (dpa[j][e] - ((e & 1) ? dd[j].y : dd[j].x));
+          tf32_a_frag(dpa[j], db[j], ds[j]);
+        }
+        // dK += dS^T Q
+        wgmma_fence();
+        product_rs(dka, db, ds, smem_u32(s.qtb), smem_u32(s.qts));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dka);
+        fence_regs(dva);
+        fence_regs(pb);
+        fence_regs(ps);
+        fence_regs(db);
+        fence_regs(ds);
+      }
+      fence_regs(kfb);
+      fence_regs(kfs);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.kv_empty);
+
+      const size_t base = (size_t)bh * t * HD;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int key = k0 + 16 * w + g + 8 * rr;
+        if (key >= t) continue;
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt) {
+          const size_t at = base + (size_t)key * HD + dt * 8 + 2 * tg;
+          *reinterpret_cast<float2*>(dk + at) =
+              make_float2(dka[dt][2 * rr] * scale, dka[dt][2 * rr + 1] * scale);
+          *reinterpret_cast<float2*>(dv + at) = make_float2(dva[dt][2 * rr], dva[dt][2 * rr + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dq of 128-query tiles in f32 (tile = bh * n_qt + query tile).
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse2,
+                 const float* __restrict__ dsum, const uint8_t* __restrict__ valid,
+                 float* __restrict__ dq, int heads, int t, int tp, int n_tiles, float scale) {
+  extern __shared__ __align__(128) char smem_dyn[];
+  F32DqShared& s = aligned_smem<F32DqShared>(smem_dyn);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_qt = (t + FQ_ROWS - 1) / FQ_ROWS, n_kt = (t + FQ_BK - 1) / FQ_BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&s.q_full, 1);
+    mbar_init(&s.q_empty, BWD_CONSUMERS);
+    for (int i = 0; i < FQ_STAGES; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], BWD_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= BWD_CONSUMERS) {  // --------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (warp == BWD_CONSUMERS && lane == 0) {
+      uint32_t it = 0;  // K/V stages requested
+      int i = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+        const int bh = tile / n_qt, q0 = (tile % n_qt) * FQ_ROWS;
+        mbar_wait(&s.q_empty, (i & 1) ^ 1);
+        mbar_expect_tx(&s.q_full, 2 * FQ_ROWS * HD * 4);
+        tma_load_f32<FQ_ROWS>(s.q, &map_q, &s.q_full, q0, bh);
+        tma_load_f32<FQ_ROWS>(s.gb, &map_do, &s.q_full, q0, bh);
+        for (int j = 0; j < n_kt; ++j, ++it) {
+          const int st = it % FQ_STAGES;
+          mbar_wait(&s.empty[st], ((it / FQ_STAGES) & 1) ^ 1);
+          mbar_expect_tx(&s.full[st], 2 * FQ_BK * HD * 4);
+          tma_load_f32<FQ_BK>(s.raw_k[st], &map_k, &s.full[st], j * FQ_BK, bh);
+          tma_load_f32<FQ_BK>(s.raw_v[st], &map_v, &s.full[st], j * FQ_BK, bh);
+        }
+      }
+    }
+  } else {  // -------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(BWD_CREGS));
+    const int wg = warp / 4, g = lane / 4, tg = lane % 4;
+    const int t128 = threadIdx.x % 128;
+    const float s2 = scale * LOG2E;
+    const uint32_t gb = smem_u32(s.gb) + wg * 64 * 128, gs = smem_u32(s.gs) + wg * 64 * 128;
+    uint32_t it = 0;
+    int i = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const int bh = tile / n_qt, q0 = (tile % n_qt) * FQ_ROWS;
+      const uint8_t* vrow = valid ? valid + (size_t)(bh / heads) * t : nullptr;
+      // this thread's rows q0 + 16 warp + g + 8rr: lse (log2 units) and D
+      float lr[2], dr[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const size_t at = (size_t)bh * tp + q0 + 16 * warp + g + 8 * rr;
+        lr[rr] = __ldg(lse2 + at);
+        dr[rr] = __ldg(dsum + at);
+      }
+      // Q rows of this warp as register A, split; dO rows of this
+      // warpgroup split in place
+      mbar_wait(&s.q_full, i & 1);
+      float qfb[HD / 8][4], qfs[HD / 8][4];
+      load_a_f32<FQ_ROWS>(s.q, 16 * warp + g, tg, qfb, qfs);
+      split_rows<FQ_ROWS>(s.gb, s.gs, 64 * wg, t128);
+      fence_proxy_async();
+      bar_sync(2 + wg, 128);
+
+      float dqa[HD / 8][4];
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[dt][e] = 0.f;
+      for (int j = 0; j < n_kt; ++j, ++it) {
+        const int st = it % FQ_STAGES;
+        mbar_wait(&s.full[st], (it / FQ_STAGES) & 1);
+        bar_sync(PAIR_BAR, 128 * BWD_WGS);  // both warpgroups' last products are done
+        split_stage(s.raw_k[st], s.kb, s.ks, s.ktb, s.kts, warp, lane);
+        split_stage(s.raw_v[st], s.vb, s.vs, nullptr, nullptr, warp, lane);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&s.empty[st]);
+        bar_sync(PAIR_BAR, 128 * BWD_WGS);  // the split stage is written
+
+        // S = Q K^T and dP = dO V^T (64 queries x 32 keys), two groups
+        float sa[FQ_BK / 8][4], dpa[FQ_BK / 8][4];
+        wgmma_fence();
+        product_rs_n32(sa, qfb, qfs, smem_u32(s.kb), smem_u32(s.ks));
+        wgmma_commit();
+        product_ss<FQ_ROWS>(dpa, gb, gs, smem_u32(s.vb), smem_u32(s.vs));
+        wgmma_commit();
+        wgmma_wait<1>();  // S
+        fence_regs(sa);
+        // P = exp2(S s2 - lse): keys 8jj + 2tg + e%2 of the stage; a valid
+        // key's score scales, a masked one is -1e9, one beyond t -inf
+        const int kb0 = j * FQ_BK;
+        const bool all_in = vrow == nullptr && kb0 + FQ_BK <= t;
+#pragma unroll
+        for (int jj = 0; jj < FQ_BK / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float l = lr[e / 2];
+            float x = fmaf(sa[jj][e], s2, -l);
+            if (!all_in) {
+              const int key = kb0 + 8 * jj + 2 * tg + (e & 1);
+              const bool in = key < t;
+              if (!(in && (vrow == nullptr || __ldg(vrow + key) != 0)))
+                x = (in ? NEG2 : -INFINITY) - l;
+            }
+            sa[jj][e] = ex2(x);
+          }
+        wgmma_wait<0>();  // dP
+        fence_regs(dpa);
+        // dS = P (dP - D)
+        float db[FQ_BK / 8][4], ds[FQ_BK / 8][4];
+#pragma unroll
+        for (int jj = 0; jj < FQ_BK / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dpa[jj][e] = sa[jj][e] * (dpa[jj][e] - dr[e / 2]);
+          tf32_a_frag(dpa[jj], db[jj], ds[jj]);
+        }
+        // dQ += dS K
+        wgmma_fence();
+        product_rs(dqa, db, ds, smem_u32(s.ktb), smem_u32(s.kts));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        fence_regs(db);
+        fence_regs(ds);
+      }
+      fence_regs(qfb);
+      fence_regs(qfs);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.q_empty);
+
+      const size_t base = (size_t)bh * t * HD;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = q0 + 16 * warp + g + 8 * rr;
+        if (row >= t) continue;
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt)
+          *reinterpret_cast<float2*>(dq + base + (size_t)row * HD + dt * 8 + 2 * tg) =
+              make_float2(dqa[dt][2 * rr] * scale, dqa[dt][2 * rr + 1] * scale);
+      }
+    }
+  }
+}
+
+// A 3-D map over one (bh, t, 64) f32 operand in boxes of `rows` rows x 32
+// columns; rows beyond t read as zeros.
+inline int head_map_f32(CUtensorMap* map, const void* base, int bh, int t, int rows) {
+  return encode_map_f32(map, base, HD, t, bh, HD, (long long)t * HD, rows);
+}
+
+int launch_bwd_f32(const float* q, const float* k, const float* v, const float* o,
+                   const float* lse, const float* dout, const uint8_t* valid, float* dq, float* dk,
+                   float* dv, float* rows, int bh, int heads, int t, float scale, cudaStream_t st) {
+  const int tp = (t + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+  float* lse2 = rows;
+  float* dsum = rows + (size_t)bh * tp;
+  const long long threads = (long long)bh * tp * 8;
+  if (threads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap kv_q, kv_do, kv_k, kv_v, dq_q, dq_do, dq_k, dq_v;
+  int err = head_map_f32(&kv_q, q, bh, t, FK_BQ);
+  if (err == 0) err = head_map_f32(&kv_do, dout, bh, t, FK_BQ);
+  if (err == 0) err = head_map_f32(&kv_k, k, bh, t, FK_KEYS);
+  if (err == 0) err = head_map_f32(&kv_v, v, bh, t, FK_KEYS);
+  if (err == 0) err = head_map_f32(&dq_q, q, bh, t, FQ_ROWS);
+  if (err == 0) err = head_map_f32(&dq_do, dout, bh, t, FQ_ROWS);
+  if (err == 0) err = head_map_f32(&dq_k, k, bh, t, FQ_BK);
+  if (err == 0) err = head_map_f32(&dq_v, v, bh, t, FQ_BK);
+  if (err != 0) return err;
+  static LaunchSetup kv_setup, dq_setup;
+  int sms = 0;
+  err = kv_setup.sms(flash_bwd_dkv_f32, FK_SMEM, &sms);
+  if (err == 0) err = dq_setup.sms(flash_bwd_dq_f32, FQ_SMEM, &sms);
+  if (err != 0) return err;
+
+  flash_bwd_rows<float><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      o, dout, lse, lse2, dsum, bh * tp, t, tp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int kv_tiles = bh * ((t + FK_KEYS - 1) / FK_KEYS);
+  flash_bwd_dkv_f32<<<kv_tiles < sms ? kv_tiles : sms, BWD_THREADS, FK_SMEM, st>>>(
+      kv_q, kv_k, kv_v, kv_do, lse2, dsum, valid, dk, dv, heads, t, tp, kv_tiles, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int dq_tiles = bh * ((t + FQ_ROWS - 1) / FQ_ROWS);
+  flash_bwd_dq_f32<<<dq_tiles < sms ? dq_tiles : sms, BWD_THREADS, FQ_SMEM, st>>>(
+      dq_q, dq_k, dq_v, dq_do, lse2, dsum, valid, dq, heads, t, tp, dq_tiles, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o, dout, dq, dk, dv: (bh, t, 64) contiguous each, 16-byte
 // aligned, all float32 (dtype 0) or all bfloat16 (dtype 1); lse: (bh, t)
 // float32; valid: (bh / heads, t) bytes, nonzero = attend, or null (all
-// valid). rows: for bf16 a (2, bh, round_up(t, 128)) float32 workspace
-// that needs no initialisation (unused for float32, may be null).
-// device: the tensors' CUDA device, made current on this thread (the
-// backward runs on autograd's worker thread, where cuTensorMapEncodeTiled
-// refuses every address without a current context). Returns a cudaError_t
-// (0 = launched).
+// valid). rows: a (2, bh, round_up(t, 128)) float32 workspace that needs no
+// initialisation. device: the tensors' CUDA device, made current on this
+// thread (the backward runs on autograd's worker thread, where
+// cuTensorMapEncodeTiled refuses every address without a current context).
+// Returns a cudaError_t (0 = launched).
 extern "C" int vipers_flash_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* o, const float* lse, const void* dout,
                                           const uint8_t* valid, void* dq, void* dk, void* dv,
                                           float* rows, int bh, int heads, int t, int head_dim,
                                           float scale, int dtype, int device, void* stream) {
-  if (head_dim != HD || bh <= 0 || heads <= 0 || bh % heads || t <= 0)
+  if (head_dim != HD || bh <= 0 || heads <= 0 || bh % heads || t <= 0 || rows == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                      static_cast<const float*>(v), static_cast<const float*>(o), lse,
-                      static_cast<const float*>(dout), valid, static_cast<float*>(dq),
-                      static_cast<float*>(dk), static_cast<float*>(dv), bh, heads, t, scale, st);
-  if (dtype != 1 || rows == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_bwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                          static_cast<const float*>(v), static_cast<const float*>(o), lse,
+                          static_cast<const float*>(dout), valid, static_cast<float*>(dq),
+                          static_cast<float*>(dk), static_cast<float*>(dv), rows, bh, heads, t,
+                          scale, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   return launch_bwd_bf16(q, k, v, o, lse, dout, valid, dq, dk, dv, rows, bh, heads, t, scale, st);
 }
 
-// The bf16 design as compiled, for the kernel's report line: the dk/dv
-// kernel's keys a tile, queries a stage and stages; the dq kernel's queries
-// a tile, keys a stage and stages; the workspace's row padding; the number
-// of main kernels (after the row pass).
-extern "C" void vipers_flash_attention_bwd_design(int* dkv_keys, int* dkv_queries,
-                                                  int* dkv_stages, int* dq_queries, int* dq_keys,
-                                                  int* dq_stages, int* row_pad, int* kernels) {
-  *dkv_keys = KV_KEYS;
-  *dkv_queries = KV_BQ;
-  *dkv_stages = KV_STAGES;
-  *dq_queries = DQ_ROWS;
-  *dq_keys = DQ_KEYS;
-  *dq_stages = DQ_STAGES;
-  *row_pad = ROW_PAD;
-  *kernels = 2;
+// The design of one instance (dtype 0 f32, 1 bf16) as compiled, for the
+// kernel's report line, into out[9]: the dk/dv kernel's keys a tile,
+// queries a stage and stages; the dq kernel's queries a tile, keys a stage
+// and stages; the workspace's row padding; the number of main kernels
+// (after the row pass); TF32 products an f32 product (0: bf16 products).
+extern "C" void vipers_flash_attention_bwd_design(int dtype, int* out) {
+  const int f32[9] = {FK_KEYS, FK_BQ, FK_STAGES, FQ_ROWS, FQ_BK, FQ_STAGES, ROW_PAD, 2, TF32_TERMS};
+  const int b16[9] = {KV_KEYS, KV_BQ, KV_STAGES, DQ_ROWS, DQ_KEYS, DQ_STAGES, ROW_PAD, 2, 0};
+  for (int i = 0; i < 9; ++i) out[i] = dtype == 0 ? f32[i] : b16[i];
 }

@@ -1,13 +1,16 @@
 // Hopper (sm_90a) building blocks of the port's kernels, shared by
 // attention_tile.cuh (the flash, packed and splash bf16 tile),
 // attention_train.cu (the training forward and backward) and fused_mlp.cu
-// (LN -> fc1 -> GELU). Device side:
+// (LN -> fc1 -> GELU), and of the f32 flash backward (flash_attention_bwd.cu),
+// which multiplies f32 on TF32 tensor cores in three products. Device side:
 // shared-memory addresses, mbarriers, TMA loads (tensor maps and plain bulk
 // copies), the async-proxy fence, named barriers, stmatrix, bf16 packing,
 // ex2, the 128-byte-swizzle wgmma descriptor and the wgmma shapes the
-// kernels use.
+// kernels use; for f32 operands the TF32 rounding and big/small split, the
+// index and descriptor of an f32 tile in 128-byte-swizzled halves, and the
+// TF32 wgmma shapes.
 // Host side: cuTensorMapEncodeTiled through the runtime's driver entry
-// point, 3-D bf16 maps, and the once-a-device launch set-up.
+// point, 3-D bf16 and f32 maps, and the once-a-device launch set-up.
 #pragma once
 
 #include <cuda.h>
@@ -19,7 +22,8 @@
 
 namespace hopper {
 
-constexpr int BOX_COLS = 64;  // bf16 columns of a map's box: one 128-byte swizzle row
+constexpr int BOX_COLS = 64;      // bf16 columns of a map's box: one 128-byte swizzle row
+constexpr int F32_BOX_COLS = 32;  // f32 columns of a map's box: one 128-byte swizzle row
 constexpr int MAX_DEVICES = 64;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -276,6 +280,146 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[8][4], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// ---------------------------------------------------- f32 on TF32 tensor cores
+//
+// wgmma multiplies TF32 (an f32 with 10 mantissa bits) into f32 sums and
+// reads TF32 operands from shared memory K-major only (the transpose bits
+// exist for 16-bit types alone). An f32 product a.b keeps f32 accuracy as
+// three TF32 products (CUTLASS's OpMultiplyAddFastF32, "3xTF32"): each
+// operand x splits into big = tf32(x) and small = tf32(x - big), and a.b =
+// small_a.big_b + big_a.small_b + big_a.big_b into one f32 sum (small.small
+// is below f32's rounding). One TF32 product alone keeps about 1e-3.
+
+// x rounded to TF32, nearest with ties away from zero (low 13 bits zero).
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// x as big + small, both TF32.
+__device__ __forceinline__ void tf32_split(float x, float& big, float& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - big);
+}
+
+// An f32 tile of ROWS rows x 64 columns in shared memory, as TMA writes it
+// with the 128-byte swizzle in boxes of 32 columns: two halves of ROWS x 32
+// floats (128 bytes a row), columns 0-31 then 32-63, each 1024-byte aligned.
+// The float index of element (r, c):
+template <int ROWS>
+__device__ __forceinline__ int f32_at(int r, int c) {
+  return (c >> 5) * ROWS * 32 + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// The K-major wgmma descriptor of k step kk (8 columns = 32 bytes) of such a
+// tile whose rows start at `rows` (shared address, 1024-byte aligned): half
+// kk / 4, 32 bytes a step within the swizzled row, 8-row groups 1024 bytes
+// apart. A tile of 32 columns is one half.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_f32(uint32_t rows, int kk) {
+  return desc_sw128(rows + (kk >> 2) * ROWS * 128 + (kk & 3) * 32, 16);
+}
+
+// D (64 x 32, f32) {=, +=} A (64 x 8) . B (8 x 32), both TF32 K-major in
+// shared memory; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[4][4], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) {=, +=} A (64 x 8, TF32 in registers, wgmma_tf32_rs_n64's
+// layout) . B (8 x 32, TF32 K-major in shared memory); scale_d = 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[4][4], const float (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) {=, +=} A (64 x 8, TF32 in registers) . B (8 x 64, TF32
+// K-major in shared memory). A per warp is the mma.sync tf32 layout: a[0]
+// row g, column tg; a[1] row g + 8, column tg; a[2], a[3] the same rows at
+// column tg + 4 (g = lane / 4, tg = lane % 4).
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[8][4], const float (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "l"(db), "r"(scale_d));
+}
+
+// This thread's TF32 A fragments (wgmma_tf32_rs_n64's layout) of rows r
+// and r + 8 (r = 16 warp + g of a warpgroup's 64) of a ROWS-row f32 tile
+// (f32_at), for the 8 k steps over its 64 columns (8kk + tg and + 4),
+// split into big and small.
+template <int ROWS>
+__device__ __forceinline__ void load_a_f32(const float* tile, int r, int tg, float (&big)[8][4],
+                                           float (&small)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int c = 8 * kk + tg;
+    tf32_split(tile[f32_at<ROWS>(r, c)], big[kk][0], small[kk][0]);
+    tf32_split(tile[f32_at<ROWS>(r + 8, c)], big[kk][1], small[kk][1]);
+    tf32_split(tile[f32_at<ROWS>(r, c + 4)], big[kk][2], small[kk][2]);
+    tf32_split(tile[f32_at<ROWS>(r + 8, c + 4)], big[kk][3], small[kk][3]);
+  }
+}
+
+// An f32 accumulator's 8-column group j (C layout: row g columns 2tg and 2tg
+// + 1 in c[j][0], c[j][1], row g + 8 in c[j][2], c[j][3]) as the A fragment
+// of an 8-deep k step, its columns permuted within the group: a[0..3] =
+// c[j][0], c[j][2], c[j][1], c[j][3], so the fragment's column h < 4 is
+// column 2h and column h >= 4 is column 2(h - 4) + 1. The B operand of
+// that product stores its k rows in the same order (tf32_perm); only the
+// order of the sum changes. Split into big and small parts.
+__device__ __forceinline__ void tf32_a_frag(const float (&c)[4], float (&big)[4],
+                                            float (&small)[4]) {
+  tf32_split(c[0], big[0], small[0]);
+  tf32_split(c[2], big[1], small[1]);
+  tf32_split(c[1], big[2], small[2]);
+  tf32_split(c[3], big[3], small[3]);
+}
+
+// Where k index i of an 8-group goes in a B operand read with tf32_a_frag's
+// order: even i at i / 2, odd i at 4 + i / 2.
+__device__ __forceinline__ int tf32_perm(int i) {
+  return (i & ~7) | ((i & 1) << 2) | ((i & 7) >> 1);
+}
+
 // ------------------------------------------------------------------ host
 
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
@@ -303,22 +447,38 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map over bf16 (outer, rows, cols): row stride ld and outer stride
-// outer_ld elements, boxes of box_rows x BOX_COLS columns with the 128-byte
-// swizzle; rows beyond `rows` read as zeros. Returns a cudaError_t.
-inline int encode_map(CUtensorMap* map, const void* base, long long cols, long long rows,
-                      long long outer, long long ld, long long outer_ld, int box_rows) {
+// A 3-D map over (outer, rows, cols) elements of `type` (`elem` bytes):
+// row stride ld and outer stride outer_ld elements, boxes of box_rows x
+// box_cols (one 128-byte row) with the 128-byte swizzle; rows beyond `rows`
+// read as zeros. Returns a cudaError_t.
+inline int encode_map_of(CUtensorMapDataType type, int elem, int box_cols, CUtensorMap* map,
+                         const void* base, long long cols, long long rows, long long outer,
+                         long long ld, long long outer_ld, int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)outer_ld * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)BOX_COLS, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * elem, (cuuint64_t)outer_ld * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// bf16: boxes of box_rows x BOX_COLS (64) columns.
+inline int encode_map(CUtensorMap* map, const void* base, long long cols, long long rows,
+                      long long outer, long long ld, long long outer_ld, int box_rows) {
+  return encode_map_of(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, BOX_COLS, map, base, cols, rows, outer,
+                       ld, outer_ld, box_rows);
+}
+
+// f32: boxes of box_rows x F32_BOX_COLS (32) columns, so a 64-column tile is
+// two loads, at columns 0 and 32, into its two halves (f32_at).
+inline int encode_map_f32(CUtensorMap* map, const void* base, long long cols, long long rows,
+                          long long outer, long long ld, long long outer_ld, int box_rows) {
+  return encode_map_of(CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, F32_BOX_COLS, map, base, cols, rows,
+                       outer, ld, outer_ld, box_rows);
 }
 
 // The once-a-device launch set-up of one kernel: on a device's first launch

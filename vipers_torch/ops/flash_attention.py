@@ -20,11 +20,13 @@ launch failure raises. ``LAUNCHES`` counts kernel launches per instance.
 ``flash_attention_bwd``, launches ``vipers_torch/csrc/flash_attention_bwd.cu``
 for CUDA tensors. On the TPU the product path's backward is the library's
 two Pallas kernels, ``_flash_attention_bwd_dkv`` and
-``_flash_attention_bwd_dq``, which that file replaces with the same split
-(f32 on FMA; bf16 on TMA + wgmma after a row pass that computes D and lse
-in log2 units into a small workspace, its design in ``bwd_design``): each
-block owns its outputs, so dq is deterministic with no atomics and no
-scratch. Its plain version, ``flash_attention_bwd_plain``,
+``_flash_attention_bwd_dq``, which that file replaces with the same split:
+a row pass computes D and lse in log2 units into a small workspace, then a
+dk/dv and a dq kernel on TMA + wgmma, bf16 products for bf16 and, for f32,
+every product as three TF32 products on the tensor cores (3xTF32, within
+1e-4 of each gradient's scale of exact f32; each instance's design in
+``bwd_design``). Each block owns its outputs, so dq is deterministic with
+no atomics and no scratch. Its plain version, ``flash_attention_bwd_plain``,
 is the JAX package's ``_flash_vjp_bwd``, the ``use_official=False`` VJP,
 and runs for CPU tensors. ``BWD_LAUNCHES`` counts backward calls that
 launched the kernels, per instance.
@@ -240,20 +242,21 @@ def _bwd_lib():
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_design() -> dict:
-    """The bf16 backward's design as compiled: the dk/dv kernel's keys a
-    tile, queries a stage and ring stages, the dq kernel's queries a tile,
-    keys a stage and ring stages, the workspace's row padding and the
-    number of main kernels. Builds the backward library if needed."""
+def bwd_design(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The backward's design for ``dtype`` as compiled: the dk/dv kernel's
+    keys a tile, queries a stage and ring stages, the dq kernel's queries a
+    tile, keys a stage and ring stages, the workspace's row padding, the
+    number of main kernels and the TF32 products an f32 product takes (0
+    for bf16). Builds the backward library if needed."""
     fn = _build.load("flash_attention_bwd").vipers_flash_attention_bwd_design
     keys = ("dkv_keys", "dkv_queries", "dkv_stages", "dq_queries", "dq_keys", "dq_stages",
-            "row_pad", "kernels")
+            "row_pad", "kernels", "tf32_products")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(keys)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = None
-    vals = [ctypes.c_int() for _ in keys]
-    fn(*map(ctypes.byref, vals))
-    return dict(zip(keys, (v.value for v in vals)))
+    vals = (ctypes.c_int * len(keys))()
+    fn(_DTYPE_CODE[dtype], vals)
+    return dict(zip(keys, vals))
 
 
 def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
@@ -273,15 +276,15 @@ def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
     _check_aligned(q, k, v, out, g)
     vmask = valid.contiguous().view(torch.uint8) if valid is not None else None
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # bf16: lse in log2 units and D of every query row, rows padded
-    rows = (torch.empty((2, b * h, round_up(t, bwd_design()["row_pad"])), dtype=torch.float32,
-                        device=q.device) if q.dtype == torch.bfloat16 else None)
+    # lse in log2 units and D of every query row, rows padded
+    rows = torch.empty((2, b * h, round_up(t, bwd_design(q.dtype)["row_pad"])),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 g.data_ptr(), vmask.data_ptr() if vmask is not None else None,
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                rows.data_ptr() if rows is not None else None,
+                rows.data_ptr(),
                 b * h, h, t, hd, float(scale), _DTYPE_CODE[q.dtype], q.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
