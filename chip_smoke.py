@@ -18,18 +18,20 @@ Phases (any failure exits non-zero; nothing is caught):
      library times (CUDA events, median), and the bound from the work's
      FLOPs and bytes; for the flash, flash backward, packed, fused-MLP and
      splash kernels also TFLOP/s and the share of the bound, and for flash
-     and packed the bf16 attention tile's shape (query rows, key tile,
-     stages); for the flash backward also the share of the bound of the
-     seven products its split does and its design (tiles, stages,
-     kernels), and in f32 the shares of both the 3xTF32 and the FMA bounds
-     and the error of the plain version under cuBLAS TF32, which the
-     kernel must beat tenfold; for the fused MLP its design (rows a CTA, column tile,
-     stages); for the training kernels the share of the bound and their
-     design (tiles, chunk, stages); more checks the main path does not
-     run: the training
-     kernels at T = 640 (the two-pass forward and the backward's key
-     rounds) and the fused MLP at vit_b's and vit_h's widths (D = 768 and
-     1280, F = 4D; timed, beside the library's sequence);
+     and packed the attention tile's shape (bf16: query rows, key tile,
+     stages; f32: query rows, key stage, raw and split stages, TF32
+     products a product) and in f32 the shares of both the 3xTF32 and the
+     FMA bounds (the kernels JSON's f32 bound is the 3xTF32 one); for the
+     flash backward also the share of the bound of the seven products its
+     split does and its design (tiles, stages, kernels), and in f32 the
+     shares of both bounds and the error of the plain version under cuBLAS
+     TF32, which the kernel must beat tenfold; for the fused MLP its design
+     (rows a CTA, column tile, stages); for the training kernels the share
+     of the bound and their design (tiles, chunk, stages); more checks the
+     main path does not run: the training kernels at T = 640 (the two-pass
+     forward and the backward's key rounds) and the fused MLP at vit_b's
+     and vit_h's widths (D = 768 and 1280, F = 4D; timed, beside the
+     library's sequence);
   4. LOST path: full-width ViT-S/16 (12 layers, D=384, 6 heads, mlp 1536)
      from a seeded generator, 50% global magnitude mask, 512x384 uint8
      images, ``make_batched_pipeline`` in f32 and bf16 at B=128 on an
@@ -80,7 +82,7 @@ K_PATCHES = 100
 N_CPU = 4
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
-PEAK_TF32 = 494.7e12  # TF32 tensor cores, dense: the f32 flash backward's 3xTF32 products
+PEAK_TF32 = 494.7e12  # TF32 tensor cores, dense: the f32 flash kernels' 3xTF32 products
 TRAIN_HW, TRAIN_BATCH = 224, 128
 TRAIN_HW_FLASH = 384  # the ViT/DeiT fine-tuning resolution: T = 577 takes flash
 
@@ -105,9 +107,29 @@ def bound(flops, nbytes, peak):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bf16_tile(fa):
-    """The bf16 attention tile's shape as compiled, for the kernel lines."""
-    return "; tile {block_q} x {block_k}, {stages} stages".format(**fa.tile_shape())
+def attention_tile(fa, dtype):
+    """The attention forward tile's shape for ``dtype`` as compiled, for the
+    flash and packed lines."""
+    d = fa.tile_shape(dtype)
+    if dtype == torch.bfloat16:
+        return "; tile {block_q} x {block_k}, {stages} stages".format(**d)
+    return ("; tile {block_q} queries x {block_k}-key stages, {stages} raw stages, "
+            "{split_stages} split stages, every product {tf32_products} TF32 products "
+            "(3xTF32)".format(**d))
+
+
+def forward_bound(flops, nbytes, dtype, ms):
+    """The bound of an attention forward of ``flops`` and ``nbytes`` and the
+    kernel's share of it: bf16 on the bf16 tensor cores; f32 as 3xTF32
+    (three times the FLOPs on the TF32 tensor cores), with the share of
+    the FMA bound beside it. Returns (bound ms, bounded by, text)."""
+    if dtype == torch.bfloat16:
+        bms, by = bound(flops, nbytes, PEAK_BF16)
+        return bms, by, f"{bms / ms:.1%} of the bound"
+    bms, by = bound(3 * flops, nbytes, PEAK_TF32)
+    fma_ms = bound(flops, nbytes, PEAK_F32)[0]
+    return bms, by, (f"{bms / ms:.1%} of its 3xTF32 bound {bms:.3f} ms, {fma_ms / ms:.1%} of "
+                     f"its FMA bound {fma_ms:.3f} ms")
 
 
 def bwd_design(fa, dtype):
@@ -154,11 +176,10 @@ def check_flash(fa, dtype, gen):
     elt = q.element_size()
     flops = 4 * b * h * t * t * hd
     nbytes = 4 * q.numel() * elt + lse.numel() * 4 + valid.numel()
-    bms, by = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    bms, by, shares = forward_bound(flops, nbytes, dtype, ms)
     name = "f32" if dtype == torch.float32 else "bf16"
-    tile = bf16_tile(fa) if dtype == torch.bfloat16 else ""
     print(f"flash_attention_fwd[{name}] max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.0f} TFLOP/s, {bms / ms:.1%} of the bound{tile}) "
+          f"({flops / ms / 1e9:.0f} TFLOP/s, {shares}{attention_tile(fa, dtype)}) "
           f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
     return {"name": f"flash_attention_fwd[{name}]", "route": "cuda",
@@ -358,11 +379,10 @@ def check_flash_packed(fa, dtype, gen):
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask))
     flops = 4 * b * heads * t * t * hd
     nbytes = (qkv.numel() + out.numel()) * qkv.element_size() + valid.numel()
-    bms, by = bound(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    bms, by, shares = forward_bound(flops, nbytes, dtype, ms)
     name = f"flash_attention_packed[{'f32' if dtype == torch.float32 else 'bf16'}]"
-    tile = bf16_tile(fa) if dtype == torch.bfloat16 else ""
     print(f"{name} max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms ({flops / ms / 1e9:.0f} "
-          f"TFLOP/s, {bms / ms:.1%} of the bound{tile}) plain {plain_ms:.3f} ms "
+          f"TFLOP/s, {shares}{attention_tile(fa, dtype)}) plain {plain_ms:.3f} ms "
           f"sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.0f} MB)")
     return {"name": name, "route": "cuda",

@@ -18,6 +18,13 @@ On the card the f32 kernel runs every product as three TF32 products
 big.big). A plain-torch emulation of that arithmetic is held here against
 the same oracles at the kernel's tolerance, 1e-4 of each gradient's scale,
 and one TF32 product a product is shown to miss it: the reason for three.
+The f32 forward kernels (flash and packed, ``attention_tile.cuh``'s f32
+tile) run the same 3xTF32 products; an emulation in the kernel's order
+(32-key stages, the running max and sum in log2 units, P split as it
+stands) is held against the JAX package's Pallas ``_flash_fwd`` and
+``_packed_fwd`` in interpret mode at the forward's tolerance (atol 1e-5,
+rtol 1e-4; lse 1e-4), and one TF32 product a product misses it at the LOST
+shape.
 """
 
 import importlib
@@ -27,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as ofa
 
 from vipers_torch.ops import flash_attention as tfa
@@ -240,3 +248,100 @@ def test_tf32x1_backward_misses_the_tolerance():
     one = _worst_share(_bwd_tf32(q, k, v, valid, out, lse, cot, SCALE, terms=1), want, 640)
     three = _worst_share(_bwd_tf32(q, k, v, valid, out, lse, cot, SCALE, terms=3), want, 640)
     assert three <= 1e-4 < one, (three, one)
+
+
+LOG2E = np.float32(1.4426950408889634)
+NEG2 = np.float32(-1e9) * LOG2E  # the mask in log2 units
+
+
+def _fwd_tf32(q, k, v, valid, scale, terms):
+    """The f32 forward kernel's arithmetic with its products in TF32
+    (``_mm_tf32``), in its order: keys in stages of 32; per stage the raw
+    scores s = q k^T, in log2 units x = s scale log2(e), -1e9 log2(e) on
+    invalid keys; the running max m (from the mask value) and sum l, alpha =
+    exp2(m_old - m), p = exp2(x - m); O = (O + the last stage's P V) alpha,
+    this stage's P V from p as it stands. The end: l_safe = max(l, 1e-20),
+    out = O / l_safe, lse = m ln 2 + log(l_safe), exactly -1e9 +
+    log(l_safe) where m never left the mask value. numpy in and out."""
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(z)) for z in (q, k, v))
+    ok = torch.from_numpy(valid)[:, None, None, :]
+    c = np.float32(scale) * LOG2E
+    m = torch.full(q.shape[:3], float(NEG2))
+    l = torch.zeros(q.shape[:3])
+    o, pv = torch.zeros(q.shape), torch.zeros(q.shape)
+    t = q.shape[2]
+    for k0 in range(0, t, 32):
+        keys = slice(k0, min(t, k0 + 32))
+        s = _mm_tf32(q, k[:, :, keys].transpose(-1, -2), terms)
+        x = torch.where(ok[..., keys], s * c, torch.tensor(NEG2))
+        mx = torch.maximum(m, x.amax(-1))
+        al = torch.exp2(m - mx)
+        p = torch.exp2(x - mx[..., None])
+        l = l * al + p.sum(-1)
+        o = (o + pv) * al[..., None]
+        pv = _mm_tf32(p, v[:, :, keys], terms)
+        m = mx
+    l = torch.clamp(l, min=1e-20)
+    lse = torch.where(m == float(NEG2), torch.tensor(-1e9), m * np.float32(np.log(2))) + torch.log(l)
+    return ((o + pv) / l[..., None]).numpy(), lse.numpy()
+
+
+def _flash_fwd_interpret(q, k, v, valid):
+    """The JAX package's Pallas forward in interpret mode: (out, lse)."""
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = jfa._flash_fwd(*map(jnp.asarray, (q, k, v)), jnp.asarray(valid), SCALE, 128,
+                                  128)
+    return np.asarray(out), np.asarray(lse)
+
+
+@pytest.mark.parametrize("t", [64, 256, 896])
+def test_tf32x3_forward_matches_pallas_kernel_interpret(t):
+    """The 3xTF32 emulation of the f32 forward kernel against the Pallas
+    ``_flash_fwd`` in interpret mode, with ragged keys and an image whose
+    keys are all invalid (its rows the uniform average of v, lse -1e9 +
+    log(t)): out within atol 1e-5 / rtol 1e-4, lse within 1e-4."""
+    b, h = (2, 3) if t < 896 else (2, 2)
+    q, k, v, _, valid = _inputs(b, h, t, seed=400 + t, all_invalid=True)
+    want, want_lse = _flash_fwd_interpret(q, k, v, valid)
+    got, got_lse = _fwd_tf32(q, k, v, valid, SCALE, terms=3)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got_lse, want_lse, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_lse[-1], np.float32(-1e9) + np.log(t), atol=0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("t", [64, 256, 896])
+def test_tf32x3_packed_forward_matches_pallas_kernel_interpret(t):
+    """The same emulation on the packed layout (4 heads in two head-pair
+    stripes, unpacked and packed back by the port's helpers) against the
+    Pallas ``_packed_fwd`` in interpret mode: within atol 1e-5 / rtol
+    1e-4."""
+    b, heads = 2, 4
+    rng = np.random.default_rng(600 + t)
+    qkv = rng.normal(size=(b, t, 3 * heads * HD)).astype(np.float32)
+    valid = rng.random((b, t)) > 0.2
+    valid[:, 0] = True
+    valid[-1] = False
+    want = np.asarray(jfa._packed_fwd(jnp.asarray(qkv), jnp.asarray(valid), SCALE, heads, 128,
+                                      128, True))
+    q, k, v = (z.numpy() for z in tfa._unpack_bhtd(torch.from_numpy(qkv), heads))
+    out, _ = _fwd_tf32(q, k, v, valid, SCALE, terms=3)
+    got = tfa._bhtd_to_ntd(torch.from_numpy(out)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_tf32x1_forward_misses_the_tolerance():
+    """At the LOST shape (T = 896, 769 keys valid, head dim 64; two images
+    of two heads) one TF32 product a product misses atol 1e-5 / rtol 1e-4
+    against the Pallas kernel in interpret mode, where three stay inside
+    it: why the f32 forward kernels take three."""
+    q, k, v, _, _ = _inputs(2, 2, 896, seed=500)
+    valid = np.zeros((2, 896), bool)
+    valid[:, :769] = True
+    want, _ = _flash_fwd_interpret(q, k, v, valid)
+
+    def worst(terms):
+        got, _ = _fwd_tf32(q, k, v, valid, SCALE, terms)
+        return np.max(np.abs(got - want) / (1e-5 + 1e-4 * np.abs(want)))
+
+    one, three = worst(1), worst(3)
+    assert three <= 1 < one, (three, one)

@@ -35,11 +35,13 @@ def _qkv(b, h, t, dtype, dev, seed):
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-4),
                                              (torch.bfloat16, 2e-2, 2e-2)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("t", [896, 200, 64])
+@pytest.mark.parametrize("t", [896, 769, 577, 200, 129, 64, 33, 1])
 def test_flash_kernel_matches_plain(cuda, dtype, atol, rtol, t):
     """Both instances against the plain version with a ragged key mask and
     one image (1) whose keys are all invalid: its rows are the average of v
-    over the t keys (t = 200 is not a multiple of the 64-key tile)."""
+    over the t keys and its lse is -1e9 + log(t). The t cover partial key
+    stages (f32: 32 keys; bf16: 128) and query tiles (f32: 128 rows; bf16:
+    192), one tile and several, and t = 1."""
     q, k, v = _qkv(3, 2, t, dtype, cuda, seed=t)
     g = torch.Generator(device="cpu").manual_seed(1)
     valid = (torch.rand(3, t, generator=g) < 0.8).to(cuda)
@@ -56,6 +58,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, atol, rtol, t):
                                rtol=1e-4)
     mean_v = v[1].float().mean(dim=1, keepdim=True).expand(2, t, 64)
     torch.testing.assert_close(out[1].float(), mean_v, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse[1], torch.full_like(lse[1], -1e9 + np.log(t)),
+                               atol=0, rtol=1e-6)
 
 
 @pytest.mark.parametrize("t", [896, 769, 200, 64, 1])
@@ -102,6 +106,46 @@ def test_bf16_tile_shape(cuda):
     """The compiled tile: 192 query rows (three consumer warpgroups),
     128-key K/V tiles, a ring of 3 stages."""
     assert tfa.tile_shape() == {"block_q": 192, "block_k": 128, "stages": 3}
+
+
+def test_f32_tile_shape(cuda):
+    """The compiled f32 tile: 128 query rows (two consumer warpgroups),
+    32-key stages of raw K/V in a ring of 3, three buffers of split K/V,
+    every product three TF32 products."""
+    assert tfa.tile_shape(torch.float32) == {"block_q": 128, "block_k": 32, "stages": 3,
+                                             "split_stages": 3, "tf32_products": 3}
+
+
+@pytest.mark.parametrize("t", [1, 33, 129])
+def test_f32_forward_many_tiles_a_cta(cuda, t):
+    """The f32 kernel where each CTA walks several (head, query tile) pairs
+    of one or a few key stages (B*H = 64*6 heads of short t; the persistent
+    grid has one CTA an SM), ragged keys and an all-invalid image, against
+    the plain version."""
+    q, k, v = _qkv(64, 6, t, torch.float32, cuda, seed=30 + t)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    valid = (torch.rand(64, t, generator=g) < 0.8).to(cuda)
+    valid[:, 0] = True
+    valid[1] = False
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid)
+    want, want_lse = tfa.flash_attention_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+def test_f32_forward_is_deterministic(cuda):
+    """Two calls of each f32 forward kernel (head-major with lse, packed)
+    give bit-equal results."""
+    q, k, v = _qkv(4, 6, 896, torch.float32, cuda, seed=21)
+    valid = torch.ones(4, 896, dtype=torch.bool, device=cuda)
+    valid[1::2, 769:] = False
+    first, second = tfa.flash_attention_fwd(q, k, v, valid), tfa.flash_attention_fwd(q, k, v, valid)
+    qkv, _, pvalid = _packed_inputs(4, 896, 6, torch.float32, cuda, seed=22)
+    p1 = tfa.flash_attention_packed_fwd(qkv, pvalid, 6, 0.125)
+    p2 = tfa.flash_attention_packed_fwd(qkv, pvalid, 6, 0.125)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second)) and torch.equal(p1, p2)
 
 
 def test_wrappers_reject_unaligned_cuda_tensors(cuda):
@@ -432,23 +476,26 @@ def _packed_inputs(b, t, heads, dtype, dev, seed):
 
 @pytest.mark.parametrize("dtype,frac", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads", [6, 12])
 @pytest.mark.parametrize("t", [896, 577])
-def test_packed_kernel_matches_plain(cuda, dtype, frac, t):
-    """The packed token-major kernel against its plain version, forward and
-    the gradient through the autograd Function against autograd through
-    the plain version (T = 577 pads to 640 inside the wrapper)."""
-    qkv, cot, valid = _packed_inputs(3, t, 6, dtype, cuda, seed=t)
+def test_packed_kernel_matches_plain(cuda, dtype, frac, t, heads):
+    """The packed token-major kernel against its plain version at 6 and 12
+    heads (three and six head-pair stripes), forward (at t = 577 unpadded:
+    partial key stages and query tiles) and the gradient through the
+    autograd Function against autograd through the plain version (T = 577
+    pads to 640 inside the wrapper)."""
+    qkv, cot, valid = _packed_inputs(3, t, heads, dtype, cuda, seed=t)
     key = str(dtype)[6:]
     n0 = tfa.PACKED_LAUNCHES[key]
-    out = tfa.flash_attention_packed_fwd(qkv, valid, 6, 0.125)
+    out = tfa.flash_attention_packed_fwd(qkv, valid, heads, 0.125)
     torch.cuda.synchronize()
     assert tfa.PACKED_LAUNCHES[key] == n0 + 1
-    _close_to_scale(out, tfa.flash_attention_packed_plain(qkv, valid, 6, 0.125), frac)
+    _close_to_scale(out, tfa.flash_attention_packed_plain(qkv, valid, heads, 0.125), frac)
 
     x = qkv.clone().requires_grad_(True)
-    (got,) = torch.autograd.grad(tfa.flash_attention_packed(x, valid, num_heads=6), x, cot)
+    (got,) = torch.autograd.grad(tfa.flash_attention_packed(x, valid, num_heads=heads), x, cot)
     xr = qkv.clone().requires_grad_(True)
-    ref = tfa.flash_attention_packed_plain(xr, valid, 6, 0.125)
+    ref = tfa.flash_attention_packed_plain(xr, valid, heads, 0.125)
     (want,) = torch.autograd.grad(ref, xr, cot)
     _close_to_scale(got, want, 2e-2 if dtype == torch.bfloat16 else 1e-4)
 

@@ -1,29 +1,28 @@
 // The blockwise attention forward tiles of the port's flash kernels:
 // flash_attention_fwd.cu (head-major (B*H, T, 64)) and
 // flash_attention_packed.cu (token-major packed qkv stripes), and of
-// splash_attention.cu. A caller
-// hands one head to a tile as base pointers and row strides (f32) or as
-// tensor-map coordinates and output rows (bf16), so the layout lives only
-// in the kernel that computes them.
+// splash_attention.cu; and the f32 building blocks that the f32 forward
+// shares with the f32 flash backward (flash_attention_bwd.cu). A caller
+// hands one head to a tile as tensor-map coordinates and output rows
+// (HeadViewOf), so the layout lives only in the kernel that computes them.
 //
-// Both stream K/V tiles past a block of query rows and keep the running
-// row max m and sum l in f32 registers (online softmax), so the (T, T)
-// matrix never reaches device memory. Keys whose valid byte is 0 get -1e9
-// on the f32 scores (the JAX kernels' mask: exp underflows to 0 once a
-// valid key has been seen); keys beyond t are excluded, so a row whose keys
-// are all invalid is the average of v over the t keys, as in JAX. Final:
-// l_safe = max(l, 1e-20), O = acc / l_safe and, where an lse row is given,
-// lse = m + log(l_safe).
+// Both tiles stream K/V past a block of query rows and keep the running
+// row max m and sum l in f32 registers (online softmax, in log2 units), so
+// the (T, T) matrix never reaches device memory. Keys whose valid byte is
+// 0 get -1e9 on the f32 scores (the JAX kernels' mask: exp underflows to 0
+// once a valid key has been seen); keys beyond t are excluded, so a row
+// whose keys are all invalid is the average of v over the t keys, as in
+// JAX. Final: l_safe = max(l, 1e-20), O = acc / l_safe and, where an lse
+// row is given, lse = m + log(l_safe).
 //
-//   f32 tile:  64 queries, 64-key tiles, 256 threads; a 16x16 thread grid,
-//              each thread owns a 4x4 tile of S and a 4x16 strip of O; FMA
-//              from padded shared memory (no TF32). q is multiplied by the
-//              scale as it is loaded; keys beyond t read as zero rows and
-//              get -inf.
 //   bf16 tile: Hopper's TMA, mbarriers and wgmma (namespace hopper below,
 //              on the building blocks of hopper.cuh), also the splash
 //              kernel's (splash_attention.cu: no mask, other tile shapes,
 //              K optionally seq-minor).
+//   f32 tile:  the same structure on TF32 wgmma, every product three TF32
+//              products (3xTF32, hopper.cuh), f32 everywhere else: 128
+//              query rows, K/V in 32-key stages split by the producer
+//              warpgroup.
 #pragma once
 
 #include <cuda.h>
@@ -40,140 +39,6 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int HD = 64;  // head dim (every wrapper rejects any other)
 constexpr float NEG = -1e9f;
-
-// ------------------------------------------------------------ f32 / FMA
-constexpr int F32_BQ = 64;
-constexpr int F32_BK = 64;
-constexpr int F32_THREADS = 256;
-constexpr int F32_LD = HD + 1;  // padded row: conflict-free column reads
-
-struct F32Smem {
-  float q[F32_BQ][F32_LD];
-  float k[F32_BK][F32_LD];
-  float v[F32_BK][F32_LD];
-  float p[F32_BQ][F32_LD];
-  float fill[F32_BK];  // 0: keep the key's score; else the score it gets
-};
-
-// q, k, v: element (row, c) at ptr[row * ld + c]; o at o[row * ldo + c];
-// valid: this head's key bytes (null = all valid); lse: this head's lse row
-// (null = not written). The block computes query rows q0 .. q0 + 63.
-__device__ void fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, int ld,
-                        const uint8_t* __restrict__ valid, float* __restrict__ o,
-                        int ldo, float* __restrict__ lse, int t, float scale,
-                        int q0, char* smem_raw) {
-  F32Smem& s = *reinterpret_cast<F32Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;  // rows ty*4+a, cols tx+16*i
-
-  for (int idx = tid; idx < F32_BQ * HD; idx += F32_THREADS) {
-    const int r = idx / HD, c = idx % HD;
-    const int gq = q0 + r;
-    s.q[r][c] = gq < t ? q[(size_t)gq * ld + c] * scale : 0.f;
-  }
-
-  float acc[4][4], m[4], l[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = NEG;
-    l[a] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[a][i] = 0.f;
-  }
-
-  const int n_kt = (t + F32_BK - 1) / F32_BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * F32_BK;
-    __syncthreads();  // previous tile's readers are done
-    for (int idx = tid; idx < F32_BK * HD; idx += F32_THREADS) {
-      const int r = idx / HD, c = idx % HD;
-      const int gk = k0 + r;
-      const bool in = gk < t;
-      s.k[r][c] = in ? k[(size_t)gk * ld + c] : 0.f;
-      s.v[r][c] = in ? v[(size_t)gk * ld + c] : 0.f;
-    }
-    if (tid < F32_BK) {
-      const int gk = k0 + tid;
-      s.fill[tid] = gk >= t ? -INFINITY : (valid == nullptr || valid[gk]) ? 0.f : NEG;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[a][i] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = s.q[ty * 4 + a][d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) kb[i] = s.k[tx + 16 * i][d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sc[a][i] = fmaf(qa[a], kb[i], sc[a][i]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mx = NEG;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float fill = s.fill[tx + 16 * i];
-        if (fill != 0.f) sc[a][i] = fill;
-        mx = fmaxf(mx, sc[a][i]);
-      }
-      // the 16 threads sharing a row are the 16 lanes of one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[a], mx);
-      const float alpha = expf(m[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(sc[a][i] - m_new);
-        s.p[ty * 4 + a][tx + 16 * i] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[a] = l[a] * alpha + sum;
-      m[a] = m_new;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[a][i] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int j = 0; j < F32_BK; ++j) {
-      float pa[4], vb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = s.p[ty * 4 + a][j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) vb[i] = s.v[j][tx + 16 * i];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[a][i] = fmaf(pa[a], vb[i], acc[a][i]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int gq = q0 + ty * 4 + a;
-    if (gq >= t) continue;
-    const float l_safe = fmaxf(l[a], 1e-20f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      o[(size_t)gq * ldo + tx + 16 * i] = acc[a][i] / l_safe;
-    if (lse != nullptr && tx == 0) lse[gq] = m[a] + logf(l_safe);
-  }
-}
 
 // ------------------------------------------------- bf16 / Hopper (sm_90a)
 //
@@ -230,14 +95,16 @@ struct Smem {
 
 // Where one head lives: tensor-map coordinates (outer index, column of q, k
 // and v), its output rows, its lse row (null: not written) and its key
-// bytes (null: all valid).
-struct HeadView {
+// bytes (null: all valid); T the output's element type.
+template <class T>
+struct HeadViewOf {
   int z, qcol, kcol, vcol;
-  bf16* o;
+  T* o;
   int ldo;
   float* lse;
   const uint8_t* valid;
 };
+typedef HeadViewOf<bf16> HeadView;
 
 // Start S (this warpgroup's 64 rows x KEYS keys) = Q K^T on wgmma as one
 // group; qb and kb are the shared addresses of the warpgroup's Q rows and of
@@ -558,6 +425,446 @@ template <class Layout, class Maps>
 int launch_bf16(const Maps& maps, const Layout& lay, int n_heads, int t, float scale,
                 cudaStream_t stream) {
   return launch_tile<Layout, WGS, BK, STAGES, false, true>(maps, lay, n_heads, t, scale, stream);
+}
+
+// ------------------------------------------ f32 on TF32 wgmma: shared blocks
+//
+// The f32 forward below and the f32 flash backward (flash_attention_bwd.cu)
+// run every product as three TF32 products (hopper.cuh: small.big +
+// big.small + big.big into one f32 sum). TMA brings f32 tiles in two
+// 32-column boxes (128-byte swizzled halves, f32_at); an operand read from
+// shared memory is split into TF32 big and small copies by the consumers,
+// one read as register A is split as it is loaded (load_a_f32, tf32_a_frag).
+// wgmma reads TF32 K-major only, so an operand needed MN-major gets a
+// transposed copy with its k rows in tf32_perm order.
+
+constexpr int TF32_TERMS = 3;  // TF32 products an f32 product
+
+template <class Shared>
+__device__ __forceinline__ Shared& aligned_smem(char* raw) {
+  return *reinterpret_cast<Shared*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// One (ROWS x 64) f32 box of `map` at column `col`, row `row`, outer index
+// z into `dst`, as two 32-column loads into its halves (f32_at), completing
+// on `bar`.
+template <int ROWS>
+__device__ __forceinline__ void tma_load_f32(float* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int col, int row, int z) {
+  tma_load_3d(dst, map, bar, col, row, z);
+  tma_load_3d(dst + ROWS * 32, map, bar, col + 32, row, z);
+}
+
+__device__ __forceinline__ void split4(float4 x, float4& b, float4& s) {
+  tf32_split(x.x, b.x, s.x);
+  tf32_split(x.y, b.y, s.y);
+  tf32_split(x.z, b.z, s.z);
+  tf32_split(x.w, b.w, s.w);
+}
+
+// Rows r0 .. r0 + 63 of an f32 tile of ROWS rows, both halves: TF32 big in
+// place, small into `small` at the same index. The 128 threads of one
+// warpgroup (t128 its thread).
+template <int ROWS>
+__device__ __forceinline__ void split_rows(float* big, float* small, int r0, int t128) {
+#pragma unroll 2
+  for (int i = t128; i < 64 * HD / 4; i += 128) {
+    const int at = (i >> 9) * ROWS * 32 + r0 * 32 + (i & 511) * 4;
+    float4 b, s;
+    split4(*reinterpret_cast<const float4*>(big + at), b, s);
+    *reinterpret_cast<float4*>(big + at) = b;
+    *reinterpret_cast<float4*>(small + at) = s;
+  }
+}
+
+// A raw 32-row f32 stage (TMA's layout) into TF32 big and small copies in
+// the same layout (unless b is null) and, unless tb is null, into a
+// transposed [dim][row] tile with the rows in tf32_perm order, big and
+// small: row `lane` and columns 8 warp .. 8 warp + 7 a thread, warp 0-7 (a
+// warp's 32 lanes reach 32 distinct banks in every store).
+__device__ __forceinline__ void split_stage(const float* raw, float* b, float* s, float* tb,
+                                            float* ts, int warp, int lane) {
+  const int col = tf32_perm(lane);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = 8 * warp + 4 * h, at = f32_at<32>(lane, c);
+    float4 xb, xs;
+    split4(*reinterpret_cast<const float4*>(raw + at), xb, xs);
+    if (b != nullptr) {
+      *reinterpret_cast<float4*>(b + at) = xb;
+      *reinterpret_cast<float4*>(s + at) = xs;
+    }
+    if (tb != nullptr) {
+      const float eb[4] = {xb.x, xb.y, xb.z, xb.w}, es[4] = {xs.x, xs.y, xs.z, xs.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tb[f32_at<64>(c + e, col)] = eb[e];
+        ts[f32_at<64>(c + e, col)] = es[e];
+      }
+    }
+  }
+}
+
+// Start D (64 x 32) = A B^T over the 64 dims, every k step as three TF32
+// products: A the warpgroup's 64 rows (shared addresses ab, as of its first
+// row, big and small) of a ROWS-row tile, B a 32-row tile (bb, bs), both
+// K-major. One wgmma group, which the caller commits.
+template <int ROWS>
+__device__ __forceinline__ void product_ss(float (&d)[4][4], uint32_t ab, uint32_t as,
+                                           uint32_t bb, uint32_t bs) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    wgmma_tf32_ss_n32(d, desc_f32<ROWS>(as, kk), desc_f32<32>(bb, kk), kk);
+    wgmma_tf32_ss_n32(d, desc_f32<ROWS>(ab, kk), desc_f32<32>(bs, kk), 1);
+    wgmma_tf32_ss_n32(d, desc_f32<ROWS>(ab, kk), desc_f32<32>(bb, kk), 1);
+  }
+}
+
+// The order of a register-A product's TF32 products. The tensor cores add
+// each product into the f32 accumulator at its magnitude, so every
+// instruction after the sum has grown costs up to about an f32 ulp of it.
+// BY_STEP (the backward's): small.big, big.small, big.big for each k step.
+// SMALL_FIRST: the small products of every k step first, then the big ones,
+// so one instruction in three adds at the sum's full magnitude.
+enum Tf32Order { BY_STEP, SMALL_FIRST };
+
+// Start D (64 x 64) {=, +=} A B over 32 k, every k step as three TF32
+// products: A from registers in tf32_a_frag's order (big ab, small as), B a
+// [64][32] K-major tile with its k rows in tf32_perm order (bb, bs);
+// scale_d = 0 overwrites D. One group.
+template <Tf32Order ORDER = BY_STEP>
+__device__ __forceinline__ void product_rs(float (&d)[8][4], const float (&ab)[4][4],
+                                           const float (&as)[4][4], uint32_t bb, uint32_t bs,
+                                           int scale_d = 1) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_tf32_rs_n64(d, as[kk], desc_f32<64>(bb, kk), kk == 0 ? scale_d : 1);
+    wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bs, kk), 1);
+    if constexpr (ORDER == BY_STEP) wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bb, kk), 1);
+  }
+  if constexpr (ORDER == SMALL_FIRST) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bb, kk), 1);
+  }
+}
+
+// Start D (64 x 32) = A B^T over the 64 dims, every k step as three TF32
+// products: A from registers (load_a_f32's: big ab, small as), B a 32-row
+// K-major tile (bb, bs). One group.
+template <Tf32Order ORDER = BY_STEP>
+__device__ __forceinline__ void product_rs_n32(float (&d)[4][4], const float (&ab)[HD / 8][4],
+                                               const float (&as)[HD / 8][4], uint32_t bb,
+                                               uint32_t bs) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    wgmma_tf32_rs_n32(d, as[kk], desc_f32<32>(bb, kk), kk);
+    wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bs, kk), 1);
+    if constexpr (ORDER == BY_STEP) wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bb, kk), 1);
+  }
+  if constexpr (ORDER == SMALL_FIRST) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bb, kk), 1);
+  }
+}
+
+// ---------------------------------------- f32 forward on TF32 wgmma, 3xTF32
+//
+// The f32 flash and packed kernels' tile, on the f32 backward's dq kernel
+// structure without dP. A persistent grid walks (head, 128-query tile)
+// pairs, head-major. Two consumer warpgroups own 64 query rows each and
+// hold them as split register A fragments (64 registers a thread), so Q is
+// free as soon as it is in registers and the next tile's Q is loaded under
+// this one. The producer warpgroup loads Q and raw f32 K/V in 32-key
+// stages by TMA (one thread) into a ring of F32_STAGES that only it reads,
+// and its four warps split each stage: K into TF32 big and small [key][dim]
+// (K-major for S = Q K^T as it stands), V into a transposed [dim][key]
+// copy, big and small (O += P V needs V^T K-major: TF32 wgmma has no
+// transpose bit), into one of F32_SPLITS buffers handed to the consumers by
+// full/empty mbarriers. So the split runs beside the consumers' products
+// and softmax, and the consumer warpgroups never wait for each other.
+//
+// Per stage j, a consumer warpgroup (the bf16 tile's order): start S_j = Q
+// K_j^T (register A) and P_{j-1} V_{j-1} (register A, into its own
+// accumulator) as two groups; wait for S_j; mask and online softmax in log2
+// units (p = exp2(s scale log2e - m), -1e9 on invalid keys, -inf beyond t);
+// wait for P V and free stage j - 1's buffer; O = (O + P V) alpha; P_j from
+// its accumulator registers as split A fragments (tf32_a_frag). The
+// products run SMALL_FIRST and P V into a fresh accumulator, so the tensor
+// cores' adds at full magnitude are few (see Tf32Order). The end: l_safe =
+// max(l, 1e-20), O / l_safe, lse = m ln 2 + log(l_safe) (exactly -1e9 +
+// log(t) on a row that saw only masked keys); query rows beyond t are not
+// written.
+
+constexpr int F32_WGS = 2;            // consumer warpgroups, 64 query rows each
+constexpr int F32_BQ = 64 * F32_WGS;  // query rows of a tile
+constexpr int F32_BK = 32;            // keys of a K/V stage: one lane a key in the split
+constexpr int F32_STAGES = 3;         // raw K/V stages in the producer's TMA ring
+constexpr int F32_SPLITS = 3;         // split stages handed to the consumers
+constexpr int F32_CONSUMERS = 4 * F32_WGS;
+constexpr int F32_THREADS = tile_threads<F32_WGS>();
+constexpr int F32_SPLIT_BAR = 1;      // named barrier of the producer warpgroup
+// Registers a thread: R0 at launch, CREGS for a consumer, PREGS for the
+// producer warpgroup, which splits; setmaxnreg.inc draws only on what the
+// producer gave back. 224 and 56 were the fastest of those timed (232 and
+// 40 made ptxas spill in the split or made it slower).
+constexpr int F32_R0 = (65536 / F32_THREADS) & ~7;
+constexpr int F32_CREGS = 224;
+constexpr int F32_PREGS = 56;
+static_assert(F32_WGS * 128 * (F32_CREGS - F32_R0) <= 128 * (F32_R0 - F32_PREGS),
+              "consumer registers");
+
+// One split stage: K [key][dim] and V^T [dim][key in tf32_perm order],
+// TF32 big and small, each 1024-byte aligned.
+struct alignas(1024) F32Split {
+  float kb[F32_BK * HD], ks[F32_BK * HD];
+  float vtb[HD * F32_BK], vts[HD * F32_BK];
+};
+
+struct alignas(1024) F32Shared {
+  float q[F32_BQ * HD];  // the tile's Q, until held as register A
+  F32Split split[F32_SPLITS];
+  float raw_k[F32_STAGES][F32_BK * HD], raw_v[F32_STAGES][F32_BK * HD];  // the TMA ring
+  uint64_t q_full, q_empty, raw_full[F32_STAGES], split_full[F32_SPLITS], split_empty[F32_SPLITS];
+};
+constexpr int F32_SMEM = (int)sizeof(F32Shared) + 1024;  // + the alignment slack
+static_assert(F32_SMEM <= 232448, "f32 tile shared memory");
+
+// The mask of keys k0 .. k0 + 31 on this thread's raw scores of a stage
+// (columns 8j + 2tg + e%2), as mask_scores does it for a bf16 tile: one
+// ballot word a warp. A stage whose keys are all valid is left as it is
+// (returns scale_log2); else every score is scaled here, -1e9 (log2 units)
+// where the valid byte is 0 and -inf beyond t (returns 1).
+__device__ __forceinline__ float mask_stage(float (&s)[F32_BK / 8][4], const uint8_t* valid,
+                                            int k0, int t, float scale_log2, int lane) {
+  if (valid == nullptr && k0 + F32_BK <= t) return scale_log2;
+  const int key = k0 + lane;
+  const uint32_t w =
+      __ballot_sync(0xffffffffu, key < t && (valid == nullptr || __ldg(valid + key) != 0));
+  if (w == 0xffffffffu) return scale_log2;
+  const int tg = lane & 3;
+#pragma unroll
+  for (int j = 0; j < F32_BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * tg + (e & 1);
+      s[j][e] = k0 + c >= t ? -INFINITY : ((w >> c) & 1u) ? s[j][e] * scale_log2 : NEG2;
+    }
+  return 1.f;
+}
+
+// O plus the last stage's P V (pv), times alpha, and p as split TF32 A
+// fragments of this stage's P V (tf32_a_frag).
+__device__ __forceinline__ void rescale_split_p(float (&o)[HD / 8][4], const float (&pv)[HD / 8][4],
+                                                const float (&al)[2],
+                                                const float (&sa)[F32_BK / 8][4],
+                                                float (&pb)[F32_BK / 8][4],
+                                                float (&ps)[F32_BK / 8][4]) {
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = (o[dt][e] + pv[dt][e]) * al[e / 2];
+#pragma unroll
+  for (int jj = 0; jj < F32_BK / 8; ++jj) tf32_a_frag(sa[jj], pb[jj], ps[jj]);
+}
+
+// The producer's load of Q for this CTA's n-th tile, `tile`, once the
+// consumers hold the last one in registers.
+template <class Layout>
+__device__ __forceinline__ void load_q_f32(F32Shared& s, const CUtensorMap* map_q,
+                                           const Layout& lay, int tile, int nq, int n) {
+  const HeadViewOf<float> hv = lay.head(tile / nq);
+  mbar_wait(&s.q_empty, (n & 1) ^ 1);
+  mbar_expect_tx(&s.q_full, F32_BQ * HD * 4);
+  tma_load_f32<F32_BQ>(s.q, map_q, &s.q_full, hv.qcol, (tile % nq) * F32_BQ, hv.z);
+}
+
+// Raw K/V of this CTA's stage n into its ring slot.
+template <class Layout>
+__device__ __forceinline__ void load_stage_f32(F32Shared& s, const CUtensorMap* map_k,
+                                               const CUtensorMap* map_v, const Layout& lay,
+                                               uint32_t n, int n_kt, int nq) {
+  const int tile = blockIdx.x + (int)(n / n_kt) * gridDim.x, j = n % n_kt;
+  const HeadViewOf<float> hv = lay.head(tile / nq);
+  const int st = n % F32_STAGES;
+  mbar_expect_tx(&s.raw_full[st], 2 * F32_BK * HD * 4);
+  tma_load_f32<F32_BK>(s.raw_k[st], map_k, &s.raw_full[st], hv.kcol, j * F32_BK, hv.z);
+  tma_load_f32<F32_BK>(s.raw_v[st], map_v, &s.raw_full[st], hv.vcol, j * F32_BK, hv.z);
+}
+
+// The kernel. Layout maps a head index to its HeadViewOf<float>; map_q
+// boxes F32_BQ rows, map_k and map_v F32_BK rows, 32 columns each.
+template <class Layout>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+        const __grid_constant__ CUtensorMap map_v, const Layout lay, int t, int n_tiles,
+        float scale_log2) {
+  extern __shared__ __align__(128) char smem_dyn[];
+  F32Shared& s = aligned_smem<F32Shared>(smem_dyn);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nq = (t + F32_BQ - 1) / F32_BQ, n_kt = (t + F32_BK - 1) / F32_BK;
+  const int cta_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const uint32_t total = (uint32_t)cta_tiles * n_kt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&s.q_full, 1);
+    mbar_init(&s.q_empty, F32_CONSUMERS);
+    for (int i = 0; i < F32_STAGES; ++i) mbar_init(&s.raw_full[i], 1);
+    for (int i = 0; i < F32_SPLITS; ++i) {
+      mbar_init(&s.split_full[i], 4);  // the producer warpgroup's warps
+      mbar_init(&s.split_empty[i], F32_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= F32_CONSUMERS) {  // ------------- producer warpgroup: TMA and the split
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(F32_PREGS));
+    const int pw = warp - F32_CONSUMERS, pt = threadIdx.x - 32 * F32_CONSUMERS;
+    if (pt == 0) {  // Q of the first tile, the ring's first stages
+      load_q_f32(s, &map_q, lay, blockIdx.x, nq, 0);
+      for (uint32_t n = 0; n < F32_STAGES && n < total; ++n)
+        load_stage_f32(s, &map_k, &map_v, lay, n, n_kt, nq);
+    }
+    for (uint32_t n = 0; n < total; ++n) {
+      const int st = n % F32_STAGES;
+      F32Split& sp = s.split[n % F32_SPLITS];
+      if (pt == 0) {  // the next tile's Q as this tile's last stage is split
+        const int ti = n / n_kt;
+        if ((int)(n % n_kt) == n_kt - 1 && ti + 1 < cta_tiles)
+          load_q_f32(s, &map_q, lay, blockIdx.x + (ti + 1) * gridDim.x, nq, ti + 1);
+      }
+      mbar_wait(&s.raw_full[st], (n / F32_STAGES) & 1);
+      mbar_wait(&s.split_empty[n % F32_SPLITS], ((n / F32_SPLITS) & 1) ^ 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // 8 dims a warp, twice
+        split_stage(s.raw_k[st], sp.kb, sp.ks, nullptr, nullptr, pw + 4 * h, lane);
+        split_stage(s.raw_v[st], nullptr, nullptr, sp.vtb, sp.vts, pw + 4 * h, lane);
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.split_full[n % F32_SPLITS]);
+      bar_sync(F32_SPLIT_BAR, 128);  // the raw slot is read: refill it
+      if (pt == 0 && n + F32_STAGES < total)
+        load_stage_f32(s, &map_k, &map_v, lay, n + F32_STAGES, n_kt, nq);
+    }
+  } else {  // -------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(F32_CREGS));
+    const int g = lane / 4, tg = lane % 4;
+    uint32_t n = 0;
+    int i = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const HeadViewOf<float> hv = lay.head(tile / nq);
+      const int q0 = (tile % nq) * F32_BQ;
+      // this warp's Q rows as register A, split; then Q is free
+      mbar_wait(&s.q_full, i & 1);
+      float qfb[HD / 8][4], qfs[HD / 8][4];
+      load_a_f32<F32_BQ>(s.q, 16 * warp + g, tg, qfb, qfs);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.q_empty);
+
+      // O, and the last stage's P V in its own accumulator, added to O in
+      // f32 (so the tensor cores add at a stage's magnitude, not O's)
+      float o[HD / 8][4], pv[HD / 8][4], m[2] = {NEG2, NEG2}, l[2] = {0.f, 0.f};
+      float pb[F32_BK / 8][4], ps[F32_BK / 8][4];  // P of the last stage, split
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] = pv[dt][e] = 0.f;
+      {
+        const F32Split& cur = s.split[n % F32_SPLITS];
+        mbar_wait(&s.split_full[n % F32_SPLITS], (n / F32_SPLITS) & 1);
+        float sa[F32_BK / 8][4], al[2];
+        wgmma_fence();
+        product_rs_n32<SMALL_FIRST>(sa, qfb, qfs, smem_u32(cur.kb), smem_u32(cur.ks));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sa);
+        const float c = mask_stage(sa, hv.valid, 0, t, scale_log2, lane);
+        softmax_scores<F32_BK>(sa, m, l, al, c);
+        rescale_split_p(o, pv, al, sa, pb, ps);
+        ++n;
+      }
+      for (int j = 1; j < n_kt; ++j, ++n) {
+        const F32Split& cur = s.split[n % F32_SPLITS];
+        const F32Split& prev = s.split[(n - 1) % F32_SPLITS];
+        mbar_wait(&s.split_full[n % F32_SPLITS], (n / F32_SPLITS) & 1);
+        float sa[F32_BK / 8][4], al[2];
+        fence_regs(pv);
+        wgmma_fence();
+        product_rs_n32<SMALL_FIRST>(sa, qfb, qfs, smem_u32(cur.kb), smem_u32(cur.ks));
+        wgmma_commit();
+        product_rs<SMALL_FIRST>(pv, pb, ps, smem_u32(prev.vtb), smem_u32(prev.vts), 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // S ready; P V may still run
+        fence_regs(sa);
+        const float c = mask_stage(sa, hv.valid, j * F32_BK, t, scale_log2, lane);
+        softmax_scores<F32_BK>(sa, m, l, al, c);
+        wgmma_wait<0>();
+        fence_regs(pv);
+        fence_regs(pb);
+        fence_regs(ps);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&s.split_empty[(n - 1) % F32_SPLITS]);  // stage j - 1 read
+        rescale_split_p(o, pv, al, sa, pb, ps);
+      }
+      {
+        const F32Split& last = s.split[(n - 1) % F32_SPLITS];
+        fence_regs(pv);
+        wgmma_fence();
+        product_rs<SMALL_FIRST>(pv, pb, ps, smem_u32(last.vtb), smem_u32(last.vts), 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(pv);
+        fence_regs(qfb);
+        fence_regs(qfs);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&s.split_empty[(n - 1) % F32_SPLITS]);
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[dt][e] += pv[dt][e];
+      }
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = fmaxf(l[r], 1e-20f);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + 16 * warp + g + 8 * r;
+        if (row >= t) continue;
+        float* orow = hv.o + (size_t)row * hv.ldo + 2 * tg;
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt)
+          *reinterpret_cast<float2*>(orow + dt * 8) =
+              make_float2(o[dt][2 * r] / l[r], o[dt][2 * r + 1] / l[r]);
+        if (hv.lse != nullptr && tg == 0)
+          hv.lse[row] = (m[r] == NEG2 ? NEG : m[r] * LN2) + logf(l[r]);
+      }
+    }
+  }
+}
+
+// Launch fwd_f32<Layout> over n_heads heads of t tokens: `maps` builds the
+// three f32 tensor maps (fn(map_q, map_k, map_v) -> error), Q in boxes of
+// F32_BQ rows, K and V of F32_BK.
+template <class Layout, class Maps>
+int launch_f32(const Maps& maps, const Layout& lay, int n_heads, int t, float scale,
+               cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = maps(&mq, &mk, &mv);
+  if (err != 0) return err;
+  static LaunchSetup setup;
+  const auto kernel = fwd_f32<Layout>;
+  int sms = 0;
+  err = setup.sms(kernel, F32_SMEM, &sms);
+  if (err != 0) return err;
+  const int n_tiles = n_heads * ((t + F32_BQ - 1) / F32_BQ);
+  kernel<<<n_tiles < sms ? n_tiles : sms, F32_THREADS, F32_SMEM, stream>>>(
+      mq, mk, mv, lay, t, n_tiles, scale * LOG2E);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hopper

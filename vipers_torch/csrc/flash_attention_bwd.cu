@@ -61,7 +61,8 @@
 // too). Exponentials, D and dS stay in f32. TMA brings f32 tiles in two
 // 32-column boxes (128-byte swizzled halves); each operand is split into
 // TF32 big and small, in registers where it is a register A, else once in
-// shared memory by the consumers.
+// shared memory by the consumers (the loads, splits and 3xTF32 products are
+// attention_tile.cuh's, shared with the f32 forward).
 //   flash_bwd_dkv_f32: a persistent grid over (b*h, 128-key tile), two
 //     consumer warpgroups of 64 keys; once a tile K is loaded into
 //     registers as split A fragments and V split in place (shared A). Q,
@@ -115,7 +116,9 @@ using attn_tile::NEG;
 
 // --------------------------------------- Hopper: what both share, then bf16
 using namespace attn_tile::hopper;  // ROW, LOG2E, NEG2, mask_scores, start_scores,
-                                    // start_pv, tile_threads; hopper.cuh's blocks
+                                    // start_pv, tile_threads; the f32 blocks shared
+                                    // with the f32 forward (tma_load_f32, split_rows,
+                                    // split_stage, product_*); hopper.cuh's blocks
 typedef __nv_bfloat16 bf16;
 
 constexpr int KV_KEYS = 128;    // keys of a dk/dv tile: 64 a consumer warpgroup
@@ -628,7 +631,6 @@ constexpr int FK_STAGES = 2;   // raw Q/dO stages in the dk/dv ring
 constexpr int FQ_ROWS = 128;   // queries of an f32 dq tile: 64 a consumer warpgroup
 constexpr int FQ_BK = 32;      // keys of an f32 dq stage
 constexpr int FQ_STAGES = 3;   // raw K/V stages in the dq ring
-constexpr int TF32_TERMS = 3;  // TF32 products an f32 product
 constexpr int PAIR_BAR = 1;    // named barrier of both consumer warpgroups (2 + wg: one's own)
 constexpr int SMEM_MAX = 232448;
 static_assert(FK_KEYS == 64 * BWD_WGS && FQ_ROWS == 64 * BWD_WGS, "64 rows a warpgroup");
@@ -659,110 +661,6 @@ struct alignas(1024) F32DqShared {
 };
 constexpr int FQ_SMEM = (int)sizeof(F32DqShared) + 1024;
 static_assert(FQ_SMEM <= SMEM_MAX, "f32 dq shared memory");
-
-// One (rows x 64) f32 box of `map` at row `row` of head `bh` into `dst`, as
-// two 32-column loads into its halves (f32_at), completing on `bar`.
-template <int ROWS>
-__device__ __forceinline__ void tma_load_f32(float* dst, const CUtensorMap* map, uint64_t* bar,
-                                             int row, int bh) {
-  tma_load_3d(dst, map, bar, 0, row, bh);
-  tma_load_3d(dst + ROWS * 32, map, bar, 32, row, bh);
-}
-
-__device__ __forceinline__ void split4(float4 x, float4& b, float4& s) {
-  tf32_split(x.x, b.x, s.x);
-  tf32_split(x.y, b.y, s.y);
-  tf32_split(x.z, b.z, s.z);
-  tf32_split(x.w, b.w, s.w);
-}
-
-// Rows r0 .. r0 + 63 of an f32 tile of ROWS rows, both halves: TF32 big in
-// place, small into `small` at the same index. The 128 threads of one
-// warpgroup (t128 its thread).
-template <int ROWS>
-__device__ __forceinline__ void split_rows(float* big, float* small, int r0, int t128) {
-#pragma unroll 2
-  for (int i = t128; i < 64 * HD / 4; i += 128) {
-    const int at = (i >> 9) * ROWS * 32 + r0 * 32 + (i & 511) * 4;
-    float4 b, s;
-    split4(*reinterpret_cast<const float4*>(big + at), b, s);
-    *reinterpret_cast<float4*>(big + at) = b;
-    *reinterpret_cast<float4*>(small + at) = s;
-  }
-}
-
-// A raw 32-row f32 stage (TMA's layout) into TF32 big and small copies in
-// the same layout and, unless tb is null, into a transposed [dim][row] tile
-// with the rows in tf32_perm order, big and small: both consumer warpgroups,
-// row `lane` and columns 8 warp .. 8 warp + 7 a thread (a warp's 32 lanes
-// reach 32 distinct banks in every store).
-__device__ __forceinline__ void split_stage(const float* raw, float* b, float* s, float* tb,
-                                            float* ts, int warp, int lane) {
-  const int col = tf32_perm(lane);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = 8 * warp + 4 * h, at = f32_at<32>(lane, c);
-    float4 xb, xs;
-    split4(*reinterpret_cast<const float4*>(raw + at), xb, xs);
-    *reinterpret_cast<float4*>(b + at) = xb;
-    *reinterpret_cast<float4*>(s + at) = xs;
-    if (tb != nullptr) {
-      const float eb[4] = {xb.x, xb.y, xb.z, xb.w}, es[4] = {xs.x, xs.y, xs.z, xs.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        tb[f32_at<64>(c + e, col)] = eb[e];
-        ts[f32_at<64>(c + e, col)] = es[e];
-      }
-    }
-  }
-}
-
-// Start D (64 x 32) = A B^T over the 64 dims, every k step as three TF32
-// products: A the warpgroup's 64 rows (shared addresses ab, as of its first
-// row, big and small) of a ROWS-row tile, B a 32-row tile (bb, bs), both
-// K-major. One wgmma group, which the caller commits.
-template <int ROWS>
-__device__ __forceinline__ void product_ss(float (&d)[4][4], uint32_t ab, uint32_t as,
-                                           uint32_t bb, uint32_t bs) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk) {
-    wgmma_tf32_ss_n32(d, desc_f32<ROWS>(as, kk), desc_f32<32>(bb, kk), kk);
-    wgmma_tf32_ss_n32(d, desc_f32<ROWS>(ab, kk), desc_f32<32>(bs, kk), 1);
-    wgmma_tf32_ss_n32(d, desc_f32<ROWS>(ab, kk), desc_f32<32>(bb, kk), 1);
-  }
-}
-
-// Start D (64 x 64) += A B over 32 k, every k step as three TF32 products:
-// A from registers in tf32_a_frag's order (big ab, small as), B a [64][32]
-// K-major tile with its k rows in tf32_perm order (bb, bs). One group.
-__device__ __forceinline__ void product_rs(float (&d)[8][4], const float (&ab)[4][4],
-                                           const float (&as)[4][4], uint32_t bb, uint32_t bs) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_tf32_rs_n64(d, as[kk], desc_f32<64>(bb, kk), 1);
-    wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bs, kk), 1);
-    wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bb, kk), 1);
-  }
-}
-
-// Start D (64 x 32) = A B^T over the 64 dims, every k step as three TF32
-// products: A from registers (load_a_f32's: big ab, small as), B a 32-row
-// K-major tile (bb, bs). One group.
-__device__ __forceinline__ void product_rs_n32(float (&d)[4][4], const float (&ab)[HD / 8][4],
-                                               const float (&as)[HD / 8][4], uint32_t bb,
-                                               uint32_t bs) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk) {
-    wgmma_tf32_rs_n32(d, as[kk], desc_f32<32>(bb, kk), kk);
-    wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bs, kk), 1);
-    wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bb, kk), 1);
-  }
-}
-
-template <class Shared>
-__device__ __forceinline__ Shared& aligned_smem(char* raw) {
-  return *reinterpret_cast<Shared*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-}
 
 // dk, dv of 128-key tiles in f32 (tile = bh * n_kt + key tile).
 __global__ void __launch_bounds__(BWD_THREADS, 1)
@@ -798,16 +696,16 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap map_q,
         const int bh = tile / n_kt, kt = tile % n_kt;
         mbar_wait(&s.kv_empty, (i & 1) ^ 1);
         mbar_expect_tx(&s.kv_full, 2 * FK_KEYS * HD * 4);
-        tma_load_f32<FK_KEYS>(s.k, &map_k, &s.kv_full, kt * FK_KEYS, bh);
-        tma_load_f32<FK_KEYS>(s.vb, &map_v, &s.kv_full, kt * FK_KEYS, bh);
+        tma_load_f32<FK_KEYS>(s.k, &map_k, &s.kv_full, 0, kt * FK_KEYS, bh);
+        tma_load_f32<FK_KEYS>(s.vb, &map_v, &s.kv_full, 0, kt * FK_KEYS, bh);
         const float* rl = lse2 + (size_t)bh * tp;
         const float* rd = dsum + (size_t)bh * tp;
         for (int qs = 0; qs < n_qs; ++qs, ++it) {
           const int st = it % FK_STAGES;
           mbar_wait(&s.empty[st], ((it / FK_STAGES) & 1) ^ 1);
           mbar_expect_tx(&s.full[st], 2 * FK_BQ * HD * 4 + 2 * FK_BQ * 4);
-          tma_load_f32<FK_BQ>(s.raw_q[st], &map_q, &s.full[st], qs * FK_BQ, bh);
-          tma_load_f32<FK_BQ>(s.raw_g[st], &map_do, &s.full[st], qs * FK_BQ, bh);
+          tma_load_f32<FK_BQ>(s.raw_q[st], &map_q, &s.full[st], 0, qs * FK_BQ, bh);
+          tma_load_f32<FK_BQ>(s.raw_g[st], &map_do, &s.full[st], 0, qs * FK_BQ, bh);
           bulk_load(s.lse[st], rl + qs * FK_BQ, FK_BQ * 4, &s.full[st]);
           bulk_load(s.dsum[st], rd + qs * FK_BQ, FK_BQ * 4, &s.full[st]);
         }
@@ -971,14 +869,14 @@ flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
         const int bh = tile / n_qt, q0 = (tile % n_qt) * FQ_ROWS;
         mbar_wait(&s.q_empty, (i & 1) ^ 1);
         mbar_expect_tx(&s.q_full, 2 * FQ_ROWS * HD * 4);
-        tma_load_f32<FQ_ROWS>(s.q, &map_q, &s.q_full, q0, bh);
-        tma_load_f32<FQ_ROWS>(s.gb, &map_do, &s.q_full, q0, bh);
+        tma_load_f32<FQ_ROWS>(s.q, &map_q, &s.q_full, 0, q0, bh);
+        tma_load_f32<FQ_ROWS>(s.gb, &map_do, &s.q_full, 0, q0, bh);
         for (int j = 0; j < n_kt; ++j, ++it) {
           const int st = it % FQ_STAGES;
           mbar_wait(&s.empty[st], ((it / FQ_STAGES) & 1) ^ 1);
           mbar_expect_tx(&s.full[st], 2 * FQ_BK * HD * 4);
-          tma_load_f32<FQ_BK>(s.raw_k[st], &map_k, &s.full[st], j * FQ_BK, bh);
-          tma_load_f32<FQ_BK>(s.raw_v[st], &map_v, &s.full[st], j * FQ_BK, bh);
+          tma_load_f32<FQ_BK>(s.raw_k[st], &map_k, &s.full[st], 0, j * FQ_BK, bh);
+          tma_load_f32<FQ_BK>(s.raw_v[st], &map_v, &s.full[st], 0, j * FQ_BK, bh);
         }
       }
     }

@@ -12,22 +12,23 @@
 // layout is only a matter of coordinates here: head h of pair h / 2, slot
 // h % 2 reads q at column (h / 2) * 384 + (h % 2) * 64 of each token row, k
 // at +128 and v at +256, and writes column h * 64 of (B, T, D), row stride
-// D. The online softmax is the TPU's exact softmax up to rounding (p
-// rounded to bf16 against the running max, the output divided by l =
+// D. The online softmax is the TPU's exact softmax up to rounding (bf16: p
+// rounded to bf16 against the running max; the output divided by l =
 // max(sum p, 1e-20) at the end). Invalid keys get -1e9 on the f32 scores.
 //
 // Bound on the card: at the ViT-S/16 LOST shape (B = 128, T = 896, 6 heads
 // of 64) the work is 157.8 GFLOP on 352 MB of I/O in bf16, so operations
-// bound it (0.160 ms at 989 TFLOP/s); the f32 instance (FMA only, no TF32)
-// by the 67 TFLOP/s of the f32 pipes (2.356 ms).
+// bound it (0.160 ms at 989 TFLOP/s); the f32 instance runs every product
+// as three TF32 products, bound at 3 x 157.8 GFLOP over 494.7 TFLOP/s
+// (0.957 ms; 2.356 ms on the FMA pipes).
 //
-// bf16: the Hopper tile of attention_tile.cuh on one 3-D tensor map over
-// (B, T, 3D), row stride 3D, the head's column a coordinate: each head's row
-// is 128 contiguous, 128-byte aligned bytes, exactly one swizzled TMA row,
-// so the strided layout costs the producer nothing. TMA, a K/V ring, a
+// Both instances: the Hopper tiles of attention_tile.cuh, with the shapes
+// of flash_attention_fwd.cu, on one 3-D tensor map over (B, T, 3D), row
+// stride 3D, the head's column a coordinate: each head's row is 64
+// contiguous elements (bf16: one 128-byte swizzled TMA row; f32: two), so
+// the strided layout costs the producer nothing. TMA, a K/V ring, a
 // producer thread and wgmma feed the tensor cores as in
-// flash_attention_fwd.cu, with the same tile shape. f32: the FMA
-// tile, one block per (b, head, 64-query tile).
+// flash_attention_fwd.cu.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -40,32 +41,19 @@ namespace {
 
 using attn_tile::bf16;
 using attn_tile::HD;
-constexpr int F32_BQ = attn_tile::F32_BQ;
 constexpr int PACK = 128 / HD;  // heads per 128-column stripe
 
 // Column of head h's q in a token row (k at +128, v at +256).
 __host__ __device__ inline int q_column(int h) { return (h / PACK) * 3 * 128 + (h % PACK) * HD; }
 
-__global__ void __launch_bounds__(attn_tile::F32_THREADS)
-flash_attention_packed_f32(const float* __restrict__ qkv, const uint8_t* __restrict__ valid,
-                           float* __restrict__ o, int heads, int t, float scale) {
-  extern __shared__ __align__(16) char smem[];
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int d = heads * HD;
-  const int ld = 3 * d;
-  const float* qh = qkv + (size_t)b * t * ld + q_column(h);
-  attn_tile::fwd_f32(qh, qh + 128, qh + 256, ld, valid ? valid + (size_t)b * t : nullptr,
-                     o + (size_t)b * t * d + h * HD, d, nullptr, t, scale, blockIdx.y * F32_BQ,
-                     smem);
-}
-
 // Head bh = b * heads + h: z = b, the head's stripe columns, column h * 64 of
-// its image's output rows, no lse.
+// its image's output rows (T: their element type), no lse.
+template <class T>
 struct PackedLayout {
-  bf16* o;
+  T* o;
   const uint8_t* valid;
   int heads, t;
-  __device__ attn_tile::hopper::HeadView head(int bh) const {
+  __device__ attn_tile::hopper::HeadViewOf<T> head(int bh) const {
     const int b = bh / heads, h = bh % heads, d = heads * HD, qc = q_column(h);
     return {b, qc, qc + 128, qc + 256, o + (size_t)b * t * d + h * HD, d, nullptr,
             valid ? valid + (size_t)b * t : nullptr};
@@ -84,19 +72,19 @@ extern "C" int vipers_flash_attention_packed(const void* qkv, const uint8_t* val
   if (head_dim != HD || batch <= 0 || heads <= 0 || heads % PACK || t <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long ld = 3LL * heads * HD;
   if (dtype == 0) {
-    if ((t + F32_BQ - 1) / F32_BQ > 65535) return (int)cudaErrorInvalidValue;
-    const int smem = (int)sizeof(attn_tile::F32Smem);
-    cudaError_t err = cudaFuncSetAttribute(flash_attention_packed_f32,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_packed_f32<<<dim3(batch * heads, (t + F32_BQ - 1) / F32_BQ),
-                                 attn_tile::F32_THREADS, smem, st>>>(
-        static_cast<const float*>(qkv), valid, static_cast<float*>(o), heads, t, scale);
-    return (int)cudaGetLastError();
+    auto maps = [=](CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv) {
+      using namespace attn_tile::hopper;
+      int err = encode_map_f32(mq, qkv, ld, t, batch, ld, ld * t, F32_BQ);
+      if (err == 0) err = encode_map_f32(mk, qkv, ld, t, batch, ld, ld * t, F32_BK);
+      *mv = *mk;
+      return err;
+    };
+    const PackedLayout<float> lay{static_cast<float*>(o), valid, heads, t};
+    return attn_tile::hopper::launch_f32(maps, lay, batch * heads, t, scale, st);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const long long ld = 3LL * heads * HD;
   auto maps = [=](CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv) {
     using namespace attn_tile::hopper;
     int err = encode_map(mq, qkv, ld, t, batch, ld, ld * t, BQ);
@@ -104,6 +92,6 @@ extern "C" int vipers_flash_attention_packed(const void* qkv, const uint8_t* val
     *mv = *mk;
     return err;
   };
-  const PackedLayout lay{static_cast<bf16*>(o), valid, heads, t};
+  const PackedLayout<bf16> lay{static_cast<bf16*>(o), valid, heads, t};
   return attn_tile::hopper::launch_bf16(maps, lay, batch * heads, t, scale, st);
 }

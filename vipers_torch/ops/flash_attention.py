@@ -4,14 +4,16 @@ Kernel: ``vipers_torch/csrc/flash_attention_fwd.cu``, hand-written CUDA for
 ``sm_90a``. It replaces the TPU's ``_fwd_kernel`` (``_flash_fwd``) and the
 library Pallas kernel behind ``flash_attention_official``, which the TPU
 build ran at T >= 512. K/V stream past a block of queries with an f32
-online softmax; pad keys get -1e9 on the f32 scores. The f32 instance runs
-on plain FMA (no TF32). The bf16 instance is Hopper's: TMA loads of query
-and K/V tiles into a ring of shared-memory stages, mbarriers, a producer
-warp, ``wgmma`` for both products (``csrc/attention_tile.cuh``; its shape
-in ``tile_shape``). TMA needs 16-byte-aligned base pointers, so the
-wrappers raise on a CUDA tensor that is not. At the ViT-S/16 LOST shape
-the bf16 instance is bound by its operations (158 GFLOP against 352 MB of
-I/O).
+online softmax; pad keys get -1e9 on the f32 scores. Both instances are
+Hopper's: TMA loads of query and K/V tiles into a ring of shared-memory
+stages, mbarriers, a producer warp, ``wgmma`` for both products
+(``csrc/attention_tile.cuh``; each instance's shape in ``tile_shape``).
+The f32 instance runs every product as three TF32 products on the tensor
+cores (3xTF32: x = big + small, small.big + big.small + big.big), within
+1e-5 / 1e-4 of the exact-f32 plain version. TMA needs 16-byte-aligned base
+pointers, so the wrappers raise on a CUDA tensor that is not. At the
+ViT-S/16 LOST shape both instances are bound by their operations (158
+GFLOP, three times over in f32, against 352 MB of bf16 I/O).
 
 ``flash_attention_fwd`` launches the kernel for CUDA tensors and runs the
 plain version, ``flash_attention_plain``, for CPU tensors; a build or
@@ -146,18 +148,22 @@ def _lib():
     return fn
 
 
-def tile_shape() -> dict:
-    """The bf16 tile's query rows, key-tile width and K/V ring stages, as
-    compiled into the kernels (``attn_tile::hopper``). Builds the flash
-    library if needed."""
+def tile_shape(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The forward tile of the ``dtype`` instance as compiled into the flash
+    and packed kernels (``attn_tile::hopper``): query rows, keys a K/V tile
+    (bf16) or stage (f32) and K/V ring stages; for f32 also the stages of
+    split K/V copies and the TF32 products an f32 product takes. Builds the
+    flash library if needed."""
     fn = _build.load("flash_attention_fwd").vipers_flash_attention_tile
     if fn.argtypes is None:
-        pi = ctypes.POINTER(ctypes.c_int)
-        fn.argtypes = [pi, pi, pi]
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = None
-    vals = [ctypes.c_int() for _ in range(3)]
-    fn(*map(ctypes.byref, vals))
-    return dict(zip(("block_q", "block_k", "stages"), (v.value for v in vals)))
+    vals = (ctypes.c_int * 5)()
+    fn(_DTYPE_CODE[dtype], vals)
+    keys = ("block_q", "block_k", "stages")
+    if dtype == torch.float32:
+        keys += ("split_stages", "tf32_products")
+    return dict(zip(keys, vals))
 
 
 def _check_aligned(*tensors):
