@@ -43,25 +43,40 @@ Phases (any failure exits non-zero; nothing is caught):
      forward (and 12 fused MLP in bf16), f32 features within 2e-4 of the
      default route's scale with equal boxes; bf16 img/s and p50 of both
      routes on both buckets;
-  6. train path: the masked bf16 train step of full-width ViT-S/16 at
+  6. JPEG -> boxes -> CorLoc: ``vipers_torch.cli.main lost`` in this
+     process on a VOC07-layout tree of symlinks to the committed fixture
+     (``tests/data/torch_voc``), with a full-width ViT-S/16 (seed 0, 50%
+     global magnitude mask) written as a reference .pth in the
+     weight_orig/weight_mask form, B=128, 8 decode threads: bf16 on 1024
+     images, f32 on 256, bf16 on 256 under ``VIPERS_PACKED_ATTENTION=1``;
+     preds.pkl one entry per image not reported as a seed-in-background
+     failure, the results txt equal to ``corloc`` re-scoring, 12 attention
+     and (bf16) 12 fused-MLP launches per batch, tail batches included, the
+     first batch's boxes equal to ``make_batched_pipeline`` on the same
+     decoded uint8 batch; e2e img/s (first decode to preds.pkl), the
+     decode-only rate on 8 threads and on 1, the CPU count and the decoder
+     (libjpeg or PIL). With
+     neither libjpeg nor PIL on the host the phase says so and is skipped;
+  7. train path: the masked bf16 train step of full-width ViT-S/16 at
      224x224 (T=197 seq-padded to 256), 1000 classes, SGD momentum with a
      cosine LR, uint8 images normalized on the card: 12 forward and 12
      backward launches of the training attention kernels per step, finite
      losses, pruned slots unchanged, img/s at B=128, card vs CPU at B=4,
      one LRR round;
-  7. flash train path: the same step at 384x384 (T=577 seq-padded to 640,
+  8. flash train path: the same step at 384x384 (T=577 seq-padded to 640,
      at least ``flash_min_t()``): 12 flash forward and 12 flash backward
      launches per step and none of the training kernels, finite losses,
      pruned slots unchanged, img/s at B=128, card vs CPU at B=2 (f32 params
      after 2 steps through the f32 flash kernels, counted; bf16 loss and
      gradients);
-  8. the A/B tools at their shapes: ``vipers_torch.tools.bench_softmax_prec``
+  9. the A/B tools at their shapes: ``vipers_torch.tools.bench_softmax_prec``
      (the softmax-precision variants), ``vipers_torch.tools.bench_splash``
      (the splash instances against the flash kernel) and
      ``vipers_torch.tools.bench_fused_mlp`` (the fused MLP against the
      layer_norm -> linear -> GELU sequence), their lines printed.
 Each path's launch counts are set to 0 just before it and read just after.
-The line before the last is a JSON object listing the kernels; the last is
+The line before the last is a JSON object listing the kernels (the rows
+phase 6 drove also carry its launches as ``cli_launches``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -85,6 +100,8 @@ PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
 PEAK_TF32 = 494.7e12  # TF32 tensor cores, dense: the f32 flash kernels' 3xTF32 products
 TRAIN_HW, TRAIN_BATCH = 224, 128
 TRAIN_HW_FLASH = 384  # the ViT/DeiT fine-tuning resolution: T = 577 takes flash
+N_JPEG, N_JPEG_SHORT = 1024, 256  # JPEG -> CorLoc runs: bf16, then f32 and packed bf16
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -757,6 +774,221 @@ def packed_lost_phase(card, spec, extractors, buckets, default_outs, lost_core):
     return launches
 
 
+def voc_tree(root, n, seed):
+    """A VOC07-layout tree of ``n`` images under ``root`` from the committed
+    fixture: ``JPEGImages/`` as symlinks to fixture JPEGs drawn from
+    ``seed``, ``Annotations/`` and ``ImageSets/Main/trainval.txt`` written as
+    text (no PIL needed). Returns [(name, (w, h))] in dataset order."""
+    import xml.etree.ElementTree as ET
+
+    fixture = os.path.join(REPO, "tests", "data", "torch_voc")
+    stems = sorted(f[:-4] for f in os.listdir(os.path.join(fixture, "JPEGImages")))
+    xml = {s_: open(os.path.join(fixture, "Annotations", f"{s_}.xml")).read() for s_ in stems}
+    dims = {s_: (int(ET.fromstring(x).find("size/width").text),
+                 int(ET.fromstring(x).find("size/height").text)) for s_, x in xml.items()}
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    picks = np.random.default_rng(seed).integers(0, len(stems), n)
+    items = []
+    for i, k in enumerate(picks):
+        name, stem = f"{i:06d}", stems[k]
+        os.symlink(os.path.join(fixture, "JPEGImages", f"{stem}.jpg"),
+                   os.path.join(root, "JPEGImages", f"{name}.jpg"))
+        with open(os.path.join(root, "Annotations", f"{name}.xml"), "w") as f:
+            f.write(xml[stem].replace(f"{stem}.jpg", f"{name}.jpg"))
+        items.append((name, dims[stem]))
+    with open(os.path.join(root, "ImageSets", "Main", "trainval.txt"), "w") as f:
+        f.write("".join(f"{name}\n" for name, _ in items))
+    return items
+
+
+def bucket_of(w, h):
+    """The driver's bucket for a w x h image (tier-1 pad, then 4 patches)."""
+    from vipers_torch.data.preprocess import bucket_hw
+
+    return bucket_hw(-(-h // PATCH) * PATCH, -(-w // PATCH) * PATCH, PATCH, 4)
+
+
+def first_batch(items, batch):
+    """The images of the driver's first batch: the first bucket to fill up
+    in dataset order, else the smallest bucket key at the end."""
+    buffers = {}
+    for name, (w, h) in items:
+        key = bucket_of(w, h)
+        buffers.setdefault(key, []).append(name)
+        if len(buffers[key]) == batch:
+            return buffers[key]
+    return buffers[sorted(buffers)[0]]
+
+
+def jpeg_lost_phase(card, counters):
+    """``vipers_torch lost`` from JPEGs to CorLoc, in this process: a
+    full-width ViT-S/16 (seed 0, 224x224 pos table, 50% global magnitude
+    mask) written as a reference .pth, pruned layers as weight_orig /
+    weight_mask; runs at B=128, 8 decode threads: bf16 on 1024 images, f32
+    on 256, bf16 on 256 under VIPERS_PACKED_ATTENTION=1. Checks preds.pkl
+    (one entry per image not reported as a seed-in-background failure), the
+    results txt against ``vipers_torch corloc``, 12 attention and (bf16) 12
+    fused-MLP launches per batch, and the first batch's boxes against
+    ``make_batched_pipeline`` on the same decoded uint8 batch. Prints e2e
+    img/s (first decode to preds.pkl), the decode-only rate of the thread
+    pool (and of one thread), the CPU count and the decoder. Returns each
+    run's launches."""
+    import contextlib
+    import io
+    import pickle
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import export_vit_torchvision, save_torch_state_dict
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data import native
+    from vipers_torch.data.detection import DiscoveryDataset
+    from vipers_torch.discovery import driver as drv
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    if not native.available():
+        # only a missing libjpeg lets the phase go on (with PIL) or skip
+        err = native.build_error() or ""
+        why = [ln for ln in err.splitlines()
+               if any(k in ln for k in ("jpeglib.h", "-ljpeg", "libjpeg.so"))]
+        if not why:
+            raise RuntimeError(f"the JPEG decoder did not build: {err}")
+        why = why[0]
+        if not native.pil_available():
+            print(f"JPEG -> boxes -> CorLoc: no libjpeg ({why}) and no PIL: phase skipped")
+            return None
+        print(f"JPEG -> boxes -> CorLoc: no libjpeg ({why}); decoding with PIL")
+    root = tempfile.mkdtemp(prefix="vipers_torch_voc_")
+    try:
+        items = voc_tree(os.path.join(root, "VOC2007"), N_JPEG, seed=3)
+        data = os.path.join(root, "VOC2007")
+        with open(os.path.join(data, "ImageSets", "Main", "first256.txt"), "w") as f:
+            f.write("".join(f"{name}\n" for name, _ in items[:N_JPEG_SHORT]))
+        spec = build_model("vit_s_16")
+        params = spec.init(torch.Generator().manual_seed(0))
+        masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
+                                amount=SPARSITY)
+        pth = os.path.join(root, "vit_s_16_pruned.pth")
+        save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), pth)
+
+        ds = DiscoveryDataset("VOC07", "trainval", data)
+        for workers in (1, 8):  # 8: the runs' pool; 1: what a thread does alone
+            t0 = time.perf_counter()
+            n_dec = sum(1 for _ in drv._prefetch_decoded(ds, PATCH, False, workers=workers,
+                                                          as_uint8=True))
+            dec_ips = n_dec / (time.perf_counter() - t0)
+            print(f"decode only: {n_dec} JPEGs with their GT in {n_dec / dec_ips:.3f} s, "
+                  f"{dec_ips:.1f} img/s on {workers} thread(s); os.cpu_count() "
+                  f"{os.cpu_count()}; decoder {native.backend()}")
+
+        runs = {}
+        layers = spec.cfg.num_layers
+        for tag, dtype, set_name, n, packed in (("bf16", "bf16", "trainval", N_JPEG, False),
+                                                ("f32", "f32", "first256", N_JPEG_SHORT, False),
+                                                ("bf16 packed", "bf16", "first256",
+                                                 N_JPEG_SHORT, True)):
+            out = os.path.join(root, tag.replace(" ", "_"))
+            run_items = items[:n]
+            counts = {}
+            for _, (w, h) in run_items:
+                counts[bucket_of(w, h)] = counts.get(bucket_of(w, h), 0) + 1
+            batches = sum(-(-c // BATCH) for c in counts.values())
+            if packed:
+                os.environ["VIPERS_PACKED_ATTENTION"] = "1"
+            try:
+                torch.cuda.synchronize()
+                reset_counts(*counters)
+                cli(["lost", "--model", "vit_s_16", "--arch", "vit", "--dataset", "VOC07",
+                     "--set", set_name, "--data-path", data, "--checkpoint", pth,
+                     "--dtype", dtype, "--batch-size", str(BATCH), "--workers", "8",
+                     "--output-dir", out, "--device", "cuda"])
+                torch.cuda.synchronize()
+                run = dict(drv.LAST_RUN)
+                got = {"flash": fa.LAUNCHES["float32" if dtype == "f32" else "bfloat16"],
+                       "packed": fa.PACKED_LAUNCHES["bfloat16"],
+                       "fused_mlp": fm.LAUNCHES["bfloat16"],
+                       "other": (sum(at.LAUNCHES.values()) + sum(fa.BWD_LAUNCHES.values())
+                                 + fa.LAUNCHES["bfloat16" if dtype == "f32" else "float32"]
+                                 + fa.PACKED_LAUNCHES["float32"])}
+                want = {"flash": 0 if packed else layers * batches,
+                        "packed": layers * batches if packed else 0,
+                        "fused_mlp": layers * batches if dtype == "bf16" else 0, "other": 0}
+                print(f"JPEG LOST [{tag}] {n} images, {batches} batches of {BATCH}: launches "
+                      f"{got}")
+                assert got == want, (got, want)
+                assert run["images"] == n and run["batches"] == batches, (run, n, batches)
+                check_first_batch(tag, pth, data, run_items, out, run["failed"], dtype)
+            finally:
+                if packed:
+                    del os.environ["VIPERS_PACKED_ATTENTION"]
+            with open(os.path.join(out, "preds.pkl"), "rb") as f:
+                preds = pickle.load(f)
+            assert sorted(preds) == sorted({f"{nm}.jpg" for nm, _ in run_items}
+                                           - set(run["failed"])), tag
+            assert all(len(b) == 4 and all(np.isfinite(b)) for b in preds.values())
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli(["corloc", "--preds", os.path.join(out, "preds.pkl"), "--dataset", "VOC07",
+                     "--set", set_name, "--data-path", data])
+            rescored = [ln for ln in buf.getvalue().splitlines() if ln.startswith("corloc:")]
+            with open(os.path.join(out, "results_iteration_00.txt")) as f:
+                txt = f.read()
+            assert len(rescored) == 1 and txt == f"corloc,{float(rescored[0].split()[1]):.1f},,\n", \
+                (txt, rescored)
+            ips = n / run["decode_to_preds_seconds"]
+            print(f"JPEG LOST [{tag}] e2e {ips:.1f} img/s ({n} images, first decode to "
+                  f"preds.pkl {run['decode_to_preds_seconds']:.3f} s; {run['seconds']:.3f} s "
+                  f"with the model load); seed in background {len(run['failed'])}; re-scored "
+                  f"{rescored[0]}, results txt {txt.strip()}; decode only {dec_ips:.1f} img/s; "
+                  f"{os.cpu_count()} CPUs; decoder {run['decoder']} ({card})")
+            runs[tag] = {**got, "batches": batches, "e2e_img_per_s": ips}
+        return runs
+    finally:
+        shutil.rmtree(root)
+
+
+def check_first_batch(tag, pth, data, items, out, failed, dtype):
+    """The boxes of the run's first batch against ``make_batched_pipeline``
+    on the same decoded uint8 batch, with the model loaded as the CLI loads
+    it: equal wherever the seed is not in the background."""
+    import pickle
+
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data import native
+    from vipers_torch.discovery.driver import LostFeatureExtractor, load_lost_checkpoint
+    from vipers_torch.discovery.lost import box_feat_to_image
+
+    names = first_batch(items, BATCH)
+    spec = build_model("vit_s_16")  # 1000 classes at 224x224, as the checkpoint
+    params, masks = load_lost_checkpoint(pth, spec)
+    ex = LostFeatureExtractor(spec, params, masks, device="cuda",
+                              compute_dtype=torch.bfloat16 if dtype == "bf16" else None)
+    dec = [native.decode_pad(os.path.join(data, "JPEGImages", f"{n}.jpg"), PATCH) for n in names]
+    imgs = [d[0] for d in dec] + [dec[-1][0]] * (BATCH - len(dec))
+    hw = [d[1] for d in dec] + [dec[-1][1]] * (BATCH - len(dec))
+    box, _seed, bg = (z.cpu().numpy() for z in
+                      ex.make_batched_pipeline(K_PATCHES)(*ex.prepare_batch(imgs, PATCH,
+                                                                            exact_hw=hw)))
+    with open(os.path.join(out, "preds.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    same = 0
+    for i, n in enumerate(names):
+        im = f"{n}.jpg"
+        assert bool(bg[i]) == (im in failed), (tag, im)
+        if not bg[i]:
+            want = box_feat_to_image(box[i], [PATCH, PATCH], (3, *hw[i])).tolist()
+            assert preds[im] == want, (tag, im, preds[im], want)
+            same += 1
+    print(f"JPEG LOST [{tag}] first batch ({len(names)} images): {same} boxes equal to "
+          f"make_batched_pipeline's on the same uint8 batch, {len(names) - same} seeds in "
+          f"the background")
+
+
 def tools_phase(counters):
     """The A/B tools' ``main()`` at their shapes, each with the launch
     counts set to 0 just before it and read just after."""
@@ -1059,18 +1291,29 @@ def main():
     launches.update(packed_lost_phase(card, spec, extractors, buckets, outs["f32", "mixed"],
                                       lost_core))
 
-    # 6. train path at 224x224: the training attention kernels
+    # 6. JPEG -> boxes -> CorLoc through the CLI
+    jpeg = jpeg_lost_phase(card, counters)
+
+    # 7. train path at 224x224: the training attention kernels
     tl = train_phase(card, counters, TRAIN_HW, N_CPU, lrr=True)
     launches.update({k: tl[k] for k in ("attention_train_fwd[bf16]", "attention_train_bwd[bf16]")})
 
-    # 7. train path at 384x384: the flash forward and backward kernels
+    # 8. train path at 384x384: the flash forward and backward kernels
     tl = train_phase(card, counters, TRAIN_HW_FLASH, 2, lrr=False)
     launches.update({k: tl[k] for k in ("flash_attention_bwd[f32]", "flash_attention_bwd[bf16]")})
 
-    # 8. the A/B tools
+    # 9. the A/B tools
     launches.update(tools_phase(counters))
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove
+        for k in kernels:
+            cli = {"flash_attention_fwd[bf16]": ("bf16", "flash"),
+                   "flash_attention_fwd[f32]": ("f32", "flash"),
+                   "flash_attention_packed[bf16]": ("bf16 packed", "packed"),
+                   "fused_ln_fc1_gelu[bf16]": ("bf16", "fused_mlp")}.get(k["name"])
+            if cli:
+                k["cli_launches"] = jpeg[cli[0]][cli[1]]
 
     print(f"chip_smoke total {time.time() - t_start:.1f} s")
     print(card)

@@ -102,10 +102,11 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     assert tfa.LAUNCHES == before
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "mask"])
+@pytest.mark.parametrize("bad", ["dtype", "mask"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    hd = 32 if bad == "head_dim" else 64
-    q, k, v = map(torch.from_numpy, _rand(1, 2, 16, hd, seed=8))
+    """Head dims other than 64 are refused on the card only
+    (``test_torch_kernels_cuda.py``): the plain version takes any."""
+    q, k, v = map(torch.from_numpy, _rand(1, 2, 16, 64, seed=8))
     valid = torch.ones(1, 16, dtype=torch.bool)
     if bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
@@ -113,6 +114,28 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         valid = torch.ones(1, 15, dtype=torch.bool)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q, k, v, valid)
+
+
+@pytest.mark.parametrize("hd", [32, 80])
+def test_wrapper_at_other_head_dims_matches_jax(hd):
+    """CPU tensors at head dims the card's kernel does not take run the plain
+    version, which matches the JAX package's ``flash_attention`` (its einsum
+    fallback off the TPU) at the einsum tolerance on the valid query rows, and
+    its Pallas kernel in interpret mode, pad rows and lse included."""
+    q, k, v = _rand(2, 2, 256, hd, seed=hd)
+    valid = _valid(2, 256, seed=hd + 1)
+    scale = hd ** -0.5
+    got_o, got_lse = tfa.flash_attention_fwd(
+        *map(torch.from_numpy, (q, k, v)), torch.from_numpy(valid), scale)
+    want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), valid=jnp.asarray(valid))
+    for b in range(2):
+        np.testing.assert_allclose(got_o[b][:, valid[b]].numpy(),
+                                   np.asarray(want)[b][:, valid[b]], atol=1e-5, rtol=1e-4)
+    with pltpu.force_tpu_interpret_mode():
+        want_o, want_lse = jfa._flash_fwd(*map(jnp.asarray, (q, k, v)),
+                                          jnp.asarray(valid), scale, 128, 128)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=2e-5, rtol=1e-3)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=1e-4, rtol=1e-4)
 
 
 def test_alignment_check_rejects_an_offset_view():

@@ -89,6 +89,32 @@ def test_plain_backward_matches_library_oracle(t):
         np.testing.assert_allclose(a.numpy(), np.asarray(c), atol=2e-5, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("hd", [32, 80])
+def test_backward_at_other_head_dims_matches_library_oracle(hd):
+    """The wrapper on CPU tensors at head dims the card's kernel does not
+    take: the plain backward against ``jax.grad`` of the library's reference
+    with segment ids, pad-query cotangents zeroed, at atol 2e-5."""
+    rng = np.random.default_rng(hd)
+    q, k, v, cot = (rng.normal(size=(2, 2, 72, hd)).astype(np.float32) for _ in range(4))
+    valid = rng.random((2, 72)) > 0.2
+    valid[:, 0] = True
+    cot = cot * valid[:, None, :, None]
+    scale = hd ** -0.5
+    out, lse = tfa.flash_attention_plain(*map(torch.from_numpy, (q, k, v, valid)), scale=scale)
+    seg = jfa.valid_to_segment_ids(jnp.asarray(valid))
+
+    def loss(q, k, v):
+        o = ofa.mha_reference_no_custom_vjp(q, k, v, segment_ids=seg, sm_scale=scale)
+        return jnp.sum(o * jnp.asarray(cot))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = tfa.flash_attention_bwd(*map(torch.from_numpy, (q, k, v, valid)), out, lse,
+                                  torch.from_numpy(cot), scale)
+    for name, a, c in zip("qkv", got, want):
+        assert a.shape[-1] == hd
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), atol=2e-5, err_msg=f"d{name}")
+
+
 def test_plain_backward_all_invalid_image_matches_jax_vjp():
     """With cotangents on every row and one image whose keys are all invalid
     (its lse rounds to -1e9, so p = 1 on each of its t keys), the plain
@@ -127,10 +153,7 @@ def _bad(case):
     q, k, v, cot, valid = (torch.from_numpy(z) for z in _inputs(2, 2, 16, seed=9))
     out, lse = (torch.from_numpy(z) for z in _residuals(*(z.numpy() for z in (q, k, v, valid))))
     args = dict(q=q, k=k, v=v, valid=valid, out=out, lse=lse, g=cot)
-    if case == "head-dim":
-        for name in ("q", "k", "v", "out", "g"):
-            args[name] = args[name][..., :32]
-    elif case == "mixed-dtype":
+    if case == "mixed-dtype":
         args["g"] = cot.to(torch.bfloat16)
     elif case == "out-shape":
         args["out"] = out[:, :, :8]
@@ -143,9 +166,11 @@ def _bad(case):
     return args
 
 
-@pytest.mark.parametrize("case", ["head-dim", "mixed-dtype", "out-shape", "kv-shape",
+@pytest.mark.parametrize("case", ["mixed-dtype", "out-shape", "kv-shape",
                                   "lse-shape", "lse-dtype"])
 def test_backward_rejects_what_the_kernel_does_not_take(case):
+    """Head dims other than 64 are refused on the card only
+    (``test_torch_kernels_cuda.py``): the plain version takes any."""
     args = _bad(case)
     with pytest.raises(ValueError):
         tfa.flash_attention_bwd(args["q"], args["k"], args["v"], args["valid"], args["out"],

@@ -217,3 +217,48 @@ def test_port_tool_runs_on_the_cpu(capsys):
     assert lines[0] == "cpu (plain versions)"
     assert [ln.split()[0] for ln in lines[1:]] == ["seq", "fused"]
     assert set(res["ms"]) == {"seq", "fused"} and all(v > 0 for v in res["ms"].values())
+
+
+def test_vit_at_widths_outside_the_kernel_matches_jax_bf16():
+    """A ViT whose widths the card's kernel does not take (D = 96, F = 192)
+    in bf16 inference on 128 images (640 rows, so the block rule accepts the
+    call): on the CPU the gate lets the call through to the plain version,
+    which takes any width, and the output matches ``vipers.models.vit`` at
+    0.05 of the output scale (the bf16 tolerance of tests/test_fused_mlp.py)."""
+    import jax
+
+    import vipers.models.vit as jvit
+    from vipers_torch.core.checkpoint import vit_state_dict_from_flax
+
+    cfg = dict(patch_size=16, num_layers=1, num_heads=2, hidden_dim=96, mlp_dim=192,
+               num_classes=0)
+    jspec = jvit._build("tiny", jvit.ViTConfig(**cfg), (32, 32))
+    x = np.random.default_rng(5).normal(size=(128, 32, 32, 3)).astype(np.float32)
+    v = jspec.module.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]), train=False)
+    vb = jax.tree.map(lambda a: a.astype(jnp.bfloat16), v)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want, jaux = jspec.module.apply(vb, xb, train=False, need_attn=False)
+
+    model = tvit._build("tiny", tvit.ViTConfig(**cfg), (32, 32)).module()
+    model.load_state_dict(vit_state_dict_from_flax(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), v["params"])))
+    model = model.eval().to(torch.bfloat16)
+    calls = {"n": 0}
+    orig = tfm.fused_ln_dense_gelu_core
+
+    def spy(*a, **k):
+        calls["n"] += 1
+        return orig(*a, **k)
+
+    tfm.fused_ln_dense_gelu_core = spy
+    try:
+        with torch.no_grad():
+            got, aux = model(torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16(),
+                             need_attn=False)
+    finally:
+        tfm.fused_ln_dense_gelu_core = orig
+    assert calls["n"] == 1, "the gate did not let the call through on the CPU"
+    for a, c in ((got, want), (aux["cls"], jaux["cls"])):
+        a, c = a.float().numpy(), np.asarray(c.astype(jnp.float32))
+        assert a.shape == c.shape
+        assert np.abs(a - c).max() < 0.05 * max(np.abs(c).max(), 1.0)

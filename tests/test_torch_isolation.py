@@ -76,3 +76,8 @@ def test_default_device_raises_without_a_card():
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    from vipers_torch.cli.main import main
+
+    data = str(REPO / "tests" / "data" / "torch_voc")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["lost", "--data-path", data, "--output-dir", "unused"])

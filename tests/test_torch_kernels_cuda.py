@@ -208,8 +208,38 @@ def test_fused_mlp_design_and_rejection(cuda):
     assert tfm.design(1664) == {"rows": 64, "block_n": 128, "stages": 1, "staged": 0}
     assert tfm.design(1728)["rows"] == 0
     x, w_t, b = _fused_mlp_inputs(64, 1728, 128, cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
+    with pytest.raises(ValueError, match="instance that fits D"):
         tfm.fused_ln_dense_gelu_core(x, w_t, b)
+
+
+@pytest.mark.parametrize("d,f", [(96, 192), (384, 200), (1728, 6912)])
+def test_fused_mlp_refuses_widths_outside_the_kernel_on_the_card(cuda, d, f):
+    """The gate sets no width condition, as in the JAX package; on the card
+    the wrapper refuses a width its kernel does not take, and launches
+    nothing, while the same call on CPU tensors takes the plain version."""
+    x = torch.zeros(128, d, dtype=torch.bfloat16, device=cuda)
+    w_t = torch.zeros(f, d, dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros(f, device=cuda)
+    assert tfm.fused_supported(x) and tfm.fused_supported(x.cpu())
+    before = tfm.LAUNCHES["bfloat16"]
+    with pytest.raises(ValueError, match="fused MLP kernel needs"):
+        tfm.fused_ln_dense_gelu_core(x, w_t, b)
+    assert tfm.LAUNCHES["bfloat16"] == before
+    assert tfm.fused_ln_dense_gelu_core(x.cpu(), w_t.cpu(), b.cpu()).shape == (128, f)
+
+
+@pytest.mark.parametrize("hd", [32, 80])
+def test_flash_wrappers_reject_other_head_dims_on_the_card(cuda, hd):
+    """The flash forward and backward kernels take head dim 64 only (the
+    plain versions on CPU tensors take any)."""
+    q, k, v = (z[..., :1].expand(-1, -1, -1, hd).contiguous()
+               for z in _qkv(1, 2, 16, torch.float32, cuda, seed=hd))
+    valid = torch.ones(1, 16, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="head dim 64"):
+        tfa.flash_attention_fwd(q, k, v, valid)
+    lse = torch.zeros(1, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="head dim 64"):
+        tfa.flash_attention_bwd(q, k, v, valid, q, lse, q, hd ** -0.5)
 
 
 def _attention_train_inputs(b, h, t, dev, seed, all_invalid=False):

@@ -140,3 +140,25 @@ def test_pad_and_unpad_tokens_equal():
     for a, b in zip(got, want):
         np.testing.assert_array_equal(_np(a), np.asarray(b))
     assert ttok.round_up(769, 128) == jtok.round_up(769, 128) == 896
+
+
+def test_forward_at_head_dim_80_on_the_flash_route_matches_jax():
+    """hd 80 (D = 160, 2 heads) at 384x512 (T = 769, at least the flash
+    threshold), f32, no attention probs: the flash route's plain version
+    takes any head dim on the CPU, and the logits and the last ln_1 output
+    match ``vipers.models.vit`` at 1e-4."""
+    cfg = dict(patch_size=16, num_layers=1, num_heads=2, hidden_dim=160, mlp_dim=320,
+               num_classes=0)
+    image = (384, 512)
+    jspec = jvit._build("tiny", jvit.ViTConfig(**cfg), image)
+    x = np.random.default_rng(3).normal(size=(1, *image, 3)).astype(np.float32)
+    variables = jspec.module.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    want, jaux = jspec.module.apply(variables, jnp.asarray(x), train=False, need_attn=False)
+    model = tvit._build("tiny", tvit.ViTConfig(**cfg), image).module()
+    model.load_state_dict(vit_state_dict_from_flax(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), variables["params"])))
+    with torch.no_grad():
+        got, aux = model.eval()(torch.from_numpy(x), need_attn=False)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(aux["qkv_input"]), np.asarray(jaux["qkv_input"]),
+                               rtol=1e-4, atol=1e-4)

@@ -1,0 +1,145 @@
+"""The port's command line (the ``lost`` and ``corloc`` subcommands of
+``vipers/cli/main.py``, with the same flags and defaults)::
+
+    python -m vipers_torch.cli.main lost --model vit_s_16 --arch vit \
+        --dataset VOC07 --data-path VOC2007 --checkpoint model.pth --dtype bf16
+    python -m vipers_torch.cli.main corloc --preds outputs/preds.pkl \
+        --dataset VOC07 --data-path VOC2007
+
+``lost`` runs on the card unless given ``--device cpu``; there is no silent
+fallback. Flags that select what the port does not have yet exit with a
+message naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def _save_predictions(s: str) -> bool:
+    return s.lower() not in ("false", "0", "no")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("vipers_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    lost = sub.add_parser("lost", help="LOST object discovery + CorLoc")
+    lost.add_argument("--model", default="vit_s_16")
+    lost.add_argument("--arch", default="vit",
+                      help="feature family: vit (dino, swin, resnet, vgg16: not ported yet)")
+    lost.add_argument("--dataset", default="VOC07", choices=["VOC07", "VOC12", "COCO20k"])
+    lost.add_argument("--set", default="trainval")
+    lost.add_argument("--data-path", required=False, default="/data")
+    lost.add_argument("--checkpoint", default="",
+                      help="a reference .pth/.pt (pruned layers as weight_orig/weight_mask "
+                           "or baked); random weights from seed 0 without one")
+    lost.add_argument("--patch-size", type=int, default=16)
+    lost.add_argument("--which-features", default="k", choices=["k", "q", "v"])
+    lost.add_argument("--k-patches", type=int, default=100)
+    lost.add_argument("--dinoseg", action="store_true")
+    lost.add_argument("--dinoseg-head", type=int, default=4)
+    lost.add_argument("--dinoseg-reference-bugs", action="store_true")
+    lost.add_argument("--no-hard", action="store_true")
+    lost.add_argument("--coco-annotations", default=None,
+                      help="COCO instances json (required for COCO20k)")
+    lost.add_argument("--coco20k-list", default=None, help="20k filename list")
+    lost.add_argument("--output-dir", default="./outputs")
+    lost.add_argument("--iteration", type=int, default=0)
+    lost.add_argument("--visualize", default=None,
+                      choices=[None, "fms", "seed_expansion", "pred"])
+    lost.add_argument("--batch-size", type=int, default=8,
+                      help="images per LOST batch (per bucket shape)")
+    lost.add_argument("--workers", type=int, default=8,
+                      help="host decode threads feeding the device")
+    lost.add_argument("--host-normalize", action="store_true",
+                      help="feed host-normalized float32 (PIL decode) instead of the "
+                           "default uint8 feed (libjpeg decode, normalized on the device)")
+    lost.add_argument("--image-path", default=None,
+                      help="run LOST on one image instead of a dataset (no evaluation, "
+                           "no preds.pkl)")
+    lost.add_argument("--no-evaluation", action="store_true",
+                      help="skip CorLoc scoring and the results txt")
+    lost.add_argument("--save-predictions", default=True, type=_save_predictions,
+                      help="write preds.pkl (default true)")
+    lost.add_argument("--models-dir", default="",
+                      help="root of the reference checkpoint sweep; with "
+                           "--pruning-iteration, resolves the templated filename")
+    lost.add_argument("--pruning-iteration", type=int, default=None,
+                      help="sweep iteration: picks the checkpoint under --models-dir "
+                           "and stamps results_iteration_NN.txt")
+    lost.add_argument("--resnet-dilate", type=int, default=1, choices=[1, 2, 4])
+    lost.add_argument("--cnn-bucket", type=int, default=4)
+    lost.add_argument("--exact-shapes", action="store_true")
+    lost.add_argument("--swin-all-windows", action="store_true")
+    lost.add_argument("--strict", action="store_true",
+                      help="raise on a seed-in-background image, as the reference does, "
+                           "instead of collecting and reporting them at the end")
+    lost.add_argument("--dtype", default="f32", choices=["f32", "bf16", "int8"],
+                      help="compute dtype of the feature forward")
+    lost.add_argument("--data-parallel", action="store_true")
+    lost.add_argument("--sequence-parallel", action="store_true")
+    lost.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                      help="cuda (default) runs the kernels; cpu their plain versions")
+
+    corloc = sub.add_parser("corloc", help="re-score saved predictions vs GT")
+    corloc.add_argument("--preds", "--pred-file", dest="preds", required=True,
+                        help="preds.pkl or detectron json (auto-detected)")
+    corloc.add_argument("--dataset", default="VOC07")
+    corloc.add_argument("--set", default="trainval")
+    corloc.add_argument("--data-path", default="/data")
+    corloc.add_argument("--no-hard", action="store_true")
+    corloc.add_argument("--coco-annotations", default=None)
+    corloc.add_argument("--coco20k-list", default=None)
+    return p
+
+
+def _refuse_unported(args):
+    """SystemExit naming the ROADMAP item for what this port cannot run yet."""
+    def no(what, item):
+        raise SystemExit(f"vipers_torch lost: {what} is not ported yet (ROADMAP A{item})")
+
+    arch_items = {"dino": 2, "swin": 6, "resnet": 5, "vgg16": 5}
+    if args.arch != "vit":
+        no(f"--arch {args.arch}", arch_items.get(args.arch, 5))
+    from vipers_torch.core.registry import build_model
+
+    try:
+        build_model(args.model)
+    except ValueError:
+        no(f"--model {args.model}", 3)
+    if args.dtype == "int8":
+        no("--dtype int8", 9)
+    if args.visualize:
+        no("--visualize", 11)
+    if args.dinoseg or args.dinoseg_reference_bugs:
+        no("--dinoseg", 2)
+    if args.data_parallel or args.sequence_parallel:
+        no("--data-parallel / --sequence-parallel (multi-device)", 10)
+    if args.resnet_dilate != 1 or args.cnn_bucket != 4 or args.exact_shapes:
+        no("the CNN flags (--resnet-dilate, --cnn-bucket, --exact-shapes)", 5)
+    if args.swin_all_windows:
+        no("--swin-all-windows", 6)
+    ckpt = (args.checkpoint or "").rstrip("/")
+    if ckpt and any(os.path.exists(c)
+                    for c in (ckpt + ".slim.json", ckpt + "/slim.json")):
+        no("a structurally slimmed checkpoint (.slim.json)", 4)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.cmd == "lost":
+        _refuse_unported(args)
+        from vipers_torch.discovery.driver import run_lost
+
+        return run_lost(args)
+    from vipers_torch.discovery.corloc import run_corloc_cli
+
+    return run_corloc_cli(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

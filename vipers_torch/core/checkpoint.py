@@ -9,6 +9,14 @@ kernels HWIO, dense kernels (in, out)) plus optional pruning masks (flat
 Masks are baked as ``where(mask, w, 0)`` before the layout change, exactly
 as the JAX extractor bakes them.
 
+The reference's ``.pth`` files come in through ``load_torch_state_dict``
+(``module.`` stripped, ``{"model": ...}`` unwrapped, ``weight_orig *
+weight_mask`` resolved with the mask kept as ``<key>.__mask__``) and
+``import_vit_torchvision``, which returns the flax-layout tree and masks
+that ``vit_state_dict_from_flax`` takes; ``export_vit_torchvision`` writes
+the torchvision keys back, masks baked or in the ``weight_orig`` /
+``weight_mask`` form of ``torch.nn.utils.prune``.
+
 The reverse direction serves training and its tests:
 ``flax_tree_from_vit_state_dict`` turns the module's parameters back into a
 flax tree (the layout magnitude pruning ranks in), and
@@ -19,7 +27,7 @@ between flax paths and state-dict keys with their layouts.
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,3 +112,172 @@ def vit_masks_from_state_dict(masks: dict) -> dict:
     """The inverse of ``vit_masks_to_state_dict``."""
     return {_flax_path(k, m.dim()): _to_flax_layout(m).contiguous()
             for k, m in masks.items()}
+
+
+# ----------------------- the reference's .pth files ------------------------
+
+def reference_sweep_stem(model: str, vit: bool, epoch="*", iteration="*") -> str:
+    """The reference sweep's checkpoint file stem: ViTs use the model name,
+    CNNs the literal ``model``; both live under ``{dir}/{model}/``."""
+    it = f"{iteration:02d}" if isinstance(iteration, int) else iteration
+    return f"{model if vit else 'model'}_epoch_{epoch}_pruning_iteration_{it}"
+
+
+# classification-head kernel paths per family; the last dim is the class count
+_HEAD_KEYS = ("fc", "head", "fc3", "classifier")
+
+
+def infer_num_classes(params) -> Optional[int]:
+    """The class count of the checkpoint's own head kernel, or None for a
+    headless tree (the LOST driver rebuilds the model at that width)."""
+    for key in _HEAD_KEYS:
+        node = params.get(key) if isinstance(params, dict) else None
+        if isinstance(node, dict) and "kernel" in node:
+            return int(node["kernel"].shape[-1])
+    return None
+
+
+def infer_vit_image_size(params, patch_size: int):
+    """(H, W) the checkpoint's pos-embedding table was trained at, or None
+    when there is no table or its grid is not square."""
+    pos = params.get("pos_embedding") if isinstance(params, dict) else None
+    if pos is None or getattr(pos, "ndim", 0) != 3:
+        return None
+    n = int(pos.shape[1]) - 1  # minus the class token
+    g = int(round(n ** 0.5))
+    if g * g != n:
+        return None
+    return (g * patch_size, g * patch_size)
+
+
+def load_torch_state_dict(path) -> Dict[str, np.ndarray]:
+    """``torch.load`` a checkpoint on the CPU, unwrap ``{"model": ...}``,
+    then ``normalize_torch_state_dict``."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "model" in obj and isinstance(obj["model"], dict):
+        obj = obj["model"]
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    return normalize_torch_state_dict(obj)
+
+
+def normalize_torch_state_dict(sd) -> Dict[str, np.ndarray]:
+    """{key: numpy array} with DDP's ``module.`` stripped and each pruned
+    ``<key>_orig`` / ``<key>_mask`` pair resolved into ``<key>`` =
+    orig * mask and a bool ``<key>.__mask__``."""
+    def _np(v):
+        return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+
+    raw = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+    out: Dict[str, np.ndarray] = {}
+    for k, v in raw.items():
+        if k.endswith("_orig"):
+            base = k[:-len("_orig")]
+            w = _np(v)
+            mask = raw.get(base + "_mask")
+            if mask is not None:
+                mask = _np(mask)
+                w = w * mask
+                out[base + ".__mask__"] = mask.astype(bool)
+            out[base] = w
+        elif not k.endswith("_mask"):
+            out[k] = _np(v)
+    return out
+
+
+def _conv_w(a):  # OIHW -> HWIO
+    return np.transpose(a, (2, 3, 1, 0))
+
+
+def _conv_w_inv(a):  # HWIO -> OIHW
+    return np.transpose(a, (3, 2, 0, 1))
+
+
+def _vit_torchvision_table(num_layers: int) -> List[Tuple[str, tuple, str, bool]]:
+    """(torchvision key, flax path, layout, mask carried) of every ViT
+    parameter. Layout ``conv``: OIHW <-> HWIO, ``lin``: (out, in) <->
+    (in, out). The JAX importer carries the masks of the patch conv, the
+    attention output, the MLP and the head (the in-projection is never
+    pruned)."""
+    table = [("conv_proj.weight", ("conv_proj", "kernel"), "conv", True),
+             ("conv_proj.bias", ("conv_proj", "bias"), "", False),
+             ("class_token", ("class_token",), "", False),
+             ("encoder.pos_embedding", ("pos_embedding",), "", False)]
+    for i in range(num_layers):
+        t, o = f"encoder.layers.encoder_layer_{i}", f"encoder_layer_{i}"
+        table += [(f"{t}.ln_1.weight", (o, "ln_1", "scale"), "", False),
+                  (f"{t}.ln_1.bias", (o, "ln_1", "bias"), "", False),
+                  (f"{t}.self_attention.in_proj_weight", (o, "attention", "qkv", "kernel"),
+                   "lin", False),
+                  (f"{t}.self_attention.in_proj_bias", (o, "attention", "qkv", "bias"), "",
+                   False),
+                  (f"{t}.self_attention.out_proj.weight", (o, "attention", "out", "kernel"),
+                   "lin", True),
+                  (f"{t}.self_attention.out_proj.bias", (o, "attention", "out", "bias"), "",
+                   False),
+                  (f"{t}.ln_2.weight", (o, "ln_2", "scale"), "", False),
+                  (f"{t}.ln_2.bias", (o, "ln_2", "bias"), "", False)]
+        # torchvision's MLPBlock: Linear, GELU, Dropout, Linear, Dropout
+        for tk, ok in ((f"{t}.mlp.0", "fc1"), (f"{t}.mlp.3", "fc2")):
+            table += [(f"{tk}.weight", (o, "mlp", ok, "kernel"), "lin", True),
+                      (f"{tk}.bias", (o, "mlp", ok, "bias"), "", False)]
+    return table + [("encoder.ln.weight", ("ln", "scale"), "", False),
+                    ("encoder.ln.bias", ("ln", "bias"), "", False),
+                    ("heads.pre_logits.weight", ("pre_logits", "kernel"), "lin", False),
+                    ("heads.pre_logits.bias", ("pre_logits", "bias"), "", False),
+                    ("heads.head.weight", ("head", "kernel"), "lin", True),
+                    ("heads.head.bias", ("head", "bias"), "", False)]
+
+
+_OPTIONAL = ("heads.pre_logits.", "heads.head.")
+
+
+def import_vit_torchvision(sd: Dict[str, np.ndarray], num_layers: int):
+    """A normalized torchvision ViT state dict -> (flax-layout params tree,
+    masks {flax path: bool array}), the inputs of
+    ``vit_state_dict_from_flax``. The head and pre-logits are optional."""
+    to_flax = {"conv": _conv_w, "lin": np.transpose, "": lambda a: a}
+    p, masks = {}, {}
+    for key, path, layout, carries_mask in _vit_torchvision_table(num_layers):
+        if key.startswith(_OPTIONAL) and key not in sd:
+            continue
+        p[path] = to_flax[layout](sd[key])
+        if carries_mask and key + ".__mask__" in sd:
+            masks[path] = to_flax[layout](sd[key + ".__mask__"])
+    return unflatten_dict(p), masks
+
+
+def export_vit_torchvision(params, masks=None, bake_masks: bool = True
+                           ) -> Dict[str, np.ndarray]:
+    """The inverse of ``import_vit_torchvision``: a flax-layout ViT tree ->
+    a torchvision-keyed state dict of float32 numpy arrays. ``masks``
+    ({flax path: bool array}) are baked by multiplication, as the JAX
+    exporter does, or with ``bake_masks=False`` written in the reference's
+    pruned form: ``<key>_orig`` (the weight as it is) and ``<key>_mask``
+    (float32), which ``normalize_torch_state_dict`` resolves."""
+    p = {path: np.asarray(a.detach().cpu() if hasattr(a, "detach") else a, np.float32)
+         for path, a in flatten_dict(params).items()}
+    masks = {tuple(k): np.asarray(m.detach().cpu() if hasattr(m, "detach") else m, np.float32)
+             for k, m in (masks or {}).items() if tuple(k) in p}
+    if bake_masks:
+        for path, m in masks.items():
+            p[path] = p[path] * m
+    n_layers = len({k[0] for k in p if k[0].startswith("encoder_layer_")})
+    to_torch = {"conv": _conv_w_inv, "lin": np.transpose, "": lambda a: a}
+    sd: Dict[str, np.ndarray] = {}
+    for key, path, layout, _ in _vit_torchvision_table(n_layers):
+        if path not in p:
+            continue
+        w = to_torch[layout](p[path])
+        if path in masks and not bake_masks:
+            base, leaf = key.rsplit(".", 1)
+            sd[f"{base}.{leaf}_orig"] = w
+            sd[f"{base}.{leaf}_mask"] = to_torch[layout](masks[path])
+        else:
+            sd[key] = w
+    return sd
+
+
+def save_torch_state_dict(sd: Dict[str, np.ndarray], path) -> None:
+    """``torch.save`` a {key: numpy array} state dict as contiguous tensors."""
+    torch.save({k: torch.tensor(np.asarray(v)) for k, v in sd.items()}, path)

@@ -1,28 +1,51 @@
-"""LOST feature driver for the ViT (port of the ``arch="vit"`` batched path of
+"""LOST driver for the ViT (port of the ``arch="vit"`` batched path of
 ``vipers/discovery/driver.py``).
 
 ``LostFeatureExtractor.make_batched_pipeline`` is the product path: the
 masked ViT forward, the reference's qkv scramble that yields the k features
 and the batched LOST core, all on the device; only the 4-int boxes, seeds
-and background flags need to return to the host. Inputs come from
+and background flags return to the host. Inputs come from
 ``prepare_batch``: tier-1-padded images sharing one bucket shape, uint8
-(normalized on the device) or already-normalized float.
+(normalized on the device) or already-normalized float, sent to the card
+from pinned memory without a host sync, so assembling batch k+1 overlaps
+batch k.
+
+``run_lost`` is ``vipers_torch lost``: JPEGs decoded on a thread pool in
+dataset order (``_prefetch_decoded``), per-bucket buffers of
+``--batch-size`` images (a tail batch padded by repeating its last image),
+each full buffer one pipeline call, its results copied to pinned host
+memory behind a CUDA event and read a group at a time, then CorLoc and
+``preds.pkl`` / ``results_iteration_NN.txt`` as ``vipers lost`` writes
+them.
 """
 
 from __future__ import annotations
 
+import os
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
-from vipers_torch.core.checkpoint import vit_state_dict_from_flax
+from vipers_torch.core.checkpoint import (import_vit_torchvision, infer_num_classes,
+                                          infer_vit_image_size, load_torch_state_dict,
+                                          reference_sweep_stem, vit_state_dict_from_flax)
 from vipers_torch.core.device import resolve_device
+from vipers_torch.core.registry import build_model
+from vipers_torch.data import native
+from vipers_torch.data.detection import DiscoveryDataset, load_image_normalized
 from vipers_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD, bucket_hw
-from vipers_torch.discovery.lost import lost_core
+from vipers_torch.discovery.corloc import CorLocAccumulator
+from vipers_torch.discovery.lost import box_feat_to_image, lost_core
 from vipers_torch.models.interpolate import resize_weight_matrix_np
 from vipers_torch.models.vit import scrambled_qkv_gather
 from vipers_torch.ops.flash_attention import flash_min_t
+
+
+_NORM: dict = {}
 
 
 def device_normalize(images, pixel_hw):
@@ -31,9 +54,11 @@ def device_normalize(images, pixel_hw):
     bit-equal to it), then zero beyond each image's exact pixel extent
     ``pixel_hw`` (B, 2) (the host zero-pads before normalizing)."""
     dev = images.device
-    x = images.to(torch.float32) / 255.0
-    x = (x - torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=dev)) / \
-        torch.tensor(IMAGENET_STD, dtype=torch.float32, device=dev)
+    if dev not in _NORM:  # made once a device: a copy to the card syncs the host
+        _NORM[dev] = tuple(torch.tensor(c, dtype=torch.float32, device=dev)
+                           for c in (IMAGENET_MEAN, IMAGENET_STD))
+    mean, std = _NORM[dev]
+    x = (images.to(torch.float32) / 255.0 - mean) / std
     if pixel_hw is not None:
         phw = pixel_hw.to(dev)
         r = torch.arange(images.shape[1], device=dev)[None, :, None]
@@ -104,7 +129,9 @@ class LostFeatureExtractor:
     def prepare_batch(self, imgs, patch: int, exact_hw=None):
         """Stack tier-1-padded images sharing one bucket shape into the
         pipeline inputs (images, pos, token_mask, valid_hw) on the device.
-        token_mask is None when every image exactly fills the bucket.
+        token_mask is None when every image exactly fills the bucket. On the
+        card the batch is assembled in pinned memory and sent without a host
+        sync.
 
         uint8 images stay uint8 and are normalized on the device;
         ``exact_hw`` must then give each image's exact pixel dims, and a 5th
@@ -113,7 +140,9 @@ class LostFeatureExtractor:
         u8 = imgs[0].dtype == np.uint8
         bh, bw = bucket_hw(imgs[0].shape[0], imgs[0].shape[1], patch, self.bucket)
         GH, GW = bh // patch, bw // patch
-        batch = np.zeros((len(imgs), bh, bw, 3), np.uint8 if u8 else np.float32)
+        batch_t = torch.zeros((len(imgs), bh, bw, 3), dtype=torch.uint8 if u8 else torch.float32,
+                              pin_memory=self.device.type == "cuda")
+        batch = batch_t.numpy()
         order: dict = {}
         rows, mask_rows, idx, vhw = [], [], [], []
         for i, im in enumerate(imgs):
@@ -129,25 +158,35 @@ class LostFeatureExtractor:
             idx.append(order[key])
             vhw.append((gh, gw))
         if len(rows) > 1:
-            pos_batch = torch.cat(rows, dim=0)[torch.tensor(idx, device=self.device)]
+            pos_batch = torch.cat(rows, dim=0)[self._upload(torch.tensor(idx))]
         else:
             pos_batch = rows[0].expand(len(imgs), -1, -1)
         exact_fit = all(t == (GH, GW) for t in vhw)
-        token_mask = None if exact_fit else torch.from_numpy(
-            np.concatenate([mask_rows[u] for u in idx], axis=0)).to(self.device)
+        token_mask = None if exact_fit else self._upload(torch.from_numpy(
+            np.concatenate([mask_rows[u] for u in idx], axis=0)))
         out = (
-            torch.from_numpy(batch).to(self.device),
+            self._upload(batch_t),
             pos_batch,
             token_mask,
-            torch.tensor(vhw, dtype=torch.int32, device=self.device),
+            self._upload(torch.tensor(vhw, dtype=torch.int32)),
         )
         if not u8:
             return out
         if exact_hw is None:
             raise ValueError("uint8 batches need exact_hw (pixel dims)")
         pixel_exact = all(tuple(t) == (bh, bw) for t in exact_hw)
-        return out + (None if pixel_exact else torch.tensor(
-            exact_hw, dtype=torch.int32, device=self.device),)
+        return out + (None if pixel_exact else self._upload(
+            torch.tensor(exact_hw, dtype=torch.int32)),)
+
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the extractor's device. To the card it goes from
+        pinned memory with ``non_blocking``: a copy from pageable memory
+        would make the host wait for the card's queue to drain."""
+        if self.device.type != "cuda":
+            return t
+        if not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     @torch.inference_mode()
     def batched_features(self, images, pos, token_mask, valid_hw, pixel_hw=None):
@@ -193,3 +232,228 @@ class LostFeatureExtractor:
             return out["box_feat"], out["seed"], out["seed_in_background"]
 
         return run
+
+
+def _prefetch_decoded(dataset, patch: int, no_hard: bool, workers: int = 8,
+                      need_gt: bool = True, as_uint8: bool = False):
+    """Decode and tier-1-pad images on a bounded thread pool, in dataset
+    order, so host decode overlaps the card. Yields (path, im_name, padded
+    image, init_image_size (3, h, w), gt boxes or None); images with no GT
+    box are skipped under ``no_hard``.
+
+    ``as_uint8``: the batched pipeline's feed, one libjpeg call straight
+    into the patch-padded uint8 slab (``native.decode_pad``; the GIL is
+    released inside it) and no float math on the host. Otherwise the
+    host-normalized float32 feed (``load_image_normalized``)."""
+
+    def load(item):
+        path, im_name = item
+        # runs without annotations must not read them (--no-evaluation)
+        gt = dataset.extract_gt(im_name)[0] if need_gt else None
+        if as_uint8:
+            padded, (h, w) = native.decode_pad(path, pad_multiple=patch)
+            return path, im_name, padded, (3, h, w), gt
+        img = load_image_normalized(path)
+        h, w = img.shape[:2]
+        padded = np.zeros((-(-h // patch) * patch, -(-w // patch) * patch, 3), np.float32)
+        padded[:h, :w] = img
+        return path, im_name, padded, (3, h, w), gt
+
+    depth = max(2 * workers, 8)
+    with ThreadPoolExecutor(workers) as exe:
+        pending: deque = deque()
+        it = iter(dataset)
+        done = False
+        while pending or not done:
+            while not done and len(pending) < depth:
+                try:
+                    pending.append(exe.submit(load, next(it)))
+                except StopIteration:
+                    done = True
+            if not pending:
+                break
+            path, im_name, padded, init_size, gt = pending.popleft().result()
+            if gt is not None and len(gt) == 0 and no_hard:
+                continue
+            yield path, im_name, padded, init_size, gt
+
+
+class _SingleImageDataset:
+    """``--image-path``: LOST on one image at native resolution, no GT."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.name = os.path.basename(path)
+
+    def __iter__(self):
+        yield self.path, self.name
+
+    def extract_gt(self, _im_name):
+        return None, None
+
+
+def _templated_checkpoint(models_dir: str, model: str, arch: str, iteration: int) -> str:
+    """The reference sweep's checkpoint of ``iteration`` under
+    ``{models_dir}/{model}/``: ViTs at epoch 299, CNNs at epoch 89."""
+    vit = "vit" in arch or "vit" in model
+    base = os.path.join(models_dir, model, reference_sweep_stem(
+        model, vit, epoch=299 if vit else 89, iteration=iteration))
+    for cand in (base + ".pth", base):
+        if os.path.exists(cand):
+            return cand
+    raise FileNotFoundError(f"no checkpoint for iteration {iteration} under "
+                            f"{models_dir}/{model} (tried {base}[.pth])")
+
+
+def load_lost_checkpoint(path: str, spec):
+    """(flax-layout params, masks) of a reference ``.pth``/``.pt`` ViT
+    checkpoint; a pruned one carries its masks as ``weight_orig`` /
+    ``weight_mask`` pairs. A checkpoint directory (the JAX package's orbax
+    format) raises: the port does not read orbax, so convert it first with
+    the JAX package's ``vipers.core.checkpoint.export_vit_torchvision``."""
+    if os.path.isdir(path) or not str(path).endswith((".pth", ".pt")):
+        raise ValueError(
+            f"{path}: vipers_torch reads PyTorch .pth/.pt checkpoints only; an orbax "
+            "checkpoint directory of the JAX package must be converted first with "
+            "vipers.core.checkpoint.export_vit_torchvision and torch.save (the port's "
+            "own checkpoint format is ROADMAP A7)")
+    return import_vit_torchvision(load_torch_state_dict(path), spec.cfg.num_layers)
+
+
+# timings and counts of the last run_lost call, for callers that time it
+LAST_RUN: dict = {}
+
+
+def run_lost(args) -> int:
+    """``vipers_torch lost`` for ``--arch vit``: the arguments of ``vipers
+    lost`` (``vipers_torch.cli.main``) plus ``--device``.
+
+    With no ``--checkpoint`` the weights come from
+    ``spec.init(torch.Generator().manual_seed(0))``; they cannot equal the
+    JAX package's ``PRNGKey(0)`` init, so runs of the two packages agree
+    only on the same ``.pth``."""
+    t_start = time.time()
+    device = resolve_device(getattr(args, "device", None))
+    image_path = getattr(args, "image_path", None)
+    no_evaluation = bool(getattr(args, "no_evaluation", False))
+    save_predictions = bool(getattr(args, "save_predictions", True))
+    if image_path:
+        # one image: no evaluation and no preds.pkl
+        no_evaluation, save_predictions = True, False
+        dataset = _SingleImageDataset(image_path)
+    else:
+        dataset = DiscoveryDataset(
+            args.dataset, args.set, args.data_path, no_hard=args.no_hard,
+            coco_annotations=getattr(args, "coco_annotations", None),
+            coco20k_list=getattr(args, "coco20k_list", None))
+
+    pruning_iteration = getattr(args, "pruning_iteration", None)
+    if getattr(args, "models_dir", "") and pruning_iteration is not None and not args.checkpoint:
+        # an explicit --checkpoint wins over the filename template
+        args.checkpoint = _templated_checkpoint(args.models_dir, args.model, args.arch,
+                                                pruning_iteration)
+        print(f"checkpoint: {args.checkpoint}")
+    iteration = pruning_iteration if pruning_iteration is not None else args.iteration
+
+    spec = build_model(args.model)
+    masks = None
+    if args.checkpoint:
+        params, masks = load_lost_checkpoint(args.checkpoint, spec)
+        # rebuild at the checkpoint's own head width and pos-table size
+        kw = {"num_classes": infer_num_classes(params) or 0}
+        size = infer_vit_image_size(params, spec.patch_size)
+        if size is not None:
+            kw["image_size"] = size
+        spec = build_model(args.model, **kw)
+    else:
+        params = spec.init(torch.Generator().manual_seed(0))
+    dtype = {"f32": None, "bf16": torch.bfloat16}[getattr(args, "dtype", None) or "f32"]
+    extractor = LostFeatureExtractor(spec, params, masks, which_features=args.which_features,
+                                     bucket=4, compute_dtype=dtype, device=device)
+    pipeline = extractor.make_batched_pipeline(k_patches=args.k_patches)
+    acc = CorLocAccumulator()
+    p = args.patch_size
+    batch_size = int(getattr(args, "batch_size", 0) or 8)
+    # the uint8 feed (libjpeg, normalized on the device) unless --host-normalize
+    feed_uint8 = not getattr(args, "host_normalize", False)
+    strict = bool(getattr(args, "strict", False))
+    failed: list = []
+    buffers: dict = {}
+    # Each batch's results are copied to pinned host memory behind an event
+    # as soon as its pipeline is queued; the host reads them a group of
+    # VIPERS_LOST_DRAIN_DEPTH batches at a time, never an image at a time.
+    drain_depth = int(os.environ.get("VIPERS_LOST_DRAIN_DEPTH", "8"))
+    in_flight: deque = deque()
+    n_imgs = n_batches = 0
+
+    def drain_group():
+        while in_flight:
+            host, event, recs, n_real = in_flight.popleft()
+            if event is not None:
+                event.synchronize()
+            box_feat, _seeds, seed_bg = (h.numpy() for h in host)
+            for i in range(n_real):
+                im_name, _img, init_size, gt_i = recs[i]
+                if seed_bg[i]:
+                    if strict:
+                        raise ValueError(f"The seed is in the background component ({im_name}).")
+                    failed.append(im_name)
+                    continue
+                acc.add(im_name, box_feat_to_image(box_feat[i], [p, p], init_size), gt_i)
+
+    def flush(key):
+        nonlocal n_batches
+        recs = buffers.pop(key)
+        imgs = [r[1] for r in recs]
+        n_real = len(imgs)
+        # the tail batch repeats its last image, so a bucket has one batch shape
+        imgs += [imgs[-1]] * (batch_size - n_real)
+        exact_hw = None
+        if feed_uint8:  # exact pixel dims: the device normalize zeroes beyond them
+            exact_hw = [tuple(r[2][1:]) for r in recs]
+            exact_hw += [exact_hw[-1]] * (batch_size - n_real)
+        outs = pipeline(*extractor.prepare_batch(imgs, p, exact_hw=exact_hw))
+        event = None
+        if device.type == "cuda":
+            host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs)
+            for h, o in zip(host, outs):
+                h.copy_(o, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            outs = host
+        in_flight.append((outs, event, recs, n_real))
+        n_batches += 1
+        if len(in_flight) >= drain_depth:
+            drain_group()
+
+    # --workers 0 means one synchronous decode thread, not the default
+    workers = getattr(args, "workers", None)
+    workers = 8 if workers is None else max(int(workers), 1)
+    t_decode = time.time()
+    for _path, im_name, padded, init_image_size, gt in _prefetch_decoded(
+            dataset, p, args.no_hard, workers=workers, need_gt=not no_evaluation,
+            as_uint8=feed_uint8):
+        n_imgs += 1
+        key = bucket_hw(padded.shape[0], padded.shape[1], p, extractor.bucket)
+        buffers.setdefault(key, []).append((im_name, padded, init_image_size, gt))
+        if len(buffers[key]) == batch_size:
+            flush(key)
+    for key in sorted(buffers):
+        flush(key)
+    drain_group()
+
+    if failed:
+        print(f"WARNING: seed in background component for {len(failed)} image(s), skipped: "
+              f"{', '.join(failed[:10])}" + (" ..." if len(failed) > 10 else "")
+              + " (rerun with --strict for reference-parity crashing)")
+    os.makedirs(args.output_dir, exist_ok=True)
+    acc.save(args.output_dir, iteration, save_preds=save_predictions,
+             save_results=not no_evaluation)
+    t_end = time.time()
+    LAST_RUN.clear()
+    LAST_RUN.update(images=n_imgs, batches=n_batches, failed=list(failed),
+                    seconds=t_end - t_start, decode_to_preds_seconds=t_end - t_decode,
+                    decoder=native.backend() if feed_uint8 else "pil")
+    dt = t_end - t_start
+    print(f"LOST: {n_imgs} images in {dt:.1f}s ({n_imgs / max(dt, 1e-9):.2f} img/s)")
+    return 0

@@ -125,8 +125,6 @@ def _check(q, k, v, valid):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash attention takes float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash attention needs head dim {HEAD_DIM}, got {q.shape[-1]}")
     if valid is not None and (valid.dtype != torch.bool
                               or tuple(valid.shape) != (q.shape[0], q.shape[2])):
         raise ValueError(f"valid must be a (B, T) bool mask, got "
@@ -134,6 +132,13 @@ def _check(q, k, v, valid):
     devs = {z.device for z in (q, k, v) + ((valid,) if valid is not None else ())}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
+
+
+def _check_kernel_head_dim(hd: int):
+    """The card's kernels take head dim 64 only; the plain versions (CPU
+    tensors) take any."""
+    if hd != HEAD_DIM:
+        raise ValueError(f"the flash attention kernel needs head dim {HEAD_DIM}, got {hd}")
 
 
 def _lib():
@@ -176,9 +181,10 @@ def _check_aligned(*tensors):
 
 
 def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
-    """(B, H, T, 64) masked attention -> (out in the input dtype, lse f32
+    """(B, H, T, hd) masked attention -> (out in the input dtype, lse f32
     (B, H, T)). ``valid``: (B, T) bool key mask (True = attend). Query rows
-    that are pad attend the valid keys, like the JAX einsum path."""
+    that are pad attend the valid keys, like the JAX einsum path. The card's
+    kernel needs hd 64; the plain version (CPU tensors) takes any."""
     _check(q, k, v, valid)
     b, h, t, hd = q.shape
     scale = (hd ** -0.5) if scale is None else float(scale)
@@ -186,6 +192,7 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
         return flash_attention_plain(q, k, v, valid, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _check_kernel_head_dim(hd)
     fn = _lib()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_aligned(q, k, v)
@@ -266,16 +273,18 @@ def bwd_design(dtype: torch.dtype = torch.bfloat16) -> dict:
 
 
 def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
-    """(dq, dk, dv) in the input dtype for (B, H, T, 64) q, k, v, the (B, T)
+    """(dq, dk, dv) in the input dtype for (B, H, T, hd) q, k, v, the (B, T)
     bool key mask (or None), the forward's ``out`` and f32 ``lse`` and the
-    cotangent ``g``. CUDA tensors go to the kernel (any T; a build or launch
-    failure raises), CPU tensors to ``flash_attention_bwd_plain``."""
+    cotangent ``g``. CUDA tensors go to the kernel (hd 64, any T; a build or
+    launch failure raises), CPU tensors to ``flash_attention_bwd_plain``
+    (any hd)."""
     _check_bwd(q, k, v, valid, out, lse, g)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, valid, out, lse, g, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, t, hd = q.shape
+    _check_kernel_head_dim(hd)
     fn = _bwd_lib()
     q, k, v, out, g = (z.contiguous() for z in (q, k, v, out, g))
     lse = lse.contiguous()

@@ -55,7 +55,9 @@ def pick_block_m(m: int) -> Optional[int]:
 def fused_supported(x, train: bool = False) -> bool:
     """The product-path gate: inference, bf16, and a row count the JAX
     kernel's block rule accepts; ``VIPERS_FUSED_MLP=0`` turns it off, as in
-    the JAX package."""
+    the JAX package. Like the JAX gate it sets no width condition: the
+    card's kernel refuses widths it has no instance for (see
+    ``fused_ln_dense_gelu_core``)."""
     if os.environ.get("VIPERS_FUSED_MLP") == "0":
         return False
     rows = x.numel() // x.shape[-1]
@@ -98,7 +100,9 @@ def design(d: int) -> dict:
 
 def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
     """gelu_tanh(LN_noaffine(x2d) @ W_eff + b_eff): x2d (M, D) bf16,
-    w_eff_t (F, D) bf16, b_eff (F,) f32; D % 64 == 0, F % 128 == 0."""
+    w_eff_t (F, D) bf16, b_eff (F,) f32. CPU tensors take any width; on the
+    card D % 64 == 0, F % 128 == 0 and an instance of ``fused_mlp.cu`` that
+    fits D (``design(d)``), else a ``ValueError``."""
     m, d = x2d.shape
     f = w_eff_t.shape[0]
     if x2d.dtype != torch.bfloat16 or w_eff_t.dtype != torch.bfloat16:
@@ -107,14 +111,15 @@ def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
     if tuple(w_eff_t.shape) != (f, d) or tuple(b_eff.shape) != (f,) \
             or b_eff.dtype != torch.float32:
         raise ValueError("w_eff_t must be (F, D) and b_eff (F,) float32")
-    if d % 64 or f % 128:
-        raise ValueError(f"need D % 64 == 0 and F % 128 == 0, got D={d}, F={f}")
     if len({x2d.device, w_eff_t.device, b_eff.device}) != 1:
         raise ValueError("inputs on several devices")
     if x2d.device.type == "cpu":
         return fused_ln_dense_gelu_plain(x2d, w_eff_t, b_eff, eps)
     if x2d.device.type != "cuda":
         raise ValueError(f"unsupported device {x2d.device}")
+    if d % 64 or f % 128 or design(d)["rows"] == 0:
+        raise ValueError(f"the fused MLP kernel needs D % 64 == 0, F % 128 == 0 and an "
+                         f"instance that fits D, got D={d}, F={f}")
     fn = _lib()
     x2d, w_eff_t, b_eff = x2d.contiguous(), w_eff_t.contiguous(), b_eff.contiguous()
     _check_aligned(x2d, w_eff_t, b_eff)
