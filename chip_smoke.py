@@ -31,7 +31,12 @@ Phases (any failure exits non-zero; nothing is caught):
      main path does not run: the training kernels at T = 640 (the two-pass
      forward and the backward's key rounds) and the fused MLP at vit_b's
      and vit_h's widths (D = 768 and 1280, F = 4D; timed, beside the
-     library's sequence);
+     library's sequence); then the ViT family's rows: the flash forward's
+     hd-80 instances (f32 and bf16) at vit_h_14's LOST shape (B*H =
+     128*16, T = 1024 with 1009 valid keys, bucket-pad keys on every other
+     image, one image all invalid; SDPA with the bool mask as the library
+     call) and the fused MLP at D = 768 and 1024 (M = 128*896) and 1280 (M
+     = 128*1024);
   4. LOST path: full-width ViT-S/16 (12 layers, D=384, 6 heads, mlp 1536)
      from a seeded generator, 50% global magnitude mask, 512x384 uint8
      images, ``make_batched_pipeline`` in f32 and bf16 at B=128 on an
@@ -73,7 +78,22 @@ Phases (any failure exits non-zero; nothing is caught):
      (the softmax-precision variants), ``vipers_torch.tools.bench_splash``
      (the splash instances against the flash kernel) and
      ``vipers_torch.tools.bench_fused_mlp`` (the fused MLP against the
-     layer_norm -> linear -> GELU sequence), their lines printed.
+     layer_norm -> linear -> GELU sequence), their lines printed;
+ 10. ViT family LOST, full width, random weights from seed 0, pos tables
+     at 224x224 interpolated to each bucket as ``vipers_torch lost`` does:
+     ViT-B/16 (12 layers, D 768, 12 heads, mlp 3072; 50% global magnitude
+     mask) at 512x384 in f32 and bf16 on an exact-fit and a mixed bucket
+     (12 flash and 12 fused-MLP launches at D = 768 a bf16 batch), card vs
+     CPU at B=4, img/s and p50; ``vipers_torch.cli.main lost --model
+     vit_b_16 --patch-size 16 --dtype bf16`` from a pruned .pth on phase
+     6's 1024 JPEGs (launches, first batch against the pipeline, the
+     results txt against ``corloc``, e2e img/s); vit_b_32 bf16 at patch 32
+     (T = 193: 0 flash, 12 fused-MLP launches a batch); vit_l_16 bf16 (24
+     flash, 24 fused MLP at D = 1024); vit_h_14 (32 layers, D 1280, 16
+     heads of 80) at 504x392 (T = 1009 -> 1024) in f32 and bf16 (32 hd-80
+     flash launches a batch, 32 fused MLP at D = 1280 in bf16), bf16 img/s
+     and p50, one f32 call's time, card vs CPU on its first 8 blocks at
+     B=2 (the cut printed).
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``); the last is
@@ -124,10 +144,10 @@ def bound(flops, nbytes, peak):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_tile(fa, dtype):
-    """The attention forward tile's shape for ``dtype`` as compiled, for the
-    flash and packed lines."""
-    d = fa.tile_shape(dtype)
+def attention_tile(fa, dtype, head_dim=64):
+    """The attention forward tile's shape for ``dtype`` at ``head_dim`` as
+    compiled, for the flash and packed lines."""
+    d = fa.tile_shape(dtype, head_dim)
     if dtype == torch.bfloat16:
         return "; tile {block_q} x {block_k}, {stages} stages".format(**d)
     return ("; tile {block_q} queries x {block_k}-key stages, {stages} raw stages, "
@@ -200,6 +220,59 @@ def check_flash(fa, dtype, gen):
           f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
     return {"name": f"flash_attention_fwd[{name}]", "route": "cuda",
+            "source": "vipers_torch/csrc/flash_attention_fwd.cu",
+            "replaces": "vipers/ops/flash_attention.py:91",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def check_flash_hd80(fa, dtype, gen):
+    """The flash kernel's hd-80 instance vs plain at vit_h_14's LOST shape:
+    B*H = 128*16, T = 1024 (the 504x392 VOC bucket at patch 14: 1009 tokens,
+    seq-padded), hd = 80, with bucket-pad keys on every other image and one
+    image whose keys are all invalid. Tolerances as at hd 64; the library
+    call is SDPA with the bool mask."""
+    b, h, t, hd = BATCH, 16, 1024, 80
+    q, k, v = (torch.randn(b, h, t, hd, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    valid = torch.zeros(b, t, dtype=torch.bool, device="cuda")
+    valid[:, :1009] = True
+    grid = valid[1::2, 1:1009].view(-1, 28, 36)
+    grid[:, 25:, :] = False
+    grid[:, :, 33:] = False
+    valid[-1] = False
+    key = fa.launch_key(dtype, hd)
+    n0 = fa.LAUNCHES[key]
+    out, lse = fa.flash_attention_fwd(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[key] == n0 + 1, fa.LAUNCHES
+    want, want_lse = fa.flash_attention_plain(q, k, v, valid)
+    err = (out.float() - want.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+        tol = f"atol 1e-5 rtol 1e-4; lse {lse_err:.2e} (atol 1e-4 rtol 1e-4)"
+    else:
+        scale = want.float().abs().max().item()
+        assert err <= 2e-2 * scale, (err, scale)
+        torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+        tol = f"2e-2 of output scale {scale:.3g}; lse {lse_err:.2e} (atol 1e-3)"
+    del want, want_lse
+    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, valid))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, valid), reps=3, warmup=1)
+    amask = valid[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask))
+    flops = 4 * b * h * t * t * hd
+    nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4 + valid.numel()
+    bms, by, shares = forward_bound(flops, nbytes, dtype, ms)
+    name = f"flash_attention_fwd[{'f32' if dtype == torch.float32 else 'bf16'}, hd80]"
+    print(f"{name} max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.0f} TFLOP/s, {shares}{attention_tile(fa, dtype, hd)}) "
+          f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB) at B*H = {b}*{h}, T = {t} "
+          f"(1009 valid keys), hd {hd}")
+    return {"name": name, "route": "cuda",
             "source": "vipers_torch/csrc/flash_attention_fwd.cu",
             "replaces": "vipers/ops/flash_attention.py:91",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -364,6 +437,34 @@ def check_fused_mlp_wide(fm, gen):
         line = fused_mlp_times(fm, x, w_eff_t, b_eff, lib_w)[-1]
         print(f"fused_ln_fc1_gelu[bf16, D={d}, F={f}, M={m}] max_abs_err {err:.3e} (2e-2 of "
               f"output scale {sc:.3g}) {line}")
+
+
+def check_fused_mlp_family(fm, gen):
+    """The fused MLP at the ViT family's LOST shapes, F = 4D: D = 768
+    (vit_b_16, M = 128*896), 1024 (vit_l_16, M = 128*896) and 1280 (vit_h_14,
+    M = 128*1024), each against its plain version (2e-2 of the output
+    scale) with the kernel's, the plain version's and the library
+    sequence's times and the bound."""
+    rows = []
+    for d, m in ((768, BATCH * 896), (1024, BATCH * 896), (1280, BATCH * 1024)):
+        f = 4 * d
+        x, w_eff_t, b_eff, lib_w = fused_mlp_inputs(fm, m, d, f, gen)
+        out = fm.fused_ln_dense_gelu_core(x, w_eff_t, b_eff)
+        want = fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6)
+        torch.cuda.synchronize()
+        err, sc = scaled_err(out, want)
+        del out, want
+        ms, lib_ms, bms, by, line = fused_mlp_times(fm, x, w_eff_t, b_eff, lib_w)
+        plain_ms = cuda_ms(lambda: fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6),
+                           reps=3, warmup=1)
+        name = f"fused_ln_fc1_gelu[bf16, D={d}]"
+        print(f"{name} max_abs_err {err:.3e} (2e-2 of output scale {sc:.3g}) {line} plain "
+              f"{plain_ms:.3f} ms at M = {m}, F = {f}")
+        rows.append({"name": name, "route": "cuda", "source": "vipers_torch/csrc/fused_mlp.cu",
+                     "replaces": "vipers/ops/fused_mlp.py:123", "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_ms, "design": fm.design(d)})
+    return rows
 
 
 def check_flash_packed(fa, dtype, gen):
@@ -641,12 +742,12 @@ def check_splash(sa, gen):
     return rows
 
 
-def make_images(rng, exact_hw):
-    """Tier-1-padded uint8 images, zero beyond the exact pixel extent, each
-    with a bright block on textured noise."""
+def make_images(rng, exact_hw, patch=PATCH):
+    """Tier-1-padded uint8 images (to ``patch`` multiples), zero beyond the
+    exact pixel extent, each with a bright block on textured noise."""
     imgs = []
     for h, w in exact_hw:
-        im = np.zeros((-(-h // PATCH) * PATCH, -(-w // PATCH) * PATCH, 3), np.uint8)
+        im = np.zeros((-(-h // patch) * patch, -(-w // patch) * patch, 3), np.uint8)
         im[:h, :w] = rng.integers(0, 110, (h, w, 3), dtype=np.uint8)
         r, c = rng.integers(0, h // 2), rng.integers(0, w // 2)
         im[r:r + h // 3, c:c + w // 3] = rng.integers(170, 256, 3, dtype=np.uint8)
@@ -654,15 +755,18 @@ def make_images(rng, exact_hw):
     return imgs
 
 
-def compare_with_cpu(tag, spec, params, masks, dtype, ex, imgs, exact_hw, lost_core):
-    """B=N_CPU images through the same extractor on the CPU (plain kernel
+def compare_with_cpu(tag, spec, params, masks, dtype, ex, imgs, exact_hw, lost_core,
+                     n_cpu=N_CPU):
+    """B=n_cpu images through the same extractor on the CPU (plain kernel
     versions). f32: features within 1e-3 of their scale and equal boxes
-    (a seed may differ only inside a tie at the top score); bf16: print."""
+    (a seed may differ only inside a tie at the top score); bf16: print.
+    The model's patch size and the images' bucket set the grid."""
     from vipers_torch.discovery.driver import LostFeatureExtractor
 
+    patch = spec.patch_size
     cpu = LostFeatureExtractor(spec, params, masks, compute_dtype=dtype, device="cpu")
-    sub, hw = imgs[:N_CPU], exact_hw[:N_CPU]
-    gin, cin = ex.prepare_batch(sub, PATCH, exact_hw=hw), cpu.prepare_batch(sub, PATCH, exact_hw=hw)
+    sub, hw = imgs[:n_cpu], exact_hw[:n_cpu]
+    gin, cin = ex.prepare_batch(sub, patch, exact_hw=hw), cpu.prepare_batch(sub, patch, exact_hw=hw)
     gf = ex.batched_features(*gin).float().cpu()
     cf = cpu.batched_features(*cin).float()
     gbox, gseed, gbg = (z.cpu() for z in ex.make_batched_pipeline(K_PATCHES)(*gin))
@@ -672,12 +776,13 @@ def compare_with_cpu(tag, spec, params, masks, dtype, ex, imgs, exact_hw, lost_c
     same_seed = (gseed == cseed)
     same_box = (gbox == cbox).all(dim=1)
     print(f"cpu-vs-card [{tag}] features max_abs_err {ferr:.3e} (scale {scale:.3g}); "
-          f"seeds equal {int(same_seed.sum())}/{N_CPU}, boxes equal "
-          f"{int(same_box.sum())}/{N_CPU}, bg flags equal {int((gbg == cbg).sum())}/{N_CPU}")
+          f"seeds equal {int(same_seed.sum())}/{n_cpu}, boxes equal "
+          f"{int(same_box.sum())}/{n_cpu}, bg flags equal {int((gbg == cbg).sum())}/{n_cpu}")
     if dtype == torch.float32:
         assert ferr <= 1e-3 * scale, (ferr, scale)
-        scores = lost_core(cf, cin[3], (H // PATCH, W // PATCH), K_PATCHES)["scores"]
-        for i in range(N_CPU):
+        grid = (cin[0].shape[1] // patch, cin[0].shape[2] // patch)
+        scores = lost_core(cf, cin[3], grid, K_PATCHES)["scores"]
+        for i in range(n_cpu):
             if same_seed[i]:
                 assert same_box[i] and gbg[i] == cbg[i], (i, gbox[i], cbox[i])
             else:
@@ -774,6 +879,296 @@ def packed_lost_phase(card, spec, extractors, buckets, default_outs, lost_core):
     return launches
 
 
+# The ViT family phase: each model's bucket (a VOC 500x375 image at its
+# patch size: 512x384 at 16 and 32, 504x392 at 14, T = 1009 seq-padded to
+# 1024 for vit_h_14) and the cut of vit_h_14's CPU comparison.
+FAMILY_HW = {16: (H, W), 32: (H, W), 14: (504, 392)}
+VIT_H_CPU_LAYERS, VIT_H_CPU_BATCH = 8, 2
+
+
+def to_device(tree, dev):
+    """A nested dict of tensors on ``dev``."""
+    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def family_model(name, sparsity):
+    """A full-width model of the registry as a reference checkpoint has it
+    (1000 classes, the pos table at 224x224, interpolated to the bucket by
+    the extractor, as ``vipers_torch lost`` runs it), random weights from
+    seed 0 moved to the card, and with ``sparsity`` a global magnitude mask
+    ranked there. Returns (spec, params, masks or None, its bucket)."""
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    t0 = time.time()
+    spec = build_model(name)
+    hw = FAMILY_HW[spec.patch_size]
+    params = to_device(spec.init(torch.Generator().manual_seed(0)), "cuda")
+    masks = None
+    what = "no mask"
+    if sparsity:
+        masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
+                                amount=sparsity)
+        kept = sum(int(m.sum()) for m in masks.values())
+        total = sum(m.numel() for m in masks.values())
+        what = f"{total} prunable weights, sparsity {100 * (1 - kept / total):.2f}%"
+    c = spec.cfg
+    print(f"{name} {hw[0]}x{hw[1]} ({c.num_layers} layers, D {c.hidden_dim}, {c.num_heads} "
+          f"heads of {c.hidden_dim // c.num_heads}, mlp {c.mlp_dim}, patch {c.patch_size}): "
+          f"random weights from seed 0, {what} (set-up {time.time() - t0:.1f} s)")
+    return spec, params, masks, hw
+
+
+def family_buckets(hw, patch, seed):
+    """An exact-fit and a mixed-size batch of BATCH uint8 images in the
+    bucket ``hw`` at ``patch`` (the mixed images 449-512 rows by 321-384
+    columns at patch 16 and 32, 449-504 by 337-392 at 14)."""
+    rng = np.random.default_rng(seed)
+    exact = [hw] * BATCH
+    mixed = [hw] * 8 + [(int(rng.integers(449, hw[0] + 1)),
+                         int(rng.integers(hw[1] - 55, hw[1] + 1))) for _ in range(BATCH - 8)]
+    return {"exact": (make_images(rng, exact, patch), exact),
+            "mixed": (make_images(rng, mixed, patch), mixed)}
+
+
+def check_outs(tag, outs, grid):
+    """Boxes inside the grid, seeds on it; prints the background share and
+    the mean box area."""
+    for key, (box, seed, bg) in outs.items():
+        box, seed, bg = box.cpu(), seed.cpu(), bg.cpu()
+        gh, gw = grid
+        assert box.shape == (BATCH, 4) and seed.shape == (BATCH,) and bg.shape == (BATCH,)
+        assert bool(((box[:, 0] <= box[:, 1]) & (box[:, 1] <= gh)
+                     & (box[:, 2] <= box[:, 3]) & (box[:, 3] <= gw)).all())
+        assert bool(((seed >= 0) & (seed < gh * gw)).all())
+        area = float(((box[:, 1] - box[:, 0]) * (box[:, 3] - box[:, 2])).float().mean())
+        print(f"{tag} pipeline {list(key)} boxes ok, seed in background {int(bg.sum())}/{BATCH}, "
+              f"mean box area {area:.1f} patches")
+
+
+def family_launches(fa, fm, at):
+    """The launch counts a family forward can show."""
+    got = {f"flash[{k}]": n for k, n in fa.LAUNCHES.items()}
+    got.update({f"fused_mlp[D={d}]": n for d, n in fm.WIDTH_LAUNCHES.items()})
+    got["other"] = (sum(fa.PACKED_LAUNCHES.values()) + sum(fa.BWD_LAUNCHES.values())
+                    + sum(at.LAUNCHES.values()))
+    return got
+
+
+def family_pipelines(tag, spec, params, masks, hw, dtypes, counters, want, seed):
+    """The batched pipeline of one family model on its exact-fit and mixed
+    buckets in each of ``dtypes``: launches of the counted forwards against
+    ``want`` (every other count 0), sane boxes. Returns (extractors,
+    buckets, inputs, pipes, outs, launches)."""
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+
+    patch = spec.patch_size
+    buckets = family_buckets(hw, patch, seed)
+    extractors = {e: LostFeatureExtractor(spec, params, masks, compute_dtype=dt)
+                  for e, dt in (("f32", None), ("bf16", torch.bfloat16)) if e in dtypes}
+    inputs = {(e, b): extractors[e].prepare_batch(imgs, patch, exact_hw=bhw)
+              for e in extractors for b, (imgs, bhw) in buckets.items()}
+    pipes = {e: ex.make_batched_pipeline(K_PATCHES) for e, ex in extractors.items()}
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    outs = {key: pipes[key[0]](*inp) for key, inp in inputs.items()}
+    torch.cuda.synchronize()
+    got = family_launches(fa, fm, at)
+    print(f"{tag} LOST path launches ({len(outs)} forwards of {spec.cfg.num_layers} blocks, "
+          f"T = {(hw[0] // patch) * (hw[1] // patch) + 1}): "
+          f"{ {k: n for k, n in got.items() if n} }")
+    assert got == {k: want.get(k, 0) for k in got}, (got, want)
+    check_outs(tag, outs, (hw[0] // patch, hw[1] // patch))
+    return extractors, buckets, inputs, pipes, outs, got
+
+
+def family_cli(card, counters, spec, params, masks):
+    """``vipers_torch.cli.main lost --model vit_b_16 --patch-size 16 --dtype
+    bf16`` on N_JPEG fixture JPEGs (phase 6's tree) from the pruned ViT-B/16
+    written as a reference .pth (weight_orig / weight_mask): 12 flash and 12
+    fused-MLP launches (D = 768) a batch, the first batch's boxes equal to
+    the pipeline's, preds.pkl one entry an image not reported in the
+    background, the results txt equal to ``corloc`` re-scoring; e2e img/s."""
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import export_vit_torchvision, save_torch_state_dict
+    from vipers_torch.data import native
+    from vipers_torch.discovery import driver as drv
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+
+    if not native.available() and not native.pil_available():
+        print("vit_b_16 JPEG LOST: neither libjpeg nor PIL on the host: skipped")
+        return None
+    root = tempfile.mkdtemp(prefix="vipers_torch_vit_b_16_")
+    try:
+        data = os.path.join(root, "VOC2007")
+        items = voc_tree(data, N_JPEG, seed=3)
+        pth = os.path.join(root, "vit_b_16_pruned.pth")
+        save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), pth)
+        batches = cli_batches(items)
+        out = os.path.join(root, "out")
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        cli(["lost", "--model", "vit_b_16", "--arch", "vit", "--patch-size", "16",
+             "--dataset", "VOC07", "--set", "trainval", "--data-path", data,
+             "--checkpoint", pth, "--dtype", "bf16", "--batch-size", str(BATCH),
+             "--workers", "8", "--output-dir", out])
+        torch.cuda.synchronize()
+        run = dict(drv.LAST_RUN)
+        got = family_launches(fa, fm, at)
+        layers = spec.cfg.num_layers
+        want = {"flash[bfloat16]": layers * batches, "fused_mlp[D=768]": layers * batches}
+        print(f"vit_b_16 JPEG LOST [bf16] {N_JPEG} images, {batches} batches of {BATCH}: "
+              f"launches { {k: n for k, n in got.items() if n} }")
+        assert got == {k: want.get(k, 0) for k in got}, (got, want)
+        assert run["images"] == N_JPEG and run["batches"] == batches, run
+        check_first_batch("vit_b_16 bf16", pth, data, items, out, run["failed"], "bf16",
+                          model="vit_b_16")
+        rescored, txt = check_cli_outputs("vit_b_16", out, data, "trainval", items,
+                                          run["failed"])
+        ips = N_JPEG / run["decode_to_preds_seconds"]
+        print(f"vit_b_16 JPEG LOST [bf16] e2e {ips:.1f} img/s ({N_JPEG} images, first decode "
+              f"to preds.pkl {run['decode_to_preds_seconds']:.3f} s; {run['seconds']:.3f} s "
+              f"with the model load); seed in background {len(run['failed'])}; re-scored "
+              f"{rescored}, results txt {txt.strip()}; decoder {run['decoder']} ({card})")
+        return {**got, "batches": batches, "e2e_img_per_s": ips}
+    finally:
+        shutil.rmtree(root)
+
+
+def family_phase(card, counters, lost_core):
+    """The ViT family on the LOST path, full width, random weights from seed
+    0, each model's counts set to 0 just before its counted forwards:
+    ViT-B/16 (full depth, 50% global magnitude mask) f32 and bf16 on both
+    buckets (12 flash and 12 fused-MLP launches at D = 768 a bf16 batch),
+    card vs CPU, img/s and p50, then the CLI from JPEGs; vit_b_32 bf16 at
+    patch 32 (T = 193: the key-masked einsum, 0 flash and 12 fused-MLP
+    launches a batch); vit_l_16 bf16 (24 flash, 24 fused MLP at D = 1024);
+    vit_h_14 at 504x392 f32 and bf16 (32 hd-80 flash launches a batch, 32
+    fused MLP at D = 1280 in bf16), img/s and the f32 call time, card vs
+    CPU at a cut depth. Returns the launches of the family's kernel rows."""
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+
+    rows = {}
+    # ViT-B/16, the paper's pruned ViT
+    spec, params, masks, hw = family_model("vit_b_16", SPARSITY)
+    n = spec.cfg.num_layers
+    extractors, buckets, inputs, pipes, outs, got = family_pipelines(
+        "vit_b_16", spec, params, masks, hw, ("f32", "bf16"), counters,
+        {"flash[float32]": 2 * n, "flash[bfloat16]": 2 * n, "fused_mlp[D=768]": 2 * n}, seed=5)
+    print(f"vit_b_16 a bf16 batch: {got['flash[bfloat16]'] // 2} flash and "
+          f"{got['fused_mlp[D=768]'] // 2} fused-MLP launches at D = 768 (instance "
+          f"{fused_mlp_design(fm, 768)})")
+    rows["fused_ln_fc1_gelu[bf16, D=768]"] = got["fused_mlp[D=768]"]
+    agree = {b: float((outs["f32", b][0] == outs["bf16", b][0]).all(dim=1).float().mean())
+             for b in buckets}
+    print(f"vit_b_16 bf16 vs f32 on the card: boxes equal on {agree}")
+    for e, b in (("f32", "exact"), ("f32", "mixed"), ("bf16", "exact")):
+        ex = extractors[e]
+        compare_with_cpu(f"vit_b_16 {e}, {b}", spec, params, masks, ex.compute_dtype, ex,
+                         *buckets[b], lost_core)
+    for e, ex in extractors.items():
+        imgs, bhw = buckets["exact"]
+        ips, p50 = throughput(pipes[e], inputs[e, "exact"],
+                              ex.prepare_batch(imgs[:1], PATCH, exact_hw=bhw[:1]))
+        print(f"vit_b_16 throughput [{e}] {ips:.1f} img/s at B={BATCH}; p50 latency "
+              f"{p50:.2f} ms at B=1 ({card})")
+    del extractors, inputs, pipes, outs
+    torch.cuda.empty_cache()
+    cli_run = family_cli(card, counters, spec, params, masks)
+    del params, masks
+    torch.cuda.empty_cache()
+
+    # vit_b_32: T = 193 stays below the flash threshold
+    spec, params, _, hw = family_model("vit_b_32", 0)
+    n = spec.cfg.num_layers
+    extractors, buckets, inputs, pipes, _, got = family_pipelines(
+        "vit_b_32", spec, params, None, hw, ("bf16",), counters,
+        {"fused_mlp[D=768]": 2 * n}, seed=6)
+    assert (hw[0] // 32) * (hw[1] // 32) + 1 < fa.flash_min_t()
+    print(f"vit_b_32 a bf16 batch: {got['flash[bfloat16]'] // 2} flash and "
+          f"{got['fused_mlp[D=768]'] // 2} fused-MLP launches at D = 768")
+    imgs, bhw = buckets["exact"]
+    ips, p50 = throughput(pipes["bf16"], inputs["bf16", "exact"],
+                          extractors["bf16"].prepare_batch(imgs[:1], 32, exact_hw=bhw[:1]))
+    print(f"vit_b_32 throughput [bf16] {ips:.1f} img/s at B={BATCH}; p50 latency {p50:.2f} ms "
+          f"at B=1 ({card})")
+    del extractors, inputs, pipes, params
+    torch.cuda.empty_cache()
+
+    # vit_l_16: the fused MLP's D = 1024
+    spec, params, _, hw = family_model("vit_l_16", 0)
+    n = spec.cfg.num_layers
+    extractors, buckets, inputs, pipes, _, got = family_pipelines(
+        "vit_l_16", spec, params, None, hw, ("bf16",), counters,
+        {"flash[bfloat16]": 2 * n, "fused_mlp[D=1024]": 2 * n}, seed=7)
+    rows["fused_ln_fc1_gelu[bf16, D=1024]"] = got["fused_mlp[D=1024]"]
+    imgs, bhw = buckets["exact"]
+    ips, p50 = throughput(pipes["bf16"], inputs["bf16", "exact"],
+                          extractors["bf16"].prepare_batch(imgs[:1], PATCH, exact_hw=bhw[:1]))
+    print(f"vit_l_16 throughput [bf16] {ips:.1f} img/s at B={BATCH}; p50 latency {p50:.2f} ms "
+          f"at B=1 ({card})")
+    del extractors, inputs, pipes, params
+    torch.cuda.empty_cache()
+
+    # vit_h_14: 16 heads of 80 at 504x392 (T = 1009 -> 1024)
+    spec, params, _, hw = family_model("vit_h_14", 0)
+    n = spec.cfg.num_layers
+    extractors, buckets, inputs, pipes, _, got = family_pipelines(
+        "vit_h_14", spec, params, None, hw, ("f32", "bf16"), counters,
+        {"flash[float32[hd80]]": 2 * n, "flash[bfloat16[hd80]]": 2 * n,
+         "fused_mlp[D=1280]": 2 * n}, seed=8)
+    print(f"vit_h_14 a batch: {got['flash[bfloat16[hd80]]'] // 2} hd-80 flash launches (bf16; "
+          f"{got['flash[float32[hd80]]'] // 2} in f32) and {got['fused_mlp[D=1280]'] // 2} "
+          f"fused-MLP launches at D = 1280 (bf16; instance {fused_mlp_design(fm, 1280)})")
+    rows["flash_attention_fwd[bf16, hd80]"] = got["flash[bfloat16[hd80]]"]
+    rows["flash_attention_fwd[f32, hd80]"] = got["flash[float32[hd80]]"]
+    rows["fused_ln_fc1_gelu[bf16, D=1280]"] = got["fused_mlp[D=1280]"]
+    imgs, bhw = buckets["exact"]
+    ips, p50 = throughput(pipes["bf16"], inputs["bf16", "exact"],
+                          extractors["bf16"].prepare_batch(imgs[:1], 14, exact_hw=bhw[:1]))
+    print(f"vit_h_14 throughput [bf16] {ips:.1f} img/s at B={BATCH}; p50 latency {p50:.2f} ms "
+          f"at B=1 ({card})")
+    pipes["f32"](*inputs["f32", "exact"])[0].cpu()
+    t0 = time.perf_counter()
+    pipes["f32"](*inputs["f32", "exact"])[0].cpu()
+    f32_s = time.perf_counter() - t0
+    print(f"vit_h_14 [f32] one call at B={BATCH}: {1e3 * f32_s:.1f} ms "
+          f"({BATCH / f32_s:.1f} img/s) ({card})")
+    del extractors, inputs, pipes
+    torch.cuda.empty_cache()
+    # card vs CPU on the first VIT_H_CPU_LAYERS blocks of the same weights
+    import dataclasses
+
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+    from vipers_torch.models.vit import _build
+
+    cut = _build("vit_h_14", dataclasses.replace(spec.cfg, num_layers=VIT_H_CPU_LAYERS),
+                 spec.input_size)
+    cut_params = {k: v for k, v in params.items() if not k.startswith("encoder_layer_")
+                  or int(k.rsplit("_", 1)[1]) < VIT_H_CPU_LAYERS}
+    print(f"vit_h_14 card vs CPU: cut to its first {VIT_H_CPU_LAYERS} of {n} blocks and "
+          f"B={VIT_H_CPU_BATCH} (the CPU's time), f32")
+    ex = LostFeatureExtractor(cut, cut_params, None)
+    for b in ("exact", "mixed"):
+        imgs, bhw = buckets[b]
+        sub = (imgs[8:8 + VIT_H_CPU_BATCH], bhw[8:8 + VIT_H_CPU_BATCH]) if b == "mixed" else \
+            (imgs[:VIT_H_CPU_BATCH], bhw[:VIT_H_CPU_BATCH])
+        compare_with_cpu(f"vit_h_14 f32, {b}", cut, cut_params, None, torch.float32, ex, *sub,
+                         lost_core, n_cpu=VIT_H_CPU_BATCH)
+    del ex, params, cut_params
+    torch.cuda.empty_cache()
+    return rows, cli_run
+
+
 def voc_tree(root, n, seed):
     """A VOC07-layout tree of ``n`` images under ``root`` from the committed
     fixture: ``JPEGImages/`` as symlinks to fixture JPEGs drawn from
@@ -821,6 +1216,41 @@ def first_batch(items, batch):
     return buffers[sorted(buffers)[0]]
 
 
+def cli_batches(items):
+    """The driver's batch count for ``items``: BATCH images a batch in each
+    bucket, tail batches included."""
+    counts = {}
+    for _, (w, h) in items:
+        counts[bucket_of(w, h)] = counts.get(bucket_of(w, h), 0) + 1
+    return sum(-(-c // BATCH) for c in counts.values())
+
+
+def check_cli_outputs(tag, out, data, set_name, items, failed):
+    """A ``vipers_torch lost`` run's files: preds.pkl one finite box an
+    image not reported in the background, the results txt equal to
+    ``vipers_torch corloc`` re-scoring. Returns (re-scored line, txt)."""
+    import contextlib
+    import io
+    import pickle
+
+    from vipers_torch.cli.main import main as cli
+
+    with open(os.path.join(out, "preds.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    assert sorted(preds) == sorted({f"{nm}.jpg" for nm, _ in items} - set(failed)), tag
+    assert all(len(b) == 4 and all(np.isfinite(b)) for b in preds.values())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(["corloc", "--preds", os.path.join(out, "preds.pkl"), "--dataset", "VOC07",
+             "--set", set_name, "--data-path", data])
+    rescored = [ln for ln in buf.getvalue().splitlines() if ln.startswith("corloc:")]
+    with open(os.path.join(out, "results_iteration_00.txt")) as f:
+        txt = f.read()
+    assert len(rescored) == 1 and txt == f"corloc,{float(rescored[0].split()[1]):.1f},,\n", \
+        (txt, rescored)
+    return rescored[0], txt
+
+
 def jpeg_lost_phase(card, counters):
     """``vipers_torch lost`` from JPEGs to CorLoc, in this process: a
     full-width ViT-S/16 (seed 0, 224x224 pos table, 50% global magnitude
@@ -834,9 +1264,6 @@ def jpeg_lost_phase(card, counters):
     img/s (first decode to preds.pkl), the decode-only rate of the thread
     pool (and of one thread), the CPU count and the decoder. Returns each
     run's launches."""
-    import contextlib
-    import io
-    import pickle
     import shutil
     import tempfile
 
@@ -894,10 +1321,7 @@ def jpeg_lost_phase(card, counters):
                                                  N_JPEG_SHORT, True)):
             out = os.path.join(root, tag.replace(" ", "_"))
             run_items = items[:n]
-            counts = {}
-            for _, (w, h) in run_items:
-                counts[bucket_of(w, h)] = counts.get(bucket_of(w, h), 0) + 1
-            batches = sum(-(-c // BATCH) for c in counts.values())
+            batches = cli_batches(run_items)
             if packed:
                 os.environ["VIPERS_PACKED_ATTENTION"] = "1"
             try:
@@ -926,25 +1350,13 @@ def jpeg_lost_phase(card, counters):
             finally:
                 if packed:
                     del os.environ["VIPERS_PACKED_ATTENTION"]
-            with open(os.path.join(out, "preds.pkl"), "rb") as f:
-                preds = pickle.load(f)
-            assert sorted(preds) == sorted({f"{nm}.jpg" for nm, _ in run_items}
-                                           - set(run["failed"])), tag
-            assert all(len(b) == 4 and all(np.isfinite(b)) for b in preds.values())
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                cli(["corloc", "--preds", os.path.join(out, "preds.pkl"), "--dataset", "VOC07",
-                     "--set", set_name, "--data-path", data])
-            rescored = [ln for ln in buf.getvalue().splitlines() if ln.startswith("corloc:")]
-            with open(os.path.join(out, "results_iteration_00.txt")) as f:
-                txt = f.read()
-            assert len(rescored) == 1 and txt == f"corloc,{float(rescored[0].split()[1]):.1f},,\n", \
-                (txt, rescored)
+            rescored, txt = check_cli_outputs(tag, out, data, set_name, run_items,
+                                              run["failed"])
             ips = n / run["decode_to_preds_seconds"]
             print(f"JPEG LOST [{tag}] e2e {ips:.1f} img/s ({n} images, first decode to "
                   f"preds.pkl {run['decode_to_preds_seconds']:.3f} s; {run['seconds']:.3f} s "
                   f"with the model load); seed in background {len(run['failed'])}; re-scored "
-                  f"{rescored[0]}, results txt {txt.strip()}; decode only {dec_ips:.1f} img/s; "
+                  f"{rescored}, results txt {txt.strip()}; decode only {dec_ips:.1f} img/s; "
                   f"{os.cpu_count()} CPUs; decoder {run['decoder']} ({card})")
             runs[tag] = {**got, "batches": batches, "e2e_img_per_s": ips}
         return runs
@@ -952,7 +1364,7 @@ def jpeg_lost_phase(card, counters):
         shutil.rmtree(root)
 
 
-def check_first_batch(tag, pth, data, items, out, failed, dtype):
+def check_first_batch(tag, pth, data, items, out, failed, dtype, model="vit_s_16"):
     """The boxes of the run's first batch against ``make_batched_pipeline``
     on the same decoded uint8 batch, with the model loaded as the CLI loads
     it: equal wherever the seed is not in the background."""
@@ -964,7 +1376,7 @@ def check_first_batch(tag, pth, data, items, out, failed, dtype):
     from vipers_torch.discovery.lost import box_feat_to_image
 
     names = first_batch(items, BATCH)
-    spec = build_model("vit_s_16")  # 1000 classes at 224x224, as the checkpoint
+    spec = build_model(model)  # 1000 classes at 224x224, as the checkpoint
     params, masks = load_lost_checkpoint(pth, spec)
     ex = LostFeatureExtractor(spec, params, masks, device="cuda",
                               compute_dtype=torch.bfloat16 if dtype == "bf16" else None)
@@ -1204,7 +1616,9 @@ def main():
     print(f"build {time.time() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "serialized" in line:
+            if "Compiling entry" in line:  # which instance the next lines are
+                print(f"  {name}: {line.strip()[:170]}")
+            elif "registers" in line or "spill" in line or "serialized" in line:
                 print(f"  {name}: {line.strip()}")
 
     # 3. kernels against their plain versions at the main paths' shapes
@@ -1217,6 +1631,12 @@ def main():
                *check_softmax_variants(at, gen), *check_splash(sa, gen)]
     check_attention_train_rounds(at, gen)
     check_fused_mlp_wide(fm, gen)
+    # the ViT family's rows: row 1 at hd 80, row 4 at D = 768, 1024, 1280
+    for dtype in (torch.float32, torch.bfloat16):
+        kernels.append(check_flash_hd80(fa, dtype, gen))
+        torch.cuda.empty_cache()
+    kernels += check_fused_mlp_family(fm, gen)
+    torch.cuda.empty_cache()
 
     # 4. main path
     t0 = time.time()
@@ -1243,8 +1663,8 @@ def main():
     pipes = {e: ex.make_batched_pipeline(K_PATCHES) for e, ex in extractors.items()}
     torch.cuda.synchronize()
 
-    counters = (fa.LAUNCHES, fa.PACKED_LAUNCHES, fa.BWD_LAUNCHES, fm.LAUNCHES, at.LAUNCHES,
-                sa.LAUNCHES)
+    counters = (fa.LAUNCHES, fa.PACKED_LAUNCHES, fa.BWD_LAUNCHES, fm.LAUNCHES,
+                fm.WIDTH_LAUNCHES, at.LAUNCHES, sa.LAUNCHES)
     reset_counts(*counters)
     outs = {key: pipes[key[0]](*inp) for key, inp in inputs.items()}
     torch.cuda.synchronize()
@@ -1304,6 +1724,10 @@ def main():
 
     # 9. the A/B tools
     launches.update(tools_phase(counters))
+
+    # 10. the ViT family on the LOST path
+    family_rows, family_cli_run = family_phase(card, counters, lost_core)
+    launches.update(family_rows)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove
@@ -1314,6 +1738,10 @@ def main():
                    "fused_ln_fc1_gelu[bf16]": ("bf16", "fused_mlp")}.get(k["name"])
             if cli:
                 k["cli_launches"] = jpeg[cli[0]][cli[1]]
+    if family_cli_run:  # vit_b_16's CLI run, on the D = 768 row it drove
+        for k in kernels:
+            if k["name"] == "fused_ln_fc1_gelu[bf16, D=768]":
+                k["cli_launches"] = family_cli_run["fused_mlp[D=768]"]
 
     print(f"chip_smoke total {time.time() - t_start:.1f} s")
     print(card)

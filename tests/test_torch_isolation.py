@@ -81,3 +81,36 @@ def test_default_device_raises_without_a_card():
     data = str(REPO / "tests" / "data" / "torch_voc")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["lost", "--data-path", data, "--output-dir", "unused"])
+
+
+# the port's files the ViT family's slice touches: the registry and config,
+# the .pth carry-over, the CLI, the LOST driver, the flash and fused-MLP
+# wrappers, the training wrapper's refusal, the profiler and chip_smoke.py
+FAMILY_SLICE = ("vipers_torch/models/vit.py", "vipers_torch/core/checkpoint.py",
+                "vipers_torch/cli/main.py", "vipers_torch/discovery/driver.py",
+                "vipers_torch/ops/flash_attention.py", "vipers_torch/ops/fused_mlp.py",
+                "vipers_torch/ops/attention_train.py", "vipers_torch/tools/profile_lost.py",
+                "chip_smoke.py")
+
+
+@pytest.mark.parametrize("rel", FAMILY_SLICE)
+def test_family_slice_files_import_no_jax(rel):
+    path = REPO / rel
+    assert path in _port_files()
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, (rel, bad)
+
+
+@pytest.mark.parametrize("model,patch", [("vit_b_16", "16"), ("vit_b_32", "32"),
+                                         ("vit_h_14", "14")])
+def test_family_cli_default_device_raises_without_a_card(model, patch):
+    """``vipers_torch lost --model <family member>`` without ``--device``
+    runs on the card or raises: no fallback to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from vipers_torch.cli.main import main
+
+    data = str(REPO / "tests" / "data" / "torch_voc")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["lost", "--model", model, "--patch-size", patch, "--data-path", data,
+              "--output-dir", "unused"])

@@ -27,9 +27,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(b, h, t, dtype, dev, seed):
+def _qkv(b, h, t, dtype, dev, seed, hd=64):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    return [torch.randn(b, h, t, 64, generator=g).to(dev, dtype) for _ in range(3)]
+    return [torch.randn(b, h, t, hd, generator=g).to(dev, dtype) for _ in range(3)]
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-4),
@@ -60,6 +60,55 @@ def test_flash_kernel_matches_plain(cuda, dtype, atol, rtol, t):
     torch.testing.assert_close(out[1].float(), mean_v, atol=atol, rtol=rtol)
     torch.testing.assert_close(lse[1], torch.full_like(lse[1], -1e9 + np.log(t)),
                                atol=0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-4),
+                                             (torch.bfloat16, 2e-2, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1024, 1009, 769, 200, 129, 64, 33, 1])
+def test_flash_hd80_kernel_matches_plain(cuda, dtype, atol, rtol, t):
+    """The hd-80 instances (vit_h_14's heads: each row a 64-column part and
+    a 16-column tail) against the plain version at B*H = 3*4 with a ragged
+    key mask and one image (1) whose keys are all invalid: its rows are the
+    average of v over the t keys and its lse is -1e9 + log(t). T = 1024
+    with 1009 valid keys is vit_h_14's LOST bucket; the others cover
+    partial key stages and query tiles and t = 1."""
+    q, k, v = _qkv(3, 4, t, dtype, cuda, seed=80 + t, hd=80)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    valid = (torch.rand(3, t, generator=g) < 0.8).to(cuda)
+    valid[:, 0] = True
+    valid[1] = False
+    valid[2] = True
+    valid[2, 1009:] = False
+    key = "float32[hd80]" if dtype == torch.float32 else "bfloat16[hd80]"
+    n0 = dict(tfa.LAUNCHES)
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**n0, key: n0[key] + 1}
+    want, want_lse = tfa.flash_attention_plain(q, k, v, valid)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == torch.float32 else 2e-2,
+                               rtol=1e-4)
+    mean_v = v[1].float().mean(dim=1, keepdim=True).expand(4, t, 80)
+    torch.testing.assert_close(out[1].float(), mean_v, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse[1], torch.full_like(lse[1], -1e9 + np.log(t)),
+                               atol=0, rtol=1e-6)
+
+
+def test_flash_hd80_is_deterministic_and_many_tiles_a_cta(cuda):
+    """Both hd-80 instances where each CTA walks several (head, query tile)
+    pairs (B*H = 64*16 at t = 257, vit_h_14's 224x224 length): two calls
+    bit-equal, within tolerance of the plain version."""
+    for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-4), (torch.bfloat16, 2e-2, 2e-2)):
+        q, k, v = _qkv(64, 16, 257, dtype, cuda, seed=81, hd=80)
+        valid = torch.ones(64, 257, dtype=torch.bool, device=cuda)
+        valid[1::2, 200:] = False
+        first = tfa.flash_attention_fwd(q, k, v, valid)
+        second = tfa.flash_attention_fwd(q, k, v, valid)
+        want, _ = tfa.flash_attention_plain(q, k, v, valid)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(first, second))
+        torch.testing.assert_close(first[0].float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("t", [896, 769, 200, 64, 1])
@@ -116,6 +165,15 @@ def test_f32_tile_shape(cuda):
                                              "split_stages": 3, "tf32_products": 3}
 
 
+def test_hd80_tile_shapes(cuda):
+    """The hd-80 instances: bf16 on two consumer warpgroups (128 query
+    rows: their registers hold the wider accumulator), f32 with two split
+    stages (three do not fit in shared memory at 80 columns)."""
+    assert tfa.tile_shape(torch.bfloat16, 80) == {"block_q": 128, "block_k": 128, "stages": 3}
+    assert tfa.tile_shape(torch.float32, 80) == {"block_q": 128, "block_k": 32, "stages": 3,
+                                                 "split_stages": 2, "tf32_products": 3}
+
+
 @pytest.mark.parametrize("t", [1, 33, 129])
 def test_f32_forward_many_tiles_a_cta(cuda, t):
     """The f32 kernel where each CTA walks several (head, query tile) pairs
@@ -170,19 +228,22 @@ def _fused_mlp_inputs(m, d, f, dev):
     return x, w_t, b
 
 
-# (16*896, 768, 3072): vit_b's width, one consumer warpgroup; (130, 1280,
-# 5120): vit_h's, on the instance without an epilogue warpgroup (4 stages),
-# a ragged last row tile; (200, 1664, 256): the widest the kernel takes,
-# the same instance on one stage
+# (16*896, 768, 3072): vit_b's width, one consumer warpgroup; (128*896,
+# 768, 3072): vit_b_16's LOST shape at B = 128; (16*896, 1024, 4096): vit_l's
+# width; (130, 1280, 5120): vit_h's, on the instance without an epilogue
+# warpgroup (4 stages), a ragged last row tile; (200, 1664, 256): the widest
+# the kernel takes, the same instance on one stage
 @pytest.mark.parametrize("m,d,f", [(128 * 64, 384, 1536), (1000, 128, 256),
                                    (16 * 896, 768, 3072), (130, 1280, 5120),
-                                   (200, 1664, 256)])
+                                   (200, 1664, 256), (128 * 896, 768, 3072),
+                                   (16 * 896, 1024, 4096)])
 def test_fused_mlp_kernel_matches_plain(cuda, m, d, f):
     x, w_t, b = _fused_mlp_inputs(m, d, f, cuda)
     n0 = tfm.LAUNCHES["bfloat16"]
+    w0 = tfm.WIDTH_LAUNCHES.get(d, 0)
     out = tfm.fused_ln_dense_gelu_core(x, w_t, b)
     torch.cuda.synchronize()
-    assert tfm.LAUNCHES["bfloat16"] == n0 + 1
+    assert tfm.LAUNCHES["bfloat16"] == n0 + 1 and tfm.WIDTH_LAUNCHES[d] == w0 + 1
     want = tfm.fused_ln_dense_gelu_plain(x, w_t, b, 1e-6)
     scale = want.float().abs().max().item()
     assert (out.float() - want.float()).abs().max().item() <= 2e-2 * scale
@@ -230,16 +291,59 @@ def test_fused_mlp_refuses_widths_outside_the_kernel_on_the_card(cuda, d, f):
 
 @pytest.mark.parametrize("hd", [32, 80])
 def test_flash_wrappers_reject_other_head_dims_on_the_card(cuda, hd):
-    """The flash forward and backward kernels take head dim 64 only (the
-    plain versions on CPU tensors take any)."""
+    """The flash forward kernel takes head dim 64 and 80, the backward 64
+    only (the plain versions on CPU tensors take any); a refused call
+    launches nothing."""
     q, k, v = (z[..., :1].expand(-1, -1, -1, hd).contiguous()
                for z in _qkv(1, 2, 16, torch.float32, cuda, seed=hd))
     valid = torch.ones(1, 16, dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError, match="head dim 64"):
-        tfa.flash_attention_fwd(q, k, v, valid)
+    n0, b0 = dict(tfa.LAUNCHES), dict(tfa.BWD_LAUNCHES)
+    if hd not in tfa.FWD_HEAD_DIMS:
+        with pytest.raises(ValueError, match="head dim 64 or 80"):
+            tfa.flash_attention_fwd(q, k, v, valid)
     lse = torch.zeros(1, 2, 16, device=cuda)
-    with pytest.raises(ValueError, match="head dim 64"):
+    with pytest.raises(ValueError, match="head dim 64.*ROADMAP B1"):
         tfa.flash_attention_bwd(q, k, v, valid, q, lse, q, hd ** -0.5)
+    assert tfa.LAUNCHES == n0 and tfa.BWD_LAUNCHES == b0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_hd80_backward_packed_and_training_wrappers_raise(cuda, dtype):
+    """At head dim 80 the flash backward (through autograd too), the packed
+    route and the training kernels raise ValueError on the card and launch
+    nothing: their hd-80 instances are ROADMAP B1, and no call falls back to
+    plain torch. The forward through autograd launches its hd-80 kernel."""
+    from vipers_torch.ops import attention_train as tat
+
+    q, k, v = (z.requires_grad_(True) for z in _qkv(2, 16, 256, dtype, cuda, seed=82, hd=80))
+    valid = torch.ones(2, 256, dtype=torch.bool, device=cuda)
+    counts = (tfa.BWD_LAUNCHES, tfa.PACKED_LAUNCHES, tat.LAUNCHES)
+    before = [dict(c) for c in counts]
+    out = tfa.flash_attention(q, k, v, valid)
+    with pytest.raises(ValueError, match="ROADMAP B1"):
+        out.sum().backward()
+    qkv = torch.randn(2, 256, 3 * 1280, device=cuda).to(dtype)
+    assert not tfa.packed_layout_supported(1280, 16)
+    with pytest.raises(ValueError, match="no packed layout"):
+        tfa.flash_attention_packed(qkv, valid, num_heads=16)
+    x = torch.randn(3, 2, 16, 256, 80, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 64.*ROADMAP B1"):
+        tat.attention_train_packed(x, valid=valid)
+    assert [dict(c) for c in counts] == before
+
+
+def test_vit_h_style_train_step_raises_at_the_training_kernel(cuda):
+    """A bf16 training forward of an hd-80 ViT (vit_h_14's heads at patch
+    14, 224x224: T = 257) routes attention to the training kernel, as the
+    JAX package does, and that kernel refuses hd 80 on the card: a
+    ValueError, not plain torch."""
+    from vipers_torch.models.vit import ViTConfig, VisionTransformer
+
+    model = VisionTransformer(ViTConfig(14, 1, 2, 160, 320, 10), (224, 224))
+    model = model.to(cuda, torch.bfloat16).train()
+    x = torch.randn(2, 224, 224, 3, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="attention_train kernel needs head dim 64"):
+        model(x, need_attn=False)
 
 
 def _attention_train_inputs(b, h, t, dev, seed, all_invalid=False):

@@ -258,7 +258,8 @@ def test_seed_in_background_collected_or_strict(voc, monkeypatch, tmp_path, caps
 
 @pytest.mark.parametrize("flags,item", [
     (["--arch", "dino"], "A2"), (["--arch", "resnet"], "A5"), (["--arch", "swin"], "A6"),
-    (["--model", "vit_b_16"], "A3"), (["--dtype", "int8"], "A9"),
+    (["--model", "resnet50"], "A5"), (["--model", "dino_vit_small"], "A2"),
+    (["--dtype", "int8"], "A9"),
     (["--visualize", "pred"], "A11"), (["--dinoseg"], "A2"),
     (["--dinoseg-reference-bugs"], "A2"), (["--data-parallel"], "A10"),
     (["--sequence-parallel"], "A10"), (["--resnet-dilate", "2"], "A5"),

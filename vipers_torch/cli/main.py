@@ -110,7 +110,12 @@ def _refuse_unported(args):
     try:
         build_model(args.model)
     except ValueError:
-        no(f"--model {args.model}", 3)
+        # the JAX registry's other families, by name
+        family = {"resnet": 5, "vgg": 5, "mobilenet": 5, "swin": 6, "dino": 2}
+        item = next((i for f, i in family.items() if args.model.lower().startswith(f)), None)
+        if item is None:
+            raise SystemExit(f"vipers_torch lost: unknown model {args.model!r}") from None
+        no(f"--model {args.model}", item)
     if args.dtype == "int8":
         no("--dtype int8", 9)
     if args.visualize:

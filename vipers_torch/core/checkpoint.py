@@ -137,9 +137,20 @@ def infer_num_classes(params) -> Optional[int]:
     return None
 
 
+def infer_representation_size(params) -> Optional[int]:
+    """The width of the checkpoint's ``pre_logits`` Dense, or None when it
+    has none (every torchvision ViT); the LOST driver builds the module
+    with it, so the ``.pth``'s ``heads.pre_logits`` reach the module."""
+    node = params.get("pre_logits") if isinstance(params, dict) else None
+    if isinstance(node, dict) and "kernel" in node:
+        return int(node["kernel"].shape[-1])
+    return None
+
+
 def infer_vit_image_size(params, patch_size: int):
     """(H, W) the checkpoint's pos-embedding table was trained at, or None
-    when there is no table or its grid is not square."""
+    when there is no table or its grid is not square: 224 x 224 for a
+    table of 197 tokens at patch 16, 50 at patch 32, 257 at patch 14."""
     pos = params.get("pos_embedding") if isinstance(params, dict) else None
     if pos is None or getattr(pos, "ndim", 0) != 3:
         return None
@@ -235,7 +246,9 @@ _OPTIONAL = ("heads.pre_logits.", "heads.head.")
 def import_vit_torchvision(sd: Dict[str, np.ndarray], num_layers: int):
     """A normalized torchvision ViT state dict -> (flax-layout params tree,
     masks {flax path: bool array}), the inputs of
-    ``vit_state_dict_from_flax``. The head and pre-logits are optional."""
+    ``vit_state_dict_from_flax``. The head and pre-logits are optional;
+    pre-logits reach a module built with ``representation_size``
+    (``infer_representation_size``) and go back out on export."""
     to_flax = {"conv": _conv_w, "lin": np.transpose, "": lambda a: a}
     p, masks = {}, {}
     for key, path, layout, carries_mask in _vit_torchvision_table(num_layers):

@@ -37,8 +37,18 @@ namespace attn_tile {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int HD = 64;  // head dim (every wrapper rejects any other)
+// Head dim of the shared pieces (the backward's, the packed and splash
+// kernels'); the flash forward's tiles take 64 or HD + 16 = 80 as a template
+// parameter D (the wrappers reject any other).
+constexpr int HD = 64;
 constexpr float NEG = -1e9f;
+
+// Columns of a row beyond the first HD: 0, or 16 at hd 80.
+template <int D>
+__host__ __device__ constexpr int tail_cols() {
+  static_assert(D == HD || D == HD + 16, "head dim 64 or 80");
+  return D - HD;
+}
 
 // ------------------------------------------------- bf16 / Hopper (sm_90a)
 //
@@ -50,6 +60,19 @@ constexpr float NEG = -1e9f;
 // STAGES = 3 stages, each 64-wide bf16 row 128 bytes with the 128-byte
 // swizzle. That shape was the fastest of those timed at the LOST shape on
 // an H100 (128 or 192 queries, 2-4 stages; see PERF.md).
+// Head dim 80 (vit_h_14): a 160-byte row fits no one swizzle row, so each
+// row of Q, K and V is two TMA boxes from two tensor maps, its first 64
+// columns as above and a 16-column tail of 32 bytes with the 32-byte
+// swizzle in tiles of its own. S = Q K^T takes four k16 steps from the
+// 128-byte descriptors and a fifth from the tails'; O += P V is an n64
+// product on the 64-column V tile and an n16 on the tail, into the
+// accumulator's last two 8-column groups. Nothing is padded: the products
+// do the 80 columns' work and no more. The tile has two consumer
+// warpgroups (128 query rows), 128-key tiles and three stages (160 KB of
+// shared memory): with three, a consumer's 160 registers do not hold the
+// 40 accumulators a thread more, ptxas spilled 48 bytes and serialized the
+// wgmma, and the kernel took 2.50 ms at vit_h_14's LOST shape against two
+// warpgroups' 1.87 (240 registers a consumer, no spill; PERF.md).
 // full/empty mbarriers hand the buffers over; setmaxnreg moves the
 // producer's registers to the consumers.
 //
@@ -85,8 +108,46 @@ constexpr int BQ = 64 * WGS;             // query rows of a tile
 constexpr int BK = 128;                  // keys of a K/V tile
 constexpr int STAGES = 3;                // K/V tiles in the ring
 
+// Consumer warpgroups and query rows of the head-dim-D tile: WGS and BQ at
+// hd 64, two and 128 at hd 80 (registers; see above).
+template <int D>
+__host__ __device__ constexpr int wgs_of() {
+  return D == HD ? WGS : 2;
+}
+template <int D>
+__host__ __device__ constexpr int bq_of() {
+  return 64 * wgs_of<D>();
+}
+
+// The tensor maps of the rows' 16-column tails at hd 80 (boxes of 16
+// columns, 32-byte swizzle, read at column HD); none at hd 64.
+template <int TAIL>
+struct TailMaps {
+  CUtensorMap q, k, v;
+};
+template <>
+struct TailMaps<0> {};
+
+// The tails' tiles, 32 bytes a row, every tile 1024-byte aligned, and their
+// shared addresses (0 where there are none).
+template <int NWG, int KEYS, int RING, int TAIL>
+struct TailSmem {
+  bf16 qt[2][64 * NWG * TAIL];
+  bf16 kt[RING][KEYS * TAIL];
+  bf16 vt[RING][KEYS * TAIL];
+  __device__ uint32_t qt_at(int b) const { return smem_u32(qt[b]); }
+  __device__ uint32_t kt_at(int st) const { return smem_u32(kt[st]); }
+  __device__ uint32_t vt_at(int st) const { return smem_u32(vt[st]); }
+};
 template <int NWG, int KEYS, int RING>
-struct Smem {
+struct TailSmem<NWG, KEYS, RING, 0> {  // an empty base: takes no bytes
+  __device__ uint32_t qt_at(int) const { return 0; }
+  __device__ uint32_t kt_at(int) const { return 0; }
+  __device__ uint32_t vt_at(int) const { return 0; }
+};
+
+template <int NWG, int KEYS, int RING, int D = HD>
+struct Smem : TailSmem<NWG, KEYS, RING, tail_cols<D>()> {
   bf16 q[2][64 * NWG * HD];  // every tile 1024-byte aligned: the swizzle atom
   bf16 k[RING][KEYS * HD];
   bf16 v[RING][KEYS * HD];
@@ -111,10 +172,12 @@ typedef HeadViewOf<bf16> HeadView;
 // the K tile. K is [key][dim] (K-major: 16 dims = 32 bytes along the
 // swizzled row) or, with K_T, [dim][key] in 64-key swizzled tiles 8 KB
 // apart (MN-major through the transpose bit: 16 dims = 16 rows = 2048
-// bytes, the next 64 keys at the leading offset). The caller fences and
+// bytes, the next 64 keys at the leading offset). At hd 80 (D) the fifth k
+// step reads the tails' tiles, qtb and ktb, K-major. The caller fences and
 // waits.
-template <int KEYS, bool K_T = false>
-__device__ __forceinline__ void start_scores(float (&s)[KEYS / 8][4], uint32_t qb, uint32_t kb) {
+template <int KEYS, bool K_T = false, int D = HD>
+__device__ __forceinline__ void start_scores(float (&s)[KEYS / 8][4], uint32_t qb, uint32_t kb,
+                                             uint32_t qtb = 0, uint32_t ktb = 0) {
   const uint64_t dq = desc_sw128(qb, 16), dk = desc_sw128(kb, K_T ? 64 * ROW : 16);
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
@@ -123,18 +186,32 @@ __device__ __forceinline__ void start_scores(float (&s)[KEYS / 8][4], uint32_t q
     else
       wgmma_ss_n64<K_T>(s, dq + 2 * kk, dk + (K_T ? 128 : 2) * kk, kk);
   }
+  if constexpr (tail_cols<D>() > 0) {
+    static_assert(KEYS == 128 && !K_T, "the hd-80 tile: 128-key tiles of [key][dim] K");
+    wgmma_ss_n128<0>(s, desc_sw32(qtb), desc_sw32(ktb), 1);
+  }
   wgmma_commit();
 }
 
 // Start O += P V on wgmma as one group: P from registers, V MN-major
-// through the transpose bit.
-template <int KEYS>
-__device__ __forceinline__ void start_pv(float (&o)[HD / 8][4], const uint32_t (&p)[KEYS / 16][4],
-                                         uint32_t vb) {
+// through the transpose bit. At hd 80 (D) the tail's 16 columns of V (vtb)
+// go into O's last two 8-column groups by an n16 product.
+template <int KEYS, int D = HD>
+__device__ __forceinline__ void start_pv(float (&o)[D / 8][4], const uint32_t (&p)[KEYS / 16][4],
+                                         uint32_t vb, uint32_t vtb = 0) {
   const uint64_t dv = desc_sw128(vb, 1024);
+  float (&oh)[HD / 8][4] = *reinterpret_cast<float (*)[HD / 8][4]>(&o[0]);
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk)  // 16 keys = 2048 bytes
-    wgmma_rs_n64_tb(o, p[kk], dv + 128 * kk);
+    wgmma_rs_n64_tb(oh, p[kk], dv + 128 * kk);
+  if constexpr (tail_cols<D>() > 0) {
+    float (&ot)[tail_cols<D>() / 8][4] =
+        *reinterpret_cast<float (*)[tail_cols<D>() / 8][4]>(&o[HD / 8]);
+    const uint64_t dvt = desc_sw32(vtb);
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk)  // 16 keys = 512 bytes
+      wgmma_rs_n16_tb(ot, p[kk], dvt + 32 * kk);
+  }
   wgmma_commit();
 }
 
@@ -210,12 +287,12 @@ __device__ __forceinline__ void softmax_scores(float (&s)[KEYS / 8][4], float (&
 
 // O times alpha, and p rounded to bf16 as A fragments: the C layout of key
 // groups 2kk and 2kk+1 is the A layout of the 16-key step kk.
-template <int KEYS>
-__device__ __forceinline__ void rescale_pack(float (&o)[HD / 8][4], const float (&al)[2],
+template <int KEYS, int D = HD>
+__device__ __forceinline__ void rescale_pack(float (&o)[D / 8][4], const float (&al)[2],
                                              const float (&s)[KEYS / 8][4],
                                              uint32_t (&p)[KEYS / 16][4]) {
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
+  for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] *= al[e / 2];
 #pragma unroll
@@ -240,21 +317,26 @@ __host__ __device__ constexpr int tile_threads() {
 // n_tiles / tiles-a-head - 1) to its HeadView: the only difference between
 // the flash, packed and splash kernels. map_q boxes 64 * NWG rows, map_v
 // KEYS rows, map_k KEYS rows (or 64 dims of 64 keys with K_T), 64 columns
-// each.
-template <class Layout, int NWG, int KEYS, int RING, bool K_T, bool MASKED>
+// each. D: the head dim, 64 or 80; at 80 `tails` holds the maps of the
+// rows' last 16 columns, boxes of the same rows (last, so that the hd-64
+// instances' parameters lie where they lay before hd 80).
+template <class Layout, int NWG, int KEYS, int RING, bool K_T, bool MASKED, int D = HD>
 __global__ void __launch_bounds__(tile_threads<NWG>(), 1)
 fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
          const __grid_constant__ CUtensorMap map_v, const Layout lay, int t, int n_tiles,
-         float scale_log2) {
+         float scale_log2, const __grid_constant__ TailMaps<tail_cols<D>()> tails) {
   constexpr int TQ = 64 * NWG;        // query rows of a tile
   constexpr int CONSUMERS = 4 * NWG;  // consumer warps
   // Registers a thread: R0 at launch (the launch bounds' share, in 8s),
   // CREGS for a consumer, 24 for the producer. setmaxnreg.inc draws only on
   // what the producer warpgroup gave back, and waits for it forever.
+  // At hd 80 the consumers take all that the producer gives back (its 40
+  // accumulators a thread more).
   constexpr int R0 = (65536 / tile_threads<NWG>()) & ~7;
-  constexpr int CREGS = R0 < 160 ? 160 : R0;
+  constexpr int CMAX = (R0 + (R0 - 24) / NWG) & ~7;
+  constexpr int CREGS = D > HD ? CMAX : (R0 < 160 ? 160 : R0);
   static_assert(NWG * 128 * (CREGS - R0) <= 128 * (R0 - 24), "consumer registers");
-  typedef Smem<NWG, KEYS, RING> Shared;
+  typedef Smem<NWG, KEYS, RING, D> Shared;
   extern __shared__ __align__(128) char smem_dyn[];
   Shared& s = *reinterpret_cast<Shared*>((reinterpret_cast<uintptr_t>(smem_dyn) + 1023) &
                                          ~uintptr_t(1023));
@@ -283,12 +365,14 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
         const HeadView hv = lay.head(tile / nq);
         const int qb = i & 1;
         mbar_wait(&s.q_empty[qb], ((i >> 1) & 1) ^ 1);
-        mbar_expect_tx(&s.q_full[qb], TQ * ROW);
+        mbar_expect_tx(&s.q_full[qb], TQ * D * 2);
         tma_load_3d(s.q[qb], &map_q, &s.q_full[qb], hv.qcol, (tile % nq) * TQ, hv.z);
+        if constexpr (tail_cols<D>() > 0)
+          tma_load_3d(s.qt[qb], &tails.q, &s.q_full[qb], hv.qcol + HD, (tile % nq) * TQ, hv.z);
         for (int j = 0; j < n_kt; ++j, ++it) {
           const int st = it % RING;
           mbar_wait(&s.kv_empty[st], ((it / RING) & 1) ^ 1);
-          mbar_expect_tx(&s.kv_full[st], 2 * KEYS * ROW);
+          mbar_expect_tx(&s.kv_full[st], 2 * KEYS * D * 2);
           if constexpr (K_T) {
 #pragma unroll
             for (int h = 0; h < KEYS / 64; ++h)
@@ -298,6 +382,10 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
             tma_load_3d(s.k[st], &map_k, &s.kv_full[st], hv.kcol, j * KEYS, hv.z);
           }
           tma_load_3d(s.v[st], &map_v, &s.kv_full[st], hv.vcol, j * KEYS, hv.z);
+          if constexpr (tail_cols<D>() > 0) {
+            tma_load_3d(s.kt[st], &tails.k, &s.kv_full[st], hv.kcol + HD, j * KEYS, hv.z);
+            tma_load_3d(s.vt[st], &tails.v, &s.kv_full[st], hv.vcol + HD, j * KEYS, hv.z);
+          }
         }
       }
     }
@@ -313,9 +401,9 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
       const int qb = i & 1;
       mbar_wait(&s.q_full[qb], (i >> 1) & 1);
 
-      float o[HD / 8][4], m[2] = {NEG2, NEG2}, l[2] = {0.f, 0.f};
+      float o[D / 8][4], m[2] = {NEG2, NEG2}, l[2] = {0.f, 0.f};
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 
@@ -323,6 +411,7 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
       // one tile runs while the tensor cores multiply the last one.
       {
         const uint32_t qs = smem_u32(s.q[qb]) + (warp / 4) * 64 * ROW;
+        const uint32_t qts = s.qt_at(qb) + (warp / 4) * 64 * 2 * tail_cols<D>();
         // the softmax's scale: the mask scales masked tiles itself
         auto scores_scale = [&](float (&sc)[KEYS / 8][4], int k0) {
           if constexpr (MASKED)
@@ -337,12 +426,12 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
           mbar_wait(&s.kv_full[prev], (it / RING) & 1);
           float sc[KEYS / 8][4];
           wgmma_fence();
-          start_scores<KEYS, K_T>(sc, qs, smem_u32(s.k[prev]));
+          start_scores<KEYS, K_T, D>(sc, qs, smem_u32(s.k[prev]), qts, s.kt_at(prev));
           wgmma_wait<0>();
           fence_regs(sc);
           if (n_kt == 1 && lane == 0) mbar_arrive(&s.q_empty[qb]);
           softmax_scores<KEYS>(sc, m, l, al, scores_scale(sc, 0));
-          rescale_pack<KEYS>(o, al, sc, p);
+          rescale_pack<KEYS, D>(o, al, sc, p);
           ++it;
         }
         for (int j = 1; j < n_kt; ++j, ++it) {
@@ -351,8 +440,8 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
           float sc[KEYS / 8][4];
           fence_regs(o);
           wgmma_fence();
-          start_scores<KEYS, K_T>(sc, qs, smem_u32(s.k[st]));
-          start_pv<KEYS>(o, p, smem_u32(s.v[prev]));
+          start_scores<KEYS, K_T, D>(sc, qs, smem_u32(s.k[st]), qts, s.kt_at(st));
+          start_pv<KEYS, D>(o, p, smem_u32(s.v[prev]), s.vt_at(prev));
           wgmma_wait<1>();  // S ready; P V may still run
           fence_regs(sc);
           if (j == n_kt - 1 && lane == 0) mbar_arrive(&s.q_empty[qb]);
@@ -360,12 +449,12 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
           wgmma_wait<0>();
           fence_regs(o);
           if (lane == 0) mbar_arrive(&s.kv_empty[prev]);
-          rescale_pack<KEYS>(o, al, sc, p);
+          rescale_pack<KEYS, D>(o, al, sc, p);
           prev = st;
         }
         fence_regs(o);
         wgmma_fence();
-        start_pv<KEYS>(o, p, smem_u32(s.v[prev]));
+        start_pv<KEYS, D>(o, p, smem_u32(s.v[prev]), s.vt_at(prev));
         wgmma_wait<0>();
         fence_regs(o);
         if (lane == 0) mbar_arrive(&s.kv_empty[prev]);
@@ -385,7 +474,7 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
         if (row >= t) continue;
         bf16* orow = hv.o + (size_t)row * hv.ldo + 2 * tg;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
+        for (int dt = 0; dt < D / 8; ++dt)
           *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
               __floats2bfloat162_rn(o[dt][2 * r] * inv[r], o[dt][2 * r + 1] * inv[r]);
         if (hv.lse != nullptr && tg == 0)
@@ -397,34 +486,39 @@ fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUte
 
 // ------------------------------------------------------------------ host
 
-// Launch fwd_bf16<Layout, NWG, KEYS, RING, K_T, MASKED> over n_heads heads
-// of t tokens: `maps` builds the three tensor maps (fn(map_q, map_k, map_v)
-// -> error) with the boxes the kernel reads. The kernel's shared-memory limit
-// and the SM count are looked up once a device, not at every launch.
-template <class Layout, int NWG, int KEYS, int RING, bool K_T, bool MASKED, class Maps>
+// Launch fwd_bf16<Layout, NWG, KEYS, RING, K_T, MASKED, D> over n_heads
+// heads of t tokens: `maps` builds the three tensor maps (fn(map_q, map_k,
+// map_v) -> error) with the boxes the kernel reads; at hd 80 `tails` holds
+// the tails' maps. The kernel's shared-memory limit and the SM count are
+// looked up once a device, not at every launch.
+template <class Layout, int NWG, int KEYS, int RING, bool K_T, bool MASKED, int D = HD,
+          class Maps>
 int launch_tile(const Maps& maps, const Layout& lay, int n_heads, int t, float scale,
-                cudaStream_t stream) {
+                cudaStream_t stream, const TailMaps<tail_cols<D>()>& tails = {}) {
   CUtensorMap mq, mk, mv;
   int err = maps(&mq, &mk, &mv);
   if (err != 0) return err;
   static LaunchSetup setup;
-  const auto kernel = fwd_bf16<Layout, NWG, KEYS, RING, K_T, MASKED>;
-  constexpr int smem = (int)sizeof(Smem<NWG, KEYS, RING>) + 1024;  // + the alignment slack
+  const auto kernel = fwd_bf16<Layout, NWG, KEYS, RING, K_T, MASKED, D>;
+  constexpr int smem = (int)sizeof(Smem<NWG, KEYS, RING, D>) + 1024;  // + the alignment slack
+  static_assert(smem <= 232448, "bf16 tile shared memory");
   int sms = 0;
   err = setup.sms(kernel, smem, &sms);
   if (err != 0) return err;
   const int n_tiles = n_heads * ((t + 64 * NWG - 1) / (64 * NWG));
   kernel<<<n_tiles < sms ? n_tiles : sms, tile_threads<NWG>(), smem, stream>>>(
-      mq, mk, mv, lay, t, n_tiles, scale * LOG2E);
+      mq, mk, mv, lay, t, n_tiles, scale * LOG2E, tails);
   return (int)cudaGetLastError();
 }
 
-// The flash and packed kernels' launch: the tile WGS x BK x STAGES, masked;
-// Q in boxes of BQ rows, K and V of BK.
-template <class Layout, class Maps>
+// The flash and packed kernels' launch: the tile wgs_of<D>() x BK x
+// STAGES, masked; Q in boxes of bq_of<D>() rows (BQ at hd 64), K and V of
+// BK; head dim D.
+template <class Layout, int D = HD, class Maps>
 int launch_bf16(const Maps& maps, const Layout& lay, int n_heads, int t, float scale,
-                cudaStream_t stream) {
-  return launch_tile<Layout, WGS, BK, STAGES, false, true>(maps, lay, n_heads, t, scale, stream);
+                cudaStream_t stream, const TailMaps<tail_cols<D>()>& tails = {}) {
+  return launch_tile<Layout, wgs_of<D>(), BK, STAGES, false, true, D>(maps, lay, n_heads, t,
+                                                                      scale, stream, tails);
 }
 
 // ------------------------------------------ f32 on TF32 wgmma: shared blocks
@@ -440,19 +534,27 @@ int launch_bf16(const Maps& maps, const Layout& lay, int n_heads, int t, float s
 
 constexpr int TF32_TERMS = 3;  // TF32 products an f32 product
 
+// 32-column parts of an f32 row of D columns in shared memory (3 at hd 80:
+// TMA zero-fills columns 80-95 of the last, which no product reads).
+template <int D>
+__host__ __device__ constexpr int f32_parts() {
+  return (D + 31) / 32;
+}
+
 template <class Shared>
 __device__ __forceinline__ Shared& aligned_smem(char* raw) {
   return *reinterpret_cast<Shared*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
 }
 
-// One (ROWS x 64) f32 box of `map` at column `col`, row `row`, outer index
-// z into `dst`, as two 32-column loads into its halves (f32_at), completing
-// on `bar`.
-template <int ROWS>
+// One (ROWS x D) f32 box of `map` at column `col`, row `row`, outer index
+// z into `dst`, as 32-column loads into its parts (f32_at; two at hd 64),
+// completing on `bar`.
+template <int ROWS, int D = HD>
 __device__ __forceinline__ void tma_load_f32(float* dst, const CUtensorMap* map, uint64_t* bar,
                                              int col, int row, int z) {
-  tma_load_3d(dst, map, bar, col, row, z);
-  tma_load_3d(dst + ROWS * 32, map, bar, col + 32, row, z);
+#pragma unroll
+  for (int p = 0; p < f32_parts<D>(); ++p)
+    tma_load_3d(dst + p * ROWS * 32, map, bar, col + 32 * p, row, z);
 }
 
 __device__ __forceinline__ void split4(float4 x, float4& b, float4& s) {
@@ -479,9 +581,10 @@ __device__ __forceinline__ void split_rows(float* big, float* small, int r0, int
 
 // A raw 32-row f32 stage (TMA's layout) into TF32 big and small copies in
 // the same layout (unless b is null) and, unless tb is null, into a
-// transposed [dim][row] tile with the rows in tf32_perm order, big and
-// small: row `lane` and columns 8 warp .. 8 warp + 7 a thread, warp 0-7 (a
-// warp's 32 lanes reach 32 distinct banks in every store).
+// transposed [dim][row] tile of D dims with the rows in tf32_perm order, big
+// and small: row `lane` and columns 8 warp .. 8 warp + 7 a thread, warp 0 ..
+// D / 8 - 1 (a warp's 32 lanes reach 32 distinct banks in every store).
+template <int D = HD>
 __device__ __forceinline__ void split_stage(const float* raw, float* b, float* s, float* tb,
                                             float* ts, int warp, int lane) {
   const int col = tf32_perm(lane);
@@ -498,8 +601,8 @@ __device__ __forceinline__ void split_stage(const float* raw, float* b, float* s
       const float eb[4] = {xb.x, xb.y, xb.z, xb.w}, es[4] = {xs.x, xs.y, xs.z, xs.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        tb[f32_at<64>(c + e, col)] = eb[e];
-        ts[f32_at<64>(c + e, col)] = es[e];
+        tb[f32_at<D>(c + e, col)] = eb[e];
+        ts[f32_at<D>(c + e, col)] = es[e];
       }
     }
   }
@@ -528,42 +631,60 @@ __device__ __forceinline__ void product_ss(float (&d)[4][4], uint32_t ab, uint32
 // so one instruction in three adds at the sum's full magnitude.
 enum Tf32Order { BY_STEP, SMALL_FIRST };
 
-// Start D (64 x 64) {=, +=} A B over 32 k, every k step as three TF32
-// products: A from registers in tf32_a_frag's order (big ab, small as), B a
-// [64][32] K-major tile with its k rows in tf32_perm order (bb, bs);
-// scale_d = 0 overwrites D. One group.
-template <Tf32Order ORDER = BY_STEP>
-__device__ __forceinline__ void product_rs(float (&d)[8][4], const float (&ab)[4][4],
+// Start D (64 x N) {=, +=} A B over 32 k, every k step as three TF32
+// products: A from registers in tf32_a_frag's order (big ab, small as), B an
+// [N][32] K-major tile with its k rows in tf32_perm order (bb, bs);
+// scale_d = 0 overwrites D. N = 64, or 80 (hd 80: an n64 product on rows
+// 0-63 of B and an n16 on rows 64-79, into D's last two 8-column groups).
+// One group.
+template <Tf32Order ORDER = BY_STEP, int N = HD>
+__device__ __forceinline__ void product_rs(float (&d)[N / 8][4], const float (&ab)[4][4],
                                            const float (&as)[4][4], uint32_t bb, uint32_t bs,
                                            int scale_d = 1) {
+  constexpr int TAIL = tail_cols<N>();
+  constexpr uint32_t TAIL_AT = HD * 128;  // bytes to B's row 64
+  float (&dh)[HD / 8][4] = *reinterpret_cast<float (*)[HD / 8][4]>(&d[0]);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    wgmma_tf32_rs_n64(d, as[kk], desc_f32<64>(bb, kk), kk == 0 ? scale_d : 1);
-    wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bs, kk), 1);
-    if constexpr (ORDER == BY_STEP) wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bb, kk), 1);
+    wgmma_tf32_rs_n64(dh, as[kk], desc_f32<64>(bb, kk), kk == 0 ? scale_d : 1);
+    wgmma_tf32_rs_n64(dh, ab[kk], desc_f32<64>(bs, kk), 1);
+    if constexpr (ORDER == BY_STEP) wgmma_tf32_rs_n64(dh, ab[kk], desc_f32<64>(bb, kk), 1);
+    if constexpr (TAIL > 0) {
+      float (&dt)[TAIL / 8][4] = *reinterpret_cast<float (*)[TAIL / 8][4]>(&d[HD / 8]);
+      wgmma_tf32_rs_n16(dt, as[kk], desc_f32<64>(bb + TAIL_AT, kk), kk == 0 ? scale_d : 1);
+      wgmma_tf32_rs_n16(dt, ab[kk], desc_f32<64>(bs + TAIL_AT, kk), 1);
+      if constexpr (ORDER == BY_STEP)
+        wgmma_tf32_rs_n16(dt, ab[kk], desc_f32<64>(bb + TAIL_AT, kk), 1);
+    }
   }
   if constexpr (ORDER == SMALL_FIRST) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs_n64(d, ab[kk], desc_f32<64>(bb, kk), 1);
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_tf32_rs_n64(dh, ab[kk], desc_f32<64>(bb, kk), 1);
+      if constexpr (TAIL > 0) {
+        float (&dt)[TAIL / 8][4] = *reinterpret_cast<float (*)[TAIL / 8][4]>(&d[HD / 8]);
+        wgmma_tf32_rs_n16(dt, ab[kk], desc_f32<64>(bb + TAIL_AT, kk), 1);
+      }
+    }
   }
 }
 
-// Start D (64 x 32) = A B^T over the 64 dims, every k step as three TF32
-// products: A from registers (load_a_f32's: big ab, small as), B a 32-row
-// K-major tile (bb, bs). One group.
-template <Tf32Order ORDER = BY_STEP>
-__device__ __forceinline__ void product_rs_n32(float (&d)[4][4], const float (&ab)[HD / 8][4],
-                                               const float (&as)[HD / 8][4], uint32_t bb,
+// Start D (64 x 32) = A B^T over the K dims (64, or 80 at hd 80), every k
+// step as three TF32 products: A from registers (load_a_f32's: big ab,
+// small as), B a 32-row K-major tile (bb, bs) in 32-column parts. One group.
+template <Tf32Order ORDER = BY_STEP, int K = HD>
+__device__ __forceinline__ void product_rs_n32(float (&d)[4][4], const float (&ab)[K / 8][4],
+                                               const float (&as)[K / 8][4], uint32_t bb,
                                                uint32_t bs) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk) {
+  for (int kk = 0; kk < K / 8; ++kk) {
     wgmma_tf32_rs_n32(d, as[kk], desc_f32<32>(bb, kk), kk);
     wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bs, kk), 1);
     if constexpr (ORDER == BY_STEP) wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bb, kk), 1);
   }
   if constexpr (ORDER == SMALL_FIRST) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 8; ++kk) wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bb, kk), 1);
+    for (int kk = 0; kk < K / 8; ++kk) wgmma_tf32_rs_n32(d, ab[kk], desc_f32<32>(bb, kk), 1);
   }
 }
 
@@ -579,7 +700,7 @@ __device__ __forceinline__ void product_rs_n32(float (&d)[4][4], const float (&a
 // and its four warps split each stage: K into TF32 big and small [key][dim]
 // (K-major for S = Q K^T as it stands), V into a transposed [dim][key]
 // copy, big and small (O += P V needs V^T K-major: TF32 wgmma has no
-// transpose bit), into one of F32_SPLITS buffers handed to the consumers by
+// transpose bit), into one of f32_splits() buffers handed to the consumers by
 // full/empty mbarriers. So the split runs beside the consumers' products
 // and softmax, and the consumer warpgroups never wait for each other.
 //
@@ -594,12 +715,22 @@ __device__ __forceinline__ void product_rs_n32(float (&d)[4][4], const float (&a
 // max(l, 1e-20), O / l_safe, lse = m ln 2 + log(l_safe) (exactly -1e9 +
 // log(t) on a row that saw only masked keys); query rows beyond t are not
 // written.
+//
+// Head dim 80 (D): rows of Q, K and the raw stages are three 32-column parts
+// in shared memory, the last one's columns 80-95 zero from TMA and never
+// read; S takes 10 k steps, P V an n64 and an n16 product on the 80-row V^T
+// (product_rs). Shared memory holds two split stages at hd 80 (three at hd
+// 64): 210 KB.
 
 constexpr int F32_WGS = 2;            // consumer warpgroups, 64 query rows each
 constexpr int F32_BQ = 64 * F32_WGS;  // query rows of a tile
 constexpr int F32_BK = 32;            // keys of a K/V stage: one lane a key in the split
 constexpr int F32_STAGES = 3;         // raw K/V stages in the producer's TMA ring
-constexpr int F32_SPLITS = 3;         // split stages handed to the consumers
+// split stages handed to the consumers: three, two at hd 80 (shared memory)
+template <int D>
+__host__ __device__ constexpr int f32_splits() {
+  return D == HD ? 3 : 2;
+}
 constexpr int F32_CONSUMERS = 4 * F32_WGS;
 constexpr int F32_THREADS = tile_threads<F32_WGS>();
 constexpr int F32_SPLIT_BAR = 1;      // named barrier of the producer warpgroup
@@ -614,20 +745,27 @@ static_assert(F32_WGS * 128 * (F32_CREGS - F32_R0) <= 128 * (F32_R0 - F32_PREGS)
               "consumer registers");
 
 // One split stage: K [key][dim] and V^T [dim][key in tf32_perm order],
-// TF32 big and small, each 1024-byte aligned.
+// TF32 big and small, each 1024-byte aligned; D the head dim.
+template <int D>
 struct alignas(1024) F32Split {
-  float kb[F32_BK * HD], ks[F32_BK * HD];
-  float vtb[HD * F32_BK], vts[HD * F32_BK];
+  float kb[F32_BK * 32 * f32_parts<D>()], ks[F32_BK * 32 * f32_parts<D>()];
+  float vtb[D * F32_BK], vts[D * F32_BK];
 };
 
+template <int D>
 struct alignas(1024) F32Shared {
-  float q[F32_BQ * HD];  // the tile's Q, until held as register A
-  F32Split split[F32_SPLITS];
-  float raw_k[F32_STAGES][F32_BK * HD], raw_v[F32_STAGES][F32_BK * HD];  // the TMA ring
-  uint64_t q_full, q_empty, raw_full[F32_STAGES], split_full[F32_SPLITS], split_empty[F32_SPLITS];
+  static constexpr int SPLITS = f32_splits<D>(), COLS = 32 * f32_parts<D>();
+  float q[F32_BQ * COLS];  // the tile's Q, until held as register A
+  F32Split<D> split[SPLITS];
+  float raw_k[F32_STAGES][F32_BK * COLS], raw_v[F32_STAGES][F32_BK * COLS];  // the TMA ring
+  uint64_t q_full, q_empty, raw_full[F32_STAGES], split_full[SPLITS], split_empty[SPLITS];
 };
-constexpr int F32_SMEM = (int)sizeof(F32Shared) + 1024;  // + the alignment slack
-static_assert(F32_SMEM <= 232448, "f32 tile shared memory");
+template <int D>
+constexpr int f32_smem() {
+  return (int)sizeof(F32Shared<D>) + 1024;  // + the alignment slack
+}
+static_assert(f32_smem<HD>() <= 232448 && f32_smem<HD + 16>() <= 232448,
+              "f32 tile shared memory");
 
 // The mask of keys k0 .. k0 + 31 on this thread's raw scores of a stage
 // (columns 8j + 2tg + e%2), as mask_scores does it for a bf16 tile: one
@@ -654,13 +792,14 @@ __device__ __forceinline__ float mask_stage(float (&s)[F32_BK / 8][4], const uin
 
 // O plus the last stage's P V (pv), times alpha, and p as split TF32 A
 // fragments of this stage's P V (tf32_a_frag).
-__device__ __forceinline__ void rescale_split_p(float (&o)[HD / 8][4], const float (&pv)[HD / 8][4],
+template <int D>
+__device__ __forceinline__ void rescale_split_p(float (&o)[D / 8][4], const float (&pv)[D / 8][4],
                                                 const float (&al)[2],
                                                 const float (&sa)[F32_BK / 8][4],
                                                 float (&pb)[F32_BK / 8][4],
                                                 float (&ps)[F32_BK / 8][4]) {
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
+  for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = (o[dt][e] + pv[dt][e]) * al[e / 2];
 #pragma unroll
@@ -669,37 +808,39 @@ __device__ __forceinline__ void rescale_split_p(float (&o)[HD / 8][4], const flo
 
 // The producer's load of Q for this CTA's n-th tile, `tile`, once the
 // consumers hold the last one in registers.
-template <class Layout>
-__device__ __forceinline__ void load_q_f32(F32Shared& s, const CUtensorMap* map_q,
+template <class Layout, int D>
+__device__ __forceinline__ void load_q_f32(F32Shared<D>& s, const CUtensorMap* map_q,
                                            const Layout& lay, int tile, int nq, int n) {
   const HeadViewOf<float> hv = lay.head(tile / nq);
   mbar_wait(&s.q_empty, (n & 1) ^ 1);
-  mbar_expect_tx(&s.q_full, F32_BQ * HD * 4);
-  tma_load_f32<F32_BQ>(s.q, map_q, &s.q_full, hv.qcol, (tile % nq) * F32_BQ, hv.z);
+  mbar_expect_tx(&s.q_full, F32_BQ * F32Shared<D>::COLS * 4);
+  tma_load_f32<F32_BQ, D>(s.q, map_q, &s.q_full, hv.qcol, (tile % nq) * F32_BQ, hv.z);
 }
 
 // Raw K/V of this CTA's stage n into its ring slot.
-template <class Layout>
-__device__ __forceinline__ void load_stage_f32(F32Shared& s, const CUtensorMap* map_k,
+template <class Layout, int D>
+__device__ __forceinline__ void load_stage_f32(F32Shared<D>& s, const CUtensorMap* map_k,
                                                const CUtensorMap* map_v, const Layout& lay,
                                                uint32_t n, int n_kt, int nq) {
   const int tile = blockIdx.x + (int)(n / n_kt) * gridDim.x, j = n % n_kt;
   const HeadViewOf<float> hv = lay.head(tile / nq);
   const int st = n % F32_STAGES;
-  mbar_expect_tx(&s.raw_full[st], 2 * F32_BK * HD * 4);
-  tma_load_f32<F32_BK>(s.raw_k[st], map_k, &s.raw_full[st], hv.kcol, j * F32_BK, hv.z);
-  tma_load_f32<F32_BK>(s.raw_v[st], map_v, &s.raw_full[st], hv.vcol, j * F32_BK, hv.z);
+  mbar_expect_tx(&s.raw_full[st], 2 * F32_BK * F32Shared<D>::COLS * 4);
+  tma_load_f32<F32_BK, D>(s.raw_k[st], map_k, &s.raw_full[st], hv.kcol, j * F32_BK, hv.z);
+  tma_load_f32<F32_BK, D>(s.raw_v[st], map_v, &s.raw_full[st], hv.vcol, j * F32_BK, hv.z);
 }
 
 // The kernel. Layout maps a head index to its HeadViewOf<float>; map_q
-// boxes F32_BQ rows, map_k and map_v F32_BK rows, 32 columns each.
-template <class Layout>
+// boxes F32_BQ rows, map_k and map_v F32_BK rows, 32 columns each; D the
+// head dim, 64 or 80.
+template <class Layout, int D = HD>
 __global__ void __launch_bounds__(F32_THREADS, 1)
 fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
         const __grid_constant__ CUtensorMap map_v, const Layout lay, int t, int n_tiles,
         float scale_log2) {
+  constexpr int SPLITS = F32Shared<D>::SPLITS;
   extern __shared__ __align__(128) char smem_dyn[];
-  F32Shared& s = aligned_smem<F32Shared>(smem_dyn);
+  F32Shared<D>& s = aligned_smem<F32Shared<D>>(smem_dyn);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nq = (t + F32_BQ - 1) / F32_BQ, n_kt = (t + F32_BK - 1) / F32_BK;
   const int cta_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
@@ -709,7 +850,7 @@ fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
     mbar_init(&s.q_full, 1);
     mbar_init(&s.q_empty, F32_CONSUMERS);
     for (int i = 0; i < F32_STAGES; ++i) mbar_init(&s.raw_full[i], 1);
-    for (int i = 0; i < F32_SPLITS; ++i) {
+    for (int i = 0; i < SPLITS; ++i) {
       mbar_init(&s.split_full[i], 4);  // the producer warpgroup's warps
       mbar_init(&s.split_empty[i], F32_CONSUMERS);
     }
@@ -727,22 +868,25 @@ fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
     }
     for (uint32_t n = 0; n < total; ++n) {
       const int st = n % F32_STAGES;
-      F32Split& sp = s.split[n % F32_SPLITS];
+      F32Split<D>& sp = s.split[n % SPLITS];
       if (pt == 0) {  // the next tile's Q as this tile's last stage is split
         const int ti = n / n_kt;
         if ((int)(n % n_kt) == n_kt - 1 && ti + 1 < cta_tiles)
           load_q_f32(s, &map_q, lay, blockIdx.x + (ti + 1) * gridDim.x, nq, ti + 1);
       }
       mbar_wait(&s.raw_full[st], (n / F32_STAGES) & 1);
-      mbar_wait(&s.split_empty[n % F32_SPLITS], ((n / F32_SPLITS) & 1) ^ 1);
+      mbar_wait(&s.split_empty[n % SPLITS], ((n / SPLITS) & 1) ^ 1);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {  // 8 dims a warp, twice
-        split_stage(s.raw_k[st], sp.kb, sp.ks, nullptr, nullptr, pw + 4 * h, lane);
-        split_stage(s.raw_v[st], nullptr, nullptr, sp.vtb, sp.vts, pw + 4 * h, lane);
+      for (int h = 0; h < (D / 8 + 3) / 4; ++h) {  // 8 dims a warp: twice, or 3 times at hd 80
+        const int w = pw + 4 * h;
+        if (D % 32 == 0 || w < D / 8) {
+          split_stage<D>(s.raw_k[st], sp.kb, sp.ks, nullptr, nullptr, w, lane);
+          split_stage<D>(s.raw_v[st], nullptr, nullptr, sp.vtb, sp.vts, w, lane);
+        }
       }
       fence_proxy_async();
       __syncwarp();
-      if (lane == 0) mbar_arrive(&s.split_full[n % F32_SPLITS]);
+      if (lane == 0) mbar_arrive(&s.split_full[n % SPLITS]);
       bar_sync(F32_SPLIT_BAR, 128);  // the raw slot is read: refill it
       if (pt == 0 && n + F32_STAGES < total)
         load_stage_f32(s, &map_k, &map_v, lay, n + F32_STAGES, n_kt, nq);
@@ -757,43 +901,43 @@ fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
       const int q0 = (tile % nq) * F32_BQ;
       // this warp's Q rows as register A, split; then Q is free
       mbar_wait(&s.q_full, i & 1);
-      float qfb[HD / 8][4], qfs[HD / 8][4];
-      load_a_f32<F32_BQ>(s.q, 16 * warp + g, tg, qfb, qfs);
+      float qfb[D / 8][4], qfs[D / 8][4];
+      load_a_f32<F32_BQ, D>(s.q, 16 * warp + g, tg, qfb, qfs);
       __syncwarp();
       if (lane == 0) mbar_arrive(&s.q_empty);
 
       // O, and the last stage's P V in its own accumulator, added to O in
       // f32 (so the tensor cores add at a stage's magnitude, not O's)
-      float o[HD / 8][4], pv[HD / 8][4], m[2] = {NEG2, NEG2}, l[2] = {0.f, 0.f};
+      float o[D / 8][4], pv[D / 8][4], m[2] = {NEG2, NEG2}, l[2] = {0.f, 0.f};
       float pb[F32_BK / 8][4], ps[F32_BK / 8][4];  // P of the last stage, split
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[dt][e] = pv[dt][e] = 0.f;
       {
-        const F32Split& cur = s.split[n % F32_SPLITS];
-        mbar_wait(&s.split_full[n % F32_SPLITS], (n / F32_SPLITS) & 1);
+        const F32Split<D>& cur = s.split[n % SPLITS];
+        mbar_wait(&s.split_full[n % SPLITS], (n / SPLITS) & 1);
         float sa[F32_BK / 8][4], al[2];
         wgmma_fence();
-        product_rs_n32<SMALL_FIRST>(sa, qfb, qfs, smem_u32(cur.kb), smem_u32(cur.ks));
+        product_rs_n32<SMALL_FIRST, D>(sa, qfb, qfs, smem_u32(cur.kb), smem_u32(cur.ks));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sa);
         const float c = mask_stage(sa, hv.valid, 0, t, scale_log2, lane);
         softmax_scores<F32_BK>(sa, m, l, al, c);
-        rescale_split_p(o, pv, al, sa, pb, ps);
+        rescale_split_p<D>(o, pv, al, sa, pb, ps);
         ++n;
       }
       for (int j = 1; j < n_kt; ++j, ++n) {
-        const F32Split& cur = s.split[n % F32_SPLITS];
-        const F32Split& prev = s.split[(n - 1) % F32_SPLITS];
-        mbar_wait(&s.split_full[n % F32_SPLITS], (n / F32_SPLITS) & 1);
+        const F32Split<D>& cur = s.split[n % SPLITS];
+        const F32Split<D>& prev = s.split[(n - 1) % SPLITS];
+        mbar_wait(&s.split_full[n % SPLITS], (n / SPLITS) & 1);
         float sa[F32_BK / 8][4], al[2];
         fence_regs(pv);
         wgmma_fence();
-        product_rs_n32<SMALL_FIRST>(sa, qfb, qfs, smem_u32(cur.kb), smem_u32(cur.ks));
+        product_rs_n32<SMALL_FIRST, D>(sa, qfb, qfs, smem_u32(cur.kb), smem_u32(cur.ks));
         wgmma_commit();
-        product_rs<SMALL_FIRST>(pv, pb, ps, smem_u32(prev.vtb), smem_u32(prev.vts), 0);
+        product_rs<SMALL_FIRST, D>(pv, pb, ps, smem_u32(prev.vtb), smem_u32(prev.vts), 0);
         wgmma_commit();
         wgmma_wait<1>();  // S ready; P V may still run
         fence_regs(sa);
@@ -804,23 +948,23 @@ fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
         fence_regs(pb);
         fence_regs(ps);
         __syncwarp();
-        if (lane == 0) mbar_arrive(&s.split_empty[(n - 1) % F32_SPLITS]);  // stage j - 1 read
-        rescale_split_p(o, pv, al, sa, pb, ps);
+        if (lane == 0) mbar_arrive(&s.split_empty[(n - 1) % SPLITS]);  // stage j - 1 read
+        rescale_split_p<D>(o, pv, al, sa, pb, ps);
       }
       {
-        const F32Split& last = s.split[(n - 1) % F32_SPLITS];
+        const F32Split<D>& last = s.split[(n - 1) % SPLITS];
         fence_regs(pv);
         wgmma_fence();
-        product_rs<SMALL_FIRST>(pv, pb, ps, smem_u32(last.vtb), smem_u32(last.vts), 0);
+        product_rs<SMALL_FIRST, D>(pv, pb, ps, smem_u32(last.vtb), smem_u32(last.vts), 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(pv);
         fence_regs(qfb);
         fence_regs(qfs);
         __syncwarp();
-        if (lane == 0) mbar_arrive(&s.split_empty[(n - 1) % F32_SPLITS]);
+        if (lane == 0) mbar_arrive(&s.split_empty[(n - 1) % SPLITS]);
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
+        for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[dt][e] += pv[dt][e];
       }
@@ -837,7 +981,7 @@ fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
         if (row >= t) continue;
         float* orow = hv.o + (size_t)row * hv.ldo + 2 * tg;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
+        for (int dt = 0; dt < D / 8; ++dt)
           *reinterpret_cast<float2*>(orow + dt * 8) =
               make_float2(o[dt][2 * r] / l[r], o[dt][2 * r + 1] / l[r]);
         if (hv.lse != nullptr && tg == 0)
@@ -847,22 +991,22 @@ fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
   }
 }
 
-// Launch fwd_f32<Layout> over n_heads heads of t tokens: `maps` builds the
-// three f32 tensor maps (fn(map_q, map_k, map_v) -> error), Q in boxes of
+// Launch fwd_f32<Layout, D> over n_heads heads of t tokens: `maps` builds
+// the three f32 tensor maps (fn(map_q, map_k, map_v) -> error), Q in boxes of
 // F32_BQ rows, K and V of F32_BK.
-template <class Layout, class Maps>
+template <class Layout, int D = HD, class Maps>
 int launch_f32(const Maps& maps, const Layout& lay, int n_heads, int t, float scale,
                cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   int err = maps(&mq, &mk, &mv);
   if (err != 0) return err;
   static LaunchSetup setup;
-  const auto kernel = fwd_f32<Layout>;
+  const auto kernel = fwd_f32<Layout, D>;
   int sms = 0;
-  err = setup.sms(kernel, F32_SMEM, &sms);
+  err = setup.sms(kernel, f32_smem<D>(), &sms);
   if (err != 0) return err;
   const int n_tiles = n_heads * ((t + F32_BQ - 1) / F32_BQ);
-  kernel<<<n_tiles < sms ? n_tiles : sms, F32_THREADS, F32_SMEM, stream>>>(
+  kernel<<<n_tiles < sms ? n_tiles : sms, F32_THREADS, f32_smem<D>(), stream>>>(
       mq, mk, mv, lay, t, n_tiles, scale * LOG2E);
   return (int)cudaGetLastError();
 }

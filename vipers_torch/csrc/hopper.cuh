@@ -5,12 +5,13 @@
 // which multiplies f32 on TF32 tensor cores in three products. Device side:
 // shared-memory addresses, mbarriers, TMA loads (tensor maps and plain bulk
 // copies), the async-proxy fence, named barriers, stmatrix, bf16 packing,
-// ex2, the 128-byte-swizzle wgmma descriptor and the wgmma shapes the
-// kernels use; for f32 operands the TF32 rounding and big/small split, the
+// ex2, the 128- and 32-byte-swizzle wgmma descriptors and the wgmma shapes
+// the kernels use; for f32 operands the TF32 rounding and big/small split, the
 // index and descriptor of an f32 tile in 128-byte-swizzled halves, and the
 // TF32 wgmma shapes.
 // Host side: cuTensorMapEncodeTiled through the runtime's driver entry
-// point, 3-D bf16 and f32 maps, and the once-a-device launch set-up.
+// point, 3-D bf16 (64-column and 16-column tail boxes) and f32 maps, and the
+// once-a-device launch set-up.
 #pragma once
 
 #include <cuda.h>
@@ -23,6 +24,7 @@
 namespace hopper {
 
 constexpr int BOX_COLS = 64;      // bf16 columns of a map's box: one 128-byte swizzle row
+constexpr int TAIL_BOX_COLS = 16; // bf16 columns of a tail map's box: one 32-byte swizzle row
 constexpr int F32_BOX_COLS = 32;  // f32 columns of a map's box: one 128-byte swizzle row
 constexpr int MAX_DEVICES = 64;
 
@@ -126,6 +128,17 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma shared-memory descriptor of a 32-byte-swizzled tile at `addr`
+// (256-byte aligned, the swizzle atom): rows of 32 bytes (16 bf16), layout 3
+// (SWIZZLE_32B), 8-row groups 256 bytes apart (the stride offset); one atom
+// across, so the leading offset is unused. K-major ([row][16 k]) it is one
+// k16 step; MN-major ([k][16 of N], through the transpose bit) a k16 step
+// is 512 bytes.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(256 >> 4) << 32) |
+         (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -280,6 +293,21 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[8][4], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 16, f32) += A (64 x 16, bf16 in registers, the mma.sync A layout
+// per warp) . B (16 x 16, bf16 MN-major in shared memory: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[2][4], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ---------------------------------------------------- f32 on TF32 tensor cores
 //
 // wgmma multiplies TF32 (an f32 with 10 mantissa bits) into f32 sums and
@@ -305,8 +333,9 @@ __device__ __forceinline__ void tf32_split(float x, float& big, float& small) {
 
 // An f32 tile of ROWS rows x 64 columns in shared memory, as TMA writes it
 // with the 128-byte swizzle in boxes of 32 columns: two halves of ROWS x 32
-// floats (128 bytes a row), columns 0-31 then 32-63, each 1024-byte aligned.
-// The float index of element (r, c):
+// floats (128 bytes a row), columns 0-31 then 32-63, each 1024-byte aligned
+// (a wider tile: one such part each 32 columns). The float index of element
+// (r, c):
 template <int ROWS>
 __device__ __forceinline__ int f32_at(int r, int c) {
   return (c >> 5) * ROWS * 32 + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
@@ -382,15 +411,33 @@ __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[8][4], const float 
         "r"(__float_as_uint(a[3])), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 16, f32) {=, +=} A (64 x 8, TF32 in registers, wgmma_tf32_rs_n64's
+// layout) . B (8 x 16, TF32 K-major in shared memory); scale_d = 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[2][4], const float (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "l"(db), "r"(scale_d));
+}
+
 // This thread's TF32 A fragments (wgmma_tf32_rs_n64's layout) of rows r
 // and r + 8 (r = 16 warp + g of a warpgroup's 64) of a ROWS-row f32 tile
-// (f32_at), for the 8 k steps over its 64 columns (8kk + tg and + 4),
-// split into big and small.
-template <int ROWS>
-__device__ __forceinline__ void load_a_f32(const float* tile, int r, int tg, float (&big)[8][4],
-                                           float (&small)[8][4]) {
+// (f32_at), for the COLS / 8 k steps over its first COLS columns (8kk + tg
+// and + 4), split into big and small.
+template <int ROWS, int COLS = 64>
+__device__ __forceinline__ void load_a_f32(const float* tile, int r, int tg,
+                                           float (&big)[COLS / 8][4],
+                                           float (&small)[COLS / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < COLS / 8; ++kk) {
     const int c = 8 * kk + tg;
     tf32_split(tile[f32_at<ROWS>(r, c)], big[kk][0], small[kk][0]);
     tf32_split(tile[f32_at<ROWS>(r + 8, c)], big[kk][1], small[kk][1]);
@@ -449,11 +496,12 @@ inline EncodeTiledFn encode_tiled() {
 
 // A 3-D map over (outer, rows, cols) elements of `type` (`elem` bytes):
 // row stride ld and outer stride outer_ld elements, boxes of box_rows x
-// box_cols (one 128-byte row) with the 128-byte swizzle; rows beyond `rows`
-// read as zeros. Returns a cudaError_t.
+// box_cols (one swizzle row) with the 128-byte swizzle, or `swizzle`; rows
+// and columns beyond `rows` and `cols` read as zeros. Returns a cudaError_t.
 inline int encode_map_of(CUtensorMapDataType type, int elem, int box_cols, CUtensorMap* map,
                          const void* base, long long cols, long long rows, long long outer,
-                         long long ld, long long outer_ld, int box_rows) {
+                         long long ld, long long outer_ld, int box_rows,
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
@@ -461,7 +509,7 @@ inline int encode_map_of(CUtensorMapDataType type, int elem, int box_cols, CUten
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -471,6 +519,14 @@ inline int encode_map(CUtensorMap* map, const void* base, long long cols, long l
                       long long outer, long long ld, long long outer_ld, int box_rows) {
   return encode_map_of(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, BOX_COLS, map, base, cols, rows, outer,
                        ld, outer_ld, box_rows);
+}
+
+// bf16 tails: boxes of box_rows x TAIL_BOX_COLS (16) columns with the 32-byte
+// swizzle (the last 16 columns of an 80-column row, read at column 64).
+inline int encode_map_tail(CUtensorMap* map, const void* base, long long cols, long long rows,
+                           long long outer, long long ld, long long outer_ld, int box_rows) {
+  return encode_map_of(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, TAIL_BOX_COLS, map, base, cols, rows,
+                       outer, ld, outer_ld, box_rows, CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 // f32: boxes of box_rows x F32_BOX_COLS (32) columns, so a 64-column tile is

@@ -31,8 +31,9 @@ import numpy as np
 import torch
 
 from vipers_torch.core.checkpoint import (import_vit_torchvision, infer_num_classes,
-                                          infer_vit_image_size, load_torch_state_dict,
-                                          reference_sweep_stem, vit_state_dict_from_flax)
+                                          infer_representation_size, infer_vit_image_size,
+                                          load_torch_state_dict, reference_sweep_stem,
+                                          vit_state_dict_from_flax)
 from vipers_torch.core.device import resolve_device
 from vipers_torch.core.registry import build_model
 from vipers_torch.data import native
@@ -359,8 +360,10 @@ def run_lost(args) -> int:
     masks = None
     if args.checkpoint:
         params, masks = load_lost_checkpoint(args.checkpoint, spec)
-        # rebuild at the checkpoint's own head width and pos-table size
-        kw = {"num_classes": infer_num_classes(params) or 0}
+        # rebuild at the checkpoint's own head width, pre-logits width and
+        # pos-table size
+        kw = {"num_classes": infer_num_classes(params) or 0,
+              "representation_size": infer_representation_size(params)}
         size = infer_vit_image_size(params, spec.patch_size)
         if size is not None:
             kw["image_size"] = size

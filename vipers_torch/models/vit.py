@@ -191,12 +191,27 @@ def _auto_seq_pad(seq_len: int, dtype, train: bool, need_attn: bool, cfg):
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
+    """The JAX package's ``ViTConfig`` without ``head_dim`` (structured
+    slimming, ROADMAP A4). ``representation_size``: a ``pre_logits`` Dense
+    and tanh before the head. Dropout is not ported (ROADMAP A8): a rate
+    above 0 raises rather than run a different model."""
+
     patch_size: int = 16
     num_layers: int = 12
     num_heads: int = 12
     hidden_dim: int = 768
     mlp_dim: int = 3072
     num_classes: int = 1000
+    dropout_rate: float = 0.0
+    attention_dropout_rate: float = 0.0
+    representation_size: Optional[int] = None
+
+    def __post_init__(self):
+        if self.dropout_rate > 0 or self.attention_dropout_rate > 0:
+            raise ValueError(
+                f"dropout_rate={self.dropout_rate}, attention_dropout_rate="
+                f"{self.attention_dropout_rate}: vipers_torch has no dropout yet "
+                f"(ROADMAP A8)")
 
 
 class VisionTransformer(nn.Module):
@@ -216,7 +231,9 @@ class VisionTransformer(nn.Module):
         self.layers = nn.ModuleList(
             EncoderBlock(d, cfg.num_heads, cfg.mlp_dim) for _ in range(cfg.num_layers))
         self.ln = LayerNorm(d)
-        self.head = nn.Linear(d, cfg.num_classes) if cfg.num_classes else None
+        rep = cfg.representation_size
+        self.pre_logits = nn.Linear(d, rep) if rep is not None else None
+        self.head = nn.Linear(rep or d, cfg.num_classes) if cfg.num_classes else None
 
     def patch_embed(self, x):
         """Stride-p patch conv as reshape + matmul on NHWC input, the
@@ -266,7 +283,10 @@ class VisionTransformer(nn.Module):
             x, qkv_input, attn = unpad_tokens(x, qkv_input, attn, seq_len)
         x = self.ln(x)
         cls_feat = x[:, 0]
-        logits = self.head(cls_feat) if self.head is not None else cls_feat
+        y = cls_feat
+        if self.pre_logits is not None:
+            y = torch.tanh(self.pre_logits(y))
+        logits = self.head(y) if self.head is not None else y
         return logits, {"qkv_input": qkv_input, "attn": attn, "cls": cls_feat}
 
 
@@ -335,8 +355,11 @@ def init_vit_params(cfg: ViTConfig, image_size, gen: torch.Generator) -> dict:
             "mlp": {"fc1": dense(d, cfg.mlp_dim), "fc2": dense(cfg.mlp_dim, d)},
         }
     params["ln"] = ln()
+    rep = cfg.representation_size
+    if rep is not None:
+        params["pre_logits"] = dense(d, rep)
     if cfg.num_classes:
-        params["head"] = dense(d, cfg.num_classes)
+        params["head"] = dense(rep or d, cfg.num_classes)
     return params
 
 
@@ -353,7 +376,36 @@ def _build(name, cfg: ViTConfig, image_size=(224, 224)):
     )
 
 
+# The JAX registry's ViTs (``vipers/models/vit.py:557-584``); ``kw`` are
+# ViTConfig's optional fields (representation_size; dropout raises).
 @register_model("vit_s_16")
-def vit_s_16(num_classes=1000, image_size=(224, 224)):
+def vit_s_16(num_classes=1000, image_size=(224, 224), **kw):
     """ViT-Small/16, the LOST throughput flagship."""
-    return _build("vit_s_16", ViTConfig(16, 12, 6, 384, 1536, num_classes), image_size)
+    return _build("vit_s_16", ViTConfig(16, 12, 6, 384, 1536, num_classes, **kw), image_size)
+
+
+@register_model("vit_b_16")
+def vit_b_16(num_classes=1000, image_size=(224, 224), **kw):
+    """ViT-Base/16, the paper's pruned ViT."""
+    return _build("vit_b_16", ViTConfig(16, 12, 12, 768, 3072, num_classes, **kw), image_size)
+
+
+@register_model("vit_b_32")
+def vit_b_32(num_classes=1000, image_size=(224, 224), **kw):
+    return _build("vit_b_32", ViTConfig(32, 12, 12, 768, 3072, num_classes, **kw), image_size)
+
+
+@register_model("vit_l_16")
+def vit_l_16(num_classes=1000, image_size=(224, 224), **kw):
+    return _build("vit_l_16", ViTConfig(16, 24, 16, 1024, 4096, num_classes, **kw), image_size)
+
+
+@register_model("vit_l_32")
+def vit_l_32(num_classes=1000, image_size=(224, 224), **kw):
+    return _build("vit_l_32", ViTConfig(32, 24, 16, 1024, 4096, num_classes, **kw), image_size)
+
+
+@register_model("vit_h_14")
+def vit_h_14(num_classes=1000, image_size=(224, 224), **kw):
+    """ViT-Huge/14: 16 heads of 80 (the flash forward's hd-80 instance)."""
+    return _build("vit_h_14", ViTConfig(14, 32, 16, 1280, 5120, num_classes, **kw), image_size)

@@ -163,7 +163,8 @@ def _check_cuda(q, ok):
         raise ValueError(f"the attention_train kernel is bf16 only, got {q.dtype}")
     if hd != HEAD_DIM or t % 64 or t > MAX_T:
         raise ValueError(f"the attention_train kernel needs head dim {HEAD_DIM} "
-                         f"and T % 64 == 0, T <= {MAX_T}; got T={t}, hd={hd}")
+                         f"and T % 64 == 0, T <= {MAX_T}; got T={t}, hd={hd} (other head "
+                         f"dims: ROADMAP B1)")
     if ok.device != q.device:
         raise ValueError("inputs on several devices")
 

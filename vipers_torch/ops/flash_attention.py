@@ -13,11 +13,17 @@ cores (3xTF32: x = big + small, small.big + big.small + big.big), within
 1e-5 / 1e-4 of the exact-f32 plain version. TMA needs 16-byte-aligned base
 pointers, so the wrappers raise on a CUDA tensor that is not. At the
 ViT-S/16 LOST shape both instances are bound by their operations (158
-GFLOP, three times over in f32, against 352 MB of bf16 I/O).
+GFLOP, three times over in f32, against 352 MB of bf16 I/O). Each instance
+is compiled for head dim 64 and for 80 (vit_h_14's 16 heads of 80): the
+tile splits an 80-column row into its first 64 columns and a 16-column
+tail, each its own TMA box and wgmma operand, so the products do the 80
+columns' work and nothing is padded.
 
 ``flash_attention_fwd`` launches the kernel for CUDA tensors and runs the
 plain version, ``flash_attention_plain``, for CPU tensors; a build or
-launch failure raises. ``LAUNCHES`` counts kernel launches per instance.
+launch failure raises. ``LAUNCHES`` counts kernel launches per instance:
+``"float32"`` and ``"bfloat16"`` at head dim 64, ``"float32[hd80]"`` and
+``"bfloat16[hd80]"`` at 80.
 ``flash_attention`` is a ``torch.autograd.Function`` whose backward,
 ``flash_attention_bwd``, launches ``vipers_torch/csrc/flash_attention_bwd.cu``
 for CUDA tensors. On the TPU the product path's backward is the library's
@@ -31,7 +37,9 @@ every product as three TF32 products on the tensor cores (3xTF32, within
 no atomics and no scratch. Its plain version, ``flash_attention_bwd_plain``,
 is the JAX package's ``_flash_vjp_bwd``, the ``use_official=False`` VJP,
 and runs for CPU tensors. ``BWD_LAUNCHES`` counts backward calls that
-launched the kernels, per instance.
+launched the kernels, per instance. The backward and the packed kernel
+take head dim 64 only on the card (their hd-80 instances are ROADMAP B1);
+at any other head dim they raise before launching anything.
 
 The packed token-major route (``flash_attention_packed``, opt-in with
 ``VIPERS_PACKED_ATTENTION=1`` in the models, as in the JAX package) reads q,
@@ -59,11 +67,12 @@ from vipers_torch.ops.tokens import round_up
 
 NEG_INF = -1e9
 FLASH_MIN_T = 512
-HEAD_DIM = 64
+HEAD_DIM = 64  # the backward and packed kernels' head dim
+FWD_HEAD_DIMS = (64, 80)  # the head-major forward's instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches per instance; chip_smoke.py resets and reads these
-LAUNCHES = {"float32": 0, "bfloat16": 0}
+LAUNCHES = {"float32": 0, "bfloat16": 0, "float32[hd80]": 0, "bfloat16[hd80]": 0}
 PACKED_LAUNCHES = {"float32": 0, "bfloat16": 0}
 # backward calls on the card per instance: one count a call, which launches
 # the dk/dv and the dq kernel (bf16: after the row pass)
@@ -134,11 +143,25 @@ def _check(q, k, v, valid):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
-def _check_kernel_head_dim(hd: int):
-    """The card's kernels take head dim 64 only; the plain versions (CPU
-    tensors) take any."""
+def _check_kernel_head_dim(hd: int, kernel: str = "flash attention backward"):
+    """The backward and packed kernels take head dim 64 only on the card;
+    the plain versions (CPU tensors) take any."""
     if hd != HEAD_DIM:
-        raise ValueError(f"the flash attention kernel needs head dim {HEAD_DIM}, got {hd}")
+        raise ValueError(f"the {kernel} kernel needs head dim {HEAD_DIM}, got {hd} (its "
+                         f"other head dims are ROADMAP B1)")
+
+
+def _check_fwd_head_dim(hd: int):
+    """The head-major forward kernel's instances: head dim 64 and 80."""
+    if hd not in FWD_HEAD_DIMS:
+        raise ValueError(f"the flash attention kernel needs head dim 64 or 80, got {hd}")
+
+
+def launch_key(dtype: torch.dtype, hd: int) -> str:
+    """The ``LAUNCHES`` key of the forward instance of ``dtype`` and head
+    dim ``hd``."""
+    name = str(dtype).replace("torch.", "")
+    return name if hd == HEAD_DIM else f"{name}[hd{hd}]"
 
 
 def _lib():
@@ -153,18 +176,19 @@ def _lib():
     return fn
 
 
-def tile_shape(dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The forward tile of the ``dtype`` instance as compiled into the flash
-    and packed kernels (``attn_tile::hopper``): query rows, keys a K/V tile
-    (bf16) or stage (f32) and K/V ring stages; for f32 also the stages of
-    split K/V copies and the TF32 products an f32 product takes. Builds the
-    flash library if needed."""
+def tile_shape(dtype: torch.dtype = torch.bfloat16, head_dim: int = HEAD_DIM) -> dict:
+    """The forward tile of the ``dtype`` instance at ``head_dim`` as
+    compiled into the flash and packed kernels (``attn_tile::hopper``):
+    query rows, keys a K/V tile (bf16) or stage (f32) and K/V ring stages;
+    for f32 also the stages of split K/V copies and the TF32 products an
+    f32 product takes. Builds the flash library if needed."""
+    _check_fwd_head_dim(head_dim)
     fn = _build.load("flash_attention_fwd").vipers_flash_attention_tile
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = None
     vals = (ctypes.c_int * 5)()
-    fn(_DTYPE_CODE[dtype], vals)
+    fn(_DTYPE_CODE[dtype], head_dim, vals)
     keys = ("block_q", "block_k", "stages")
     if dtype == torch.float32:
         keys += ("split_stages", "tf32_products")
@@ -184,7 +208,7 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
     """(B, H, T, hd) masked attention -> (out in the input dtype, lse f32
     (B, H, T)). ``valid``: (B, T) bool key mask (True = attend). Query rows
     that are pad attend the valid keys, like the JAX einsum path. The card's
-    kernel needs hd 64; the plain version (CPU tensors) takes any."""
+    kernel takes hd 64 and 80; the plain version (CPU tensors) takes any."""
     _check(q, k, v, valid)
     b, h, t, hd = q.shape
     scale = (hd ** -0.5) if scale is None else float(scale)
@@ -192,7 +216,7 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
         return flash_attention_plain(q, k, v, valid, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_kernel_head_dim(hd)
+    _check_fwd_head_dim(hd)
     fn = _lib()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_aligned(q, k, v)
@@ -207,7 +231,7 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
                 _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
-    LAUNCHES[str(q.dtype).replace("torch.", "")] += 1
+    LAUNCHES[launch_key(q.dtype, hd)] += 1
     return out, lse
 
 
@@ -276,8 +300,8 @@ def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
     """(dq, dk, dv) in the input dtype for (B, H, T, hd) q, k, v, the (B, T)
     bool key mask (or None), the forward's ``out`` and f32 ``lse`` and the
     cotangent ``g``. CUDA tensors go to the kernel (hd 64, any T; a build or
-    launch failure raises), CPU tensors to ``flash_attention_bwd_plain``
-    (any hd)."""
+    launch failure raises, and another hd raises before any launch), CPU
+    tensors to ``flash_attention_bwd_plain`` (any hd)."""
     _check_bwd(q, k, v, valid, out, lse, g)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, valid, out, lse, g, scale)
@@ -326,8 +350,9 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, valid=None, scale: Optional[float] = None):
-    """(B, H, T, 64) attention without materializing (T, T) in the forward;
-    returns out, differentiable in q, k and v."""
+    """(B, H, T, hd) attention without materializing (T, T) in the forward
+    (hd 64 or 80 on the card); returns out, differentiable in q, k and v
+    (the card's backward: hd 64)."""
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     return _FlashAttention.apply(q, k, v, valid, scale)
 
@@ -439,8 +464,7 @@ def flash_attention_packed_fwd(qkv, valid, num_heads: int, scale: float):
     b, t, three_d = qkv.shape
     d = three_d // 3
     hd = d // num_heads
-    if hd != HEAD_DIM:
-        raise ValueError(f"the packed attention kernel needs head dim {HEAD_DIM}, got {hd}")
+    _check_kernel_head_dim(hd, "packed attention")
     fn = _packed_lib()
     qkv = qkv.contiguous()
     _check_aligned(qkv)

@@ -14,8 +14,10 @@ The LayerNorm affine is folded into the weights in f32 outside the kernel,
 ``W_eff = gamma * W`` and ``b_eff = beta @ W + b``, as the JAX wrapper does.
 ``fused_ln_dense_gelu_core`` launches the kernel for CUDA tensors and runs
 ``fused_ln_dense_gelu_plain`` for CPU tensors; a build or launch failure
-raises, and so does a CUDA tensor that is not 16-byte aligned (TMA). ``LAUNCHES`` counts kernel launches; ``design(d)`` reads back the
-compiled instance that width ``d`` runs. ``fused_ln_dense_gelu`` is a
+raises, and so does a CUDA tensor that is not 16-byte aligned (TMA).
+``LAUNCHES`` counts kernel launches, ``WIDTH_LAUNCHES`` the same launches by
+width D; ``design(d)`` reads back the compiled instance that width ``d``
+runs (the ViT family's: D = 384, 768, 1024 and 1280). ``fused_ln_dense_gelu`` is a
 ``torch.autograd.Function`` whose backward is the JAX package's recompute
 VJP in plain torch; the gradients reach ln_2 and fc1 through the fold.
 """
@@ -34,8 +36,9 @@ from vipers_torch.ops.flash_attention import _check_aligned
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
-# kernel launches; chip_smoke.py resets and reads this
+# kernel launches, and the same by width D; chip_smoke.py resets and reads these
 LAUNCHES = {"bfloat16": 0}
+WIDTH_LAUNCHES = {384: 0, 768: 0, 1024: 0, 1280: 0}
 
 
 def gelu_tanh_f32(y):
@@ -131,6 +134,7 @@ def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
     if rc != 0:
         raise RuntimeError(f"fused_ln_dense_gelu kernel launch failed: CUDA error {rc}")
     LAUNCHES["bfloat16"] += 1
+    WIDTH_LAUNCHES[d] = WIDTH_LAUNCHES.get(d, 0) + 1
     return out
 
 

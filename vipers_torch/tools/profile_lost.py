@@ -1,12 +1,16 @@
 """Where the time goes in the port's batched LOST pipeline on one GPU.
 
-Builds the same full-width ViT-S/16 (random weights from a seed, 50% global
-magnitude mask, 512x384 uint8 images) as ``chip_smoke.py`` and profiles
-``make_batched_pipeline`` with ``torch.profiler``: device time by kernel,
-the device's busy share of the wall-clock window, and the host time per
-call. Needs a card:
+Builds a full-width ViT of the registry (``--model``, default ViT-S/16 as
+in ``chip_smoke.py``; random weights from a seed, 50% global magnitude
+mask) and profiles ``make_batched_pipeline`` on uint8 images that fill the
+VOC bucket of a 500x375 image at ``--patch-size`` (512x384 at patch 16 and
+32, 504x392 at 14) with ``torch.profiler``: device time by kernel, the
+device's busy share of the wall-clock window, and the host time per call.
+As with ``vipers lost``, the patch size is the caller's to give. Needs a
+card:
 
-    python -m vipers_torch.tools.profile_lost [--batch 128] [--dtype bf16]
+    python -m vipers_torch.tools.profile_lost [--batch 128] [--dtype bf16] \
+        [--model vit_b_16 --patch-size 16]
 
 Writes the full kernel table and a Chrome trace under ``--out``
 (default ``build/profile_lost/``).
@@ -22,8 +26,6 @@ import time
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
-
-H, W, PATCH = 512, 384, 16
 
 
 def _intervals_union(spans):
@@ -46,22 +48,27 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--model", default="vit_s_16")
+    ap.add_argument("--patch-size", type=int, default=16)
     ap.add_argument("--out", default=os.path.join("build", "profile_lost"),
                     help="directory for the kernel table and the Chrome trace")
     args = ap.parse_args(argv)
 
     from vipers_torch.core.registry import build_model
+    from vipers_torch.data.preprocess import bucket_hw
     from vipers_torch.discovery.driver import LostFeatureExtractor
     from vipers_torch.pruning import init_masks, magnitude_prune
 
-    spec = build_model("vit_s_16", num_classes=1000, image_size=(H, W))
+    patch = args.patch_size
+    H, W = bucket_hw(500, 375, patch)
+    spec = build_model(args.model, num_classes=1000, image_size=(H, W))
     params = spec.init(torch.Generator().manual_seed(0))
     masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), 0.5)
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
     ex = LostFeatureExtractor(spec, params, masks, compute_dtype=dtype)
     rng = np.random.default_rng(1)
     imgs = [rng.integers(0, 256, (H, W, 3), dtype=np.uint8) for _ in range(args.batch)]
-    inp = ex.prepare_batch(imgs, PATCH, exact_hw=[(H, W)] * args.batch)
+    inp = ex.prepare_batch(imgs, patch, exact_hw=[(H, W)] * args.batch)
     pipe = ex.make_batched_pipeline(100)
     for _ in range(2):
         pipe(*inp)[0].cpu()
@@ -85,14 +92,15 @@ def main(argv=None):
         d[1] += 1
     total = sum(v[0] for v in by_name.values())
     card = torch.cuda.get_device_name(0)
-    print(f"{card}; {args.dtype} B={args.batch}: {args.steps} calls, wall "
+    print(f"{card}; {args.model} {H}x{W} patch {patch} {args.dtype} B={args.batch}: "
+          f"{args.steps} calls, wall "
           f"{wall_ms / args.steps:.2f} ms/call (median host {statistics.median(host):.2f}), "
           f"device busy {busy_ms / args.steps:.2f} ms/call = "
           f"{100 * busy_ms / wall_ms:.1f}% of the window, {len(events) / args.steps:.0f} "
           f"kernels/call")
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     os.makedirs(args.out, exist_ok=True)
-    stem = os.path.join(args.out, f"profile_lost_{args.dtype}_b{args.batch}")
+    stem = os.path.join(args.out, f"profile_lost_{args.model}_{args.dtype}_b{args.batch}")
     with open(stem + ".txt", "w") as f:
         for name, (ms, n) in rows:
             f.write(f"{ms / args.steps:10.3f} ms/call {100 * ms / total:5.1f}% "
