@@ -36,7 +36,11 @@ Phases (any failure exits non-zero; nothing is caught):
      128*16, T = 1024 with 1009 valid keys, bucket-pad keys on every other
      image, one image all invalid; SDPA with the bool mask as the library
      call) and the fused MLP at D = 768 and 1024 (M = 128*896) and 1280 (M
-     = 128*1024);
+     = 128*1024); then vit_h_14's train rows at hd 80: the training
+     forward and backward at its 224x224 shape (B*H = 32*16, T = 384 with
+     257 valid keys) and the flash backward f32 and bf16 at its 392x392
+     shape (B*H = 16*16, T = 896 with 785 valid keys, the last image
+     attending no key);
   4. LOST path: full-width ViT-S/16 (12 layers, D=384, 6 heads, mlp 1536)
      from a seeded generator, 50% global magnitude mask, 512x384 uint8
      images, ``make_batched_pipeline`` in f32 and bf16 at B=128 on an
@@ -93,13 +97,27 @@ Phases (any failure exits non-zero; nothing is caught):
      heads of 80) at 504x392 (T = 1009 -> 1024) in f32 and bf16 (32 hd-80
      flash launches a batch, 32 fused MLP at D = 1280 in bf16), bf16 img/s
      and p50, one f32 call's time, card vs CPU on its first 8 blocks at
-     B=2 (the cut printed).
+     B=2 (the cut printed);
+ 11. vit_h_14 pruned and trained, full width and depth (32 blocks, D
+     1280, 16 heads of 80, mlp 5120, 1000 classes, seed-0 weights, 50%
+     global magnitude masks ranked on the card): phase 7's masked bf16
+     step at 224x224 B=32 (T = 257 -> 384: 32 hd-80 training forward and
+     backward launches a step, no flash, no fused MLP; img/s, peak device
+     memory; one LRR round, 50% -> 60%) and phase 8's at 392x392 B=16 (T =
+     785 -> 896: 32 hd-80 flash forward and backward a step), each card vs
+     CPU on its first 8 blocks at B=2 (f32 params after 2 steps within
+     1e-4, at 392 through the f32 hd-80 flash kernels, counted; bf16 loss
+     and gradients); SNIP at 392 in f32: card vs CPU on the 8-block cut
+     (masks at the target sparsity, equal up to threshold ties), then at
+     full depth, B=8, on the card (32 f32 hd-80 flash forward and backward
+     launches), then 2 bf16 steps from its masks.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -169,9 +187,10 @@ def forward_bound(flops, nbytes, dtype, ms):
                      f"its FMA bound {fma_ms:.3f} ms")
 
 
-def bwd_design(fa, dtype):
-    """The flash backward's design for ``dtype`` as compiled, for its line."""
-    d = fa.bwd_design(dtype)
+def bwd_design(fa, dtype, hd=64):
+    """The flash backward's design for ``dtype`` at ``hd`` as compiled, for
+    its line."""
+    d = fa.bwd_design(dtype, hd)
     arith = (f"; every product {d['tf32_products']} TF32 products (3xTF32)"
              if d["tf32_products"] else "")
     return (f"; {d['kernels']} kernels after a row pass (D, lse in log2 units): dk/dv on "
@@ -279,30 +298,35 @@ def check_flash_hd80(fa, dtype, gen):
             "bound_by": by, "library_ms": lib_ms}
 
 
-def check_flash_bwd(fa, dtype, gen):
+def check_flash_bwd(fa, dtype, gen, shape=(TRAIN_BATCH, 6, 640, 64), n_valid=577, ragged=300):
     """Flash backward kernel vs plain at the 384x384 train shape: B*H =
     128*6, T = 640 (577 tokens seq-padded; a ragged run of pad keys inside
-    the 577 on every other image; the last image attends no key), hd = 64,
-    residuals from the forward kernel, cotangents on every row (so the
-    kernel is held to the plain version on every row): each of dq, dk, dv
-    within 1e-4 (f32) or 2e-2 (bf16) of its scale, and two calls bit-equal.
-    f32: the plain version in exact f32 (cuBLAS TF32 off), and the kernel
-    at least 10x nearer it than the same plain version in cuBLAS TF32 (one
-    TF32 product a product, the yardstick). Library: ``torch.autograd.grad``
-    of SDPA with the bool mask."""
-    b, h, t, hd = TRAIN_BATCH, 6, 640, 64
+    the 577, from key 300, on every other image; the last image attends no
+    key), hd = 64 (or ``shape``, ``n_valid`` tokens, pad keys from
+    ``ragged``: vit_h_14's 392x392 train shape at hd 80), residuals from the
+    forward kernel, cotangents on every row (so the kernel is held to the
+    plain version on every row): each of dq, dk, dv within 1e-4 (f32) or
+    2e-2 (bf16) of its scale, and two calls bit-equal. f32: the plain
+    version in exact f32 (cuBLAS TF32 off), and the kernel at least 10x
+    nearer it than the same plain version in cuBLAS TF32 (one TF32 product
+    a product, the yardstick). Library: ``torch.autograd.grad`` of SDPA with
+    the bool mask."""
+    b, h, t, hd = shape
     f32 = dtype == torch.float32
     q, k, v, cot = (torch.randn(b, h, t, hd, generator=gen, device="cuda").to(dtype)
                     for _ in range(4))
     valid = torch.zeros(b, t, dtype=torch.bool, device="cuda")
-    valid[:, :577] = True
-    valid[1::2, 300:577:3] = False
+    valid[:, :n_valid] = True
+    valid[1::2, ragged:n_valid:3] = False
     valid[-1] = False
     scale = hd ** -0.5
     out, lse = fa.flash_attention_fwd(q, k, v, valid, scale)
     args = (q, k, v, valid, out, lse, cot, scale)
+    key = fa.launch_key(dtype, hd)
+    n0 = fa.BWD_LAUNCHES[key]
     got = fa.flash_attention_bwd(*args)
     again = fa.flash_attention_bwd(*args)
+    assert fa.BWD_LAUNCHES[key] == n0 + 2, fa.BWD_LAUNCHES
     assert not torch.backends.cuda.matmul.allow_tf32, "the plain reference must be exact f32"
     want = fa.flash_attention_bwd_plain(*args)
     torch.cuda.synchronize()
@@ -327,11 +351,11 @@ def check_flash_bwd(fa, dtype, gen):
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), reps=5)
     lib_ms = sdpa_bwd_ms(q, k, v, cot, valid[:, None, None, :])
     n = q.numel()
-    flops = 10 * b * h * t * t * hd  # the function: five T x T x 64 products
+    flops = 10 * b * h * t * t * hd  # the function: five T x T x hd products
     nbytes = 8 * n * q.element_size() + lse.numel() * 4 + valid.numel()
     # both instances split dk/dv from dq as the library does: S and dP twice
     design_flops = 14 * b * h * t * t * hd
-    name = f"flash_attention_bwd[{'f32' if f32 else 'bf16'}]"
+    name = f"flash_attention_bwd[{'f32' if f32 else 'bf16'}{'' if hd == 64 else f', hd{hd}'}]"
     if f32:
         # every f32 product is three TF32 products on the tensor cores
         bms, by = bound(3 * flops, nbytes, PEAK_TF32)
@@ -352,8 +376,9 @@ def check_flash_bwd(fa, dtype, gen):
           f"scale ({', '.join(f'{sc:.3g}' for _, sc in errs)}); worst "
           f"{max(e / sc for e, sc in errs):.2e} of it; two calls bit-equal{yard}) kernel "
           f"{ms:.3f} ms ({flops / ms / 1e9:.0f} TFLOP/s of the function's work, {shares}"
-          f"{bwd_design(fa, dtype)}) plain {plain_ms:.3f} ms sdpa-backward {lib_ms:.3f} ms "
-          f"bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
+          f"{bwd_design(fa, dtype, hd)}) plain {plain_ms:.3f} ms sdpa-backward {lib_ms:.3f} ms "
+          f"bound {bms:.3f} ms ({by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB) at B*H = "
+          f"{b}*{h}, T = {t} ({n_valid} valid keys), hd {hd}")
     return {"name": name, "route": "cuda", "source": "vipers_torch/csrc/flash_attention_bwd.cu",
             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
                         "(_flash_attention_bwd_dkv) and :1287 (_flash_attention_bwd_dq)",
@@ -532,13 +557,14 @@ def own_variant(got, want, want_f32):
     return ratio
 
 
-def train_design(at):
-    """The training attention kernels' compiled design, for their lines."""
-    d = at.design()
+def train_design(at, hd=64):
+    """The training attention kernels' compiled design at ``hd``, for their
+    lines."""
+    d = at.design(hd)
     return (f"; forward {d['fwd_block_q']}-query tiles, {d['chunk']}-key chunks, "
             f"{d['fwd_stages']} K/V stages, K/V loaded by every tile (the other query tile of "
             f"a head reads it from L2); backward {d['bwd_block_q']}-query blocks, "
-            f"{d['bwd_stages']} stages, {d['chunk']} keys a round")
+            f"{d['bwd_stages']} stages, {d['bwd_chunk']} keys a round")
 
 
 def attention_rows(checks, design=""):
@@ -573,22 +599,27 @@ def attention_work(b, h, t, hd, valid):
             (10 * b * h * t * t * hd, 8 * n * 2 + lse_bytes + valid.numel()))
 
 
-def check_attention_train(at, gen):
+def check_attention_train(at, gen, shape=(TRAIN_BATCH, 6, 256, 64), n_valid=197, ragged=120):
     """Training attention kernels vs plain at the train shape: B*H = 128*6,
     T = 256 (197 tokens seq-padded; on every other image a ragged run of pad
-    keys inside the 197), hd = 64, bf16, packed (3, B, H, T, hd) q|k|v with
-    the backward writing one packed dqkv."""
-    b, h, t, hd = TRAIN_BATCH, 6, 256, 64
+    keys inside the 197, from key 120), hd = 64 (or ``shape``, ``n_valid``
+    tokens, pad keys from ``ragged``: vit_h_14's 224x224 train shape at hd
+    80), bf16, packed (3, B, H, T, hd) q|k|v with the backward writing one
+    packed dqkv; one launch of the head dim's instance each way."""
+    b, h, t, hd = shape
     qkv = torch.randn(3, b, h, t, hd, generator=gen, device="cuda").to(torch.bfloat16)
     cot = torch.randn(b, h, t, hd, generator=gen, device="cuda").to(torch.bfloat16)
     valid = torch.zeros(b, t, dtype=torch.bool, device="cuda")
-    valid[:, :197] = True
-    valid[1::2, 120:197:3] = False
+    valid[:, :n_valid] = True
+    valid[1::2, ragged:n_valid:3] = False
     q, k, v = qkv.unbind(0)
     scale = hd ** -0.5
+    n0 = dict(at.LAUNCHES)
     out, lse = at.attention_train_fwd(q, k, v, valid, scale)
     dqkv = torch.empty_like(qkv)
     at.attention_train_bwd(q, k, v, out, lse, cot, valid, scale, out=dqkv.unbind(0))
+    fk, bk = (at._launch_key(kind, "f32", hd) for kind in ("fwd", "bwd"))
+    assert at.LAUNCHES == {**n0, fk: n0[fk] + 1, bk: n0[bk] + 1}, at.LAUNCHES
     want, want_lse = at.attention_train_fwd_plain(q, k, v, valid, scale)
     want_g = at.attention_train_bwd_plain(q, k, v, out, lse, cot, valid, scale)
     torch.cuda.synchronize()
@@ -611,14 +642,16 @@ def check_attention_train(at, gen):
     bwd_lib = sdpa_bwd_ms(q, k, v, cot, amask)
 
     (fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes) = attention_work(b, h, t, hd, valid)
+    sfx = "" if hd == 64 else f", hd{hd}"
+    at_shape = f" at B*H = {b}*{h}, T = {t} ({n_valid} valid keys), hd {hd}"
     return attention_rows((
-        ("attention_train_fwd[bf16]", fwd_ms, fwd_plain, fwd_lib, fwd_flops, fwd_bytes,
+        (f"attention_train_fwd[bf16{sfx}]", fwd_ms, fwd_plain, fwd_lib, fwd_flops, fwd_bytes,
          fwd_err, f"2e-2 of output scale {fwd_scale:.3g}; lse {lse_err:.2e} (atol 1e-3)",
          "vipers/ops/attention_train.py:276"),
-        ("attention_train_bwd[bf16]", bwd_ms, bwd_plain, bwd_lib, bwd_flops, bwd_bytes,
+        (f"attention_train_bwd[bf16{sfx}]", bwd_ms, bwd_plain, bwd_lib, bwd_flops, bwd_bytes,
          max(e for e, _ in bwd), "2e-2 of each of dq, dk, dv's scale "
          f"({', '.join(f'{sc:.3g}' for _, sc in bwd)}); worst {bwd_err:.2e} of it",
-         "vipers/ops/attention_train.py:294")), train_design(at))
+         "vipers/ops/attention_train.py:294")), train_design(at, hd) + at_shape)
 
 
 def check_attention_train_rounds(at, gen):
@@ -886,9 +919,39 @@ FAMILY_HW = {16: (H, W), 32: (H, W), 14: (504, 392)}
 VIT_H_CPU_LAYERS, VIT_H_CPU_BATCH = 8, 2
 
 
-def to_device(tree, dev):
-    """A nested dict of tensors on ``dev``."""
-    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+def to_device(tree, dev, dtype=None):
+    """A nested dict of tensors on ``dev`` (and in ``dtype``, where given)."""
+    return {k: to_device(v, dev, dtype) if isinstance(v, dict) else v.to(dev, dtype)
+            for k, v in tree.items()}
+
+
+@contextlib.contextmanager
+def cublas_tf32(on=True):
+    """While on, cuBLAS runs f32 matmuls in TF32 (the yardstick the f32
+    kernels are held 10x nearer exact f32 than)."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def attention_by_einsum(on=True):
+    """While on, the models route no attention to a kernel (nor its plain
+    version): ``VIPERS_FLASH_MIN_T`` past any T, and T too long for the
+    training kernels."""
+    old = os.environ.get("VIPERS_FLASH_MIN_T")
+    if on:
+        os.environ["VIPERS_FLASH_MIN_T"] = str(1 << 30)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("VIPERS_FLASH_MIN_T", None)
+        else:
+            os.environ["VIPERS_FLASH_MIN_T"] = old
 
 
 def family_model(name, sparsity):
@@ -1146,15 +1209,9 @@ def family_phase(card, counters, lost_core):
     del extractors, inputs, pipes
     torch.cuda.empty_cache()
     # card vs CPU on the first VIT_H_CPU_LAYERS blocks of the same weights
-    import dataclasses
-
     from vipers_torch.discovery.driver import LostFeatureExtractor
-    from vipers_torch.models.vit import _build
 
-    cut = _build("vit_h_14", dataclasses.replace(spec.cfg, num_layers=VIT_H_CPU_LAYERS),
-                 spec.input_size)
-    cut_params = {k: v for k, v in params.items() if not k.startswith("encoder_layer_")
-                  or int(k.rsplit("_", 1)[1]) < VIT_H_CPU_LAYERS}
+    cut, cut_params, _ = cut_model(spec, params, {}, VIT_H_CPU_LAYERS)
     print(f"vit_h_14 card vs CPU: cut to its first {VIT_H_CPU_LAYERS} of {n} blocks and "
           f"B={VIT_H_CPU_BATCH} (the CPU's time), f32")
     ex = LostFeatureExtractor(cut, cut_params, None)
@@ -1413,7 +1470,7 @@ def tools_phase(counters):
     bench_softmax_prec.main([])
     torch.cuda.synchronize()
     launches = {f"attention_train_{k[:3]}[{k[4:-1]}]": n for k, n in at.LAUNCHES.items()
-                if "[" in k}
+                if "[" in k and "[hd" not in k}  # the softmax variants
     reset_counts(*counters)
     bench_splash.main([])
     torch.cuda.synchronize()
@@ -1428,31 +1485,53 @@ def tools_phase(counters):
 
 
 def train_launches(at, fa, fm):
-    """The launch counts a train step can show, by kernel row."""
-    return {"attention_train_fwd[bf16]": at.LAUNCHES["fwd"],
-            "attention_train_bwd[bf16]": at.LAUNCHES["bwd"],
-            "flash_attention_fwd[f32]": fa.LAUNCHES["float32"],
-            "flash_attention_fwd[bf16]": fa.LAUNCHES["bfloat16"],
-            "flash_attention_bwd[f32]": fa.BWD_LAUNCHES["float32"],
-            "flash_attention_bwd[bf16]": fa.BWD_LAUNCHES["bfloat16"],
-            "fused_ln_fc1_gelu[bf16]": fm.LAUNCHES["bfloat16"]}
+    """The launch counts a train step can show, by kernel row (each head
+    dim's instances their own rows)."""
+    got = {"fused_ln_fc1_gelu[bf16]": fm.LAUNCHES["bfloat16"]}
+    for sfx, hd in (("", 64), (", hd80", 80)):
+        got[f"attention_train_fwd[bf16{sfx}]"] = at.LAUNCHES[at._launch_key("fwd", "f32", hd)]
+        got[f"attention_train_bwd[bf16{sfx}]"] = at.LAUNCHES[at._launch_key("bwd", "f32", hd)]
+        for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            key = fa.launch_key(dt, hd)
+            got[f"flash_attention_fwd[{name}{sfx}]"] = fa.LAUNCHES[key]
+            got[f"flash_attention_bwd[{name}{sfx}]"] = fa.BWD_LAUNCHES[key]
+    return got
 
 
-def train_phase(card, counters, hw, n_cpu, lrr):
+def cut_model(spec, params, masks, layers):
+    """``spec`` cut to its first ``layers`` blocks at full width, with the
+    same weights and masks (as phase 10 cuts vit_h_14 for the CPU)."""
+    import dataclasses
+
+    from vipers_torch.models.vit import _build
+
+    def keep(k):
+        return not k.startswith("encoder_layer_") or int(k.rsplit("_", 1)[1]) < layers
+
+    cut = _build(spec.name, dataclasses.replace(spec.cfg, num_layers=layers), spec.input_size)
+    return (cut, {k: v for k, v in params.items() if keep(k)},
+            {p: m for p, m in masks.items() if keep(p[0])})
+
+
+def train_phase(card, counters, hw, n_cpu, lrr, model="vit_s_16", patch=PATCH,
+                batch=TRAIN_BATCH, cpu_layers=None):
     """The masked train step of full-width ViT-S/16 at hw x hw (12 layers,
-    D=384, 6 heads, mlp 1536, 1000 classes) with 50% global magnitude masks
-    on unbaked f32 masters, SGD momentum 0.9, wd 1e-4, lr 0.1 cosine, uint8
+    D=384, 6 heads, mlp 1536, 1000 classes; or ``model`` at ``patch``, B =
+    ``batch``) with 50% global magnitude masks (ranked on the card) on
+    unbaked f32 masters, SGD momentum 0.9, wd 1e-4, lr 0.1 cosine, uint8
     images normalized on the card. At 224 (T = 197 seq-padded to 256) every
     block's attention goes through the training kernels; at 384 (T = 577,
     at least ``flash_min_t()``, seq-padded to 640) through the flash forward
-    and backward kernels. Checks: launches per bf16 step (12 of the route's
-    forward and 12 of its backward, none of the other route's, no fused
-    MLP), finite losses, pruned slots unchanged; img/s at B=128 (best of 3
-    windows of 6 steps); card vs CPU at B=n_cpu: f32 params after 2 steps
-    within 1e-4 (counted too: the f32 kernels' launches), bf16 loss within
-    2e-2 and gradients within 3e-2; with ``lrr``, one LRR round. Returns
-    the launch counts of the counted bf16 steps, with the f32 flash
-    backward's from the f32 card steps."""
+    and backward kernels (vit_h_14: T = 257 -> 384 at 224, 785 -> 896 at
+    392, the hd-80 instances). Checks: launches per bf16 step (one of the
+    route's forward and one of its backward a block, none of the other
+    route's, no fused MLP), finite losses, pruned slots unchanged; img/s at
+    B=128 (best of 3 windows of 6 steps) and the peak device memory; card
+    vs CPU at B=n_cpu (on the first ``cpu_layers`` blocks, where given):
+    f32 params after 2 steps within 1e-4 (counted too: the f32 kernels'
+    launches), bf16 loss within 2e-2 and gradients within 3e-2; with
+    ``lrr``, one LRR round. Returns the launch counts of the counted bf16
+    steps, with the f32 flash backward's from the f32 card steps."""
     from vipers_torch.core.registry import build_model
     from vipers_torch.data.preprocess import make_device_normalize
     from vipers_torch.ops import attention_train as at
@@ -1465,9 +1544,9 @@ def train_phase(card, counters, hw, n_cpu, lrr):
                                           make_eval_step, make_train_step)
 
     t0 = time.time()
-    b = TRAIN_BATCH
-    spec = build_model("vit_s_16", num_classes=1000, image_size=(hw, hw))
-    params = spec.init(torch.Generator().manual_seed(0))
+    b = batch
+    spec = build_model(model, num_classes=1000, image_size=(hw, hw))
+    params = to_device(spec.init(torch.Generator().manual_seed(0)), "cuda")
     masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), SPARSITY)
     ocfg = OptimConfig(opt="sgd", lr=0.1, momentum=0.9, weight_decay=1e-4, epochs=10,
                        lr_scheduler="cosineannealinglr")
@@ -1479,10 +1558,13 @@ def train_phase(card, counters, hw, n_cpu, lrr):
     x = normalize(u8)
     step = make_train_step(1000, compute_dtype=torch.bfloat16)
     pruned = {k: state.params[k].detach()[~m].clone() for k, m in state.masks.items()}
-    tokens = (hw // PATCH) ** 2 + 1
+    tokens = (hw // patch) ** 2 + 1
     flash = tokens >= fa.flash_min_t()
+    hd = spec.cfg.hidden_dim // spec.cfg.num_heads
+    sfx = "" if hd == 64 else f", hd{hd}"
     torch.cuda.synchronize()
-    print(f"train vit_s_16 {hw}x{hw} bf16 B={b} (T={tokens}, "
+    torch.cuda.reset_peak_memory_stats()
+    print(f"train {model} {hw}x{hw} bf16 B={b} (T={tokens}, hd {hd}, "
           f"{'flash' if flash else 'training'} attention kernels): set-up "
           f"{time.time() - t0:.1f} s")
 
@@ -1498,8 +1580,8 @@ def train_phase(card, counters, hw, n_cpu, lrr):
     losses = [float(v) for v in losses]
     n = spec.cfg.num_layers * n_steps
     print(f"train steps {hw}x{hw}: losses {losses}; launches in {n_steps} steps {launches}")
-    route = (("flash_attention_fwd[bf16]", "flash_attention_bwd[bf16]") if flash else
-             ("attention_train_fwd[bf16]", "attention_train_bwd[bf16]"))
+    route = ((f"flash_attention_fwd[bf16{sfx}]", f"flash_attention_bwd[bf16{sfx}]") if flash
+             else (f"attention_train_fwd[bf16{sfx}]", f"attention_train_bwd[bf16{sfx}]"))
     assert launches == {k: n if k in route else 0 for k in launches}, launches
     assert all(np.isfinite(losses)), losses
     for k, m in state.masks.items():
@@ -1514,20 +1596,29 @@ def train_phase(card, counters, hw, n_cpu, lrr):
             state, m = step(state, (x, labels))
         torch.cuda.synchronize()
         best = max(best, b * 6 / (time.perf_counter() - t1))
-    print(f"train throughput {hw}x{hw} bf16 {best:.1f} img/s at B={b} ({card})")
+    print(f"train throughput {model} {hw}x{hw} bf16 {best:.1f} img/s at B={b} ({card}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # card vs CPU at B=n_cpu; the f32 card steps counted
+    # card vs CPU at B=n_cpu (on a cut depth); the f32 card steps counted
+    t_cpu = time.time()
     xs, ys = u8[:n_cpu], labels[:n_cpu]
+    cspec, cparams, cmasks = spec, params, masks
+    if cpu_layers:
+        cspec, cparams, cmasks = cut_model(spec, params, masks, cpu_layers)
+        print(f"{model} card vs CPU {hw}x{hw}: cut to its first {cpu_layers} of "
+              f"{spec.cfg.num_layers} blocks and B={n_cpu} (the CPU's time)")
     f32 = {}
     for dev in ("cuda", "cpu"):
-        st = create_train_state(spec, params, masks, ocfg, 100, device=dev)
+        st = create_train_state(cspec, cparams, cmasks, ocfg, 100, device=dev)
         st_step = make_train_step(1000)
         batch = (normalize(xs.to(dev)), ys.to(dev))
         if dev == "cuda":
             torch.cuda.synchronize()
             reset_counts(*counters)
+        t2 = time.time()
         for _ in range(2):
             st, _ = st_step(st, batch)
+        cpu_s = {"f32": time.time() - t2}
         f32[dev] = {k: p.detach().cpu() for k, p in st.params.items()}
         if dev == "cuda":
             f32_launches = train_launches(at, fa, fm)
@@ -1535,26 +1626,29 @@ def train_phase(card, counters, hw, n_cpu, lrr):
             bf_masks, bf_state = st.masks, {k: p.detach().cpu() for k, p in st.params.items()}
     print(f"train f32 {hw}x{hw} B={n_cpu} on the card: launches in 2 steps {f32_launches}")
     if flash:
-        n2 = 2 * spec.cfg.num_layers
-        assert f32_launches["flash_attention_fwd[f32]"] == n2, f32_launches
-        assert f32_launches["flash_attention_bwd[f32]"] == n2, f32_launches
-        launches["flash_attention_bwd[f32]"] = f32_launches["flash_attention_bwd[f32]"]
+        n2 = 2 * cspec.cfg.num_layers
+        assert f32_launches[f"flash_attention_fwd[f32{sfx}]"] == n2, f32_launches
+        assert f32_launches[f"flash_attention_bwd[f32{sfx}]"] == n2, f32_launches
+        launches[f"flash_attention_bwd[f32{sfx}]"] = f32_launches[f"flash_attention_bwd[f32{sfx}]"]
     f32_err = max((f32["cuda"][k] - f32["cpu"][k]).abs().max().item() for k in f32["cpu"])
     print(f"cpu-vs-card train {hw}x{hw} f32: params after 2 steps max_abs_err {f32_err:.3e} "
           f"(atol 1e-4)")
     assert f32_err <= 1e-4, f32_err
-    cpu_model = spec.module()
+    cpu_model = cspec.module()
     cpu_model.load_state_dict(bf_state)
+    t2 = time.time()
     cpu_bf = loss_and_grads(cpu_model, {k: m.cpu() for k, m in bf_masks.items()},
                             (normalize(xs.cpu()), ys.cpu()), 1000,
                             compute_dtype=torch.bfloat16)
+    cpu_s["bf16"] = time.time() - t2
     loss_gap = abs(float(bf[0]) - float(cpu_bf[0]))
     gg = torch.cat([g.flatten().cpu() for g in bf[2].values()])
     gc = torch.cat([cpu_bf[2][k].flatten() for k in bf[2]])
     g_rel = ((gg - gc).norm() / gc.norm()).item()
     print(f"cpu-vs-card train {hw}x{hw} bf16: loss {float(bf[0]):.5f} vs {float(cpu_bf[0]):.5f} "
           f"(gap {loss_gap:.2e}, tol 2e-2 relative); gradients relative L2 error "
-          f"{g_rel:.3e} (tol 3e-2)")
+          f"{g_rel:.3e} (tol 3e-2); card vs CPU {time.time() - t_cpu:.1f} s (the CPU's 2 f32 steps "
+          f"{cpu_s['f32']:.1f} s, its bf16 gradients {cpu_s['bf16']:.1f} s)")
     assert loss_gap <= 2e-2 * abs(float(cpu_bf[0])), loss_gap
     assert g_rel <= 3e-2, g_rel
     if not lrr:
@@ -1581,6 +1675,184 @@ def train_phase(card, counters, hw, n_cpu, lrr):
     return launches
 
 
+# Phase 11: vit_h_14 pruned and trained at 224x224 (T = 257 -> 384: the
+# training kernels) and 392x392 (T = 785 -> 896: the flash kernels), both
+# hd 80; SNIP at 392 in f32. B: the largest of 32 and 16 that fits the 224
+# step, 16 at 392, 8 for SNIP's f32 forward and backward.
+VIT_H_TRAIN = ((224, 32), (392, 16))
+VIT_H_SNIP_BATCH = 8
+
+
+def snip_phase(card, counters, hw=392, batch=VIT_H_SNIP_BATCH, target=SPARSITY):
+    """SNIP on vit_h_14 at 392x392 in f32 (random weights from seed 0, 1000
+    classes, uint8 images from seed 9 normalized on the card): first on its
+    first VIT_H_CPU_LAYERS blocks at B=VIT_H_CPU_BATCH, card (the f32 flash
+    kernels) against the CPU in f32 (the kernels' plain versions) and in
+    f64 (the einsum: the truth, to f32's resolution): saliencies within
+    1e-5 of their scale of the CPU's f32; masks at the target sparsity
+    (exactly, but for saliencies tied at the threshold); where the card's
+    and the CPU's f32 masks differ, both saliencies within twice the
+    largest saliency difference of their thresholds (derived: no weight
+    farther off can flip, so this cannot fail once the saliencies pass);
+    and, binding at the threshold, the yardstick the f32 flash kernels
+    are held to (10x nearer exact f32 than cuBLAS TF32): on the weights
+    whose f64 saliency lies within 1% of the f64 threshold, the RMS of the
+    card's saliency error against f64 at most 0.1 of a TF32 run's (the
+    card with attention by the einsum and cuBLAS in TF32), and the card's
+    masks wrong against the f64 masks on at most 0.1 as many weights as
+    that run's (printed beside: the CPU's f32 and the card's einsum in
+    f32, which show what the 3xTF32 kernels add). Then at full depth and B=``batch`` on
+    the card, counted: 32 f32 hd-80 flash forward and 32 backward
+    launches, no other kernel; the masks at the target sparsity; then 2
+    bf16 train steps (the flash route) from those masks: finite losses,
+    pruned slots unchanged. Returns the full-depth SNIP's launch counts."""
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data.preprocess import make_device_normalize
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.pruning import init_masks, snip_saliency, snip_threshold
+    from vipers_torch.pruning.snip import vit_snip_loss
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import create_train_state, make_train_step
+
+    def masks_of(sal):
+        thr = snip_threshold(sal, target)
+        masks = {p: v > thr for p, v in sal.items()}
+        n = sum(v.numel() for v in sal.values())
+        pruned = n - sum(int(m.sum()) for m in masks.values())
+        ties = sum(int((v == thr).sum()) for v in sal.values())
+        k = int(n * target)
+        assert k <= pruned <= k + ties - 1, (k, pruned, ties)
+        return masks, float(thr), n, pruned, k, ties
+
+    t0 = time.time()
+    spec = build_model("vit_h_14", num_classes=1000, image_size=(hw, hw))
+    params = to_device(spec.init(torch.Generator().manual_seed(0)), "cuda")
+    rng = np.random.default_rng(9)
+    u8 = torch.from_numpy(rng.integers(0, 256, (batch, hw, hw, 3), dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 1000, (batch,))).cuda()
+    x = make_device_normalize()(u8)
+
+    cut, cparams, _ = cut_model(spec, params, {}, VIT_H_CPU_LAYERS)
+    sal = {}
+    # name: device, dtype, attention by the einsum, cuBLAS in TF32
+    runs = {"cuda": ("cuda", torch.float32, False, False),
+            "cpu": ("cpu", torch.float32, False, False),
+            "f64": ("cpu", torch.float64, True, False),  # the plain versions take no f64
+            "einsum": ("cuda", torch.float32, True, False),
+            "tf32": ("cuda", torch.float32, True, True)}
+    for name, (dev, dtype, einsum, tf32) in runs.items():
+        p = to_device(cparams, dev, dtype)
+        xb = (x[:VIT_H_CPU_BATCH].to(dev, dtype), labels[:VIT_H_CPU_BATCH].to(dev))
+        with attention_by_einsum(einsum), cublas_tf32(tf32):
+            s = snip_saliency(vit_snip_loss(cut, 1000), p, xb,
+                              init_masks(p, exclude=cut.prune_exclude))
+        sal[name] = {k: v.cpu() for k, v in s.items()}
+    got, thr, n, pruned, k, ties = masks_of(sal["cuda"])
+    want, cthr, *_ = masks_of(sal["cpu"])
+    scale = max(float(v.max()) for v in sal["cpu"].values())
+    sal_err = max(float((sal["cuda"][p] - sal["cpu"][p]).abs().max()) for p in sal["cpu"])
+    assert sal_err <= 1e-5 * scale, (sal_err, scale)
+    # derived: a weight's masks can differ only where both saliencies lie
+    # within twice the largest saliency difference of their thresholds (the
+    # k-th smallest moves by at most that difference)
+    band = 2 * sal_err
+    flips, far = 0, 0.0
+    for p in want:
+        diff = got[p] != want[p]
+        if not bool(diff.any()):
+            continue
+        flips += int(diff.sum())
+        dist = torch.maximum((sal["cuda"][p][diff] - thr).abs(), (sal["cpu"][p][diff] - cthr).abs())
+        far = max(far, float(dist.max()))
+        assert far <= band, (p, far, band)
+    # binding: against the f64 truth, on the weights that decide the mask
+    truth, t64, *_ = masks_of(sal["f64"])
+    others = [r for r in runs if r != "f64"]
+    masks = {"cuda": got, "cpu": want,
+             **{r: masks_of(sal[r])[0] for r in others if r not in ("cuda", "cpu")}}
+    sq, wrong, near_n = dict.fromkeys(others, 0.0), dict.fromkeys(others, 0), 0
+    for p, s64 in sal["f64"].items():
+        near = (s64 - t64).abs() <= 1e-2 * t64
+        near_n += int(near.sum())
+        for r in others:
+            sq[r] += float(((sal[r][p].double() - s64)[near] ** 2).sum())
+            wrong[r] += int((masks[r][p] != truth[p]).sum())
+    rms = {r: (v / max(near_n, 1)) ** 0.5 / t64 for r, v in sq.items()}
+    print(f"SNIP vit_h_14 {hw}x{hw} f32, card vs CPU on its first {VIT_H_CPU_LAYERS} of "
+          f"{spec.cfg.num_layers} blocks at B={VIT_H_CPU_BATCH}: {n} prunable weights, pruned "
+          f"{pruned} (k = {k}, {ties} at the threshold {thr:.6e}; the CPU's {cthr:.6e}, f64 "
+          f"{t64:.6e}); saliencies max_abs_err {sal_err:.3e}, {sal_err / scale:.2e} of their "
+          f"scale {scale:.3e} (tol 1e-5); masks equal but for {flips} weights at the threshold "
+          f"(the farthest {far:.2e} from it, {far / thr:.2e} relative; derived bound: twice "
+          f"the saliency error, {band:.2e}); against f64, on the {near_n} weights within 1% "
+          f"of its threshold, saliency RMS error (of the threshold) and masks wrong: "
+          + ", ".join(f"{r} {rms[r]:.3e} {wrong[r]}" for r in others)
+          + " (the card = cuda; einsum, tf32: the card with attention by the einsum, cuBLAS "
+          f"in f32 and TF32; tol: the card 10x nearer f64 than tf32 on both); "
+          f"{time.time() - t0:.1f} s")
+    assert rms["cuda"] <= 0.1 * rms["tf32"], rms
+    assert wrong["cuda"] <= 0.1 * wrong["tf32"], wrong
+    del sal, got, want, truth
+
+    reset_counts(*counters)
+    loss_fn = vit_snip_loss(spec, 1000)
+    base = init_masks(params, exclude=spec.prune_exclude)
+    t1 = time.perf_counter()
+    sal = snip_saliency(loss_fn, params, (x, labels), base)
+    torch.cuda.synchronize()
+    snip_s = time.perf_counter() - t1
+    counted = train_launches(at, fa, fm)
+    layers = spec.cfg.num_layers
+    route = {"flash_attention_fwd[f32, hd80]": layers, "flash_attention_bwd[f32, hd80]": layers}
+    assert counted == {k: route.get(k, 0) for k in counted}, counted
+    masks, thr, n, pruned, k, ties = masks_of(sal)
+    del sal
+    print(f"SNIP vit_h_14 {hw}x{hw} f32 B={batch}, full depth on the card: {snip_s:.2f} s for "
+          f"the saliencies; launches {counted}; {n} prunable weights, pruned {pruned} "
+          f"({100 * pruned / n:.4f}%; k = {k}, {ties} at the threshold) ({card})")
+
+    ocfg = OptimConfig(opt="sgd", lr=0.1, momentum=0.9, weight_decay=1e-4, epochs=10,
+                       lr_scheduler="cosineannealinglr")
+    state = create_train_state(spec, params, masks, ocfg, steps_per_epoch=100)
+    pruned_w = {key: state.params[key].detach()[~m].clone() for key, m in state.masks.items()}
+    step = make_train_step(1000, compute_dtype=torch.bfloat16)
+    losses = []
+    for _ in range(2):
+        state, m = step(state, (x, labels))
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)), losses
+    for key, m in state.masks.items():
+        assert torch.equal(state.params[key].detach()[~m], pruned_w[key]), key
+    print(f"vit_h_14 from the SNIP masks: 2 bf16 steps at {hw}x{hw} B={batch}, losses {losses}, "
+          f"pruned slots unchanged ({time.time() - t0:.1f} s for the SNIP phase)")
+    return counted
+
+
+def vit_h_phase(card, counters):
+    """Phase 11: vit_h_14 (32 blocks, D 1280, 16 heads of 80, mlp 5120,
+    1000 classes) pruned and trained on the card at full width and depth:
+    the bf16 masked train step at 224x224 (T = 257 -> 384: 32 hd-80
+    training forward and backward launches a step, one LRR round) and
+    392x392 (T = 785 -> 896: 32 hd-80 flash forward and backward a step),
+    each card vs CPU on its first VIT_H_CPU_LAYERS blocks at
+    B=VIT_H_CPU_BATCH; then SNIP (``snip_phase``). Returns the launches of
+    the hd-80 training and backward rows."""
+    rows = {}
+    for hw, batch in VIT_H_TRAIN:
+        tl = train_phase(card, counters, hw, VIT_H_CPU_BATCH, lrr=hw == 224, model="vit_h_14",
+                         patch=14, batch=batch, cpu_layers=VIT_H_CPU_LAYERS)
+        keys = (("attention_train_fwd[bf16, hd80]", "attention_train_bwd[bf16, hd80]")
+                if hw == 224 else ("flash_attention_bwd[bf16, hd80]",))
+        rows.update({k: tl[k] for k in keys})
+        torch.cuda.empty_cache()
+    rows["flash_attention_bwd[f32, hd80]"] = snip_phase(
+        card, counters)["flash_attention_bwd[f32, hd80]"]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1597,6 +1869,13 @@ def main():
     from vipers_torch.pruning import init_masks, magnitude_prune
 
     t_start = time.time()
+    laps = [t_start]
+
+    def lap(phase):
+        """Prints the seconds since the last phase ended."""
+        laps.append(time.time())
+        print(f"phase {phase}: {laps[-1] - laps[-2]:.1f} s")
+
     # 1. card
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1621,6 +1900,7 @@ def main():
             elif "registers" in line or "spill" in line or "serialized" in line:
                 print(f"  {name}: {line.strip()}")
 
+    lap(2)
     # 3. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_flash(fa, torch.float32, gen), check_flash(fa, torch.bfloat16, gen),
@@ -1637,7 +1917,15 @@ def main():
         torch.cuda.empty_cache()
     kernels += check_fused_mlp_family(fm, gen)
     torch.cuda.empty_cache()
+    # vit_h_14's train rows: the training kernels (rows 5-8) at its 224x224
+    # shape and the flash backward (rows 12-13) at its 392x392 shape, hd 80
+    kernels += check_attention_train(at, gen, shape=(32, 16, 384, 80), n_valid=257, ragged=150)
+    for dtype in (torch.float32, torch.bfloat16):
+        kernels.append(check_flash_bwd(fa, dtype, gen, shape=(16, 16, 896, 80), n_valid=785,
+                                       ragged=400))
+        torch.cuda.empty_cache()
 
+    lap(3)
     # 4. main path
     t0 = time.time()
     spec = build_model("vit_s_16", num_classes=1000, image_size=(H, W))
@@ -1707,27 +1995,39 @@ def main():
         print(f"throughput [{e}] {ips:.1f} img/s at B={BATCH}; p50 latency "
               f"{p50:.2f} ms at B=1 ({card})")
 
+    lap(4)
     # 5. packed LOST path
     launches.update(packed_lost_phase(card, spec, extractors, buckets, outs["f32", "mixed"],
                                       lost_core))
 
+    lap(5)
     # 6. JPEG -> boxes -> CorLoc through the CLI
     jpeg = jpeg_lost_phase(card, counters)
 
+    lap(6)
     # 7. train path at 224x224: the training attention kernels
     tl = train_phase(card, counters, TRAIN_HW, N_CPU, lrr=True)
     launches.update({k: tl[k] for k in ("attention_train_fwd[bf16]", "attention_train_bwd[bf16]")})
 
+    lap(7)
     # 8. train path at 384x384: the flash forward and backward kernels
     tl = train_phase(card, counters, TRAIN_HW_FLASH, 2, lrr=False)
     launches.update({k: tl[k] for k in ("flash_attention_bwd[f32]", "flash_attention_bwd[bf16]")})
 
+    lap(8)
     # 9. the A/B tools
     launches.update(tools_phase(counters))
 
+    lap(9)
     # 10. the ViT family on the LOST path
     family_rows, family_cli_run = family_phase(card, counters, lost_core)
     launches.update(family_rows)
+
+    lap(10)
+    # 11. vit_h_14 pruned and trained: the hd-80 training kernels and flash
+    # backward, SNIP
+    launches.update(vit_h_phase(card, counters))
+    lap(11)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove

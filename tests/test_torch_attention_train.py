@@ -4,7 +4,9 @@ The JAX kernels run in interpret mode (VIPERS_FUSED_ATTN_INTERPRET=1, as
 tests/test_attention_train.py runs them); the port's autograd Functions run
 their plain versions for CPU tensors, forward and backward. Shapes are the
 JAX tests': B=4, H=3, T=197 (padded to 256 inside both), hd=64, f32, with a
-key mask. Tolerances are the JAX tests' own: out 2e-5, gradients 5e-5.
+key mask; and vit_h_14's head dim 80 at B=2, H=2, T=257 (its 224x224 token
+count, padded to 384 inside both). Tolerances are the JAX tests' own: out
+2e-5, gradients 5e-5.
 """
 
 import jax
@@ -25,11 +27,11 @@ def _interpret(monkeypatch):
     monkeypatch.delenv("VIPERS_FUSED_ATTN", raising=False)
 
 
-def _inputs(seed, b=B, t=T):
+def _inputs(seed, b=B, t=T, h=H, hd=HD):
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.normal(size=(b, H, t, HD)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.normal(size=(b, h, t, hd)).astype(np.float32) for _ in range(3))
     valid = rng.random((b, t)) > 0.15
-    g = rng.normal(size=(b, H, t, HD)).astype(np.float32)
+    g = rng.normal(size=(b, h, t, hd)).astype(np.float32)
     return q, k, v, valid, g
 
 
@@ -37,13 +39,10 @@ def _t(*arrs):
     return [torch.from_numpy(np.array(a)) for a in arrs]
 
 
-@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
-@pytest.mark.parametrize("masked", [True, False], ids=["key-mask", "all-valid"])
-def test_forward_and_gradients_match_jax_kernels(packed, masked):
-    """One kernel pair serves both entries: the packed entry hands the three
-    slabs of one (3, B, H, T, hd) buffer to the same forward and backward
-    the unpacked entry calls with three tensors."""
-    q, k, v, valid, g = _inputs(0 if masked else 1)
+def _check_against_jax(inputs, packed, masked):
+    """The entry's forward and gradients against the JAX package's: out
+    within 2e-5, each gradient within 5e-5."""
+    q, k, v, valid, g = inputs
     jvalid = jnp.asarray(valid) if masked else None
     tvalid = torch.from_numpy(valid) if masked else None
     jg = jnp.asarray(g)
@@ -74,6 +73,24 @@ def test_forward_and_gradients_match_jax_kernels(packed, masked):
     for name, a, c in pairs:
         diff = float(np.abs(a.numpy() - np.asarray(c)).max())
         assert diff < 5e-5, (name, diff)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+@pytest.mark.parametrize("masked", [True, False], ids=["key-mask", "all-valid"])
+def test_forward_and_gradients_match_jax_kernels(packed, masked):
+    """One kernel pair serves both entries: the packed entry hands the three
+    slabs of one (3, B, H, T, hd) buffer to the same forward and backward
+    the unpacked entry calls with three tensors."""
+    _check_against_jax(_inputs(0 if masked else 1), packed, masked)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+@pytest.mark.parametrize("masked", [True, False], ids=["key-mask", "all-valid"])
+def test_hd80_forward_and_gradients_match_jax_kernels(packed, masked):
+    """Head dim 80 (vit_h_14's 16 heads of 80) at T = 257, vit_h_14's
+    224x224 token count: both packages pad to 384 inside, where the card's
+    kernels take the two-pass forward and two key rounds."""
+    _check_against_jax(_inputs(6 if masked else 7, b=2, t=257, h=2, hd=80), packed, masked)
 
 
 def test_plain_backward_matches_pallas_bwd_on_the_same_residuals():
@@ -115,7 +132,8 @@ def test_bf16_plain_matches_jax_kernel_in_bf16():
 
 
 def test_gates_match_jax():
-    for t, hd in ((197, 64), (1024, 64), (1025, 64), (197, 65), (17, 64), (897, 32)):
+    for t, hd in ((197, 64), (1024, 64), (1025, 64), (197, 65), (17, 64), (897, 32),
+                  (257, 80), (785, 80)):
         assert tat.fused_attention_supported(t, hd) == jat.fused_attention_supported(t, hd)
     assert tat.MAX_T == jat.MAX_T
     assert tat.attention_train_enabled(torch.bfloat16)

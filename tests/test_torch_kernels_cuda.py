@@ -289,67 +289,87 @@ def test_fused_mlp_refuses_widths_outside_the_kernel_on_the_card(cuda, d, f):
     assert tfm.fused_ln_dense_gelu_core(x.cpu(), w_t.cpu(), b.cpu()).shape == (128, f)
 
 
-@pytest.mark.parametrize("hd", [32, 80])
+@pytest.mark.parametrize("hd", [32, 96])
 def test_flash_wrappers_reject_other_head_dims_on_the_card(cuda, hd):
-    """The flash forward kernel takes head dim 64 and 80, the backward 64
-    only (the plain versions on CPU tensors take any); a refused call
-    launches nothing."""
+    """The flash forward and backward kernels take head dim 64 and 80 (the
+    plain versions on CPU tensors take any); a refused call launches
+    nothing."""
     q, k, v = (z[..., :1].expand(-1, -1, -1, hd).contiguous()
                for z in _qkv(1, 2, 16, torch.float32, cuda, seed=hd))
     valid = torch.ones(1, 16, dtype=torch.bool, device=cuda)
     n0, b0 = dict(tfa.LAUNCHES), dict(tfa.BWD_LAUNCHES)
-    if hd not in tfa.FWD_HEAD_DIMS:
-        with pytest.raises(ValueError, match="head dim 64 or 80"):
-            tfa.flash_attention_fwd(q, k, v, valid)
+    with pytest.raises(ValueError, match="head dim 64 or 80"):
+        tfa.flash_attention_fwd(q, k, v, valid)
     lse = torch.zeros(1, 2, 16, device=cuda)
-    with pytest.raises(ValueError, match="head dim 64.*ROADMAP B1"):
+    with pytest.raises(ValueError, match="backward kernel needs head dim 64 or 80"):
         tfa.flash_attention_bwd(q, k, v, valid, q, lse, q, hd ** -0.5)
     assert tfa.LAUNCHES == n0 and tfa.BWD_LAUNCHES == b0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_hd80_backward_packed_and_training_wrappers_raise(cuda, dtype):
-    """At head dim 80 the flash backward (through autograd too), the packed
-    route and the training kernels raise ValueError on the card and launch
-    nothing: their hd-80 instances are ROADMAP B1, and no call falls back to
-    plain torch. The forward through autograd launches its hd-80 kernel."""
-    from vipers_torch.ops import attention_train as tat
-
-    q, k, v = (z.requires_grad_(True) for z in _qkv(2, 16, 256, dtype, cuda, seed=82, hd=80))
-    valid = torch.ones(2, 256, dtype=torch.bool, device=cuda)
-    counts = (tfa.BWD_LAUNCHES, tfa.PACKED_LAUNCHES, tat.LAUNCHES)
-    before = [dict(c) for c in counts]
-    out = tfa.flash_attention(q, k, v, valid)
-    with pytest.raises(ValueError, match="ROADMAP B1"):
-        out.sum().backward()
-    qkv = torch.randn(2, 256, 3 * 1280, device=cuda).to(dtype)
+def test_hd80_backward_and_training_wrappers_run_packed_raises(cuda, dtype):
+    """At head dim 80 the flash backward through autograd and (bf16) the
+    training kernels through their packed entry launch their hd-80
+    instances and match autograd through the plain versions (1e-4 of each
+    gradient's scale in f32, 2e-2 in bf16); the packed route still raises,
+    as in the JAX package (128 % 80 != 0: no packed layout), and launches
+    nothing."""
+    frac = 1e-4 if dtype == torch.float32 else 2e-2
+    qkv, cot, valid = _attention_train_inputs(2, 16, 256, cuda, seed=82, hd=80)
+    ins = [z.to(dtype).requires_grad_(True) for z in qkv.unbind(0)]
+    key = tfa.launch_key(dtype, 80)
+    b0, p0 = tfa.BWD_LAUNCHES[key], dict(tfa.PACKED_LAUNCHES)
+    got = torch.autograd.grad(tfa.flash_attention(*ins, valid=valid), ins, cot.to(dtype))
+    torch.cuda.synchronize()
+    assert tfa.BWD_LAUNCHES[key] == b0 + 1
+    ref_ins = [z.detach().clone().requires_grad_(True) for z in ins]
+    want = torch.autograd.grad(tfa.flash_attention_plain(*ref_ins, valid)[0], ref_ins,
+                               cot.to(dtype))
+    for a, c in zip(got, want):
+        _close_to_scale(a, c, frac)
     assert not tfa.packed_layout_supported(1280, 16)
     with pytest.raises(ValueError, match="no packed layout"):
-        tfa.flash_attention_packed(qkv, valid, num_heads=16)
-    x = torch.randn(3, 2, 16, 256, 80, device=cuda).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 64.*ROADMAP B1"):
-        tat.attention_train_packed(x, valid=valid)
-    assert [dict(c) for c in counts] == before
+        tfa.flash_attention_packed(torch.randn(2, 256, 3 * 1280, device=cuda).to(dtype), valid,
+                                   num_heads=16)
+    assert tfa.PACKED_LAUNCHES == p0
+    if dtype == torch.bfloat16:
+        _check_attention_train(qkv, cot, valid, packed=True)
 
 
-def test_vit_h_style_train_step_raises_at_the_training_kernel(cuda):
-    """A bf16 training forward of an hd-80 ViT (vit_h_14's heads at patch
-    14, 224x224: T = 257) routes attention to the training kernel, as the
-    JAX package does, and that kernel refuses hd 80 on the card: a
-    ValueError, not plain torch."""
+def test_vit_h_style_train_step_runs_the_hd80_training_kernels(cuda):
+    """A bf16 training forward and backward of an hd-80 ViT (vit_h_14's
+    heads at patch 14, 224x224: T = 257 seq-padded to 384) routes attention
+    to the training kernels, as the JAX package does, launches their hd-80
+    instances once a block each way, and its loss and gradients match the
+    same step on the CPU (plain versions) within 2e-2 and 3e-2 (relative
+    L2)."""
     from vipers_torch.models.vit import ViTConfig, VisionTransformer
+    from vipers_torch.ops import attention_train as tat
 
-    model = VisionTransformer(ViTConfig(14, 1, 2, 160, 320, 10), (224, 224))
-    model = model.to(cuda, torch.bfloat16).train()
-    x = torch.randn(2, 224, 224, 3, device=cuda).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="attention_train kernel needs head dim 64"):
-        model(x, need_attn=False)
+    torch.manual_seed(0)
+    model = VisionTransformer(ViTConfig(14, 2, 2, 160, 320, 10), (224, 224)).train()
+    x = torch.randn(2, 224, 224, 3)
+    grads, losses = [], []
+    for dev in ("cpu", cuda):
+        m = model.to(dev, torch.bfloat16)
+        n0 = dict(tat.LAUNCHES)
+        logits, _ = m(x.to(dev, torch.bfloat16), need_attn=False)
+        loss = logits.float().square().mean()
+        gs = torch.autograd.grad(loss, list(m.parameters()))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tat.LAUNCHES == {**n0, "fwd[hd80]": n0["fwd[hd80]"] + 2,
+                                    "bwd[hd80]": n0["bwd[hd80]"] + 2}
+        losses.append(float(loss))
+        grads.append(torch.cat([g.float().flatten().cpu() for g in gs]))
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[0]), losses
+    assert ((grads[1] - grads[0]).norm() / grads[0].norm()).item() <= 3e-2
 
 
-def _attention_train_inputs(b, h, t, dev, seed, all_invalid=False):
+def _attention_train_inputs(b, h, t, dev, seed, all_invalid=False, hd=64):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    qkv = torch.randn(3, b, h, t, 64, generator=g).to(dev, torch.bfloat16)
-    cot = torch.randn(b, h, t, 64, generator=g).to(dev, torch.bfloat16)
+    qkv = torch.randn(3, b, h, t, hd, generator=g).to(dev, torch.bfloat16)
+    cot = torch.randn(b, h, t, hd, generator=g).to(dev, torch.bfloat16)
     valid = torch.ones(b, t, dtype=torch.bool)
     valid[1::2, t - t // 5:] = False  # ragged pad keys on half the batch
     if all_invalid:
@@ -363,20 +383,16 @@ def _close_to_scale(got, want, frac=2e-2):
     assert err <= frac * scale, (err, scale)
 
 
-@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
-@pytest.mark.parametrize("t", [128, 197, 256, 384, 1024])
-def test_attention_train_kernels_match_plain(cuda, t, packed):
-    """Forward and backward kernels (through the entries and their autograd
-    Functions) against the plain versions on the same padded inputs, bf16
-    at 2e-2 of each output's scale. One kernel pair serves both entries.
-    T <= 256 (padded) takes the one-pass forward and the backward without
-    scratch, 384 and 1024 the two-pass forward and the key rounds. The last
-    image attends no key: its forward is the average of v over the padded
-    T and its backward the p = 1 one, as in JAX."""
+def _check_attention_train(qkv, cot, valid, packed, all_invalid=False):
+    """Forward and backward kernels through the packed or unpacked entry and
+    its autograd Function: one launch of the head dim's instance each way,
+    and every output within 2e-2 of its scale of the plain versions on the
+    same padded inputs; with ``all_invalid`` the last image's forward is the
+    average of v over the padded T."""
     from vipers_torch.ops import attention_train as tat
     from vipers_torch.ops.tokens import round_up
 
-    qkv, cot, valid = _attention_train_inputs(4, 3, t, cuda, seed=t, all_invalid=True)
+    _, b, h, t, hd = qkv.shape
     n0 = dict(tat.LAUNCHES)
     if packed:
         x = qkv.clone().requires_grad_(True)
@@ -387,28 +403,58 @@ def test_attention_train_kernels_match_plain(cuda, t, packed):
         out = tat.attention_train(q, k, v, valid=valid)
         grad = torch.stack(torch.autograd.grad(out, (q, k, v), cot))
     torch.cuda.synchronize()
-    assert tat.LAUNCHES["fwd"] == n0["fwd"] + 1 and tat.LAUNCHES["bwd"] == n0["bwd"] + 1
+    fk, bk = (tat._launch_key(kind, "f32", hd) for kind in ("fwd", "bwd"))
+    assert tat.LAUNCHES == {**n0, fk: n0[fk] + 1, bk: n0[bk] + 1}
 
-    tp, scale = round_up(t, 128), 64 ** -0.5
+    tp, scale = round_up(t, 128), hd ** -0.5
     pad = lambda z: torch.nn.functional.pad(z, (0, 0, 0, tp - t))  # noqa: E731
     q, k, v = (pad(z) for z in qkv.unbind(0))
     ok = torch.nn.functional.pad(valid, (0, tp - t))
     o, lse = tat.attention_train_fwd_plain(q, k, v, ok, scale)
     want = tat.attention_train_bwd_plain(q, k, v, o, lse, pad(cot), ok, scale)
     _close_to_scale(out, o[:, :, :t])
-    _close_to_scale(out[-1], v[-1].float().mean(dim=1, keepdim=True).expand(3, tp, 64)[:, :t])
+    if all_invalid:
+        _close_to_scale(out[-1],
+                        v[-1].float().mean(dim=1, keepdim=True).expand(h, tp, hd)[:, :t])
     for a, c in zip(grad, want):
         _close_to_scale(a, c[:, :, :t])
 
 
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("t", [128, 197, 256, 384, 1024])
+def test_attention_train_kernels_match_plain(cuda, t, packed):
+    """Forward and backward kernels (through the entries and their autograd
+    Functions) against the plain versions on the same padded inputs, bf16
+    at 2e-2 of each output's scale. One kernel pair serves both entries.
+    T <= 256 (padded) takes the one-pass forward and the backward without
+    scratch, 384 and 1024 the two-pass forward and the key rounds. The last
+    image attends no key: its forward is the average of v over the padded
+    T and its backward the p = 1 one, as in JAX."""
+    qkv, cot, valid = _attention_train_inputs(4, 3, t, cuda, seed=t, all_invalid=True)
+    _check_attention_train(qkv, cot, valid, packed, all_invalid=True)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("t", [384, 896, 257, 129, 64, 1])
+def test_attention_train_hd80_kernels_match_plain(cuda, t, packed):
+    """The hd-80 instances (vit_h_14's heads) as the test above holds the
+    hd-64 ones: T = 257 (vit_h_14 at 224x224, padded to 384) and 384 take
+    the two-pass forward and two key rounds, 896 four, 129 and below one
+    pass; the last image attends no key."""
+    qkv, cot, valid = _attention_train_inputs(4, 3, t, cuda, seed=t + 80, all_invalid=True,
+                                              hd=80)
+    _check_attention_train(qkv, cot, valid, packed, all_invalid=True)
+
+
+@pytest.mark.parametrize("hd", [64, 80])
 @pytest.mark.parametrize("t", [256, 640])
-def test_attention_train_backward_is_deterministic(cuda, t):
+def test_attention_train_backward_is_deterministic(cuda, t, hd):
     """Two backward calls on the same inputs give bit-equal dq, dk and dv:
     dQ is summed in a fixed order with no atomics (at T = 640 across key
     rounds in the f32 scratch), so an LRR round repeats."""
     from vipers_torch.ops import attention_train as tat
 
-    qkv, cot, valid = _attention_train_inputs(8, 6, t, cuda, seed=3, all_invalid=True)
+    qkv, cot, valid = _attention_train_inputs(8, 6, t, cuda, seed=3, all_invalid=True, hd=hd)
     q, k, v = qkv.unbind(0)
     o, lse = tat.attention_train_fwd(q, k, v, valid, 0.125)
     first = tat.attention_train_bwd(q, k, v, o, lse, cot, valid, 0.125)
@@ -440,12 +486,16 @@ def test_attention_train_rejects_unaligned_cuda_tensors(cuda):
 
 def test_attention_train_design(cuda):
     """The compiled training kernels: 128-query forward tiles over 256-key
-    chunks in two K/V stages; 64-query backward blocks in three ring
-    stages."""
+    chunks in two K/V stages; 64-query backward blocks in three ring stages
+    over rounds of 256 keys, 128 at hd 80 (registers)."""
     from vipers_torch.ops import attention_train as tat
 
-    assert tat.design() == {"fwd_block_q": 128, "chunk": 256, "fwd_stages": 2,
-                            "bwd_block_q": 64, "bwd_stages": 3}
+    want = {"fwd_block_q": 128, "chunk": 256, "fwd_stages": 2, "bwd_block_q": 64,
+            "bwd_stages": 3, "bwd_chunk": 256}
+    assert tat.design() == tat.design(64) == want
+    assert tat.design(80) == {**want, "bwd_chunk": 128}
+    with pytest.raises(ValueError, match="head dims"):
+        tat.design(96)
 
 
 def test_flash_attention_gradient_through_kernel(cuda):
@@ -468,13 +518,13 @@ def test_flash_attention_gradient_through_kernel(cuda):
             _close_to_scale(a, c, frac)
 
 
-def _flash_bwd_inputs(t, dtype, dev, seed):
-    """B*H = 3*5 at (3, 5, t, 64), a ragged key mask (about 20% pad keys,
+def _flash_bwd_inputs(t, dtype, dev, seed, hd=64):
+    """B*H = 3*5 at (3, 5, t, hd), a ragged key mask (about 20% pad keys,
     key 0 valid), image 1 attending no key, residuals from the forward
     kernel, cotangents on every row."""
-    q, k, v = _qkv(3, 5, t, dtype, dev, seed)
+    q, k, v = _qkv(3, 5, t, dtype, dev, seed, hd)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
-    cot = torch.randn(3, 5, t, 64, generator=g).to(dev, dtype)
+    cot = torch.randn(3, 5, t, hd, generator=g).to(dev, dtype)
     valid = torch.rand(3, t, generator=g) < 0.8
     valid[:, 0] = True
     valid[1] = False
@@ -510,13 +560,38 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, frac, t):
             _close_to_scale(a, c, frac)
 
 
+@pytest.mark.parametrize("dtype,frac", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [384, 896, 257, 129, 64, 1])
+def test_flash_backward_hd80_kernel_matches_plain(cuda, dtype, frac, t):
+    """The hd-80 instances (vit_h_14's heads; T = 896 is its 392x392 train
+    shape) as the test above holds the hd-64 ones: dq, dk, dv within 1e-4
+    (f32) or 2e-2 (bf16) of each gradient's scale, an image attending no
+    key, cotangents on every row (t = 1: dq, dk held to dv's scale)."""
+    args = _flash_bwd_inputs(t, dtype, cuda, seed=t + 80, hd=80)
+    key = tfa.launch_key(dtype, 80)
+    n0 = dict(tfa.BWD_LAUNCHES)
+    got = tfa.flash_attention_bwd(*args)
+    want = tfa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert tfa.BWD_LAUNCHES == {**n0, key: n0[key] + 1}
+    dv_scale = want[2].float().abs().max().item()
+    for a, c in zip(got, want):
+        assert a.dtype == dtype and a.shape == c.shape
+        if t == 1:
+            assert (a.float() - c.float()).abs().max().item() <= frac * dv_scale
+        else:
+            _close_to_scale(a, c, frac)
+
+
+@pytest.mark.parametrize("hd", [64, 80])
 @pytest.mark.parametrize("t", [640, 1152])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_flash_backward_is_deterministic(cuda, dtype, t):
+def test_flash_backward_is_deterministic(cuda, dtype, t, hd):
     """Two backward calls give bit-equal dq, dk and dv: no float atomics,
     every block owns its outputs (bf16 sums dq over 5 or 9 key tiles in
     one block's registers)."""
-    args = _flash_bwd_inputs(t, dtype, cuda, seed=11)
+    args = _flash_bwd_inputs(t, dtype, cuda, seed=11, hd=hd)
     first = tfa.flash_attention_bwd(*args)
     second = tfa.flash_attention_bwd(*args)
     torch.cuda.synchronize()
@@ -539,21 +614,24 @@ def test_flash_backward_design(cuda):
     """Both instances' compiled designs. bf16: 128-key dk/dv tiles (64 keys
     a consumer warpgroup) over 64-query stages, 128-query dq tiles over
     128-key stages. f32: the same tiles over 32-query and 32-key stages of
-    a 2- and a 3-stage ring, every product three TF32 products. Two kernels
-    each, and the workspace padding the wrapper allocates by."""
-    assert tfa.bwd_design(torch.bfloat16) == {
-        "dkv_keys": 128, "dkv_queries": 64, "dkv_stages": 4, "dq_queries": 128, "dq_keys": 128,
-        "dq_stages": 3, "row_pad": 128, "kernels": 2, "tf32_products": 0}
-    assert tfa.bwd_design(torch.float32) == {
-        "dkv_keys": 128, "dkv_queries": 32, "dkv_stages": 2, "dq_queries": 128, "dq_keys": 32,
-        "dq_stages": 3, "row_pad": 128, "kernels": 2, "tf32_products": 3}
+    a 2- and a 3-stage ring (at hd 80 a 1- and a 2-stage ring: shared
+    memory), every product three TF32 products. Two kernels each, and the
+    workspace padding the wrapper allocates by."""
+    bf16 = {"dkv_keys": 128, "dkv_queries": 64, "dkv_stages": 4, "dq_queries": 128,
+            "dq_keys": 128, "dq_stages": 3, "row_pad": 128, "kernels": 2, "tf32_products": 0}
+    f32 = {"dkv_keys": 128, "dkv_queries": 32, "dkv_stages": 2, "dq_queries": 128, "dq_keys": 32,
+           "dq_stages": 3, "row_pad": 128, "kernels": 2, "tf32_products": 3}
+    assert tfa.bwd_design(torch.bfloat16) == tfa.bwd_design(torch.bfloat16, 80) == bf16
+    assert tfa.bwd_design(torch.float32) == f32
+    assert tfa.bwd_design(torch.float32, 80) == {**f32, "dkv_stages": 1, "dq_stages": 2}
 
 
-def test_flash_backward_f32_nearer_f32_than_tf32(cuda):
+@pytest.mark.parametrize("hd", [64, 80])
+def test_flash_backward_f32_nearer_f32_than_tf32(cuda, hd):
     """The f32 kernel (three TF32 products a product) lies at least 10x
     nearer the exact-f32 plain version than that plain version run with
     cuBLAS in TF32 (one TF32 product a product), in each of dq, dk, dv."""
-    args = _flash_bwd_inputs(640, torch.float32, cuda, seed=13)
+    args = _flash_bwd_inputs(640, torch.float32, cuda, seed=13, hd=hd)
     assert not torch.backends.cuda.matmul.allow_tf32
     got = tfa.flash_attention_bwd(*args)
     want = tfa.flash_attention_bwd_plain(*args)

@@ -3,12 +3,16 @@ schedule, decay grouping, EMA, LRR round and reverse weight carry-over
 against the JAX package on the CPU.
 
 Small config: 2 layers, D=128, 2 heads of 64, mlp 256, 10 classes, 64x64
-images (T=17), B=4, 50% global magnitude masks on unbaked params, f32.
+images (T=17), B=4, 50% global magnitude masks on unbaked params, f32; the
+kernel and flash cases also at D=160 with 2 heads of 80 (vit_h_14's head
+dim), mlp 320.
 Both packages start from the same flax parameters (numpy) and masks and
 take 3 steps on the same numpy batches. Tolerances: loss per step 1e-5
 relative; params after 3 steps atol 2e-5 (f32 sums in another order
 through 3 SGD steps at lr 0.1); accuracies exact.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -33,13 +37,17 @@ from vipers_torch.train import steps as tsteps
 
 CFG = dict(patch_size=16, num_layers=2, num_heads=2, hidden_dim=128,
            mlp_dim=256, num_classes=10)
+CFG80 = dict(CFG, hidden_dim=160, mlp_dim=320)  # 2 heads of 80
 IMAGE = (64, 64)
 B, STEPS = 4, 3
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jspec = jvit._build("tiny", jvit.ViTConfig(**CFG), IMAGE)
+@functools.lru_cache(maxsize=None)
+def _setup(hd=64):
+    """Both packages' specs of the small config at head dim ``hd`` (64 or
+    80), its flax params, 50% masks and the numpy batches."""
+    cfg = CFG if hd == 64 else CFG80
+    jspec = jvit._build("tiny", jvit.ViTConfig(**cfg), IMAGE)
     variables = jspec.module.init(jax.random.PRNGKey(0), jnp.zeros((1, *IMAGE, 3)),
                                   train=False)
     params = variables["params"]
@@ -48,8 +56,13 @@ def setup():
     rng = np.random.default_rng(0)
     batches = [(rng.normal(size=(B, *IMAGE, 3)).astype(np.float32),
                 rng.integers(0, 10, size=(B,)).astype(np.int32)) for _ in range(STEPS)]
-    tspec = tvit._build("tiny", tvit.ViTConfig(**CFG), IMAGE)
+    tspec = tvit._build("tiny", tvit.ViTConfig(**cfg), IMAGE)
     return jspec, tspec, params, masks, batches
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(64)
 
 
 def _np_tree(tree):
@@ -95,6 +108,8 @@ CASES = {
     "einsum": dict(ocfg=dict(opt="sgd")),
     "kernel": dict(ocfg=dict(opt="sgd"), kernel=True),
     "flash": dict(ocfg=dict(opt="sgd"), flash=True),
+    "kernel-hd80": dict(ocfg=dict(opt="sgd"), kernel=True, hd=80),
+    "flash-hd80": dict(ocfg=dict(opt="sgd"), flash=True, hd=80),
     "sgd_nesterov-clip": dict(ocfg=dict(opt="sgd_nesterov", clip_grad_norm=0.5)),
     "rmsprop-clip": dict(ocfg=dict(opt="rmsprop", lr=0.01, clip_grad_norm=0.5)),
     "adamw-clip": dict(ocfg=dict(opt="adamw", lr=1e-3, weight_decay=0.05,
@@ -104,16 +119,18 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_masked_train_step_matches_jax(setup, monkeypatch, case):
+def test_masked_train_step_matches_jax(monkeypatch, case):
     """3 f32 steps: loss, acc1, acc5 per step, params (and the EMA) after.
     "kernel": the JAX packed kernel in interpret mode and the port's gate on
     for f32, so T=17 is seq-padded to 128 and every block's attention goes
     through attention_train_packed on both sides. "flash": VIPERS_FLASH_MIN_T=16
     for both packages, so T=17 is seq-padded to 128 and every block's
     attention goes through flash_attention on the port side (forward and
-    backward: the kernels' plain versions here)."""
-    jspec, tspec, params, masks, batches = setup
+    backward: the kernels' plain versions here). "-hd80": the same at head
+    dim 80."""
     spec = CASES[case]
+    hd = spec.get("hd", 64)
+    jspec, tspec, params, masks, batches = _setup(hd)
     kw = dict(lr=0.1, weight_decay=1e-4, epochs=10, lr_scheduler="cosineannealinglr")
     kw.update(spec["ocfg"])
     ema_decay, ema_warmup = spec.get("ema", (None, 0))
@@ -144,9 +161,9 @@ def test_masked_train_step_matches_jax(setup, monkeypatch, case):
     tstate, tm = _run_torch(tspec, params, masks, batches, toptim.OptimConfig(**kw),
                             ema_decay, ema_warmup)
     if spec.get("kernel"):
-        assert calls == [(3, B, 2, 128, 64)] * (2 * STEPS)
+        assert calls == [(3, B, 2, 128, hd)] * (2 * STEPS)
     if spec.get("flash"):
-        assert calls == [(B, 2, 128, 64)] * (2 * STEPS)
+        assert calls == [(B, 2, 128, hd)] * (2 * STEPS)
     for a, c in zip(tm, jm):
         assert abs(a["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]), (a, c)
         assert a["acc1"] == c["acc1"] and a["acc5"] == c["acc5"], (a, c)
@@ -160,7 +177,7 @@ def test_masked_train_step_matches_jax(setup, monkeypatch, case):
             # gradient is 0 and both packages see rounding noise there;
             # Adam's g / sqrt(v) turns noise into steps of up to lr, in
             # either package's own direction.
-            d = CFG["hidden_dim"]
+            d = tspec.cfg.hidden_dim
             assert np.abs(g[d:2 * d] - w[d:2 * d]).max() <= 2 * STEPS * kw["lr"]
             g, w = np.delete(g, np.s_[d:2 * d]), np.delete(w, np.s_[d:2 * d])
         np.testing.assert_allclose(g, w, atol=2e-5, rtol=0, err_msg=str(p))

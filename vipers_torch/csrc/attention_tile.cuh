@@ -564,13 +564,13 @@ __device__ __forceinline__ void split4(float4 x, float4& b, float4& s) {
   tf32_split(x.w, b.w, s.w);
 }
 
-// Rows r0 .. r0 + 63 of an f32 tile of ROWS rows, both halves: TF32 big in
-// place, small into `small` at the same index. The 128 threads of one
-// warpgroup (t128 its thread).
-template <int ROWS>
+// Rows r0 .. r0 + 63 of an f32 tile of ROWS rows, every 32-column part
+// (two at hd 64, three at hd 80): TF32 big in place, small into `small` at
+// the same index. The 128 threads of one warpgroup (t128 its thread).
+template <int ROWS, int D = HD>
 __device__ __forceinline__ void split_rows(float* big, float* small, int r0, int t128) {
 #pragma unroll 2
-  for (int i = t128; i < 64 * HD / 4; i += 128) {
+  for (int i = t128; i < 64 * 32 * f32_parts<D>() / 4; i += 128) {
     const int at = (i >> 9) * ROWS * 32 + r0 * 32 + (i & 511) * 4;
     float4 b, s;
     split4(*reinterpret_cast<const float4*>(big + at), b, s);
@@ -608,15 +608,16 @@ __device__ __forceinline__ void split_stage(const float* raw, float* b, float* s
   }
 }
 
-// Start D (64 x 32) = A B^T over the 64 dims, every k step as three TF32
-// products: A the warpgroup's 64 rows (shared addresses ab, as of its first
-// row, big and small) of a ROWS-row tile, B a 32-row tile (bb, bs), both
-// K-major. One wgmma group, which the caller commits.
-template <int ROWS>
+// Start D (64 x 32) = A B^T over the K dims (64, or 80 at hd 80), every k
+// step as three TF32 products: A the warpgroup's 64 rows (shared addresses
+// ab, as of its first row, big and small) of a ROWS-row tile, B a 32-row
+// tile (bb, bs), both K-major in 32-column parts. One wgmma group, which
+// the caller commits.
+template <int ROWS, int K = HD>
 __device__ __forceinline__ void product_ss(float (&d)[4][4], uint32_t ab, uint32_t as,
                                            uint32_t bb, uint32_t bs) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk) {
+  for (int kk = 0; kk < K / 8; ++kk) {
     wgmma_tf32_ss_n32(d, desc_f32<ROWS>(as, kk), desc_f32<32>(bb, kk), kk);
     wgmma_tf32_ss_n32(d, desc_f32<ROWS>(ab, kk), desc_f32<32>(bs, kk), 1);
     wgmma_tf32_ss_n32(d, desc_f32<ROWS>(ab, kk), desc_f32<32>(bb, kk), 1);

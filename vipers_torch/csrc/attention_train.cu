@@ -70,6 +70,14 @@
 // there: one CTA per (b, h), dK and dV in registers, dQ from dS^T staged
 // by stmatrix, keys in rounds of 256 with dQ summed in an f32 scratch
 // beyond.
+//
+// Head dim 80 (vit_h_14's 16 heads of 80; the F32 variant only, the model
+// path's): each row of Q, K and V is two TMA boxes, its first 64 columns as
+// above and a 16-column tail with the 32-byte swizzle in tiles of its own
+// (attention_bwd.cuh, attention_tile.cuh). S takes a fifth k16 step from
+// the tails; P V is an n64 product on V and an n16 on its tail into the
+// accumulator's last two 8-column groups. The forward's shared memory
+// grows to 202 KB (the tails' 40 KB); its shape stays.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -92,13 +100,28 @@ enum FwdVariant { FWD_F32 = 0, FWD_BF16EXP = 1, FWD_NORMP = 2 };
 constexpr int FWD_BQ = 64 * WGS;  // query rows of a tile
 constexpr int FWD_STAGES = 2;     // K/V chunks in the ring
 
-struct FwdSmem {
+// The tails' tiles at hd 80 (32 bytes a row; an empty base at hd 64).
+template <int TAIL>
+struct alignas(1024) FwdTailSmem {
+  bf16 qt[2][FWD_BQ * TAIL];
+  bf16 kt[FWD_STAGES][CHUNK * TAIL];
+  bf16 vt[FWD_STAGES][CHUNK * TAIL];
+};
+template <>
+struct FwdTailSmem<0> {};
+
+template <int D>
+struct FwdSmem : FwdTailSmem<tail_of<D>()> {
   bf16 q[2][FWD_BQ * HD];  // every tile 1024-byte aligned: the swizzle atom
   bf16 k[FWD_STAGES][CHUNK * HD];
   bf16 v[FWD_STAGES][CHUNK * HD];
   uint64_t q_full[2], q_empty[2], kv_full[FWD_STAGES], kv_empty[FWD_STAGES];
 };
-constexpr int FWD_SMEM = (int)sizeof(FwdSmem) + 1024;  // + the alignment slack
+template <int D>
+__host__ __device__ constexpr int fwd_smem() {
+  return (int)sizeof(FwdSmem<D>) + 1024;  // + the alignment slack
+}
+static_assert(fwd_smem<HD + 16>() <= 232448, "hd-80 forward shared memory");
 
 // A chunk's scores as two m64n128 accumulators: s[h][j][e] is key 128h +
 // 8j + 2tg + e%2 of the chunk (the wgmma C layout; tg = lane % 4), rows g
@@ -210,14 +233,18 @@ __device__ __forceinline__ void pack_half(const float (&s)[HALF / 8][4], const f
 }
 
 // S = qs . K^T of one chunk (both K-major; 16 dims = 32 bytes along the
-// swizzled row), as two m64n128 products in one group, waited for.
-__device__ __forceinline__ void chunk_scores(Scores& sc, uint64_t dq, uint32_t kb) {
+// swizzled row), as two m64n128 products in one group, waited for. At hd 80
+// (TAIL) a fifth k step reads the tails' tiles, qtb and ktb.
+template <int TAIL = 0>
+__device__ __forceinline__ void chunk_scores(Scores& sc, uint64_t dq, uint32_t kb,
+                                             uint32_t qtb = 0, uint32_t ktb = 0) {
   wgmma_fence();
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const uint64_t dk = desc_sw128(kb + h * HALF * ROW, 16);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss_n128(sc[h], dq + 2 * kk, dk + 2 * kk, kk);
+    if constexpr (TAIL > 0) wgmma_ss_n128(sc[h], desc_sw32(qtb), desc_sw32(ktb + h * HALF * TROW), 1);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -226,27 +253,51 @@ __device__ __forceinline__ void chunk_scores(Scores& sc, uint64_t dq, uint32_t k
 }
 
 // Start O += P V over one half on wgmma: P from registers, V MN-major
-// through the transpose bit (16 keys = 2048 bytes a step). The caller
-// fences before and commits after.
-__device__ __forceinline__ void start_pv(float (&o)[HD / 8][4], const uint32_t (&p)[HALF / 16][4],
-                                         uint32_t vb) {
+// through the transpose bit (16 keys = 2048 bytes a step); at hd 80 (D)
+// the tail's 16 columns (vtb; 512 bytes a step) into O's last two 8-column
+// groups. The caller fences before and commits after.
+template <int D = HD>
+__device__ __forceinline__ void start_pv(float (&o)[D / 8][4], const uint32_t (&p)[HALF / 16][4],
+                                         uint32_t vb, uint32_t vtb = 0) {
   const uint64_t dv = desc_sw128(vb, 1024);
+  float (&oh)[HD / 8][4] = *reinterpret_cast<float (*)[HD / 8][4]>(&o[0]);
 #pragma unroll
-  for (int kk = 0; kk < HALF / 16; ++kk) wgmma_rs_n64_tb(o, p[kk], dv + 128 * kk);
+  for (int kk = 0; kk < HALF / 16; ++kk) wgmma_rs_n64_tb(oh, p[kk], dv + 128 * kk);
+  if constexpr (D > HD) {
+    float (&ot)[(D - HD) / 8][4] = *reinterpret_cast<float (*)[(D - HD) / 8][4]>(&o[HD / 8]);
+    const uint64_t dvt = desc_sw32(vtb);
+#pragma unroll
+    for (int kk = 0; kk < HALF / 16; ++kk) wgmma_rs_n16_tb(ot, p[kk], dvt + 32 * kk);
+  }
 }
 
-// ONE: t <= CHUNK, the one-pass path, compiled on its own.
-template <int VARIANT, bool ONE>
+// The shared addresses of a K/V stage's tails (0 at hd 64, which has none).
+template <int D>
+__device__ __forceinline__ uint32_t kt_at(FwdSmem<D>& s, int st) {
+  if constexpr (tail_of<D>() > 0) return smem_u32(s.kt[st]);
+  return 0;
+}
+template <int D>
+__device__ __forceinline__ uint32_t vt_at(FwdSmem<D>& s, int st) {
+  if constexpr (tail_of<D>() > 0) return smem_u32(s.vt[st]);
+  return 0;
+}
+
+// ONE: t <= CHUNK, the one-pass path, compiled on its own. D: the head
+// dim; at 80 `tails` holds the maps of the rows' last 16 columns (q, k, v;
+// last, so that the hd-64 instances' parameters lie where they lay before).
+template <int VARIANT, bool ONE, int D = HD>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_train_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
                            const uint8_t* __restrict__ valid, bf16* __restrict__ o,
                            float* __restrict__ lse, int heads, int t, int n_tiles,
-                           float scale) {
+                           float scale, const __grid_constant__ Tails<tail_of<D>()> tails) {
+  constexpr int TAIL = tail_of<D>();
   extern __shared__ __align__(128) char smem_dyn[];
-  FwdSmem& s = *reinterpret_cast<FwdSmem*>((reinterpret_cast<uintptr_t>(smem_dyn) + 1023) &
-                                           ~uintptr_t(1023));
+  FwdSmem<D>& s = *reinterpret_cast<FwdSmem<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nq = (t + FWD_BQ - 1) / FWD_BQ, n_ch = ONE ? 1 : (t + CHUNK - 1) / CHUNK;
   // chunk loads a tile: one pass loads K and V once; two passes load K for
@@ -274,15 +325,22 @@ attention_train_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
         const int bh = tile / nq, qb = i & 1;
         mbar_wait(&s.q_empty[qb], ((i >> 1) & 1) ^ 1);
-        mbar_expect_tx(&s.q_full[qb], FWD_BQ * ROW);
+        mbar_expect_tx(&s.q_full[qb], FWD_BQ * D * 2);
         tma_load_3d(s.q[qb], &map_q, &s.q_full[qb], 0, (tile % nq) * FWD_BQ, bh);
+        if constexpr (TAIL > 0)
+          tma_load_3d(s.qt[qb], &tails.q, &s.q_full[qb], HD, (tile % nq) * FWD_BQ, bh);
         for (int j = 0; j < loads; ++j, ++it) {
           const int st = it % FWD_STAGES;
           const bool with_v = j >= loads - n_ch;
           mbar_wait(&s.kv_empty[st], ((it / FWD_STAGES) & 1) ^ 1);
-          mbar_expect_tx(&s.kv_full[st], (with_v ? 2 : 1) * CHUNK * ROW);
+          mbar_expect_tx(&s.kv_full[st], (with_v ? 2 : 1) * CHUNK * D * 2);
           tma_load_3d(s.k[st], &map_k, &s.kv_full[st], 0, (j % n_ch) * CHUNK, bh);
           if (with_v) tma_load_3d(s.v[st], &map_v, &s.kv_full[st], 0, (j % n_ch) * CHUNK, bh);
+          if constexpr (TAIL > 0) {
+            tma_load_3d(s.kt[st], &tails.k, &s.kv_full[st], HD, (j % n_ch) * CHUNK, bh);
+            if (with_v)
+              tma_load_3d(s.vt[st], &tails.v, &s.kv_full[st], HD, (j % n_ch) * CHUNK, bh);
+          }
         }
       }
     }
@@ -298,13 +356,19 @@ attention_train_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(&s.q_full[qb], (i >> 1) & 1);
       bf16* qw = s.q[qb] + wg * 64 * HD;  // this warpgroup's 64 rows
       scale_rows(qw, 64, qscale, threadIdx.x % 128, 128);
+      uint32_t qtb = 0;  // the tail of its rows (hd 80)
+      if constexpr (TAIL > 0) {
+        bf16* qtw = s.qt[qb] + wg * 64 * TAIL;
+        scale_rows<TROW>(qtw, 64, qscale, threadIdx.x % 128, 128);
+        qtb = smem_u32(qtw);
+      }
       fence_proxy_async();  // the generic writes, before wgmma reads them
       bar_sync(1 + wg, 128);
       const uint64_t dq = desc_sw128(smem_u32(qw), 16);
 
-      float acc[HD / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      float acc[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 
@@ -314,7 +378,7 @@ attention_train_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         const int st = it % FWD_STAGES;
         mbar_wait(&s.kv_full[st], (it / FWD_STAGES) & 1);
         Scores sc;
-        chunk_scores(sc, dq, smem_u32(s.k[st]));
+        chunk_scores<TAIL>(sc, dq, smem_u32(s.k[st]), qtb, kt_at(s, st));
         mask_chunk(sc, vrow, j * CHUNK, t, lane);
         max_chunk(sc, m, l, VARIANT == FWD_NORMP);
         if (lane == 0) mbar_arrive(&s.kv_empty[st]);
@@ -329,11 +393,11 @@ attention_train_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_wait(&s.kv_full[st], (it / FWD_STAGES) & 1);
         Scores sc;
         fence_regs(acc);
-        chunk_scores(sc, dq, smem_u32(s.k[st]));
+        chunk_scores<TAIL>(sc, dq, smem_u32(s.k[st]), qtb, kt_at(s, st));
         if (j == n_ch - 1 && lane == 0) mbar_arrive(&s.q_empty[qb]);
         mask_chunk(sc, vrow, j * CHUNK, t, lane);
         if (ONE) max_chunk(sc, m, l, false);
-        const uint32_t vb = smem_u32(s.v[st]);
+        const uint32_t vb = smem_u32(s.v[st]), vtb = vt_at(s, st);
         // p of the whole chunk first (NORMP rounds p / l, so needs l whole),
         // then P V by halves as one group, the second half's fragments
         // packed while the first half's product runs.
@@ -353,10 +417,10 @@ attention_train_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         pack_half(sc[0], inv, pp[0]);
         fence_regs(acc);
         wgmma_fence();
-        start_pv(acc, pp[0], vb);
+        start_pv<D>(acc, pp[0], vb, vtb);
         pack_half(sc[1], inv, pp[1]);
         wgmma_fence();
-        start_pv(acc, pp[1], vb + HALF * ROW);
+        start_pv<D>(acc, pp[1], vb + HALF * ROW, vtb + HALF * TROW);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -374,9 +438,9 @@ attention_train_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         const int row = q0 + warp * 16 + g + 8 * r;
         if (row >= t) continue;
         const float inv = VARIANT == FWD_NORMP ? 1.f : 1.f / l[r];
-        bf16* orow = o + ((size_t)bh * t + row) * HD + 2 * tg;
+        bf16* orow = o + ((size_t)bh * t + row) * D + 2 * tg;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
+        for (int dt = 0; dt < D / 8; ++dt)
           *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
               __floats2bfloat162_rn(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
         if (tg == 0) lse[(size_t)bh * t + row] = (m[r] == NEG2 ? NEG : m[r] * LN2) + logf(l[r]);
@@ -387,36 +451,46 @@ attention_train_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ---------------------------------------------------------------- host
 
-bool shape_ok(int bh, int heads, int t, int head_dim) {
-  return head_dim == HD && bh > 0 && heads > 0 && bh % heads == 0 && t > 0 && t % 64 == 0 &&
-         t <= MAX_T;
+// Head dim 64 takes every variant, 80 the model path's F32 alone (the A/B
+// tool runs its variants at 64).
+bool shape_ok(int bh, int heads, int t, int head_dim, int variant) {
+  return (head_dim == HD || (head_dim == HD + 16 && variant == 0)) && bh > 0 && heads > 0 &&
+         bh % heads == 0 && t > 0 && t % 64 == 0 && t <= MAX_T;
 }
 
-template <int VARIANT, bool ONE>
+template <int VARIANT, bool ONE, int D>
 int launch_fwd_one(const void* q, const void* k, const void* v, const uint8_t* valid, void* o,
                float* lse, int bh, int heads, int t, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int err = head_map(&mq, q, bh, t, FWD_BQ);
-  if (err == 0) err = head_map(&mk, k, bh, t, CHUNK);
-  if (err == 0) err = head_map(&mv, v, bh, t, CHUNK);
+  int err = head_map<D>(&mq, q, bh, t, FWD_BQ);
+  if (err == 0) err = head_map<D>(&mk, k, bh, t, CHUNK);
+  if (err == 0) err = head_map<D>(&mv, v, bh, t, CHUNK);
+  Tails<tail_of<D>()> tails;
+  if constexpr (tail_of<D>() > 0) {
+    if (err == 0) err = tail_map<D>(&tails.q, q, bh, t, FWD_BQ);
+    if (err == 0) err = tail_map<D>(&tails.k, k, bh, t, CHUNK);
+    if (err == 0) err = tail_map<D>(&tails.v, v, bh, t, CHUNK);
+  }
   if (err != 0) return err;
   static LaunchSetup setup;
   int sms = 0;
-  err = setup.sms(attention_train_fwd_kernel<VARIANT, ONE>, FWD_SMEM, &sms);
+  err = setup.sms(attention_train_fwd_kernel<VARIANT, ONE, D>, fwd_smem<D>(), &sms);
   if (err != 0) return err;
   const int n_tiles = bh * ((t + FWD_BQ - 1) / FWD_BQ);
-  attention_train_fwd_kernel<VARIANT, ONE><<<n_tiles < sms ? n_tiles : sms, THREADS, FWD_SMEM,
-                                        stream>>>(mq, mk, mv, valid, static_cast<bf16*>(o), lse,
-                                                  heads, t, n_tiles, scale);
+  attention_train_fwd_kernel<VARIANT, ONE, D><<<n_tiles < sms ? n_tiles : sms, THREADS,
+                                                fwd_smem<D>(), stream>>>(
+      mq, mk, mv, valid, static_cast<bf16*>(o), lse, heads, t, n_tiles, scale, tails);
   return (int)cudaGetLastError();
 }
 
-template <int VARIANT>
+template <int VARIANT, int D = HD>
 int launch_fwd(const void* q, const void* k, const void* v, const uint8_t* valid, void* o,
                float* lse, int bh, int heads, int t, float scale, cudaStream_t stream) {
   return t <= CHUNK
-             ? launch_fwd_one<VARIANT, true>(q, k, v, valid, o, lse, bh, heads, t, scale, stream)
-             : launch_fwd_one<VARIANT, false>(q, k, v, valid, o, lse, bh, heads, t, scale, stream);
+             ? launch_fwd_one<VARIANT, true, D>(q, k, v, valid, o, lse, bh, heads, t, scale,
+                                                stream)
+             : launch_fwd_one<VARIANT, false, D>(q, k, v, valid, o, lse, bh, heads, t, scale,
+                                                 stream);
 }
 
 // Make `device` current on this thread. The backward runs on autograd's
@@ -427,21 +501,24 @@ int use_device(int device) { return (int)cudaSetDevice(device); }
 
 }  // namespace
 
-// q, k, v, o: (bh, t, 64) bf16, contiguous each, 16-byte aligned; valid:
-// (bh / heads, t) bytes, nonzero = attend; lse: (bh, t) float32. t % 64 ==
-// 0, t <= 1024. variant: 0 = F32, 1 = BF16EXP, 2 = NORMP. device: the
-// tensors' CUDA device. Returns a cudaError_t (0 = launched).
+// q, k, v, o: (bh, t, head_dim) bf16, contiguous each, 16-byte aligned;
+// valid: (bh / heads, t) bytes, nonzero = attend; lse: (bh, t) float32. t %
+// 64 == 0, t <= 1024. variant: 0 = F32, 1 = BF16EXP, 2 = NORMP; head_dim 64,
+// or 80 with variant 0. device: the tensors' CUDA device. Returns a
+// cudaError_t (0 = launched).
 extern "C" int vipers_attention_train_fwd(const void* q, const void* k,
                                           const void* v, const uint8_t* valid,
                                           void* o, float* lse, int bh,
                                           int heads, int t, int head_dim,
                                           float scale, int variant, int device,
                                           void* stream) {
-  if (!shape_ok(bh, heads, t, head_dim) || valid == nullptr)
+  if (!shape_ok(bh, heads, t, head_dim, variant) || valid == nullptr)
     return (int)cudaErrorInvalidValue;
   const int err = use_device(device);
   if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim != HD)
+    return launch_fwd<FWD_F32, HD + 16>(q, k, v, valid, o, lse, bh, heads, t, scale, st);
   switch (variant) {
     case FWD_F32:
       return launch_fwd<FWD_F32>(q, k, v, valid, o, lse, bh, heads, t, scale, st);
@@ -453,10 +530,11 @@ extern "C" int vipers_attention_train_fwd(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// Inputs as for the forward plus o, lse and dout (bh, t, 64) bf16; outputs
-// dq, dk, dv (bh, t, 64) bf16. dq_acc: an f32 scratch (bh, t, 64) that
-// needs no initialisation where t > 256, else unused (may be null).
-// variant: 0 = F32, 1 = BF16EXP.
+// Inputs as for the forward plus o, lse and dout (bh, t, head_dim) bf16;
+// outputs dq, dk, dv (bh, t, head_dim) bf16. dq_acc: an f32 scratch (bh, t,
+// head_dim) that needs no initialisation where t exceeds the backward's keys
+// a round (256 at head dim 64, 128 at 80), else unused (may be null).
+// variant: 0 = F32, 1 = BF16EXP (head dim 64 only).
 extern "C" int vipers_attention_train_bwd(const void* q, const void* k,
                                           const void* v, const void* o,
                                           const float* lse, const void* dout,
@@ -465,12 +543,16 @@ extern "C" int vipers_attention_train_bwd(const void* q, const void* k,
                                           int bh, int heads, int t,
                                           int head_dim, float scale,
                                           int variant, int device, void* stream) {
-  if (!shape_ok(bh, heads, t, head_dim) || valid == nullptr ||
-      (t > CHUNK && dq_acc == nullptr))
+  const int chunk = head_dim == HD ? bwd_chunk<HD>() : bwd_chunk<HD + 16>();
+  if (!shape_ok(bh, heads, t, head_dim, variant) || valid == nullptr ||
+      (t > chunk && dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   const int err = use_device(device);
   if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim != HD)
+    return launch_bwd<BWD_F32, HD + 16>(q, k, v, o, lse, dout, valid, dq, dk, dv, dq_acc, bh,
+                                        heads, t, scale, st);
   switch (variant) {
     case BWD_F32:
       return launch_bwd<BWD_F32>(q, k, v, o, lse, dout, valid, dq, dk, dv, dq_acc, bh, heads,
@@ -482,14 +564,12 @@ extern "C" int vipers_attention_train_bwd(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The compiled design, for the kernels' report lines: the forward's query
-// rows a tile, keys a chunk and K/V stages; the backward's query rows a
-// block and ring stages (its keys a round are the chunk).
-extern "C" void vipers_attention_train_design(int* fwd_block_q, int* chunk, int* fwd_stages,
-                                              int* bwd_block_q, int* bwd_stages) {
-  *fwd_block_q = FWD_BQ;
-  *chunk = CHUNK;
-  *fwd_stages = FWD_STAGES;
-  *bwd_block_q = BWD_BQ;
-  *bwd_stages = BWD_STAGES;
+// The compiled design of the head_dim instance (64 or 80), for the
+// kernels' report lines: the forward's query rows a tile, keys a chunk and
+// K/V stages; the backward's query rows a block, ring stages and keys a
+// round, into out[6].
+extern "C" void vipers_attention_train_design(int head_dim, int* out) {
+  const int vals[6] = {FWD_BQ, CHUNK, FWD_STAGES, BWD_BQ, BWD_STAGES,
+                       head_dim == HD ? bwd_chunk<HD>() : bwd_chunk<HD + 16>()};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
 }

@@ -100,6 +100,28 @@
 //   buffers) made ptxas serialize the dq kernel's wgmma (C7515).
 // Any t >= 1: rows beyond t read as TMA's zeros (lse, D 0), add nothing and
 // are not written; keys beyond t get -inf.
+//
+// Head dim 80 (vit_h_14's 16 heads of 80): every kernel above has an hd-80
+// instance (the wrappers reject any other head dim). bf16: each row of Q, K,
+// V and dO is two TMA boxes, its first 64 columns with the 128-byte swizzle
+// and a 16-column tail with the 32-byte swizzle in tiles of their own
+// (attention_tile.cuh's design for the forward): S^T and dP^T (S and dP)
+// take a fifth k16 step from the tails, the K and V fragments of the dk/dv
+// kernel a fifth from ldmatrix on the tails, and dV, dK (dQ) are an n64
+// product into their first eight 8-column groups and an n16 product on the
+// tail tile into the last two; shared memory 126 KB (dk/dv) and 202 KB
+// (dq). f32: rows of three 32-column parts, TMA zero-filling columns 80-95,
+// which no product reads; 10 k steps of k8, the n80 products an n64 and an
+// n16. Laid out as at hd 64, the f32 kernels would need 280 KB (dk/dv) and
+// 284 KB (dq) of shared memory, so at hd 80 the tile's K (dk/dv) or Q (dq),
+// which the consumers hold as register A once it is loaded, shares its
+// buffer with the stage's split copies, which are written only after both
+// warpgroups hold it; and the raw ring keeps one stage (dk/dv: the split
+// copies are the second) or two (dq): 210 and 214 KB. The f32 dk/dv kernel
+// computes P^T and dS^T before it splits either (the dV product no longer
+// overlaps dP^T), so K's 80 registers, dK and dV's 80 and both split
+// fragments fit in a consumer's 240 with no spill; ptxas serializes the
+// wgmma of both hd-80 dk/dv kernels (C7512), bf16 and f32.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -113,6 +135,7 @@ namespace {
 
 using attn_tile::HD;
 using attn_tile::NEG;
+using attn_tile::tail_cols;
 
 // --------------------------------------- Hopper: what both share, then bf16
 using namespace attn_tile::hopper;  // ROW, LOG2E, NEG2, mask_scores, start_scores,
@@ -201,9 +224,34 @@ __device__ __forceinline__ void pack_a(const float (&c)[N / 8][4], uint32_t (&a)
 
 // A 3-D map over one (bh, t, 64) bf16 operand in boxes of `rows` rows; rows
 // beyond t read as zeros.
+template <int D = HD>
 inline int head_map(CUtensorMap* map, const void* base, int bh, int t, int rows) {
-  return encode_map(map, base, HD, t, bh, HD, (long long)t * HD, rows);
+  return encode_map(map, base, D, t, bh, D, (long long)t * D, rows);
 }
+
+// The same over the rows' last 16 columns at hd 80 (32-byte swizzle).
+template <int D>
+inline int tail_map(CUtensorMap* map, const void* base, int bh, int t, int rows) {
+  return encode_map_tail(map, base, D, t, bh, D, (long long)t * D, rows);
+}
+
+// The A fragments of k step 4 at hd 80: this warp's 16 rows of a [row][16]
+// tail tile in the 32-byte swizzle (the 16-byte chunk c of row r at chunk c
+// ^ ((r / 4) & 1)).
+__device__ __forceinline__ void load_a_tail(uint32_t (&a)[4], uint32_t tile, int row0, int lane) {
+  const int mat = lane / 8, rw = lane % 8;
+  const uint32_t row = row0 + (mat & 1) * 8 + rw;
+  const uint32_t chunk = mat >> 1;
+  ldmatrix_x4(tile + row * 32 + ((chunk ^ ((row >> 2) & 1)) << 4), a);
+}
+
+// The maps of the rows' 16-column tails at hd 80; none at hd 64.
+template <int TAIL>
+struct BwdTails {
+  CUtensorMap q, k, v, dout;
+};
+template <>
+struct BwdTails<0> {};
 
 // rowsum(f32(a) * f32(b)) over 8 elements at a and b (16-byte aligned).
 __device__ __forceinline__ float dot8(const bf16* a, const bf16* b) {
@@ -229,24 +277,32 @@ __device__ __forceinline__ float dot8(const float* a, const float* b) {
   return d;
 }
 
+// Threads a workspace row in the row pass: 8 at hd 64; 16 at hd 80, of
+// which 10 hold 8 elements each.
+template <int D>
+__host__ __device__ constexpr int row_threads() {
+  return D == HD ? 8 : 16;
+}
+
 // lse in log2 units and D = rowsum(f32(dO) * f32(out)) of each of the
 // bh * tp workspace rows (row r of head h at h * tp + r), zero where r >= t:
-// 8 threads a row, 8 elements of out and dO each.
-template <class T>
+// row_threads<D>() threads a row, 8 elements of out and dO each.
+template <class T, int D = HD>
 __global__ void __launch_bounds__(256)
 flash_bwd_rows(const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
                float* __restrict__ lse2, float* __restrict__ dsum, int n_rows, int t, int tp) {
+  constexpr int TPR = row_threads<D>();
   const int idx = blockIdx.x * 256 + threadIdx.x;
-  const int row = idx / 8, part = idx % 8;
+  const int row = idx / TPR, part = idx % TPR;
   const int bh = row / tp, r = row % tp;
-  const bool in = row < n_rows && r < t;
+  const bool in = row < n_rows && r < t && (TPR * 8 == D || part < D / 8);
   float d = 0.f;
   if (in) {
-    const size_t at = ((size_t)bh * t + r) * HD + part * 8;
+    const size_t at = ((size_t)bh * t + r) * D + part * 8;
     d = dot8(o + at, dout + at);
   }
 #pragma unroll
-  for (int off = 1; off < 8; off <<= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+  for (int off = 1; off < TPR; off <<= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
   if (row < n_rows && part == 0) {
     dsum[row] = d;
     lse2[row] = in ? lse[(size_t)bh * t + r] * LOG2E : 0.f;
@@ -260,26 +316,76 @@ struct alignas(1024) DkvStage {
   float dsum[KV_BQ];
 };
 
-struct DkvShared {
+// The tails' tiles at hd 80 (32 bytes a row, each 256-byte aligned, the
+// whole a multiple of 1024 bytes); an empty base at hd 64.
+template <int TAIL>
+struct alignas(1024) DkvTails {
+  bf16 kt[KV_KEYS * TAIL], vt[KV_KEYS * TAIL];
+  bf16 qt[KV_STAGES][KV_BQ * TAIL], dt[KV_STAGES][KV_BQ * TAIL];
+  __device__ uint32_t kt_at() const { return smem_u32(kt); }
+  __device__ uint32_t vt_at() const { return smem_u32(vt); }
+  __device__ uint32_t qt_at(int st) const { return smem_u32(qt[st]); }
+  __device__ uint32_t dt_at(int st) const { return smem_u32(dt[st]); }
+};
+template <>
+struct DkvTails<0> {
+  __device__ uint32_t kt_at() const { return 0; }
+  __device__ uint32_t vt_at() const { return 0; }
+  __device__ uint32_t qt_at(int) const { return 0; }
+  __device__ uint32_t dt_at(int) const { return 0; }
+};
+
+template <int D = HD>
+struct DkvShared : DkvTails<tail_cols<D>()> {
   bf16 k[KV_KEYS * HD];  // the tile's keys, [key][dim], until the consumers hold them
   bf16 v[KV_KEYS * HD];
   DkvStage st[KV_STAGES];
   uint64_t full[KV_STAGES], empty[KV_STAGES], kv_full, kv_empty;
 };
-constexpr int KV_SMEM = (int)sizeof(DkvShared) + 1024;  // + the alignment slack
-constexpr int KV_STAGE_TX = 2 * KV_BQ * ROW + 2 * KV_BQ * 4;
+template <int D>
+__host__ __device__ constexpr int kv_smem() {
+  return (int)sizeof(DkvShared<D>) + 1024;  // + the alignment slack
+}
+template <int D>
+__host__ __device__ constexpr int kv_stage_tx() {
+  return 2 * KV_BQ * D * 2 + 2 * KV_BQ * 4;
+}
+
+// Start D (64 x N) += A (64 x 16K, bf16 fragments a[k] in registers) . B
+// (16K x N), N = D (64 or 80) columns of B MN-major through the transpose
+// bit: b its first 64 columns in the 128-byte swizzle (16 rows of k = 2048
+// bytes a step), bt at hd 80 its 16-column tail in the 32-byte swizzle (512
+// bytes a step) into D's last two 8-column groups. The caller fences and
+// commits.
+template <int D, int K>
+__device__ __forceinline__ void product_tb(float (&d)[D / 8][4], const uint32_t (&a)[K][4],
+                                           uint32_t b, uint32_t bt) {
+  float (&dh)[HD / 8][4] = *reinterpret_cast<float (*)[HD / 8][4]>(&d[0]);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_rs_n64<1>(dh, a[kk], desc_sw128(b, 1024) + 128 * kk, 1);
+  if constexpr (D > HD) {
+    float (&dt)[(D - HD) / 8][4] = *reinterpret_cast<float (*)[(D - HD) / 8][4]>(&d[HD / 8]);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) wgmma_rs_n16_tb(dt, a[kk], desc_sw32(bt) + 32 * kk);
+  }
+}
 
 // dk, dv of 128-key tiles (tile = bh * n_kt + key tile: the tiles of one
-// head run side by side and share its Q and dO in L2).
+// head run side by side and share its Q and dO in L2). D: the head dim; at
+// 80 `tails` holds the maps of the rows' last 16 columns (last, so that the
+// hd-64 instance's parameters lie where they lay before).
+template <int D = HD>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
               const float* __restrict__ lse2, const float* __restrict__ dsum,
               const uint8_t* __restrict__ valid, bf16* __restrict__ dk, bf16* __restrict__ dv,
-              int heads, int t, int tp, int n_tiles, float scale) {
+              int heads, int t, int tp, int n_tiles, float scale,
+              const __grid_constant__ BwdTails<tail_cols<D>()> tails) {
+  constexpr int TAIL = tail_cols<D>(), KS = D / 16;  // k steps over the head dim
   extern __shared__ __align__(128) char smem_dyn[];
-  DkvShared& s = *reinterpret_cast<DkvShared*>((reinterpret_cast<uintptr_t>(smem_dyn) + 1023) &
-                                         ~uintptr_t(1023));
+  DkvShared<D>& s = *reinterpret_cast<DkvShared<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_kt = (t + KV_KEYS - 1) / KV_KEYS, n_qs = (t + KV_BQ - 1) / KV_BQ;
 
@@ -302,18 +408,26 @@ flash_bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
         const int bh = tile / n_kt, kt = tile % n_kt;
         mbar_wait(&s.kv_empty, (i & 1) ^ 1);
-        mbar_expect_tx(&s.kv_full, 2 * KV_KEYS * ROW);
+        mbar_expect_tx(&s.kv_full, 2 * KV_KEYS * D * 2);
         tma_load_3d(s.k, &map_k, &s.kv_full, 0, kt * KV_KEYS, bh);
         tma_load_3d(s.v, &map_v, &s.kv_full, 0, kt * KV_KEYS, bh);
+        if constexpr (TAIL > 0) {
+          tma_load_3d(s.kt, &tails.k, &s.kv_full, HD, kt * KV_KEYS, bh);
+          tma_load_3d(s.vt, &tails.v, &s.kv_full, HD, kt * KV_KEYS, bh);
+        }
         const float* rl = lse2 + (size_t)bh * tp;
         const float* rd = dsum + (size_t)bh * tp;
         for (int qs = 0; qs < n_qs; ++qs, ++it) {
           const int st = it % KV_STAGES;
           mbar_wait(&s.empty[st], ((it / KV_STAGES) & 1) ^ 1);
           DkvStage& sb = s.st[st];
-          mbar_expect_tx(&s.full[st], KV_STAGE_TX);
+          mbar_expect_tx(&s.full[st], kv_stage_tx<D>());
           tma_load_3d(sb.q, &map_q, &s.full[st], 0, qs * KV_BQ, bh);
           tma_load_3d(sb.dout, &map_do, &s.full[st], 0, qs * KV_BQ, bh);
+          if constexpr (TAIL > 0) {
+            tma_load_3d(s.qt[st], &tails.q, &s.full[st], HD, qs * KV_BQ, bh);
+            tma_load_3d(s.dt[st], &tails.dout, &s.full[st], HD, qs * KV_BQ, bh);
+          }
           bulk_load(sb.lse, rl + qs * KV_BQ, KV_BQ * 4, &s.full[st]);
           bulk_load(sb.dsum, rd + qs * KV_BQ, KV_BQ * 4, &s.full[st]);
         }
@@ -345,16 +459,22 @@ flash_bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
       all_valid = __all_sync(0xffffffffu, all_valid);
 
       // K and V rows of this warpgroup as A fragments, then the buffer goes back
-      uint32_t kf[HD / 16][4], vf[HD / 16][4];
+      uint32_t kf[KS][4], vf[KS][4];
       mbar_wait(&s.kv_full, i & 1);
-      load_a_frags(kf, smem_u32(s.k), 64 * wg + 16 * w, lane);
-      load_a_frags(vf, smem_u32(s.v), 64 * wg + 16 * w, lane);
+      load_a_frags(*reinterpret_cast<uint32_t (*)[HD / 16][4]>(&kf[0]), smem_u32(s.k),
+                   64 * wg + 16 * w, lane);
+      load_a_frags(*reinterpret_cast<uint32_t (*)[HD / 16][4]>(&vf[0]), smem_u32(s.v),
+                   64 * wg + 16 * w, lane);
+      if constexpr (TAIL > 0) {
+        load_a_tail(kf[HD / 16], s.kt_at(), 64 * wg + 16 * w, lane);
+        load_a_tail(vf[HD / 16], s.vt_at(), 64 * wg + 16 * w, lane);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(&s.kv_empty);
 
-      float dka[HD / 8][4], dva[HD / 8][4];
+      float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
       uint32_t pa[KV_BQ / 16][4] = {}, dsa[KV_BQ / 16][4] = {};
@@ -363,6 +483,7 @@ flash_bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
         const int st = it % KV_STAGES;
         DkvStage& sb = s.st[st];
         const uint32_t qa = smem_u32(sb.q), da = smem_u32(sb.dout);
+        const uint32_t qta = s.qt_at(st), dta = s.dt_at(st);  // the tails (hd 80)
         mbar_wait(&s.full[st], (it / KV_STAGES) & 1);
         // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries), two groups
         float sa[KV_BQ / 8][4], dpa[KV_BQ / 8][4];
@@ -370,10 +491,12 @@ flash_bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
           wgmma_rs_n64<0>(sa, kf[kk], desc_sw128(qa, 16) + 2 * kk, kk);
+        if constexpr (TAIL > 0) wgmma_rs_n64<0>(sa, kf[HD / 16], desc_sw32(qta), 1);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
           wgmma_rs_n64<0>(dpa, vf[kk], desc_sw128(da, 16) + 2 * kk, kk);
+        if constexpr (TAIL > 0) wgmma_rs_n64<0>(dpa, vf[HD / 16], desc_sw32(dta), 1);
         wgmma_commit();
         wgmma_wait<1>();  // S^T, and the last stage's dV and dK
         fence_regs(sa);
@@ -395,11 +518,9 @@ flash_bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
           }
         }
         pack_a<KV_BQ>(sa, pa);
-        // dV += bf16(P^T) dO (16 queries = 2048 bytes a step)
+        // dV += bf16(P^T) dO (16 queries = 2048 bytes a step, 512 of the tail)
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < KV_BQ / 16; ++kk)
-          wgmma_rs_n64<1>(dva, pa[kk], desc_sw128(da, 1024) + 128 * kk, 1);
+        product_tb<D>(dva, pa, da, dta);
         wgmma_commit();
         wgmma_wait<1>();  // dP^T
         fence_regs(dpa);
@@ -413,9 +534,7 @@ flash_bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
         pack_a<KV_BQ>(dpa, dsa);
         // dK += bf16(dS^T) Q
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < KV_BQ / 16; ++kk)
-          wgmma_rs_n64<1>(dka, dsa[kk], desc_sw128(qa, 1024) + 128 * kk, 1);
+        product_tb<D>(dka, dsa, qa, qta);
         wgmma_commit();
         prev = st;
       }
@@ -426,14 +545,14 @@ flash_bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
       fence_regs(dsa);
       if (lane == 0) mbar_arrive(&s.empty[prev]);
 
-      const size_t base = (size_t)bh * t * HD;
+      const size_t base = (size_t)bh * t * D;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int key = k0 + 16 * w + g + 8 * rr;
         if (key >= t) continue;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
-          const size_t at = base + (size_t)key * HD + dt * 8 + 2 * tg;
+        for (int dt = 0; dt < D / 8; ++dt) {
+          const size_t at = base + (size_t)key * D + dt * 8 + 2 * tg;
           *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
               dka[dt][2 * rr] * scale, dka[dt][2 * rr + 1] * scale);
           *reinterpret_cast<__nv_bfloat162*>(dv + at) =
@@ -444,26 +563,51 @@ flash_bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
   }
 }
 
-struct DqShared {
+// The tails' tiles at hd 80; an empty base at hd 64.
+template <int TAIL>
+struct alignas(1024) DqTails {
+  bf16 qt[2][DQ_ROWS * TAIL], dt[2][DQ_ROWS * TAIL];
+  bf16 kt[DQ_STAGES][DQ_KEYS * TAIL], vt[DQ_STAGES][DQ_KEYS * TAIL];
+  __device__ uint32_t qt_at(int b) const { return smem_u32(qt[b]); }
+  __device__ uint32_t dt_at(int b) const { return smem_u32(dt[b]); }
+  __device__ uint32_t kt_at(int st) const { return smem_u32(kt[st]); }
+  __device__ uint32_t vt_at(int st) const { return smem_u32(vt[st]); }
+};
+template <>
+struct DqTails<0> {
+  __device__ uint32_t qt_at(int) const { return 0; }
+  __device__ uint32_t dt_at(int) const { return 0; }
+  __device__ uint32_t kt_at(int) const { return 0; }
+  __device__ uint32_t vt_at(int) const { return 0; }
+};
+
+template <int D = HD>
+struct DqShared : DqTails<tail_cols<D>()> {
   bf16 q[2][DQ_ROWS * HD];  // the tile's queries, and the next tile's
   bf16 dout[2][DQ_ROWS * HD];
   bf16 k[DQ_STAGES][DQ_KEYS * HD];
   bf16 v[DQ_STAGES][DQ_KEYS * HD];
   uint64_t q_full[2], q_empty[2], kv_full[DQ_STAGES], kv_empty[DQ_STAGES];
 };
-constexpr int DQ_SMEM = (int)sizeof(DqShared) + 1024;
+template <int D>
+__host__ __device__ constexpr int dq_smem() {
+  return (int)sizeof(DqShared<D>) + 1024;
+}
 
 // dq of 128-query tiles (tile = bh * n_qt + query tile: the tiles of one
-// head run side by side and share its K and V in L2).
+// head run side by side and share its K and V in L2). D: the head dim, its
+// tails' maps last at 80.
+template <int D = HD>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
              const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
              const float* __restrict__ lse2, const float* __restrict__ dsum,
              const uint8_t* __restrict__ valid, bf16* __restrict__ dq, int heads, int t, int tp,
-             int n_tiles, float scale) {
+             int n_tiles, float scale, const __grid_constant__ BwdTails<tail_cols<D>()> tails) {
+  constexpr int TAIL = tail_cols<D>();
   extern __shared__ __align__(128) char smem_dyn[];
-  DqShared& s = *reinterpret_cast<DqShared*>((reinterpret_cast<uintptr_t>(smem_dyn) + 1023) &
-                                             ~uintptr_t(1023));
+  DqShared<D>& s = *reinterpret_cast<DqShared<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_qt = (t + DQ_ROWS - 1) / DQ_ROWS, n_kt = (t + DQ_KEYS - 1) / DQ_KEYS;
 
@@ -488,15 +632,23 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ 
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
         const int bh = tile / n_qt, q0 = (tile % n_qt) * DQ_ROWS, qb = i & 1;
         mbar_wait(&s.q_empty[qb], ((i >> 1) & 1) ^ 1);
-        mbar_expect_tx(&s.q_full[qb], 2 * DQ_ROWS * ROW);
+        mbar_expect_tx(&s.q_full[qb], 2 * DQ_ROWS * D * 2);
         tma_load_3d(s.q[qb], &map_q, &s.q_full[qb], 0, q0, bh);
         tma_load_3d(s.dout[qb], &map_do, &s.q_full[qb], 0, q0, bh);
+        if constexpr (TAIL > 0) {
+          tma_load_3d(s.qt[qb], &tails.q, &s.q_full[qb], HD, q0, bh);
+          tma_load_3d(s.dt[qb], &tails.dout, &s.q_full[qb], HD, q0, bh);
+        }
         for (int j = 0; j < n_kt; ++j, ++it) {
           const int st = it % DQ_STAGES;
           mbar_wait(&s.kv_empty[st], ((it / DQ_STAGES) & 1) ^ 1);
-          mbar_expect_tx(&s.kv_full[st], 2 * DQ_KEYS * ROW);
+          mbar_expect_tx(&s.kv_full[st], 2 * DQ_KEYS * D * 2);
           tma_load_3d(s.k[st], &map_k, &s.kv_full[st], 0, j * DQ_KEYS, bh);
           tma_load_3d(s.v[st], &map_v, &s.kv_full[st], 0, j * DQ_KEYS, bh);
+          if constexpr (TAIL > 0) {
+            tma_load_3d(s.kt[st], &tails.k, &s.kv_full[st], HD, j * DQ_KEYS, bh);
+            tma_load_3d(s.vt[st], &tails.v, &s.kv_full[st], HD, j * DQ_KEYS, bh);
+          }
         }
       }
     }
@@ -517,15 +669,17 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ 
         lr[rr] = __ldg(lse2 + at);
         dr[rr] = __ldg(dsum + at);
       }
-      float dqa[HD / 8][4];
+      float dqa[D / 8][4];
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dqa[dt][e] = 0.f;
       uint32_t dsa[DQ_KEYS / 16][4] = {};
       mbar_wait(&s.q_full[qb], (i >> 1) & 1);
       const uint32_t qs = smem_u32(s.q[qb]) + wg * 64 * ROW;
       const uint32_t ds = smem_u32(s.dout[qb]) + wg * 64 * ROW;
+      const uint32_t qts = s.qt_at(qb) + wg * 64 * 2 * TAIL;  // the tails (hd 80)
+      const uint32_t dts = s.dt_at(qb) + wg * 64 * 2 * TAIL;
       int prev = 0;  // the stage whose dQ product was issued last
       for (int j = 0; j < n_kt; ++j, ++it) {
         const int st = it % DQ_STAGES;
@@ -533,8 +687,8 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ 
         // S = Q K^T and dP = dO V^T (64 queries x 128 keys), two groups
         float sa[DQ_KEYS / 8][4], dpa[DQ_KEYS / 8][4];
         wgmma_fence();
-        start_scores<DQ_KEYS>(sa, qs, smem_u32(s.k[st]));
-        start_scores<DQ_KEYS>(dpa, ds, smem_u32(s.v[st]));
+        start_scores<DQ_KEYS, false, D>(sa, qs, smem_u32(s.k[st]), qts, s.kt_at(st));
+        start_scores<DQ_KEYS, false, D>(dpa, ds, smem_u32(s.v[st]), dts, s.vt_at(st));
         wgmma_wait<1>();  // S, and the last tile's dQ
         fence_regs(sa);
         fence_regs(dqa);
@@ -557,7 +711,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ 
         pack_a<DQ_KEYS>(dpa, dsa);
         // dQ += bf16(dS) K, K MN-major through the transpose bit
         wgmma_fence();
-        start_pv<DQ_KEYS>(dqa, dsa, smem_u32(s.k[st]));
+        start_pv<DQ_KEYS, D>(dqa, dsa, smem_u32(s.k[st]), s.kt_at(st));
         prev = st;
       }
       wgmma_wait<0>();
@@ -568,14 +722,14 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ 
         mbar_arrive(&s.q_empty[qb]);
       }
 
-      const size_t base = (size_t)bh * t * HD;
+      const size_t base = (size_t)bh * t * D;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int row = q0 + 16 * warp + g + 8 * rr;
         if (row >= t) continue;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
-          *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row * HD + dt * 8 + 2 * tg) =
+        for (int dt = 0; dt < D / 8; ++dt)
+          *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row * D + dt * 8 + 2 * tg) =
               __floats2bfloat162_rn(dqa[dt][2 * rr] * scale, dqa[dt][2 * rr + 1] * scale);
       }
     }
@@ -584,85 +738,181 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ 
 
 // rows: the (2, bh, round_up(t, 128)) f32 workspace (lse in log2 units,
 // then D).
+template <int D>
 int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o, const float* lse,
                 const void* dout, const uint8_t* valid, void* dq, void* dk, void* dv, float* rows,
                 int bh, int heads, int t, float scale, cudaStream_t st) {
   const int tp = (t + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
   float* lse2 = rows;
   float* dsum = rows + (size_t)bh * tp;
-  const long long threads = (long long)bh * tp * 8;  // 8 a workspace row
+  const long long threads = (long long)bh * tp * row_threads<D>();
   if (threads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   CUtensorMap mq64, mdo64, mq128, mdo128, mk, mv;
-  int err = head_map(&mq64, q, bh, t, KV_BQ);
-  if (err == 0) err = head_map(&mdo64, dout, bh, t, KV_BQ);
-  if (err == 0) err = head_map(&mq128, q, bh, t, DQ_ROWS);
-  if (err == 0) err = head_map(&mdo128, dout, bh, t, DQ_ROWS);
-  if (err == 0) err = head_map(&mk, k, bh, t, KV_KEYS);
-  if (err == 0) err = head_map(&mv, v, bh, t, KV_KEYS);
+  int err = head_map<D>(&mq64, q, bh, t, KV_BQ);
+  if (err == 0) err = head_map<D>(&mdo64, dout, bh, t, KV_BQ);
+  if (err == 0) err = head_map<D>(&mq128, q, bh, t, DQ_ROWS);
+  if (err == 0) err = head_map<D>(&mdo128, dout, bh, t, DQ_ROWS);
+  if (err == 0) err = head_map<D>(&mk, k, bh, t, KV_KEYS);
+  if (err == 0) err = head_map<D>(&mv, v, bh, t, KV_KEYS);
+  static_assert(KV_KEYS == DQ_KEYS, "one K and one V map for both kernels");
+  BwdTails<tail_cols<D>()> kv_tails, dq_tails;
+  if constexpr (tail_cols<D>() > 0) {  // the rows' last 16 columns
+    if (err == 0) err = tail_map<D>(&kv_tails.q, q, bh, t, KV_BQ);
+    if (err == 0) err = tail_map<D>(&kv_tails.dout, dout, bh, t, KV_BQ);
+    if (err == 0) err = tail_map<D>(&kv_tails.k, k, bh, t, KV_KEYS);
+    if (err == 0) err = tail_map<D>(&kv_tails.v, v, bh, t, KV_KEYS);
+    if (err == 0) err = tail_map<D>(&dq_tails.q, q, bh, t, DQ_ROWS);
+    if (err == 0) err = tail_map<D>(&dq_tails.dout, dout, bh, t, DQ_ROWS);
+    dq_tails.k = kv_tails.k;
+    dq_tails.v = kv_tails.v;
+  }
   if (err != 0) return err;
+  static_assert(kv_smem<D>() <= 232448 && dq_smem<D>() <= 232448, "bf16 backward shared memory");
   static LaunchSetup kv_setup, dq_setup;
   int sms = 0;
-  err = kv_setup.sms(flash_bwd_dkv, KV_SMEM, &sms);
-  if (err == 0) err = dq_setup.sms(flash_bwd_dq, DQ_SMEM, &sms);
+  err = kv_setup.sms(flash_bwd_dkv<D>, kv_smem<D>(), &sms);
+  if (err == 0) err = dq_setup.sms(flash_bwd_dq<D>, dq_smem<D>(), &sms);
   if (err != 0) return err;
 
-  flash_bwd_rows<bf16><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+  flash_bwd_rows<bf16, D><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, lse2, dsum, bh * tp, t,
       tp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int kv_tiles = bh * ((t + KV_KEYS - 1) / KV_KEYS);
-  flash_bwd_dkv<<<kv_tiles < sms ? kv_tiles : sms, BWD_THREADS, KV_SMEM, st>>>(
+  flash_bwd_dkv<D><<<kv_tiles < sms ? kv_tiles : sms, BWD_THREADS, kv_smem<D>(), st>>>(
       mq64, mk, mv, mdo64, lse2, dsum, valid, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      heads, t, tp, kv_tiles, scale);
+      heads, t, tp, kv_tiles, scale, kv_tails);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int dq_tiles = bh * ((t + DQ_ROWS - 1) / DQ_ROWS);
-  flash_bwd_dq<<<dq_tiles < sms ? dq_tiles : sms, BWD_THREADS, DQ_SMEM, st>>>(
+  flash_bwd_dq<D><<<dq_tiles < sms ? dq_tiles : sms, BWD_THREADS, dq_smem<D>(), st>>>(
       mq128, mk, mv, mdo128, lse2, dsum, valid, static_cast<bf16*>(dq), heads, t, tp, dq_tiles,
-      scale);
+      scale, dq_tails);
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------ f32 / Hopper, 3xTF32
 constexpr int FK_KEYS = 128;   // keys of an f32 dk/dv tile: 64 a consumer warpgroup
 constexpr int FK_BQ = 32;      // queries of an f32 dk/dv stage
-constexpr int FK_STAGES = 2;   // raw Q/dO stages in the dk/dv ring
+constexpr int FK_STAGES = 2;   // raw Q/dO stages in the dk/dv ring (hd 64)
 constexpr int FQ_ROWS = 128;   // queries of an f32 dq tile: 64 a consumer warpgroup
 constexpr int FQ_BK = 32;      // keys of an f32 dq stage
-constexpr int FQ_STAGES = 3;   // raw K/V stages in the dq ring
+constexpr int FQ_STAGES = 3;   // raw K/V stages in the dq ring (hd 64)
 constexpr int PAIR_BAR = 1;    // named barrier of both consumer warpgroups (2 + wg: one's own)
 constexpr int SMEM_MAX = 232448;
 static_assert(FK_KEYS == 64 * BWD_WGS && FQ_ROWS == 64 * BWD_WGS, "64 rows a warpgroup");
 static_assert(FK_BQ == 32 && FQ_BK == 32, "a stage is one 32-row tile: one lane a row");
 
+// Raw ring stages of the f32 kernels by head dim (hd 80: shared memory).
+template <int D>
+__host__ __device__ constexpr int fk_stages() {
+  return D == HD ? FK_STAGES : 1;
+}
+template <int D>
+__host__ __device__ constexpr int fq_stages() {
+  return D == HD ? FQ_STAGES : 2;
+}
+
+// A stage's split Q and dO, [query][dim] in 32-column parts, TF32 big and
+// small (COLS: 32 a part).
+template <int COLS>
+struct F32Rows {
+  float qb[FK_BQ * COLS], qs[FK_BQ * COLS];
+  float gb[FK_BQ * COLS], gs[FK_BQ * COLS];
+};
+
+// Shared memory of the f32 dk/dv kernel at head dim D. hd 64 keeps K and
+// the stage's split copies apart; hd 80 (below) lays them over each other.
+template <int D>
 struct alignas(1024) F32DkvShared {
-  float k[FK_KEYS * HD];                     // the tile's K, until held as register A
-  float vb[FK_KEYS * HD], vs[FK_KEYS * HD];  // its V: TF32 big (over TMA's f32), small
-  float qb[FK_BQ * HD], qs[FK_BQ * HD];      // the stage's Q, [query][dim]
-  float gb[FK_BQ * HD], gs[FK_BQ * HD];      // and dO
-  float qtb[HD * FK_BQ], qts[HD * FK_BQ];    // Q^T, [dim][query in tf32_perm order]
-  float gtb[HD * FK_BQ], gts[HD * FK_BQ];    // dO^T
-  float raw_q[FK_STAGES][FK_BQ * HD], raw_g[FK_STAGES][FK_BQ * HD];  // the TMA ring
-  float lse[FK_STAGES][FK_BQ], dsum[FK_STAGES][FK_BQ];
-  uint64_t full[FK_STAGES], empty[FK_STAGES], kv_full, kv_empty;
+  static constexpr int COLS = 32 * f32_parts<D>(), STAGES = fk_stages<D>();
+  float k[FK_KEYS * COLS];                       // the tile's K, until held as register A
+  float vb[FK_KEYS * COLS], vs[FK_KEYS * COLS];  // its V: TF32 big (over TMA's f32), small
+  F32Rows<COLS> sp;                              // the stage's Q and dO
+  float qtb[D * FK_BQ], qts[D * FK_BQ];    // Q^T, [dim][query in tf32_perm order]
+  float gtb[D * FK_BQ], gts[D * FK_BQ];    // dO^T
+  float raw_q[STAGES][FK_BQ * COLS], raw_g[STAGES][FK_BQ * COLS];  // the TMA ring
+  float lse[STAGES][FK_BQ], dsum[STAGES][FK_BQ];
+  uint64_t full[STAGES], empty[STAGES], kv_full, kv_empty;
 };
-constexpr int FK_SMEM = (int)sizeof(F32DkvShared) + 1024;  // + the alignment slack
-static_assert(FK_SMEM <= SMEM_MAX, "f32 dk/dv shared memory");
+// hd 80: K is free once both warpgroups hold it in registers, before the
+// first stage is split, so the stage's copies take its buffer (both 48 KB).
+template <>
+struct alignas(1024) F32DkvShared<HD + 16> {
+  static constexpr int D = HD + 16, COLS = 32 * f32_parts<D>(), STAGES = fk_stages<D>();
+  union {
+    float k[FK_KEYS * COLS];
+    F32Rows<COLS> sp;
+  };
+  float vb[FK_KEYS * COLS], vs[FK_KEYS * COLS];
+  float qtb[D * FK_BQ], qts[D * FK_BQ];
+  float gtb[D * FK_BQ], gts[D * FK_BQ];
+  float raw_q[STAGES][FK_BQ * COLS], raw_g[STAGES][FK_BQ * COLS];
+  float lse[STAGES][FK_BQ], dsum[STAGES][FK_BQ];
+  uint64_t full[STAGES], empty[STAGES], kv_full, kv_empty;
+};
+static_assert(sizeof(F32Rows<96>) == FK_KEYS * 96 * 4, "hd 80: the split stage fills K's buffer");
+template <int D>
+__host__ __device__ constexpr int fk_smem() {
+  return (int)sizeof(F32DkvShared<D>) + 1024;  // + the alignment slack
+}
 
+// A stage's split K and V, [key][dim] in 32-column parts, big and small.
+template <int COLS>
+struct F32Keys {
+  float kb[FQ_BK * COLS], ks[FQ_BK * COLS];
+  float vb[FQ_BK * COLS], vs[FQ_BK * COLS];
+};
+
+// Shared memory of the f32 dq kernel; at hd 80 the tile's Q and the
+// stage's split K and V lie over each other, as K and Q, dO do in dk/dv.
+template <int D>
 struct alignas(1024) F32DqShared {
-  float q[FQ_ROWS * HD];                     // the tile's Q, until held as register A
-  float gb[FQ_ROWS * HD], gs[FQ_ROWS * HD];  // its dO: TF32 big (over TMA's f32), small
-  float kb[FQ_BK * HD], ks[FQ_BK * HD];      // the stage's K, [key][dim]
-  float vb[FQ_BK * HD], vs[FQ_BK * HD];      // and V
-  float ktb[HD * FQ_BK], kts[HD * FQ_BK];    // K^T, [dim][key in tf32_perm order]
-  float raw_k[FQ_STAGES][FQ_BK * HD], raw_v[FQ_STAGES][FQ_BK * HD];  // the TMA ring
-  uint64_t q_full, q_empty, full[FQ_STAGES], empty[FQ_STAGES];
+  static constexpr int COLS = 32 * f32_parts<D>(), STAGES = fq_stages<D>();
+  float q[FQ_ROWS * COLS];                       // the tile's Q, until held as register A
+  float gb[FQ_ROWS * COLS], gs[FQ_ROWS * COLS];  // its dO: TF32 big (over TMA's f32), small
+  F32Keys<COLS> sp;                              // the stage's K and V
+  float ktb[D * FQ_BK], kts[D * FQ_BK];    // K^T, [dim][key in tf32_perm order]
+  float raw_k[STAGES][FQ_BK * COLS], raw_v[STAGES][FQ_BK * COLS];  // the TMA ring
+  uint64_t q_full, q_empty, full[STAGES], empty[STAGES];
 };
-constexpr int FQ_SMEM = (int)sizeof(F32DqShared) + 1024;
-static_assert(FQ_SMEM <= SMEM_MAX, "f32 dq shared memory");
+template <>
+struct alignas(1024) F32DqShared<HD + 16> {
+  static constexpr int D = HD + 16, COLS = 32 * f32_parts<D>(), STAGES = fq_stages<D>();
+  union {
+    float q[FQ_ROWS * COLS];
+    F32Keys<COLS> sp;
+  };
+  float gb[FQ_ROWS * COLS], gs[FQ_ROWS * COLS];
+  float ktb[D * FQ_BK], kts[D * FQ_BK];
+  float raw_k[STAGES][FQ_BK * COLS], raw_v[STAGES][FQ_BK * COLS];
+  uint64_t q_full, q_empty, full[STAGES], empty[STAGES];
+};
+static_assert(sizeof(F32Keys<96>) == FQ_ROWS * 96 * 4, "hd 80: the split stage fills Q's buffer");
+template <int D>
+__host__ __device__ constexpr int fq_smem() {
+  return (int)sizeof(F32DqShared<D>) + 1024;
+}
+static_assert(fk_smem<HD>() <= SMEM_MAX && fk_smem<HD + 16>() <= SMEM_MAX,
+              "f32 dk/dv shared memory");
+static_assert(fq_smem<HD>() <= SMEM_MAX && fq_smem<HD + 16>() <= SMEM_MAX,
+              "f32 dq shared memory");
 
-// dk, dv of 128-key tiles in f32 (tile = bh * n_kt + key tile).
+// One raw 32-row stage split by the consumer warps (8 dims a warp; at hd 80
+// warps 0 and 1 take dims 64-79 too): [row][dim] big and small, and the
+// transposed [dim][row] copies.
+template <int D>
+__device__ __forceinline__ void split_stage_wide(const float* raw, float* b, float* s, float* tb,
+                                                 float* ts, int warp, int lane) {
+  split_stage<D>(raw, b, s, tb, ts, warp, lane);
+  if constexpr (D > 8 * BWD_CONSUMERS)
+    if (warp < D / 8 - BWD_CONSUMERS) split_stage<D>(raw, b, s, tb, ts, warp + BWD_CONSUMERS, lane);
+}
+
+// dk, dv of 128-key tiles in f32 (tile = bh * n_kt + key tile); D the head
+// dim.
+template <int D = HD>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
@@ -671,13 +921,15 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap map_q,
                   const float* __restrict__ dsum, const uint8_t* __restrict__ valid,
                   float* __restrict__ dk, float* __restrict__ dv, int heads, int t, int tp,
                   int n_tiles, float scale) {
+  typedef F32DkvShared<D> Shared;
+  constexpr int STAGES = Shared::STAGES, COLS = Shared::COLS;
   extern __shared__ __align__(128) char smem_dyn[];
-  F32DkvShared& s = aligned_smem<F32DkvShared>(smem_dyn);
+  Shared& s = aligned_smem<Shared>(smem_dyn);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_kt = (t + FK_KEYS - 1) / FK_KEYS, n_qs = (t + FK_BQ - 1) / FK_BQ;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < FK_STAGES; ++i) {
+    for (int i = 0; i < STAGES; ++i) {
       mbar_init(&s.full[i], 1);
       mbar_init(&s.empty[i], BWD_CONSUMERS);
     }
@@ -695,17 +947,17 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap map_q,
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
         const int bh = tile / n_kt, kt = tile % n_kt;
         mbar_wait(&s.kv_empty, (i & 1) ^ 1);
-        mbar_expect_tx(&s.kv_full, 2 * FK_KEYS * HD * 4);
-        tma_load_f32<FK_KEYS>(s.k, &map_k, &s.kv_full, 0, kt * FK_KEYS, bh);
-        tma_load_f32<FK_KEYS>(s.vb, &map_v, &s.kv_full, 0, kt * FK_KEYS, bh);
+        mbar_expect_tx(&s.kv_full, 2 * FK_KEYS * COLS * 4);
+        tma_load_f32<FK_KEYS, D>(s.k, &map_k, &s.kv_full, 0, kt * FK_KEYS, bh);
+        tma_load_f32<FK_KEYS, D>(s.vb, &map_v, &s.kv_full, 0, kt * FK_KEYS, bh);
         const float* rl = lse2 + (size_t)bh * tp;
         const float* rd = dsum + (size_t)bh * tp;
         for (int qs = 0; qs < n_qs; ++qs, ++it) {
-          const int st = it % FK_STAGES;
-          mbar_wait(&s.empty[st], ((it / FK_STAGES) & 1) ^ 1);
-          mbar_expect_tx(&s.full[st], 2 * FK_BQ * HD * 4 + 2 * FK_BQ * 4);
-          tma_load_f32<FK_BQ>(s.raw_q[st], &map_q, &s.full[st], 0, qs * FK_BQ, bh);
-          tma_load_f32<FK_BQ>(s.raw_g[st], &map_do, &s.full[st], 0, qs * FK_BQ, bh);
+          const int st = it % STAGES;
+          mbar_wait(&s.empty[st], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&s.full[st], 2 * FK_BQ * COLS * 4 + 2 * FK_BQ * 4);
+          tma_load_f32<FK_BQ, D>(s.raw_q[st], &map_q, &s.full[st], 0, qs * FK_BQ, bh);
+          tma_load_f32<FK_BQ, D>(s.raw_g[st], &map_do, &s.full[st], 0, qs * FK_BQ, bh);
           bulk_load(s.lse[st], rl + qs * FK_BQ, FK_BQ * 4, &s.full[st]);
           bulk_load(s.dsum[st], rd + qs * FK_BQ, FK_BQ * 4, &s.full[st]);
         }
@@ -737,25 +989,26 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap map_q,
       }
 
       // K rows of this warp as register A, split; V rows of this
-      // warpgroup split in place
+      // warpgroup split in place (at hd 80 the first stage's split then
+      // takes K's buffer: after the pair barrier below, both hold K)
       mbar_wait(&s.kv_full, i & 1);
-      float kfb[HD / 8][4], kfs[HD / 8][4];
-      load_a_f32<FK_KEYS>(s.k, 16 * warp + g, tg, kfb, kfs);
-      split_rows<FK_KEYS>(s.vb, s.vs, 64 * wg, t128);
+      float kfb[D / 8][4], kfs[D / 8][4];
+      load_a_f32<FK_KEYS, D>(s.k, 16 * warp + g, tg, kfb, kfs);
+      split_rows<FK_KEYS, D>(s.vb, s.vs, 64 * wg, t128);
       fence_proxy_async();
       bar_sync(2 + wg, 128);
 
-      float dka[HD / 8][4], dva[HD / 8][4];
+      float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
       for (int qs = 0; qs < n_qs; ++qs, ++it) {
-        const int st = it % FK_STAGES;
-        mbar_wait(&s.full[st], (it / FK_STAGES) & 1);
+        const int st = it % STAGES;
+        mbar_wait(&s.full[st], (it / STAGES) & 1);
         bar_sync(PAIR_BAR, 128 * BWD_WGS);  // both warpgroups' last products are done
-        split_stage(s.raw_q[st], s.qb, s.qs, s.qtb, s.qts, warp, lane);
-        split_stage(s.raw_g[st], s.gb, s.gs, s.gtb, s.gts, warp, lane);
+        split_stage_wide<D>(s.raw_q[st], s.sp.qb, s.sp.qs, s.qtb, s.qts, warp, lane);
+        split_stage_wide<D>(s.raw_g[st], s.sp.gb, s.sp.gs, s.gtb, s.gts, warp, lane);
         float2 lr[FK_BQ / 8], dd[FK_BQ / 8];  // columns 8j + 2tg + e%2 are queries
 #pragma unroll
         for (int j = 0; j < FK_BQ / 8; ++j) {
@@ -770,41 +1023,63 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap map_q,
         // S^T = K Q^T and dP^T = V dO^T (64 keys x 32 queries), two groups
         float sa[FK_BQ / 8][4], dpa[FK_BQ / 8][4];
         wgmma_fence();
-        product_rs_n32(sa, kfb, kfs, smem_u32(s.qb), smem_u32(s.qs));
+        product_rs_n32<BY_STEP, D>(sa, kfb, kfs, smem_u32(s.sp.qb), smem_u32(s.sp.qs));
         wgmma_commit();
-        product_ss<FK_KEYS>(dpa, vb, vs, smem_u32(s.gb), smem_u32(s.gs));
+        product_ss<FK_KEYS, D>(dpa, vb, vs, smem_u32(s.sp.gb), smem_u32(s.sp.gs));
         wgmma_commit();
-        wgmma_wait<1>();  // S^T
-        fence_regs(sa);
-        // P^T = exp2(S^T s2 - lse), in f32
-        float pb[FK_BQ / 8][4], ps[FK_BQ / 8][4];
+        float pb[FK_BQ / 8][4], ps[FK_BQ / 8][4], db[FK_BQ / 8][4], ds[FK_BQ / 8][4];
+        if constexpr (D == HD) {
+          wgmma_wait<1>();  // S^T
+          fence_regs(sa);
+          // P^T = exp2(S^T s2 - lse), in f32
 #pragma unroll
-        for (int j = 0; j < FK_BQ / 8; ++j) {
+          for (int j = 0; j < FK_BQ / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float le = (e & 1) ? lr[j].y : lr[j].x;
-            sa[j][e] = ex2(ok[e / 2] ? fmaf(sa[j][e], s2, -le) : kfill[e / 2] - le);
+            for (int e = 0; e < 4; ++e) {
+              const float le = (e & 1) ? lr[j].y : lr[j].x;
+              sa[j][e] = ex2(ok[e / 2] ? fmaf(sa[j][e], s2, -le) : kfill[e / 2] - le);
+            }
+            tf32_a_frag(sa[j], pb[j], ps[j]);
           }
-          tf32_a_frag(sa[j], pb[j], ps[j]);
-        }
-        // dV += P^T dO while dP^T finishes
-        wgmma_fence();
-        product_rs(dva, pb, ps, smem_u32(s.gtb), smem_u32(s.gts));
-        wgmma_commit();
-        wgmma_wait<1>();  // dP^T
-        fence_regs(dpa);
-        // dS^T = P^T (dP^T - D)
-        float db[FK_BQ / 8][4], ds[FK_BQ / 8][4];
+          // dV += P^T dO while dP^T finishes
+          wgmma_fence();
+          product_rs(dva, pb, ps, smem_u32(s.gtb), smem_u32(s.gts));
+          wgmma_commit();
+          wgmma_wait<1>();  // dP^T
+          fence_regs(dpa);
+          // dS^T = P^T (dP^T - D)
 #pragma unroll
-        for (int j = 0; j < FK_BQ / 8; ++j) {
+          for (int j = 0; j < FK_BQ / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dpa[j][e] = sa[j][e] * (dpa[j][e] - ((e & 1) ? dd[j].y : dd[j].x));
-          tf32_a_frag(dpa[j], db[j], ds[j]);
+            for (int e = 0; e < 4; ++e)
+              dpa[j][e] = sa[j][e] * (dpa[j][e] - ((e & 1) ? dd[j].y : dd[j].x));
+            tf32_a_frag(dpa[j], db[j], ds[j]);
+          }
+        } else {
+          // registers: P^T and dS^T in place, then each split as its
+          // product starts, so P^T in f32 is dead before dS^T is split
+          wgmma_wait<0>();  // S^T and dP^T
+          fence_regs(sa);
+          fence_regs(dpa);
+#pragma unroll
+          for (int j = 0; j < FK_BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float le = (e & 1) ? lr[j].y : lr[j].x;
+              sa[j][e] = ex2(ok[e / 2] ? fmaf(sa[j][e], s2, -le) : kfill[e / 2] - le);
+              dpa[j][e] = sa[j][e] * (dpa[j][e] - ((e & 1) ? dd[j].y : dd[j].x));
+            }
+#pragma unroll
+          for (int j = 0; j < FK_BQ / 8; ++j) tf32_a_frag(sa[j], pb[j], ps[j]);
+          // dV += P^T dO
+          wgmma_fence();
+          product_rs<BY_STEP, D>(dva, pb, ps, smem_u32(s.gtb), smem_u32(s.gts));
+#pragma unroll
+          for (int j = 0; j < FK_BQ / 8; ++j) tf32_a_frag(dpa[j], db[j], ds[j]);
         }
         // dK += dS^T Q
         wgmma_fence();
-        product_rs(dka, db, ds, smem_u32(s.qtb), smem_u32(s.qts));
+        product_rs<BY_STEP, D>(dka, db, ds, smem_u32(s.qtb), smem_u32(s.qts));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dka);
@@ -819,14 +1094,14 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap map_q,
       __syncwarp();
       if (lane == 0) mbar_arrive(&s.kv_empty);
 
-      const size_t base = (size_t)bh * t * HD;
+      const size_t base = (size_t)bh * t * D;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int key = k0 + 16 * w + g + 8 * rr;
         if (key >= t) continue;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
-          const size_t at = base + (size_t)key * HD + dt * 8 + 2 * tg;
+        for (int dt = 0; dt < D / 8; ++dt) {
+          const size_t at = base + (size_t)key * D + dt * 8 + 2 * tg;
           *reinterpret_cast<float2*>(dk + at) =
               make_float2(dka[dt][2 * rr] * scale, dka[dt][2 * rr + 1] * scale);
           *reinterpret_cast<float2*>(dv + at) = make_float2(dva[dt][2 * rr], dva[dt][2 * rr + 1]);
@@ -836,7 +1111,9 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// dq of 128-query tiles in f32 (tile = bh * n_qt + query tile).
+// dq of 128-query tiles in f32 (tile = bh * n_qt + query tile); D the head
+// dim.
+template <int D = HD>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
@@ -844,15 +1121,17 @@ flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse2,
                  const float* __restrict__ dsum, const uint8_t* __restrict__ valid,
                  float* __restrict__ dq, int heads, int t, int tp, int n_tiles, float scale) {
+  typedef F32DqShared<D> Shared;
+  constexpr int STAGES = Shared::STAGES, COLS = Shared::COLS;
   extern __shared__ __align__(128) char smem_dyn[];
-  F32DqShared& s = aligned_smem<F32DqShared>(smem_dyn);
+  Shared& s = aligned_smem<Shared>(smem_dyn);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_qt = (t + FQ_ROWS - 1) / FQ_ROWS, n_kt = (t + FQ_BK - 1) / FQ_BK;
 
   if (threadIdx.x == 0) {
     mbar_init(&s.q_full, 1);
     mbar_init(&s.q_empty, BWD_CONSUMERS);
-    for (int i = 0; i < FQ_STAGES; ++i) {
+    for (int i = 0; i < STAGES; ++i) {
       mbar_init(&s.full[i], 1);
       mbar_init(&s.empty[i], BWD_CONSUMERS);
     }
@@ -868,15 +1147,15 @@ flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
         const int bh = tile / n_qt, q0 = (tile % n_qt) * FQ_ROWS;
         mbar_wait(&s.q_empty, (i & 1) ^ 1);
-        mbar_expect_tx(&s.q_full, 2 * FQ_ROWS * HD * 4);
-        tma_load_f32<FQ_ROWS>(s.q, &map_q, &s.q_full, 0, q0, bh);
-        tma_load_f32<FQ_ROWS>(s.gb, &map_do, &s.q_full, 0, q0, bh);
+        mbar_expect_tx(&s.q_full, 2 * FQ_ROWS * COLS * 4);
+        tma_load_f32<FQ_ROWS, D>(s.q, &map_q, &s.q_full, 0, q0, bh);
+        tma_load_f32<FQ_ROWS, D>(s.gb, &map_do, &s.q_full, 0, q0, bh);
         for (int j = 0; j < n_kt; ++j, ++it) {
-          const int st = it % FQ_STAGES;
-          mbar_wait(&s.empty[st], ((it / FQ_STAGES) & 1) ^ 1);
-          mbar_expect_tx(&s.full[st], 2 * FQ_BK * HD * 4);
-          tma_load_f32<FQ_BK>(s.raw_k[st], &map_k, &s.full[st], 0, j * FQ_BK, bh);
-          tma_load_f32<FQ_BK>(s.raw_v[st], &map_v, &s.full[st], 0, j * FQ_BK, bh);
+          const int st = it % STAGES;
+          mbar_wait(&s.empty[st], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&s.full[st], 2 * FQ_BK * COLS * 4);
+          tma_load_f32<FQ_BK, D>(s.raw_k[st], &map_k, &s.full[st], 0, j * FQ_BK, bh);
+          tma_load_f32<FQ_BK, D>(s.raw_v[st], &map_v, &s.full[st], 0, j * FQ_BK, bh);
         }
       }
     }
@@ -900,25 +1179,26 @@ flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
         dr[rr] = __ldg(dsum + at);
       }
       // Q rows of this warp as register A, split; dO rows of this
-      // warpgroup split in place
+      // warpgroup split in place (at hd 80 the first stage's split then
+      // takes Q's buffer: after the pair barrier below, both hold Q)
       mbar_wait(&s.q_full, i & 1);
-      float qfb[HD / 8][4], qfs[HD / 8][4];
-      load_a_f32<FQ_ROWS>(s.q, 16 * warp + g, tg, qfb, qfs);
-      split_rows<FQ_ROWS>(s.gb, s.gs, 64 * wg, t128);
+      float qfb[D / 8][4], qfs[D / 8][4];
+      load_a_f32<FQ_ROWS, D>(s.q, 16 * warp + g, tg, qfb, qfs);
+      split_rows<FQ_ROWS, D>(s.gb, s.gs, 64 * wg, t128);
       fence_proxy_async();
       bar_sync(2 + wg, 128);
 
-      float dqa[HD / 8][4];
+      float dqa[D / 8][4];
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dqa[dt][e] = 0.f;
       for (int j = 0; j < n_kt; ++j, ++it) {
-        const int st = it % FQ_STAGES;
-        mbar_wait(&s.full[st], (it / FQ_STAGES) & 1);
+        const int st = it % STAGES;
+        mbar_wait(&s.full[st], (it / STAGES) & 1);
         bar_sync(PAIR_BAR, 128 * BWD_WGS);  // both warpgroups' last products are done
-        split_stage(s.raw_k[st], s.kb, s.ks, s.ktb, s.kts, warp, lane);
-        split_stage(s.raw_v[st], s.vb, s.vs, nullptr, nullptr, warp, lane);
+        split_stage_wide<D>(s.raw_k[st], s.sp.kb, s.sp.ks, s.ktb, s.kts, warp, lane);
+        split_stage_wide<D>(s.raw_v[st], s.sp.vb, s.sp.vs, nullptr, nullptr, warp, lane);
         fence_proxy_async();
         __syncwarp();
         if (lane == 0) mbar_arrive(&s.empty[st]);
@@ -927,9 +1207,9 @@ flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
         // S = Q K^T and dP = dO V^T (64 queries x 32 keys), two groups
         float sa[FQ_BK / 8][4], dpa[FQ_BK / 8][4];
         wgmma_fence();
-        product_rs_n32(sa, qfb, qfs, smem_u32(s.kb), smem_u32(s.ks));
+        product_rs_n32<BY_STEP, D>(sa, qfb, qfs, smem_u32(s.sp.kb), smem_u32(s.sp.ks));
         wgmma_commit();
-        product_ss<FQ_ROWS>(dpa, gb, gs, smem_u32(s.vb), smem_u32(s.vs));
+        product_ss<FQ_ROWS, D>(dpa, gb, gs, smem_u32(s.sp.vb), smem_u32(s.sp.vs));
         wgmma_commit();
         wgmma_wait<1>();  // S
         fence_regs(sa);
@@ -963,7 +1243,7 @@ flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
         }
         // dQ += dS K
         wgmma_fence();
-        product_rs(dqa, db, ds, smem_u32(s.ktb), smem_u32(s.kts));
+        product_rs<BY_STEP, D>(dqa, db, ds, smem_u32(s.ktb), smem_u32(s.kts));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dqa);
@@ -975,69 +1255,72 @@ flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
       __syncwarp();
       if (lane == 0) mbar_arrive(&s.q_empty);
 
-      const size_t base = (size_t)bh * t * HD;
+      const size_t base = (size_t)bh * t * D;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int row = q0 + 16 * warp + g + 8 * rr;
         if (row >= t) continue;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
-          *reinterpret_cast<float2*>(dq + base + (size_t)row * HD + dt * 8 + 2 * tg) =
+        for (int dt = 0; dt < D / 8; ++dt)
+          *reinterpret_cast<float2*>(dq + base + (size_t)row * D + dt * 8 + 2 * tg) =
               make_float2(dqa[dt][2 * rr] * scale, dqa[dt][2 * rr + 1] * scale);
       }
     }
   }
 }
 
-// A 3-D map over one (bh, t, 64) f32 operand in boxes of `rows` rows x 32
-// columns; rows beyond t read as zeros.
+// A 3-D map over one (bh, t, D) f32 operand in boxes of `rows` rows x 32
+// columns; rows beyond t, and columns beyond D, read as zeros.
+template <int D>
 inline int head_map_f32(CUtensorMap* map, const void* base, int bh, int t, int rows) {
-  return encode_map_f32(map, base, HD, t, bh, HD, (long long)t * HD, rows);
+  return encode_map_f32(map, base, D, t, bh, D, (long long)t * D, rows);
 }
 
+template <int D>
 int launch_bwd_f32(const float* q, const float* k, const float* v, const float* o,
                    const float* lse, const float* dout, const uint8_t* valid, float* dq, float* dk,
                    float* dv, float* rows, int bh, int heads, int t, float scale, cudaStream_t st) {
   const int tp = (t + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
   float* lse2 = rows;
   float* dsum = rows + (size_t)bh * tp;
-  const long long threads = (long long)bh * tp * 8;
+  const long long threads = (long long)bh * tp * row_threads<D>();
   if (threads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   CUtensorMap kv_q, kv_do, kv_k, kv_v, dq_q, dq_do, dq_k, dq_v;
-  int err = head_map_f32(&kv_q, q, bh, t, FK_BQ);
-  if (err == 0) err = head_map_f32(&kv_do, dout, bh, t, FK_BQ);
-  if (err == 0) err = head_map_f32(&kv_k, k, bh, t, FK_KEYS);
-  if (err == 0) err = head_map_f32(&kv_v, v, bh, t, FK_KEYS);
-  if (err == 0) err = head_map_f32(&dq_q, q, bh, t, FQ_ROWS);
-  if (err == 0) err = head_map_f32(&dq_do, dout, bh, t, FQ_ROWS);
-  if (err == 0) err = head_map_f32(&dq_k, k, bh, t, FQ_BK);
-  if (err == 0) err = head_map_f32(&dq_v, v, bh, t, FQ_BK);
+  int err = head_map_f32<D>(&kv_q, q, bh, t, FK_BQ);
+  if (err == 0) err = head_map_f32<D>(&kv_do, dout, bh, t, FK_BQ);
+  if (err == 0) err = head_map_f32<D>(&kv_k, k, bh, t, FK_KEYS);
+  if (err == 0) err = head_map_f32<D>(&kv_v, v, bh, t, FK_KEYS);
+  if (err == 0) err = head_map_f32<D>(&dq_q, q, bh, t, FQ_ROWS);
+  if (err == 0) err = head_map_f32<D>(&dq_do, dout, bh, t, FQ_ROWS);
+  if (err == 0) err = head_map_f32<D>(&dq_k, k, bh, t, FQ_BK);
+  if (err == 0) err = head_map_f32<D>(&dq_v, v, bh, t, FQ_BK);
   if (err != 0) return err;
   static LaunchSetup kv_setup, dq_setup;
   int sms = 0;
-  err = kv_setup.sms(flash_bwd_dkv_f32, FK_SMEM, &sms);
-  if (err == 0) err = dq_setup.sms(flash_bwd_dq_f32, FQ_SMEM, &sms);
+  err = kv_setup.sms(flash_bwd_dkv_f32<D>, fk_smem<D>(), &sms);
+  if (err == 0) err = dq_setup.sms(flash_bwd_dq_f32<D>, fq_smem<D>(), &sms);
   if (err != 0) return err;
 
-  flash_bwd_rows<float><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+  flash_bwd_rows<float, D><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
       o, dout, lse, lse2, dsum, bh * tp, t, tp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int kv_tiles = bh * ((t + FK_KEYS - 1) / FK_KEYS);
-  flash_bwd_dkv_f32<<<kv_tiles < sms ? kv_tiles : sms, BWD_THREADS, FK_SMEM, st>>>(
+  flash_bwd_dkv_f32<D><<<kv_tiles < sms ? kv_tiles : sms, BWD_THREADS, fk_smem<D>(), st>>>(
       kv_q, kv_k, kv_v, kv_do, lse2, dsum, valid, dk, dv, heads, t, tp, kv_tiles, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int dq_tiles = bh * ((t + FQ_ROWS - 1) / FQ_ROWS);
-  flash_bwd_dq_f32<<<dq_tiles < sms ? dq_tiles : sms, BWD_THREADS, FQ_SMEM, st>>>(
+  flash_bwd_dq_f32<D><<<dq_tiles < sms ? dq_tiles : sms, BWD_THREADS, fq_smem<D>(), st>>>(
       dq_q, dq_k, dq_v, dq_do, lse2, dsum, valid, dq, heads, t, tp, dq_tiles, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv: (bh, t, 64) contiguous each, 16-byte
-// aligned, all float32 (dtype 0) or all bfloat16 (dtype 1); lse: (bh, t)
+// q, k, v, o, dout, dq, dk, dv: (bh, t, head_dim) contiguous each, head_dim
+// 64 or 80, 16-byte aligned, all float32 (dtype 0) or all bfloat16 (dtype
+// 1); lse: (bh, t)
 // float32; valid: (bh / heads, t) bytes, nonzero = attend, or null (all
 // valid). rows: a (2, bh, round_up(t, 128)) float32 workspace that needs no
 // initialisation. device: the tensors' CUDA device, made current on this
@@ -1049,28 +1332,41 @@ extern "C" int vipers_flash_attention_bwd(const void* q, const void* k, const vo
                                           const uint8_t* valid, void* dq, void* dk, void* dv,
                                           float* rows, int bh, int heads, int t, int head_dim,
                                           float scale, int dtype, int device, void* stream) {
-  if (head_dim != HD || bh <= 0 || heads <= 0 || bh % heads || t <= 0 || rows == nullptr)
+  const bool hd80 = head_dim == HD + 16;
+  if ((head_dim != HD && !hd80) || bh <= 0 || heads <= 0 || bh % heads || t <= 0 ||
+      rows == nullptr || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_bwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                          static_cast<const float*>(v), static_cast<const float*>(o), lse,
-                          static_cast<const float*>(dout), valid, static_cast<float*>(dq),
-                          static_cast<float*>(dk), static_cast<float*>(dv), rows, bh, heads, t,
-                          scale, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  return launch_bwd_bf16(q, k, v, o, lse, dout, valid, dq, dk, dv, rows, bh, heads, t, scale, st);
+  if (dtype == 0) {
+    const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
+                *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(o),
+                *fdo = static_cast<const float*>(dout);
+    float *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk),
+          *gv = static_cast<float*>(dv);
+    return hd80 ? launch_bwd_f32<HD + 16>(fq, fk, fv, fo, lse, fdo, valid, gq, gk, gv, rows, bh,
+                                          heads, t, scale, st)
+                : launch_bwd_f32<HD>(fq, fk, fv, fo, lse, fdo, valid, gq, gk, gv, rows, bh,
+                                     heads, t, scale, st);
+  }
+  return hd80 ? launch_bwd_bf16<HD + 16>(q, k, v, o, lse, dout, valid, dq, dk, dv, rows, bh,
+                                         heads, t, scale, st)
+              : launch_bwd_bf16<HD>(q, k, v, o, lse, dout, valid, dq, dk, dv, rows, bh, heads, t,
+                                    scale, st);
 }
 
-// The design of one instance (dtype 0 f32, 1 bf16) as compiled, for the
-// kernel's report line, into out[9]: the dk/dv kernel's keys a tile,
-// queries a stage and stages; the dq kernel's queries a tile, keys a stage
-// and stages; the workspace's row padding; the number of main kernels
-// (after the row pass); TF32 products an f32 product (0: bf16 products).
-extern "C" void vipers_flash_attention_bwd_design(int dtype, int* out) {
-  const int f32[9] = {FK_KEYS, FK_BQ, FK_STAGES, FQ_ROWS, FQ_BK, FQ_STAGES, ROW_PAD, 2, TF32_TERMS};
+// The design of one instance (dtype 0 f32, 1 bf16; head_dim 64 or 80) as
+// compiled, for the kernel's report line, into out[9]: the dk/dv kernel's
+// keys a tile, queries a stage and stages; the dq kernel's queries a tile,
+// keys a stage and stages; the workspace's row padding; the number of main
+// kernels (after the row pass); TF32 products an f32 product (0: bf16
+// products).
+extern "C" void vipers_flash_attention_bwd_design(int dtype, int head_dim, int* out) {
+  const bool hd80 = head_dim == HD + 16;
+  const int f32[9] = {FK_KEYS, FK_BQ, hd80 ? fk_stages<HD + 16>() : fk_stages<HD>(),
+                      FQ_ROWS, FQ_BK, hd80 ? fq_stages<HD + 16>() : fq_stages<HD>(),
+                      ROW_PAD, 2, TF32_TERMS};
   const int b16[9] = {KV_KEYS, KV_BQ, KV_STAGES, DQ_ROWS, DQ_KEYS, DQ_STAGES, ROW_PAD, 2, 0};
   for (int i = 0; i < 9; ++i) out[i] = dtype == 0 ? f32[i] : b16[i];
 }

@@ -191,6 +191,21 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 16, f32) {=, +=} A (64 x 16) . B (16 x 16), both bf16 MN-major in
+// shared memory: the transpose bits on A and B; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n16_tt(float (&d)[2][4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, f32) {=, +=} A (64 x 16) . B (16 x 64), both bf16 MN-major in
 // shared memory: the transpose bits on A and B; scale_d = 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[8][4], uint64_t da, uint64_t db,

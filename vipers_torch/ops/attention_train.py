@@ -5,32 +5,38 @@ Kernel: ``vipers_torch/csrc/attention_train.cu``, hand-written CUDA for
 ``sm_90a`` on Hopper's TMA, mbarriers and ``wgmma`` (the building blocks in
 ``csrc/hopper.cuh``). Its forward replaces the TPU's ``_fwd`` and
 ``_fwd_packed``, its backward ``_bwd`` and ``_bwd_packed``: both take q, k,
-v (and write dq, dk, dv) through three base pointers over (B, H, T, 64), so
-the packed entry hands them the three slabs of one (3, B, H, T, 64) buffer
+v (and write dq, dk, dv) through three base pointers over (B, H, T, hd), so
+the packed entry hands them the three slabs of one (3, B, H, T, hd) buffer
 and gets one packed dqkv back, and the unpacked entry hands them three
-tensors. The forward keeps the exact softmax in one pass where T <= 256
-(two passes over 256-key chunks beyond); the backward is one CTA per (b, h)
-at a time with dK/dV in registers and dQ from a staged dS, summed in an
-f32 scratch only where T > 256. TMA needs 16-byte-aligned base pointers, so
-the wrappers raise on a CUDA tensor that is not. At the ViT-S/16 train
-shape (B*H = 768, T = 256, bf16) both are bound by bytes (12.9 GFLOP on
-~101 MB forward, 32.2 GFLOP on ~202 MB backward).
+tensors. Both are compiled for head dim 64 and 80 (vit_h_14's 16 heads of
+80): an 80-column row is its first 64 columns and a 16-column tail, each
+its own TMA box and ``wgmma`` operand, so nothing is padded. The forward
+keeps the exact softmax in one pass where T <= 256 (two passes over
+256-key chunks beyond); the backward is one CTA per (b, h) at a time with
+dK/dV in registers and dQ from a staged dS, summed in an f32 scratch only
+beyond one round of keys (256, 128 at hd 80). TMA needs 16-byte-aligned
+base pointers, so the wrappers raise on a CUDA tensor that is not. At the
+ViT-S/16 train shape (B*H = 768, T = 256, bf16) both are bound by bytes
+(12.9 GFLOP on ~101 MB forward, 32.2 GFLOP on ~202 MB backward).
 
 ``attention_train_fwd`` / ``attention_train_bwd`` launch the kernels for
-CUDA tensors (bf16 and head dim 64 only; anything else raises) and run the
+CUDA tensors (bf16, head dim 64 or 80; anything else raises) and run the
 plain versions, ``attention_train_fwd_plain`` / ``attention_train_bwd_plain``,
-for CPU tensors. ``LAUNCHES`` counts kernel launches per variant;
-``design()`` reads back the compiled block shapes.
+for CPU tensors. ``LAUNCHES`` counts kernel launches per variant and head
+dim (``"fwd[hd80]"``, ``"bwd[hd80]"`` at 80); ``design(hd)`` reads back the
+compiled block shapes of an instance.
 
 ``variant=`` selects the softmax precision of the TPU's A/B tool
 ``tools/bench_softmax_prec.py`` (forward ``f32`` / ``bf16exp`` / ``normP``,
 backward ``f32`` / ``bf16exp``), template instances of the same kernels;
-the model path runs ``f32`` and never passes it.
+the model path runs ``f32`` and never passes it. The variants are compiled
+at head dim 64 only, the A/B tool's.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Optional
 
@@ -43,17 +49,21 @@ from vipers_torch.ops.tokens import round_up
 
 MAX_T = 1024
 HEAD_DIM = 64
-CHUNK = 256  # keys the kernels hold at once; beyond, dQ sums in an f32 scratch
+HEAD_DIMS = (64, 80)  # the kernels' instances; the variants other than f32: 64 only
 FWD_VARIANTS = ("f32", "bf16exp", "normP")
 BWD_VARIANTS = ("f32", "bf16exp")
 
 # kernel launches per variant ("fwd", "bwd": the f32 variant the model
-# runs); chip_smoke.py resets and reads these
+# runs) and head dim ("[hd80]"); chip_smoke.py resets and reads these
 LAUNCHES = {"fwd": 0, "bwd": 0, "fwd[bf16exp]": 0, "fwd[normP]": 0,
-            "bwd[bf16exp]": 0}
+            "bwd[bf16exp]": 0, "fwd[hd80]": 0, "bwd[hd80]": 0}
 
 
-def _launch_key(kind: str, variant: str) -> str:
+def _launch_key(kind: str, variant: str, hd: int = HEAD_DIM) -> str:
+    """The ``LAUNCHES`` key of the ``kind`` ("fwd" or "bwd") instance of
+    ``variant`` at head dim ``hd``."""
+    if hd != HEAD_DIM:
+        return f"{kind}[hd{hd}]"
     return kind if variant == "f32" else f"{kind}[{variant}]"
 
 
@@ -143,28 +153,35 @@ def _fn(name, nptr):
     return fn
 
 
-def design() -> dict:
-    """The compiled kernels' shapes: the forward's query rows a tile, keys a
-    chunk (the backward's keys a round) and K/V stages; the backward's
-    query rows a block and ring stages. Builds the library if needed."""
+@functools.lru_cache(maxsize=None)
+def design(head_dim: int = HEAD_DIM) -> dict:
+    """The compiled shapes of the ``head_dim`` instance: the forward's query
+    rows a tile, keys a chunk and K/V stages; the backward's query rows a
+    block, ring stages and keys a round (256 at hd 64, 128 at 80; beyond
+    one round dQ sums in an f32 scratch). Builds the library if needed."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the attention_train kernels have head dims {HEAD_DIMS}, "
+                         f"got {head_dim}")
     fn = _build.load("attention_train").vipers_attention_train_design
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = None
-    vals = [ctypes.c_int() for _ in range(5)]
-    fn(*map(ctypes.byref, vals))
-    return dict(zip(("fwd_block_q", "chunk", "fwd_stages", "bwd_block_q", "bwd_stages"),
-                    (v.value for v in vals)))
+    vals = (ctypes.c_int * 6)()
+    fn(head_dim, vals)
+    return dict(zip(("fwd_block_q", "chunk", "fwd_stages", "bwd_block_q", "bwd_stages",
+                     "bwd_chunk"), vals))
 
 
-def _check_cuda(q, ok):
+def _check_cuda(q, ok, variant: str = "f32"):
     b, h, t, hd = q.shape
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the attention_train kernel is bf16 only, got {q.dtype}")
-    if hd != HEAD_DIM or t % 64 or t > MAX_T:
-        raise ValueError(f"the attention_train kernel needs head dim {HEAD_DIM} "
-                         f"and T % 64 == 0, T <= {MAX_T}; got T={t}, hd={hd} (other head "
-                         f"dims: ROADMAP B1)")
+    if hd not in HEAD_DIMS or t % 64 or t > MAX_T:
+        raise ValueError(f"the attention_train kernel needs head dim 64 or 80 "
+                         f"and T % 64 == 0, T <= {MAX_T}; got T={t}, hd={hd}")
+    if hd != HEAD_DIM and variant != "f32":
+        raise ValueError(f"the attention_train kernel's {variant} variant has head dim "
+                         f"{HEAD_DIM} only, got {hd}")
     if ok.device != q.device:
         raise ValueError("inputs on several devices")
 
@@ -184,7 +201,7 @@ def attention_train_fwd(q, k, v, ok, scale: float, variant: str = "f32"):
         return attention_train_fwd_plain(q, k, v, ok, scale, variant)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_cuda(q, ok)
+    _check_cuda(q, ok, variant)
     b, h, t, hd = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_aligned(q, k, v)
@@ -195,7 +212,7 @@ def attention_train_fwd(q, k, v, ok, scale: float, variant: str = "f32"):
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), okb.data_ptr(),
              out.data_ptr(), lse.data_ptr(), b * h, h, t, hd, float(scale),
              FWD_VARIANTS.index(variant), q.device.index), q)
-    LAUNCHES[_launch_key("fwd", variant)] += 1
+    LAUNCHES[_launch_key("fwd", variant, hd)] += 1
     return out, lse
 
 
@@ -214,7 +231,7 @@ def attention_train_bwd(q, k, v, o, lse, do, ok, scale: float, out=None,
         return grads
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_cuda(q, ok)
+    _check_cuda(q, ok, variant)
     b, h, t, hd = q.shape
     ins = [z.contiguous() for z in (q, k, v, o, do)]
     lse = lse.contiguous()
@@ -225,7 +242,7 @@ def attention_train_bwd(q, k, v, o, lse, do, ok, scale: float, out=None,
         raise ValueError("out must be three contiguous tensors shaped like q")
     _check_aligned(*ins, lse, *out)
     scratch = (torch.empty((b, h, t, hd), dtype=torch.float32, device=q.device)
-               if t > CHUNK else None)
+               if t > design(hd)["bwd_chunk"] else None)
     qc, kc, vc, oc, doc = ins
     _launch("attention_train_bwd", _fn("vipers_attention_train_bwd", 11),
             (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
@@ -233,7 +250,7 @@ def attention_train_bwd(q, k, v, o, lse, do, ok, scale: float, out=None,
              out[1].data_ptr(), out[2].data_ptr(),
              scratch.data_ptr() if scratch is not None else None,
              b * h, h, t, hd, float(scale), BWD_VARIANTS.index(variant), q.device.index), q)
-    LAUNCHES[_launch_key("bwd", variant)] += 1
+    LAUNCHES[_launch_key("bwd", variant, hd)] += 1
     return tuple(out)
 
 

@@ -37,9 +37,12 @@ every product as three TF32 products on the tensor cores (3xTF32, within
 no atomics and no scratch. Its plain version, ``flash_attention_bwd_plain``,
 is the JAX package's ``_flash_vjp_bwd``, the ``use_official=False`` VJP,
 and runs for CPU tensors. ``BWD_LAUNCHES`` counts backward calls that
-launched the kernels, per instance. The backward and the packed kernel
-take head dim 64 only on the card (their hd-80 instances are ROADMAP B1);
-at any other head dim they raise before launching anything.
+launched the kernels, per instance (``"float32[hd80]"`` and
+``"bfloat16[hd80]"`` at head dim 80). The backward, like the forward, is
+compiled for head dim 64 and 80 (the tile splits a row as the forward's
+does); the packed kernel for 64 only (128 % 80 != 0: no packed layout for
+vit_h_14 in either package). At any other head dim they raise before
+launching anything.
 
 The packed token-major route (``flash_attention_packed``, opt-in with
 ``VIPERS_PACKED_ATTENTION=1`` in the models, as in the JAX package) reads q,
@@ -67,16 +70,16 @@ from vipers_torch.ops.tokens import round_up
 
 NEG_INF = -1e9
 FLASH_MIN_T = 512
-HEAD_DIM = 64  # the backward and packed kernels' head dim
-FWD_HEAD_DIMS = (64, 80)  # the head-major forward's instances
+HEAD_DIM = 64  # the packed kernel's head dim
+FWD_HEAD_DIMS = (64, 80)  # the head-major forward's and the backward's instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches per instance; chip_smoke.py resets and reads these
 LAUNCHES = {"float32": 0, "bfloat16": 0, "float32[hd80]": 0, "bfloat16[hd80]": 0}
 PACKED_LAUNCHES = {"float32": 0, "bfloat16": 0}
 # backward calls on the card per instance: one count a call, which launches
-# the dk/dv and the dq kernel (bf16: after the row pass)
-BWD_LAUNCHES = {"float32": 0, "bfloat16": 0}
+# the row pass, then the dk/dv and the dq kernel
+BWD_LAUNCHES = {"float32": 0, "bfloat16": 0, "float32[hd80]": 0, "bfloat16[hd80]": 0}
 
 
 def flash_min_t() -> int:
@@ -143,23 +146,23 @@ def _check(q, k, v, valid):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
-def _check_kernel_head_dim(hd: int, kernel: str = "flash attention backward"):
-    """The backward and packed kernels take head dim 64 only on the card;
-    the plain versions (CPU tensors) take any."""
+def _check_kernel_head_dim(hd: int):
+    """The packed kernel takes head dim 64 only on the card (no packed
+    layout has 80); the plain version (CPU tensors) takes any."""
     if hd != HEAD_DIM:
-        raise ValueError(f"the {kernel} kernel needs head dim {HEAD_DIM}, got {hd} (its "
-                         f"other head dims are ROADMAP B1)")
+        raise ValueError(f"the packed attention kernel needs head dim {HEAD_DIM}, got {hd}")
 
 
-def _check_fwd_head_dim(hd: int):
-    """The head-major forward kernel's instances: head dim 64 and 80."""
+def _check_head_dim(hd: int, kernel: str = "flash attention"):
+    """The head-major forward's and the backward's instances: head dim 64
+    and 80 (``FWD_HEAD_DIMS``, the name older checkouts' A/B tools read)."""
     if hd not in FWD_HEAD_DIMS:
-        raise ValueError(f"the flash attention kernel needs head dim 64 or 80, got {hd}")
+        raise ValueError(f"the {kernel} kernel needs head dim 64 or 80, got {hd}")
 
 
 def launch_key(dtype: torch.dtype, hd: int) -> str:
-    """The ``LAUNCHES`` key of the forward instance of ``dtype`` and head
-    dim ``hd``."""
+    """The ``LAUNCHES`` (and ``BWD_LAUNCHES``) key of the instance of
+    ``dtype`` and head dim ``hd``."""
     name = str(dtype).replace("torch.", "")
     return name if hd == HEAD_DIM else f"{name}[hd{hd}]"
 
@@ -182,7 +185,7 @@ def tile_shape(dtype: torch.dtype = torch.bfloat16, head_dim: int = HEAD_DIM) ->
     query rows, keys a K/V tile (bf16) or stage (f32) and K/V ring stages;
     for f32 also the stages of split K/V copies and the TF32 products an
     f32 product takes. Builds the flash library if needed."""
-    _check_fwd_head_dim(head_dim)
+    _check_head_dim(head_dim)
     fn = _build.load("flash_attention_fwd").vipers_flash_attention_tile
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -216,7 +219,7 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
         return flash_attention_plain(q, k, v, valid, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_fwd_head_dim(hd)
+    _check_head_dim(hd)
     fn = _lib()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_aligned(q, k, v)
@@ -279,36 +282,37 @@ def _bwd_lib():
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_design(dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The backward's design for ``dtype`` as compiled: the dk/dv kernel's
-    keys a tile, queries a stage and ring stages, the dq kernel's queries a
-    tile, keys a stage and ring stages, the workspace's row padding, the
-    number of main kernels and the TF32 products an f32 product takes (0
-    for bf16). Builds the backward library if needed."""
+def bwd_design(dtype: torch.dtype = torch.bfloat16, head_dim: int = HEAD_DIM) -> dict:
+    """The backward's design for ``dtype`` at ``head_dim`` as compiled: the
+    dk/dv kernel's keys a tile, queries a stage and ring stages, the dq
+    kernel's queries a tile, keys a stage and ring stages, the workspace's
+    row padding, the number of main kernels and the TF32 products an f32
+    product takes (0 for bf16). Builds the backward library if needed."""
+    _check_head_dim(head_dim, "flash attention backward")
     fn = _build.load("flash_attention_bwd").vipers_flash_attention_bwd_design
     keys = ("dkv_keys", "dkv_queries", "dkv_stages", "dq_queries", "dq_keys", "dq_stages",
             "row_pad", "kernels", "tf32_products")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = None
     vals = (ctypes.c_int * len(keys))()
-    fn(_DTYPE_CODE[dtype], vals)
+    fn(_DTYPE_CODE[dtype], head_dim, vals)
     return dict(zip(keys, vals))
 
 
 def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
     """(dq, dk, dv) in the input dtype for (B, H, T, hd) q, k, v, the (B, T)
     bool key mask (or None), the forward's ``out`` and f32 ``lse`` and the
-    cotangent ``g``. CUDA tensors go to the kernel (hd 64, any T; a build or
-    launch failure raises, and another hd raises before any launch), CPU
-    tensors to ``flash_attention_bwd_plain`` (any hd)."""
+    cotangent ``g``. CUDA tensors go to the kernel (hd 64 or 80, any T; a
+    build or launch failure raises, and another hd raises before any
+    launch), CPU tensors to ``flash_attention_bwd_plain`` (any hd)."""
     _check_bwd(q, k, v, valid, out, lse, g)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, valid, out, lse, g, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, t, hd = q.shape
-    _check_kernel_head_dim(hd)
+    _check_head_dim(hd, "flash attention backward")
     fn = _bwd_lib()
     q, k, v, out, g = (z.contiguous() for z in (q, k, v, out, g))
     lse = lse.contiguous()
@@ -327,7 +331,7 @@ def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
                 b * h, h, t, hd, float(scale), _DTYPE_CODE[q.dtype], q.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
-    BWD_LAUNCHES[str(q.dtype).replace("torch.", "")] += 1
+    BWD_LAUNCHES[launch_key(q.dtype, hd)] += 1
     return dq, dk, dv
 
 
@@ -350,9 +354,9 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, valid=None, scale: Optional[float] = None):
-    """(B, H, T, hd) attention without materializing (T, T) in the forward
-    (hd 64 or 80 on the card); returns out, differentiable in q, k and v
-    (the card's backward: hd 64)."""
+    """(B, H, T, hd) attention without materializing (T, T) (hd 64 or 80 on
+    the card); returns out, differentiable in q, k and v through the
+    backward kernels."""
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     return _FlashAttention.apply(q, k, v, valid, scale)
 
@@ -464,7 +468,7 @@ def flash_attention_packed_fwd(qkv, valid, num_heads: int, scale: float):
     b, t, three_d = qkv.shape
     d = three_d // 3
     hd = d // num_heads
-    _check_kernel_head_dim(hd, "packed attention")
+    _check_kernel_head_dim(hd)
     fn = _packed_lib()
     qkv = qkv.contiguous()
     _check_aligned(qkv)

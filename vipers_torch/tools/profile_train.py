@@ -1,10 +1,12 @@
 """Where the time goes in the port's masked bf16 train step on one GPU.
 
-Builds the same full-width ViT-S/16 as ``chip_smoke.py``'s train phases, at
-224x224 by default or at ``--image-size`` (384: T = 577 takes the flash
-forward and backward kernels) (random weights from a seed, 50% global
-magnitude masks on unbaked f32 masters, SGD momentum 0.9, wd 1e-4, lr 0.1
-cosine, uint8 images normalized on the card) and profiles
+Builds a full-width ViT of the registry (``--model``, default ViT-S/16 as
+``chip_smoke.py``'s train phases; ``vit_h_14`` as its phase 11), at
+224x224 by default or at ``--image-size`` (ViT-S/16 at 384: T = 577 takes
+the flash forward and backward kernels; vit_h_14 at 392: T = 785) (random
+weights from a seed, 50% global magnitude masks on unbaked f32 masters
+ranked on the card, SGD momentum 0.9, wd 1e-4, lr 0.1 cosine, uint8 images
+normalized on the card) and profiles
 ``make_train_step`` with ``torch.profiler``: device time by kernel, the
 device's busy share of the wall-clock window, and the host time per step,
 with the host's enqueue time against the wall time of unprofiled windows
@@ -12,6 +14,7 @@ beside them (img/s: the best of 3 windows of 6 steps, ``chip_smoke.py``'s
 scheme). Needs a card:
 
     python -m vipers_torch.tools.profile_train [--batch 128] [--steps 3] [--image-size 224]
+        [--model vit_h_14 --batch 32]
 
 Writes the full kernel table and a Chrome trace under ``--out``
 (default ``build/profile_train/``), and prints the rows of the port's own
@@ -49,13 +52,18 @@ def port_kernel_pattern() -> re.Pattern:
     return re.compile(r"\b(?:%s)[(<]" % "|".join(sorted(port_kernels())))
 
 
+def _to_cuda(tree):
+    return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--image-size", type=int, default=224,
                     help="square training crop (224: the training attention kernels; "
-                         "384: T = 577, the flash kernels)")
+                         "384 at patch 16, 392 at 14: the flash kernels)")
+    ap.add_argument("--model", default="vit_s_16")
     ap.add_argument("--out", default=os.path.join("build", "profile_train"),
                     help="directory for the kernel table and the Chrome trace")
     args = ap.parse_args(argv)
@@ -67,8 +75,12 @@ def main(argv=None):
     from vipers_torch.train.steps import create_train_state, make_train_step
 
     hw = args.image_size
-    spec = build_model("vit_s_16", num_classes=1000, image_size=(hw, hw))
+    spec = build_model(args.model, num_classes=1000, image_size=(hw, hw))
+    if hw % spec.patch_size:
+        raise SystemExit(f"--image-size {hw} is not a multiple of {args.model}'s patch "
+                         f"size {spec.patch_size}")
     params = spec.init(torch.Generator().manual_seed(0))
+    params = _to_cuda(params)  # the ranking's sort on the card
     masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), 0.5)
     ocfg = OptimConfig(opt="sgd", lr=0.1, momentum=0.9, weight_decay=1e-4, epochs=10,
                        lr_scheduler="cosineannealinglr")

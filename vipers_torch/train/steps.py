@@ -111,15 +111,24 @@ def forward_params(params: Dict[str, torch.Tensor], masks: Dict[str, torch.Tenso
     return out
 
 
+def train_loss(model, tensors: Dict[str, torch.Tensor], batch, num_classes: int,
+               label_smoothing: float = 0.0, compute_dtype=torch.float32):
+    """The training forward on ``tensors`` (state-dict names): ``model`` in
+    train mode on images cast to ``compute_dtype``, then the cross-entropy.
+    Returns (loss, logits)."""
+    images, labels = batch
+    model.train()
+    logits, _ = functional_call(model, tensors, (images.to(compute_dtype),),
+                                {"need_attn": False})
+    return cross_entropy(logits, labels, num_classes, label_smoothing), logits
+
+
 def loss_and_grads(model, masks, batch, num_classes: int, label_smoothing: float = 0.0,
                    compute_dtype=torch.float32):
     """One training forward and backward: (loss, logits, {name: f32 grad})."""
-    images, labels = batch
     params = dict(model.named_parameters())
-    model.train()
-    logits, _ = functional_call(model, forward_params(params, masks, compute_dtype),
-                                (images.to(compute_dtype),), {"need_attn": False})
-    loss = cross_entropy(logits, labels, num_classes, label_smoothing)
+    loss, logits = train_loss(model, forward_params(params, masks, compute_dtype), batch,
+                              num_classes, label_smoothing, compute_dtype)
     grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), logits.detach(), dict(zip(params, grads))
 
