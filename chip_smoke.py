@@ -105,15 +105,35 @@ Phases (any failure exits non-zero; nothing is caught):
      backward launches a step, no flash, no fused MLP; img/s, peak device
      memory; one LRR round, 50% -> 60%) and phase 8's at 392x392 B=16 (T =
      785 -> 896: 32 hd-80 flash forward and backward a step), each card vs
-     CPU on its first 8 blocks at B=2 (f32 params after 2 steps within
+     CPU on its first 4 blocks at B=2 (f32 params after 2 steps within
      1e-4, at 392 through the f32 hd-80 flash kernels, counted; bf16 loss
      and gradients); SNIP at 392 in f32: card vs CPU on the 8-block cut
      (masks at the target sparsity, equal up to threshold ties), then at
      full depth, B=8, on the card (32 f32 hd-80 flash forward and backward
-     launches), then 2 bf16 steps from its masks.
+     launches), then 2 bf16 steps from its masks;
+ 12. the pruning entry points through the CLI (``train_cli_phase``):
+     ``vipers_torch.cli.main train --amp`` on ViT-B/16 at full width and
+     depth (1000 classes, weights from the CLI's seed 42, 224x224, B=128, 8 decode
+     threads) on an ImageFolder of 1024 train and 256 val symlinks to the 8
+     fixture JPEGs: SNIP to 50% for one epoch, then LRR (rate 0.2,
+     threshold 36: two iterations of one epoch); ``evaluate --amp`` over
+     the LRR checkpoints; ``lost`` from the iteration-01 checkpoint on 128
+     JPEGs. Checks: the first train and val batches equal to the CPU
+     loader's, 12 training-attention forward and backward launches a step
+     and 12 fused-MLP launches (D = 768) an eval batch, no flash, finite
+     bf16 losses, pruned slots zero in every LRR checkpoint and at their
+     initial weights in the SNIP ones (unbaked), performance.txt's
+     sparsities those of ``compute_sparsity_global`` on the checkpoints,
+     evaluate's acc1 equal to the training run's, preds.pkl written; the
+     f32 driver card vs CPU on vit_b_16 cut to 2 blocks at B=8 (SNIP's
+     saliencies within 1e-5 of their scale, a TF32 run shown to miss it,
+     masks; then from the card's masks 2 steps and one LRR iteration:
+     parameters and masks). Prints train e2e, step, decode-only (8
+     threads, 1) and evaluate img/s.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
-phase 6 drove also carry its launches as ``cli_launches``); the last is
+phase 6 drove also carry its launches as ``cli_launches``, the rows phase
+12 drove its as ``train_cli_launches``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1681,6 +1701,9 @@ def train_phase(card, counters, hw, n_cpu, lrr, model="vit_s_16", patch=PATCH,
 # step, 16 at 392, 8 for SNIP's f32 forward and backward.
 VIT_H_TRAIN = ((224, 32), (392, 16))
 VIT_H_SNIP_BATCH = 8
+# the train steps' card-vs-CPU cut: the CPU's bf16 reference gradients take
+# most of the phase, so fewer blocks than the LOST and SNIP cuts
+VIT_H_TRAIN_CPU_LAYERS = 4
 
 
 def snip_phase(card, counters, hw=392, batch=VIT_H_SNIP_BATCH, target=SPARSITY):
@@ -1836,13 +1859,13 @@ def vit_h_phase(card, counters):
     the bf16 masked train step at 224x224 (T = 257 -> 384: 32 hd-80
     training forward and backward launches a step, one LRR round) and
     392x392 (T = 785 -> 896: 32 hd-80 flash forward and backward a step),
-    each card vs CPU on its first VIT_H_CPU_LAYERS blocks at
+    each card vs CPU on its first VIT_H_TRAIN_CPU_LAYERS blocks at
     B=VIT_H_CPU_BATCH; then SNIP (``snip_phase``). Returns the launches of
     the hd-80 training and backward rows."""
     rows = {}
     for hw, batch in VIT_H_TRAIN:
         tl = train_phase(card, counters, hw, VIT_H_CPU_BATCH, lrr=hw == 224, model="vit_h_14",
-                         patch=14, batch=batch, cpu_layers=VIT_H_CPU_LAYERS)
+                         patch=14, batch=batch, cpu_layers=VIT_H_TRAIN_CPU_LAYERS)
         keys = (("attention_train_fwd[bf16, hd80]", "attention_train_bwd[bf16, hd80]")
                 if hw == 224 else ("flash_attention_bwd[bf16, hd80]",))
         rows.update({k: tl[k] for k in keys})
@@ -1851,6 +1874,396 @@ def vit_h_phase(card, counters):
         card, counters)["flash_attention_bwd[f32, hd80]"]
     torch.cuda.empty_cache()
     return rows
+
+
+# Phase 12: the pruning entry points through the CLI, ViT-B/16 at full
+# width and depth on a synthetic ImageFolder of the fixture JPEGs.
+N_TRAIN_IMAGES, N_VAL_IMAGES, N_LOST_IMAGES = 1024, 256, 128
+CUT_BLOCKS, CUT_BATCH = 2, 8  # the f32 card-vs-CPU cut of the driver
+
+
+def imagefolder_tree(root, n_train, n_val, seed):
+    """``train/`` and ``val/`` ImageFolder splits of 8 classes under
+    ``root``: class i holds symlinks to fixture JPEG i (sorted stems), the
+    images spread over the classes in an order drawn from ``seed`` (n/8 a
+    class, names numbered in that order)."""
+    fixture = os.path.join(REPO, "tests", "data", "torch_voc", "JPEGImages")
+    jpegs = sorted(os.listdir(fixture))
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        classes = rng.permutation(np.arange(n) % len(jpegs))
+        for c in range(len(jpegs)):
+            os.makedirs(os.path.join(root, split, f"class_{c}"), exist_ok=True)
+        for i, c in enumerate(classes):
+            os.symlink(os.path.join(fixture, jpegs[c]),
+                       os.path.join(root, split, f"class_{c}", f"{i:06d}.jpg"))
+
+
+def cli_launches(at, fa, fm):
+    """The launch counts the train CLI's path can show: the training kernels
+    (rows 7-8), the fused MLP at D = 768 (row 4), the flash forward and
+    backward (rows 1, 12-13)."""
+    return {"attention_train_fwd[bf16]": at.LAUNCHES[at._launch_key("fwd", "f32", 64)],
+            "attention_train_bwd[bf16]": at.LAUNCHES[at._launch_key("bwd", "f32", 64)],
+            "fused_ln_fc1_gelu[bf16, D=768]": fm.WIDTH_LAUNCHES[768],
+            "flash": sum(fa.LAUNCHES.values()) + sum(fa.BWD_LAUNCHES.values())}
+
+
+def train_cli(cli, argv, counters, at, fa, fm):
+    """One ``vipers_torch`` CLI run on the card with the launch counts set to
+    0 just before it and read just after; returns (launches, seconds)."""
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    assert cli(argv) == 0
+    torch.cuda.synchronize()
+    return cli_launches(at, fa, fm), time.perf_counter() - t0
+
+
+def check_checkpoint(path, want_sparsity, init=None):
+    """A written .pth: the sparsity of ``compute_sparsity_global`` on the
+    loaded weights and masks within 1e-4 (points of %) of ``want_sparsity``,
+    the driver's count when the masks were set (training may move a weight
+    that was exactly zero then), and every masked layer's raw
+    ``weight_orig`` where its mask is 0: zero after LRR, which bakes the
+    masks; with ``init`` (SNIP, unbaked: the file keeps the raw slots, as
+    the JAX package's does) the initial weight, which the masked optimizer
+    never moves. Returns that sparsity."""
+    from vipers_torch.core.checkpoint import import_vit_torchvision, load_torch_state_dict
+    from vipers_torch.pruning import compute_sparsity_global
+
+    raw = torch.load(path, map_location="cpu", weights_only=False)["model"]
+    for k, m in raw.items():
+        if k.endswith("_mask"):
+            base = k[:-len("_mask")]
+            kept = m.bool()
+            got = raw[base + "_orig"][~kept]
+            want = torch.zeros_like(got) if init is None else init[base][~kept]
+            assert torch.equal(got, want), (path, base)
+    sd = load_torch_state_dict(path)
+    layers = len({k.split(".")[2] for k in sd if k.startswith("encoder.layers.")})
+    params, masks = import_vit_torchvision(sd, layers)
+    sparsity = compute_sparsity_global(params, masks)
+    assert abs(sparsity - want_sparsity) <= 1e-4, (path, sparsity, want_sparsity)
+    return sparsity
+
+
+def driver_card_vs_cpu(card, root, data):
+    """The f32 driver on the card against the CPU: vit_b_16 cut to its first
+    CUT_BLOCKS blocks at full width, B = CUT_BATCH, 2 steps an epoch, the
+    same seed-0 weights, each device through the driver's own SNIP steps
+    (``run_snip`` is ``snip_saliencies``, ``snip_masks``, ``train_snip``)
+    and one ``run_magnitude`` iteration (2 steps, prune 20% more, bake).
+    SNIP: the card's saliencies within 1e-5 of their scale of the CPU's
+    (phase 11's tolerance; a run with cuBLAS in TF32 is shown to miss it),
+    and where the masks of the two differ, both saliencies within twice the
+    largest saliency difference of their thresholds (derived: the k-th
+    smallest moves by at most that difference). Both devices then train the
+    CARD's masks (a flipped mask would train a weight on one side only):
+    parameters within 1e-4 where both final masks agree, the sparsities
+    equal, and each magnitude mask that differs kept on one side at a |w|
+    within twice the largest parameter difference of the CPU's smallest kept
+    |w| (only a weight that close to the cutoff can change sides)."""
+    from vipers_torch.core import registry
+    from vipers_torch.core.checkpoint import vit_masks_from_state_dict
+    from vipers_torch.core.config import TrainConfig
+    from vipers_torch.models.vit import ViTConfig, _build
+    from vipers_torch.pruning.snip import snip_threshold
+    from vipers_torch.train import driver as tdrv
+    from vipers_torch.train.optim import OptimConfig
+
+    name = f"vit_b_16_cut{CUT_BLOCKS}"
+    registry._ensure_builtins_imported()
+    registry._BUILTIN_MODELS[name] = lambda num_classes=1000, image_size=(224, 224): _build(
+        name, ViTConfig(16, CUT_BLOCKS, 12, 768, 3072, num_classes), image_size)
+    try:
+        params = registry.build_model(name).init(torch.Generator().manual_seed(0))
+        res, sal = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.time()
+            cfg = TrainConfig(model=name, data_path=data, num_classes=1000,
+                              batch_size=CUT_BATCH, workers=8, pruning_method="snip",
+                              target_sparsity=SPARSITY, pruning_rate=0.2, pruning_threshold=55.0,
+                              optim=OptimConfig(lr=0.1, epochs=1), seed=0, print_freq=0,
+                              output_dir=os.path.join(root, f"cut_{dev}"), device=dev)
+            s = tdrv.build_session(cfg, params=params)
+            got = tdrv.snip_saliencies(s)
+            sal[dev] = {p: v.cpu() for p, v in got.items()}
+            if dev == "cuda":
+                with cublas_tf32():
+                    sal["tf32"] = {p: v.cpu() for p, v in tdrv.snip_saliencies(s).items()}
+                s.state.masks = tdrv.snip_masks(s, got)
+                snip = {k: m.cpu() for k, m in s.state.masks.items()}
+            else:
+                s.state.masks = dict(snip)  # the card's masks
+            del got
+            tdrv.train_snip(s)
+            _, rows = tdrv.run_magnitude(s)
+            res[dev] = dict(rows=rows, secs=time.time() - t0,
+                            params={k: p.detach().cpu() for k, p in s.state.params.items()},
+                            masks={k: m.cpu() for k, m in s.state.masks.items()})
+        cpu_sal = sal["cpu"]
+        scale = max(float(v.max()) for v in cpu_sal.values())
+        cthr = float(snip_threshold(cpu_sal, SPARSITY))
+        cpu_masks = {p: v > cthr for p, v in cpu_sal.items()}
+
+        def against_cpu(run, masks):
+            """(max saliency error, masks differing from the CPU's, the
+            farthest of them from either threshold)"""
+            err = max(float((sal[run][p] - v).abs().max()) for p, v in cpu_sal.items())
+            thr = float(snip_threshold(sal[run], SPARSITY))
+            flips, far = 0, 0.0
+            for p, m in masks.items():
+                diff = m != cpu_masks[p]
+                if bool(diff.any()):
+                    flips += int(diff.sum())
+                    far = max(far, float(torch.maximum((sal[run][p][diff] - thr).abs(),
+                                                       (cpu_sal[p][diff] - cthr).abs()).max()))
+            return err, flips, far
+
+        err, snip_flips, far = against_cpu("cuda", vit_masks_from_state_dict(snip))
+        band = 2 * err
+        t_err, t_flips, t_far = against_cpu(
+            "tf32", {p: v > snip_threshold(sal["tf32"], SPARSITY) for p, v in sal["tf32"].items()})
+        print(f"train driver f32 SNIP, vit_b_16 cut to its first {CUT_BLOCKS} of 12 blocks, "
+              f"B={CUT_BATCH}, the card against the CPU: saliencies max_abs_err {err:.3e}, "
+              f"{err / scale:.2e} of their scale {scale:.3e} (tol 1e-5); {snip_flips} masks "
+              f"differ, the farthest {far:.2e} from a threshold ({far / cthr:.2e} of the CPU's "
+              f"{cthr:.6e}; derived bound twice the error, {band:.2e}, {band / cthr:.2e} of it). "
+              f"cuBLAS in TF32 on the card: max_abs_err {t_err:.3e}, {t_err / scale:.2e} of the "
+              f"scale (must miss the 1e-5); {t_flips} masks differ, the farthest {t_far:.2e} "
+              f"({t_far / cthr:.2e} of the threshold) "
+              f"({card})")
+        assert err <= 1e-5 * scale, (err, scale)
+        assert far <= band, (far, band)
+        assert t_err > 1e-5 * scale, (t_err, scale)
+        gpu, cpu = res["cuda"], res["cpu"]
+        assert len(gpu["rows"]) == len(cpu["rows"]) == 1
+        assert gpu["rows"][0][1] == cpu["rows"][0][1], (gpu["rows"], cpu["rows"])
+        err, agree = 0.0, {}
+        for k, p in cpu["params"].items():
+            agree[k] = cpu["masks"][k] == gpu["masks"][k] if k in cpu["masks"] else \
+                torch.ones_like(p, dtype=torch.bool)
+            err = max(err, float((gpu["params"][k] - p).abs()[agree[k]].max()))
+        cutoff = min(float(cpu["params"][k][m].abs().min()) for k, m in cpu["masks"].items())
+        mag_flips = 0
+        for k, m in cpu["masks"].items():
+            diff = ~agree[k]
+            mag_flips += int(diff.sum())
+            kept = torch.where(m, cpu["params"][k], gpu["params"][k])[diff].abs()
+            assert bool(((kept - cutoff).abs() <= 2 * err + 1e-7).all()), k
+        n = sum(m.numel() for m in cpu["masks"].values())
+        print(f"train driver f32 card vs CPU, the same cut: from the card's SNIP masks "
+              f"(train_snip, 2 steps), then one run_magnitude iteration (2 steps, "
+              f"{cpu['rows'][0][1]:.4f}% -> 60%): params max_abs_err {err:.3e} (atol 1e-4) "
+              f"where the masks agree, magnitude masks differing {mag_flips} of {n}, each kept "
+              f"at |w| within {2 * err + 1e-7:.1e} of the cutoff {cutoff:.6f}; the card's "
+              f"{gpu['secs']:.1f} s, the CPU's {cpu['secs']:.1f} s ({card})")
+        assert err <= 1e-4, err
+    finally:
+        del registry._BUILTIN_MODELS[name]
+
+
+def train_cli_phase(card, counters):
+    """Phase 12: ``vipers_torch train`` and ``evaluate`` on ViT-B/16 (12
+    blocks, D 768, 12 heads of 64, mlp 3072, 1000 classes, the CLI's seed-42
+    weights)
+    at 224x224 with ``--amp --batch-size 128 --workers 8`` on an ImageFolder
+    of N_TRAIN_IMAGES train and N_VAL_IMAGES val symlinks to the 8 fixture
+    JPEGs: SNIP to 50% for one epoch; LRR (rate 0.2, threshold 36) for two
+    iterations of one epoch; ``evaluate`` over the LRR checkpoints;
+    ``lost`` from the iteration-01 checkpoint on N_LOST_IMAGES of phase 6's
+    JPEGs. Checks the first train and val batches against the CPU loader's,
+    the launches (12 training forward and backward a step, 12 fused MLP an
+    eval batch, no flash), finite bf16 losses, the pruned slots of every
+    checkpoint (``check_checkpoint``), performance.txt's sparsities, evaluate's acc1 against the
+    training run's, preds.pkl; then the f32 driver card vs CPU on a cut
+    (``driver_card_vs_cpu``). Prints train e2e img/s (first decode to last
+    checkpoint), step img/s (best of 3 windows of 6 steps), decode-only
+    img/s on the RRC path (8 threads, 1), evaluate img/s. Returns the
+    launches of its CLI runs by kernel row."""
+    import dataclasses
+    import json
+    import pickle
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import export_vit_torchvision
+    from vipers_torch.core.config import TrainConfig
+    from vipers_torch.core.metrics import MetricsWriter
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data import native
+    from vipers_torch.data.imagefolder import ImageFolder, ImageFolderLoader
+    from vipers_torch.discovery import driver as ldrv
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.train import driver as tdrv
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="vipers_torch_train_cli_")
+    try:
+        data = os.path.join(root, "imagenet")
+        imagefolder_tree(data, N_TRAIN_IMAGES, N_VAL_IMAGES, seed=4)
+        b = BATCH
+        common = ["--model", "vit_b_16", "--num-classes", "1000", "--amp", "--batch-size",
+                  str(b), "--workers", "8", "--data-path", data, "--epochs", "1",
+                  "--print-freq", "4"]
+        cfg = TrainConfig(model="vit_b_16", data_path=data, batch_size=b, workers=8,
+                          amp=True, device="cpu")
+        steps = N_TRAIN_IMAGES // b
+        evals = -(-N_VAL_IMAGES // b)
+        layers = build_model("vit_b_16").cfg.num_layers
+
+        # decode only, the train preset (RandomResizedCrop + flip), numpy batches
+        ds = ImageFolder(os.path.join(data, "train"))
+        for workers, n in ((8, N_TRAIN_IMAGES), (1, 2 * b)):
+            loader = tdrv.train_loader(dataclasses.replace(cfg, workers=workers), ds, 0)
+            loader = ImageFolderLoader(ds, loader.indices[:n], b, loader.decode_fn,
+                                       num_workers=workers, drop_last=True, seed=loader.seed)
+            t0 = time.perf_counter()
+            got = sum(len(lab) for _, lab in loader)
+            secs = time.perf_counter() - t0
+            print(f"train CLI decode only (the PIL train preset, RandomResizedCrop 224 + flip; "
+                  f"libjpeg {'built' if native.available() else 'absent'}, used only with "
+                  f"--native-decode): {got} images in {secs:.3f} s, {got / secs:.1f} img/s on "
+                  f"{workers} thread(s); os.cpu_count() {os.cpu_count()} ({card})")
+
+        total = {}
+
+        def add(launches):
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+
+        # 1. SNIP, one epoch
+        snip_out = os.path.join(root, "snip")
+        got, secs = train_cli(cli, ["train", *common, "--pruning-method", "snip",
+                                    "--target-sparsity", str(SPARSITY), "--output-dir", snip_out],
+                              counters, at, fa, fm)
+        run = dict(tdrv.LAST_RUN)
+        want = {"attention_train_fwd[bf16]": layers * steps,
+                "attention_train_bwd[bf16]": layers * steps,
+                "fused_ln_fc1_gelu[bf16, D=768]": layers * evals, "flash": 0}
+        print(f"train CLI [snip] vit_b_16 bf16 B={b}: {steps} steps, {evals} eval batches, "
+              f"launches {got}")
+        assert got == want, (got, want)
+        add(got)
+        # the first batches the card's run decoded against the CPU loader's
+        for kind, loader in (("train", tdrv.train_loader(cfg, ds, 0)),
+                             ("val", tdrv.val_loader(cfg, ImageFolder(os.path.join(data, "val"))))):
+            want_i, want_l = next(iter(loader))
+            got_i, got_l = run[f"first_{kind}_batch"]
+            assert got_i.dtype == np.uint8 and np.array_equal(got_i, want_i), kind
+            assert np.array_equal(got_l, want_l), kind
+        e2e = steps * b / (run["t_last_checkpoint"] - run["t_first_decode"])
+        with open(os.path.join(snip_out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        loss = [r["loss"] for r in recs if r["tag"] == "train"]
+        assert len(loss) == 1 and np.isfinite(loss[0]), recs
+        snip_sp = [r["sparsity"] for r in recs if r["tag"] == "prune"][0]
+        init = export_vit_torchvision(build_model("vit_b_16").init(
+            torch.Generator().manual_seed(cfg.seed)))
+        init = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in init.items()}
+        for stem in ("epoch_0", "checkpoint"):
+            check_checkpoint(os.path.join(snip_out, f"vit_b_16_{stem}_snip_{SPARSITY}.pth"),
+                             snip_sp, init=init)
+        del init
+        print(f"train CLI [snip] e2e {e2e:.1f} img/s ({steps * b} images, first decode to the "
+              f"last checkpoint {run['t_last_checkpoint'] - run['t_first_decode']:.3f} s; "
+              f"{secs:.3f} s with the model's set-up); sparsity {snip_sp:.4f}%, train loss "
+              f"{loss[0]:.4f}; first train and val batches equal to the CPU loader's ({card})")
+        shutil.rmtree(snip_out)
+
+        # 2. LRR: two iterations of one epoch
+        lrr_out = os.path.join(root, "lrr")
+        got, secs = train_cli(cli, ["train", *common, "--pruning-method", "magnitude",
+                                    "--pruning-rate", "0.2", "--pruning-threshold", "36",
+                                    "--output-dir", lrr_out], counters, at, fa, fm)
+        run = dict(tdrv.LAST_RUN)
+        want = {k: 2 * v for k, v in want.items()}
+        print(f"train CLI [magnitude] 2 iterations: launches {got}")
+        assert got == want, (got, want)
+        add(got)
+        rows = MetricsWriter.read_performance_txt(os.path.join(lrr_out, "performance.txt"))
+        assert len(rows) == 2, rows
+        for it, (_, sp) in enumerate(rows):
+            for stem in ("epoch_0", "checkpoint"):
+                check_checkpoint(os.path.join(lrr_out, f"vit_b_16_{stem}_pruning_iteration_"
+                                                       f"{it:02d}.pth"), sp)
+        e2e_lrr = 2 * steps * b / (run["t_last_checkpoint"] - run["t_first_decode"])
+        print(f"train CLI [magnitude] e2e {e2e_lrr:.1f} img/s ({2 * steps * b} images, "
+              f"{run['t_last_checkpoint'] - run['t_first_decode']:.3f} s; {secs:.3f} s with the "
+              f"set-up); performance.txt {rows} ({card})")
+
+        # 3. evaluate over the LRR checkpoints
+        ev_out = os.path.join(root, "eval")
+        got, secs = train_cli(cli, ["evaluate", *common, "--models-path", lrr_out,
+                                    "--output-dir", ev_out], counters, at, fa, fm)
+        want = {"attention_train_fwd[bf16]": 0, "attention_train_bwd[bf16]": 0,
+                "fused_ln_fc1_gelu[bf16, D=768]": 2 * layers * evals, "flash": 0}
+        assert got == want, (got, want)
+        add(got)
+        ev_rows = MetricsWriter.read_performance_txt(os.path.join(ev_out, "performance.txt"))
+        assert [a for a, _ in ev_rows] == [a for a, _ in rows], (ev_rows, rows)
+        assert all(abs(e - t) <= 1e-4 for (_, e), (_, t) in zip(ev_rows, rows)), (ev_rows, rows)
+        print(f"evaluate --amp over 2 checkpoints: launches {got}; acc1 and sparsity {ev_rows} "
+              f"(the training run's epoch-end acc1 equal, sparsity within 1e-4); {2 * N_VAL_IMAGES / secs:.1f} img/s "
+              f"({2 * N_VAL_IMAGES} images in {secs:.3f} s with the model's set-up and 2 "
+              f"checkpoint loads) ({card})")
+
+        # 4. lost from the trained checkpoint
+        voc = os.path.join(root, "VOC2007")
+        items = voc_tree(voc, N_LOST_IMAGES, seed=3)
+        lost_out = os.path.join(root, "lost")
+        reset_counts(*counters)
+        cli(["lost", "--model", "vit_b_16", "--patch-size", "16", "--dtype", "bf16",
+             "--dataset", "VOC07", "--set", "trainval", "--data-path", voc, "--checkpoint",
+             os.path.join(lrr_out, "vit_b_16_epoch_0_pruning_iteration_01.pth"),
+             "--batch-size", str(b), "--workers", "8", "--output-dir", lost_out])
+        torch.cuda.synchronize()
+        lrun = dict(ldrv.LAST_RUN)
+        with open(os.path.join(lost_out, "preds.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        assert len(preds) == N_LOST_IMAGES - len(lrun["failed"]) > 0, (len(preds), lrun)
+        print(f"lost --checkpoint vit_b_16_epoch_0_pruning_iteration_01.pth: {len(preds)} "
+              f"boxes in preds.pkl, {len(lrun['failed'])} seeds in the background, "
+              f"{lrun['images'] / lrun['decode_to_preds_seconds']:.1f} img/s e2e ({card})")
+        shutil.rmtree(lrr_out)
+
+        # step img/s: the CLI's session and batch, best of 3 windows of 6 steps
+        s = tdrv.build_session(dataclasses.replace(cfg, device="cuda",
+                                                   output_dir=os.path.join(root, "step")))
+        images, labels = next(iter(tdrv._train_loader(s, 0)))
+        x = s.normalize(images)
+        reset_counts(*counters)
+        s.train_step(s.state, (x, labels))
+        torch.cuda.synchronize()
+        one = cli_launches(at, fa, fm)
+        assert one == {"attention_train_fwd[bf16]": layers, "attention_train_bwd[bf16]": layers,
+                       "fused_ln_fc1_gelu[bf16, D=768]": 0, "flash": 0}, one
+        best = 0.0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(6):
+                s.train_step(s.state, (x, labels))
+            torch.cuda.synchronize()
+            best = max(best, b * 6 / (time.perf_counter() - t1))
+        print(f"train CLI session step vit_b_16 224x224 bf16 {best:.1f} img/s at B={b} "
+              f"({one['attention_train_fwd[bf16]']} + {one['attention_train_bwd[bf16]']} "
+              f"training attention launches a step; {card})")
+        del s, x
+        torch.cuda.empty_cache()
+
+        # the f32 driver, card vs CPU, on a cut
+        cut = os.path.join(root, "cut")
+        imagefolder_tree(cut, 2 * CUT_BATCH, CUT_BATCH, seed=5)
+        driver_card_vs_cpu(card, root, cut)
+        print(f"phase 12 train CLI launches: {total}; {time.time() - t_phase:.1f} s")
+        return total
+    finally:
+        shutil.rmtree(root)
 
 
 def main():
@@ -2028,6 +2441,9 @@ def main():
     # backward, SNIP
     launches.update(vit_h_phase(card, counters))
     lap(11)
+    # 12. prune -> train -> evaluate -> LOST through the CLI, ViT-B/16
+    train_cli_runs = train_cli_phase(card, counters)
+    lap(12)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove
@@ -2038,6 +2454,9 @@ def main():
                    "fused_ln_fc1_gelu[bf16]": ("bf16", "fused_mlp")}.get(k["name"])
             if cli:
                 k["cli_launches"] = jpeg[cli[0]][cli[1]]
+    for k in kernels:  # phase 12's train, evaluate runs, on the rows they drove
+        if k["name"] in train_cli_runs:
+            k["train_cli_launches"] = train_cli_runs[k["name"]]
     if family_cli_run:  # vit_b_16's CLI run, on the D = 768 row it drove
         for k in kernels:
             if k["name"] == "fused_ln_fc1_gelu[bf16, D=768]":

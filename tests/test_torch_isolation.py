@@ -114,3 +114,36 @@ def test_family_cli_default_device_raises_without_a_card(model, patch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["lost", "--model", model, "--patch-size", patch, "--data-path", data,
               "--output-dir", "unused"])
+
+
+# the modules the train and evaluate entry points brought in
+TRAIN_SLICE = ("vipers_torch/core/config.py", "vipers_torch/core/metrics.py",
+               "vipers_torch/core/checkpoint.py", "vipers_torch/data/sampler.py",
+               "vipers_torch/data/imagefolder.py", "vipers_torch/data/preprocess.py",
+               "vipers_torch/data/autoaugment.py", "vipers_torch/data/native.py",
+               "vipers_torch/data/mixup.py", "vipers_torch/train/loop.py",
+               "vipers_torch/train/optim.py", "vipers_torch/train/driver.py",
+               "vipers_torch/train/evaluate_models.py", "vipers_torch/cli/main.py")
+
+
+@pytest.mark.parametrize("rel", TRAIN_SLICE)
+def test_train_slice_files_import_no_jax(rel):
+    path = REPO / rel
+    assert path in _port_files()
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, (rel, bad)
+
+
+@pytest.mark.parametrize("cmd", ["train", "evaluate"])
+def test_train_cli_default_device_raises_without_a_card(cmd, tmp_path):
+    """``vipers_torch train|evaluate --model vit_b_16`` without ``--device``
+    runs on the card or raises before it reads data or writes a file."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from vipers_torch.cli.main import main
+
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([cmd, "--model", "vit_b_16", "--data-path", str(tmp_path / "none"),
+              "--output-dir", str(out)])
+    assert not out.exists()

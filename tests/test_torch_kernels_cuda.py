@@ -790,3 +790,50 @@ def test_splash_instances_match_plain(cuda, block_q, block_kv, layout):
     torch.cuda.synchronize()
     assert tsa.LAUNCHES[name] == n0 + 1
     _close_to_scale(out, tsa.splash_attention_plain(q, k, v))
+
+
+def test_train_cli_launches_the_training_kernels(cuda, tmp_path):
+    """``vipers_torch train --amp`` on the card (the default device) for one
+    epoch of 2 steps at a tiny size (patch 8, 2 blocks, D 128, 2 heads of
+    64, 32x32 crops: T = 17 seq-padded to 128): the training attention's
+    forward and backward kernels once a block a step, finite losses, and
+    the .pth written."""
+    import json
+
+    from PIL import Image
+
+    import vipers_torch.core.registry as treg
+    import vipers_torch.models.vit as tvit
+    from vipers_torch.cli.main import main
+    from vipers_torch.ops import attention_train as tat
+    from vipers_torch.train import driver
+
+    name = "vit_tiny_cuda_cli_test"
+    treg._ensure_builtins_imported()
+    treg._BUILTIN_MODELS[name] = lambda num_classes=1000, image_size=(224, 224): \
+        tvit._build(name, tvit.ViTConfig(8, 2, 2, 128, 256, num_classes), image_size)
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 4), ("val", 2)):
+        for cls in ("a", "b"):
+            d = tmp_path / "data" / split / cls
+            d.mkdir(parents=True)
+            for i in range(n):
+                Image.fromarray(rng.integers(0, 255, (40, 40, 3), dtype=np.uint8)).save(
+                    d / f"{i}.jpg")
+    before = {k: tat.LAUNCHES[tat._launch_key(k, "f32", 64)] for k in ("fwd", "bwd")}
+    try:
+        assert main(["train", "--model", name, "--data-path", str(tmp_path / "data"),
+                     "--num-classes", "2", "--batch-size", "4", "--epochs", "1",
+                     "--train-crop-size", "32", "--val-resize-size", "40",
+                     "--val-crop-size", "32", "--amp", "--workers", "2", "--print-freq", "1",
+                     "--output-dir", str(tmp_path / "out")]) == 0
+    finally:
+        del treg._BUILTIN_MODELS[name]
+    torch.cuda.synchronize()
+    got = {k: tat.LAUNCHES[tat._launch_key(k, "f32", 64)] - before[k] for k in ("fwd", "bwd")}
+    assert got == {"fwd": 4, "bwd": 4}, got  # 2 blocks x 2 steps
+    assert driver.LAST_RUN["train_images"] == 8 + 4  # SNIP's batch, then 2 steps
+    assert (tmp_path / "out" / f"{name}_epoch_0_snip_0.9.pth").exists()
+    with open(tmp_path / "out" / "metrics.jsonl") as f:
+        train = [r for r in map(json.loads, f) if r["tag"] == "train"]
+    assert len(train) == 1 and np.isfinite(train[0]["loss"])

@@ -364,8 +364,10 @@ def test_device_normalize_matches_jax():
     want16 = np.asarray(j_normalize(dtype=jnp.bfloat16)(jnp.asarray(u8)).astype(jnp.float32))
     got16 = t_normalize(dtype=torch.bfloat16)(torch.from_numpy(u8)).float().numpy()
     np.testing.assert_allclose(got16, want16, atol=0, rtol=2 ** -7)
-    with pytest.raises(NotImplementedError):
-        t_normalize(random_erase_prob=0.25)
+    # RandomErasing erases only in training, where the loop passes a
+    # generator (held against the JAX package in test_torch_train_data.py)
+    erase = t_normalize(random_erase_prob=0.25)
+    assert torch.equal(erase(torch.from_numpy(u8)), t_normalize()(torch.from_numpy(u8)))
 
 
 def test_ema_decay_adjustment_matches_jax():

@@ -1,14 +1,20 @@
-"""The port's command line (the ``lost`` and ``corloc`` subcommands of
-``vipers/cli/main.py``, with the same flags and defaults)::
+"""The port's command line (the ``train``, ``evaluate``, ``lost`` and
+``corloc`` subcommands of ``vipers/cli/main.py``, with the same flags and
+defaults, plus ``--device``)::
 
+    python -m vipers_torch.cli.main train --model vit_b_16 --data-path imagenet \
+        --pruning-method magnitude --pruning-rate 0.2 --amp --output-dir out
+    python -m vipers_torch.cli.main evaluate --model vit_b_16 --data-path imagenet \
+        --models-path out --output-dir eval
     python -m vipers_torch.cli.main lost --model vit_s_16 --arch vit \
         --dataset VOC07 --data-path VOC2007 --checkpoint model.pth --dtype bf16
     python -m vipers_torch.cli.main corloc --preds outputs/preds.pkl \
         --dataset VOC07 --data-path VOC2007
 
-``lost`` runs on the card unless given ``--device cpu``; there is no silent
-fallback. Flags that select what the port does not have yet exit with a
-message naming the ROADMAP item that ports it.
+``train``, ``evaluate`` and ``lost`` run on the card unless given
+``--device cpu``; there is no silent fallback. Flags that select what the
+port does not have yet exit with a message naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -26,6 +32,18 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("vipers_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    from vipers_torch.core.config import add_train_args
+
+    add_train_args(sub.add_parser("train", help="prune + fine-tune a classifier"))
+    ev = sub.add_parser("evaluate", help="sweep checkpoints, eval top-1/5")
+    add_train_args(ev)
+    ev.add_argument("--models-path", default="",
+                    help="dir holding the checkpoint sweep to glob; defaults to --output-dir")
+    ev.add_argument("--dataset", default="VOC07", choices=["VOC07", "VOC12"],
+                    help="detection dataset for --eval-dataset voc")
+    ev.add_argument("--set", default="trainval", dest="voc_set",
+                    help="detection split for --eval-dataset voc")
 
     lost = sub.add_parser("lost", help="LOST object discovery + CorLoc")
     lost.add_argument("--model", default="vit_s_16")
@@ -136,6 +154,21 @@ def _refuse_unported(args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd == "train":
+        from vipers_torch.core.config import config_from_args
+        from vipers_torch.train.driver import run
+
+        run(config_from_args(args))
+        return 0
+    if args.cmd == "evaluate":
+        from vipers_torch.core.config import config_from_args
+        from vipers_torch.train.evaluate_models import run_sweep
+
+        rows = run_sweep(config_from_args(args), models_path=args.models_path,
+                         voc_dataset=args.dataset, voc_set=args.voc_set)
+        for acc1, sparsity in rows:
+            print(f"acc1 {acc1:.3f}\tsparsity {sparsity:.2f}")
+        return 0
     if args.cmd == "lost":
         _refuse_unported(args)
         from vipers_torch.discovery.driver import run_lost

@@ -17,6 +17,13 @@ that ``vit_state_dict_from_flax`` takes; ``export_vit_torchvision`` writes
 the torchvision keys back, masks baked or in the ``weight_orig`` /
 ``weight_mask`` form of ``torch.nn.utils.prune``.
 
+The train driver's own checkpoint (``save_train_checkpoint`` /
+``load_train_checkpoint``) is a ``torch.save`` of ``{"model": <torchvision
+keys, pruned layers as weight_orig / weight_mask>, "optimizer", "epoch",
+"step", "sparsity"[, "model_ema"]}``: ``load_torch_state_dict`` (and so
+``vipers_torch lost`` and ``evaluate``) reads its ``model`` as a reference
+``.pth``; resuming reads the unbaked weights and the optimizer back.
+
 The reverse direction serves training and its tests:
 ``flax_tree_from_vit_state_dict`` turns the module's parameters back into a
 flax tree (the layout magnitude pruning ranks in), and
@@ -26,6 +33,7 @@ between flax paths and state-dict keys with their layouts.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, List, Optional, Tuple
 
@@ -294,3 +302,62 @@ def export_vit_torchvision(params, masks=None, bake_masks: bool = True
 def save_torch_state_dict(sd: Dict[str, np.ndarray], path) -> None:
     """``torch.save`` a {key: numpy array} state dict as contiguous tensors."""
     torch.save({k: torch.tensor(np.asarray(v)) for k, v in sd.items()}, path)
+
+
+# ------------------------ the train driver's .pth --------------------------
+
+def save_train_checkpoint(path, state, epoch: int, sparsity: float) -> None:
+    """``torch.save`` a ``train.steps.TrainState`` to ``path`` (written to
+    a temporary file, then renamed): the weights unbaked, every masked
+    layer as ``weight_orig`` / ``weight_mask``, the optimizer, the epoch,
+    the step count, the sparsity and the EMA weights if any."""
+    def torchvision(named, masks=None):
+        sd = export_vit_torchvision(flax_tree_from_vit_state_dict(named), masks,
+                                    bake_masks=False)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+    obj = {"model": torchvision(state.params, vit_masks_from_state_dict(state.masks)),
+           "optimizer": state.opt.state_dict(), "epoch": int(epoch), "step": int(state.step),
+           "sparsity": float(sparsity)}
+    if state.ema_params is not None:
+        obj["model_ema"] = torchvision(state.ema_params)
+    tmp = f"{path}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _unbaked(sd) -> Dict[str, np.ndarray]:
+    """A state dict with each ``<key>_orig`` / ``<key>_mask`` pair as the
+    raw ``<key>`` (NOT multiplied by its mask) and a bool
+    ``<key>.__mask__``."""
+    out = {}
+    for k, v in sd.items():
+        v = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+        if k.endswith("_orig"):
+            out[k[:-len("_orig")]] = v
+        elif k.endswith("_mask"):
+            out[k[:-len("_mask")] + ".__mask__"] = v.astype(bool)
+        else:
+            out[k] = v
+    return out
+
+
+def load_train_checkpoint(path, num_layers: int) -> dict:
+    """What ``save_train_checkpoint`` wrote: ``params`` (flax-layout tree,
+    unbaked), ``masks`` ({flax path: bool array}), ``optimizer``,
+    ``epoch``, ``step``, ``sparsity`` and ``ema_params`` (a flax tree or
+    None). A reference ``.pth`` (``{"model": ...}`` or a bare state dict,
+    DDP's ``module.`` stripped) gives its weights and masks, the rest at
+    their defaults."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if "model" not in obj:  # a bare state dict
+        obj = {"model": obj}
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in obj["model"].items()}
+    params, masks = import_vit_torchvision(_unbaked(sd), num_layers)
+    ema = obj.get("model_ema")
+    return {"params": params, "masks": masks, "optimizer": obj.get("optimizer"),
+            "epoch": int(obj.get("epoch", -1)), "step": int(obj.get("step", 0)),
+            "sparsity": float(obj.get("sparsity", 0.0)),
+            "ema_params": (import_vit_torchvision(_unbaked(ema), num_layers)[0]
+                           if ema is not None else None)}

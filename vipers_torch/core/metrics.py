@@ -1,11 +1,15 @@
-"""Smoothed console meters (the port's own copy of ``SmoothedScalar`` and
-``MeterSet`` from ``vipers/core/metrics.py``): a windowed and global
-average per scalar, and periodic progress lines with an ETA."""
+"""Console meters and the metrics stream (the port's own copy of
+``vipers/core/metrics.py``): ``SmoothedScalar`` and ``MeterSet`` keep a
+windowed and a global average per scalar and print progress lines with an
+ETA; ``MetricsWriter`` appends one JSON record an event to
+``metrics.jsonl`` and writes and reads ``performance.txt``."""
 
 from __future__ import annotations
 
 import collections
+import json
 import math
+import os
 import time
 from typing import Dict, Optional
 
@@ -116,3 +120,47 @@ class MeterSet:
             end = time.time()
         elapsed = time.time() - start
         print(f"{header} Total time: {elapsed:.1f}s")
+
+
+class MetricsWriter:
+    """Append-only JSONL stream, one record an event: ``{"ts": float,
+    "tag": str, "step": int | None, **scalars}``. ``export_performance_txt``
+    writes the reference's ``performance.txt`` (a header line, then one
+    ``acc1\tsparsity`` row per pruning iteration). The JAX package's wandb
+    and echo options are not ported: no flag reaches them."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._fh = open(path, "a", buffering=1)
+
+    def write(self, tag: str, step: Optional[int] = None, **scalars):
+        rec = {"ts": time.time(), "tag": tag, "step": step}
+        for k, v in scalars.items():
+            try:
+                rec[k] = float(v)
+            except (TypeError, ValueError):
+                rec[k] = v
+        self._fh.write(json.dumps(rec) + "\n")
+        return rec
+
+    @staticmethod
+    def export_performance_txt(path: str, rows):
+        """``rows``: (acc1, sparsity) per pruning iteration."""
+        with open(path, "w") as f:
+            f.write("acc1\tsparsity\n")
+            for acc1, sparsity in rows:
+                f.write(f"{acc1}\t{sparsity}\n")
+
+    @staticmethod
+    def read_performance_txt(path: str):
+        """The rows of a ``performance.txt``: the header skipped, tab- (or
+        comma-) separated (acc1, sparsity)."""
+        rows = []
+        with open(path) as f:
+            lines = f.read().strip().splitlines()
+        for line in lines[1:]:
+            parts = line.replace(",", "\t").split("\t")
+            if len(parts) >= 2:
+                rows.append((float(parts[0]), float(parts[1])))
+        return rows

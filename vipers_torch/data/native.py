@@ -1,8 +1,9 @@
-"""JPEG decode for the LOST driver (port of the parts of
-``vipers/data/native.py`` the LOST path uses).
+"""JPEG decode for the LOST driver and the train driver's
+``--native-decode`` path (port of ``vipers/data/native.py``).
 
 ``vipers_torch/csrc/decode.cc`` is compiled on first use with ``g++ -O3
--ljpeg`` into ``build/vipers_torch/libvipers_decode-<digest>.so`` at the
+-march=native -ljpeg`` (the JAX package's flags, so the bilinear passes
+round alike) into ``build/vipers_torch/libvipers_decode-<digest>.so`` at the
 repository root (``<digest>`` hashes the source and the flags, so an edited
 source is rebuilt) and bound with ctypes, which releases the GIL inside the
 call: a thread pool decodes on every core. A file that is not a JPEG, a
@@ -26,7 +27,7 @@ from vipers_torch.ops._build import BUILD_DIR
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "decode.cc")
-_FLAGS = ["-O3", "-shared", "-fPIC"]
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -68,7 +69,11 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.vipers_jpeg_dims.argtypes = [_U8P, ctypes.c_size_t, i32p, i32p]
         lib.vipers_decode_pad.argtypes = [_U8P, ctypes.c_size_t, _U8P, ctypes.c_int,
                                           ctypes.c_int, i32p, i32p]
-        for fn in (lib.vipers_jpeg_dims, lib.vipers_decode_pad):
+        lib.vipers_decode_eval.argtypes = [_U8P, ctypes.c_size_t, ctypes.c_int,
+                                           ctypes.c_int, _U8P]
+        lib.vipers_decode_rrc.argtypes = [_U8P, ctypes.c_size_t] + [ctypes.c_int] * 6 + [_U8P]
+        for fn in (lib.vipers_jpeg_dims, lib.vipers_decode_pad, lib.vipers_decode_eval,
+                   lib.vipers_decode_rrc):
             fn.restype = ctypes.c_int
         _LIB = lib
         return _LIB
@@ -162,3 +167,58 @@ def decode_pad(path: str, pad_multiple: int = 16):
     out = np.zeros((ph, pw, 3), np.uint8)
     out[:h, :w] = img
     return out, (h, w)
+
+
+def _is_jpeg(path: str) -> bool:
+    return path.lower().endswith((".jpg", ".jpeg"))
+
+
+def decode_eval(path: str, resize: int = 256, crop: int = 224) -> np.ndarray:
+    """The eval preset in C++: decode -> shorter side to ``resize``
+    (bilinear, libjpeg's DCT scaling first) -> center crop, uint8 HWC. A
+    non-JPEG, a JPEG libjpeg rejects or a host without the library goes
+    through the PIL preset (``preprocess.eval_decode``)."""
+    from vipers_torch.data.preprocess import eval_decode
+
+    lib = _load()
+    if lib is None or not _is_jpeg(path):
+        return eval_decode(path, resize, crop)
+    data = np.fromfile(path, dtype=np.uint8)
+    out = np.empty((crop, crop, 3), np.uint8)
+    if lib.vipers_decode_eval(data.ctypes.data_as(_U8P), data.size, resize, crop,
+                              out.ctypes.data_as(_U8P)) != 0:
+        return eval_decode(path, resize, crop)
+    return out
+
+
+def decode_train(path: str, rng: np.random.Generator, crop_size: int = 224,
+                 hflip_prob: float = 0.5, auto_augment: str = "", scale=(0.08, 1.0),
+                 ratio=(3 / 4, 4 / 3), ra_magnitude: int = 9,
+                 augmix_severity: int = 3) -> np.ndarray:
+    """RandomResizedCrop + flip in C++: the box drawn here from ``rng``
+    (``preprocess.rrc_box``, the PIL preset's draws), the pixels cropped and
+    resized bilinearly by the library, then the ``auto_augment`` policy.
+    Without the library, or for a non-JPEG, the PIL preset
+    (``preprocess.train_decode``)."""
+    from vipers_torch.data.preprocess import rrc_box, train_decode
+
+    lib = _load()
+    if lib is None or not _is_jpeg(path):
+        return train_decode(path, rng, crop_size, hflip_prob, auto_augment, ra_magnitude,
+                            augmix_severity)
+    w, h = jpeg_dims(path)
+    box = rrc_box(w, h, rng, scale, ratio)
+    flip = 1 if (hflip_prob > 0 and rng.random() < hflip_prob) else 0
+    data = np.fromfile(path, dtype=np.uint8)
+    out = np.empty((crop_size, crop_size, 3), np.uint8)
+    if lib.vipers_decode_rrc(data.ctypes.data_as(_U8P), data.size, *box, crop_size, flip,
+                             out.ctypes.data_as(_U8P)) != 0:
+        # as in the JAX package, the PIL preset draws again from where rng is
+        return train_decode(path, rng, crop_size, hflip_prob, auto_augment, ra_magnitude,
+                            augmix_severity)
+    if auto_augment:
+        from vipers_torch.data.autoaugment import apply_policy
+
+        out = apply_policy(auto_augment, out, rng, ra_magnitude=ra_magnitude,
+                           augmix_severity=augmix_severity)
+    return out

@@ -307,17 +307,18 @@ def _templated_checkpoint(models_dir: str, model: str, arch: str, iteration: int
 
 
 def load_lost_checkpoint(path: str, spec):
-    """(flax-layout params, masks) of a reference ``.pth``/``.pt`` ViT
-    checkpoint; a pruned one carries its masks as ``weight_orig`` /
+    """(flax-layout params, masks) of a ``.pth``/``.pt`` ViT checkpoint: a
+    reference one, or one ``vipers_torch train`` wrote (its ``model``
+    entry); a pruned one carries its masks as ``weight_orig`` /
     ``weight_mask`` pairs. A checkpoint directory (the JAX package's orbax
     format) raises: the port does not read orbax, so convert it first with
     the JAX package's ``vipers.core.checkpoint.export_vit_torchvision``."""
     if os.path.isdir(path) or not str(path).endswith((".pth", ".pt")):
         raise ValueError(
-            f"{path}: vipers_torch reads PyTorch .pth/.pt checkpoints only; an orbax "
-            "checkpoint directory of the JAX package must be converted first with "
-            "vipers.core.checkpoint.export_vit_torchvision and torch.save (the port's "
-            "own checkpoint format is ROADMAP A7)")
+            f"{path}: vipers_torch reads PyTorch .pth/.pt checkpoints only: a reference "
+            "checkpoint, or the .pth `vipers_torch train` writes. An orbax checkpoint "
+            "directory of the JAX package must be converted first with "
+            "vipers.core.checkpoint.export_vit_torchvision and torch.save")
     return import_vit_torchvision(load_torch_state_dict(path), spec.cfg.num_layers)
 
 

@@ -16,6 +16,14 @@ scheme). Needs a card:
     python -m vipers_torch.tools.profile_train [--batch 128] [--steps 3] [--image-size 224]
         [--model vit_h_14 --batch 32]
 
+With ``--data-path`` (an ImageFolder root with ``train/``) it profiles one
+epoch of ``vipers_torch train --amp`` instead: the driver's session and
+loader (host decode on ``--workers`` threads, uploads, normalize, steps),
+and prints the epoch's img/s, the device's busy share of it and the
+kernel table, beside the loader alone (decode-only img/s):
+
+    python -m vipers_torch.tools.profile_train --model vit_b_16 --data-path imagenet
+
 Writes the full kernel table and a Chrome trace under ``--out``
 (default ``build/profile_train/``), and prints the rows of the port's own
 kernels (the ``__global__`` functions of ``vipers_torch/csrc``, such as the
@@ -52,6 +60,65 @@ def port_kernel_pattern() -> re.Pattern:
     return re.compile(r"\b(?:%s)[(<]" % "|".join(sorted(port_kernels())))
 
 
+def _report(prof, wall_ms, n, unit, out_stem):
+    """Device busy share of the window and the kernel table (per ``unit``,
+    ``n`` of them); writes the table and the Chrome trace to ``out_stem``."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = _intervals_union([(e.time_range.start, e.time_range.end) for e in events]) / 1e3
+    by_name: dict = {}
+    for e in events:
+        d = by_name.setdefault(e.name, [0.0, 0])
+        d[0] += (e.time_range.end - e.time_range.start) / 1e3
+        d[1] += 1
+    total = sum(v[0] for v in by_name.values())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    os.makedirs(os.path.dirname(out_stem), exist_ok=True)
+    with open(out_stem + ".txt", "w") as f:
+        for name, (ms, k) in rows:
+            f.write(f"{ms / n:10.3f} ms/{unit} {100 * ms / total:5.1f}% {k // n:5d}x  {name}\n")
+    prof.export_chrome_trace(out_stem + ".json")
+    return busy_ms, len(events), rows, total
+
+
+def profile_epoch(args):
+    """One epoch of the train CLI's loop (``--amp``) on ``--data-path``,
+    profiled, beside the loader alone."""
+    from vipers_torch.core.config import TrainConfig
+    from vipers_torch.train import driver
+    from vipers_torch.train.loop import train_one_epoch
+
+    hw = args.image_size
+    cfg = TrainConfig(model=args.model, data_path=args.data_path, batch_size=args.batch,
+                      workers=args.workers, amp=True, train_crop_size=hw, val_crop_size=hw,
+                      output_dir=os.path.join(args.out, "session"))
+    s = driver.build_session(cfg)
+    t0 = time.perf_counter()
+    n_img = sum(len(lab) for _, lab in driver.train_loader(cfg, s.train_ds, 0))
+    dec = n_img / (time.perf_counter() - t0)
+    # a warm-up epoch, then the profiled one
+    train_one_epoch(s.train_step, s.state, driver._train_loader(s, 0), 0,
+                    normalize_fn=s.normalize, print_freq=0)
+    torch.cuda.synchronize()
+    loader = driver._train_loader(s, 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_one_epoch(s.train_step, s.state, loader, 1, normalize_fn=s.normalize,
+                        print_freq=0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    steps = len(loader)
+    busy_ms, n_ev, rows, total = _report(prof, wall_ms, steps, "step", os.path.join(
+        args.out, f"profile_train_epoch_{args.model}_{hw}_b{args.batch}"))
+    print(f"{torch.cuda.get_device_name(0)}; train CLI epoch {args.model} bf16 {hw}x{hw} "
+          f"B={args.batch}, {args.workers} decode threads: {steps} steps in {wall_ms:.1f} ms "
+          f"({steps * args.batch * 1e3 / wall_ms:.1f} img/s, profiled), device busy "
+          f"{busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of the epoch, "
+          f"{n_ev / steps:.0f} kernels/step; the loader alone {dec:.1f} img/s")
+    for name, (ms, k) in rows[:12]:
+        print(f"  {ms / steps:9.3f} ms/step {100 * ms / total:5.1f}% {k // steps:5d}x  "
+              f"{name[:110]}")
+
+
 def _to_cuda(tree):
     return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
 
@@ -66,7 +133,12 @@ def main(argv=None):
     ap.add_argument("--model", default="vit_s_16")
     ap.add_argument("--out", default=os.path.join("build", "profile_train"),
                     help="directory for the kernel table and the Chrome trace")
+    ap.add_argument("--data-path", default="",
+                    help="profile one epoch of the train CLI's loop on this ImageFolder")
+    ap.add_argument("--workers", type=int, default=8, help="decode threads (--data-path)")
     args = ap.parse_args(argv)
+    if args.data_path:
+        return profile_epoch(args)
 
     from vipers_torch.core.registry import build_model
     from vipers_torch.data.preprocess import make_device_normalize
@@ -117,28 +189,15 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = _intervals_union([(e.time_range.start, e.time_range.end) for e in events]) / 1e3
-    by_name: dict = {}
-    for e in events:
-        d = by_name.setdefault(e.name, [0.0, 0])
-        d[0] += (e.time_range.end - e.time_range.start) / 1e3
-        d[1] += 1
-    total = sum(v[0] for v in by_name.values())
+    busy_ms, n_ev, rows, total = _report(
+        prof, wall_ms, args.steps, "step",
+        os.path.join(args.out, f"profile_train_bf16_{hw}_b{args.batch}"))
     card = torch.cuda.get_device_name(0)
     print(f"{card}; bf16 train {hw}x{hw} B={args.batch}: {args.steps} steps, wall "
           f"{wall_ms / args.steps:.2f} ms/step (median host enqueue "
           f"{statistics.median(host):.2f} ms), device busy {busy_ms / args.steps:.2f} ms/step "
           f"= {100 * busy_ms / wall_ms:.1f}% of the window, "
-          f"{len(events) / args.steps:.0f} kernels/step, loss {float(m['loss']):.4f}")
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    os.makedirs(args.out, exist_ok=True)
-    stem = os.path.join(args.out, f"profile_train_bf16_{hw}_b{args.batch}")
-    with open(stem + ".txt", "w") as f:
-        for name, (ms, n) in rows:
-            f.write(f"{ms / args.steps:10.3f} ms/step {100 * ms / total:5.1f}% "
-                    f"{n // args.steps:5d}x  {name}\n")
-    prof.export_chrome_trace(stem + ".json")
+          f"{n_ev / args.steps:.0f} kernels/step, loss {float(m['loss']):.4f}")
     for name, (ms, n) in rows[:25]:
         print(f"  {ms / args.steps:9.3f} ms/step {100 * ms / total:5.1f}% "
               f"{n // args.steps:5d}x  {name[:110]}")

@@ -1,0 +1,350 @@
+"""The pruning drivers behind ``vipers_torch train`` (port of
+``vipers/train/driver.py``), on one device.
+
+- SNIP (``run_snip``): prune once on the first train batch, then train to
+  completion.
+- Iterative magnitude pruning, LRR (``run_magnitude``): while the sparsity
+  is below the threshold, train to completion with a fresh optimizer and LR
+  schedule, prune ``pruning_rate`` of the remaining weights by global
+  magnitude and bake the masks into the weights; ``performance.txt`` gets
+  one (acc1, sparsity) row per iteration.
+
+A ``Session`` holds the model built at the train crop, its masks,
+optimizer and EMA, the train and eval steps (bf16 under ``--amp``), the
+device-side normalize (RandomErasing), mixup/cutmix and the metrics
+stream. Batches are decoded on the host (``data.imagefolder``) and go to
+the device as uint8. Checkpoints are the port's ``.pth``
+(``core.checkpoint.save_train_checkpoint``) under the JAX driver's stems:
+``{model}_epoch_{e}_{method}_{tag}.pth`` every 10 epochs and at the last,
+and the rolling ``{model}_checkpoint_{method}_{tag}.pth`` every epoch.
+``resume_session`` reads one back.
+
+The JAX driver's mesh, pipeline-parallel and sharding branches are not
+ported (ROADMAP A10); ``core.config.refuse_unported`` exits for their
+flags. ``LAST_RUN`` holds the first train and val batches and the times of
+the last ``run``, for callers that check or time it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shutil
+import time
+from functools import partial
+from typing import Optional
+
+import torch
+
+from vipers_torch.core.checkpoint import (flax_tree_from_vit_state_dict,
+                                          load_train_checkpoint, save_train_checkpoint,
+                                          vit_masks_from_state_dict, vit_masks_to_state_dict,
+                                          vit_state_dict_from_flax)
+from vipers_torch.core.config import TrainConfig, refuse_unported
+from vipers_torch.core.device import resolve_device
+from vipers_torch.core.metrics import MetricsWriter
+from vipers_torch.core.registry import build_model
+from vipers_torch.data.imagefolder import ImageFolder, ImageFolderLoader
+from vipers_torch.data.mixup import mixup_cutmix_batch
+from vipers_torch.data.preprocess import eval_decode, make_device_normalize, train_decode
+from vipers_torch.data.sampler import epoch_indices, ra_sampler_indices
+from vipers_torch.pruning import compute_sparsity_global, init_masks
+from vipers_torch.pruning.snip import snip_saliency, snip_threshold, vit_snip_loss
+from vipers_torch.train.ema import ema_decay_for
+from vipers_torch.train.loop import (evaluate, magnitude_pruning_round,
+                                     train_model_to_completion)
+from vipers_torch.train.steps import TrainState, create_train_state, make_eval_step, make_train_step
+
+# the last run's first batches and times (see the module docstring)
+LAST_RUN: dict = {}
+
+
+@dataclasses.dataclass
+class Session:
+    """Everything a pruning run needs, wired once."""
+
+    cfg: TrainConfig
+    spec: object
+    state: TrainState
+    train_step: object
+    eval_step: object
+    eval_step_ema: object
+    normalize: object
+    mixup: Optional[object]
+    writer: MetricsWriter
+    train_ds: ImageFolder
+    val_ds: ImageFolder
+    device: torch.device
+
+
+def build_session(cfg: TrainConfig, params=None) -> Session:
+    """The session of ``cfg``; ``params`` (a flax-layout ViT tree) replaces
+    the model's initial weights, which are otherwise drawn from
+    ``cfg.seed``."""
+    refuse_unported(cfg)
+    dev = resolve_device(cfg.device)
+    if cfg.val_crop_size != cfg.train_crop_size:
+        # pos-embeddings are sized at construction: the epoch-end eval would
+        # fail after a full epoch of training
+        raise SystemExit(
+            f"{cfg.model}: --val-crop-size ({cfg.val_crop_size}) must equal "
+            f"--train-crop-size ({cfg.train_crop_size}) — this family's "
+            "pos-embeddings are sized at construction; pass matching crop sizes")
+    size = (cfg.train_crop_size, cfg.train_crop_size)
+    spec = build_model(cfg.model, num_classes=cfg.num_classes, image_size=size)
+    if params is None:
+        params = spec.init(torch.Generator().manual_seed(cfg.seed))
+    masks = init_masks(params, exclude=spec.prune_exclude)
+    train_ds = ImageFolder(os.path.join(cfg.data_path, "train"), cache_dir=cfg.cache_dataset)
+    val_ds = ImageFolder(os.path.join(cfg.data_path, "val"), cache_dir=cfg.cache_dataset)
+    steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+    state = create_train_state(spec, params, masks, cfg.optim, steps_per_epoch, device=dev,
+                               ema=cfg.model_ema)
+    ema_decay = (ema_decay_for(cfg.model_ema_decay, 1, cfg.batch_size, cfg.model_ema_steps,
+                               cfg.optim.epochs) if cfg.model_ema else None)
+    compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
+    ls = cfg.optim.label_smoothing
+    mixup = None
+    if cfg.mixup_alpha > 0 or cfg.cutmix_alpha > 0:
+        mixup = partial(mixup_cutmix_batch, num_classes=cfg.num_classes,
+                        mixup_alpha=cfg.mixup_alpha, cutmix_alpha=cfg.cutmix_alpha)
+    return Session(
+        cfg=cfg, spec=spec, state=state,
+        train_step=make_train_step(cfg.num_classes, ls, compute_dtype, ema_decay=ema_decay,
+                                   ema_every=cfg.model_ema_steps,
+                                   ema_warmup_steps=cfg.optim.lr_warmup_epochs * steps_per_epoch),
+        eval_step=make_eval_step(cfg.num_classes, ls, compute_dtype),
+        eval_step_ema=make_eval_step(cfg.num_classes, ls, compute_dtype, use_ema=True),
+        normalize=make_device_normalize(random_erase_prob=cfg.random_erase), mixup=mixup,
+        writer=MetricsWriter(cfg.metrics_path or os.path.join(cfg.output_dir, "metrics.jsonl")),
+        train_ds=train_ds, val_ds=val_ds, device=dev)
+
+
+class DeviceBatches:
+    """A loader's numpy batches as (uint8 images, int64 labels) tensors on
+    ``device`` (pinned host copies, uploads that do not wait). Keeps the
+    first batch of each ``kind`` and the time of the first decode in
+    ``LAST_RUN``."""
+
+    def __init__(self, loader: ImageFolderLoader, device: torch.device, kind: str):
+        self.loader, self.device, self.kind = loader, device, kind
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        LAST_RUN.setdefault("t_first_decode", time.time())
+        cuda = self.device.type == "cuda"
+        for images, labels in self.loader:
+            LAST_RUN.setdefault(f"first_{self.kind}_batch", (images, labels))
+            LAST_RUN[f"{self.kind}_images"] = LAST_RUN.get(f"{self.kind}_images", 0) + len(labels)
+            x, y = torch.from_numpy(images), torch.from_numpy(labels).long()
+            if cuda:
+                x = x.pin_memory().to(self.device, non_blocking=True)
+                y = y.pin_memory().to(self.device, non_blocking=True)
+            yield x, y
+
+
+def train_loader(cfg: TrainConfig, ds: ImageFolder, epoch: int) -> ImageFolderLoader:
+    """Epoch ``epoch``'s train batches (numpy): the sampler's stream (with
+    ``--ra-sampler`` the repeated-augmentation stream), RandomResizedCrop +
+    flip (+ the auto-augment policy), the last partial batch dropped."""
+    if cfg.ra_sampler:
+        idx = ra_sampler_indices(len(ds), epoch, seed=cfg.seed, repetitions=cfg.ra_reps)
+    else:
+        idx = epoch_indices(len(ds), epoch, seed=cfg.seed)
+    kw = dict(crop_size=cfg.train_crop_size, auto_augment=cfg.auto_augment,
+              ra_magnitude=cfg.ra_magnitude, augmix_severity=cfg.augmix_severity)
+    if cfg.native_decode and cfg.interpolation == "bilinear":  # the C++ decode is bilinear only
+        from vipers_torch.data import native
+
+        decode = partial(native.decode_train, **kw)
+    else:
+        decode = partial(train_decode, interpolation=cfg.interpolation, **kw)
+    return ImageFolderLoader(ds, idx, cfg.batch_size, decode_fn=decode, num_workers=cfg.workers,
+                             drop_last=True, seed=cfg.seed + epoch)
+
+
+def val_loader(cfg: TrainConfig, ds: ImageFolder) -> ImageFolderLoader:
+    """The val split in order (numpy): resize, center crop, every image."""
+    idx = epoch_indices(len(ds), 0, shuffle=False)
+    if cfg.native_decode and cfg.interpolation == "bilinear":
+        from vipers_torch.data import native
+
+        def decode(p, rng):
+            return native.decode_eval(p, cfg.val_resize_size, cfg.val_crop_size)
+    else:
+        def decode(p, rng):
+            return eval_decode(p, cfg.val_resize_size, cfg.val_crop_size,
+                               interpolation=cfg.interpolation)
+    return ImageFolderLoader(ds, idx, cfg.batch_size, decode_fn=decode,
+                             num_workers=cfg.workers, drop_last=False)
+
+
+def _train_loader(s: Session, epoch: int) -> DeviceBatches:
+    return DeviceBatches(train_loader(s.cfg, s.train_ds, epoch), s.device, "train")
+
+
+def _val_loader(s: Session) -> DeviceBatches:
+    return DeviceBatches(val_loader(s.cfg, s.val_ds), s.device, "val")
+
+
+def _snip_loss_fn(s: Session):
+    """SNIP's loss: the train forward of the dense model in f32 (the
+    params' dtype) and the cross-entropy with the run's label smoothing."""
+    return vit_snip_loss(s.spec, s.cfg.num_classes, s.cfg.optim.label_smoothing)
+
+
+def _flax_params(state: TrainState) -> dict:
+    return flax_tree_from_vit_state_dict(state.params)
+
+
+def _sparsity(state: TrainState) -> float:
+    return compute_sparsity_global(_flax_params(state), vit_masks_from_state_dict(state.masks))
+
+
+def _checkpoint_fn(s: Session, method: str, tag):
+    """``save(state, epoch, sparsity, latest=False)``: the epoch's file, or
+    the rolling latest (a copy of the epoch's file when that was just
+    written from the same state)."""
+    cfg = s.cfg
+    written = {}
+
+    def save(state, epoch, sparsity, latest=False):
+        name = (f"{cfg.model}_checkpoint_{method}_{tag}" if latest
+                else f"{cfg.model}_epoch_{epoch}_{method}_{tag}")
+        path = os.path.join(cfg.output_dir, name + ".pth")
+        if latest and written.get("epoch") == epoch:
+            shutil.copyfile(written["path"], path + ".tmp")
+            os.replace(path + ".tmp", path)
+        else:
+            save_train_checkpoint(path, state, epoch, sparsity)
+            if not latest:
+                written.update(epoch=epoch, path=path)
+        LAST_RUN["t_last_checkpoint"] = time.time()
+
+    return save
+
+
+def _loop_args(s: Session):
+    """The positional arguments of ``train_model_to_completion`` (and of
+    ``magnitude_pruning_round``) for the session, and the keywords every
+    run shares."""
+    cfg = s.cfg
+    return ((s.train_step, s.eval_step, s.state, lambda e: _train_loader(s, e),
+             lambda: _val_loader(s), cfg.optim.epochs),
+            dict(normalize_fn=s.normalize, print_freq=cfg.print_freq,
+                 eval_step_ema=s.eval_step_ema if cfg.model_ema else None,
+                 expected_eval_samples=len(s.val_ds), mixup_fn=s.mixup, writer=s.writer))
+
+
+def snip_saliencies(s: Session) -> dict:
+    """SNIP's saliencies {flax path: |w| * |dL/dw|} of the dense model on
+    epoch 0's first train batch."""
+    images, labels = next(iter(_train_loader(s, 0)))
+    params = _flax_params(s.state)
+    return snip_saliency(_snip_loss_fn(s), params, (s.normalize(images), labels),
+                         masks=init_masks(params, exclude=s.spec.prune_exclude))
+
+
+def snip_masks(s: Session, saliencies: dict) -> dict:
+    """The masks (state-dict keys) that keep the weights whose saliency lies
+    above the threshold of ``--target-sparsity``."""
+    thr = snip_threshold(saliencies, s.cfg.target_sparsity)
+    return vit_masks_to_state_dict({p: v > thr for p, v in saliencies.items()})
+
+
+def train_snip(s: Session, initial_epoch: int = 0):
+    """Train the session's SNIP masks to completion. Returns (sparsity,
+    last acc1)."""
+    cfg = s.cfg
+    sparsity = _sparsity(s.state)
+    print(f"Sparsity after SNIP pruning: {sparsity:.2f}%")
+    s.writer.write("prune", step=0, method="snip", sparsity=sparsity)
+    args, kw = _loop_args(s)
+    s.state, acc1 = train_model_to_completion(
+        *args, initial_epoch=initial_epoch, seed=cfg.seed,
+        checkpoint_fn=_checkpoint_fn(s, "snip", cfg.target_sparsity), sparsity=sparsity, **kw)
+    return sparsity, acc1
+
+
+def run_snip(s: Session, initial_epoch: int = 0):
+    """SNIP: prune once on the first train batch (unless resuming), then
+    train to completion. Returns (sparsity, last acc1)."""
+    if initial_epoch == 0:
+        s.state.masks = snip_masks(s, snip_saliencies(s))
+    return train_snip(s, initial_epoch)
+
+
+def run_magnitude(s: Session, resuming: bool = False, initial_epoch: int = 0):
+    """LRR: while the sparsity is below the threshold, train to completion
+    (a fresh optimizer and schedule each iteration, except the first when
+    resuming mid-iteration, which continues at ``initial_epoch``), prune
+    ``pruning_rate`` of the remaining weights, bake. Writes
+    ``performance.txt``; returns (sparsity, [(acc1, sparsity) per
+    iteration])."""
+    cfg = s.cfg
+    sparsity = _sparsity(s.state)
+    it = cfg.starting_pruning_iteration
+    rows = []
+    first = True
+    while sparsity < cfg.pruning_threshold:
+        print(f"Pruning iteration: {it} (sparsity {sparsity:.2f}%)")
+        cont = first and resuming
+        first = False
+        args, kw = _loop_args(s)
+        # the file-name contract: {model}_epoch_{e}_pruning_iteration_{NN}
+        s.state, acc1, pruned = magnitude_pruning_round(
+            *args, cfg.pruning_rate, reset=not cont, initial_epoch=initial_epoch if cont else 0,
+            seed=(cfg.seed, it), checkpoint_fn=_checkpoint_fn(s, "pruning_iteration", f"{it:02d}"),
+            sparsity=sparsity, **kw)
+        rows.append((acc1, sparsity))
+        sparsity = pruned
+        s.writer.write("prune", step=it, method="magnitude", sparsity=sparsity)
+        it += 1
+    MetricsWriter.export_performance_txt(os.path.join(cfg.output_dir, "performance.txt"), rows)
+    return sparsity, rows
+
+
+def resume_session(s: Session, path: str) -> int:
+    """Restore the weights, masks, optimizer, step count and EMA from the
+    port's ``.pth``; returns the epoch to continue from. A checkpoint
+    without the port's optimizer state (a reference ``.pth``) restores the
+    weights and masks only."""
+    ck = load_train_checkpoint(path, s.spec.cfg.num_layers)
+    st = s.state
+    st.model.load_state_dict(vit_state_dict_from_flax(ck["params"]))
+    st.masks = {**st.masks, **{k: m.to(s.device)
+                               for k, m in vit_masks_to_state_dict(ck["masks"]).items()}}
+    opt = ck["optimizer"]
+    if isinstance(opt, dict) and "count" in opt:
+        st.opt.load_state_dict(opt)
+    st.step = ck["step"]
+    if ck["ema_params"] is not None and st.ema_params is not None:
+        with torch.no_grad():
+            for k, v in vit_state_dict_from_flax(ck["ema_params"]).items():
+                st.ema_params[k].copy_(v)
+    start_epoch = ck["epoch"] + 1
+    print(f"Resumed from {path} at epoch {start_epoch} (sparsity {ck['sparsity']:.2f}%)")
+    return start_epoch
+
+
+def run(cfg: TrainConfig):
+    """``vipers_torch train``: build the session, resume if asked
+    (``--resume``'s epoch overrides ``--start-epoch``), then ``--test-only``
+    evaluation, SNIP or LRR."""
+    LAST_RUN.clear()
+    refuse_unported(cfg)
+    resolve_device(cfg.device)  # no card and no --device cpu: raise before writing anything
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    s = build_session(cfg)
+    start_epoch = cfg.start_epoch if cfg.start_epoch >= 0 else 0
+    if cfg.resume:
+        start_epoch = resume_session(s, cfg.resume)
+    if cfg.test_only:
+        return evaluate(s.eval_step, s.state, _val_loader(s), normalize_fn=s.normalize)
+    if cfg.pruning_method == "snip":
+        return run_snip(s, initial_epoch=start_epoch)
+    if cfg.pruning_method == "magnitude":
+        return run_magnitude(s, resuming=bool(cfg.resume), initial_epoch=start_epoch)
+    raise ValueError(f"Unsupported pruning method {cfg.pruning_method!r}")

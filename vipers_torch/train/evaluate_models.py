@@ -1,0 +1,156 @@
+"""Checkpoint sweep evaluation behind ``vipers_torch evaluate`` (port of
+``vipers/train/evaluate_models.py``).
+
+Find a pruning sweep's ``.pth`` files, load each (its masks from the
+``weight_orig`` / ``weight_mask`` pairs), count the sparsity, evaluate
+top-1/5 and append ``{split}/acc1 ... custom_x_axis {sparsity}`` lines to
+``{output_dir}/{model}_dilation_{d}.txt``, then write ``performance.txt``.
+
+The eval runs in f32, as the JAX sweep's does; with ``--amp`` it runs in
+bf16, as the train driver's epoch-end eval (the JAX sweep ignores
+``--amp``). The VOC branch (``--eval-dataset voc``) scores the classifier
+on the eval preset of each annotated VOC image against its first object's
+class index, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import glob as globlib
+import os
+import re
+import types
+
+import numpy as np
+import torch
+
+from vipers_torch.core.checkpoint import (flax_tree_from_vit_state_dict, reference_sweep_stem,
+                                          vit_masks_from_state_dict, vit_masks_to_state_dict,
+                                          vit_state_dict_from_flax)
+from vipers_torch.core.config import TrainConfig, refuse_unported
+from vipers_torch.core.device import resolve_device
+from vipers_torch.core.metrics import MetricsWriter
+from vipers_torch.core.registry import build_model
+from vipers_torch.data.imagefolder import ImageFolder
+from vipers_torch.data.preprocess import eval_decode, make_device_normalize
+from vipers_torch.pruning import compute_sparsity_global, init_masks
+from vipers_torch.train.loop import evaluate
+from vipers_torch.train.optim import OptimConfig
+from vipers_torch.train.steps import create_train_state, make_eval_step
+
+VOC_CLASSES = (
+    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
+    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
+    "pottedplant", "sheep", "sofa", "train", "tvmonitor",
+)
+
+
+def _voc_eval_batches(cfg: TrainConfig, normalize_fn, device, dataset: str = "VOC07",
+                      split: str = "trainval"):
+    """(images, labels) batches of a VOC set on ``device``: the eval preset
+    of every annotated image, labelled with its first object's VOC class
+    index (0 for a name outside the 20)."""
+    from vipers_torch.data.detection import DiscoveryDataset
+
+    ds = DiscoveryDataset(dataset, split, cfg.data_path, no_hard=False)
+    items = []
+    for path, im_name in ds:
+        gt, cls = ds.extract_gt(im_name)
+        if gt is None or len(gt) == 0:
+            continue
+        items.append((path, VOC_CLASSES.index(cls[0]) if cls[0] in VOC_CLASSES else 0))
+    for i in range(0, len(items), cfg.batch_size):
+        chunk = items[i: i + cfg.batch_size]
+        images = np.stack([eval_decode(p, cfg.val_resize_size, cfg.val_crop_size,
+                                       interpolation=cfg.interpolation) for p, _ in chunk])
+        labels = torch.tensor([lab for _, lab in chunk], dtype=torch.long, device=device)
+        yield normalize_fn(torch.from_numpy(images).to(device)), labels
+
+
+def _eval_only_session(cfg: TrainConfig, with_val: bool = False):
+    """The model at the EVAL crop, its all-ones masks, the eval step and the
+    normalize, without the training machinery; ``with_val`` also opens
+    ``{data_path}/val`` as an ImageFolder."""
+    dev = resolve_device(cfg.device)
+    size = (cfg.val_crop_size, cfg.val_crop_size)
+    spec = build_model(cfg.model, num_classes=cfg.num_classes, image_size=size)
+    params = spec.init(torch.Generator().manual_seed(cfg.seed))
+    state = create_train_state(spec, params, init_masks(params, exclude=spec.prune_exclude),
+                               OptimConfig(), 1, device=dev)
+    val_ds = (ImageFolder(os.path.join(cfg.data_path, "val"), cache_dir=cfg.cache_dataset)
+              if with_val else None)
+    dtype = torch.bfloat16 if cfg.amp else torch.float32
+    return types.SimpleNamespace(cfg=cfg, spec=spec, state=state, val_ds=val_ds, device=dev,
+                                 eval_step=make_eval_step(cfg.num_classes, compute_dtype=dtype),
+                                 normalize=make_device_normalize())
+
+
+def sweep_checkpoints(sweep_dir: str, model: str) -> list:
+    """A pruning sweep's checkpoints under ``sweep_dir``, sorted by pruning
+    iteration: the reference's ``{sweep_dir}/{model}/model_epoch_*_
+    pruning_iteration_NN.pth`` (CNNs) and ``{model}/{model}_epoch_*...``
+    (ViTs) and the flat ``{sweep_dir}/{model}_epoch_*_pruning_iteration_*``
+    the train driver writes; else any ``*_epoch_*`` checkpoint of the model.
+    A structurally slimmed checkpoint (``*_slim_*``) exits naming ROADMAP
+    A4."""
+    patterns = [os.path.join(sweep_dir, model, reference_sweep_stem(model, vit=False)),
+                os.path.join(sweep_dir, model, reference_sweep_stem(model, vit=True)),
+                os.path.join(sweep_dir, reference_sweep_stem(model, vit=True))]
+    found = [p for pat in patterns for p in globlib.glob(pat)]
+    ckpts = sorted({p for p in found if re.search(r"pruning_iteration_(\d+)(\.pth|\.pt)?$", p)},
+                   key=lambda p: int(re.search(r"pruning_iteration_(\d+)", p).group(1)))
+    if not ckpts:
+        ckpts = sorted(set(globlib.glob(os.path.join(sweep_dir, f"{model}_epoch_*")))
+                       | set(globlib.glob(os.path.join(sweep_dir, model, "*_epoch_*"))))
+    if any(globlib.glob(pat) for pat in (os.path.join(sweep_dir, f"{model}_slim_*"),
+                                         os.path.join(sweep_dir, model, "*_slim_*"))):
+        raise SystemExit("vipers_torch evaluate: a structurally slimmed checkpoint "
+                         "(_slim_) is not ported yet (ROADMAP A4)")
+    return ckpts
+
+
+def run_sweep(cfg: TrainConfig, dilation: int = None, models_path: str = "",
+              voc_dataset: str = "VOC07", voc_set: str = "trainval"):
+    """Evaluate every checkpoint of the sweep in ``models_path`` (default
+    ``cfg.output_dir``); returns [(acc1, sparsity)] in sweep order."""
+    from vipers_torch.discovery.driver import load_lost_checkpoint
+    from vipers_torch.train.driver import DeviceBatches, val_loader
+
+    refuse_unported(cfg, "evaluate")
+    dilation = cfg.resnet_dilate if dilation is None else dilation
+    voc = cfg.eval_dataset == "voc"
+    if voc and cfg.num_classes != len(VOC_CLASSES):
+        raise ValueError(
+            f"--eval-dataset voc requires num_classes == {len(VOC_CLASSES)} "
+            f"(got {cfg.num_classes}): the classifier head must emit VOC "
+            "class logits for the accuracy rows to mean anything")
+    s = _eval_only_session(cfg, with_val=not voc)
+    ckpts = sweep_checkpoints(models_path or cfg.output_dir, cfg.model)
+    out_txt = os.path.join(cfg.output_dir, f"{cfg.model}_dilation_{dilation}.txt")
+    split = "voc" if voc else "test"
+    base_masks = s.state.masks
+    rows = []
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    with open(out_txt, "a") as f:
+        for ckpt in ckpts:
+            params, masks = load_lost_checkpoint(ckpt, s.spec)
+            s.state.model.load_state_dict(vit_state_dict_from_flax(params))
+            s.state.masks = ({k: m.to(s.device) for k, m in vit_masks_to_state_dict(masks).items()}
+                             if masks else base_masks)
+            sparsity = compute_sparsity_global(flax_tree_from_vit_state_dict(s.state.params),
+                                               vit_masks_from_state_dict(s.state.masks))
+            if voc:
+                acc1, acc5, loss = evaluate(
+                    s.eval_step, s.state,
+                    _voc_eval_batches(cfg, s.normalize, s.device, voc_dataset, voc_set))
+            else:
+                acc1, acc5, loss = evaluate(
+                    s.eval_step, s.state, DeviceBatches(val_loader(cfg, s.val_ds), s.device, "val"),
+                    normalize_fn=s.normalize, expected_samples=len(s.val_ds))
+            for name, val in (("acc1", acc1), ("acc5", acc5), ("loss", loss)):
+                f.write(f"{split}/{name} {val} custom_x_axis {sparsity}\n")
+            rows.append((acc1, sparsity))
+            print(f"{ckpt}: sparsity {sparsity:.2f}% acc1 {acc1:.3f}")
+    if rows:
+        MetricsWriter.export_performance_txt(os.path.join(cfg.output_dir, "performance.txt"),
+                                             rows)
+    return rows

@@ -169,6 +169,17 @@ class MaskedOptimizer:
             raise RuntimeError(f"Invalid optimizer {cfg.opt!r}; sgd/rmsprop/adamw only")
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """The optimizer's state (momentum or moments) and its step count,
+        for a checkpoint."""
+        return {"opt": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, sd: dict):
+        """Restore what ``state_dict`` returned (tensors move to the
+        parameters' device)."""
+        self.opt.load_state_dict(sd["opt"])
+        self.count = int(sd["count"])
+
     def step(self, grads: Dict[str, torch.Tensor], masks: Dict[str, torch.Tensor]):
         grads = mask_gradients(grads, masks)
         if self.cfg.clip_grad_norm is not None:
