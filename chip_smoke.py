@@ -129,7 +129,28 @@ Phases (any failure exits non-zero; nothing is caught):
      saliencies within 1e-5 of their scale, a TF32 run shown to miss it,
      masks; then from the card's masks 2 steps and one LRR iteration:
      parameters and masks). Prints train e2e, step, decode-only (8
-     threads, 1) and evaluate img/s.
+     threads, 1) and evaluate img/s;
+ 13. the CNN families through the entry points (``cnn_phase``): ResNet-50
+     at full width and depth (1000 classes, the CLI's seed-42 weights),
+     ``train --amp`` at 224x224, B=128, 8 decode threads on phase 12's
+     ImageFolder: SNIP to 50% for one epoch, LRR (rate 0.2, threshold 35.9:
+     two iterations); ``evaluate --amp``; ``lost --arch resnet --model
+     resnet50 --resnet-dilate 2 --dtype bf16`` from the iteration-01
+     checkpoint and ``lost --arch vgg16 --model vgg16_bottom --dtype bf16``
+     from a seed-0 .pth with a 50% global magnitude mask, on 256 of phase 6's
+     JPEGs. Checks: no attention or fused-MLP launch in any CNN run (the
+     counters set to 0 before each, read after), phase 12's checks of the
+     batches, losses, checkpoints, performance.txt and evaluate, the LOST
+     outputs against ``corloc`` and the first batch against
+     ``make_batched_cnn_pipeline``; the CNN LOST pipeline f32 at B=4 card vs
+     CPU on two bucket shapes (features within 1e-3 of their scale, boxes
+     equal, tie-aware); the f32 driver on ResNet-50 at full depth, B=8, card
+     vs CPU (SNIP's saliencies within 1e-5 of their scale; parameters and
+     running statistics within 1e-4 after 2 steps and after one LRR
+     iteration, the same run with cuDNN's TF32 convolutions printed beside
+     it; bf16 loss within 2e-2 and gradients within 3e-2). Prints train e2e,
+     step, decode-only and evaluate img/s, the CNN LOST pipeline's img/s at
+     B=128 and p50, the CLIs' e2e img/s and the peak device memory.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
@@ -1454,7 +1475,7 @@ def check_first_batch(tag, pth, data, items, out, failed, dtype, model="vit_s_16
 
     names = first_batch(items, BATCH)
     spec = build_model(model)  # 1000 classes at 224x224, as the checkpoint
-    params, masks = load_lost_checkpoint(pth, spec)
+    params, _, masks = load_lost_checkpoint(pth, spec)
     ex = LostFeatureExtractor(spec, params, masks, device="cuda",
                               compute_dtype=torch.bfloat16 if dtype == "bf16" else None)
     dec = [native.decode_pad(os.path.join(data, "JPEGImages", f"{n}.jpg"), PATCH) for n in names]
@@ -1735,7 +1756,7 @@ def snip_phase(card, counters, hw=392, batch=VIT_H_SNIP_BATCH, target=SPARSITY):
     from vipers_torch.ops import flash_attention as fa
     from vipers_torch.ops import fused_mlp as fm
     from vipers_torch.pruning import init_masks, snip_saliency, snip_threshold
-    from vipers_torch.pruning.snip import vit_snip_loss
+    from vipers_torch.pruning.snip import snip_loss
     from vipers_torch.train.optim import OptimConfig
     from vipers_torch.train.steps import create_train_state, make_train_step
 
@@ -1769,7 +1790,7 @@ def snip_phase(card, counters, hw=392, batch=VIT_H_SNIP_BATCH, target=SPARSITY):
         p = to_device(cparams, dev, dtype)
         xb = (x[:VIT_H_CPU_BATCH].to(dev, dtype), labels[:VIT_H_CPU_BATCH].to(dev))
         with attention_by_einsum(einsum), cublas_tf32(tf32):
-            s = snip_saliency(vit_snip_loss(cut, 1000), p, xb,
+            s = snip_saliency(snip_loss(cut, 1000), p, xb,
                               init_masks(p, exclude=cut.prune_exclude))
         sal[name] = {k: v.cpu() for k, v in s.items()}
     got, thr, n, pruned, k, ties = masks_of(sal["cuda"])
@@ -1820,7 +1841,7 @@ def snip_phase(card, counters, hw=392, batch=VIT_H_SNIP_BATCH, target=SPARSITY):
     del sal, got, want, truth
 
     reset_counts(*counters)
-    loss_fn = vit_snip_loss(spec, 1000)
+    loss_fn = snip_loss(spec, 1000)
     base = init_masks(params, exclude=spec.prune_exclude)
     t1 = time.perf_counter()
     sal = snip_saliency(loss_fn, params, (x, labels), base)
@@ -1920,7 +1941,7 @@ def train_cli(cli, argv, counters, at, fa, fm):
     return cli_launches(at, fa, fm), time.perf_counter() - t0
 
 
-def check_checkpoint(path, want_sparsity, init=None):
+def check_checkpoint(path, want_sparsity, init=None, model="vit_b_16"):
     """A written .pth: the sparsity of ``compute_sparsity_global`` on the
     loaded weights and masks within 1e-4 (points of %) of ``want_sparsity``,
     the driver's count when the masks were set (training may move a weight
@@ -1928,8 +1949,11 @@ def check_checkpoint(path, want_sparsity, init=None):
     ``weight_orig`` where its mask is 0: zero after LRR, which bakes the
     masks; with ``init`` (SNIP, unbaked: the file keeps the raw slots, as
     the JAX package's does) the initial weight, which the masked optimizer
-    never moves. Returns that sparsity."""
-    from vipers_torch.core.checkpoint import import_vit_torchvision, load_torch_state_dict
+    never moves. ``model``: a ViT or, read through its family, a CNN.
+    Returns that sparsity."""
+    from vipers_torch.core.checkpoint import (family, import_vit_torchvision,
+                                              load_torch_state_dict)
+    from vipers_torch.core.registry import build_model
     from vipers_torch.pruning import compute_sparsity_global
 
     raw = torch.load(path, map_location="cpu", weights_only=False)["model"]
@@ -1941,8 +1965,12 @@ def check_checkpoint(path, want_sparsity, init=None):
             want = torch.zeros_like(got) if init is None else init[base][~kept]
             assert torch.equal(got, want), (path, base)
     sd = load_torch_state_dict(path)
-    layers = len({k.split(".")[2] for k in sd if k.startswith("encoder.layers.")})
-    params, masks = import_vit_torchvision(sd, layers)
+    if model.startswith("vit"):
+        layers = len({k.split(".")[2] for k in sd if k.startswith("encoder.layers.")})
+        params, masks = import_vit_torchvision(sd, layers)
+    else:
+        spec = build_model(model)
+        params, _, masks = family(spec).import_pth(sd, spec)
     sparsity = compute_sparsity_global(params, masks)
     assert abs(sparsity - want_sparsity) <= 1e-4, (path, sparsity, want_sparsity)
     return sparsity
@@ -2266,6 +2294,479 @@ def train_cli_phase(card, counters):
         shutil.rmtree(root)
 
 
+# Phase 13: the CNN families through the pruning and LOST entry points.
+CNN_MODEL, CNN_DILATE = "resnet50", 2
+CNN_CUT_BATCH = 8  # the f32 card-vs-CPU train run, ResNet-50 at full depth
+
+
+def all_launches(counters):
+    """Every launch the counters hold: the attention and fused-MLP kernels."""
+    return sum(v for counts in counters for v in counts.values())
+
+
+@contextlib.contextmanager
+def cudnn_tf32():
+    """While on, the port's f32 convolutions take cuDNN's TF32: the
+    exact-f32 scope of the train step is switched off."""
+    from vipers_torch.models import cnn
+
+    old_scope, old = cnn.exact_f32_convs, torch.backends.cudnn.allow_tf32
+    cnn.exact_f32_convs = lambda dtype=torch.float32: contextlib.nullcontext()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        cnn.exact_f32_convs = old_scope
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def cnn_bucket_images(ex, items_hw, rng):
+    """Tier-1-padded uint8 images of the given exact (h, w), grouped by the
+    extractor's CNN bucket key: {key: (images, exact_hw)}."""
+    out = {}
+    for img, hw in zip(make_images(rng, items_hw), items_hw):
+        key = ex.cnn_bucket_key(*img.shape[:2])
+        out.setdefault(key, ([], []))
+        out[key][0].append(img)
+        out[key][1].append(hw)
+    return out
+
+
+def compare_cnn_with_cpu(tag, spec, params, masks, ex, buckets, lost_core):
+    """Each bucket's B images through the card's extractor and the same on
+    the CPU: f32 features within 1e-3 of their scale and equal boxes (a
+    seed may differ only inside a tie at the top score)."""
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+
+    cpu = LostFeatureExtractor(spec, params, masks, device="cpu")
+    for key, (imgs, hw) in buckets.items():
+        gin = ex.prepare_cnn_batch(imgs, key, exact_hw=hw)
+        cin = cpu.prepare_cnn_batch(imgs, key, exact_hw=hw)
+        gf, cf = ex.cnn_features(*gin).float().cpu(), cpu.cnn_features(*cin)
+        gbox, gseed, gbg = (z.cpu() for z in ex.make_batched_cnn_pipeline(K_PATCHES)(*gin))
+        cbox, cseed, cbg = cpu.make_batched_cnn_pipeline(K_PATCHES)(*cin)
+        scale, ferr = cf.abs().max().item(), (gf - cf).abs().max().item()
+        same_seed, same_box = gseed == cseed, (gbox == cbox).all(dim=1)
+        n = len(imgs)
+        print(f"cpu-vs-card [{tag}, bucket {key}] features max_abs_err {ferr:.3e} (scale "
+              f"{scale:.3g}, tol 1e-3 of it); seeds equal {int(same_seed.sum())}/{n}, boxes "
+              f"equal {int(same_box.sum())}/{n}")
+        assert ferr <= 1e-3 * scale, (ferr, scale)
+        grid = (cpu._cnn_fdim(key[0]), cpu._cnn_fdim(key[1]))
+        scores = lost_core(cf, cin[1], grid, K_PATCHES)["scores"]
+        for i in range(n):
+            if same_seed[i]:
+                assert same_box[i] and gbg[i] == cbg[i], (i, gbox[i], cbox[i])
+            else:
+                s = scores[i]
+                assert s[gseed[i]] == s[cseed[i]] == s.max(), (i, gseed[i], cseed[i])
+
+
+def check_first_cnn_batch(tag, pth, data, items, out, failed, model, dilate):
+    """The boxes of a CNN run's first batch (the first bucket to fill up,
+    else the smallest key) against ``make_batched_cnn_pipeline`` on the same
+    decoded uint8 batch, the model loaded as the CLI loads it (bf16)."""
+    import pickle
+
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data import native
+    from vipers_torch.discovery.driver import LostFeatureExtractor, load_lost_checkpoint
+    from vipers_torch.discovery.lost import box_feat_to_image
+
+    spec = build_model(model, **({"dilate": dilate} if dilate != 1 else {}))
+    params, stats, masks = load_lost_checkpoint(pth, spec)
+    if spec.num_classes:
+        from vipers_torch.core.checkpoint import infer_num_classes
+
+        spec = build_model(model, num_classes=infer_num_classes(params),
+                           **({"dilate": dilate} if dilate != 1 else {}))
+    ex = LostFeatureExtractor(spec, params, masks, device="cuda", batch_stats=stats,
+                              compute_dtype=torch.bfloat16)
+    buffers, names = {}, None
+    for name, (w, h) in items:
+        key = ex.cnn_bucket_key(-(-h // PATCH) * PATCH, -(-w // PATCH) * PATCH)
+        buffers.setdefault(key, []).append(name)
+        if len(buffers[key]) == BATCH:
+            names, key0 = buffers[key], key
+            break
+    else:
+        key0 = sorted(buffers)[0]
+        names = buffers[key0]
+    dec = [native.decode_pad(os.path.join(data, "JPEGImages", f"{n}.jpg"), PATCH) for n in names]
+    imgs = [d[0] for d in dec] + [dec[-1][0]] * (BATCH - len(dec))
+    hw = [d[1] for d in dec] + [dec[-1][1]] * (BATCH - len(dec))
+    box, _seed, bg = (z.cpu().numpy() for z in ex.make_batched_cnn_pipeline(K_PATCHES)(
+        *ex.prepare_cnn_batch(imgs, key0, exact_hw=hw)))
+    with open(os.path.join(out, "preds.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    same = 0
+    for i, n in enumerate(names):
+        im = f"{n}.jpg"
+        assert bool(bg[i]) == (im in failed), (tag, im)
+        if not bg[i]:
+            want = box_feat_to_image(box[i], ex.cnn_scales(*imgs[i].shape[:2]),
+                                     (3, *hw[i])).tolist()
+            assert preds[im] == want, (tag, im, preds[im], want)
+            same += 1
+    print(f"CNN LOST [{tag}] first batch ({len(names)} images, bucket {key0}): {same} boxes "
+          f"equal to make_batched_cnn_pipeline's on the same uint8 batch, "
+          f"{len(names) - same} seeds in the background")
+
+
+def rel_l2(got, ref, keep=None):
+    """||got - ref|| / ||ref|| over every tensor of two dicts (in f64),
+    restricted to the elements where ``keep[k]`` (bool) holds, if given."""
+    num = den = 0.0
+    for k, r in ref.items():
+        d, r = got[k].double() - r.double(), r.double()
+        if keep is not None and k in keep:
+            d, r = d[keep[k]], r[keep[k]]
+        num += float((d * d).sum())
+        den += float((r * r).sum())
+    return (num / den) ** 0.5
+
+
+def cnn_driver_card_vs_cpu(card, root, data):
+    """The f32 driver on ResNet-50 at full depth, B = CNN_CUT_BATCH (2 steps
+    an epoch), the same seed-0 weights, on the card (exact f32
+    convolutions), on the CPU in f32, on the CPU in f64 (the model cast to
+    f64: the reference) and on the card with cuDNN's TF32 convolutions:
+    one train forward (the loss and the updated running statistics: card
+    vs CPU within 1e-4 of their scale), ``snip_saliencies``, ``snip_masks``
+    (the card's masks on every run), ``train_snip`` (2 steps) and one
+    ``run_magnitude`` iteration (2 steps, prune 20% more, bake).
+
+    A BatchNorm ResNet's gradients at initialization explode with depth, so
+    f32 rounding alone moves them far beyond a 1e-5 tolerance: the CPU's
+    own f32 run lies percents (relative L2) from the f64 run, as this
+    function prints. The saliencies and the parameters and running
+    statistics after each stage are therefore held against the f64 run:
+    the card's f32 no farther from it (relative L2) than 2x the CPU's own
+    f32, the TF32 run printed beside. Then, at the card's SNIP-trained
+    state, one bf16 step's loss (card vs CPU bf16 within 2e-2 relative) and
+    gradients (relative L2 from the CPU's f64 gradients no more than 2x the
+    CPU bf16's)."""
+    from vipers_torch.core.config import TrainConfig
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.models import cnn
+    from vipers_torch.pruning.snip import snip_threshold
+    from vipers_torch.train import driver as tdrv
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import forward_params, loss_and_grads, train_loss
+
+    params = build_model(CNN_MODEL).init(torch.Generator().manual_seed(0))
+    res, snip = {}, None
+    for run in ("cuda", "cpu", "f64", "tf32"):
+        dev = "cuda" if run in ("cuda", "tf32") else "cpu"
+        t0 = time.time()
+        cfg = TrainConfig(model=CNN_MODEL, data_path=data, num_classes=1000,
+                          batch_size=CNN_CUT_BATCH, workers=8, pruning_method="snip",
+                          target_sparsity=SPARSITY, pruning_rate=0.2, pruning_threshold=55.0,
+                          optim=OptimConfig(lr=0.1, epochs=1), seed=0, print_freq=0,
+                          output_dir=os.path.join(root, f"cnn_cut_{run}"), device=dev)
+        with cudnn_tf32() if run == "tf32" else contextlib.nullcontext():
+            s = tdrv.build_session(cfg, params=params)
+            if run == "f64":
+                s.state.model.to(torch.float64)
+            images, labels = next(iter(tdrv._train_loader(s, 0)))
+            batch = (s.normalize(images), labels)
+            with cnn.exact_f32_convs(), torch.no_grad():
+                loss, _, stats = train_loss(s.state.model,
+                                            forward_params(s.state.params, {}), batch, 1000)
+            fwd = (float(loss), {k: v.cpu() for k, v in stats.items()})
+            sal = {p: v.cpu() for p, v in tdrv.snip_saliencies(s).items()}
+            if snip is None:
+                snip = {k: m.cpu() for k, m in tdrv.snip_masks(s, sal).items()}
+            s.state.masks = {k: m.to(s.device) for k, m in snip.items()}
+            tdrv.train_snip(s)
+            after_snip = {k: v.detach().cpu().clone() for k, v in
+                          {**s.state.params, **s.state.batch_stats}.items()}
+            _, rows = tdrv.run_magnitude(s)
+        res[run] = dict(fwd=fwd, sal=sal, after_snip=after_snip, rows=rows,
+                        secs=time.time() - t0, device=s.device,
+                        params={k: v.detach().cpu() for k, v in
+                                {**s.state.params, **s.state.batch_stats}.items()},
+                        masks={k: m.cpu() for k, m in s.state.masks.items()})
+        del s
+        torch.cuda.empty_cache()
+    # one train forward: the loss and the updated running statistics
+    (gl, gst), (cl, cst) = res["cuda"]["fwd"], res["cpu"]["fwd"]
+    scale = max(float(v.abs().max()) for v in cst.values())
+    st_err = max(float((gst[k] - v).abs().max()) for k, v in cst.items())
+    print(f"train forward f32, {CNN_MODEL} full depth, B={CNN_CUT_BATCH}, card vs CPU: loss "
+          f"{gl:.6f} vs {cl:.6f}, updated running statistics max_abs_err {st_err:.3e} "
+          f"({st_err / scale:.2e} of their scale {scale:.3g}, tol 1e-4) ({card})")
+    assert st_err <= 1e-4 * scale and abs(gl - cl) <= 1e-4 * abs(cl), (st_err, gl, cl)
+    # SNIP, the stages of training: each f32 run's distance from the f64 run
+    ref = res["f64"]
+    dist = {}
+    for stage in ("sal", "after_snip", "params"):
+        keep = None
+        if stage == "params":  # where every run's magnitude masks agree
+            keep = {k: (m == res["cuda"]["masks"][k]) & (m == res["cpu"]["masks"][k])
+                    & (m == res["tf32"]["masks"][k]) for k, m in ref["masks"].items()}
+        dist[stage] = {run: rel_l2(res[run][stage], ref[stage], keep)
+                       for run in ("cuda", "cpu", "tf32")}
+    thr = float(snip_threshold(ref["sal"], SPARSITY))
+    flips = {run: sum(int(((v > thr) != (ref["sal"][p] > thr)).sum())
+                      for p, v in res[run]["sal"].items()) for run in ("cuda", "cpu", "tf32")}
+    n = sum(m.numel() for m in snip.values())
+    for stage, what in (("sal", "SNIP saliencies"),
+                        ("after_snip", "parameters and running statistics after train_snip "
+                                       "(2 steps, lr 0.1)"),
+                        ("params", "the same after one run_magnitude iteration (2 steps, "
+                                   "50% -> 60%; where the masks agree)")):
+        d = dist[stage]
+        print(f"train driver, {CNN_MODEL} full depth, B={CNN_CUT_BATCH}: {what}, relative L2 "
+              f"from the CPU's f64 run: the card's f32 {d['cuda']:.3e}, the CPU's f32 "
+              f"{d['cpu']:.3e} (the card's within 2x of it), the card with cuDNN TF32 "
+              f"{d['tf32']:.3e} ({card})")
+        assert d["cuda"] <= 2 * d["cpu"], (stage, d)
+    print(f"SNIP masks at {SPARSITY} against the f64 run's threshold: the card's f32 "
+          f"{flips['cuda']}, the CPU's f32 {flips['cpu']}, TF32 {flips['tf32']} of {n} differ; "
+          f"magnitude masks differing from the f64 run's: "
+          + ", ".join(f"{r} {sum(int((res[r]['masks'][k] != m).sum()) for k, m in ref['masks'].items())}"
+                      for r in ("cuda", "cpu", "tf32"))
+          + f"; seconds: card {res['cuda']['secs']:.1f}, CPU f32 {res['cpu']['secs']:.1f}, "
+            f"CPU f64 {ref['secs']:.1f} ({card})")
+    # bf16 loss and gradients at the card's SNIP-trained state
+    state, xb = res["cuda"]["after_snip"], tuple(t.cpu() for t in batch)
+    grads = {}
+    for run, dev, dtype in (("card", res["cuda"]["device"], torch.bfloat16),
+                            ("cpu", "cpu", torch.bfloat16), ("f64", "cpu", torch.float32)):
+        model = build_model(CNN_MODEL).module()
+        model.load_state_dict(state)
+        model = model.to(device=dev, dtype=torch.float64 if run == "f64" else None)
+        out = loss_and_grads(model, {k: m.to(dev) for k, m in snip.items()},
+                             tuple(t.to(dev) for t in xb), 1000, compute_dtype=dtype)
+        grads[run] = (float(out[0]), {k: g.cpu() for k, g in out[2].items()})
+        del model
+    loss_gap = abs(grads["card"][0] - grads["cpu"][0])
+    g_card, g_cpu = (rel_l2(grads[r][1], grads["f64"][1]) for r in ("card", "cpu"))
+    print(f"cpu-vs-card train {CNN_MODEL} bf16 B={CNN_CUT_BATCH}: loss {grads['card'][0]:.5f} vs "
+          f"{grads['cpu'][0]:.5f} (gap {loss_gap:.2e}, tol 2e-2 relative); gradients relative "
+          f"L2 from the f64 gradients: the card's {g_card:.3e}, the CPU's bf16 {g_cpu:.3e} "
+          f"(the card's within 2x of it) ({card})")
+    assert loss_gap <= 2e-2 * abs(grads["cpu"][0]), loss_gap
+    assert g_card <= 2 * g_cpu, (g_card, g_cpu)
+
+
+def cnn_phase(card, counters):
+    """Phase 13: the CNN families through the entry points, ResNet-50 at
+    full width and depth (1000 classes, the CLI's seed-42 weights), 224x224,
+    ``--amp --batch-size 128 --workers 8`` on phase 12's ImageFolder (1024
+    train, 256 val symlinks to the 8 fixture JPEGs): ``train`` SNIP to 50%
+    for one epoch, then LRR (rate 0.2, threshold 36: two iterations of one
+    epoch; threshold 35.9, as two rounds leave just under 36%); ``evaluate
+    --amp`` over the LRR checkpoints; ``lost --arch resnet --model resnet50
+    --resnet-dilate 2 --dtype bf16`` from the iteration-01
+    checkpoint and ``lost --arch vgg16 --model vgg16_bottom --dtype bf16``
+    from a seed-0 .pth with a 50% global magnitude mask, on N_JPEG_SHORT of
+    phase 6's JPEGs. Checks: no attention or fused-MLP launch in any run,
+    the first train and val batches equal to the CPU loader's, finite bf16
+    losses, pruned slots zero in every LRR checkpoint and at their initial
+    weights in the SNIP ones, performance.txt's sparsities those of the
+    checkpoints, evaluate's acc1 equal to the training run's, preds.pkl and
+    the results txt against ``corloc``, the first LOST batch against
+    ``make_batched_cnn_pipeline``; the driver card vs CPU against an f64
+    run (``cnn_driver_card_vs_cpu``); LOST f32 at B=4 card vs CPU on two bucket
+    shapes. Prints train e2e, step, decode-only and evaluate img/s, the
+    CNN LOST pipeline's img/s at B=128, the CLI's e2e img/s and the peak
+    device memory."""
+    import dataclasses
+    import json
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import (export_resnet, export_vgg16,
+                                              save_torch_state_dict)
+    from vipers_torch.core.config import TrainConfig
+    from vipers_torch.core.metrics import MetricsWriter
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data.imagefolder import ImageFolder, ImageFolderLoader
+    from vipers_torch.discovery import driver as ldrv
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+    from vipers_torch.discovery.lost import lost_core
+    from vipers_torch.pruning import init_masks, magnitude_prune
+    from vipers_torch.train import driver as tdrv
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="vipers_torch_cnn_")
+    try:
+        data = os.path.join(root, "imagenet")
+        imagefolder_tree(data, N_TRAIN_IMAGES, N_VAL_IMAGES, seed=4)
+        b, m = BATCH, CNN_MODEL
+        common = ["--model", m, "--num-classes", "1000", "--amp", "--batch-size", str(b),
+                  "--workers", "8", "--data-path", data, "--epochs", "1", "--print-freq", "4"]
+        cfg = TrainConfig(model=m, data_path=data, batch_size=b, workers=8, amp=True,
+                          device="cpu")
+        steps, evals = N_TRAIN_IMAGES // b, -(-N_VAL_IMAGES // b)
+
+        def run_cli(argv):
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            assert cli(argv) == 0
+            torch.cuda.synchronize()
+            n = all_launches(counters)
+            assert n == 0, (argv[0], n)
+            return time.perf_counter() - t0
+
+        ds = ImageFolder(os.path.join(data, "train"))
+        loader = tdrv.train_loader(dataclasses.replace(cfg, workers=8), ds, 0)
+        t0 = time.perf_counter()
+        got = sum(len(lab) for _, lab in ImageFolderLoader(
+            ds, loader.indices[:4 * b], b, loader.decode_fn, num_workers=8, drop_last=True,
+            seed=loader.seed))
+        dec = got / (time.perf_counter() - t0)
+
+        # 1. SNIP, one epoch
+        torch.cuda.reset_peak_memory_stats()
+        snip_out = os.path.join(root, "snip")
+        secs = run_cli(["train", *common, "--pruning-method", "snip", "--target-sparsity",
+                        str(SPARSITY), "--output-dir", snip_out])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        run = dict(tdrv.LAST_RUN)
+        for kind, ld in (("train", tdrv.train_loader(cfg, ds, 0)),
+                         ("val", tdrv.val_loader(cfg, ImageFolder(os.path.join(data, "val"))))):
+            want_i, want_l = next(iter(ld))
+            got_i, got_l = run[f"first_{kind}_batch"]
+            assert got_i.dtype == np.uint8 and np.array_equal(got_i, want_i), kind
+            assert np.array_equal(got_l, want_l), kind
+        e2e = steps * b / (run["t_last_checkpoint"] - run["t_first_decode"])
+        with open(os.path.join(snip_out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        loss = [r["loss"] for r in recs if r["tag"] == "train"]
+        assert len(loss) == 1 and np.isfinite(loss[0]), recs
+        snip_sp = [r["sparsity"] for r in recs if r["tag"] == "prune"][0]
+        init = export_resnet(build_model(m).init(torch.Generator().manual_seed(cfg.seed)))
+        init = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in init.items()}
+        for stem in ("epoch_0", "checkpoint"):
+            check_checkpoint(os.path.join(snip_out, f"{m}_{stem}_snip_{SPARSITY}.pth"),
+                             snip_sp, init=init, model=m)
+        del init
+        print(f"train CLI [snip] {m} bf16 B={b}: {steps} steps, {evals} eval batches, no "
+              f"attention or fused-MLP launch; e2e {e2e:.1f} img/s ({steps * b} images, first "
+              f"decode to the last checkpoint; {secs:.3f} s with the set-up); sparsity "
+              f"{snip_sp:.4f}%, train loss {loss[0]:.4f}; peak device memory {peak:.2f} GiB; "
+              f"first train and val batches equal to the CPU loader's; decode only (the PIL "
+              f"train preset, 8 threads) {dec:.1f} img/s ({card})")
+        shutil.rmtree(snip_out)
+
+        # 2. LRR: two iterations of one epoch
+        lrr_out = os.path.join(root, "lrr")
+        # two rounds of 20% leave just under 36% of ResNet-50's weights
+        # pruned (the counts round), so threshold 36 would take a third round
+        secs = run_cli(["train", *common, "--pruning-method", "magnitude", "--pruning-rate",
+                        "0.2", "--pruning-threshold", "35.9", "--output-dir", lrr_out])
+        run = dict(tdrv.LAST_RUN)
+        rows = MetricsWriter.read_performance_txt(os.path.join(lrr_out, "performance.txt"))
+        assert len(rows) == 2, rows
+        for it, (_, sp) in enumerate(rows):
+            for stem in ("epoch_0", "checkpoint"):
+                check_checkpoint(os.path.join(lrr_out, f"{m}_{stem}_pruning_iteration_"
+                                                       f"{it:02d}.pth"), sp, model=m)
+        e2e_lrr = 2 * steps * b / (run["t_last_checkpoint"] - run["t_first_decode"])
+        print(f"train CLI [magnitude] {m} 2 iterations: e2e {e2e_lrr:.1f} img/s "
+              f"({2 * steps * b} images; {secs:.3f} s with the set-up); performance.txt {rows} "
+              f"({card})")
+
+        # 3. evaluate over the LRR checkpoints
+        ev_out = os.path.join(root, "eval")
+        secs = run_cli(["evaluate", *common, "--models-path", lrr_out, "--output-dir", ev_out])
+        ev_rows = MetricsWriter.read_performance_txt(os.path.join(ev_out, "performance.txt"))
+        assert [a for a, _ in ev_rows] == [a for a, _ in rows], (ev_rows, rows)
+        assert all(abs(e - t) <= 1e-4 for (_, e), (_, t) in zip(ev_rows, rows)), (ev_rows, rows)
+        print(f"evaluate --amp {m} over 2 checkpoints: acc1 and sparsity {ev_rows} (the "
+              f"training run's acc1 equal); {2 * N_VAL_IMAGES / secs:.1f} img/s with the set-up "
+              f"and 2 checkpoint loads ({card})")
+
+        # 4. lost --arch resnet from the iteration-01 checkpoint, --arch vgg16
+        voc = os.path.join(root, "VOC2007")
+        items = voc_tree(voc, N_JPEG_SHORT, seed=3)
+        vgg_pth = os.path.join(root, "vgg16_bottom.pth")
+        vspec = build_model("vgg16_bottom")
+        vparams = vspec.init(torch.Generator().manual_seed(0))
+        vmasks = magnitude_prune(vparams, init_masks(vparams), amount=SPARSITY)
+        save_torch_state_dict(export_vgg16(vparams, vmasks, bake_masks=False), vgg_pth)
+        ckpt = os.path.join(lrr_out, f"{m}_epoch_0_pruning_iteration_01.pth")
+        for tag, arch, model, pth, extra, dilate in (
+                ("resnet", "resnet", m, ckpt, ["--resnet-dilate", str(CNN_DILATE)], CNN_DILATE),
+                ("vgg16", "vgg16", "vgg16_bottom", vgg_pth, [], 1)):
+            out = os.path.join(root, f"lost_{tag}")
+            run_cli(["lost", "--arch", arch, "--model", model, *extra, "--dtype", "bf16",
+                     "--dataset", "VOC07", "--set", "trainval", "--data-path", voc,
+                     "--checkpoint", pth, "--batch-size", str(b), "--workers", "8",
+                     "--output-dir", out])
+            lrun = dict(ldrv.LAST_RUN)
+            rescored, _ = check_cli_outputs(tag, out, voc, "trainval", items, lrun["failed"])
+            check_first_cnn_batch(tag, pth, voc, items, out, lrun["failed"], model, dilate)
+            print(f"lost --arch {arch} --model {model} bf16: {lrun['images']} images, "
+                  f"{lrun['batches']} batches, {len(lrun['failed'])} seeds in the background, "
+                  f"{rescored}; e2e {lrun['images'] / lrun['decode_to_preds_seconds']:.1f} "
+                  f"img/s, no attention or fused-MLP launch ({card})")
+        shutil.rmtree(lrr_out)
+
+        # step img/s: the CLI's session and batch, best of 3 windows of 6 steps
+        s = tdrv.build_session(dataclasses.replace(cfg, device="cuda",
+                                                   output_dir=os.path.join(root, "step")))
+        images, labels = next(iter(tdrv._train_loader(s, 0)))
+        x = s.normalize(images)
+        reset_counts(*counters)
+        s.train_step(s.state, (x, labels))
+        torch.cuda.synchronize()
+        assert all_launches(counters) == 0
+        best = 0.0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(6):
+                s.train_step(s.state, (x, labels))
+            torch.cuda.synchronize()
+            best = max(best, b * 6 / (time.perf_counter() - t1))
+        print(f"train CLI session step {m} 224x224 bf16 {best:.1f} img/s at B={b} "
+              f"({card})")
+        del s, x
+        torch.cuda.empty_cache()
+
+        # the CNN LOST pipeline at B=128 and card vs CPU at B=4, f32
+        spec = build_model(m, dilate=CNN_DILATE)
+        params = spec.init(torch.Generator().manual_seed(0))
+        masks = magnitude_prune(params, init_masks(params), amount=SPARSITY)
+        ex16 = LostFeatureExtractor(spec, params, masks, compute_dtype=torch.bfloat16)
+        rng = np.random.default_rng(9)
+        (key, (imgs, hw)), = cnn_bucket_images(ex16, [(H, W)] * BATCH, rng).items()
+        inp = ex16.prepare_cnn_batch(imgs, key, exact_hw=hw)
+        one = ex16.prepare_cnn_batch(imgs[:1], key, exact_hw=hw[:1])
+        reset_counts(*counters)
+        ips, p50 = throughput(ex16.make_batched_cnn_pipeline(K_PATCHES), inp, one)
+        assert all_launches(counters) == 0
+        print(f"CNN LOST pipeline {m} dilate {CNN_DILATE} bf16 {key[0]}x{key[1]}: {ips:.1f} "
+              f"img/s at B={BATCH}; p50 latency {p50:.2f} ms at B=1 ({card})")
+        del ex16, inp
+        ex32 = LostFeatureExtractor(spec, params, masks)
+        # a landscape and a portrait bucket, exact sizes below the canonical input
+        mixed = [(int(rng.integers(H - 63, H + 1)), int(rng.integers(W - 47, W + 1)))
+                 for _ in range(N_CPU)] + [(int(rng.integers(W - 23, W + 1)),
+                                            int(rng.integers(H - 63, H - 11))) for _ in range(N_CPU)]
+        buckets = cnn_bucket_images(ex32, mixed, rng)
+        assert len(buckets) == 2, list(buckets)
+        compare_cnn_with_cpu(f"{m} f32 dilate {CNN_DILATE}", spec, params, masks, ex32, buckets,
+                             lost_core)
+        del ex32
+        torch.cuda.empty_cache()
+
+        # the f32 driver, card vs CPU, at full depth
+        cut = os.path.join(root, "cut")
+        imagefolder_tree(cut, 2 * CNN_CUT_BATCH, CNN_CUT_BATCH, seed=5)
+        cnn_driver_card_vs_cpu(card, root, cut)
+        print(f"phase 13 CNN families: no attention or fused-MLP launch; "
+              f"{time.time() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(root)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2444,6 +2945,9 @@ def main():
     # 12. prune -> train -> evaluate -> LOST through the CLI, ViT-B/16
     train_cli_runs = train_cli_phase(card, counters)
     lap(12)
+    # 13. the CNN families (ResNet-50, VGG16) through train, evaluate, lost
+    cnn_phase(card, counters)
+    lap(13)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove

@@ -837,3 +837,42 @@ def test_train_cli_launches_the_training_kernels(cuda, tmp_path):
     with open(tmp_path / "out" / "metrics.jsonl") as f:
         train = [r for r in map(json.loads, f) if r["tag"] == "train"]
     assert len(train) == 1 and np.isfinite(train[0]["loss"])
+
+
+def test_f32_convolutions_run_as_exact_f32(cuda):
+    """cuDNN allows TF32 convolutions by default; the port's f32 scope
+    (``models.cnn.exact_f32_convs``) turns them off for its forward and
+    backward and restores the switch after. Inside it a ResNet-50 stem
+    convolution and its input gradient sit within 1e-5 of their scale of
+    an f64 run; with TF32 on, 10x farther at least. In bf16 the scope
+    changes nothing."""
+    from vipers_torch.models.cnn import exact_f32_convs
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x64 = torch.randn(8, 64, 56, 56, generator=g, dtype=torch.float64)
+    w64 = torch.randn(64, 64, 3, 3, generator=g, dtype=torch.float64) / 24
+
+    def conv(dtype):
+        x = x64.to(cuda, dtype).requires_grad_(True)
+        y = torch.nn.functional.conv2d(x, w64.to(cuda, dtype), padding=1)
+        gx, = torch.autograd.grad(y.square().sum(), x)
+        return y.double().cpu(), gx.double().cpu()
+
+    y_ref, g_ref = conv(torch.float64)
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with exact_f32_convs(torch.float32):
+            assert not torch.backends.cudnn.allow_tf32
+            y, gx = conv(torch.float32)
+        assert torch.backends.cudnn.allow_tf32
+        y_tf, g_tf = conv(torch.float32)
+        with exact_f32_convs(torch.bfloat16):
+            assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    for got, tf, ref in ((y, y_tf, y_ref), (gx, g_tf, g_ref)):
+        scale = ref.abs().max().item()
+        err, tf_err = (got - ref).abs().max().item(), (tf - ref).abs().max().item()
+        assert err <= 1e-5 * scale, (err, scale)
+        assert tf_err >= 10 * err, (tf_err, err)

@@ -145,7 +145,7 @@ def _seeds_and_scores(voc, im_name):
 
     img, hw = native.decode_pad(os.path.join(voc["data"], "JPEGImages", im_name), 16)
     spec = build_model("vit_s_16")
-    params, masks = load_lost_checkpoint(voc["pth"], spec)
+    params, _, masks = load_lost_checkpoint(voc["pth"], spec)
     tex = LostFeatureExtractor(spec, params, masks, device="cpu")
     tin = tex.prepare_batch([img], 16, exact_hw=[hw])
     tseed = int(tex.make_batched_pipeline()(*tin)[1][0])
@@ -257,13 +257,16 @@ def test_seed_in_background_collected_or_strict(voc, monkeypatch, tmp_path, caps
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "dino"], "A2"), (["--arch", "resnet"], "A5"), (["--arch", "swin"], "A6"),
-    (["--model", "resnet50"], "A5"), (["--model", "dino_vit_small"], "A2"),
+    (["--arch", "dino"], "A2"), (["--arch", "resnet", "--exact-shapes"], "A5"),
+    (["--arch", "swin"], "A6"),
+    (["--model", "mobilenet_v2"], "A5"), (["--model", "dino_vit_small"], "A2"),
     (["--dtype", "int8"], "A9"),
     (["--visualize", "pred"], "A11"), (["--dinoseg"], "A2"),
     (["--dinoseg-reference-bugs"], "A2"), (["--data-parallel"], "A10"),
-    (["--sequence-parallel"], "A10"), (["--resnet-dilate", "2"], "A5"),
-    (["--cnn-bucket", "2"], "A5"), (["--exact-shapes"], "A5"),
+    (["--sequence-parallel"], "A10"),
+    (["--arch", "resnet", "--model", "resnet50", "--resnet-dilate", "2", "--cnn-bucket", "1"],
+     "A5"),
+    (["--cnn-bucket", "1"], "A5"), (["--exact-shapes"], "A5"),
     (["--swin-all-windows"], "A6")])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):

@@ -73,7 +73,7 @@ def _saliencies(setup):
         jsal = jsnip.snip_saliency(_jax_loss(jspec), params, (jnp.asarray(x), jnp.asarray(y)),
                                    masks=base)
         tbase = {p: torch.from_numpy(np.array(m)) for p, m in base.items()}
-        tsal = tsnip.snip_saliency(tsnip.vit_snip_loss(tspec, CLASSES), _torch_params(params),
+        tsal = tsnip.snip_saliency(tsnip.snip_loss(tspec, CLASSES), _torch_params(params),
                                    (torch.from_numpy(x), torch.from_numpy(y).long()),
                                    masks=tbase)
         _SAL[key] = ({p: np.asarray(s) for p, s in jsal.items()}, tsal)
@@ -89,7 +89,7 @@ def _run(setup, target):
     jsal, tsal = _saliencies(setup)
     thr = jsnip.snip_threshold({p: jnp.asarray(s) for p, s in jsal.items()}, target)
     jmasks = {p: s > np.asarray(thr) for p, s in jsal.items()}
-    tmasks = tsnip.snip_prune(tsnip.vit_snip_loss(tspec, CLASSES), _torch_params(params),
+    tmasks = tsnip.snip_prune(tsnip.snip_loss(tspec, CLASSES), _torch_params(params),
                               (torch.from_numpy(x), torch.from_numpy(y).long()), target,
                               tspec.prune_exclude)
     return jsal, tsal, jmasks, tmasks
@@ -146,7 +146,7 @@ def test_snip_reaches_every_block_and_runs_on_the_params_device(setup):
     pruned flax paths are exactly the JAX package's prunable kernels."""
     jspec, tspec, params, (x, y) = setup
     tparams = _torch_params(params)
-    sal = tsnip.snip_saliency(tsnip.vit_snip_loss(tspec, CLASSES), tparams,
+    sal = tsnip.snip_saliency(tsnip.snip_loss(tspec, CLASSES), tparams,
                               (torch.from_numpy(x), torch.from_numpy(y).long()))
     want = set(jsnip.M.prunable_paths(params))
     assert set(sal) == want

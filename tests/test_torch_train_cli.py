@@ -164,12 +164,12 @@ def test_train_and_evaluate_default_device_raise_without_a_card(data, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    ([], "A5"),  # the default --model, resnet18
-    (["--model", "vgg16"], "A5"),
+    (["--model", "mobilenet_v2"], "A5"),
+    (["--model", "resnet50", "--data-parallel"], "A10"),  # the CNNs pass the model check
     (["--model", "swin_v2_t"], "A6"),
     (["--model", "dino_vit_small"], "A2"),
     (["--model", "quantized_resnet18"], "A9"),
-    (["--model", NAME, "--resnet-dilate", "2"], "A5"),
+    (["--model", "resnet18", "--resnet-dilate", "2", "--debug-nans"], "A11"),
     (["--model", NAME, "--pipeline-parallel", "2"], "A10"),
     (["--model", NAME, "--pp-remat"], "A10"),
     (["--model", NAME, "--pp-data", "2"], "A10"),
@@ -183,6 +183,28 @@ def test_train_and_evaluate_default_device_raise_without_a_card(data, tmp_path):
 def test_unported_flags_exit_naming_their_item(cmd, argv, item, tmp_path):
     with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP {item}\)"):
         tmain([cmd, *argv, "--output-dir", str(tmp_path / "out"), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("model", ["vgg16", "vgg16_bottom"])
+def test_vgg_training_exits_naming_a8(model, tmp_path):
+    """VGG trains with dropout in the JAX package; the port has none yet."""
+    with pytest.raises(SystemExit, match=r"training --model vgg16.*\(ROADMAP A8\)"):
+        tmain(["train", "--model", model, "--output-dir", str(tmp_path / "out"),
+               "--device", "cpu"])
+
+
+def test_resnet_dilate_applies_to_resnets_only():
+    """``--resnet-dilate`` builds a dilated ResNet and is ignored for a
+    ViT, as the JAX driver ignores it there."""
+    from vipers_torch.core.config import TrainConfig, refuse_unported
+    from vipers_torch.train.driver import model_spec
+
+    for model, want in (("resnet50", (False, True, True)), (NAME, None)):
+        cfg = TrainConfig(model=model, num_classes=2, resnet_dilate=4, device="cpu")
+        refuse_unported(cfg)
+        spec = model_spec(cfg, 32)
+        got = getattr(spec.cfg, "replace_stride_with_dilation", None)
+        assert got == want and spec.num_classes == 2
 
 
 def test_slimmed_resume_exits_naming_a4(data, tmp_path):

@@ -1,5 +1,6 @@
-"""Weights carried across from the JAX package (port of the ViT part of
-``vipers/core/checkpoint.py``).
+"""Weights carried across from the JAX package (port of the ViT, ResNet
+and VGG parts of ``vipers/core/checkpoint.py``, with the exporters the
+JAX package lacks).
 
 A flax ViT parameter tree (nested dict of numpy arrays or tensors, conv
 kernels HWIO, dense kernels (in, out)) plus optional pruning masks (flat
@@ -29,13 +30,23 @@ The reverse direction serves training and its tests:
 flax tree (the layout magnitude pruning ranks in), and
 ``vit_masks_to_state_dict`` / ``vit_masks_from_state_dict`` move masks
 between flax paths and state-dict keys with their layouts.
+
+The CNN families (ResNet, VGG) keep torchvision's names in their modules,
+so their state dict is the torchvision ``.pth``; ``import_resnet`` /
+``import_vgg16`` read one as the JAX package does (running mean and var
+into ``batch_stats``) and ``export_resnet`` / ``export_vgg16`` write it,
+``num_batches_tracked`` included. Callers that serve every family go
+through ``family(spec)``, one ``Family`` of converters a family: the
+module's state dict from flax trees and back, masks both ways, the
+``.pth`` both ways.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,21 +81,45 @@ def _state_key(path) -> str:
     return ".".join(parts)
 
 
-def vit_state_dict_from_flax(params: dict, masks: Optional[dict] = None
-                             ) -> Dict[str, torch.Tensor]:
-    """State dict for ``VisionTransformer.load_state_dict`` from a flax ViT
-    parameter tree, with ``masks`` baked in."""
+def _state_dict_from_flax(state_key, params: dict, batch_stats: Optional[dict] = None,
+                          masks: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """A module state dict from flax trees: kernels in the module's layout,
+    ``masks`` baked as ``where(mask, w, 0)`` first, the BatchNorm running
+    statistics (``batch_stats``, leaves ``mean`` and ``var``) as buffers.
+    ``state_key`` maps a flax path to its state-dict key."""
     flat = {p: as_tensor(a) for p, a in flatten_dict(params).items()}
     for path, m in (masks or {}).items():
         w = flat[path]
         flat[path] = torch.where(as_tensor(m).to(torch.bool), w,
                                  torch.zeros((), dtype=w.dtype))
+    flat.update({p: as_tensor(a) for p, a in flatten_dict(batch_stats or {}).items()})
     sd = {}
     for path, w in flat.items():
         if path[-1] == "kernel":
             w = _to_state_layout(w)
-        sd[_state_key(path)] = w.contiguous()
+        sd[state_key(path)] = w.contiguous()
     return sd
+
+
+def _trees_from_state_dict(flax_path, sd):
+    """The inverse of ``_state_dict_from_flax`` (without masks): (params,
+    batch_stats or None) flax trees of tensors from a state dict or
+    ``named_parameters`` mapping; ``flax_path(key, ndim)`` maps a key back."""
+    params, stats = {}, {}
+    for key, w in dict(sd).items():
+        w = w.detach()
+        path = flax_path(key, w.dim())
+        if path[-1] == "kernel":
+            w = _to_flax_layout(w)
+        (stats if path[-1] in ("mean", "var") else params)[path] = w.contiguous()
+    return unflatten_dict(params), (unflatten_dict(stats) if stats else None)
+
+
+def vit_state_dict_from_flax(params: dict, masks: Optional[dict] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """State dict for ``VisionTransformer.load_state_dict`` from a flax ViT
+    parameter tree, with ``masks`` baked in."""
+    return _state_dict_from_flax(_state_key, params, None, masks)
 
 
 def _flax_path(key: str, ndim: int):
@@ -100,14 +135,7 @@ def flax_tree_from_vit_state_dict(sd) -> dict:
     """The inverse of ``vit_state_dict_from_flax`` (without masks): a flax
     ViT parameter tree of tensors from a state dict or ``named_parameters``
     mapping; one-dimensional ``weight``s are LayerNorm scales."""
-    flat = {}
-    for key, w in dict(sd).items():
-        w = w.detach()
-        path = _flax_path(key, w.dim())
-        if path[-1] == "kernel":
-            w = _to_flax_layout(w)
-        flat[path] = w.contiguous()
-    return unflatten_dict(flat)
+    return _trees_from_state_dict(_flax_path, sd)[0]
 
 
 def vit_masks_to_state_dict(masks: dict) -> Dict[str, torch.Tensor]:
@@ -304,23 +332,255 @@ def save_torch_state_dict(sd: Dict[str, np.ndarray], path) -> None:
     torch.save({k: torch.tensor(np.asarray(v)) for k, v in sd.items()}, path)
 
 
+# ---------------------------- the CNN families ------------------------------
+#
+# The port's ResNet and VGG modules carry torchvision's state-dict names, so
+# their state dict is the torchvision .pth (plus ``num_batches_tracked``);
+# flax paths differ only in the names of blocks and leaves.
+
+_TO_STATE_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+                  "var": "running_var"}
+_RESNET_TO_STATE = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+
+
+def _leaf_path(parts: list, ndim: int) -> tuple:
+    """A state-dict leaf back to flax: a 1-D ``weight`` is a norm's scale."""
+    leaf = {"weight": "scale" if ndim == 1 else "kernel", "running_mean": "mean",
+            "running_var": "var"}.get(parts[-1], parts[-1])
+    return tuple(parts[:-1] + [leaf])
+
+
+def _resnet_key(path) -> str:
+    """``layer1_0/downsample_bn/scale`` -> ``layer1.0.downsample.1.weight``."""
+    parts = list(path)
+    m = re.fullmatch(r"layer(\d+)_(\d+)", parts[0])
+    if m:
+        parts[0:1] = [f"layer{m.group(1)}", m.group(2)]
+    parts = [_RESNET_TO_STATE.get(p, p) for p in parts[:-1]]
+    return ".".join(parts + [_TO_STATE_LEAF.get(path[-1], path[-1])])
+
+
+def _resnet_path(key: str, ndim: int) -> tuple:
+    key = re.sub(r"^layer(\d+)\.(\d+)\.", r"layer\1_\2.", key)
+    for flax_name, state in _RESNET_TO_STATE.items():
+        key = key.replace(f".{state}.", f".{flax_name}.")
+    return _leaf_path(key.split("."), ndim)
+
+
+# torchvision vgg16: the conv layers' indices in ``features``, the Linear
+# layers' in ``classifier``
+_VGG_CONV = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_VGG_FC = {"fc1": "classifier.0", "fc2": "classifier.3", "fc3": "classifier.6"}
+
+
+def _vgg_key(path) -> str:
+    m = re.fullmatch(r"conv_(\d+)", path[0])
+    head = f"features.{_VGG_CONV[int(m.group(1))]}" if m else _VGG_FC[path[0]]
+    return f"{head}.{_TO_STATE_LEAF.get(path[-1], path[-1])}"
+
+
+def _vgg_path(key: str, ndim: int) -> tuple:
+    base, leaf = key.rsplit(".", 1)
+    if base.startswith("features."):
+        head = f"conv_{_VGG_CONV.index(int(base.split('.')[1]))}"
+    else:
+        head = {v: k for k, v in _VGG_FC.items()}[base]
+    return _leaf_path([head, leaf], ndim)
+
+
+def import_resnet(sd: Dict[str, np.ndarray], stage_sizes, headless: bool = False):
+    """torchvision resnet{18,34,50} keys -> (params, batch_stats, masks): the
+    flax trees of the JAX package's ``import_resnet`` (running mean and var
+    into ``batch_stats``) and its flat {path: bool array} masks. A headless
+    model takes no ``fc``."""
+    p, bs, masks = {}, {}, {}
+
+    def put_conv(tkey, path):
+        p[path + ("kernel",)] = _conv_w(sd[tkey + ".weight"])
+        m = sd.get(tkey + ".weight.__mask__")
+        if m is not None:
+            masks[path + ("kernel",)] = _conv_w(m)
+
+    def put_bn(tkey, path):
+        p[path + ("scale",)] = sd[tkey + ".weight"]
+        p[path + ("bias",)] = sd[tkey + ".bias"]
+        bs[path + ("mean",)] = sd[tkey + ".running_mean"]
+        bs[path + ("var",)] = sd[tkey + ".running_var"]
+
+    put_conv("conv1", ("conv1",))
+    put_bn("bn1", ("bn1",))
+    n_convs = 3 if any(k.startswith("layer1.0.conv3") for k in sd) else 2
+    for stage, blocks in enumerate(stage_sizes, start=1):
+        for b in range(blocks):
+            t, o = f"layer{stage}.{b}", (f"layer{stage}_{b}",)
+            for ci in range(1, n_convs + 1):
+                put_conv(f"{t}.conv{ci}", o + (f"conv{ci}",))
+                put_bn(f"{t}.bn{ci}", o + (f"bn{ci}",))
+            if f"{t}.downsample.0.weight" in sd:
+                put_conv(f"{t}.downsample.0", o + ("downsample_conv",))
+                put_bn(f"{t}.downsample.1", o + ("downsample_bn",))
+    if "fc.weight" in sd and not headless:
+        p[("fc", "kernel")] = np.transpose(sd["fc.weight"])
+        p[("fc", "bias")] = sd["fc.bias"]
+        if "fc.weight.__mask__" in sd:
+            masks[("fc", "kernel")] = np.transpose(sd["fc.weight.__mask__"])
+    return unflatten_dict(p), unflatten_dict(bs), masks
+
+
+def import_vgg16(sd: Dict[str, np.ndarray], headless: bool = False):
+    """torchvision vgg16 (``features.{0,2,...,28}``, ``classifier.{0,3,6}``)
+    -> (params, masks), as the JAX package's ``import_vgg16``: the
+    convolutions' masks are carried, the classifier's are not."""
+    p, masks = {}, {}
+    for i, ti in enumerate(_VGG_CONV):
+        p[(f"conv_{i}", "kernel")] = _conv_w(sd[f"features.{ti}.weight"])
+        p[(f"conv_{i}", "bias")] = sd[f"features.{ti}.bias"]
+        if f"features.{ti}.weight.__mask__" in sd:
+            masks[(f"conv_{i}", "kernel")] = _conv_w(sd[f"features.{ti}.weight.__mask__"])
+    if not headless and "classifier.0.weight" in sd:
+        for ok, tk in _VGG_FC.items():
+            p[(ok, "kernel")] = np.transpose(sd[f"{tk}.weight"])
+            p[(ok, "bias")] = sd[f"{tk}.bias"]
+    return unflatten_dict(p), masks
+
+
+def _export_cnn(state_key, params, batch_stats=None, masks=None, bake_masks: bool = True
+                ) -> Dict[str, np.ndarray]:
+    """A flax CNN tree -> its torchvision state dict of numpy arrays: f32
+    weights, ``masks`` baked by multiplication or written as ``<key>_orig``
+    / ``<key>_mask`` (the pruned form ``normalize_torch_state_dict``
+    resolves), and for every BatchNorm its running statistics (``batch_stats``,
+    else mean 0 and var 1) and ``num_batches_tracked`` (0), so a torchvision
+    model loads it strictly."""
+    def f32(a):
+        return np.asarray(a.detach().cpu() if hasattr(a, "detach") else a, np.float32)
+
+    p = {path: f32(a) for path, a in flatten_dict(params).items()}
+    masks = {tuple(k): f32(m) for k, m in (masks or {}).items() if tuple(k) in p}
+    stats = {path: f32(a) for path, a in flatten_dict(batch_stats or {}).items()}
+    sd: Dict[str, np.ndarray] = {}
+    for path, w in p.items():
+        m = masks.get(path)
+        if m is not None and bake_masks:
+            w = w * m
+        layout = _conv_w_inv if w.ndim == 4 else np.transpose
+        key = state_key(path)
+        if path[-1] == "kernel":
+            w = layout(w)
+        if m is not None and not bake_masks:
+            sd[f"{key}_orig"], sd[f"{key}_mask"] = w, layout(m)
+        else:
+            sd[key] = w
+        if path[-1] == "scale":  # a BatchNorm
+            bn = path[:-1]
+            for leaf, init in (("mean", np.zeros_like(w)), ("var", np.ones_like(w))):
+                sd[state_key(bn + (leaf,))] = stats.get(bn + (leaf,), init)
+            sd[key[:-len("weight")] + "num_batches_tracked"] = np.zeros((), np.int64)
+    return sd
+
+
+def export_resnet(params, batch_stats=None, masks=None, bake_masks: bool = True
+                  ) -> Dict[str, np.ndarray]:
+    """The inverse of ``import_resnet``: a torchvision ResNet state dict."""
+    return _export_cnn(_resnet_key, params, batch_stats, masks, bake_masks)
+
+
+def export_vgg16(params, masks=None, bake_masks: bool = True) -> Dict[str, np.ndarray]:
+    """The inverse of ``import_vgg16``: a torchvision vgg16 state dict."""
+    return _export_cnn(_vgg_key, params, None, masks, bake_masks)
+
+
+# ------------------------- one table of converters --------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """How one family's flax trees meet the module's state dict and the
+    torchvision ``.pth``. ``state_key(path)`` maps a flax path to its
+    state-dict key and ``flax_path(key, ndim)`` back; ``import_pth(sd,
+    spec)`` reads a normalized torchvision state dict into (params,
+    batch_stats or None, masks) and ``export_pth(params, batch_stats,
+    masks, bake_masks)`` writes one."""
+
+    state_key: Callable
+    flax_path: Callable
+    import_pth: Callable
+    export_pth: Callable
+
+    def state_dict(self, params, batch_stats=None, masks=None) -> Dict[str, torch.Tensor]:
+        """The module's state dict (masks baked; buffers from
+        ``batch_stats`` where given)."""
+        return _state_dict_from_flax(self.state_key, params, batch_stats, masks)
+
+    def trees(self, sd):
+        """(params, batch_stats or None) flax trees of a state dict."""
+        return _trees_from_state_dict(self.flax_path, sd)
+
+    def masks_to_state_dict(self, masks: dict) -> Dict[str, torch.Tensor]:
+        """Flax-path masks -> {state-dict key: bool mask in the module's layout}."""
+        return {self.state_key(p): _to_state_layout(as_tensor(m).to(torch.bool)).contiguous()
+                for p, m in masks.items()}
+
+    def masks_from_state_dict(self, masks: dict) -> dict:
+        return {self.flax_path(k, m.dim()): _to_flax_layout(m).contiguous()
+                for k, m in masks.items()}
+
+
+def _import_vit(sd, spec):
+    params, masks = import_vit_torchvision(sd, spec.cfg.num_layers)
+    return params, None, masks
+
+
+def _export_vit(params, batch_stats, masks, bake_masks):
+    return export_vit_torchvision(params, masks, bake_masks)
+
+
+def _import_vgg(sd, spec):
+    params, masks = import_vgg16(sd, spec.cfg.headless)
+    return params, None, masks
+
+
+def _export_vgg(params, batch_stats, masks, bake_masks):
+    return export_vgg16(params, masks, bake_masks)
+
+
+def _import_resnet(sd, spec):
+    return import_resnet(sd, spec.cfg.stage_sizes, spec.cfg.headless)
+
+
+FAMILIES = {
+    "vit": Family(_state_key, _flax_path, _import_vit, _export_vit),
+    "resnet": Family(_resnet_key, _resnet_path, _import_resnet, export_resnet),
+    "vgg": Family(_vgg_key, _vgg_path, _import_vgg, _export_vgg),
+}
+
+
+def family(spec) -> Family:
+    """The converters of ``spec``'s family."""
+    return FAMILIES[spec.family]
+
+
 # ------------------------ the train driver's .pth --------------------------
 
 def save_train_checkpoint(path, state, epoch: int, sparsity: float) -> None:
     """``torch.save`` a ``train.steps.TrainState`` to ``path`` (written to
-    a temporary file, then renamed): the weights unbaked, every masked
-    layer as ``weight_orig`` / ``weight_mask``, the optimizer, the epoch,
-    the step count, the sparsity and the EMA weights if any."""
-    def torchvision(named, masks=None):
-        sd = export_vit_torchvision(flax_tree_from_vit_state_dict(named), masks,
-                                    bake_masks=False)
+    a temporary file, then renamed) through its family's torchvision
+    exporter: the weights unbaked, every masked layer as ``weight_orig`` /
+    ``weight_mask``, the BatchNorm running statistics, the optimizer, the
+    epoch, the step count, the sparsity and the EMA weights and statistics
+    if any."""
+    fam = state.family
+
+    def torchvision(named, stats, masks=None):
+        params, batch_stats = fam.trees({**named, **(stats or {})})
+        sd = fam.export_pth(params, batch_stats, masks, False)
         return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
-    obj = {"model": torchvision(state.params, vit_masks_from_state_dict(state.masks)),
+    obj = {"model": torchvision(state.params, state.batch_stats,
+                                fam.masks_from_state_dict(state.masks)),
            "optimizer": state.opt.state_dict(), "epoch": int(epoch), "step": int(state.step),
            "sparsity": float(sparsity)}
     if state.ema_params is not None:
-        obj["model_ema"] = torchvision(state.ema_params)
+        obj["model_ema"] = torchvision(state.ema_params, state.ema_batch_stats)
     tmp = f"{path}.tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
@@ -342,22 +602,28 @@ def _unbaked(sd) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_train_checkpoint(path, num_layers: int) -> dict:
-    """What ``save_train_checkpoint`` wrote: ``params`` (flax-layout tree,
-    unbaked), ``masks`` ({flax path: bool array}), ``optimizer``,
-    ``epoch``, ``step``, ``sparsity`` and ``ema_params`` (a flax tree or
-    None). A reference ``.pth`` (``{"model": ...}`` or a bare state dict,
-    DDP's ``module.`` stripped) gives its weights and masks, the rest at
-    their defaults."""
+def load_train_checkpoint(path, spec) -> dict:
+    """What ``save_train_checkpoint`` wrote, read through ``spec``'s family:
+    ``params`` (flax-layout tree, unbaked), ``batch_stats`` (a flax tree or
+    None), ``masks`` ({flax path: bool array}), ``optimizer``, ``epoch``,
+    ``step``, ``sparsity``, ``ema_params`` and ``ema_batch_stats`` (flax
+    trees or None). A reference ``.pth`` (``{"model": ...}`` or a bare
+    state dict, DDP's ``module.`` stripped) gives its weights, statistics
+    and masks, the rest at their defaults."""
+    fam = family(spec)
     obj = torch.load(path, map_location="cpu", weights_only=False)
     if "model" not in obj:  # a bare state dict
         obj = {"model": obj}
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v
-          for k, v in obj["model"].items()}
-    params, masks = import_vit_torchvision(_unbaked(sd), num_layers)
-    ema = obj.get("model_ema")
-    return {"params": params, "masks": masks, "optimizer": obj.get("optimizer"),
-            "epoch": int(obj.get("epoch", -1)), "step": int(obj.get("step", 0)),
-            "sparsity": float(obj.get("sparsity", 0.0)),
-            "ema_params": (import_vit_torchvision(_unbaked(ema), num_layers)[0]
-                           if ema is not None else None)}
+
+    def trees(sd):
+        sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+        return fam.import_pth(_unbaked(sd), spec)
+
+    params, batch_stats, masks = trees(obj["model"])
+    ema_params = ema_batch_stats = None
+    if obj.get("model_ema") is not None:
+        ema_params, ema_batch_stats, _ = trees(obj["model_ema"])
+    return {"params": params, "batch_stats": batch_stats, "masks": masks,
+            "optimizer": obj.get("optimizer"), "epoch": int(obj.get("epoch", -1)),
+            "step": int(obj.get("step", 0)), "sparsity": float(obj.get("sparsity", 0.0)),
+            "ema_params": ema_params, "ema_batch_stats": ema_batch_stats}

@@ -4,9 +4,11 @@ package's flags and defaults, plus ``--device``.
 
 The port trains one model on one device. ``refuse_unported`` exits,
 naming the ROADMAP item that ports it, for a flag that selects what the
-port does not have yet: another family than the ViTs (A2, A5, A6, A9), the
-multi-device flags (A10), ``--profile-dir`` and ``--debug-nans`` (A11) and a
-structurally slimmed checkpoint (A4).
+port does not have yet: a family other than the ViTs, the ResNets and VGG
+(A2, A5, A6, A9), training VGG (its dropout, A8), the multi-device flags
+(A10), ``--profile-dir`` and ``--debug-nans`` (A11) and a structurally
+slimmed checkpoint (A4). ``--resnet-dilate`` applies to the ResNets; the
+other families ignore it, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -120,8 +122,8 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--cache-dataset", default="",
                    help="dir for the sha1-keyed file-listing cache")
     p.add_argument("--resnet-dilate", type=int, default=1, choices=[1, 2, 4],
-                   help="replace_stride_with_dilation for evaluation sweeps (ResNets, "
-                        "not ported yet: ROADMAP A5)")
+                   help="replace_stride_with_dilation of the ResNets (dilated evaluation "
+                        "sweeps); other families ignore it")
     p.add_argument("--eval-dataset", default="imagenet", choices=["imagenet", "voc"],
                    help="evaluate the sweep on the ImageFolder val split or on VOC")
     p.add_argument("--model-ema", action="store_true")
@@ -172,8 +174,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 
 # the JAX registry's other families, by name prefix: the ROADMAP item that
 # ports each
-_FAMILY_ITEMS = (("resnet", 5), ("vgg", 5), ("mobilenet", 5), ("swin", 6), ("dino", 2),
-                 ("quantized_", 9))
+_FAMILY_ITEMS = (("mobilenet", 5), ("swin", 6), ("dino", 2), ("quantized_", 9))
 
 
 def refuse_unported(cfg: TrainConfig, cmd: str = "train"):
@@ -185,14 +186,14 @@ def refuse_unported(cfg: TrainConfig, cmd: str = "train"):
     from vipers_torch.core.registry import build_model
 
     try:
-        build_model(cfg.model)
+        spec = build_model(cfg.model)
     except ValueError:
         item = next((i for f, i in _FAMILY_ITEMS if cfg.model.lower().startswith(f)), None)
         if item is None:
             raise SystemExit(f"vipers_torch {cmd}: unknown model {cfg.model!r}") from None
         no(f"--model {cfg.model}", item)
-    if cfg.resnet_dilate != 1:
-        no("--resnet-dilate (ResNets)", 5)
+    if cmd == "train" and spec.family == "vgg":
+        no(f"training --model {cfg.model} (its dropout)", 8)
     if (cfg.pipeline_parallel or cfg.pp_microbatch or cfg.pp_remat or cfg.pp_data
             or cfg.data_parallel or cfg.model_parallel != 1):
         no("multi-device training (--pipeline-parallel, --pp-*, --data-parallel, "

@@ -24,7 +24,9 @@ class ModelSpec:
 
     ``prune_exclude``: substrings; a parameter path containing one is never
     pruned even if it is a conv/dense kernel (``("qkv",)`` on ViTs: the
-    reference never prunes the attention in-projection)."""
+    reference never prunes the attention in-projection). ``family`` ("vit",
+    "resnet", "vgg") picks the weight converters of ``core.checkpoint``;
+    ``num_classes`` is the head's width, 0 for a headless model."""
 
     name: str
     cfg: Any
@@ -33,6 +35,8 @@ class ModelSpec:
     input_size: tuple = (224, 224)
     prune_exclude: Sequence[str] = ()
     patch_size: Optional[int] = None
+    family: str = ""
+    num_classes: int = 1000
 
 
 def register_model(name: Optional[str] = None):
@@ -59,4 +63,4 @@ def build_model(name: str, **kwargs) -> ModelSpec:
 
 
 def _ensure_builtins_imported():
-    from vipers_torch.models import vit  # noqa: F401  (registers builders)
+    from vipers_torch.models import resnet, vgg, vit  # noqa: F401  (registers builders)

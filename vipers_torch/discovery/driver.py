@@ -1,4 +1,5 @@
-"""LOST driver for the ViT (port of the ``arch="vit"`` batched path of
+"""LOST driver for the ViTs and the CNN families (port of the batched
+``arch="vit"``, ``"resnet"`` and ``"vgg16"`` paths of
 ``vipers/discovery/driver.py``).
 
 ``LostFeatureExtractor.make_batched_pipeline`` is the product path: the
@@ -9,6 +10,16 @@ and background flags return to the host. Inputs come from
 (normalized on the device) or already-normalized float, sent to the card
 from pinned memory without a host sync, so assembling batch k+1 overlaps
 batch k.
+
+``make_batched_cnn_pipeline`` is the CNN counterpart (``--arch resnet``,
+``--arch vgg16``): the masked CNN forward on images zero-padded to their
+bucket's canonical input (``cnn_bucket_key``: the feature grid rounded up
+to a ``--cnn-bucket`` multiple), the reference's whole-slab LayerNorm over
+each image's valid feature cells (``masked_slab_layernorm``, in the
+features' dtype: f32 for a ResNet, whose BatchNorm outputs f32, bf16 for
+VGG under ``--dtype bf16``) and the batched LOST core. Feature extents
+come from the module's arithmetic (``feature_extent``), where the JAX
+package traces ``eval_shape``.
 
 ``run_lost`` is ``vipers_torch lost``: JPEGs decoded on a thread pool in
 dataset order (``_prefetch_decoded``), per-bucket buffers of
@@ -30,10 +41,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vipers_torch.core.checkpoint import (import_vit_torchvision, infer_num_classes,
+from vipers_torch.core.checkpoint import (family, infer_num_classes,
                                           infer_representation_size, infer_vit_image_size,
-                                          load_torch_state_dict, reference_sweep_stem,
-                                          vit_state_dict_from_flax)
+                                          load_torch_state_dict, reference_sweep_stem)
 from vipers_torch.core.device import resolve_device
 from vipers_torch.core.registry import build_model
 from vipers_torch.data import native
@@ -41,6 +51,7 @@ from vipers_torch.data.detection import DiscoveryDataset, load_image_normalized
 from vipers_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD, bucket_hw
 from vipers_torch.discovery.corloc import CorLocAccumulator
 from vipers_torch.discovery.lost import box_feat_to_image, lost_core
+from vipers_torch.models.cnn import exact_f32_convs
 from vipers_torch.models.interpolate import resize_weight_matrix_np
 from vipers_torch.models.vit import scrambled_qkv_gather
 from vipers_torch.ops.flash_attention import flash_min_t
@@ -69,6 +80,16 @@ def device_normalize(images, pixel_hw):
     return x
 
 
+def masked_slab_layernorm(f, mf, cnt):
+    """The reference's LayerNorm over each image's whole (tokens, dim) slab
+    with identity affine, over its VALID cells only: ``f`` (B, T, D), ``mf``
+    the {0, 1} validity mask broadcastable to it, ``cnt`` the valid-element
+    count (B, 1, 1), all in the features' dtype. Pad cells come out zero."""
+    mu = torch.sum(f * mf, dim=(1, 2), keepdim=True) / cnt
+    var = torch.sum(torch.square((f - mu) * mf), dim=(1, 2), keepdim=True) / cnt
+    return ((f - mu) / torch.sqrt(var + 1e-5)) * mf
+
+
 def seq_pad(img_shape, patch: int) -> Optional[int]:
     """128-multiple token padding where the flash kernel engages
     (T >= flash_min_t(); the pipeline never asks for attention probs)."""
@@ -77,27 +98,36 @@ def seq_pad(img_shape, patch: int) -> Optional[int]:
 
 
 class LostFeatureExtractor:
-    """The masked ViT on ``device`` (default ``cuda``; ``"cpu"`` runs the
+    """The masked model on ``device`` (default ``cuda``; ``"cpu"`` runs the
     kernels' plain versions) with the LOST feature and box pipeline.
 
-    ``params`` is a ViT parameter tree in the JAX package's keys and layouts
+    ``params`` is a parameter tree in the JAX package's keys and layouts
     (``spec.init`` or a flax tree converted to numpy), ``masks`` its pruning
-    masks; both are baked into the module once, then cast to
-    ``compute_dtype`` (None = float32)."""
+    masks; both are baked into the module once, then the parameters are
+    cast to ``compute_dtype`` (None = float32). A ResNet's running
+    statistics (``batch_stats``, default mean 0 and var 1) stay f32, as the
+    JAX extractor casts ``params`` only. ``cnn_bucket``: the CNN pipeline's
+    feature-grid bucket (``--cnn-bucket``)."""
 
     def __init__(self, spec, params, masks=None, which_features: str = "k",
                  bucket: int = 4, compute_dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device=None, batch_stats=None, cnn_bucket: int = 4):
         self.device = resolve_device(device)
         self.spec = spec
         self.which = which_features
         self.bucket = bucket
+        self.cnn_bucket = cnn_bucket
         self.compute_dtype = compute_dtype or torch.float32
         model = spec.module()
-        model.load_state_dict(vit_state_dict_from_flax(params, masks))
+        sd = family(spec).state_dict(params, batch_stats, masks)
+        model.load_state_dict({**dict(model.named_buffers()), **sd})
         model.eval().requires_grad_(False)
-        self.model = model.to(device=self.device, dtype=self.compute_dtype)
+        self.model = model.to(self.device)
+        for p in self.model.parameters():
+            p.data = p.data.to(self.compute_dtype)
         self._pos_cache: dict = {}
+        self._fdim_cache: dict = {}
+        self._cnn_stride = None
 
     def _pos_and_mask(self, gh: int, gw: int, GH: int, GW: int):
         """Pos-embeddings interpolated to the valid (gh, gw) grid, scattered
@@ -234,6 +264,129 @@ class LostFeatureExtractor:
 
         return run
 
+    # ---------------------------- the CNN path -----------------------------
+
+    def _cnn_fdim(self, px: int) -> int:
+        """Feature cells along an input axis of ``px`` pixels (the CNNs are
+        h/w-separable, so one 1-D cache covers both axes)."""
+        if px not in self._fdim_cache:
+            self._fdim_cache[px] = self.model.feature_extent(px)
+        return self._fdim_cache[px]
+
+    def _cnn_input_for_fdim(self, px: int, target: int) -> int:
+        """The smallest input extent >= ``px`` whose feature extent is
+        ``target`` (monotone in px; steps of the net's output stride)."""
+        if self._cnn_stride is None:
+            self._cnn_stride = max(
+                round(256 / max(self._cnn_fdim(512) - self._cnn_fdim(256), 1)), 1)
+        s = self._cnn_stride
+        out = px + (target - self._cnn_fdim(px)) * s
+        for _ in range(4):  # land anywhere inside the target step first
+            f = self._cnn_fdim(out)
+            if f == target:
+                break
+            out += (target - f) * s
+        else:
+            raise ValueError(f"no input extent near {px}px maps to {target} feature cells")
+        # the smallest extent on the step: the canonical rule needs its boundary
+        lo = out - s
+        while self._cnn_fdim(lo) >= target:
+            lo -= s
+        hi = out
+        while lo + 1 < hi:
+            mid = (lo + hi) // 2
+            if self._cnn_fdim(mid) >= target:
+                hi = mid
+            else:
+                lo = mid
+        return hi
+
+    def _cnn_canon_input(self, target: int) -> int:
+        """The canonical input extent of a bucket axis: the LARGEST input
+        that maps to ``target`` feature cells, so every image whose feature
+        extent rounds up to ``target`` fits under it (``target * stride``
+        for the ResNets)."""
+        key = ("canon", target)
+        if key not in self._fdim_cache:
+            if self._cnn_stride is None:
+                self._cnn_input_for_fdim(256, self._cnn_fdim(256))
+            px = self._cnn_input_for_fdim(max(target * self._cnn_stride, 33), target + 1) - 1
+            if self._cnn_fdim(px) != target:
+                raise ValueError(f"canonical input {px} maps to {self._cnn_fdim(px)} cells, "
+                                 f"not {target}")
+            self._fdim_cache[key] = px
+        return self._fdim_cache[key]
+
+    def cnn_bucket_key(self, h: int, w: int):
+        """The canonical padded input (H, W) of an image: the batched CNN
+        pipeline's buffer key (one batch shape a key)."""
+        cb = self.cnn_bucket
+        fh, fw = self._cnn_fdim(h), self._cnn_fdim(w)
+        return (self._cnn_canon_input(-(-fh // cb) * cb),
+                self._cnn_canon_input(-(-fw // cb) * cb))
+
+    def cnn_scales(self, h: int, w: int):
+        """Feature -> pixel scales of an image for ``box_feat_to_image``."""
+        return [h / self._cnn_fdim(h), w / self._cnn_fdim(w)]
+
+    def prepare_cnn_batch(self, imgs, canon_hw, exact_hw=None):
+        """Stack same-bucket images zero-padded to the canonical extent:
+        (images (B, H, W, 3), valid_fhw (B, 2) int32 exact feature dims) on
+        the device, from pinned memory on the card. uint8 images stay uint8
+        (normalized on the device) and need ``exact_hw``; a third element
+        ``pixel_hw`` (None when every image fills the bucket) comes back."""
+        u8 = imgs[0].dtype == np.uint8
+        H, W = canon_hw
+        batch_t = torch.zeros((len(imgs), H, W, 3), dtype=torch.uint8 if u8 else torch.float32,
+                              pin_memory=self.device.type == "cuda")
+        batch = batch_t.numpy()
+        fhw = []
+        for i, im in enumerate(imgs):
+            batch[i, :im.shape[0], :im.shape[1]] = im
+            fhw.append((self._cnn_fdim(im.shape[0]), self._cnn_fdim(im.shape[1])))
+        out = (self._upload(batch_t), self._upload(torch.tensor(fhw, dtype=torch.int32)))
+        if not u8:
+            return out
+        if exact_hw is None:
+            raise ValueError("uint8 batches need exact_hw (pixel dims)")
+        pixel_exact = all(tuple(t) == (H, W) for t in exact_hw)
+        return out + (None if pixel_exact else self._upload(
+            torch.tensor(exact_hw, dtype=torch.int32)),)
+
+    @torch.inference_mode()
+    def cnn_features(self, images, valid_fhw, pixel_hw=None):
+        """(B, FH*FW, D) LOST features of a CNN batch: the map of a headless
+        model or ``aux["features"]`` of a classifier, flattened in NHWC
+        order, through ``masked_slab_layernorm`` over each image's valid
+        (fh, fw) cells; pad cells are zero. An f32 forward's convolutions
+        run as exact f32."""
+        if images.dtype == torch.uint8:
+            images = device_normalize(images, pixel_hw)
+        with exact_f32_convs(self.compute_dtype):
+            out, aux = self.model(images.to(self.compute_dtype))
+        feats = out if out.dim() == 4 else aux["features"]
+        b, fh, fw, d = feats.shape
+        f = feats.reshape(b, fh * fw, d)
+        v = valid_fhw.to(f.device).long()
+        m = ((torch.arange(fh, device=f.device)[None, :, None] < v[:, 0, None, None])
+             & (torch.arange(fw, device=f.device)[None, None, :] < v[:, 1, None, None]))
+        cnt = (v[:, 0] * v[:, 1] * d).to(f.dtype)[:, None, None]
+        return masked_slab_layernorm(f, m.reshape(b, fh * fw, 1).to(f.dtype), cnt)
+
+    def make_batched_cnn_pipeline(self, k_patches: int = 100):
+        """Returns fn(images (B, H, W, 3), valid_fhw (B, 2) int32,
+        pixel_hw=None) -> (box_feat (B, 4), seed (B,), seed_in_background
+        (B,)), on the device."""
+
+        @torch.inference_mode()
+        def run(images, valid_fhw, pixel_hw=None):
+            feats = self.cnn_features(images, valid_fhw, pixel_hw)
+            grid = (self._cnn_fdim(images.shape[1]), self._cnn_fdim(images.shape[2]))
+            out = lost_core(feats, valid_fhw, grid, k_patches=k_patches, lean=True)
+            return out["box_feat"], out["seed"], out["seed_in_background"]
+
+        return run
+
 
 def _prefetch_decoded(dataset, patch: int, no_hard: bool, workers: int = 8,
                       need_gt: bool = True, as_uint8: bool = False):
@@ -307,10 +460,11 @@ def _templated_checkpoint(models_dir: str, model: str, arch: str, iteration: int
 
 
 def load_lost_checkpoint(path: str, spec):
-    """(flax-layout params, masks) of a ``.pth``/``.pt`` ViT checkpoint: a
-    reference one, or one ``vipers_torch train`` wrote (its ``model``
-    entry); a pruned one carries its masks as ``weight_orig`` /
-    ``weight_mask`` pairs. A checkpoint directory (the JAX package's orbax
+    """(flax-layout params, batch_stats or None, masks) of a ``.pth``/``.pt``
+    checkpoint of ``spec``'s family: a reference one, or one
+    ``vipers_torch train`` wrote (its ``model`` entry); a pruned one carries
+    its masks as ``weight_orig`` / ``weight_mask`` pairs; a ResNet's running
+    statistics come back as ``batch_stats``. A checkpoint directory (the JAX package's orbax
     format) raises: the port does not read orbax, so convert it first with
     the JAX package's ``vipers.core.checkpoint.export_vit_torchvision``."""
     if os.path.isdir(path) or not str(path).endswith((".pth", ".pt")):
@@ -319,7 +473,7 @@ def load_lost_checkpoint(path: str, spec):
             "checkpoint, or the .pth `vipers_torch train` writes. An orbax checkpoint "
             "directory of the JAX package must be converted first with "
             "vipers.core.checkpoint.export_vit_torchvision and torch.save")
-    return import_vit_torchvision(load_torch_state_dict(path), spec.cfg.num_layers)
+    return family(spec).import_pth(load_torch_state_dict(path), spec)
 
 
 # timings and counts of the last run_lost call, for callers that time it
@@ -327,8 +481,9 @@ LAST_RUN: dict = {}
 
 
 def run_lost(args) -> int:
-    """``vipers_torch lost`` for ``--arch vit``: the arguments of ``vipers
-    lost`` (``vipers_torch.cli.main``) plus ``--device``.
+    """``vipers_torch lost`` for ``--arch vit``, ``resnet`` and ``vgg16``:
+    the arguments of ``vipers lost`` (``vipers_torch.cli.main``) plus
+    ``--device``.
 
     With no ``--checkpoint`` the weights come from
     ``spec.init(torch.Generator().manual_seed(0))``; they cannot equal the
@@ -357,24 +512,37 @@ def run_lost(args) -> int:
         print(f"checkpoint: {args.checkpoint}")
     iteration = pruning_iteration if pruning_iteration is not None else args.iteration
 
-    spec = build_model(args.model)
-    masks = None
+    cnn = args.arch != "vit"
+    model_kw = {}
+    if "resnet" in args.model and getattr(args, "resnet_dilate", 1) != 1:
+        model_kw["dilate"] = args.resnet_dilate
+    spec = build_model(args.model, **model_kw)
+    if cnn != (spec.family in ("resnet", "vgg")):
+        raise SystemExit(f"vipers_torch lost: --arch {args.arch} does not take --model "
+                         f"{args.model} (a {spec.family})")
+    masks = batch_stats = None
     if args.checkpoint:
-        params, masks = load_lost_checkpoint(args.checkpoint, spec)
-        # rebuild at the checkpoint's own head width, pre-logits width and
-        # pos-table size
-        kw = {"num_classes": infer_num_classes(params) or 0,
-              "representation_size": infer_representation_size(params)}
-        size = infer_vit_image_size(params, spec.patch_size)
-        if size is not None:
-            kw["image_size"] = size
-        spec = build_model(args.model, **kw)
+        params, batch_stats, masks = load_lost_checkpoint(args.checkpoint, spec)
+        # rebuild at the checkpoint's own head width (and a ViT's pre-logits
+        # width and pos-table size)
+        if spec.family == "vit":
+            kw = {"num_classes": infer_num_classes(params) or 0,
+                  "representation_size": infer_representation_size(params)}
+            size = infer_vit_image_size(params, spec.patch_size)
+            if size is not None:
+                kw["image_size"] = size
+            spec = build_model(args.model, **kw)
+        elif spec.num_classes and infer_num_classes(params) is not None:
+            spec = build_model(args.model, num_classes=infer_num_classes(params), **model_kw)
     else:
         params = spec.init(torch.Generator().manual_seed(0))
     dtype = {"f32": None, "bf16": torch.bfloat16}[getattr(args, "dtype", None) or "f32"]
     extractor = LostFeatureExtractor(spec, params, masks, which_features=args.which_features,
-                                     bucket=4, compute_dtype=dtype, device=device)
-    pipeline = extractor.make_batched_pipeline(k_patches=args.k_patches)
+                                     bucket=4, compute_dtype=dtype, device=device,
+                                     batch_stats=batch_stats,
+                                     cnn_bucket=int(getattr(args, "cnn_bucket", 0) or 4))
+    pipeline = (extractor.make_batched_cnn_pipeline(k_patches=args.k_patches) if cnn
+                else extractor.make_batched_pipeline(k_patches=args.k_patches))
     acc = CorLocAccumulator()
     p = args.patch_size
     batch_size = int(getattr(args, "batch_size", 0) or 8)
@@ -397,13 +565,14 @@ def run_lost(args) -> int:
                 event.synchronize()
             box_feat, _seeds, seed_bg = (h.numpy() for h in host)
             for i in range(n_real):
-                im_name, _img, init_size, gt_i = recs[i]
+                im_name, img, init_size, gt_i = recs[i]
                 if seed_bg[i]:
                     if strict:
                         raise ValueError(f"The seed is in the background component ({im_name}).")
                     failed.append(im_name)
                     continue
-                acc.add(im_name, box_feat_to_image(box_feat[i], [p, p], init_size), gt_i)
+                scales = extractor.cnn_scales(*img.shape[:2]) if cnn else [p, p]
+                acc.add(im_name, box_feat_to_image(box_feat[i], scales, init_size), gt_i)
 
     def flush(key):
         nonlocal n_batches
@@ -416,7 +585,8 @@ def run_lost(args) -> int:
         if feed_uint8:  # exact pixel dims: the device normalize zeroes beyond them
             exact_hw = [tuple(r[2][1:]) for r in recs]
             exact_hw += [exact_hw[-1]] * (batch_size - n_real)
-        outs = pipeline(*extractor.prepare_batch(imgs, p, exact_hw=exact_hw))
+        outs = pipeline(*(extractor.prepare_cnn_batch(imgs, key, exact_hw=exact_hw) if cnn
+                          else extractor.prepare_batch(imgs, p, exact_hw=exact_hw)))
         event = None
         if device.type == "cuda":
             host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs)
@@ -438,7 +608,9 @@ def run_lost(args) -> int:
             dataset, p, args.no_hard, workers=workers, need_gt=not no_evaluation,
             as_uint8=feed_uint8):
         n_imgs += 1
-        key = bucket_hw(padded.shape[0], padded.shape[1], p, extractor.bucket)
+        h, w = padded.shape[:2]
+        key = (extractor.cnn_bucket_key(h, w) if cnn
+               else bucket_hw(h, w, p, extractor.bucket))
         buffers.setdefault(key, []).append((im_name, padded, init_image_size, gt))
         if len(buffers[key]) == batch_size:
             flush(key)

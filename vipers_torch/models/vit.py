@@ -373,6 +373,8 @@ def _build(name, cfg: ViTConfig, image_size=(224, 224)):
         input_size=image_size,
         prune_exclude=("qkv",),
         patch_size=cfg.patch_size,
+        family="vit",
+        num_classes=cfg.num_classes,
     )
 
 

@@ -12,10 +12,9 @@ packages unchanged.
 The gradient is ``torch.autograd.grad`` of ``loss_fn(params, batch)``
 with respect to the prunable leaves of ``params`` (a flax-layout tree of
 tensors), on the device the params and batch lie on: no hooks and no
-module state. ``vit_snip_loss`` builds the loss a ViT spec trains with:
-the model in train mode at the params' dtype through the train step's
-forward, so at T >= ``flash_min_t()`` every block's attention runs the
-flash kernels forward and backward.
+module state. ``snip_loss`` builds the loss a spec trains with, for every
+family: the model in train mode at the params' dtype through the train
+step's forward.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from vipers_torch.core.checkpoint import as_tensor, vit_state_dict_from_flax
+from vipers_torch.core.checkpoint import as_tensor, family
 from vipers_torch.core.tree import flatten_dict, unflatten_dict
 from vipers_torch.pruning import masks as M
 
@@ -70,21 +69,32 @@ def snip_prune(loss_fn: Callable, params, batch, target_sparsity: float,
     return {p: s > thr for p, s in sal.items()}
 
 
-def vit_snip_loss(spec, num_classes: int, label_smoothing: float = 0.0) -> Callable:
-    """``loss_fn(params, (images, labels))`` of a ViT ``spec``: the train
-    step's forward and loss (``train.steps.train_loss``) on the flax tree's
-    tensors (no masks: SNIP ranks the dense model) at their dtype. The JAX
-    driver's SNIP loss also asks for the last block's attention
-    probabilities, which routes that block through the einsum: the same
-    function, another kernel."""
+def snip_loss(spec, num_classes: int, label_smoothing: float = 0.0,
+              batch_stats=None) -> Callable:
+    """``loss_fn(params, (images, labels))`` of ``spec``, any family: the
+    train step's forward and loss (``train.steps.train_loss``) on the flax
+    tree's tensors (no masks: SNIP ranks the dense model) at their dtype,
+    as the JAX driver's SNIP loss. A BatchNorm model normalizes with the
+    batch's statistics (train mode) and the updated running statistics are
+    dropped; ``batch_stats`` ({state-dict key: tensor}, default the
+    initial mean 0 and var 1) only feeds that discarded update. On a ViT
+    at T >= ``flash_min_t()`` every block runs the flash kernels forward
+    and backward; the JAX driver's SNIP loss also asks for the last block's
+    attention probabilities, which routes that block through the einsum:
+    the same function, another kernel."""
     from vipers_torch.train.steps import train_loss
 
     with torch.device("meta"):  # its tensors come from params at each call
         model = spec.module()
+    fam = family(spec)
+    if batch_stats is None:
+        batch_stats = {k: (torch.ones(b.shape) if k.endswith("running_var")
+                           else torch.zeros(b.shape)) for k, b in model.named_buffers()}
 
     def loss_fn(params, batch):
-        sd = vit_state_dict_from_flax(params)
-        dtype = next(iter(sd.values())).dtype
-        return train_loss(model, sd, batch, num_classes, label_smoothing, dtype)[0]
+        sd = fam.state_dict(params)
+        w = next(iter(sd.values()))
+        sd.update({k: v.to(w.device) for k, v in batch_stats.items()})
+        return train_loss(model, sd, batch, num_classes, label_smoothing, w.dtype)[0]
 
     return loss_fn

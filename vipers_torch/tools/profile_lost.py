@@ -1,16 +1,19 @@
 """Where the time goes in the port's batched LOST pipeline on one GPU.
 
-Builds a full-width ViT of the registry (``--model``, default ViT-S/16 as
+Builds a full-width model of the registry (``--model``, default ViT-S/16 as
 in ``chip_smoke.py``; random weights from a seed, 50% global magnitude
 mask) and profiles ``make_batched_pipeline`` on uint8 images that fill the
 VOC bucket of a 500x375 image at ``--patch-size`` (512x384 at patch 16 and
-32, 504x392 at 14) with ``torch.profiler``: device time by kernel, the
-device's busy share of the wall-clock window, and the host time per call.
-As with ``vipers lost``, the patch size is the caller's to give. Needs a
-card:
+32, 504x392 at 14), or with ``--arch resnet`` / ``vgg16``
+``make_batched_cnn_pipeline`` on the canonical input of that bucket
+(512x384 at ``--resnet-dilate`` 1, 2 or 4), with ``torch.profiler``: device
+time by kernel, the device's busy share of the wall-clock window, and the
+host time per call. As with ``vipers lost``, the patch size is the
+caller's to give. Needs a card:
 
     python -m vipers_torch.tools.profile_lost [--batch 128] [--dtype bf16] \
         [--model vit_b_16 --patch-size 16]
+    python -m vipers_torch.tools.profile_lost --arch resnet --model resnet50 --resnet-dilate 2
 
 Writes the full kernel table and a Chrome trace under ``--out``
 (default ``build/profile_lost/``).
@@ -50,6 +53,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--model", default="vit_s_16")
     ap.add_argument("--patch-size", type=int, default=16)
+    ap.add_argument("--arch", default="vit", choices=("vit", "resnet", "vgg16"))
+    ap.add_argument("--resnet-dilate", type=int, default=1, choices=(1, 2, 4))
     ap.add_argument("--out", default=os.path.join("build", "profile_lost"),
                     help="directory for the kernel table and the Chrome trace")
     args = ap.parse_args(argv)
@@ -61,15 +66,24 @@ def main(argv=None):
 
     patch = args.patch_size
     H, W = bucket_hw(500, 375, patch)
-    spec = build_model(args.model, num_classes=1000, image_size=(H, W))
+    cnn = args.arch != "vit"
+    kw = ({"dilate": args.resnet_dilate} if args.arch == "resnet" else {}) if cnn else {
+        "num_classes": 1000, "image_size": (H, W)}
+    spec = build_model(args.model, **kw)
     params = spec.init(torch.Generator().manual_seed(0))
     masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), 0.5)
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
     ex = LostFeatureExtractor(spec, params, masks, compute_dtype=dtype)
+    if cnn:
+        H, W = ex.cnn_bucket_key(H, W)
     rng = np.random.default_rng(1)
     imgs = [rng.integers(0, 256, (H, W, 3), dtype=np.uint8) for _ in range(args.batch)]
-    inp = ex.prepare_batch(imgs, patch, exact_hw=[(H, W)] * args.batch)
-    pipe = ex.make_batched_pipeline(100)
+    if cnn:
+        inp = ex.prepare_cnn_batch(imgs, (H, W), exact_hw=[(H, W)] * args.batch)
+        pipe = ex.make_batched_cnn_pipeline(100)
+    else:
+        inp = ex.prepare_batch(imgs, patch, exact_hw=[(H, W)] * args.batch)
+        pipe = ex.make_batched_pipeline(100)
     for _ in range(2):
         pipe(*inp)[0].cpu()
 
@@ -92,7 +106,9 @@ def main(argv=None):
         d[1] += 1
     total = sum(v[0] for v in by_name.values())
     card = torch.cuda.get_device_name(0)
-    print(f"{card}; {args.model} {H}x{W} patch {patch} {args.dtype} B={args.batch}: "
+    shape = f"dilate {args.resnet_dilate}" if args.arch == "resnet" else (
+        "" if cnn else f"patch {patch}")
+    print(f"{card}; {args.model} {H}x{W} {shape} {args.dtype} B={args.batch}: "
           f"{args.steps} calls, wall "
           f"{wall_ms / args.steps:.2f} ms/call (median host {statistics.median(host):.2f}), "
           f"device busy {busy_ms / args.steps:.2f} ms/call = "

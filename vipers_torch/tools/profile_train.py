@@ -15,6 +15,7 @@ scheme). Needs a card:
 
     python -m vipers_torch.tools.profile_train [--batch 128] [--steps 3] [--image-size 224]
         [--model vit_h_14 --batch 32]
+        [--model resnet50]  # ResNet-50: cuDNN convolutions, BatchNorm, no port kernel
 
 With ``--data-path`` (an ImageFolder root with ``train/``) it profiles one
 epoch of ``vipers_torch train --amp`` instead: the driver's session and
@@ -147,8 +148,9 @@ def main(argv=None):
     from vipers_torch.train.steps import create_train_state, make_train_step
 
     hw = args.image_size
-    spec = build_model(args.model, num_classes=1000, image_size=(hw, hw))
-    if hw % spec.patch_size:
+    kw = {"image_size": (hw, hw)} if build_model(args.model).family == "vit" else {}
+    spec = build_model(args.model, num_classes=1000, **kw)
+    if spec.patch_size and hw % spec.patch_size:
         raise SystemExit(f"--image-size {hw} is not a multiple of {args.model}'s patch "
                          f"size {spec.patch_size}")
     params = spec.init(torch.Generator().manual_seed(0))

@@ -1,5 +1,7 @@
 """The pruning drivers behind ``vipers_torch train`` (port of
-``vipers/train/driver.py``), on one device.
+``vipers/train/driver.py``), on one device, for every registered family
+(``model_spec``: a ViT at the train crop, a ResNet with
+``--resnet-dilate``).
 
 - SNIP (``run_snip``): prune once on the first train batch, then train to
   completion.
@@ -36,10 +38,7 @@ from typing import Optional
 
 import torch
 
-from vipers_torch.core.checkpoint import (flax_tree_from_vit_state_dict,
-                                          load_train_checkpoint, save_train_checkpoint,
-                                          vit_masks_from_state_dict, vit_masks_to_state_dict,
-                                          vit_state_dict_from_flax)
+from vipers_torch.core.checkpoint import load_train_checkpoint, save_train_checkpoint
 from vipers_torch.core.config import TrainConfig, refuse_unported
 from vipers_torch.core.device import resolve_device
 from vipers_torch.core.metrics import MetricsWriter
@@ -49,11 +48,13 @@ from vipers_torch.data.mixup import mixup_cutmix_batch
 from vipers_torch.data.preprocess import eval_decode, make_device_normalize, train_decode
 from vipers_torch.data.sampler import epoch_indices, ra_sampler_indices
 from vipers_torch.pruning import compute_sparsity_global, init_masks
-from vipers_torch.pruning.snip import snip_saliency, snip_threshold, vit_snip_loss
+from vipers_torch.models import cnn
+from vipers_torch.pruning.snip import snip_loss, snip_saliency, snip_threshold
 from vipers_torch.train.ema import ema_decay_for
 from vipers_torch.train.loop import (evaluate, magnitude_pruning_round,
                                      train_model_to_completion)
-from vipers_torch.train.steps import TrainState, create_train_state, make_eval_step, make_train_step
+from vipers_torch.train.steps import (TrainState, create_train_state, load_weights,
+                                      make_eval_step, make_train_step)
 
 # the last run's first batches and times (see the module docstring)
 LAST_RUN: dict = {}
@@ -77,21 +78,32 @@ class Session:
     device: torch.device
 
 
+def model_spec(cfg: TrainConfig, crop: int):
+    """``cfg.model`` at ``cfg.num_classes``: a ViT with its pos-embeddings
+    at ``crop`` x ``crop``, a ResNet with ``--resnet-dilate``."""
+    kw = {"num_classes": cfg.num_classes}
+    if build_model(cfg.model).family == "vit":
+        kw["image_size"] = (crop, crop)
+    elif cfg.resnet_dilate != 1 and cfg.model.startswith("resnet"):
+        kw["dilate"] = cfg.resnet_dilate
+    return build_model(cfg.model, **kw)
+
+
 def build_session(cfg: TrainConfig, params=None) -> Session:
-    """The session of ``cfg``; ``params`` (a flax-layout ViT tree) replaces
+    """The session of ``cfg``; ``params`` (a flax-layout tree) replaces
     the model's initial weights, which are otherwise drawn from
-    ``cfg.seed``."""
+    ``cfg.seed``; running statistics start at mean 0 and var 1."""
     refuse_unported(cfg)
     dev = resolve_device(cfg.device)
-    if cfg.val_crop_size != cfg.train_crop_size:
+    spec = model_spec(cfg, cfg.train_crop_size)
+    if spec.family == "vit" and cfg.val_crop_size != cfg.train_crop_size:
         # pos-embeddings are sized at construction: the epoch-end eval would
         # fail after a full epoch of training
         raise SystemExit(
             f"{cfg.model}: --val-crop-size ({cfg.val_crop_size}) must equal "
             f"--train-crop-size ({cfg.train_crop_size}) — this family's "
-            "pos-embeddings are sized at construction; pass matching crop sizes")
-    size = (cfg.train_crop_size, cfg.train_crop_size)
-    spec = build_model(cfg.model, num_classes=cfg.num_classes, image_size=size)
+            "pos-embeddings are sized at construction; pass matching crop sizes "
+            "(CNN families accept any eval size)")
     if params is None:
         params = spec.init(torch.Generator().manual_seed(cfg.seed))
     masks = init_masks(params, exclude=spec.prune_exclude)
@@ -191,16 +203,20 @@ def _val_loader(s: Session) -> DeviceBatches:
 
 def _snip_loss_fn(s: Session):
     """SNIP's loss: the train forward of the dense model in f32 (the
-    params' dtype) and the cross-entropy with the run's label smoothing."""
-    return vit_snip_loss(s.spec, s.cfg.num_classes, s.cfg.optim.label_smoothing)
+    params' dtype; BatchNorm on the batch's statistics, the updated running
+    statistics dropped) and the cross-entropy with the run's label
+    smoothing."""
+    return snip_loss(s.spec, s.cfg.num_classes, s.cfg.optim.label_smoothing,
+                     batch_stats=s.state.batch_stats)
 
 
 def _flax_params(state: TrainState) -> dict:
-    return flax_tree_from_vit_state_dict(state.params)
+    return state.family.trees(state.params)[0]
 
 
 def _sparsity(state: TrainState) -> float:
-    return compute_sparsity_global(_flax_params(state), vit_masks_from_state_dict(state.masks))
+    return compute_sparsity_global(_flax_params(state),
+                                   state.family.masks_from_state_dict(state.masks))
 
 
 def _checkpoint_fn(s: Session, method: str, tag):
@@ -243,15 +259,16 @@ def snip_saliencies(s: Session) -> dict:
     epoch 0's first train batch."""
     images, labels = next(iter(_train_loader(s, 0)))
     params = _flax_params(s.state)
-    return snip_saliency(_snip_loss_fn(s), params, (s.normalize(images), labels),
-                         masks=init_masks(params, exclude=s.spec.prune_exclude))
+    with cnn.exact_f32_convs():
+        return snip_saliency(_snip_loss_fn(s), params, (s.normalize(images), labels),
+                             masks=init_masks(params, exclude=s.spec.prune_exclude))
 
 
 def snip_masks(s: Session, saliencies: dict) -> dict:
     """The masks (state-dict keys) that keep the weights whose saliency lies
     above the threshold of ``--target-sparsity``."""
     thr = snip_threshold(saliencies, s.cfg.target_sparsity)
-    return vit_masks_to_state_dict({p: v > thr for p, v in saliencies.items()})
+    return s.state.family.masks_to_state_dict({p: v > thr for p, v in saliencies.items()})
 
 
 def train_snip(s: Session, initial_epoch: int = 0):
@@ -307,23 +324,25 @@ def run_magnitude(s: Session, resuming: bool = False, initial_epoch: int = 0):
 
 
 def resume_session(s: Session, path: str) -> int:
-    """Restore the weights, masks, optimizer, step count and EMA from the
-    port's ``.pth``; returns the epoch to continue from. A checkpoint
-    without the port's optimizer state (a reference ``.pth``) restores the
-    weights and masks only."""
-    ck = load_train_checkpoint(path, s.spec.cfg.num_layers)
+    """Restore the weights, running statistics, masks, optimizer, step
+    count and EMA from the port's ``.pth``; returns the epoch to continue
+    from. A checkpoint without the port's optimizer state (a reference
+    ``.pth``) restores the weights, statistics and masks only."""
+    ck = load_train_checkpoint(path, s.spec)
     st = s.state
-    st.model.load_state_dict(vit_state_dict_from_flax(ck["params"]))
+    fam = st.family
+    load_weights(st.model, fam, ck["params"], ck["batch_stats"])
     st.masks = {**st.masks, **{k: m.to(s.device)
-                               for k, m in vit_masks_to_state_dict(ck["masks"]).items()}}
+                               for k, m in fam.masks_to_state_dict(ck["masks"]).items()}}
     opt = ck["optimizer"]
     if isinstance(opt, dict) and "count" in opt:
         st.opt.load_state_dict(opt)
     st.step = ck["step"]
     if ck["ema_params"] is not None and st.ema_params is not None:
+        ema = fam.state_dict(ck["ema_params"], ck["ema_batch_stats"])
         with torch.no_grad():
-            for k, v in vit_state_dict_from_flax(ck["ema_params"]).items():
-                st.ema_params[k].copy_(v)
+            for k, v in ema.items():
+                (st.ema_params if k in st.ema_params else st.ema_batch_stats)[k].copy_(v)
     start_epoch = ck["epoch"] + 1
     print(f"Resumed from {path} at epoch {start_epoch} (sparsity {ck['sparsity']:.2f}%)")
     return start_epoch

@@ -23,19 +23,16 @@ import types
 import numpy as np
 import torch
 
-from vipers_torch.core.checkpoint import (flax_tree_from_vit_state_dict, reference_sweep_stem,
-                                          vit_masks_from_state_dict, vit_masks_to_state_dict,
-                                          vit_state_dict_from_flax)
+from vipers_torch.core.checkpoint import reference_sweep_stem
 from vipers_torch.core.config import TrainConfig, refuse_unported
 from vipers_torch.core.device import resolve_device
 from vipers_torch.core.metrics import MetricsWriter
-from vipers_torch.core.registry import build_model
 from vipers_torch.data.imagefolder import ImageFolder
 from vipers_torch.data.preprocess import eval_decode, make_device_normalize
 from vipers_torch.pruning import compute_sparsity_global, init_masks
 from vipers_torch.train.loop import evaluate
 from vipers_torch.train.optim import OptimConfig
-from vipers_torch.train.steps import create_train_state, make_eval_step
+from vipers_torch.train.steps import create_train_state, load_weights, make_eval_step
 
 VOC_CLASSES = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
@@ -67,12 +64,14 @@ def _voc_eval_batches(cfg: TrainConfig, normalize_fn, device, dataset: str = "VO
 
 
 def _eval_only_session(cfg: TrainConfig, with_val: bool = False):
-    """The model at the EVAL crop, its all-ones masks, the eval step and the
-    normalize, without the training machinery; ``with_val`` also opens
-    ``{data_path}/val`` as an ImageFolder."""
+    """The model at the EVAL crop (a ResNet with ``--resnet-dilate``), its
+    all-ones masks, the eval step and the normalize, without the training
+    machinery; ``with_val`` also opens ``{data_path}/val`` as an
+    ImageFolder."""
+    from vipers_torch.train.driver import model_spec
+
     dev = resolve_device(cfg.device)
-    size = (cfg.val_crop_size, cfg.val_crop_size)
-    spec = build_model(cfg.model, num_classes=cfg.num_classes, image_size=size)
+    spec = model_spec(cfg, cfg.val_crop_size)
     params = spec.init(torch.Generator().manual_seed(cfg.seed))
     state = create_train_state(spec, params, init_masks(params, exclude=spec.prune_exclude),
                                OptimConfig(), 1, device=dev)
@@ -132,12 +131,13 @@ def run_sweep(cfg: TrainConfig, dilation: int = None, models_path: str = "",
     os.makedirs(cfg.output_dir, exist_ok=True)
     with open(out_txt, "a") as f:
         for ckpt in ckpts:
-            params, masks = load_lost_checkpoint(ckpt, s.spec)
-            s.state.model.load_state_dict(vit_state_dict_from_flax(params))
-            s.state.masks = ({k: m.to(s.device) for k, m in vit_masks_to_state_dict(masks).items()}
+            params, batch_stats, masks = load_lost_checkpoint(ckpt, s.spec)
+            fam = s.state.family
+            load_weights(s.state.model, fam, params, batch_stats)
+            s.state.masks = ({k: m.to(s.device) for k, m in fam.masks_to_state_dict(masks).items()}
                              if masks else base_masks)
-            sparsity = compute_sparsity_global(flax_tree_from_vit_state_dict(s.state.params),
-                                               vit_masks_from_state_dict(s.state.masks))
+            sparsity = compute_sparsity_global(fam.trees(s.state.params)[0],
+                                               fam.masks_from_state_dict(s.state.masks))
             if voc:
                 acc1, acc5, loss = evaluate(
                     s.eval_step, s.state,

@@ -16,9 +16,6 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from vipers_torch.core.checkpoint import (flax_tree_from_vit_state_dict,
-                                          vit_masks_from_state_dict,
-                                          vit_masks_to_state_dict)
 from vipers_torch.core.metrics import MeterSet, MetricsWriter
 from vipers_torch.pruning import compute_sparsity_global, magnitude_prune
 from vipers_torch.train.steps import TrainState
@@ -149,14 +146,15 @@ def prune_and_bake(state: TrainState, pruning_rate: float) -> float:
     """One global magnitude round over the still-unpruned weights (ranked in
     the flax layout and path order, as in the JAX package), the new masks
     baked into the weights; returns the new global sparsity in %."""
-    tree = flax_tree_from_vit_state_dict(state.model.named_parameters())
-    masks = magnitude_prune(tree, vit_masks_from_state_dict(state.masks), pruning_rate)
-    state.masks = vit_masks_to_state_dict(masks)
+    fam = state.family
+    masks = magnitude_prune(fam.trees(state.params)[0], fam.masks_from_state_dict(state.masks),
+                            pruning_rate)
+    state.masks = fam.masks_to_state_dict(masks)
     params = state.params
     with torch.no_grad():
         for k, m in state.masks.items():
             params[k].copy_(torch.where(m, params[k], params[k].new_zeros(())))
-    return compute_sparsity_global(flax_tree_from_vit_state_dict(state.params), masks)
+    return compute_sparsity_global(fam.trees(state.params)[0], masks)
 
 
 def magnitude_pruning_round(train_step, eval_step, state: TrainState,

@@ -14,8 +14,10 @@ torch.optim's update rules are the optax chains' (held step for step by
 momentum; RMSprop adds eps=0.0316 outside the sqrt with alpha 0.9; AdamW
 decays by lr * rate before the Adam step.
 
-Decay rates are decided on flax paths, as in the JAX package, and mapped to
-the module's parameter names through ``core.checkpoint._state_key``.
+Decay rates are decided on flax paths, as in the JAX package (a ResNet's
+``bn1`` and ``downsample_bn`` are norm layers there), and mapped to the
+module's parameter names through the family's ``state_key``
+(``core.checkpoint.Family``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from vipers_torch.core.checkpoint import _state_key
 from vipers_torch.core.tree import flatten_dict
 from vipers_torch.pruning.masked_optim import mask_gradients, masked_updates
 
@@ -136,14 +137,15 @@ class MaskedOptimizer:
 
     ``flax_params`` is the module's parameter tree in flax paths (e.g.
     ``core.checkpoint.flax_tree_from_vit_state_dict``), which decides the
-    decay rate of each parameter."""
+    decay rate of each parameter; ``state_key`` maps a flax path to the
+    module's parameter name."""
 
     def __init__(self, cfg: OptimConfig, module: torch.nn.Module, flax_params,
-                 schedule: Callable[[int], float]):
+                 schedule: Callable[[int], float], state_key: Callable[[tuple], str]):
         self.cfg = cfg
         self.schedule = schedule
         self.params = dict(module.named_parameters())
-        rates = {_state_key(p): r for p, r in weight_decay_rates(flax_params, cfg).items()}
+        rates = {state_key(p): r for p, r in weight_decay_rates(flax_params, cfg).items()}
         if set(rates) != set(self.params):
             raise ValueError(f"decay rates and module parameters differ: "
                              f"{sorted(set(rates) ^ set(self.params))}")

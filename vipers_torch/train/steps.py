@@ -13,7 +13,16 @@ update (``train.optim.MaskedOptimizer``), then the EMA. Metrics stay on the
 device; the loops fetch them in groups.
 
 Parameters and masks are keyed by the module's state-dict names, masks in
-the module's layout (``core.checkpoint.vit_masks_to_state_dict``).
+the module's layout (``core.checkpoint.Family.masks_to_state_dict``).
+
+BatchNorm models (the ResNets) keep their running statistics in the
+module's buffers (``TrainState.batch_stats``). The train forward returns
+the statistics updated from the compute-dtype forward and the step writes
+them back, as the JAX step takes ``new_bs`` from ``mutable=["batch_stats"]``;
+the EMA averages them too, and the EMA eval reads ``ema_batch_stats``. The
+statistics are never cast to bf16 (the JAX step casts ``params`` only). An
+f32 step's or eval's convolutions run as exact f32 on the card
+(``models.cnn.exact_f32_convs``).
 """
 
 from __future__ import annotations
@@ -25,46 +34,67 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from vipers_torch.core.checkpoint import (flax_tree_from_vit_state_dict,
-                                          vit_masks_to_state_dict,
-                                          vit_state_dict_from_flax)
+from vipers_torch.core.checkpoint import Family, family
 from vipers_torch.core.device import resolve_device
+from vipers_torch.models import cnn
 from vipers_torch.train.ema import ema_reset, ema_update_
 from vipers_torch.train.optim import MaskedOptimizer, OptimConfig, make_lr_schedule
 
 
 @dataclasses.dataclass
 class TrainState:
-    """``model`` holds the f32 master parameters; ``masks`` {state-dict key:
-    bool mask}; ``opt`` the optimizer chain with its own step count;
-    ``step`` the train step count (EMA schedule); ``ema_params`` {state-dict
-    key: f32 tensor} or None."""
+    """``model`` holds the f32 master parameters and the running statistics
+    (its buffers); ``masks`` {state-dict key: bool mask}; ``opt`` the
+    optimizer chain with its own step count; ``step`` the train step count
+    (EMA schedule); ``ema_params`` and ``ema_batch_stats`` {state-dict key:
+    f32 tensor} or None; ``family`` the converters of the model's family."""
 
     step: int
     model: torch.nn.Module
     masks: Dict[str, torch.Tensor]
     opt: MaskedOptimizer
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    ema_batch_stats: Optional[Dict[str, torch.Tensor]] = None
+    family: Optional[Family] = None
 
     @property
     def params(self) -> Dict[str, torch.nn.Parameter]:
         return dict(self.model.named_parameters())
 
+    @property
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        """The running statistics, {state-dict key: f32 buffer}; empty for
+        a model without BatchNorm."""
+        return dict(self.model.named_buffers())
+
+
+def load_weights(model: torch.nn.Module, fam: Family, params, batch_stats=None, masks=None):
+    """Load flax trees into ``model`` (strictly); without ``batch_stats``
+    the buffers keep their values."""
+    sd = fam.state_dict(params, batch_stats, masks)
+    model.load_state_dict({**dict(model.named_buffers()), **sd})
+
 
 def create_train_state(spec, params, masks, ocfg: OptimConfig, steps_per_epoch: int,
-                       device=None, ema: bool = False) -> TrainState:
-    """A TrainState on ``device`` (default ``cuda``) from a ViT parameter
-    tree and flax-path masks in the JAX package's layouts. The parameters
-    are loaded unbaked, as the JAX train state holds them."""
+                       device=None, ema: bool = False, batch_stats=None) -> TrainState:
+    """A TrainState on ``device`` (default ``cuda``) from a parameter tree,
+    flax-path masks and (BatchNorm models) running statistics in the JAX
+    package's layouts; without ``batch_stats`` the statistics start at
+    their initial values. The parameters are loaded unbaked, as the JAX
+    train state holds them."""
     dev = resolve_device(device)
+    fam = family(spec)
     model = spec.module()
-    model.load_state_dict(vit_state_dict_from_flax(params))
+    load_weights(model, fam, params, batch_stats)
     model = model.to(dev).train()
-    sd_masks = {k: m.to(dev) for k, m in vit_masks_to_state_dict(masks or {}).items()}
-    opt = MaskedOptimizer(ocfg, model, flax_tree_from_vit_state_dict(model.state_dict()),
-                          make_lr_schedule(ocfg, steps_per_epoch))
-    return TrainState(step=0, model=model, masks=sd_masks, opt=opt,
-                      ema_params=ema_reset(dict(model.named_parameters())) if ema else None)
+    sd_masks = {k: m.to(dev) for k, m in fam.masks_to_state_dict(masks or {}).items()}
+    opt = MaskedOptimizer(ocfg, model, fam.trees(dict(model.named_parameters()))[0],
+                          make_lr_schedule(ocfg, steps_per_epoch), fam.state_key)
+    state = TrainState(step=0, model=model, masks=sd_masks, opt=opt, family=fam)
+    if ema:
+        state.ema_params = ema_reset(state.params)
+        state.ema_batch_stats = ema_reset(state.batch_stats) if state.batch_stats else None
+    return state
 
 
 def cross_entropy(logits, labels, num_classes: int, label_smoothing: float = 0.0):
@@ -115,22 +145,31 @@ def train_loss(model, tensors: Dict[str, torch.Tensor], batch, num_classes: int,
                label_smoothing: float = 0.0, compute_dtype=torch.float32):
     """The training forward on ``tensors`` (state-dict names): ``model`` in
     train mode on images cast to ``compute_dtype``, then the cross-entropy.
-    Returns (loss, logits)."""
+    Returns (loss, logits, the updated running statistics or None)."""
     images, labels = batch
     model.train()
-    logits, _ = functional_call(model, tensors, (images.to(compute_dtype),),
-                                {"need_attn": False})
-    return cross_entropy(logits, labels, num_classes, label_smoothing), logits
+    logits, aux = functional_call(model, tensors, (images.to(compute_dtype),),
+                                  {"need_attn": False})
+    return (cross_entropy(logits, labels, num_classes, label_smoothing), logits,
+            aux.get("batch_stats"))
+
+
+def _forward_backward(model, masks, batch, num_classes: int, label_smoothing: float,
+                      compute_dtype):
+    """(loss, logits, {name: f32 grad}, updated running statistics or None)."""
+    params = dict(model.named_parameters())
+    with cnn.exact_f32_convs(compute_dtype):
+        loss, logits, stats = train_loss(model, forward_params(params, masks, compute_dtype),
+                                         batch, num_classes, label_smoothing, compute_dtype)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), logits.detach(), dict(zip(params, grads)), stats
 
 
 def loss_and_grads(model, masks, batch, num_classes: int, label_smoothing: float = 0.0,
                    compute_dtype=torch.float32):
     """One training forward and backward: (loss, logits, {name: f32 grad})."""
-    params = dict(model.named_parameters())
-    loss, logits = train_loss(model, forward_params(params, masks, compute_dtype), batch,
-                              num_classes, label_smoothing, compute_dtype)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return loss.detach(), logits.detach(), dict(zip(params, grads))
+    return _forward_backward(model, masks, batch, num_classes, label_smoothing,
+                             compute_dtype)[:3]
 
 
 def make_train_step(num_classes: int, label_smoothing: float = 0.0,
@@ -140,14 +179,22 @@ def make_train_step(num_classes: int, label_smoothing: float = 0.0,
     state is updated in place and returned. Metrics are device scalars."""
 
     def step(state: TrainState, batch):
-        loss, logits, grads = loss_and_grads(state.model, state.masks, batch, num_classes,
-                                             label_smoothing, compute_dtype)
+        loss, logits, grads, stats = _forward_backward(state.model, state.masks, batch,
+                                                       num_classes, label_smoothing,
+                                                       compute_dtype)
         state.opt.step(grads, state.masks)
+        if stats:
+            buffers = state.batch_stats
+            with torch.no_grad():
+                for k, v in stats.items():
+                    buffers[k].copy_(v)
         if ema_decay is not None and state.ema_params is not None \
                 and state.step % ema_every == 0:
             # during LR warmup the EMA keeps copying the weights
             decay = 0.0 if state.step < ema_warmup_steps else ema_decay
             ema_update_(state.ema_params, state.params, decay)
+            if state.ema_batch_stats is not None and stats:
+                ema_update_(state.ema_batch_stats, stats, decay)
         acc1, acc5 = accuracy_topk(logits, batch[1])
         state.step += 1
         return state, {"loss": loss, "acc1": acc1, "acc5": acc5}
@@ -159,18 +206,23 @@ def make_eval_step(num_classes: int, label_smoothing: float = 0.0,
                    compute_dtype=torch.float32, use_ema: bool = False):
     """Returns ``step(state, (images, labels)) -> {loss_sum, top1, top5, n}``
     (device scalars). Rows with label -1 are sentinel padding and are left
-    out of every sum."""
+    out of every sum. With ``use_ema`` the EMA weights and running
+    statistics."""
 
     @torch.no_grad()
     def step(state: TrainState, batch):
         images, labels = batch
         model = state.model
-        src = state.ema_params if use_ema else state.params
+        tensors = forward_params(state.ema_params if use_ema else state.params, state.masks,
+                                 compute_dtype)
+        if use_ema and state.ema_batch_stats is not None:
+            tensors.update(state.ema_batch_stats)
         was_training = model.training
         model.eval()
         try:
-            logits, _ = functional_call(model, forward_params(src, state.masks, compute_dtype),
-                                        (images.to(compute_dtype),), {"need_attn": False})
+            with cnn.exact_f32_convs(compute_dtype):
+                logits, _ = functional_call(model, tensors, (images.to(compute_dtype),),
+                                            {"need_attn": False})
         finally:
             model.train(was_training)
         if labels.dim() == 2:
