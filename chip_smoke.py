@@ -124,7 +124,9 @@ Phases (any failure exits non-zero; nothing is caught):
      bf16 losses, pruned slots zero in every LRR checkpoint and at their
      initial weights in the SNIP ones (unbaked), performance.txt's
      sparsities those of ``compute_sparsity_global`` on the checkpoints,
-     evaluate's acc1 equal to the training run's, preds.pkl written; the
+     evaluate's acc1 (f32 whatever --amp says, as the JAX sweep; no fused
+     MLP launch) equal to the driver's own f32 eval of the same
+     checkpoints, preds.pkl written; the
      f32 driver card vs CPU on vit_b_16 cut to 2 blocks at B=8 (SNIP's
      saliencies within 1e-5 of their scale, a TF32 run shown to miss it,
      masks; then from the card's masks 2 steps and one LRR iteration:
@@ -150,7 +152,27 @@ Phases (any failure exits non-zero; nothing is caught):
      iteration, the same run with cuDNN's TF32 convolutions printed beside
      it; bf16 loss within 2e-2 and gradients within 3e-2). Prints train e2e,
      step, decode-only and evaluate img/s, the CNN LOST pipeline's img/s at
-     B=128 and p50, the CLIs' e2e img/s and the peak device memory.
+     B=128 and p50, the CLIs' e2e img/s and the peak device memory;
+ 14. Swin-V2-T and the per-image LOST path (``swin_phase``): swin_v2_t at
+     full width and depth (1000 classes, the CLI's seed-42 weights,
+     stochastic depth 0.2) through ``train --amp`` at torchvision's recipe
+     (256 crops, val resize 260, bicubic), B=128, on phase 12's ImageFolder:
+     SNIP to 50%, LRR (rate 0.2, threshold 35.9: two iterations);
+     ``evaluate --amp``; ``lost --arch swin --dtype bf16`` from the
+     iteration-01 checkpoint on 256 JPEGs, first window and
+     ``--swin-all-windows``; ``lost --arch resnet --exact-shapes`` on 32
+     from phase 13's ResNet-50 .pth. Checks: no attention or fused-MLP
+     launch in any run, phase 13's checks of batches, losses, checkpoints
+     (no qkv or CPB kernel masked), performance.txt and evaluate (its acc1
+     against the driver's f32 eval), the LOST outputs against ``corloc``,
+     the first image against ``extract`` -> ``lost``; card vs CPU: the f32
+     forward (B=2), the f32 driver at stochastic depth 0 (B=8: SNIP within
+     1e-5 of the scale, parameters within 1e-4 after 2 steps and an LRR
+     iteration, a TF32 run printed beside), bf16 loss 2e-2 and gradients
+     3e-2, stochastic depth's keep rates and scaling on the card, per-image
+     LOST f32 in both regimes and for --exact-shapes. Prints train e2e, step,
+     decode-only and evaluate img/s, per-image LOST e2e img/s and p50, and
+     the peak device memory.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
@@ -2092,6 +2114,43 @@ def driver_card_vs_cpu(card, root, data):
         del registry._BUILTIN_MODELS[name]
 
 
+def f32_eval_acc1(cfg, ckpts, root):
+    """acc1 of each checkpoint by the train driver's own eval in f32: a
+    session built from ``cfg`` without ``--amp`` on the card, each
+    checkpoint's weights and masks restored by ``resume_session``, its val
+    loader and eval step; the yardstick of ``evaluate``, which evaluates in
+    f32 whatever ``--amp`` says, as the JAX sweep does."""
+    import dataclasses
+
+    from vipers_torch.train import driver as tdrv
+    from vipers_torch.train.loop import evaluate
+
+    s = tdrv.build_session(dataclasses.replace(cfg, amp=False, device="cuda",
+                                               output_dir=os.path.join(root, "f32_eval")))
+    out = []
+    for ck in ckpts:
+        tdrv.resume_session(s, ck)
+        out.append(evaluate(s.eval_step, s.state, tdrv._val_loader(s),
+                            normalize_fn=s.normalize, expected_samples=len(s.val_ds))[0])
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_cli_without_kernels(cli, argv, counters):
+    """One CLI run on the card, the launch counts set to 0 just before it
+    and read just after: none of the port's kernels may launch. Returns its
+    seconds."""
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    assert cli(argv) == 0
+    torch.cuda.synchronize()
+    n = all_launches(counters)
+    assert n == 0, (argv[0], n)
+    return time.perf_counter() - t0
+
+
 def train_cli_phase(card, counters):
     """Phase 12: ``vipers_torch train`` and ``evaluate`` on ViT-B/16 (12
     blocks, D 768, 12 heads of 64, mlp 3072, 1000 classes, the CLI's seed-42
@@ -2104,8 +2163,9 @@ def train_cli_phase(card, counters):
     JPEGs. Checks the first train and val batches against the CPU loader's,
     the launches (12 training forward and backward a step, 12 fused MLP an
     eval batch, no flash), finite bf16 losses, the pruned slots of every
-    checkpoint (``check_checkpoint``), performance.txt's sparsities, evaluate's acc1 against the
-    training run's, preds.pkl; then the f32 driver card vs CPU on a cut
+    checkpoint (``check_checkpoint``), performance.txt's sparsities, evaluate's acc1 (f32,
+    no fused MLP) against the driver's f32 eval of the same checkpoints
+    (``f32_eval_acc1``), preds.pkl; then the f32 driver card vs CPU on a cut
     (``driver_card_vs_cpu``). Prints train e2e img/s (first decode to last
     checkpoint), step img/s (best of 3 windows of 6 steps), decode-only
     img/s on the RRC path (8 threads, 1), evaluate img/s. Returns the
@@ -2224,21 +2284,26 @@ def train_cli_phase(card, counters):
               f"{run['t_last_checkpoint'] - run['t_first_decode']:.3f} s; {secs:.3f} s with the "
               f"set-up); performance.txt {rows} ({card})")
 
-        # 3. evaluate over the LRR checkpoints
+        # 3. evaluate over the LRR checkpoints: f32 whatever --amp says, as
+        # the JAX sweep; no fused MLP (bf16 only)
         ev_out = os.path.join(root, "eval")
         got, secs = train_cli(cli, ["evaluate", *common, "--models-path", lrr_out,
                                     "--output-dir", ev_out], counters, at, fa, fm)
         want = {"attention_train_fwd[bf16]": 0, "attention_train_bwd[bf16]": 0,
-                "fused_ln_fc1_gelu[bf16, D=768]": 2 * layers * evals, "flash": 0}
+                "fused_ln_fc1_gelu[bf16, D=768]": 0, "flash": 0}
         assert got == want, (got, want)
         add(got)
         ev_rows = MetricsWriter.read_performance_txt(os.path.join(ev_out, "performance.txt"))
-        assert [a for a, _ in ev_rows] == [a for a, _ in rows], (ev_rows, rows)
+        ckpts = [os.path.join(lrr_out, f"vit_b_16_epoch_0_pruning_iteration_{it:02d}.pth")
+                 for it in range(len(rows))]
+        f32 = f32_eval_acc1(cfg, ckpts, root)
+        assert [a for a, _ in ev_rows] == f32, (ev_rows, f32)
         assert all(abs(e - t) <= 1e-4 for (_, e), (_, t) in zip(ev_rows, rows)), (ev_rows, rows)
         print(f"evaluate --amp over 2 checkpoints: launches {got}; acc1 and sparsity {ev_rows} "
-              f"(the training run's epoch-end acc1 equal, sparsity within 1e-4); {2 * N_VAL_IMAGES / secs:.1f} img/s "
-              f"({2 * N_VAL_IMAGES} images in {secs:.3f} s with the model's set-up and 2 "
-              f"checkpoint loads) ({card})")
+              f"(acc1 equal to the driver's f32 eval of the same checkpoints {f32}, the "
+              f"training run's bf16 epoch-end acc1 {[a for a, _ in rows]}; sparsity within "
+              f"1e-4); {2 * N_VAL_IMAGES / secs:.1f} img/s ({2 * N_VAL_IMAGES} images in "
+              f"{secs:.3f} s with the model's set-up and 2 checkpoint loads) ({card})")
 
         # 4. lost from the trained checkpoint
         voc = os.path.join(root, "VOC2007")
@@ -2551,7 +2616,7 @@ def cnn_driver_card_vs_cpu(card, root, data):
     assert g_card <= 2 * g_cpu, (g_card, g_cpu)
 
 
-def cnn_phase(card, counters):
+def cnn_phase(card, counters, keep_pth=None):
     """Phase 13: the CNN families through the entry points, ResNet-50 at
     full width and depth (1000 classes, the CLI's seed-42 weights), 224x224,
     ``--amp --batch-size 128 --workers 8`` on phase 12's ImageFolder (1024
@@ -2566,7 +2631,7 @@ def cnn_phase(card, counters):
     the first train and val batches equal to the CPU loader's, finite bf16
     losses, pruned slots zero in every LRR checkpoint and at their initial
     weights in the SNIP ones, performance.txt's sparsities those of the
-    checkpoints, evaluate's acc1 equal to the training run's, preds.pkl and
+    checkpoints, evaluate's acc1 equal to the driver's f32 eval, preds.pkl and
     the results txt against ``corloc``, the first LOST batch against
     ``make_batched_cnn_pipeline``; the driver card vs CPU against an f64
     run (``cnn_driver_card_vs_cpu``); LOST f32 at B=4 card vs CPU on two bucket
@@ -2604,14 +2669,7 @@ def cnn_phase(card, counters):
         steps, evals = N_TRAIN_IMAGES // b, -(-N_VAL_IMAGES // b)
 
         def run_cli(argv):
-            torch.cuda.synchronize()
-            reset_counts(*counters)
-            t0 = time.perf_counter()
-            assert cli(argv) == 0
-            torch.cuda.synchronize()
-            n = all_launches(counters)
-            assert n == 0, (argv[0], n)
-            return time.perf_counter() - t0
+            return run_cli_without_kernels(cli, argv, counters)
 
         ds = ImageFolder(os.path.join(data, "train"))
         loader = tdrv.train_loader(dataclasses.replace(cfg, workers=8), ds, 0)
@@ -2676,10 +2734,13 @@ def cnn_phase(card, counters):
         ev_out = os.path.join(root, "eval")
         secs = run_cli(["evaluate", *common, "--models-path", lrr_out, "--output-dir", ev_out])
         ev_rows = MetricsWriter.read_performance_txt(os.path.join(ev_out, "performance.txt"))
-        assert [a for a, _ in ev_rows] == [a for a, _ in rows], (ev_rows, rows)
+        f32 = f32_eval_acc1(cfg, [os.path.join(lrr_out, f"{m}_epoch_0_pruning_iteration_"
+                                                        f"{it:02d}.pth") for it in range(2)], root)
+        assert [a for a, _ in ev_rows] == f32, (ev_rows, f32)
         assert all(abs(e - t) <= 1e-4 for (_, e), (_, t) in zip(ev_rows, rows)), (ev_rows, rows)
-        print(f"evaluate --amp {m} over 2 checkpoints: acc1 and sparsity {ev_rows} (the "
-              f"training run's acc1 equal); {2 * N_VAL_IMAGES / secs:.1f} img/s with the set-up "
+        print(f"evaluate --amp {m} over 2 checkpoints: acc1 and sparsity {ev_rows} (acc1 equal "
+              f"to the driver's f32 eval of the same checkpoints {f32}; the training run's bf16 "
+              f"{[a for a, _ in rows]}); {2 * N_VAL_IMAGES / secs:.1f} img/s with the set-up "
               f"and 2 checkpoint loads ({card})")
 
         # 4. lost --arch resnet from the iteration-01 checkpoint, --arch vgg16
@@ -2706,6 +2767,8 @@ def cnn_phase(card, counters):
                   f"{lrun['batches']} batches, {len(lrun['failed'])} seeds in the background, "
                   f"{rescored}; e2e {lrun['images'] / lrun['decode_to_preds_seconds']:.1f} "
                   f"img/s, no attention or fused-MLP launch ({card})")
+        if keep_pth:  # phase 14's --exact-shapes run reads it
+            shutil.copyfile(ckpt, keep_pth)
         shutil.rmtree(lrr_out)
 
         # step img/s: the CLI's session and batch, best of 3 windows of 6 steps
@@ -2763,6 +2826,516 @@ def cnn_phase(card, counters):
         cnn_driver_card_vs_cpu(card, root, cut)
         print(f"phase 13 CNN families: no attention or fused-MLP launch; "
               f"{time.time() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(root)
+
+
+# Phase 14: Swin-V2-T through the pruning and LOST entry points, and the
+# per-image LOST path (Swin in both regimes, ResNet-50 --exact-shapes).
+SWIN_MODEL = "swin_v2_t"
+# torchvision's published swin_v2_t recipe
+SWIN_CROPS = ["--train-crop-size", "256", "--val-resize-size", "260", "--val-crop-size", "256",
+              "--interpolation", "bicubic"]
+SWIN_CUT_BATCH, SWIN_BF16_BATCH = 8, 4  # the f32 driver and bf16 card-vs-CPU runs
+N_SWIN_EXACT = 32  # JPEGs of the ResNet-50 --exact-shapes run
+N_LOST_CPU = 4  # fixture JPEGs of the per-image LOST card-vs-CPU check
+
+
+def swin_cfg(**kw):
+    """A TrainConfig at phase 14's crops (256, resize 260, bicubic)."""
+    from vipers_torch.core.config import TrainConfig
+
+    return TrainConfig(train_crop_size=256, val_resize_size=260, val_crop_size=256,
+                       interpolation="bicubic", **kw)
+
+
+def biased(spec, seed):
+    """``spec``'s flax-default weights (seed) with every bias drawn from
+    N(0, 0.02): a Swin's zero biases give window pad tokens exactly-zero k
+    features (and LOST nothing to find)."""
+    from vipers_torch.core.tree import flatten_dict, unflatten_dict
+
+    g = torch.Generator().manual_seed(seed)
+    params = spec.init(g)
+    return unflatten_dict({p: (v + 0.02 * torch.randn(v.shape, generator=g)
+                               if p[-1] == "bias" else v)
+                           for p, v in flatten_dict(params).items()})
+
+
+def decoded_fixture(n):
+    """The first ``n`` fixture JPEGs host-normalized and tier-1 padded, as
+    the per-image path decodes them: [(padded f32 (H, W, 3), (3, h, w))]."""
+    from vipers_torch.data.detection import load_image_normalized
+
+    fixture = os.path.join(REPO, "tests", "data", "torch_voc", "JPEGImages")
+    out = []
+    for f in sorted(os.listdir(fixture))[:n]:
+        img = load_image_normalized(os.path.join(fixture, f))
+        h, w = img.shape[:2]
+        pad = np.zeros((-(-h // PATCH) * PATCH, -(-w // PATCH) * PATCH, 3), np.float32)
+        pad[:h, :w] = img
+        out.append((pad, (3, h, w)))
+    return out
+
+
+def per_image_card_vs_cpu(tag, spec, params, masks, stats, card, **ex_kw):
+    """``extract`` -> ``lost`` in f32 on N_LOST_CPU fixture JPEGs, the card
+    against the CPU: features within 1e-3 of their scale, boxes equal (a
+    seed may differ only inside a tie at the top score of the CPU's)."""
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+    from vipers_torch.discovery.lost import lost
+
+    exs = {d: LostFeatureExtractor(spec, params, masks, device=d, batch_stats=stats, **ex_kw)
+           for d in ("cuda", "cpu")}
+    worst, same = 0.0, 0
+    for img, size in decoded_fixture(N_LOST_CPU):
+        res = {}
+        for d, ex in exs.items():
+            feats, dims, valid, scales, _ = ex.extract(img, PATCH)
+            try:
+                out = lost(feats, dims, scales, size, k_patches=K_PATCHES, valid_dims=valid)
+            except ValueError:
+                out = None
+            res[d] = (feats.float().cpu(), out)
+        (gf, gout), (cf, cout) = res["cuda"], res["cpu"]
+        scale = cf.abs().max().item()
+        err = (gf - cf).abs().max().item()
+        worst = max(worst, err / scale)
+        assert err <= 1e-3 * scale, (tag, err, scale)
+        assert (gout is None) == (cout is None), tag
+        if gout is None:
+            continue
+        if gout[3] == cout[3]:
+            assert np.array_equal(gout[0], cout[0]), (tag, gout[0], cout[0])
+            same += 1
+        else:
+            sc = cout[2]
+            assert sc[gout[3]] == sc[cout[3]] == sc.max(), (tag, gout[3], cout[3])
+    print(f"per-image LOST f32 [{tag}] card vs CPU on {N_LOST_CPU} fixture JPEGs: features "
+          f"within {worst:.2e} of their scale (tol 1e-3), {same} seeds and boxes equal, the "
+          f"rest tied at the top score ({card})")
+    del exs
+    torch.cuda.empty_cache()
+
+
+def check_first_image(tag, pth, voc, items, out, failed, model, extra, dtype=torch.bfloat16):
+    """The first image of a per-image ``lost`` run: its box in preds.pkl
+    equal to ``extract`` -> ``lost`` on the same host-normalized decode,
+    the model loaded from ``pth`` as the CLI loads it (or both report the
+    seed in the background). Returns the p50 ms of that call (20 calls
+    after 3)."""
+    import pickle
+
+    from vipers_torch.core.checkpoint import infer_num_classes
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data.detection import load_image_normalized
+    from vipers_torch.discovery.driver import LostFeatureExtractor, load_lost_checkpoint
+    from vipers_torch.discovery.lost import lost
+
+    spec = build_model(model, **extra)
+    params, stats, masks = load_lost_checkpoint(pth, spec)
+    if spec.num_classes and infer_num_classes(params) is not None:
+        spec = build_model(model, num_classes=infer_num_classes(params), **extra)
+    ex = LostFeatureExtractor(spec, params, masks, compute_dtype=dtype, batch_stats=stats,
+                              cnn_bucket=1, swin_all_windows=tag == "swin all windows")
+    name = items[0][0]
+    img = load_image_normalized(os.path.join(voc, "JPEGImages", f"{name}.jpg"))
+    h, w = img.shape[:2]
+    pad = np.zeros((-(-h // PATCH) * PATCH, -(-w // PATCH) * PATCH, 3), np.float32)
+    pad[:h, :w] = img
+
+    def call():
+        feats, dims, valid, scales, _ = ex.extract(pad, PATCH)
+        try:
+            return lost(feats, dims, scales, (3, h, w), k_patches=K_PATCHES,
+                        valid_dims=valid)[0].tolist()
+        except ValueError:
+            return None
+
+    want = call()
+    with open(os.path.join(out, "preds.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    if want is None:
+        assert f"{name}.jpg" in failed, tag
+    else:
+        assert preds[f"{name}.jpg"] == want, (tag, preds[f"{name}.jpg"], want)
+    lats = []
+    for _ in range(23):
+        t0 = time.perf_counter()
+        call()
+        lats.append(1e3 * (time.perf_counter() - t0))
+    del ex
+    return statistics.median(lats[3:])
+
+
+def swin_driver_card_vs_cpu(card, root, data):
+    """The f32 driver on swin_v2_t at full width and depth, built at
+    stochastic depth 0 (registered for the call as ``swin_v2_t_sd0``; the
+    two devices draw from different generators otherwise), B =
+    SWIN_CUT_BATCH, 2 steps an epoch, the same seed-0 weights (biases drawn,
+    ``biased``): on the card, on the CPU, and on the card with cuBLAS and
+    cuDNN in TF32. SNIP's saliencies card vs CPU within 1e-5 of their
+    scale (the TF32 run's printed beside); every run then trains the card's
+    SNIP masks (``train_snip``, 2 steps) and one ``run_magnitude``
+    iteration (2 steps, prune 20% more, bake): parameters within 1e-4 of
+    the CPU's where the masks agree, after each stage (TF32 printed). Then
+    one bf16 forward and backward at B = SWIN_BF16_BATCH from the card's
+    SNIP-trained state: loss within 2e-2 (relative) and gradients within
+    3e-2 (relative L2) of the CPU's bf16."""
+    import dataclasses
+
+    from vipers_torch.core import registry
+    from vipers_torch.models.swin import SwinV2Config, swin_spec
+    from vipers_torch.pruning.snip import snip_threshold
+    from vipers_torch.train import driver as tdrv
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import loss_and_grads
+
+    name = "swin_v2_t_sd0"
+    registry._ensure_builtins_imported()
+    registry._BUILTIN_MODELS[name] = lambda num_classes=1000, input_size=(256, 256): swin_spec(
+        name, SwinV2Config(num_classes=num_classes, stochastic_depth_prob=0.0), input_size)
+    try:
+        spec = registry.build_model(name)
+        params = biased(spec, 0)
+        res, snip = {}, None
+        for run in ("card", "cpu", "tf32"):
+            dev = "cpu" if run == "cpu" else "cuda"
+            t0 = time.time()
+            cfg = swin_cfg(model=name, data_path=data, num_classes=1000,
+                           batch_size=SWIN_CUT_BATCH, workers=8, pruning_method="snip",
+                           target_sparsity=SPARSITY, pruning_rate=0.2, pruning_threshold=55.0,
+                           optim=OptimConfig(lr=0.01, epochs=1), seed=0, print_freq=0,
+                           output_dir=os.path.join(root, f"swin_cut_{run}"), device=dev)
+            tf32 = run == "tf32"
+            with cublas_tf32(tf32), cudnn_tf32() if tf32 else contextlib.nullcontext():
+                s = tdrv.build_session(cfg, params=params)
+                sal = {p: v.cpu() for p, v in tdrv.snip_saliencies(s).items()}
+                if snip is None:
+                    snip = {k: m.cpu() for k, m in tdrv.snip_masks(s, sal).items()}
+                    batch = tuple(t.cpu() for t in next(iter(tdrv._train_loader(s, 0))))
+                    batch = (s.normalize(batch[0].to(s.device)).cpu(), batch[1])
+                s.state.masks = {k: m.to(s.device) for k, m in snip.items()}
+                tdrv.train_snip(s)
+                after = {k: v.detach().cpu().clone() for k, v in s.state.params.items()}
+                _, rows = tdrv.run_magnitude(s)
+            res[run] = dict(sal=sal, after_snip=after, rows=rows, secs=time.time() - t0,
+                            params={k: v.detach().cpu() for k, v in s.state.params.items()},
+                            masks={k: m.cpu() for k, m in s.state.masks.items()})
+            del s
+            torch.cuda.empty_cache()
+        cpu = res["cpu"]
+        scale = max(float(v.max()) for v in cpu["sal"].values())
+        err = {r: max(float((res[r]["sal"][p] - v).abs().max()) for p, v in cpu["sal"].items())
+               for r in ("card", "tf32")}
+        thr = float(snip_threshold(cpu["sal"], SPARSITY))
+        flips = {r: sum(int(((res[r]["sal"][p] > thr) != (v > thr)).sum())
+                        for p, v in cpu["sal"].items()) for r in ("card", "tf32")}
+        print(f"train driver f32 SNIP, {SWIN_MODEL} full depth at stochastic depth 0, "
+              f"B={SWIN_CUT_BATCH}, 256x256, card vs CPU: saliencies max_abs_err "
+              f"{err['card']:.3e}, {err['card'] / scale:.2e} of their scale {scale:.3e} (tol "
+              f"1e-5), {flips['card']} masks off the CPU's threshold; cuBLAS and cuDNN in TF32: "
+              f"{err['tf32']:.3e}, {err['tf32'] / scale:.2e}, {flips['tf32']} masks ({card})")
+        assert err["card"] <= 1e-5 * scale, (err, scale)
+        for stage, what in (("after_snip", "after train_snip (2 steps, lr 0.01, the card's SNIP "
+                                            "masks)"),
+                            ("params", "after one run_magnitude iteration (2 steps, 50% -> 60%; "
+                                       "where the masks agree)")):
+            errs = {}
+            for r in ("card", "tf32"):
+                e = 0.0
+                for k, p in cpu[stage].items():
+                    keep = (cpu["masks"][k] == res[r]["masks"][k]) if (
+                        stage == "params" and k in cpu["masks"]) else torch.ones_like(
+                        p, dtype=torch.bool)
+                    e = max(e, float((res[r][stage][k] - p).abs()[keep].max()))
+                errs[r] = e
+            print(f"train driver f32 {SWIN_MODEL} card vs CPU, parameters {what}: max_abs_err "
+                  f"{errs['card']:.3e} (tol 1e-4); TF32 {errs['tf32']:.3e} ({card})")
+            assert errs["card"] <= 1e-4, (stage, errs)
+        assert cpu["rows"][0][1] == res["card"]["rows"][0][1], (cpu["rows"], res["card"]["rows"])
+        n = sum(m.numel() for m in cpu["masks"].values())
+        mflips = sum(int((res["card"]["masks"][k] != m).sum()) for k, m in cpu["masks"].items())
+        print(f"magnitude masks card vs CPU: {mflips} of {n} differ; seconds: card "
+              f"{res['card']['secs']:.1f}, CPU {cpu['secs']:.1f}, TF32 {res['tf32']['secs']:.1f} "
+              f"({card})")
+        # bf16 loss and gradients at the card's SNIP-trained state
+        state = res["card"]["after_snip"]
+        xb = (batch[0][:SWIN_BF16_BATCH], batch[1][:SWIN_BF16_BATCH])
+        grads = {}
+        for run, dev in (("card", "cuda"), ("cpu", "cpu")):
+            model = spec.module()
+            model.load_state_dict(state)
+            model = model.to(dev)
+            out = loss_and_grads(model, {k: m.to(dev) for k, m in snip.items()},
+                                 tuple(t.to(dev) for t in xb), 1000,
+                                 compute_dtype=torch.bfloat16)
+            grads[run] = (float(out[0]), {k: g.cpu() for k, g in out[2].items()})
+            del model
+        gap = abs(grads["card"][0] - grads["cpu"][0])
+        g_err = rel_l2(grads["card"][1], grads["cpu"][1])
+        print(f"cpu-vs-card train {SWIN_MODEL} bf16 B={SWIN_BF16_BATCH}: loss "
+              f"{grads['card'][0]:.5f} vs {grads['cpu'][0]:.5f} (gap {gap:.2e}, tol 2e-2 "
+              f"relative); gradients relative L2 {g_err:.3e} (tol 3e-2) ({card})")
+        assert gap <= 2e-2 * abs(grads["cpu"][0]), gap
+        assert g_err <= 3e-2, g_err
+    finally:
+        del registry._BUILTIN_MODELS[name]
+
+
+def swin_phase(card, counters, resnet_pth=None):
+    """Phase 14: Swin-V2-T through the entry points, swin_v2_t at full
+    width and depth (1000 classes, the CLI's seed-42 weights, stochastic
+    depth 0.2), torchvision's published recipe (256 crops, val resize 260,
+    bicubic), ``--amp --batch-size 128 --workers 8`` on phase 12's
+    ImageFolder (1024 train, 256 val symlinks to the 8 fixture JPEGs):
+    ``train`` SNIP to 50% for one epoch, then LRR (rate 0.2, threshold 35.9:
+    two iterations of one epoch; two rounds leave 35.99999945%, so 36 would
+    take a third); ``evaluate --amp`` over the LRR checkpoints; ``lost
+    --arch swin --model swin_v2_t --dtype bf16`` from the iteration-01
+    checkpoint on 256 of phase 6's JPEGs, in the first-window regime and
+    with ``--swin-all-windows``; ``lost --arch resnet --model resnet50
+    --resnet-dilate 2 --exact-shapes --dtype bf16`` on N_SWIN_EXACT of them
+    from phase 13's iteration-01 .pth (``resnet_pth``; a seed-0 .pth with a
+    50% mask when the phase runs alone). Checks: no attention or fused-MLP
+    launch in any run (counters set to 0 before each, read after), the
+    first train and val batches equal to the CPU loader's, finite bf16
+    losses, pruned slots zero in every LRR checkpoint and at their initial
+    weights in the SNIP ones, no qkv or CPB kernel masked, performance.txt's
+    sparsities those of the checkpoints, ``evaluate``'s acc1 equal to the
+    driver's f32 eval of the same checkpoints, preds.pkl and the results txt
+    against ``corloc``, the first image's box against ``extract`` ->
+    ``lost``. Card vs CPU: the f32 forward at B=2, 256x256 (logits and
+    features within 1e-4 of their scale); the f32 driver and bf16 step
+    (``swin_driver_card_vs_cpu``); stochastic depth's draws on the card
+    (every block's keep frequency over 4096 samples within 5 sigma of 1 -
+    rate, kept samples scaled by exactly 1 / keep); per-image LOST f32 in
+    both regimes and ResNet-50 --exact-shapes (``per_image_card_vs_cpu``).
+    Prints train e2e, step (best of 3 windows of 6), decode-only and
+    evaluate img/s, the per-image LOST e2e img/s and p50 of both regimes
+    and of --exact-shapes, and the peak device memory."""
+    import dataclasses
+    import json
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import (export_resnet, export_swin_v2_t, family,
+                                              save_torch_state_dict)
+    from vipers_torch.core.metrics import MetricsWriter
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data.imagefolder import ImageFolder, ImageFolderLoader
+    from vipers_torch.discovery import driver as ldrv
+    from vipers_torch.discovery.driver import load_lost_checkpoint
+    from vipers_torch.models.cnn import exact_f32_convs
+    from vipers_torch.models.stochastic import drop_path, dropout_generator
+    from vipers_torch.models.swin import SwinBlockV2
+    from vipers_torch.pruning import init_masks, magnitude_prune
+    from vipers_torch.train import driver as tdrv
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="vipers_torch_swin_")
+    try:
+        data = os.path.join(root, "imagenet")
+        imagefolder_tree(data, N_TRAIN_IMAGES, N_VAL_IMAGES, seed=4)
+        b, m = BATCH, SWIN_MODEL
+        common = ["--model", m, "--num-classes", "1000", "--amp", "--batch-size", str(b),
+                  "--workers", "8", "--data-path", data, "--epochs", "1", "--print-freq", "4",
+                  *SWIN_CROPS]
+        cfg = swin_cfg(model=m, data_path=data, batch_size=b, workers=8, amp=True, device="cpu")
+        steps, evals = N_TRAIN_IMAGES // b, -(-N_VAL_IMAGES // b)
+
+        def run_cli(argv):
+            return run_cli_without_kernels(cli, argv, counters)
+
+        ds = ImageFolder(os.path.join(data, "train"))
+        loader = tdrv.train_loader(dataclasses.replace(cfg, workers=8), ds, 0)
+        t0 = time.perf_counter()
+        got = sum(len(lab) for _, lab in ImageFolderLoader(
+            ds, loader.indices[:4 * b], b, loader.decode_fn, num_workers=8, drop_last=True,
+            seed=loader.seed))
+        dec = got / (time.perf_counter() - t0)
+
+        # 1. SNIP, one epoch
+        torch.cuda.reset_peak_memory_stats()
+        snip_out = os.path.join(root, "snip")
+        secs = run_cli(["train", *common, "--pruning-method", "snip", "--target-sparsity",
+                        str(SPARSITY), "--output-dir", snip_out])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        run = dict(tdrv.LAST_RUN)
+        for kind, ld in (("train", tdrv.train_loader(cfg, ds, 0)),
+                         ("val", tdrv.val_loader(cfg, ImageFolder(os.path.join(data, "val"))))):
+            want_i, want_l = next(iter(ld))
+            got_i, got_l = run[f"first_{kind}_batch"]
+            assert got_i.dtype == np.uint8 and np.array_equal(got_i, want_i), kind
+            assert np.array_equal(got_l, want_l), kind
+        e2e = steps * b / (run["t_last_checkpoint"] - run["t_first_decode"])
+        with open(os.path.join(snip_out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        loss = [r["loss"] for r in recs if r["tag"] == "train"]
+        assert len(loss) == 1 and np.isfinite(loss[0]), recs
+        snip_sp = [r["sparsity"] for r in recs if r["tag"] == "prune"][0]
+        init = export_swin_v2_t(build_model(m).init(torch.Generator().manual_seed(cfg.seed)))
+        init = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in init.items()}
+        for stem in ("epoch_0", "checkpoint"):
+            path = os.path.join(snip_out, f"{m}_{stem}_snip_{SPARSITY}.pth")
+            check_checkpoint(path, snip_sp, init=init, model=m)
+            masked = [k for k in torch.load(path, map_location="cpu", weights_only=False)["model"]
+                      if k.endswith("_mask")]
+            assert masked and not any("qkv" in k or "cpb" in k for k in masked), masked
+        del init
+        print(f"train CLI [snip] {m} bf16 B={b} 256x256: {steps} steps, {evals} eval batches, "
+              f"no attention or fused-MLP launch; e2e {e2e:.1f} img/s ({steps * b} images, first "
+              f"decode to the last checkpoint; {secs:.3f} s with the set-up); sparsity "
+              f"{snip_sp:.4f}% (no qkv or CPB kernel masked), train loss {loss[0]:.4f}; peak "
+              f"device memory {peak:.2f} GiB; first train and val batches equal to the CPU "
+              f"loader's; decode only (the PIL bicubic train preset, 8 threads) {dec:.1f} img/s "
+              f"({card})")
+        shutil.rmtree(snip_out)
+
+        # 2. LRR: two iterations of one epoch
+        lrr_out = os.path.join(root, "lrr")
+        secs = run_cli(["train", *common, "--pruning-method", "magnitude", "--pruning-rate",
+                        "0.2", "--pruning-threshold", "35.9", "--output-dir", lrr_out])
+        run = dict(tdrv.LAST_RUN)
+        rows = MetricsWriter.read_performance_txt(os.path.join(lrr_out, "performance.txt"))
+        assert len(rows) == 2, rows
+        ckpts = [os.path.join(lrr_out, f"{m}_epoch_0_pruning_iteration_{it:02d}.pth")
+                 for it in range(2)]
+        for it, (_, sp) in enumerate(rows):
+            for stem in ("epoch_0", "checkpoint"):
+                check_checkpoint(os.path.join(lrr_out, f"{m}_{stem}_pruning_iteration_"
+                                                       f"{it:02d}.pth"), sp, model=m)
+        e2e_lrr = 2 * steps * b / (run["t_last_checkpoint"] - run["t_first_decode"])
+        print(f"train CLI [magnitude] {m} 2 iterations: e2e {e2e_lrr:.1f} img/s "
+              f"({2 * steps * b} images; {secs:.3f} s with the set-up); performance.txt {rows} "
+              f"({card})")
+
+        # 3. evaluate over the LRR checkpoints, in f32
+        ev_out = os.path.join(root, "eval")
+        secs = run_cli(["evaluate", *common, "--models-path", lrr_out, "--output-dir", ev_out])
+        ev_rows = MetricsWriter.read_performance_txt(os.path.join(ev_out, "performance.txt"))
+        f32 = f32_eval_acc1(cfg, ckpts, root)
+        assert [a for a, _ in ev_rows] == f32, (ev_rows, f32)
+        assert all(abs(e - t) <= 1e-4 for (_, e), (_, t) in zip(ev_rows, rows)), (ev_rows, rows)
+        print(f"evaluate --amp {m} over 2 checkpoints: acc1 and sparsity {ev_rows} (acc1 equal "
+              f"to the driver's f32 eval {f32}); {2 * N_VAL_IMAGES / secs:.1f} img/s with the "
+              f"set-up and 2 checkpoint loads ({card})")
+
+        # 4. lost --arch swin from the iteration-01 checkpoint, both regimes;
+        # lost --arch resnet --exact-shapes
+        voc = os.path.join(root, "VOC2007")
+        items = voc_tree(voc, N_JPEG_SHORT, seed=3)
+        voc_exact = os.path.join(root, "VOC2007_exact")
+        items_exact = voc_tree(voc_exact, N_SWIN_EXACT, seed=3)
+        if resnet_pth is None:
+            resnet_pth = os.path.join(root, "resnet50.pth")
+            rspec = build_model(CNN_MODEL, dilate=CNN_DILATE)
+            rparams = rspec.init(torch.Generator().manual_seed(0))
+            save_torch_state_dict(export_resnet(rparams, masks=magnitude_prune(
+                rparams, init_masks(rparams), amount=SPARSITY), bake_masks=False), resnet_pth)
+        lost_rates = {}
+        for tag, arch, model, pth, extra, data_dir, its in (
+                ("swin first window", "swin", m, ckpts[1], [], voc, items),
+                ("swin all windows", "swin", m, ckpts[1], ["--swin-all-windows"], voc, items),
+                ("resnet --exact-shapes", "resnet", CNN_MODEL, resnet_pth,
+                 ["--resnet-dilate", str(CNN_DILATE), "--exact-shapes"], voc_exact,
+                 items_exact)):
+            out = os.path.join(root, f"lost_{arch}_{len(lost_rates)}")
+            run_cli(["lost", "--arch", arch, "--model", model, *extra, "--dtype", "bf16",
+                     "--dataset", "VOC07", "--set", "trainval", "--data-path", data_dir,
+                     "--checkpoint", pth, "--workers", "8", "--output-dir", out])
+            lrun = dict(ldrv.LAST_RUN)
+            assert lrun["per_image"] and lrun["images"] == len(its), lrun
+            rescored, _ = check_cli_outputs(tag, out, data_dir, "trainval", its, lrun["failed"])
+            p50 = check_first_image(tag, pth, data_dir, its, out, lrun["failed"], model,
+                                    {"dilate": CNN_DILATE} if arch == "resnet" else {})
+            ips = lrun["images"] / lrun["decode_to_preds_seconds"]
+            lost_rates[tag] = (ips, p50)
+            print(f"lost --arch {arch} --model {model} {' '.join(extra)} bf16, one image at a "
+                  f"time: {lrun['images']} images, {len(lrun['failed'])} seeds in the "
+                  f"background, {rescored}; e2e {ips:.1f} img/s; p50 {p50:.2f} ms an image "
+                  f"(extract -> lost, the first image); first image's box equal to extract -> "
+                  f"lost's; no attention or fused-MLP launch ({card})")
+
+        # the per-image LOST path f32, card vs CPU
+        spec = build_model(m)
+        params, _, masks = load_lost_checkpoint(ckpts[1], spec)
+        for tag, all_windows in (("swin first window", False), ("swin all windows", True)):
+            per_image_card_vs_cpu(tag, spec, params, masks, None, card,
+                                  swin_all_windows=all_windows)
+        rspec = build_model(CNN_MODEL, dilate=CNN_DILATE)
+        rparams, rstats, rmasks = load_lost_checkpoint(resnet_pth, rspec)
+        per_image_card_vs_cpu("resnet50 --exact-shapes", rspec, rparams, rmasks, rstats, card,
+                              cnn_bucket=1)
+        shutil.rmtree(lrr_out)
+
+        # step img/s: the CLI's session and batch, best of 3 windows of 6 steps
+        s = tdrv.build_session(dataclasses.replace(cfg, device="cuda",
+                                                   output_dir=os.path.join(root, "step")))
+        images, labels = next(iter(tdrv._train_loader(s, 0)))
+        x = s.normalize(images)
+        reset_counts(*counters)
+        s.train_step(s.state, (x, labels))
+        torch.cuda.synchronize()
+        assert all_launches(counters) == 0
+        best = 0.0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(6):
+                s.train_step(s.state, (x, labels))
+            torch.cuda.synchronize()
+            best = max(best, b * 6 / (time.perf_counter() - t1))
+        print(f"train CLI session step {m} 256x256 bf16 {best:.1f} img/s at B={b} ({card})")
+        # stochastic depth's draws on the card: each block's rate, the
+        # step's generator, 4096 samples
+        worst = 0.0
+        for i, blk in enumerate(b_ for b_ in s.state.model.blocks if isinstance(b_, SwinBlockV2)):
+            rate = blk.sd_rate
+            if rate == 0.0:
+                continue
+            keep = 1.0 - rate
+            y = torch.randn(4096, 1, 1, 8, device="cuda")
+            out = drop_path(y, rate, True, dropout_generator(cfg.seed, i, "cuda"))
+            kept = (out != 0).flatten(1).any(dim=1)
+            sigma = (keep * rate / 4096) ** 0.5
+            dev_ = abs(kept.float().mean().item() - keep) / sigma
+            worst = max(worst, dev_)
+            assert dev_ <= 5, (i, rate, dev_)
+            assert torch.equal(out[kept], y[kept] / keep) and not out[~kept].any(), i
+        rates = [round(b_.sd_rate, 4) for b_ in s.state.model.blocks if isinstance(b_, SwinBlockV2)]
+        print(f"stochastic depth on the card, rates {rates}: keep frequencies over 4096 samples "
+              f"within {worst:.2f} sigma of 1 - rate (tol 5), kept samples scaled by exactly "
+              f"1 / keep ({card})")
+        del s, x
+        torch.cuda.empty_cache()
+
+        # the f32 forward at B=2, 256x256, card vs CPU
+        spec = build_model(m)
+        model = spec.module().eval()
+        model.load_state_dict(family(spec).state_dict(biased(spec, 1)))
+        xin = torch.randn(2, 256, 256, 3, generator=torch.Generator().manual_seed(2))
+        with torch.no_grad(), exact_f32_convs():
+            ref = model(xin)
+            got = model.cuda()(xin.cuda())
+        for what, g, r in (("logits", got[0], ref[0]),
+                           ("features", got[1]["features"], ref[1]["features"])):
+            scale = r.abs().max().item()
+            err = (g.cpu() - r).abs().max().item()
+            print(f"cpu-vs-card {m} f32 forward B=2 256x256 {what}: max_abs_err {err:.3e}, "
+                  f"{err / scale:.2e} of their scale {scale:.3g} (tol 1e-4) ({card})")
+            assert err <= 1e-4 * scale, (what, err, scale)
+        del model, got
+        torch.cuda.empty_cache()
+
+        # the f32 driver and the bf16 step, card vs CPU
+        cut = os.path.join(root, "cut")
+        imagefolder_tree(cut, 2 * SWIN_CUT_BATCH, SWIN_CUT_BATCH, seed=5)
+        swin_driver_card_vs_cpu(card, root, cut)
+        print(f"phase 14 Swin-V2-T: no attention or fused-MLP launch; per-image LOST "
+              f"{ {k: (round(v[0], 1), round(v[1], 2)) for k, v in lost_rates.items()} } "
+              f"(img/s, p50 ms); {time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(root)
 
@@ -2946,8 +3519,20 @@ def main():
     train_cli_runs = train_cli_phase(card, counters)
     lap(12)
     # 13. the CNN families (ResNet-50, VGG16) through train, evaluate, lost
-    cnn_phase(card, counters)
-    lap(13)
+    import tempfile
+
+    keep = tempfile.mkdtemp(prefix="vipers_torch_keep_")
+    try:
+        resnet_pth = os.path.join(keep, "resnet50_iteration_01.pth")
+        cnn_phase(card, counters, keep_pth=resnet_pth)
+        lap(13)
+        # 14. Swin-V2-T through train, evaluate, lost; the per-image LOST path
+        swin_phase(card, counters, resnet_pth)
+        lap(14)
+    finally:
+        import shutil
+
+        shutil.rmtree(keep)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove

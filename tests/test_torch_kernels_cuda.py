@@ -876,3 +876,56 @@ def test_f32_convolutions_run_as_exact_f32(cuda):
         err, tf_err = (got - ref).abs().max().item(), (tf - ref).abs().max().item()
         assert err <= 1e-5 * scale, (err, scale)
         assert tf_err >= 10 * err, (tf_err, err)
+
+
+def test_swin_f32_forward_matches_the_cpu(cuda):
+    """swin_v2_t at full width and depth (seed-0 weights, biases drawn so
+    they are not zero), f32 at B = 2 on a 256x256 and a 100x76 input (a
+    padded, shift-off last stage): logits, the final map and the last
+    block's qkv on the card within 1e-4 of their scale of the CPU's (the
+    patch convolution as exact f32); no port kernel launches."""
+    from vipers_torch.core.checkpoint import family
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.models.cnn import exact_f32_convs
+    from vipers_torch.ops import attention_train as tat
+
+    spec = build_model("swin_v2_t")
+    params = spec.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    sd = {k: (v + 0.02 * torch.randn(v.shape, generator=g) if k.endswith("bias") else v)
+          for k, v in family(spec).state_dict(params).items()}
+    model = spec.module().eval()
+    model.load_state_dict(sd)
+    counters = (tfa.LAUNCHES, tfa.PACKED_LAUNCHES, tfa.BWD_LAUNCHES, tfm.LAUNCHES, tat.LAUNCHES)
+    before = sum(v for c in counters for v in c.values())
+    for hw in ((256, 256), (100, 76)):
+        x = torch.randn(2, *hw, 3, generator=g)
+        with torch.no_grad(), exact_f32_convs():
+            ref = model(x)
+            got = model.to(cuda)(x.to(cuda))
+            model.cpu()
+        torch.cuda.synchronize()
+        for r, c in ((ref[0], got[0]), (ref[1]["features"], got[1]["features"]),
+                     (ref[1]["qkv"], got[1]["qkv"])):
+            scale = r.abs().max().item()
+            assert (c.cpu() - r).abs().max().item() <= 1e-4 * scale
+    assert sum(v for c in counters for v in c.values()) == before
+
+
+def test_drop_path_generator_on_the_card(cuda):
+    """Stochastic depth's generator on the card: over 4096 samples the keep
+    frequency lies within 5 sigma of 1 - rate, kept samples are scaled by
+    exactly 1 / keep and dropped ones are zero; the same (seed, step)
+    draws the same mask, another step another."""
+    from vipers_torch.models.stochastic import drop_path, dropout_generator
+
+    rate, keep = 0.2, 0.8
+    y = torch.randn(4096, 4, 4, 8, device=cuda)
+    gen = dropout_generator(0, 3, cuda)
+    assert gen.device.type == "cuda"
+    out = drop_path(y, rate, True, gen)
+    kept = (out != 0).flatten(1).any(dim=1)
+    assert abs(kept.float().mean().item() - keep) <= 5 * (keep * rate / y.shape[0]) ** 0.5
+    assert torch.equal(out[kept], y[kept] / keep) and not out[~kept].any()
+    assert torch.equal(drop_path(y, rate, True, dropout_generator(0, 3, cuda)), out)
+    assert not torch.equal(drop_path(y, rate, True, dropout_generator(0, 4, cuda)), out)

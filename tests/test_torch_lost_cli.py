@@ -256,18 +256,23 @@ def test_seed_in_background_collected_or_strict(voc, monkeypatch, tmp_path, caps
         main(_lost_argv(voc, tmp_path / "strict", "--checkpoint", voc["pth"], "--strict"))
 
 
+# the per-image paths run (--arch swin, --swin-all-windows, --exact-shapes,
+# --cnn-bucket 1); what they still lack is refused on them too
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "dino"], "A2"), (["--arch", "resnet", "--exact-shapes"], "A5"),
-    (["--arch", "swin"], "A6"),
+    (["--arch", "dino"], "A2"),
+    (["--arch", "resnet", "--exact-shapes", "--visualize", "pred"], "A11"),
+    (["--arch", "swin", "--model", "swin_v2_t", "--visualize", "pred"], "A11"),
     (["--model", "mobilenet_v2"], "A5"), (["--model", "dino_vit_small"], "A2"),
     (["--dtype", "int8"], "A9"),
     (["--visualize", "pred"], "A11"), (["--dinoseg"], "A2"),
     (["--dinoseg-reference-bugs"], "A2"), (["--data-parallel"], "A10"),
     (["--sequence-parallel"], "A10"),
-    (["--arch", "resnet", "--model", "resnet50", "--resnet-dilate", "2", "--cnn-bucket", "1"],
-     "A5"),
-    (["--cnn-bucket", "1"], "A5"), (["--exact-shapes"], "A5"),
-    (["--swin-all-windows"], "A6")])
+    (["--arch", "resnet", "--model", "resnet50", "--resnet-dilate", "2", "--cnn-bucket", "1",
+      "--data-parallel"], "A10"),
+    (["--arch", "swin", "--model", "swin_v2_t", "--dinoseg"], "A2"),
+    (["--arch", "swin", "--model", "swin_v2_t", "--dtype", "int8"], "A9"),
+    (["--arch", "swin", "--model", "swin_v2_t", "--swin-all-windows", "--sequence-parallel"],
+     "A10")])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         main(["lost", "--data-path", str(tmp_path), "--device", "cpu", *flags])

@@ -166,7 +166,7 @@ def test_train_and_evaluate_default_device_raise_without_a_card(data, tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--model", "mobilenet_v2"], "A5"),
     (["--model", "resnet50", "--data-parallel"], "A10"),  # the CNNs pass the model check
-    (["--model", "swin_v2_t"], "A6"),
+    (["--model", "swin_v2_t", "--data-parallel"], "A10"),  # Swin trains on one device
     (["--model", "dino_vit_small"], "A2"),
     (["--model", "quantized_resnet18"], "A9"),
     (["--model", "resnet18", "--resnet-dilate", "2", "--debug-nans"], "A11"),
@@ -259,3 +259,41 @@ def test_evaluate_voc_branch_matches_jax(tmp_path):
             assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w))
         else:
             assert g == w, (i, g, w)
+
+
+def test_evaluate_amp_runs_in_f32_as_jax(data, tmp_path):
+    """``evaluate --amp`` evaluates in f32 in both packages (the JAX sweep
+    builds its eval step at the default f32 whatever ``--amp`` says): on
+    the same two ``.pth`` files of a resnet18 sweep (seed-0 weights, dense,
+    then a 50% magnitude mask), both CLIs print the same rows and write the
+    same accuracies and sparsities, the losses within 1e-5 relative (a bf16
+    eval misses that)."""
+    from vipers_torch.core.checkpoint import export_resnet, save_torch_state_dict
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    params = build_model("resnet18", num_classes=2).init(torch.Generator().manual_seed(0))
+    masks = magnitude_prune(params, init_masks(params), amount=0.5)
+    sweep = tmp_path / "sweep"
+    sweep.mkdir()
+    for it, m in enumerate((None, masks)):
+        save_torch_state_dict(export_resnet(params, masks=m, bake_masks=False),
+                              sweep / f"resnet18_epoch_0_pruning_iteration_{it:02d}.pth")
+    common = ["evaluate", *_common(data)[2:], "--model", "resnet18", "--amp",
+              "--models-path", str(sweep)]
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VIPERS_JAX_CACHE", "0")
+        for pkg, main, extra in (("jax", jmain, []), ("torch", tmain, ["--device", "cpu"])):
+            lines = _run(main, [*common, "--output-dir", str(tmp_path / pkg), *extra])
+            out[pkg] = [ln for ln in lines if ROW.match(ln)]
+    assert out["torch"] == out["jax"] and len(out["torch"]) == 4, out
+    assert "sparsity 50.00" in out["torch"][-1]
+    for name in ("performance.txt", "resnet18_dilation_1.txt"):
+        lines = [(tmp_path / p / name).read_text().split() for p in ("torch", "jax")]
+        assert len(lines[0]) == len(lines[1]) >= 6
+        for i, (g, w) in enumerate(zip(*lines)):
+            if name != "performance.txt" and i % 4 == 1 and "loss" in lines[1][i - 1]:
+                assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w)), (i, g, w)
+            else:
+                assert g == w, (name, i, g, w)

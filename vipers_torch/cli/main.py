@@ -9,7 +9,9 @@ defaults, plus ``--device``)::
     python -m vipers_torch.cli.main lost --model vit_s_16 --arch vit \
         --dataset VOC07 --data-path VOC2007 --checkpoint model.pth --dtype bf16
     python -m vipers_torch.cli.main lost --arch resnet --model resnet50 \
-        --resnet-dilate 2 --data-path VOC2007 --checkpoint model.pth
+        --resnet-dilate 2 --data-path VOC2007 --checkpoint model.pth [--exact-shapes]
+    python -m vipers_torch.cli.main lost --arch swin --model swin_v2_t \
+        --data-path VOC2007 --checkpoint swin.pth [--swin-all-windows]
     python -m vipers_torch.cli.main corloc --preds outputs/preds.pkl \
         --dataset VOC07 --data-path VOC2007
 
@@ -50,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     lost = sub.add_parser("lost", help="LOST object discovery + CorLoc")
     lost.add_argument("--model", default="vit_s_16")
     lost.add_argument("--arch", default="vit",
-                      help="feature family: vit, resnet or vgg16 (dino, swin: not ported yet)")
+                      help="feature family: vit, resnet, vgg16 or swin (dino: not ported yet)")
     lost.add_argument("--dataset", default="VOC07", choices=["VOC07", "VOC12", "COCO20k"])
     lost.add_argument("--set", default="trainval")
     lost.add_argument("--data-path", required=False, default="/data")
@@ -122,15 +124,15 @@ def _refuse_unported(args):
     def no(what, item):
         raise SystemExit(f"vipers_torch lost: {what} is not ported yet (ROADMAP A{item})")
 
-    if args.arch not in ("vit", "resnet", "vgg16"):
-        no(f"--arch {args.arch}", {"dino": 2, "swin": 6}.get(args.arch, 5))
+    if args.arch not in ("vit", "resnet", "vgg16", "swin"):
+        no(f"--arch {args.arch}", {"dino": 2}.get(args.arch, 5))
     from vipers_torch.core.registry import build_model
 
     try:
         build_model(args.model)
     except ValueError:
         # the JAX registry's other families, by name
-        family = {"mobilenet": 5, "swin": 6, "dino": 2}
+        family = {"mobilenet": 5, "dino": 2}
         item = next((i for f, i in family.items() if args.model.lower().startswith(f)), None)
         if item is None:
             raise SystemExit(f"vipers_torch lost: unknown model {args.model!r}") from None
@@ -143,10 +145,6 @@ def _refuse_unported(args):
         no("--dinoseg", 2)
     if args.data_parallel or args.sequence_parallel:
         no("--data-parallel / --sequence-parallel (multi-device)", 10)
-    if args.exact_shapes or args.cnn_bucket == 1:
-        no("the per-image CNN path (--exact-shapes, --cnn-bucket 1)", 5)
-    if args.swin_all_windows:
-        no("--swin-all-windows", 6)
     ckpt = (args.checkpoint or "").rstrip("/")
     if ckpt and any(os.path.exists(c)
                     for c in (ckpt + ".slim.json", ckpt + "/slim.json")):

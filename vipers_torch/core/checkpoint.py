@@ -1,6 +1,6 @@
-"""Weights carried across from the JAX package (port of the ViT, ResNet
-and VGG parts of ``vipers/core/checkpoint.py``, with the exporters the
-JAX package lacks).
+"""Weights carried across from the JAX package (port of the ViT, ResNet,
+VGG and Swin-V2 parts of ``vipers/core/checkpoint.py``, with the exporters
+the JAX package lacks).
 
 A flax ViT parameter tree (nested dict of numpy arrays or tensors, conv
 kernels HWIO, dense kernels (in, out)) plus optional pruning masks (flat
@@ -38,7 +38,9 @@ into ``batch_stats``) and ``export_resnet`` / ``export_vgg16`` write it,
 ``num_batches_tracked`` included. Callers that serve every family go
 through ``family(spec)``, one ``Family`` of converters a family: the
 module's state dict from flax trees and back, masks both ways, the
-``.pth`` both ways.
+``.pth`` both ways. Swin-V2's modules carry the flax names, so its state
+dict is the ViT's renaming of leaves; ``import_swin_v2_t`` /
+``export_swin_v2_t`` read and write torchvision's ``features.*`` layout.
 """
 
 from __future__ import annotations
@@ -490,6 +492,116 @@ def export_vgg16(params, masks=None, bake_masks: bool = True) -> Dict[str, np.nd
     return _export_cnn(_vgg_key, params, None, masks, bake_masks)
 
 
+# -------------------------------- Swin-V2 ----------------------------------
+#
+# The port's Swin modules carry the flax names (``stage0_block0.attn.qkv``),
+# so the module state dict is the ViT's renaming of leaves; the torchvision
+# ``.pth`` numbers stages and merges into ``features`` (features.0 the patch
+# embedding, features.{1,3,5,7} the stages, features.{2,4,6} the merges).
+
+SWIN_DEPTHS = (2, 2, 6, 2)
+
+
+def _swin_torchvision_table(depths) -> List[Tuple[str, tuple, str]]:
+    """(torchvision key, flax path, layout) of every Swin-V2 parameter;
+    layouts as ``_vit_torchvision_table``'s. Every kernel may carry a mask,
+    as the JAX importer reads them."""
+    table = [("features.0.0.weight", ("patch_embed", "kernel"), "conv"),
+             ("features.0.0.bias", ("patch_embed", "bias"), ""),
+             ("features.0.2.weight", ("patch_norm", "scale"), ""),
+             ("features.0.2.bias", ("patch_norm", "bias"), "")]
+
+    def lin(tkey, path, bias=True):
+        out = [(f"{tkey}.weight", path + ("kernel",), "lin")]
+        return out + ([(f"{tkey}.bias", path + ("bias",), "")] if bias else [])
+
+    def ln(tkey, path):
+        return [(f"{tkey}.weight", path + ("scale",), ""), (f"{tkey}.bias", path + ("bias",), "")]
+
+    for si, depth in enumerate(depths):
+        for bi in range(depth):
+            t, o = f"features.{1 + 2 * si}.{bi}", (f"stage{si}_block{bi}",)
+            table += (ln(f"{t}.norm1", o + ("norm1",)) + ln(f"{t}.norm2", o + ("norm2",))
+                      + lin(f"{t}.attn.qkv", o + ("attn", "qkv"))
+                      + lin(f"{t}.attn.proj", o + ("attn", "proj"))
+                      + [(f"{t}.attn.logit_scale", o + ("attn", "logit_scale"), "")]
+                      + lin(f"{t}.attn.cpb_mlp.0", o + ("attn", "cpb_fc1"))
+                      + lin(f"{t}.attn.cpb_mlp.2", o + ("attn", "cpb_fc2"), bias=False)
+                      + lin(f"{t}.mlp.0", o + ("fc1",)) + lin(f"{t}.mlp.3", o + ("fc2",)))
+        if si < len(depths) - 1:
+            m = f"features.{2 + 2 * si}"
+            table += (lin(f"{m}.reduction", (f"merge{si}", "reduction"), bias=False)
+                      + ln(f"{m}.norm", (f"merge{si}", "norm")))
+    return table + ln("norm", ("norm",)) + lin("head", ("head",))
+
+
+def import_swin_v2_t(sd: Dict[str, np.ndarray], depths=SWIN_DEPTHS):
+    """A normalized torchvision ``swin_v2_t`` state dict -> (flax-layout
+    params tree, masks {flax path: bool array}), as the JAX package's
+    ``import_swin_v2_t``: the head is optional, the ``relative_coords_table``
+    and ``relative_position_index`` buffers are recomputed, not read."""
+    to_flax = {"conv": _conv_w, "lin": np.transpose, "": lambda a: a}
+    p, masks = {}, {}
+    for key, path, layout in _swin_torchvision_table(depths):
+        if key.startswith("head.") and key not in sd:
+            continue
+        p[path] = to_flax[layout](sd[key])
+        if key + ".__mask__" in sd:
+            masks[path] = to_flax[layout](sd[key + ".__mask__"])
+    return unflatten_dict(p), masks
+
+
+def _torchvision_swin_buffers(ws: int):
+    """A block's ``relative_coords_table`` (1, 2ws-1, 2ws-1, 2) and
+    ``relative_position_index`` (ws^4,) as torchvision computes them (in
+    f32)."""
+    from vipers_torch.models.swin import relative_position_index_np
+
+    coords = torch.arange(-(ws - 1), ws, dtype=torch.float32)
+    table = torch.stack(torch.meshgrid(coords, coords, indexing="ij")).permute(1, 2, 0)[None]
+    table = table / (ws - 1) * 8.0
+    table = torch.sign(table) * torch.log2(torch.abs(table) + 1.0) / 3.0
+    return table.numpy(), relative_position_index_np(ws).reshape(-1).astype(np.int64)
+
+
+def export_swin_v2_t(params, masks=None, bake_masks: bool = True, window_size: int = 8
+                     ) -> Dict[str, np.ndarray]:
+    """The inverse of ``import_swin_v2_t``, which the JAX package lacks: a
+    flax-layout Swin-V2 tree -> torchvision's keys, f32, masks baked or as
+    ``<key>_orig`` / ``<key>_mask`` (as ``export_vit_torchvision``), with
+    every block's ``relative_coords_table`` (1, 2ws-1, 2ws-1, 2) and
+    ``relative_position_index`` (ws^4,) buffers, so a torchvision
+    ``swin_v2_t`` loads the file strictly."""
+    p = {path: np.asarray(a.detach().cpu() if hasattr(a, "detach") else a, np.float32)
+         for path, a in flatten_dict(params).items()}
+    masks = {tuple(k): np.asarray(m.detach().cpu() if hasattr(m, "detach") else m, np.float32)
+             for k, m in (masks or {}).items() if tuple(k) in p}
+    stages = sorted({int(m.group(1)) for k in p
+                     for m in [re.fullmatch(r"stage(\d+)_block\d+", k[0])] if m})
+    depths = [1 + max(int(k[0].split("_block")[1]) for k in p if k[0].startswith(f"stage{s}_"))
+              for s in stages]
+    to_torch = {"conv": _conv_w_inv, "lin": np.transpose, "": lambda a: a}
+    coords, index = _torchvision_swin_buffers(window_size)
+    sd: Dict[str, np.ndarray] = {}
+    for key, path, layout in _swin_torchvision_table(depths):
+        if path not in p:
+            continue
+        w, m = p[path], masks.get(path)
+        if m is not None and bake_masks:
+            w = w * m
+        if m is not None and not bake_masks:
+            base, leaf = key.rsplit(".", 1)
+            sd[f"{base}.{leaf}_orig"] = to_torch[layout](w)
+            sd[f"{base}.{leaf}_mask"] = to_torch[layout](m)
+        else:
+            sd[key] = to_torch[layout](w)
+        if key.endswith(".attn.logit_scale"):
+            base = key[:-len("logit_scale")]
+            sd[base + "relative_coords_table"] = coords.copy()
+            sd[base + "relative_position_index"] = index.copy()
+    return sd
+
+
 # ------------------------- one table of converters --------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -547,10 +659,20 @@ def _import_resnet(sd, spec):
     return import_resnet(sd, spec.cfg.stage_sizes, spec.cfg.headless)
 
 
+def _import_swin(sd, spec):
+    params, masks = import_swin_v2_t(sd, spec.cfg.depths)
+    return params, None, masks
+
+
+def _export_swin(params, batch_stats, masks, bake_masks):
+    return export_swin_v2_t(params, masks, bake_masks)
+
+
 FAMILIES = {
     "vit": Family(_state_key, _flax_path, _import_vit, _export_vit),
     "resnet": Family(_resnet_key, _resnet_path, _import_resnet, export_resnet),
     "vgg": Family(_vgg_key, _vgg_path, _import_vgg, _export_vgg),
+    "swin": Family(_state_key, _flax_path, _import_swin, _export_swin),
 }
 
 

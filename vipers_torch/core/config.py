@@ -4,8 +4,8 @@ package's flags and defaults, plus ``--device``.
 
 The port trains one model on one device. ``refuse_unported`` exits,
 naming the ROADMAP item that ports it, for a flag that selects what the
-port does not have yet: a family other than the ViTs, the ResNets and VGG
-(A2, A5, A6, A9), training VGG (its dropout, A8), the multi-device flags
+port does not have yet: a family other than the ViTs, the ResNets, VGG
+and Swin-V2 (A2, A5, A9), training VGG (its dropout, A8), the multi-device flags
 (A10), ``--profile-dir`` and ``--debug-nans`` (A11) and a structurally
 slimmed checkpoint (A4). ``--resnet-dilate`` applies to the ResNets; the
 other families ignore it, as the JAX package does.
@@ -174,7 +174,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 
 # the JAX registry's other families, by name prefix: the ROADMAP item that
 # ports each
-_FAMILY_ITEMS = (("mobilenet", 5), ("swin", 6), ("dino", 2), ("quantized_", 9))
+_FAMILY_ITEMS = (("mobilenet", 5), ("dino", 2), ("quantized_", 9))
 
 
 def refuse_unported(cfg: TrainConfig, cmd: str = "train"):

@@ -25,8 +25,10 @@ class ModelSpec:
     ``prune_exclude``: substrings; a parameter path containing one is never
     pruned even if it is a conv/dense kernel (``("qkv",)`` on ViTs: the
     reference never prunes the attention in-projection). ``family`` ("vit",
-    "resnet", "vgg") picks the weight converters of ``core.checkpoint``;
-    ``num_classes`` is the head's width, 0 for a headless model."""
+    "resnet", "vgg", "swin") picks the weight converters of
+    ``core.checkpoint``; ``num_classes`` is the head's width, 0 for a
+    headless model; ``extra`` holds what a family's callers read (a Swin's
+    last-stage ``num_heads``)."""
 
     name: str
     cfg: Any
@@ -37,6 +39,7 @@ class ModelSpec:
     patch_size: Optional[int] = None
     family: str = ""
     num_classes: int = 1000
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def register_model(name: Optional[str] = None):
@@ -63,4 +66,4 @@ def build_model(name: str, **kwargs) -> ModelSpec:
 
 
 def _ensure_builtins_imported():
-    from vipers_torch.models import resnet, vgg, vit  # noqa: F401  (registers builders)
+    from vipers_torch.models import resnet, swin, vgg, vit  # noqa: F401  (registers builders)

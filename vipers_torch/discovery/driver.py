@@ -21,13 +21,21 @@ VGG under ``--dtype bf16``) and the batched LOST core. Feature extents
 come from the module's arithmetic (``feature_extent``), where the JAX
 package traces ``eval_shape``.
 
+``extract`` is the per-image path, as the JAX package routes it: Swin
+(``--arch swin``: the last block's qkv, its first window as the reference
+reads it, or with ``swin_all_windows`` the whole last-stage grid in image
+order) and the CNNs at each image's native shape (``--exact-shapes``,
+``--cnn-bucket 1``: the reference's parity regime, the whole-slab
+LayerNorm), each image one forward, then ``discovery.lost.lost`` at B = 1.
+
 ``run_lost`` is ``vipers_torch lost``: JPEGs decoded on a thread pool in
 dataset order (``_prefetch_decoded``), per-bucket buffers of
 ``--batch-size`` images (a tail batch padded by repeating its last image),
 each full buffer one pipeline call, its results copied to pinned host
 memory behind a CUDA event and read a group at a time, then CorLoc and
 ``preds.pkl`` / ``results_iteration_NN.txt`` as ``vipers lost`` writes
-them.
+them. The per-image path takes the host-normalized float feed and one
+``extract`` and ``lost`` an image.
 """
 
 from __future__ import annotations
@@ -50,8 +58,9 @@ from vipers_torch.data import native
 from vipers_torch.data.detection import DiscoveryDataset, load_image_normalized
 from vipers_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD, bucket_hw
 from vipers_torch.discovery.corloc import CorLocAccumulator
-from vipers_torch.discovery.lost import box_feat_to_image, lost_core
+from vipers_torch.discovery.lost import box_feat_to_image, lost, lost_core
 from vipers_torch.models.cnn import exact_f32_convs
+from vipers_torch.models.dino_vit import split_qkv_dino
 from vipers_torch.models.interpolate import resize_weight_matrix_np
 from vipers_torch.models.vit import scrambled_qkv_gather
 from vipers_torch.ops.flash_attention import flash_min_t
@@ -107,16 +116,20 @@ class LostFeatureExtractor:
     cast to ``compute_dtype`` (None = float32). A ResNet's running
     statistics (``batch_stats``, default mean 0 and var 1) stay f32, as the
     JAX extractor casts ``params`` only. ``cnn_bucket``: the CNN pipeline's
-    feature-grid bucket (``--cnn-bucket``)."""
+    feature-grid bucket (``--cnn-bucket``; 1 is the per-image exact-shape
+    regime); ``swin_all_windows``: Swin LOST over the whole last-stage grid
+    instead of the first window."""
 
     def __init__(self, spec, params, masks=None, which_features: str = "k",
                  bucket: int = 4, compute_dtype: Optional[torch.dtype] = None,
-                 device=None, batch_stats=None, cnn_bucket: int = 4):
+                 device=None, batch_stats=None, cnn_bucket: int = 4,
+                 swin_all_windows: bool = False):
         self.device = resolve_device(device)
         self.spec = spec
         self.which = which_features
         self.bucket = bucket
         self.cnn_bucket = cnn_bucket
+        self.swin_all_windows = swin_all_windows
         self.compute_dtype = compute_dtype or torch.float32
         model = spec.module()
         sd = family(spec).state_dict(params, batch_stats, masks)
@@ -387,6 +400,74 @@ class LostFeatureExtractor:
 
         return run
 
+    # -------------------------- the per-image path -------------------------
+
+    @torch.inference_mode()
+    def cnn_exact_features(self, images):
+        """((1, fh*fw, D) LOST features, (fh, fw)) of a CNN at the image's
+        own shape: the reference's LayerNorm over the whole (tokens, dim)
+        slab with identity affine, its statistics in f32 as ``jnp.mean`` and
+        ``jnp.var`` take them, the result in the features' dtype."""
+        with exact_f32_convs(self.compute_dtype):
+            out, aux = self.model(images.to(self.compute_dtype))
+        feats = out if out.dim() == 4 else aux["features"]
+        b, fh, fw, d = feats.shape
+        f = feats.reshape(b, fh * fw, d)
+        f32 = f.float()
+        mu32 = f32.mean(dim=(1, 2), keepdim=True)
+        var = torch.square(f32 - mu32).mean(dim=(1, 2), keepdim=True).to(f.dtype)
+        return (f - mu32.to(f.dtype)) / torch.sqrt(var + 1e-5), (fh, fw)
+
+    @torch.inference_mode()
+    def extract(self, img_hwc: np.ndarray, patch_size: int):
+        """One host-normalized float image (H, W, 3), already padded to the
+        patch multiple -> (feats (1, T, D) on the device, dims (rows, cols)
+        of the grid, valid_dims, scales, attn or None), the inputs of
+        ``discovery.lost.lost``.
+
+        Swin: the last block's qkv (full bias), the true (DINO-layout) split,
+        no CLS token. By default the first window only, as the reference
+        reads its hook: dims = the window side twice (``sqrt`` of the
+        attention's rows) and scales ``[h / patch_size, w / patch_size]``;
+        with ``swin_all_windows`` the whole grid (``aux["qkv_grid"]``) with
+        the true scales. CNNs: at the image's shape when ``cnn_bucket`` is 1
+        (``cnn_exact_features``), else on its bucket's canonical input at
+        B = 1. The per-image ViT path serves only ``--visualize`` (ROADMAP
+        A11) and ``--dinoseg`` (A2), which the port does not have yet."""
+        h, w = img_hwc.shape[:2]
+        fam = self.spec.family
+        if fam == "vit":
+            raise NotImplementedError(
+                "the per-image ViT path serves --visualize (ROADMAP A11) and --dinoseg "
+                "(ROADMAP A2), which are not ported yet")
+        if fam == "swin":
+            x = self._upload(torch.from_numpy(np.ascontiguousarray(img_hwc, np.float32))[None])
+            with exact_f32_convs(self.compute_dtype):
+                _, aux = self.model(x.to(self.compute_dtype))
+            attn = aux["attn"]
+            nh = attn.shape[1]
+            if self.swin_all_windows:
+                grid = aux["qkv_grid"]
+                _, fh, fw, c3 = grid.shape
+                qkv = split_qkv_dino(grid.reshape(1, fh * fw, c3), nh)
+                feats = dict(zip("qkv", qkv))[self.which]
+                return feats, (fh, fw), (fh, fw), [h / fh, w / fw], attn
+            t_win = attn.shape[-2]
+            ws = int(np.sqrt(t_win))
+            qkv = split_qkv_dino(aux["qkv"][:, :t_win, :], nh)
+            feats = dict(zip("qkv", qkv))[self.which]
+            return feats, (ws, ws), (ws, ws), [h / patch_size, w / patch_size], attn
+        fh, fw = self._cnn_fdim(h), self._cnn_fdim(w)
+        if self.cnn_bucket > 1:
+            key = self.cnn_bucket_key(h, w)
+            feats = self.cnn_features(*self.prepare_cnn_batch([img_hwc], key))
+            return (feats, (self._cnn_fdim(key[0]), self._cnn_fdim(key[1])), (fh, fw),
+                    [h / fh, w / fw], None)
+        x = self._upload(torch.from_numpy(np.ascontiguousarray(img_hwc, np.float32))[None])
+        feats, dims = self.cnn_exact_features(x)
+        return feats, dims, dims, [h / dims[0], w / dims[1]], None
+
+
 
 def _prefetch_decoded(dataset, patch: int, no_hard: bool, workers: int = 8,
                       need_gt: bool = True, as_uint8: bool = False):
@@ -448,7 +529,9 @@ class _SingleImageDataset:
 
 def _templated_checkpoint(models_dir: str, model: str, arch: str, iteration: int) -> str:
     """The reference sweep's checkpoint of ``iteration`` under
-    ``{models_dir}/{model}/``: ViTs at epoch 299, CNNs at epoch 89."""
+    ``{models_dir}/{model}/``: ViTs at epoch 299, the rest at epoch 89
+    under the CNN stem (the reference branches on ``'vit' in arch``, so a
+    Swin takes the CNNs' ``model_epoch_89_...``)."""
     vit = "vit" in arch or "vit" in model
     base = os.path.join(models_dir, model, reference_sweep_stem(
         model, vit, epoch=299 if vit else 89, iteration=iteration))
@@ -481,14 +564,21 @@ LAST_RUN: dict = {}
 
 
 def run_lost(args) -> int:
-    """``vipers_torch lost`` for ``--arch vit``, ``resnet`` and ``vgg16``:
-    the arguments of ``vipers lost`` (``vipers_torch.cli.main``) plus
-    ``--device``.
+    """``vipers_torch lost`` for ``--arch vit``, ``resnet``, ``vgg16`` and
+    ``swin``: the arguments of ``vipers lost`` (``vipers_torch.cli.main``)
+    plus ``--device``. Routed as the JAX package routes them: the ViTs and
+    the bucketed CNNs through the batched pipelines, Swin and the CNNs'
+    ``--exact-shapes`` / ``--cnn-bucket 1`` one image at a time
+    (``extract`` -> ``lost``), where a seed in the background is collected,
+    or raised under ``--strict``, as in the batched drain.
 
     With no ``--checkpoint`` the weights come from
     ``spec.init(torch.Generator().manual_seed(0))``; they cannot equal the
     JAX package's ``PRNGKey(0)`` init, so runs of the two packages agree
-    only on the same ``.pth``."""
+    only on the same ``.pth``. (A Swin's zero initial biases give window
+    pad tokens exactly-zero k features, which win the seed: as in the JAX
+    package, every image then fails, so Swin LOST wants a trained or
+    imported checkpoint.)"""
     t_start = time.time()
     device = resolve_device(getattr(args, "device", None))
     image_path = getattr(args, "image_path", None)
@@ -512,14 +602,18 @@ def run_lost(args) -> int:
         print(f"checkpoint: {args.checkpoint}")
     iteration = pruning_iteration if pruning_iteration is not None else args.iteration
 
-    cnn = args.arch != "vit"
     model_kw = {}
     if "resnet" in args.model and getattr(args, "resnet_dilate", 1) != 1:
         model_kw["dilate"] = args.resnet_dilate
     spec = build_model(args.model, **model_kw)
-    if cnn != (spec.family in ("resnet", "vgg")):
+    families = {"vit": ("vit",), "swin": ("swin",)}.get(args.arch, ("resnet", "vgg"))
+    if spec.family not in families:
         raise SystemExit(f"vipers_torch lost: --arch {args.arch} does not take --model "
                          f"{args.model} (a {spec.family})")
+    cnn = spec.family in ("resnet", "vgg")
+    cnn_bucket = 1 if getattr(args, "exact_shapes", False) else int(
+        getattr(args, "cnn_bucket", 0) or 4)
+    per_image = spec.family == "swin" or (cnn and cnn_bucket == 1)
     masks = batch_stats = None
     if args.checkpoint:
         params, batch_stats, masks = load_lost_checkpoint(args.checkpoint, spec)
@@ -539,15 +633,18 @@ def run_lost(args) -> int:
     dtype = {"f32": None, "bf16": torch.bfloat16}[getattr(args, "dtype", None) or "f32"]
     extractor = LostFeatureExtractor(spec, params, masks, which_features=args.which_features,
                                      bucket=4, compute_dtype=dtype, device=device,
-                                     batch_stats=batch_stats,
-                                     cnn_bucket=int(getattr(args, "cnn_bucket", 0) or 4))
-    pipeline = (extractor.make_batched_cnn_pipeline(k_patches=args.k_patches) if cnn
+                                     batch_stats=batch_stats, cnn_bucket=cnn_bucket,
+                                     swin_all_windows=bool(getattr(args, "swin_all_windows",
+                                                                   False)))
+    pipeline = (None if per_image
+                else extractor.make_batched_cnn_pipeline(k_patches=args.k_patches) if cnn
                 else extractor.make_batched_pipeline(k_patches=args.k_patches))
     acc = CorLocAccumulator()
     p = args.patch_size
     batch_size = int(getattr(args, "batch_size", 0) or 8)
-    # the uint8 feed (libjpeg, normalized on the device) unless --host-normalize
-    feed_uint8 = not getattr(args, "host_normalize", False)
+    # the batched paths' uint8 feed (libjpeg, normalized on the device)
+    # unless --host-normalize; the per-image path takes the float feed
+    feed_uint8 = not per_image and not getattr(args, "host_normalize", False)
     strict = bool(getattr(args, "strict", False))
     failed: list = []
     buffers: dict = {}
@@ -608,6 +705,19 @@ def run_lost(args) -> int:
             dataset, p, args.no_hard, workers=workers, need_gt=not no_evaluation,
             as_uint8=feed_uint8):
         n_imgs += 1
+        if per_image:
+            feats, dims, valid_dims, scales, _attn = extractor.extract(padded, p)
+            try:
+                pred = lost(feats, dims, scales, init_image_size, k_patches=args.k_patches,
+                            valid_dims=valid_dims)[0]
+            except ValueError as e:
+                # the batched drain's collect-or-crash contract
+                if strict or "background" not in str(e):
+                    raise
+                failed.append(im_name)
+                continue
+            acc.add(im_name, pred, gt)
+            continue
         h, w = padded.shape[:2]
         key = (extractor.cnn_bucket_key(h, w) if cnn
                else bucket_hw(h, w, p, extractor.bucket))
@@ -627,7 +737,7 @@ def run_lost(args) -> int:
              save_results=not no_evaluation)
     t_end = time.time()
     LAST_RUN.clear()
-    LAST_RUN.update(images=n_imgs, batches=n_batches, failed=list(failed),
+    LAST_RUN.update(images=n_imgs, batches=n_batches, failed=list(failed), per_image=per_image,
                     seconds=t_end - t_start, decode_to_preds_seconds=t_end - t_decode,
                     decoder=native.backend() if feed_uint8 else "pil")
     dt = t_end - t_start

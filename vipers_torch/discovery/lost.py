@@ -1,12 +1,14 @@
-"""LOST unsupervised object discovery on a batch of images (port of
-``patch_scoring``, ``lost_core`` and ``box_feat_to_image`` in
+"""LOST unsupervised object discovery (port of ``patch_scoring``,
+``lost_core``, ``box_feat_to_image``, ``lost`` and ``detect_box`` in
 ``vipers/discovery/lost.py``).
 
 Everything from the affinity to the seed's connected component and its box
 runs on the device for all B images at once; only the 4-int boxes, seeds
 and background flags need to reach the host. Bucket-pad patches (outside
 each image's valid (gh, gw) grid) are masked out everywhere, so results
-equal per-image exact shapes.
+equal per-image exact shapes. ``lost`` and ``detect_box`` keep the
+reference's per-image signatures on top (``lost_core`` at B = 1), for the
+per-image paths (``--arch swin``, ``--exact-shapes``).
 """
 
 from __future__ import annotations
@@ -87,3 +89,48 @@ def box_feat_to_image(box_feat, scales, init_image_size):
         pred[2] = min(pred[2], init_image_size[2] if len(init_image_size) == 3 else init_image_size[1])
         pred[3] = min(pred[3], init_image_size[1] if len(init_image_size) == 3 else init_image_size[0])
     return np.asarray(pred)
+
+
+def lost(feats, dims: Tuple[int, int], scales, init_image_size, k_patches: int = 100,
+         valid_dims: Tuple[int, int] = None):
+    """The reference's per-image ``lost``: ``feats`` (1, T, D) or (T, D)
+    on the grid ``dims`` = (w_featmap, h_featmap) (rows index the image's
+    height), of which ``valid_dims`` (default ``dims``) take part;
+    ``init_image_size`` = (C, H, W) of the unpadded image clips the box.
+    Returns (pred box xyxy ndarray, affinity (T, T), scores (T,), seed);
+    raises ValueError when the seed lies in the background component."""
+    w_featmap, h_featmap = dims
+    valid_dims = dims if valid_dims is None else valid_dims
+    feats = torch.as_tensor(np.asarray(feats) if not isinstance(feats, torch.Tensor) else feats)
+    if feats.dim() == 3:
+        feats = feats[0]
+    if feats.shape[0] != w_featmap * h_featmap:
+        raise ValueError(f"feats T={feats.shape[0]} != grid {w_featmap}x{h_featmap}")
+    valid = torch.tensor([[valid_dims[0], valid_dims[1]]], dtype=torch.int32)
+    out = lost_core(feats[None], valid, (int(w_featmap), int(h_featmap)), k_patches=k_patches)
+    if bool(out["seed_in_background"][0]):
+        raise ValueError("The seed is in the background component.")
+    pred = box_feat_to_image(out["box_feat"][0].cpu(), scales, init_image_size)
+    return (pred, out["affinity"][0].cpu().numpy(), out["scores"][0].cpu().numpy(),
+            int(out["seed"][0]))
+
+
+def detect_box(M, seed, dims, initial_im_size=None, scales=None):
+    """The reference's standalone box extraction: the seed's 4-connected
+    component of ``M > 0`` on the (w_featmap, h_featmap) grid, scaled
+    (and clipped to ``initial_im_size`` (H, W)). Returns (pred xyxy,
+    [ymin, xmin, ymax, xmax] on the grid); raises ValueError when the seed
+    is background."""
+    w_featmap, h_featmap = dims
+    fg = torch.as_tensor(np.asarray(M)).reshape(1, w_featmap, h_featmap) > 0.0
+    seed = int(seed)
+    r, c = seed // h_featmap, seed % h_featmap
+    if not bool(fg[0, r, c]):
+        raise ValueError("The seed is in the background component.")
+    comp = flood_fill_from_seed(fg, torch.tensor([[r, c]]))
+    ymin, ymax, xmin, xmax = (int(v) for v in component_bbox(comp)[0])
+    pred = [scales[1] * xmin, scales[0] * ymin, scales[1] * xmax, scales[0] * ymax]
+    if initial_im_size:
+        pred[2] = min(pred[2], initial_im_size[1])
+        pred[3] = min(pred[3], initial_im_size[0])
+    return pred, [ymin, xmin, ymax, xmax]

@@ -53,7 +53,8 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class BatchNorm(nn.Module):

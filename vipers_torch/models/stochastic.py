@@ -1,0 +1,50 @@
+"""Random layers in training: stochastic depth now, dropout next (ROADMAP
+A8) on the same design.
+
+The JAX package draws a layer's random bits from the ``dropout`` rng
+stream that the train step folds with the step count. Here a train forward
+takes an explicit ``torch.Generator`` on the model's device
+(``dropout_generator``): the train step seeds one from (run seed, step),
+so a resumed run draws the same masks as the run it continues, and SNIP
+seeds one from the run seed alone. An eval forward, or a layer at rate 0,
+draws nothing. The bits differ from JAX's; the keep rate and the ``1 /
+keep`` scaling are the same, so the two packages agree by distribution
+and exactly at rate 0.
+"""
+
+from __future__ import annotations
+
+import inspect
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def dropout_generator(seed: int, step: Optional[int], device) -> torch.Generator:
+    """A generator on ``device`` seeded from (``seed``, ``step``), or from
+    ``seed`` alone when ``step`` is None."""
+    entropy = [int(seed)] if step is None else [int(seed), int(step)]
+    sub = int(np.random.SeedSequence(entropy).generate_state(1)[0])
+    return torch.Generator(device=torch.device(device)).manual_seed(sub)
+
+
+def takes_generator(model: torch.nn.Module) -> bool:
+    """Whether ``model``'s forward has random layers (takes ``generator``)."""
+    return "generator" in inspect.signature(model.forward).parameters
+
+
+def drop_path(y, rate: float, training: bool, generator: Optional[torch.Generator]):
+    """Stochastic depth: each sample's branch ``y`` (N, ...) kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, the mask of
+    shape (N, 1, ..., 1) drawn from ``generator``. Identity in eval mode or
+    at rate 0; a train forward at a rate above 0 needs a generator."""
+    if not training or rate == 0.0:
+        return y
+    if generator is None:
+        raise ValueError("stochastic depth in train mode needs a generator "
+                         "(models.stochastic.dropout_generator)")
+    keep = 1.0 - rate
+    shape = (y.shape[0],) + (1,) * (y.dim() - 1)
+    mask = torch.rand(shape, generator=generator, device=y.device) < keep
+    return y * mask.to(y.dtype) / keep

@@ -70,7 +70,7 @@ def snip_prune(loss_fn: Callable, params, batch, target_sparsity: float,
 
 
 def snip_loss(spec, num_classes: int, label_smoothing: float = 0.0,
-              batch_stats=None) -> Callable:
+              batch_stats=None, seed: int = 0) -> Callable:
     """``loss_fn(params, (images, labels))`` of ``spec``, any family: the
     train step's forward and loss (``train.steps.train_loss``) on the flax
     tree's tensors (no masks: SNIP ranks the dense model) at their dtype,
@@ -81,7 +81,10 @@ def snip_loss(spec, num_classes: int, label_smoothing: float = 0.0,
     at T >= ``flash_min_t()`` every block runs the flash kernels forward
     and backward; the JAX driver's SNIP loss also asks for the last block's
     attention probabilities, which routes that block through the einsum:
-    the same function, another kernel."""
+    the same function, another kernel. A model with random layers (a
+    Swin's stochastic depth) draws from a generator seeded from ``seed`` at
+    each call, as the JAX driver's SNIP loss uses ``PRNGKey(cfg.seed)``."""
+    from vipers_torch.models.stochastic import dropout_generator, takes_generator
     from vipers_torch.train.steps import train_loss
 
     with torch.device("meta"):  # its tensors come from params at each call
@@ -91,10 +94,13 @@ def snip_loss(spec, num_classes: int, label_smoothing: float = 0.0,
         batch_stats = {k: (torch.ones(b.shape) if k.endswith("running_var")
                            else torch.zeros(b.shape)) for k, b in model.named_buffers()}
 
+    random = takes_generator(model)
+
     def loss_fn(params, batch):
         sd = fam.state_dict(params)
         w = next(iter(sd.values()))
         sd.update({k: v.to(w.device) for k, v in batch_stats.items()})
-        return train_loss(model, sd, batch, num_classes, label_smoothing, w.dtype)[0]
+        gen = dropout_generator(seed, None, w.device) if random else None
+        return train_loss(model, sd, batch, num_classes, label_smoothing, w.dtype, gen)[0]
 
     return loss_fn

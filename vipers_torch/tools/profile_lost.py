@@ -1,4 +1,4 @@
-"""Where the time goes in the port's batched LOST pipeline on one GPU.
+"""Where the time goes in the port's LOST pipelines on one GPU.
 
 Builds a full-width model of the registry (``--model``, default ViT-S/16 as
 in ``chip_smoke.py``; random weights from a seed, 50% global magnitude
@@ -9,11 +9,19 @@ VOC bucket of a 500x375 image at ``--patch-size`` (512x384 at patch 16 and
 (512x384 at ``--resnet-dilate`` 1, 2 or 4), with ``torch.profiler``: device
 time by kernel, the device's busy share of the wall-clock window, and the
 host time per call. As with ``vipers lost``, the patch size is the
-caller's to give. Needs a card:
+caller's to give. ``--arch swin`` (``--model swin_v2_t``, first window or
+``--swin-all-windows``) and ``--exact-shapes`` (a CNN at the image's own
+shape) profile the per-image path instead: one host-normalized 500x375
+image, tier-1 padded, through ``extract`` -> ``lost`` a call (weights from
+a seed with their biases drawn away from zero, so Swin's pad tokens do
+not take the seed). Needs a card:
 
     python -m vipers_torch.tools.profile_lost [--batch 128] [--dtype bf16] \
         [--model vit_b_16 --patch-size 16]
     python -m vipers_torch.tools.profile_lost --arch resnet --model resnet50 --resnet-dilate 2
+    python -m vipers_torch.tools.profile_lost --arch swin --model swin_v2_t [--swin-all-windows]
+    python -m vipers_torch.tools.profile_lost --arch resnet --model resnet50 --resnet-dilate 2 \
+        --exact-shapes
 
 Writes the full kernel table and a Chrome trace under ``--out``
 (default ``build/profile_lost/``).
@@ -46,6 +54,15 @@ def _intervals_union(spans):
     return total
 
 
+def _biased(params, gen):
+    """``params`` with every bias drawn from N(0, 0.02)."""
+    from vipers_torch.core.tree import flatten_dict, unflatten_dict
+
+    return unflatten_dict({p: (v + 0.02 * torch.randn(v.shape, generator=gen)
+                               if p[-1] == "bias" else v)
+                           for p, v in flatten_dict(params).items()})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -53,8 +70,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--model", default="vit_s_16")
     ap.add_argument("--patch-size", type=int, default=16)
-    ap.add_argument("--arch", default="vit", choices=("vit", "resnet", "vgg16"))
+    ap.add_argument("--arch", default="vit", choices=("vit", "resnet", "vgg16", "swin"))
     ap.add_argument("--resnet-dilate", type=int, default=1, choices=(1, 2, 4))
+    ap.add_argument("--swin-all-windows", action="store_true")
+    ap.add_argument("--exact-shapes", action="store_true",
+                    help="a CNN one image at a time at its own shape")
     ap.add_argument("--out", default=os.path.join("build", "profile_lost"),
                     help="directory for the kernel table and the Chrome trace")
     args = ap.parse_args(argv)
@@ -66,33 +86,58 @@ def main(argv=None):
 
     patch = args.patch_size
     H, W = bucket_hw(500, 375, patch)
-    cnn = args.arch != "vit"
-    kw = ({"dilate": args.resnet_dilate} if args.arch == "resnet" else {}) if cnn else {
-        "num_classes": 1000, "image_size": (H, W)}
+    cnn = args.arch in ("resnet", "vgg16")
+    per_image = args.arch == "swin" or args.exact_shapes
+    kw = ({"dilate": args.resnet_dilate} if args.arch == "resnet" else {}) if cnn else (
+        {"num_classes": 1000} if args.arch == "swin" else {
+            "num_classes": 1000, "image_size": (H, W)})
     spec = build_model(args.model, **kw)
-    params = spec.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    params = spec.init(gen)
+    if per_image:
+        params = _biased(params, gen)
     masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), 0.5)
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
-    ex = LostFeatureExtractor(spec, params, masks, compute_dtype=dtype)
-    if cnn:
-        H, W = ex.cnn_bucket_key(H, W)
+    ex = LostFeatureExtractor(spec, params, masks, compute_dtype=dtype,
+                              cnn_bucket=1 if per_image else 4,
+                              swin_all_windows=args.swin_all_windows)
     rng = np.random.default_rng(1)
-    imgs = [rng.integers(0, 256, (H, W, 3), dtype=np.uint8) for _ in range(args.batch)]
-    if cnn:
-        inp = ex.prepare_cnn_batch(imgs, (H, W), exact_hw=[(H, W)] * args.batch)
-        pipe = ex.make_batched_cnn_pipeline(100)
+    if per_image:
+        from vipers_torch.discovery.lost import lost
+
+        # a 500x375 image (h x w), host-normalized, tier-1 padded
+        img = np.zeros((H, W, 3), np.float32)
+        img[:500, :375] = rng.normal(size=(500, 375, 3))
+
+        def call():
+            feats, dims, valid, scales, _ = ex.extract(img, patch)
+            try:
+                lost(feats, dims, scales, (3, 500, 375), k_patches=100, valid_dims=valid)
+            except ValueError:  # a seed in the background: the call is complete
+                pass
     else:
-        inp = ex.prepare_batch(imgs, patch, exact_hw=[(H, W)] * args.batch)
-        pipe = ex.make_batched_pipeline(100)
+        if cnn:
+            H, W = ex.cnn_bucket_key(H, W)
+        imgs = [rng.integers(0, 256, (H, W, 3), dtype=np.uint8) for _ in range(args.batch)]
+        if cnn:
+            inp = ex.prepare_cnn_batch(imgs, (H, W), exact_hw=[(H, W)] * args.batch)
+            pipe = ex.make_batched_cnn_pipeline(100)
+        else:
+            inp = ex.prepare_batch(imgs, patch, exact_hw=[(H, W)] * args.batch)
+            pipe = ex.make_batched_pipeline(100)
+
+        def call():
+            pipe(*inp)[0].cpu()
+
     for _ in range(2):
-        pipe(*inp)[0].cpu()
+        call()
 
     host = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             t1 = time.perf_counter()
-            pipe(*inp)[0].cpu()
+            call()
             host.append(1e3 * (time.perf_counter() - t1))
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -108,7 +153,10 @@ def main(argv=None):
     card = torch.cuda.get_device_name(0)
     shape = f"dilate {args.resnet_dilate}" if args.arch == "resnet" else (
         "" if cnn else f"patch {patch}")
-    print(f"{card}; {args.model} {H}x{W} {shape} {args.dtype} B={args.batch}: "
+    if per_image:
+        shape += " per image" + (", all windows" if args.swin_all_windows else "")
+    print(f"{card}; {args.model} {H}x{W} {shape} {args.dtype} "
+          f"B={1 if per_image else args.batch}: "
           f"{args.steps} calls, wall "
           f"{wall_ms / args.steps:.2f} ms/call (median host {statistics.median(host):.2f}), "
           f"device busy {busy_ms / args.steps:.2f} ms/call = "

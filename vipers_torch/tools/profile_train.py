@@ -1,6 +1,6 @@
 """Where the time goes in the port's masked bf16 train step on one GPU.
 
-Builds a full-width ViT of the registry (``--model``, default ViT-S/16 as
+Builds a full-width model of the registry (``--model``, default ViT-S/16 as
 ``chip_smoke.py``'s train phases; ``vit_h_14`` as its phase 11), at
 224x224 by default or at ``--image-size`` (ViT-S/16 at 384: T = 577 takes
 the flash forward and backward kernels; vit_h_14 at 392: T = 785) (random
@@ -16,6 +16,7 @@ scheme). Needs a card:
     python -m vipers_torch.tools.profile_train [--batch 128] [--steps 3] [--image-size 224]
         [--model vit_h_14 --batch 32]
         [--model resnet50]  # ResNet-50: cuDNN convolutions, BatchNorm, no port kernel
+        [--model swin_v2_t --image-size 256]  # Swin-V2-T: eager windows, no port kernel
 
 With ``--data-path`` (an ImageFolder root with ``train/``) it profiles one
 epoch of ``vipers_torch train --amp`` instead: the driver's session and

@@ -1,6 +1,6 @@
 """The pruning drivers behind ``vipers_torch train`` (port of
 ``vipers/train/driver.py``), on one device, for every registered family
-(``model_spec``: a ViT at the train crop, a ResNet with
+(``model_spec``: a ViT or a Swin at the train crop, a ResNet with
 ``--resnet-dilate``).
 
 - SNIP (``run_snip``): prune once on the first train batch, then train to
@@ -80,10 +80,14 @@ class Session:
 
 def model_spec(cfg: TrainConfig, crop: int):
     """``cfg.model`` at ``cfg.num_classes``: a ViT with its pos-embeddings
-    at ``crop`` x ``crop``, a ResNet with ``--resnet-dilate``."""
+    at ``crop`` x ``crop``, a Swin built for ``crop`` x ``crop`` inputs, a
+    ResNet with ``--resnet-dilate``."""
     kw = {"num_classes": cfg.num_classes}
-    if build_model(cfg.model).family == "vit":
+    fam = build_model(cfg.model).family
+    if fam == "vit":
         kw["image_size"] = (crop, crop)
+    elif fam == "swin":
+        kw["input_size"] = (crop, crop)
     elif cfg.resnet_dilate != 1 and cfg.model.startswith("resnet"):
         kw["dilate"] = cfg.resnet_dilate
     return build_model(cfg.model, **kw)
@@ -96,9 +100,10 @@ def build_session(cfg: TrainConfig, params=None) -> Session:
     refuse_unported(cfg)
     dev = resolve_device(cfg.device)
     spec = model_spec(cfg, cfg.train_crop_size)
-    if spec.family == "vit" and cfg.val_crop_size != cfg.train_crop_size:
+    if spec.family in ("vit", "swin") and cfg.val_crop_size != cfg.train_crop_size:
         # pos-embeddings are sized at construction: the epoch-end eval would
-        # fail after a full epoch of training
+        # fail after a full epoch of training (the JAX driver refuses every
+        # builder that takes the input size, Swin's too)
         raise SystemExit(
             f"{cfg.model}: --val-crop-size ({cfg.val_crop_size}) must equal "
             f"--train-crop-size ({cfg.train_crop_size}) — this family's "
@@ -124,7 +129,8 @@ def build_session(cfg: TrainConfig, params=None) -> Session:
         cfg=cfg, spec=spec, state=state,
         train_step=make_train_step(cfg.num_classes, ls, compute_dtype, ema_decay=ema_decay,
                                    ema_every=cfg.model_ema_steps,
-                                   ema_warmup_steps=cfg.optim.lr_warmup_epochs * steps_per_epoch),
+                                   ema_warmup_steps=cfg.optim.lr_warmup_epochs * steps_per_epoch,
+                                   seed=cfg.seed),
         eval_step=make_eval_step(cfg.num_classes, ls, compute_dtype),
         eval_step_ema=make_eval_step(cfg.num_classes, ls, compute_dtype, use_ema=True),
         normalize=make_device_normalize(random_erase_prob=cfg.random_erase), mixup=mixup,
@@ -204,10 +210,10 @@ def _val_loader(s: Session) -> DeviceBatches:
 def _snip_loss_fn(s: Session):
     """SNIP's loss: the train forward of the dense model in f32 (the
     params' dtype; BatchNorm on the batch's statistics, the updated running
-    statistics dropped) and the cross-entropy with the run's label
-    smoothing."""
+    statistics dropped; stochastic depth drawn from ``--seed``) and the
+    cross-entropy with the run's label smoothing."""
     return snip_loss(s.spec, s.cfg.num_classes, s.cfg.optim.label_smoothing,
-                     batch_stats=s.state.batch_stats)
+                     batch_stats=s.state.batch_stats, seed=s.cfg.seed)
 
 
 def _flax_params(state: TrainState) -> dict:

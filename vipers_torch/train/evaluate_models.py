@@ -6,11 +6,14 @@ Find a pruning sweep's ``.pth`` files, load each (its masks from the
 top-1/5 and append ``{split}/acc1 ... custom_x_axis {sparsity}`` lines to
 ``{output_dir}/{model}_dilation_{d}.txt``, then write ``performance.txt``.
 
-The eval runs in f32, as the JAX sweep's does; with ``--amp`` it runs in
-bf16, as the train driver's epoch-end eval (the JAX sweep ignores
-``--amp``). The VOC branch (``--eval-dataset voc``) scores the classifier
-on the eval preset of each annotated VOC image against its first object's
-class index, as the JAX package does.
+The eval runs in f32 whatever ``--amp`` says, as the JAX sweep builds its
+eval step at the default f32 (the train driver's epoch-end eval is the
+one that follows ``--amp``); the f32 convolutions run as exact f32
+(``models.cnn.exact_f32_convs``, inside the eval step), and on the card
+no fused MLP runs (it serves bf16 only). The VOC branch
+(``--eval-dataset voc``) scores the classifier on the eval preset of each
+annotated VOC image against its first object's class index, as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -65,8 +68,8 @@ def _voc_eval_batches(cfg: TrainConfig, normalize_fn, device, dataset: str = "VO
 
 def _eval_only_session(cfg: TrainConfig, with_val: bool = False):
     """The model at the EVAL crop (a ResNet with ``--resnet-dilate``), its
-    all-ones masks, the eval step and the normalize, without the training
-    machinery; ``with_val`` also opens ``{data_path}/val`` as an
+    all-ones masks, the f32 eval step and the normalize, without the
+    training machinery; ``with_val`` also opens ``{data_path}/val`` as an
     ImageFolder."""
     from vipers_torch.train.driver import model_spec
 
@@ -77,9 +80,9 @@ def _eval_only_session(cfg: TrainConfig, with_val: bool = False):
                                OptimConfig(), 1, device=dev)
     val_ds = (ImageFolder(os.path.join(cfg.data_path, "val"), cache_dir=cfg.cache_dataset)
               if with_val else None)
-    dtype = torch.bfloat16 if cfg.amp else torch.float32
     return types.SimpleNamespace(cfg=cfg, spec=spec, state=state, val_ds=val_ds, device=dev,
-                                 eval_step=make_eval_step(cfg.num_classes, compute_dtype=dtype),
+                                 eval_step=make_eval_step(cfg.num_classes,
+                                                          compute_dtype=torch.float32),
                                  normalize=make_device_normalize())
 
 

@@ -37,6 +37,7 @@ from torch.func import functional_call
 from vipers_torch.core.checkpoint import Family, family
 from vipers_torch.core.device import resolve_device
 from vipers_torch.models import cnn
+from vipers_torch.models.stochastic import dropout_generator, takes_generator
 from vipers_torch.train.ema import ema_reset, ema_update_
 from vipers_torch.train.optim import MaskedOptimizer, OptimConfig, make_lr_schedule
 
@@ -142,25 +143,30 @@ def forward_params(params: Dict[str, torch.Tensor], masks: Dict[str, torch.Tenso
 
 
 def train_loss(model, tensors: Dict[str, torch.Tensor], batch, num_classes: int,
-               label_smoothing: float = 0.0, compute_dtype=torch.float32):
+               label_smoothing: float = 0.0, compute_dtype=torch.float32,
+               generator: Optional[torch.Generator] = None):
     """The training forward on ``tensors`` (state-dict names): ``model`` in
     train mode on images cast to ``compute_dtype``, then the cross-entropy.
+    ``generator`` feeds a model's random layers (``models.stochastic``).
     Returns (loss, logits, the updated running statistics or None)."""
     images, labels = batch
     model.train()
-    logits, aux = functional_call(model, tensors, (images.to(compute_dtype),),
-                                  {"need_attn": False})
+    kw = {"need_attn": False}
+    if generator is not None:
+        kw["generator"] = generator
+    logits, aux = functional_call(model, tensors, (images.to(compute_dtype),), kw)
     return (cross_entropy(logits, labels, num_classes, label_smoothing), logits,
             aux.get("batch_stats"))
 
 
 def _forward_backward(model, masks, batch, num_classes: int, label_smoothing: float,
-                      compute_dtype):
+                      compute_dtype, generator=None):
     """(loss, logits, {name: f32 grad}, updated running statistics or None)."""
     params = dict(model.named_parameters())
     with cnn.exact_f32_convs(compute_dtype):
         loss, logits, stats = train_loss(model, forward_params(params, masks, compute_dtype),
-                                         batch, num_classes, label_smoothing, compute_dtype)
+                                         batch, num_classes, label_smoothing, compute_dtype,
+                                         generator)
         grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), logits.detach(), dict(zip(params, grads)), stats
 
@@ -174,14 +180,20 @@ def loss_and_grads(model, masks, batch, num_classes: int, label_smoothing: float
 
 def make_train_step(num_classes: int, label_smoothing: float = 0.0,
                     compute_dtype=torch.float32, ema_decay: Optional[float] = None,
-                    ema_every: int = 1, ema_warmup_steps: int = 0):
+                    ema_every: int = 1, ema_warmup_steps: int = 0, seed: int = 0):
     """Returns ``step(state, (images, labels)) -> (state, metrics)``; the
-    state is updated in place and returned. Metrics are device scalars."""
+    state is updated in place and returned. Metrics are device scalars. A
+    model with random layers (a Swin's stochastic depth) draws from a
+    generator seeded from (``seed``, the state's step), the counterpart of
+    the JAX step's ``fold_in(rng, step)``."""
 
     def step(state: TrainState, batch):
+        gen = None
+        if takes_generator(state.model):
+            gen = dropout_generator(seed, state.step, batch[0].device)
         loss, logits, grads, stats = _forward_backward(state.model, state.masks, batch,
                                                        num_classes, label_smoothing,
-                                                       compute_dtype)
+                                                       compute_dtype, gen)
         state.opt.step(grads, state.masks)
         if stats:
             buffers = state.batch_stats
