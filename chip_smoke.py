@@ -173,6 +173,32 @@ Phases (any failure exits non-zero; nothing is caught):
      LOST f32 in both regimes and for --exact-shapes. Prints train e2e, step,
      decode-only and evaluate img/s, per-image LOST e2e img/s and p50, and
      the peak device memory.
+ 15. explain and model-vs-human (``explain_phase``): rows 1 and 12-13 f32
+     against their plain versions at explain-eval's ViT-B/16 shape (B*H =
+     1*12, T = 769, hd 64, no key mask; SDPA and its backward as the
+     library calls); ``explain-eval --model vit_b_16`` (full width and
+     depth, seed-0 weights, 50% global magnitude masks, a .pth through the
+     port's exporter) on the 8 fixture JPEGs with SegmentationClass PNGs
+     drawn from their XML boxes, each at its own size padded to 16 (T =
+     577-769): 11 flash forwards a model forward (the last block returns
+     its attention), 11 flash backwards an IG gradient (2 x 50 of them),
+     none for GradCAM's backward, asserted exactly, 0 launches of every
+     other row; the three txt files; e2e img/s and ms per method an image;
+     ``explain`` with all five methods on ViT-B/16 and with its defaults
+     on ResNet-50 over 2 classes of 224 crops (figures when matplotlib
+     imports here; otherwise the CLI must fail with its ImportError and
+     the heatmaps and .npy writes run through ``compute_heatmaps``); the
+     card's f32 ``compute_heatmaps`` against the CPU's at the 512x288
+     image (IG at 4 steps, the same CPU-drawn SmoothGrad noise): GradCAM,
+     IG and the attention map within 1e-4 of each map's scale, RMA within
+     1e-4 and RRA within 1e-3; LRP (ill conditioned in f32 over 12 blocks,
+     at eps 1e-2 as at its 1e-6) finite, for the same target, at cosine
+     >= 0.999 with the CPU's at eps 1e-2, the card's (flash and einsum
+     routes) and the CPU's distances from an f64 CPU run printed; IG's profile (wall, device
+     busy share, kernels a gradient, GEMM and flash shares); ``mvh`` on
+     ResNet-50 and ViT-B/16 (B=1, 2 batches of 224 crops, no checkpoint):
+     the CSV's 19 rows, distorted img/s and the share of the host's numpy
+     distortions; 0 launches in explain and mvh.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
@@ -3340,6 +3366,369 @@ def swin_phase(card, counters, resnet_pth=None):
         shutil.rmtree(root)
 
 
+EXPLAIN_HEADS, EXPLAIN_T = 12, 769  # ViT-B/16 on the fixture's 500x375 image, padded
+
+
+def check_flash_explain(fa, gen):
+    """Rows 1 and 12-13 f32 against their plain versions at explain-eval's
+    ViT-B/16 shape: B*H = 1*12, T = 769, hd 64, no key mask (the forward:
+    atol 1e-5 rtol 1e-4, lse 1e-4; the backward: dq, dk, dv within 1e-4 of
+    each one's scale). Library calls: SDPA and its backward without a mask.
+    Returns the two rows."""
+    b, h, t, hd = 1, EXPLAIN_HEADS, EXPLAIN_T, 64
+    q, k, v, cot = (torch.randn(b, h, t, hd, generator=gen, device="cuda") for _ in range(4))
+    scale = hd ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, None, scale)
+    want, want_lse = fa.flash_attention_plain(q, k, v, None, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    err = (out - want).abs().max().item()
+    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, None, scale))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, None, scale))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    flops = 4 * b * h * t * t * hd
+    nbytes = 4 * q.numel() * 4 + lse.numel() * 4
+    bms, by, shares = forward_bound(flops, nbytes, torch.float32, ms)
+    shape = f"B*H = {b}*{h}, T = {t}, hd {hd}, no key mask"
+    print(f"flash_attention_fwd[f32, explain] max_abs_err {err:.3e} (atol 1e-5 rtol 1e-4) "
+          f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {shares}) plain {plain_ms:.3f} "
+          f"ms sdpa {lib_ms:.3f} ms bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB) at {shape}")
+    rows = [{"name": "flash_attention_fwd[f32, explain]", "route": "cuda",
+             "source": "vipers_torch/csrc/flash_attention_fwd.cu",
+             "replaces": "vipers/ops/flash_attention.py:91", "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}]
+    args = (q, k, v, None, out, lse, cot, scale)
+    got = fa.flash_attention_bwd(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = [scaled_err(a, c, 1e-4) for a, c in zip(got, want)]
+    ms = cuda_ms(lambda: fa.flash_attention_bwd(*args))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args))
+    lib_ms = sdpa_bwd_ms(q, k, v, cot, None)
+    flops = 10 * b * h * t * t * hd
+    nbytes = 8 * q.numel() * 4 + lse.numel() * 4
+    bms, by = bound(3 * flops, nbytes, PEAK_TF32)
+    fma_ms = bound(flops, nbytes, PEAK_F32)[0]
+    print(f"flash_attention_bwd[f32, explain] max_abs_err {max(e for e, _ in errs):.3e} (1e-4 "
+          f"of each of dq, dk, dv's scale; worst {max(e / sc for e, sc in errs):.2e} of it) "
+          f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.1%} of its 3xTF32 "
+          f"bound, {fma_ms / ms:.1%} of its FMA bound {fma_ms:.4f} ms) plain {plain_ms:.3f} ms "
+          f"sdpa-backward {lib_ms:.3f} ms bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB) at {shape}")
+    rows.append({"name": "flash_attention_bwd[f32, explain]", "route": "cuda",
+                 "source": "vipers_torch/csrc/flash_attention_bwd.cu",
+                 "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
+                             "(_flash_attention_bwd_dkv) and :1287 (_flash_attention_bwd_dq)",
+                 "max_abs_err": max(e for e, _ in errs), "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    return rows
+
+
+def explain_voc(root):
+    """A VOC root of the 8 fixture JPEGs (symlinks) with SegmentationClass
+    PNGs drawn from their XML boxes (255 inside every object's box, 0
+    elsewhere). Returns {stem: (w, h)}."""
+    import xml.etree.ElementTree as ET
+
+    from PIL import Image
+
+    fixture = os.path.join(REPO, "tests", "data", "torch_voc")
+    os.makedirs(os.path.join(root, "JPEGImages"))
+    os.makedirs(os.path.join(root, "SegmentationClass"))
+    sizes = {}
+    for f in sorted(os.listdir(os.path.join(fixture, "JPEGImages"))):
+        stem = f[:-4]
+        os.symlink(os.path.join(fixture, "JPEGImages", f), os.path.join(root, "JPEGImages", f))
+        ann = ET.parse(os.path.join(fixture, "Annotations", f"{stem}.xml")).getroot()
+        w, h = int(ann.find("size/width").text), int(ann.find("size/height").text)
+        mask = np.zeros((h, w), np.uint8)
+        for obj in ann.findall("object"):
+            bb = [int(float(obj.find(f"bndbox/{c}").text)) for c in
+                  ("xmin", "ymin", "xmax", "ymax")]
+            mask[bb[1] - 1: bb[3], bb[0] - 1: bb[2]] = 255
+        Image.fromarray(mask).save(os.path.join(root, "SegmentationClass", f"{stem}.png"))
+        sizes[stem] = (w, h)
+    return sizes
+
+
+def explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem):
+    """The card's f32 ``compute_heatmaps`` against the CPU's on one VOC
+    image (IG at 4 steps, the same CPU-drawn noise): map errors over their
+    scales, RMA/RRA; LRP beside an f64 CPU run of the rule; IG's
+    profile."""
+    from PIL import Image
+
+    from vipers_torch.data.detection import load_image_normalized
+    from vipers_torch.explain import driver as xd
+    from vipers_torch.explain.lrp import lrp_attribution
+    from vipers_torch.explain.metrics import evaluate_single
+
+    img = load_image_normalized(os.path.join(voc, "JPEGImages", f"{stem}.jpg"))
+    gt = np.asarray(Image.open(os.path.join(voc, "SegmentationClass", f"{stem}.png")).convert("L"),
+                    dtype=np.float64)
+    p = spec.patch_size
+    ph, pw = -(-img.shape[0] // p) * p, -(-img.shape[1] // p) * p
+    padded = np.zeros((ph, pw, 3), np.float32)
+    padded[: img.shape[0], : img.shape[1]] = img
+    methods = ["gradcam", "ig", "attention", "lrp"]
+    t0 = time.perf_counter()
+    card = xd.compute_heatmaps(spec, card_model, padded, methods, ig_steps=4)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = xd.compute_heatmaps(spec, cpu_model, padded, methods, ig_steps=4)
+    t_cpu = time.perf_counter() - t0
+    assert int(np.argmax(card["prediction"])) == int(np.argmax(cpu["prediction"]))
+    parts = []
+    for m in ("gradcam", "ig", "attention"):
+        sc = float(np.abs(cpu[m]).max())
+        rel = float(np.abs(card[m] - cpu[m]).max()) / sc
+        pooling = None if cpu[m].ndim == 2 else "sum,abs"
+        sc_card, _ = evaluate_single(card[m], gt, pooling)
+        sc_cpu, _ = evaluate_single(cpu[m], gt, pooling)
+        d_mass = abs(float(sc_card["mass"]) - float(sc_cpu["mass"]))
+        d_rank = abs(float(sc_card["rank"]) - float(sc_cpu["rank"]))
+        assert rel <= 1e-4 and d_mass <= 1e-4 and d_rank <= 1e-3, (m, rel, d_mass, d_rank)
+        parts.append(f"{m} {rel:.2e} of its scale (RMA {float(sc_cpu['mass']):.4f}, "
+                     f"|d| {d_mass:.1e}; RRA {float(sc_cpu['rank']):.4f}, |d| {d_rank:.1e})")
+    print(f"explain card vs CPU ({stem}, {pw}x{ph}, T = {(ph // p) * (pw // p) + 1}, IG 2 x 4 "
+          f"steps): {'; '.join(parts)}; card {t_card:.1f} s, CPU {t_cpu:.1f} s")
+    # LRP: the relevance reaching the input passes a division by y + eps
+    # sign(y) at every Dense/Conv; over ViT-B/16's 12 blocks f32 rounding
+    # moves it by up to percents of its scale, at eps 1e-2 as at its eps
+    # 1e-6, on the card and on the CPU alike. So the card's map, its map on
+    # the einsum route (no flash kernel) and the CPU's are printed with
+    # their distances from an f64 CPU run of the rule (einsum attention:
+    # the flash kernels take f32/bf16); the card's must be finite, for the
+    # same target, and point the CPU's way (cosine >= 0.999 at eps 1e-2).
+    # The small-ViT CUDA test holds LRP to 1e-3 of its scale.
+    import copy
+
+    x = torch.from_numpy(padded)[None]
+    m64 = copy.deepcopy(cpu_model).double()
+    target = int(np.argmax(cpu["prediction"]))
+    prev = os.environ.get("VIPERS_FLASH_MIN_T")
+    parts = []
+    for eps in (1e-2, 1e-6):
+        rel = {}
+        for tag, model, xx in (("card", card_model, x.cuda()), ("cpu", cpu_model, x),
+                               ("f64", m64, x.double()), ("card einsum", card_model, x.cuda())):
+            if tag in ("f64", "card einsum"):
+                os.environ["VIPERS_FLASH_MIN_T"] = "1000000"
+            try:
+                rel[tag], t = lrp_attribution(xd._apply_fn(spec, model, ph, pw), model, xx,
+                                              eps=eps)
+            finally:
+                if prev is None:
+                    os.environ.pop("VIPERS_FLASH_MIN_T", None)
+                else:
+                    os.environ["VIPERS_FLASH_MIN_T"] = prev
+            assert t == target and np.isfinite(rel[tag]).all(), (tag, t, target)
+        sc = float(np.abs(rel["f64"]).max())
+        d = {k: float(np.abs(rel[k] - rel["f64"]).max()) / sc
+             for k in ("card", "card einsum", "cpu")}
+        a, b = rel["card"].ravel().astype(np.float64), rel["cpu"].ravel().astype(np.float64)
+        cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        if eps == 1e-2:
+            assert cos >= 0.999, cos
+        parts.append(f"eps {eps:g}: card/CPU cosine {cos:.6f}; from an f64 CPU run "
+                     + ", ".join(f"{k} {v:.2e}" for k, v in d.items()) + " of its scale")
+    print(f"explain card vs CPU lrp (ill conditioned in f32): {'; '.join(parts)}")
+    ig_profile(spec, card_model, padded)
+
+
+def ig_profile(spec, model, padded):
+    """Where IG's time goes on the card: 8 gradients (2 x 4 steps) under
+    ``torch.profiler``: wall, device busy share, kernels a gradient, the
+    GEMMs' and the flash kernels' shares of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vipers_torch.explain import driver as xd
+    from vipers_torch.tools.profile_lost import _intervals_union
+
+    xd.compute_heatmaps(spec, model, padded, ["ig"], ig_steps=4)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        xd.compute_heatmaps(spec, model, padded, ["ig"], ig_steps=4)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _intervals_union([(e.time_range.start, e.time_range.end) for e in events]) / 1e3
+    dur = [((e.time_range.end - e.time_range.start) / 1e3, e.name.lower()) for e in events]
+    total = sum(t for t, _ in dur)
+    gemm = sum(t for t, n in dur if "gemm" in n or "cutlass" in n)
+    flash = sum(t for t, n in dur if "flash" in n)
+    n_grad = 8
+    t = (padded.shape[0] // 16) * (padded.shape[1] // 16) + 1
+    print(f"explain IG profile (ViT-B/16 f32, T = {t}, one forward + 8 gradients): wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({busy / wall:.1%}), {len(events) / n_grad:.0f} kernels a gradient; of the device "
+          f"time GEMMs {gemm / total:.1%}, flash rows {flash / total:.1%}")
+
+
+def explain_phase(card, counters, fa, gen):
+    """Phase 15 (see the module docstring). Returns (the two kernel rows,
+    their launches in the explain-eval run)."""
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import export_vit_torchvision, save_torch_state_dict
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.explain import driver as xd
+    from vipers_torch.pruning import init_masks, magnitude_prune
+    from vipers_torch.train import mvh as tmvh
+
+    t_phase = time.time()
+    rows = check_flash_explain(fa, gen)
+    root = tempfile.mkdtemp(prefix="vipers_torch_explain_")
+    try:
+        spec = build_model("vit_b_16")
+        params = spec.init(torch.Generator().manual_seed(0))
+        masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
+                                amount=SPARSITY)
+        pth = os.path.join(root, "vit_b_16.pth")
+        save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), pth)
+        voc = os.path.join(root, "voc")
+        sizes = explain_voc(voc)
+        tokens = sorted({(-(-h // 16)) * (-(-w // 16)) + 1 for w, h in sizes.values()})
+
+        # explain-eval: the kernel path
+        out = os.path.join(root, "ee")
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        xd.LAST_RUN.clear()
+        t0 = time.perf_counter()
+        assert cli(["explain-eval", "--model", "vit_b_16", "--checkpoint", pth,
+                    "--voc-root", voc, "--output-dir", out]) == 0
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = len(sizes)
+        blocks = spec.cfg.num_layers - 1  # the last block returns its attention: einsum
+        want_fwd, want_bwd = n * blocks * (1 + 1 + 2 * 50), n * blocks * 2 * 50
+        launches = {"flash_attention_fwd[f32, explain]": fa.LAUNCHES["float32"],
+                    "flash_attention_bwd[f32, explain]": fa.BWD_LAUNCHES["float32"]}
+        others = all_launches(counters) - sum(launches.values())
+        print(f"explain-eval launches: {launches} (want {want_fwd} and {want_bwd}: {n} images "
+              f"x {blocks} flash blocks x (forward + GradCAM forward + 100 IG passes) and x 100 "
+              f"IG backwards), every other row {others}; T {tokens}")
+        assert launches == {"flash_attention_fwd[f32, explain]": want_fwd,
+                            "flash_attention_bwd[f32, explain]": want_bwd}, launches
+        assert others == 0, [c for c in counters]
+        for m in ("gradCAM", "ig", "attention"):
+            lines = open(os.path.join(out, f"{m}_vit_b_16_pruning_iteration_00.txt")).read()
+            vals = [float(ln.split(":")[-1]) for ln in lines.splitlines()[:2]]
+            assert lines.splitlines()[2] == f"On a total of {n} images."
+            assert all(0.0 <= v <= 1.0 for v in vals), (m, vals)
+            print(f"explain-eval {m}: mass {vals[0]:.4f} rank {vals[1]:.4f} over {n} images")
+        per = {k: 1e3 * v / n for k, v in xd.LAST_RUN["method_s"].items()}
+        print(f"explain-eval vit_b_16 f32: {n / dt:.3f} img/s e2e ({dt:.1f} s for {n} images; "
+              f"ms an image: {', '.join(f'{k} {v:.1f}' for k, v in per.items())}) ({card})")
+
+        # explain: ViT-B/16 with every method, ResNet-50 with the defaults
+        data = os.path.join(root, "if")
+        imagefolder_tree(data, 8, 8, seed=15)
+        try:
+            import matplotlib  # noqa: F401
+            why = None
+        except ImportError as e:
+            why = e
+        runs = (["--model", "vit_b_16", "--checkpoint", pth, "--methods", "gradcam",
+                 "guided_gradcam", "ig", "attention", "lrp"], [])
+        for extra in runs:
+            name = extra[1] if extra else "resnet50"
+            out = os.path.join(root, f"ex_{name}")
+            argv = ["explain", *extra, "--data-path", data, "--num-classes-sample", "2",
+                    "--output-dir", out]
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            xd.LAST_RUN.clear()
+            t0 = time.perf_counter()
+            if why is None:
+                assert cli(argv) == 0
+                what = "maps and figures"
+            else:
+                try:
+                    cli(argv)
+                except ImportError:
+                    pass
+                else:
+                    raise AssertionError("explain ran without matplotlib")
+                xd.LAST_RUN.clear()
+                explain_without_figures(extra, data, out)
+                what = (f"maps only: matplotlib does not import here ({why}), so the CLI "
+                        f"failed with that ImportError as vipers explain would; the heatmaps "
+                        f"and .npy writes ran through compute_heatmaps")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            assert all_launches(counters) == 0, counters
+            npys = [f for d_, _s, fs in os.walk(out) for f in fs if f.endswith(".npy")]
+            files = sum(len(fs) for _d, _s, fs in os.walk(out))
+            methods = sorted(os.listdir(out))
+            assert len(npys) == 2 * len(methods), (npys, methods)
+            per = {k: 1e3 * v / 2 for k, v in xd.LAST_RUN["method_s"].items()}
+            print(f"explain {name}: 2 classes, {methods}, {files} files ({what}), "
+                  f"{dt:.1f} s; ms an image: "
+                  f"{', '.join(f'{k} {v:.1f}' for k, v in per.items())}; 0 launches")
+
+        # card against CPU at the 512x288 image (T = 577)
+        stem = min(sizes, key=lambda s_: sizes[s_][1])
+        _s, card_model = xd._load_model("vit_b_16", pth)
+        _s, cpu_model = xd._load_model("vit_b_16", pth, device="cpu")
+        explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem)
+        del card_model, cpu_model
+
+        # mvh: ResNet-50 and ViT-B/16, 2 batches of 1 image at 224
+        for model in ("resnet50", "vit_b_16"):
+            out = os.path.join(root, f"mvh_{model}")
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            assert cli(["mvh", "--model", model, "--data-path", data, "--batch-size", "1",
+                        "--max-batches", "2", "--workers", "2", "--pruning-step", "1",
+                        "--output-dir", out]) == 0
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            assert all_launches(counters) == 0, counters
+            csv = open(os.path.join(out, f"{model}_pruning_step_1.csv")).read().splitlines()
+            assert len(csv) == 20 and csv[1].startswith(f"{model},edge,accuracy (top-1),")
+            lr = tmvh.LAST_RUN
+            print(f"mvh {model}: CSV 19 rows; {lr['images']} distorted images in {dt:.1f} s "
+                  f"({lr['images'] / dt:.1f} img/s e2e): host numpy distortions "
+                  f"{lr['distort_s']:.1f} s ({lr['distort_s'] / dt:.0%}), eval steps "
+                  f"{lr['eval_s']:.1f} s; 0 launches ({card})")
+    finally:
+        shutil.rmtree(root)
+    print(f"phase 15 explain and mvh: {time.time() - t_phase:.1f} s")
+    return rows, launches
+
+
+def explain_without_figures(extra, data, out):
+    """``explain``'s maps and ``.npy`` writes without its figures, through
+    ``compute_heatmaps`` (for a machine where matplotlib does not import)."""
+    from vipers_torch.cli.main import build_parser
+    from vipers_torch.data.imagefolder import ImageFolder
+    from vipers_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD, eval_decode
+    from vipers_torch.explain import driver as xd
+
+    args = build_parser().parse_args(["explain", *extra, "--data-path", data])
+    spec, model = xd._load_model(args.model, args.checkpoint)
+    ds = ImageFolder(os.path.join(data, "val"))
+    seen = set()
+    for path, label in ds.samples:
+        if label in seen or len(seen) == 2:
+            continue
+        seen.add(label)
+        arr = eval_decode(path).astype(np.float32) / 255.0
+        img = ((arr - np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD)).astype(np.float32)
+        for method, hm in xd.compute_heatmaps(spec, model, img, args.methods).items():
+            if method != "prediction":
+                d = os.path.join(out, method, ds.classes[label])
+                os.makedirs(d, exist_ok=True)
+                np.save(os.path.join(d, f"{os.path.basename(path)}_nparray.npy"), hm)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3533,6 +3922,12 @@ def main():
         import shutil
 
         shutil.rmtree(keep)
+    # 15. explain and model-vs-human: rows 1 and 12-13 f32 at explain-eval's
+    # shape, explain-eval, explain, card vs CPU, mvh
+    explain_rows, explain_launches = explain_phase(card, counters, fa, gen)
+    kernels += explain_rows
+    launches.update(explain_launches)
+    lap(15)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove

@@ -1,5 +1,6 @@
-"""The port's command line (the ``train``, ``evaluate``, ``lost`` and
-``corloc`` subcommands of ``vipers/cli/main.py``, with the same flags and
+"""The port's command line (the ``train``, ``evaluate``, ``lost``,
+``corloc``, ``explain``, ``explain-eval``, ``explain-eval-batch`` and
+``mvh`` subcommands of ``vipers/cli/main.py``, with the same flags and
 defaults, plus ``--device``)::
 
     python -m vipers_torch.cli.main train --model vit_b_16 --data-path imagenet \
@@ -14,9 +15,19 @@ defaults, plus ``--device``)::
         --data-path VOC2007 --checkpoint swin.pth [--swin-all-windows]
     python -m vipers_torch.cli.main corloc --preds outputs/preds.pkl \
         --dataset VOC07 --data-path VOC2007
+    python -m vipers_torch.cli.main explain --model resnet50 --checkpoint model.pth \
+        --data-path imagenet --methods gradcam guided_gradcam ig attention lrp
+    python -m vipers_torch.cli.main explain-eval --model vit_b_16 --checkpoint model.pth \
+        --voc-root VOC2012
+    python -m vipers_torch.cli.main explain-eval-batch --heatmap-dir maps \
+        --ground-truth-dir masks --output-name run
+    python -m vipers_torch.cli.main mvh --model resnet50 --checkpoint model.pth \
+        --data-path imagenet --pruning-step 3 --output-dir mvh [--stimuli-root stimuli]
 
-``train``, ``evaluate`` and ``lost`` run on the card unless given
-``--device cpu``; there is no silent fallback. Flags that select what the
+``train``, ``evaluate``, ``lost``, ``explain``, ``explain-eval`` and
+``mvh`` run on the card unless given ``--device cpu``; there is no silent
+fallback (``explain-eval-batch`` scores saved maps with numpy on the host
+and only accepts the flag). Flags that select what the
 port does not have yet exit with a message naming the ROADMAP item that
 ports it.
 """
@@ -116,6 +127,67 @@ def build_parser() -> argparse.ArgumentParser:
     corloc.add_argument("--no-hard", action="store_true")
     corloc.add_argument("--coco-annotations", default=None)
     corloc.add_argument("--coco20k-list", default=None)
+
+    device_help = "cuda (default) runs the kernels; cpu their plain versions"
+    expl = sub.add_parser("explain", help="attribution heatmaps per checkpoint")
+    expl.add_argument("--model", default="resnet50")
+    expl.add_argument("--checkpoint", default="")
+    expl.add_argument("--data-path", default="/data/imagenet")
+    expl.add_argument("--methods", nargs="+",
+                      default=["gradcam", "guided_gradcam", "ig", "attention"],
+                      help="any of: gradcam guided_gradcam ig attention lrp")
+    expl.add_argument("--num-classes-sample", type=int, default=200)
+    expl.add_argument("--output-dir", default="./explanations")
+    expl.add_argument("--untrained", action="store_true",
+                      help="random-init baseline model")
+    expl.add_argument("--seed", type=int, default=0,
+                      help="init seed for --untrained; stamps the output dir")
+    expl.add_argument("--models-path", default="",
+                      help="sweep root for --pruning-iteration -1")
+    expl.add_argument("--pruning-iteration", type=int, default=None,
+                      help="-1 with --models-path: explain every templated "
+                           "sweep checkpoint into per-iteration subdirs")
+    expl.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
+
+    ee = sub.add_parser("explain-eval", help="RMA/RRA scoring on VOC masks")
+    ee.add_argument("--model", default="vit_b_32")
+    ee.add_argument("--checkpoint", default="")
+    ee.add_argument("--voc-root", default="/data/VOC2012")
+    ee.add_argument("--num-images", type=int, default=101)
+    ee.add_argument("--pooling", default="sum,abs")
+    ee.add_argument("--iteration", type=int, default=0)
+    ee.add_argument("--output-dir", default="./explanations_eval")
+    ee.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
+
+    eeb = sub.add_parser(
+        "explain-eval-batch",
+        help="directory-batch heatmap evaluation: all six poolings with "
+             "summary-statistic tables + JSON")
+    eeb.add_argument("--heatmap-dir", required=True,
+                     help="directory of <idx>.npy pooled/raw heatmaps")
+    eeb.add_argument("--ground-truth-dir", required=True,
+                     help="directory of <idx>.npy ground-truth masks")
+    eeb.add_argument("--output-dir", default="./explanations_eval")
+    eeb.add_argument("--output-name", default="",
+                     help="prefix for the _ORDERED/_FIXED txt and "
+                          "_datapoint/_statistic JSON artifacts")
+    eeb.add_argument("--metric", default="rank", choices=["rank", "mass"])
+    eeb.add_argument("--indices", nargs="*", default=None,
+                     help="explicit datapoint indices (default: every "
+                          "numeric .npy in --heatmap-dir)")
+    eeb.add_argument("--num-images", type=int, default=0,
+                     help="cap on auto-discovered indices (0 = all)")
+    eeb.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                     help="accepted like the other subcommands': the scoring is numpy on "
+                          "the host")
+
+    mvh = sub.add_parser("mvh", help="model-vs-human distortion benchmarks")
+    add_train_args(mvh)
+    mvh.add_argument("--pruning-step", type=int, default=0)
+    mvh.add_argument("--checkpoint", default="")
+    mvh.add_argument("--stimuli-root", default=None,
+                     help="dir with cue-conflict/edge/... stimulus ImageFolders")
+    mvh.add_argument("--max-batches", type=int, default=0)
     return p
 
 
@@ -173,6 +245,22 @@ def main(argv=None) -> int:
         from vipers_torch.discovery.driver import run_lost
 
         return run_lost(args)
+    if args.cmd == "explain":
+        from vipers_torch.explain.driver import run_explain
+
+        return run_explain(args)
+    if args.cmd == "explain-eval":
+        from vipers_torch.explain.driver import run_explain_eval
+
+        return run_explain_eval(args)
+    if args.cmd == "explain-eval-batch":
+        from vipers_torch.explain.driver import run_explain_eval_batch
+
+        return run_explain_eval_batch(args)
+    if args.cmd == "mvh":
+        from vipers_torch.train.mvh_cli import run_mvh_cli
+
+        return run_mvh_cli(args)
     from vipers_torch.discovery.corloc import run_corloc_cli
 
     return run_corloc_cli(args)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vipers_torch.core.registry import ModelSpec, register_model
+from vipers_torch.models.activations import relu
 from vipers_torch.models.cnn import BatchNorm, Conv2d, Linear, conv_extent, name_batch_norms
 from vipers_torch.models.vit import _lecun_normal
 
@@ -45,11 +46,11 @@ class BasicBlock(nn.Module):
                                          BatchNorm(planes)) if downsample else None)
 
     def forward(self, x, stats=None):
-        y = torch.relu(self.bn1(self.conv1(x), stats))
+        y = relu(self.bn1(self.conv1(x), stats))
         y = self.bn2(self.conv2(y), stats)
         if self.downsample is not None:
             x = self.downsample[1](self.downsample[0](x), stats)
-        return torch.relu(y + x)
+        return relu(y + x)
 
 
 class Bottleneck(nn.Module):
@@ -72,12 +73,12 @@ class Bottleneck(nn.Module):
                                          BatchNorm(out)) if downsample else None)
 
     def forward(self, x, stats=None):
-        y = torch.relu(self.bn1(self.conv1(x), stats))
-        y = torch.relu(self.bn2(self.conv2(y), stats))
+        y = relu(self.bn1(self.conv1(x), stats))
+        y = relu(self.bn2(self.conv2(y), stats))
         y = self.bn3(self.conv3(y), stats)
         if self.downsample is not None:
             x = self.downsample[1](self.downsample[0](x), stats)
-        return torch.relu(y + x)
+        return relu(y + x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,15 +138,20 @@ class ResNet(nn.Module):
             n = conv_extent(n, 3, stride, prev, prev)
         return n
 
-    def forward(self, x, need_attn: bool = True):  # need_attn: no-op for CNNs
+    def forward(self, x, need_attn: bool = True, tap_delta=None):  # need_attn: no-op for CNNs
+        """``tap_delta``: the explain tap, (N, H', W', C) added to the layer4
+        map before pooling (GradCAM's target layer)."""
         stats = {} if self.training else None
         x = x.permute(0, 3, 1, 2)
-        x = torch.relu(self.bn1(self.conv1(x), stats))
+        x = relu(self.bn1(self.conv1(x), stats))
         x = F.max_pool2d(x, 3, 2, 1)
         for layer in self.layers:
             for block in layer:
                 x = block(x, stats)
         features = x.permute(0, 2, 3, 1)
+        if tap_delta is not None:
+            features = features + tap_delta
+            x = features.permute(0, 3, 1, 2)
         aux = {"features": features}
         if stats is not None:
             aux["batch_stats"] = stats

@@ -286,10 +286,11 @@ class SwinTransformerV2(nn.Module):
         self.norm = LayerNorm(cfg.num_features, eps=1e-5)
         self.head = Linear(cfg.num_features, cfg.num_classes) if cfg.num_classes else None
 
-    def forward(self, x, need_attn: bool = True, generator=None):
+    def forward(self, x, need_attn: bool = True, generator=None, tap_delta=None):
         """x (N, H, W, 3); ``need_attn`` is accepted for the callers' sake
         (the windows' attention is always materialized); ``generator``
-        feeds stochastic depth in train mode."""
+        feeds stochastic depth in train mode; ``tap_delta``, the explain
+        tap, is added to the final feature map before the norm."""
         x = self.patch_norm(self.patch_embed(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
         last = None
         for blk in self.blocks:
@@ -306,6 +307,8 @@ class SwinTransformerV2(nn.Module):
         g = window_reverse(qkv, self.cfg.window_size, hp, wp)
         if sh or sw:
             g = torch.roll(g, (sh, sw), (1, 2))
+        if tap_delta is not None:
+            x = x + tap_delta
         features = x
         pooled = self.norm(x).mean(dim=(1, 2))
         logits = self.head(pooled) if self.head is not None else pooled

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from vipers_torch.core.registry import ModelSpec, register_model
+from vipers_torch.models.activations import ReLU
 from vipers_torch.models.cnn import Conv2d, Linear
 from vipers_torch.models.vit import _lecun_normal
 
@@ -55,7 +56,7 @@ class VGG16(nn.Module):
     def __init__(self, cfg: VGGConfig):
         super().__init__()
         self.cfg = cfg
-        mods = {"conv": lambda cin, cout: Conv2d(cin, cout, 3, padding=1), "relu": nn.ReLU,
+        mods = {"conv": lambda cin, cout: Conv2d(cin, cout, 3, padding=1), "relu": ReLU,
                 "pool": lambda: nn.MaxPool2d(2, 2)}
         self.features = nn.Sequential(*(mods[k](*a) for k, *a in feature_layers(cfg)))
         self.classifier = None
@@ -63,8 +64,8 @@ class VGG16(nn.Module):
             d0, d1 = cfg.fc_dims
             flat = cfg.conv_widths[-1] * 7 * 7
             # torchvision's Linear, ReLU, Dropout, Linear, ReLU, Dropout, Linear
-            self.classifier = nn.Sequential(Linear(flat, d0), nn.ReLU(), nn.Identity(),
-                                            Linear(d0, d1), nn.ReLU(), nn.Identity(),
+            self.classifier = nn.Sequential(Linear(flat, d0), ReLU(), nn.Identity(),
+                                            Linear(d0, d1), ReLU(), nn.Identity(),
                                             Linear(d1, cfg.num_classes))
 
     def feature_extent(self, px: int) -> int:
@@ -74,12 +75,17 @@ class VGG16(nn.Module):
                 px //= 2
         return px
 
-    def forward(self, x, need_attn: bool = True):  # need_attn: no-op for CNNs
+    def forward(self, x, need_attn: bool = True, tap_delta=None):  # need_attn: no-op for CNNs
+        """``tap_delta``: the explain tap, (N, H', W', C) added to the
+        conv stack's output."""
         if self.training and self.cfg.dropout_rate > 0:
             raise ValueError(f"dropout_rate={self.cfg.dropout_rate}: vipers_torch has no "
                              f"dropout yet (ROADMAP A8)")
         x = self.features(x.permute(0, 3, 1, 2))
         features = x.permute(0, 2, 3, 1)
+        if tap_delta is not None:
+            features = features + tap_delta
+            x = features.permute(0, 3, 1, 2)
         if self.classifier is None:
             return features, {"features": features}
         return self.classifier(x.reshape(x.shape[0], -1)), {"features": features}

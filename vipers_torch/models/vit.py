@@ -155,8 +155,10 @@ class EncoderBlock(nn.Module):
         self.ln_2 = LayerNorm(dim)
         self.mlp = MLPBlock(dim, mlp_dim)
 
-    def forward(self, x, token_mask=None, need_attn: bool = True):
+    def forward(self, x, token_mask=None, need_attn: bool = True, tap_delta=None):
         ln1 = self.ln_1(x)
+        if tap_delta is not None:
+            ln1 = ln1 + tap_delta  # the explain tap: GradCAM's ViT target layer
         y, attn = self.attention(ln1, token_mask=token_mask, need_attn=need_attn)
         x = x + y
         if fused_supported(x, train=self.training):
@@ -247,11 +249,14 @@ class VisionTransformer(nn.Module):
         return torch.matmul(patches, wmat) + self.conv_proj.bias
 
     def forward(self, x, override_pos_embedding=None, token_mask=None,
-                need_attn: bool = True, seq_pad_multiple: Optional[int] = None):
+                need_attn: bool = True, seq_pad_multiple: Optional[int] = None,
+                tap_delta=None):
         """``seq_pad_multiple``: pad the token axis once (zeros, masked
         invalid) to this multiple before the encoder and slice once after,
         so the flash kernel sees an aligned length. In training it defaults
-        to ``_auto_seq_pad``'s choice."""
+        to ``_auto_seq_pad``'s choice. ``tap_delta``: the explain tap, (N, T,
+        D) added to the last block's ln_1 output, which ``aux["qkv_input"]``
+        returns with it."""
         c = self.cfg
         p = c.patch_size
         n, h, w, _ = x.shape
@@ -276,7 +281,8 @@ class VisionTransformer(nn.Module):
         last = len(self.layers) - 1
         for i, block in enumerate(self.layers):
             x, ln1, attn_i = block(x, token_mask=token_mask,
-                                   need_attn=need_attn and i == last)
+                                   need_attn=need_attn and i == last,
+                                   tap_delta=tap_delta if i == last else None)
             if i == last:
                 qkv_input, attn = ln1, attn_i
         if seq_pad_multiple:

@@ -93,11 +93,13 @@ def model_spec(cfg: TrainConfig, crop: int):
     return build_model(cfg.model, **kw)
 
 
-def build_session(cfg: TrainConfig, params=None) -> Session:
+def build_session(cfg: TrainConfig, params=None, cmd: str = "train") -> Session:
     """The session of ``cfg``; ``params`` (a flax-layout tree) replaces
     the model's initial weights, which are otherwise drawn from
-    ``cfg.seed``; running statistics start at mean 0 and var 1."""
-    refuse_unported(cfg)
+    ``cfg.seed``; running statistics start at mean 0 and var 1. ``cmd``
+    names the subcommand in ``refuse_unported``'s message (only ``train``
+    refuses VGG, whose dropout the port lacks)."""
+    refuse_unported(cfg, cmd)
     dev = resolve_device(cfg.device)
     spec = model_spec(cfg, cfg.train_crop_size)
     if spec.family in ("vit", "swin") and cfg.val_crop_size != cfg.train_crop_size:
