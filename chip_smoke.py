@@ -199,6 +199,34 @@ Phases (any failure exits non-zero; nothing is caught):
      ResNet-50 and ViT-B/16 (B=1, 2 batches of 224 crops, no checkpoint):
      the CSV's 19 rows, distorted img/s and the share of the host's numpy
      distortions; 0 launches in explain and mvh.
+ 16. the DINO ViTs, cluster and dropout (``dino_phase``), random weights
+     from seed 0: dino_vit_small (patch 16, D 384, 12 blocks, 6 heads)
+     through the batched LOST pipeline on 512x384 uint8 images in f32 and
+     bf16 on an exact-fit and a mixed bucket (a batch: 12 flash launches,
+     and 12 fused-MLP launches at D = 384 in bf16), img/s at B=128 and p50
+     at B=1, card vs CPU on its first 2 blocks at B=2 (f32 features within
+     1e-3 of their scale, boxes equal up to ties); dino_vit_tiny (D = 192)
+     and dino_vit_base (D = 768) in bf16 (launches, img/s); row 4 at D =
+     192 (F = 768, M = 128*896) against its plain version, timed beside the
+     library's layer_norm -> linear -> gelu(tanh); dino_vit_small at patch 8
+     (T = 3073 -> 3200) bf16 at B=32 (img/s, launches) and row 1 at that T
+     (B*H = 8*6) against its plain version and SDPA with the bool mask;
+     ``lost --arch dino --model dino_vit_small --dtype bf16`` from a .pth
+     in facebookresearch/dino's keys on 128 fixture JPEGs (launches, first
+     batch against the pipeline, txt against ``corloc``, e2e img/s);
+     ``--dinoseg`` with ``--arch dino`` and ``--arch vit --model vit_s_16``
+     on 32 JPEGs one at a time (11 flash launches an image: the last block
+     computes its attention; per-image img/s; the first 4 boxes equal to a
+     CPU run's); ``cluster --nb-clusters 20`` on the lost run's preds.pkl
+     (crops/s; embeddings within 1e-4 of their scale of a CPU run's, the
+     labels equal); VGG16 through ``train --amp`` (SNIP to 50%, LRR one
+     iteration; one epoch each on phase 12's ImageFolder, B=128; no kernel
+     launch; e2e and step img/s, peak memory), its dropout on the card
+     (keep shares within a binomial 5-sigma band, a resumed step drawing
+     the same masks) and card vs CPU at dropout rate 0 (2 f32 steps, no
+     farther from an f64 CPU run than 2x the CPU's f32); a bf16 ViT-B/16
+     train step at 224 and 384 with attention dropout 0.1 (no launch of
+     rows 1, 5-8 and 12-13) and at 0 (phases 7's and 8's launches).
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
@@ -288,67 +316,26 @@ def bwd_design(fa, dtype, hd=64):
             f"{d['dq_keys']}-key stages, {d['dq_stages']} stages{arith}")
 
 
-def check_flash(fa, dtype, gen):
-    """Flash kernel vs plain at (B*H = 128*6, T = 896, hd = 64) with a
-    ragged key mask: 769 real tokens padded to 896, and a bucket-pad
-    pattern on every other image."""
-    b, h, t, hd = BATCH, 6, 896, 64
+def check_flash_at(fa, dtype, gen, shape, grid_hw, pad_from, tag=None, all_invalid=False,
+                   pad_rows=slice(1, None, 2)):
+    """The flash kernel vs plain at ``shape`` = (B, H, T, hd): the CLS token
+    and a (gh, gw) = ``grid_hw`` patch grid valid, the rest of T seq pad;
+    on the images ``pad_rows`` (every other one) the grid's rows and
+    columns from ``pad_from`` on bucket pad; with ``all_invalid`` the last
+    image attends no key. The row's name carries ``tag``. The bound counts
+    the valid query x valid key pairs of each image: the outputs of pad
+    queries are never read."""
+    b, h, t, hd = shape
+    n_valid = 1 + grid_hw[0] * grid_hw[1]
     q, k, v = (torch.randn(b, h, t, hd, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
     valid = torch.zeros(b, t, dtype=torch.bool, device="cuda")
-    valid[:, :769] = True
-    grid = valid[1::2, 1:769].view(-1, 32, 24)
-    grid[:, 29:, :] = False
-    grid[:, :, 22:] = False
-    out, lse = fa.flash_attention_fwd(q, k, v, valid)
-    want, want_lse = fa.flash_attention_plain(q, k, v, valid)
-    torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    lse_err = (lse - want_lse).abs().max().item()
-    if dtype == torch.float32:
-        torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
-        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
-        tol = f"atol 1e-5 rtol 1e-4; lse {lse_err:.2e} (atol 1e-4 rtol 1e-4)"
-    else:
-        scale = want.float().abs().max().item()
-        assert err <= 2e-2 * scale, (err, scale)
-        torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
-        tol = f"2e-2 of output scale {scale:.3g}; lse {lse_err:.2e} (atol 1e-3)"
-    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, valid))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, valid), reps=5)
-    amask = valid[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask))
-    elt = q.element_size()
-    flops = 4 * b * h * t * t * hd
-    nbytes = 4 * q.numel() * elt + lse.numel() * 4 + valid.numel()
-    bms, by, shares = forward_bound(flops, nbytes, dtype, ms)
-    name = "f32" if dtype == torch.float32 else "bf16"
-    print(f"flash_attention_fwd[{name}] max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.0f} TFLOP/s, {shares}{attention_tile(fa, dtype)}) "
-          f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
-          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB)")
-    return {"name": f"flash_attention_fwd[{name}]", "route": "cuda",
-            "source": "vipers_torch/csrc/flash_attention_fwd.cu",
-            "replaces": "vipers/ops/flash_attention.py:91",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms}
-
-
-def check_flash_hd80(fa, dtype, gen):
-    """The flash kernel's hd-80 instance vs plain at vit_h_14's LOST shape:
-    B*H = 128*16, T = 1024 (the 504x392 VOC bucket at patch 14: 1009 tokens,
-    seq-padded), hd = 80, with bucket-pad keys on every other image and one
-    image whose keys are all invalid. Tolerances as at hd 64; the library
-    call is SDPA with the bool mask."""
-    b, h, t, hd = BATCH, 16, 1024, 80
-    q, k, v = (torch.randn(b, h, t, hd, generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
-    valid = torch.zeros(b, t, dtype=torch.bool, device="cuda")
-    valid[:, :1009] = True
-    grid = valid[1::2, 1:1009].view(-1, 28, 36)
-    grid[:, 25:, :] = False
-    grid[:, :, 33:] = False
-    valid[-1] = False
+    valid[:, :n_valid] = True
+    grid = valid[pad_rows, 1:n_valid].view(-1, *grid_hw)
+    grid[:, pad_from[0]:, :] = False
+    grid[:, :, pad_from[1]:] = False
+    if all_invalid:
+        valid[-1] = False
     key = fa.launch_key(dtype, hd)
     n0 = fa.LAUNCHES[key]
     out, lse = fa.flash_attention_fwd(q, k, v, valid)
@@ -371,15 +358,17 @@ def check_flash_hd80(fa, dtype, gen):
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, valid), reps=3, warmup=1)
     amask = valid[:, None, None, :]
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask))
-    flops = 4 * b * h * t * t * hd
+    pairs = int((valid.sum(dim=1).double() ** 2).sum())
+    flops = 4 * h * pairs * hd
     nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4 + valid.numel()
     bms, by, shares = forward_bound(flops, nbytes, dtype, ms)
-    name = f"flash_attention_fwd[{'f32' if dtype == torch.float32 else 'bf16'}, hd80]"
+    name = "f32" if dtype == torch.float32 else "bf16"
+    name = f"flash_attention_fwd[{name}{'' if tag is None else f', {tag}'}]"
     print(f"{name} max_abs_err {err:.3e} ({tol}) kernel {ms:.3f} ms "
           f"({flops / ms / 1e9:.0f} TFLOP/s, {shares}{attention_tile(fa, dtype, hd)}) "
           f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bms:.3f} ms ({by}; "
-          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB) at B*H = {b}*{h}, T = {t} "
-          f"(1009 valid keys), hd {hd}")
+          f"{flops / 1e9:.1f} GFLOP on {pairs / (b * t * t):.1%} of the T x T pairs, "
+          f"{nbytes / 1e6:.0f} MB) at B*H = {b}*{h}, T = {t} ({n_valid} tokens), hd {hd}")
     return {"name": name, "route": "cuda",
             "source": "vipers_torch/csrc/flash_attention_fwd.cu",
             "replaces": "vipers/ops/flash_attention.py:91",
@@ -553,14 +542,15 @@ def check_fused_mlp_wide(fm, gen):
               f"output scale {sc:.3g}) {line}")
 
 
-def check_fused_mlp_family(fm, gen):
-    """The fused MLP at the ViT family's LOST shapes, F = 4D: D = 768
+def check_fused_mlp_family(fm, gen, shapes=((768, BATCH * 896), (1024, BATCH * 896),
+                                             (1280, BATCH * 1024))):
+    """The fused MLP at the ViT family's LOST shapes (D, M), F = 4D: D = 768
     (vit_b_16, M = 128*896), 1024 (vit_l_16, M = 128*896) and 1280 (vit_h_14,
     M = 128*1024), each against its plain version (2e-2 of the output
     scale) with the kernel's, the plain version's and the library
     sequence's times and the bound."""
     rows = []
-    for d, m in ((768, BATCH * 896), (1024, BATCH * 896), (1280, BATCH * 1024)):
+    for d, m in shapes:
         f = 4 * d
         x, w_eff_t, b_eff, lib_w = fused_mlp_inputs(fm, m, d, f, gen)
         out = fm.fused_ln_dense_gelu_core(x, w_eff_t, b_eff)
@@ -1129,7 +1119,7 @@ def family_pipelines(tag, spec, params, masks, hw, dtypes, counters, want, seed)
     outs = {key: pipes[key[0]](*inp) for key, inp in inputs.items()}
     torch.cuda.synchronize()
     got = family_launches(fa, fm, at)
-    print(f"{tag} LOST path launches ({len(outs)} forwards of {spec.cfg.num_layers} blocks, "
+    print(f"{tag} LOST path launches ({len(outs)} forwards, "
           f"T = {(hw[0] // patch) * (hw[1] // patch) + 1}): "
           f"{ {k: n for k, n in got.items() if n} }")
     assert got == {k: want.get(k, 0) for k in got}, (got, want)
@@ -3729,6 +3719,524 @@ def explain_without_figures(extra, data, out):
                 np.save(os.path.join(d, f"{os.path.basename(path)}_nparray.npy"), hm)
 
 
+# Phase 16: the DINO ViTs through LOST (--arch dino, --dinoseg) and cluster,
+# VGG16 training with its dropout, the ViT's attention dropout.
+DINO_P8_BATCH = 32  # dino_vit_small at patch 8: T = 3073 seq-padded to 3200
+DINO_CPU_LAYERS, DINO_CPU_BATCH = 2, 2  # the card-vs-CPU cut
+N_DINOSEG, N_DINOSEG_CPU = 32, 4  # --dinoseg JPEGs, and those the CPU runs too
+VGG_CUT_BATCH = 2  # the f32 card-vs-CPU VGG16 steps
+DROPOUT_STEP_BATCH = 32  # the ViT-B/16 steps under attention dropout
+
+
+def dino_model(name, patch=PATCH):
+    """A DINO backbone of the registry at ``patch`` (``num_classes`` 0, the
+    pos table at 224x224, interpolated to each bucket by the extractor),
+    random weights from seed 0 moved to the card. Returns (spec, params)."""
+    from vipers_torch.core.registry import build_model
+
+    t0 = time.time()
+    spec = build_model(name, patch_size=patch)
+    params = to_device(spec.init(torch.Generator().manual_seed(0)), "cuda")
+    c = spec.cfg
+    print(f"{name} patch {patch} ({c.depth} blocks, D {c.embed_dim}, {c.num_heads} heads of "
+          f"{c.embed_dim // c.num_heads}, mlp {int(c.embed_dim * c.mlp_ratio)}): random weights "
+          f"from seed 0 (set-up {time.time() - t0:.1f} s)")
+    return spec, params
+
+
+def cut_dino(spec, params, layers):
+    """A DINO ``spec`` cut to its first ``layers`` blocks at full width, the
+    same weights."""
+    import dataclasses
+
+    from vipers_torch.models.dino_vit import _build
+
+    cut = _build(spec.name, dataclasses.replace(spec.cfg, depth=layers))
+    return cut, {k: v for k, v in params.items()
+                 if not k.startswith("block_") or int(k[len("block_"):]) < layers}
+
+
+def voc_subset(src, dst, names):
+    """A VOC07-layout tree at ``dst`` holding ``names`` of the tree ``src``
+    (JPEG and annotation symlinks)."""
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(dst, sub))
+    for n in names:
+        for sub, ext in (("JPEGImages", "jpg"), ("Annotations", "xml")):
+            os.symlink(os.path.realpath(os.path.join(src, sub, f"{n}.{ext}")),
+                       os.path.join(dst, sub, f"{n}.{ext}"))
+    with open(os.path.join(dst, "ImageSets", "Main", "trainval.txt"), "w") as f:
+        f.write("".join(f"{n}\n" for n in names))
+
+
+def dino_lost(card, counters, gen, lost_core):
+    """The DINO backbones through the batched LOST pipeline, full width,
+    random weights from seed 0, on 512x384 uint8 images: dino_vit_small at
+    patch 16 in f32 and bf16 on an exact-fit and a mixed bucket (a batch:
+    12 flash launches, and in bf16 12 fused-MLP launches at D = 384),
+    img/s at B=128 and p50 at B=1, card vs CPU on its first
+    DINO_CPU_LAYERS blocks at B=DINO_CPU_BATCH (f32 features within 1e-3
+    of their scale, boxes equal up to ties); dino_vit_tiny (D = 192) and
+    dino_vit_base (D = 768) in bf16 (launches, img/s, row 1 at their 3 and
+    12 heads), row 4 at D = 192;
+    dino_vit_small at patch 8 in bf16 at B=DINO_P8_BATCH (T = 3073 ->
+    3200: 12 flash and 12 fused-MLP launches), img/s, and row 1 at that T.
+    Returns (kernel rows, {row name: launches})."""
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+
+    rows, launches = [], {}
+    spec, params = dino_model("dino_vit_small")
+    n = spec.cfg.depth
+    extractors, buckets, inputs, pipes, outs, got = family_pipelines(
+        "dino_vit_small", spec, params, None, (H, W), ("f32", "bf16"), counters,
+        {"flash[float32]": 2 * n, "flash[bfloat16]": 2 * n, "fused_mlp[D=384]": 2 * n}, seed=11)
+    print(f"dino_vit_small a batch: bf16 {got['flash[bfloat16]'] // 2} flash and "
+          f"{got['fused_mlp[D=384]'] // 2} fused-MLP launches, f32 {got['flash[float32]'] // 2} "
+          f"flash and 0 fused-MLP launches")
+    agree = {b: float((outs["f32", b][0] == outs["bf16", b][0]).all(dim=1).float().mean())
+             for b in buckets}
+    print(f"dino_vit_small bf16 vs f32 on the card: boxes equal on {agree}")
+    for e, ex in extractors.items():
+        imgs, bhw = buckets["exact"]
+        ips, p50 = throughput(pipes[e], inputs[e, "exact"],
+                              ex.prepare_batch(imgs[:1], PATCH, exact_hw=bhw[:1]))
+        print(f"dino_vit_small throughput [{e}] {ips:.1f} img/s at B={BATCH}; p50 latency "
+              f"{p50:.2f} ms at B=1 ({card})")
+    del extractors, inputs, pipes, outs
+    torch.cuda.empty_cache()
+    cut, cut_params = cut_dino(spec, params, DINO_CPU_LAYERS)
+    print(f"dino_vit_small card vs CPU: cut to its first {DINO_CPU_LAYERS} of {n} blocks and "
+          f"B={DINO_CPU_BATCH} (the CPU's time), f32")
+    ex = LostFeatureExtractor(cut, cut_params, None)
+    for b in ("exact", "mixed"):
+        imgs, bhw = buckets[b]
+        lo = 8 if b == "mixed" else 0  # the mixed bucket's first 8 fill it exactly
+        compare_with_cpu(f"dino_vit_small f32, {b}", cut, cut_params, None, torch.float32, ex,
+                         imgs[lo:lo + DINO_CPU_BATCH], bhw[lo:lo + DINO_CPU_BATCH], lost_core,
+                         n_cpu=DINO_CPU_BATCH)
+    del ex, params, cut_params
+    torch.cuda.empty_cache()
+
+    for name, d, seed in (("dino_vit_tiny", 192, 12), ("dino_vit_base", 768, 13)):
+        spec, params = dino_model(name)
+        n = spec.cfg.depth
+        extractors, buckets, inputs, pipes, _, got = family_pipelines(
+            name, spec, params, None, (H, W), ("bf16",), counters,
+            {"flash[bfloat16]": 2 * n, f"fused_mlp[D={d}]": 2 * n}, seed=seed)
+        launches[f"flash_attention_fwd[bf16, H={spec.cfg.num_heads}]"] = got["flash[bfloat16]"]
+        if d == 192:
+            launches["fused_ln_fc1_gelu[bf16, D=192]"] = got["fused_mlp[D=192]"]
+            print(f"dino_vit_tiny a bf16 batch: {got['fused_mlp[D=192]'] // 2} fused-MLP launches "
+                  f"at D = 192 (instance {fused_mlp_design(fm, 192)})")
+        imgs, bhw = buckets["exact"]
+        ips, p50 = throughput(pipes["bf16"], inputs["bf16", "exact"],
+                              extractors["bf16"].prepare_batch(imgs[:1], PATCH,
+                                                               exact_hw=bhw[:1]))
+        print(f"{name} throughput [bf16] {ips:.1f} img/s at B={BATCH}; p50 latency {p50:.2f} ms "
+              f"at B=1 ({card})")
+        del extractors, inputs, pipes, params
+        torch.cuda.empty_cache()
+        # row 1 at this model's heads, the pipeline's shape (769 tokens -> 896)
+        rows.append(check_flash_at(fa, torch.bfloat16, gen, (BATCH, spec.cfg.num_heads, 896, 64),
+                                   (H // PATCH, W // PATCH), (29, 22), f"H={spec.cfg.num_heads}"))
+        torch.cuda.empty_cache()
+    rows += check_fused_mlp_family(fm, gen, shapes=((192, BATCH * 896),))
+
+    # patch 8: T = 3073 at 512x384
+    spec, params = dino_model("dino_vit_small", 8)
+    n = spec.cfg.depth
+    ex = LostFeatureExtractor(spec, params, None, compute_dtype=torch.bfloat16)
+    hw8 = [(H, W)] * DINO_P8_BATCH
+    imgs = make_images(np.random.default_rng(14), hw8, patch=8)
+    inp = ex.prepare_batch(imgs, 8, exact_hw=hw8)
+    pipe = ex.make_batched_pipeline(K_PATCHES)
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    box, seed, bg = (z.cpu() for z in pipe(*inp))
+    torch.cuda.synchronize()
+    got = family_launches(fa, fm, at)
+    want = {"flash[bfloat16]": n, "fused_mlp[D=384]": n}
+    print(f"dino_vit_small patch 8 LOST path launches (one bf16 forward of {n} blocks, "
+          f"T = {(H // 8) * (W // 8) + 1} -> 3200, B={DINO_P8_BATCH}): "
+          f"{ {k: v for k, v in got.items() if v} }")
+    assert got == {k: want.get(k, 0) for k in got}, (got, want)
+    gh, gw = H // 8, W // 8
+    assert bool(((box[:, 0] <= box[:, 1]) & (box[:, 1] <= gh)
+                 & (box[:, 2] <= box[:, 3]) & (box[:, 3] <= gw)).all())
+    assert bool(((seed >= 0) & (seed < gh * gw)).all())
+    launches["flash_attention_fwd[bf16, T=3200]"] = got["flash[bfloat16]"]
+    ips, p50 = throughput(pipe, inp, ex.prepare_batch(imgs[:1], 8, exact_hw=hw8[:1]))
+    print(f"dino_vit_small patch 8 throughput [bf16] {ips:.1f} img/s at B={DINO_P8_BATCH}; p50 "
+          f"latency {p50:.2f} ms at B=1; seed in background {int(bg.sum())}/{DINO_P8_BATCH} "
+          f"({card})")
+    del ex, inp, pipe, params
+    torch.cuda.empty_cache()
+    rows.append(check_flash_at(fa, torch.bfloat16, gen, (DINO_P8_BATCH, 6, 3200, 64), (gh, gw),
+                               (56, 44), "T=3200"))
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def dino_cli(card, counters, gen):
+    """``vipers_torch lost --arch dino --model dino_vit_small --dtype bf16``
+    on N_LOST_IMAGES fixture JPEGs from a seed-0 .pth in
+    facebookresearch/dino's keys (12 flash and 12 fused-MLP launches a
+    batch, the first batch against the pipeline, the txt against
+    ``corloc``, e2e img/s); ``--dinoseg`` with ``--arch dino`` and with
+    ``--arch vit --model vit_s_16`` on N_DINOSEG of them, f32 one image at a
+    time (11 flash launches an image: the last block computes its
+    attention), per-image img/s, the boxes of the first N_DINOSEG_CPU equal
+    to a CPU run's; ``vipers_torch cluster --nb-clusters 20`` on the
+    lost run's preds.pkl (crops/s; no kernel launch), its embeddings
+    within 1e-4 of their scale of a CPU run's and the labels equal (the
+    same initial points). Row 1 at the --dinoseg shape: f32, B*H = 1*6,
+    T = 769 (a 500x375 image's 31x23 grid on its 32x24 bucket), no
+    sequence pad. Returns (kernel rows, {row name: launches})."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import (export_dino_vit, export_vit_torchvision,
+                                              save_torch_state_dict)
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data import native
+    from vipers_torch.discovery import cluster as clu
+    from vipers_torch.discovery import driver as drv
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+
+    if not native.available() and not native.pil_available():
+        print("DINO JPEG LOST and cluster: neither libjpeg nor PIL on the host: skipped")
+        return [], {}
+    seg_launches = 0
+    root = tempfile.mkdtemp(prefix="vipers_torch_dino_")
+    try:
+        voc = os.path.join(root, "VOC2007")
+        items = voc_tree(voc, N_LOST_IMAGES, seed=3)
+        dino_pth = os.path.join(root, "dino_vit_small.pth")
+        save_torch_state_dict(export_dino_vit(build_model("dino_vit_small").init(
+            torch.Generator().manual_seed(0))), dino_pth)
+        common = ["--dataset", "VOC07", "--set", "trainval", "--workers", "8"]
+
+        # lost --arch dino, bf16, B=128
+        out = os.path.join(root, "lost")
+        batches = cli_batches(items)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        assert cli(["lost", "--arch", "dino", "--model", "dino_vit_small", "--patch-size", "16",
+                    *common, "--data-path", voc, "--checkpoint", dino_pth, "--dtype", "bf16",
+                    "--batch-size", str(BATCH), "--output-dir", out]) == 0
+        torch.cuda.synchronize()
+        run = dict(drv.LAST_RUN)
+        got = family_launches(fa, fm, at)
+        want = {"flash[bfloat16]": 12 * batches, "fused_mlp[D=384]": 12 * batches}
+        print(f"dino_vit_small JPEG LOST [bf16] {N_LOST_IMAGES} images, {batches} batches: "
+              f"launches { {k: v for k, v in got.items() if v} }")
+        assert got == {k: want.get(k, 0) for k in got}, (got, want)
+        assert run["images"] == N_LOST_IMAGES and run["batches"] == batches, run
+        check_first_batch("dino_vit_small bf16", dino_pth, voc, items, out, run["failed"], "bf16",
+                          model="dino_vit_small")
+        rescored, txt = check_cli_outputs("dino_vit_small", out, voc, "trainval", items,
+                                          run["failed"])
+        print(f"dino_vit_small JPEG LOST [bf16] e2e "
+              f"{N_LOST_IMAGES / run['decode_to_preds_seconds']:.1f} img/s (first decode to "
+              f"preds.pkl {run['decode_to_preds_seconds']:.3f} s; {run['seconds']:.3f} s with "
+              f"the model load); seed in background {len(run['failed'])}; re-scored {rescored}, "
+              f"results txt {txt.strip()}; decoder {run['decoder']} ({card})")
+
+        # --dinoseg, one image at a time, f32; the CPU on the first images
+        names = [nm for nm, _ in items]
+        seg, seg_cpu = os.path.join(root, "VOC_seg"), os.path.join(root, "VOC_seg_cpu")
+        voc_subset(voc, seg, names[:N_DINOSEG])
+        voc_subset(voc, seg_cpu, names[:N_DINOSEG_CPU])
+        vit_pth = os.path.join(root, "vit_s_16.pth")
+        save_torch_state_dict(export_vit_torchvision(build_model("vit_s_16").init(
+            torch.Generator().manual_seed(0))), vit_pth)
+        for arch, model, pth in (("dino", "dino_vit_small", dino_pth),
+                                 ("vit", "vit_s_16", vit_pth)):
+            argv = ["lost", "--arch", arch, "--model", model, "--dinoseg", *common,
+                    "--checkpoint", pth]
+            seg_out, cpu_out = os.path.join(root, f"seg_{arch}"), os.path.join(root, f"cpu_{arch}")
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            assert cli([*argv, "--data-path", seg, "--output-dir", seg_out]) == 0
+            torch.cuda.synchronize()
+            run = dict(drv.LAST_RUN)
+            got = family_launches(fa, fm, at)
+            want = {"flash[float32]": 11 * N_DINOSEG}
+            assert got == {k: want.get(k, 0) for k in got}, (arch, got)
+            seg_launches += got["flash[float32]"]
+            assert run["images"] == N_DINOSEG and run["per_image"] and not run["failed"], run
+            rescored, _ = check_cli_outputs(f"dinoseg {arch}", seg_out, seg, "trainval",
+                                            items[:N_DINOSEG], [])
+            assert cli([*argv, "--data-path", seg_cpu, "--output-dir", cpu_out,
+                        "--device", "cpu"]) == 0
+            with open(os.path.join(seg_out, "preds.pkl"), "rb") as f:
+                card_preds = pickle.load(f)
+            with open(os.path.join(cpu_out, "preds.pkl"), "rb") as f:
+                cpu_preds = pickle.load(f)
+            same = sum(np.array_equal(card_preds[k], v) for k, v in cpu_preds.items())
+            print(f"lost --dinoseg --arch {arch} --model {model} f32: {N_DINOSEG} images one at a "
+                  f"time, {got['flash[float32]'] // N_DINOSEG} flash launches an image; per-image "
+                  f"{N_DINOSEG / run['decode_to_preds_seconds']:.1f} img/s (first decode to "
+                  f"preds.pkl); {rescored}; boxes equal to the CPU's on {same}/{len(cpu_preds)} "
+                  f"({card})")
+            assert same == len(cpu_preds) == N_DINOSEG_CPU
+
+        # cluster on the lost run's preds.pkl, on the card and on the CPU
+        feats, labels = {}, {}
+        for dev in ("cuda", "cpu"):
+            d = os.path.join(root, f"cluster_{dev}")
+            os.makedirs(d)
+            shutil.copyfile(os.path.join(out, "preds.pkl"), os.path.join(d, "preds.pkl"))
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            assert cli(["cluster", "--preds", os.path.join(d, "preds.pkl"), "--data-path", voc,
+                        "--checkpoint", dino_pth, "--nb-clusters", "20", "--feature-cache",
+                        os.path.join(d, "feats.pkl"), "--device", dev]) == 0
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            run = dict(clu.LAST_RUN)
+            with open(os.path.join(d, "feats.pkl"), "rb") as f:
+                feats[dev] = np.asarray(pickle.load(f))
+            with open(os.path.join(d, "preds_clusters_20.pkl"), "rb") as f:
+                labels[dev] = pickle.load(f)
+            n_launch = all_launches(counters)
+            print(f"cluster [{dev}] {run['crops']} crops: {run['crops'] / run['embed_seconds']:.1f} "
+                  f"crops/s (PIL crops {run['crop_seconds']:.3f} s, with the embedding "
+                  f"{run['embed_seconds']:.3f} s), k-means {run['kmeans_seconds']:.3f} s, "
+                  f"{secs:.3f} s with the model load; {n_launch} kernel launches "
+                  f"({card if dev == 'cuda' else 'host CPU'})")
+            assert n_launch == 0
+        scale = float(np.abs(feats["cpu"]).max())
+        err = float(np.abs(feats["cuda"] - feats["cpu"]).max())
+        print(f"cluster card vs CPU: embeddings max_abs_err {err:.3e} ({err / scale:.2e} of their "
+              f"scale, tol 1e-4); labels equal {labels['cuda'] == labels['cpu']} "
+              f"({len(set(labels['cuda'].values()))} clusters)")
+        assert err <= 1e-4 * scale and labels["cuda"] == labels["cpu"]
+    finally:
+        shutil.rmtree(root)
+    row = check_flash_at(fa, torch.float32, gen, (1, 6, 769, 64), (32, 24), (31, 23), "dinoseg",
+                         pad_rows=slice(0, 1))
+    return [row], {row["name"]: seg_launches}
+
+
+def vgg_train(card, counters):
+    """VGG16 (full width and depth, 1000 classes, its dropout at 0.5, the
+    CLI's seed-42 weights) through ``train --amp --lr 0.01`` at 224x224,
+    B=128, 8 decode threads, on phase 12's ImageFolder: SNIP to 50% for one epoch,
+    LRR (rate 0.2, threshold 19.9: one iteration of one epoch); no kernel
+    launch in either; e2e img/s, the session's step img/s (best of 3
+    windows of 6 steps) and the peak device memory. The dropout on the
+    card: the keep share of each of the classifier's dropouts within a
+    binomial 5-sigma band, kept activations scaled by 2, and a step resumed
+    from a checkpoint of the session drawing the session's own masks. Card
+    vs CPU: 2 masked f32 SGD steps at dropout rate 0, B=VGG_CUT_BATCH, the
+    parameters no farther (relative L2) from an f64 CPU run than 2x the
+    CPU's own f32."""
+    import json
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import save_train_checkpoint
+    from vipers_torch.core.config import TrainConfig
+    from vipers_torch.core.metrics import MetricsWriter
+    from vipers_torch.models import vgg as tvgg
+    from vipers_torch.pruning import init_masks, magnitude_prune
+    from vipers_torch.train import driver as tdrv
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import create_train_state, make_train_step
+
+    root = tempfile.mkdtemp(prefix="vipers_torch_vgg_")
+    try:
+        data = os.path.join(root, "imagenet")
+        imagefolder_tree(data, N_TRAIN_IMAGES, N_VAL_IMAGES, seed=4)
+        b, m = BATCH, "vgg16"
+        # torchvision's VGG recipe: lr 0.01 (at the CLI's 0.1 the BatchNorm-free
+        # net diverges within the epoch, in either package)
+        common = ["--model", m, "--num-classes", "1000", "--amp", "--batch-size", str(b),
+                  "--workers", "8", "--data-path", data, "--epochs", "1", "--print-freq", "4",
+                  "--lr", "0.01"]
+        steps = N_TRAIN_IMAGES // b
+        for method, extra in (("snip", ["--target-sparsity", str(SPARSITY)]),
+                              ("magnitude", ["--pruning-rate", "0.2",
+                                             "--pruning-threshold", "19.9"])):
+            out = os.path.join(root, method)
+            torch.cuda.reset_peak_memory_stats()
+            secs = run_cli_without_kernels(cli, ["train", *common, "--pruning-method", method,
+                                                 *extra, "--output-dir", out], counters)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            run = dict(tdrv.LAST_RUN)
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            loss = [r["loss"] for r in recs if r["tag"] == "train"]
+            sp = [r["sparsity"] for r in recs if r["tag"] == "prune"]
+            assert len(loss) == 1 and np.isfinite(loss[0]), recs
+            if method == "magnitude":
+                rows = MetricsWriter.read_performance_txt(os.path.join(out, "performance.txt"))
+                assert len(rows) == 1, rows
+            e2e = steps * b / (run["t_last_checkpoint"] - run["t_first_decode"])
+            print(f"train CLI [{method}] {m} bf16 B={b}: {steps} steps, no kernel launch; e2e "
+                  f"{e2e:.1f} img/s ({steps * b} images, first decode to the last checkpoint; "
+                  f"{secs:.3f} s with the set-up); sparsity {sp}, train loss {loss[0]:.4f}; "
+                  f"peak device memory {peak:.2f} GiB ({card})")
+            shutil.rmtree(out)
+
+        # the session's step, and the dropout on the card
+        cfg = TrainConfig(model=m, data_path=data, batch_size=b, workers=8, amp=True,
+                          device="cuda", output_dir=os.path.join(root, "step"),
+                          optim=OptimConfig(lr=0.01, epochs=1))
+        s = tdrv.build_session(cfg)
+        images, labels = next(iter(tdrv._train_loader(s, 0)))
+        x = s.normalize(images)
+        reset_counts(*counters)
+        s.train_step(s.state, (x, labels))
+        torch.cuda.synchronize()
+        assert all_launches(counters) == 0
+        best = 0.0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(6):
+                s.train_step(s.state, (x, labels))
+            torch.cuda.synchronize()
+            best = max(best, b * 6 / (time.perf_counter() - t1))
+        print(f"train CLI session step {m} 224x224 bf16 {best:.1f} img/s at B={b} ({card})")
+        path = os.path.join(root, "resume.pth")
+        save_train_checkpoint(path, s.state, 0, 0.0)
+        s2 = tdrv.build_session(cfg)
+        tdrv.resume_session(s2, path)
+        assert s2.state.step == s.state.step
+        seen = []
+        for sess in (s, s2):
+            cl, got = sess.state.model.classifier, {}
+            hooks = [cl[i].register_forward_hook(
+                lambda mod, a, o, i=i: got.__setitem__(i, o.detach().clone())) for i in (2, 5)]
+            hooks += [cl[i].register_forward_pre_hook(
+                lambda mod, a, i=i: got.__setitem__(i, a[0].detach().clone())) for i in (3, 6)]
+            sess.train_step(sess.state, (x, labels))
+            for h in hooks:
+                h.remove()
+            seen.append(got)
+        for before, after in ((2, 3), (5, 6)):
+            live = seen[0][before] != 0
+            kept = seen[0][after] != 0
+            nl = int(live.sum())
+            share = int(kept[live].sum()) / nl
+            band = 5 * (0.25 / nl) ** 0.5
+            scaled = torch.equal(seen[0][after][kept], 2 * seen[0][before][kept])
+            both = live & (seen[1][before] != 0)
+            same = torch.equal(kept[both], (seen[1][after] != 0)[both])
+            print(f"{m} dropout {before // 3 + 1} on the card: keep share {share:.4f} of {nl} "
+                  f"live activations (0.5 +- {band:.4f}), kept scaled by 2 {scaled}; a step "
+                  f"resumed from a checkpoint at step {s.state.step - 1} draws the same mask on "
+                  f"{int(both.sum())} activations live in both: {same}")
+            assert abs(share - 0.5) <= band and scaled and same and not seen[0][after][~live].any()
+        del s, s2, x, seen
+        torch.cuda.empty_cache()
+
+        # card vs CPU at dropout rate 0: 2 masked f32 SGD steps, an f64 yardstick
+        spec0 = tvgg._spec(m, tvgg.VGGConfig(1000, dropout_rate=0.0), (224, 224))
+        params = spec0.init(torch.Generator().manual_seed(0))
+        masks = magnitude_prune(params, init_masks(params, exclude=spec0.prune_exclude),
+                                amount=SPARSITY)
+        rng = np.random.default_rng(15)
+        batches = [(torch.from_numpy(rng.normal(size=(VGG_CUT_BATCH, 224, 224, 3))
+                                     .astype(np.float32)),
+                    torch.from_numpy(rng.integers(0, 1000, VGG_CUT_BATCH))) for _ in range(2)]
+        res = {}
+        for run, dev in (("cuda", "cuda"), ("cpu", "cpu"), ("f64", "cpu")):
+            t0 = time.time()
+            st = create_train_state(spec0, params, masks, OptimConfig(lr=0.01, epochs=1), 1,
+                                    device=dev)
+            if run == "f64":
+                st.model.to(torch.float64)
+            step = make_train_step(1000, seed=0)
+            for xb, yb in batches:
+                st, metrics = step(st, (xb.to(dev), yb.to(dev)))
+            res[run] = ({k: v.detach().cpu() for k, v in st.params.items()},
+                        float(metrics["loss"]), time.time() - t0)
+            del st
+        d_card, d_cpu = (rel_l2(res[r][0], res["f64"][0]) for r in ("cuda", "cpu"))
+        print(f"train {m} f32 B={VGG_CUT_BATCH}, dropout rate 0, 2 masked SGD steps: parameters "
+              f"relative L2 from the CPU's f64 run: the card's {d_card:.3e}, the CPU's f32 "
+              f"{d_cpu:.3e} (the card's within 2x of it); last losses card "
+              f"{res['cuda'][1]:.6f}, CPU {res['cpu'][1]:.6f}, f64 {res['f64'][1]:.6f}; "
+              f"seconds card {res['cuda'][2]:.1f}, CPU {res['cpu'][2]:.1f}, f64 "
+              f"{res['f64'][2]:.1f} ({card})")
+        assert d_card <= 2 * d_cpu, (d_card, d_cpu)
+    finally:
+        shutil.rmtree(root)
+
+
+def vit_attention_dropout(card, counters):
+    """A bf16 ViT-B/16 train step (1000 classes, seed-0 weights,
+    B=DROPOUT_STEP_BATCH) at 224x224 and 384x384 with
+    ``attention_dropout_rate`` 0.1: no launch of rows 1, 5-8 and 12-13 (the
+    attention keeps its probabilities for the dropout); at rate 0 the
+    launches of phases 12 (224: 12 training forward and backward) and 8
+    (384: 12 flash forward and backward). Finite losses; ms a step."""
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import create_train_state, make_train_step
+
+    b = DROPOUT_STEP_BATCH
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for hw, want0 in ((TRAIN_HW, ("attention_train_fwd[bf16]", "attention_train_bwd[bf16]")),
+                      (TRAIN_HW_FLASH, ("flash_attention_fwd[bf16]",
+                                        "flash_attention_bwd[bf16]"))):
+        params = build_model("vit_b_16", image_size=(hw, hw)).init(
+            torch.Generator().manual_seed(0))
+        x = torch.randn(b, hw, hw, 3, generator=g, device="cuda")
+        y = torch.randint(0, 1000, (b,), generator=g, device="cuda")
+        for rate in (0.1, 0.0):
+            spec = build_model("vit_b_16", image_size=(hw, hw), attention_dropout_rate=rate)
+            state = create_train_state(spec, params, {}, OptimConfig(lr=0.01, epochs=1), 1,
+                                       device="cuda")
+            step = make_train_step(1000, compute_dtype=torch.bfloat16, seed=0)
+            step(state, (x, y))
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            state, metrics = step(state, (x, y))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            got = train_launches(at, fa, fm)
+            want = {} if rate else {k: spec.cfg.num_layers for k in want0}
+            print(f"vit_b_16 {hw}x{hw} bf16 train step, attention dropout {rate}, B={b}: "
+                  f"launches { {k: v for k, v in got.items() if v} }, loss "
+                  f"{float(metrics['loss']):.4f}, {ms:.1f} ms ({card})")
+            assert got == {k: want.get(k, 0) for k in got}, (hw, rate, got)
+            assert np.isfinite(float(metrics["loss"]))
+            del state
+        del params, x, y
+        torch.cuda.empty_cache()
+
+
+def dino_phase(card, counters, gen, lost_core):
+    """Phase 16: ``dino_lost``, ``dino_cli``, ``vgg_train`` and
+    ``vit_attention_dropout``. Returns (kernel rows, {row name: launches})."""
+    t_phase = time.time()
+    rows, launches = dino_lost(card, counters, gen, lost_core)
+    cli_rows, cli_launches = dino_cli(card, counters, gen)
+    rows += cli_rows
+    launches.update(cli_launches)
+    vgg_train(card, counters)
+    vit_attention_dropout(card, counters)
+    print(f"phase 16 DINO LOST, cluster and dropout: {time.time() - t_phase:.1f} s")
+    return rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3779,7 +4287,10 @@ def main():
     lap(2)
     # 3. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [check_flash(fa, torch.float32, gen), check_flash(fa, torch.bfloat16, gen),
+    # row 1 at the LOST path's shape: B*H = 128*6, T = 896 (769 tokens
+    # seq-padded; bucket pad from grid row 29 and column 22 on every other image)
+    kernels = [*(check_flash_at(fa, dt, gen, (BATCH, 6, 896, 64), (32, 24), (29, 22))
+                 for dt in (torch.float32, torch.bfloat16)),
                check_flash_bwd(fa, torch.float32, gen), check_flash_bwd(fa, torch.bfloat16, gen),
                check_flash_packed(fa, torch.float32, gen),
                check_flash_packed(fa, torch.bfloat16, gen),
@@ -3788,8 +4299,11 @@ def main():
     check_attention_train_rounds(at, gen)
     check_fused_mlp_wide(fm, gen)
     # the ViT family's rows: row 1 at hd 80, row 4 at D = 768, 1024, 1280
+    # at hd 80, vit_h_14's LOST shape: B*H = 128*16, T = 1024 (the 504x392
+    # VOC bucket at patch 14: 1009 tokens, seq-padded), one image attending no key
     for dtype in (torch.float32, torch.bfloat16):
-        kernels.append(check_flash_hd80(fa, dtype, gen))
+        kernels.append(check_flash_at(fa, dtype, gen, (BATCH, 16, 1024, 80), (28, 36), (25, 33),
+                                      "hd80", all_invalid=True))
         torch.cuda.empty_cache()
     kernels += check_fused_mlp_family(fm, gen)
     torch.cuda.empty_cache()
@@ -3928,6 +4442,12 @@ def main():
     kernels += explain_rows
     launches.update(explain_launches)
     lap(15)
+    # 16. the DINO ViTs through LOST (--arch dino, --dinoseg) and cluster;
+    # VGG16 training with its dropout; the ViT under attention dropout
+    dino_rows, dino_launches = dino_phase(card, counters, gen, lost_core)
+    kernels += dino_rows
+    launches.update(dino_launches)
+    lap(16)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove

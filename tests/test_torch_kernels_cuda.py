@@ -929,3 +929,86 @@ def test_drop_path_generator_on_the_card(cuda):
     assert torch.equal(out[kept], y[kept] / keep) and not out[~kept].any()
     assert torch.equal(drop_path(y, rate, True, dropout_generator(0, 3, cuda)), out)
     assert not torch.equal(drop_path(y, rate, True, dropout_generator(0, 4, cuda)), out)
+
+
+def test_fused_mlp_dino_tiny_width(cuda):
+    """D = 192 (``dino_vit_tiny``, F = 768) at its LOST shape, M = 128*896
+    (T = 769 padded to 896, B = 128): the two-consumer instance, within 2e-2
+    of the plain version's scale, counted under its width."""
+    assert tfm.design(192) == {"rows": 128, "block_n": 128, "stages": 4, "staged": 1}
+    x, w_t, b = _fused_mlp_inputs(128 * 896, 192, 768, cuda)
+    w0 = tfm.WIDTH_LAUNCHES.get(192, 0)
+    out = tfm.fused_ln_dense_gelu_core(x, w_t, b)
+    torch.cuda.synchronize()
+    assert tfm.WIDTH_LAUNCHES[192] == w0 + 1
+    want = tfm.fused_ln_dense_gelu_plain(x, w_t, b, 1e-6)
+    scale = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-4),
+                                             (torch.bfloat16, 2e-2, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_at_the_patch8_lost_shape(cuda, dtype, atol, rtol):
+    """``dino_vit_small`` at patch 8 on a 512x384 image: T = 3073 tokens
+    seq-padded to 3200, the 127 pad keys masked; a second image with a
+    smaller valid grid (bucket-pad keys) and a third with every key valid.
+    Against the plain version."""
+    t = 3200
+    q, k, v = _qkv(3, 2, t, dtype, cuda, seed=3073)
+    valid = torch.zeros(3, t, dtype=torch.bool, device=cuda)
+    valid[0, :3073] = True
+    valid[1, :2401] = True
+    valid[2] = True
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid)
+    want, want_lse = tfa.flash_attention_plain(q, k, v, valid)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == torch.float32 else 2e-2,
+                               rtol=1e-4)
+
+
+def test_dino_forward_launches_rows_1_and_4(cuda):
+    """A 2-block ``dino_vit_small`` (D 384) on two 512x384 images in bf16,
+    tokens seq-padded to 896: each block one flash forward and one fused
+    MLP launch; with ``need_attn`` the last block computes its attention
+    and launches no flash. The card's CLS features within 2e-2 of their
+    scale of the CPU's (plain versions)."""
+    from vipers_torch.models import dino_vit
+
+    cfg = dino_vit.DinoViTConfig(16, 384, 2, 6, 4.0, 0)
+    spec = dino_vit._build("dino_cuda_test", cfg)
+    model = spec.module()
+    from vipers_torch.core.checkpoint import family
+
+    model.load_state_dict(family(spec).state_dict(spec.init(torch.Generator().manual_seed(0))))
+    model = model.to(torch.bfloat16).eval()
+    x = torch.randn(2, 512, 384, 3, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    with torch.no_grad():
+        ref = model(x, need_attn=False, seq_pad_multiple=128)[0]
+        f0, m0 = tfa.LAUNCHES["bfloat16"], tfm.WIDTH_LAUNCHES.get(384, 0)
+        got = model.to(cuda)(x.to(cuda), need_attn=False, seq_pad_multiple=128)[0]
+        torch.cuda.synchronize()
+        assert (tfa.LAUNCHES["bfloat16"] - f0, tfm.WIDTH_LAUNCHES[384] - m0) == (2, 2)
+        f1 = tfa.LAUNCHES["bfloat16"]
+        aux = model(x.to(cuda), need_attn=True)[1]
+        torch.cuda.synchronize()
+        assert tfa.LAUNCHES["bfloat16"] - f1 == 1 and aux["attn"].shape == (2, 6, 769, 769)
+    scale = ref.float().abs().max().item()
+    assert (got.float().cpu() - ref.float()).abs().max().item() <= 2e-2 * scale
+
+
+def test_dropout_generator_on_the_card(cuda):
+    """Dropout's masks on the card: the keep share within 5 sigma of
+    1 - rate, kept elements scaled by exactly 1 / keep; the same (seed,
+    step) draws the same mask, another step another."""
+    from vipers_torch.models.stochastic import dropout, dropout_generator
+
+    rate, keep = 0.1, 0.9
+    x = torch.randn(256, 4096, device=cuda) + 5.0
+    out = dropout(x, rate, True, dropout_generator(0, 3, cuda))
+    kept = out != 0
+    n = x.numel()
+    assert abs(kept.float().mean().item() - keep) <= 5 * (keep * rate / n) ** 0.5
+    assert torch.equal(out[kept], x[kept] / keep)
+    assert torch.equal(dropout(x, rate, True, dropout_generator(0, 3, cuda)), out)
+    assert not torch.equal(dropout(x, rate, True, dropout_generator(0, 4, cuda)), out)

@@ -257,19 +257,16 @@ def test_seed_in_background_collected_or_strict(voc, monkeypatch, tmp_path, caps
 
 
 # the per-image paths run (--arch swin, --swin-all-windows, --exact-shapes,
-# --cnn-bucket 1); what they still lack is refused on them too
+# --cnn-bucket 1, --dinoseg); what they still lack is refused on them too
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "dino"], "A2"),
     (["--arch", "resnet", "--exact-shapes", "--visualize", "pred"], "A11"),
     (["--arch", "swin", "--model", "swin_v2_t", "--visualize", "pred"], "A11"),
-    (["--model", "mobilenet_v2"], "A5"), (["--model", "dino_vit_small"], "A2"),
+    (["--model", "mobilenet_v2"], "A5"),
     (["--dtype", "int8"], "A9"),
-    (["--visualize", "pred"], "A11"), (["--dinoseg"], "A2"),
-    (["--dinoseg-reference-bugs"], "A2"), (["--data-parallel"], "A10"),
+    (["--visualize", "pred"], "A11"), (["--data-parallel"], "A10"),
     (["--sequence-parallel"], "A10"),
     (["--arch", "resnet", "--model", "resnet50", "--resnet-dilate", "2", "--cnn-bucket", "1",
       "--data-parallel"], "A10"),
-    (["--arch", "swin", "--model", "swin_v2_t", "--dinoseg"], "A2"),
     (["--arch", "swin", "--model", "swin_v2_t", "--dtype", "int8"], "A9"),
     (["--arch", "swin", "--model", "swin_v2_t", "--swin-all-windows", "--sequence-parallel"],
      "A10")])

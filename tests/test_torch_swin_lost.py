@@ -125,7 +125,14 @@ def test_cnn_extract_matches_jax(cnn_bucket):
 
 
 def test_per_image_vit_extract_names_what_it_serves():
+    """The per-image ViT path serves ``--dinoseg`` (ROADMAP A2, now
+    ported): with ``need_attn`` it returns the last block's attention on
+    the bucket grid; without, none."""
     spec = tbuild("vit_s_16", num_classes=0)
-    ex = LostFeatureExtractor(spec, spec.init(torch.Generator().manual_seed(0)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11.*A2"):
-        ex.extract(np.zeros((32, 32, 3), np.float32), 16)
+    params = spec.init(torch.Generator().manual_seed(0))
+    for need_attn in (True, False):
+        ex = LostFeatureExtractor(spec, params, device="cpu", need_attn=need_attn)
+        feats, dims, valid, scales, attn = ex.extract(np.zeros((32, 32, 3), np.float32), 16)
+        assert (tuple(dims), tuple(valid), scales) == ((4, 4), (2, 2), [16, 16])
+        assert feats.shape == (1, 16, 384)
+        assert (attn.shape == (1, 6, 17, 17)) if need_attn else attn is None

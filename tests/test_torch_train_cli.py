@@ -187,10 +187,11 @@ def test_unported_flags_exit_naming_their_item(cmd, argv, item, tmp_path):
 
 @pytest.mark.parametrize("model", ["vgg16", "vgg16_bottom"])
 def test_vgg_training_exits_naming_a8(model, tmp_path):
-    """VGG trains with dropout in the JAX package; the port has none yet."""
-    with pytest.raises(SystemExit, match=r"training --model vgg16.*\(ROADMAP A8\)"):
-        tmain(["train", "--model", model, "--output-dir", str(tmp_path / "out"),
-               "--device", "cpu"])
+    """VGG trains with dropout in the JAX package, and now in the port
+    (ROADMAP A8 is done): nothing refuses it."""
+    from vipers_torch.core.config import TrainConfig, refuse_unported
+
+    assert refuse_unported(TrainConfig(model=model, device="cpu")) is None
 
 
 def test_resnet_dilate_applies_to_resnets_only():

@@ -1,7 +1,7 @@
 """The ViT family in vipers_torch against the JAX package on the CPU:
 ``vit_b_16``, ``vit_b_32``, ``vit_l_16``, ``vit_l_32`` and ``vit_h_14`` built
 with the JAX configs, ``representation_size`` (pre_logits + tanh) in the
-forward and in the reference ``.pth``, the dropout refusal, a patch-14
+forward and in the reference ``.pth``, the dropout rates, a patch-14
 head-dim-80 model through the batched LOST pipeline on the flash route, and
 ``vipers_torch lost --model vit_b_32 --patch-size 32`` against ``vipers
 lost`` on the committed 8-JPEG VOC fixture. f32 throughout; tolerances are
@@ -138,11 +138,16 @@ def test_infer_vit_image_size_matches_jax(patch):
 
 @pytest.mark.parametrize("field", ["dropout_rate", "attention_dropout_rate"])
 def test_dropout_raises_naming_the_roadmap_item(field):
-    """The port has no dropout: a rate above 0 raises, as a silent 0 would
-    be another model; 0 builds."""
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        treg.build_model("vit_b_16", **{field: 0.1})
+    """Dropout is ported (ROADMAP A8): a rate above 0 builds the model with
+    it, and a train forward then raises without the generator its masks
+    are drawn from, rather than run a model without dropout."""
+    spec = treg.build_model("vit_b_16", **{field: 0.1})
+    assert getattr(spec.cfg, field) == 0.1
     assert getattr(treg.build_model("vit_b_16", **{field: 0.0}).cfg, field) == 0.0
+    small = tvit._build("vit_dropout", tvit.ViTConfig(8, 1, 2, 32, 64, 10, **{field: 0.1}),
+                        (16, 16))
+    with pytest.raises(ValueError, match="needs a generator"):
+        small.module().train()(torch.zeros(1, 16, 16, 3), need_attn=False)
 
 
 HD80 = dict(patch_size=14, num_layers=2, num_heads=2, hidden_dim=160, mlp_dim=320,

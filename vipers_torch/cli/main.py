@@ -1,7 +1,7 @@
 """The port's command line (the ``train``, ``evaluate``, ``lost``,
-``corloc``, ``explain``, ``explain-eval``, ``explain-eval-batch`` and
-``mvh`` subcommands of ``vipers/cli/main.py``, with the same flags and
-defaults, plus ``--device``)::
+``corloc``, ``cluster``, ``explain``, ``explain-eval``,
+``explain-eval-batch`` and ``mvh`` subcommands of ``vipers/cli/main.py``,
+with the same flags and defaults, plus ``--device``)::
 
     python -m vipers_torch.cli.main train --model vit_b_16 --data-path imagenet \
         --pruning-method magnitude --pruning-rate 0.2 --amp --output-dir out
@@ -13,8 +13,12 @@ defaults, plus ``--device``)::
         --resnet-dilate 2 --data-path VOC2007 --checkpoint model.pth [--exact-shapes]
     python -m vipers_torch.cli.main lost --arch swin --model swin_v2_t \
         --data-path VOC2007 --checkpoint swin.pth [--swin-all-windows]
+    python -m vipers_torch.cli.main lost --arch dino --model dino_vit_small \
+        --patch-size 16 --data-path VOC2007 --checkpoint dino.pth [--dinoseg]
     python -m vipers_torch.cli.main corloc --preds outputs/preds.pkl \
         --dataset VOC07 --data-path VOC2007
+    python -m vipers_torch.cli.main cluster --preds outputs/preds.pkl \
+        --data-path VOC2007 --checkpoint dino.pth --nb-clusters 20
     python -m vipers_torch.cli.main explain --model resnet50 --checkpoint model.pth \
         --data-path imagenet --methods gradcam guided_gradcam ig attention lrp
     python -m vipers_torch.cli.main explain-eval --model vit_b_16 --checkpoint model.pth \
@@ -24,8 +28,8 @@ defaults, plus ``--device``)::
     python -m vipers_torch.cli.main mvh --model resnet50 --checkpoint model.pth \
         --data-path imagenet --pruning-step 3 --output-dir mvh [--stimuli-root stimuli]
 
-``train``, ``evaluate``, ``lost``, ``explain``, ``explain-eval`` and
-``mvh`` run on the card unless given ``--device cpu``; there is no silent
+``train``, ``evaluate``, ``lost``, ``cluster``, ``explain``,
+``explain-eval`` and ``mvh`` run on the card unless given ``--device cpu``; there is no silent
 fallback (``explain-eval-batch`` scores saved maps with numpy on the host
 and only accepts the flag). Flags that select what the
 port does not have yet exit with a message naming the ROADMAP item that
@@ -63,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     lost = sub.add_parser("lost", help="LOST object discovery + CorLoc")
     lost.add_argument("--model", default="vit_s_16")
     lost.add_argument("--arch", default="vit",
-                      help="feature family: vit, resnet, vgg16 or swin (dino: not ported yet)")
+                      help="feature family: vit|dino|swin|resnet|vgg16")
     lost.add_argument("--dataset", default="VOC07", choices=["VOC07", "VOC12", "COCO20k"])
     lost.add_argument("--set", default="trainval")
     lost.add_argument("--data-path", required=False, default="/data")
@@ -129,6 +133,26 @@ def build_parser() -> argparse.ArgumentParser:
     corloc.add_argument("--coco20k-list", default=None)
 
     device_help = "cuda (default) runs the kernels; cpu their plain versions"
+    clus = sub.add_parser("cluster", help="k-means pseudo-labels for discovered boxes")
+    clus.add_argument("--preds", "--pred-file", dest="preds", required=True)
+    clus.add_argument("--nb-clusters", type=int, default=20)
+    clus.add_argument("--data-path", default="/data")
+    clus.add_argument("--dataset", default="VOC07")
+    clus.add_argument("--set", default="trainval")
+    clus.add_argument("--no-hard", action="store_true")
+    clus.add_argument("--arch", default="dino_vit_small",
+                      help="embedding backbone registry name")
+    clus.add_argument("--patch-size", type=int, default=16)
+    clus.add_argument("--random-seed", type=int, default=0, help="k-means init seed")
+    clus.add_argument("--feature-cache", default="",
+                      help="pkl path caching the crop embeddings")
+    clus.add_argument("--checkpoint", default="",
+                      help="pretrained DINO weights (facebookresearch/dino keys) for the "
+                           "crop embedding")
+    clus.add_argument("--coco-annotations", default=None)
+    clus.add_argument("--coco20k-list", default=None)
+    clus.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
+
     expl = sub.add_parser("explain", help="attribution heatmaps per checkpoint")
     expl.add_argument("--model", default="resnet50")
     expl.add_argument("--checkpoint", default="")
@@ -196,25 +220,21 @@ def _refuse_unported(args):
     def no(what, item):
         raise SystemExit(f"vipers_torch lost: {what} is not ported yet (ROADMAP A{item})")
 
-    if args.arch not in ("vit", "resnet", "vgg16", "swin"):
-        no(f"--arch {args.arch}", {"dino": 2}.get(args.arch, 5))
+    if args.arch not in ("vit", "dino", "resnet", "vgg16", "swin"):
+        no(f"--arch {args.arch}", 5)
     from vipers_torch.core.registry import build_model
 
     try:
         build_model(args.model)
     except ValueError:
-        # the JAX registry's other families, by name
-        family = {"mobilenet": 5, "dino": 2}
-        item = next((i for f, i in family.items() if args.model.lower().startswith(f)), None)
-        if item is None:
+        # the JAX registry's other family, by name
+        if not args.model.lower().startswith("mobilenet"):
             raise SystemExit(f"vipers_torch lost: unknown model {args.model!r}") from None
-        no(f"--model {args.model}", item)
+        no(f"--model {args.model}", 5)
     if args.dtype == "int8":
         no("--dtype int8", 9)
     if args.visualize:
         no("--visualize", 11)
-    if args.dinoseg or args.dinoseg_reference_bugs:
-        no("--dinoseg", 2)
     if args.data_parallel or args.sequence_parallel:
         no("--data-parallel / --sequence-parallel (multi-device)", 10)
     ckpt = (args.checkpoint or "").rstrip("/")
@@ -245,6 +265,10 @@ def main(argv=None) -> int:
         from vipers_torch.discovery.driver import run_lost
 
         return run_lost(args)
+    if args.cmd == "cluster":
+        from vipers_torch.discovery.cluster import run_cluster_cli
+
+        return run_cluster_cli(args)
     if args.cmd == "explain":
         from vipers_torch.explain.driver import run_explain
 

@@ -1,5 +1,5 @@
 """Weights carried across from the JAX package (port of the ViT, ResNet,
-VGG and Swin-V2 parts of ``vipers/core/checkpoint.py``, with the exporters
+VGG, Swin-V2 and DINO parts of ``vipers/core/checkpoint.py``, with the exporters
 the JAX package lacks).
 
 A flax ViT parameter tree (nested dict of numpy arrays or tensors, conv
@@ -41,6 +41,8 @@ module's state dict from flax trees and back, masks both ways, the
 ``.pth`` both ways. Swin-V2's modules carry the flax names, so its state
 dict is the ViT's renaming of leaves; ``import_swin_v2_t`` /
 ``export_swin_v2_t`` read and write torchvision's ``features.*`` layout.
+The DINO ViTs' modules carry the flax names too; ``import_dino_vit`` /
+``export_dino_vit`` read and write facebookresearch/dino's keys.
 """
 
 from __future__ import annotations
@@ -602,6 +604,58 @@ def export_swin_v2_t(params, masks=None, bake_masks: bool = True, window_size: i
     return sd
 
 
+# ------------------------------ the DINO ViTs -------------------------------
+#
+# facebookresearch/dino's keys (``patch_embed.proj``, ``blocks.i.attn.qkv``,
+# ``blocks.i.mlp.fc1``); the port's modules carry the flax names, so their
+# state dict is the flax tree renamed, as for Swin.
+
+def _dino_table(depth: int) -> List[Tuple[str, tuple, str]]:
+    """(dino key, flax path, layout) of every DINO ViT parameter but the
+    head, which the JAX importer does not read."""
+    table = [("patch_embed.proj.weight", ("patch_embed", "kernel"), "conv"),
+             ("patch_embed.proj.bias", ("patch_embed", "bias"), ""),
+             ("cls_token", ("cls_token",), ""), ("pos_embed", ("pos_embed",), "")]
+    for i in range(depth):
+        t, o = f"blocks.{i}", (f"block_{i}",)
+        for tk, path in (("norm1", ("norm1",)), ("attn.qkv", ("attn", "qkv")),
+                         ("attn.proj", ("attn", "proj")), ("norm2", ("norm2",)),
+                         ("mlp.fc1", ("fc1",)), ("mlp.fc2", ("fc2",))):
+            ln = tk.startswith("norm")
+            table += [(f"{t}.{tk}.weight", o + path + ("scale" if ln else "kernel",),
+                       "" if ln else "lin"),
+                      (f"{t}.{tk}.bias", o + path + ("bias",), "")]
+    return table + [("norm.weight", ("norm", "scale"), ""), ("norm.bias", ("norm", "bias"), "")]
+
+
+def import_dino_vit(sd: Dict[str, np.ndarray], depth: int):
+    """A facebookresearch/dino state dict -> (flax-layout params tree, {}),
+    as the JAX package's ``import_dino_vit``: the qkv bias is optional, the
+    head and any mask are not read."""
+    to_flax = {"conv": _conv_w, "lin": np.transpose, "": lambda a: a}
+    p = {path: to_flax[layout](sd[key]) for key, path, layout in _dino_table(depth)
+         if key in sd or not key.endswith("attn.qkv.bias")}
+    return unflatten_dict(p), {}
+
+
+def export_dino_vit(params) -> Dict[str, np.ndarray]:
+    """The inverse of ``import_dino_vit``, which the JAX package lacks: a
+    flax-layout DINO tree -> facebookresearch/dino's keys, float32 (a head
+    is not written)."""
+    p = {path: np.asarray(a.detach().cpu() if hasattr(a, "detach") else a, np.float32)
+         for path, a in flatten_dict(params).items()}
+    depth = len({k[0] for k in p if k[0].startswith("block_")})
+    to_torch = {"conv": _conv_w_inv, "lin": np.transpose, "": lambda a: a}
+    return {key: to_torch[layout](p[path]) for key, path, layout in _dino_table(depth)
+            if path in p}
+
+
+def dino_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """State dict for ``DinoVisionTransformer.load_state_dict`` from the JAX
+    package's DINO parameters (a flax tree of numpy arrays)."""
+    return _state_dict_from_flax(_state_key, params)
+
+
 # ------------------------- one table of converters --------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -668,11 +722,21 @@ def _export_swin(params, batch_stats, masks, bake_masks):
     return export_swin_v2_t(params, masks, bake_masks)
 
 
+def _import_dino(sd, spec):
+    params, masks = import_dino_vit(sd, spec.cfg.depth)
+    return params, None, masks
+
+
+def _export_dino(params, batch_stats, masks, bake_masks):
+    return export_dino_vit(params)
+
+
 FAMILIES = {
     "vit": Family(_state_key, _flax_path, _import_vit, _export_vit),
     "resnet": Family(_resnet_key, _resnet_path, _import_resnet, export_resnet),
     "vgg": Family(_vgg_key, _vgg_path, _import_vgg, _export_vgg),
     "swin": Family(_state_key, _flax_path, _import_swin, _export_swin),
+    "dino_vit": Family(_state_key, _flax_path, _import_dino, _export_dino),
 }
 
 

@@ -5,9 +5,10 @@ package's flags and defaults, plus ``--device``.
 The port trains one model on one device. ``refuse_unported`` exits,
 naming the ROADMAP item that ports it, for a flag that selects what the
 port does not have yet: a family other than the ViTs, the ResNets, VGG
-and Swin-V2 (A2, A5, A9), training VGG (its dropout, A8), the multi-device flags
-(A10), ``--profile-dir`` and ``--debug-nans`` (A11) and a structurally
-slimmed checkpoint (A4). ``--resnet-dilate`` applies to the ResNets; the
+and Swin-V2 (A5, A9), training a DINO backbone (A2, DINO training: they
+serve LOST and ``cluster`` frozen), the multi-device flags (A10),
+``--profile-dir`` and ``--debug-nans`` (A11) and a structurally slimmed
+checkpoint (A4). ``--resnet-dilate`` applies to the ResNets; the
 other families ignore it, as the JAX package does.
 """
 
@@ -174,7 +175,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 
 # the JAX registry's other families, by name prefix: the ROADMAP item that
 # ports each
-_FAMILY_ITEMS = (("mobilenet", 5), ("dino", 2), ("quantized_", 9))
+_FAMILY_ITEMS = (("mobilenet", 5), ("quantized_", 9))
 
 
 def refuse_unported(cfg: TrainConfig, cmd: str = "train"):
@@ -192,8 +193,8 @@ def refuse_unported(cfg: TrainConfig, cmd: str = "train"):
         if item is None:
             raise SystemExit(f"vipers_torch {cmd}: unknown model {cfg.model!r}") from None
         no(f"--model {cfg.model}", item)
-    if cmd == "train" and spec.family == "vgg":
-        no(f"training --model {cfg.model} (its dropout)", 8)
+    if spec.family == "dino_vit":
+        no(f"--model {cfg.model} (DINO training)", 2)
     if (cfg.pipeline_parallel or cfg.pp_microbatch or cfg.pp_remat or cfg.pp_data
             or cfg.data_parallel or cfg.model_parallel != 1):
         no("multi-device training (--pipeline-parallel, --pp-*, --data-parallel, "

@@ -25,7 +25,7 @@ class ModelSpec:
     ``prune_exclude``: substrings; a parameter path containing one is never
     pruned even if it is a conv/dense kernel (``("qkv",)`` on ViTs: the
     reference never prunes the attention in-projection). ``family`` ("vit",
-    "resnet", "vgg", "swin") picks the weight converters of
+    "resnet", "vgg", "swin", "dino_vit") picks the weight converters of
     ``core.checkpoint``; ``num_classes`` is the head's width, 0 for a
     headless model; ``extra`` holds what a family's callers read (a Swin's
     last-stage ``num_heads``)."""
@@ -66,4 +66,4 @@ def build_model(name: str, **kwargs) -> ModelSpec:
 
 
 def _ensure_builtins_imported():
-    from vipers_torch.models import resnet, swin, vgg, vit  # noqa: F401  (registers builders)
+    from vipers_torch.models import dino_vit, resnet, swin, vgg, vit  # noqa: F401  (registers builders)

@@ -1,13 +1,15 @@
-"""Seed flood fill and component box on a batch of grids (port of
-``flood_fill_from_seed`` and ``component_bbox`` in
-``vipers/discovery/components.py``).
+"""Connected components on a batch of grids (port of
+``vipers/discovery/components.py``): the seed flood fill and component box
+LOST reads, and the full labelling and largest component ``dino_seg``
+reads.
 
 4-connectivity, as ``scipy.ndimage.label``'s default structure. The fill is
-a monotone dilation from the seed; all B grids dilate together and the host
-checks convergence only every ``CHECK_EVERY`` steps, so a batch costs one
-host sync per ``CHECK_EVERY`` dilations instead of one per step. Extra steps
-past the fixed point change nothing (dilation there is idempotent), so the
-result equals the JAX ``while_loop``'s.
+a monotone dilation from the seed, the labelling a min-label propagation;
+all B grids step together and the host checks convergence only every
+``CHECK_EVERY`` steps, so a batch costs one host sync per ``CHECK_EVERY``
+steps instead of one per step. Extra steps past the fixed point change
+nothing (both steps are idempotent there), so the results equal the JAX
+``while_loop``'s.
 """
 
 from __future__ import annotations
@@ -40,6 +42,47 @@ def flood_fill_from_seed(mask, seed_rc):
             prev, cur = cur, _dilate4(cur) & mask
         if torch.equal(cur, prev):
             return cur
+
+
+def _min4(lbl, big: int):
+    """One min-label step: each cell's label and its 4 neighbours' (outside
+    the grid ``big``), on (B, H, W) int grids."""
+    out = lbl.clone()
+    out[:, :-1, :] = torch.minimum(out[:, :-1, :], lbl[:, 1:, :])
+    out[:, 1:, :] = torch.minimum(out[:, 1:, :], lbl[:, :-1, :])
+    out[:, :, :-1] = torch.minimum(out[:, :, :-1], lbl[:, :, 1:])
+    out[:, :, 1:] = torch.minimum(out[:, :, 1:], lbl[:, :, :-1])
+    return out
+
+
+def label_components(mask):
+    """4-connected labelling of (B, H, W) bool grids: int64, 0 on the
+    background, each component its smallest flat index + 1 (the JAX
+    package's ids, not scipy's 1..N numbering)."""
+    _, h, w = mask.shape
+    big = h * w + 2
+    idx = torch.arange(1, h * w + 1, device=mask.device).reshape(1, h, w)
+    bg = torch.full((), big, device=mask.device)
+    cur = torch.where(mask, idx, bg)
+    while True:
+        for _ in range(CHECK_EVERY):
+            prev, cur = cur, torch.where(mask, _min4(cur, big), bg)
+        if torch.equal(cur, prev):
+            return torch.where(mask, cur, torch.zeros((), dtype=cur.dtype, device=mask.device))
+
+
+def largest_component_mask(mask):
+    """Bool (B, H, W): each grid's largest 4-connected component, ties to
+    the smallest id (the earliest flat index). An all-False grid has no
+    component: then, as in the JAX package, id 0 wins and the whole grid
+    comes back True."""
+    b, h, w = mask.shape
+    labels = label_components(mask).reshape(b, -1)
+    counts = torch.zeros((b, h * w + 2), dtype=torch.int64, device=mask.device)
+    counts.scatter_add_(1, labels, torch.ones_like(labels))
+    counts[:, 0] = 0
+    best = torch.argmax(counts, dim=1)  # the first maximum: the smallest id
+    return (labels == best[:, None]).reshape(b, h, w)
 
 
 def component_bbox(mask):

@@ -1,11 +1,12 @@
-"""LOST driver for the ViTs and the CNN families (port of the batched
-``arch="vit"``, ``"resnet"`` and ``"vgg16"`` paths of
-``vipers/discovery/driver.py``).
+"""LOST driver for the ViTs, the DINO ViTs, Swin-V2 and the CNN families
+(port of ``vipers/discovery/driver.py``).
 
 ``LostFeatureExtractor.make_batched_pipeline`` is the product path: the
-masked ViT forward, the reference's qkv scramble that yields the k features
-and the batched LOST core, all on the device; only the 4-int boxes, seeds
-and background flags return to the host. Inputs come from
+masked transformer forward, its k features (a ViT: the reference's qkv
+scramble of the last ln_1 output; a DINO ViT: the true split of the last
+block's qkv projection, ``--arch dino``) and the batched LOST core, all on
+the device; only the 4-int boxes, seeds and background flags return to the
+host. Inputs come from
 ``prepare_batch``: tier-1-padded images sharing one bucket shape, uint8
 (normalized on the device) or already-normalized float, sent to the card
 from pinned memory without a host sync, so assembling batch k+1 overlaps
@@ -21,12 +22,15 @@ VGG under ``--dtype bf16``) and the batched LOST core. Feature extents
 come from the module's arithmetic (``feature_extent``), where the JAX
 package traces ``eval_shape``.
 
-``extract`` is the per-image path, as the JAX package routes it: Swin
-(``--arch swin``: the last block's qkv, its first window as the reference
-reads it, or with ``swin_all_windows`` the whole last-stage grid in image
-order) and the CNNs at each image's native shape (``--exact-shapes``,
-``--cnn-bucket 1``: the reference's parity regime, the whole-slab
-LayerNorm), each image one forward, then ``discovery.lost.lost`` at B = 1.
+``extract`` is the per-image path, as the JAX package routes it: the ViTs
+and DINO ViTs under ``--dinoseg`` (the image on its bucket grid with
+``need_attn``: the last block's attention, which ``discovery.lost.dino_seg``
+boxes; the other blocks keep the flash route), Swin (``--arch swin``: the
+last block's qkv, its first window as the reference reads it, or with
+``swin_all_windows`` the whole last-stage grid in image order) and the CNNs
+at each image's native shape (``--exact-shapes``, ``--cnn-bucket 1``: the
+reference's parity regime, the whole-slab LayerNorm), each image one
+forward, then ``discovery.lost.lost`` at B = 1.
 
 ``run_lost`` is ``vipers_torch lost``: JPEGs decoded on a thread pool in
 dataset order (``_prefetch_decoded``), per-bucket buffers of
@@ -58,7 +62,7 @@ from vipers_torch.data import native
 from vipers_torch.data.detection import DiscoveryDataset, load_image_normalized
 from vipers_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD, bucket_hw
 from vipers_torch.discovery.corloc import CorLocAccumulator
-from vipers_torch.discovery.lost import box_feat_to_image, lost, lost_core
+from vipers_torch.discovery.lost import box_feat_to_image, dino_seg, lost, lost_core
 from vipers_torch.models.cnn import exact_f32_convs
 from vipers_torch.models.dino_vit import split_qkv_dino
 from vipers_torch.models.interpolate import resize_weight_matrix_np
@@ -99,11 +103,11 @@ def masked_slab_layernorm(f, mf, cnt):
     return ((f - mu) / torch.sqrt(var + 1e-5)) * mf
 
 
-def seq_pad(img_shape, patch: int) -> Optional[int]:
+def seq_pad(img_shape, patch: int, need_attn: bool = False) -> Optional[int]:
     """128-multiple token padding where the flash kernel engages
-    (T >= flash_min_t(); the pipeline never asks for attention probs)."""
+    (T >= flash_min_t(), no attention probabilities asked for)."""
     t = (img_shape[1] // patch) * (img_shape[2] // patch) + 1
-    return 128 if t >= flash_min_t() else None
+    return 128 if t >= flash_min_t() and not need_attn else None
 
 
 class LostFeatureExtractor:
@@ -118,16 +122,18 @@ class LostFeatureExtractor:
     JAX extractor casts ``params`` only. ``cnn_bucket``: the CNN pipeline's
     feature-grid bucket (``--cnn-bucket``; 1 is the per-image exact-shape
     regime); ``swin_all_windows``: Swin LOST over the whole last-stage grid
-    instead of the first window."""
+    instead of the first window; ``need_attn``: the per-image transformer
+    forward returns the last block's attention (``--dinoseg``)."""
 
     def __init__(self, spec, params, masks=None, which_features: str = "k",
                  bucket: int = 4, compute_dtype: Optional[torch.dtype] = None,
                  device=None, batch_stats=None, cnn_bucket: int = 4,
-                 swin_all_windows: bool = False):
+                 swin_all_windows: bool = False, need_attn: bool = False):
         self.device = resolve_device(device)
         self.spec = spec
         self.which = which_features
         self.bucket = bucket
+        self.need_attn = need_attn
         self.cnn_bucket = cnn_bucket
         self.swin_all_windows = swin_all_windows
         self.compute_dtype = compute_dtype or torch.float32
@@ -146,18 +152,21 @@ class LostFeatureExtractor:
         """Pos-embeddings interpolated to the valid (gh, gw) grid, scattered
         into the (GH, GW) bucket grid as two matmuls with host-built weight
         matrices (zero rows beyond gh/gw), plus the CLS+valid token mask.
-        Cached per key; returns ((1, 1+GH*GW, D) f32, (1, 1+GH*GW) bool)."""
+        A ViT's table resizes as torchvision does (``align_corners``), a DINO
+        ViT's with half-pixel centres. Cached per key; returns ((1,
+        1+GH*GW, D) f32, (1, 1+GH*GW) bool)."""
         key = (gh, gw, GH, GW)
         if key not in self._pos_cache:
             p = self.spec.patch_size
             side_h = self.spec.input_size[0] // p
             side_w = self.spec.input_size[1] // p
+            vit = self.spec.family == "vit"
             mat_h = np.zeros((GH, side_h), np.float32)
-            mat_h[:gh] = resize_weight_matrix_np(side_h, gh, True)
+            mat_h[:gh] = resize_weight_matrix_np(side_h, gh, vit)
             mat_w = np.zeros((GW, side_w), np.float32)
-            mat_w[:gw] = resize_weight_matrix_np(side_w, gw, True)
+            mat_w[:gw] = resize_weight_matrix_np(side_w, gw, vit)
             with torch.inference_mode():
-                pos = self.model.pos_embedding.float()
+                pos = (self.model.pos_embedding if vit else self.model.pos_embed).float()
                 grid = pos[0, 1:].reshape(side_h, side_w, -1)
                 mh = torch.from_numpy(mat_h).to(self.device)
                 mw = torch.from_numpy(mat_w).to(self.device)
@@ -232,21 +241,26 @@ class LostFeatureExtractor:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    @torch.inference_mode()
-    def batched_features(self, images, pos, token_mask, valid_hw, pixel_hw=None):
-        """(B, GH*GW, D) LOST features on the bucket grid: the ViT forward,
-        then the reference's qkv scramble of the last ln_1 output applied to
-        each image's tier-1 tokens (CLS + valid, raster order), scattered
-        back onto the grid; bucket-pad rows are zero."""
-        patch = self.spec.patch_size
-        if images.dtype == torch.uint8:
-            images = device_normalize(images, pixel_hw)
+    def _transformer_aux(self, images, pos, token_mask, need_attn: bool = False):
+        """The transformer forward's aux on a bucket batch (images already
+        normalized), in the compute dtype, tokens seq-padded where the flash
+        kernel engages."""
         images = images.to(self.compute_dtype)
-        pos = pos.to(self.compute_dtype)
-        _, aux = self.model(images, override_pos_embedding=pos,
-                            token_mask=token_mask, need_attn=False,
-                            seq_pad_multiple=seq_pad(images.shape, patch))
-        GH, GW = images.shape[1] // patch, images.shape[2] // patch
+        return self.model(images, override_pos_embedding=pos.to(self.compute_dtype),
+                          token_mask=token_mask, need_attn=need_attn,
+                          seq_pad_multiple=seq_pad(images.shape, self.spec.patch_size,
+                                                   need_attn))[1]
+
+    def _transformer_features(self, aux, token_mask, valid_hw, GH: int, GW: int):
+        """(B, GH*GW, D) features of a forward's aux. A DINO ViT's: the true
+        split of the last qkv projection, bucket-pad rows as they come
+        (``lost_core`` masks them). A ViT's: the reference's qkv scramble of
+        the last ln_1 output applied to each image's tier-1 tokens (CLS +
+        valid, raster order), scattered back onto the grid; bucket-pad rows
+        zero."""
+        if self.spec.family == "dino_vit":
+            qkv = split_qkv_dino(aux["qkv"], self.spec.cfg.num_heads)
+            return dict(zip("qkv", qkv))[self.which][:, 1:]
         x = aux["qkv_input"]
         if token_mask is None:
             # exact fit: every image fills its bucket, no compaction needed
@@ -260,6 +274,17 @@ class LostFeatureExtractor:
         idx = torch.cumsum(valid, dim=1)  # grid position -> compact row
         g = torch.gather(fc, 1, idx[:, :, None].expand(b, t - 1, d))
         return torch.where(valid[:, :, None], g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+    @torch.inference_mode()
+    def batched_features(self, images, pos, token_mask, valid_hw, pixel_hw=None):
+        """(B, GH*GW, D) LOST features of a prepared batch on its bucket grid
+        (``_transformer_features``)."""
+        if images.dtype == torch.uint8:
+            images = device_normalize(images, pixel_hw)
+        patch = self.spec.patch_size
+        aux = self._transformer_aux(images, pos, token_mask)
+        return self._transformer_features(aux, token_mask, valid_hw,
+                                          images.shape[1] // patch, images.shape[2] // patch)
 
     def make_batched_pipeline(self, k_patches: int = 100):
         """Returns fn(images (B,bh,bw,3), pos (B,1+GT,D), token_mask
@@ -432,14 +457,27 @@ class LostFeatureExtractor:
         with ``swin_all_windows`` the whole grid (``aux["qkv_grid"]``) with
         the true scales. CNNs: at the image's shape when ``cnn_bucket`` is 1
         (``cnn_exact_features``), else on its bucket's canonical input at
-        B = 1. The per-image ViT path serves only ``--visualize`` (ROADMAP
-        A11) and ``--dinoseg`` (A2), which the port does not have yet."""
+        B = 1. ViTs and DINO ViTs: the image zero-padded to its bucket,
+        the pos table interpolated to its valid grid, the CLS+valid token
+        mask, ``need_attn`` as the extractor was built; dims = the bucket
+        grid, valid_dims = the image's, scales ``[patch_size,
+        patch_size]`` and the last block's attention (None without
+        ``need_attn``)."""
         h, w = img_hwc.shape[:2]
         fam = self.spec.family
-        if fam == "vit":
-            raise NotImplementedError(
-                "the per-image ViT path serves --visualize (ROADMAP A11) and --dinoseg "
-                "(ROADMAP A2), which are not ported yet")
+        if fam in ("vit", "dino_vit"):
+            gh, gw = h // patch_size, w // patch_size
+            bh, bw = bucket_hw(h, w, patch_size, self.bucket)
+            GH, GW = bh // patch_size, bw // patch_size
+            img = np.zeros((1, bh, bw, 3), np.float32)
+            img[0, :h, :w] = img_hwc
+            pos, mask = self._pos_and_mask(gh, gw, GH, GW)
+            token_mask = self._upload(torch.from_numpy(mask))
+            valid_hw = torch.tensor([[gh, gw]], dtype=torch.int32, device=self.device)
+            aux = self._transformer_aux(self._upload(torch.from_numpy(img)), pos, token_mask,
+                                        self.need_attn)
+            feats = self._transformer_features(aux, token_mask, valid_hw, GH, GW)
+            return feats, (GH, GW), (gh, gw), [patch_size, patch_size], aux["attn"]
         if fam == "swin":
             x = self._upload(torch.from_numpy(np.ascontiguousarray(img_hwc, np.float32))[None])
             with exact_f32_convs(self.compute_dtype):
@@ -564,13 +602,16 @@ LAST_RUN: dict = {}
 
 
 def run_lost(args) -> int:
-    """``vipers_torch lost`` for ``--arch vit``, ``resnet``, ``vgg16`` and
-    ``swin``: the arguments of ``vipers lost`` (``vipers_torch.cli.main``)
-    plus ``--device``. Routed as the JAX package routes them: the ViTs and
-    the bucketed CNNs through the batched pipelines, Swin and the CNNs'
-    ``--exact-shapes`` / ``--cnn-bucket 1`` one image at a time
-    (``extract`` -> ``lost``), where a seed in the background is collected,
-    or raised under ``--strict``, as in the batched drain.
+    """``vipers_torch lost`` for ``--arch vit``, ``dino``, ``resnet``,
+    ``vgg16`` and ``swin``: the arguments of ``vipers lost``
+    (``vipers_torch.cli.main``) plus ``--device``. Routed as the JAX
+    package routes them: the ViTs, the DINO ViTs (``--patch-size`` builds
+    the model) and the bucketed CNNs through the batched pipelines; Swin,
+    the CNNs' ``--exact-shapes`` / ``--cnn-bucket 1`` and ``--dinoseg`` one
+    image at a time (``extract`` -> ``lost``, or ``dino_seg`` on head
+    ``--dinoseg-head`` at bucket 4, at bucket 1 under
+    ``--dinoseg-reference-bugs``), where a seed in the background is
+    collected, or raised under ``--strict``, as in the batched drain.
 
     With no ``--checkpoint`` the weights come from
     ``spec.init(torch.Generator().manual_seed(0))``; they cannot equal the
@@ -602,18 +643,27 @@ def run_lost(args) -> int:
         print(f"checkpoint: {args.checkpoint}")
     iteration = pruning_iteration if pruning_iteration is not None else args.iteration
 
+    families = {"vit": ("vit",), "swin": ("swin",), "dino": ("dino_vit",)}.get(
+        args.arch, ("resnet", "vgg"))
+    fam = build_model(args.model).family
+    if fam not in families:
+        raise SystemExit(f"vipers_torch lost: --arch {args.arch} does not take --model "
+                         f"{args.model} (a {fam})")
     model_kw = {}
+    if args.arch == "dino":
+        model_kw["patch_size"] = args.patch_size
     if "resnet" in args.model and getattr(args, "resnet_dilate", 1) != 1:
         model_kw["dilate"] = args.resnet_dilate
     spec = build_model(args.model, **model_kw)
-    families = {"vit": ("vit",), "swin": ("swin",)}.get(args.arch, ("resnet", "vgg"))
-    if spec.family not in families:
-        raise SystemExit(f"vipers_torch lost: --arch {args.arch} does not take --model "
-                         f"{args.model} (a {spec.family})")
+    dinoseg = bool(getattr(args, "dinoseg", False))
+    reference_bugs = bool(getattr(args, "dinoseg_reference_bugs", False))
+    if dinoseg and spec.family not in ("vit", "dino_vit"):
+        raise SystemExit(f"vipers_torch lost: --dinoseg reads a transformer's attention "
+                         f"(--arch vit or dino), not --arch {args.arch}'s")
     cnn = spec.family in ("resnet", "vgg")
     cnn_bucket = 1 if getattr(args, "exact_shapes", False) else int(
         getattr(args, "cnn_bucket", 0) or 4)
-    per_image = spec.family == "swin" or (cnn and cnn_bucket == 1)
+    per_image = spec.family == "swin" or (cnn and cnn_bucket == 1) or dinoseg
     masks = batch_stats = None
     if args.checkpoint:
         params, batch_stats, masks = load_lost_checkpoint(args.checkpoint, spec)
@@ -631,11 +681,16 @@ def run_lost(args) -> int:
     else:
         params = spec.init(torch.Generator().manual_seed(0))
     dtype = {"f32": None, "bf16": torch.bfloat16}[getattr(args, "dtype", None) or "f32"]
+    # dino_seg is bucket-safe (pad keys get exactly zero attention); only
+    # its reference-bug mode, whose component ids follow the grid, runs at
+    # exact shapes
     extractor = LostFeatureExtractor(spec, params, masks, which_features=args.which_features,
-                                     bucket=4, compute_dtype=dtype, device=device,
-                                     batch_stats=batch_stats, cnn_bucket=cnn_bucket,
+                                     bucket=1 if reference_bugs else 4, compute_dtype=dtype,
+                                     device=device, batch_stats=batch_stats,
+                                     cnn_bucket=cnn_bucket,
                                      swin_all_windows=bool(getattr(args, "swin_all_windows",
-                                                                   False)))
+                                                                   False)),
+                                     need_attn=dinoseg)
     pipeline = (None if per_image
                 else extractor.make_batched_cnn_pipeline(k_patches=args.k_patches) if cnn
                 else extractor.make_batched_pipeline(k_patches=args.k_patches))
@@ -706,7 +761,12 @@ def run_lost(args) -> int:
             as_uint8=feed_uint8):
         n_imgs += 1
         if per_image:
-            feats, dims, valid_dims, scales, _attn = extractor.extract(padded, p)
+            feats, dims, valid_dims, scales, attn = extractor.extract(padded, p)
+            if dinoseg:
+                acc.add(im_name, np.asarray(dino_seg(attn, dims, p, head=args.dinoseg_head,
+                                                     reference_bugs=reference_bugs),
+                                            dtype=np.float64), gt)
+                continue
             try:
                 pred = lost(feats, dims, scales, init_image_size, k_patches=args.k_patches,
                             valid_dims=valid_dims)[0]

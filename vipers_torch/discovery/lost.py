@@ -1,6 +1,7 @@
-"""LOST unsupervised object discovery (port of ``patch_scoring``,
-``lost_core``, ``box_feat_to_image``, ``lost`` and ``detect_box`` in
-``vipers/discovery/lost.py``).
+"""LOST unsupervised object discovery and the DINO attention
+segmentation baseline (port of ``patch_scoring``, ``lost_core``,
+``box_feat_to_image``, ``lost``, ``detect_box``, ``dino_seg`` and
+``_mass_threshold`` in ``vipers/discovery/lost.py``).
 
 Everything from the affinity to the seed's connected component and its box
 runs on the device for all B images at once; only the 4-int boxes, seeds
@@ -18,7 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from vipers_torch.discovery.components import component_bbox, flood_fill_from_seed
+from vipers_torch.discovery.components import (component_bbox, flood_fill_from_seed,
+                                               label_components, largest_component_mask)
 
 
 def patch_scoring(A, valid):
@@ -134,3 +136,49 @@ def detect_box(M, seed, dims, initial_im_size=None, scales=None):
         pred[2] = min(pred[2], initial_im_size[1])
         pred[3] = min(pred[3], initial_im_size[0])
     return pred, [ymin, xmin, ymax, xmax]
+
+
+def _mass_threshold(attentions, keep: float):
+    """Per head (row of ``attentions``, (nh, T)): 1.0 on the entries whose
+    ascending cumulative share of the row's mass exceeds ``1 - keep`` (the
+    top ``keep`` of the mass), else 0.0; the sort is stable and the sums
+    run in the attentions' dtype, as in the JAX package."""
+    val, idx = torch.sort(attentions, dim=1, stable=True)
+    val = val / torch.sum(val, dim=1, keepdim=True)
+    th = torch.cumsum(val, dim=1) > (1 - keep)
+    return torch.gather(th, 1, torch.argsort(idx, dim=1)).to(torch.float32)
+
+
+def dino_seg(attn, dims, patch_size: int, head: int = 0, reference_bugs: bool = False):
+    """The DINO attention-segmentation baseline: keep 60% of each head's
+    CLS-attention mass (``attn`` (1, nh, T, T)), take the largest
+    4-connected component of head ``head``'s map on the ``dims`` =
+    (rows, cols) grid, and return its box ``[xmin, ymin, xmax, ymax]`` in
+    pixels (not clipped to the image).
+
+    ``reference_bugs`` reproduces the reference's component choice with its
+    off-by-ones: ids renumbered in raster first-occurrence order (scipy's),
+    the last id left out of the size scan, and a map of one component
+    choosing id 0, the background."""
+    w_featmap, h_featmap = dims
+    attn = torch.as_tensor(attn)
+    nh = attn.shape[1]
+    grid = _mass_threshold(attn[0, :, 0, 1:].reshape(nh, -1), 0.6).reshape(
+        nh, w_featmap, h_featmap)
+    fg = grid[head][None] > 0.5
+    if reference_bugs:
+        labeled = label_components(fg)[0].cpu().numpy()
+        flat = labeled.ravel()
+        ids, first = np.unique(flat, return_index=True)
+        is_fg = ids > 0
+        order = np.argsort(first[is_fg])  # foreground ids by first raster occurrence
+        remap = np.zeros(int(ids.max()) + 1, flat.dtype)
+        remap[ids[is_fg][order]] = np.arange(1, is_fg.sum() + 1)
+        labeled = remap[flat].reshape(labeled.shape)
+        sizes = [int(np.sum(labeled == c)) for c in range(int(labeled.max()))]
+        biggest = int(np.argmax(sizes[1:])) + 1 if len(sizes) > 1 else 0
+        comp = torch.from_numpy(labeled == biggest)[None]
+    else:
+        comp = largest_component_mask(fg)
+    ymin, ymax, xmin, xmax = (int(v) for v in component_bbox(comp)[0])
+    return [xmin * patch_size, ymin * patch_size, xmax * patch_size, ymax * patch_size]

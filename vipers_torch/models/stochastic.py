@@ -1,5 +1,5 @@
-"""Random layers in training: stochastic depth now, dropout next (ROADMAP
-A8) on the same design.
+"""Random layers in training: stochastic depth (``drop_path``) and dropout
+(``dropout``).
 
 The JAX package draws a layer's random bits from the ``dropout`` rng
 stream that the train step folds with the step count. Here a train forward
@@ -14,7 +14,6 @@ and exactly at rate 0.
 
 from __future__ import annotations
 
-import inspect
 from typing import Optional
 
 import numpy as np
@@ -29,9 +28,10 @@ def dropout_generator(seed: int, step: Optional[int], device) -> torch.Generator
     return torch.Generator(device=torch.device(device)).manual_seed(sub)
 
 
-def takes_generator(model: torch.nn.Module) -> bool:
-    """Whether ``model``'s forward has random layers (takes ``generator``)."""
-    return "generator" in inspect.signature(model.forward).parameters
+def has_random_layers(model: torch.nn.Module) -> bool:
+    """Whether ``model`` has a random layer at a rate above 0 (its
+    ``random_rates()``): only then does a train forward need a generator."""
+    return hasattr(model, "random_rates") and max(model.random_rates(), default=0.0) > 0
 
 
 def drop_path(y, rate: float, training: bool, generator: Optional[torch.Generator]):
@@ -48,3 +48,18 @@ def drop_path(y, rate: float, training: bool, generator: Optional[torch.Generato
     shape = (y.shape[0],) + (1,) * (y.dim() - 1)
     mask = torch.rand(shape, generator=generator, device=y.device) < keep
     return y * mask.to(y.dtype) / keep
+
+
+def dropout(x, rate: float, training: bool, generator: Optional[torch.Generator]):
+    """flax ``nn.Dropout``: each element of ``x`` kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``, the mask drawn from
+    ``generator``. Identity in eval mode or at rate 0; a train forward at
+    a rate above 0 needs a generator."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a generator "
+                         "(models.stochastic.dropout_generator)")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

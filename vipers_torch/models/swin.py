@@ -286,6 +286,10 @@ class SwinTransformerV2(nn.Module):
         self.norm = LayerNorm(cfg.num_features, eps=1e-5)
         self.head = Linear(cfg.num_features, cfg.num_classes) if cfg.num_classes else None
 
+    def random_rates(self):
+        """The blocks' stochastic-depth rates."""
+        return tuple(blk.sd_rate for blk in self.blocks if isinstance(blk, SwinBlockV2))
+
     def forward(self, x, need_attn: bool = True, generator=None, tap_delta=None):
         """x (N, H, W, 3); ``need_attn`` is accepted for the callers' sake
         (the windows' attention is always materialized); ``generator``

@@ -9,14 +9,15 @@ every layer runs in bf16. Input is NHWC; the forward returns ``(logits,
 The classifier flattens the map in CHW order, as torch does, with no
 adaptive pooling (the map is 7x7 at 224x224).
 
-Dropout is not ported (ROADMAP A8): the JAX model trains with a rate of
-0.5, so a train-mode forward raises; in eval mode dropout is the identity.
+The classifier's two dropouts run at the JAX model's rate of 0.5 in train
+mode, their masks drawn from the forward's ``generator``
+(``models.stochastic``); in eval mode they are the identity.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +25,7 @@ from torch import nn
 from vipers_torch.core.registry import ModelSpec, register_model
 from vipers_torch.models.activations import ReLU
 from vipers_torch.models.cnn import Conv2d, Linear
+from vipers_torch.models.stochastic import dropout
 from vipers_torch.models.vit import _lecun_normal
 
 # torchvision cfg "D": 13 conv widths; max-pools after these conv indices
@@ -63,7 +65,8 @@ class VGG16(nn.Module):
         if not cfg.headless:
             d0, d1 = cfg.fc_dims
             flat = cfg.conv_widths[-1] * 7 * 7
-            # torchvision's Linear, ReLU, Dropout, Linear, ReLU, Dropout, Linear
+            # torchvision's Linear, ReLU, Dropout, Linear, ReLU, Dropout, Linear;
+            # ``forward`` runs the dropouts in the identities' slots
             self.classifier = nn.Sequential(Linear(flat, d0), ReLU(), nn.Identity(),
                                             Linear(d0, d1), ReLU(), nn.Identity(),
                                             Linear(d1, cfg.num_classes))
@@ -75,12 +78,15 @@ class VGG16(nn.Module):
                 px //= 2
         return px
 
-    def forward(self, x, need_attn: bool = True, tap_delta=None):  # need_attn: no-op for CNNs
+    def random_rates(self):
+        """The classifier's dropout rate (none when headless)."""
+        return () if self.classifier is None else (self.cfg.dropout_rate,)
+
+    def forward(self, x, need_attn: bool = True, tap_delta=None,
+                generator: Optional[torch.Generator] = None):  # need_attn: no-op for CNNs
         """``tap_delta``: the explain tap, (N, H', W', C) added to the
-        conv stack's output."""
-        if self.training and self.cfg.dropout_rate > 0:
-            raise ValueError(f"dropout_rate={self.cfg.dropout_rate}: vipers_torch has no "
-                             f"dropout yet (ROADMAP A8)")
+        conv stack's output. ``generator``: the classifier's dropout masks
+        in train mode."""
         x = self.features(x.permute(0, 3, 1, 2))
         features = x.permute(0, 2, 3, 1)
         if tap_delta is not None:
@@ -88,7 +94,12 @@ class VGG16(nn.Module):
             x = features.permute(0, 3, 1, 2)
         if self.classifier is None:
             return features, {"features": features}
-        return self.classifier(x.reshape(x.shape[0], -1)), {"features": features}
+        x = x.reshape(x.shape[0], -1)
+        for i, layer in enumerate(self.classifier):
+            x = layer(x)
+            if i in (2, 5):
+                x = dropout(x, self.cfg.dropout_rate, self.training, generator)
+        return x, {"features": features}
 
 
 def init_vgg_params(cfg: VGGConfig, gen: torch.Generator) -> dict:

@@ -10,16 +10,17 @@ Input is NHWC, like the JAX package. The forward returns
 Kernel routing follows the JAX package exactly, switches included
 (``VIPERS_FLASH_MIN_T``, ``VIPERS_PACKED_ATTENTION``, ``VIPERS_FUSED_MLP``,
 ``VIPERS_FUSED_ATTN``, read at call time):
-  * attention at T >= ``flash_min_t()`` without ``need_attn`` goes to the
-    flash kernel (``ops/flash_attention.py``), or with
+  * attention at T >= ``flash_min_t()`` without ``need_attn`` (and, in
+    training, without attention dropout) goes to the flash kernel (``ops/flash_attention.py``), or with
     ``VIPERS_PACKED_ATTENTION=1`` and a packed layout to the token-major
     packed kernel on one projection with head-pair-permuted weight rows;
-    below it, in training, in
+    below it, in training without attention dropout, in
     bf16 and within the kernel's envelope, to the short-T training kernel
     on the packed (3, N, H, T, hd) projection
     (``ops/attention_train.py``); otherwise the key-masked einsum,
   * training forwards pad the tokens once to a 128 multiple where a kernel
-    will engage (``_auto_seq_pad``): T = 197 -> 256 at 224x224,
+    will engage (``_auto_seq_pad``; never under attention dropout): T = 197
+    -> 256 at 224x224,
   * in bf16 at inference, when the row count passes the JAX block rule,
     ln_2 -> fc1 -> GELU goes to the fused kernel (``ops/fused_mlp.py``);
     otherwise LayerNorm -> Dense -> GELU (tanh in bf16, erf in f32).
@@ -27,6 +28,12 @@ Kernel routing follows the JAX package exactly, switches included
 The patch embedding is a reshape and a matmul, not a convolution, so the
 f32 path never takes cuDNN's TF32 convolutions. f32 matmuls follow torch's
 global precision setting, which defaults to full f32 on the card.
+
+Dropout is the JAX model's: ``dropout_rate`` after the position embedding,
+after the attention block and after the MLP's GELU and fc2,
+``attention_dropout_rate`` on the attention probabilities, in train mode
+only, the masks drawn from the forward's ``generator``
+(``models.stochastic``).
 """
 
 from __future__ import annotations
@@ -45,12 +52,14 @@ from vipers_torch.core.registry import ModelSpec, register_model
 from vipers_torch.ops.attention_train import (attention_train_enabled,
                                               attention_train_packed,
                                               fused_attention_supported)
-from vipers_torch.ops.flash_attention import (attention_reference,
+from vipers_torch.ops.flash_attention import (attention_probs,
+                                              attention_reference,
                                               flash_attention,
                                               flash_attention_packed,
                                               flash_min_t,
                                               packed_layout_supported,
                                               packed_qkv_permutation)
+from vipers_torch.models.stochastic import dropout
 from vipers_torch.ops.fused_mlp import fused_ln_dense_gelu, fused_supported
 from vipers_torch.ops.tokens import pad_tokens, round_up, unpad_tokens
 
@@ -76,6 +85,18 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+def patch_matmul(x, conv: nn.Conv2d, p: int):
+    """A stride-``p`` patch conv on NHWC ``x`` as reshape + matmul: (N,
+    gh*gw, D) tokens in raster order, the patch flattened (kh, kw, c) like
+    the flax HWIO kernel."""
+    n, h, w, c = x.shape
+    gh, gw = h // p, w // p
+    patches = (x.reshape(n, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
+               .reshape(n, gh * gw, p * p * c))
+    wmat = conv.weight.permute(2, 3, 1, 0).reshape(p * p * c, -1)
+    return torch.matmul(patches, wmat) + conv.bias
+
+
 @functools.lru_cache(maxsize=None)
 def _packed_rows(d: int, num_heads: int, device: torch.device):
     """The packed stripe permutation as an index tensor on ``device``."""
@@ -85,20 +106,23 @@ def _packed_rows(d: int, num_heads: int, device: torch.device):
 class MultiHeadAttention(nn.Module):
     """Self-attention with torch ``nn.MultiheadAttention`` semantics: fused
     qkv projection (q, k, v row blocks), per-head softmax returned when
-    ``need_attn``."""
+    ``need_attn``; ``dropout_rate`` drops attention probabilities in
+    training."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.qkv = nn.Linear(dim, 3 * dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, x, token_mask=None, need_attn: bool = True):
+    def forward(self, x, token_mask=None, need_attn: bool = True, generator=None):
         n, t, d = x.shape
         h = self.num_heads
         hd = d // h
         scale = float(hd) ** -0.5
-        use_flash = not need_attn and t >= flash_min_t()
+        drop = self.training and self.dropout_rate > 0  # the kernels keep no probs
+        use_flash = not need_attn and not drop and t >= flash_min_t()
         if (use_flash and packed_layout_supported(d, h)
                 and os.environ.get("VIPERS_PACKED_ATTENTION") == "1"):
             # one projection with head-pair-permuted weight rows feeds the
@@ -109,7 +133,7 @@ class MultiHeadAttention(nn.Module):
             return self.out(y), None
         qkv = self.qkv(x).reshape(n, t, 3, h, hd).permute(2, 0, 3, 1, 4)
         if (self.training and not need_attn and not use_flash
-                and fused_attention_supported(t, hd)
+                and self.dropout_rate == 0 and fused_attention_supported(t, hd)
                 and attention_train_enabled(x.dtype)):
             out = attention_train_packed(qkv, valid=token_mask, scale=scale)
             attn = None
@@ -120,7 +144,11 @@ class MultiHeadAttention(nn.Module):
         else:
             q, k, v = qkv.unbind(0)
             mask = token_mask[:, None, None, :] if token_mask is not None else None
-            out, attn = attention_reference(q, k, v, scale=scale, mask=mask)
+            if drop:
+                attn = attention_probs(q, k, scale=scale, mask=mask)
+                out = torch.matmul(dropout(attn, self.dropout_rate, True, generator), v)
+            else:
+                out, attn = attention_reference(q, k, v, scale=scale, mask=mask)
             if not need_attn:
                 attn = None
         out = self.out(out.transpose(1, 2).reshape(n, t, d))
@@ -128,46 +156,52 @@ class MultiHeadAttention(nn.Module):
 
 
 class MLPBlock(nn.Module):
-    """Linear -> GELU -> Linear. GELU is exact erf in f32 (reference bit
-    parity) and tanh in bf16, as in the JAX package."""
+    """Linear -> GELU -> dropout -> Linear -> dropout. GELU is exact erf in
+    f32 (reference bit parity) and tanh in bf16, as in the JAX package."""
 
-    def __init__(self, dim: int, mlp_dim: int):
+    def __init__(self, dim: int, mlp_dim: int, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.fc1 = nn.Linear(dim, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, dim)
 
-    def forward(self, x, prefused: bool = False):
+    def forward(self, x, prefused: bool = False, generator=None):
         if prefused:
             y = x  # already gelu(fc1(ln_2(x))) from the fused kernel
         else:
             y = self.fc1(x)
             y = F.gelu(y, approximate="tanh" if y.dtype == torch.bfloat16 else "none")
-        return self.fc2(y)
+        y = dropout(y, self.dropout_rate, self.training, generator)
+        return dropout(self.fc2(y), self.dropout_rate, self.training, generator)
 
 
 class EncoderBlock(nn.Module):
     """Pre-norm transformer block; returns (x, ln_1 output, attn)."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_dim: int):
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int, dropout_rate: float = 0.0,
+                 attention_dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.ln_1 = LayerNorm(dim)
-        self.attention = MultiHeadAttention(dim, num_heads)
+        self.attention = MultiHeadAttention(dim, num_heads, attention_dropout_rate)
         self.ln_2 = LayerNorm(dim)
-        self.mlp = MLPBlock(dim, mlp_dim)
+        self.mlp = MLPBlock(dim, mlp_dim, dropout_rate)
 
-    def forward(self, x, token_mask=None, need_attn: bool = True, tap_delta=None):
+    def forward(self, x, token_mask=None, need_attn: bool = True, tap_delta=None,
+                generator=None):
         ln1 = self.ln_1(x)
         if tap_delta is not None:
             ln1 = ln1 + tap_delta  # the explain tap: GradCAM's ViT target layer
-        y, attn = self.attention(ln1, token_mask=token_mask, need_attn=need_attn)
-        x = x + y
+        y, attn = self.attention(ln1, token_mask=token_mask, need_attn=need_attn,
+                                 generator=generator)
+        x = x + dropout(y, self.dropout_rate, self.training, generator)
         if fused_supported(x, train=self.training):
             z = fused_ln_dense_gelu(
                 x, self.ln_2.weight, self.ln_2.bias,
                 self.mlp.fc1.weight.t(), self.mlp.fc1.bias, eps=self.ln_2.eps)
-            z = self.mlp(z, prefused=True)
+            z = self.mlp(z, prefused=True, generator=generator)
         else:
-            z = self.mlp(self.ln_2(x))
+            z = self.mlp(self.ln_2(x), generator=generator)
         return x + z, ln1, attn
 
 
@@ -176,8 +210,9 @@ def _auto_seq_pad(seq_len: int, dtype, train: bool, need_attn: bool, cfg):
     forwards where an attention kernel will engage (both kernels pad to a
     128 multiple inside, so padding once is compute-identical). Inference
     stays unpadded. A pad that would push T across ``flash_min_t()`` is not
-    made: the gate then decides on the true length."""
-    if not train or need_attn or seq_len % 128 == 0:
+    made: the gate then decides on the true length. Under attention dropout
+    no kernel engages, so nothing is padded."""
+    if not train or need_attn or seq_len % 128 == 0 or cfg.attention_dropout_rate > 0:
         return None
     pad_t = round_up(seq_len, 128)
     min_t = flash_min_t()
@@ -195,8 +230,7 @@ def _auto_seq_pad(seq_len: int, dtype, train: bool, need_attn: bool, cfg):
 class ViTConfig:
     """The JAX package's ``ViTConfig`` without ``head_dim`` (structured
     slimming, ROADMAP A4). ``representation_size``: a ``pre_logits`` Dense
-    and tanh before the head. Dropout is not ported (ROADMAP A8): a rate
-    above 0 raises rather than run a different model."""
+    and tanh before the head."""
 
     patch_size: int = 16
     num_layers: int = 12
@@ -207,13 +241,6 @@ class ViTConfig:
     dropout_rate: float = 0.0
     attention_dropout_rate: float = 0.0
     representation_size: Optional[int] = None
-
-    def __post_init__(self):
-        if self.dropout_rate > 0 or self.attention_dropout_rate > 0:
-            raise ValueError(
-                f"dropout_rate={self.dropout_rate}, attention_dropout_rate="
-                f"{self.attention_dropout_rate}: vipers_torch has no dropout yet "
-                f"(ROADMAP A8)")
 
 
 class VisionTransformer(nn.Module):
@@ -231,32 +258,30 @@ class VisionTransformer(nn.Module):
         seq = (image_size[0] // p) * (image_size[1] // p) + 1
         self.pos_embedding = nn.Parameter(torch.zeros(1, seq, d))
         self.layers = nn.ModuleList(
-            EncoderBlock(d, cfg.num_heads, cfg.mlp_dim) for _ in range(cfg.num_layers))
+            EncoderBlock(d, cfg.num_heads, cfg.mlp_dim, cfg.dropout_rate,
+                         cfg.attention_dropout_rate) for _ in range(cfg.num_layers))
         self.ln = LayerNorm(d)
         rep = cfg.representation_size
         self.pre_logits = nn.Linear(d, rep) if rep is not None else None
         self.head = nn.Linear(rep or d, cfg.num_classes) if cfg.num_classes else None
 
     def patch_embed(self, x):
-        """Stride-p patch conv as reshape + matmul on NHWC input, the
-        patch flattened (kh, kw, c) like the flax HWIO kernel."""
-        n, h, w, c = x.shape
-        p = self.cfg.patch_size
-        gh, gw = h // p, w // p
-        patches = (x.reshape(n, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
-                   .reshape(n, gh * gw, p * p * c))
-        wmat = self.conv_proj.weight.permute(2, 3, 1, 0).reshape(p * p * c, -1)
-        return torch.matmul(patches, wmat) + self.conv_proj.bias
+        return patch_matmul(x, self.conv_proj, self.cfg.patch_size)
+
+    def random_rates(self):
+        """The dropout rates: after embeddings, attention and MLP layers, and
+        on the attention probabilities."""
+        return (self.cfg.dropout_rate, self.cfg.attention_dropout_rate)
 
     def forward(self, x, override_pos_embedding=None, token_mask=None,
                 need_attn: bool = True, seq_pad_multiple: Optional[int] = None,
-                tap_delta=None):
+                tap_delta=None, generator: Optional[torch.Generator] = None):
         """``seq_pad_multiple``: pad the token axis once (zeros, masked
         invalid) to this multiple before the encoder and slice once after,
         so the flash kernel sees an aligned length. In training it defaults
         to ``_auto_seq_pad``'s choice. ``tap_delta``: the explain tap, (N, T,
         D) added to the last block's ln_1 output, which ``aux["qkv_input"]``
-        returns with it."""
+        returns with it. ``generator``: the dropout masks in train mode."""
         c = self.cfg
         p = c.patch_size
         n, h, w, _ = x.shape
@@ -274,7 +299,7 @@ class VisionTransformer(nn.Module):
             raise ValueError(
                 f"pos embedding has {pos.shape[1]} tokens but input needs "
                 f"{seq_len}; pass an interpolated override_pos_embedding")
-        x = x + pos
+        x = dropout(x + pos, c.dropout_rate, self.training, generator)
         if seq_pad_multiple:
             x, token_mask = pad_tokens(x, token_mask, seq_len, seq_pad_multiple)
         qkv_input = attn = None
@@ -282,7 +307,8 @@ class VisionTransformer(nn.Module):
         for i, block in enumerate(self.layers):
             x, ln1, attn_i = block(x, token_mask=token_mask,
                                    need_attn=need_attn and i == last,
-                                   tap_delta=tap_delta if i == last else None)
+                                   tap_delta=tap_delta if i == last else None,
+                                   generator=generator)
             if i == last:
                 qkv_input, attn = ln1, attn_i
         if seq_pad_multiple:
@@ -385,7 +411,7 @@ def _build(name, cfg: ViTConfig, image_size=(224, 224)):
 
 
 # The JAX registry's ViTs (``vipers/models/vit.py:557-584``); ``kw`` are
-# ViTConfig's optional fields (representation_size; dropout raises).
+# ViTConfig's optional fields (dropout rates, representation_size).
 @register_model("vit_s_16")
 def vit_s_16(num_classes=1000, image_size=(224, 224), **kw):
     """ViT-Small/16, the LOST throughput flagship."""

@@ -90,16 +90,22 @@ def flash_min_t() -> int:
     return int(os.environ.get("VIPERS_FLASH_MIN_T", FLASH_MIN_T))
 
 
-def attention_reference(q, k, v, scale: Optional[float] = None, mask=None):
-    """Einsum attention returning (out, probs), the JAX parity path: q*scale
-    in the input dtype, f32 logits, -1e9 where ``mask`` is False, softmax in
-    f32, probabilities cast back to the input dtype."""
+def attention_probs(q, k, scale: Optional[float] = None, mask=None):
+    """The einsum path's attention probabilities: q*scale in the input
+    dtype, f32 logits, -1e9 where ``mask`` is False, softmax in f32, cast
+    back to the input dtype."""
     hd = q.shape[-1]
     scale = (hd ** -0.5) if scale is None else scale
     logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     if mask is not None:
         logits = torch.where(mask, logits, torch.full((), NEG_INF, device=logits.device))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.softmax(logits, dim=-1).to(q.dtype)
+
+
+def attention_reference(q, k, v, scale: Optional[float] = None, mask=None):
+    """Einsum attention returning (out, probs), the JAX parity path
+    (``attention_probs``)."""
+    probs = attention_probs(q, k, scale, mask)
     return torch.matmul(probs, v), probs
 
 

@@ -81,10 +81,10 @@ def snip_loss(spec, num_classes: int, label_smoothing: float = 0.0,
     at T >= ``flash_min_t()`` every block runs the flash kernels forward
     and backward; the JAX driver's SNIP loss also asks for the last block's
     attention probabilities, which routes that block through the einsum:
-    the same function, another kernel. A model with random layers (a
-    Swin's stochastic depth) draws from a generator seeded from ``seed`` at
-    each call, as the JAX driver's SNIP loss uses ``PRNGKey(cfg.seed)``."""
-    from vipers_torch.models.stochastic import dropout_generator, takes_generator
+    the same function, another kernel. A model with a random layer at
+    a rate above 0 (a Swin's stochastic depth, VGG's and the ViT's dropout) draws from a
+    generator seeded from ``seed`` at each call, as the JAX driver's SNIP loss uses ``PRNGKey(cfg.seed)``."""
+    from vipers_torch.models.stochastic import dropout_generator, has_random_layers
     from vipers_torch.train.steps import train_loss
 
     with torch.device("meta"):  # its tensors come from params at each call
@@ -94,7 +94,7 @@ def snip_loss(spec, num_classes: int, label_smoothing: float = 0.0,
         batch_stats = {k: (torch.ones(b.shape) if k.endswith("running_var")
                            else torch.zeros(b.shape)) for k, b in model.named_buffers()}
 
-    random = takes_generator(model)
+    random = has_random_layers(model)
 
     def loss_fn(params, batch):
         sd = fam.state_dict(params)

@@ -4,7 +4,8 @@ Builds a full-width model of the registry (``--model``, default ViT-S/16 as
 in ``chip_smoke.py``; random weights from a seed, 50% global magnitude
 mask) and profiles ``make_batched_pipeline`` on uint8 images that fill the
 VOC bucket of a 500x375 image at ``--patch-size`` (512x384 at patch 16 and
-32, 504x392 at 14), or with ``--arch resnet`` / ``vgg16``
+32, 504x392 at 14; ``--arch dino`` builds a DINO ViT at that patch size), or
+with ``--arch resnet`` / ``vgg16``
 ``make_batched_cnn_pipeline`` on the canonical input of that bucket
 (512x384 at ``--resnet-dilate`` 1, 2 or 4), with ``torch.profiler``: device
 time by kernel, the device's busy share of the wall-clock window, and the
@@ -14,11 +15,14 @@ caller's to give. ``--arch swin`` (``--model swin_v2_t``, first window or
 shape) profile the per-image path instead: one host-normalized 500x375
 image, tier-1 padded, through ``extract`` -> ``lost`` a call (weights from
 a seed with their biases drawn away from zero, so Swin's pad tokens do
-not take the seed). Needs a card:
+not take the seed), and ``--dinoseg`` (a ViT or DINO ViT) through
+``extract`` with the last block's attention -> ``dino_seg``. Needs a card:
 
     python -m vipers_torch.tools.profile_lost [--batch 128] [--dtype bf16] \
         [--model vit_b_16 --patch-size 16]
     python -m vipers_torch.tools.profile_lost --arch resnet --model resnet50 --resnet-dilate 2
+    python -m vipers_torch.tools.profile_lost --arch dino --model dino_vit_small \
+        [--patch-size 8] [--dinoseg]
     python -m vipers_torch.tools.profile_lost --arch swin --model swin_v2_t [--swin-all-windows]
     python -m vipers_torch.tools.profile_lost --arch resnet --model resnet50 --resnet-dilate 2 \
         --exact-shapes
@@ -70,11 +74,13 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--model", default="vit_s_16")
     ap.add_argument("--patch-size", type=int, default=16)
-    ap.add_argument("--arch", default="vit", choices=("vit", "resnet", "vgg16", "swin"))
+    ap.add_argument("--arch", default="vit", choices=("vit", "dino", "resnet", "vgg16", "swin"))
     ap.add_argument("--resnet-dilate", type=int, default=1, choices=(1, 2, 4))
     ap.add_argument("--swin-all-windows", action="store_true")
     ap.add_argument("--exact-shapes", action="store_true",
                     help="a CNN one image at a time at its own shape")
+    ap.add_argument("--dinoseg", action="store_true",
+                    help="a ViT or DINO ViT one image at a time through dino_seg")
     ap.add_argument("--out", default=os.path.join("build", "profile_lost"),
                     help="directory for the kernel table and the Chrome trace")
     args = ap.parse_args(argv)
@@ -87,10 +93,10 @@ def main(argv=None):
     patch = args.patch_size
     H, W = bucket_hw(500, 375, patch)
     cnn = args.arch in ("resnet", "vgg16")
-    per_image = args.arch == "swin" or args.exact_shapes
+    per_image = args.arch == "swin" or args.exact_shapes or args.dinoseg
     kw = ({"dilate": args.resnet_dilate} if args.arch == "resnet" else {}) if cnn else (
-        {"num_classes": 1000} if args.arch == "swin" else {
-            "num_classes": 1000, "image_size": (H, W)})
+        {"num_classes": 1000} if args.arch == "swin" else {"patch_size": patch}
+        if args.arch == "dino" else {"num_classes": 1000, "image_size": (H, W)})
     spec = build_model(args.model, **kw)
     gen = torch.Generator().manual_seed(0)
     params = spec.init(gen)
@@ -100,17 +106,21 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
     ex = LostFeatureExtractor(spec, params, masks, compute_dtype=dtype,
                               cnn_bucket=1 if per_image else 4,
-                              swin_all_windows=args.swin_all_windows)
+                              swin_all_windows=args.swin_all_windows,
+                              need_attn=args.dinoseg)
     rng = np.random.default_rng(1)
     if per_image:
-        from vipers_torch.discovery.lost import lost
+        from vipers_torch.discovery.lost import dino_seg, lost
 
         # a 500x375 image (h x w), host-normalized, tier-1 padded
         img = np.zeros((H, W, 3), np.float32)
         img[:500, :375] = rng.normal(size=(500, 375, 3))
 
         def call():
-            feats, dims, valid, scales, _ = ex.extract(img, patch)
+            feats, dims, valid, scales, attn = ex.extract(img, patch)
+            if args.dinoseg:
+                dino_seg(attn, dims, patch, head=min(4, attn.shape[1] - 1))
+                return
             try:
                 lost(feats, dims, scales, (3, 500, 375), k_patches=100, valid_dims=valid)
             except ValueError:  # a seed in the background: the call is complete
@@ -154,7 +164,8 @@ def main(argv=None):
     shape = f"dilate {args.resnet_dilate}" if args.arch == "resnet" else (
         "" if cnn else f"patch {patch}")
     if per_image:
-        shape += " per image" + (", all windows" if args.swin_all_windows else "")
+        shape += " per image" + (", all windows" if args.swin_all_windows else "") + (
+            ", dino_seg" if args.dinoseg else "")
     print(f"{card}; {args.model} {H}x{W} {shape} {args.dtype} "
           f"B={1 if per_image else args.batch}: "
           f"{args.steps} calls, wall "

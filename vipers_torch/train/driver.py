@@ -97,8 +97,7 @@ def build_session(cfg: TrainConfig, params=None, cmd: str = "train") -> Session:
     """The session of ``cfg``; ``params`` (a flax-layout tree) replaces
     the model's initial weights, which are otherwise drawn from
     ``cfg.seed``; running statistics start at mean 0 and var 1. ``cmd``
-    names the subcommand in ``refuse_unported``'s message (only ``train``
-    refuses VGG, whose dropout the port lacks)."""
+    names the subcommand in ``refuse_unported``'s message."""
     refuse_unported(cfg, cmd)
     dev = resolve_device(cfg.device)
     spec = model_spec(cfg, cfg.train_crop_size)

@@ -37,7 +37,7 @@ from torch.func import functional_call
 from vipers_torch.core.checkpoint import Family, family
 from vipers_torch.core.device import resolve_device
 from vipers_torch.models import cnn
-from vipers_torch.models.stochastic import dropout_generator, takes_generator
+from vipers_torch.models.stochastic import dropout_generator, has_random_layers
 from vipers_torch.train.ema import ema_reset, ema_update_
 from vipers_torch.train.optim import MaskedOptimizer, OptimConfig, make_lr_schedule
 
@@ -183,13 +183,14 @@ def make_train_step(num_classes: int, label_smoothing: float = 0.0,
                     ema_every: int = 1, ema_warmup_steps: int = 0, seed: int = 0):
     """Returns ``step(state, (images, labels)) -> (state, metrics)``; the
     state is updated in place and returned. Metrics are device scalars. A
-    model with random layers (a Swin's stochastic depth) draws from a
-    generator seeded from (``seed``, the state's step), the counterpart of
-    the JAX step's ``fold_in(rng, step)``."""
+    model with a random layer at a rate above 0 (a Swin's stochastic depth,
+    VGG's and the ViT's dropout) draws from a generator seeded from
+    (``seed``, the state's step), the counterpart of the JAX step's
+    ``fold_in(rng, step)``."""
 
     def step(state: TrainState, batch):
         gen = None
-        if takes_generator(state.model):
+        if has_random_layers(state.model):
             gen = dropout_generator(seed, state.step, batch[0].device)
         loss, logits, grads, stats = _forward_backward(state.model, state.masks, batch,
                                                        num_classes, label_smoothing,
