@@ -227,6 +227,27 @@ Phases (any failure exits non-zero; nothing is caught):
      farther from an f64 CPU run than 2x the CPU's f32); a bf16 ViT-B/16
      train step at 224 and 384 with attention dropout 0.1 (no launch of
      rows 1, 5-8 and 12-13) and at 0 (phases 7's and 8's launches).
+ 17. structured slimming (``slim_phase``): row 4 at M = 128*896, D = 384
+     and a slimmed MLP's F = 768 and F = 461 (the any-F tail), row 1 f32
+     and bf16 at B*H = 128*4 and 128*3, T = 896 with the bucket mask, each
+     against its plain version with its bound and the library's time;
+     ViT-S/16 at full width (seed 0, a 50% global magnitude mask, then in
+     every block the even MLP neurons' fc2 rows and heads 1 and 4's out
+     rows zero) as a .pth through ``vipers_torch slim --mlp-keep 0.5
+     --heads-keep 0.5`` (exact: F = 768, 4 heads) and ``--round-to 1
+     --mlp-keep 0.3 --heads-keep 0.5`` (F = 461, 3 heads), each through
+     ``lost --arch vit`` at B=128 on 128 synthetic 512x384 JPEGs in bf16
+     and f32 (12 flash launches a batch, 12 fused MLP in bf16; the txt
+     against ``corloc``; e2e img/s); the exact slim's f32 features on the
+     card within 1e-4 of the masked dense model's scale, boxes agreeing
+     counted; ``vipers_torch.tools.bench_slim``'s dense-vs-slim img/s, bf16
+     and f32; ViT-B/16 slimmed to 6 heads and mlp 1536, ``train --amp
+     --resume`` of it (SNIP to 50%, 2 steps of 64 at 224: rows 7-8 at B*H =
+     64*6, 12 launches each a step, held against their plain versions; no
+     fused MLP at B=64; sidecars on every checkpoint) and ``evaluate`` of the dense and slim
+     checkpoints; ResNet-50 (``--inner-keep 0.5``), VGG16 (``--conv-keep
+     0.5 --fc-keep 0.5``) and swin_v2_t (``--mlp-keep 0.5``) through
+     ``slim`` and ``evaluate`` of both checkpoints, 0 launches.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
@@ -678,13 +699,15 @@ def attention_work(b, h, t, hd, valid):
             (10 * b * h * t * t * hd, 8 * n * 2 + lse_bytes + valid.numel()))
 
 
-def check_attention_train(at, gen, shape=(TRAIN_BATCH, 6, 256, 64), n_valid=197, ragged=120):
+def check_attention_train(at, gen, shape=(TRAIN_BATCH, 6, 256, 64), n_valid=197, ragged=120,
+                          tag=None):
     """Training attention kernels vs plain at the train shape: B*H = 128*6,
     T = 256 (197 tokens seq-padded; on every other image a ragged run of pad
     keys inside the 197, from key 120), hd = 64 (or ``shape``, ``n_valid``
     tokens, pad keys from ``ragged``: vit_h_14's 224x224 train shape at hd
     80), bf16, packed (3, B, H, T, hd) q|k|v with the backward writing one
-    packed dqkv; one launch of the head dim's instance each way."""
+    packed dqkv; one launch of the head dim's instance each way. The rows'
+    names carry ``tag``."""
     b, h, t, hd = shape
     qkv = torch.randn(3, b, h, t, hd, generator=gen, device="cuda").to(torch.bfloat16)
     cot = torch.randn(b, h, t, hd, generator=gen, device="cuda").to(torch.bfloat16)
@@ -721,7 +744,7 @@ def check_attention_train(at, gen, shape=(TRAIN_BATCH, 6, 256, 64), n_valid=197,
     bwd_lib = sdpa_bwd_ms(q, k, v, cot, amask)
 
     (fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes) = attention_work(b, h, t, hd, valid)
-    sfx = "" if hd == 64 else f", hd{hd}"
+    sfx = ("" if hd == 64 else f", hd{hd}") + ("" if tag is None else f", {tag}")
     at_shape = f" at B*H = {b}*{h}, T = {t} ({n_valid} valid keys), hd {hd}"
     return attention_rows((
         (f"attention_train_fwd[bf16{sfx}]", fwd_ms, fwd_plain, fwd_lib, fwd_flops, fwd_bytes,
@@ -4237,6 +4260,351 @@ def dino_phase(card, counters, gen, lost_core):
     return rows, launches
 
 
+SLIM_TRAIN_BATCH = 64  # the ViT-B/16 slim fine-tune: 2 steps of 64 at 224
+SLIM_TRAIN_IMAGES, SLIM_VAL_IMAGES = 128, 64
+SLIM_CNN_VAL = 16  # val images of the CNN and Swin slim evaluate runs
+
+
+def synthetic_voc(root, n, hw, seed):
+    """A VOC07-layout tree of ``n`` synthetic ``hw`` (h, w) JPEGs (PIL,
+    quality 90), textured noise with a bright block, one box an image.
+    Returns [(name, (w, h))]."""
+    from PIL import Image
+
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    h, w = hw
+    items = []
+    for i, im in enumerate(make_images(np.random.default_rng(seed), [hw] * n)):
+        name = f"{i:06d}"
+        Image.fromarray(im[:h, :w]).save(os.path.join(root, "JPEGImages", f"{name}.jpg"),
+                                        quality=90)
+        with open(os.path.join(root, "Annotations", f"{name}.xml"), "w") as f:
+            f.write(f"<annotation><filename>{name}.jpg</filename><size><width>{w}</width>"
+                    f"<height>{h}</height><depth>3</depth></size><object><name>thing</name>"
+                    f"<truncated>0</truncated><difficult>0</difficult><bndbox><xmin>1</xmin>"
+                    f"<ymin>1</ymin><xmax>{w // 2}</xmax><ymax>{h // 2}</ymax></bndbox>"
+                    f"</object></annotation>")
+        items.append((name, (w, h)))
+    with open(os.path.join(root, "ImageSets", "Main", "trainval.txt"), "w") as f:
+        f.write("".join(f"{name}\n" for name, _ in items))
+    return items
+
+
+def exact_slim_masks(spec, params):
+    """A 50% global magnitude mask, then in every block the fc2 rows of the
+    even MLP neurons and the out-projection rows of heads 1 and 4 zero: the
+    inert units ``slim --mlp-keep 0.5 --heads-keep 0.5`` drops, so that
+    slim is exact."""
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
+                            amount=SPARSITY)
+    hd = spec.cfg.hidden_dim // spec.cfg.num_heads
+    for i in range(spec.cfg.num_layers):
+        fc2 = (f"encoder_layer_{i}", "mlp", "fc2", "kernel")
+        out = (f"encoder_layer_{i}", "attention", "out", "kernel")
+        masks[fc2] = masks[fc2].clone()
+        masks[fc2][0::2] = False
+        masks[out] = masks[out].clone()
+        for a in (1, 4):
+            masks[out][a * hd:(a + 1) * hd] = False
+    return masks
+
+
+def check_fused_mlp_slim(fm, gen, f, m=BATCH * 896, d=384):
+    """Row 4 at a slimmed ViT-S/16's MLP width ``f`` (M = 128*896, D =
+    384) against its plain version (2e-2 of the output scale), timed beside
+    the library's sequence, with the bound."""
+    x, w_eff_t, b_eff, lib_w = fused_mlp_inputs(fm, m, d, f, gen)
+    out = fm.fused_ln_dense_gelu_core(x, w_eff_t, b_eff)
+    want = fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6)
+    torch.cuda.synchronize()
+    err, sc = scaled_err(out, want)
+    del out, want
+    ms, lib_ms, bms, by, line = fused_mlp_times(fm, x, w_eff_t, b_eff, lib_w)
+    plain_ms = cuda_ms(lambda: fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6),
+                       reps=3, warmup=1)
+    name = f"fused_ln_fc1_gelu[bf16, slim F={f}]"
+    print(f"{name} max_abs_err {err:.3e} (2e-2 of output scale {sc:.3g}) {line} plain "
+          f"{plain_ms:.3f} ms at M = {m}, D = {d}")
+    return {"name": name, "route": "cuda", "source": "vipers_torch/csrc/fused_mlp.cu",
+            "replaces": "vipers/ops/fused_mlp.py:123", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "design": fm.design(d)}
+
+
+def slim_lost(card, counters, gen):
+    """ViT-S/16 at full width (seed 0, ``exact_slim_masks``) as a reference
+    .pth, slimmed by ``vipers_torch slim`` twice: ``--mlp-keep 0.5
+    --heads-keep 0.5`` (exact; F = 768, 4 heads) and ``--round-to 1
+    --mlp-keep 0.3 --heads-keep 0.5`` (F = 461, 3 heads); each through
+    ``vipers_torch lost --arch vit`` at B=128 on 128 synthetic 512x384
+    JPEGs in bf16 and f32 (12 flash launches a batch, 12 fused MLP in
+    bf16; the txt against ``corloc``; e2e img/s). Rows 1 and 4 at these
+    shapes against their plain versions; the exact slim's f32 features on
+    the card against the masked dense model's (1e-4 of their scale), boxes
+    agreeing counted; ``tools.bench_slim``'s dense-vs-slim img/s. Returns
+    (kernel rows, {row name: launches})."""
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import export_vit_torchvision, save_torch_state_dict
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data import native
+    from vipers_torch.discovery import driver as drv
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.pruning.structured import arch_sidecar
+    from vipers_torch.tools import bench_slim
+
+    rows, launches = [], {}
+    for f in (768, 461):
+        rows.append(check_fused_mlp_slim(fm, gen, f))
+        torch.cuda.empty_cache()
+    for h in (4, 3):
+        for dt in (torch.float32, torch.bfloat16):
+            rows.append(check_flash_at(fa, dt, gen, (BATCH, h, 896, 64), (32, 24), (29, 22),
+                                       f"slim H={h}"))
+            torch.cuda.empty_cache()
+    if not native.available() and not native.pil_available():
+        print("slim JPEG LOST: neither libjpeg nor PIL on the host: skipped")
+        return rows, launches
+    root = tempfile.mkdtemp(prefix="vipers_torch_slim_")
+    try:
+        spec = build_model("vit_s_16")
+        params = spec.init(torch.Generator().manual_seed(0))
+        masks = exact_slim_masks(spec, params)
+        dense = os.path.join(root, "vit_s_16.pth")
+        save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), dense)
+        slims = {}
+        for tag, extra, want in (
+                ("m768_h4", ["--mlp-keep", "0.5", "--heads-keep", "0.5"],
+                 {"mlp_dim": 768, "num_heads": 4, "head_dim": 64}),
+                ("m461_h3", ["--round-to", "1", "--mlp-keep", "0.3", "--heads-keep", "0.5"],
+                 {"mlp_dim": 461, "num_heads": 3, "head_dim": 64})):
+            t0 = time.perf_counter()
+            assert cli(["slim", "--model", "vit_s_16", "--checkpoint", dense, *extra,
+                        "--output-dir", root]) == 0
+            slims[tag] = os.path.join(root, f"vit_s_16_slim_{tag}.pth")
+            assert arch_sidecar(slims[tag]) == want, arch_sidecar(slims[tag])
+            print(f"slim vit_s_16 -> {tag} {want}: {time.perf_counter() - t0:.1f} s (host numpy)")
+        voc = os.path.join(root, "VOC2007")
+        items = synthetic_voc(voc, BATCH, (H, W), seed=17)
+        for tag, pth in slims.items():
+            heads, f = arch_sidecar(pth)["num_heads"], arch_sidecar(pth)["mlp_dim"]
+            for dt in ("bf16", "f32"):
+                out = os.path.join(root, f"lost_{tag}_{dt}")
+                torch.cuda.synchronize()
+                reset_counts(*counters)
+                assert cli(["lost", "--arch", "vit", "--model", "vit_s_16", "--dataset", "VOC07",
+                            "--set", "trainval", "--workers", "8", "--data-path", voc,
+                            "--checkpoint", pth, "--dtype", dt, "--batch-size", str(BATCH),
+                            "--output-dir", out]) == 0
+                torch.cuda.synchronize()
+                run = dict(drv.LAST_RUN)
+                got = family_launches(fa, fm, at)
+                key = "bfloat16" if dt == "bf16" else "float32"
+                want = {f"flash[{key}]": 12, "fused_mlp[D=384]": 12 if dt == "bf16" else 0}
+                assert got == {k: want.get(k, 0) for k in got}, (tag, dt, got)
+                assert run["images"] == BATCH and run["batches"] == 1, run
+                rescored, _txt = check_cli_outputs(f"slim {tag} {dt}", out, voc, "trainval",
+                                                   items, run["failed"])
+                launches[f"flash_attention_fwd[{dt}, slim H={heads}]"] = got[f"flash[{key}]"]
+                if dt == "bf16":
+                    launches[f"fused_ln_fc1_gelu[bf16, slim F={f}]"] = got["fused_mlp[D=384]"]
+                print(f"slim JPEG LOST [{tag}, {dt}] B={BATCH}: launches "
+                      f"{ {k: v for k, v in got.items() if v} }; e2e "
+                      f"{BATCH / run['decode_to_preds_seconds']:.1f} img/s (first decode to "
+                      f"preds.pkl {run['decode_to_preds_seconds']:.3f} s); seed in background "
+                      f"{len(run['failed'])}; {rescored}; decoder {run['decoder']} ({card})")
+
+        # exactness on the card: the exact slim's f32 features and boxes
+        # against the masked dense model's, on one uint8 batch
+        from vipers_torch.discovery.driver import LostFeatureExtractor, load_lost_checkpoint
+
+        slim_spec = build_model("vit_s_16", arch_overrides=arch_sidecar(slims["m768_h4"]))
+        sp, _bs, sm = load_lost_checkpoint(slims["m768_h4"], slim_spec)
+        hw = [(H, W)] * BATCH
+        imgs = make_images(np.random.default_rng(5), hw)
+        exs = {"dense": LostFeatureExtractor(spec, params, masks),
+               "slim": LostFeatureExtractor(slim_spec, sp, sm)}
+        feats, boxes = {}, {}
+        for k, ex in exs.items():
+            inp = ex.prepare_batch(imgs, PATCH, exact_hw=hw)
+            feats[k] = ex.batched_features(*inp).float()
+            boxes[k] = ex.make_batched_pipeline(K_PATCHES)(*inp)[0]
+        scale = feats["dense"].abs().max().item()
+        err = (feats["slim"] - feats["dense"]).abs().max().item()
+        same = int((boxes["slim"] == boxes["dense"]).all(dim=1).sum())
+        print(f"slim exactness on the card [f32, B={BATCH}]: slim (F = 768, 4 heads) vs masked "
+              f"dense k features max_abs_err {err:.3e} ({err / scale:.2e} of scale {scale:.3g}; "
+              f"tolerance 1e-4 of it); boxes equal {same}/{BATCH} ({card})")
+        assert err <= 1e-4 * scale, (err, scale)
+        del exs, feats
+        torch.cuda.empty_cache()
+
+        # tools.bench_slim: the dense-vs-slim img/s of the batched pipeline
+        reset_counts(*counters)
+        res = bench_slim.run()
+        print(f"bench_slim (vit_s_16 {H}x{W}, B={BATCH}, random 50%-masked weights vs "
+              f"slim m768 h4): {json.dumps(res)} ({card})")
+        assert all(res[d]["dense_masked"] > 0 and res[d]["slim"] > 0 for d in ("bf16", "f32"))
+    finally:
+        shutil.rmtree(root)
+    return rows, launches
+
+
+def slim_finetune(card, counters, gen):
+    """ViT-B/16 (seed 0, 50% global magnitude mask) as
+    ``vit_b_16_epoch_0_pruning_iteration_00.pth``, slimmed by ``slim
+    --mlp-keep 0.5 --heads-keep 0.5`` (mlp 1536, 6 heads); ``train --amp
+    --resume <slim>.pth`` SNIP to 50% and one epoch of 2 steps of 64 at
+    224 (rows 7-8 at 6 heads: 12 launches each a step; no fused MLP: the
+    eval batch's 64 * 197 rows fail the JAX block rule; every checkpoint
+    carries the sidecar); ``evaluate``
+    over the sweep holding the dense and the slim checkpoint (2 rows, no
+    launch: f32). Rows 7-8 at the step's B*H = 64*6 against their plain
+    versions. Returns (kernel rows, {row name: launches})."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import export_vit_torchvision, save_torch_state_dict
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.pruning import init_masks, magnitude_prune
+    from vipers_torch.pruning.structured import arch_sidecar
+
+    rows = check_attention_train(at, gen, shape=(SLIM_TRAIN_BATCH, 6, 256, 64), n_valid=197,
+                                 ragged=120, tag="slim H=6")
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="vipers_torch_slim_ft_")
+    try:
+        data = os.path.join(root, "imagenet")
+        imagefolder_tree(data, SLIM_TRAIN_IMAGES, SLIM_VAL_IMAGES, seed=6)
+        sweep = os.path.join(root, "sweep")
+        os.makedirs(sweep)
+        spec = build_model("vit_b_16")
+        params = spec.init(torch.Generator().manual_seed(0))
+        masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
+                                amount=SPARSITY)
+        dense = os.path.join(sweep, "vit_b_16_epoch_0_pruning_iteration_00.pth")
+        save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), dense)
+        t0 = time.perf_counter()
+        assert cli(["slim", "--model", "vit_b_16", "--checkpoint", dense, "--mlp-keep", "0.5",
+                    "--heads-keep", "0.5", "--output-dir", sweep]) == 0
+        slim = os.path.join(sweep, "vit_b_16_slim_m1536_h6.pth")
+        arch = {"mlp_dim": 1536, "num_heads": 6, "head_dim": 64}
+        assert arch_sidecar(slim) == arch
+        print(f"slim vit_b_16 -> {arch}: {time.perf_counter() - t0:.1f} s (host numpy)")
+        steps = SLIM_TRAIN_IMAGES // SLIM_TRAIN_BATCH
+        evals = -(-SLIM_VAL_IMAGES // SLIM_TRAIN_BATCH)
+        out = os.path.join(root, "ft")
+        got, secs = train_cli(cli, ["train", "--model", "vit_b_16", "--num-classes", "1000",
+                                    "--amp", "--batch-size", str(SLIM_TRAIN_BATCH), "--workers",
+                                    "8", "--data-path", data, "--epochs", "1", "--print-freq",
+                                    "1", "--pruning-method", "snip", "--target-sparsity",
+                                    str(SPARSITY), "--resume", slim, "--output-dir", out],
+                              counters, at, fa, fm)
+        # the eval batch's 64 * 197 rows fail the JAX block rule (a 128
+        # multiple), so its MLP takes no fused kernel, as in the JAX package
+        want = {"attention_train_fwd[bf16]": 12 * steps, "attention_train_bwd[bf16]": 12 * steps,
+                "fused_ln_fc1_gelu[bf16, D=768]": 0, "flash": 0}
+        print(f"train --resume <slim> vit_b_16 (6 heads, mlp 1536) bf16 B={SLIM_TRAIN_BATCH}: "
+              f"{steps} steps, {evals} eval batch(es), launches {got}, {secs:.1f} s ({card})")
+        assert got == want, (got, want)
+        written = sorted(n for n in os.listdir(out) if n.endswith(".pth"))
+        assert written == ["vit_b_16_checkpoint_snip_0.5.pth", "vit_b_16_epoch_0_snip_0.5.pth"]
+        assert all(arch_sidecar(os.path.join(out, n)) == arch for n in written)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        with contextlib.redirect_stdout(buf):
+            assert cli(["evaluate", "--model", "vit_b_16", "--num-classes", "1000",
+                        "--batch-size", str(SLIM_TRAIN_BATCH), "--workers", "8", "--data-path",
+                        data, "--models-path", sweep, "--output-dir",
+                        os.path.join(root, "eval")]) == 0
+        torch.cuda.synchronize()
+        assert all_launches(counters) == 0, all_launches(counters)
+        evaluated = [ln for ln in buf.getvalue().splitlines() if ": sparsity" in ln]
+        print("evaluate [dense + slim vit_b_16]: " + "; ".join(
+            os.path.basename(ln) for ln in evaluated))
+        assert len(evaluated) == 2 and "slim_m1536_h6" in evaluated[1]
+    finally:
+        shutil.rmtree(root)
+    return rows, {r["name"]: got[r["name"].replace(", slim H=6", "")] for r in rows}
+
+
+def slim_cnn_families(card, counters):
+    """ResNet-50 (``--inner-keep 0.5``), VGG16 (``--conv-keep 0.5
+    --fc-keep 0.5``) and swin_v2_t (``--mlp-keep 0.5``), seed-0 weights
+    written as ``{model}_epoch_0_pruning_iteration_00.pth``, each through
+    ``slim`` and ``evaluate`` of the dense and slim checkpoints on
+    SLIM_CNN_VAL val images on the card; no port kernel launches."""
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import family, save_torch_state_dict
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.pruning.structured import arch_sidecar
+
+    root = tempfile.mkdtemp(prefix="vipers_torch_slim_cnn_")
+    try:
+        data = os.path.join(root, "imagenet")
+        imagefolder_tree(data, 8, SLIM_CNN_VAL, seed=7)
+        for model, extra in (("resnet50", ["--inner-keep", "0.5"]),
+                             ("vgg16", ["--conv-keep", "0.5", "--fc-keep", "0.5"]),
+                             ("swin_v2_t", ["--mlp-keep", "0.5"])):
+            sweep = os.path.join(root, model)
+            os.makedirs(sweep)
+            spec = build_model(model)
+            sd = family(spec).export_pth(spec.init(torch.Generator().manual_seed(0)), None,
+                                         None, True)
+            dense = os.path.join(sweep, f"{model}_epoch_0_pruning_iteration_00.pth")
+            save_torch_state_dict(sd, dense)
+            del sd
+            t0 = time.perf_counter()
+            slim_s = run_cli_without_kernels(cli, ["slim", "--model", model, "--checkpoint",
+                                                   dense, *extra, "--output-dir", sweep],
+                                             counters)
+            slim = [n for n in os.listdir(sweep) if "_slim_" in n and n.endswith(".pth")]
+            assert len(slim) == 1 and arch_sidecar(os.path.join(sweep, slim[0]))
+            eval_s = run_cli_without_kernels(
+                cli, ["evaluate", "--model", model, "--batch-size", str(SLIM_CNN_VAL),
+                      "--workers", "8", "--data-path", data, "--models-path", sweep,
+                      "--output-dir", os.path.join(root, f"eval_{model}")], counters)
+            with open(os.path.join(root, f"eval_{model}", "performance.txt")) as f:
+                n_rows = sum(1 for ln in f.read().splitlines()[1:] if ln.strip())
+            assert n_rows == 2, n_rows  # the dense and the slim checkpoint
+            print(f"slim {model} {' '.join(extra)} -> {slim[0]} "
+                  f"({json.dumps(arch_sidecar(os.path.join(sweep, slim[0])))[:120]}...): "
+                  f"{slim_s:.1f} s; evaluate dense + slim on {SLIM_CNN_VAL} images "
+                  f"{eval_s:.1f} s, 0 launches ({card})")
+    finally:
+        shutil.rmtree(root)
+
+
+def slim_phase(card, counters, gen):
+    """Phase 17: ``slim_lost``, ``slim_finetune`` and ``slim_cnn_families``.
+    Returns (kernel rows, {row name: launches})."""
+    t_phase = time.time()
+    rows, launches = slim_lost(card, counters, gen)
+    ft_rows, ft_launches = slim_finetune(card, counters, gen)
+    rows += ft_rows
+    launches.update(ft_launches)
+    slim_cnn_families(card, counters)
+    print(f"phase 17 structured slimming: {time.time() - t_phase:.1f} s")
+    return rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4448,6 +4816,12 @@ def main():
     kernels += dino_rows
     launches.update(dino_launches)
     lap(16)
+    # 17. structured slimming: slim -> lost (rows 1 and 4 at slim shapes),
+    # train --resume (rows 7-8 at 6 heads), evaluate; the CNN families
+    slim_rows, slim_launches = slim_phase(card, counters, gen)
+    kernels += slim_rows
+    launches.update(slim_launches)
+    lap(17)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove

@@ -18,6 +18,8 @@ What is held:
     heatmaps (``compute_heatmaps`` replaced by one stub in both) the files
     byte for byte;
   * ``explain-eval-batch``: its four files byte for byte;
+  * ``explain-eval`` of a structurally slimmed checkpoint against the
+    JAX package's on its slim of the same weights;
   * refusals naming their ROADMAP item, the default device raising without
     a card, the parsers' flags and defaults.
 """
@@ -170,13 +172,38 @@ def test_unported_models_exit_naming_their_item(argv, item, tmp_path):
         tmain([*argv, "--device", "cpu", "--output-dir", str(tmp_path)])
 
 
-def test_slimmed_checkpoint_exits_naming_a4(ckpt, tmp_path):
-    slim = tmp_path / "m.pth"
-    slim.write_bytes(open(ckpt["torch"], "rb").read())
-    (tmp_path / "m.pth.slim.json").write_text("{}")
-    with pytest.raises(SystemExit, match="ROADMAP A4"):
-        tmain(["explain-eval", "--model", fx.CLI_NAME, "--checkpoint", str(slim),
-               "--device", "cpu"])
+def test_slimmed_checkpoint_exits_naming_a4(ckpt, voc, tmp_path):
+    """Structured slimming (ROADMAP A4) is ported, so a slimmed checkpoint
+    no longer exits: each package slims the same weights (``slim
+    --mlp-keep 0.5 --heads-keep 0.5 --round-to 1``: mlp 64, 1 head of 32),
+    ``explain-eval`` builds the model at the sidecar's widths and writes
+    the JAX package's files, GradCAM's and the attention map's numbers
+    within 1e-6."""
+    from vipers_torch.explain.driver import _load_model
+
+    for pkg, main in (("jax", jmain), ("torch", tmain)):
+        rc, _ = fx.run_cli(main, ["slim", "--model", fx.CLI_NAME, "--checkpoint", ckpt[pkg],
+                                  "--num-classes", "10", "--mlp-keep", "0.5", "--heads-keep",
+                                  "0.5", "--round-to", "1", "--output-dir",
+                                  str(tmp_path / "slim" / pkg)])
+        assert rc == 0
+    slim = {pkg: str(tmp_path / "slim" / pkg / f"{fx.CLI_NAME}_slim_m64_h1")
+            for pkg in ("jax", "torch")}
+    slim["torch"] += ".pth"
+    spec, model = _load_model(fx.CLI_NAME, slim["torch"], device="cpu")
+    assert (spec.cfg.num_heads, spec.cfg.head_dim, spec.cfg.mlp_dim) == (1, 32, 64)
+    assert model.layers[0].attention.qkv.weight.shape == (96, 64)
+    for pkg, main, extra in (("jax", jmain, []), ("torch", tmain, ["--device", "cpu"])):
+        rc, _ = fx.run_cli(main, ["explain-eval", "--model", fx.CLI_NAME,
+                                  "--checkpoint", slim[pkg], "--voc-root", voc,
+                                  "--num-images", "1", "--output-dir", str(tmp_path / pkg),
+                                  *extra])
+        assert rc == 0
+    names = [f"{m}_{fx.CLI_NAME}_pruning_iteration_00.txt" for m in ("gradCAM", "attention")]
+    for name in names:
+        got, want = (_numbers(tmp_path / p / name) for p in ("torch", "jax"))
+        assert len(got) == 3 and got[2] == want[2] == "On a total of 1 images."
+        np.testing.assert_allclose(got[:2], want[:2], atol=1e-6, rtol=0)
 
 
 def test_default_device_raises_without_a_card(voc, tmp_path):

@@ -147,3 +147,29 @@ def test_train_cli_default_device_raises_without_a_card(cmd, tmp_path):
         main([cmd, "--model", "vit_b_16", "--data-path", str(tmp_path / "none"),
               "--output-dir", str(out)])
     assert not out.exists()
+
+
+# the modules structured slimming brought in
+SLIM_SLICE = ("vipers_torch/pruning/structured.py", "vipers_torch/tools/bench_slim.py")
+
+
+@pytest.mark.parametrize("rel", SLIM_SLICE)
+def test_slim_slice_files_import_no_jax(rel):
+    path = REPO / rel
+    assert path in _port_files()
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, (rel, bad)
+
+
+def test_slim_cli_default_device_raises_without_a_card(tmp_path):
+    """``vipers_torch lost --checkpoint <slim>.pth`` without ``--device``
+    runs on the card or raises: the sidecar changes the widths, not the
+    device."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from vipers_torch.cli.main import main
+
+    data = str(REPO / "tests" / "data" / "torch_voc")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["lost", "--data-path", data, "--checkpoint", str(tmp_path / "m_slim.pth"),
+              "--output-dir", str(tmp_path / "unused")])

@@ -249,6 +249,34 @@ def test_fused_mlp_kernel_matches_plain(cuda, m, d, f):
     assert (out.float() - want.float()).abs().max().item() <= 2e-2 * scale
 
 
+@pytest.mark.parametrize("d", [192, 384, 768])
+@pytest.mark.parametrize("f", [1, 130, 461, 768])
+def test_fused_mlp_kernel_at_any_f(cuda, d, f):
+    """A slimmed MLP's width (``slim --round-to 1`` leaves any F): the last
+    column tile reads W_eff^T rows past F as TMA zeros, masks the bias and
+    writes no column >= F; F % 8 != 0 takes element stores. 600 rows: a
+    ragged last row tile. Columns past F are checked untouched through a
+    wider view of the output's storage."""
+    x, w_t, b = _fused_mlp_inputs(600, d, f, cuda)
+    n0 = tfm.LAUNCHES["bfloat16"]
+    out = tfm.fused_ln_dense_gelu_core(x, w_t, b)
+    torch.cuda.synchronize()
+    assert tfm.LAUNCHES["bfloat16"] == n0 + 1 and out.shape == (600, f)
+    want = tfm.fused_ln_dense_gelu_plain(x, w_t, b, 1e-6)
+    scale = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2 * scale
+    # the kernel writes 600 * f elements and nothing after them
+    guard = torch.full((600 * f + 256,), 7.0, dtype=torch.bfloat16, device=cuda)
+    fn = tfm._lib()
+    x, w_t, b = x.contiguous(), w_t.contiguous(), b.contiguous()
+    rc = fn(x.data_ptr(), w_t.data_ptr(), b.data_ptr(), guard.data_ptr(), 600, d, f, 1e-6,
+            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(guard[:600 * f].view(600, f), out)
+    assert bool((guard[600 * f:] == 7.0).all())
+
+
 def test_fused_mlp_deterministic(cuda):
     """At (1000, 384, 1536) two calls give bit-equal outputs (no atomics, a
     fixed order of sums), within 2e-2 of the plain version's scale."""
@@ -273,11 +301,12 @@ def test_fused_mlp_design_and_rejection(cuda):
         tfm.fused_ln_dense_gelu_core(x, w_t, b)
 
 
-@pytest.mark.parametrize("d,f", [(96, 192), (384, 200), (1728, 6912)])
+@pytest.mark.parametrize("d,f", [(96, 192), (160, 200), (1728, 6912)])
 def test_fused_mlp_refuses_widths_outside_the_kernel_on_the_card(cuda, d, f):
     """The gate sets no width condition, as in the JAX package; on the card
-    the wrapper refuses a width its kernel does not take, and launches
-    nothing, while the same call on CPU tensors takes the plain version."""
+    the wrapper refuses a D its kernel does not take (any F is taken), and
+    launches nothing, while the same call on CPU tensors takes the plain
+    version."""
     x = torch.zeros(128, d, dtype=torch.bfloat16, device=cuda)
     w_t = torch.zeros(f, d, dtype=torch.bfloat16, device=cuda)
     b = torch.zeros(f, device=cuda)
@@ -1012,3 +1041,26 @@ def test_dropout_generator_on_the_card(cuda):
     assert torch.equal(out[kept], x[kept] / keep)
     assert torch.equal(dropout(x, rate, True, dropout_generator(0, 3, cuda)), out)
     assert not torch.equal(dropout(x, rate, True, dropout_generator(0, 4, cuda)), out)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-4),
+                                             (torch.bfloat16, 2e-2, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_at_a_slim_head_count(cuda, dtype, atol, rtol):
+    """A ViT-S/16 slimmed to 3 heads of 64 (``slim --heads-keep 0.5
+    --round-to 1``) at its LOST shape on 512x384: T = 769 tokens padded to
+    896, the second image's keys cut by a smaller bucket grid. Against the
+    plain version."""
+    t = 896
+    q, k, v = _qkv(4, 3, t, dtype, cuda, seed=3)
+    valid = torch.zeros(4, t, dtype=torch.bool, device=cuda)
+    valid[:, :769] = True
+    valid[1, 600:] = False
+    n0 = tfa.LAUNCHES[str(dtype)[6:]]
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[str(dtype)[6:]] == n0 + 1
+    want, want_lse = tfa.flash_attention_plain(q, k, v, valid)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == torch.float32 else 2e-2,
+                               rtol=1e-4)

@@ -209,12 +209,49 @@ def test_resnet_dilate_applies_to_resnets_only():
 
 
 def test_slimmed_resume_exits_naming_a4(data, tmp_path):
-    ckpt = tmp_path / "m.pth"
-    ckpt.write_bytes(b"")
-    (tmp_path / "m.pth.slim.json").write_text("{}")
-    with pytest.raises(SystemExit, match=r"ROADMAP A4"):
-        tmain(["train", *_common(data), "--resume", str(ckpt), "--device", "cpu",
-               "--output-dir", str(tmp_path / "out")])
+    """Structured slimming (ROADMAP A4) is ported, so ``train --resume`` of
+    a slimmed checkpoint no longer exits: a masked dense ``.pth`` of the
+    tiny ViT, slimmed by ``vipers_torch slim`` (mlp 64, 1 head of 32),
+    fine-tunes one LRR iteration at the sidecar's widths; every checkpoint
+    the session writes carries the sidecar and holds the slim widths, and
+    ``evaluate`` of that output takes them."""
+    from vipers.pruning import init_masks, magnitude_prune
+    from vipers_torch.core.checkpoint import (export_vit_torchvision, load_train_checkpoint,
+                                              save_torch_state_dict)
+    from vipers_torch.pruning.structured import arch_sidecar
+    from vipers_torch.train.driver import model_spec
+    from vipers_torch.core.config import TrainConfig
+
+    params = _jax_initial_params((32, 32), 2)
+    masks = {p: np.asarray(m) for p, m in magnitude_prune(
+        params, init_masks(params, exclude=("qkv",)), 0.5).items()}
+    dense = str(tmp_path / "dense.pth")
+    save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), dense)
+    _run(tmain, ["slim", "--model", NAME, "--checkpoint", dense, "--num-classes", "2",
+                 "--mlp-keep", "0.5", "--heads-keep", "0.5", "--round-to", "1",
+                 "--output-dir", str(tmp_path)])
+    slim = str(tmp_path / f"{NAME}_slim_m64_h1.pth")
+    arch = {"mlp_dim": 64, "num_heads": 1, "head_dim": 32}
+    assert arch_sidecar(slim) == arch
+    out = tmp_path / "out"
+    lines = _run(tmain, ["train", *_common(data), "--resume", slim, "--pruning-method",
+                         "magnitude", "--pruning-rate", "0.5", "--pruning-threshold", "60",
+                         "--device", "cpu", "--output-dir", str(out)])
+    assert f"slim architecture: {arch}" in lines
+    assert any(ln.startswith("Test: Acc@1") for ln in lines)
+    written = sorted(n for n in os.listdir(out) if n.endswith(".pth"))
+    assert written == [f"{NAME}_checkpoint_pruning_iteration_00.pth",
+                       f"{NAME}_epoch_0_pruning_iteration_00.pth"]
+    spec = model_spec(TrainConfig(model=NAME, num_classes=2), 32, arch)
+    for name in written:
+        assert arch_sidecar(str(out / name)) == arch
+        ck = load_train_checkpoint(str(out / name), spec)
+        layer = ck["params"]["encoder_layer_1"]
+        assert layer["attention"]["qkv"]["kernel"].shape == (64, 96)
+        assert layer["mlp"]["fc1"]["kernel"].shape == (64, 64)
+    ev = _run(tmain, ["evaluate", *_common(data), "--models-path", str(out),
+                      "--output-dir", str(tmp_path / "eval"), "--device", "cpu"])
+    assert sum(ln.startswith("acc1 ") for ln in ev) == 1
 
 
 def test_evaluate_voc_branch_matches_jax(tmp_path):

@@ -1,7 +1,8 @@
 """The port's command line (the ``train``, ``evaluate``, ``lost``,
 ``corloc``, ``cluster``, ``explain``, ``explain-eval``,
-``explain-eval-batch`` and ``mvh`` subcommands of ``vipers/cli/main.py``,
-with the same flags and defaults, plus ``--device``)::
+``explain-eval-batch``, ``mvh`` and ``slim`` subcommands of
+``vipers/cli/main.py``, with the same flags and defaults, plus
+``--device``)::
 
     python -m vipers_torch.cli.main train --model vit_b_16 --data-path imagenet \
         --pruning-method magnitude --pruning-rate 0.2 --amp --output-dir out
@@ -27,11 +28,15 @@ with the same flags and defaults, plus ``--device``)::
         --ground-truth-dir masks --output-name run
     python -m vipers_torch.cli.main mvh --model resnet50 --checkpoint model.pth \
         --data-path imagenet --pruning-step 3 --output-dir mvh [--stimuli-root stimuli]
+    python -m vipers_torch.cli.main slim --model vit_s_16 --checkpoint model.pth \
+        --mlp-keep 0.5 --heads-keep 0.5 --output-dir slim   # vit_s_16_slim_m768_h4.pth
 
 ``train``, ``evaluate``, ``lost``, ``cluster``, ``explain``,
 ``explain-eval`` and ``mvh`` run on the card unless given ``--device cpu``; there is no silent
 fallback (``explain-eval-batch`` scores saved maps with numpy on the host
-and only accepts the flag). Flags that select what the
+and only accepts the flag; ``slim`` is host numpy and has no flag).
+A slimmed checkpoint's ``.slim.json`` sidecar rebuilds the model at its
+widths in ``train --resume``, ``evaluate``, ``lost`` and ``explain``. Flags that select what the
 port does not have yet exit with a message naming the ROADMAP item that
 ports it.
 """
@@ -39,7 +44,6 @@ ports it.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 
@@ -212,6 +216,29 @@ def build_parser() -> argparse.ArgumentParser:
     mvh.add_argument("--stimuli-root", default=None,
                      help="dir with cue-conflict/edge/... stimulus ImageFolders")
     mvh.add_argument("--max-batches", type=int, default=0)
+
+    slim = sub.add_parser(
+        "slim",
+        help="structured slimming: physically remove MLP neurons / attention heads, "
+             "conv channels or ResNet inner channels (pruning/structured.py)")
+    slim.add_argument("--model", required=True)
+    slim.add_argument("--checkpoint", required=True,
+                      help="a .pth (masked weights ok; a slim one's sidecar is read)")
+    slim.add_argument("--num-classes", type=int, default=1000)
+    slim.add_argument("--mlp-keep", type=float, default=None,
+                      help="ViT/Swin: fraction of MLP hidden neurons to keep")
+    slim.add_argument("--heads-keep", type=float, default=None,
+                      help="ViT: fraction of attention heads to keep")
+    slim.add_argument("--conv-keep", type=float, default=None,
+                      help="VGG: fraction of conv output channels to keep")
+    slim.add_argument("--fc-keep", type=float, default=None,
+                      help="VGG: fraction of fc1/fc2 hidden units to keep")
+    slim.add_argument("--inner-keep", type=float, default=None,
+                      help="ResNet: fraction of each block's residual-free "
+                           "inner channels to keep")
+    slim.add_argument("--round-to", type=int, default=128,
+                      help="align slimmed widths to this multiple (1 disables)")
+    slim.add_argument("--output-dir", default=".")
     return p
 
 
@@ -237,10 +264,6 @@ def _refuse_unported(args):
         no("--visualize", 11)
     if args.data_parallel or args.sequence_parallel:
         no("--data-parallel / --sequence-parallel (multi-device)", 10)
-    ckpt = (args.checkpoint or "").rstrip("/")
-    if ckpt and any(os.path.exists(c)
-                    for c in (ckpt + ".slim.json", ckpt + "/slim.json")):
-        no("a structurally slimmed checkpoint (.slim.json)", 4)
 
 
 def main(argv=None) -> int:
@@ -285,6 +308,10 @@ def main(argv=None) -> int:
         from vipers_torch.train.mvh_cli import run_mvh_cli
 
         return run_mvh_cli(args)
+    if args.cmd == "slim":
+        from vipers_torch.pruning.structured import run_slim_cli
+
+        return run_slim_cli(args)
     from vipers_torch.discovery.corloc import run_corloc_cli
 
     return run_corloc_cli(args)

@@ -43,6 +43,13 @@ dict is the ViT's renaming of leaves; ``import_swin_v2_t`` /
 ``export_swin_v2_t`` read and write torchvision's ``features.*`` layout.
 The DINO ViTs' modules carry the flax names too; ``import_dino_vit`` /
 ``export_dino_vit`` read and write facebookresearch/dino's keys.
+
+Every converter takes its widths from the arrays, never from a dense
+default, so a structurally slimmed tree (``pruning.structured``: a ViT's
+rectangular ``in_proj_weight`` (3*h*hd, D) and ``out_proj.weight`` (D,
+h*hd), a ResNet block's inner convolutions with their BatchNorm
+statistics, VGG's and Swin's widths) goes through them as a dense one
+does; its module comes from ``build_model(..., arch_overrides=...)``.
 """
 
 from __future__ import annotations

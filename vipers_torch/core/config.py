@@ -7,8 +7,9 @@ naming the ROADMAP item that ports it, for a flag that selects what the
 port does not have yet: a family other than the ViTs, the ResNets, VGG
 and Swin-V2 (A5, A9), training a DINO backbone (A2, DINO training: they
 serve LOST and ``cluster`` frozen), the multi-device flags (A10),
-``--profile-dir`` and ``--debug-nans`` (A11) and a structurally slimmed
-checkpoint (A4). ``--resnet-dilate`` applies to the ResNets; the
+``--profile-dir`` and ``--debug-nans`` (A11). ``--resume`` of a
+structurally slimmed checkpoint rebuilds the model at its sidecar's
+widths (``train.driver.model_spec``). ``--resnet-dilate`` applies to the ResNets; the
 other families ignore it, as the JAX package does.
 """
 
@@ -16,7 +17,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 from typing import Optional
 
 from vipers_torch.data.preprocess import INTERPOLATIONS
@@ -203,7 +203,3 @@ def refuse_unported(cfg: TrainConfig, cmd: str = "train"):
         no("--profile-dir", 11)
     if cfg.debug_nans:
         no("--debug-nans", 11)
-    resume = (cfg.resume or "").rstrip("/")
-    if resume and any(os.path.exists(c) for c in (resume + ".slim.json",
-                                                  resume + "/slim.json")):
-        no("a structurally slimmed checkpoint (.slim.json)", 4)

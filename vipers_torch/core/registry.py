@@ -28,7 +28,8 @@ class ModelSpec:
     "resnet", "vgg", "swin", "dino_vit") picks the weight converters of
     ``core.checkpoint``; ``num_classes`` is the head's width, 0 for a
     headless model; ``extra`` holds what a family's callers read (a Swin's
-    last-stage ``num_heads``)."""
+    last-stage ``num_heads``); ``rebuild(cfg)`` is the same model's spec
+    at another configuration (``build_model``'s ``arch_overrides``)."""
 
     name: str
     cfg: Any
@@ -40,6 +41,7 @@ class ModelSpec:
     family: str = ""
     num_classes: int = 1000
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    rebuild: Optional[Callable[[Any], "ModelSpec"]] = None
 
 
 def register_model(name: Optional[str] = None):
@@ -56,13 +58,29 @@ def register_model(name: Optional[str] = None):
 
 
 def build_model(name: str, **kwargs) -> ModelSpec:
+    """Construct a registered model. ``arch_overrides`` (optional dict)
+    rebuilds it with replaced config fields (``{"num_heads": 4,
+    "head_dim": 64, "mlp_dim": 768}``, ``{"inner_widths": {...}}``): how a
+    structurally slimmed checkpoint (``pruning.structured``, its
+    ``.slim.json`` sidecar) gets a module whose parameter shapes match.
+    JSON lists come back as tuples; ``spec.extra`` follows the new config;
+    a field the config lacks raises ``TypeError``, a model without a
+    config ``ValueError``."""
     _ensure_builtins_imported()
+    arch = kwargs.pop("arch_overrides", None)
     try:
-        builder = _BUILTIN_MODELS[name.lower()]
+        make_spec = _BUILTIN_MODELS[name.lower()]
     except KeyError:
         raise ValueError(f"Unknown model {name!r}. Available: "
                          f"{sorted(_BUILTIN_MODELS)}") from None
-    return builder(**kwargs)
+    spec = make_spec(**kwargs)
+    if arch:
+        if spec.rebuild is None or not dataclasses.is_dataclass(spec.cfg):
+            raise ValueError(f"model {name!r} does not support arch_overrides "
+                             "(no config dataclass to rebuild)")
+        arch = {k: tuple(v) if isinstance(v, list) else v for k, v in arch.items()}
+        spec = spec.rebuild(dataclasses.replace(spec.cfg, **arch))
+    return spec
 
 
 def _ensure_builtins_imported():

@@ -48,6 +48,15 @@
 // ran 19% faster on 4 stages without the staging than on 2 with it.
 // tanh is tanh.approx.f32 (its error against torch.tanh: PERF.md, with the
 // times and what was tried).
+// Any F (a slimmed ViT's MLP width need not be a multiple of 128): the last
+// column tile reads rows F..ceil(F/128)*128 of W_eff^T past the (F, D)
+// tensor map, which TMA fills with zeros; the transaction count of a box
+// that lies partly out of bounds is still the whole box, so the ring's
+// expected bytes stay W_ATOM_BYTES. Bias reads past F are masked, and the
+// epilogues write no column >= F: a 16-byte (staged) or 4-byte (unstaged)
+// store where the chunk lies below F and the row stride keeps it aligned
+// (F % 8 == 0, resp. F even), element stores otherwise. At F % 128 == 0
+// every chunk takes the wide store, as before.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -100,6 +109,21 @@ __device__ __forceinline__ float gelu_tanh(float y) {
   const float inner = y * fmaf(y * y, k * 0.044715f, k);
   const float hy = 0.5f * y;
   return fmaf(hy, tanh_approx(inner), hy);
+}
+
+// bf16 gelu_tanh(staged + bias) of the 8 columns 8q..8q+7 of staged row r
+// (its 16-byte chunks XOR-swizzled by the row: r % 8 == sub)
+__device__ __forceinline__ uint4 staged_gelu(const char* sb, int r, int q, int sub, float4 b0,
+                                             float4 b1) {
+  const float4 v0 = *reinterpret_cast<const float4*>(sb + r * STAGE_ROW + (((2 * q) ^ sub) << 4));
+  const float4 v1 =
+      *reinterpret_cast<const float4*>(sb + r * STAGE_ROW + (((2 * q + 1) ^ sub) << 4));
+  uint4 o;
+  o.x = pack_bf16x2(gelu_tanh(v0.x + b0.x), gelu_tanh(v0.y + b0.y));
+  o.y = pack_bf16x2(gelu_tanh(v0.z + b0.z), gelu_tanh(v0.w + b0.w));
+  o.z = pack_bf16x2(gelu_tanh(v1.x + b1.x), gelu_tanh(v1.y + b1.y));
+  o.w = pack_bf16x2(gelu_tanh(v1.z + b1.z), gelu_tanh(v1.w + b1.w));
+  return o;
 }
 
 // LayerNorm without affine, in place on one 64-row slab of bf16 (D / 64
@@ -178,7 +202,7 @@ fused_ln_dense_gelu_kernel(const __grid_constant__ CUtensorMap map_x,
   uint64_t* st_full = x_full + 2;         // [NW]: a staged tile is ready
   uint64_t* st_empty = st_full + 2;       // [NW]: a staging buffer is free
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = warp / 4;
-  const int n_atoms = d / BK, n_col = f / BN;
+  const int n_atoms = d / BK, n_col = (f + BN - 1) / BN;
   const int n_rows = (m + ROWS - 1) / ROWS;
 
   if (threadIdx.x == 0) {
@@ -221,28 +245,43 @@ fused_ln_dense_gelu_kernel(const __grid_constant__ CUtensorMap map_x,
     for (int rt = blockIdx.x; rt < n_rows; rt += gridDim.x)
       for (int nt = 0; nt < n_col; ++nt, ++tile) {
         const int c0 = nt * BN + 8 * q;
-        const float4 b0 = __ldg(reinterpret_cast<const float4*>(b + c0));
-        const float4 b1 = __ldg(reinterpret_cast<const float4*>(b + c0 + 4));
-        {
-          mbar_wait(&st_full[w], tile & 1);
-          const char* sb = base + lay.staging + w * STAGING_BYTES;
+        const bool inside = c0 + 8 <= f;     // all 8 columns below F
+        const bool wide = inside && f % 8 == 0;  // and 16-byte aligned in every row
+        float4 b0, b1;
+        if (inside) {
+          b0 = __ldg(reinterpret_cast<const float4*>(b + c0));
+          b1 = __ldg(reinterpret_cast<const float4*>(b + c0 + 4));
+        } else {
+          float bt[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) bt[j] = c0 + j < f ? __ldg(b + c0 + j) : 0.f;
+          b0 = make_float4(bt[0], bt[1], bt[2], bt[3]);
+          b1 = make_float4(bt[4], bt[5], bt[6], bt[7]);
+        }
+        mbar_wait(&st_full[w], tile & 1);
+        const char* sb = base + lay.staging + w * STAGING_BYTES;
+        const long long row0 = (long long)rt * ROWS + w * SLAB;
+        if (wide) {
 #pragma unroll 2
           for (int i = 0; i < SLAB / 8; ++i) {
             const int r = sub + 8 * i;  // r % 8 == sub
-            const float4 v0 =
-                *reinterpret_cast<const float4*>(sb + r * STAGE_ROW + (((2 * q) ^ sub) << 4));
-            const float4 v1 =
-                *reinterpret_cast<const float4*>(sb + r * STAGE_ROW + (((2 * q + 1) ^ sub) << 4));
-            uint4 o;
-            o.x = pack_bf16x2(gelu_tanh(v0.x + b0.x), gelu_tanh(v0.y + b0.y));
-            o.y = pack_bf16x2(gelu_tanh(v0.z + b0.z), gelu_tanh(v0.w + b0.w));
-            o.z = pack_bf16x2(gelu_tanh(v1.x + b1.x), gelu_tanh(v1.y + b1.y));
-            o.w = pack_bf16x2(gelu_tanh(v1.z + b1.z), gelu_tanh(v1.w + b1.w));
-            const long long row = (long long)rt * ROWS + w * SLAB + r;
-            if (row < m) *reinterpret_cast<uint4*>(out + row * f + c0) = o;
+            const uint4 o = staged_gelu(sb, r, q, sub, b0, b1);
+            if (row0 + r < m) *reinterpret_cast<uint4*>(out + (row0 + r) * f + c0) = o;
           }
-          mbar_arrive(&st_empty[w]);
+        } else {  // the tail tile, or F % 8 != 0: element stores below F
+          for (int i = 0; i < SLAB / 8; ++i) {
+            const int r = sub + 8 * i;
+            const uint4 o = staged_gelu(sb, r, q, sub, b0, b1);
+            const uint32_t word[4] = {o.x, o.y, o.z, o.w};
+            unsigned short* dst = reinterpret_cast<unsigned short*>(out + (row0 + r) * f + c0);
+            if (row0 + r < m) {
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                if (c0 + j < f) dst[j] = (unsigned short)(word[j / 2] >> (16 * (j % 2)));
+            }
+          }
         }
+        mbar_arrive(&st_empty[w]);
       }
   } else {  // ------------------------------------------------ consumers
     if constexpr (CREGS > R0) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CREGS));
@@ -315,16 +354,31 @@ fused_ln_dense_gelu_kernel(const __grid_constant__ CUtensorMap map_x,
           mbar_arrive(&st_full[wg]);
         } else {
           const long long row = (long long)rt * ROWS + wg * SLAB + r0;
+          if (nt * BN + BN <= f && f % 2 == 0) {  // every pair below F, 4-byte aligned
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j) {
-            const int c = nt * BN + 8 * j + 2 * tg;
-            const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c));
-            if (row < m)
-              *reinterpret_cast<uint32_t*>(out + row * f + c) = pack_bf16x2(
-                  gelu_tanh(acc[j][0] + bb.x), gelu_tanh(acc[j][1] + bb.y));
-            if (row + 8 < m)
-              *reinterpret_cast<uint32_t*>(out + (row + 8) * f + c) = pack_bf16x2(
-                  gelu_tanh(acc[j][2] + bb.x), gelu_tanh(acc[j][3] + bb.y));
+            for (int j = 0; j < BN / 8; ++j) {
+              const int c = nt * BN + 8 * j + 2 * tg;
+              const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c));
+              if (row < m)
+                *reinterpret_cast<uint32_t*>(out + row * f + c) = pack_bf16x2(
+                    gelu_tanh(acc[j][0] + bb.x), gelu_tanh(acc[j][1] + bb.y));
+              if (row + 8 < m)
+                *reinterpret_cast<uint32_t*>(out + (row + 8) * f + c) = pack_bf16x2(
+                    gelu_tanh(acc[j][2] + bb.x), gelu_tanh(acc[j][3] + bb.y));
+            }
+          } else {  // the tail tile, or an odd F: element stores below F
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = nt * BN + 8 * j + 2 * tg + e;
+                if (c >= f) continue;
+                const float bc = __ldg(b + c);
+                if (row < m) out[row * f + c] = __float2bfloat16(gelu_tanh(acc[j][e] + bc));
+                if (row + 8 < m)
+                  out[(row + 8) * f + c] = __float2bfloat16(gelu_tanh(acc[j][2 + e] + bc));
+              }
+            }
           }
           fence_regs(acc);  // the next tile's products overwrite acc after these reads
         }
@@ -380,13 +434,13 @@ int launch_design(const Design& ds, const CUtensorMap& mx, const CUtensorMap& mw
 
 // x: (m, d) bf16, w_t: (f, d) bf16 = W_eff transposed, b: (f,) f32,
 // out: (m, f) bf16; all contiguous and 16-byte aligned. d % 64 == 0,
-// f % 128 == 0, d <= 1664.
+// d <= 1664, any f >= 1.
 // Returns a cudaError_t (0 = launched).
 extern "C" int vipers_fused_ln_dense_gelu(const void* x, const void* w_t, const float* b,
                                           void* out, int m, int d, int f, float eps,
                                           void* stream) {
   Design ds;
-  if (m <= 0 || d <= 0 || d % BK || f <= 0 || f % BN || !pick(d, &ds))
+  if (m <= 0 || d <= 0 || d % BK || f <= 0 || !pick(d, &ds))
     return (int)cudaErrorInvalidValue;
   CUtensorMap mx, mw;
   int err = encode_map(&mx, x, d, m, 1, d, (long long)m * d, SLAB);

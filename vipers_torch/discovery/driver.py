@@ -68,6 +68,7 @@ from vipers_torch.models.dino_vit import split_qkv_dino
 from vipers_torch.models.interpolate import resize_weight_matrix_np
 from vipers_torch.models.vit import scrambled_qkv_gather
 from vipers_torch.ops.flash_attention import flash_min_t
+from vipers_torch.pruning.structured import arch_sidecar
 
 
 _NORM: dict = {}
@@ -654,6 +655,12 @@ def run_lost(args) -> int:
         model_kw["patch_size"] = args.patch_size
     if "resnet" in args.model and getattr(args, "resnet_dilate", 1) != 1:
         model_kw["dilate"] = args.resnet_dilate
+    arch_overrides = arch_sidecar(getattr(args, "checkpoint", ""))
+    if arch_overrides:
+        # a structurally slimmed checkpoint (`vipers_torch slim`): the
+        # module at the slim widths, so parameter shapes match
+        model_kw["arch_overrides"] = arch_overrides
+        print(f"slim architecture: {arch_overrides}")
     spec = build_model(args.model, **model_kw)
     dinoseg = bool(getattr(args, "dinoseg", False))
     reference_bugs = bool(getattr(args, "dinoseg_reference_bugs", False))
@@ -671,7 +678,7 @@ def run_lost(args) -> int:
         # width and pos-table size)
         if spec.family == "vit":
             kw = {"num_classes": infer_num_classes(params) or 0,
-                  "representation_size": infer_representation_size(params)}
+                  "representation_size": infer_representation_size(params), **model_kw}
             size = infer_vit_image_size(params, spec.patch_size)
             if size is not None:
                 kw["image_size"] = size

@@ -44,6 +44,7 @@ from vipers_torch.explain.metrics import evaluate_single
 from vipers_torch.models.activations import guided_backprop
 from vipers_torch.models.cnn import exact_f32_convs
 from vipers_torch.models.interpolate import interpolate_pos_embedding
+from vipers_torch.pruning.structured import arch_sidecar
 
 # seconds per method of the compute_heatmaps calls since the last reset
 LAST_RUN: dict = {}
@@ -58,16 +59,16 @@ def _load_model(model_name: str, checkpoint: str = "", seed: int = 0, device=Non
     """(spec, model): ``model_name`` on ``device`` in eval mode with frozen
     f32 parameters, the checkpoint's weights with its masks baked in (the
     module rebuilt at the checkpoint's head width and, for a ViT, its
-    pos-table size), or without a checkpoint random weights drawn from
+    pos-table size; a slimmed checkpoint's at its ``.slim.json``
+    sidecar's widths), or without a checkpoint random weights drawn from
     ``seed``."""
     dev = resolve_device(device)
     if model_name.lower().startswith("dino"):
         _refuse(cmd, f"--model {model_name}", 2)
-    ckpt = (checkpoint or "").rstrip("/")
-    if ckpt and any(os.path.exists(c) for c in (ckpt + ".slim.json", ckpt + "/slim.json")):
-        _refuse(cmd, "a structurally slimmed checkpoint (.slim.json)", 4)
+    arch = arch_sidecar(checkpoint)
+    slim = {"arch_overrides": arch} if arch else {}
     try:
-        spec = build_model(model_name)
+        spec = build_model(model_name, **slim)
     except ValueError:
         if model_name.lower().startswith("mobilenet"):
             _refuse(cmd, f"--model {model_name}", 5)
@@ -80,13 +81,13 @@ def _load_model(model_name: str, checkpoint: str = "", seed: int = 0, device=Non
         n_cls = infer_num_classes(params)
         if spec.family == "vit":
             kw = {"num_classes": n_cls or 0,
-                  "representation_size": infer_representation_size(params)}
+                  "representation_size": infer_representation_size(params), **slim}
             size = infer_vit_image_size(params, spec.patch_size)
             if size is not None:
                 kw["image_size"] = size
             spec = build_model(model_name, **kw)
         elif n_cls is not None:
-            spec = build_model(model_name, num_classes=n_cls)
+            spec = build_model(model_name, num_classes=n_cls, **slim)
     else:
         params = spec.init(torch.Generator().manual_seed(seed))
     model = spec.module()

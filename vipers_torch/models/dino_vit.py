@@ -216,6 +216,7 @@ def _build(name, cfg: DinoViTConfig):
         family="dino_vit",
         num_classes=cfg.num_classes,
         extra={"num_heads": cfg.num_heads, "embed_dim": cfg.embed_dim},
+        rebuild=lambda c: _build(name, c),
     )
 
 

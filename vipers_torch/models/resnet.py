@@ -19,7 +19,7 @@ names (``layer1.0.conv1.weight``, ``downsample.0``, ``downsample.1``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,15 +32,19 @@ from vipers_torch.models.vit import _lecun_normal
 
 
 class BasicBlock(nn.Module):
+    """``inner``: conv1's output width (None: ``planes``), the block's one
+    residual-free width, which structured slimming shrinks."""
+
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
-                 prev_dilation: int = 1, downsample: bool = False):
+                 prev_dilation: int = 1, downsample: bool = False, inner=None):
         super().__init__()
-        self.conv1 = Conv2d(inplanes, planes, 3, stride, padding=prev_dilation,
+        inner = inner or planes
+        self.conv1 = Conv2d(inplanes, inner, 3, stride, padding=prev_dilation,
                             dilation=prev_dilation, bias=False)
-        self.bn1 = BatchNorm(planes)
-        self.conv2 = Conv2d(planes, planes, 3, padding=dilation, dilation=dilation, bias=False)
+        self.bn1 = BatchNorm(inner)
+        self.conv2 = Conv2d(inner, planes, 3, padding=dilation, dilation=dilation, bias=False)
         self.bn2 = BatchNorm(planes)
         self.downsample = (nn.Sequential(Conv2d(inplanes, planes, 1, stride, bias=False),
                                          BatchNorm(planes)) if downsample else None)
@@ -54,20 +58,24 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
+    """``inner``: (conv1's, conv2's) output widths (None: ``planes``
+    each), the block's residual-free widths."""
+
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
-                 prev_dilation: int = 1, downsample: bool = False):
+                 prev_dilation: int = 1, downsample: bool = False, inner=None):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = BatchNorm(planes)
+        in1, in2 = inner or (planes, planes)
+        self.conv1 = Conv2d(inplanes, in1, 1, bias=False)
+        self.bn1 = BatchNorm(in1)
         # torchvision passes previous_dilation to a dilated stage's first
         # block and the new dilation afterwards (ResNet sets prev_dilation)
-        self.conv2 = Conv2d(planes, planes, 3, stride, padding=prev_dilation,
+        self.conv2 = Conv2d(in1, in2, 3, stride, padding=prev_dilation,
                             dilation=prev_dilation, bias=False)
-        self.bn2 = BatchNorm(planes)
-        self.conv3 = Conv2d(planes, out, 1, bias=False)
+        self.bn2 = BatchNorm(in2)
+        self.conv3 = Conv2d(in2, out, 1, bias=False)
         self.bn3 = BatchNorm(out)
         self.downsample = (nn.Sequential(Conv2d(inplanes, out, 1, stride, bias=False),
                                          BatchNorm(out)) if downsample else None)
@@ -84,7 +92,11 @@ class Bottleneck(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
     """``replace_stride_with_dilation``: for stages 2-4, keep stride 1 and
-    dilate the 3x3 convolutions instead (``_spec``'s dilate 2 and 4)."""
+    dilate the 3x3 convolutions instead (``_spec``'s dilate 2 and 4).
+    ``inner_widths``: block name (``layer1_0``) -> residual-free inner
+    width, an int for a BasicBlock (conv1's outputs), a (conv1, conv2)
+    pair for a Bottleneck (structured slimming); missing blocks keep
+    ``planes``."""
 
     stage_sizes: Tuple[int, ...]
     bottleneck: bool
@@ -92,6 +104,13 @@ class ResNetConfig:
     replace_stride_with_dilation: Tuple[bool, bool, bool] = (False, False, False)
     headless: bool = False
     num_filters: int = 64
+    inner_widths: Optional[Dict[str, Any]] = None
+
+    def inner(self, stage: int, block: int):
+        """The inner width of block ``layer{stage+1}_{block}``, or None; a
+        pair from a JSON sidecar (a list) as a tuple."""
+        w = (self.inner_widths or {}).get(f"layer{stage + 1}_{block}")
+        return tuple(w) if isinstance(w, (list, tuple)) else w
 
     def stages(self):
         """(planes, stride, dilation, prev_dilation) of each stage, by
@@ -123,7 +142,8 @@ class ResNet(nn.Module):
                 blocks.append(block(
                     inplanes, planes, stride if first else 1, dilation,
                     prev if first else dilation,
-                    downsample=first and (stride != 1 or inplanes != planes * block.expansion)))
+                    downsample=first and (stride != 1 or inplanes != planes * block.expansion),
+                    inner=cfg.inner(s, b)))
                 inplanes = planes * block.expansion
             layer = nn.ModuleList(blocks)
             setattr(self, f"layer{s + 1}", layer)
@@ -177,13 +197,16 @@ def init_resnet_params(cfg: ResNetConfig, gen: torch.Generator) -> dict:
     for s, (planes, stride, _d, _p) in enumerate(cfg.stages()):
         for b in range(cfg.stage_sizes[s]):
             out = planes * expansion
+            inner = cfg.inner(s, b)
             if cfg.bottleneck:
-                blk = {"conv1": conv(1, inplanes, planes), "bn1": bn(planes),
-                       "conv2": conv(3, planes, planes), "bn2": bn(planes),
-                       "conv3": conv(1, planes, out), "bn3": bn(out)}
+                in1, in2 = inner or (planes, planes)
+                blk = {"conv1": conv(1, inplanes, in1), "bn1": bn(in1),
+                       "conv2": conv(3, in1, in2), "bn2": bn(in2),
+                       "conv3": conv(1, in2, out), "bn3": bn(out)}
             else:
-                blk = {"conv1": conv(3, inplanes, planes), "bn1": bn(planes),
-                       "conv2": conv(3, planes, planes), "bn2": bn(planes)}
+                in1 = inner or planes
+                blk = {"conv1": conv(3, inplanes, in1), "bn1": bn(in1),
+                       "conv2": conv(3, in1, planes), "bn2": bn(planes)}
             if b == 0 and (stride != 1 or inplanes != out):
                 blk["downsample_conv"] = conv(1, inplanes, out)
                 blk["downsample_bn"] = bn(out)
@@ -203,11 +226,16 @@ def _spec(name, stage_sizes, bottleneck, num_classes, dilate, headless, input_si
     if dilate not in _DILATE:
         raise ValueError("resnet dilate must be 1, 2 or 4")
     cfg = ResNetConfig(tuple(stage_sizes), bottleneck, num_classes, _DILATE[dilate], headless)
+    return _spec_of(name, cfg, input_size)
+
+
+def _spec_of(name, cfg: ResNetConfig, input_size):
     return ModelSpec(
         name=name, cfg=cfg, module=lambda: ResNet(cfg),
         init=lambda gen: init_resnet_params(cfg, gen),
         input_size=tuple(input_size), family="resnet",
-        num_classes=0 if headless else num_classes)
+        num_classes=0 if cfg.headless else cfg.num_classes,
+        rebuild=lambda c: _spec_of(name, c, input_size))
 
 
 @register_model("resnet18")

@@ -175,7 +175,7 @@ class SwinBlockV2(nn.Module):
     axis one window covers, windows, attention, reverse, crop, then
     res-post-norm ``x + drop_path(norm(f(x)))`` for the attention and the
     MLP. ``mlp_dim`` overrides the MLP's hidden width (structured
-    slimming, ROADMAP A4)."""
+    slimming, ``pruning.structured.slim_swin``)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
                  mlp_ratio: float = 4.0, sd_rate: float = 0.0, mlp_dim: Optional[int] = None):
@@ -365,7 +365,8 @@ def swin_spec(name: str, cfg: SwinV2Config, input_size=(256, 256)) -> ModelSpec:
         init=lambda gen: init_swin_params(cfg, gen), input_size=tuple(input_size),
         prune_exclude=("qkv", "cpb"), patch_size=cfg.patch_size, family="swin",
         num_classes=cfg.num_classes,
-        extra={"num_heads": cfg.num_heads[-1], "embed_dim": cfg.embed_dim})
+        extra={"num_heads": cfg.num_heads[-1], "embed_dim": cfg.embed_dim},
+        rebuild=lambda c: swin_spec(name, c, input_size))
 
 
 @register_model("swin_v2_t")

@@ -121,7 +121,8 @@ def init_vgg_params(cfg: VGGConfig, gen: torch.Generator) -> dict:
 def _spec(name, cfg: VGGConfig, input_size):
     return ModelSpec(name=name, cfg=cfg, module=lambda: VGG16(cfg),
                      init=lambda gen: init_vgg_params(cfg, gen), input_size=tuple(input_size),
-                     family="vgg", num_classes=0 if cfg.headless else cfg.num_classes)
+                     family="vgg", num_classes=0 if cfg.headless else cfg.num_classes,
+                     rebuild=lambda c: _spec(name, c, input_size))
 
 
 @register_model("vgg16")

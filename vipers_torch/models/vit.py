@@ -107,23 +107,29 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with torch ``nn.MultiheadAttention`` semantics: fused
     qkv projection (q, k, v row blocks), per-head softmax returned when
     ``need_attn``; ``dropout_rate`` drops attention probabilities in
-    training."""
+    training. ``head_dim`` (None: ``dim // num_heads``) is a structurally
+    slimmed model's: whole heads are gone, so ``inner = num_heads *
+    head_dim`` < dim and the projections are rectangular, (3*inner, dim)
+    and (dim, inner); the packed route then stays off, as in JAX."""
 
-    def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.0):
+    def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.0,
+                 head_dim: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = head_dim or dim // num_heads
         self.dropout_rate = dropout_rate
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.out = nn.Linear(dim, dim)
+        inner = num_heads * self.head_dim
+        self.qkv = nn.Linear(dim, 3 * inner)
+        self.out = nn.Linear(inner, dim)
 
     def forward(self, x, token_mask=None, need_attn: bool = True, generator=None):
         n, t, d = x.shape
-        h = self.num_heads
-        hd = d // h
+        h, hd = self.num_heads, self.head_dim
+        inner = h * hd
         scale = float(hd) ** -0.5
         drop = self.training and self.dropout_rate > 0  # the kernels keep no probs
         use_flash = not need_attn and not drop and t >= flash_min_t()
-        if (use_flash and packed_layout_supported(d, h)
+        if (use_flash and inner == d and packed_layout_supported(d, h)
                 and os.environ.get("VIPERS_PACKED_ATTENTION") == "1"):
             # one projection with head-pair-permuted weight rows feeds the
             # token-major kernel, which writes (N, T, D) h-major
@@ -151,7 +157,7 @@ class MultiHeadAttention(nn.Module):
                 out, attn = attention_reference(q, k, v, scale=scale, mask=mask)
             if not need_attn:
                 attn = None
-        out = self.out(out.transpose(1, 2).reshape(n, t, d))
+        out = self.out(out.transpose(1, 2).reshape(n, t, inner))
         return out, attn
 
 
@@ -179,11 +185,11 @@ class EncoderBlock(nn.Module):
     """Pre-norm transformer block; returns (x, ln_1 output, attn)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, dropout_rate: float = 0.0,
-                 attention_dropout_rate: float = 0.0):
+                 attention_dropout_rate: float = 0.0, head_dim: Optional[int] = None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.ln_1 = LayerNorm(dim)
-        self.attention = MultiHeadAttention(dim, num_heads, attention_dropout_rate)
+        self.attention = MultiHeadAttention(dim, num_heads, attention_dropout_rate, head_dim)
         self.ln_2 = LayerNorm(dim)
         self.mlp = MLPBlock(dim, mlp_dim, dropout_rate)
 
@@ -220,7 +226,7 @@ def _auto_seq_pad(seq_len: int, dtype, train: bool, need_attn: bool, cfg):
         return None
     if seq_len >= min_t:
         return 128
-    hd = cfg.hidden_dim // cfg.num_heads
+    hd = cfg.head_dim or cfg.hidden_dim // cfg.num_heads
     if fused_attention_supported(seq_len, hd) and attention_train_enabled(dtype):
         return 128
     return None
@@ -228,9 +234,10 @@ def _auto_seq_pad(seq_len: int, dtype, train: bool, need_attn: bool, cfg):
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
-    """The JAX package's ``ViTConfig`` without ``head_dim`` (structured
-    slimming, ROADMAP A4). ``representation_size``: a ``pre_logits`` Dense
-    and tanh before the head."""
+    """The JAX package's ``ViTConfig``. ``representation_size``: a
+    ``pre_logits`` Dense and tanh before the head; ``head_dim``: the
+    per-head width, None for ``hidden_dim // num_heads`` (a structurally
+    slimmed model keeps its heads' width while ``num_heads`` shrinks)."""
 
     patch_size: int = 16
     num_layers: int = 12
@@ -241,6 +248,7 @@ class ViTConfig:
     dropout_rate: float = 0.0
     attention_dropout_rate: float = 0.0
     representation_size: Optional[int] = None
+    head_dim: Optional[int] = None
 
 
 class VisionTransformer(nn.Module):
@@ -259,7 +267,8 @@ class VisionTransformer(nn.Module):
         self.pos_embedding = nn.Parameter(torch.zeros(1, seq, d))
         self.layers = nn.ModuleList(
             EncoderBlock(d, cfg.num_heads, cfg.mlp_dim, cfg.dropout_rate,
-                         cfg.attention_dropout_rate) for _ in range(cfg.num_layers))
+                         cfg.attention_dropout_rate, cfg.head_dim)
+            for _ in range(cfg.num_layers))
         self.ln = LayerNorm(d)
         rep = cfg.representation_size
         self.pre_logits = nn.Linear(d, rep) if rep is not None else None
@@ -364,6 +373,7 @@ def init_vit_params(cfg: ViTConfig, image_size, gen: torch.Generator) -> dict:
     """A parameter tree with the JAX package's keys and layouts (conv HWIO,
     dense (in, out)) and its initializers, drawn from ``gen``."""
     p, d = cfg.patch_size, cfg.hidden_dim
+    inner = cfg.num_heads * (cfg.head_dim or d // cfg.num_heads)
     seq = (image_size[0] // p) * (image_size[1] // p) + 1
 
     def dense(fan_in, features):
@@ -382,7 +392,7 @@ def init_vit_params(cfg: ViTConfig, image_size, gen: torch.Generator) -> dict:
     for i in range(cfg.num_layers):
         params[f"encoder_layer_{i}"] = {
             "ln_1": ln(),
-            "attention": {"qkv": dense(d, 3 * d), "out": dense(d, d)},
+            "attention": {"qkv": dense(d, 3 * inner), "out": dense(inner, d)},
             "ln_2": ln(),
             "mlp": {"fc1": dense(d, cfg.mlp_dim), "fc2": dense(cfg.mlp_dim, d)},
         }
@@ -407,6 +417,7 @@ def _build(name, cfg: ViTConfig, image_size=(224, 224)):
         patch_size=cfg.patch_size,
         family="vit",
         num_classes=cfg.num_classes,
+        rebuild=lambda c: _build(name, c, image_size),
     )
 
 

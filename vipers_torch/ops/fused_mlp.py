@@ -59,7 +59,7 @@ def fused_supported(x, train: bool = False) -> bool:
     """The product-path gate: inference, bf16, and a row count the JAX
     kernel's block rule accepts; ``VIPERS_FUSED_MLP=0`` turns it off, as in
     the JAX package. Like the JAX gate it sets no width condition: the
-    card's kernel refuses widths it has no instance for (see
+    card's kernel takes any F and refuses a D it has no instance for (see
     ``fused_ln_dense_gelu_core``)."""
     if os.environ.get("VIPERS_FUSED_MLP") == "0":
         return False
@@ -104,8 +104,8 @@ def design(d: int) -> dict:
 def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
     """gelu_tanh(LN_noaffine(x2d) @ W_eff + b_eff): x2d (M, D) bf16,
     w_eff_t (F, D) bf16, b_eff (F,) f32. CPU tensors take any width; on the
-    card D % 64 == 0, F % 128 == 0 and an instance of ``fused_mlp.cu`` that
-    fits D (``design(d)``), else a ``ValueError``."""
+    card any F (a slimmed MLP's), D % 64 == 0 and an instance of
+    ``fused_mlp.cu`` that fits D (``design(d)``), else a ``ValueError``."""
     m, d = x2d.shape
     f = w_eff_t.shape[0]
     if x2d.dtype != torch.bfloat16 or w_eff_t.dtype != torch.bfloat16:
@@ -120,9 +120,9 @@ def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
         return fused_ln_dense_gelu_plain(x2d, w_eff_t, b_eff, eps)
     if x2d.device.type != "cuda":
         raise ValueError(f"unsupported device {x2d.device}")
-    if d % 64 or f % 128 or design(d)["rows"] == 0:
-        raise ValueError(f"the fused MLP kernel needs D % 64 == 0, F % 128 == 0 and an "
-                         f"instance that fits D, got D={d}, F={f}")
+    if d % 64 or design(d)["rows"] == 0:
+        raise ValueError(f"the fused MLP kernel needs D % 64 == 0 and an instance that "
+                         f"fits D, got D={d}")
     fn = _lib()
     x2d, w_eff_t, b_eff = x2d.contiguous(), w_eff_t.contiguous(), b_eff.contiguous()
     _check_aligned(x2d, w_eff_t, b_eff)

@@ -19,7 +19,10 @@ the device as uint8. Checkpoints are the port's ``.pth``
 (``core.checkpoint.save_train_checkpoint``) under the JAX driver's stems:
 ``{model}_epoch_{e}_{method}_{tag}.pth`` every 10 epochs and at the last,
 and the rolling ``{model}_checkpoint_{method}_{tag}.pth`` every epoch.
-``resume_session`` reads one back.
+``resume_session`` reads one back. ``--resume`` of a structurally slimmed
+checkpoint (``vipers_torch slim``) builds the model at its ``.slim.json``
+sidecar's widths, and every checkpoint such a session writes carries the
+same sidecar.
 
 The JAX driver's mesh, pipeline-parallel and sharding branches are not
 ported (ROADMAP A10); ``core.config.refuse_unported`` exits for their
@@ -50,6 +53,7 @@ from vipers_torch.data.sampler import epoch_indices, ra_sampler_indices
 from vipers_torch.pruning import compute_sparsity_global, init_masks
 from vipers_torch.models import cnn
 from vipers_torch.pruning.snip import snip_loss, snip_saliency, snip_threshold
+from vipers_torch.pruning.structured import arch_sidecar, write_sidecar
 from vipers_torch.train.ema import ema_decay_for
 from vipers_torch.train.loop import (evaluate, magnitude_pruning_round,
                                      train_model_to_completion)
@@ -76,13 +80,19 @@ class Session:
     train_ds: ImageFolder
     val_ds: ImageFolder
     device: torch.device
+    # the widths of a session resumed from a slimmed checkpoint: every
+    # checkpoint it writes carries them in a .slim.json sidecar
+    arch_overrides: Optional[dict] = None
 
 
-def model_spec(cfg: TrainConfig, crop: int):
+def model_spec(cfg: TrainConfig, crop: int, arch_overrides: Optional[dict] = None):
     """``cfg.model`` at ``cfg.num_classes``: a ViT with its pos-embeddings
     at ``crop`` x ``crop``, a Swin built for ``crop`` x ``crop`` inputs, a
-    ResNet with ``--resnet-dilate``."""
+    ResNet with ``--resnet-dilate``; at a slimmed checkpoint's widths
+    where ``arch_overrides`` are given."""
     kw = {"num_classes": cfg.num_classes}
+    if arch_overrides:
+        kw["arch_overrides"] = arch_overrides
     fam = build_model(cfg.model).family
     if fam == "vit":
         kw["image_size"] = (crop, crop)
@@ -100,7 +110,10 @@ def build_session(cfg: TrainConfig, params=None, cmd: str = "train") -> Session:
     names the subcommand in ``refuse_unported``'s message."""
     refuse_unported(cfg, cmd)
     dev = resolve_device(cfg.device)
-    spec = model_spec(cfg, cfg.train_crop_size)
+    arch = arch_sidecar(cfg.resume)
+    if arch:
+        print(f"slim architecture: {arch}")
+    spec = model_spec(cfg, cfg.train_crop_size, arch)
     if spec.family in ("vit", "swin") and cfg.val_crop_size != cfg.train_crop_size:
         # pos-embeddings are sized at construction: the epoch-end eval would
         # fail after a full epoch of training (the JAX driver refuses every
@@ -136,7 +149,7 @@ def build_session(cfg: TrainConfig, params=None, cmd: str = "train") -> Session:
         eval_step_ema=make_eval_step(cfg.num_classes, ls, compute_dtype, use_ema=True),
         normalize=make_device_normalize(random_erase_prob=cfg.random_erase), mixup=mixup,
         writer=MetricsWriter(cfg.metrics_path or os.path.join(cfg.output_dir, "metrics.jsonl")),
-        train_ds=train_ds, val_ds=val_ds, device=dev)
+        train_ds=train_ds, val_ds=val_ds, device=dev, arch_overrides=arch)
 
 
 class DeviceBatches:
@@ -229,7 +242,8 @@ def _sparsity(state: TrainState) -> float:
 def _checkpoint_fn(s: Session, method: str, tag):
     """``save(state, epoch, sparsity, latest=False)``: the epoch's file, or
     the rolling latest (a copy of the epoch's file when that was just
-    written from the same state)."""
+    written from the same state); with the session's ``.slim.json``
+    sidecar beside it when it was resumed from a slimmed checkpoint."""
     cfg = s.cfg
     written = {}
 
@@ -244,6 +258,8 @@ def _checkpoint_fn(s: Session, method: str, tag):
             save_train_checkpoint(path, state, epoch, sparsity)
             if not latest:
                 written.update(epoch=epoch, path=path)
+        if s.arch_overrides:
+            write_sidecar(path, cfg.model, s.arch_overrides)
         LAST_RUN["t_last_checkpoint"] = time.time()
 
     return save

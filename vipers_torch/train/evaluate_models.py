@@ -5,6 +5,9 @@ Find a pruning sweep's ``.pth`` files, load each (its masks from the
 ``weight_orig`` / ``weight_mask`` pairs), count the sparsity, evaluate
 top-1/5 and append ``{split}/acc1 ... custom_x_axis {sparsity}`` lines to
 ``{output_dir}/{model}_dilation_{d}.txt``, then write ``performance.txt``.
+Structurally slimmed checkpoints (``{model}_slim_*.pth``, flat or under
+``{model}/``) are evaluated beside the dense ones, each at its
+``.slim.json`` sidecar's widths.
 
 The eval runs in f32 whatever ``--amp`` says, as the JAX sweep builds its
 eval step at the default f32 (the train driver's epoch-end eval is the
@@ -19,6 +22,7 @@ package does.
 from __future__ import annotations
 
 import glob as globlib
+import json
 import os
 import re
 import types
@@ -33,6 +37,7 @@ from vipers_torch.core.metrics import MetricsWriter
 from vipers_torch.data.imagefolder import ImageFolder
 from vipers_torch.data.preprocess import eval_decode, make_device_normalize
 from vipers_torch.pruning import compute_sparsity_global, init_masks
+from vipers_torch.pruning.structured import arch_sidecar
 from vipers_torch.train.loop import evaluate
 from vipers_torch.train.optim import OptimConfig
 from vipers_torch.train.steps import create_train_state, load_weights, make_eval_step
@@ -66,20 +71,22 @@ def _voc_eval_batches(cfg: TrainConfig, normalize_fn, device, dataset: str = "VO
         yield normalize_fn(torch.from_numpy(images).to(device)), labels
 
 
-def _eval_only_session(cfg: TrainConfig, with_val: bool = False):
-    """The model at the EVAL crop (a ResNet with ``--resnet-dilate``), its
-    all-ones masks, the f32 eval step and the normalize, without the
-    training machinery; ``with_val`` also opens ``{data_path}/val`` as an
-    ImageFolder."""
+def _eval_only_session(cfg: TrainConfig, with_val: bool = False,
+                       arch_overrides: dict = None, val_ds=None):
+    """The model at the EVAL crop (a ResNet with ``--resnet-dilate``; a
+    slimmed checkpoint's widths with ``arch_overrides``), its all-ones
+    masks, the f32 eval step and the normalize, without the training
+    machinery; ``with_val`` also opens ``{data_path}/val`` as an
+    ImageFolder (or takes ``val_ds``)."""
     from vipers_torch.train.driver import model_spec
 
     dev = resolve_device(cfg.device)
-    spec = model_spec(cfg, cfg.val_crop_size)
+    spec = model_spec(cfg, cfg.val_crop_size, arch_overrides)
     params = spec.init(torch.Generator().manual_seed(cfg.seed))
     state = create_train_state(spec, params, init_masks(params, exclude=spec.prune_exclude),
                                OptimConfig(), 1, device=dev)
-    val_ds = (ImageFolder(os.path.join(cfg.data_path, "val"), cache_dir=cfg.cache_dataset)
-              if with_val else None)
+    if with_val and val_ds is None:
+        val_ds = ImageFolder(os.path.join(cfg.data_path, "val"), cache_dir=cfg.cache_dataset)
     return types.SimpleNamespace(cfg=cfg, spec=spec, state=state, val_ds=val_ds, device=dev,
                                  eval_step=make_eval_step(cfg.num_classes,
                                                           compute_dtype=torch.float32),
@@ -92,8 +99,8 @@ def sweep_checkpoints(sweep_dir: str, model: str) -> list:
     pruning_iteration_NN.pth`` (CNNs) and ``{model}/{model}_epoch_*...``
     (ViTs) and the flat ``{sweep_dir}/{model}_epoch_*_pruning_iteration_*``
     the train driver writes; else any ``*_epoch_*`` checkpoint of the model.
-    A structurally slimmed checkpoint (``*_slim_*``) exits naming ROADMAP
-    A4."""
+    Then the structurally slimmed ones (``{model}_slim_*``, flat or under
+    ``{model}/``; their ``.slim.json`` sidecars are not checkpoints)."""
     patterns = [os.path.join(sweep_dir, model, reference_sweep_stem(model, vit=False)),
                 os.path.join(sweep_dir, model, reference_sweep_stem(model, vit=True)),
                 os.path.join(sweep_dir, reference_sweep_stem(model, vit=True))]
@@ -103,10 +110,9 @@ def sweep_checkpoints(sweep_dir: str, model: str) -> list:
     if not ckpts:
         ckpts = sorted(set(globlib.glob(os.path.join(sweep_dir, f"{model}_epoch_*")))
                        | set(globlib.glob(os.path.join(sweep_dir, model, "*_epoch_*"))))
-    if any(globlib.glob(pat) for pat in (os.path.join(sweep_dir, f"{model}_slim_*"),
-                                         os.path.join(sweep_dir, model, "*_slim_*"))):
-        raise SystemExit("vipers_torch evaluate: a structurally slimmed checkpoint "
-                         "(_slim_) is not ported yet (ROADMAP A4)")
+    ckpts += sorted(p for pat in (os.path.join(sweep_dir, f"{model}_slim_*"),
+                                  os.path.join(sweep_dir, model, "*_slim_*"))
+                    for p in globlib.glob(pat) if not p.endswith(".json") and p not in ckpts)
     return ckpts
 
 
@@ -129,26 +135,37 @@ def run_sweep(cfg: TrainConfig, dilation: int = None, models_path: str = "",
     ckpts = sweep_checkpoints(models_path or cfg.output_dir, cfg.model)
     out_txt = os.path.join(cfg.output_dir, f"{cfg.model}_dilation_{dilation}.txt")
     split = "voc" if voc else "test"
-    base_masks = s.state.masks
+    sessions = {"": (s, s.state.masks)}
     rows = []
     os.makedirs(cfg.output_dir, exist_ok=True)
     with open(out_txt, "a") as f:
         for ckpt in ckpts:
-            params, batch_stats, masks = load_lost_checkpoint(ckpt, s.spec)
-            fam = s.state.family
-            load_weights(s.state.model, fam, params, batch_stats)
-            s.state.masks = ({k: m.to(s.device) for k, m in fam.masks_to_state_dict(masks).items()}
-                             if masks else base_masks)
-            sparsity = compute_sparsity_global(fam.trees(s.state.params)[0],
-                                               fam.masks_from_state_dict(s.state.masks))
+            # a slimmed checkpoint: a session at its widths, one a distinct
+            # architecture in the sweep
+            arch = arch_sidecar(ckpt)
+            key = json.dumps(arch, sort_keys=True) if arch else ""
+            if key not in sessions:
+                sub = _eval_only_session(cfg, with_val=not voc, arch_overrides=arch,
+                                         val_ds=s.val_ds)
+                sessions[key] = (sub, sub.state.masks)
+            sess, base_masks = sessions[key]
+            params, batch_stats, masks = load_lost_checkpoint(ckpt, sess.spec)
+            fam = sess.state.family
+            load_weights(sess.state.model, fam, params, batch_stats)
+            sess.state.masks = ({k: m.to(sess.device)
+                                 for k, m in fam.masks_to_state_dict(masks).items()}
+                                if masks else base_masks)
+            sparsity = compute_sparsity_global(fam.trees(sess.state.params)[0],
+                                               fam.masks_from_state_dict(sess.state.masks))
             if voc:
                 acc1, acc5, loss = evaluate(
-                    s.eval_step, s.state,
-                    _voc_eval_batches(cfg, s.normalize, s.device, voc_dataset, voc_set))
+                    sess.eval_step, sess.state,
+                    _voc_eval_batches(cfg, sess.normalize, sess.device, voc_dataset, voc_set))
             else:
                 acc1, acc5, loss = evaluate(
-                    s.eval_step, s.state, DeviceBatches(val_loader(cfg, s.val_ds), s.device, "val"),
-                    normalize_fn=s.normalize, expected_samples=len(s.val_ds))
+                    sess.eval_step, sess.state,
+                    DeviceBatches(val_loader(cfg, sess.val_ds), sess.device, "val"),
+                    normalize_fn=sess.normalize, expected_samples=len(sess.val_ds))
             for name, val in (("acc1", acc1), ("acc5", acc5), ("loss", loss)):
                 f.write(f"{split}/{name} {val} custom_x_axis {sparsity}\n")
             rows.append((acc1, sparsity))
