@@ -96,7 +96,7 @@ Phases (any failure exits non-zero; nothing is caught):
      flash, 24 fused MLP at D = 1024); vit_h_14 (32 layers, D 1280, 16
      heads of 80) at 504x392 (T = 1009 -> 1024) in f32 and bf16 (32 hd-80
      flash launches a batch, 32 fused MLP at D = 1280 in bf16), bf16 img/s
-     and p50, one f32 call's time, card vs CPU on its first 8 blocks at
+     and p50, one f32 call's time, card vs CPU on its first 4 blocks at
      B=2 (the cut printed);
  11. vit_h_14 pruned and trained, full width and depth (32 blocks, D
      1280, 16 heads of 80, mlp 5120, 1000 classes, seed-0 weights, 50%
@@ -107,14 +107,14 @@ Phases (any failure exits non-zero; nothing is caught):
      785 -> 896: 32 hd-80 flash forward and backward a step), each card vs
      CPU on its first 4 blocks at B=2 (f32 params after 2 steps within
      1e-4, at 392 through the f32 hd-80 flash kernels, counted; bf16 loss
-     and gradients); SNIP at 392 in f32: card vs CPU on the 8-block cut
+     and gradients); SNIP at 392 in f32: card vs CPU on the 4-block cut
      (masks at the target sparsity, equal up to threshold ties), then at
      full depth, B=8, on the card (32 f32 hd-80 flash forward and backward
      launches), then 2 bf16 steps from its masks;
  12. the pruning entry points through the CLI (``train_cli_phase``):
      ``vipers_torch.cli.main train --amp`` on ViT-B/16 at full width and
      depth (1000 classes, weights from the CLI's seed 42, 224x224, B=128, 8 decode
-     threads) on an ImageFolder of 1024 train and 256 val symlinks to the 8
+     threads) on an ImageFolder of 512 train and 256 val symlinks to the 8
      fixture JPEGs: SNIP to 50% for one epoch, then LRR (rate 0.2,
      threshold 36: two iterations of one epoch); ``evaluate --amp`` over
      the LRR checkpoints; ``lost`` from the iteration-01 checkpoint on 128
@@ -178,9 +178,9 @@ Phases (any failure exits non-zero; nothing is caught):
      1*12, T = 769, hd 64, no key mask; SDPA and its backward as the
      library calls); ``explain-eval --model vit_b_16`` (full width and
      depth, seed-0 weights, 50% global magnitude masks, a .pth through the
-     port's exporter) on the 8 fixture JPEGs with SegmentationClass PNGs
-     drawn from their XML boxes, each at its own size padded to 16 (T =
-     577-769): 11 flash forwards a model forward (the last block returns
+     port's exporter) on the first 4 of the 8 fixture JPEGs with
+     SegmentationClass PNGs drawn from their XML boxes, each at its own
+     size padded to 16: 11 flash forwards a model forward (the last block returns
      its attention), 11 flash backwards an IG gradient (2 x 50 of them),
      none for GradCAM's backward, asserted exactly, 0 launches of every
      other row; the three txt files; e2e img/s and ms per method an image;
@@ -196,7 +196,7 @@ Phases (any failure exits non-zero; nothing is caught):
      >= 0.999 with the CPU's at eps 1e-2, the card's (flash and einsum
      routes) and the CPU's distances from an f64 CPU run printed; IG's profile (wall, device
      busy share, kernels a gradient, GEMM and flash shares); ``mvh`` on
-     ResNet-50 and ViT-B/16 (B=1, 2 batches of 224 crops, no checkpoint):
+     ResNet-50 and ViT-B/16 (B=1, 1 batch of 224 crops, no checkpoint):
      the CSV's 19 rows, distorted img/s and the share of the host's numpy
      distortions; 0 launches in explain and mvh.
  16. the DINO ViTs, cluster and dropout (``dino_phase``), random weights
@@ -248,6 +248,27 @@ Phases (any failure exits non-zero; nothing is caught):
      checkpoints; ResNet-50 (``--inner-keep 0.5``), VGG16 (``--conv-keep
      0.5 --fc-keep 0.5``) and swin_v2_t (``--mlp-keep 0.5``) through
      ``slim`` and ``evaluate`` of both checkpoints, 0 launches.
+ 18. int8 quantization (``quantize_phase``): the card's int32
+     accumulators of ``matmul_int32`` (cuBLASLt's int8 GEMM through
+     ``torch._int_mm``, zero-padded where it refuses a shape) and
+     ``conv_int32`` (im2col + GEMM; depthwise per tap) at the int8 paths'
+     shapes (ViT-S/16 and ViT-B/16 LOST GEMMs at M = 128*896, the heads, M
+     <= 16, K = 9; mobilenet_v2's and ResNet-50's convolutions at 224,
+     B=128), extreme operands included, equal to the CPU's int32; row 1
+     bf16 at the int8 LOST shapes (B*H = 128*6 and 128*12, T = 896, 769
+     tokens) against its plain version; ``lost --dtype int8``'s pipeline on
+     full-width ViT-S/16 (seed 0, 50% mask) at 512x384, B=128, dynamic
+     qparams, exact-fit and mixed buckets: 12 bf16 flash launches and 26
+     ``_int_mm`` calls a batch, 0 fused MLP; int8 and bf16 img/s and p50;
+     card vs CPU on its first 2 blocks (features within 2e-2 of their
+     scale, boxes equal up to ties); ``quantize --mode ptq`` of phase 12's
+     ViT-B/16 checkpoint (f32, 2 calibration batches of 128, 26 sites),
+     then ``lost --model vit_b_16 --dtype int8`` from the .pth it writes
+     (static qparams) on 256 JPEGs (12 flash launches a batch, 0 fused
+     MLP); ``quantize --mode ptq`` and one QAT epoch (4 steps of 128,
+     f32) on quantized_mobilenet_v2 and quantized_resnet50 at 224 on phase
+     12's ImageFolder: no launch, finite losses and observers, the JAX
+     package's lines and files.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
@@ -1018,7 +1039,7 @@ def packed_lost_phase(card, spec, extractors, buckets, default_outs, lost_core):
 # patch size: 512x384 at 16 and 32, 504x392 at 14, T = 1009 seq-padded to
 # 1024 for vit_h_14) and the cut of vit_h_14's CPU comparison.
 FAMILY_HW = {16: (H, W), 32: (H, W), 14: (504, 392)}
-VIT_H_CPU_LAYERS, VIT_H_CPU_BATCH = 8, 2
+VIT_H_CPU_LAYERS, VIT_H_CPU_BATCH = 4, 2
 
 
 def to_device(tree, dev, dtype=None):
@@ -1536,7 +1557,7 @@ def check_first_batch(tag, pth, data, items, out, failed, dtype, model="vit_s_16
 
     names = first_batch(items, BATCH)
     spec = build_model(model)  # 1000 classes at 224x224, as the checkpoint
-    params, _, masks = load_lost_checkpoint(pth, spec)
+    params, _, masks, _ = load_lost_checkpoint(pth, spec)
     ex = LostFeatureExtractor(spec, params, masks, device="cuda",
                               compute_dtype=torch.bfloat16 if dtype == "bf16" else None)
     dec = [native.decode_pad(os.path.join(data, "JPEGImages", f"{n}.jpg"), PATCH) for n in names]
@@ -1960,7 +1981,7 @@ def vit_h_phase(card, counters):
 
 # Phase 12: the pruning entry points through the CLI, ViT-B/16 at full
 # width and depth on a synthetic ImageFolder of the fixture JPEGs.
-N_TRAIN_IMAGES, N_VAL_IMAGES, N_LOST_IMAGES = 1024, 256, 128
+N_TRAIN_IMAGES, N_VAL_IMAGES, N_LOST_IMAGES = 512, 256, 128
 CUT_BLOCKS, CUT_BATCH = 2, 8  # the f32 card-vs-CPU cut of the driver
 
 
@@ -2190,7 +2211,7 @@ def run_cli_without_kernels(cli, argv, counters):
     return time.perf_counter() - t0
 
 
-def train_cli_phase(card, counters):
+def train_cli_phase(card, counters, keep_pth=None):
     """Phase 12: ``vipers_torch train`` and ``evaluate`` on ViT-B/16 (12
     blocks, D 768, 12 heads of 64, mlp 3072, 1000 classes, the CLI's seed-42
     weights)
@@ -2208,7 +2229,8 @@ def train_cli_phase(card, counters):
     (``driver_card_vs_cpu``). Prints train e2e img/s (first decode to last
     checkpoint), step img/s (best of 3 windows of 6 steps), decode-only
     img/s on the RRC path (8 threads, 1), evaluate img/s. Returns the
-    launches of its CLI runs by kernel row."""
+    launches of its CLI runs by kernel row; ``keep_pth`` receives a copy
+    of the iteration-01 checkpoint (phase 18 quantizes it)."""
     import dataclasses
     import json
     import pickle
@@ -2361,6 +2383,9 @@ def train_cli_phase(card, counters):
         print(f"lost --checkpoint vit_b_16_epoch_0_pruning_iteration_01.pth: {len(preds)} "
               f"boxes in preds.pkl, {len(lrun['failed'])} seeds in the background, "
               f"{lrun['images'] / lrun['decode_to_preds_seconds']:.1f} img/s e2e ({card})")
+        if keep_pth:
+            shutil.copyfile(os.path.join(lrr_out, "vit_b_16_epoch_0_pruning_iteration_01.pth"),
+                            keep_pth)
         shutil.rmtree(lrr_out)
 
         # step img/s: the CLI's session and batch, best of 3 windows of 6 steps
@@ -2478,7 +2503,7 @@ def check_first_cnn_batch(tag, pth, data, items, out, failed, model, dilate):
     from vipers_torch.discovery.lost import box_feat_to_image
 
     spec = build_model(model, **({"dilate": dilate} if dilate != 1 else {}))
-    params, stats, masks = load_lost_checkpoint(pth, spec)
+    params, stats, masks, _ = load_lost_checkpoint(pth, spec)
     if spec.num_classes:
         from vipers_torch.core.checkpoint import infer_num_classes
 
@@ -2972,7 +2997,7 @@ def check_first_image(tag, pth, voc, items, out, failed, model, extra, dtype=tor
     from vipers_torch.discovery.lost import lost
 
     spec = build_model(model, **extra)
-    params, stats, masks = load_lost_checkpoint(pth, spec)
+    params, stats, masks, _ = load_lost_checkpoint(pth, spec)
     if spec.num_classes and infer_num_classes(params) is not None:
         spec = build_model(model, num_classes=infer_num_classes(params), **extra)
     ex = LostFeatureExtractor(spec, params, masks, compute_dtype=dtype, batch_stats=stats,
@@ -3127,7 +3152,7 @@ def swin_phase(card, counters, resnet_pth=None):
     width and depth (1000 classes, the CLI's seed-42 weights, stochastic
     depth 0.2), torchvision's published recipe (256 crops, val resize 260,
     bicubic), ``--amp --batch-size 128 --workers 8`` on phase 12's
-    ImageFolder (1024 train, 256 val symlinks to the 8 fixture JPEGs):
+    ImageFolder (512 train, 256 val symlinks to the 8 fixture JPEGs):
     ``train`` SNIP to 50% for one epoch, then LRR (rate 0.2, threshold 35.9:
     two iterations of one epoch; two rounds leave 35.99999945%, so 36 would
     take a third); ``evaluate --amp`` over the LRR checkpoints; ``lost
@@ -3299,12 +3324,12 @@ def swin_phase(card, counters, resnet_pth=None):
 
         # the per-image LOST path f32, card vs CPU
         spec = build_model(m)
-        params, _, masks = load_lost_checkpoint(ckpts[1], spec)
+        params, _, masks, _ = load_lost_checkpoint(ckpts[1], spec)
         for tag, all_windows in (("swin first window", False), ("swin all windows", True)):
             per_image_card_vs_cpu(tag, spec, params, masks, None, card,
                                   swin_all_windows=all_windows)
         rspec = build_model(CNN_MODEL, dilate=CNN_DILATE)
-        rparams, rstats, rmasks = load_lost_checkpoint(resnet_pth, rspec)
+        rparams, rstats, rmasks, _ = load_lost_checkpoint(resnet_pth, rspec)
         per_image_card_vs_cpu("resnet50 --exact-shapes", rspec, rparams, rmasks, rstats, card,
                               cnn_bucket=1)
         shutil.rmtree(lrr_out)
@@ -3380,6 +3405,7 @@ def swin_phase(card, counters, resnet_pth=None):
 
 
 EXPLAIN_HEADS, EXPLAIN_T = 12, 769  # ViT-B/16 on the fixture's 500x375 image, padded
+EXPLAIN_EVAL_IMAGES = 4  # of the 8 fixture JPEGs
 
 
 def check_flash_explain(fa, gen):
@@ -3604,7 +3630,8 @@ def explain_phase(card, counters, fa, gen):
         pth = os.path.join(root, "vit_b_16.pth")
         save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), pth)
         voc = os.path.join(root, "voc")
-        sizes = explain_voc(voc)
+        # explain-eval scores the first EXPLAIN_EVAL_IMAGES of them (sorted)
+        sizes = dict(list(explain_voc(voc).items())[:EXPLAIN_EVAL_IMAGES])
         tokens = sorted({(-(-h // 16)) * (-(-w // 16)) + 1 for w, h in sizes.values()})
 
         # explain-eval: the kernel path
@@ -3614,7 +3641,8 @@ def explain_phase(card, counters, fa, gen):
         xd.LAST_RUN.clear()
         t0 = time.perf_counter()
         assert cli(["explain-eval", "--model", "vit_b_16", "--checkpoint", pth,
-                    "--voc-root", voc, "--output-dir", out]) == 0
+                    "--voc-root", voc, "--num-images", str(EXPLAIN_EVAL_IMAGES),
+                    "--output-dir", out]) == 0
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         n = len(sizes)
@@ -3692,14 +3720,14 @@ def explain_phase(card, counters, fa, gen):
         explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem)
         del card_model, cpu_model
 
-        # mvh: ResNet-50 and ViT-B/16, 2 batches of 1 image at 224
+        # mvh: ResNet-50 and ViT-B/16, 1 batch of 1 image at 224
         for model in ("resnet50", "vit_b_16"):
             out = os.path.join(root, f"mvh_{model}")
             torch.cuda.synchronize()
             reset_counts(*counters)
             t0 = time.perf_counter()
             assert cli(["mvh", "--model", model, "--data-path", data, "--batch-size", "1",
-                        "--max-batches", "2", "--workers", "2", "--pruning-step", "1",
+                        "--max-batches", "1", "--workers", "2", "--pruning-step", "1",
                         "--output-dir", out]) == 0
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
@@ -4426,7 +4454,7 @@ def slim_lost(card, counters, gen):
         from vipers_torch.discovery.driver import LostFeatureExtractor, load_lost_checkpoint
 
         slim_spec = build_model("vit_s_16", arch_overrides=arch_sidecar(slims["m768_h4"]))
-        sp, _bs, sm = load_lost_checkpoint(slims["m768_h4"], slim_spec)
+        sp, _bs, sm, _ = load_lost_checkpoint(slims["m768_h4"], slim_spec)
         hw = [(H, W)] * BATCH
         imgs = make_images(np.random.default_rng(5), hw)
         exs = {"dense": LostFeatureExtractor(spec, params, masks),
@@ -4602,6 +4630,305 @@ def slim_phase(card, counters, gen):
     launches.update(ft_launches)
     slim_cnn_families(card, counters)
     print(f"phase 17 structured slimming: {time.time() - t_phase:.1f} s")
+    return rows, launches
+
+
+# Phase 18: int8 quantization. The int8 products are library calls (the
+# int8 GEMM of torch._int_mm), not kernels of the port: its kernels' rows
+# are row 1's at the int8 LOST path's shapes, and row 4 must read 0.
+QUANT_BATCHES = "2"  # PTQ calibration batches of 128
+QUANT_CPU_ROWS = 2048  # rows of a card GEMM recomputed on the CPU
+
+
+def int8_accumulators(card):
+    """The card's int32 accumulators of ``matmul_int32`` (cuBLASLt int8
+    GEMM through ``torch._int_mm``, padded where it refuses the shape) and
+    ``conv_int32`` (im2col + GEMM, depthwise per tap) at the int8 paths'
+    shapes, on random int8 operands with all-extreme rows (-128 x 127,
+    -128 x -128), equal to the CPU's plain versions: GEMMs on
+    QUANT_CPU_ROWS sampled rows (a row depends on its own input row only),
+    convolutions on the first 2 images of a B=128 call. Any difference
+    fails the run."""
+    from vipers_torch.train import quantize as tq
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+
+    t0 = time.time()
+    calls0 = tq.INT_MM_CALLS[0]
+    # (M, K, N): ViT-S/16 and ViT-B/16 at the LOST shape (patch embedding,
+    # fc1, fc2, head), mobilenet_v2's classifier (N = 1000) and the
+    # padded shapes (M <= 16, K = 9, N % 8 != 0)
+    gemms = [(BATCH * 768, 768, 384), (BATCH * 896, 384, 1536), (BATCH * 896, 1536, 384),
+             (BATCH, 384, 1000), (BATCH * 896, 768, 3072), (BATCH * 896, 3072, 768),
+             (BATCH, 1280, 1000), (7, 9, 12), (16, 24, 1000)]
+    for m, k, n in gemms:
+        a, w = i8(m, k), i8(n, k)
+        a[0], w[0] = -128, 127
+        a[1], w[1] = -128, -128
+        acc = tq.matmul_int32(a, w)
+        rows = torch.unique(torch.cat([torch.arange(min(m, 2), device="cuda"),
+                                       torch.randint(0, m, (min(m, QUANT_CPU_ROWS),),
+                                                     generator=g, device="cuda")]))
+        want = tq.matmul_int32(a[rows].cpu(), w.cpu())
+        assert acc.dtype == torch.int32 and torch.equal(acc[rows].cpu(), want), (m, k, n)
+    # (name, C, H, O, kernel, stride, pad, dilation, groups) at 224: mobilenet_v2's
+    # stem, depthwise (strided and not) and a 1x1; ResNet-50's stem, a 3x3, a
+    # strided 1x1 downsample; its dilated 3x3 of the LOST path (dilate 2)
+    convs = [("mobilenet stem", 3, 224, 32, 3, 2, 1, 1, 1),
+             ("mobilenet depthwise s2", 96, 112, 96, 3, 2, 1, 1, 96),
+             ("mobilenet depthwise", 144, 56, 144, 3, 1, 1, 1, 144),
+             ("mobilenet 1x1", 144, 56, 24, 1, 1, 0, 1, 1),
+             ("resnet50 conv1", 3, 224, 64, 7, 2, 3, 1, 1),
+             ("resnet50 3x3", 64, 56, 64, 3, 1, 1, 1, 1),
+             ("resnet50 downsample", 512, 28, 1024, 1, 2, 0, 1, 1),
+             ("resnet50 dilated 3x3", 512, 24, 512, 3, 1, 2, 2, 1)]
+    for name, c, h, o, kk, st, pad, dil, grp in convs:
+        xs = i8(BATCH, c, h + 2 * pad, h + 2 * pad)
+        w = i8(o, c // grp, kk, kk)
+        xs[0] = -128
+        w[0] = 127
+        acc = tq.conv_int32(xs, w, (st, st), (dil, dil), grp)
+        want = tq.conv_int32(xs[:2].cpu(), w.cpu(), (st, st), (dil, dil), grp)
+        assert acc.dtype == torch.int32 and torch.equal(acc[:2].cpu(), want), name
+    torch.cuda.synchronize()
+    print(f"int8 accumulators: {len(gemms)} GEMM shapes (M up to {BATCH * 896}, "
+          f"{QUANT_CPU_ROWS} sampled rows each on the CPU) and {len(convs)} convolutions at "
+          f"B={BATCH} (2 images on the CPU) equal to the CPU's int32, "
+          f"{tq.INT_MM_CALLS[0] - calls0} torch._int_mm calls; {time.time() - t0:.1f} s ({card})")
+
+
+def int8_lost(card, counters, lost_core):
+    """``lost --dtype int8``'s pipeline on full-width ViT-S/16 (seed 0,
+    50% global magnitude mask) at 512x384, B=128, dynamic qparams, on an
+    exact-fit and a mixed bucket: 12 bf16 flash launches a batch (the
+    attention projections stay float), 0 fused-MLP launches, 26
+    ``torch._int_mm`` calls a batch (patch embedding, fc1 and fc2 of 12
+    blocks, head); img/s at B=128 beside bf16's; the features of the card
+    against the CPU's on the model cut to 2 blocks at B=4 (2e-2 of their
+    scale: an activation a bf16 ulp apart takes the neighbouring uint8
+    bin). Returns the int8 batches' flash launches."""
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.pruning import init_masks, magnitude_prune
+    from vipers_torch.train import quantize as tq
+
+    spec = build_model("vit_s_16", num_classes=1000, image_size=(H, W))
+    params = spec.init(torch.Generator().manual_seed(0))
+    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
+                            amount=SPARSITY)
+    rng = np.random.default_rng(18)
+    exact_hw = [(H, W)] * BATCH
+    mixed_hw = [(H, W)] * 8 + [(int(rng.integers(449, H + 1)), int(rng.integers(321, W + 1)))
+                               for _ in range(BATCH - 8)]
+    buckets = {"exact": (make_images(rng, exact_hw), exact_hw),
+               "mixed": (make_images(rng, mixed_hw), mixed_hw)}
+    exs = {"int8": LostFeatureExtractor(spec, params, masks, compute_dtype="int8"),
+           "bf16": LostFeatureExtractor(spec, params, masks, compute_dtype=torch.bfloat16)}
+    layers = spec.cfg.num_layers
+    flash = 0
+    for b, (imgs, hw) in buckets.items():
+        inp = exs["int8"].prepare_batch(imgs, PATCH, exact_hw=hw)
+        pipe = exs["int8"].make_batched_pipeline(K_PATCHES)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        calls0 = tq.INT_MM_CALLS[0]
+        box, seed, bg = (z.cpu() for z in pipe(*inp))
+        torch.cuda.synchronize()
+        got = {"flash bf16": fa.LAUNCHES["bfloat16"], "fused MLP": fm.LAUNCHES["bfloat16"],
+               "every other": all_launches(counters) - fa.LAUNCHES["bfloat16"],
+               "_int_mm": tq.INT_MM_CALLS[0] - calls0}
+        assert got == {"flash bf16": layers, "fused MLP": 0, "every other": 0,
+                       "_int_mm": 2 * layers + 2}, got
+        flash += got["flash bf16"]
+        gh, gw = H // PATCH, W // PATCH
+        assert box.shape == (BATCH, 4) and bool(((box[:, 1] <= gh) & (box[:, 3] <= gw)).all())
+        assert bool(((seed >= 0) & (seed < gh * gw)).all())
+        feats = exs["int8"].batched_features(*inp)
+        assert bool(torch.isfinite(feats).all())
+        print(f"int8 LOST [{b}] vit_s_16 B={BATCH}: launches {got} a batch; seed in the "
+              f"background {int(bg.sum())}/{BATCH}")
+    rates = {}
+    imgs, hw = buckets["exact"]
+    for tag, ex in exs.items():
+        inp = ex.prepare_batch(imgs, PATCH, exact_hw=hw)
+        one = ex.prepare_batch(imgs[:1], PATCH, exact_hw=hw[:1])
+        rates[tag] = throughput(ex.make_batched_pipeline(K_PATCHES), inp, one)
+    print(f"int8 LOST throughput vit_s_16 512x384: int8 {rates['int8'][0]:.1f} img/s "
+          f"(p50 {rates['int8'][1]:.2f} ms at B=1), bf16 {rates['bf16'][0]:.1f} img/s "
+          f"(p50 {rates['bf16'][1]:.2f} ms) at B={BATCH}; int8/bf16 "
+          f"{rates['int8'][0] / rates['bf16'][0]:.3f} ({card})")
+    # card vs CPU on the 2-block cut
+    cspec, cparams, cmasks = cut_model(spec, params, masks, 2)
+    imgs, hw = buckets["mixed"]
+    sub, shw = imgs[:N_CPU], hw[:N_CPU]
+    card_ex = LostFeatureExtractor(cspec, cparams, cmasks, compute_dtype="int8")
+    cpu_ex = LostFeatureExtractor(cspec, cparams, cmasks, compute_dtype="int8", device="cpu")
+    gin, cin = (e.prepare_batch(sub, PATCH, exact_hw=shw) for e in (card_ex, cpu_ex))
+    gf = card_ex.batched_features(*gin).float().cpu()
+    cf = cpu_ex.batched_features(*cin).float()
+    scale = cf.abs().max().item()
+    err = (gf - cf).abs().max().item()
+    gbox, gseed, _ = (z.cpu() for z in card_ex.make_batched_pipeline(K_PATCHES)(*gin))
+    cbox, cseed, _ = cpu_ex.make_batched_pipeline(K_PATCHES)(*cin)
+    scores = lost_core(cf, cin[3], (gin[0].shape[1] // PATCH, gin[0].shape[2] // PATCH),
+                       K_PATCHES)["scores"]
+    for i in range(N_CPU):
+        if gseed[i] == cseed[i]:
+            assert torch.equal(gbox[i], cbox[i]), (i, gbox[i], cbox[i])
+        else:  # a tie at the top score
+            assert scores[i, gseed[i]] == scores[i, cseed[i]] == scores[i].max(), i
+    print(f"int8 LOST card vs CPU (vit_s_16 cut to 2 blocks, B={N_CPU}, mixed bucket): "
+          f"features max_abs_err {err:.3e} of scale {scale:.3g} (2e-2 of it allowed), seeds "
+          f"equal {int((gseed == cseed).sum())}/{N_CPU}, boxes equal where they are")
+    assert err <= 2e-2 * scale, (err, scale)
+    return flash
+
+
+def quantize_cli(cli, argv, counters):
+    """One ``vipers_torch quantize`` or ``lost`` run with the counts set to
+    0 just before it and read just after: (stdout lines, seconds, {row:
+    launches})."""
+    import io
+
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        assert cli(argv) == 0
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(text, end="")
+    return (text.splitlines(), secs,
+            {"flash bf16": fa.LAUNCHES["bfloat16"], "fused MLP": fm.LAUNCHES["bfloat16"],
+             "every": all_launches(counters)})
+
+
+def quantize_runs(card, counters, vit_b_pth):
+    """``vipers_torch quantize --mode ptq`` on phase 12's vit_b_16
+    checkpoint (f32, 2 calibration batches of 128 from phase 12's
+    ImageFolder), then ``lost --model vit_b_16 --dtype int8`` from the
+    ``.pth`` it writes (static qparams from its observers) on 256 JPEGs:
+    12 bf16 flash launches a batch, 0 fused MLP; ``quantize --mode ptq``
+    and one QAT epoch (4 steps, f32) on quantized_mobilenet_v2 and
+    quantized_resnet50 (seed-0 weights, 50% global magnitude masks) at
+    224, B=128. No quantize run launches a kernel (f32, T = 197). Checks
+    the lines and files. Returns the int8 lost run's flash launches."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import family
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.discovery import driver as ldrv
+    from vipers_torch.discovery.driver import load_lost_checkpoint
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    root = tempfile.mkdtemp(prefix="vipers_torch_quantize_")
+    try:
+        data = os.path.join(root, "imagenet")
+        imagefolder_tree(data, N_TRAIN_IMAGES, N_VAL_IMAGES, seed=4)
+        common = ["--data-path", data, "--num-classes", "1000", "--batch-size", str(BATCH),
+                  "--workers", "8", "--calibration-batches", QUANT_BATCHES]
+        # 1. PTQ of phase 12's vit_b_16, then lost --dtype int8 from its .pth
+        out = os.path.join(root, "vit_b_16")
+        lines, secs, got = quantize_cli(cli, ["quantize", "--model", "vit_b_16", "--mode", "ptq",
+                                              "--resume", vit_b_pth, "--output-dir", out,
+                                              *common], counters)
+        assert got["every"] == 0, got
+        assert "26 quantizable activation sites" in lines, lines[:5]
+        assert any(ln.startswith("PTQ int8: acc1 ") for ln in lines)
+        qpth = os.path.join(out, "quantized_post_train_model.pth")
+        spec = build_model("vit_b_16")
+        _p, _s, masks, observers = load_lost_checkpoint(qpth, spec)
+        assert masks and len(observers) == 52, len(observers)
+        print(f"quantize --mode ptq vit_b_16 (phase 12's iteration-01 checkpoint): "
+              f"{secs:.1f} s; {len(observers)} observers in {os.path.basename(qpth)} "
+              f"({os.path.getsize(qpth) / 1e6:.0f} MB); launches {got} ({card})")
+        voc = os.path.join(root, "VOC2007")
+        items = voc_tree(voc, 2 * BATCH, seed=3)
+        lost_out = os.path.join(root, "lost")
+        lines, secs, got = quantize_cli(cli, [
+            "lost", "--model", "vit_b_16", "--patch-size", "16", "--dtype", "int8",
+            "--data-path", voc, "--checkpoint", qpth, "--batch-size", str(BATCH),
+            "--workers", "8", "--output-dir", lost_out], counters)
+        run = dict(ldrv.LAST_RUN)
+        want = 12 * run["batches"]
+        assert got["flash bf16"] == got["every"] == want and got["fused MLP"] == 0, (got, want)
+        with open(os.path.join(lost_out, "preds.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        assert len(preds) == len(items) - len(run["failed"]) > 0
+        print(f"lost --dtype int8 vit_b_16 from the PTQ .pth (static qparams): {len(preds)} "
+              f"boxes, {run['batches']} batches, launches {got}, "
+              f"{run['images'] / run['decode_to_preds_seconds']:.1f} img/s e2e ({card})")
+        lost_flash = got["flash bf16"]
+        # 2. PTQ and one QAT epoch on the quantized_ CNNs
+        for model in ("quantized_mobilenet_v2", "quantized_resnet50"):
+            mspec = build_model(model)
+            params = mspec.init(torch.Generator().manual_seed(0))
+            mmasks = magnitude_prune(params, init_masks(params, exclude=mspec.prune_exclude),
+                                     amount=SPARSITY)
+            ck = os.path.join(root, f"{model}.pth")
+            sd = family(mspec).export_pth(params, None, mmasks, False)
+            torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, ck)
+            for mode in ("ptq", "qat"):
+                out = os.path.join(root, f"{model}_{mode}")
+                extra = (["--epochs", "1", "--lr", "0.001", "--print-freq", "4"]
+                         if mode == "qat" else [])
+                lines, secs, got = quantize_cli(cli, ["quantize", "--model", model, "--mode", mode,
+                                                      "--resume", ck, "--output-dir", out,
+                                                      *common, *extra], counters)
+                assert got["every"] == 0, got
+                name = "quantized_post_train_model.pth" if mode == "ptq" else "qat_checkpoint.pth"
+                _p, stats, _m, obs = load_lost_checkpoint(os.path.join(out, name), mspec)
+                assert stats is not None and obs and all(
+                    np.isfinite(float(o["min"])) and np.isfinite(float(o["max"]))
+                    for o in obs.values())
+                if mode == "qat":
+                    losses = [float(ln.rsplit(" ", 1)[1]) for ln in lines
+                              if ln.startswith("QAT epoch 0 [")]
+                    assert losses and all(np.isfinite(losses)), lines
+                    assert sum(ln.startswith(("Test:QAT", "Test:INT8")) for ln in lines) == 2
+                else:
+                    assert any(ln.startswith("PTQ int8: acc1 ") for ln in lines)
+                n = N_TRAIN_IMAGES if mode == "qat" else int(QUANT_BATCHES) * BATCH
+                print(f"quantize --mode {mode} {model} 224 B={BATCH}: {secs:.1f} s ({n} train "
+                      f"and {2 * N_VAL_IMAGES} val images with the set-up), {len(obs)} "
+                      f"observers, launches {got} ({card})")
+        return lost_flash
+    finally:
+        shutil.rmtree(root)
+
+
+def quantize_phase(card, counters, gen, lost_core, vit_b_pth):
+    """Phase 18: int8 quantization (``int8_accumulators``, ``int8_lost``,
+    ``quantize_runs``) and row 1 against its plain version at the int8 LOST
+    shapes (ViT-S/16 and ViT-B/16, B=128, T = 896 with 769 tokens). Returns
+    (kernel rows, {row name: launches})."""
+    from vipers_torch.ops import flash_attention as fa
+
+    t_phase = time.time()
+    int8_accumulators(card)
+    rows = [check_flash_at(fa, torch.bfloat16, gen, (BATCH, 6, 896, 64), (32, 24), (29, 22),
+                           "int8"),
+            check_flash_at(fa, torch.bfloat16, gen, (BATCH, 12, 896, 64), (32, 24), (29, 22),
+                           "int8, H=12")]
+    torch.cuda.empty_cache()
+    launches = {rows[0]["name"]: int8_lost(card, counters, lost_core)}
+    torch.cuda.empty_cache()
+    launches[rows[1]["name"]] = quantize_runs(card, counters, vit_b_pth)
+    print(f"phase 18 int8 quantization: {time.time() - t_phase:.1f} s")
     return rows, launches
 
 
@@ -4786,42 +5113,53 @@ def main():
     # backward, SNIP
     launches.update(vit_h_phase(card, counters))
     lap(11)
-    # 12. prune -> train -> evaluate -> LOST through the CLI, ViT-B/16
-    train_cli_runs = train_cli_phase(card, counters)
-    lap(12)
-    # 13. the CNN families (ResNet-50, VGG16) through train, evaluate, lost
+    import shutil
     import tempfile
 
+    # phase 12's ViT-B/16 checkpoint (for phase 18) and phase 13's ResNet-50
+    # (for phase 14) live here until the last phase
     keep = tempfile.mkdtemp(prefix="vipers_torch_keep_")
     try:
+        # 12. prune -> train -> evaluate -> LOST through the CLI, ViT-B/16
+        vit_b_pth = os.path.join(keep, "vit_b_16_iteration_01.pth")
+        train_cli_runs = train_cli_phase(card, counters, keep_pth=vit_b_pth)
+        lap(12)
+        # 13. the CNN families (ResNet-50, VGG16) through train, evaluate, lost
         resnet_pth = os.path.join(keep, "resnet50_iteration_01.pth")
         cnn_phase(card, counters, keep_pth=resnet_pth)
         lap(13)
         # 14. Swin-V2-T through train, evaluate, lost; the per-image LOST path
         swin_phase(card, counters, resnet_pth)
+        os.remove(resnet_pth)
         lap(14)
+        # 15. explain and model-vs-human: rows 1 and 12-13 f32 at explain-eval's
+        # shape, explain-eval, explain, card vs CPU, mvh
+        explain_rows, explain_launches = explain_phase(card, counters, fa, gen)
+        kernels += explain_rows
+        launches.update(explain_launches)
+        lap(15)
+        # 16. the DINO ViTs through LOST (--arch dino, --dinoseg) and cluster;
+        # VGG16 training with its dropout; the ViT under attention dropout
+        dino_rows, dino_launches = dino_phase(card, counters, gen, lost_core)
+        kernels += dino_rows
+        launches.update(dino_launches)
+        lap(16)
+        # 17. structured slimming: slim -> lost (rows 1 and 4 at slim shapes),
+        # train --resume (rows 7-8 at 6 heads), evaluate; the CNN families
+        slim_rows, slim_launches = slim_phase(card, counters, gen)
+        kernels += slim_rows
+        launches.update(slim_launches)
+        lap(17)
+        # 18. int8 quantization: the int32 accumulators card vs CPU, lost
+        # --dtype int8 (row 1 in every block, row 4 off), quantize PTQ of
+        # phase 12's checkpoint -> lost --dtype int8, PTQ and QAT on the
+        # quantized_ CNNs
+        quant_rows, quant_launches = quantize_phase(card, counters, gen, lost_core, vit_b_pth)
+        kernels += quant_rows
+        launches.update(quant_launches)
+        lap(18)
     finally:
-        import shutil
-
         shutil.rmtree(keep)
-    # 15. explain and model-vs-human: rows 1 and 12-13 f32 at explain-eval's
-    # shape, explain-eval, explain, card vs CPU, mvh
-    explain_rows, explain_launches = explain_phase(card, counters, fa, gen)
-    kernels += explain_rows
-    launches.update(explain_launches)
-    lap(15)
-    # 16. the DINO ViTs through LOST (--arch dino, --dinoseg) and cluster;
-    # VGG16 training with its dropout; the ViT under attention dropout
-    dino_rows, dino_launches = dino_phase(card, counters, gen, lost_core)
-    kernels += dino_rows
-    launches.update(dino_launches)
-    lap(16)
-    # 17. structured slimming: slim -> lost (rows 1 and 4 at slim shapes),
-    # train --resume (rows 7-8 at 6 heads), evaluate; the CNN families
-    slim_rows, slim_launches = slim_phase(card, counters, gen)
-    kernels += slim_rows
-    launches.update(slim_launches)
-    lap(17)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove

@@ -71,8 +71,8 @@ def test_import_matches_jax_through_a_pth(tree, tmp_path):
         np.testing.assert_array_equal(baked[k], params_at(params, k) * m)
     model = tvit._build("tiny", tvit.ViTConfig(**CFG), (64, 48)).module()
     model.load_state_dict(tck.vit_state_dict_from_flax(tp, tm))
-    p2, s2, m2 = load_lost_checkpoint(str(path),
-                                      tvit._build("tiny", tvit.ViTConfig(**CFG), (64, 48)))
+    p2, s2, m2, _ = load_lost_checkpoint(str(path),
+                                         tvit._build("tiny", tvit.ViTConfig(**CFG), (64, 48)))
     assert s2 is None  # a ViT has no running statistics
     _equal_flat(flatten_dict(p2), baked)
     _equal_flat(m2, tm)

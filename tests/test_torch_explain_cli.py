@@ -165,7 +165,7 @@ def test_explain_eval_batch_files_byte_equal(tmp_path, metric):
 @pytest.mark.parametrize("argv,item", [
     (["explain", "--model", "dino_vit_small"], "A2"),
     (["explain-eval", "--model", "dino_vit_base"], "A2"),
-    (["explain", "--model", "mobilenet_v2"], "A5"),
+    (["explain", "--model", "mobilenet_v2"], "A8"),
 ])
 def test_unported_models_exit_naming_their_item(argv, item, tmp_path):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):

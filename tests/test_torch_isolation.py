@@ -173,3 +173,33 @@ def test_slim_cli_default_device_raises_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["lost", "--data-path", data, "--checkpoint", str(tmp_path / "m_slim.pth"),
               "--output-dir", str(tmp_path / "unused")])
+
+
+# the modules quantization brought in
+QUANT_SLICE = ("vipers_torch/train/quantize.py", "vipers_torch/models/mobilenet.py",
+               "vipers_torch/tools/bench_int8.py")
+
+
+@pytest.mark.parametrize("rel", QUANT_SLICE)
+def test_quant_slice_files_import_no_jax(rel):
+    path = REPO / rel
+    assert path in _port_files()
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, (rel, bad)
+
+
+@pytest.mark.parametrize("argv", [
+    ["quantize", "--model", "quantized_mobilenet_v2", "--resume", "m.pth"],
+    ["lost", "--dtype", "int8"]], ids=["quantize", "lost-int8"])
+def test_quant_cli_default_device_raises_without_a_card(argv, tmp_path):
+    """``vipers_torch quantize`` and ``lost --dtype int8`` without
+    ``--device`` run on the card or raise before they write a file."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from vipers_torch.cli.main import main
+
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([*argv, "--data-path", str(REPO / "tests" / "data" / "torch_voc"),
+              "--output-dir", str(out)])
+    assert not out.exists()

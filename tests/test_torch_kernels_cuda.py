@@ -1064,3 +1064,75 @@ def test_flash_kernel_at_a_slim_head_count(cuda, dtype, atol, rtol):
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == torch.float32 else 2e-2,
                                rtol=1e-4)
+
+
+# ---- int8 quantization: the library's int8 products must give the CPU's
+# ---- int32 accumulators exactly, whatever route the shape takes
+
+def _int8(shape, gen):
+    return torch.randint(-128, 128, shape, generator=gen, dtype=torch.int32).to(torch.int8)
+
+
+@pytest.mark.parametrize("m,k,n", [(33, 64, 24), (7, 9, 12), (16, 24, 1000),
+                                   (4096, 384, 1536), (128, 1280, 1000)])
+def test_int8_matmul_accumulators_equal_the_cpu(cuda, m, k, n):
+    """``matmul_int32`` on the card (``torch._int_mm``; M <= 16, K and N
+    off a multiple of 8 zero-padded) equals the CPU's int32 product, with
+    all-extreme rows (-128 x 127, -128 x -128)."""
+    from vipers_torch.train import quantize as tq
+
+    g = torch.Generator().manual_seed(m + k + n)
+    a, w = _int8((m, k), g), _int8((n, k), g)
+    a[0], w[0] = -128, 127
+    a[1], w[1] = -128, -128
+    calls = tq.INT_MM_CALLS[0]
+    got = tq.matmul_int32(a.to(cuda), w.to(cuda))
+    assert tq.INT_MM_CALLS[0] == calls + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), tq.matmul_int32(a, w))
+
+
+@pytest.mark.parametrize("c,h,o,kk,st,dil,grp", [
+    (16, 12, 24, 3, 1, 1, 1), (16, 13, 8, 3, 2, 1, 1), (8, 14, 16, 3, 1, 2, 1),
+    (24, 13, 24, 3, 2, 1, 24), (16, 14, 16, 3, 1, 2, 16), (8, 9, 12, 3, 1, 1, 2),
+    (32, 11, 40, 1, 2, 1, 1), (3, 29, 16, 7, 2, 1, 1)],
+    ids=["3x3", "strided", "dilated", "depthwise-strided", "depthwise-dilated", "grouped",
+         "1x1-strided", "7x7"])
+def test_int8_conv_accumulators_equal_the_cpu(cuda, c, h, o, kk, st, dil, grp):
+    """``conv_int32`` on the card (im2col + ``_int_mm``, depthwise per tap)
+    equals the CPU's int32 convolution, extreme operands included."""
+    from vipers_torch.train import quantize as tq
+
+    g = torch.Generator().manual_seed(c * h + o)
+    xs, w = _int8((2, c, h, h), g), _int8((o, c // grp, kk, kk), g)
+    xs[0], w[0] = -128, 127
+    got = tq.conv_int32(xs.to(cuda), w.to(cuda), (st, st), (dil, dil), grp)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), tq.conv_int32(xs, w, (st, st), (dil, dil), grp))
+
+
+def test_int8_lost_keeps_the_fused_mlp_off(cuda):
+    """A bf16 ViT forward under the int8 sites runs fc1 as a Dense call:
+    the flash kernel launches in each block, the fused MLP never; the same
+    forward in bf16 fuses. The card's int8 features are within 2e-2 of
+    their scale of the CPU's."""
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+    from vipers_torch.models.vit import ViTConfig, _build
+
+    spec = _build("tiny", ViTConfig(16, 2, 6, 384, 1536, 0), (512, 384))
+    params = spec.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 255, (512, 384, 3), dtype=np.uint8) for _ in range(2)]
+    hw = [(512, 384)] * 2
+    feats = {}
+    for tag, dt, dev in (("int8", "int8", "cuda"), ("bf16", torch.bfloat16, "cuda"),
+                         ("cpu", "int8", "cpu")):
+        ex = LostFeatureExtractor(spec, params, compute_dtype=dt, device=dev)
+        inp = ex.prepare_batch(imgs, 16, exact_hw=hw)
+        f0, m0 = tfa.LAUNCHES["bfloat16"], tfm.LAUNCHES["bfloat16"]
+        feats[tag] = ex.batched_features(*inp).float().cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert tfa.LAUNCHES["bfloat16"] - f0 == 2
+            assert tfm.LAUNCHES["bfloat16"] - m0 == (0 if tag == "int8" else 2), tag
+    scale = feats["cpu"].abs().max().item()
+    assert (feats["int8"] - feats["cpu"]).abs().max().item() <= 2e-2 * scale

@@ -145,7 +145,7 @@ def _seeds_and_scores(voc, im_name):
 
     img, hw = native.decode_pad(os.path.join(voc["data"], "JPEGImages", im_name), 16)
     spec = build_model("vit_s_16")
-    params, _, masks = load_lost_checkpoint(voc["pth"], spec)
+    params, _, masks, _ = load_lost_checkpoint(voc["pth"], spec)
     tex = LostFeatureExtractor(spec, params, masks, device="cpu")
     tin = tex.prepare_batch([img], 16, exact_hw=[hw])
     tseed = int(tex.make_batched_pipeline()(*tin)[1][0])
@@ -262,12 +262,13 @@ def test_seed_in_background_collected_or_strict(voc, monkeypatch, tmp_path, caps
     (["--arch", "resnet", "--exact-shapes", "--visualize", "pred"], "A11"),
     (["--arch", "swin", "--model", "swin_v2_t", "--visualize", "pred"], "A11"),
     (["--model", "mobilenet_v2"], "A5"),
-    (["--dtype", "int8"], "A9"),
+    (["--dtype", "int8", "--data-parallel"], "A10"),
     (["--visualize", "pred"], "A11"), (["--data-parallel"], "A10"),
     (["--sequence-parallel"], "A10"),
     (["--arch", "resnet", "--model", "resnet50", "--resnet-dilate", "2", "--cnn-bucket", "1",
       "--data-parallel"], "A10"),
-    (["--arch", "swin", "--model", "swin_v2_t", "--dtype", "int8"], "A9"),
+    (["--arch", "swin", "--model", "swin_v2_t", "--dtype", "int8", "--visualize", "pred"],
+     "A11"),
     (["--arch", "swin", "--model", "swin_v2_t", "--swin-all-windows", "--sequence-parallel"],
      "A10")])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):

@@ -164,11 +164,11 @@ def test_train_and_evaluate_default_device_raise_without_a_card(data, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "mobilenet_v2"], "A5"),
+    (["--model", "mobilenet_v2", "--data-parallel"], "A10"),  # mobilenet passes it too
     (["--model", "resnet50", "--data-parallel"], "A10"),  # the CNNs pass the model check
     (["--model", "swin_v2_t", "--data-parallel"], "A10"),  # Swin trains on one device
     (["--model", "dino_vit_small"], "A2"),
-    (["--model", "quantized_resnet18"], "A9"),
+    (["--model", "quantized_resnet18", "--debug-nans"], "A11"),  # so do the aliases
     (["--model", "resnet18", "--resnet-dilate", "2", "--debug-nans"], "A11"),
     (["--model", NAME, "--pipeline-parallel", "2"], "A10"),
     (["--model", NAME, "--pp-remat"], "A10"),

@@ -175,7 +175,7 @@ def test_pth_loads_through_lost_loader(snip_runs):
     the same run within the parameter tolerance."""
     js, ts, _, _ = snip_runs
     path = os.path.join(ts.cfg.output_dir, f"{NAME}_epoch_0_snip_0.5.pth")
-    params, stats, masks = load_lost_checkpoint(path, ts.spec)
+    params, stats, masks, _ = load_lost_checkpoint(path, ts.spec)
     assert stats is None
     own = _port_flat(ts.state.params)
     tmasks = {p: m.numpy() for p, m in tck.vit_masks_from_state_dict(ts.state.masks).items()}

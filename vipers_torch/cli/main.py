@@ -1,6 +1,6 @@
 """The port's command line (the ``train``, ``evaluate``, ``lost``,
 ``corloc``, ``cluster``, ``explain``, ``explain-eval``,
-``explain-eval-batch``, ``mvh`` and ``slim`` subcommands of
+``explain-eval-batch``, ``mvh``, ``slim`` and ``quantize`` subcommands of
 ``vipers/cli/main.py``, with the same flags and defaults, plus
 ``--device``)::
 
@@ -30,9 +30,13 @@
         --data-path imagenet --pruning-step 3 --output-dir mvh [--stimuli-root stimuli]
     python -m vipers_torch.cli.main slim --model vit_s_16 --checkpoint model.pth \
         --mlp-keep 0.5 --heads-keep 0.5 --output-dir slim   # vit_s_16_slim_m768_h4.pth
+    python -m vipers_torch.cli.main quantize --model quantized_mobilenet_v2 \
+        --data-path imagenet --resume model.pth --mode ptq --output-dir q
+    python -m vipers_torch.cli.main lost --model vit_s_16 --dtype int8 \
+        --data-path VOC2007 --checkpoint q/quantized_post_train_model.pth
 
 ``train``, ``evaluate``, ``lost``, ``cluster``, ``explain``,
-``explain-eval`` and ``mvh`` run on the card unless given ``--device cpu``; there is no silent
+``explain-eval``, ``mvh`` and ``quantize`` run on the card unless given ``--device cpu``; there is no silent
 fallback (``explain-eval-batch`` scores saved maps with numpy on the host
 and only accepts the flag; ``slim`` is host numpy and has no flag).
 A slimmed checkpoint's ``.slim.json`` sidecar rebuilds the model at its
@@ -239,6 +243,20 @@ def build_parser() -> argparse.ArgumentParser:
     slim.add_argument("--round-to", type=int, default=128,
                       help="align slimmed widths to this multiple (1 disables)")
     slim.add_argument("--output-dir", default=".")
+
+    quant = sub.add_parser("quantize", help="int8 QAT / PTQ")
+    add_train_args(quant)
+    quant.add_argument("--mode", default="qat", choices=["qat", "ptq"])
+    quant.add_argument("--post-training-quantize", action="store_const", const="ptq",
+                       dest="mode", help="alias for --mode ptq (train_quantization.py)")
+    quant.add_argument("--calibration-batches", "--num-calibration-batches",
+                       dest="calibration_batches", type=int, default=32)
+    quant.add_argument("--num-observer-update-epochs", type=int, default=4,
+                       help="epochs before freezing activation observers "
+                            "(train_quantization.py:120-122)")
+    quant.add_argument("--num-batch-norm-update-epochs", type=int, default=3,
+                       help="epochs before freezing BN statistics "
+                            "(train_quantization.py:123-125)")
     return p
 
 
@@ -252,14 +270,11 @@ def _refuse_unported(args):
     from vipers_torch.core.registry import build_model
 
     try:
-        build_model(args.model)
+        fam = build_model(args.model).family
     except ValueError:
-        # the JAX registry's other family, by name
-        if not args.model.lower().startswith("mobilenet"):
-            raise SystemExit(f"vipers_torch lost: unknown model {args.model!r}") from None
+        raise SystemExit(f"vipers_torch lost: unknown model {args.model!r}") from None
+    if fam == "mobilenet":
         no(f"--model {args.model}", 5)
-    if args.dtype == "int8":
-        no("--dtype int8", 9)
     if args.visualize:
         no("--visualize", 11)
     if args.data_parallel or args.sequence_parallel:
@@ -312,6 +327,10 @@ def main(argv=None) -> int:
         from vipers_torch.pruning.structured import run_slim_cli
 
         return run_slim_cli(args)
+    if args.cmd == "quantize":
+        from vipers_torch.train.quantize import run_quantize
+
+        return run_quantize(args)
     from vipers_torch.discovery.corloc import run_corloc_cli
 
     return run_corloc_cli(args)

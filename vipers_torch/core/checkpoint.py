@@ -43,6 +43,9 @@ dict is the ViT's renaming of leaves; ``import_swin_v2_t`` /
 ``export_swin_v2_t`` read and write torchvision's ``features.*`` layout.
 The DINO ViTs' modules carry the flax names too; ``import_dino_vit`` /
 ``export_dino_vit`` read and write facebookresearch/dino's keys.
+MobileNetV2's modules carry torchvision's ``mobilenet_v2`` names, as the
+ResNet's do; ``import_mobilenet_v2`` / ``export_mobilenet_v2`` read and
+write that ``.pth``.
 
 Every converter takes its widths from the arrays, never from a dense
 default, so a structurally slimmed tree (``pruning.structured``: a ViT's
@@ -209,9 +212,10 @@ def infer_vit_image_size(params, patch_size: int):
 
 
 def load_torch_state_dict(path) -> Dict[str, np.ndarray]:
-    """``torch.load`` a checkpoint on the CPU, unwrap ``{"model": ...}``,
-    then ``normalize_torch_state_dict``."""
-    obj = torch.load(path, map_location="cpu", weights_only=False)
+    """``torch.load`` a checkpoint on the CPU (or take what was loaded),
+    unwrap ``{"model": ...}``, then ``normalize_torch_state_dict``."""
+    obj = (torch.load(path, map_location="cpu", weights_only=False)
+           if isinstance(path, (str, os.PathLike)) else path)
     if isinstance(obj, dict) and "model" in obj and isinstance(obj["model"], dict):
         obj = obj["model"]
     if hasattr(obj, "state_dict"):
@@ -501,6 +505,90 @@ def export_vgg16(params, masks=None, bake_masks: bool = True) -> Dict[str, np.nd
     return _export_cnn(_vgg_key, params, None, masks, bake_masks)
 
 
+# ------------------------------ MobileNetV2 --------------------------------
+#
+# The port's MobileNetV2 carries torchvision's names: ``features.0`` the stem
+# (``.0`` conv, ``.1`` BatchNorm), ``features.{n}`` the n-th inverted
+# residual in order, its ``conv.{k}`` the expand (absent in stage 0, whose
+# expand ratio is 1), depthwise, project convolution and project BatchNorm,
+# ``features.{last}`` the head convolution and ``classifier.1`` the Linear.
+
+def _mobilenet_blocks():
+    """[(flax block name, has expand)] of the inverted residuals in order."""
+    from vipers_torch.models.mobilenet import V2_CFG
+
+    return [(f"block{bi}_{i}", t != 1) for bi, (t, _c, n, _s) in enumerate(V2_CFG)
+            for i in range(n)]
+
+
+def _mobilenet_key(path) -> str:
+    """``block1_0/depthwise/bn/scale`` -> ``features.2.conv.1.1.weight``."""
+    blocks = _mobilenet_blocks()
+    names = [b for b, _ in blocks]
+    head, *mid = path[:-1]
+    leaf = _TO_STATE_LEAF.get(path[-1], path[-1])
+    sub = {"conv": "0", "bn": "1"}
+    if head == "stem":
+        base = ["features", "0", sub[mid[0]]]
+    elif head == "head_conv":
+        base = ["features", str(len(blocks) + 1), sub[mid[0]]]
+    elif head == "classifier":
+        base = ["classifier", "1"]
+    else:
+        n = names.index(head)
+        first = 0 if blocks[n][1] else -1  # the depthwise's index is 1 or 0
+        part, layer = mid
+        k = {"expand": 0, "depthwise": first + 1}.get(part)
+        base = (["features", str(n + 1), "conv", str(k), sub[layer]] if k is not None
+                else ["features", str(n + 1), "conv", str(first + 2 + (layer == "bn"))])
+    return ".".join(base + [leaf])
+
+
+def _mobilenet_path(key: str, ndim: int) -> tuple:
+    blocks = _mobilenet_blocks()
+    parts = key.split(".")
+    layer = {"0": "conv", "1": "bn"}
+    if parts[0] == "classifier":
+        return _leaf_path(["classifier", parts[-1]], ndim)
+    n = int(parts[1])
+    if n == 0 or n == len(blocks) + 1:
+        return _leaf_path(["stem" if n == 0 else "head_conv", layer[parts[2]], parts[-1]], ndim)
+    name, expand = blocks[n - 1]
+    k = int(parts[3]) - (0 if expand else -1)  # 0 expand, 1 depthwise, 2-3 project
+    if k <= 1:
+        mid = ["expand" if k == 0 else "depthwise", layer[parts[4]]]
+    else:
+        mid = ["project", "conv" if k == 2 else "bn"]
+    return _leaf_path([name] + mid + [parts[-1]], ndim)
+
+
+def import_mobilenet_v2(sd: Dict[str, np.ndarray]):
+    """torchvision mobilenet_v2 keys -> (params, batch_stats, masks) in the
+    JAX package's flax paths (running mean and var into ``batch_stats``,
+    ``num_batches_tracked`` dropped, each ``.__mask__`` carried)."""
+    p, bs, masks = {}, {}, {}
+    for key, v in sd.items():
+        if key.endswith(("num_batches_tracked", ".__mask__")):
+            continue
+        path = _mobilenet_path(key, np.ndim(v))
+        if path[-1] == "kernel":
+            layout = _conv_w if np.ndim(v) == 4 else np.transpose
+            v = layout(v)
+            m = sd.get(key + ".__mask__")
+            if m is not None:
+                masks[path] = layout(m)
+        (bs if path[-1] in ("mean", "var") else p)[path] = v
+    return unflatten_dict(p), unflatten_dict(bs), masks
+
+
+def export_mobilenet_v2(params, batch_stats=None, masks=None, bake_masks: bool = True
+                        ) -> Dict[str, np.ndarray]:
+    """The inverse of ``import_mobilenet_v2``: a torchvision mobilenet_v2
+    state dict (``num_batches_tracked`` 0, masks baked or as
+    ``weight_orig`` / ``weight_mask``)."""
+    return _export_cnn(_mobilenet_key, params, batch_stats, masks, bake_masks)
+
+
 # -------------------------------- Swin-V2 ----------------------------------
 #
 # The port's Swin modules carry the flax names (``stage0_block0.attn.qkv``),
@@ -720,6 +808,10 @@ def _import_resnet(sd, spec):
     return import_resnet(sd, spec.cfg.stage_sizes, spec.cfg.headless)
 
 
+def _import_mobilenet(sd, spec):
+    return import_mobilenet_v2(sd)
+
+
 def _import_swin(sd, spec):
     params, masks = import_swin_v2_t(sd, spec.cfg.depths)
     return params, None, masks
@@ -744,6 +836,8 @@ FAMILIES = {
     "vgg": Family(_vgg_key, _vgg_path, _import_vgg, _export_vgg),
     "swin": Family(_state_key, _flax_path, _import_swin, _export_swin),
     "dino_vit": Family(_state_key, _flax_path, _import_dino, _export_dino),
+    "mobilenet": Family(_mobilenet_key, _mobilenet_path, _import_mobilenet,
+                        export_mobilenet_v2),
 }
 
 

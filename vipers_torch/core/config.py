@@ -4,10 +4,11 @@ package's flags and defaults, plus ``--device``.
 
 The port trains one model on one device. ``refuse_unported`` exits,
 naming the ROADMAP item that ports it, for a flag that selects what the
-port does not have yet: a family other than the ViTs, the ResNets, VGG
-and Swin-V2 (A5, A9), training a DINO backbone (A2, DINO training: they
+port does not have yet: training a DINO backbone (A2, DINO training: they
 serve LOST and ``cluster`` frozen), the multi-device flags (A10),
-``--profile-dir`` and ``--debug-nans`` (A11). ``--resume`` of a
+``--profile-dir`` and ``--debug-nans`` (A11). Every model of the JAX
+registry builds, ``mobilenet_v2`` and the ``quantized_`` aliases
+included. ``--resume`` of a
 structurally slimmed checkpoint rebuilds the model at its sidecar's
 widths (``train.driver.model_spec``). ``--resnet-dilate`` applies to the ResNets; the
 other families ignore it, as the JAX package does.
@@ -173,11 +174,6 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     return TrainConfig(optim=optim, **{k: getattr(args, k) for k in fields})
 
 
-# the JAX registry's other families, by name prefix: the ROADMAP item that
-# ports each
-_FAMILY_ITEMS = (("mobilenet", 5), ("quantized_", 9))
-
-
 def refuse_unported(cfg: TrainConfig, cmd: str = "train"):
     """SystemExit naming the ROADMAP item of the first flag in ``cfg`` that
     selects what the port cannot run yet."""
@@ -189,10 +185,7 @@ def refuse_unported(cfg: TrainConfig, cmd: str = "train"):
     try:
         spec = build_model(cfg.model)
     except ValueError:
-        item = next((i for f, i in _FAMILY_ITEMS if cfg.model.lower().startswith(f)), None)
-        if item is None:
-            raise SystemExit(f"vipers_torch {cmd}: unknown model {cfg.model!r}") from None
-        no(f"--model {cfg.model}", item)
+        raise SystemExit(f"vipers_torch {cmd}: unknown model {cfg.model!r}") from None
     if spec.family == "dino_vit":
         no(f"--model {cfg.model} (DINO training)", 2)
     if (cfg.pipeline_parallel or cfg.pp_microbatch or cfg.pp_remat or cfg.pp_data

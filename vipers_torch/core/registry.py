@@ -24,8 +24,14 @@ class ModelSpec:
 
     ``prune_exclude``: substrings; a parameter path containing one is never
     pruned even if it is a conv/dense kernel (``("qkv",)`` on ViTs: the
-    reference never prunes the attention in-projection). ``family`` ("vit",
-    "resnet", "vgg", "swin", "dino_vit") picks the weight converters of
+    reference never prunes the attention in-projection).
+    ``quantize_exclude``: the same for weight quantization and activation
+    observation, None for ``prune_exclude`` (read through
+    ``quant_exclude``; the ViTs add ``attention/out``: the JAX ViT applies
+    both attention projections by einsum, so no int8 site sees them, as
+    torch ao leaves ``MultiheadAttention``'s projections float).
+    ``family`` ("vit", "resnet", "vgg", "swin", "dino_vit", "mobilenet")
+    picks the weight converters of
     ``core.checkpoint``; ``num_classes`` is the head's width, 0 for a
     headless model; ``extra`` holds what a family's callers read (a Swin's
     last-stage ``num_heads``); ``rebuild(cfg)`` is the same model's spec
@@ -37,11 +43,21 @@ class ModelSpec:
     init: Callable[[torch.Generator], dict]
     input_size: tuple = (224, 224)
     prune_exclude: Sequence[str] = ()
+    quantize_exclude: Optional[Sequence[str]] = None
     patch_size: Optional[int] = None
     family: str = ""
     num_classes: int = 1000
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
     rebuild: Optional[Callable[[Any], "ModelSpec"]] = None
+
+    @property
+    def quant_exclude(self) -> Sequence[str]:
+        """Parameter-path substrings left out of weight quantization and
+        activation observation: ``quantize_exclude``, else
+        ``prune_exclude``."""
+        if self.quantize_exclude is not None:
+            return self.quantize_exclude
+        return self.prune_exclude
 
 
 def register_model(name: Optional[str] = None):
@@ -84,4 +100,5 @@ def build_model(name: str, **kwargs) -> ModelSpec:
 
 
 def _ensure_builtins_imported():
-    from vipers_torch.models import dino_vit, resnet, swin, vgg, vit  # noqa: F401  (registers builders)
+    from vipers_torch.models import (dino_vit, mobilenet, resnet, swin, vgg,  # noqa: F401
+                                     vit)  # (registers builders)

@@ -44,6 +44,7 @@ them. The per-image path takes the host-normalized float feed and one
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections import deque
@@ -52,6 +53,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vipers_torch.core.checkpoint import (family, infer_num_classes,
                                           infer_representation_size, infer_vit_image_size,
@@ -69,6 +71,8 @@ from vipers_torch.models.interpolate import resize_weight_matrix_np
 from vipers_torch.models.vit import scrambled_qkv_gather
 from vipers_torch.ops.flash_attention import flash_min_t
 from vipers_torch.pruning.structured import arch_sidecar
+from vipers_torch.train.quantize import (int8_dynamic_sites, quantize_params_int8,
+                                         static_qparams_from_observers)
 
 
 _NORM: dict = {}
@@ -124,12 +128,21 @@ class LostFeatureExtractor:
     feature-grid bucket (``--cnn-bucket``; 1 is the per-image exact-shape
     regime); ``swin_all_windows``: Swin LOST over the whole last-stage grid
     instead of the first window; ``need_attn``: the per-image transformer
-    forward returns the last block's attention (``--dinoseg``)."""
+    forward returns the last block's attention (``--dinoseg``).
+
+    ``compute_dtype="int8"`` is the JAX package's int8 serving mode: int8
+    kernels and per-channel scales baked from the masked f32 weights
+    (``train.quantize.quantize_params_int8``, ``spec.quant_exclude`` left
+    float), the network in bf16, and every baked Dense and Conv executed
+    in real int8 (``int8_dynamic_sites``) with input qparams from the
+    checkpoint's calibrated ``observers`` where given, else dynamic
+    per-tensor ranges that leave bucket- and seq-pad token rows out."""
 
     def __init__(self, spec, params, masks=None, which_features: str = "k",
-                 bucket: int = 4, compute_dtype: Optional[torch.dtype] = None,
+                 bucket: int = 4, compute_dtype=None,
                  device=None, batch_stats=None, cnn_bucket: int = 4,
-                 swin_all_windows: bool = False, need_attn: bool = False):
+                 swin_all_windows: bool = False, need_attn: bool = False,
+                 observers=None):
         self.device = resolve_device(device)
         self.spec = spec
         self.which = which_features
@@ -137,12 +150,20 @@ class LostFeatureExtractor:
         self.need_attn = need_attn
         self.cnn_bucket = cnn_bucket
         self.swin_all_windows = swin_all_windows
+        self.int8 = compute_dtype == "int8"
+        if self.int8:
+            compute_dtype = torch.bfloat16
         self.compute_dtype = compute_dtype or torch.float32
         model = spec.module()
-        sd = family(spec).state_dict(params, batch_stats, masks)
+        self.family = family(spec)
+        sd = self.family.state_dict(params, batch_stats, masks)
         model.load_state_dict({**dict(model.named_buffers()), **sd})
         model.eval().requires_grad_(False)
         self.model = model.to(self.device)
+        if self.int8:
+            self._q, self._scales = quantize_params_int8(
+                dict(self.model.named_parameters()), self.family, spec.quant_exclude)
+            self._static_qparams = static_qparams_from_observers(observers, self.device)
         for p in self.model.parameters():
             p.data = p.data.to(self.compute_dtype)
         self._pos_cache: dict = {}
@@ -242,15 +263,33 @@ class LostFeatureExtractor:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    def _int8_scope(self, token_mask=None, seq_pad_multiple=None):
+        """The scope of one forward: real int8 at every baked site in the
+        int8 mode (pad rows of the raw and the seq-padded token count left
+        out of the dynamic ranges), nothing otherwise."""
+        if not self.int8:
+            return contextlib.nullcontext()
+        masks = None
+        if token_mask is not None:
+            t = token_mask.shape[1]
+            masks = {t: token_mask}
+            if seq_pad_multiple:
+                tp = -(-t // seq_pad_multiple) * seq_pad_multiple
+                if tp != t:
+                    masks[tp] = F.pad(token_mask, (0, tp - t))
+        return int8_dynamic_sites(self.model, self.family, self._q, self._scales,
+                                  self.spec.quant_exclude, masks, self._static_qparams)
+
     def _transformer_aux(self, images, pos, token_mask, need_attn: bool = False):
         """The transformer forward's aux on a bucket batch (images already
         normalized), in the compute dtype, tokens seq-padded where the flash
         kernel engages."""
         images = images.to(self.compute_dtype)
-        return self.model(images, override_pos_embedding=pos.to(self.compute_dtype),
-                          token_mask=token_mask, need_attn=need_attn,
-                          seq_pad_multiple=seq_pad(images.shape, self.spec.patch_size,
-                                                   need_attn))[1]
+        spm = seq_pad(images.shape, self.spec.patch_size, need_attn)
+        with self._int8_scope(token_mask, spm):
+            return self.model(images, override_pos_embedding=pos.to(self.compute_dtype),
+                              token_mask=token_mask, need_attn=need_attn,
+                              seq_pad_multiple=spm)[1]
 
     def _transformer_features(self, aux, token_mask, valid_hw, GH: int, GW: int):
         """(B, GH*GW, D) features of a forward's aux. A DINO ViT's: the true
@@ -401,7 +440,7 @@ class LostFeatureExtractor:
         run as exact f32."""
         if images.dtype == torch.uint8:
             images = device_normalize(images, pixel_hw)
-        with exact_f32_convs(self.compute_dtype):
+        with exact_f32_convs(self.compute_dtype), self._int8_scope():
             out, aux = self.model(images.to(self.compute_dtype))
         feats = out if out.dim() == 4 else aux["features"]
         b, fh, fw, d = feats.shape
@@ -434,7 +473,7 @@ class LostFeatureExtractor:
         own shape: the reference's LayerNorm over the whole (tokens, dim)
         slab with identity affine, its statistics in f32 as ``jnp.mean`` and
         ``jnp.var`` take them, the result in the features' dtype."""
-        with exact_f32_convs(self.compute_dtype):
+        with exact_f32_convs(self.compute_dtype), self._int8_scope():
             out, aux = self.model(images.to(self.compute_dtype))
         feats = out if out.dim() == 4 else aux["features"]
         b, fh, fw, d = feats.shape
@@ -481,7 +520,7 @@ class LostFeatureExtractor:
             return feats, (GH, GW), (gh, gw), [patch_size, patch_size], aux["attn"]
         if fam == "swin":
             x = self._upload(torch.from_numpy(np.ascontiguousarray(img_hwc, np.float32))[None])
-            with exact_f32_convs(self.compute_dtype):
+            with exact_f32_convs(self.compute_dtype), self._int8_scope():
                 _, aux = self.model(x.to(self.compute_dtype))
             attn = aux["attn"]
             nh = attn.shape[1]
@@ -582,11 +621,14 @@ def _templated_checkpoint(models_dir: str, model: str, arch: str, iteration: int
 
 
 def load_lost_checkpoint(path: str, spec):
-    """(flax-layout params, batch_stats or None, masks) of a ``.pth``/``.pt``
-    checkpoint of ``spec``'s family: a reference one, or one
-    ``vipers_torch train`` wrote (its ``model`` entry); a pruned one carries
-    its masks as ``weight_orig`` / ``weight_mask`` pairs; a ResNet's running
-    statistics come back as ``batch_stats``. A checkpoint directory (the JAX package's orbax
+    """(flax-layout params, batch_stats or None, masks, observers or None)
+    of a ``.pth``/``.pt`` checkpoint of ``spec``'s family: a reference one,
+    or one ``vipers_torch train`` or ``quantize`` wrote (its ``model``
+    entry); a pruned one carries its masks as ``weight_orig`` /
+    ``weight_mask`` pairs; a ResNet's running statistics come back as
+    ``batch_stats``; ``observers`` is the quantize calibration ({site:
+    {"min", "max"}}) that ``vipers_torch quantize`` writes beside the
+    weights, which the int8 serving path reads as static qparams. A checkpoint directory (the JAX package's orbax
     format) raises: the port does not read orbax, so convert it first with
     the JAX package's ``vipers.core.checkpoint.export_vit_torchvision``."""
     if os.path.isdir(path) or not str(path).endswith((".pth", ".pt")):
@@ -595,7 +637,10 @@ def load_lost_checkpoint(path: str, spec):
             "checkpoint, or the .pth `vipers_torch train` writes. An orbax checkpoint "
             "directory of the JAX package must be converted first with "
             "vipers.core.checkpoint.export_vit_torchvision and torch.save")
-    return family(spec).import_pth(load_torch_state_dict(path), spec)
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    observers = obj.get("observers") if isinstance(obj, dict) else None
+    params, batch_stats, masks = family(spec).import_pth(load_torch_state_dict(obj), spec)
+    return params, batch_stats, masks, observers
 
 
 # timings and counts of the last run_lost call, for callers that time it
@@ -671,9 +716,9 @@ def run_lost(args) -> int:
     cnn_bucket = 1 if getattr(args, "exact_shapes", False) else int(
         getattr(args, "cnn_bucket", 0) or 4)
     per_image = spec.family == "swin" or (cnn and cnn_bucket == 1) or dinoseg
-    masks = batch_stats = None
+    masks = batch_stats = observers = None
     if args.checkpoint:
-        params, batch_stats, masks = load_lost_checkpoint(args.checkpoint, spec)
+        params, batch_stats, masks, observers = load_lost_checkpoint(args.checkpoint, spec)
         # rebuild at the checkpoint's own head width (and a ViT's pre-logits
         # width and pos-table size)
         if spec.family == "vit":
@@ -687,7 +732,8 @@ def run_lost(args) -> int:
             spec = build_model(args.model, num_classes=infer_num_classes(params), **model_kw)
     else:
         params = spec.init(torch.Generator().manual_seed(0))
-    dtype = {"f32": None, "bf16": torch.bfloat16}[getattr(args, "dtype", None) or "f32"]
+    dtype = {"f32": None, "bf16": torch.bfloat16, "int8": "int8"}[
+        getattr(args, "dtype", None) or "f32"]
     # dino_seg is bucket-safe (pad keys get exactly zero attention); only
     # its reference-bug mode, whose component ids follow the grid, runs at
     # exact shapes
@@ -697,7 +743,7 @@ def run_lost(args) -> int:
                                      cnn_bucket=cnn_bucket,
                                      swin_all_windows=bool(getattr(args, "swin_all_windows",
                                                                    False)),
-                                     need_attn=dinoseg)
+                                     need_attn=dinoseg, observers=observers)
     pipeline = (None if per_image
                 else extractor.make_batched_cnn_pipeline(k_patches=args.k_patches) if cnn
                 else extractor.make_batched_pipeline(k_patches=args.k_patches))

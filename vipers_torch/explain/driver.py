@@ -70,14 +70,15 @@ def _load_model(model_name: str, checkpoint: str = "", seed: int = 0, device=Non
     try:
         spec = build_model(model_name, **slim)
     except ValueError:
-        if model_name.lower().startswith("mobilenet"):
-            _refuse(cmd, f"--model {model_name}", 5)
         raise SystemExit(f"vipers_torch {cmd}: unknown model {model_name!r}") from None
+    if spec.family == "mobilenet":
+        # its relu6 sites, guided backprop and LRP rules are not ported
+        _refuse(cmd, f"--model {model_name}", 8)
     batch_stats = masks = None
     if checkpoint:
         from vipers_torch.discovery.driver import load_lost_checkpoint
 
-        params, batch_stats, masks = load_lost_checkpoint(checkpoint, spec)
+        params, batch_stats, masks, _ = load_lost_checkpoint(checkpoint, spec)
         n_cls = infer_num_classes(params)
         if spec.family == "vit":
             kw = {"num_classes": n_cls or 0,

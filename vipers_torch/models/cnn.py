@@ -14,7 +14,9 @@
   statistics ``0.9 * running + 0.1 * batch`` (torch's ``BatchNorm2d``
   would update the variance with the unbiased one). A train forward does
   not write its statistics back: it returns them (``new_stats``) and the
-  caller decides.
+  caller decides. ``promote_output`` is flax's ``nn.BatchNorm`` with no
+  ``dtype`` (MobileNetV2's): the same f32 arithmetic, the output cast to
+  the promoted dtype of the input and the scale.
 - ``exact_f32_convs``: cuDNN convolutions without TF32 inside the scope
   when the compute dtype is f32 (cuDNN allows TF32 by default), around a
   forward and its backward; a bf16 run keeps cuDNN's default for the
@@ -63,9 +65,11 @@ class BatchNorm(nn.Module):
     model that owns it; a train forward given a ``new_stats`` dict stores
     the updated running statistics there under the state-dict keys."""
 
-    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
+                 promote_output: bool = False):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.promote_output = promote_output
         self.state_name = ""
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -73,6 +77,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x, new_stats: Optional[dict] = None):
+        out_dt = (torch.promote_types(x.dtype, self.weight.dtype) if self.promote_output
+                  else None)
+        y = self._normalize(x, new_stats)
+        return y if out_dt is None else y.to(out_dt)
+
+    def _normalize(self, x, new_stats):
         dt = torch.promote_types(x.dtype, torch.float32)
         x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
         if not self.training:

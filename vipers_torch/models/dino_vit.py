@@ -32,7 +32,7 @@ from torch import nn
 
 from vipers_torch.core.registry import ModelSpec, register_model
 from vipers_torch.models.interpolate import interpolate_pos_embedding
-from vipers_torch.models.vit import LayerNorm, _lecun_normal, patch_matmul
+from vipers_torch.models.vit import LayerNorm, PatchConv, _lecun_normal
 from vipers_torch.ops.flash_attention import attention_reference, flash_attention, flash_min_t
 from vipers_torch.ops.fused_mlp import fused_ln_dense_gelu, fused_supported
 from vipers_torch.ops.tokens import pad_tokens, unpad_tokens
@@ -114,7 +114,7 @@ class DinoVisionTransformer(nn.Module):
         self.cfg = cfg
         self.base_grid = base_grid
         p, d = cfg.patch_size, cfg.embed_dim
-        self.patch_embed = nn.Conv2d(3, d, p, stride=p)
+        self.patch_embed = PatchConv(3, d, p)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, base_grid * base_grid + 1, d))
         for i in range(cfg.depth):
@@ -136,7 +136,7 @@ class DinoVisionTransformer(nn.Module):
         p = c.patch_size
         n, h, w, _ = x.shape
         gh, gw = h // p, w // p
-        x = patch_matmul(x, self.patch_embed, p)
+        x = self.patch_embed(x)
         x = torch.cat([self.cls_token.expand(n, -1, -1), x], dim=1)
         pos = (override_pos_embedding if override_pos_embedding is not None
                else self._interp_pos(gh, gw))

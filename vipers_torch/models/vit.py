@@ -97,6 +97,19 @@ def patch_matmul(x, conv: nn.Conv2d, p: int):
     return torch.matmul(patches, wmat) + conv.bias
 
 
+class PatchConv(nn.Conv2d):
+    """The patch embedding's stride-``p`` convolution on NHWC input, as
+    ``patch_matmul``. Called as a module, so the quantize hooks
+    (``train.quantize``) meet it where the JAX package's interceptors meet
+    its ``nn.Conv``."""
+
+    def __init__(self, channels: int, dim: int, p: int):
+        super().__init__(channels, dim, p, stride=p)
+
+    def forward(self, x):
+        return patch_matmul(x, self, self.kernel_size[0])
+
+
 @functools.lru_cache(maxsize=None)
 def _packed_rows(d: int, num_heads: int, device: torch.device):
     """The packed stripe permutation as an index tensor on ``device``."""
@@ -261,7 +274,7 @@ class VisionTransformer(nn.Module):
         self.cfg = cfg
         self.image_size = tuple(image_size)
         p, d = cfg.patch_size, cfg.hidden_dim
-        self.conv_proj = nn.Conv2d(3, d, p, stride=p)
+        self.conv_proj = PatchConv(3, d, p)
         self.class_token = nn.Parameter(torch.zeros(1, 1, d))
         seq = (image_size[0] // p) * (image_size[1] // p) + 1
         self.pos_embedding = nn.Parameter(torch.zeros(1, seq, d))
@@ -275,7 +288,7 @@ class VisionTransformer(nn.Module):
         self.head = nn.Linear(rep or d, cfg.num_classes) if cfg.num_classes else None
 
     def patch_embed(self, x):
-        return patch_matmul(x, self.conv_proj, self.cfg.patch_size)
+        return self.conv_proj(x)
 
     def random_rates(self):
         """The dropout rates: after embeddings, attention and MLP layers, and
@@ -414,6 +427,8 @@ def _build(name, cfg: ViTConfig, image_size=(224, 224)):
         init=lambda gen: init_vit_params(cfg, image_size, gen),
         input_size=image_size,
         prune_exclude=("qkv",),
+        # the JAX ViT applies qkv and attention/out by einsum: no int8 site
+        quantize_exclude=("qkv", "attention/out"),
         patch_size=cfg.patch_size,
         family="vit",
         num_classes=cfg.num_classes,

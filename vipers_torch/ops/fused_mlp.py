@@ -24,6 +24,7 @@ VJP in plain torch; the gradients reach ln_2 and fc1 through the fold.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import os
@@ -55,13 +56,33 @@ def pick_block_m(m: int) -> Optional[int]:
     return None
 
 
+# open scopes of the quantize hooks (``train.quantize``): the JAX gate stays
+# off while flax interceptors are active, so that fc1 stays a Dense call
+_INTERCEPTORS = [0]
+
+
+@contextlib.contextmanager
+def interceptors():
+    """The scope of a forward whose Dense and Conv calls are watched."""
+    _INTERCEPTORS[0] += 1
+    try:
+        yield
+    finally:
+        _INTERCEPTORS[0] -= 1
+
+
+def interceptors_active() -> bool:
+    return _INTERCEPTORS[0] > 0
+
+
 def fused_supported(x, train: bool = False) -> bool:
     """The product-path gate: inference, bf16, and a row count the JAX
-    kernel's block rule accepts; ``VIPERS_FUSED_MLP=0`` turns it off, as in
-    the JAX package. Like the JAX gate it sets no width condition: the
-    card's kernel takes any F and refuses a D it has no instance for (see
-    ``fused_ln_dense_gelu_core``)."""
-    if os.environ.get("VIPERS_FUSED_MLP") == "0":
+    kernel's block rule accepts; off while quantize hooks are active
+    (``interceptors``), as the JAX gate is under flax interceptors, and
+    with ``VIPERS_FUSED_MLP=0``, as in the JAX package. Like the JAX gate
+    it sets no width condition: the card's kernel takes any F and refuses
+    a D it has no instance for (see ``fused_ln_dense_gelu_core``)."""
+    if os.environ.get("VIPERS_FUSED_MLP") == "0" or interceptors_active():
         return False
     rows = x.numel() // x.shape[-1]
     return (not train and x.dtype == torch.bfloat16

@@ -39,9 +39,10 @@ on the same inputs.
 ``discovery.driver.load_lost_checkpoint``, and
 ``{model}_slim_{tag}.pth`` out through the family's torchvision exporter,
 masked layers as ``weight_orig`` / ``weight_mask`` (as ``train`` writes
-them), with the JAX package's ``.slim.json`` sidecar beside it. The JAX
-module also carries quantize observers across; the port has none until
-ROADMAP A9 (int8 quantization), so it has no such branch.
+them), with the JAX package's ``.slim.json`` sidecar beside it. A
+checkpoint that carries quantize observers (``vipers_torch quantize``)
+passes them into the slim one unchanged, as the JAX CLI does: the
+activation sites keep their names across a slim.
 """
 
 from __future__ import annotations
@@ -584,6 +585,8 @@ def run_slim_cli(args) -> int:
     smaller ``.pth`` + ``.slim.json`` sidecar that ``lost``, ``evaluate``,
     ``train --resume`` and ``explain`` pick up. Exit 1 for a family slim
     does not take or keep fractions that leave every unit."""
+    import torch
+
     from vipers_torch.core.checkpoint import family, save_torch_state_dict
     from vipers_torch.core.registry import build_model
     from vipers_torch.discovery.driver import load_lost_checkpoint
@@ -594,7 +597,7 @@ def run_slim_cli(args) -> int:
     input_arch = arch_sidecar(args.checkpoint)
     spec = build_model(args.model, num_classes=args.num_classes,
                        **({"arch_overrides": input_arch} if input_arch else {}))
-    params, batch_stats, masks = load_lost_checkpoint(args.checkpoint, spec)
+    params, batch_stats, masks, observers = load_lost_checkpoint(args.checkpoint, spec)
     variables = {"params": params}
     if batch_stats is not None:
         variables["batch_stats"] = batch_stats
@@ -639,7 +642,14 @@ def run_slim_cli(args) -> int:
     path = os.path.join(args.output_dir, f"{args.model}_slim_{tag}.pth")
     sd = family(spec).export_pth(out_vars["params"], out_vars.get("batch_stats"),
                                  new_masks, False)
-    save_torch_state_dict(sd, path)
+    if observers:
+        # quantize calibration ranges: the sites keep their names across a
+        # slim, and an exact-keep slim leaves their distributions as they
+        # were; carrying them beats falling back to dynamic int8 serving
+        torch.save({"model": {k: torch.tensor(np.asarray(v)) for k, v in sd.items()},
+                    "observers": observers}, path)
+    else:
+        save_torch_state_dict(sd, path)
     write_sidecar(path, args.model, overrides)
     arch_txt = ", ".join(f"{k} {v}" for k, v in overrides.items())
     print(

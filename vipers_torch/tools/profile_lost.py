@@ -18,7 +18,7 @@ a seed with their biases drawn away from zero, so Swin's pad tokens do
 not take the seed), and ``--dinoseg`` (a ViT or DINO ViT) through
 ``extract`` with the last block's attention -> ``dino_seg``. Needs a card:
 
-    python -m vipers_torch.tools.profile_lost [--batch 128] [--dtype bf16] \
+    python -m vipers_torch.tools.profile_lost [--batch 128] [--dtype bf16|f32|int8] \
         [--model vit_b_16 --patch-size 16]
     python -m vipers_torch.tools.profile_lost --arch resnet --model resnet50 --resnet-dilate 2
     python -m vipers_torch.tools.profile_lost --arch dino --model dino_vit_small \
@@ -70,7 +70,8 @@ def _biased(params, gen):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("--dtype", choices=("bf16", "f32", "int8"), default="bf16",
+                    help="int8: lost --dtype int8's real int8 Dense/Conv, the rest bf16")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--model", default="vit_s_16")
     ap.add_argument("--patch-size", type=int, default=16)
@@ -103,7 +104,7 @@ def main(argv=None):
     if per_image:
         params = _biased(params, gen)
     masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), 0.5)
-    dtype = torch.bfloat16 if args.dtype == "bf16" else None
+    dtype = {"bf16": torch.bfloat16, "f32": None, "int8": "int8"}[args.dtype]
     ex = LostFeatureExtractor(spec, params, masks, compute_dtype=dtype,
                               cnn_bucket=1 if per_image else 4,
                               swin_all_windows=args.swin_all_windows,

@@ -149,7 +149,7 @@ def run_sweep(cfg: TrainConfig, dilation: int = None, models_path: str = "",
                                          val_ds=s.val_ds)
                 sessions[key] = (sub, sub.state.masks)
             sess, base_masks = sessions[key]
-            params, batch_stats, masks = load_lost_checkpoint(ckpt, sess.spec)
+            params, batch_stats, masks, _ = load_lost_checkpoint(ckpt, sess.spec)
             fam = sess.state.family
             load_weights(sess.state.model, fam, params, batch_stats)
             sess.state.masks = ({k: m.to(sess.device)

@@ -25,7 +25,7 @@ def run_mvh_cli(args) -> int:
     if args.checkpoint:
         from vipers_torch.discovery.driver import load_lost_checkpoint
 
-        params, batch_stats, masks = load_lost_checkpoint(args.checkpoint, s.spec)
+        params, batch_stats, masks, _ = load_lost_checkpoint(args.checkpoint, s.spec)
         load_weights(state.model, state.family, params, batch_stats)
         if masks:
             state.masks = {k: m.to(s.device)
