@@ -88,7 +88,7 @@ Phases (any failure exits non-zero; nothing is caught):
      ViT-B/16 (12 layers, D 768, 12 heads, mlp 3072; 50% global magnitude
      mask) at 512x384 in f32 and bf16 on an exact-fit and a mixed bucket
      (12 flash and 12 fused-MLP launches at D = 768 a bf16 batch), card vs
-     CPU at B=4, img/s and p50; ``vipers_torch.cli.main lost --model
+     CPU at B=2, img/s and p50; ``vipers_torch.cli.main lost --model
      vit_b_16 --patch-size 16 --dtype bf16`` from a pruned .pth on phase
      6's 1024 JPEGs (launches, first batch against the pipeline, the
      results txt against ``corloc``, e2e img/s); vit_b_32 bf16 at patch 32
@@ -105,7 +105,7 @@ Phases (any failure exits non-zero; nothing is caught):
      backward launches a step, no flash, no fused MLP; img/s, peak device
      memory; one LRR round, 50% -> 60%) and phase 8's at 392x392 B=16 (T =
      785 -> 896: 32 hd-80 flash forward and backward a step), each card vs
-     CPU on its first 4 blocks at B=2 (f32 params after 2 steps within
+     CPU on its first 2 blocks at B=2 (f32 params after 2 steps within
      1e-4, at 392 through the f32 hd-80 flash kernels, counted; bf16 loss
      and gradients); SNIP at 392 in f32: card vs CPU on the 4-block cut
      (masks at the target sparsity, equal up to threshold ties), then at
@@ -114,7 +114,7 @@ Phases (any failure exits non-zero; nothing is caught):
  12. the pruning entry points through the CLI (``train_cli_phase``):
      ``vipers_torch.cli.main train --amp`` on ViT-B/16 at full width and
      depth (1000 classes, weights from the CLI's seed 42, 224x224, B=128, 8 decode
-     threads) on an ImageFolder of 512 train and 256 val symlinks to the 8
+     threads) on an ImageFolder of 256 train and 256 val symlinks to the 8
      fixture JPEGs: SNIP to 50% for one epoch, then LRR (rate 0.2,
      threshold 36: two iterations of one epoch); ``evaluate --amp`` over
      the LRR checkpoints; ``lost`` from the iteration-01 checkpoint on 128
@@ -146,7 +146,7 @@ Phases (any failure exits non-zero; nothing is caught):
      outputs against ``corloc`` and the first batch against
      ``make_batched_cnn_pipeline``; the CNN LOST pipeline f32 at B=4 card vs
      CPU on two bucket shapes (features within 1e-3 of their scale, boxes
-     equal, tie-aware); the f32 driver on ResNet-50 at full depth, B=8, card
+     equal, tie-aware); the f32 driver on ResNet-50 at full depth, B=4, card
      vs CPU (SNIP's saliencies within 1e-5 of their scale; parameters and
      running statistics within 1e-4 after 2 steps and after one LRR
      iteration, the same run with cuDNN's TF32 convolutions printed beside
@@ -166,7 +166,7 @@ Phases (any failure exits non-zero; nothing is caught):
      (no qkv or CPB kernel masked), performance.txt and evaluate (its acc1
      against the driver's f32 eval), the LOST outputs against ``corloc``,
      the first image against ``extract`` -> ``lost``; card vs CPU: the f32
-     forward (B=2), the f32 driver at stochastic depth 0 (B=8: SNIP within
+     forward (B=2), the f32 driver at stochastic depth 0 (B=4: SNIP within
      1e-5 of the scale, parameters within 1e-4 after 2 steps and an LRR
      iteration, a TF32 run printed beside), bf16 loss 2e-2 and gradients
      3e-2, stochastic depth's keep rates and scaling on the card, per-image
@@ -178,7 +178,7 @@ Phases (any failure exits non-zero; nothing is caught):
      1*12, T = 769, hd 64, no key mask; SDPA and its backward as the
      library calls); ``explain-eval --model vit_b_16`` (full width and
      depth, seed-0 weights, 50% global magnitude masks, a .pth through the
-     port's exporter) on the first 4 of the 8 fixture JPEGs with
+     port's exporter) on the first 2 of the 8 fixture JPEGs with
      SegmentationClass PNGs drawn from their XML boxes, each at its own
      size padded to 16: 11 flash forwards a model forward (the last block returns
      its attention), 11 flash backwards an IG gradient (2 x 50 of them),
@@ -216,10 +216,10 @@ Phases (any failure exits non-zero; nothing is caught):
      batch against the pipeline, txt against ``corloc``, e2e img/s);
      ``--dinoseg`` with ``--arch dino`` and ``--arch vit --model vit_s_16``
      on 32 JPEGs one at a time (11 flash launches an image: the last block
-     computes its attention; per-image img/s; the first 4 boxes equal to a
-     CPU run's); ``cluster --nb-clusters 20`` on the lost run's preds.pkl
-     (crops/s; embeddings within 1e-4 of their scale of a CPU run's, the
-     labels equal); VGG16 through ``train --amp`` (SNIP to 50%, LRR one
+     computes its attention; per-image img/s; the first 2 boxes equal to a
+     CPU run's); ``cluster --nb-clusters 20`` on the first 32 boxes of the
+     lost run's preds.pkl (crops/s; embeddings within 1e-4 of their scale
+     of a CPU run's, the labels equal); VGG16 through ``train --amp`` (SNIP to 50%, LRR one
      iteration; one epoch each on phase 12's ImageFolder, B=128; no kernel
      launch; e2e and step img/s, peak memory), its dropout on the card
      (keep shares within a binomial 5-sigma band, a resumed step drawing
@@ -265,14 +265,30 @@ Phases (any failure exits non-zero; nothing is caught):
      ViT-B/16 checkpoint (f32, 2 calibration batches of 128, 26 sites),
      then ``lost --model vit_b_16 --dtype int8`` from the .pth it writes
      (static qparams) on 256 JPEGs (12 flash launches a batch, 0 fused
-     MLP); ``quantize --mode ptq`` and one QAT epoch (4 steps of 128,
+     MLP); ``quantize --mode ptq`` and one QAT epoch (2 steps of 128,
      f32) on quantized_mobilenet_v2 and quantized_resnet50 at 224 on phase
      12's ImageFolder: no launch, finite losses and observers, the JAX
      package's lines and files.
+ 19. serving export (``export_phase``): row 1 f32 and bf16 against its
+     plain version at the exported ViT-B/16 LOST shape (B*H = 128*12, T =
+     896, 769 tokens); ``vipers_torch export --pipeline lost --verify`` of
+     phase 12's ViT-B/16 checkpoint at 384x512, B=128, in bf16 and f32, and
+     of phase 18's PTQ checkpoint in int8 (no ``--verify``), the artifacts
+     then loaded and run in a fresh process that imports only torch and
+     ``vipers_torch.ops`` (the ResNet-50 and classify exports below run in
+     this process meanwhile):
+     12 row-1 launches a batch, 12 row-4 launches in bf16 and 0 in f32 and
+     int8, as many ``torch._int_mm`` calls as the eager int8 batch (26),
+     boxes, seeds and background flags equal to the eager pipeline's on the
+     same 128 images (up to top-score ties); ResNet-50 ``--pipeline lost``
+     at its canonical bucket (no kernel launch, boxes equal to the eager
+     CNN pipeline's); ViT-B/16 classify bf16 at 224 ``--verify``;
+     ``vipers_torch.tools.bench_export``'s eager and artifact img/s.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
-12 drove its as ``train_cli_launches``); the last is
+12 drove its as ``train_cli_launches``, the row phase 19's bf16 program
+drove as ``export_launches``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1260,7 +1276,7 @@ def family_phase(card, counters, lost_core):
     for e, b in (("f32", "exact"), ("f32", "mixed"), ("bf16", "exact")):
         ex = extractors[e]
         compare_with_cpu(f"vit_b_16 {e}, {b}", spec, params, masks, ex.compute_dtype, ex,
-                         *buckets[b], lost_core)
+                         *buckets[b], lost_core, n_cpu=2)
     for e, ex in extractors.items():
         imgs, bhw = buckets["exact"]
         ips, p50 = throughput(pipes[e], inputs[e, "exact"],
@@ -1323,8 +1339,7 @@ def family_phase(card, counters, lost_core):
                           extractors["bf16"].prepare_batch(imgs[:1], 14, exact_hw=bhw[:1]))
     print(f"vit_h_14 throughput [bf16] {ips:.1f} img/s at B={BATCH}; p50 latency {p50:.2f} ms "
           f"at B=1 ({card})")
-    pipes["f32"](*inputs["f32", "exact"])[0].cpu()
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # warm: family_pipelines ran this batch
     pipes["f32"](*inputs["f32", "exact"])[0].cpu()
     f32_s = time.perf_counter() - t0
     print(f"vit_h_14 [f32] one call at B={BATCH}: {1e3 * f32_s:.1f} ms "
@@ -1806,7 +1821,7 @@ VIT_H_TRAIN = ((224, 32), (392, 16))
 VIT_H_SNIP_BATCH = 8
 # the train steps' card-vs-CPU cut: the CPU's bf16 reference gradients take
 # most of the phase, so fewer blocks than the LOST and SNIP cuts
-VIT_H_TRAIN_CPU_LAYERS = 4
+VIT_H_TRAIN_CPU_LAYERS = 2
 
 
 def snip_phase(card, counters, hw=392, batch=VIT_H_SNIP_BATCH, target=SPARSITY):
@@ -1981,7 +1996,7 @@ def vit_h_phase(card, counters):
 
 # Phase 12: the pruning entry points through the CLI, ViT-B/16 at full
 # width and depth on a synthetic ImageFolder of the fixture JPEGs.
-N_TRAIN_IMAGES, N_VAL_IMAGES, N_LOST_IMAGES = 512, 256, 128
+N_TRAIN_IMAGES, N_VAL_IMAGES, N_LOST_IMAGES = 256, 256, 128
 CUT_BLOCKS, CUT_BATCH = 2, 8  # the f32 card-vs-CPU cut of the driver
 
 
@@ -2425,7 +2440,7 @@ def train_cli_phase(card, counters, keep_pth=None):
 
 # Phase 13: the CNN families through the pruning and LOST entry points.
 CNN_MODEL, CNN_DILATE = "resnet50", 2
-CNN_CUT_BATCH = 8  # the f32 card-vs-CPU train run, ResNet-50 at full depth
+CNN_CUT_BATCH = 4  # the f32 card-vs-CPU train run, ResNet-50 at full depth
 
 
 def all_launches(counters):
@@ -2900,7 +2915,7 @@ SWIN_MODEL = "swin_v2_t"
 # torchvision's published swin_v2_t recipe
 SWIN_CROPS = ["--train-crop-size", "256", "--val-resize-size", "260", "--val-crop-size", "256",
               "--interpolation", "bicubic"]
-SWIN_CUT_BATCH, SWIN_BF16_BATCH = 8, 4  # the f32 driver and bf16 card-vs-CPU runs
+SWIN_CUT_BATCH, SWIN_BF16_BATCH = 4, 4  # the f32 driver and bf16 card-vs-CPU runs
 N_SWIN_EXACT = 32  # JPEGs of the ResNet-50 --exact-shapes run
 N_LOST_CPU = 4  # fixture JPEGs of the per-image LOST card-vs-CPU check
 
@@ -3152,7 +3167,7 @@ def swin_phase(card, counters, resnet_pth=None):
     width and depth (1000 classes, the CLI's seed-42 weights, stochastic
     depth 0.2), torchvision's published recipe (256 crops, val resize 260,
     bicubic), ``--amp --batch-size 128 --workers 8`` on phase 12's
-    ImageFolder (512 train, 256 val symlinks to the 8 fixture JPEGs):
+    ImageFolder (256 train, 256 val symlinks to the 8 fixture JPEGs):
     ``train`` SNIP to 50% for one epoch, then LRR (rate 0.2, threshold 35.9:
     two iterations of one epoch; two rounds leave 35.99999945%, so 36 would
     take a third); ``evaluate --amp`` over the LRR checkpoints; ``lost
@@ -3405,7 +3420,7 @@ def swin_phase(card, counters, resnet_pth=None):
 
 
 EXPLAIN_HEADS, EXPLAIN_T = 12, 769  # ViT-B/16 on the fixture's 500x375 image, padded
-EXPLAIN_EVAL_IMAGES = 4  # of the 8 fixture JPEGs
+EXPLAIN_EVAL_IMAGES = 2  # of the 8 fixture JPEGs
 
 
 def check_flash_explain(fa, gen):
@@ -3631,7 +3646,8 @@ def explain_phase(card, counters, fa, gen):
         save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), pth)
         voc = os.path.join(root, "voc")
         # explain-eval scores the first EXPLAIN_EVAL_IMAGES of them (sorted)
-        sizes = dict(list(explain_voc(voc).items())[:EXPLAIN_EVAL_IMAGES])
+        all_sizes = explain_voc(voc)
+        sizes = dict(list(all_sizes.items())[:EXPLAIN_EVAL_IMAGES])
         tokens = sorted({(-(-h // 16)) * (-(-w // 16)) + 1 for w, h in sizes.values()})
 
         # explain-eval: the kernel path
@@ -3713,8 +3729,8 @@ def explain_phase(card, counters, fa, gen):
                   f"{dt:.1f} s; ms an image: "
                   f"{', '.join(f'{k} {v:.1f}' for k, v in per.items())}; 0 launches")
 
-        # card against CPU at the 512x288 image (T = 577)
-        stem = min(sizes, key=lambda s_: sizes[s_][1])
+        # card against CPU at the fixture's flattest image, 500x281 -> 512x288 (T = 577)
+        stem = min(all_sizes, key=lambda s_: all_sizes[s_][1])
         _s, card_model = xd._load_model("vit_b_16", pth)
         _s, cpu_model = xd._load_model("vit_b_16", pth, device="cpu")
         explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem)
@@ -3774,7 +3790,8 @@ def explain_without_figures(extra, data, out):
 # VGG16 training with its dropout, the ViT's attention dropout.
 DINO_P8_BATCH = 32  # dino_vit_small at patch 8: T = 3073 seq-padded to 3200
 DINO_CPU_LAYERS, DINO_CPU_BATCH = 2, 2  # the card-vs-CPU cut
-N_DINOSEG, N_DINOSEG_CPU = 32, 4  # --dinoseg JPEGs, and those the CPU runs too
+N_DINOSEG, N_DINOSEG_CPU = 32, 2  # --dinoseg JPEGs, and those the CPU runs too
+N_CLUSTER_BOXES = 32  # of the lost run's boxes, clustered on the card and on the CPU
 VGG_CUT_BATCH = 2  # the f32 card-vs-CPU VGG16 steps
 DROPOUT_STEP_BATCH = 32  # the ViT-B/16 steps under attention dropout
 
@@ -4039,12 +4056,17 @@ def dino_cli(card, counters, gen):
                   f"({card})")
             assert same == len(cpu_preds) == N_DINOSEG_CPU
 
-        # cluster on the lost run's preds.pkl, on the card and on the CPU
+        # cluster the first N_CLUSTER_BOXES boxes of the lost run's preds.pkl,
+        # on the card and on the CPU
+        with open(os.path.join(out, "preds.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        preds = dict(list(preds.items())[:N_CLUSTER_BOXES])
         feats, labels = {}, {}
         for dev in ("cuda", "cpu"):
             d = os.path.join(root, f"cluster_{dev}")
             os.makedirs(d)
-            shutil.copyfile(os.path.join(out, "preds.pkl"), os.path.join(d, "preds.pkl"))
+            with open(os.path.join(d, "preds.pkl"), "wb") as f:
+                pickle.dump(preds, f)
             torch.cuda.synchronize()
             reset_counts(*counters)
             t0 = time.perf_counter()
@@ -4814,16 +4836,17 @@ def quantize_cli(cli, argv, counters):
              "every": all_launches(counters)})
 
 
-def quantize_runs(card, counters, vit_b_pth):
+def quantize_runs(card, counters, vit_b_pth, keep_ptq=None):
     """``vipers_torch quantize --mode ptq`` on phase 12's vit_b_16
     checkpoint (f32, 2 calibration batches of 128 from phase 12's
     ImageFolder), then ``lost --model vit_b_16 --dtype int8`` from the
     ``.pth`` it writes (static qparams from its observers) on 256 JPEGs:
     12 bf16 flash launches a batch, 0 fused MLP; ``quantize --mode ptq``
-    and one QAT epoch (4 steps, f32) on quantized_mobilenet_v2 and
+    and one QAT epoch (2 steps, f32) on quantized_mobilenet_v2 and
     quantized_resnet50 (seed-0 weights, 50% global magnitude masks) at
     224, B=128. No quantize run launches a kernel (f32, T = 197). Checks
-    the lines and files. Returns the int8 lost run's flash launches."""
+    the lines and files; copies the ViT-B/16 PTQ .pth to ``keep_ptq``
+    (phase 19 exports it). Returns the int8 lost run's flash launches."""
     import pickle
     import shutil
     import tempfile
@@ -4873,6 +4896,8 @@ def quantize_runs(card, counters, vit_b_pth):
               f"boxes, {run['batches']} batches, launches {got}, "
               f"{run['images'] / run['decode_to_preds_seconds']:.1f} img/s e2e ({card})")
         lost_flash = got["flash bf16"]
+        if keep_ptq:
+            shutil.copy(qpth, keep_ptq)
         # 2. PTQ and one QAT epoch on the quantized_ CNNs
         for model in ("quantized_mobilenet_v2", "quantized_resnet50"):
             mspec = build_model(model)
@@ -4911,7 +4936,7 @@ def quantize_runs(card, counters, vit_b_pth):
         shutil.rmtree(root)
 
 
-def quantize_phase(card, counters, gen, lost_core, vit_b_pth):
+def quantize_phase(card, counters, gen, lost_core, vit_b_pth, keep_ptq=None):
     """Phase 18: int8 quantization (``int8_accumulators``, ``int8_lost``,
     ``quantize_runs``) and row 1 against its plain version at the int8 LOST
     shapes (ViT-S/16 and ViT-B/16, B=128, T = 896 with 769 tokens). Returns
@@ -4927,9 +4952,269 @@ def quantize_phase(card, counters, gen, lost_core, vit_b_pth):
     torch.cuda.empty_cache()
     launches = {rows[0]["name"]: int8_lost(card, counters, lost_core)}
     torch.cuda.empty_cache()
-    launches[rows[1]["name"]] = quantize_runs(card, counters, vit_b_pth)
+    launches[rows[1]["name"]] = quantize_runs(card, counters, vit_b_pth, keep_ptq)
     print(f"phase 18 int8 quantization: {time.time() - t_phase:.1f} s")
     return rows, launches
+
+
+EXPORT_HW = (384, 512)  # the landscape VOC bucket: 24 x 32 patches, T = 769 -> 896
+EXPORT_SEED = 19  # the images of the exported programs' batches
+
+# run in a fresh process: imports torch and vipers_torch.ops (which registers
+# the custom ops) and nothing else of the port, then loads each artifact named
+# on the command line and runs one batch, counting the kernels' launches (set
+# to 0 before each) and the program's torch._int_mm calls; the outputs go to
+# <artifact>/replay.pt
+EXPORT_REPLAY = r"""
+import json, sys, torch
+import vipers_torch.ops
+from vipers_torch.ops import flash_attention as fa, fused_mlp as fm
+seed, counts = int(sys.argv[1]), []
+for art in sys.argv[2:]:
+    with open(art + "/meta.json") as f:
+        b, h, w, _ = json.load(f)["input_shape"]
+    program = torch.export.load(art + "/model.pt2")
+    int_mm = sum(n.target == torch.ops.aten._int_mm.default for n in program.graph.nodes)
+    module = program.module()
+    x = torch.randn((b, h, w, 3), generator=torch.Generator().manual_seed(seed)).cuda()
+    for c in (fa.LAUNCHES, fm.LAUNCHES):
+        c.update(dict.fromkeys(c, 0))
+    with torch.no_grad():
+        boxes, seeds, bg = module(x)
+    torch.cuda.synchronize()
+    torch.save({"boxes": boxes.cpu(), "seed": seeds.cpu(), "bg": bg.cpu()}, art + "/replay.pt")
+    counts.append({"flash": dict(fa.LAUNCHES), "fused": dict(fm.LAUNCHES), "int_mm": int_mm})
+    del program, module
+print(json.dumps({"counts": counts,
+                  "modules": sorted(m for m in sys.modules if m.startswith("vipers"))}))
+"""
+
+
+def export_images(n, hw):
+    """The exported batches' images: seeded normal noise (already normalized,
+    the serving contract), the same in the replaying process."""
+    return torch.randn((n, *hw, 3), generator=torch.Generator().manual_seed(EXPORT_SEED))
+
+
+def start_replay(arts):
+    """Start one new process that imports only torch and vipers_torch.ops
+    and runs each artifact of ``arts``; ``finish_replay`` collects it."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.Popen([sys.executable, "-c", EXPORT_REPLAY, str(EXPORT_SEED), *arts],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), arts
+
+
+def finish_replay(replay):
+    """[({"flash", "fused", "int_mm"}, outputs)] of ``start_replay``'s
+    process, each artifact's, after checking it imported nothing of the
+    port but vipers_torch.ops."""
+    proc, arts = replay
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, out[-3000:] + err[-3000:]
+    got = json.loads(out.strip().splitlines()[-1])
+    allowed = {"vipers_torch", "vipers_torch.ops", "vipers_torch.ops._build",
+               "vipers_torch.ops.flash_attention", "vipers_torch.ops.fused_mlp",
+               "vipers_torch.ops.tokens"}
+    assert set(got["modules"]) <= allowed, got["modules"]
+    return [(c, torch.load(os.path.join(a, "replay.pt"))) for c, a in zip(got["counts"], arts)]
+
+
+def equal_up_to_ties(tag, got, box_feat, seed, bg, scores, patch, hw):
+    """The replayed (boxes xyxy, seed, bg) against the eager pipeline's
+    (box_feat, seed, bg): equal, or a seed tied at the top score (phase
+    12's rule) where they differ. Returns the images whose seeds agree."""
+    ymin, ymax, xmin, xmax = (box_feat[:, i].float() for i in range(4))
+    boxes = torch.stack([patch[1] * xmin, patch[0] * ymin,
+                         torch.clamp(patch[1] * xmax, max=float(hw[1])),
+                         torch.clamp(patch[0] * ymax, max=float(hw[0]))], dim=-1)
+    same = got["seed"] == seed.to(torch.int32)
+    assert scores is not None or bool(same.all()), tag
+    assert torch.equal(got["boxes"][same], boxes[same]), tag
+    assert torch.equal(got["bg"][same], bg[same]), tag
+    for i in torch.nonzero(~same).flatten().tolist():
+        s = scores[i]
+        assert s[got["seed"][i]] == s[seed[i]] == s.max(), (tag, i)
+    return int(same.sum())
+
+
+def export_vit_lost(counters, pth, dtype, root, loaded):
+    """``export --model vit_b_16 --pipeline lost`` of ``pth`` at 384x512,
+    B=128 (``--verify`` in bf16 and f32), and the eager pipeline on the
+    artifact's 128 images (``loaded``: the checkpoints read so far, by
+    path): (artifact dir, CLI seconds, the eager batch's launches and
+    torch._int_mm calls, its (box_feat, seed, bg, scores) on the host)."""
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import infer_num_classes
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.discovery.driver import LostFeatureExtractor, load_lost_checkpoint
+    from vipers_torch.discovery.lost import lost_core
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.train import quantize as tq
+
+    art = os.path.join(root, f"vit_b_16_lost_{dtype}")
+    verify = dtype != "int8"
+    lines, secs, cli_got = quantize_cli(cli, [
+        "export", "--model", "vit_b_16", "--checkpoint", pth, "--pipeline", "lost",
+        "--dtype", dtype, "--batch-size", str(BATCH), "--image-size", *map(str, EXPORT_HW),
+        "--output-dir", art, *(["--verify"] if verify else [])], counters)
+    assert not verify or any(ln.startswith("verify: artifact output matches") for ln in lines)
+    # --verify ran the artifact and the direct forward once each (every: row
+    # 1, row 4 and row 4 again by width); the export alone launches nothing
+    assert cli_got["every"] == verify * 2 * 12 * (3 if dtype == "bf16" else 1), cli_got
+    if pth not in loaded:
+        loaded[pth] = load_lost_checkpoint(pth, build_model("vit_b_16"))
+    params, _stats, masks, observers = loaded[pth]
+    spec = build_model("vit_b_16", num_classes=infer_num_classes(params) or 0)
+    ex = LostFeatureExtractor(spec, params, masks, observers=observers, compute_dtype={
+        "bf16": torch.bfloat16, "f32": None, "int8": "int8"}[dtype])
+    inp = ex.prepare_batch(list(export_images(BATCH, EXPORT_HW).numpy()), PATCH)
+    assert inp[2] is None  # exact fit: no token mask, as in the artifact
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    calls0 = tq.INT_MM_CALLS[0]
+    out = [z.cpu() for z in ex.make_batched_pipeline(K_PATCHES)(*inp)]
+    torch.cuda.synchronize()
+    eager = {"flash": dict(fa.LAUNCHES), "fused": dict(fm.LAUNCHES),
+             "int_mm": tq.INT_MM_CALLS[0] - calls0}
+    feats = ex.batched_features(*inp)
+    out.append(lost_core(feats, inp[3], (EXPORT_HW[0] // PATCH, EXPORT_HW[1] // PATCH),
+                         K_PATCHES)["scores"].cpu())
+    return art, secs, eager, out
+
+
+def export_vit_lost_checks(card, counters, vit_b_pth, ptq_pth, root, meanwhile):
+    """``export_vit_lost`` in bf16 and f32 from ``vit_b_pth`` and in int8
+    from ``ptq_pth``, then the three artifacts in one fresh process
+    (``start_replay``; ``meanwhile()`` runs in this process until it ends):
+    launches a batch there and in the eager batch (row 1 bf16 or f32 12,
+    row 4 12 in bf16 and 0 in f32 and int8; int8: as many torch._int_mm
+    calls, 26), boxes, seeds and background flags equal to the eager
+    pipeline's (up to top-score ties). Returns {dtype: the replay's
+    counts}."""
+    runs, loaded = {}, {}
+    for dtype, pth in (("bf16", vit_b_pth), ("f32", vit_b_pth), ("int8", ptq_pth)):
+        runs[dtype] = export_vit_lost(counters, pth, dtype, root, loaded)
+        torch.cuda.empty_cache()
+    del loaded
+    t0 = time.perf_counter()
+    replay = start_replay([runs[d][0] for d in runs])
+    try:
+        meanwhile()
+        replays = finish_replay(replay)
+    finally:  # a failure here leaves no process behind
+        if replay[0].poll() is None:
+            replay[0].kill()
+            replay[0].communicate()
+    replay_s = time.perf_counter() - t0
+    layers = 12
+    got_all = {}
+    for (dtype, (art, secs, eager, (box, seed, bg, scores))), (got, outs) in zip(runs.items(),
+                                                                               replays):
+        key = "float32" if dtype == "f32" else "bfloat16"
+        for counts in (got, eager):
+            assert counts["flash"][key] == layers == sum(counts["flash"].values()), counts
+            assert counts["fused"]["bfloat16"] == (layers if dtype == "bf16" else 0), counts
+        assert got["int_mm"] == eager["int_mm"] == (2 * layers + 2 if dtype == "int8" else 0), (
+            got["int_mm"], eager["int_mm"])
+        agree = equal_up_to_ties(f"vit_b_16 {dtype}", outs, box, seed, bg, scores,
+                                 (PATCH, PATCH), EXPORT_HW)
+        mb = os.path.getsize(os.path.join(art, "model.pt2")) / 1e6
+        counts = {"flash": got["flash"][key], "fused MLP": got["fused"]["bfloat16"],
+                  "int_mm": got["int_mm"]}
+        how = "export + verify" if dtype != "int8" else "export"
+        print(f"export vit_b_16 lost {dtype} 384x512 B={BATCH}: {how} {secs:.1f} s, "
+              f"{mb:.0f} MB; launches a batch in the fresh process {counts} (eager the same); "
+              f"seeds equal {agree}/{BATCH}, boxes and flags equal where they are, ties "
+              f"elsewhere; seed in the background {int(bg.sum())}/{BATCH} ({card})")
+        got_all[dtype] = got
+    print(f"fresh process (torch and vipers_torch.ops only): the three artifacts loaded and "
+          f"run in {replay_s:.1f} s, the ResNet-50 and classify exports beside it")
+    return got_all
+
+
+def export_cnn_and_classify(card, counters, vit_b_pth, root):
+    """``export --model resnet50 --pipeline lost`` (seed-0 weights, the
+    canonical bucket of its 224 input, B=128, bf16, ``--verify``): no port
+    kernel launches, boxes, seeds and flags equal to the eager CNN
+    pipeline's; ``export --model vit_b_16`` classify of phase 12's
+    checkpoint at 224, B=128, bf16, ``--verify`` (row 4 12 a forward)."""
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.export import load_artifact
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+
+    art = os.path.join(root, "resnet50_lost")
+    lines, secs, got = quantize_cli(cli, ["export", "--model", "resnet50", "--pipeline", "lost",
+                                          "--batch-size", str(BATCH), "--output-dir", art,
+                                          "--verify"], counters)
+    assert got["every"] == 0, got
+    assert any(ln.startswith("verify: artifact output matches") for ln in lines), lines
+    fn, meta = load_artifact(art)
+    hw = tuple(meta["input_shape"][1:3])
+    spec = build_model("resnet50")
+    ex = LostFeatureExtractor(spec, spec.init(torch.Generator().manual_seed(0)),
+                              compute_dtype=torch.bfloat16)
+    assert ex.cnn_bucket_key(*hw) == hw
+    x = export_images(BATCH, hw)
+    inp = ex.prepare_cnn_batch(list(x.numpy()), hw)
+    reset_counts(*counters)
+    box, seed, bg = (z.cpu() for z in ex.make_batched_cnn_pipeline(K_PATCHES)(*inp))
+    boxes, seeds, bgs = (z.cpu() for z in fn(x))
+    assert all_launches(counters) == 0
+    sy, sx = ex.cnn_scales(*hw)
+    agree = equal_up_to_ties("resnet50", {"boxes": boxes, "seed": seeds, "bg": bgs}, box, seed,
+                             bg, None, (sy, sx), hw)
+    assert agree == BATCH
+    print(f"export resnet50 lost bf16 {hw[0]}x{hw[1]} (canonical bucket) B={BATCH}: export + "
+          f"verify {secs:.1f} s; 0 kernel launches; boxes, seeds and flags equal to the eager "
+          f"pipeline's on {BATCH}/{BATCH} ({card})")
+    art = os.path.join(root, "vit_b_16_classify")
+    lines, secs, got = quantize_cli(cli, ["export", "--model", "vit_b_16", "--checkpoint",
+                                          vit_b_pth, "--dtype", "bf16", "--batch-size",
+                                          str(BATCH), "--output-dir", art, "--verify"], counters)
+    # 12 a forward, the artifact's and the direct one (every: by width too)
+    assert got["fused MLP"] == 24 and got["every"] == 48, got
+    assert any(ln.startswith("verify: artifact output matches") for ln in lines), lines
+    print(f"export vit_b_16 classify bf16 224 B={BATCH}: export + verify {secs:.1f} s; "
+          f"launches {got} (the artifact's forward and the direct one) ({card})")
+
+
+def export_phase(card, counters, gen, vit_b_pth, ptq_pth):
+    """Phase 19: serving export (``export_vit_lost`` bf16, f32 and int8,
+    ``export_cnn_and_classify``, ``vipers_torch.tools.bench_export``) and
+    row 1 against its plain version at the exported ViT-B/16 LOST shape
+    (B*H = 128*12, T = 896 with 769 tokens, no bucket pad), f32 and bf16.
+    Returns (kernel rows, {row name: launches}, {row name: the exported
+    bf16 program's launches a batch} for rows of earlier phases)."""
+    import shutil
+    import tempfile
+
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.tools import bench_export
+
+    t_phase = time.time()
+    rows = [check_flash_at(fa, dt, gen, (BATCH, 12, 896, 64), (24, 32), (24, 32), "export, H=12")
+            for dt in (torch.float32, torch.bfloat16)]
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="vipers_torch_export_")
+    try:
+        got = export_vit_lost_checks(
+            card, counters, vit_b_pth, ptq_pth, root,
+            lambda: export_cnn_and_classify(card, counters, vit_b_pth, root))
+    finally:
+        shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    rates = bench_export.run(reps=2)
+    host = {k: round(v, 2) for k, v in bench_export.op_host_cost().items()}
+    print(f"bench_export {json.dumps(rates)}; host us a call {json.dumps(host)} ({card})")
+    print(f"phase 19 serving export: {time.time() - t_phase:.1f} s")
+    return rows, {rows[0]["name"]: got["f32"]["flash"]["float32"],
+                  rows[1]["name"]: got["bf16"]["flash"]["bfloat16"]}, {
+        "fused_ln_fc1_gelu[bf16, D=768]": got["bf16"]["fused"]["bfloat16"]}
 
 
 def main():
@@ -5154,10 +5439,21 @@ def main():
         # --dtype int8 (row 1 in every block, row 4 off), quantize PTQ of
         # phase 12's checkpoint -> lost --dtype int8, PTQ and QAT on the
         # quantized_ CNNs
-        quant_rows, quant_launches = quantize_phase(card, counters, gen, lost_core, vit_b_pth)
+        ptq_pth = os.path.join(keep, "vit_b_16_ptq.pth")
+        quant_rows, quant_launches = quantize_phase(card, counters, gen, lost_core, vit_b_pth,
+                                                    keep_ptq=ptq_pth)
         kernels += quant_rows
         launches.update(quant_launches)
         lap(18)
+        # 19. serving export: the ViT-B/16 LOST program (bf16, f32, int8) as
+        # torch.export artifacts replayed in a fresh process (rows 1 and 4 as
+        # custom ops, counted there), ResNet-50 CNN LOST, ViT-B/16 classify,
+        # bench_export
+        export_rows, export_launches, export_runs = export_phase(card, counters, gen,
+                                                                 vit_b_pth, ptq_pth)
+        kernels += export_rows
+        launches.update(export_launches)
+        lap(19)
     finally:
         shutil.rmtree(keep)
     for k in kernels:
@@ -5173,6 +5469,9 @@ def main():
     for k in kernels:  # phase 12's train, evaluate runs, on the rows they drove
         if k["name"] in train_cli_runs:
             k["train_cli_launches"] = train_cli_runs[k["name"]]
+    for k in kernels:  # the exported ViT-B/16 bf16 program's batch, on the D = 768 row
+        if k["name"] in export_runs:
+            k["export_launches"] = export_runs[k["name"]]
     if family_cli_run:  # vit_b_16's CLI run, on the D = 768 row it drove
         for k in kernels:
             if k["name"] == "fused_ln_fc1_gelu[bf16, D=768]":

@@ -27,6 +27,13 @@ from vipers_torch.core import checkpoint as tck
 from vipers_torch.core.registry import build_model as tbuild
 from vipers_torch.core.tree import flatten_dict, unflatten_dict
 from vipers_torch.discovery.driver import LostFeatureExtractor
+from tests import torch_explain_fixtures as fx
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    yield from fx.one_torch_thread()
+
 
 VOC = os.path.join(os.path.dirname(__file__), "data", "torch_voc")
 # (registry name, dilate): the three ResNet output strides and VGG's

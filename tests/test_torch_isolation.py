@@ -134,19 +134,34 @@ def test_train_slice_files_import_no_jax(rel):
     assert not bad, (rel, bad)
 
 
-@pytest.mark.parametrize("cmd", ["train", "evaluate"])
+@pytest.mark.parametrize("cmd", ["train", "evaluate", "export"])
 def test_train_cli_default_device_raises_without_a_card(cmd, tmp_path):
-    """``vipers_torch train|evaluate --model vit_b_16`` without ``--device``
-    runs on the card or raises before it reads data or writes a file."""
+    """``vipers_torch train|evaluate|export --model vit_b_16`` without
+    ``--device`` runs on the card or raises before it reads data or writes
+    a file."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
     from vipers_torch.cli.main import main
 
     out = tmp_path / "out"
+    data = [] if cmd == "export" else ["--data-path", str(tmp_path / "none")]
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        main([cmd, "--model", "vit_b_16", "--data-path", str(tmp_path / "none"),
-              "--output-dir", str(out)])
+        main([cmd, "--model", "vit_b_16", *data, "--output-dir", str(out)])
     assert not out.exists()
+
+
+# the serving export's modules: the exporter, its A/B tool, the ops package
+# that registers the custom ops, and the while_loop flood fill
+EXPORT_SLICE = ("vipers_torch/core/export.py", "vipers_torch/tools/bench_export.py",
+                "vipers_torch/ops/__init__.py", "vipers_torch/discovery/components.py")
+
+
+@pytest.mark.parametrize("rel", EXPORT_SLICE)
+def test_export_slice_files_import_no_jax(rel):
+    path = REPO / rel
+    assert path in _port_files()
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, (rel, bad)
 
 
 # the modules structured slimming brought in

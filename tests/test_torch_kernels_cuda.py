@@ -1136,3 +1136,67 @@ def test_int8_lost_keeps_the_fused_mlp_off(cuda):
             assert tfm.LAUNCHES["bfloat16"] - m0 == (0 if tag == "int8" else 2), tag
     scale = feats["cpu"].abs().max().item()
     assert (feats["int8"] - feats["cpu"]).abs().max().item() <= 2e-2 * scale
+
+
+def _op_cases(dev):
+    """(op, args) of every kernel's custom op at small shapes on ``dev``,
+    f32 and bf16, with and without inputs that require grad."""
+    g = torch.Generator().manual_seed(21)
+    valid = torch.rand(2, 256, generator=g) < 0.8
+    valid[:, 0] = True
+    valid = valid.to(dev)
+    ops = torch.ops.vipers_torch
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(2, 3, 256, 64, generator=g).to(dev, dt) for _ in range(3))
+        out, lse = tfa.flash_attention_fwd(q, k, v, valid, 0.125)
+        qkv = torch.randn(2, 256, 3 * 384, generator=g).to(dev, dt)
+        cases += [(ops.flash_attention_fwd.default, (q, k, v, valid, 0.125)),
+                  (ops.flash_attention_fwd.default, (q.clone().requires_grad_(),
+                                                     k.clone().requires_grad_(),
+                                                     v.clone().requires_grad_(), None, 0.125)),
+                  (ops.flash_attention_bwd.default, (q, k, v, valid, out, lse,
+                                                     torch.randn_like(q), 0.125)),
+                  (ops.flash_attention_packed.default, (qkv, valid, 6, 0.125)),
+                  (ops.flash_attention_packed.default, (qkv.clone().requires_grad_(), valid,
+                                                        6, 0.125))]
+    x = torch.randn(256, 384, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(1536, 384, generator=g) / 20).to(dev, torch.bfloat16)
+    b = torch.randn(1536, generator=g).to(dev)
+    cases += [(ops.fused_ln_dense_gelu.default, (x, w, b, 1e-6)),
+              (ops.fused_ln_dense_gelu.default, (x.clone().requires_grad_(),
+                                                 w.clone().requires_grad_(), b, 1e-6))]
+    return cases
+
+
+def test_custom_ops_pass_opcheck_on_the_card(cuda):
+    """The kernels' ``torch.library`` ops on CUDA tensors: schema, fake
+    implementation against the launch, autograd registration (the flash
+    backward kernels, the recompute VJPs) and AOT dispatch; the launches
+    are counted."""
+    n0 = (dict(tfa.LAUNCHES), dict(tfa.BWD_LAUNCHES), dict(tfa.PACKED_LAUNCHES),
+          dict(tfm.LAUNCHES))
+    for op, args in _op_cases(cuda):
+        res = torch.library.opcheck(op, args)
+        assert set(res.values()) == {"SUCCESS"}, (op, res)
+    n1 = (tfa.LAUNCHES, tfa.BWD_LAUNCHES, tfa.PACKED_LAUNCHES, tfm.LAUNCHES)
+    for before, after in zip(n0, n1):
+        assert all(after[k] > before[k] for k in ("float32", "bfloat16") if k in before)
+
+
+def test_while_loop_fill_on_the_card_equals_the_cpu(cuda):
+    """The flood fill's ``while_loop`` on the card gives the CPU's
+    components: random grids at the LOST bucket, seeds on the background
+    among them, and a 60 x 60 grid at 40% density (long paths)."""
+    from vipers_torch.discovery.components import flood_fill_from_seed
+
+    g = torch.Generator().manual_seed(3)
+    for shape, p in (((128, 24, 32), 0.5), ((4, 60, 60), 0.4)):
+        mask = torch.rand(*shape, generator=g) > p
+        seed = torch.stack([torch.randint(0, shape[1], (shape[0],), generator=g),
+                            torch.randint(0, shape[2], (shape[0],), generator=g)], 1)
+        want = flood_fill_from_seed(mask, seed)
+        got = flood_fill_from_seed(mask.to(cuda), seed.to(cuda))
+        assert torch.equal(got.cpu(), want)
+        if shape[0] == 128:
+            assert (~mask[torch.arange(128), seed[:, 0], seed[:, 1]]).any()

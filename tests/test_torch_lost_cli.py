@@ -26,6 +26,13 @@ import pytest
 import torch
 
 from vipers_torch.cli.main import build_parser, main
+from tests import torch_explain_fixtures as fx
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    yield from fx.one_torch_thread()
+
 
 SIZES = [(192, 128), (160, 100), (150, 96), (170, 110), (100, 160), (96, 150), (110, 170)]
 N_IMAGES = len(SIZES)

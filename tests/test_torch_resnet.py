@@ -50,6 +50,13 @@ import vipers_torch.pruning as tprune
 from vipers_torch.pruning import snip as tsnip
 from vipers_torch.train import optim as toptim
 from vipers_torch.train import steps as tsteps
+from tests import torch_explain_fixtures as fx
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    yield from fx.one_torch_thread()
+
 
 CLASSES = 10
 

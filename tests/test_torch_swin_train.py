@@ -38,6 +38,13 @@ from vipers_torch.models import swin as tswin
 from vipers_torch.pruning import snip as tsnip
 from vipers_torch.train import optim as toptim
 from vipers_torch.train import steps as tsteps
+from tests import torch_explain_fixtures as fx
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    yield from fx.one_torch_thread()
+
 
 # two blocks a stage (the registry's (2, 2, 6, 2) is held by
 # tests/test_torch_swin.py): every kind of block, at 2/3 of the compile time

@@ -13,6 +13,7 @@ through 3 SGD steps at lr 0.1); accuracies exact.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +35,13 @@ from vipers_torch.ops import attention_train as tat
 from vipers_torch.train import loop as tloop
 from vipers_torch.train import optim as toptim
 from vipers_torch.train import steps as tsteps
+from tests import torch_explain_fixtures as fx
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    yield from fx.one_torch_thread()
+
 
 CFG = dict(patch_size=16, num_layers=2, num_heads=2, hidden_dim=128,
            mlp_dim=256, num_classes=10)
@@ -73,7 +81,21 @@ def _np_masks(masks):
     return {p: np.array(m) for p, m in masks.items()}
 
 
+_JAX_RUNS: dict = {}
+
+
 def _run_jax(jspec, params, masks, batches, ocfg, ema_decay=None, ema_warmup=0):
+    """The JAX steps' (state, metrics), each configuration compiled and run
+    once a module: the routing switches the steps read are in the key."""
+    key = (id(jspec), repr(ocfg), ema_decay, ema_warmup,
+           os.environ.get("VIPERS_FUSED_ATTN_INTERPRET"), os.environ.get("VIPERS_FLASH_MIN_T"))
+    if key not in _JAX_RUNS:
+        _JAX_RUNS[key] = _run_jax_steps(jspec, params, masks, batches, ocfg, ema_decay,
+                                        ema_warmup)
+    return _JAX_RUNS[key]
+
+
+def _run_jax_steps(jspec, params, masks, batches, ocfg, ema_decay, ema_warmup):
     tx = joptim.make_optimizer(ocfg, params, joptim.make_lr_schedule(ocfg, 1))
     state = jsteps.TrainState(step=jnp.zeros((), jnp.int32), params=params,
                               batch_stats=None, masks=masks, opt_state=tx.init(params),

@@ -1,8 +1,8 @@
 """The port's command line (the ``train``, ``evaluate``, ``lost``,
 ``corloc``, ``cluster``, ``explain``, ``explain-eval``,
-``explain-eval-batch``, ``mvh``, ``slim`` and ``quantize`` subcommands of
-``vipers/cli/main.py``, with the same flags and defaults, plus
-``--device``)::
+``explain-eval-batch``, ``mvh``, ``slim``, ``quantize`` and ``export``
+subcommands of ``vipers/cli/main.py``, with the same flags and defaults,
+plus ``--device``)::
 
     python -m vipers_torch.cli.main train --model vit_b_16 --data-path imagenet \
         --pruning-method magnitude --pruning-rate 0.2 --amp --output-dir out
@@ -34,11 +34,15 @@
         --data-path imagenet --resume model.pth --mode ptq --output-dir q
     python -m vipers_torch.cli.main lost --model vit_s_16 --dtype int8 \
         --data-path VOC2007 --checkpoint q/quantized_post_train_model.pth
+    python -m vipers_torch.cli.main export --model vit_b_16 --checkpoint model.pth \
+        --pipeline lost --dtype bf16 --batch-size 128 --image-size 384 512 \
+        --output-dir art --verify     # art/model.pt2 + art/meta.json
 
 ``train``, ``evaluate``, ``lost``, ``cluster``, ``explain``,
-``explain-eval``, ``mvh`` and ``quantize`` run on the card unless given ``--device cpu``; there is no silent
-fallback (``explain-eval-batch`` scores saved maps with numpy on the host
-and only accepts the flag; ``slim`` is host numpy and has no flag).
+``explain-eval``, ``mvh``, ``quantize`` and ``export`` run on the card
+unless given ``--device cpu``; there is no silent fallback
+(``explain-eval-batch`` scores saved maps with numpy on the host and only
+accepts the flag; ``slim`` is host numpy and has no flag).
 A slimmed checkpoint's ``.slim.json`` sidecar rebuilds the model at its
 widths in ``train --resume``, ``evaluate``, ``lost`` and ``explain``. Flags that select what the
 port does not have yet exit with a message naming the ROADMAP item that
@@ -257,6 +261,40 @@ def build_parser() -> argparse.ArgumentParser:
     quant.add_argument("--num-batch-norm-update-epochs", type=int, default=3,
                        help="epochs before freezing BN statistics "
                             "(train_quantization.py:123-125)")
+
+    exp = sub.add_parser(
+        "export",
+        help="write a torch.export serving artifact from a (pruned / slimmed / "
+             "quantize-calibrated) checkpoint (core/export.py)")
+    exp.add_argument("--model", required=True)
+    exp.add_argument("--checkpoint", default="",
+                     help=".pth; masks baked in, .slim.json sidecar picked up automatically")
+    exp.add_argument("--num-classes", type=int, default=0,
+                     help="head width when exporting without a checkpoint "
+                          "(0 = registry default)")
+    exp.add_argument("--batch-size", type=int, default=8,
+                     help="static serving batch (one artifact per batch shape)")
+    exp.add_argument("--image-size", type=int, nargs=2, default=None, metavar=("H", "W"))
+    exp.add_argument("--dtype", default="bf16", choices=["f32", "bf16", "int8"],
+                     help="compute dtype; int8 = real integer Dense/Conv with "
+                          "observer-calibrated or dynamic qparams")
+    exp.add_argument("--platforms", nargs="+", default=None,
+                     choices=["cpu", "tpu", "cuda", "rocm"],
+                     help="a torch.export program is one device's: only the export "
+                          "device's own name (cuda, or cpu under --device cpu) is accepted")
+    exp.add_argument("--pipeline", default="classify", choices=["classify", "lost"],
+                     help="classify = logits forward; lost = the batched LOST discovery "
+                          "program (boxes/seeds out) at a fixed serving shape")
+    exp.add_argument("--k-patches", type=int, default=100,
+                     help="[lost] seed-expansion pool size")
+    exp.add_argument("--which-features", default="k", choices=["k", "q", "v"],
+                     help="[lost] qkv feature modality")
+    exp.add_argument("--resnet-dilate", type=int, default=1)
+    exp.add_argument("--output-dir", required=True)
+    exp.add_argument("--verify", action="store_true",
+                     help="load the artifact back and check its output against the "
+                          "direct forward")
+    exp.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
     return p
 
 
@@ -331,6 +369,10 @@ def main(argv=None) -> int:
         from vipers_torch.train.quantize import run_quantize
 
         return run_quantize(args)
+    if args.cmd == "export":
+        from vipers_torch.core.export import run_export
+
+        return run_export(args)
     from vipers_torch.discovery.corloc import run_corloc_cli
 
     return run_corloc_cli(args)

@@ -5,16 +5,18 @@ reads.
 
 4-connectivity, as ``scipy.ndimage.label``'s default structure. The fill is
 a monotone dilation from the seed, the labelling a min-label propagation;
-all B grids step together and the host checks convergence only every
+all B grids step together and convergence is checked only every
 ``CHECK_EVERY`` steps, so a batch costs one host sync per ``CHECK_EVERY``
-steps instead of one per step. Extra steps past the fixed point change
-nothing (both steps are idempotent there), so the results equal the JAX
-``while_loop``'s.
+steps instead of one per step (the fill's loop is a ``while_loop``, which
+``torch.export`` keeps on the device). Extra steps past the fixed point
+change nothing (both steps are idempotent there), so the results equal the
+JAX ``while_loop``'s.
 """
 
 from __future__ import annotations
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 CHECK_EVERY = 8
 
@@ -29,19 +31,35 @@ def _dilate4(x):
     return out
 
 
+def _changed(prev, cur, _mask):
+    return (prev != cur).any()
+
+
+def _dilate_steps(prev, cur, mask):
+    for _ in range(CHECK_EVERY):
+        prev, cur = cur, _dilate4(cur) & mask
+    return prev, cur
+
+
 def flood_fill_from_seed(mask, seed_rc):
     """Bool (B, H, W) component of each ``mask`` containing its seed
     ``seed_rc`` (B, 2) = (row, col); all-False where the seed itself is
-    background."""
+    background.
+
+    The loop is torch's ``while_loop`` higher-order op: the body takes
+    ``CHECK_EVERY`` dilations and the condition is "the last one changed
+    something". An eager run reads the condition once a body (one host
+    sync per ``CHECK_EVERY`` steps); ``torch.export`` keeps the loop in
+    the graph, so an exported LOST program fills with no host sync. The op
+    is called directly, with ``mask`` as its additional input: the
+    ``while_loop`` function would compile the loop with dynamo on every
+    eager call."""
     b = mask.shape[0]
     cur = torch.zeros_like(mask)
     cur[torch.arange(b, device=mask.device), seed_rc[:, 0], seed_rc[:, 1]] = True
-    cur &= mask
-    while True:
-        for _ in range(CHECK_EVERY):
-            prev, cur = cur, _dilate4(cur) & mask
-        if torch.equal(cur, prev):
-            return cur
+    cur = cur & mask
+    # (~cur, cur) differ everywhere, so the first body always runs
+    return while_loop_op(_changed, _dilate_steps, (~cur, cur), (mask,))[1]
 
 
 def _min4(lbl, big: int):

@@ -319,6 +319,11 @@ class LostFeatureExtractor:
     def batched_features(self, images, pos, token_mask, valid_hw, pixel_hw=None):
         """(B, GH*GW, D) LOST features of a prepared batch on its bucket grid
         (``_transformer_features``)."""
+        return self.traceable_features(images, pos, token_mask, valid_hw, pixel_hw)
+
+    def traceable_features(self, images, pos, token_mask, valid_hw, pixel_hw=None):
+        """``batched_features`` outside inference mode, for callers that
+        trace it (``core.export``)."""
         if images.dtype == torch.uint8:
             images = device_normalize(images, pixel_hw)
         patch = self.spec.patch_size
@@ -438,6 +443,10 @@ class LostFeatureExtractor:
         order, through ``masked_slab_layernorm`` over each image's valid
         (fh, fw) cells; pad cells are zero. An f32 forward's convolutions
         run as exact f32."""
+        return self.traceable_cnn_features(images, valid_fhw, pixel_hw)
+
+    def traceable_cnn_features(self, images, valid_fhw, pixel_hw=None):
+        """``cnn_features`` outside inference mode (``core.export``)."""
         if images.dtype == torch.uint8:
             images = device_normalize(images, pixel_hw)
         with exact_f32_convs(self.compute_dtype), self._int8_scope():

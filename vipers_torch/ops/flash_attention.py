@@ -19,12 +19,21 @@ tile splits an 80-column row into its first 64 columns and a 16-column
 tail, each its own TMA box and wgmma operand, so the products do the 80
 columns' work and nothing is padded.
 
+The kernels are ``torch.library`` custom ops, so ``torch.export`` traces
+them as graph nodes and an exported program calls them again when it runs
+(importing ``vipers_torch.ops`` registers them):
+``vipers_torch::flash_attention_fwd`` (q, k, v, valid or None, scale) ->
+(out, lse), ``vipers_torch::flash_attention_bwd`` and
+``vipers_torch::flash_attention_packed``. Each op's CPU implementation is
+the plain version, its CUDA implementation the ctypes launch, and its fake
+implementation gives the output shapes; the wrappers check the inputs and
+the card's gates (head dims) before they call the op.
 ``flash_attention_fwd`` launches the kernel for CUDA tensors and runs the
 plain version, ``flash_attention_plain``, for CPU tensors; a build or
 launch failure raises. ``LAUNCHES`` counts kernel launches per instance:
 ``"float32"`` and ``"bfloat16"`` at head dim 64, ``"float32[hd80]"`` and
 ``"bfloat16[hd80]"`` at 80.
-``flash_attention`` is a ``torch.autograd.Function`` whose backward,
+``flash_attention`` is differentiable: the op's backward,
 ``flash_attention_bwd``, launches ``vipers_torch/csrc/flash_attention_bwd.cu``
 for CUDA tensors. On the TPU the product path's backward is the library's
 two Pallas kernels, ``_flash_attention_bwd_dkv`` and
@@ -59,7 +68,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -217,15 +226,32 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
     """(B, H, T, hd) masked attention -> (out in the input dtype, lse f32
     (B, H, T)). ``valid``: (B, T) bool key mask (True = attend). Query rows
     that are pad attend the valid keys, like the JAX einsum path. The card's
-    kernel takes hd 64 and 80; the plain version (CPU tensors) takes any."""
+    kernel takes hd 64 and 80; the plain version (CPU tensors) takes any.
+    The checks run here, then the custom op ``vipers_torch::flash_attention_fwd``,
+    differentiable in q, k and v through ``flash_attention_bwd``."""
     _check(q, k, v, valid)
-    b, h, t, hd = q.shape
+    hd = q.shape[-1]
     scale = (hd ** -0.5) if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, valid, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    _check_head_dim(hd)
+    if q.device.type == "cuda":
+        _check_head_dim(hd)
+    return torch.ops.vipers_torch.flash_attention_fwd.default(q, k, v, valid, scale)
+
+
+@torch.library.custom_op("vipers_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: Optional[torch.Tensor], scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 1 as an operator: the plain version on the CPU."""
+    return flash_attention_plain(q, k, v, valid, scale)
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, valid, scale):
+    """Row 1 on the card: one launch of ``flash_attention_fwd.cu``."""
+    b, h, t, hd = q.shape
     fn = _lib()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_aligned(q, k, v)
@@ -242,6 +268,28 @@ def flash_attention_fwd(q, k, v, valid=None, scale: Optional[float] = None):
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
     LAUNCHES[launch_key(q.dtype, hd)] += 1
     return out, lse
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, valid, scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, valid, scale = inputs
+    ctx.save_for_backward(q, k, v, valid, *output)
+    ctx.scale = scale
+
+
+def _flash_fwd_backward(ctx, g, _g_lse):
+    """out's cotangent through the backward kernels; lse is not
+    differentiated (only the backward reads it)."""
+    q, k, v, valid, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, valid, out, lse, g.to(q.dtype), ctx.scale)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup)
 
 
 def _vjp_from_p(p, q, k, v, out, g, scale: float):
@@ -309,16 +357,34 @@ def bwd_design(dtype: torch.dtype = torch.bfloat16, head_dim: int = HEAD_DIM) ->
 def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
     """(dq, dk, dv) in the input dtype for (B, H, T, hd) q, k, v, the (B, T)
     bool key mask (or None), the forward's ``out`` and f32 ``lse`` and the
-    cotangent ``g``. CUDA tensors go to the kernel (hd 64 or 80, any T; a
-    build or launch failure raises, and another hd raises before any
-    launch), CPU tensors to ``flash_attention_bwd_plain`` (any hd)."""
+    cotangent ``g``, through the custom op ``vipers_torch::flash_attention_bwd``.
+    CUDA tensors go to the kernel (hd 64 or 80, any T; a build or launch
+    failure raises, and another hd raises before any launch), CPU tensors
+    to ``flash_attention_bwd_plain`` (any hd)."""
     _check_bwd(q, k, v, valid, out, lse, g)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, valid, out, lse, g, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+    if q.device.type == "cuda":
+        _check_head_dim(q.shape[-1], "flash attention backward")
+    return torch.ops.vipers_torch.flash_attention_bwd.default(q, k, v, valid, out, lse, g,
+                                                      float(scale))
+
+
+@torch.library.custom_op("vipers_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: Optional[torch.Tensor], out: torch.Tensor, lse: torch.Tensor,
+                  g: torch.Tensor, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rows 12-13 as an operator: the plain version on the CPU."""
+    return flash_attention_bwd_plain(q, k, v, valid, out, lse, g, scale)
+
+
+@_flash_bwd_op.register_kernel("cuda")
+def _flash_bwd_cuda(q, k, v, valid, out, lse, g, scale):
+    """Rows 12-13 on the card: the row pass, the dk/dv and the dq kernel of
+    ``flash_attention_bwd.cu``, one count a call."""
     b, h, t, hd = q.shape
-    _check_head_dim(hd, "flash attention backward")
     fn = _bwd_lib()
     q, k, v, out, g = (z.contiguous() for z in (q, k, v, out, g))
     lse = lse.contiguous()
@@ -334,37 +400,23 @@ def flash_attention_bwd(q, k, v, valid, out, lse, g, scale: float):
                 g.data_ptr(), vmask.data_ptr() if vmask is not None else None,
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 rows.data_ptr(),
-                b * h, h, t, hd, float(scale), _DTYPE_CODE[q.dtype], q.device.index, stream)
+                b * h, h, t, hd, scale, _DTYPE_CODE[q.dtype], q.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     BWD_LAUNCHES[launch_key(q.dtype, hd)] += 1
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward and backward through the kernels (plain versions on the
-    CPU); the backward is the JAX package's recomputation VJP."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, valid, scale):
-        out, lse = flash_attention_fwd(q, k, v, valid, scale)
-        ctx.save_for_backward(q, k, v, valid, out, lse)
-        ctx.scale = scale
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, valid, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, valid, out, lse, g.to(q.dtype), ctx.scale)
-        return dq, dk, dv, None, None
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, valid, out, lse, g, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def flash_attention(q, k, v, valid=None, scale: Optional[float] = None):
     """(B, H, T, hd) attention without materializing (T, T) (hd 64 or 80 on
     the card); returns out, differentiable in q, k and v through the
     backward kernels."""
-    scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
-    return _FlashAttention.apply(q, k, v, valid, scale)
+    return flash_attention_fwd(q, k, v, valid, scale)[0]
 
 
 # ------------------------- packed token-major route ------------------------
@@ -464,17 +516,32 @@ def _packed_lib():
 
 def flash_attention_packed_fwd(qkv, valid, num_heads: int, scale: float):
     """(B, T, 3D) packed qkv and a (B, T) bool key mask (or None) -> (B, T,
-    D) h-major attention output in qkv's dtype. The kernel needs head dim
-    64; the plain version (CPU tensors) takes any packed layout."""
+    D) h-major attention output in qkv's dtype, through the custom op
+    ``vipers_torch::flash_attention_packed`` (differentiable in qkv). The
+    kernel needs head dim 64; the plain version (CPU tensors) takes any
+    packed layout."""
     _check_packed(qkv, valid, num_heads)
-    if qkv.device.type == "cpu":
-        return flash_attention_packed_plain(qkv, valid, num_heads, scale)
-    if qkv.device.type != "cuda":
+    if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {qkv.device}")
+    if qkv.device.type == "cuda":
+        _check_kernel_head_dim(qkv.shape[2] // 3 // num_heads)
+    return torch.ops.vipers_torch.flash_attention_packed.default(qkv, valid, num_heads,
+                                                         float(scale))
+
+
+@torch.library.custom_op("vipers_torch::flash_attention_packed", mutates_args=(),
+                         device_types="cpu")
+def _packed_op(qkv: torch.Tensor, valid: Optional[torch.Tensor], num_heads: int,
+               scale: float) -> torch.Tensor:
+    """Row 3 as an operator: the plain version on the CPU."""
+    return flash_attention_packed_plain(qkv, valid, num_heads, scale)
+
+
+@_packed_op.register_kernel("cuda")
+def _packed_cuda(qkv, valid, num_heads, scale):
+    """Row 3 on the card: one launch of ``flash_attention_packed.cu``."""
     b, t, three_d = qkv.shape
     d = three_d // 3
-    hd = d // num_heads
-    _check_kernel_head_dim(hd)
     fn = _packed_lib()
     qkv = qkv.contiguous()
     _check_aligned(qkv)
@@ -483,12 +550,18 @@ def flash_attention_packed_fwd(qkv, valid, num_heads: int, scale: float):
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = fn(qkv.data_ptr(), vmask.data_ptr() if vmask is not None else None,
-                out.data_ptr(), b, num_heads, t, hd, float(scale),
+                out.data_ptr(), b, num_heads, t, d // num_heads, scale,
                 _DTYPE_CODE[qkv.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_packed kernel launch failed: CUDA error {rc}")
     PACKED_LAUNCHES[str(qkv.dtype).replace("torch.", "")] += 1
     return out
+
+
+@_packed_op.register_fake
+def _packed_fake(qkv, valid, num_heads, scale):
+    b, t, three_d = qkv.shape
+    return qkv.new_empty((b, t, three_d // 3))
 
 
 def flash_attention_packed_bwd(qkv, valid, out, g, num_heads: int, scale: float):
@@ -507,22 +580,19 @@ def flash_attention_packed_bwd(qkv, valid, out, g, num_heads: int, scale: float)
     return _pack_bhtd(*grads, num_heads).to(qkv.dtype)
 
 
-class _FlashAttentionPacked(torch.autograd.Function):
-    """Forward through the packed kernel (plain version on the CPU),
-    backward by the JAX package's einsum-recompute VJP."""
+def _packed_setup(ctx, inputs, output):
+    qkv, valid, num_heads, scale = inputs
+    ctx.save_for_backward(qkv, valid, output)
+    ctx.num_heads, ctx.scale = num_heads, scale
 
-    @staticmethod
-    def forward(ctx, qkv, valid, num_heads, scale):
-        out = flash_attention_packed_fwd(qkv, valid, num_heads, scale)
-        ctx.save_for_backward(qkv, valid, out)
-        ctx.num_heads, ctx.scale = num_heads, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        qkv, valid, out = ctx.saved_tensors
-        return (flash_attention_packed_bwd(qkv, valid, out, g, ctx.num_heads, ctx.scale),
-                None, None, None)
+def _packed_backward(ctx, g):
+    qkv, valid, out = ctx.saved_tensors
+    return (flash_attention_packed_bwd(qkv, valid, out, g, ctx.num_heads, ctx.scale),
+            None, None, None)
+
+
+_packed_op.register_autograd(_packed_backward, setup_context=_packed_setup)
 
 
 def flash_attention_packed(qkv, valid=None, *, num_heads: int,
@@ -541,4 +611,4 @@ def flash_attention_packed(qkv, valid=None, *, num_heads: int,
     if pad:
         qkv = F.pad(qkv, (0, 0, 0, pad))
         valid = F.pad(valid, (0, pad))
-    return _FlashAttentionPacked.apply(qkv, valid, num_heads, scale)[:, :t]
+    return flash_attention_packed_fwd(qkv, valid, num_heads, scale)[:, :t]

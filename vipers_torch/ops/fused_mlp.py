@@ -14,12 +14,16 @@ The LayerNorm affine is folded into the weights in f32 outside the kernel,
 ``W_eff = gamma * W`` and ``b_eff = beta @ W + b``, as the JAX wrapper does.
 ``fused_ln_dense_gelu_core`` launches the kernel for CUDA tensors and runs
 ``fused_ln_dense_gelu_plain`` for CPU tensors; a build or launch failure
-raises, and so does a CUDA tensor that is not 16-byte aligned (TMA).
+raises, and so does a CUDA tensor that is not 16-byte aligned (TMA). The
+kernel is the ``torch.library`` custom op ``vipers_torch::fused_ln_dense_gelu``
+(CPU implementation the plain version, CUDA the ctypes launch, a fake
+implementation for ``torch.export``), so an exported program calls it again
+when it runs.
 ``LAUNCHES`` counts kernel launches, ``WIDTH_LAUNCHES`` the same launches by
 width D; ``design(d)`` reads back the compiled instance that width ``d``
-runs (the ViT family's: D = 384, 768, 1024 and 1280). ``fused_ln_dense_gelu`` is a
-``torch.autograd.Function`` whose backward is the JAX package's recompute
-VJP in plain torch; the gradients reach ln_2 and fc1 through the fold.
+runs (the ViT family's: D = 384, 768, 1024 and 1280). The op's backward
+(``fused_ln_dense_gelu``'s) is the JAX package's recompute VJP in plain
+torch; the gradients reach ln_2 and fc1 through the fold.
 """
 
 from __future__ import annotations
@@ -124,10 +128,12 @@ def design(d: int) -> dict:
 
 def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
     """gelu_tanh(LN_noaffine(x2d) @ W_eff + b_eff): x2d (M, D) bf16,
-    w_eff_t (F, D) bf16, b_eff (F,) f32. CPU tensors take any width; on the
-    card any F (a slimmed MLP's), D % 64 == 0 and an instance of
-    ``fused_mlp.cu`` that fits D (``design(d)``), else a ``ValueError``."""
-    m, d = x2d.shape
+    w_eff_t (F, D) bf16, b_eff (F,) f32, through the custom op
+    ``vipers_torch::fused_ln_dense_gelu`` (differentiable by the recompute
+    VJP). CPU tensors take any width; on the card any F (a slimmed MLP's),
+    D % 64 == 0 and an instance of ``fused_mlp.cu`` that fits D
+    (``design(d)``), else a ``ValueError``."""
+    d = x2d.shape[1]
     f = w_eff_t.shape[0]
     if x2d.dtype != torch.bfloat16 or w_eff_t.dtype != torch.bfloat16:
         raise ValueError(f"the fused MLP kernel is bf16 only, got "
@@ -137,13 +143,27 @@ def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
         raise ValueError("w_eff_t must be (F, D) and b_eff (F,) float32")
     if len({x2d.device, w_eff_t.device, b_eff.device}) != 1:
         raise ValueError("inputs on several devices")
-    if x2d.device.type == "cpu":
-        return fused_ln_dense_gelu_plain(x2d, w_eff_t, b_eff, eps)
-    if x2d.device.type != "cuda":
+    if x2d.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x2d.device}")
-    if d % 64 or design(d)["rows"] == 0:
+    if x2d.device.type == "cuda" and (d % 64 or design(d)["rows"] == 0):
         raise ValueError(f"the fused MLP kernel needs D % 64 == 0 and an instance that "
                          f"fits D, got D={d}")
+    return torch.ops.vipers_torch.fused_ln_dense_gelu.default(x2d, w_eff_t, b_eff, float(eps))
+
+
+@torch.library.custom_op("vipers_torch::fused_ln_dense_gelu", mutates_args=(),
+                         device_types="cpu")
+def _fused_op(x2d: torch.Tensor, w_eff_t: torch.Tensor, b_eff: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """Row 4 as an operator: the plain version on the CPU."""
+    return fused_ln_dense_gelu_plain(x2d, w_eff_t, b_eff, eps)
+
+
+@_fused_op.register_kernel("cuda")
+def _fused_cuda(x2d, w_eff_t, b_eff, eps):
+    """Row 4 on the card: one launch of ``fused_mlp.cu``."""
+    m, d = x2d.shape
+    f = w_eff_t.shape[0]
     fn = _lib()
     x2d, w_eff_t, b_eff = x2d.contiguous(), w_eff_t.contiguous(), b_eff.contiguous()
     _check_aligned(x2d, w_eff_t, b_eff)
@@ -151,12 +171,17 @@ def fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps: float = 1e-6):
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = fn(x2d.data_ptr(), w_eff_t.data_ptr(), b_eff.data_ptr(),
-                out.data_ptr(), m, d, f, float(eps), stream)
+                out.data_ptr(), m, d, f, eps, stream)
     if rc != 0:
         raise RuntimeError(f"fused_ln_dense_gelu kernel launch failed: CUDA error {rc}")
     LAUNCHES["bfloat16"] += 1
     WIDTH_LAUNCHES[d] = WIDTH_LAUNCHES.get(d, 0) + 1
     return out
+
+
+@_fused_op.register_fake
+def _fused_fake(x2d, w_eff_t, b_eff, eps):
+    return x2d.new_empty((x2d.shape[0], w_eff_t.shape[0]))
 
 
 def fold_ln_affine(ln_scale, ln_bias, kernel, bias, dtype):
@@ -193,20 +218,18 @@ def fused_ln_dense_gelu_bwd(x2d, w_eff_t, b_eff, eps: float, dy):
     return dx.to(x2d.dtype), dw_t.to(w_eff_t.dtype), db.to(b_eff.dtype)
 
 
-class _FusedLnDenseGelu(torch.autograd.Function):
-    """Forward through the kernel (plain version on the CPU), backward by
-    the JAX package's recompute VJP."""
+def _fused_setup(ctx, inputs, output):
+    x2d, w_eff_t, b_eff, eps = inputs
+    ctx.save_for_backward(x2d, w_eff_t, b_eff)
+    ctx.eps = eps
 
-    @staticmethod
-    def forward(ctx, x2d, w_eff_t, b_eff, eps):
-        ctx.save_for_backward(x2d, w_eff_t, b_eff)
-        ctx.eps = eps
-        return fused_ln_dense_gelu_core(x2d, w_eff_t, b_eff, eps)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x2d, w_eff_t, b_eff = ctx.saved_tensors
-        return (*fused_ln_dense_gelu_bwd(x2d, w_eff_t, b_eff, ctx.eps, dy), None)
+def _fused_backward(ctx, dy):
+    x2d, w_eff_t, b_eff = ctx.saved_tensors
+    return (*fused_ln_dense_gelu_bwd(x2d, w_eff_t, b_eff, ctx.eps, dy), None)
+
+
+_fused_op.register_autograd(_fused_backward, setup_context=_fused_setup)
 
 
 def fused_ln_dense_gelu(x, ln_scale, ln_bias, kernel, bias, *, eps=1e-6):
@@ -215,5 +238,5 @@ def fused_ln_dense_gelu(x, ln_scale, ln_bias, kernel, bias, *, eps=1e-6):
     the JAX package. Returns (..., F)."""
     d = x.shape[-1]
     w_eff_t, b_eff = fold_ln_affine(ln_scale, ln_bias, kernel, bias, x.dtype)
-    out = _FusedLnDenseGelu.apply(x.reshape(-1, d), w_eff_t, b_eff, float(eps))
+    out = fused_ln_dense_gelu_core(x.reshape(-1, d), w_eff_t, b_eff, eps)
     return out.reshape(*x.shape[:-1], w_eff_t.shape[0])
