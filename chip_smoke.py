@@ -159,7 +159,7 @@ Phases (any failure exits non-zero; nothing is caught):
      (256 crops, val resize 260, bicubic), B=128, on phase 12's ImageFolder:
      SNIP to 50%, LRR (rate 0.2, threshold 35.9: two iterations);
      ``evaluate --amp``; ``lost --arch swin --dtype bf16`` from the
-     iteration-01 checkpoint on 256 JPEGs, first window and
+     iteration-01 checkpoint on 64 JPEGs, first window and
      ``--swin-all-windows``; ``lost --arch resnet --exact-shapes`` on 32
      from phase 13's ResNet-50 .pth. Checks: no attention or fused-MLP
      launch in any run, phase 13's checks of batches, losses, checkpoints
@@ -284,6 +284,30 @@ Phases (any failure exits non-zero; nothing is caught):
      at its canonical bucket (no kernel launch, boxes equal to the eager
      CNN pipeline's); ViT-B/16 classify bf16 at 224 ``--verify``;
      ``vipers_torch.tools.bench_export``'s eager and artifact img/s.
+ 20. mobilenet_v2, DINO explain and the debugging surface
+     (``debug_surface_phase``): mobilenet_v2 (seed 0, 50% global magnitude
+     mask) through ``lost --arch mobilenet`` on 128 fixture JPEGs in bf16
+     and f32 and on 32 of them with ``--exact-shapes``, its CNN pipeline at the 512x384 canonical
+     bucket (img/s at B=128, p50 at B=1), card vs CPU at B=4 at full depth
+     (features 1e-3 of their scale, boxes equal up to top-score ties), and
+     ``quantized_mobilenet_v2`` ``lost --dtype int8`` from phase 18's PTQ
+     ``.pth`` with every int32 accumulator of a B=2 forward equal to the
+     CPU's: 0 attention or fused-MLP launches on every mobilenet path; rows
+     1 and 12-13 f32 against their plain versions at ``dino_vit_small``'s
+     explain shape (B*H = 1*6, T = 769), ``explain-eval`` on mobilenet_v2
+     and dino_vit_small (2 VOC-sized images; 11 flash blocks x 102 forwards
+     and x 100 backwards an image counted on DINO, 0 on mobilenet), the
+     heatmaps card vs CPU within 1e-4 (DINO cut to 2 blocks; LRP, and
+     MobileNetV2's IG, whose f32 map lies ~1e-2 of its scale from f64 on
+     the CPU too, by cosine >= 0.999); rows 1 (B*H = 1*6, T = 896) and 4 (M = 896)
+     bf16 against their plain versions at the per-image shape, ``lost
+     --visualize pred`` and ``seed_expansion`` on ViT-S/16 bf16 (12 + 12
+     launches an image counted) and mobilenet_v2 (0) on 8 JPEGs: one
+     drawing an image, the boxes equal to the batched run's; ``train
+     --profile-dir`` on ViT-S/16 ``--amp`` at 224 for one epoch: one Chrome
+     trace naming the training attention kernels (rows 7-8); ``train
+     --debug-nans`` on a ViT-S/16 with one NaN weight raises
+     ``FloatingPointError`` on the card.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
@@ -559,11 +583,13 @@ def fused_mlp_times(fm, x, w_eff_t, b_eff, lib_w):
     return ms, lib_ms, bms, by, line
 
 
-def check_fused_mlp(fm, gen):
-    """Fused LN->fc1->GELU kernel vs plain at (128*896, 384) x (384, 1536):
-    2e-2 of the output scale (the kernel's tanh is tanh.approx.f32, the
-    plain version's torch.tanh)."""
-    m, d, f = BATCH * 896, 384, 1536
+def check_fused_mlp(fm, gen, m=BATCH * 896, tag=None):
+    """Fused LN->fc1->GELU kernel vs plain at (m, 384) x (384, 1536), m =
+    128*896 on the LOST path: 2e-2 of the output scale (the kernel's tanh
+    is tanh.approx.f32, the plain version's torch.tanh). The row's name
+    carries ``tag``."""
+    d, f = 384, 1536
+    name = f"fused_ln_fc1_gelu[bf16{'' if tag is None else f', {tag}'}]"
     x, w_eff_t, b_eff, lib_w = fused_mlp_inputs(fm, m, d, f, gen)
     out = fm.fused_ln_dense_gelu_core(x, w_eff_t, b_eff)
     want = fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6)
@@ -571,9 +597,9 @@ def check_fused_mlp(fm, gen):
     err, scale = scaled_err(out, want)
     ms, lib_ms, bms, by, line = fused_mlp_times(fm, x, w_eff_t, b_eff, lib_w)
     plain_ms = cuda_ms(lambda: fm.fused_ln_dense_gelu_plain(x, w_eff_t, b_eff, 1e-6), reps=5)
-    print(f"fused_ln_fc1_gelu[bf16] max_abs_err {err:.3e} (2e-2 of output scale {scale:.3g}) "
-          f"{line} plain {plain_ms:.3f} ms")
-    return {"name": "fused_ln_fc1_gelu[bf16]", "route": "cuda",
+    print(f"{name} max_abs_err {err:.3e} (2e-2 of output scale {scale:.3g}) "
+          f"{line} plain {plain_ms:.3f} ms at M = {m}")
+    return {"name": name, "route": "cuda",
             "source": "vipers_torch/csrc/fused_mlp.cu",
             "replaces": "vipers/ops/fused_mlp.py:123",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -920,7 +946,8 @@ def make_images(rng, exact_hw, patch=PATCH):
     imgs = []
     for h, w in exact_hw:
         im = np.zeros((-(-h // patch) * patch, -(-w // patch) * patch, 3), np.uint8)
-        im[:h, :w] = rng.integers(0, 110, (h, w, 3), dtype=np.uint8)
+        # random bytes mod 110: quicker to draw on the host than rng.integers
+        im[:h, :w] = np.frombuffer(rng.bytes(h * w * 3), np.uint8).reshape(h, w, 3) % 110
         r, c = rng.integers(0, h // 2), rng.integers(0, w // 2)
         im[r:r + h // 3, c:c + w // 3] = rng.integers(170, 256, 3, dtype=np.uint8)
         imgs.append(im)
@@ -960,6 +987,20 @@ def compare_with_cpu(tag, spec, params, masks, dtype, ex, imgs, exact_hw, lost_c
             else:
                 s = scores[i]
                 assert s[gseed[i]] == s[cseed[i]] == s.max(), (i, gseed[i], cseed[i])
+
+
+# spec.init(seed 0) trees by model configuration: phases 10 and 11 draw
+# vit_h_14's 632M weights (and vit_s_16's) more than once; the cached CPU
+# trees are only read (copied to the card), never modified
+INIT_CACHE: dict = {}
+
+
+def seeded_init(spec, seed=0):
+    """``spec.init`` from ``seed``, drawn once per model configuration."""
+    key = (spec.name, repr(spec.cfg), tuple(spec.input_size), spec.num_classes, seed)
+    if key not in INIT_CACHE:
+        INIT_CACHE[key] = spec.init(torch.Generator().manual_seed(seed))
+    return INIT_CACHE[key]
 
 
 def reset_counts(*counters):
@@ -1105,7 +1146,7 @@ def family_model(name, sparsity):
     t0 = time.time()
     spec = build_model(name)
     hw = FAMILY_HW[spec.patch_size]
-    params = to_device(spec.init(torch.Generator().manual_seed(0)), "cuda")
+    params = to_device(seeded_init(spec), "cuda")
     masks = None
     what = "no mask"
     if sparsity:
@@ -1684,7 +1725,7 @@ def train_phase(card, counters, hw, n_cpu, lrr, model="vit_s_16", patch=PATCH,
     t0 = time.time()
     b = batch
     spec = build_model(model, num_classes=1000, image_size=(hw, hw))
-    params = to_device(spec.init(torch.Generator().manual_seed(0)), "cuda")
+    params = to_device(seeded_init(spec), "cuda")
     masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), SPARSITY)
     ocfg = OptimConfig(opt="sgd", lr=0.1, momentum=0.9, weight_decay=1e-4, epochs=10,
                        lr_scheduler="cosineannealinglr")
@@ -1869,7 +1910,7 @@ def snip_phase(card, counters, hw=392, batch=VIT_H_SNIP_BATCH, target=SPARSITY):
 
     t0 = time.time()
     spec = build_model("vit_h_14", num_classes=1000, image_size=(hw, hw))
-    params = to_device(spec.init(torch.Generator().manual_seed(0)), "cuda")
+    params = to_device(seeded_init(spec), "cuda")
     rng = np.random.default_rng(9)
     u8 = torch.from_numpy(rng.integers(0, 256, (batch, hw, hw, 3), dtype=np.uint8)).cuda()
     labels = torch.from_numpy(rng.integers(0, 1000, (batch,))).cuda()
@@ -2917,6 +2958,7 @@ SWIN_CROPS = ["--train-crop-size", "256", "--val-resize-size", "260", "--val-cro
               "--interpolation", "bicubic"]
 SWIN_CUT_BATCH, SWIN_BF16_BATCH = 4, 4  # the f32 driver and bf16 card-vs-CPU runs
 N_SWIN_EXACT = 32  # JPEGs of the ResNet-50 --exact-shapes run
+N_SWIN_LOST = 64  # JPEGs of each Swin per-image lost run (one image a forward)
 N_LOST_CPU = 4  # fixture JPEGs of the per-image LOST card-vs-CPU check
 
 
@@ -3172,7 +3214,7 @@ def swin_phase(card, counters, resnet_pth=None):
     two iterations of one epoch; two rounds leave 35.99999945%, so 36 would
     take a third); ``evaluate --amp`` over the LRR checkpoints; ``lost
     --arch swin --model swin_v2_t --dtype bf16`` from the iteration-01
-    checkpoint on 256 of phase 6's JPEGs, in the first-window regime and
+    checkpoint on 64 of phase 6's JPEGs, in the first-window regime and
     with ``--swin-all-windows``; ``lost --arch resnet --model resnet50
     --resnet-dilate 2 --exact-shapes --dtype bf16`` on N_SWIN_EXACT of them
     from phase 13's iteration-01 .pth (``resnet_pth``; a seed-0 .pth with a
@@ -3304,7 +3346,7 @@ def swin_phase(card, counters, resnet_pth=None):
         # 4. lost --arch swin from the iteration-01 checkpoint, both regimes;
         # lost --arch resnet --exact-shapes
         voc = os.path.join(root, "VOC2007")
-        items = voc_tree(voc, N_JPEG_SHORT, seed=3)
+        items = voc_tree(voc, N_SWIN_LOST, seed=3)
         voc_exact = os.path.join(root, "VOC2007_exact")
         items_exact = voc_tree(voc_exact, N_SWIN_EXACT, seed=3)
         if resnet_pth is None:
@@ -3423,13 +3465,14 @@ EXPLAIN_HEADS, EXPLAIN_T = 12, 769  # ViT-B/16 on the fixture's 500x375 image, p
 EXPLAIN_EVAL_IMAGES = 2  # of the 8 fixture JPEGs
 
 
-def check_flash_explain(fa, gen):
+def check_flash_explain(fa, gen, heads=EXPLAIN_HEADS, tag="explain"):
     """Rows 1 and 12-13 f32 against their plain versions at explain-eval's
-    ViT-B/16 shape: B*H = 1*12, T = 769, hd 64, no key mask (the forward:
-    atol 1e-5 rtol 1e-4, lse 1e-4; the backward: dq, dk, dv within 1e-4 of
-    each one's scale). Library calls: SDPA and its backward without a mask.
-    Returns the two rows."""
-    b, h, t, hd = 1, EXPLAIN_HEADS, EXPLAIN_T, 64
+    shape: B*H = 1*``heads`` (ViT-B/16's 12; ``dino_vit_small``'s 6), T =
+    769, hd 64, no key mask (the forward: atol 1e-5 rtol 1e-4, lse 1e-4;
+    the backward: dq, dk, dv within 1e-4 of each one's scale). Library
+    calls: SDPA and its backward without a mask. Returns the two rows,
+    named with ``tag``."""
+    b, h, t, hd = 1, heads, EXPLAIN_T, 64
     q, k, v, cot = (torch.randn(b, h, t, hd, generator=gen, device="cuda") for _ in range(4))
     scale = hd ** -0.5
     out, lse = fa.flash_attention_fwd(q, k, v, None, scale)
@@ -3445,11 +3488,11 @@ def check_flash_explain(fa, gen):
     nbytes = 4 * q.numel() * 4 + lse.numel() * 4
     bms, by, shares = forward_bound(flops, nbytes, torch.float32, ms)
     shape = f"B*H = {b}*{h}, T = {t}, hd {hd}, no key mask"
-    print(f"flash_attention_fwd[f32, explain] max_abs_err {err:.3e} (atol 1e-5 rtol 1e-4) "
+    print(f"flash_attention_fwd[f32, {tag}] max_abs_err {err:.3e} (atol 1e-5 rtol 1e-4) "
           f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {shares}) plain {plain_ms:.3f} "
           f"ms sdpa {lib_ms:.3f} ms bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB) at {shape}")
-    rows = [{"name": "flash_attention_fwd[f32, explain]", "route": "cuda",
+    rows = [{"name": f"flash_attention_fwd[f32, {tag}]", "route": "cuda",
              "source": "vipers_torch/csrc/flash_attention_fwd.cu",
              "replaces": "vipers/ops/flash_attention.py:91", "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}]
@@ -3465,13 +3508,13 @@ def check_flash_explain(fa, gen):
     nbytes = 8 * q.numel() * 4 + lse.numel() * 4
     bms, by = bound(3 * flops, nbytes, PEAK_TF32)
     fma_ms = bound(flops, nbytes, PEAK_F32)[0]
-    print(f"flash_attention_bwd[f32, explain] max_abs_err {max(e for e, _ in errs):.3e} (1e-4 "
+    print(f"flash_attention_bwd[f32, {tag}] max_abs_err {max(e for e, _ in errs):.3e} (1e-4 "
           f"of each of dq, dk, dv's scale; worst {max(e / sc for e, sc in errs):.2e} of it) "
           f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.1%} of its 3xTF32 "
           f"bound, {fma_ms / ms:.1%} of its FMA bound {fma_ms:.4f} ms) plain {plain_ms:.3f} ms "
           f"sdpa-backward {lib_ms:.3f} ms bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB) at {shape}")
-    rows.append({"name": "flash_attention_bwd[f32, explain]", "route": "cuda",
+    rows.append({"name": f"flash_attention_bwd[f32, {tag}]", "route": "cuda",
                  "source": "vipers_torch/csrc/flash_attention_bwd.cu",
                  "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
                              "(_flash_attention_bwd_dkv) and :1287 (_flash_attention_bwd_dq)",
@@ -3507,26 +3550,30 @@ def explain_voc(root):
     return sizes
 
 
-def explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem):
+def explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem, label="ViT-B/16"):
     """The card's f32 ``compute_heatmaps`` against the CPU's on one VOC
     image (IG at 4 steps, the same CPU-drawn noise): map errors over their
-    scales, RMA/RRA; LRP beside an f64 CPU run of the rule; IG's
-    profile."""
+    scales, RMA/RRA; LRP beside an f64 CPU run of the rule; IG's profile.
+    A transformer's image is padded to its patch multiple and its attention
+    map held too; a CNN runs at the image's size."""
     from PIL import Image
 
     from vipers_torch.data.detection import load_image_normalized
     from vipers_torch.explain import driver as xd
     from vipers_torch.explain.lrp import lrp_attribution
     from vipers_torch.explain.metrics import evaluate_single
+    from vipers_torch.models.cnn import exact_f32_convs
 
     img = load_image_normalized(os.path.join(voc, "JPEGImages", f"{stem}.jpg"))
     gt = np.asarray(Image.open(os.path.join(voc, "SegmentationClass", f"{stem}.png")).convert("L"),
                     dtype=np.float64)
-    p = spec.patch_size
+    vit = spec.family in ("vit", "dino_vit")
+    p = spec.patch_size if vit else 1
     ph, pw = -(-img.shape[0] // p) * p, -(-img.shape[1] // p) * p
     padded = np.zeros((ph, pw, 3), np.float32)
     padded[: img.shape[0], : img.shape[1]] = img
-    methods = ["gradcam", "ig", "attention", "lrp"]
+    maps = ["gradcam", "ig"] + (["attention"] if vit else [])
+    methods = [*maps, "lrp"]
     t0 = time.perf_counter()
     card = xd.compute_heatmaps(spec, card_model, padded, methods, ig_steps=4)
     t_card = time.perf_counter() - t0
@@ -3535,7 +3582,7 @@ def explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem):
     t_cpu = time.perf_counter() - t0
     assert int(np.argmax(card["prediction"])) == int(np.argmax(cpu["prediction"]))
     parts = []
-    for m in ("gradcam", "ig", "attention"):
+    for m in maps:
         sc = float(np.abs(cpu[m]).max())
         rel = float(np.abs(card[m] - cpu[m]).max()) / sc
         pooling = None if cpu[m].ndim == 2 else "sum,abs"
@@ -3543,11 +3590,29 @@ def explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem):
         sc_cpu, _ = evaluate_single(cpu[m], gt, pooling)
         d_mass = abs(float(sc_card["mass"]) - float(sc_cpu["mass"]))
         d_rank = abs(float(sc_card["rank"]) - float(sc_cpu["rank"]))
-        assert rel <= 1e-4 and d_mass <= 1e-4 and d_rank <= 1e-3, (m, rel, d_mass, d_rank)
-        parts.append(f"{m} {rel:.2e} of its scale (RMA {float(sc_cpu['mass']):.4f}, "
-                     f"|d| {d_mass:.1e}; RRA {float(sc_cpu['rank']):.4f}, |d| {d_rank:.1e})")
-    print(f"explain card vs CPU ({stem}, {pw}x{ph}, T = {(ph // p) * (pw // p) + 1}, IG 2 x 4 "
-          f"steps): {'; '.join(parts)}; card {t_card:.1f} s, CPU {t_cpu:.1f} s")
+        assert d_mass <= 1e-4 and d_rank <= 1e-3, (m, d_mass, d_rank)
+        if m == "ig" and not vit:
+            # a CNN's IG backward crosses relu6 kinks at exact zeros (masked
+            # weights, clamped activations), where f32 rounding of either
+            # side flips a gradient: the CPU's own f32 map lies ~4e-3 of its
+            # scale from an f64 run. So the card's is held as LRP is, by its
+            # cosine to the CPU's, with both maps' distances from f64 printed
+            a, b = card[m].ravel().astype(np.float64), cpu[m].ravel().astype(np.float64)
+            cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+            ref = ig_f64(spec, cpu_model, padded, int(np.argmax(cpu["prediction"])))
+            d64 = {k: float(np.abs(v - ref).max() / np.abs(ref).max())
+                   for k, v in (("card", card[m]), ("cpu", cpu[m]))}
+            assert cos >= 0.999, (m, cos, rel)
+            what = (f"cosine {cos:.6f}, {rel:.2e} of its scale from the CPU's; from an f64 "
+                    f"CPU run card {d64['card']:.2e}, cpu {d64['cpu']:.2e}")
+        else:
+            assert rel <= 1e-4, (m, rel)
+            what = f"{rel:.2e} of its scale"
+        parts.append(f"{m} {what} (RMA {float(sc_cpu['mass']):.4f}, |d| {d_mass:.1e}; RRA "
+                     f"{float(sc_cpu['rank']):.4f}, |d| {d_rank:.1e})")
+    size = f"{pw}x{ph}" + (f", T = {(ph // p) * (pw // p) + 1}" if vit else "")
+    print(f"explain card vs CPU [{label}] ({stem}, {size}, IG 2 x 4 steps): {'; '.join(parts)}; "
+          f"card {t_card:.1f} s, CPU {t_cpu:.1f} s")
     # LRP: the relevance reaching the input passes a division by y + eps
     # sign(y) at every Dense/Conv; over ViT-B/16's 12 blocks f32 rounding
     # moves it by up to percents of its scale, at eps 1e-2 as at its eps
@@ -3564,15 +3629,18 @@ def explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem):
     target = int(np.argmax(cpu["prediction"]))
     prev = os.environ.get("VIPERS_FLASH_MIN_T")
     parts = []
-    for eps in (1e-2, 1e-6):
+    # MobileNetV2's relevance at eps 1e-6 overflows f32 in both packages
+    # (53 layers of division by y + eps sign(y)): it is held at 1e-2 only
+    for eps in (1e-2, 1e-6) if vit else (1e-2,):
         rel = {}
         for tag, model, xx in (("card", card_model, x.cuda()), ("cpu", cpu_model, x),
                                ("f64", m64, x.double()), ("card einsum", card_model, x.cuda())):
             if tag in ("f64", "card einsum"):
                 os.environ["VIPERS_FLASH_MIN_T"] = "1000000"
             try:
-                rel[tag], t = lrp_attribution(xd._apply_fn(spec, model, ph, pw), model, xx,
-                                              eps=eps)
+                with exact_f32_convs():  # compute_heatmaps' scope: cuDNN's TF32 off
+                    rel[tag], t = lrp_attribution(xd._apply_fn(spec, model, ph, pw), model,
+                                                  xx, eps=eps)
             finally:
                 if prev is None:
                     os.environ.pop("VIPERS_FLASH_MIN_T", None)
@@ -3588,11 +3656,30 @@ def explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem):
             assert cos >= 0.999, cos
         parts.append(f"eps {eps:g}: card/CPU cosine {cos:.6f}; from an f64 CPU run "
                      + ", ".join(f"{k} {v:.2e}" for k, v in d.items()) + " of its scale")
-    print(f"explain card vs CPU lrp (ill conditioned in f32): {'; '.join(parts)}")
-    ig_profile(spec, card_model, padded)
+    print(f"explain card vs CPU [{label}] lrp (ill conditioned in f32): {'; '.join(parts)}")
+    ig_profile(spec, card_model, padded, label)
 
 
-def ig_profile(spec, model, padded):
+def ig_f64(spec, cpu_model, img, target, steps=4):
+    """``compute_heatmaps``' IG (SmoothGrad 2 x ``steps``, the same seed-0
+    CPU noise) run in f64 on a copy of the CPU model: CHW."""
+    import copy
+
+    from vipers_torch.explain import driver as xd
+    from vipers_torch.explain.attribution import make_integrated_gradients, make_smoothgrad
+
+    m64 = copy.deepcopy(cpu_model).double()
+    apply = xd._apply_fn(spec, m64, *img.shape[:2])
+
+    def score(xx, t):
+        return apply(xx)[0][torch.arange(xx.shape[0]), t]
+
+    sg = make_smoothgrad(make_integrated_gradients(score, n_steps=steps), nt_samples=2)
+    x = torch.from_numpy(img.astype(np.float64))[None]
+    return np.transpose(sg(None, x, torch.tensor([target]))[0].numpy(), (2, 0, 1))
+
+
+def ig_profile(spec, model, padded, label="ViT-B/16"):
     """Where IG's time goes on the card: 8 gradients (2 x 4 steps) under
     ``torch.profiler``: wall, device busy share, kernels a gradient, the
     GEMMs' and the flash kernels' shares of the device time."""
@@ -3616,7 +3703,8 @@ def ig_profile(spec, model, padded):
     flash = sum(t for t, n in dur if "flash" in n)
     n_grad = 8
     t = (padded.shape[0] // 16) * (padded.shape[1] // 16) + 1
-    print(f"explain IG profile (ViT-B/16 f32, T = {t}, one forward + 8 gradients): wall {wall:.1f} ms, device busy {busy:.1f} ms "
+    print(f"explain IG profile ({label} f32, T = {t}, one forward + 8 gradients): wall "
+          f"{wall:.1f} ms, device busy {busy:.1f} ms "
           f"({busy / wall:.1%}), {len(events) / n_grad:.0f} kernels a gradient; of the device "
           f"time GEMMs {gemm / total:.1%}, flash rows {flash / total:.1%}")
 
@@ -3804,7 +3892,7 @@ def dino_model(name, patch=PATCH):
 
     t0 = time.time()
     spec = build_model(name, patch_size=patch)
-    params = to_device(spec.init(torch.Generator().manual_seed(0)), "cuda")
+    params = to_device(seeded_init(spec), "cuda")
     c = spec.cfg
     print(f"{name} patch {patch} ({c.depth} blocks, D {c.embed_dim}, {c.num_heads} heads of "
           f"{c.embed_dim // c.num_heads}, mlp {int(c.embed_dim * c.mlp_ratio)}): random weights "
@@ -4836,7 +4924,7 @@ def quantize_cli(cli, argv, counters):
              "every": all_launches(counters)})
 
 
-def quantize_runs(card, counters, vit_b_pth, keep_ptq=None):
+def quantize_runs(card, counters, vit_b_pth, keep_ptq=None, keep_mb_ptq=None):
     """``vipers_torch quantize --mode ptq`` on phase 12's vit_b_16
     checkpoint (f32, 2 calibration batches of 128 from phase 12's
     ImageFolder), then ``lost --model vit_b_16 --dtype int8`` from the
@@ -4846,7 +4934,9 @@ def quantize_runs(card, counters, vit_b_pth, keep_ptq=None):
     quantized_resnet50 (seed-0 weights, 50% global magnitude masks) at
     224, B=128. No quantize run launches a kernel (f32, T = 197). Checks
     the lines and files; copies the ViT-B/16 PTQ .pth to ``keep_ptq``
-    (phase 19 exports it). Returns the int8 lost run's flash launches."""
+    (phase 19 exports it) and quantized_mobilenet_v2's to ``keep_mb_ptq``
+    (phase 20's ``lost --dtype int8`` reads it). Returns the int8 lost
+    run's flash launches."""
     import pickle
     import shutil
     import tempfile
@@ -4927,6 +5017,8 @@ def quantize_runs(card, counters, vit_b_pth, keep_ptq=None):
                     assert sum(ln.startswith(("Test:QAT", "Test:INT8")) for ln in lines) == 2
                 else:
                     assert any(ln.startswith("PTQ int8: acc1 ") for ln in lines)
+                    if keep_mb_ptq and model == "quantized_mobilenet_v2":
+                        shutil.copy(os.path.join(out, name), keep_mb_ptq)
                 n = N_TRAIN_IMAGES if mode == "qat" else int(QUANT_BATCHES) * BATCH
                 print(f"quantize --mode {mode} {model} 224 B={BATCH}: {secs:.1f} s ({n} train "
                       f"and {2 * N_VAL_IMAGES} val images with the set-up), {len(obs)} "
@@ -4936,7 +5028,7 @@ def quantize_runs(card, counters, vit_b_pth, keep_ptq=None):
         shutil.rmtree(root)
 
 
-def quantize_phase(card, counters, gen, lost_core, vit_b_pth, keep_ptq=None):
+def quantize_phase(card, counters, gen, lost_core, vit_b_pth, keep_ptq=None, keep_mb_ptq=None):
     """Phase 18: int8 quantization (``int8_accumulators``, ``int8_lost``,
     ``quantize_runs``) and row 1 against its plain version at the int8 LOST
     shapes (ViT-S/16 and ViT-B/16, B=128, T = 896 with 769 tokens). Returns
@@ -4952,7 +5044,7 @@ def quantize_phase(card, counters, gen, lost_core, vit_b_pth, keep_ptq=None):
     torch.cuda.empty_cache()
     launches = {rows[0]["name"]: int8_lost(card, counters, lost_core)}
     torch.cuda.empty_cache()
-    launches[rows[1]["name"]] = quantize_runs(card, counters, vit_b_pth, keep_ptq)
+    launches[rows[1]["name"]] = quantize_runs(card, counters, vit_b_pth, keep_ptq, keep_mb_ptq)
     print(f"phase 18 int8 quantization: {time.time() - t_phase:.1f} s")
     return rows, launches
 
@@ -5217,6 +5309,356 @@ def export_phase(card, counters, gen, vit_b_pth, ptq_pth):
         "fused_ln_fc1_gelu[bf16, D=768]": got["bf16"]["fused"]["bfloat16"]}
 
 
+# Phase 20: mobilenet_v2 on lost and explain, DINO explain, lost
+# --visualize, train --profile-dir and --debug-nans.
+N_MB_JPEG = BATCH  # fixture symlinks the mobilenet lost runs read: one batch
+N_MB_EXACT = 32  # of them, the --exact-shapes run's (one image a forward)
+MB_CPU_BATCH = 4  # mobilenet's card-vs-CPU LOST batch, full depth
+N_VIZ = 8  # JPEGs of the --visualize runs
+DINO_EXPLAIN_CPU_LAYERS = 2  # the card-vs-CPU cut of dino_vit_small's heatmaps
+PROFILE_TRAIN, PROFILE_VAL = 256, 128  # the train --profile-dir run's ImageFolder
+
+
+def counted_cli(cli, argv, counters):
+    """(seconds, launches {row: n}, every launch) of one CLI run, the
+    counts set to 0 just before it and read just after."""
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    assert cli(argv) == 0, argv
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {"flash f32": fa.LAUNCHES["float32"], "flash bf16": fa.LAUNCHES["bfloat16"],
+           "flash bwd f32": fa.BWD_LAUNCHES["float32"], "fused MLP": fm.LAUNCHES["bfloat16"]}
+    return dt, got, all_launches(counters)
+
+
+def read_preds(out):
+    import pickle
+
+    with open(os.path.join(out, "preds.pkl"), "rb") as f:
+        return {k: np.asarray(v).tolist() for k, v in pickle.load(f).items()}
+
+
+def int8_forward_accumulators(card, spec, params, stats, masks, observers, imgs_hw):
+    """Every int32 accumulator of one int8 mobilenet forward on the card (B
+    = 2 at the 512x384 bucket, static qparams from the PTQ checkpoint's
+    observers), recomputed on the CPU by the plain versions from the same
+    int8 operands: all equal."""
+    from vipers_torch.discovery.driver import LostFeatureExtractor
+    from vipers_torch.train import quantize as tq
+
+    ex = LostFeatureExtractor(spec, params, masks, compute_dtype="int8", batch_stats=stats,
+                              observers=observers)
+    key = ex.cnn_bucket_key(*imgs_hw[0])
+    imgs = make_images(np.random.default_rng(20), imgs_hw)
+    inp = ex.prepare_cnn_batch(imgs, key, exact_hw=imgs_hw)
+    calls = []
+    orig = {"matmul_int32": tq.matmul_int32, "conv_int32": tq.conv_int32}
+
+    def recorder(name):
+        def fn(*args):
+            out = orig[name](*args)
+            if args[0].is_cuda:
+                calls.append((name, [a.cpu() if torch.is_tensor(a) else a for a in args],
+                              out.cpu()))
+            return out
+        return fn
+
+    try:
+        for name in orig:
+            setattr(tq, name, recorder(name))
+        ex.cnn_features(*inp)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in orig.items():
+            setattr(tq, name, fn)
+    assert calls
+    for name, args, out in calls:
+        want = orig[name](*args)
+        assert want.dtype == out.dtype == torch.int32 and torch.equal(out, want), name
+    kinds = {n: sum(c[0] == n for c in calls) for n in orig}
+    print(f"int8 mobilenet accumulators: every int32 accumulator of a B=2 forward at bucket "
+          f"{key} ({kinds} calls on the card) equal to the CPU's plain versions ({card})")
+
+
+def mobilenet_lost(card, counters, lost_core, root, voc, voc_exact, mb_ptq):
+    """20.1-20.2: returns the seed-0 .pth of the masked mobilenet_v2."""
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import export_mobilenet_v2, save_torch_state_dict
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.discovery import driver as ldrv
+    from vipers_torch.discovery.driver import LostFeatureExtractor, load_lost_checkpoint
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    spec = build_model("mobilenet_v2")
+    params = spec.init(torch.Generator().manual_seed(0))
+    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
+                            amount=SPARSITY)
+    pth = os.path.join(root, "mobilenet_v2.pth")
+    save_torch_state_dict(export_mobilenet_v2(params, None, masks, bake_masks=False), pth)
+    common = ["--arch", "mobilenet", "--model", "mobilenet_v2", "--checkpoint", pth,
+              "--batch-size", str(BATCH), "--workers", "8"]
+    preds = {}
+    for tag, data, extra in (("bf16", voc, ["--dtype", "bf16"]), ("f32", voc, []),
+                             ("exact-shapes", voc_exact, ["--exact-shapes"])):
+        out = os.path.join(root, f"mb_{tag}")
+        dt, got, every = counted_cli(cli, ["lost", *common, "--data-path", data,
+                                           "--output-dir", out, *extra], counters)
+        run = dict(ldrv.LAST_RUN)
+        preds[tag] = read_preds(out)
+        assert every == 0, got
+        assert len(preds[tag]) == run["images"] - len(run["failed"]) > 0
+        print(f"lost --arch mobilenet mobilenet_v2 [{tag}]: {run['images']} JPEGs, "
+              f"{len(preds[tag])} boxes, {'per image' if run['per_image'] else 'batched'}, "
+              f"{run['images'] / run['decode_to_preds_seconds']:.1f} img/s e2e ({dt:.1f} s), "
+              f"0 attention or fused-MLP launches ({card})")
+    same = sum(preds["exact-shapes"][k] == preds["f32"].get(k) for k in preds["exact-shapes"])
+    print(f"mobilenet --exact-shapes boxes equal to the bucketed f32 run's on "
+          f"{same}/{len(preds['exact-shapes'])} images (the reference's native shapes; the "
+          f"first {N_MB_EXACT} of its JPEGs)")
+
+    # the batched pipeline at the 512x384 canonical bucket, B=128 and B=1
+    rng = np.random.default_rng(20)
+    hw = [(H, W)] * BATCH
+    imgs = make_images(rng, hw)
+    for name, dt in (("bf16", torch.bfloat16), ("f32", None)):
+        ex = LostFeatureExtractor(spec, params, masks, compute_dtype=dt)
+        key = ex.cnn_bucket_key(H, W)
+        inp = ex.prepare_cnn_batch(imgs, key, exact_hw=hw)
+        one = ex.prepare_cnn_batch(imgs[:1], key, exact_hw=hw[:1])
+        pipe = ex.make_batched_cnn_pipeline(K_PATCHES)
+        reset_counts(*counters)
+        ips, p50 = throughput(pipe, inp, one)
+        torch.cuda.synchronize()
+        assert all_launches(counters) == 0, counters
+        print(f"mobilenet_v2 CNN LOST [{name}] bucket {key}: {ips:.1f} img/s at B={BATCH}; p50 "
+              f"{p50:.2f} ms at B=1; 0 launches ({card})")
+        if dt is None:
+            # card against CPU at full depth, B=4 mixed sizes in one bucket
+            sizes = [(H, W), (H - 20, W - 9), (H - 41, W - 30), (H - 13, W - 2)][:MB_CPU_BATCH]
+            compare_cnn_with_cpu("mobilenet_v2 f32", spec, params, masks, ex,
+                                 cnn_bucket_images(ex, sizes, rng), lost_core)
+        del ex, inp
+
+    # int8 from phase 18's PTQ checkpoint of quantized_mobilenet_v2
+    qspec = build_model("quantized_mobilenet_v2")
+    qparams, qstats, qmasks, observers = load_lost_checkpoint(mb_ptq, qspec)
+    assert observers, "the PTQ checkpoint carries no observers"
+    int8_forward_accumulators(card, qspec, qparams, qstats, qmasks, observers,
+                              [(H, W), (H - 37, W - 11)])
+    out = os.path.join(root, "mb_int8")
+    dt, got, every = counted_cli(cli, ["lost", "--arch", "mobilenet", "--model",
+                                       "quantized_mobilenet_v2", "--dtype", "int8",
+                                       "--data-path", voc, "--checkpoint", mb_ptq,
+                                       "--batch-size", str(BATCH), "--workers", "8",
+                                       "--output-dir", out], counters)
+    run = dict(ldrv.LAST_RUN)
+    assert every == 0 and len(read_preds(out)) == run["images"] - len(run["failed"]) > 0
+    print(f"lost --dtype int8 quantized_mobilenet_v2 from phase 18's PTQ .pth: "
+          f"{run['images'] / run['decode_to_preds_seconds']:.1f} img/s e2e, 0 launches ({card})")
+    return pth
+
+
+def dino_mobilenet_explain(card, counters, fa, gen, root, mb_pth):
+    """20.3: returns (the two DINO explain rows, their launches)."""
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.core.checkpoint import family
+    from vipers_torch.explain import driver as xd
+
+    rows = check_flash_explain(fa, gen, heads=6, tag="explain, dino")
+    voc = os.path.join(root, "explain_voc")
+    all_sizes = explain_voc(voc)
+    n = EXPLAIN_EVAL_IMAGES
+    launches = {}
+    for model, extra in (("mobilenet_v2", ["--checkpoint", mb_pth]), ("dino_vit_small", [])):
+        out = os.path.join(root, f"ee_{model}")
+        xd.LAST_RUN.clear()
+        dt, got, every = counted_cli(cli, ["explain-eval", "--model", model, *extra,
+                                           "--voc-root", voc, "--num-images", str(n),
+                                           "--output-dir", out], counters)
+        methods = ("gradCAM", "ig") + (("attention",) if model.startswith("dino") else ())
+        for m in methods:
+            lines = open(os.path.join(out, f"{m}_{model}_pruning_iteration_00.txt")).read()
+            vals = [float(ln.split(":")[-1]) for ln in lines.splitlines()[:2]]
+            assert lines.splitlines()[2] == f"On a total of {n} images."
+            assert all(0.0 <= v <= 1.0 for v in vals), (model, m, vals)
+        if model.startswith("dino"):
+            blocks = build_model(model).cfg.depth - 1  # the last block returns its attention
+            want = {"flash f32": n * blocks * (1 + 1 + 2 * 50),
+                    "flash bwd f32": n * blocks * 2 * 50}
+            assert {k: got[k] for k in want} == want and every == sum(want.values()), (got, want)
+            launches = {"flash_attention_fwd[f32, explain, dino]": got["flash f32"],
+                        "flash_attention_bwd[f32, explain, dino]": got["flash bwd f32"]}
+        else:
+            assert every == 0, got
+        per = {k: 1e3 * v / n for k, v in xd.LAST_RUN["method_s"].items()}
+        print(f"explain-eval {model} f32: {n} images, {n / dt:.3f} img/s e2e ({dt:.1f} s; ms "
+              f"an image: {', '.join(f'{k} {v:.1f}' for k, v in per.items())}); launches "
+              f"{got} ({card})")
+    # card against CPU on the flattest image: mobilenet at full depth, DINO cut
+    stem = min(all_sizes, key=lambda s_: all_sizes[s_][1])
+    spec, card_model = xd._load_model("mobilenet_v2", mb_pth)
+    _s, cpu_model = xd._load_model("mobilenet_v2", mb_pth, device="cpu")
+    explain_card_vs_cpu(spec, card_model, cpu_model, voc, stem, "mobilenet_v2")
+    spec, params = cut_dino(build_model("dino_vit_small"),
+                            build_model("dino_vit_small").init(torch.Generator().manual_seed(0)),
+                            DINO_EXPLAIN_CPU_LAYERS)
+    models = []
+    for dev in ("cuda", "cpu"):
+        m = spec.module()
+        m.load_state_dict({**dict(m.named_buffers()),
+                           **family(spec).state_dict(params, None, None)})
+        models.append(m.eval().requires_grad_(False).to(dev))
+    explain_card_vs_cpu(spec, *models, voc, stem,
+                        f"dino_vit_small, {DINO_EXPLAIN_CPU_LAYERS} blocks")
+    return rows, launches
+
+
+def visualize_runs(card, counters, gen, fa, fm, root, voc_viz, mb_pth):
+    """20.4: returns (the B = 1 rows 1 and 4, their launches)."""
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core.checkpoint import export_vit_torchvision, save_torch_state_dict
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    # one image on its 512x384 bucket: 769 tokens sequence-padded to 896, no bucket pad
+    rows = [check_flash_at(fa, torch.bfloat16, gen, (1, 6, 896, 64), (32, 24), (32, 24),
+                           tag="B=1", pad_rows=slice(0, 1)),
+            check_fused_mlp(fm, gen, m=896, tag="M=896")]
+    spec = build_model("vit_s_16")
+    params = spec.init(torch.Generator().manual_seed(0))
+    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
+                            amount=SPARSITY)
+    vit_pth = os.path.join(root, "vit_s_16.pth")
+    save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), vit_pth)
+    launches = {}
+    for model, arch, pth, dtype in (("vit_s_16", "vit", vit_pth, "bf16"),
+                                    ("mobilenet_v2", "mobilenet", mb_pth, "f32")):
+        common = ["lost", "--arch", arch, "--model", model, "--checkpoint", pth,
+                  "--data-path", voc_viz, "--dtype", dtype, "--batch-size", str(N_VIZ),
+                  "--workers", "8"]
+        out = os.path.join(root, f"viz_{model}_batched")
+        _dt, got, _every = counted_cli(cli, [*common, "--output-dir", out], counters)
+        batched = read_preds(out)
+        for kind in ("pred", "seed_expansion"):
+            out = os.path.join(root, f"viz_{model}_{kind}")
+            dt, got, every = counted_cli(cli, [*common, "--visualize", kind, "--output-dir", out],
+                                         counters)
+            drawn = read_preds(out)
+            pngs = [f for f in os.listdir(out) if f.endswith(f"_{kind}.png")]
+            assert len(pngs) == len(drawn) == len(batched) > 0, (len(pngs), len(drawn))
+            assert drawn == batched, [k for k in drawn if drawn[k] != batched.get(k)]
+            if arch == "vit":
+                want = 12 * N_VIZ
+                # every: the flash and fused-MLP counts, and the fused MLP's by width
+                assert got["flash bf16"] == got["fused MLP"] == want and every == 3 * want, got
+                launches = {"flash_attention_fwd[bf16, B=1]": got["flash bf16"],
+                            "fused_ln_fc1_gelu[bf16, M=896]": got["fused MLP"]}
+            else:
+                assert every == 0, got
+            print(f"lost --visualize {kind} {model} {dtype}: {len(pngs)} drawings, boxes equal "
+                  f"to the batched run's on {len(drawn)}/{len(batched)}, {dt:.1f} s "
+                  f"({N_VIZ / dt:.1f} img/s), launches {got} ({card})")
+    return rows, launches
+
+
+def profile_and_nan_runs(card, counters, root):
+    """20.5-20.6."""
+    import dataclasses
+    import json
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.core import profiling
+    from vipers_torch.core import registry as treg
+    from vipers_torch.ops import attention_train as at
+
+    data = os.path.join(root, "profile_if")
+    imagefolder_tree(data, PROFILE_TRAIN, PROFILE_VAL, seed=20)
+    common = ["--data-path", data, "--num-classes", "1000", "--batch-size", str(BATCH),
+              "--epochs", "1", "--amp", "--workers", "8", "--print-freq", "1"]
+    trace_dir = os.path.join(root, "trace")
+    dt, _got, every = counted_cli(cli, ["train", "--model", "vit_s_16", *common,
+                                        "--pruning-method", "snip", "--target-sparsity", "0.5",
+                                        "--profile-dir", trace_dir,
+                                        "--output-dir", os.path.join(root, "prof_out")],
+                                  counters)
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    assert len(traces) == 1, traces
+    path = os.path.join(trace_dir, traces[0])
+    with open(path) as f:
+        names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+    fwd = [n for n in names if "attention_train_fwd_kernel" in n]
+    bwd = [n for n in names if "attention_bwd_kernel" in n]
+    assert fwd and bwd and at.LAUNCHES["fwd"] > 0 and at.LAUNCHES["bwd"] > 0, (
+        sorted(names)[:20], at.LAUNCHES)
+    print(f"train --profile-dir vit_s_16 --amp 224 B={BATCH}, 1 epoch: {dt:.1f} s; one Chrome "
+          f"trace ({os.path.getsize(path) / 1e6:.1f} MB) names the training attention kernels "
+          f"({fwd[0][:60]}..., {bwd[0][:60]}...); launches fwd {at.LAUNCHES['fwd']}, bwd "
+          f"{at.LAUNCHES['bwd']} ({card})")
+
+    # --debug-nans: vit_s_16 with one NaN in the first block's fc1
+    def nan_build(**kw):
+        spec = treg.build_model("vit_s_16", **kw)
+
+        def init(g):
+            params = spec.init(g)
+            params["encoder_layer_0"]["mlp"]["fc1"]["kernel"][0, 0] = float("nan")
+            return params
+
+        return dataclasses.replace(spec, init=init)
+
+    treg._BUILTIN_MODELS["vit_s_16_nan"] = nan_build
+    try:
+        t0 = time.perf_counter()
+        try:
+            cli(["train", "--model", "vit_s_16_nan", *common, "--pruning-method", "magnitude",
+                 "--pruning-rate", "0.5", "--pruning-threshold", "40", "--debug-nans",
+                 "--output-dir", os.path.join(root, "nan_out")])
+        except FloatingPointError as e:
+            print(f"train --debug-nans vit_s_16 with one NaN weight: FloatingPointError on the "
+                  f"card after {time.perf_counter() - t0:.1f} s ({str(e)[:80]}) ({card})")
+        else:
+            raise AssertionError("train --debug-nans ran through a NaN weight")
+    finally:
+        del treg._BUILTIN_MODELS["vit_s_16_nan"]
+    assert profiling._NAN_HOOK is None and not torch.is_anomaly_enabled()
+
+
+def debug_surface_phase(card, counters, gen, lost_core, mb_ptq):
+    """Phase 20 (see the module docstring). Returns (its kernel rows, their
+    launches)."""
+    import shutil
+    import tempfile
+
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="vipers_torch_debug_surface_")
+    try:
+        voc = os.path.join(root, "VOC2007")
+        voc_tree(voc, N_MB_JPEG, seed=20)
+        voc_exact = os.path.join(root, "VOC_exact")
+        voc_tree(voc_exact, N_MB_EXACT, seed=20)  # the same draw: the first N_MB_EXACT
+        voc_viz = os.path.join(root, "VOC_viz")
+        voc_tree(voc_viz, N_VIZ, seed=21)
+        mb_pth = mobilenet_lost(card, counters, lost_core, root, voc, voc_exact, mb_ptq)
+        rows, launches = dino_mobilenet_explain(card, counters, fa, gen, root, mb_pth)
+        viz_rows, viz_launches = visualize_runs(card, counters, gen, fa, fm, root, voc_viz,
+                                                mb_pth)
+        profile_and_nan_runs(card, counters, root)
+    finally:
+        shutil.rmtree(root)
+    print(f"phase 20 mobilenet, DINO explain, the debugging surface: "
+          f"{time.time() - t_phase:.1f} s")
+    return rows + viz_rows, {**launches, **viz_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5397,6 +5839,7 @@ def main():
     # 11. vit_h_14 pruned and trained: the hd-80 training kernels and flash
     # backward, SNIP
     launches.update(vit_h_phase(card, counters))
+    INIT_CACHE.clear()  # no later phase builds vit_h_14
     lap(11)
     import shutil
     import tempfile
@@ -5440,8 +5883,9 @@ def main():
         # phase 12's checkpoint -> lost --dtype int8, PTQ and QAT on the
         # quantized_ CNNs
         ptq_pth = os.path.join(keep, "vit_b_16_ptq.pth")
+        mb_ptq_pth = os.path.join(keep, "quantized_mobilenet_v2_ptq.pth")
         quant_rows, quant_launches = quantize_phase(card, counters, gen, lost_core, vit_b_pth,
-                                                    keep_ptq=ptq_pth)
+                                                    keep_ptq=ptq_pth, keep_mb_ptq=mb_ptq_pth)
         kernels += quant_rows
         launches.update(quant_launches)
         lap(18)
@@ -5454,6 +5898,15 @@ def main():
         kernels += export_rows
         launches.update(export_launches)
         lap(19)
+        # 20. mobilenet_v2 through lost (bf16, f32, exact shapes, int8 from
+        # phase 18's PTQ .pth) and explain-eval, DINO explain-eval (rows 1 and
+        # 12-13 f32 at B*H = 1*6), lost --visualize (rows 1 and 4 at B = 1),
+        # train --profile-dir and --debug-nans
+        debug_rows, debug_launches = debug_surface_phase(card, counters, gen, lost_core,
+                                                         mb_ptq_pth)
+        kernels += debug_rows
+        launches.update(debug_launches)
+        lap(20)
     finally:
         shutil.rmtree(keep)
     for k in kernels:

@@ -20,8 +20,9 @@ What is held:
   * ``explain-eval-batch``: its four files byte for byte;
   * ``explain-eval`` of a structurally slimmed checkpoint against the
     JAX package's on its slim of the same weights;
-  * refusals naming their ROADMAP item, the default device raising without
-    a card, the parsers' flags and defaults.
+  * the models once refused (the DINO ViTs, MobileNetV2) explained, the
+    default device raising without a card, the parsers' flags and
+    defaults.
 """
 
 
@@ -168,8 +169,17 @@ def test_explain_eval_batch_files_byte_equal(tmp_path, metric):
     (["explain", "--model", "mobilenet_v2"], "A8"),
 ])
 def test_unported_models_exit_naming_their_item(argv, item, tmp_path):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        tmain([*argv, "--device", "cpu", "--output-dir", str(tmp_path)])
+    """The DINO ViTs (once refused under A2) and MobileNetV2 (A8) are
+    explained now: each loads at its registry size, seed-0 weights, and
+    its GradCAM map comes back finite at the image's size (the parity:
+    ``tests/test_torch_explain_families.py``)."""
+    from vipers_torch.explain.driver import _load_model, compute_heatmaps
+
+    spec, model = _load_model(argv[2], device="cpu")
+    assert spec.family == {"A2": "dino_vit", "A8": "mobilenet"}[item]
+    img = np.random.default_rng(0).normal(0, 1, (32, 48, 3)).astype(np.float32)
+    cam = compute_heatmaps(spec, model, img, ["gradcam"])["gradcam"]
+    assert cam.shape == (32, 48) and np.isfinite(cam).all()
 
 
 def test_slimmed_checkpoint_exits_naming_a4(ckpt, voc, tmp_path):

@@ -218,3 +218,51 @@ def test_quant_cli_default_device_raises_without_a_card(argv, tmp_path):
         main([*argv, "--data-path", str(REPO / "tests" / "data" / "torch_voc"),
               "--output-dir", str(out)])
     assert not out.exists()
+
+
+# the modules the debugging surface and the plots brought in
+VIZ_SLICE = ("vipers_torch/viz/__init__.py", "vipers_torch/viz/draw.py",
+             "vipers_torch/viz/plots.py", "vipers_torch/viz/heatmap_report.py",
+             "vipers_torch/core/profiling.py", "vipers_torch/core/flops.py")
+
+
+@pytest.mark.parametrize("rel", VIZ_SLICE)
+def test_viz_slice_files_import_no_jax(rel):
+    path = REPO / rel
+    assert path in _port_files()
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, (rel, bad)
+
+
+@pytest.mark.parametrize("argv", [
+    ["lost", "--arch", "mobilenet", "--model", "mobilenet_v2"],
+    ["lost", "--model", "vit_s_16", "--visualize", "pred"]], ids=["mobilenet", "visualize"])
+def test_mobilenet_and_visualize_default_device_raises_without_a_card(argv, tmp_path):
+    """``lost --model mobilenet_v2`` and ``lost --visualize`` without
+    ``--device`` run on the card or raise before they write a file."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from vipers_torch.cli.main import main
+
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([*argv, "--data-path", str(REPO / "tests" / "data" / "torch_voc"),
+              "--output-dir", str(out)])
+    assert not out.exists()
+
+
+def test_plot_is_host_work_and_touches_no_device(tmp_path, monkeypatch):
+    """``plot`` takes no ``--device`` and never asks torch for one: it draws
+    with every CUDA query poisoned."""
+    from vipers_torch.cli.main import main
+
+    def poisoned(*_a, **_k):
+        raise AssertionError("plot touched a device")
+
+    for name in ("is_available", "device_count", "init", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, poisoned)
+    (tmp_path / "results_iteration_00.txt").write_text("0,41.5\n")
+    (tmp_path / "results_iteration_01.txt").write_text("1,40.0\n")
+    assert main(["plot", "--results-dir", str(tmp_path), "--performance-txt", "",
+                 "--out", str(tmp_path / "lost.png")]) == 0
+    assert (tmp_path / "lost.png").stat().st_size > 0

@@ -1200,3 +1200,41 @@ def test_while_loop_fill_on_the_card_equals_the_cpu(cuda):
         assert torch.equal(got.cpu(), want)
         if shape[0] == 128:
             assert (~mask[torch.arange(128), seed[:, 0], seed[:, 1]]).any()
+
+
+def test_dino_explain_shape_flash_forward_and_backward(cuda):
+    """``explain-eval`` on ``dino_vit_small`` at a VOC size: rows 1 and
+    12-13 in f32 at B*H = 1*6, T = 769 (a 32 x 24 grid and the CLS), no key
+    mask; the forward within the f32 tolerance, the gradients within 1e-4
+    of each one's scale; both launches counted."""
+    q, k, v = _qkv(1, 6, 769, torch.float32, cuda, seed=769)
+    n0, b0 = tfa.LAUNCHES["float32"], tfa.BWD_LAUNCHES["float32"]
+    out, lse = tfa.flash_attention_fwd(q, k, v, None, 0.125)
+    want, want_lse = tfa.flash_attention_plain(q, k, v, None, 0.125)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    cot = torch.randn(1, 6, 769, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
+    args = (q, k, v, None, out, lse, cot, 0.125)
+    for a, c in zip(tfa.flash_attention_bwd(*args), tfa.flash_attention_bwd_plain(*args)):
+        _close_to_scale(a, c, 1e-4)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["float32"] == n0 + 1 and tfa.BWD_LAUNCHES["float32"] == b0 + 1
+
+
+def test_per_image_vit_shape_flash_and_fused_mlp(cuda):
+    """``lost --visualize`` on ViT-S/16: one image at a time on its bucket
+    (512 x 384: 769 tokens sequence-padded to 896), row 1 bf16 at B*H = 1*6
+    with the pad keys invalid, and row 4 at M = 1*896, D = 384, F = 1536;
+    held to 2e-2 of the plain versions' scale, both launches counted."""
+    q, k, v = _qkv(1, 6, 896, torch.bfloat16, cuda, seed=896)
+    valid = torch.zeros(1, 896, dtype=torch.bool, device=cuda)
+    valid[:, :769] = True
+    n0, m0 = tfa.LAUNCHES["bfloat16"], tfm.LAUNCHES["bfloat16"]
+    out, _lse = tfa.flash_attention_fwd(q, k, v, valid, 0.125)
+    want, _ = tfa.flash_attention_plain(q, k, v, valid, 0.125)
+    _close_to_scale(out, want, 2e-2)
+    x, w_t, b = _fused_mlp_inputs(896, 384, 1536, cuda)
+    got = tfm.fused_ln_dense_gelu_core(x, w_t, b)
+    _close_to_scale(got, tfm.fused_ln_dense_gelu_plain(x, w_t, b, 1e-6), 2e-2)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["bfloat16"] == n0 + 1 and tfm.LAUNCHES["bfloat16"] == m0 + 1

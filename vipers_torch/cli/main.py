@@ -1,8 +1,8 @@
 """The port's command line (the ``train``, ``evaluate``, ``lost``,
 ``corloc``, ``cluster``, ``explain``, ``explain-eval``,
-``explain-eval-batch``, ``mvh``, ``slim``, ``quantize`` and ``export``
-subcommands of ``vipers/cli/main.py``, with the same flags and defaults,
-plus ``--device``)::
+``explain-eval-batch``, ``mvh``, ``slim``, ``quantize``, ``export`` and
+``plot`` subcommands of ``vipers/cli/main.py``, with the same flags and
+defaults, plus ``--device``)::
 
     python -m vipers_torch.cli.main train --model vit_b_16 --data-path imagenet \
         --pruning-method magnitude --pruning-rate 0.2 --amp --output-dir out
@@ -12,6 +12,8 @@ plus ``--device``)::
         --dataset VOC07 --data-path VOC2007 --checkpoint model.pth --dtype bf16
     python -m vipers_torch.cli.main lost --arch resnet --model resnet50 \
         --resnet-dilate 2 --data-path VOC2007 --checkpoint model.pth [--exact-shapes]
+    python -m vipers_torch.cli.main lost --arch mobilenet --model mobilenet_v2 \
+        --data-path VOC2007 --checkpoint model.pth [--visualize pred] [--dtype int8]
     python -m vipers_torch.cli.main lost --arch swin --model swin_v2_t \
         --data-path VOC2007 --checkpoint swin.pth [--swin-all-windows]
     python -m vipers_torch.cli.main lost --arch dino --model dino_vit_small \
@@ -37,16 +39,18 @@ plus ``--device``)::
     python -m vipers_torch.cli.main export --model vit_b_16 --checkpoint model.pth \
         --pipeline lost --dtype bf16 --batch-size 128 --image-size 384 512 \
         --output-dir art --verify     # art/model.pt2 + art/meta.json
+    python -m vipers_torch.cli.main plot --kind mass_rank --results-dir explanations_eval \
+        --model vit_b_16 --out rma.png
 
 ``train``, ``evaluate``, ``lost``, ``cluster``, ``explain``,
 ``explain-eval``, ``mvh``, ``quantize`` and ``export`` run on the card
 unless given ``--device cpu``; there is no silent fallback
 (``explain-eval-batch`` scores saved maps with numpy on the host and only
-accepts the flag; ``slim`` is host numpy and has no flag).
+accepts the flag; ``slim`` and ``plot`` are host work and have no flag).
 A slimmed checkpoint's ``.slim.json`` sidecar rebuilds the model at its
 widths in ``train --resume``, ``evaluate``, ``lost`` and ``explain``. Flags that select what the
 port does not have yet exit with a message naming the ROADMAP item that
-ports it.
+ports it (multi-device: A10).
 """
 
 from __future__ import annotations
@@ -79,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
     lost = sub.add_parser("lost", help="LOST object discovery + CorLoc")
     lost.add_argument("--model", default="vit_s_16")
     lost.add_argument("--arch", default="vit",
-                      help="feature family: vit|dino|swin|resnet|vgg16")
+                      help="feature family: vit|dino|swin; any other (resnet, vgg16, "
+                           "mobilenet) runs the CNN path")
     lost.add_argument("--dataset", default="VOC07", choices=["VOC07", "VOC12", "COCO20k"])
     lost.add_argument("--set", default="trainval")
     lost.add_argument("--data-path", required=False, default="/data")
@@ -295,28 +300,42 @@ def build_parser() -> argparse.ArgumentParser:
                      help="load the artifact back and check its output against the "
                           "direct forward")
     exp.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
+
+    plot = sub.add_parser("plot", help="sparsity-vs-metric curves / heatmap reports")
+    plot.add_argument("--kind", default="lost",
+                      choices=["lost", "mass_rank", "mvh", "mvh-compare", "heatmaps"])
+    plot.add_argument("--model", default="resnet50")
+    plot.add_argument("--models", nargs="+", default=None,
+                      help="[mvh-compare] models to overlay (e.g. resnet18 resnet50)")
+    plot.add_argument("--benchmarks", nargs="+", default=None,
+                      help="[mvh-compare] benchmark rows to overlay (e.g. silhouette "
+                           "colour false-colour)")
+    plot.add_argument("--max-prune", type=int, default=26,
+                      help="[mvh-compare] pruning steps scanned")
+    plot.add_argument("--results-dir", default="./outputs")
+    plot.add_argument("--performance-txt", default="performance.txt")
+    plot.add_argument("--out", default="plot.png")
+    plot.add_argument("--method", default="gradcam",
+                      help="[heatmaps] attribution method subdir")
+    plot.add_argument("--cls", default="",
+                      help="[heatmaps] class subdir; empty = every class found")
+    plot.add_argument("--gif", action="store_true",
+                      help="[heatmaps] also write animated GIFs")
     return p
 
 
 def _refuse_unported(args):
-    """SystemExit naming the ROADMAP item for what this port cannot run yet."""
-    def no(what, item):
-        raise SystemExit(f"vipers_torch lost: {what} is not ported yet (ROADMAP A{item})")
-
-    if args.arch not in ("vit", "dino", "resnet", "vgg16", "swin"):
-        no(f"--arch {args.arch}", 5)
+    """SystemExit for an unknown ``--model``, or naming the ROADMAP item
+    for what this port cannot run yet (multi-device, A10)."""
     from vipers_torch.core.registry import build_model
 
     try:
-        fam = build_model(args.model).family
+        build_model(args.model)
     except ValueError:
         raise SystemExit(f"vipers_torch lost: unknown model {args.model!r}") from None
-    if fam == "mobilenet":
-        no(f"--model {args.model}", 5)
-    if args.visualize:
-        no("--visualize", 11)
     if args.data_parallel or args.sequence_parallel:
-        no("--data-parallel / --sequence-parallel (multi-device)", 10)
+        raise SystemExit("vipers_torch lost: --data-parallel / --sequence-parallel "
+                         "(multi-device) is not ported yet (ROADMAP A10)")
 
 
 def main(argv=None) -> int:
@@ -373,6 +392,10 @@ def main(argv=None) -> int:
         from vipers_torch.core.export import run_export
 
         return run_export(args)
+    if args.cmd == "plot":
+        from vipers_torch.viz.plots import run_plot_cli
+
+        return run_plot_cli(args)
     from vipers_torch.discovery.corloc import run_corloc_cli
 
     return run_corloc_cli(args)

@@ -342,9 +342,19 @@ def export_vit_torchvision(params, masks=None, bake_masks: bool = True
     return sd
 
 
+def contiguous_tensor(v) -> torch.Tensor:
+    """A numpy array or tensor as a contiguous tensor: a transposed view is
+    copied by torch's (threaded) copy, which is several times faster on the
+    host than numpy's for a large kernel."""
+    a = np.asarray(v)
+    if any(st < 0 for st in a.strides):
+        a = a.copy()
+    return torch.as_tensor(a).contiguous()
+
+
 def save_torch_state_dict(sd: Dict[str, np.ndarray], path) -> None:
     """``torch.save`` a {key: numpy array} state dict as contiguous tensors."""
-    torch.save({k: torch.tensor(np.asarray(v)) for k, v in sd.items()}, path)
+    torch.save({k: contiguous_tensor(v) for k, v in sd.items()}, path)
 
 
 # ---------------------------- the CNN families ------------------------------
@@ -860,7 +870,7 @@ def save_train_checkpoint(path, state, epoch: int, sparsity: float) -> None:
     def torchvision(named, stats, masks=None):
         params, batch_stats = fam.trees({**named, **(stats or {})})
         sd = fam.export_pth(params, batch_stats, masks, False)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+        return {k: contiguous_tensor(v) for k, v in sd.items()}
 
     obj = {"model": torchvision(state.params, state.batch_stats,
                                 fam.masks_from_state_dict(state.masks)),

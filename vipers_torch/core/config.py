@@ -5,8 +5,9 @@ package's flags and defaults, plus ``--device``.
 The port trains one model on one device. ``refuse_unported`` exits,
 naming the ROADMAP item that ports it, for a flag that selects what the
 port does not have yet: training a DINO backbone (A2, DINO training: they
-serve LOST and ``cluster`` frozen), the multi-device flags (A10),
-``--profile-dir`` and ``--debug-nans`` (A11). Every model of the JAX
+serve LOST and ``cluster`` frozen) and the multi-device flags (A10).
+``--profile-dir`` traces the first training run and ``--debug-nans``
+fails fast on a NaN (``core.profiling``). Every model of the JAX
 registry builds, ``mobilenet_v2`` and the ``quantized_`` aliases
 included. ``--resume`` of a
 structurally slimmed checkpoint rebuilds the model at its sidecar's
@@ -143,9 +144,9 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--native-decode", action="store_true",
                    help="C++ libjpeg decode (bilinear resize; PIL without libjpeg)")
     p.add_argument("--profile-dir", default="",
-                   help="device trace of the training run (not ported yet, ROADMAP A11)")
+                   help="torch.profiler trace (CPU and CUDA) of the first training run")
     p.add_argument("--debug-nans", action="store_true",
-                   help="fail fast on NaNs (not ported yet, ROADMAP A11)")
+                   help="fail fast on the first NaN (FloatingPointError)")
     p.add_argument("--print-freq", type=int, default=100)
     p.add_argument("--output-dir", default="./output")
     p.add_argument("--resume", default="")
@@ -192,7 +193,3 @@ def refuse_unported(cfg: TrainConfig, cmd: str = "train"):
             or cfg.data_parallel or cfg.model_parallel != 1):
         no("multi-device training (--pipeline-parallel, --pp-*, --data-parallel, "
            "--model-parallel)", 10)
-    if cfg.profile_dir:
-        no("--profile-dir", 11)
-    if cfg.debug_nans:
-        no("--debug-nans", 11)

@@ -2,7 +2,8 @@
 
 Builders return a :class:`ModelSpec`: the model's configuration plus the
 metadata the framework needs (which parameter paths are prunable, patch
-size). ``spec.module()`` constructs the ``nn.Module``;
+size). ``spec.module()`` constructs the ``nn.Module`` (``build_module``
+without the random init, for a module a state dict is loaded into next);
 ``spec.init(generator)`` draws a parameter tree in the JAX package's keys
 and layouts, which pruning ranks and ``core.checkpoint`` loads into the
 module.
@@ -97,6 +98,33 @@ def build_model(name: str, **kwargs) -> ModelSpec:
         arch = {k: tuple(v) if isinstance(v, list) else v for k, v in arch.items()}
         spec = spec.rebuild(dataclasses.replace(spec.cfg, **arch))
     return spec
+
+
+# the torch.nn.init functions a module's constructor draws its parameters
+# with (nn.Linear, nn.Conv2d: kaiming_uniform_ and uniform_)
+_INITIALIZERS = ("uniform_", "normal_", "trunc_normal_", "kaiming_uniform_",
+                 "kaiming_normal_", "xavier_uniform_", "xavier_normal_")
+
+
+def _unchanged(tensor, *_args, **_kwargs):
+    return tensor
+
+
+def build_module(spec: ModelSpec) -> torch.nn.Module:
+    """``spec.module()`` with its parameters' random initialization skipped
+    (their memory left as ``torch.empty`` leaves it), for a caller that
+    loads every parameter next with a strict ``load_state_dict``: the
+    default init that such a load overwrites costs seconds of host time on
+    the larger models. Buffers are built as usual. The ``torch.nn.init``
+    functions are swapped for the call, so build on one thread at a time."""
+    saved = {name: getattr(torch.nn.init, name) for name in _INITIALIZERS}
+    for name in saved:
+        setattr(torch.nn.init, name, _unchanged)
+    try:
+        return spec.module()
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.nn.init, name, fn)
 
 
 def _ensure_builtins_imported():

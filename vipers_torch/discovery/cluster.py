@@ -27,7 +27,7 @@ from PIL import Image
 
 from vipers_torch.core.checkpoint import family
 from vipers_torch.core.device import resolve_device
-from vipers_torch.core.registry import build_model
+from vipers_torch.core.registry import build_model, build_module
 from vipers_torch.data.detection import DiscoveryDataset
 from vipers_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from vipers_torch.discovery.kmeans import kmeans2, whiten
@@ -81,7 +81,7 @@ def load_embedder(model_name: str, patch_size: int, checkpoint: str, device):
         print("[vipers_torch.cluster] WARNING: no --checkpoint given; embedding "
               "with RANDOM weights — pseudo-labels will be meaningless")
         params = spec.init(torch.Generator().manual_seed(0))
-    model = spec.module()
+    model = build_module(spec)
     model.load_state_dict(family(spec).state_dict(params))
     return model.eval().requires_grad_(False).to(device)
 

@@ -13,7 +13,8 @@ from pinned memory without a host sync, so assembling batch k+1 overlaps
 batch k.
 
 ``make_batched_cnn_pipeline`` is the CNN counterpart (``--arch resnet``,
-``--arch vgg16``): the masked CNN forward on images zero-padded to their
+``--arch vgg16``, ``--arch mobilenet``: any arch but vit, dino and swin):
+the masked CNN forward on images zero-padded to their
 bucket's canonical input (``cnn_bucket_key``: the feature grid rounded up
 to a ``--cnn-bucket`` multiple), the reference's whole-slab LayerNorm over
 each image's valid feature cells (``masked_slab_layernorm``, in the
@@ -30,7 +31,9 @@ last block's qkv, its first window as the reference reads it, or with
 ``swin_all_windows`` the whole last-stage grid in image order) and the CNNs
 at each image's native shape (``--exact-shapes``, ``--cnn-bucket 1``: the
 reference's parity regime, the whole-slab LayerNorm), each image one
-forward, then ``discovery.lost.lost`` at B = 1.
+forward, then ``discovery.lost.lost`` at B = 1. ``--visualize`` sends every
+family down this path (a CNN at B = 1 on its bucket's canonical input), and
+``viz.draw`` draws the box, affinity and seed.
 
 ``run_lost`` is ``vipers_torch lost``: JPEGs decoded on a thread pool in
 dataset order (``_prefetch_decoded``), per-bucket buffers of
@@ -59,7 +62,7 @@ from vipers_torch.core.checkpoint import (family, infer_num_classes,
                                           infer_representation_size, infer_vit_image_size,
                                           load_torch_state_dict, reference_sweep_stem)
 from vipers_torch.core.device import resolve_device
-from vipers_torch.core.registry import build_model
+from vipers_torch.core.registry import build_model, build_module
 from vipers_torch.data import native
 from vipers_torch.data.detection import DiscoveryDataset, load_image_normalized
 from vipers_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD, bucket_hw
@@ -154,7 +157,7 @@ class LostFeatureExtractor:
         if self.int8:
             compute_dtype = torch.bfloat16
         self.compute_dtype = compute_dtype or torch.float32
-        model = spec.module()
+        model = build_module(spec)
         self.family = family(spec)
         sd = self.family.state_dict(params, batch_stats, masks)
         model.load_state_dict({**dict(model.named_buffers()), **sd})
@@ -652,21 +655,27 @@ def load_lost_checkpoint(path: str, spec):
     return params, batch_stats, masks, observers
 
 
+# the families `lost` runs as CNNs (every --arch but vit, dino and swin)
+CNN_FAMILIES = ("resnet", "vgg", "mobilenet")
+
 # timings and counts of the last run_lost call, for callers that time it
 LAST_RUN: dict = {}
 
 
 def run_lost(args) -> int:
-    """``vipers_torch lost`` for ``--arch vit``, ``dino``, ``resnet``,
-    ``vgg16`` and ``swin``: the arguments of ``vipers lost``
-    (``vipers_torch.cli.main``) plus ``--device``. Routed as the JAX
-    package routes them: the ViTs, the DINO ViTs (``--patch-size`` builds
-    the model) and the bucketed CNNs through the batched pipelines; Swin,
-    the CNNs' ``--exact-shapes`` / ``--cnn-bucket 1`` and ``--dinoseg`` one
-    image at a time (``extract`` -> ``lost``, or ``dino_seg`` on head
-    ``--dinoseg-head`` at bucket 4, at bucket 1 under
-    ``--dinoseg-reference-bugs``), where a seed in the background is
-    collected, or raised under ``--strict``, as in the batched drain.
+    """``vipers_torch lost`` for ``--arch vit``, ``dino`` and ``swin``; any
+    other ``--arch`` runs a CNN (ResNet, VGG16, MobileNetV2): the arguments
+    of ``vipers lost`` (``vipers_torch.cli.main``) plus ``--device``. Routed
+    as the JAX package routes them: the ViTs, the DINO ViTs
+    (``--patch-size`` builds the model) and the bucketed CNNs through the
+    batched pipelines; Swin, the CNNs' ``--exact-shapes`` / ``--cnn-bucket
+    1``, ``--dinoseg`` and ``--visualize`` one image at a time (``extract``
+    -> ``lost``, or ``dino_seg`` on head ``--dinoseg-head`` at bucket 4, at
+    bucket 1 under ``--dinoseg-reference-bugs``), where a seed in the
+    background is collected, or raised under ``--strict``, as in the
+    batched drain. ``--visualize fms|seed_expansion|pred`` draws each image
+    into ``--output-dir`` (``viz.draw.save_lost_visualization``; the
+    affinity, scores and seed are left out under ``--dinoseg``).
 
     With no ``--checkpoint`` the weights come from
     ``spec.init(torch.Generator().manual_seed(0))``; they cannot equal the
@@ -698,8 +707,9 @@ def run_lost(args) -> int:
         print(f"checkpoint: {args.checkpoint}")
     iteration = pruning_iteration if pruning_iteration is not None else args.iteration
 
+    # any other --arch runs as a CNN, as in the JAX package
     families = {"vit": ("vit",), "swin": ("swin",), "dino": ("dino_vit",)}.get(
-        args.arch, ("resnet", "vgg"))
+        args.arch, CNN_FAMILIES)
     fam = build_model(args.model).family
     if fam not in families:
         raise SystemExit(f"vipers_torch lost: --arch {args.arch} does not take --model "
@@ -721,10 +731,14 @@ def run_lost(args) -> int:
     if dinoseg and spec.family not in ("vit", "dino_vit"):
         raise SystemExit(f"vipers_torch lost: --dinoseg reads a transformer's attention "
                          f"(--arch vit or dino), not --arch {args.arch}'s")
-    cnn = spec.family in ("resnet", "vgg")
+    cnn = spec.family in CNN_FAMILIES
     cnn_bucket = 1 if getattr(args, "exact_shapes", False) else int(
         getattr(args, "cnn_bucket", 0) or 4)
-    per_image = spec.family == "swin" or (cnn and cnn_bucket == 1) or dinoseg
+    visualize = getattr(args, "visualize", None)
+    # --visualize draws from one image's affinity, scores and seed: the
+    # per-image path, whatever the family
+    per_image = (spec.family == "swin" or (cnn and cnn_bucket == 1) or dinoseg
+                 or bool(visualize))
     masks = batch_stats = observers = None
     if args.checkpoint:
         params, batch_stats, masks, observers = load_lost_checkpoint(args.checkpoint, spec)
@@ -818,27 +832,33 @@ def run_lost(args) -> int:
     workers = getattr(args, "workers", None)
     workers = 8 if workers is None else max(int(workers), 1)
     t_decode = time.time()
-    for _path, im_name, padded, init_image_size, gt in _prefetch_decoded(
+    for path, im_name, padded, init_image_size, gt in _prefetch_decoded(
             dataset, p, args.no_hard, workers=workers, need_gt=not no_evaluation,
             as_uint8=feed_uint8):
         n_imgs += 1
         if per_image:
             feats, dims, valid_dims, scales, attn = extractor.extract(padded, p)
+            A = scores = seed = None
             if dinoseg:
-                acc.add(im_name, np.asarray(dino_seg(attn, dims, p, head=args.dinoseg_head,
-                                                     reference_bugs=reference_bugs),
-                                            dtype=np.float64), gt)
-                continue
-            try:
-                pred = lost(feats, dims, scales, init_image_size, k_patches=args.k_patches,
-                            valid_dims=valid_dims)[0]
-            except ValueError as e:
-                # the batched drain's collect-or-crash contract
-                if strict or "background" not in str(e):
-                    raise
-                failed.append(im_name)
-                continue
+                pred = np.asarray(dino_seg(attn, dims, p, head=args.dinoseg_head,
+                                           reference_bugs=reference_bugs), dtype=np.float64)
+            else:
+                try:
+                    pred, A, scores, seed = lost(feats, dims, scales, init_image_size,
+                                                 k_patches=args.k_patches,
+                                                 valid_dims=valid_dims)
+                except ValueError as e:
+                    # the batched drain's collect-or-crash contract
+                    if strict or "background" not in str(e):
+                        raise
+                    failed.append(im_name)
+                    continue
             acc.add(im_name, pred, gt)
+            if visualize:
+                from vipers_torch.viz.draw import save_lost_visualization
+
+                save_lost_visualization(visualize, path, pred, gt, A, scores, seed, dims,
+                                        scales, args.output_dir, im_name)
             continue
         h, w = padded.shape[:2]
         key = (extractor.cnn_bucket_key(h, w) if cnn

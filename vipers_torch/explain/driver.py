@@ -5,7 +5,7 @@
 requested method, ``.npy`` maps and figures per method and class, for one
 checkpoint, an untrained seed baseline or every checkpoint of a sweep.
 ``run_explain_eval`` is ``explain-eval``: RMA/RRA of GradCAM, IG (and a
-ViT's attention map) over VOC JPEG/SegmentationClass pairs, written as
+ViT's or DINO ViT's attention map) over VOC JPEG/SegmentationClass pairs, written as
 ``{method}_{model}_pruning_iteration_{NN}.txt``. ``run_explain_eval_batch``
 is ``explain-eval-batch``: saved heatmap directories scored under all six
 poolings (numpy on the host). File names and contents are the JAX
@@ -13,9 +13,13 @@ package's.
 
 The model runs in f32 on ``--device`` (the card unless ``cpu``), its
 parameters frozen (``requires_grad=False``): every gradient is taken with
-respect to the input or GradCAM's tap. A ViT runs at each image's own
-padded size with the pos-embedding interpolated bicubically
-(``align_corners=True``); below ``flash_min_t()`` tokens its blocks take
+respect to the input or GradCAM's tap. Every registered classifier runs:
+the ViTs, the DINO ViTs (with ``num_classes`` 0 the "logits" are the CLS
+feature, as in the JAX package), Swin, the ResNets, VGG16 and
+MobileNetV2 (its GradCAM tap the head convolution's map). A ViT runs at
+each image's own padded size with the pos-embedding interpolated
+bicubically (``align_corners=True``; a DINO ViT interpolates its own
+table, half-pixel); below ``flash_min_t()`` tokens its blocks take
 the einsum, above it blocks 0 to L-2 take the flash forward (the last block
 returns its attention) and, under IG, Guided-GradCAM and LRP, the flash
 backward. ``LAST_RUN`` holds the seconds each method took in the last
@@ -36,7 +40,7 @@ import torch
 from vipers_torch.core.checkpoint import (family, infer_num_classes,
                                           infer_representation_size, infer_vit_image_size)
 from vipers_torch.core.device import resolve_device
-from vipers_torch.core.registry import build_model
+from vipers_torch.core.registry import build_model, build_module
 from vipers_torch.data.detection import load_image_normalized
 from vipers_torch.explain.attribution import make_integrated_gradients, make_smoothgrad
 from vipers_torch.explain.gradcam import input_gradient, make_gradcam, vit_attention_heatmap
@@ -49,9 +53,9 @@ from vipers_torch.pruning.structured import arch_sidecar
 # seconds per method of the compute_heatmaps calls since the last reset
 LAST_RUN: dict = {}
 
-
-def _refuse(cmd: str, what: str, item: int):
-    raise SystemExit(f"vipers_torch {cmd}: {what} is not ported yet (ROADMAP A{item})")
+# the families explained on their token grid (the tap on the last block's
+# norm1 output, the attention map)
+TRANSFORMERS = ("vit", "dino_vit")
 
 
 def _load_model(model_name: str, checkpoint: str = "", seed: int = 0, device=None,
@@ -63,17 +67,12 @@ def _load_model(model_name: str, checkpoint: str = "", seed: int = 0, device=Non
     sidecar's widths), or without a checkpoint random weights drawn from
     ``seed``."""
     dev = resolve_device(device)
-    if model_name.lower().startswith("dino"):
-        _refuse(cmd, f"--model {model_name}", 2)
     arch = arch_sidecar(checkpoint)
     slim = {"arch_overrides": arch} if arch else {}
     try:
         spec = build_model(model_name, **slim)
     except ValueError:
         raise SystemExit(f"vipers_torch {cmd}: unknown model {model_name!r}") from None
-    if spec.family == "mobilenet":
-        # its relu6 sites, guided backprop and LRP rules are not ported
-        _refuse(cmd, f"--model {model_name}", 8)
     batch_stats = masks = None
     if checkpoint:
         from vipers_torch.discovery.driver import load_lost_checkpoint
@@ -91,7 +90,7 @@ def _load_model(model_name: str, checkpoint: str = "", seed: int = 0, device=Non
             spec = build_model(model_name, num_classes=n_cls, **slim)
     else:
         params = spec.init(torch.Generator().manual_seed(seed))
-    model = spec.module()
+    model = build_module(spec)
     sd = family(spec).state_dict(params, batch_stats, masks)
     model.load_state_dict({**dict(model.named_buffers()), **sd})
     model.eval().requires_grad_(False)
@@ -100,7 +99,8 @@ def _load_model(model_name: str, checkpoint: str = "", seed: int = 0, device=Non
 
 def _apply_fn(spec, model, h: int, w: int):
     """model_apply(x, tap_delta=None) -> (logits, aux) at an (h, w) input
-    (a ViT's pos-embedding interpolated to its grid)."""
+    (a ViT's pos-embedding interpolated to its grid; a DINO ViT
+    interpolates its own table, so it gets no override)."""
     pos = None
     if spec.family == "vit":
         p = spec.patch_size
@@ -144,7 +144,7 @@ def _compute_heatmaps(spec, model, img, methods, generator, nt_samples, ig_steps
     x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))[None].to(dev)
     h, w = img.shape[:2]
     model_apply = _apply_fn(spec, model, h, w)
-    is_vit = spec.family == "vit"
+    is_vit = spec.family in TRANSFORMERS
     grid = (h // spec.patch_size, w // spec.patch_size) if is_vit else None
 
     out: Dict[str, np.ndarray] = {}
@@ -157,7 +157,8 @@ def _compute_heatmaps(spec, model, img, methods, generator, nt_samples, ig_steps
     if "gradcam" in methods or "guided_gradcam" in methods:
         t0 = time.perf_counter()
         if is_vit:
-            tap_shape, aux_key = (1, grid[0] * grid[1] + 1, model.cfg.hidden_dim), "qkv_input"
+            tap_shape = (1, grid[0] * grid[1] + 1, aux["qkv_input"].shape[-1])
+            aux_key = "qkv_input"
         else:
             tap_shape, aux_key = tuple(aux["features"].shape), "features"
         cam, target = make_gradcam(model_apply, tap_shape, grid, aux_key)(x)
@@ -166,8 +167,10 @@ def _compute_heatmaps(spec, model, img, methods, generator, nt_samples, ig_steps
             out["gradcam"] = cam
         _timed("gradcam", t0)
         if "guided_gradcam" in methods:
-            # ViT and Swin have no ReLUs: "guided" is the plain input
-            # gradient there, Captum's behaviour for ReLU-free models
+            # ViT, DINO and Swin have no ReLUs, and MobileNetV2's relu6 is
+            # no guided site (the JAX module clamps it with minimum and
+            # maximum): "guided" is the plain input gradient there,
+            # Captum's behaviour for ReLU-free models
             t0 = time.perf_counter()
             with guided_backprop():
                 gbp = input_gradient(model_apply, x, int(target)).cpu().numpy()
@@ -522,7 +525,7 @@ def run_explain_eval(args) -> int:
     if not pairs:
         raise FileNotFoundError(f"no JPEG/SegmentationClass pairs under {args.voc_root!r}")
 
-    methods = ["gradcam", "ig"] + (["attention"] if spec.family == "vit" else [])
+    methods = ["gradcam", "ig"] + (["attention"] if spec.family in TRANSFORMERS else [])
     sums = {m: {"mass": 0.0, "rank": 0.0} for m in methods}
     n = 0
     from PIL import Image
@@ -530,7 +533,7 @@ def run_explain_eval(args) -> int:
     for jpg, mask_path in pairs:
         img = load_image_normalized(jpg)
         gt = np.asarray(Image.open(mask_path).convert("L"), dtype=np.float64)
-        if spec.family == "vit":
+        if spec.family in TRANSFORMERS:
             p = spec.patch_size
             ph = int(np.ceil(img.shape[0] / p) * p)
             pw = int(np.ceil(img.shape[1] / p) * p)

@@ -13,7 +13,8 @@ and ReLUs pass relevance through unchanged. The input's attribution is the
 "gradient" of the target logit under this backward.
 
 Which layers: the JAX interceptor wraps ``nn.Dense`` and ``nn.Conv`` calls
-only. So, by family:
+only, so the skips are per family (``_not_dense``), never one suffix rule
+for all:
   * ViT: the patch embedding (``conv_proj``, here the ``patch_embed``
     product), ``mlp.fc1``, ``mlp.fc2``, ``pre_logits`` and ``head``; not
     ``attention.qkv`` and ``attention.out``, which the JAX model applies by
@@ -21,7 +22,12 @@ only. So, by family:
   * Swin: every linear layer and the patch convolution except
     ``attn.qkv`` (a custom module in the JAX model): ``proj``, ``fc1``,
     ``fc2``, ``reduction``, ``cpb_fc1``, ``cpb_fc2``, ``head``;
-  * ResNet and VGG: every convolution and linear layer.
+  * DINO ViT: every layer, ``attn.qkv`` and ``attn.proj`` included (the JAX
+    ``DinoAttention`` computes both with ``nn.Dense``): the patch
+    convolution, qkv, proj, fc1, fc2 and, with ``num_classes``, the head;
+  * ResNet, VGG and MobileNetV2: every convolution (MobileNetV2's stem,
+    expand, depthwise, project and head convolutions) and linear layer;
+    BatchNorm is no site.
 """
 
 from __future__ import annotations
@@ -34,8 +40,18 @@ from torch import nn
 
 LRP_EPS = 1e-6
 
-# module names whose JAX counterpart is not an nn.Dense / nn.Conv call
-_NOT_DENSE = ("attention.qkv", "attention.out", "attn.qkv")
+
+def _not_dense(model: nn.Module):
+    """Suffixes of ``model``'s module names whose JAX counterpart is not an
+    ``nn.Dense`` / ``nn.Conv`` call."""
+    from vipers_torch.models.swin import SwinTransformerV2
+    from vipers_torch.models.vit import VisionTransformer
+
+    if isinstance(model, VisionTransformer):
+        return ("attention.qkv", "attention.out")
+    if isinstance(model, SwinTransformerV2):
+        return ("attn.qkv",)
+    return ()
 
 
 class _EpsilonRule(torch.autograd.Function):
@@ -72,12 +88,13 @@ def lrp_sites(model: nn.Module):
 
     sites = []
     skip = set()
+    not_dense = _not_dense(model)
     if isinstance(model, VisionTransformer):
         sites.append((model, "patch_embed"))
         skip.add(id(model.conv_proj))  # read by patch_embed, never called
     for name, m in model.named_modules():
         if (isinstance(m, (nn.Linear, nn.Conv2d)) and id(m) not in skip
-                and not name.endswith(_NOT_DENSE)):
+                and not name.endswith(not_dense)):
             sites.append((m, "forward"))
     return sites
 

@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from vipers_torch.core.registry import ModelSpec, build_model, register_model
-from vipers_torch.models.cnn import BatchNorm, Conv2d, Linear, name_batch_norms
+from vipers_torch.models.cnn import BatchNorm, Conv2d, Linear, conv_extent, name_batch_norms
 from vipers_torch.models.vit import _lecun_normal
 
 BN_EPS, BN_MOMENTUM = 1e-3, 0.9
@@ -142,6 +142,15 @@ class MobileNetV2(nn.Module):
         self.features = nn.ModuleList(feats)
         self.classifier = nn.ModuleList([nn.Identity(), Linear(last, cfg.num_classes)])
         name_batch_norms(self)
+
+    def feature_extent(self, px: int) -> int:
+        """Cells of the head convolution's map along an input axis of
+        ``px`` pixels: the stem (k3 s2 p1), then each inverted residual's
+        depthwise (k3 p1 at its stride); the 1x1 convolutions keep it."""
+        n = conv_extent(px, 3, 2, 1)
+        for _in, _out, stride, _t in self.cfg.blocks()[1]:
+            n = conv_extent(n, 3, stride, 1)
+        return n
 
     def forward(self, x, need_attn: bool = True, tap_delta=None):  # need_attn: no-op for CNNs
         """``tap_delta``: the explain tap, (N, H', W', C) added to the head

@@ -9,7 +9,9 @@ with ``--arch resnet`` / ``vgg16``
 ``make_batched_cnn_pipeline`` on the canonical input of that bucket
 (512x384 at ``--resnet-dilate`` 1, 2 or 4), with ``torch.profiler``: device
 time by kernel, the device's busy share of the wall-clock window, and the
-host time per call. As with ``vipers lost``, the patch size is the
+host time per call; a ViT or DINO ViT pipeline also prints its MFU (the
+analytic forward FLOPs of ``core.flops`` at the measured img/s, against
+the H100 SXM's dense bf16 peak). As with ``vipers lost``, the patch size is the
 caller's to give. ``--arch swin`` (``--model swin_v2_t``, first window or
 ``--swin-all-windows``) and ``--exact-shapes`` (a CNN at the image's own
 shape) profile the per-image path instead: one host-normalized 500x375
@@ -174,6 +176,20 @@ def main(argv=None):
           f"device busy {busy_ms / args.steps:.2f} ms/call = "
           f"{100 * busy_ms / wall_ms:.1f}% of the window, {len(events) / args.steps:.0f} "
           f"kernels/call")
+    if not cnn and not per_image:
+        # the analytic forward FLOPs of the batch against the card's dense
+        # bf16 peak, as tools/profile_lost.py reads a ViT's MFU
+        from vipers_torch.core.flops import H100_SXM_BF16_DENSE_PEAK, vit_forward_flops_per_image
+
+        c = spec.cfg
+        d, layers, mlp_ratio = ((c.hidden_dim, c.num_layers, c.mlp_dim // c.hidden_dim)
+                                if args.arch == "vit" else (c.embed_dim, c.depth, c.mlp_ratio))
+        tput = args.batch / (wall_ms / args.steps) * 1e3
+        flops = vit_forward_flops_per_image(d=d, layers=layers, mlp_ratio=mlp_ratio,
+                                            grid_tokens=(H // patch) * (W // patch), patch=patch)
+        print(f"{tput:.1f} img/s, {flops / 1e9:.1f} GFLOP an image: MFU "
+              f"{100 * flops * tput / H100_SXM_BF16_DENSE_PEAK:.1f}% of the H100 SXM's dense "
+              f"bf16 peak ({H100_SXM_BF16_DENSE_PEAK / 1e12:.0f} TFLOP/s)")
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     os.makedirs(args.out, exist_ok=True)
     stem = os.path.join(args.out, f"profile_lost_{args.model}_{args.dtype}_b{args.batch}")

@@ -24,6 +24,9 @@ checkpoint (``vipers_torch slim``) builds the model at its ``.slim.json``
 sidecar's widths, and every checkpoint such a session writes carries the
 same sidecar.
 
+``--profile-dir`` wraps the first training run (SNIP's, LRR's first
+pruning iteration) in ``core.profiling.device_trace`` and ``--debug-nans``
+runs the session under ``enable_nan_check``, at the JAX driver's sites.
 The JAX driver's mesh, pipeline-parallel and sharding branches are not
 ported (ROADMAP A10); ``core.config.refuse_unported`` exits for their
 flags. ``LAST_RUN`` holds the first train and val batches and the times of
@@ -43,6 +46,7 @@ import torch
 
 from vipers_torch.core.checkpoint import load_train_checkpoint, save_train_checkpoint
 from vipers_torch.core.config import TrainConfig, refuse_unported
+from vipers_torch.core.profiling import device_trace, enable_nan_check, nan_errors
 from vipers_torch.core.device import resolve_device
 from vipers_torch.core.metrics import MetricsWriter
 from vipers_torch.core.registry import build_model
@@ -302,9 +306,11 @@ def train_snip(s: Session, initial_epoch: int = 0):
     print(f"Sparsity after SNIP pruning: {sparsity:.2f}%")
     s.writer.write("prune", step=0, method="snip", sparsity=sparsity)
     args, kw = _loop_args(s)
-    s.state, acc1 = train_model_to_completion(
-        *args, initial_epoch=initial_epoch, seed=cfg.seed,
-        checkpoint_fn=_checkpoint_fn(s, "snip", cfg.target_sparsity), sparsity=sparsity, **kw)
+    with device_trace(cfg.profile_dir):
+        s.state, acc1 = train_model_to_completion(
+            *args, initial_epoch=initial_epoch, seed=cfg.seed,
+            checkpoint_fn=_checkpoint_fn(s, "snip", cfg.target_sparsity), sparsity=sparsity,
+            **kw)
     return sparsity, acc1
 
 
@@ -333,11 +339,14 @@ def run_magnitude(s: Session, resuming: bool = False, initial_epoch: int = 0):
         cont = first and resuming
         first = False
         args, kw = _loop_args(s)
-        # the file-name contract: {model}_epoch_{e}_pruning_iteration_{NN}
-        s.state, acc1, pruned = magnitude_pruning_round(
-            *args, cfg.pruning_rate, reset=not cont, initial_epoch=initial_epoch if cont else 0,
-            seed=(cfg.seed, it), checkpoint_fn=_checkpoint_fn(s, "pruning_iteration", f"{it:02d}"),
-            sparsity=sparsity, **kw)
+        # --profile-dir traces the first pruning iteration
+        with device_trace(cfg.profile_dir if it == cfg.starting_pruning_iteration else None):
+            # the file-name contract: {model}_epoch_{e}_pruning_iteration_{NN}
+            s.state, acc1, pruned = magnitude_pruning_round(
+                *args, cfg.pruning_rate, reset=not cont,
+                initial_epoch=initial_epoch if cont else 0, seed=(cfg.seed, it),
+                checkpoint_fn=_checkpoint_fn(s, "pruning_iteration", f"{it:02d}"),
+                sparsity=sparsity, **kw)
         rows.append((acc1, sparsity))
         sparsity = pruned
         s.writer.write("prune", step=it, method="magnitude", sparsity=sparsity)
@@ -374,10 +383,22 @@ def resume_session(s: Session, path: str) -> int:
 def run(cfg: TrainConfig):
     """``vipers_torch train``: build the session, resume if asked
     (``--resume``'s epoch overrides ``--start-epoch``), then ``--test-only``
-    evaluation, SNIP or LRR."""
+    evaluation, SNIP or LRR. ``--debug-nans`` turns the NaN sanitizer on
+    before the session is built, and off again when the run ends."""
     LAST_RUN.clear()
     refuse_unported(cfg)
     resolve_device(cfg.device)  # no card and no --device cpu: raise before writing anything
+    if not cfg.debug_nans:
+        return _run(cfg)
+    enable_nan_check(True)
+    try:
+        with nan_errors():
+            return _run(cfg)
+    finally:
+        enable_nan_check(False)
+
+
+def _run(cfg: TrainConfig):
     os.makedirs(cfg.output_dir, exist_ok=True)
     s = build_session(cfg)
     start_epoch = cfg.start_epoch if cfg.start_epoch >= 0 else 0

@@ -45,7 +45,6 @@ import os
 import types
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -653,10 +652,12 @@ def _save_artifact(state, params, path: str, observers, epoch: Optional[int] = N
     """``torch.save`` {"model": the torchvision state dict (masked layers as
     weight_orig / weight_mask, running statistics), "observers"[, "epoch"]}
     through the family's exporter (a temporary file, then renamed)."""
+    from vipers_torch.core.checkpoint import contiguous_tensor
+
     fam = state.family
     p, bs = fam.trees({**params, **state.batch_stats})
     sd = fam.export_pth(p, bs, fam.masks_from_state_dict(state.masks), False)
-    obj = {"model": {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()},
+    obj = {"model": {k: contiguous_tensor(v) for k, v in sd.items()},
            "observers": observers_to_checkpoint(observers)}
     if epoch is not None:
         obj["epoch"] = int(epoch)

@@ -36,6 +36,7 @@ from torch.func import functional_call
 
 from vipers_torch.core.checkpoint import Family, family
 from vipers_torch.core.device import resolve_device
+from vipers_torch.core.registry import build_module
 from vipers_torch.models import cnn
 from vipers_torch.models.stochastic import dropout_generator, has_random_layers
 from vipers_torch.train.ema import ema_reset, ema_update_
@@ -85,7 +86,7 @@ def create_train_state(spec, params, masks, ocfg: OptimConfig, steps_per_epoch: 
     train state holds them."""
     dev = resolve_device(device)
     fam = family(spec)
-    model = spec.module()
+    model = build_module(spec)
     load_weights(model, fam, params, batch_stats)
     model = model.to(dev).train()
     sd_masks = {k: m.to(dev) for k, m in fam.masks_to_state_dict(masks or {}).items()}
