@@ -283,7 +283,8 @@ Phases (any failure exits non-zero; nothing is caught):
      same 128 images (up to top-score ties); ResNet-50 ``--pipeline lost``
      at its canonical bucket (no kernel launch, boxes equal to the eager
      CNN pipeline's); ViT-B/16 classify bf16 at 224 ``--verify``;
-     ``vipers_torch.tools.bench_export``'s eager and artifact img/s.
+     ``vipers_torch.tools.bench_export``'s eager and artifact img/s (its
+     ViT-S/16 programs cut to 6 blocks since phase 21).
  20. mobilenet_v2, DINO explain and the debugging surface
      (``debug_surface_phase``): mobilenet_v2 (seed 0, 50% global magnitude
      mask) through ``lost --arch mobilenet`` on 128 fixture JPEGs in bf16
@@ -308,11 +309,37 @@ Phases (any failure exits non-zero; nothing is caught):
      trace naming the training attention kernels (rows 7-8); ``train
      --debug-nans`` on a ViT-S/16 with one NaN weight raises
      ``FloatingPointError`` on the card.
+ 21. data parallelism (``ddp_phase``): a one-rank NCCL group on the card,
+     the data-parallel ResNet-50 bf16 step (224, B=32, full width, its
+     gradients all-reduced through NCCL) equal to the plain step after 3
+     steps (cuDNN deterministic for both), both timed; then the port's
+     ``train``, ``evaluate``, ``quantize --mode ptq`` and ``lost`` as 2
+     ranks sharing the card over gloo (child processes joined through the
+     port's own initializer; NCCL refuses two ranks on one card) against
+     one process at the global batch: ResNet-50 SNIP (f32, from the seed-0
+     weights with BatchNorm biases at +3, 224, B=16 a rank, 2 steps and the
+     epoch-end eval on 41 val images, a sentinel row on rank 1), ViT-B/16
+     ``--amp`` SNIP (2 steps), ``evaluate`` and PTQ of a seed-0 ResNet-50
+     .pth, ``lost`` of a seed-0 ViT-S/16 .pth in bf16 on 64 fixture JPEGs
+     (B=32 a rank, the process B=64). While the children start: a witness
+     of what BatchNorm's reduction order alone does to 2 ResNet-50 f32
+     steps in one process, from the seed-0 weights and from biases +3
+     (printed, not held), and the memory of SNIP on a gathered global
+     batch (rank 0's pass) of ResNet-50 and ViT-B/16 at 128 and 256
+     images. Checks: the printed accuracy lines of every rank equal to the
+     process's, SNIP masks equal, parameters and statistics after 2 steps
+     within rtol 5e-2 / atol 3e-3, the evaluate rows and int8 counts
+     equal, observers within 1e-4, ``preds.pkl`` and the results txt
+     equal; rows 7-8 24 launches on every rank (12 a step), rows 1 and 4
+     12 a LOST batch on every rank (``ddp_launches`` in the kernels JSON);
+     which gloo collectives take CUDA tensors; each stage's
+     seconds, 2 ranks on one card beside one process.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
 12 drove its as ``train_cli_launches``, the row phase 19's bf16 program
-drove as ``export_launches``); the last is
+drove as ``export_launches``, the rows phase 21's runs drove their
+launches on each rank as ``ddp_launches``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1003,6 +1030,24 @@ def seeded_init(spec, seed=0):
     return INIT_CACHE[key]
 
 
+def seeded_pruned(spec):
+    """(``seeded_init(spec)``, its global magnitude masks at ``SPARSITY``
+    with ``spec.prune_exclude`` dense), drawn and pruned once per model
+    configuration; the masks are ranked on the card (the same masks as on
+    the CPU: ``kthvalue`` selects, ties go in index order) and kept on the
+    host. Callers write into neither."""
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    params = seeded_init(spec)
+    key = (spec.name, repr(spec.cfg), tuple(spec.input_size), spec.num_classes, "masks")
+    if key not in INIT_CACHE:
+        on_card = to_device(params, "cuda")
+        masks = magnitude_prune(on_card, init_masks(on_card, exclude=spec.prune_exclude),
+                                amount=SPARSITY)
+        INIT_CACHE[key] = {p: m.cpu() for p, m in masks.items()}
+    return params, INIT_CACHE[key]
+
+
 def reset_counts(*counters):
     for counts in counters:
         for key in counts:
@@ -1533,9 +1578,7 @@ def jpeg_lost_phase(card, counters):
         with open(os.path.join(data, "ImageSets", "Main", "first256.txt"), "w") as f:
             f.write("".join(f"{name}\n" for name, _ in items[:N_JPEG_SHORT]))
         spec = build_model("vit_s_16")
-        params = spec.init(torch.Generator().manual_seed(0))
-        masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
-                                amount=SPARSITY)
+        params, masks = seeded_pruned(spec)
         pth = os.path.join(root, "vit_s_16_pruned.pth")
         save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), pth)
 
@@ -3727,9 +3770,7 @@ def explain_phase(card, counters, fa, gen):
     root = tempfile.mkdtemp(prefix="vipers_torch_explain_")
     try:
         spec = build_model("vit_b_16")
-        params = spec.init(torch.Generator().manual_seed(0))
-        masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
-                                amount=SPARSITY)
+        params, masks = seeded_pruned(spec)
         pth = os.path.join(root, "vit_b_16.pth")
         save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), pth)
         voc = os.path.join(root, "voc")
@@ -4305,9 +4346,7 @@ def vgg_train(card, counters):
 
         # card vs CPU at dropout rate 0: 2 masked f32 SGD steps, an f64 yardstick
         spec0 = tvgg._spec(m, tvgg.VGGConfig(1000, dropout_rate=0.0), (224, 224))
-        params = spec0.init(torch.Generator().manual_seed(0))
-        masks = magnitude_prune(params, init_masks(params, exclude=spec0.prune_exclude),
-                                amount=SPARSITY)
+        params, masks = seeded_pruned(spec0)
         rng = np.random.default_rng(15)
         batches = [(torch.from_numpy(rng.normal(size=(VGG_CUT_BATCH, 224, 224, 3))
                                      .astype(np.float32)),
@@ -4630,9 +4669,7 @@ def slim_finetune(card, counters, gen):
         sweep = os.path.join(root, "sweep")
         os.makedirs(sweep)
         spec = build_model("vit_b_16")
-        params = spec.init(torch.Generator().manual_seed(0))
-        masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
-                                amount=SPARSITY)
+        params, masks = seeded_pruned(spec)
         dense = os.path.join(sweep, "vit_b_16_epoch_0_pruning_iteration_00.pth")
         save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), dense)
         t0 = time.perf_counter()
@@ -4829,9 +4866,7 @@ def int8_lost(card, counters, lost_core):
     from vipers_torch.train import quantize as tq
 
     spec = build_model("vit_s_16", num_classes=1000, image_size=(H, W))
-    params = spec.init(torch.Generator().manual_seed(0))
-    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
-                            amount=SPARSITY)
+    params, masks = seeded_pruned(spec)
     rng = np.random.default_rng(18)
     exact_hw = [(H, W)] * BATCH
     mixed_hw = [(H, W)] * 8 + [(int(rng.integers(449, H + 1)), int(rng.integers(321, W + 1)))
@@ -4991,9 +5026,7 @@ def quantize_runs(card, counters, vit_b_pth, keep_ptq=None, keep_mb_ptq=None):
         # 2. PTQ and one QAT epoch on the quantized_ CNNs
         for model in ("quantized_mobilenet_v2", "quantized_resnet50"):
             mspec = build_model(model)
-            params = mspec.init(torch.Generator().manual_seed(0))
-            mmasks = magnitude_prune(params, init_masks(params, exclude=mspec.prune_exclude),
-                                     amount=SPARSITY)
+            params, mmasks = seeded_pruned(mspec)
             ck = os.path.join(root, f"{model}.pth")
             sd = family(mspec).export_pth(params, None, mmasks, False)
             torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, ck)
@@ -5275,6 +5308,9 @@ def export_cnn_and_classify(card, counters, vit_b_pth, root):
           f"launches {got} (the artifact's forward and the direct one) ({card})")
 
 
+BENCH_EXPORT_LAYERS = 6
+
+
 def export_phase(card, counters, gen, vit_b_pth, ptq_pth):
     """Phase 19: serving export (``export_vit_lost`` bf16, f32 and int8,
     ``export_cnn_and_classify``, ``vipers_torch.tools.bench_export``) and
@@ -5300,9 +5336,13 @@ def export_phase(card, counters, gen, vit_b_pth, ptq_pth):
     finally:
         shutil.rmtree(root)
     torch.cuda.empty_cache()
-    rates = bench_export.run(reps=2)
+    t0 = time.time()
+    # the ViT-S/16 programs cut to 6 blocks (phase 21 took the time): artifact
+    # against eager is a ratio of one program's two runs, at any depth
+    rates = bench_export.run(reps=2, layers=BENCH_EXPORT_LAYERS)
     host = {k: round(v, 2) for k, v in bench_export.op_host_cost().items()}
-    print(f"bench_export {json.dumps(rates)}; host us a call {json.dumps(host)} ({card})")
+    print(f"bench_export (ViT-S/16 at {BENCH_EXPORT_LAYERS} blocks) {json.dumps(rates)}; host "
+          f"us a call {json.dumps(host)}; {time.time() - t0:.1f} s ({card})")
     print(f"phase 19 serving export: {time.time() - t_phase:.1f} s")
     return rows, {rows[0]["name"]: got["f32"]["flash"]["float32"],
                   rows[1]["name"]: got["bf16"]["flash"]["bfloat16"]}, {
@@ -5395,9 +5435,7 @@ def mobilenet_lost(card, counters, lost_core, root, voc, voc_exact, mb_ptq):
     from vipers_torch.pruning import init_masks, magnitude_prune
 
     spec = build_model("mobilenet_v2")
-    params = spec.init(torch.Generator().manual_seed(0))
-    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
-                            amount=SPARSITY)
+    params, masks = seeded_pruned(spec)
     pth = os.path.join(root, "mobilenet_v2.pth")
     save_torch_state_dict(export_mobilenet_v2(params, None, masks, bake_masks=False), pth)
     common = ["--arch", "mobilenet", "--model", "mobilenet_v2", "--checkpoint", pth,
@@ -5531,9 +5569,7 @@ def visualize_runs(card, counters, gen, fa, fm, root, voc_viz, mb_pth):
                            tag="B=1", pad_rows=slice(0, 1)),
             check_fused_mlp(fm, gen, m=896, tag="M=896")]
     spec = build_model("vit_s_16")
-    params = spec.init(torch.Generator().manual_seed(0))
-    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
-                            amount=SPARSITY)
+    params, masks = seeded_pruned(spec)
     vit_pth = os.path.join(root, "vit_s_16.pth")
     save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), vit_pth)
     launches = {}
@@ -5659,6 +5695,571 @@ def debug_surface_phase(card, counters, gen, lost_core, mb_ptq):
     return rows + viz_rows, {**launches, **viz_launches}
 
 
+# phase 21: data parallelism. A child process runs the port's CLIs as one
+# rank of a torchrun-style launch and writes what it saw as JSON.
+DDP_CHILD = "import sys, chip_smoke; chip_smoke.ddp_child(*sys.argv[1:])"
+
+
+def run_ddp_stages(stages):
+    """Each (name, argv) of ``stages`` through the port's CLI in this
+    process, the launch counts set to 0 just before and read just after:
+    {name: {rc, s, to_data_s, rows_7_8, row_1, row_4, other, lines[,
+    batches]}} (``to_data_s``: a train stage's seconds to its first decoded
+    batch)."""
+    import contextlib
+    import io
+
+    from vipers_torch.cli.main import main as cli
+    from vipers_torch.discovery import driver as lost_driver
+    from vipers_torch.ops import attention_train as at
+    from vipers_torch.ops import flash_attention as fa
+    from vipers_torch.ops import fused_mlp as fm
+    from vipers_torch.train import driver as tdrv
+
+    counters = (at.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PACKED_LAUNCHES, fm.LAUNCHES)
+    res = {}
+    for stage, argv in stages:
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        t0_wall = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        torch.cuda.synchronize()
+        res[stage] = {
+            "rc": rc, "s": time.perf_counter() - t0,
+            "to_data_s": (tdrv.LAST_RUN.get("t_first_decode", t0_wall) - t0_wall
+                          if argv[0] == "train" else None),
+            "rows_7_8": [at.LAUNCHES[at._launch_key(d, "f32", 64)] for d in ("fwd", "bwd")],
+            "row_1": fa.LAUNCHES["bfloat16"], "row_4": fm.LAUNCHES["bfloat16"],
+            "other": sum(fa.BWD_LAUNCHES.values()) + sum(fa.PACKED_LAUNCHES.values()),
+            "lines": [ln for ln in buf.getvalue().splitlines()
+                      if ln.startswith(("Test:", "PTQ", "corloc", "Sparsity", "| distributed"))],
+        }
+        assert rc == 0, (stage, rc)
+        if stage == "lost":
+            res[stage]["batches"] = lost_driver.LAST_RUN["batches"]
+    return res
+
+
+def gloo_cuda_probe():
+    """Which gloo collectives take CUDA tensors (the port hands them its
+    CUDA tensors as it would NCCL): {name: "ok" or what raised}, on a group
+    of its own with a short deadline. Every rank calls it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=60))
+    t = torch.ones(8, device="cuda")
+    n = dist.get_world_size()
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(t.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0, group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(n)], t,
+                                              group=group),
+        "reduce_scatter": lambda: dist.reduce_scatter(torch.empty(8 // n, device="cuda"),
+                                                      list(t.chunk(n)), group=group),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(t), t,
+                                                            group=group),
+    }
+    out = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the probe reports what raised
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return out
+
+
+def ddp_child(cfg_path, out_prefix, go):
+    """One rank: the CUDA context and libraries, then, once the file ``go``
+    exists, the stages of ``cfg_path`` (the CLI joins the process group on
+    its first call) and the gloo probe; writes ``{out_prefix}_{rank}.json``."""
+    from vipers_torch.cli.main import main as _cli  # noqa: F401 - imported before the wait
+    from vipers_torch.parallel import mesh
+
+    # the CUDA context, cuDNN and cuBLAS loaded before the wait
+    x = torch.ones(2, 3, 16, 16, device="cuda", requires_grad=True)
+    torch.nn.functional.conv2d(x, torch.ones(4, 3, 3, 3, device="cuda")).sum().backward()
+    (x.detach().flatten(1) @ torch.ones(768, 4, device="cuda")).sum().item()
+    t_ready = time.time()
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    t_go = time.time()
+    with open(cfg_path) as f:
+        res = run_ddp_stages(json.load(f)["stages"])
+    res["rank"], res["world"] = mesh.rank(), mesh.world()
+    res["gloo_cuda"] = gloo_cuda_probe()
+    res["t_ready"], res["t_go"], res["t_exit"] = t_ready, t_go, time.time()
+    with open(f"{out_prefix}_{mesh.rank()}.json", "w") as f:
+        json.dump(res, f)
+
+
+DDP_WORLD, DDP_BATCH = 2, 16  # ranks on the one card, per-rank batch (the process: 32)
+DDP_TRAIN, DDP_VAL, DDP_JPEG = 64, 41, 64  # 2 global steps; a sentinel row on rank 1
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_resnet():
+    """The phase's ResNet-50 (1000 classes): (spec, seed-0 params, their
+    global magnitude masks at ``SPARSITY``)."""
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    spec = build_model("resnet50", num_classes=1000)
+    return (spec, *seeded_pruned(spec))
+
+
+def bn_biases_plus3(params):
+    """``params`` with every BatchNorm bias raised by 3."""
+    from vipers_torch.core.tree import flatten_dict, unflatten_dict
+
+    return unflatten_dict({p: (v + 3.0 if p[-1] == "bias" and "bn" in p[-2] else v)
+                           for p, v in flatten_dict(params).items()})
+
+
+def nccl_one_rank(card, spec, params, masks):
+    """A one-rank NCCL group on the card: the data-parallel ResNet-50 bf16
+    step (224, B=32, full width, 1000 classes; its gradients all-reduced
+    through NCCL) against the plain step from the same state and batch,
+    3 steps each; parameters and running statistics must be equal. Returns
+    (plain ms, data-parallel ms) a step, the first step untimed."""
+    import torch.distributed as dist
+
+    from vipers_torch.data.preprocess import make_device_normalize
+    from vipers_torch.parallel import mesh
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import create_train_state, make_train_step
+
+    rng = np.random.default_rng(21)
+    images = torch.from_numpy(rng.integers(0, 256, (32, 224, 224, 3), dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 1000, 32)).cuda()
+    x = make_device_normalize()(images)
+    step = make_train_step(1000, compute_dtype=torch.bfloat16)
+    ocfg = OptimConfig(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    states, ms = [], []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # cuDNN's atomics would differ run to run
+    try:
+        for dp in (False, True):
+            if dp:
+                dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                        world_size=1, rank=0)
+                assert mesh.active() and mesh.world() == 1
+            st = create_train_state(spec, params, masks, ocfg, 1)
+            st, metrics = step(st, (x, labels))  # the first step sets cuDNN up: untimed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                st, metrics = step(st, (x, labels))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) / 2)
+            assert bool(torch.isfinite(metrics["loss"]))
+            states.append({**{k: v.detach().clone() for k, v in st.params.items()},
+                           **{k: v.clone() for k, v in st.batch_stats.items()}})
+            del st
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    diff = [k for k, v in states[0].items() if not torch.equal(v, states[1][k])]
+    assert not diff, f"one-rank NCCL step differs from the plain step at {diff[:5]}"
+    print(f"phase 21 one-rank NCCL: ResNet-50 bf16 step (224, B=32) after 3 steps equal to "
+          f"the plain step ({len(states[0])} tensors); steps 2-3, host clock: the plain step "
+          f"{ms[0]:.1f} ms, the one-rank NCCL data-parallel step {ms[1]:.1f} ms ({card})")
+    return ms
+
+
+def bn_order_witness(card, spec, params, masks):
+    """What the BatchNorm reduction order alone does to 2 train steps: one
+    process, ResNet-50 f32 (224, B=32, SGD lr 0.01 as the train stages,
+    cuDNN deterministic), the moments as ``mean()`` against the
+    data-parallel form (packed sums over the batch over the count,
+    ``cnn._global_moments`` with no other rank), from the seed-0 start and
+    from BatchNorm biases at +3. Printed beside the 2-rank comparison;
+    nothing is held to a tolerance here."""
+    import types
+
+    from vipers_torch.data.preprocess import make_device_normalize
+    from vipers_torch.models import cnn
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import create_train_state, make_train_step
+
+    rng = np.random.default_rng(23)
+    norm = make_device_normalize()
+    batches = [(norm(torch.from_numpy(rng.integers(0, 256, (32, 224, 224, 3),
+                                                   dtype=np.uint8)).cuda()),
+                torch.from_numpy(rng.integers(0, 1000, 32)).cuda()) for _ in range(2)]
+    step = make_train_step(1000)
+    ocfg = OptimConfig(lr=0.01)
+    real = cnn.parallel
+    packed = types.SimpleNamespace(world=lambda: 2, all_reduce_sum=lambda t: t)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for start, p0 in (("seed-0", params), ("BatchNorm biases +3", bn_biases_plus3(params))):
+            runs = []
+            for form in (real, packed):
+                cnn.parallel = form
+                st = create_train_state(spec, p0, masks, ocfg, 1)
+                for b in batches:
+                    st, metrics = step(st, b)
+                assert bool(torch.isfinite(metrics["loss"]))
+                runs.append({**{k: v.detach().double() for k, v in st.params.items()},
+                             **{k: v.double() for k, v in st.batch_stats.items()}})
+                del st
+            cnn.parallel = real
+            bad, rel = [], []
+            for k, a in runs[0].items():
+                d = (runs[1][k] - a).abs()
+                excess = float((d - (3e-3 + 5e-2 * a.abs())).max())
+                rel.append((float(d.norm() / max(float(a.norm()), 1e-30)), k))
+                if excess > 0:
+                    bad.append((excess, k))
+            rel.sort(reverse=True)
+            out[start] = (sorted(bad, reverse=True), rel[:3])
+    finally:
+        cnn.parallel = real
+        torch.backends.cudnn.deterministic = prev
+    for start, (bad, rel) in out.items():
+        print(f"phase 21 witness, BatchNorm moments packed / count against mean(), one process "
+              f"(ResNet-50 f32, 224, B=32, 2 steps) from {start}: worst relative L2 {rel}, "
+              f"{len(bad)} tensors past rtol 5e-2 / atol 3e-3: {bad[:5]} ({card})")
+    return out
+
+
+def snip_global_batch_memory(card, resnet_spec, resnet_params):
+    """What rank 0 holds when it takes SNIP's saliencies of the gathered
+    global batch alone (``train.driver.global_snip_masks``): the driver's
+    SNIP pass (f32, cuDNN deterministic, TF32 off) of ResNet-50 and
+    ViT-B/16 at 224 on 128 and 256 images (8 ranks of 16 and of 32), its
+    peak device memory above the weights and its seconds; the slope per
+    image gives the largest gathered batch the card holds. Returns
+    {model: (MiB an image, that largest batch)}."""
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data.preprocess import make_device_normalize
+    from vipers_torch.models import cnn
+    from vipers_torch.pruning import init_masks, snip_saliency
+    from vipers_torch.pruning.snip import snip_loss
+
+    rng = np.random.default_rng(24)
+    norm = make_device_normalize()
+    total = torch.cuda.get_device_properties(0).total_memory
+    vit = build_model("vit_b_16", num_classes=1000)
+    out = {}
+    for name, spec, params in (("resnet50", resnet_spec, resnet_params),
+                               ("vit_b_16", vit, seeded_init(vit))):
+        p = to_device(params, "cuda")
+        loss = snip_loss(spec, 1000)
+        base = init_masks(p, exclude=spec.prune_exclude)
+        peaks = {}
+        for n in (128, 256):
+            images = torch.from_numpy(rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8))
+            labels = torch.from_numpy(rng.integers(0, 1000, n)).cuda()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with cnn.exact_f32_convs(), cnn.deterministic_convs():
+                sal = snip_saliency(loss, p, (norm(images.cuda()), labels), masks=base)
+            torch.cuda.synchronize()
+            peaks[n] = (torch.cuda.max_memory_allocated() - held, time.perf_counter() - t0)
+            assert all(bool(torch.isfinite(v).all()) for v in sal.values())
+            del sal
+        slope = (peaks[256][0] - peaks[128][0]) / 128
+        fixed = peaks[256][0] - 256 * slope
+        largest = int((total - torch.cuda.memory_allocated() - fixed) // slope)
+        out[name] = (slope / 2**20, largest)
+        print(f"phase 21 SNIP on a gathered global batch, {name} f32 224: peak above the "
+              f"weights {peaks[128][0] / 2**30:.2f} GiB at 128 images ({peaks[128][1]:.2f} s), "
+              f"{peaks[256][0] / 2**30:.2f} GiB at 256 ({peaks[256][1]:.2f} s); "
+              f"{slope / 2**20:.1f} MiB an image, so rank 0's card ({total / 2**30:.1f} GiB) "
+              f"holds a gathered batch of at most ~{largest} images ({card})")
+        del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_inputs(root, params, masks):
+    """The runs' inputs: phase 12's kind of ImageFolder, the seed-0
+    ResNet-50 ``params`` with ``masks`` (50% global magnitude) as a .pth in
+    a sweep directory for evaluate and quantize, the same ResNet-50 with
+    every BatchNorm bias at +3 for train (ReLU inputs kept off the kink,
+    where a rounding difference flips a gate: the CPU parity tests' start;
+    ``bn_order_witness`` shows the seed-0 start), a seed-0 ViT-S/16 .pth
+    (50% mask) and phase 6's kind of JPEG tree for lost."""
+    from vipers_torch.core.checkpoint import (export_resnet, export_vit_torchvision,
+                                              save_torch_state_dict)
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.pruning import init_masks, magnitude_prune
+
+    data = os.path.join(root, "data")
+    imagefolder_tree(data, DDP_TRAIN, DDP_VAL, seed=21)
+    voc = os.path.join(root, "VOC2007")
+    voc_tree(voc, DDP_JPEG, seed=21)
+    sweep = os.path.join(root, "sweep")
+    os.makedirs(sweep)
+    resnet = os.path.join(sweep, "resnet50_epoch_0_pruning_iteration_00.pth")
+    save_torch_state_dict(export_resnet(params, None, masks, bake_masks=False), resnet)
+    start = os.path.join(root, "resnet50_bn3.pth")
+    save_torch_state_dict(export_resnet(bn_biases_plus3(params)), start)
+    spec = build_model("vit_s_16")
+    params, masks = seeded_pruned(spec)
+    vit = os.path.join(root, "vit_s_16.pth")
+    save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), vit)
+    return data, voc, sweep, resnet, start, vit
+
+
+def ddp_stages(out, batch, data, voc, sweep, resnet, start, vit):
+    """The CLI runs at the per-process ``batch`` (``lost`` at twice it: 32 a
+    rank, 64 the process)."""
+    common = ["--data-path", data, "--num-classes", "1000", "--batch-size", str(batch),
+              "--workers", "4", "--print-freq", "0", "--epochs", "1", "--lr", "0.01"]
+    return [
+        ["train_resnet", ["train", "--model", "resnet50", *common, "--pruning-method", "snip",
+                          "--target-sparsity", str(SPARSITY), "--resume", start,
+                          "--output-dir", os.path.join(out, "resnet")]],
+        ["train_vit", ["train", "--model", "vit_b_16", *common, "--amp", "--pruning-method",
+                       "snip", "--target-sparsity", str(SPARSITY),
+                       "--output-dir", os.path.join(out, "vit")]],
+        ["evaluate", ["evaluate", "--model", "resnet50", *common, "--models-path", sweep,
+                      "--output-dir", os.path.join(out, "eval")]],
+        ["quantize", ["quantize", "--model", "resnet50", *common, "--mode", "ptq",
+                      "--calibration-batches", "2", "--resume", resnet,
+                      "--output-dir", os.path.join(out, "quant")]],
+        ["lost", ["lost", "--model", "vit_s_16", "--data-path", voc, "--checkpoint", vit,
+                  "--dtype", "bf16", "--batch-size", str(2 * batch),
+                  "--workers", "4", "--output-dir", os.path.join(out, "lost")]],
+    ]
+
+
+def launch_ddp_ranks(root, inputs):
+    """The children as ``DDP_WORLD`` ranks sharing the card over gloo,
+    started: they import and make their CUDA context, then wait for
+    ``join_ddp_ranks``. Returns their handle."""
+    import subprocess
+
+    out = os.path.join(root, "ranks")
+    cfg = os.path.join(root, "ranks.json")
+    with open(cfg, "w") as f:
+        json.dump({"stages": ddp_stages(out, DDP_BATCH, *inputs)}, f)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(DDP_WORLD), LOCAL_WORLD_SIZE=str(DDP_WORLD))
+    go = os.path.join(root, "go")
+    t_launch = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", DDP_CHILD, cfg, out, go], cwd=REPO,
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DDP_WORLD)]
+    return {"procs": procs, "out": out, "go": go, "t_launch": t_launch}
+
+
+def stop_ddp_ranks(handle):
+    """Kill the children that still run (after a failure)."""
+    for p in handle["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def join_ddp_ranks(handle):
+    """Let the children run their stages and wait for them; returns (each
+    rank's results, wall seconds from the go)."""
+    t0 = time.perf_counter()
+    open(handle["go"], "w").close()
+    t_end = {}
+    try:
+        for r, p in enumerate(handle["procs"]):
+            log, _ = p.communicate(timeout=900)
+            t_end[r] = time.time()
+            assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+    finally:  # a failure leaves no process behind
+        stop_ddp_ranks(handle)
+    secs = time.perf_counter() - t0
+    res = []
+    for r in range(DDP_WORLD):
+        with open(f"{handle['out']}_{r}.json") as f:
+            res.append(json.load(f))
+        assert (res[-1]["rank"], res[-1]["world"]) == (r, DDP_WORLD), res[-1]
+        res[-1]["t_launch"], res[-1]["t_end"] = handle["t_launch"], t_end[r]
+    return res, secs
+
+
+def load_pth(path):
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def ddp_compare(root, ranks, single):
+    """The two-rank artifacts against the one-process ones (the tolerances
+    of the JAX package's multi-process test; SNIP's masks, ``preds.pkl``
+    and the results txt equal). Every check runs and prints; the first
+    failure is raised at the end."""
+    import pickle
+
+    m, s = os.path.join(root, "ranks"), os.path.join(root, "single")
+    failures = []
+
+    def check(fn, *args):
+        try:
+            fn(*args)
+        except AssertionError as e:
+            print(f"phase 21 FAILED {fn.__name__}: {e!r}"[:2000])
+            failures.append(e)
+
+    def printed_lines():
+        for stage in ("train_resnet", "train_vit", "evaluate", "quantize"):
+            want = [l for l in single[0][stage]["lines"] if not l.startswith("| distributed")]
+            for r in ranks:
+                got = [l for l in r[stage]["lines"] if not l.startswith("| distributed")]
+                assert got == want, (stage, r["rank"], got, want)
+
+    def checkpoint(sub, tol):
+        a, b = load_pth(os.path.join(s, sub)), load_pth(os.path.join(m, sub))
+        assert a["model"].keys() == b["model"].keys() and a["step"] == b["step"] == 2
+        worst, bad, rel = 0.0, [], []
+        for k, v in a["model"].items():
+            w = b["model"][k]
+            if k.endswith("_mask") or k.endswith("num_batches_tracked"):
+                assert torch.equal(v, w), (sub, k)  # SNIP's masks from the global batch
+                continue
+            d = (w.double() - v.double()).abs()
+            excess = float((d - (tol["atol"] + tol["rtol"] * v.double().abs())).max())
+            rel.append((float(d.norm() / max(float(v.double().norm()), 1e-30)), k))
+            if excess > 0:
+                bad.append((excess, k))
+            worst = max(worst, float(d.max()))
+        rel.sort(reverse=True)
+        print(f"phase 21 {sub.split('/')[0]}: 2 ranks vs 1 process after 2 steps, masks "
+              f"equal, worst difference {worst:.3g}, worst relative L2 {rel[:3]}, "
+              f"{len(bad)} tensors past rtol {tol['rtol']} / atol {tol['atol']}: "
+              f"{sorted(bad, reverse=True)[:5]}")
+        assert not bad, sub
+
+    def evaluate_rows():
+        rows = [open(os.path.join(d, "eval", "resnet50_dilation_1.txt")).read().split("\n")
+                for d in (s, m)]
+        assert [r.split()[0::2] for r in rows[0]] == [r.split()[0::2] for r in rows[1]]
+        for a, b in zip(*rows):
+            if a and not a.startswith("test/loss"):
+                assert a == b, (a, b)
+
+    def observers():
+        qa = load_pth(os.path.join(s, "quant", "quantized_post_train_model.pth"))["observers"]
+        qb = load_pth(os.path.join(m, "quant", "quantized_post_train_model.pth"))["observers"]
+        assert qa.keys() == qb.keys() and len(qa) >= 100
+        worst = max(abs(float(qa[k][e]) - float(qb[k][e])) / max(abs(float(qa[k][e])), 1e-6)
+                    for k in qa for e in ("min", "max"))
+        print(f"phase 21 quantize observers ({len(qa)}): worst relative difference {worst:.3g}")
+        assert worst <= 1e-4, worst
+
+    def lost_outputs():
+        preds = [pickle.load(open(os.path.join(d, "lost", "preds.pkl"), "rb")) for d in (s, m)]
+        same = sum(preds[0][k] == preds[1].get(k) for k in preds[0])
+        txt = [open(os.path.join(d, "lost", "results_iteration_00.txt")).read() for d in (s, m)]
+        print(f"phase 21 lost, 2 ranks at B=32 against 1 process at B=64: boxes equal on "
+              f"{same}/{len(preds[0])}, results txt {'equal' if txt[0] == txt[1] else 'differ'}")
+        assert preds[0].keys() == preds[1].keys() and same == len(preds[0]) and txt[0] == txt[1]
+
+    check(printed_lines)
+    for sub in ("resnet/resnet50_epoch_0_snip_0.5.pth", "vit/vit_b_16_epoch_0_snip_0.5.pth"):
+        check(checkpoint, sub, dict(rtol=5e-2, atol=3e-3))
+    check(evaluate_rows)
+    check(observers)
+    check(lost_outputs)
+    if failures:
+        raise failures[0]
+
+
+def ddp_phase(card):
+    """Phase 21 (see the module docstring). Returns {row: {"rank0", "rank1",
+    "single"} launches} for rows 1, 4 and 7-8."""
+    import shutil
+    import tempfile
+
+    t_phase = time.time()
+    laps = {}
+
+    def lap(what, t0):
+        laps[what] = round(time.time() - t0, 1)
+        return time.time()
+
+    t = time.time()
+    spec, params, masks = ddp_resnet()
+    nccl_one_rank(card, spec, params, masks)
+    t = lap("one-rank NCCL", t)
+    root = tempfile.mkdtemp(prefix="vipers_torch_ddp_")
+    handle = None
+    try:
+        inputs = ddp_inputs(root, params, masks)
+        t = lap("inputs", t)
+        # the children import and make their CUDA contexts meanwhile
+        handle = launch_ddp_ranks(root, inputs)
+        bn_order_witness(card, spec, params, masks)
+        t = lap("witness", t)
+        snip_global_batch_memory(card, spec, params)
+        t = lap("SNIP memory", t)
+        ranks, t_ranks = join_ddp_ranks(handle)
+        t = lap("2 ranks", t)
+        # the one process at the global batch: this one (no process group)
+        t0 = time.perf_counter()
+        single = [run_ddp_stages(ddp_stages(os.path.join(root, "single"),
+                                            DDP_WORLD * DDP_BATCH, *inputs))]
+        t_single = time.perf_counter() - t0
+        t = lap("1 process", t)
+        for r in ranks:
+            assert any("gloo on cuda" in l for l in r["train_resnet"]["lines"]), r
+        print(f"phase 21 gloo collectives on CUDA tensors: "
+              f"{ranks[0]['gloo_cuda']}")
+        ddp_compare(root, ranks, single)
+        t = lap("compare", t)
+    finally:
+        if handle:
+            stop_ddp_ranks(handle)
+        shutil.rmtree(root)
+    runs = {f"rank{r['rank']}": r for r in ranks}
+    runs["single"] = single[0]
+    steps = DDP_TRAIN // (DDP_WORLD * DDP_BATCH)
+    rows = {"attention_train_fwd[bf16]": {}, "attention_train_bwd[bf16]": {},
+            "flash_attention_fwd[bf16]": {}, "fused_ln_fc1_gelu[bf16]": {}}
+    for who, r in runs.items():
+        fwd, bwd = r["train_vit"]["rows_7_8"]
+        assert fwd == bwd == 12 * steps, (who, fwd, bwd)  # 12 blocks a step, every rank
+        assert r["train_resnet"]["rows_7_8"] == [0, 0] and r["train_resnet"]["row_1"] == 0
+        lost = r["lost"]
+        assert lost["row_1"] == lost["row_4"] == 12 * lost["batches"] > 0, (who, lost)
+        rows["attention_train_fwd[bf16]"][who] = fwd
+        rows["attention_train_bwd[bf16]"][who] = bwd
+        rows["flash_attention_fwd[bf16]"][who] = lost["row_1"]
+        rows["fused_ln_fc1_gelu[bf16]"][who] = lost["row_4"]
+    for stage in ("train_resnet", "train_vit", "evaluate", "quantize", "lost"):
+        print(f"phase 21 {stage}: 2 ranks on one card "
+              f"{max(r[stage]['s'] for r in ranks):.1f} s, 1 process "
+              f"{single[0][stage]['s']:.1f} s (one card shared: not a speed-up; to the first "
+              f"train batch: ranks {[r[stage]['to_data_s'] for r in ranks]}, 1 process "
+              f"{single[0][stage]['to_data_s']}) ({card})")
+    print(f"phase 21 launches on each rank: {rows}; {t_ranks:.1f} s the 2 ranks from the go "
+          f"(child processes, ready {[round(r['t_ready'] - r['t_launch'], 1) for r in ranks]} s "
+          f"after their launch, during the witness and the SNIP memory run; rank 0's exit "
+          f"{ranks[0]['t_end'] - ranks[0]['t_exit']:.1f} s after its last stage), "
+          f"{t_single:.1f} s the 1 process (this one); laps {laps}")
+    print(f"phase 21 data parallelism: {time.time() - t_phase:.1f} s")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5741,9 +6342,7 @@ def main():
     # 4. main path
     t0 = time.time()
     spec = build_model("vit_s_16", num_classes=1000, image_size=(H, W))
-    params = spec.init(torch.Generator().manual_seed(0))
-    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude),
-                            amount=SPARSITY)
+    params, masks = seeded_pruned(spec)
     kept = sum(int(m.sum()) for m in masks.values())
     total = sum(m.numel() for m in masks.values())
     print(f"vit_s_16 {H}x{W}: {total} prunable weights, sparsity "
@@ -5839,7 +6438,8 @@ def main():
     # 11. vit_h_14 pruned and trained: the hd-80 training kernels and flash
     # backward, SNIP
     launches.update(vit_h_phase(card, counters))
-    INIT_CACHE.clear()  # no later phase builds vit_h_14
+    for key in [k for k in INIT_CACHE if k[0] == "vit_h_14"]:
+        del INIT_CACHE[key]  # no later phase builds vit_h_14
     lap(11)
     import shutil
     import tempfile
@@ -5907,6 +6507,10 @@ def main():
         kernels += debug_rows
         launches.update(debug_launches)
         lap(20)
+        # 21. data parallelism: a one-rank NCCL step, and train, evaluate, quantize and
+        # lost as 2 ranks sharing the card over gloo against one process
+        ddp_runs = ddp_phase(card)
+        lap(21)
     finally:
         shutil.rmtree(keep)
     for k in kernels:
@@ -5925,6 +6529,9 @@ def main():
     for k in kernels:  # the exported ViT-B/16 bf16 program's batch, on the D = 768 row
         if k["name"] in export_runs:
             k["export_launches"] = export_runs[k["name"]]
+    for k in kernels:  # phase 21's runs on each rank, on the rows they drove
+        if k["name"] in ddp_runs:
+            k["ddp_launches"] = ddp_runs[k["name"]]
     if family_cli_run:  # vit_b_16's CLI run, on the D = 768 row it drove
         for k in kernels:
             if k["name"] == "fused_ln_fc1_gelu[bf16, D=768]":

@@ -1238,3 +1238,51 @@ def test_per_image_vit_shape_flash_and_fused_mlp(cuda):
     _close_to_scale(got, tfm.fused_ln_dense_gelu_plain(x, w_t, b, 1e-6), 2e-2)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES["bfloat16"] == n0 + 1 and tfm.LAUNCHES["bfloat16"] == m0 + 1
+
+
+def test_one_rank_nccl_data_parallel_step_equals_the_plain_step(cuda):
+    """A one-rank NCCL group: the data-parallel train step (its gradients
+    all-reduced through NCCL, ``parallel.mesh.average_gradients``) leaves
+    resnet18's parameters and running statistics (bf16 step, 2 steps of 8
+    images at 64 px) equal to the plain step's from the same state."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.parallel import mesh
+    from vipers_torch.pruning import init_masks
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import create_train_state, make_train_step
+
+    spec = build_model("resnet18", num_classes=10)
+    params = spec.init(torch.Generator().manual_seed(0))
+    masks = init_masks(params, exclude=spec.prune_exclude)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 64, 64, 3, generator=g).to(cuda)
+    y = torch.randint(0, 10, (8,), generator=g).to(cuda)
+    step = make_train_step(10, compute_dtype=torch.bfloat16)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    states = []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dp in (False, True):
+            if dp:
+                dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                        world_size=1, rank=0)
+                assert mesh.active() and mesh.world() == 1
+            st = create_train_state(spec, params, masks, OptimConfig(lr=0.1), 1, device=cuda)
+            for _ in range(2):
+                st, _ = step(st, (x, y))
+            states.append({**{k: v.detach().clone() for k, v in st.params.items()},
+                           **{k: v.clone() for k, v in st.batch_stats.items()}})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert states[0].keys() == states[1].keys()
+    for k, v in states[0].items():
+        assert torch.equal(v, states[1][k]), k

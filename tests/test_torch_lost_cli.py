@@ -264,24 +264,26 @@ def test_seed_in_background_collected_or_strict(voc, monkeypatch, tmp_path, caps
 
 
 # the per-image paths run (--arch swin, --swin-all-windows, --exact-shapes,
-# --cnn-bucket 1, --dinoseg, --visualize); multi-device is refused on them too
+# --cnn-bucket 1, --dinoseg, --visualize); sequence parallelism is refused on
+# them too, data parallelism (DP: A10's data-parallel half) passes
 @pytest.mark.parametrize("flags,item", [
     (["--arch", "resnet", "--exact-shapes", "--visualize", "pred"], "A11"),
     (["--arch", "swin", "--model", "swin_v2_t", "--visualize", "pred"], "A11"),
     (["--model", "mobilenet_v2"], "A5"),
-    (["--dtype", "int8", "--data-parallel"], "A10"),
-    (["--visualize", "pred"], "A11"), (["--data-parallel"], "A10"),
+    (["--dtype", "int8", "--data-parallel"], "DP"),
+    (["--visualize", "pred"], "A11"), (["--data-parallel"], "DP"),
     (["--sequence-parallel"], "A10"),
     (["--arch", "resnet", "--model", "resnet50", "--resnet-dilate", "2", "--cnn-bucket", "1",
-      "--data-parallel"], "A10"),
+      "--data-parallel"], "DP"),
     (["--arch", "swin", "--model", "swin_v2_t", "--dtype", "int8", "--visualize", "pred"],
      "A11"),
     (["--arch", "swin", "--model", "swin_v2_t", "--swin-all-windows", "--sequence-parallel"],
      "A10")])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
-    """Multi-device (A10) is still refused. ``--model mobilenet_v2`` (A5)
-    and ``--visualize`` (A11) are ported: no refusal is left for them (their
-    runs: ``tests/test_torch_mobilenet_lost.py``, ``tests/test_torch_viz.py``)."""
+    """Sequence parallelism (A10) is still refused. ``--model mobilenet_v2``
+    (A5), ``--visualize`` (A11) and ``--data-parallel`` (DP) are ported: no
+    refusal is left for them (their runs: ``tests/test_torch_mobilenet_lost.py``,
+    ``tests/test_torch_viz.py``, ``tests/test_torch_multiprocess.py``)."""
     argv = ["lost", "--data-path", str(tmp_path), "--device", "cpu", *flags]
     if item == "A10":
         with pytest.raises(SystemExit, match=f"ROADMAP {item}"):

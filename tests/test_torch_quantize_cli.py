@@ -167,9 +167,10 @@ def test_quantize_requires_resume_and_one_device(data, tmp_path):
     with pytest.raises(SystemExit, match="requires --resume"):
         fx.run_cli(tmain, ["quantize", "--model", MB, "--data-path", data, "--num-classes", "2",
                            "--device", "cpu", "--output-dir", str(tmp_path)])
+    # data parallelism is ported (tests/test_torch_multiprocess.py); tensor parallelism is not
     with pytest.raises(SystemExit, match=r"not ported yet \(ROADMAP A10\)"):
         fx.run_cli(tmain, ["quantize", "--model", MB, "--data-path", data, "--device", "cpu",
-                           "--data-parallel", "--resume", "x.pth",
+                           "--model-parallel", "2", "--resume", "x.pth",
                            "--output-dir", str(tmp_path)])
 
 

@@ -164,9 +164,9 @@ def test_train_and_evaluate_default_device_raise_without_a_card(data, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "mobilenet_v2", "--data-parallel"], "A10"),  # mobilenet passes it too
-    (["--model", "resnet50", "--data-parallel"], "A10"),  # the CNNs pass the model check
-    (["--model", "swin_v2_t", "--data-parallel"], "A10"),  # Swin trains on one device
+    (["--model", "mobilenet_v2", "--data-parallel"], "DP"),  # mobilenet passes it too
+    (["--model", "resnet50", "--data-parallel"], "DP"),  # the CNNs pass the model check
+    (["--model", "swin_v2_t", "--data-parallel"], "DP"),  # and Swin
     (["--model", "dino_vit_small"], "A2"),
     (["--model", "quantized_resnet18", "--debug-nans"], "A11"),  # so do the aliases
     (["--model", "resnet18", "--resnet-dilate", "2", "--debug-nans"], "A11"),
@@ -174,18 +174,20 @@ def test_train_and_evaluate_default_device_raise_without_a_card(data, tmp_path):
     (["--model", NAME, "--pp-remat"], "A10"),
     (["--model", NAME, "--pp-data", "2"], "A10"),
     (["--model", NAME, "--pp-microbatch", "2"], "A10"),
-    (["--model", NAME, "--data-parallel"], "A10"),
+    (["--model", NAME, "--data-parallel"], "DP"),
     (["--model", NAME, "--model-parallel", "2"], "A10"),
     (["--model", NAME, "--profile-dir", "trace"], "A11"),
     (["--model", NAME, "--debug-nans"], "A11"),
 ])
 @pytest.mark.parametrize("cmd", ["train", "evaluate"])
 def test_unported_flags_exit_naming_their_item(cmd, argv, item, tmp_path):
-    """The multi-device flags (A10) and DINO training (A2) exit naming their
-    item. ``--profile-dir`` and ``--debug-nans`` (A11) are ported: the
-    check passes them (their runs: ``tests/test_torch_profiling.py``)."""
+    """Tensor and pipeline parallelism (A10) and DINO training (A2) exit
+    naming their item. ``--profile-dir`` and ``--debug-nans`` (A11) and
+    ``--data-parallel`` (DP: A10's data-parallel half) are ported: the
+    check passes them (their runs: ``tests/test_torch_profiling.py``,
+    ``tests/test_torch_multiprocess.py``)."""
     argv = [cmd, *argv, "--output-dir", str(tmp_path / "out"), "--device", "cpu"]
-    if item == "A11":
+    if item in ("A11", "DP"):
         from vipers_torch.cli.main import build_parser
         from vipers_torch.core.config import config_from_args, refuse_unported
 

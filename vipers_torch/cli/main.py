@@ -48,9 +48,19 @@ unless given ``--device cpu``; there is no silent fallback
 (``explain-eval-batch`` scores saved maps with numpy on the host and only
 accepts the flag; ``slim`` and ``plot`` are host work and have no flag).
 A slimmed checkpoint's ``.slim.json`` sidecar rebuilds the model at its
-widths in ``train --resume``, ``evaluate``, ``lost`` and ``explain``. Flags that select what the
-port does not have yet exit with a message naming the ROADMAP item that
-ports it (multi-device: A10).
+widths in ``train --resume``, ``evaluate``, ``lost`` and ``explain``.
+
+Every subcommand first joins the process group that torchrun's or SLURM's
+environment describes (``parallel.mesh.maybe_initialize_distributed``;
+nothing at world size 1), as the JAX CLI does: ``train``, ``evaluate``,
+``quantize`` and ``lost`` then run data-parallel, one card a process::
+
+    torchrun --nproc-per-node 8 -m vipers_torch.cli.main train --model resnet50 \
+        --data-path imagenet --batch-size 32 --output-dir out   # global batch 256
+
+Flags that select what the port does not have yet exit with a message
+naming the ROADMAP item that ports it (tensor, pipeline and sequence
+parallelism: A10).
 """
 
 from __future__ import annotations
@@ -134,8 +144,11 @@ def build_parser() -> argparse.ArgumentParser:
                            "instead of collecting and reporting them at the end")
     lost.add_argument("--dtype", default="f32", choices=["f32", "bf16", "int8"],
                       help="compute dtype of the feature forward")
-    lost.add_argument("--data-parallel", action="store_true")
-    lost.add_argument("--sequence-parallel", action="store_true")
+    lost.add_argument("--data-parallel", action="store_true",
+                      help="split the images over the processes of a torchrun or SLURM "
+                           "launch (one card a process; alone, the plain run)")
+    lost.add_argument("--sequence-parallel", action="store_true",
+                      help="(not ported yet, ROADMAP A10)")
     lost.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                       help="cuda (default) runs the kernels; cpu their plain versions")
 
@@ -326,20 +339,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args):
     """SystemExit for an unknown ``--model``, or naming the ROADMAP item
-    for what this port cannot run yet (multi-device, A10)."""
+    for what this port cannot run yet (sequence parallelism, A10)."""
     from vipers_torch.core.registry import build_model
 
     try:
         build_model(args.model)
     except ValueError:
         raise SystemExit(f"vipers_torch lost: unknown model {args.model!r}") from None
-    if args.data_parallel or args.sequence_parallel:
-        raise SystemExit("vipers_torch lost: --data-parallel / --sequence-parallel "
-                         "(multi-device) is not ported yet (ROADMAP A10)")
+    if args.sequence_parallel:
+        raise SystemExit("vipers_torch lost: --sequence-parallel is not ported yet "
+                         "(ROADMAP A10)")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # the rendezvous before any device work (the JAX CLI's order); the host-only
+    # subcommands have no --device and join over gloo
+    from vipers_torch.parallel.mesh import maybe_initialize_distributed
+
+    maybe_initialize_distributed(getattr(args, "device", "cpu"))
     if args.cmd == "train":
         from vipers_torch.core.config import config_from_args
         from vipers_torch.train.driver import run

@@ -47,6 +47,12 @@ MobileNetV2's modules carry torchvision's ``mobilenet_v2`` names, as the
 ResNet's do; ``import_mobilenet_v2`` / ``export_mobilenet_v2`` read and
 write that ``.pth``.
 
+``average_checkpoints`` (the element-wise mean of several ``.pth``) and
+``store_model_weights`` (the weights alone, under a hash-stamped name)
+are the JAX package's helpers on ``.pth`` files; the JAX package's own
+orbax checkpoints come across through ``scripts/jax_checkpoint_to_torch.py``,
+which writes the ``.pth`` files here.
+
 Every converter takes its widths from the arrays, never from a dense
 default, so a structurally slimmed tree (``pruning.structured``: a ViT's
 rectangular ``in_proj_weight`` (3*h*hd, D) and ``out_proj.weight`` (D,
@@ -924,3 +930,45 @@ def load_train_checkpoint(path, spec) -> dict:
             "optimizer": obj.get("optimizer"), "epoch": int(obj.get("epoch", -1)),
             "step": int(obj.get("step", 0)), "sparsity": float(obj.get("sparsity", 0.0)),
             "ema_params": ema_params, "ema_batch_stats": ema_batch_stats}
+
+
+# ------------------------- averaging and release weights -------------------
+
+_BUFFER_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked", "_mask",
+                    "relative_coords_table", "relative_position_index")
+
+
+def average_checkpoints(paths) -> dict:
+    """The element-wise mean of several ``.pth`` checkpoints' weights
+    (fairseq's checkpoint averaging; port of the JAX package's
+    ``average_checkpoints``): every float parameter of ``model`` averaged
+    in f64 and cast back to its dtype; the BatchNorm statistics, masks and
+    every other entry of the first checkpoint kept as they are."""
+    objs = [torch.load(p, map_location="cpu", weights_only=False) for p in paths]
+    objs = [o if "model" in o else {"model": o} for o in objs]
+    out = dict(objs[0])
+    sd = dict(objs[0]["model"])
+    for k, v in sd.items():
+        if v.is_floating_point() and not k.endswith(_BUFFER_SUFFIXES):
+            mean = sum(o["model"][k].double() for o in objs) / len(objs)
+            sd[k] = mean.to(v.dtype)
+    out["model"] = sd
+    return out
+
+
+def store_model_weights(obj: dict, out_dir: str, prefix: str = "weights") -> str:
+    """Release weights (port of the JAX package's ``store_model_weights``):
+    ``obj``'s ``model`` state dict alone (the weights, masks and running
+    statistics; no optimizer, EMA or epoch), written as
+    ``{out_dir}/{prefix}-{sha256[:8]}.pth``, the hash over the tensors'
+    bytes in key order. Returns the path."""
+    import hashlib
+
+    sd = obj["model"] if "model" in obj else obj
+    h = hashlib.sha256()
+    for k in sd:
+        h.update(sd[k].detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{prefix}-{h.hexdigest()[:8]}.pth")
+    torch.save({"model": {k: contiguous_tensor(v) for k, v in sd.items()}}, path)
+    return path

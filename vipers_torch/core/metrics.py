@@ -129,10 +129,12 @@ class MetricsWriter:
     ``acc1\tsparsity`` row per pruning iteration). The JAX package's wandb
     and echo options are not ported: no flag reaches them."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: Optional[str]):
         self.path = path
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        self._fh = open(path, "a", buffering=1)
+        self._fh = None
+        if path is not None:  # None: a data-parallel rank other than 0 writes nothing
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            self._fh = open(path, "a", buffering=1)
 
     def write(self, tag: str, step: Optional[int] = None, **scalars):
         rec = {"ts": time.time(), "tag": tag, "step": step}
@@ -141,7 +143,8 @@ class MetricsWriter:
                 rec[k] = float(v)
             except (TypeError, ValueError):
                 rec[k] = v
-        self._fh.write(json.dumps(rec) + "\n")
+        if self._fh is not None:
+            self._fh.write(json.dumps(rec) + "\n")
         return rec
 
     @staticmethod

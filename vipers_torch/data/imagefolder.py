@@ -62,11 +62,15 @@ class ImageFolderLoader:
     fixed size. Yields (uint8 (B, H, W, C), int32 (B,)) numpy pairs; the
     last partial batch is dropped with ``drop_last`` (train) and kept
     otherwise (eval). A sample's generator is keyed on (seed, its position
-    in the stream, its index)."""
+    in the global stream, its index): with ``rank`` / ``world`` (a
+    data-parallel run's batch-interleaved share, ``data.sampler``) the b-th
+    batch's j-th sample sits at ``b * B * world + rank * B + j``, so the
+    ranks decode what one process decodes at the global batch. Index -1 is
+    a sentinel row: a zero image labelled -1."""
 
     def __init__(self, dataset: ImageFolder, indices: Sequence[int], batch_size: int,
                  decode_fn: Callable, num_workers: int = 8, drop_last: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.indices = list(indices)
         self.batch_size = batch_size
@@ -74,6 +78,8 @@ class ImageFolderLoader:
         self.num_workers = num_workers
         self.drop_last = drop_last
         self.seed = seed
+        self.rank, self.world = rank, world
+        self._pad_row = None  # the sentinel's zero image, shaped by one decode
 
     def __len__(self):
         n = len(self.indices)
@@ -88,6 +94,11 @@ class ImageFolderLoader:
 
         def decode_one(args):
             pos, idx = args
+            if idx < 0:
+                if self._pad_row is None:
+                    probe = self.decode_fn(self.dataset.samples[0][0], np.random.default_rng(0))
+                    self._pad_row = np.zeros_like(probe)
+                return self._pad_row, -1
             path, label = self.dataset.samples[idx]
             rng = np.random.default_rng((self.seed, pos, idx))
             return self.decode_fn(path, rng), label
@@ -101,7 +112,8 @@ class ImageFolderLoader:
                     bpos, batch = next(it)
                 except StopIteration:
                     return
-                pending.append([pool.submit(decode_one, (bpos * bs + j, i))
+                base = bpos * bs * self.world + self.rank * bs
+                pending.append([pool.submit(decode_one, (base + j, i))
                                 for j, i in enumerate(batch)])
 
             submit_next()

@@ -10,7 +10,10 @@ clipped area.
 The random draws (``draw_mixup_cutmix``, on a CPU ``torch.Generator``) are
 apart from the transform (``apply_mixup_cutmix``, a function of the drawn
 choice, lam and box on the batch's device), so a test can feed both
-packages the same draws.
+packages the same draws. In a data-parallel run every rank draws the same
+choice, lam and box, and the roll is the global batch's
+(``parallel.mesh.roll_batch``), as the JAX package mixes the global batch
+after assembling it.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from vipers_torch.parallel import mesh as parallel
 
 
 def _gamma(gen: torch.Generator, alpha: float) -> float:
@@ -76,8 +81,10 @@ def apply_mixup_cutmix(images, labels, num_classes: int, use_mixup: bool, lam: f
     box's area."""
     if labels.dim() == 1:
         labels = F.one_hot(labels.long(), num_classes).to(images.dtype)
-    x_roll = torch.roll(images, 1, dims=0)
-    y_roll = torch.roll(labels, 1, dims=0)
+    # the global batch's roll: a data-parallel rank's first row is the
+    # previous rank's last (the draws come from the same generator on every rank)
+    x_roll = parallel.roll_batch(images)
+    y_roll = parallel.roll_batch(labels)
     lam_t = torch.tensor(lam, dtype=torch.float32)
     if use_mixup:
         one_minus = (1 - lam_t).to(images.dtype)

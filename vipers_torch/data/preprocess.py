@@ -17,6 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vipers_torch.parallel import mesh as parallel
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 # the --interpolation choices, as PIL resample names
@@ -180,7 +182,9 @@ def make_device_normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.floa
     (N, H, W, C) in ``dtype`` on the batch's device, in torch's op order
     (x/255, then (x - mean)/std in f32). With ``random_erase_prob`` > 0 and
     a ``generator`` (the train loop passes one; evaluation does not), each
-    image loses a random rectangle with that probability."""
+    image loses a random rectangle with that probability; in a
+    data-parallel run the draws are the global batch's, this rank's rows
+    kept."""
     mean32 = torch.tensor(mean, dtype=torch.float32)
     std32 = torch.tensor(std, dtype=torch.float32)
 
@@ -189,8 +193,10 @@ def make_device_normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.floa
         x = (batch_u8.to(torch.float32) / 255.0 - mean32.to(dev)) / std32.to(dev)
         if random_erase_prob > 0.0 and generator is not None:
             n, h, w, _ = x.shape
-            x = apply_random_erase(x, *draw_random_erase(generator, n, h, w,
-                                                         random_erase_prob))
+            # drawn for the global batch of a data-parallel run, this rank's rows kept
+            rows = parallel.global_rows(n)
+            draws = draw_random_erase(generator, n * parallel.world(), h, w, random_erase_prob)
+            x = apply_random_erase(x, *(d[rows] for d in draws))
         return x.to(dtype)
 
     return fn

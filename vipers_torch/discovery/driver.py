@@ -73,6 +73,7 @@ from vipers_torch.models.dino_vit import split_qkv_dino
 from vipers_torch.models.interpolate import resize_weight_matrix_np
 from vipers_torch.models.vit import scrambled_qkv_gather
 from vipers_torch.ops.flash_attention import flash_min_t
+from vipers_torch.parallel import mesh as parallel
 from vipers_torch.pruning.structured import arch_sidecar
 from vipers_torch.train.quantize import (int8_dynamic_sites, quantize_params_int8,
                                          static_qparams_from_observers)
@@ -662,6 +663,24 @@ CNN_FAMILIES = ("resnet", "vgg", "mobilenet")
 LAST_RUN: dict = {}
 
 
+class _ProcessShardDataset:
+    """Rank r's strided view of a discovery dataset over P processes:
+    items r, r + P, r + 2P, ... (every image is independent work, so the
+    ranks need no coordination until the merge). Everything but iteration
+    (``extract_gt``, ...) is the wrapped dataset's."""
+
+    def __init__(self, dataset, rank: int, nproc: int):
+        self._ds, self._rank, self._nproc = dataset, rank, nproc
+
+    def __iter__(self):
+        for i, item in enumerate(iter(self._ds)):
+            if i % self._nproc == self._rank:
+                yield item
+
+    def __getattr__(self, name):
+        return getattr(self._ds, name)
+
+
 def run_lost(args) -> int:
     """``vipers_torch lost`` for ``--arch vit``, ``dino`` and ``swin``; any
     other ``--arch`` runs a CNN (ResNet, VGG16, MobileNetV2): the arguments
@@ -683,8 +702,17 @@ def run_lost(args) -> int:
     only on the same ``.pth``. (A Swin's zero initial biases give window
     pad tokens exactly-zero k features, which win the seed: as in the JAX
     package, every image then fails, so Swin LOST wants a trained or
-    imported checkpoint.)"""
+    imported checkpoint.)
+
+    A data-parallel run (``parallel.mesh``, one card a process) gives rank
+    r the images r, r + P, ...; the ranks' hits, counts, preds and
+    failures are gathered (``all_gather_object``) and rank 0 alone writes
+    ``preds.pkl`` and the results txt; each rank draws its own images'
+    ``--visualize`` files (one file an image), so the files are those of the
+    one-process run. ``--data-parallel`` in one process is
+    the plain run."""
     t_start = time.time()
+    nproc, rank = parallel.world(), parallel.rank()
     device = resolve_device(getattr(args, "device", None))
     image_path = getattr(args, "image_path", None)
     no_evaluation = bool(getattr(args, "no_evaluation", False))
@@ -698,6 +726,8 @@ def run_lost(args) -> int:
             args.dataset, args.set, args.data_path, no_hard=args.no_hard,
             coco_annotations=getattr(args, "coco_annotations", None),
             coco20k_list=getattr(args, "coco20k_list", None))
+    if nproc > 1:
+        dataset = _ProcessShardDataset(dataset, rank, nproc)
 
     pruning_iteration = getattr(args, "pruning_iteration", None)
     if getattr(args, "models_dir", "") and pruning_iteration is not None and not args.checkpoint:
@@ -870,13 +900,27 @@ def run_lost(args) -> int:
         flush(key)
     drain_group()
 
-    if failed:
+    if nproc > 1:
+        # every rank's results, so rank 0 writes what one process would
+        payloads = parallel.all_gather_object({"hits": acc.hits, "count": acc.count,
+                                               "preds": acc.preds, "failed": failed,
+                                               "n_imgs": n_imgs})
+        acc, failed, n_imgs = CorLocAccumulator(), [], 0
+        for pl in payloads:
+            acc.hits += pl["hits"]
+            acc.count += pl["count"]
+            acc.preds.update(pl["preds"])
+            failed += pl["failed"]
+            n_imgs += pl["n_imgs"]
+    if failed and rank == 0:
         print(f"WARNING: seed in background component for {len(failed)} image(s), skipped: "
               f"{', '.join(failed[:10])}" + (" ..." if len(failed) > 10 else "")
               + " (rerun with --strict for reference-parity crashing)")
-    os.makedirs(args.output_dir, exist_ok=True)
-    acc.save(args.output_dir, iteration, save_preds=save_predictions,
-             save_results=not no_evaluation)
+    if rank == 0:
+        os.makedirs(args.output_dir, exist_ok=True)
+        acc.save(args.output_dir, iteration, save_preds=save_predictions,
+                 save_results=not no_evaluation)
+    parallel.barrier()
     t_end = time.time()
     LAST_RUN.clear()
     LAST_RUN.update(images=n_imgs, batches=n_batches, failed=list(failed), per_image=per_image,

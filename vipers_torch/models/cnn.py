@@ -12,7 +12,9 @@
   f64); in train
   mode the batch mean and the BIASED variance over N, H, W, and running
   statistics ``0.9 * running + 0.1 * batch`` (torch's ``BatchNorm2d``
-  would update the variance with the unbiased one). A train forward does
+  would update the variance with the unbiased one). In a data-parallel run
+  (``parallel.mesh``) the batch statistics are the global batch's, as under
+  the JAX package's mesh. A train forward does
   not write its statistics back: it returns them (``new_stats``) and the
   caller decides. ``promote_output`` is flax's ``nn.BatchNorm`` with no
   ``dtype`` (MobileNetV2's): the same f32 arithmetic, the output cast to
@@ -20,7 +22,9 @@
 - ``exact_f32_convs``: cuDNN convolutions without TF32 inside the scope
   when the compute dtype is f32 (cuDNN allows TF32 by default), around a
   forward and its backward; a bf16 run keeps cuDNN's default for the
-  convolutions that the JAX package runs in f32.
+  convolutions that the JAX package runs in f32. ``deterministic_convs``:
+  cuDNN's deterministic algorithms (SNIP's one pass, so that its masks
+  repeat bit for bit).
 
 Tensors are NCHW (channels-last in memory when the input came NHWC).
 """
@@ -33,6 +37,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vipers_torch.parallel import mesh as parallel
 
 
 def conv_extent(n: int, kernel: int, stride: int, padding: int, dilation: int = 1) -> int:
@@ -89,8 +95,11 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, w, b, False, 0.0,
                                 self.eps)
         # flax's statistics: mean and E[x^2] - mean^2 clamped at 0, in f32
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if parallel.world() > 1:
+            mean, ex2 = _global_moments(x)
+        else:
+            mean, ex2 = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         if new_stats is not None:
             m = self.momentum
             new_stats[f"{self.state_name}.running_mean"] = \
@@ -102,11 +111,37 @@ class BatchNorm(nn.Module):
         return (x - mean.reshape(shape)) * mul.reshape(shape) + b.reshape(shape)
 
 
+def _global_moments(x):
+    """(mean, E[x^2]) per channel over the global batch of a data-parallel
+    run: one differentiable all-reduce of [sum, sum of squares, count]
+    (``parallel.mesh.all_reduce_sum``), as the JAX mesh reduces a batch's
+    statistics over every device."""
+    c = x.shape[1]
+    count = x.new_full((1,), float(x.numel() // c))
+    packed = parallel.all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
+                                                (x * x).sum(dim=(0, 2, 3)), count]))
+    n = packed[-1]
+    return packed[:c] / n, packed[c:2 * c] / n
+
+
 def name_batch_norms(model: nn.Module):
     """Give every ``BatchNorm`` of ``model`` its state-dict prefix."""
     for name, m in model.named_modules():
         if isinstance(m, BatchNorm):
             m.state_name = name
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms inside the scope (its default
+    backward-weight algorithms may accumulate with atomics, so two runs of
+    one pass can differ in the last bit)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 @contextlib.contextmanager

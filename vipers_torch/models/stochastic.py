@@ -9,7 +9,9 @@ so a resumed run draws the same masks as the run it continues, and SNIP
 seeds one from the run seed alone. An eval forward, or a layer at rate 0,
 draws nothing. The bits differ from JAX's; the keep rate and the ``1 /
 keep`` scaling are the same, so the two packages agree by distribution
-and exactly at rate 0.
+and exactly at rate 0. In a data-parallel run a mask is drawn for the
+global batch and each rank keeps its own rows (``parallel.mesh.draw_rand``),
+so P ranks draw what one process draws at P times the batch.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from vipers_torch.parallel import mesh as parallel
 
 
 def dropout_generator(seed: int, step: Optional[int], device) -> torch.Generator:
@@ -46,7 +50,7 @@ def drop_path(y, rate: float, training: bool, generator: Optional[torch.Generato
                          "(models.stochastic.dropout_generator)")
     keep = 1.0 - rate
     shape = (y.shape[0],) + (1,) * (y.dim() - 1)
-    mask = torch.rand(shape, generator=generator, device=y.device) < keep
+    mask = parallel.draw_rand(shape, generator, y.device) < keep
     return y * mask.to(y.dtype) / keep
 
 
@@ -61,5 +65,5 @@ def dropout(x, rate: float, training: bool, generator: Optional[torch.Generator]
         raise ValueError("dropout in train mode needs a generator "
                          "(models.stochastic.dropout_generator)")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = parallel.draw_rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

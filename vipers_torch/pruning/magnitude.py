@@ -9,7 +9,7 @@ layout, so ties at the cutoff fall exactly as in the JAX package. The port
 selects the same k without sorting: every score below the k-th smallest
 (``torch.kthvalue``), then the scores equal to it in index order, which is
 where a stable sort puts them (a full stable sort of a ViT-B/16's 86M
-weights takes the host seconds).
+weights takes the host seconds), indexed only when some of them stay.
 """
 
 from __future__ import annotations
@@ -39,6 +39,11 @@ def magnitude_prune(params, masks: dict, amount: float = 0.2) -> dict:
     ranked = torch.where(mvec & ~torch.isnan(vec), vec, torch.full((), float("inf")))
     cut = torch.kthvalue(ranked, k).values
     prune = ranked < cut
-    ties = torch.nonzero(ranked == cut).flatten()  # ascending index: the stable order
-    prune[ties[:k - int(prune.sum())]] = True
+    tied = ranked == cut
+    need = k - int(prune.sum())
+    if need >= int(tied.sum()):  # every tie goes (the usual one): no order to keep
+        prune |= tied
+    else:
+        ties = torch.nonzero(tied).flatten()  # ascending index: the stable order
+        prune[ties[:need]] = True
     return M.split_vector(mvec & ~prune, layout)

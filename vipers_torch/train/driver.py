@@ -1,5 +1,5 @@
 """The pruning drivers behind ``vipers_torch train`` (port of
-``vipers/train/driver.py``), on one device, for every registered family
+``vipers/train/driver.py``), one card a process, for every registered family
 (``model_spec``: a ViT or a Swin at the train crop, a ResNet with
 ``--resnet-dilate``).
 
@@ -27,10 +27,25 @@ same sidecar.
 ``--profile-dir`` wraps the first training run (SNIP's, LRR's first
 pruning iteration) in ``core.profiling.device_trace`` and ``--debug-nans``
 runs the session under ``enable_nan_check``, at the JAX driver's sites.
-The JAX driver's mesh, pipeline-parallel and sharding branches are not
-ported (ROADMAP A10); ``core.config.refuse_unported`` exits for their
-flags. ``LAST_RUN`` holds the first train and val batches and the times of
-the last ``run``, for callers that check or time it.
+
+Data parallelism (``parallel.mesh``; torchrun or SLURM, one process a
+card): ``--batch-size`` is per process and a step takes the global batch
+of P * B; each rank decodes its batch-interleaved share
+(``data.sampler.shard_indices_for_host``) with generators keyed on the
+global stream position, so the ranks' batches are the single process's
+global batch; the gradients are averaged over the ranks, BatchNorm reduces
+over the global batch and the random draws are the global batch's, so P
+ranks train as one process at P * B does. Steps per epoch and the EMA
+decay count the global batch; SNIP's saliencies come from the first global
+batch (``global_snip_masks``); LRR's masks come out the same on every rank, as the parameters do;
+the eval shares are padded with sentinel rows and their sums all-reduced.
+Rank 0 alone writes the checkpoints, ``metrics.jsonl`` and
+``performance.txt``, and the others wait for it; ``--resume`` reads on
+every rank. ``--data-parallel`` in one process is the plain run (one card
+a process). Tensor and pipeline parallelism are not ported (ROADMAP A10);
+``core.config.refuse_unported`` exits for their flags. ``LAST_RUN`` holds
+the first train and val batches and the times of the last ``run``, for
+callers that check or time it.
 """
 
 from __future__ import annotations
@@ -53,9 +68,10 @@ from vipers_torch.core.registry import build_model
 from vipers_torch.data.imagefolder import ImageFolder, ImageFolderLoader
 from vipers_torch.data.mixup import mixup_cutmix_batch
 from vipers_torch.data.preprocess import eval_decode, make_device_normalize, train_decode
-from vipers_torch.data.sampler import epoch_indices, ra_sampler_indices
+from vipers_torch.data.sampler import epoch_indices, ra_sampler_indices, shard_indices_for_host
 from vipers_torch.pruning import compute_sparsity_global, init_masks
 from vipers_torch.models import cnn
+from vipers_torch.parallel import mesh as parallel
 from vipers_torch.pruning.snip import snip_loss, snip_saliency, snip_threshold
 from vipers_torch.pruning.structured import arch_sidecar, write_sidecar
 from vipers_torch.train.ema import ema_decay_for
@@ -132,10 +148,12 @@ def build_session(cfg: TrainConfig, params=None, cmd: str = "train") -> Session:
     masks = init_masks(params, exclude=spec.prune_exclude)
     train_ds = ImageFolder(os.path.join(cfg.data_path, "train"), cache_dir=cfg.cache_dataset)
     val_ds = ImageFolder(os.path.join(cfg.data_path, "val"), cache_dir=cfg.cache_dataset)
-    steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+    # one step takes the global batch (--batch-size is per process)
+    world = parallel.world()
+    steps_per_epoch = max(len(train_ds) // (cfg.batch_size * world), 1)
     state = create_train_state(spec, params, masks, cfg.optim, steps_per_epoch, device=dev,
                                ema=cfg.model_ema)
-    ema_decay = (ema_decay_for(cfg.model_ema_decay, 1, cfg.batch_size, cfg.model_ema_steps,
+    ema_decay = (ema_decay_for(cfg.model_ema_decay, world, cfg.batch_size, cfg.model_ema_steps,
                                cfg.optim.epochs) if cfg.model_ema else None)
     compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
     ls = cfg.optim.label_smoothing
@@ -152,7 +170,8 @@ def build_session(cfg: TrainConfig, params=None, cmd: str = "train") -> Session:
         eval_step=make_eval_step(cfg.num_classes, ls, compute_dtype),
         eval_step_ema=make_eval_step(cfg.num_classes, ls, compute_dtype, use_ema=True),
         normalize=make_device_normalize(random_erase_prob=cfg.random_erase), mixup=mixup,
-        writer=MetricsWriter(cfg.metrics_path or os.path.join(cfg.output_dir, "metrics.jsonl")),
+        writer=MetricsWriter((cfg.metrics_path or os.path.join(cfg.output_dir, "metrics.jsonl"))
+                             if parallel.is_main() else None),
         train_ds=train_ds, val_ds=val_ds, device=dev, arch_overrides=arch)
 
 
@@ -183,10 +202,17 @@ class DeviceBatches:
 
 def train_loader(cfg: TrainConfig, ds: ImageFolder, epoch: int) -> ImageFolderLoader:
     """Epoch ``epoch``'s train batches (numpy): the sampler's stream (with
-    ``--ra-sampler`` the repeated-augmentation stream), RandomResizedCrop +
-    flip (+ the auto-augment policy), the last partial batch dropped."""
+    ``--ra-sampler`` the repeated-augmentation stream), this rank's share in
+    a data-parallel run, RandomResizedCrop + flip (+ the auto-augment
+    policy), the last partial batch dropped."""
+    world, rank = parallel.world(), parallel.rank()
     if cfg.ra_sampler:
-        idx = ra_sampler_indices(len(ds), epoch, seed=cfg.seed, repetitions=cfg.ra_reps)
+        idx = ra_sampler_indices(len(ds), epoch, seed=cfg.seed, repetitions=cfg.ra_reps,
+                                 num_replicas=world, rank=rank)
+    elif world > 1:
+        # drop_last as the loader: no padded global batch of repeats
+        idx = shard_indices_for_host(len(ds), world, rank, epoch, seed=cfg.seed,
+                                     batch_size=cfg.batch_size, drop_last=True)
     else:
         idx = epoch_indices(len(ds), epoch, seed=cfg.seed)
     kw = dict(crop_size=cfg.train_crop_size, auto_augment=cfg.auto_augment,
@@ -198,12 +224,16 @@ def train_loader(cfg: TrainConfig, ds: ImageFolder, epoch: int) -> ImageFolderLo
     else:
         decode = partial(train_decode, interpolation=cfg.interpolation, **kw)
     return ImageFolderLoader(ds, idx, cfg.batch_size, decode_fn=decode, num_workers=cfg.workers,
-                             drop_last=True, seed=cfg.seed + epoch)
+                             drop_last=True, seed=cfg.seed + epoch, rank=rank, world=world)
 
 
 def val_loader(cfg: TrainConfig, ds: ImageFolder) -> ImageFolderLoader:
-    """The val split in order (numpy): resize, center crop, every image."""
-    idx = epoch_indices(len(ds), 0, shuffle=False)
+    """The val split in order (numpy): resize, center crop, every image
+    (a data-parallel rank's strided share, its tail padded with sentinel
+    rows)."""
+    world = parallel.world()
+    idx = shard_indices_for_host(len(ds), world, parallel.rank(), 0, shuffle=False,
+                                 pad_with_sentinel=world > 1)
     if cfg.native_decode and cfg.interpolation == "bilinear":
         from vipers_torch.data import native
 
@@ -255,15 +285,18 @@ def _checkpoint_fn(s: Session, method: str, tag):
         name = (f"{cfg.model}_checkpoint_{method}_{tag}" if latest
                 else f"{cfg.model}_epoch_{epoch}_{method}_{tag}")
         path = os.path.join(cfg.output_dir, name + ".pth")
-        if latest and written.get("epoch") == epoch:
-            shutil.copyfile(written["path"], path + ".tmp")
-            os.replace(path + ".tmp", path)
-        else:
-            save_train_checkpoint(path, state, epoch, sparsity)
-            if not latest:
-                written.update(epoch=epoch, path=path)
-        if s.arch_overrides:
-            write_sidecar(path, cfg.model, s.arch_overrides)
+        # every rank holds the same state: rank 0 writes, the others wait for the file
+        if parallel.is_main():
+            if latest and written.get("epoch") == epoch:
+                shutil.copyfile(written["path"], path + ".tmp")
+                os.replace(path + ".tmp", path)
+            else:
+                save_train_checkpoint(path, state, epoch, sparsity)
+            if s.arch_overrides:
+                write_sidecar(path, cfg.model, s.arch_overrides)
+        if not latest:
+            written.update(epoch=epoch, path=path)
+        parallel.barrier()
         LAST_RUN["t_last_checkpoint"] = time.time()
 
     return save
@@ -281,12 +314,14 @@ def _loop_args(s: Session):
                  expected_eval_samples=len(s.val_ds), mixup_fn=s.mixup, writer=s.writer))
 
 
-def snip_saliencies(s: Session) -> dict:
+def snip_saliencies(s: Session, batch=None) -> dict:
     """SNIP's saliencies {flax path: |w| * |dL/dw|} of the dense model on
-    epoch 0's first train batch."""
-    images, labels = next(iter(_train_loader(s, 0)))
+    ``batch`` (uint8 images, labels), by default epoch 0's first train
+    batch."""
+    images, labels = next(iter(_train_loader(s, 0))) if batch is None else batch
     params = _flax_params(s.state)
-    with cnn.exact_f32_convs():
+    # deterministic: the masks repeat run to run, and on rank 0 of a data-parallel run
+    with cnn.exact_f32_convs(), cnn.deterministic_convs():
         return snip_saliency(_snip_loss_fn(s), params, (s.normalize(images), labels),
                              masks=init_masks(params, exclude=s.spec.prune_exclude))
 
@@ -314,11 +349,35 @@ def train_snip(s: Session, initial_epoch: int = 0):
     return sparsity, acc1
 
 
+def global_snip_masks(s: Session) -> dict:
+    """SNIP's masks from epoch 0's first global batch. In a data-parallel
+    run the ranks' first batches are gathered, rank 0 takes the saliencies
+    of the whole global batch alone (as one process at the global batch
+    does, bit for bit where the kernels are deterministic) and hands the
+    masks to every rank. Rank 0's pass holds the global batch's f32
+    activations, P times a rank's: past what one card holds (README,
+    "Data parallelism"), lower ``--batch-size``. Each rank taking its
+    share with the gradients averaged would scale, but the sums' other
+    order moves saliencies across the threshold (BatchNorm's f32 variance
+    and the ReLU gates amplify it), so its masks would not be the one
+    process's."""
+    if parallel.world() <= 1:
+        return snip_masks(s, snip_saliencies(s))
+    images, labels = next(iter(_train_loader(s, 0)))
+    batch = (torch.cat(parallel.all_gather_tensor(images)),
+             torch.cat(parallel.all_gather_tensor(labels)))
+    masks = None
+    if parallel.is_main():
+        with parallel.solo():
+            masks = {k: m.cpu() for k, m in snip_masks(s, snip_saliencies(s, batch)).items()}
+    return {k: m.to(s.device) for k, m in parallel.broadcast_object(masks).items()}
+
+
 def run_snip(s: Session, initial_epoch: int = 0):
-    """SNIP: prune once on the first train batch (unless resuming), then
-    train to completion. Returns (sparsity, last acc1)."""
+    """SNIP: prune once on the first (global) train batch unless resuming,
+    then train to completion. Returns (sparsity, last acc1)."""
     if initial_epoch == 0:
-        s.state.masks = snip_masks(s, snip_saliencies(s))
+        s.state.masks = global_snip_masks(s)
     return train_snip(s, initial_epoch)
 
 
@@ -351,7 +410,9 @@ def run_magnitude(s: Session, resuming: bool = False, initial_epoch: int = 0):
         sparsity = pruned
         s.writer.write("prune", step=it, method="magnitude", sparsity=sparsity)
         it += 1
-    MetricsWriter.export_performance_txt(os.path.join(cfg.output_dir, "performance.txt"), rows)
+    if parallel.is_main():
+        MetricsWriter.export_performance_txt(os.path.join(cfg.output_dir, "performance.txt"),
+                                             rows)
     return sparsity, rows
 
 

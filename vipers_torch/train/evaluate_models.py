@@ -17,6 +17,12 @@ no fused MLP runs (it serves bf16 only). The VOC branch
 (``--eval-dataset voc``) scores the classifier on the eval preset of each
 annotated VOC image against its first object's class index, as the JAX
 package does.
+
+In a data-parallel run (``parallel.mesh``) every rank evaluates its
+strided share of the val split or VOC items, the tail padded with sentinel
+rows (label -1, left out of every sum), the sums are all-reduced
+(``train.loop.evaluate``), and rank 0 alone writes the txt and
+``performance.txt``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ from vipers_torch.core.device import resolve_device
 from vipers_torch.core.metrics import MetricsWriter
 from vipers_torch.data.imagefolder import ImageFolder
 from vipers_torch.data.preprocess import eval_decode, make_device_normalize
+from vipers_torch.data.sampler import shard_indices_for_host
+from vipers_torch.parallel import mesh as parallel
 from vipers_torch.pruning import compute_sparsity_global, init_masks
 from vipers_torch.pruning.structured import arch_sidecar
 from vipers_torch.train.loop import evaluate
@@ -63,11 +71,17 @@ def _voc_eval_batches(cfg: TrainConfig, normalize_fn, device, dataset: str = "VO
         if gt is None or len(gt) == 0:
             continue
         items.append((path, VOC_CLASSES.index(cls[0]) if cls[0] in VOC_CLASSES else 0))
-    for i in range(0, len(items), cfg.batch_size):
-        chunk = items[i: i + cfg.batch_size]
-        images = np.stack([eval_decode(p, cfg.val_resize_size, cfg.val_crop_size,
-                                       interpolation=cfg.interpolation) for p, _ in chunk])
-        labels = torch.tensor([lab for _, lab in chunk], dtype=torch.long, device=device)
+    world = parallel.world()
+    idx = shard_indices_for_host(len(items), world, parallel.rank(), 0, shuffle=False,
+                                 pad_with_sentinel=world > 1)
+    blank = np.zeros((cfg.val_crop_size, cfg.val_crop_size, 3), np.uint8)
+    for i in range(0, len(idx), cfg.batch_size):
+        chunk = idx[i: i + cfg.batch_size]
+        images = np.stack([blank if j < 0 else
+                           eval_decode(items[j][0], cfg.val_resize_size, cfg.val_crop_size,
+                                       interpolation=cfg.interpolation) for j in chunk])
+        labels = torch.tensor([-1 if j < 0 else items[j][1] for j in chunk], dtype=torch.long,
+                              device=device)
         yield normalize_fn(torch.from_numpy(images).to(device)), labels
 
 
@@ -137,8 +151,10 @@ def run_sweep(cfg: TrainConfig, dilation: int = None, models_path: str = "",
     split = "voc" if voc else "test"
     sessions = {"": (s, s.state.masks)}
     rows = []
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    with open(out_txt, "a") as f:
+    main = parallel.is_main()  # the sums are every rank's: rank 0 writes
+    if main:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+    with open(out_txt if main else os.devnull, "a") as f:
         for ckpt in ckpts:
             # a slimmed checkpoint: a session at its widths, one a distinct
             # architecture in the sweep
@@ -170,7 +186,8 @@ def run_sweep(cfg: TrainConfig, dilation: int = None, models_path: str = "",
                 f.write(f"{split}/{name} {val} custom_x_axis {sparsity}\n")
             rows.append((acc1, sparsity))
             print(f"{ckpt}: sparsity {sparsity:.2f}% acc1 {acc1:.3f}")
-    if rows:
+    if rows and main:
         MetricsWriter.export_performance_txt(os.path.join(cfg.output_dir, "performance.txt"),
                                              rows)
+    parallel.barrier()
     return rows

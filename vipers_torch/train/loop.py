@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from vipers_torch.core.metrics import MeterSet, MetricsWriter
+from vipers_torch.parallel import mesh as parallel
 from vipers_torch.pruning import compute_sparsity_global, magnitude_prune
 from vipers_torch.train.steps import TrainState
 
@@ -78,8 +79,9 @@ def train_one_epoch(train_step, state: TrainState, loader: Iterable, epoch: int,
 def evaluate(eval_step, state: TrainState, loader: Iterable, epoch: Optional[int] = None,
              normalize_fn=None, log_suffix: str = "",
              expected_samples: Optional[int] = None, writer: Optional[MetricsWriter] = None):
-    """Full-split eval; returns (acc1, acc5, loss) from exact sums and
-    writes them as a ``test`` (+ ``log_suffix``) record."""
+    """Full-split eval; returns (acc1, acc5, loss) from exact sums (summed
+    over the ranks of a data-parallel run, sentinel rows left out by the
+    eval step) and writes them as a ``test`` (+ ``log_suffix``) record."""
     outs = []
     for images, labels in loader:
         if normalize_fn is not None:
@@ -87,8 +89,9 @@ def evaluate(eval_step, state: TrainState, loader: Iterable, epoch: Optional[int
         out = eval_step(state, (images, labels))
         outs.append(torch.stack([out["loss_sum"].double(), out["top1"].double(),
                                  out["top5"].double(), out["n"].double()]))
-    loss_sum, top1, top5, n_seen = (torch.stack(outs).sum(dim=0).cpu().tolist()
-                                    if outs else (0.0, 0.0, 0.0, 0.0))
+    sums = torch.stack(outs).sum(dim=0) if outs else torch.zeros(4, dtype=torch.float64)
+    # a data-parallel run's ranks evaluate disjoint shares: every rank prints the global sums
+    loss_sum, top1, top5, n_seen = parallel.all_reduce_(sums).cpu().tolist()
     if expected_samples is not None and int(n_seen) != expected_samples:
         print(f"Warning: dataset has {expected_samples} samples but {int(n_seen)} "
               "were used for validation — results may be biased.")

@@ -29,8 +29,10 @@ execution (port of ``vipers/train/quantize.py``).
   ``_int_mm`` refuses is padded with zeros (rows to 17, K and N to multiples
   of 8). ``INT_MM_CALLS`` counts the card's ``_int_mm`` calls.
 
-``run_quantize`` is ``vipers_torch quantize`` on one device: ``--resume``
-is required, the masked network is calibrated (``--mode ptq``) or trained
+``run_quantize`` is ``vipers_torch quantize``, one card a process (a
+data-parallel run, ``parallel.mesh``, averages the QAT gradients over the
+ranks, reduces each observer's batch range over the global batch, and
+writes from rank 0): ``--resume`` is required, the masked network is calibrated (``--mode ptq``) or trained
 (``--mode qat``, in f32 as the JAX step is), and the JAX package's lines
 and files come out, ``.pth`` in place of orbax:
 ``quantized_post_train_model.pth`` / ``qat_checkpoint.pth`` with
@@ -51,6 +53,7 @@ from torch import nn
 from torch.func import functional_call
 
 from vipers_torch.ops.fused_mlp import interceptors
+from vipers_torch.parallel import mesh as parallel
 
 ACT_QMIN, ACT_QMAX = 0, 255  # uint8 activations (torch's default affine)
 
@@ -141,8 +144,8 @@ class ObserverState:
 
     def update(self, x, momentum: float = 0.01):
         x = x.detach()
-        mn = torch.amin(x).float()
-        mx = torch.amax(x).float()
+        # a data-parallel run observes the global batch's range
+        mn, mx = parallel.reduce_min_max(torch.amin(x).float(), torch.amax(x).float())
         new_min = torch.where(self.initialized, self.min_val + momentum * (mn - self.min_val), mn)
         new_max = torch.where(self.initialized, self.max_val + momentum * (mx - self.max_val), mx)
         return ObserverState(new_min, new_max, torch.ones_like(self.initialized))
@@ -584,16 +587,18 @@ def make_qat_train_step(num_classes: int, label_smoothing: float = 0.0, exclude=
                 exclude=exclude, freeze_bn=bn_frozen, tensors=tensors, **kw)
             loss = cross_entropy(logits, labels, num_classes, label_smoothing)
             grads = torch.autograd.grad(loss, list(params.values()))
-        state.opt.step(dict(zip(params, grads)), state.masks)
+        acc1, acc5 = accuracy_topk(logits.detach(), labels)
+        grads, (loss, acc1, acc5) = parallel.average_gradients(
+            dict(zip(params, grads)), (loss.detach(), acc1, acc5))
+        state.opt.step(grads, state.masks)
         stats = aux.get("batch_stats")
         if stats:
             buffers = state.batch_stats
             with torch.no_grad():
                 for k, v in stats.items():
                     buffers[k].copy_(v)
-        acc1, acc5 = accuracy_topk(logits.detach(), labels)
         state.step += 1
-        return state, new_obs, {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
+        return state, new_obs, {"loss": loss, "acc1": acc1, "acc5": acc5}
 
     return step
 
@@ -613,13 +618,17 @@ def make_int8_eval_step(q, scales, observers, num_classes: int):
             logits, _aux = int8_apply(model, state.family, images, q, scales, observers,
                                       tensors=forward_params(state.params, state.masks),
                                       need_attn=False)
-        loss = cross_entropy(logits, labels, num_classes)
         if labels.dim() == 2:
             labels = torch.argmax(labels, dim=1)
-        correct = _topk_indices(logits, min(5, logits.shape[-1])) == labels[:, None]
-        return {"loss_sum": loss * labels.shape[0], "top1": correct[:, :1].sum(),
-                "top5": correct.sum(),
-                "n": torch.tensor(labels.shape[0], dtype=torch.int32, device=labels.device)}
+        # sentinel rows (label -1, a data-parallel eval's padding) are left out
+        valid = labels >= 0
+        safe = labels.clamp(min=0)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        per_example = -logp.gather(1, safe[:, None])[:, 0]
+        correct = (_topk_indices(logits, min(5, logits.shape[-1])) == safe[:, None]) \
+            & valid[:, None]
+        return {"loss_sum": torch.where(valid, per_example, per_example.new_zeros(())).sum(),
+                "top1": correct[:, :1].sum(), "top5": correct.sum(), "n": valid.sum()}
 
     return step
 
@@ -705,9 +714,13 @@ def run_quantize(args) -> int:
     observers = init_observers(sites, s.device)
     print(f"{len(sites)} quantizable activation sites")
 
-    def sidecar(path):
-        if s.arch_overrides:
-            write_sidecar(path, cfg.model, s.arch_overrides)
+    def write(path, params, epoch=None):
+        # every rank holds the same weights and observers: rank 0 writes
+        if parallel.is_main():
+            _save_artifact(state, params, path, observers, epoch)
+            if s.arch_overrides:
+                write_sidecar(path, cfg.model, s.arch_overrides)
+        parallel.barrier()
 
     if args.mode == "ptq":
         batches = ((s.normalize(i), lab) for i, lab in _train_loader(s, 0))
@@ -723,9 +736,7 @@ def run_quantize(args) -> int:
         acc1_i, acc5_i, _ = evaluate(int8_step, state, _val_loader(s), normalize_fn=s.normalize)
         print(f"PTQ int8: acc1 {acc1_i:.3f} acc5 {acc5_i:.3f} "
               f"(Dense/Conv layers executed in int8)")
-        path = os.path.join(cfg.output_dir, "quantized_post_train_model.pth")
-        _save_artifact(state, qdq, path, observers)
-        sidecar(path)
+        write(os.path.join(cfg.output_dir, "quantized_post_train_model.pth"), qdq)
         return 0
 
     n_obs_epochs = args.num_observer_update_epochs
@@ -754,9 +765,7 @@ def run_quantize(args) -> int:
         q, scales = quantize_params_int8(m, fam, exclude)
         evaluate(make_int8_eval_step(q, scales, observers, cfg.num_classes), state,
                  _val_loader(s), epoch, normalize_fn=s.normalize, log_suffix="INT8")
-        path = os.path.join(cfg.output_dir, "qat_checkpoint.pth")
-        _save_artifact(state, {k: v.detach() for k, v in state.params.items()}, path,
-                       observers, epoch)
-        sidecar(path)
+        write(os.path.join(cfg.output_dir, "qat_checkpoint.pth"),
+              {k: v.detach() for k, v in state.params.items()}, epoch)
     s.state = state
     return 0

@@ -12,6 +12,12 @@ After the backward: masked gradients, [clip], decay + optimizer, masked
 update (``train.optim.MaskedOptimizer``), then the EMA. Metrics stay on the
 device; the loops fetch them in groups.
 
+In a data-parallel run (``parallel.mesh``) each rank's gradients and
+metrics are averaged over the ranks before the optimizer (the global-batch
+mean's, as under the JAX package's mesh), so every rank takes the same
+update; BatchNorm's batch statistics are the global batch's
+(``models.cnn``).
+
 Parameters and masks are keyed by the module's state-dict names, masks in
 the module's layout (``core.checkpoint.Family.masks_to_state_dict``).
 
@@ -39,6 +45,7 @@ from vipers_torch.core.device import resolve_device
 from vipers_torch.core.registry import build_module
 from vipers_torch.models import cnn
 from vipers_torch.models.stochastic import dropout_generator, has_random_layers
+from vipers_torch.parallel import mesh as parallel
 from vipers_torch.train.ema import ema_reset, ema_update_
 from vipers_torch.train.optim import MaskedOptimizer, OptimConfig, make_lr_schedule
 
@@ -196,6 +203,9 @@ def make_train_step(num_classes: int, label_smoothing: float = 0.0,
         loss, logits, grads, stats = _forward_backward(state.model, state.masks, batch,
                                                        num_classes, label_smoothing,
                                                        compute_dtype, gen)
+        acc1, acc5 = accuracy_topk(logits, batch[1])
+        # data-parallel: the global-batch mean's gradient and metrics, one all-reduce
+        grads, (loss, acc1, acc5) = parallel.average_gradients(grads, (loss, acc1, acc5))
         state.opt.step(grads, state.masks)
         if stats:
             buffers = state.batch_stats
@@ -209,7 +219,6 @@ def make_train_step(num_classes: int, label_smoothing: float = 0.0,
             ema_update_(state.ema_params, state.params, decay)
             if state.ema_batch_stats is not None and stats:
                 ema_update_(state.ema_batch_stats, stats, decay)
-        acc1, acc5 = accuracy_topk(logits, batch[1])
         state.step += 1
         return state, {"loss": loss, "acc1": acc1, "acc5": acc5}
 
