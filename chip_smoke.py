@@ -333,7 +333,22 @@ Phases (any failure exits non-zero; nothing is caught):
      equal; rows 7-8 24 launches on every rank (12 a step), rows 1 and 4
      12 a LOST batch on every rank (``ddp_launches`` in the kernels JSON);
      which gloo collectives take CUDA tensors; each stage's
-     seconds, 2 ranks on one card beside one process.
+     seconds, 2 ranks on one card beside one process. The same children
+     then run the model-parallel paths against one process at the same
+     global batch (``mp_stages``): ViT-B/16 ``train --amp --model-parallel
+     2`` (224, B=128, SNIP, 2 steps, the eval on 128 images) and
+     ``--pipeline-parallel 2 --pp-microbatch 128`` (B=256, SNIP, 2 steps,
+     the pipelined eval), ``lost --sequence-parallel`` on 8 fixture JPEGs
+     (ViT-S/16 f32, dino_vit_small bf16) and the ViT-S/16 f32 features of
+     ``extract`` under sequence parallelism: masks, boxes and txt equal,
+     parameters within rtol 5e-2 / atol 3e-3, the gathered ``.pth`` in one
+     process's keys and shapes, features 1e-3 of their scale; rows 7-8 24
+     launches and row 4 (F = 1536) 12 on each TP rank, rows 7-8 24 and row
+     4 6 on each PP stage, rows 1 and 4 0 on each SP rank; the gloo
+     send/recv probe (the pipeline's route: through pinned host memory).
+     ``python chip_smoke.py --nccl 4`` runs those model-parallel paths on 4
+     cards over NCCL (2 data ranks under TP and PP) against one process,
+     the same checks: not part of the one-card run.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object listing the kernels (the rows
 phase 6 drove also carry its launches as ``cli_launches``, the rows phase
@@ -1048,6 +1063,29 @@ def seeded_pruned(spec):
     return params, INIT_CACHE[key]
 
 
+_REMOVALS: list = []
+
+
+def remove_later(path):
+    """Move the tree ``path`` aside and delete it on a thread (a phase's
+    checkpoints take seconds to unlink); ``wait_removals`` joins them."""
+    import shutil
+    import threading
+
+    trash = f"{path}.removing-{len(_REMOVALS)}"
+    os.rename(path, trash)
+    thread = threading.Thread(target=shutil.rmtree, args=(trash,),
+                              kwargs={"ignore_errors": True})
+    thread.start()
+    _REMOVALS.append(thread)
+
+
+def wait_removals():
+    for thread in _REMOVALS:
+        thread.join()
+    _REMOVALS.clear()
+
+
 def reset_counts(*counters):
     for counts in counters:
         for key in counts:
@@ -1280,7 +1318,6 @@ def family_cli(card, counters, spec, params, masks):
     fused-MLP launches (D = 768) a batch, the first batch's boxes equal to
     the pipeline's, preds.pkl one entry an image not reported in the
     background, the results txt equal to ``corloc`` re-scoring; e2e img/s."""
-    import shutil
     import tempfile
 
     from vipers_torch.cli.main import main as cli
@@ -1328,7 +1365,7 @@ def family_cli(card, counters, spec, params, masks):
               f"{rescored}, results txt {txt.strip()}; decoder {run['decoder']} ({card})")
         return {**got, "batches": batches, "e2e_img_per_s": ips}
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
 
 
 def family_phase(card, counters, lost_core):
@@ -1545,7 +1582,6 @@ def jpeg_lost_phase(card, counters):
     img/s (first decode to preds.pkl), the decode-only rate of the thread
     pool (and of one thread), the CPU count and the decoder. Returns each
     run's launches."""
-    import shutil
     import tempfile
 
     from vipers_torch.cli.main import main as cli
@@ -1640,7 +1676,7 @@ def jpeg_lost_phase(card, counters):
             runs[tag] = {**got, "batches": batches, "e2e_img_per_s": ips}
         return runs
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
 
 
 def check_first_batch(tag, pth, data, items, out, failed, dtype, model="vit_s_16"):
@@ -2421,7 +2457,7 @@ def train_cli_phase(card, counters, keep_pth=None):
               f"last checkpoint {run['t_last_checkpoint'] - run['t_first_decode']:.3f} s; "
               f"{secs:.3f} s with the model's set-up); sparsity {snip_sp:.4f}%, train loss "
               f"{loss[0]:.4f}; first train and val batches equal to the CPU loader's ({card})")
-        shutil.rmtree(snip_out)
+        remove_later(snip_out)
 
         # 2. LRR: two iterations of one epoch
         lrr_out = os.path.join(root, "lrr")
@@ -2485,7 +2521,7 @@ def train_cli_phase(card, counters, keep_pth=None):
         if keep_pth:
             shutil.copyfile(os.path.join(lrr_out, "vit_b_16_epoch_0_pruning_iteration_01.pth"),
                             keep_pth)
-        shutil.rmtree(lrr_out)
+        remove_later(lrr_out)
 
         # step img/s: the CLI's session and batch, best of 3 windows of 6 steps
         s = tdrv.build_session(dataclasses.replace(cfg, device="cuda",
@@ -2519,7 +2555,7 @@ def train_cli_phase(card, counters, keep_pth=None):
         print(f"phase 12 train CLI launches: {total}; {time.time() - t_phase:.1f} s")
         return total
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
 
 
 # Phase 13: the CNN families through the pruning and LOST entry points.
@@ -2873,7 +2909,7 @@ def cnn_phase(card, counters, keep_pth=None):
               f"{snip_sp:.4f}%, train loss {loss[0]:.4f}; peak device memory {peak:.2f} GiB; "
               f"first train and val batches equal to the CPU loader's; decode only (the PIL "
               f"train preset, 8 threads) {dec:.1f} img/s ({card})")
-        shutil.rmtree(snip_out)
+        remove_later(snip_out)
 
         # 2. LRR: two iterations of one epoch
         lrr_out = os.path.join(root, "lrr")
@@ -2932,7 +2968,7 @@ def cnn_phase(card, counters, keep_pth=None):
                   f"img/s, no attention or fused-MLP launch ({card})")
         if keep_pth:  # phase 14's --exact-shapes run reads it
             shutil.copyfile(ckpt, keep_pth)
-        shutil.rmtree(lrr_out)
+        remove_later(lrr_out)
 
         # step img/s: the CLI's session and batch, best of 3 windows of 6 steps
         s = tdrv.build_session(dataclasses.replace(cfg, device="cuda",
@@ -2990,7 +3026,7 @@ def cnn_phase(card, counters, keep_pth=None):
         print(f"phase 13 CNN families: no attention or fused-MLP launch; "
               f"{time.time() - t_phase:.1f} s")
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
 
 
 # Phase 14: Swin-V2-T through the pruning and LOST entry points, and the
@@ -3280,7 +3316,6 @@ def swin_phase(card, counters, resnet_pth=None):
     and of --exact-shapes, and the peak device memory."""
     import dataclasses
     import json
-    import shutil
     import tempfile
 
     from vipers_torch.cli.main import main as cli
@@ -3355,7 +3390,7 @@ def swin_phase(card, counters, resnet_pth=None):
               f"device memory {peak:.2f} GiB; first train and val batches equal to the CPU "
               f"loader's; decode only (the PIL bicubic train preset, 8 threads) {dec:.1f} img/s "
               f"({card})")
-        shutil.rmtree(snip_out)
+        remove_later(snip_out)
 
         # 2. LRR: two iterations of one epoch
         lrr_out = os.path.join(root, "lrr")
@@ -3432,7 +3467,7 @@ def swin_phase(card, counters, resnet_pth=None):
         rparams, rstats, rmasks, _ = load_lost_checkpoint(resnet_pth, rspec)
         per_image_card_vs_cpu("resnet50 --exact-shapes", rspec, rparams, rmasks, rstats, card,
                               cnn_bucket=1)
-        shutil.rmtree(lrr_out)
+        remove_later(lrr_out)
 
         # step img/s: the CLI's session and batch, best of 3 windows of 6 steps
         s = tdrv.build_session(dataclasses.replace(cfg, device="cuda",
@@ -3501,7 +3536,7 @@ def swin_phase(card, counters, resnet_pth=None):
               f"{ {k: (round(v[0], 1), round(v[1], 2)) for k, v in lost_rates.items()} } "
               f"(img/s, p50 ms); {time.time() - t_phase:.1f} s")
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
 
 
 EXPLAIN_HEADS, EXPLAIN_T = 12, 769  # ViT-B/16 on the fixture's 500x375 image, padded
@@ -3755,7 +3790,6 @@ def ig_profile(spec, model, padded, label="ViT-B/16"):
 def explain_phase(card, counters, fa, gen):
     """Phase 15 (see the module docstring). Returns (the two kernel rows,
     their launches in the explain-eval run)."""
-    import shutil
     import tempfile
 
     from vipers_torch.cli.main import main as cli
@@ -3885,7 +3919,7 @@ def explain_phase(card, counters, fa, gen):
                   f"{lr['distort_s']:.1f} s ({lr['distort_s'] / dt:.0%}), eval steps "
                   f"{lr['eval_s']:.1f} s; 0 launches ({card})")
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
     print(f"phase 15 explain and mvh: {time.time() - t_phase:.1f} s")
     return rows, launches
 
@@ -4093,7 +4127,6 @@ def dino_cli(card, counters, gen):
     T = 769 (a 500x375 image's 31x23 grid on its 32x24 bucket), no
     sequence pad. Returns (kernel rows, {row name: launches})."""
     import pickle
-    import shutil
     import tempfile
 
     from vipers_torch.cli.main import main as cli
@@ -4223,7 +4256,7 @@ def dino_cli(card, counters, gen):
               f"({len(set(labels['cuda'].values()))} clusters)")
         assert err <= 1e-4 * scale and labels["cuda"] == labels["cpu"]
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
     row = check_flash_at(fa, torch.float32, gen, (1, 6, 769, 64), (32, 24), (31, 23), "dinoseg",
                          pad_rows=slice(0, 1))
     return [row], {row["name"]: seg_launches}
@@ -4243,7 +4276,6 @@ def vgg_train(card, counters):
     parameters no farther (relative L2) from an f64 CPU run than 2x the
     CPU's own f32."""
     import json
-    import shutil
     import tempfile
 
     from vipers_torch.cli.main import main as cli
@@ -4289,7 +4321,7 @@ def vgg_train(card, counters):
                   f"{e2e:.1f} img/s ({steps * b} images, first decode to the last checkpoint; "
                   f"{secs:.3f} s with the set-up); sparsity {sp}, train loss {loss[0]:.4f}; "
                   f"peak device memory {peak:.2f} GiB ({card})")
-            shutil.rmtree(out)
+            remove_later(out)
 
         # the session's step, and the dropout on the card
         cfg = TrainConfig(model=m, data_path=data, batch_size=b, workers=8, amp=True,
@@ -4373,7 +4405,7 @@ def vgg_train(card, counters):
               f"{res['f64'][2]:.1f} ({card})")
         assert d_card <= 2 * d_cpu, (d_card, d_cpu)
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
 
 
 def vit_attention_dropout(card, counters):
@@ -4523,7 +4555,6 @@ def slim_lost(card, counters, gen):
     the card against the masked dense model's (1e-4 of their scale), boxes
     agreeing counted; ``tools.bench_slim``'s dense-vs-slim img/s. Returns
     (kernel rows, {row name: launches})."""
-    import shutil
     import tempfile
 
     from vipers_torch.cli.main import main as cli
@@ -4630,7 +4661,7 @@ def slim_lost(card, counters, gen):
               f"slim m768 h4): {json.dumps(res)} ({card})")
         assert all(res[d]["dense_masked"] > 0 and res[d]["slim"] > 0 for d in ("bf16", "f32"))
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
     return rows, launches
 
 
@@ -4647,7 +4678,6 @@ def slim_finetune(card, counters, gen):
     versions. Returns (kernel rows, {row name: launches})."""
     import contextlib
     import io
-    import shutil
     import tempfile
 
     from vipers_torch.cli.main import main as cli
@@ -4713,7 +4743,7 @@ def slim_finetune(card, counters, gen):
             os.path.basename(ln) for ln in evaluated))
         assert len(evaluated) == 2 and "slim_m1536_h6" in evaluated[1]
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
     return rows, {r["name"]: got[r["name"].replace(", slim H=6", "")] for r in rows}
 
 
@@ -4723,7 +4753,6 @@ def slim_cnn_families(card, counters):
     written as ``{model}_epoch_0_pruning_iteration_00.pth``, each through
     ``slim`` and ``evaluate`` of the dense and slim checkpoints on
     SLIM_CNN_VAL val images on the card; no port kernel launches."""
-    import shutil
     import tempfile
 
     from vipers_torch.cli.main import main as cli
@@ -4764,7 +4793,7 @@ def slim_cnn_families(card, counters):
                   f"{slim_s:.1f} s; evaluate dense + slim on {SLIM_CNN_VAL} images "
                   f"{eval_s:.1f} s, 0 launches ({card})")
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
 
 
 def slim_phase(card, counters, gen):
@@ -5058,7 +5087,7 @@ def quantize_runs(card, counters, vit_b_pth, keep_ptq=None, keep_mb_ptq=None):
                       f"observers, launches {got} ({card})")
         return lost_flash
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
 
 
 def quantize_phase(card, counters, gen, lost_core, vit_b_pth, keep_ptq=None, keep_mb_ptq=None):
@@ -5318,7 +5347,6 @@ def export_phase(card, counters, gen, vit_b_pth, ptq_pth):
     (B*H = 128*12, T = 896 with 769 tokens, no bucket pad), f32 and bf16.
     Returns (kernel rows, {row name: launches}, {row name: the exported
     bf16 program's launches a batch} for rows of earlier phases)."""
-    import shutil
     import tempfile
 
     from vipers_torch.ops import flash_attention as fa
@@ -5334,7 +5362,7 @@ def export_phase(card, counters, gen, vit_b_pth, ptq_pth):
             card, counters, vit_b_pth, ptq_pth, root,
             lambda: export_cnn_and_classify(card, counters, vit_b_pth, root))
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
     torch.cuda.empty_cache()
     t0 = time.time()
     # the ViT-S/16 programs cut to 6 blocks (phase 21 took the time): artifact
@@ -5668,7 +5696,6 @@ def profile_and_nan_runs(card, counters, root):
 def debug_surface_phase(card, counters, gen, lost_core, mb_ptq):
     """Phase 20 (see the module docstring). Returns (its kernel rows, their
     launches)."""
-    import shutil
     import tempfile
 
     from vipers_torch.ops import flash_attention as fa
@@ -5689,7 +5716,7 @@ def debug_surface_phase(card, counters, gen, lost_core, mb_ptq):
                                                 mb_pth)
         profile_and_nan_runs(card, counters, root)
     finally:
-        shutil.rmtree(root)
+        remove_later(root)
     print(f"phase 20 mobilenet, DINO explain, the debugging surface: "
           f"{time.time() - t_phase:.1f} s")
     return rows + viz_rows, {**launches, **viz_launches}
@@ -5700,12 +5727,39 @@ def debug_surface_phase(card, counters, gen, lost_core, mb_ptq):
 DDP_CHILD = "import sys, chip_smoke; chip_smoke.ddp_child(*sys.argv[1:])"
 
 
+def sp_features(pth, voc, out, multi):
+    """The ViT-S/16 LOST features (f32, ``extract`` on each JPEG of ``voc``,
+    host-normalized) of the checkpoint ``pth``, under sequence parallelism
+    over every rank when ``multi``; saved to ``out`` (rank 0)."""
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.data.detection import load_image_normalized
+    from vipers_torch.discovery.driver import LostFeatureExtractor, load_lost_checkpoint
+    from vipers_torch.parallel import mesh
+
+    spec = build_model("vit_s_16")
+    params, _, masks, _ = load_lost_checkpoint(pth, spec)
+    ex = LostFeatureExtractor(spec, params, masks, sequence_parallel=multi)
+    feats = []
+    jpegs = os.path.join(voc, "JPEGImages")
+    for name in sorted(os.listdir(jpegs)):
+        img = load_image_normalized(os.path.join(jpegs, name))
+        h, w = img.shape[:2]
+        padded = np.zeros((-(-h // PATCH) * PATCH, -(-w // PATCH) * PATCH, 3), np.float32)
+        padded[:h, :w] = img
+        feats.append(ex.extract(padded, PATCH)[0].cpu())
+    if mesh.is_main():
+        torch.save(feats, out)
+    return 0
+
+
 def run_ddp_stages(stages):
     """Each (name, argv) of ``stages`` through the port's CLI in this
-    process, the launch counts set to 0 just before and read just after:
-    {name: {rc, s, to_data_s, rows_7_8, row_1, row_4, other, lines[,
-    batches]}} (``to_data_s``: a train stage's seconds to its first decoded
-    batch)."""
+    process (``sp_features`` for an argv starting with it), the launch
+    counts set to 0 just before and read just after: {name: {rc, s,
+    to_data_s, rows_7_8, row_1, row_4, row_1_any, row_4_d768, row_4_any,
+    other, lines[, batches]}} (``to_data_s``: a train stage's seconds to its
+    first decoded batch; ``row_1_any``, ``row_4_any``: every dtype and
+    width)."""
     import contextlib
     import io
 
@@ -5716,7 +5770,8 @@ def run_ddp_stages(stages):
     from vipers_torch.ops import fused_mlp as fm
     from vipers_torch.train import driver as tdrv
 
-    counters = (at.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PACKED_LAUNCHES, fm.LAUNCHES)
+    counters = (at.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PACKED_LAUNCHES, fm.LAUNCHES,
+                fm.WIDTH_LAUNCHES)
     res = {}
     for stage, argv in stages:
         torch.cuda.synchronize()
@@ -5725,7 +5780,7 @@ def run_ddp_stages(stages):
         t0 = time.perf_counter()
         t0_wall = time.time()
         with contextlib.redirect_stdout(buf):
-            rc = cli(argv)
+            rc = sp_features(*argv[1:]) if argv[0] == "sp_features" else cli(argv)
         torch.cuda.synchronize()
         res[stage] = {
             "rc": rc, "s": time.perf_counter() - t0,
@@ -5733,20 +5788,25 @@ def run_ddp_stages(stages):
                           if argv[0] == "train" else None),
             "rows_7_8": [at.LAUNCHES[at._launch_key(d, "f32", 64)] for d in ("fwd", "bwd")],
             "row_1": fa.LAUNCHES["bfloat16"], "row_4": fm.LAUNCHES["bfloat16"],
+            "row_1_any": sum(fa.LAUNCHES.values()), "row_4_any": sum(fm.LAUNCHES.values()),
+            "row_4_d768": fm.WIDTH_LAUNCHES.get(768, 0),
             "other": sum(fa.BWD_LAUNCHES.values()) + sum(fa.PACKED_LAUNCHES.values()),
             "lines": [ln for ln in buf.getvalue().splitlines()
-                      if ln.startswith(("Test:", "PTQ", "corloc", "Sparsity", "| distributed"))],
+                      if ln.startswith(("Test:", "PTQ", "corloc", "Sparsity", "| distributed",
+                                        "train mesh", "LOST sequence"))],
         }
         assert rc == 0, (stage, rc)
-        if stage == "lost":
+        if stage.startswith("lost"):
             res[stage]["batches"] = lost_driver.LAST_RUN["batches"]
     return res
 
 
 def gloo_cuda_probe():
     """Which gloo collectives take CUDA tensors (the port hands them its
-    CUDA tensors as it would NCCL): {name: "ok" or what raised}, on a group
-    of its own with a short deadline. Every rank calls it."""
+    CUDA tensors as it would NCCL), and the pipeline's send/recv (``pp.send``
+    / ``pp.recv`` from rank 0 to rank 1, with the route they took): {name:
+    "ok" or what raised, and its seconds}, on a group of its own with a
+    short deadline. Every rank calls it."""
     import datetime
 
     import torch.distributed as dist
@@ -5766,12 +5826,30 @@ def gloo_cuda_probe():
     }
     out = {}
     for name, fn in probes.items():
+        t0 = time.perf_counter()
         try:
             fn()
             torch.cuda.synchronize()
             out[name] = "ok"
         except Exception as e:  # noqa: BLE001 - the probe reports what raised
             out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        out[name] += f" ({time.perf_counter() - t0:.2f} s)"
+    # the pipeline's activations and cotangents between neighbouring ranks:
+    # gloo's TCP transport refuses CUDA memory (a direct send raised "writev
+    # ... Bad address" or aborted the sender), so ``parallel.pp`` moves them
+    # through pinned host memory under gloo: rank 0 sends, rank 1 checks
+    from vipers_torch.parallel import pp
+
+    t0 = time.perf_counter()
+    try:
+        if dist.get_rank() == 0:
+            pp.send(3 * t, 1)
+        elif dist.get_rank() == 1:
+            assert torch.equal(pp.recv(t.shape, t.dtype, 0, t.device), 3 * t)
+        out["send_recv"] = f"ok, route {pp.P2P_ROUTE}"
+    except Exception as e:  # noqa: BLE001 - the probe reports what raised
+        out["send_recv"] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    out["send_recv"] += f" ({time.perf_counter() - t0:.2f} s)"
     return out
 
 
@@ -5790,9 +5868,12 @@ def ddp_child(cfg_path, out_prefix, go):
     while not os.path.exists(go):
         time.sleep(0.05)
     t_go = time.time()
+    from vipers_torch.parallel import pp
+
     with open(cfg_path) as f:
         res = run_ddp_stages(json.load(f)["stages"])
     res["rank"], res["world"] = mesh.rank(), mesh.world()
+    res["p2p_route"] = dict(pp.P2P_ROUTE)
     res["gloo_cuda"] = gloo_cuda_probe()
     res["t_ready"], res["t_go"], res["t_exit"] = t_ready, t_go, time.time()
     with open(f"{out_prefix}_{mesh.rank()}.json", "w") as f:
@@ -5801,6 +5882,10 @@ def ddp_child(cfg_path, out_prefix, go):
 
 DDP_WORLD, DDP_BATCH = 2, 16  # ranks on the one card, per-rank batch (the process: 32)
 DDP_TRAIN, DDP_VAL, DDP_JPEG = 64, 41, 64  # 2 global steps; a sentinel row on rank 1
+# model parallelism on the 2 ranks: ViT-B/16 --amp, 2 steps and the epoch-end
+# eval; 128 eval rows a forward (or pipelined microbatch) make 128 * 197 rows,
+# which the fused MLP's block rule (rows % 128) takes, so row 4 runs at F / k
+TP_BATCH, PP_BATCH, PP_MICROBATCH, MP_VAL, SP_JPEG = 128, 256, 128, 128, 8
 
 
 def free_port():
@@ -5904,7 +5989,7 @@ def bn_order_witness(card, spec, params, masks):
     step = make_train_step(1000)
     ocfg = OptimConfig(lr=0.01)
     real = cnn.parallel
-    packed = types.SimpleNamespace(world=lambda: 2, all_reduce_sum=lambda t: t)
+    packed = types.SimpleNamespace(data_world=lambda: 2, all_reduce_sum=lambda t: t)
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     out = {}
@@ -6016,16 +6101,69 @@ def ddp_inputs(root, params, masks):
     save_torch_state_dict(export_resnet(params, None, masks, bake_masks=False), resnet)
     start = os.path.join(root, "resnet50_bn3.pth")
     save_torch_state_dict(export_resnet(bn_biases_plus3(params)), start)
+    return (data, voc, sweep, resnet, start) + mp_inputs(root)
+
+
+def mp_inputs(root):
+    """The model-parallel runs' inputs: a seed-0 ViT-S/16 .pth (50% mask),
+    ImageFolder trees of 2 global batches for TP and PP and ``MP_VAL`` val
+    images, and a VOC tree of ``SP_JPEG`` fixture JPEGs. Returns (vit, mp)."""
+    from vipers_torch.core.checkpoint import export_vit_torchvision, save_torch_state_dict
+    from vipers_torch.core.registry import build_model
+
     spec = build_model("vit_s_16")
     params, masks = seeded_pruned(spec)
     vit = os.path.join(root, "vit_s_16.pth")
     save_torch_state_dict(export_vit_torchvision(params, masks, bake_masks=False), vit)
-    return data, voc, sweep, resnet, start, vit
+    mp = {}
+    for name, n_train in (("tp", 2 * TP_BATCH), ("pp", 2 * PP_BATCH)):
+        mp[name] = os.path.join(root, f"data_{name}")
+        imagefolder_tree(mp[name], n_train, MP_VAL, seed=22)
+    mp["voc"] = os.path.join(root, "VOC_sp")
+    voc_tree(mp["voc"], SP_JPEG, seed=22)
+    return vit, mp
 
 
-def ddp_stages(out, batch, data, voc, sweep, resnet, start, vit):
+def mp_stages(out, vit, mp, ranks=1):
+    """The model-parallel runs at the global batches ``TP_BATCH`` and
+    ``PP_BATCH`` over ``ranks`` processes (1: the one process, without the
+    layout flags; more: 2 model or pipe ranks, the rest data ranks):
+    ``train --model-parallel 2`` and ``train --pipeline-parallel 2
+    --pp-microbatch 128`` (SNIP: the masks are the one process's bit for
+    bit; LRR's masks would follow the trained weights, which differ in
+    their last bits), ``lost --sequence-parallel`` (ViT-S/16 f32,
+    dino_vit_small bf16) and the ViT-S/16 features under sequence
+    parallelism."""
+    multi = ranks > 1
+    data = max(ranks // 2, 1)
+    common = ["--num-classes", "1000", "--workers", "4", "--print-freq", "0", "--epochs", "1",
+              "--lr", "0.01", "--amp", "--pruning-method", "snip",
+              "--target-sparsity", str(SPARSITY)]
+    pp = ["--pipeline-parallel", "2", "--pp-microbatch", str(PP_MICROBATCH)]
+    if data > 1:
+        pp += ["--pp-data", str(data)]
+    sp = ["--sequence-parallel"] if multi else []
+    return [
+        ["train_tp", ["train", "--model", "vit_b_16", *common, "--data-path", mp["tp"],
+                      "--batch-size", str(TP_BATCH // data), "--output-dir",
+                      os.path.join(out, "tp")] + (["--model-parallel", "2"] if multi else [])],
+        ["train_pp", ["train", "--model", "vit_b_16", *common, "--data-path", mp["pp"],
+                      "--batch-size", str(PP_BATCH // data), "--output-dir",
+                      os.path.join(out, "pp")] + (pp if multi else [])],
+        ["lost_sp_vit", ["lost", "--model", "vit_s_16", "--data-path", mp["voc"],
+                         "--checkpoint", vit, "--batch-size", str(SP_JPEG), "--workers", "4",
+                         "--output-dir", os.path.join(out, "sp_vit"), *sp]],
+        ["lost_sp_dino", ["lost", "--arch", "dino", "--model", "dino_vit_small", "--dtype",
+                          "bf16", "--data-path", mp["voc"], "--batch-size", str(SP_JPEG),
+                          "--workers", "4", "--output-dir", os.path.join(out, "sp_dino"), *sp]],
+        ["sp_features", ["sp_features", vit, mp["voc"], os.path.join(out, "sp_features.pt"),
+                         multi]],
+    ]
+
+
+def ddp_stages(out, batch, data, voc, sweep, resnet, start, vit, mp, ranks=1):
     """The CLI runs at the per-process ``batch`` (``lost`` at twice it: 32 a
-    rank, 64 the process)."""
+    rank, 64 the process), then ``mp_stages``."""
     common = ["--data-path", data, "--num-classes", "1000", "--batch-size", str(batch),
               "--workers", "4", "--print-freq", "0", "--epochs", "1", "--lr", "0.01"]
     return [
@@ -6043,28 +6181,30 @@ def ddp_stages(out, batch, data, voc, sweep, resnet, start, vit):
         ["lost", ["lost", "--model", "vit_s_16", "--data-path", voc, "--checkpoint", vit,
                   "--dtype", "bf16", "--batch-size", str(2 * batch),
                   "--workers", "4", "--output-dir", os.path.join(out, "lost")]],
-    ]
+    ] + mp_stages(out, vit, mp, ranks)
 
 
-def launch_ddp_ranks(root, inputs):
-    """The children as ``DDP_WORLD`` ranks sharing the card over gloo,
-    started: they import and make their CUDA context, then wait for
-    ``join_ddp_ranks``. Returns their handle."""
+def launch_ddp_ranks(root, stages, world=DDP_WORLD):
+    """The children as ``world`` ranks running ``stages``, started: they
+    import and make their CUDA context, then wait for ``join_ddp_ranks``.
+    With one card the ranks share it over gloo; with ``world`` cards each
+    takes its own, over NCCL (``maybe_initialize_distributed``'s choice).
+    Returns their handle."""
     import subprocess
 
     out = os.path.join(root, "ranks")
     cfg = os.path.join(root, "ranks.json")
     with open(cfg, "w") as f:
-        json.dump({"stages": ddp_stages(out, DDP_BATCH, *inputs)}, f)
+        json.dump({"stages": stages}, f)
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
-               WORLD_SIZE=str(DDP_WORLD), LOCAL_WORLD_SIZE=str(DDP_WORLD))
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
     go = os.path.join(root, "go")
     t_launch = time.time()
     procs = [subprocess.Popen([sys.executable, "-c", DDP_CHILD, cfg, out, go], cwd=REPO,
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(DDP_WORLD)]
+             for r in range(world)]
     return {"procs": procs, "out": out, "go": go, "t_launch": t_launch}
 
 
@@ -6091,10 +6231,11 @@ def join_ddp_ranks(handle):
         stop_ddp_ranks(handle)
     secs = time.perf_counter() - t0
     res = []
-    for r in range(DDP_WORLD):
+    world = len(handle["procs"])
+    for r in range(world):
         with open(f"{handle['out']}_{r}.json") as f:
             res.append(json.load(f))
-        assert (res[-1]["rank"], res[-1]["world"]) == (r, DDP_WORLD), res[-1]
+        assert (res[-1]["rank"], res[-1]["world"]) == (r, world), res[-1]
         res[-1]["t_launch"], res[-1]["t_end"] = handle["t_launch"], t_end[r]
     return res, secs
 
@@ -6103,29 +6244,40 @@ def load_pth(path):
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
-def ddp_compare(root, ranks, single):
-    """The two-rank artifacts against the one-process ones (the tolerances
-    of the JAX package's multi-process test; SNIP's masks, ``preds.pkl``
-    and the results txt equal). Every check runs and prints; the first
-    failure is raised at the end."""
+def ddp_compare(root, ranks, single, tag="phase 21"):
+    """The ranks' artifacts against the one-process ones, for the stages
+    that ran (the tolerances of the JAX package's multi-process test;
+    SNIP's masks, ``preds.pkl`` and the results txt equal). Every check
+    runs and prints; the first failure is raised at the end."""
     import pickle
 
     m, s = os.path.join(root, "ranks"), os.path.join(root, "single")
+    ran = single[0]
+    world = len(ranks)
     failures = []
 
     def check(fn, *args):
         try:
             fn(*args)
         except AssertionError as e:
-            print(f"phase 21 FAILED {fn.__name__}: {e!r}"[:2000])
+            print(f"{tag} FAILED {fn.__name__}: {e!r}"[:2000])
             failures.append(e)
 
+    def own(lines):
+        return [l for l in lines if not l.startswith(("| distributed", "train mesh"))]
+
     def printed_lines():
-        for stage in ("train_resnet", "train_vit", "evaluate", "quantize"):
-            want = [l for l in single[0][stage]["lines"] if not l.startswith("| distributed")]
+        for stage in ("train_resnet", "train_vit", "evaluate", "quantize", "train_tp",
+                      "train_pp"):
+            if stage not in ran:
+                continue
+            want = own(ran[stage]["lines"])
             for r in ranks:
-                got = [l for l in r[stage]["lines"] if not l.startswith("| distributed")]
+                got = own(r[stage]["lines"])
                 assert got == want, (stage, r["rank"], got, want)
+        for r in ranks:
+            assert (f"train mesh: data={world // 2} x model=2 over {world} devices, {world} "
+                    "processes") in r["train_tp"]["lines"], r["train_tp"]["lines"]
 
     def checkpoint(sub, tol):
         a, b = load_pth(os.path.join(s, sub)), load_pth(os.path.join(m, sub))
@@ -6133,6 +6285,7 @@ def ddp_compare(root, ranks, single):
         worst, bad, rel = 0.0, [], []
         for k, v in a["model"].items():
             w = b["model"][k]
+            assert v.shape == w.shape, (sub, k, v.shape, w.shape)  # one process's layout
             if k.endswith("_mask") or k.endswith("num_batches_tracked"):
                 assert torch.equal(v, w), (sub, k)  # SNIP's masks from the global batch
                 continue
@@ -6143,7 +6296,7 @@ def ddp_compare(root, ranks, single):
                 bad.append((excess, k))
             worst = max(worst, float(d.max()))
         rel.sort(reverse=True)
-        print(f"phase 21 {sub.split('/')[0]}: 2 ranks vs 1 process after 2 steps, masks "
+        print(f"{tag} {sub.split('/')[0]}: {world} ranks vs 1 process after 2 steps, masks "
               f"equal, worst difference {worst:.3g}, worst relative L2 {rel[:3]}, "
               f"{len(bad)} tensors past rtol {tol['rtol']} / atol {tol['atol']}: "
               f"{sorted(bad, reverse=True)[:5]}")
@@ -6163,31 +6316,96 @@ def ddp_compare(root, ranks, single):
         assert qa.keys() == qb.keys() and len(qa) >= 100
         worst = max(abs(float(qa[k][e]) - float(qb[k][e])) / max(abs(float(qa[k][e])), 1e-6)
                     for k in qa for e in ("min", "max"))
-        print(f"phase 21 quantize observers ({len(qa)}): worst relative difference {worst:.3g}")
+        print(f"{tag} quantize observers ({len(qa)}): worst relative difference {worst:.3g}")
         assert worst <= 1e-4, worst
 
-    def lost_outputs():
-        preds = [pickle.load(open(os.path.join(d, "lost", "preds.pkl"), "rb")) for d in (s, m)]
+    def lost_outputs(sub, what):
+        preds = [pickle.load(open(os.path.join(d, sub, "preds.pkl"), "rb")) for d in (s, m)]
         same = sum(preds[0][k] == preds[1].get(k) for k in preds[0])
-        txt = [open(os.path.join(d, "lost", "results_iteration_00.txt")).read() for d in (s, m)]
-        print(f"phase 21 lost, 2 ranks at B=32 against 1 process at B=64: boxes equal on "
+        txt = [open(os.path.join(d, sub, "results_iteration_00.txt")).read() for d in (s, m)]
+        print(f"{tag} {what} against 1 process: boxes equal on "
               f"{same}/{len(preds[0])}, results txt {'equal' if txt[0] == txt[1] else 'differ'}")
         assert preds[0].keys() == preds[1].keys() and same == len(preds[0]) and txt[0] == txt[1]
 
+    def sp_feature_scale():
+        one = torch.load(os.path.join(s, "sp_features.pt"))
+        two = torch.load(os.path.join(m, "sp_features.pt"))
+        worst = max(float((b - a).abs().max() / a.abs().max()) for a, b in zip(one, two))
+        print(f"{tag} sequence parallel, ViT-S/16 f32 LOST features of {len(one)} JPEGs "
+              f"({[tuple(a.shape) for a in one][:2]} ...), {world} ranks against 1 process: worst "
+              f"difference {worst:.3g} of the features' scale (limit 1e-3)")
+        assert len(one) == len(two) == SP_JPEG and worst <= 1e-3, worst
+
     check(printed_lines)
-    for sub in ("resnet/resnet50_epoch_0_snip_0.5.pth", "vit/vit_b_16_epoch_0_snip_0.5.pth"):
-        check(checkpoint, sub, dict(rtol=5e-2, atol=3e-3))
-    check(evaluate_rows)
-    check(observers)
-    check(lost_outputs)
+    for stage, sub in (("train_resnet", "resnet/resnet50_epoch_0_snip_0.5.pth"),
+                       ("train_vit", "vit/vit_b_16_epoch_0_snip_0.5.pth"),
+                       ("train_tp", "tp/vit_b_16_epoch_0_snip_0.5.pth"),
+                       ("train_pp", "pp/vit_b_16_epoch_0_snip_0.5.pth")):
+        if stage in ran:
+            check(checkpoint, sub, dict(rtol=5e-2, atol=3e-3))
+    if "evaluate" in ran:
+        check(evaluate_rows)
+        check(observers)
+        check(lost_outputs, "lost", "lost, 2 ranks at B=32 against 1 process at B=64")
+    check(lost_outputs, "sp_vit", f"lost --sequence-parallel, ViT-S/16 f32 on {world} ranks")
+    check(lost_outputs, "sp_dino",
+          f"lost --sequence-parallel, dino_vit_small bf16 on {world} ranks")
+    check(sp_feature_scale)
     if failures:
         raise failures[0]
+
+
+def model_parallel_launches(runs, data=1):
+    """The model-parallel stages' launches held to their counts on each
+    rank ({"rank0", ..., "single"}; ``data`` data ranks); returns them by
+    kernel row, the who prefixed with the path ("tp rank0", ...). TP: rows
+    7-8 in every block of the 2 steps at 6 heads a rank (12 at the
+    process), row 4 at F = 1536 a rank in the eval's 12 blocks; PP: rows
+    7-8 in each stage's 6 blocks x 2 microbatches x 2 steps, row 4 in its 6
+    blocks of the eval (the process: 12 blocks, one batch); row 4 only
+    where a forward's rows pass the block rule (rows % 128: 128 images of
+    197 tokens, so not at 64 a data rank); SP:
+    no flash and no fused-MLP launch on a rank, where the process runs
+    both."""
+    steps, mbs = 2, PP_BATCH // PP_MICROBATCH
+    tokens = 197  # ViT-B/16 at 224
+    rows = {}
+
+    def fused(images):
+        return images * tokens % 128 == 0
+
+    def put(name, who, n):
+        rows.setdefault(name, {})[who] = n
+
+    for who, r in runs.items():
+        one = who == "single"
+        tp, pp = r["train_tp"], r["train_pp"]
+        assert tp["rows_7_8"] == [12 * steps] * 2, (who, tp)
+        eval_rows = MP_VAL if one else MP_VAL // data
+        assert tp["row_4_d768"] == 12 * fused(eval_rows) and tp["row_1_any"] == 0, (who, tp)
+        blocks = 12 if one else 6
+        assert pp["rows_7_8"] == [blocks * (1 if one else mbs) * steps] * 2, (who, pp)
+        pp_eval = MP_VAL if one else PP_MICROBATCH // data
+        assert pp["row_4_d768"] == blocks * fused(pp_eval), (who, pp)
+        for path, r_ in (("tp", tp), ("pp", pp)):
+            put("attention_train_fwd[bf16]", f"{path} {who}", r_["rows_7_8"][0])
+            put("attention_train_bwd[bf16]", f"{path} {who}", r_["rows_7_8"][1])
+            put("fused_ln_fc1_gelu[bf16, D=768]", f"{path} {who}", r_["row_4_d768"])
+        vit, dino = r["lost_sp_vit"], r["lost_sp_dino"]
+        if one:
+            assert vit["row_1_any"] > 0 and dino["row_1_any"] > 0 and dino["row_4_any"] > 0
+        else:
+            assert vit["row_1_any"] == vit["row_4_any"] == 0, (who, vit)
+            assert dino["row_1_any"] == dino["row_4_any"] == 0, (who, dino)
+        put("flash_attention_fwd[f32]", f"sp vit_s_16 {who}", vit["row_1_any"])
+        put("flash_attention_fwd[bf16]", f"sp dino_vit_small {who}", dino["row_1_any"])
+        put("fused_ln_fc1_gelu[bf16]", f"sp dino_vit_small {who}", dino["row_4_any"])
+    return rows
 
 
 def ddp_phase(card):
     """Phase 21 (see the module docstring). Returns {row: {"rank0", "rank1",
     "single"} launches} for rows 1, 4 and 7-8."""
-    import shutil
     import tempfile
 
     t_phase = time.time()
@@ -6207,7 +6425,8 @@ def ddp_phase(card):
         inputs = ddp_inputs(root, params, masks)
         t = lap("inputs", t)
         # the children import and make their CUDA contexts meanwhile
-        handle = launch_ddp_ranks(root, inputs)
+        handle = launch_ddp_ranks(root, ddp_stages(os.path.join(root, "ranks"), DDP_BATCH,
+                                                   *inputs, ranks=DDP_WORLD))
         bn_order_witness(card, spec, params, masks)
         t = lap("witness", t)
         snip_global_batch_memory(card, spec, params)
@@ -6222,14 +6441,16 @@ def ddp_phase(card):
         t = lap("1 process", t)
         for r in ranks:
             assert any("gloo on cuda" in l for l in r["train_resnet"]["lines"]), r
-        print(f"phase 21 gloo collectives on CUDA tensors: "
-              f"{ranks[0]['gloo_cuda']}")
+        print(f"phase 21 gloo collectives on CUDA tensors: {ranks[0]['gloo_cuda']}; rank 1's "
+              f"send_recv {ranks[1]['gloo_cuda']['send_recv']}; "
+              f"the pipeline's send/recv route on each rank "
+              f"{[r['p2p_route'] for r in ranks]} (host: through pinned host memory)")
         ddp_compare(root, ranks, single)
         t = lap("compare", t)
     finally:
         if handle:
             stop_ddp_ranks(handle)
-        shutil.rmtree(root)
+        remove_later(root)
     runs = {f"rank{r['rank']}": r for r in ranks}
     runs["single"] = single[0]
     steps = DDP_TRAIN // (DDP_WORLD * DDP_BATCH)
@@ -6245,7 +6466,11 @@ def ddp_phase(card):
         rows["attention_train_bwd[bf16]"][who] = bwd
         rows["flash_attention_fwd[bf16]"][who] = lost["row_1"]
         rows["fused_ln_fc1_gelu[bf16]"][who] = lost["row_4"]
-    for stage in ("train_resnet", "train_vit", "evaluate", "quantize", "lost"):
+    mp_rows = model_parallel_launches(runs)
+    for name, got in mp_rows.items():
+        rows.setdefault(name, {}).update(got)
+    for stage in ("train_resnet", "train_vit", "evaluate", "quantize", "lost", "train_tp",
+                  "train_pp", "lost_sp_vit", "lost_sp_dino", "sp_features"):
         print(f"phase 21 {stage}: 2 ranks on one card "
               f"{max(r[stage]['s'] for r in ranks):.1f} s, 1 process "
               f"{single[0][stage]['s']:.1f} s (one card shared: not a speed-up; to the first "
@@ -6256,14 +6481,70 @@ def ddp_phase(card):
           f"after their launch, during the witness and the SNIP memory run; rank 0's exit "
           f"{ranks[0]['t_end'] - ranks[0]['t_exit']:.1f} s after its last stage), "
           f"{t_single:.1f} s the 1 process (this one); laps {laps}")
-    print(f"phase 21 data parallelism: {time.time() - t_phase:.1f} s")
+    print(f"phase 21 data and model parallelism: {time.time() - t_phase:.1f} s")
     return rows
+
+
+def nccl_model_parallel(card, world):
+    """``python chip_smoke.py --nccl N``, on a host with N cards: phase
+    21's model-parallel runs (``mp_stages``) as N ranks, one card each,
+    over NCCL (``--model-parallel 2`` and ``--pipeline-parallel 2`` with N
+    / 2 data ranks, ``lost --sequence-parallel`` over all N), against one
+    process on card 0 at the same global batches; the same checks and
+    launch counts, each stage's seconds. Not part of the one-card run."""
+    import tempfile
+
+    from vipers_torch.ops import _build
+
+    _build.build(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_packed",
+                  "fused_mlp", "attention_train", "splash_attention"])
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="vipers_torch_nccl_")
+    handle = None
+    try:
+        vit, mp = mp_inputs(root)
+        handle = launch_ddp_ranks(root, mp_stages(os.path.join(root, "ranks"), vit, mp, world),
+                                  world)
+        ranks, t_ranks = join_ddp_ranks(handle)
+        t0 = time.perf_counter()
+        single = [run_ddp_stages(mp_stages(os.path.join(root, "single"), vit, mp))]
+        t_single = time.perf_counter() - t0
+        for r in ranks:
+            assert any("nccl on cuda" in l for l in r["train_tp"]["lines"]), r["train_tp"]
+        tag = f"NCCL {world} cards"
+        ddp_compare(root, ranks, single, tag=tag)
+    finally:
+        if handle:
+            stop_ddp_ranks(handle)
+        remove_later(root)
+        wait_removals()
+    runs = {f"rank{r['rank']}": r for r in ranks}
+    runs["single"] = single[0]
+    rows = model_parallel_launches(runs, data=world // 2)
+    for stage in ("train_tp", "train_pp", "lost_sp_vit", "lost_sp_dino", "sp_features"):
+        print(f"{tag} {stage}: {world} ranks {max(r[stage]['s'] for r in ranks):.1f} s "
+              f"(each {[round(r[stage]['s'], 1) for r in ranks]}), 1 process "
+              f"{single[0][stage]['s']:.1f} s ({card})")
+    print(f"{tag} launches: {rows}; p2p routes {[r['p2p_route'] for r in ranks]}; "
+          f"{t_ranks:.1f} s the ranks from the go, {t_single:.1f} s the 1 process; "
+          f"{time.time() - t_phase:.1f} s in all")
+    return 0
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if "--nccl" in sys.argv:
+        from vipers_torch.core.device import card_line
+
+        world = int(sys.argv[sys.argv.index("--nccl") + 1])
+        if torch.cuda.device_count() < world:
+            print(f"chip_smoke --nccl {world}: {torch.cuda.device_count()} cards",
+                  file=sys.stderr)
+            return 2
+        print(card_line())
+        return nccl_model_parallel(card_line(), world)
     from vipers_torch.core.device import card_line
     from vipers_torch.core.registry import build_model
     from vipers_torch.discovery.driver import LostFeatureExtractor
@@ -6441,7 +6722,6 @@ def main():
     for key in [k for k in INIT_CACHE if k[0] == "vit_h_14"]:
         del INIT_CACHE[key]  # no later phase builds vit_h_14
     lap(11)
-    import shutil
     import tempfile
 
     # phase 12's ViT-B/16 checkpoint (for phase 18) and phase 13's ResNet-50
@@ -6512,7 +6792,7 @@ def main():
         ddp_runs = ddp_phase(card)
         lap(21)
     finally:
-        shutil.rmtree(keep)
+        remove_later(keep)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if jpeg:  # the CLI runs' launches beside the pipeline's, on the rows they drove
@@ -6537,6 +6817,7 @@ def main():
             if k["name"] == "fused_ln_fc1_gelu[bf16, D=768]":
                 k["cli_launches"] = family_cli_run["fused_mlp[D=768]"]
 
+    wait_removals()  # the temporary trees' unlinks, on threads since their phases
     print(f"chip_smoke total {time.time() - t_start:.1f} s")
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1286,3 +1286,92 @@ def test_one_rank_nccl_data_parallel_step_equals_the_plain_step(cuda):
     assert states[0].keys() == states[1].keys()
     for k, v in states[0].items():
         assert torch.equal(v, states[1][k]), k
+
+
+def _one_rank_layout_steps(cuda, axis, size):
+    """vit_s_16 bf16 at ``size`` (224: T = 197 -> 256, the training kernels;
+    384: T = 577 -> 640, the flash forward and backward; B = 8, 2 SGD
+    steps, a 50% mask) through the ``axis`` layout of a one-rank NCCL group
+    (``parallel.tp`` at k = 1: the block's collectives and
+    bias-after-reduce; ``parallel.pp`` at S = 1: the microbatched forward
+    and backward and the outer-gradient reduce) against the plain step
+    from the same state. Returns (plain, layout) parameters and the
+    layout's steps' launches of the attention kernels the size selects."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vipers_torch.core.checkpoint import family
+    from vipers_torch.core.registry import build_model
+    from vipers_torch.ops import attention_train as tat
+    from vipers_torch.parallel import mesh
+    from vipers_torch.parallel.pp import PipelineParallel, make_pp_train_step
+    from vipers_torch.parallel.tp import TensorParallel
+    from vipers_torch.pruning import init_masks, magnitude_prune
+    from vipers_torch.train.optim import OptimConfig
+    from vipers_torch.train.steps import create_train_state, make_train_step
+
+    def launches():
+        if size == 224:
+            return tat.LAUNCHES[tat._launch_key("fwd", "f32", 64)]
+        return tfa.LAUNCHES["bfloat16"] + tfa.BWD_LAUNCHES["bfloat16"]
+
+    spec = build_model("vit_s_16", num_classes=10, image_size=(size, size))
+    params = spec.init(torch.Generator().manual_seed(0))
+    masks = magnitude_prune(params, init_masks(params, exclude=spec.prune_exclude), 0.5)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(8, size, size, 3, generator=g).to(cuda)
+    y = torch.randint(0, 10, (8,), generator=g).to(cuda)
+    ocfg = OptimConfig(lr=0.01, momentum=0.9)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = []
+    try:
+        for layout in (False, True):
+            step = make_train_step(10, compute_dtype=torch.bfloat16)
+            if layout:
+                dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                        world_size=1, rank=0)
+                mesh.make_grid(1)
+                fam = family(spec)
+                lay = (TensorParallel(spec, None, 0, 1) if axis == "model"
+                       else PipelineParallel(spec, None, 0, 1, microbatch=4))
+                params = fam.trees(lay.part(fam.state_dict(params)))[0]
+            st = create_train_state(spec, params, masks, ocfg, 1, device=cuda)
+            if layout:
+                lay.wire(st.model)
+                st.opt.sq_norm = lay.sq_norm
+                if axis == "pipe":
+                    step = make_pp_train_step(lay, 10, compute_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                n0 = launches()
+            for _ in range(2):
+                st, metrics = step(st, (x, y))
+            assert bool(torch.isfinite(metrics["loss"]))
+            out.append({k: v.detach().clone() for k, v in st.params.items()})
+        torch.cuda.synchronize()
+        n = launches() - n0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out[0], out[1], n
+
+
+@pytest.mark.parametrize("size", [224, 384])
+@pytest.mark.parametrize("axis", ["model", "pipe"], ids=["tensor_parallel", "pipeline"])
+def test_one_rank_model_parallel_step_matches_the_plain_step(cuda, axis, size):
+    """The one-rank form of ``train --model-parallel`` and
+    ``--pipeline-parallel`` on the card (NCCL puts no two ranks on one
+    card; ``chip_smoke.py`` phase 21 runs 2 gloo ranks): the parameters
+    after 2 steps within the multi-process tolerance of the plain step's;
+    at 224 the training attention kernels (rows 7-8) forward, at 384 the
+    flash forward and backward (rows 1, 12-13: 2 calls a block, 3 kernels a
+    backward counted once), 12 blocks x 2 steps (x 2 microbatches
+    pipelined)."""
+    plain, got, launches = _one_rank_layout_steps(cuda, axis, size)
+    assert plain.keys() == got.keys()
+    for k, v in plain.items():
+        torch.testing.assert_close(got[k].float(), v.float(), rtol=5e-2, atol=3e-3)
+    per_block = 1 if size == 224 else 2
+    assert launches == 12 * 2 * per_block * (2 if axis == "pipe" else 1)

@@ -264,29 +264,32 @@ def test_seed_in_background_collected_or_strict(voc, monkeypatch, tmp_path, caps
 
 
 # the per-image paths run (--arch swin, --swin-all-windows, --exact-shapes,
-# --cnn-bucket 1, --dinoseg, --visualize); sequence parallelism is refused on
-# them too, data parallelism (DP: A10's data-parallel half) passes
+# --cnn-bucket 1, --dinoseg, --visualize); sequence parallelism (SP: A10's
+# last half) meets the JAX driver's checks, data parallelism (DP) passes
 @pytest.mark.parametrize("flags,item", [
     (["--arch", "resnet", "--exact-shapes", "--visualize", "pred"], "A11"),
     (["--arch", "swin", "--model", "swin_v2_t", "--visualize", "pred"], "A11"),
     (["--model", "mobilenet_v2"], "A5"),
     (["--dtype", "int8", "--data-parallel"], "DP"),
     (["--visualize", "pred"], "A11"), (["--data-parallel"], "DP"),
-    (["--sequence-parallel"], "A10"),
+    (["--sequence-parallel", "--data-parallel"], "SP"),
     (["--arch", "resnet", "--model", "resnet50", "--resnet-dilate", "2", "--cnn-bucket", "1",
       "--data-parallel"], "DP"),
     (["--arch", "swin", "--model", "swin_v2_t", "--dtype", "int8", "--visualize", "pred"],
      "A11"),
     (["--arch", "swin", "--model", "swin_v2_t", "--swin-all-windows", "--sequence-parallel"],
-     "A10")])
+     "SP")])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
-    """Sequence parallelism (A10) is still refused. ``--model mobilenet_v2``
-    (A5), ``--visualize`` (A11) and ``--data-parallel`` (DP) are ported: no
+    """``--model mobilenet_v2`` (A5), ``--visualize`` (A11),
+    ``--data-parallel`` (DP) and ``--sequence-parallel`` (SP) are ported: no
     refusal is left for them (their runs: ``tests/test_torch_mobilenet_lost.py``,
-    ``tests/test_torch_viz.py``, ``tests/test_torch_multiprocess.py``)."""
+    ``tests/test_torch_viz.py``, ``tests/test_torch_multiprocess.py``,
+    ``tests/test_torch_sequence_parallel.py``); sequence parallelism meets
+    the JAX driver's checks: not with ``--data-parallel``, and only where
+    there is a token axis (vit, dino)."""
     argv = ["lost", "--data-path", str(tmp_path), "--device", "cpu", *flags]
-    if item == "A10":
-        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+    if item == "SP":
+        with pytest.raises(SystemExit, match="mutually exclusive|no token dimension to shard"):
             main(argv)
         return
     from vipers_torch.cli.main import _refuse_unported, build_parser

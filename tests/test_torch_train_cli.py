@@ -170,28 +170,46 @@ def test_train_and_evaluate_default_device_raise_without_a_card(data, tmp_path):
     (["--model", "dino_vit_small"], "A2"),
     (["--model", "quantized_resnet18", "--debug-nans"], "A11"),  # so do the aliases
     (["--model", "resnet18", "--resnet-dilate", "2", "--debug-nans"], "A11"),
-    (["--model", NAME, "--pipeline-parallel", "2"], "A10"),
-    (["--model", NAME, "--pp-remat"], "A10"),
-    (["--model", NAME, "--pp-data", "2"], "A10"),
-    (["--model", NAME, "--pp-microbatch", "2"], "A10"),
+    (["--model", NAME, "--pipeline-parallel", "2"], "JAX"),
+    (["--model", NAME, "--pp-remat"], "JAX"),
+    (["--model", NAME, "--pp-data", "2"], "JAX"),
+    (["--model", NAME, "--pp-microbatch", "2"], "JAX"),
     (["--model", NAME, "--data-parallel"], "DP"),
-    (["--model", NAME, "--model-parallel", "2"], "A10"),
+    (["--model", NAME, "--model-parallel", "2"], "JAX"),
     (["--model", NAME, "--profile-dir", "trace"], "A11"),
     (["--model", NAME, "--debug-nans"], "A11"),
 ])
 @pytest.mark.parametrize("cmd", ["train", "evaluate"])
 def test_unported_flags_exit_naming_their_item(cmd, argv, item, tmp_path):
-    """Tensor and pipeline parallelism (A10) and DINO training (A2) exit
-    naming their item. ``--profile-dir`` and ``--debug-nans`` (A11) and
-    ``--data-parallel`` (DP: A10's data-parallel half) are ported: the
-    check passes them (their runs: ``tests/test_torch_profiling.py``,
-    ``tests/test_torch_multiprocess.py``)."""
+    """DINO training (A2) exits naming its item. ``--profile-dir`` and
+    ``--debug-nans`` (A11), ``--data-parallel`` (DP) and tensor and
+    pipeline parallelism (JAX: A10 is ported) pass the check (their runs:
+    ``tests/test_torch_profiling.py``, ``tests/test_torch_multiprocess.py``,
+    ``tests/test_torch_tensor_parallel.py``,
+    ``tests/test_torch_pipeline_parallel.py``); ``train`` then meets the JAX
+    driver's layout checks, which one process fails for ``--model-parallel
+    2`` and ``--pipeline-parallel 2``, while ``evaluate`` ignores the flags,
+    as the JAX sweep does, and so does ``train`` the ``--pp-*`` flags
+    without ``--pipeline-parallel``."""
     argv = [cmd, *argv, "--output-dir", str(tmp_path / "out"), "--device", "cpu"]
-    if item in ("A11", "DP"):
+    if item in ("A11", "DP", "JAX"):
         from vipers_torch.cli.main import build_parser
         from vipers_torch.core.config import config_from_args, refuse_unported
 
-        assert refuse_unported(config_from_args(build_parser().parse_args(argv)), cmd) is None
+        cfg = config_from_args(build_parser().parse_args(argv))
+        assert refuse_unported(cfg, cmd) is None
+        if item != "JAX" or cmd != "train":
+            return
+        from vipers_torch.train.driver import model_spec, parallel_layout
+
+        spec = model_spec(cfg, cfg.train_crop_size)
+        want = {"--pipeline-parallel": "--pipeline-parallel 2 needs 2 devices, have 1",
+                "--model-parallel": "1 devices not divisible by model_parallel=2"}.get(argv[3])
+        if want:
+            with pytest.raises(SystemExit, match=want):
+                parallel_layout(cfg, spec)
+        else:
+            assert parallel_layout(cfg, spec) is None
         return
     with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP {item}\)"):
         tmain(argv)

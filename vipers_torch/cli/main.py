@@ -58,9 +58,18 @@ nothing at world size 1), as the JAX CLI does: ``train``, ``evaluate``,
     torchrun --nproc-per-node 8 -m vipers_torch.cli.main train --model resnet50 \
         --data-path imagenet --batch-size 32 --output-dir out   # global batch 256
 
+``train --model-parallel k`` (a ViT's heads and MLP split over k ranks,
+``parallel.tp``), ``train --pipeline-parallel S [--pp-microbatch m]
+[--pp-remat] [--pp-data D]`` (GPipe over the encoder's layers,
+``parallel.pp``) and ``lost --sequence-parallel`` (the tokens split over
+the ranks, ``parallel.sp``) run across processes the same way::
+
+    torchrun --nproc-per-node 8 -m vipers_torch.cli.main train --model vit_b_16 \
+        --model-parallel 2 --batch-size 32 ...   # 4 data ranks x 2 model ranks
+
 Flags that select what the port does not have yet exit with a message
-naming the ROADMAP item that ports it (tensor, pipeline and sequence
-parallelism: A10).
+naming the ROADMAP item that ports it (``quantize --model-parallel`` on a
+ViT: A10; DINO training: A2).
 """
 
 from __future__ import annotations
@@ -148,7 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
                       help="split the images over the processes of a torchrun or SLURM "
                            "launch (one card a process; alone, the plain run)")
     lost.add_argument("--sequence-parallel", action="store_true",
-                      help="(not ported yet, ROADMAP A10)")
+                      help="shard every forward's tokens over the processes of a torchrun "
+                           "or SLURM launch (vit and dino; batch-1 native-resolution LOST)")
     lost.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                       help="cuda (default) runs the kernels; cpu their plain versions")
 
@@ -338,17 +348,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args):
-    """SystemExit for an unknown ``--model``, or naming the ROADMAP item
-    for what this port cannot run yet (sequence parallelism, A10)."""
+    """SystemExit for an unknown ``--model`` (every flag of ``lost`` is
+    ported; ``--sequence-parallel``'s checks are the driver's)."""
     from vipers_torch.core.registry import build_model
 
     try:
         build_model(args.model)
     except ValueError:
         raise SystemExit(f"vipers_torch lost: unknown model {args.model!r}") from None
-    if args.sequence_parallel:
-        raise SystemExit("vipers_torch lost: --sequence-parallel is not ported yet "
-                         "(ROADMAP A10)")
 
 
 def main(argv=None) -> int:

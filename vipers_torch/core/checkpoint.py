@@ -217,11 +217,21 @@ def infer_vit_image_size(params, patch_size: int):
     return (g * patch_size, g * patch_size)
 
 
+def load_pth(path):
+    """``torch.load`` of a ``.pth`` on the CPU, memory-mapped where the file
+    is in torch's zip format (the tensors are read from the file as they are
+    used, not copied into fresh storage first); a legacy-format file is read
+    whole."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=False, mmap=True)
+    except RuntimeError:
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
 def load_torch_state_dict(path) -> Dict[str, np.ndarray]:
     """``torch.load`` a checkpoint on the CPU (or take what was loaded),
     unwrap ``{"model": ...}``, then ``normalize_torch_state_dict``."""
-    obj = (torch.load(path, map_location="cpu", weights_only=False)
-           if isinstance(path, (str, os.PathLike)) else path)
+    obj = load_pth(path) if isinstance(path, (str, os.PathLike)) else path
     if isinstance(obj, dict) and "model" in obj and isinstance(obj["model"], dict):
         obj = obj["model"]
     if hasattr(obj, "state_dict"):
@@ -914,7 +924,7 @@ def load_train_checkpoint(path, spec) -> dict:
     state dict, DDP's ``module.`` stripped) gives its weights, statistics
     and masks, the rest at their defaults."""
     fam = family(spec)
-    obj = torch.load(path, map_location="cpu", weights_only=False)
+    obj = load_pth(path)
     if "model" not in obj:  # a bare state dict
         obj = {"model": obj}
 
@@ -944,7 +954,7 @@ def average_checkpoints(paths) -> dict:
     ``average_checkpoints``): every float parameter of ``model`` averaged
     in f64 and cast back to its dtype; the BatchNorm statistics, masks and
     every other entry of the first checkpoint kept as they are."""
-    objs = [torch.load(p, map_location="cpu", weights_only=False) for p in paths]
+    objs = [load_pth(p) for p in paths]
     objs = [o if "model" in o else {"model": o} for o in objs]
     out = dict(objs[0])
     sd = dict(objs[0]["model"])

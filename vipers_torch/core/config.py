@@ -2,13 +2,17 @@
 ``TrainConfig``, ``add_train_args`` and ``config_from_args`` with the JAX
 package's flags and defaults, plus ``--device``.
 
-The port trains one model a process, on one card. Data parallelism
-across processes (torchrun or SLURM, ``parallel.mesh``; ``--data-parallel``
-is accepted, and in one process is the plain run) is ported.
-``refuse_unported`` exits, naming the ROADMAP item that ports it, for a
-flag that selects what the port does not have yet: training a DINO
-backbone (A2, DINO training: they serve LOST and ``cluster`` frozen) and
-tensor or pipeline parallelism (A10).
+The port runs one process a card. Data parallelism across processes
+(torchrun or SLURM, ``parallel.mesh``; ``--data-parallel`` is accepted,
+and in one process is the plain run), tensor parallelism
+(``--model-parallel k``, ``parallel.tp``) and pipeline parallelism
+(``--pipeline-parallel S``, ``--pp-microbatch``, ``--pp-remat``,
+``--pp-data``, ``parallel.pp``) are ported; ``train.driver`` checks
+their layouts with the JAX driver's messages, and ``evaluate`` ignores
+them as the JAX sweep does. ``refuse_unported`` exits, naming the ROADMAP
+item that ports it, for a flag that selects what the port does not have
+yet: training a DINO backbone (A2, DINO training: they serve LOST and
+``cluster`` frozen).
 ``--profile-dir`` traces the first training run and ``--debug-nans``
 fails fast on a NaN (``core.profiling``). Every model of the JAX
 registry builds, ``mobilenet_v2`` and the ``quantized_`` aliases
@@ -138,15 +142,19 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--amp", action="store_true", help="bf16 compute")
     p.add_argument("--pipeline-parallel", type=int, default=0,
-                   help="pipeline stages (not ported yet, ROADMAP A10)")
-    p.add_argument("--pp-microbatch", type=int, default=0, help="(ROADMAP A10)")
-    p.add_argument("--pp-remat", action="store_true", help="(ROADMAP A10)")
-    p.add_argument("--pp-data", type=int, default=0, help="(ROADMAP A10)")
+                   help="GPipe stages of a ViT's encoder, one process a stage")
+    p.add_argument("--pp-microbatch", type=int, default=0,
+                   help="pipeline microbatch (global rows; 0: the largest divisor of the "
+                        "batch not above batch // stages)")
+    p.add_argument("--pp-remat", action="store_true",
+                   help="recompute each pipelined block in the backward")
+    p.add_argument("--pp-data", type=int, default=0,
+                   help="data-parallel pipelines (a (data, pipe) grid of processes)")
     p.add_argument("--data-parallel", action="store_true",
                    help="data parallelism over the processes of a torchrun or SLURM "
                         "launch (one card a process; alone, the plain run)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="tensor parallelism (not ported yet, ROADMAP A10)")
+                   help="tensor parallelism: a ViT's heads and MLP split over k processes")
     p.add_argument("--native-decode", action="store_true",
                    help="C++ libjpeg decode (bilinear resize; PIL without libjpeg)")
     p.add_argument("--profile-dir", default="",
@@ -195,7 +203,3 @@ def refuse_unported(cfg: TrainConfig, cmd: str = "train"):
         raise SystemExit(f"vipers_torch {cmd}: unknown model {cfg.model!r}") from None
     if spec.family == "dino_vit":
         no(f"--model {cfg.model} (DINO training)", 2)
-    if (cfg.pipeline_parallel or cfg.pp_microbatch or cfg.pp_remat or cfg.pp_data
-            or cfg.model_parallel != 1):
-        no("tensor and pipeline parallelism (--model-parallel, --pipeline-parallel, "
-           "--pp-*)", 10)

@@ -195,7 +195,7 @@ def make_device_normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.floa
             n, h, w, _ = x.shape
             # drawn for the global batch of a data-parallel run, this rank's rows kept
             rows = parallel.global_rows(n)
-            draws = draw_random_erase(generator, n * parallel.world(), h, w, random_erase_prob)
+            draws = draw_random_erase(generator, n * parallel.data_world(), h, w, random_erase_prob)
             x = apply_random_erase(x, *(d[rows] for d in draws))
         return x.to(dtype)
 

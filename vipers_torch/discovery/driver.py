@@ -50,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -60,7 +61,8 @@ import torch.nn.functional as F
 
 from vipers_torch.core.checkpoint import (family, infer_num_classes,
                                           infer_representation_size, infer_vit_image_size,
-                                          load_torch_state_dict, reference_sweep_stem)
+                                          load_pth, load_torch_state_dict,
+                                          reference_sweep_stem)
 from vipers_torch.core.device import resolve_device
 from vipers_torch.core.registry import build_model, build_module
 from vipers_torch.data import native
@@ -74,6 +76,7 @@ from vipers_torch.models.interpolate import resize_weight_matrix_np
 from vipers_torch.models.vit import scrambled_qkv_gather
 from vipers_torch.ops.flash_attention import flash_min_t
 from vipers_torch.parallel import mesh as parallel
+from vipers_torch.parallel.sp import sequence_parallel
 from vipers_torch.pruning.structured import arch_sidecar
 from vipers_torch.train.quantize import (int8_dynamic_sites, quantize_params_int8,
                                          static_qparams_from_observers)
@@ -140,14 +143,19 @@ class LostFeatureExtractor:
     float), the network in bf16, and every baked Dense and Conv executed
     in real int8 (``int8_dynamic_sites``) with input qparams from the
     checkpoint's calibrated ``observers`` where given, else dynamic
-    per-tensor ranges that leave bucket- and seq-pad token rows out."""
+    per-tensor ranges that leave bucket- and seq-pad token rows out.
+
+    ``sequence_parallel``: the transformer forwards run inside
+    ``parallel.sp.sequence_parallel`` (the tokens sharded over every rank;
+    the JAX extractor's ``sequence_mesh``)."""
 
     def __init__(self, spec, params, masks=None, which_features: str = "k",
                  bucket: int = 4, compute_dtype=None,
                  device=None, batch_stats=None, cnn_bucket: int = 4,
                  swin_all_windows: bool = False, need_attn: bool = False,
-                 observers=None):
+                 observers=None, sequence_parallel: bool = False):
         self.device = resolve_device(device)
+        self.sequence_parallel = sequence_parallel
         self.spec = spec
         self.which = which_features
         self.bucket = bucket
@@ -290,7 +298,8 @@ class LostFeatureExtractor:
         kernel engages."""
         images = images.to(self.compute_dtype)
         spm = seq_pad(images.shape, self.spec.patch_size, need_attn)
-        with self._int8_scope(token_mask, spm):
+        tokens = sequence_parallel() if self.sequence_parallel else contextlib.nullcontext()
+        with tokens, self._int8_scope(token_mask, spm):
             return self.model(images, override_pos_embedding=pos.to(self.compute_dtype),
                               token_mask=token_mask, need_attn=need_attn,
                               seq_pad_multiple=spm)[1]
@@ -650,7 +659,7 @@ def load_lost_checkpoint(path: str, spec):
             "checkpoint, or the .pth `vipers_torch train` writes. An orbax checkpoint "
             "directory of the JAX package must be converted first with "
             "vipers.core.checkpoint.export_vit_torchvision and torch.save")
-    obj = torch.load(path, map_location="cpu", weights_only=False)
+    obj = load_pth(path)
     observers = obj.get("observers") if isinstance(obj, dict) else None
     params, batch_stats, masks = family(spec).import_pth(load_torch_state_dict(obj), spec)
     return params, batch_stats, masks, observers
@@ -679,6 +688,28 @@ class _ProcessShardDataset:
 
     def __getattr__(self, name):
         return getattr(self._ds, name)
+
+
+def _sequence_parallel_on(args) -> bool:
+    """``--sequence-parallel``'s checks and messages (the JAX driver's):
+    whether the extractor's forwards shard their tokens over the ranks
+    (not without the flag; not with one process, which warns and runs the
+    plain forward with the kernels on)."""
+    if not getattr(args, "sequence_parallel", False):
+        return False
+    if getattr(args, "data_parallel", False):
+        raise SystemExit("--sequence-parallel and --data-parallel are mutually exclusive "
+                         "(token-axis vs batch-axis sharding)")
+    if args.arch not in ("vit", "dino"):
+        raise SystemExit("--sequence-parallel shards the transformer token axis; "
+                         f"arch {args.arch!r} has no token dimension to shard")
+    if parallel.world() < 2:
+        warnings.warn("--sequence-parallel ignored: only 1 device visible (token-axis "
+                      "sharding needs >= 2); running single-device with the fast kernels "
+                      "enabled")
+        return False
+    print(f"LOST sequence-parallel over {parallel.world()} devices (token axis)")
+    return True
 
 
 def run_lost(args) -> int:
@@ -710,8 +741,15 @@ def run_lost(args) -> int:
     ``preds.pkl`` and the results txt; each rank draws its own images'
     ``--visualize`` files (one file an image), so the files are those of the
     one-process run. ``--data-parallel`` in one process is
-    the plain run."""
+    the plain run.
+
+    ``--sequence-parallel`` (``parallel.sp``; vit and dino, not with
+    ``--data-parallel``) shards every forward's tokens over the ranks
+    instead: every rank reads every image, runs its share of the tokens
+    and the whole LOST core, and rank 0 writes. With one process it warns
+    and runs the plain forward, kernels on, as the JAX package does."""
     t_start = time.time()
+    tokens_sharded = _sequence_parallel_on(args)
     nproc, rank = parallel.world(), parallel.rank()
     device = resolve_device(getattr(args, "device", None))
     image_path = getattr(args, "image_path", None)
@@ -726,6 +764,8 @@ def run_lost(args) -> int:
             args.dataset, args.set, args.data_path, no_hard=args.no_hard,
             coco_annotations=getattr(args, "coco_annotations", None),
             coco20k_list=getattr(args, "coco20k_list", None))
+    if tokens_sharded:
+        nproc = 1  # every rank runs every image: nothing to gather
     if nproc > 1:
         dataset = _ProcessShardDataset(dataset, rank, nproc)
 
@@ -796,7 +836,8 @@ def run_lost(args) -> int:
                                      cnn_bucket=cnn_bucket,
                                      swin_all_windows=bool(getattr(args, "swin_all_windows",
                                                                    False)),
-                                     need_attn=dinoseg, observers=observers)
+                                     need_attn=dinoseg, observers=observers,
+                                     sequence_parallel=tokens_sharded)
     pipeline = (None if per_image
                 else extractor.make_batched_cnn_pipeline(k_patches=args.k_patches) if cnn
                 else extractor.make_batched_pipeline(k_patches=args.k_patches))

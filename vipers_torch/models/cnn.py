@@ -95,7 +95,7 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, w, b, False, 0.0,
                                 self.eps)
         # flax's statistics: mean and E[x^2] - mean^2 clamped at 0, in f32
-        if parallel.world() > 1:
+        if parallel.data_world() > 1:
             mean, ex2 = _global_moments(x)
         else:
             mean, ex2 = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))

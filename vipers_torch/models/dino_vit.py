@@ -17,7 +17,10 @@ without ``need_attn`` goes to the flash kernel (``ops/flash_attention.py``;
 only the last block asks for the probabilities), and in bf16 at inference
 norm2 -> fc1 -> GELU goes to the fused kernel (``ops/fused_mlp.py``) when
 the row count passes the JAX block rule; otherwise the key-masked einsum
-and LayerNorm -> Linear -> GELU (tanh in bf16, erf in f32). Modules carry
+and LayerNorm -> Linear -> GELU (tanh in bf16, erf in f32). Under sequence
+parallelism (``parallel.sp``) a rank holds its share of the tokens, gathers
+k and v in each block and the last block's outputs whole at the end; both
+kernels are off there, as in the JAX package. Modules carry
 the flax names (``block_i.attn.qkv``), so the state dict is the flax tree
 renamed (``core.checkpoint``).
 """
@@ -36,6 +39,7 @@ from vipers_torch.models.vit import LayerNorm, PatchConv, _lecun_normal
 from vipers_torch.ops.flash_attention import attention_reference, flash_attention, flash_min_t
 from vipers_torch.ops.fused_mlp import fused_ln_dense_gelu, fused_supported
 from vipers_torch.ops.tokens import pad_tokens, unpad_tokens
+from vipers_torch.parallel import sp
 
 
 class DinoAttention(nn.Module):
@@ -55,7 +59,16 @@ class DinoAttention(nn.Module):
         scale = hd ** -0.5
         qkv_out = self.qkv(x)
         qkv = qkv_out.reshape(n, t, 3, h, hd).permute(2, 0, 3, 1, 4)
-        if not need_attn and t >= flash_min_t():
+        seq = sp.sequence_axis()
+        if seq is not None:
+            # this rank's queries against every rank's keys
+            q, k, v = qkv.unbind(0)
+            k, v = sp.gather_tokens(k, seq, dim=2), sp.gather_tokens(v, seq, dim=2)
+            mask = token_mask[:, None, None, :] if token_mask is not None else None
+            out, attn = attention_reference(q, k, v, scale=scale, mask=mask)
+            if not need_attn:
+                attn = None
+        elif not need_attn and t >= flash_min_t():
             q, k, v = qkv.contiguous().unbind(0)
             out = flash_attention(q, k, v, valid=token_mask, scale=scale)
             attn = None
@@ -86,7 +99,7 @@ class DinoBlock(nn.Module):
             n1 = n1 + tap_delta  # the explain tap, as the ViT's
         y, attn, qkv_out = self.attn(n1, token_mask=token_mask, need_attn=need_attn)
         x = x + y
-        if fused_supported(x, train=self.training):
+        if fused_supported(x, train=self.training) and sp.sequence_axis() is None:
             z = fused_ln_dense_gelu(x, self.norm2.weight, self.norm2.bias,
                                     self.fc1.weight.t(), self.fc1.bias, eps=self.norm2.eps)
         else:
@@ -144,6 +157,8 @@ class DinoVisionTransformer(nn.Module):
         seq_len = gh * gw + 1
         if seq_pad_multiple:
             x, token_mask = pad_tokens(x, token_mask, seq_len, seq_pad_multiple)
+        x, token_mask = sp.shard_tokens(x, token_mask)
+        seq = sp.sequence_axis()
         attn = qkv_out = qkv_input = None
         for i in range(c.depth):
             last = i == c.depth - 1
@@ -152,6 +167,10 @@ class DinoVisionTransformer(nn.Module):
                 tap_delta=tap_delta if last else None)
             if last:
                 attn, qkv_out, qkv_input = attn_i, qkv_i, n1_i
+        if seq is not None:
+            x, qkv_out, qkv_input = (seq.gather(z, 1, seq_len) for z in (x, qkv_out, qkv_input))
+            attn = seq.gather(attn, 2, seq_len)
+            attn = None if attn is None else attn[..., :seq_len]
         if seq_pad_multiple:
             x, qkv_out, attn = unpad_tokens(x, qkv_out, attn, seq_len)
             qkv_input = qkv_input[:, :seq_len]

@@ -11,7 +11,8 @@ draws nothing. The bits differ from JAX's; the keep rate and the ``1 /
 keep`` scaling are the same, so the two packages agree by distribution
 and exactly at rate 0. In a data-parallel run a mask is drawn for the
 global batch and each rank keeps its own rows (``parallel.mesh.draw_rand``),
-so P ranks draw what one process draws at P times the batch.
+so P ranks draw what one process draws at P times the batch; a
+tensor-parallel rank keeps its heads' or MLP columns' slice as well.
 """
 
 from __future__ import annotations
@@ -54,16 +55,19 @@ def drop_path(y, rate: float, training: bool, generator: Optional[torch.Generato
     return y * mask.to(y.dtype) / keep
 
 
-def dropout(x, rate: float, training: bool, generator: Optional[torch.Generator]):
+def dropout(x, rate: float, training: bool, generator: Optional[torch.Generator],
+            shard: Optional[tuple] = None):
     """flax ``nn.Dropout``: each element of ``x`` kept with probability
     ``1 - rate`` and scaled by ``1 / (1 - rate)``, the mask drawn from
     ``generator``. Identity in eval mode or at rate 0; a train forward at
-    a rate above 0 needs a generator."""
+    a rate above 0 needs a generator. ``shard`` (dim, j, k): ``x`` is a
+    tensor-parallel rank's slice j of k along ``dim`` and keeps that slice
+    of the full tensor's mask (``parallel.mesh.draw_rand``)."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a generator "
                          "(models.stochastic.dropout_generator)")
     keep = 1.0 - rate
-    mask = parallel.draw_rand(x.shape, generator, x.device) < keep
+    mask = parallel.draw_rand(x.shape, generator, x.device, shard) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -34,6 +34,22 @@ after the attention block and after the MLP's GELU and fc2,
 ``attention_dropout_rate`` on the attention probabilities, in train mode
 only, the masks drawn from the forward's ``generator``
 (``models.stochastic``).
+
+Tensor parallelism (``parallel.tp``): a rank's blocks are the slim
+rectangular blocks at H/k heads and F/k MLP columns, with ``tp`` set to
+(model group, j, k). The block then wraps attention and the MLP in the two
+Megatron collectives (``tp.copy_to_model`` after each LayerNorm,
+``tp.reduce_from_model`` before the out and fc2 biases, which are added
+once after the reduce), and the dropout on the probabilities and after the
+GELU keeps the rank's slice of the full tensor's draw. The kernels stay on
+inside the rank.
+
+Sequence parallelism (``parallel.sp``): while ``sp.sequence_axis()`` is
+set, the forward holds the rank's share of the tokens; each block's
+attention gathers k and v from every rank, and the last block's ln_1
+output, its attention and the final tokens are gathered whole. As in the
+JAX package, the flash and fused-MLP kernels and the automatic token pad
+are off under it.
 """
 
 from __future__ import annotations
@@ -60,6 +76,7 @@ from vipers_torch.ops.flash_attention import (attention_probs,
                                               packed_layout_supported,
                                               packed_qkv_permutation)
 from vipers_torch.models.stochastic import dropout
+from vipers_torch.parallel import sp, tp as tensor_parallel
 from vipers_torch.ops.fused_mlp import fused_ln_dense_gelu, fused_supported
 from vipers_torch.ops.tokens import pad_tokens, round_up, unpad_tokens
 
@@ -134,6 +151,7 @@ class MultiHeadAttention(nn.Module):
         inner = num_heads * self.head_dim
         self.qkv = nn.Linear(dim, 3 * inner)
         self.out = nn.Linear(inner, dim)
+        self.tp = None  # (model group, j, k) on a tensor-parallel rank
 
     def forward(self, x, token_mask=None, need_attn: bool = True, generator=None):
         n, t, d = x.shape
@@ -141,6 +159,9 @@ class MultiHeadAttention(nn.Module):
         inner = h * hd
         scale = float(hd) ** -0.5
         drop = self.training and self.dropout_rate > 0  # the kernels keep no probs
+        seq = sp.sequence_axis()
+        if seq is not None:
+            return self._sequence_parallel(x, token_mask, need_attn, seq, scale)
         use_flash = not need_attn and not drop and t >= flash_min_t()
         if (use_flash and inner == d and packed_layout_supported(d, h)
                 and os.environ.get("VIPERS_PACKED_ATTENTION") == "1"):
@@ -149,7 +170,7 @@ class MultiHeadAttention(nn.Module):
             rows = _packed_rows(d, h, x.device)
             qkv_p = F.linear(x, self.qkv.weight[rows], self.qkv.bias[rows])
             y = flash_attention_packed(qkv_p, valid=token_mask, num_heads=h, scale=scale)
-            return self.out(y), None
+            return tensor_parallel.row_linear(y, self.out, self.tp), None
         qkv = self.qkv(x).reshape(n, t, 3, h, hd).permute(2, 0, 3, 1, 4)
         if (self.training and not need_attn and not use_flash
                 and self.dropout_rate == 0 and fused_attention_supported(t, hd)
@@ -165,13 +186,27 @@ class MultiHeadAttention(nn.Module):
             mask = token_mask[:, None, None, :] if token_mask is not None else None
             if drop:
                 attn = attention_probs(q, k, scale=scale, mask=mask)
-                out = torch.matmul(dropout(attn, self.dropout_rate, True, generator), v)
+                out = torch.matmul(dropout(attn, self.dropout_rate, True, generator,
+                                           shard=tensor_parallel.shard_of(self.tp, 1)), v)
             else:
                 out, attn = attention_reference(q, k, v, scale=scale, mask=mask)
             if not need_attn:
                 attn = None
-        out = self.out(out.transpose(1, 2).reshape(n, t, inner))
+        out = tensor_parallel.row_linear(out.transpose(1, 2).reshape(n, t, inner), self.out,
+                                         self.tp)
         return out, attn
+
+    def _sequence_parallel(self, x, token_mask, need_attn, seq, scale):
+        """This rank's queries against every rank's keys (``sp.gather_tokens``
+        of k and v), the key mask the whole padded sequence's; returns
+        (out, the rank's attention rows or None)."""
+        n, t, _ = x.shape
+        h, hd = self.num_heads, self.head_dim
+        q, k, v = self.qkv(x).reshape(n, t, 3, h, hd).permute(2, 0, 3, 1, 4).unbind(0)
+        k, v = sp.gather_tokens(k, seq, dim=2), sp.gather_tokens(v, seq, dim=2)
+        mask = token_mask[:, None, None, :] if token_mask is not None else None
+        out, attn = attention_reference(q, k, v, scale=scale, mask=mask)
+        return self.out(out.transpose(1, 2).reshape(n, t, h * hd)), attn if need_attn else None
 
 
 class MLPBlock(nn.Module):
@@ -183,6 +218,7 @@ class MLPBlock(nn.Module):
         self.dropout_rate = dropout_rate
         self.fc1 = nn.Linear(dim, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, dim)
+        self.tp = None  # (model group, j, k) on a tensor-parallel rank
 
     def forward(self, x, prefused: bool = False, generator=None):
         if prefused:
@@ -190,8 +226,10 @@ class MLPBlock(nn.Module):
         else:
             y = self.fc1(x)
             y = F.gelu(y, approximate="tanh" if y.dtype == torch.bfloat16 else "none")
-        y = dropout(y, self.dropout_rate, self.training, generator)
-        return dropout(self.fc2(y), self.dropout_rate, self.training, generator)
+        y = dropout(y, self.dropout_rate, self.training, generator,
+                    shard=tensor_parallel.shard_of(self.tp, 2))
+        return dropout(tensor_parallel.row_linear(y, self.fc2, self.tp), self.dropout_rate,
+                       self.training, generator)
 
 
 class EncoderBlock(nn.Module):
@@ -208,19 +246,21 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x, token_mask=None, need_attn: bool = True, tap_delta=None,
                 generator=None):
+        tp = self.attention.tp
         ln1 = self.ln_1(x)
         if tap_delta is not None:
             ln1 = ln1 + tap_delta  # the explain tap: GradCAM's ViT target layer
-        y, attn = self.attention(ln1, token_mask=token_mask, need_attn=need_attn,
-                                 generator=generator)
+        y, attn = self.attention(tensor_parallel.copy_to_model(ln1, tp), token_mask=token_mask,
+                                 need_attn=need_attn, generator=generator)
         x = x + dropout(y, self.dropout_rate, self.training, generator)
-        if fused_supported(x, train=self.training):
+        if fused_supported(x, train=self.training) and sp.sequence_axis() is None:
+            # inference only (no cotangent for the copy to sum)
             z = fused_ln_dense_gelu(
                 x, self.ln_2.weight, self.ln_2.bias,
                 self.mlp.fc1.weight.t(), self.mlp.fc1.bias, eps=self.ln_2.eps)
             z = self.mlp(z, prefused=True, generator=generator)
         else:
-            z = self.mlp(self.ln_2(x), generator=generator)
+            z = self.mlp(tensor_parallel.copy_to_model(self.ln_2(x), tp), generator=generator)
         return x + z, ln1, attn
 
 
@@ -231,7 +271,8 @@ def _auto_seq_pad(seq_len: int, dtype, train: bool, need_attn: bool, cfg):
     stays unpadded. A pad that would push T across ``flash_min_t()`` is not
     made: the gate then decides on the true length. Under attention dropout
     no kernel engages, so nothing is padded."""
-    if not train or need_attn or seq_len % 128 == 0 or cfg.attention_dropout_rate > 0:
+    if (not train or need_attn or seq_len % 128 == 0 or cfg.attention_dropout_rate > 0
+            or sp.sequence_axis() is not None):
         return None
     pad_t = round_up(seq_len, 128)
     min_t = flash_min_t()
@@ -304,6 +345,35 @@ class VisionTransformer(nn.Module):
         to ``_auto_seq_pad``'s choice. ``tap_delta``: the explain tap, (N, T,
         D) added to the last block's ln_1 output, which ``aux["qkv_input"]``
         returns with it. ``generator``: the dropout masks in train mode."""
+        x, token_mask, seq_len, seq_pad_multiple = self.embed(
+            x, override_pos_embedding, token_mask, need_attn, seq_pad_multiple, generator)
+        x, token_mask = sp.shard_tokens(x, token_mask)
+        seq = sp.sequence_axis()
+        qkv_input = attn = None
+        last = len(self.layers) - 1
+        for i, block in enumerate(self.layers):
+            x, ln1, attn_i = block(x, token_mask=token_mask,
+                                   need_attn=need_attn and i == last,
+                                   tap_delta=tap_delta if i == last else None,
+                                   generator=generator)
+            if i == last:
+                qkv_input, attn = ln1, attn_i
+        if seq is not None:
+            # the LOST core and the head read whole sequences
+            x, qkv_input = seq.gather(x, 1, seq_len), seq.gather(qkv_input, 1, seq_len)
+            attn = seq.gather(attn, 2, seq_len)
+            attn = None if attn is None else attn[..., :seq_len]
+        if seq_pad_multiple:
+            x, qkv_input, attn = unpad_tokens(x, qkv_input, attn, seq_len)
+        logits, cls_feat = self.head_logits(x)
+        return logits, {"qkv_input": qkv_input, "attn": attn, "cls": cls_feat}
+
+    def embed(self, x, override_pos_embedding=None, token_mask=None, need_attn: bool = True,
+              seq_pad_multiple: Optional[int] = None,
+              generator: Optional[torch.Generator] = None):
+        """The patch embedding, CLS token, position embedding (and its
+        dropout) and the once-pad of the tokens: (tokens, token mask, true
+        token count, the pad multiple or None)."""
         c = self.cfg
         p = c.patch_size
         n, h, w, _ = x.shape
@@ -324,24 +394,17 @@ class VisionTransformer(nn.Module):
         x = dropout(x + pos, c.dropout_rate, self.training, generator)
         if seq_pad_multiple:
             x, token_mask = pad_tokens(x, token_mask, seq_len, seq_pad_multiple)
-        qkv_input = attn = None
-        last = len(self.layers) - 1
-        for i, block in enumerate(self.layers):
-            x, ln1, attn_i = block(x, token_mask=token_mask,
-                                   need_attn=need_attn and i == last,
-                                   tap_delta=tap_delta if i == last else None,
-                                   generator=generator)
-            if i == last:
-                qkv_input, attn = ln1, attn_i
-        if seq_pad_multiple:
-            x, qkv_input, attn = unpad_tokens(x, qkv_input, attn, seq_len)
+        return x, token_mask, seq_len, seq_pad_multiple
+
+    def head_logits(self, x):
+        """The final LayerNorm, (pre-logits and) the head on the CLS token of
+        the encoder's output: (logits, the CLS feature)."""
         x = self.ln(x)
         cls_feat = x[:, 0]
         y = cls_feat
         if self.pre_logits is not None:
             y = torch.tanh(self.pre_logits(y))
-        logits = self.head(y) if self.head is not None else y
-        return logits, {"qkv_input": qkv_input, "attn": attn, "cls": cls_feat}
+        return (self.head(y) if self.head is not None else y), cls_feat
 
 
 def split_qkv_torchvision(qkv_dump, num_heads: int):

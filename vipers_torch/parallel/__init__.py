@@ -1,2 +1,4 @@
-"""Multi-process data parallelism (port of ``vipers/parallel``'s data-parallel
-half): one process a card, ``torch.distributed``, ``parallel.mesh``."""
+"""Multi-process parallelism, one process a card (port of ``vipers/parallel``):
+``mesh`` (the rendezvous, the process grid, data parallelism), ``tp``
+(tensor parallelism), ``pp`` (pipeline parallelism), ``sp`` (sequence
+parallelism)."""

@@ -1,5 +1,4 @@
-"""Data parallelism across processes, one process a card (port of the
-data-parallel half of ``vipers/parallel/mesh.py``).
+"""The process grid, one process a card (port of ``vipers/parallel/mesh.py``).
 
 The JAX package runs one program over a device mesh: its batch is sharded
 over the mesh's data axis, XLA inserts the gradient all-reduce, and the
@@ -30,6 +29,18 @@ mesh gave for free is explicit here:
   wait. Every rank holds the same parameters (each takes the averaged
   update), so no gather is needed before a write (the JAX package's
   ``host_replicated_tree``).
+
+- ``make_grid``: the W ranks factored into a (data, inner) grid, the inner
+  index fastest (rank = d * k + j), as ``make_mesh`` lays out JAX devices
+  (``reshape(n // k, k)``). The inner axis is the model axis of
+  ``--model-parallel k`` (``parallel.tp``) or the pipe axis of
+  ``--pipeline-parallel S --pp-data D`` (``parallel.pp``). Each rank
+  belongs to one data group (the ranks of its inner index) and one inner
+  group (the ranks of its data index). Without a grid the data group is
+  every rank and the inner group this rank alone. Every helper above that
+  speaks of "the ranks" of a batch (the gradient average, the global-batch
+  BatchNorm, the random draws, the roll, the eval sums) works over the
+  data group: the ranks of one inner group hold the same batch.
 
 Every rank must call the collectives here in the same order. The process
 group's timeout (``TIMEOUT_S``) bounds every collective, the first one
@@ -125,6 +136,8 @@ def maybe_initialize_distributed(device="cuda") -> bool:
 
 
 _SOLO = [False]
+# the (data, inner) grid of make_grid: {"inner", "data_group", "inner_group"}
+_GRID: dict = {}
 
 
 def active() -> bool:
@@ -153,6 +166,55 @@ def rank() -> int:
     return dist.get_rank() if active() else 0
 
 
+def make_grid(inner: int, axis: str = "model"):
+    """Factor the ranks into the (data, ``axis``) grid with ``inner`` ranks
+    a row (rank = d * inner + j) and make its groups; every rank calls it,
+    in the same order. ``inner`` 1 clears the grid. The caller checks that
+    ``inner`` divides the world."""
+    _GRID.clear()
+    if inner <= 1 or not active():
+        return
+    w = world()
+    if w % inner:
+        raise ValueError(f"{w} devices not divisible by {axis}={inner}")
+    data_groups = [dist.new_group([d * inner + j for d in range(w // inner)])
+                   for j in range(inner)]
+    inner_groups = [dist.new_group([d * inner + j for j in range(inner)])
+                    for d in range(w // inner)]
+    r = rank()
+    _GRID.update(inner=inner, data_group=data_groups[r % inner],
+                 inner_group=inner_groups[r // inner])
+
+
+def inner_world() -> int:
+    """The inner axis' size (k model ranks, S stages); 1 without a grid."""
+    return _GRID["inner"] if active() and _GRID else 1
+
+
+def inner_rank() -> int:
+    """This rank's index j on the inner axis (its model shard, its stage)."""
+    return rank() % inner_world()
+
+
+def inner_group():
+    return _GRID.get("inner_group") if active() else None
+
+
+def data_world() -> int:
+    """The data axis' size: the ranks that hold distinct batches."""
+    return world() // inner_world()
+
+
+def data_rank() -> int:
+    return rank() // inner_world()
+
+
+def data_group():
+    """The group of the ranks that share this rank's inner index (None: the
+    whole world, or no process group)."""
+    return _GRID.get("data_group") if active() else None
+
+
 def is_main() -> bool:
     """Rank 0, or a run without a process group: the rank that writes."""
     return rank() == 0
@@ -163,21 +225,26 @@ def barrier():
         dist.barrier()
 
 
-def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all-reduce of ``t`` over the ranks (identity without a
-    process group)."""
-    if active():
-        dist.all_reduce(t, op)
+def group_size(group=None) -> int:
+    return dist.get_world_size(group) if active() else 1
+
+
+def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """In-place all-reduce of ``t`` over ``group`` (None: every rank;
+    identity without a process group)."""
+    if active() and group_size(group) > 1:
+        dist.all_reduce(t, op, group=group)
     return t
 
 
-def all_gather_tensor(t: torch.Tensor) -> List[torch.Tensor]:
-    """``t`` from every rank, in rank order (equal shapes)."""
-    if not active():
+def all_gather_tensor(t: torch.Tensor, group=None) -> List[torch.Tensor]:
+    """``t`` from every rank of ``group`` (None: every rank), in rank order
+    (equal shapes)."""
+    if not active() or group_size(group) == 1:
         return [t]
     t = t.contiguous()
-    out = [torch.empty_like(t) for _ in range(world())]
-    dist.all_gather(out, t)
+    out = [torch.empty_like(t) for _ in range(group_size(group))]
+    dist.all_gather(out, t, group=group)
     return out
 
 
@@ -191,52 +258,56 @@ def broadcast_object(obj):
     return box[0]
 
 
-def all_gather_object(obj) -> list:
-    """[obj of rank 0, ..., obj of rank P-1] (pickled host objects); [obj]
-    without a process group. Every rank must call it."""
-    if not active():
+def all_gather_object(obj, group=None) -> list:
+    """[obj of the group's first rank, ..., of its last] (pickled host
+    objects; ``group`` None: every rank); [obj] without a process group.
+    Every rank of the group must call it."""
+    if not active() or group_size(group) == 1:
         return [obj]
-    out = [None] * world()
-    dist.all_gather_object(out, obj)
+    out = [None] * group_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        return all_reduce_(x.clone())
+        return all_reduce_(x.clone(), group=data_group())
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.clone())
+        return all_reduce_(g.clone(), group=data_group())
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable: the backward sums
-    the cotangents over the ranks too, so each rank's gradient holds every
-    rank's loss terms that flow through this sum (the global-batch
+    """The sum of ``x`` over the data group, differentiable: the backward
+    sums the cotangents over the ranks too, so each rank's gradient holds
+    every rank's loss terms that flow through this sum (the global-batch
     BatchNorm's). Identity without a process group."""
-    return _AllReduceSum.apply(x) if active() else x
+    return _AllReduceSum.apply(x) if active() and data_world() > 1 else x
 
 
-def average_gradients(grads: Dict[str, torch.Tensor], extras=()) -> tuple:
-    """(grads, extras) averaged over the ranks: one flat all-reduce a dtype
-    of every gradient and of the ``extras`` scalars (the step's metrics),
-    divided by the world size. Each rank's gradient is that of its mean
-    loss over equal per-rank batches, so the average is the gradient of the
-    global-batch mean. Unchanged without a process group."""
-    if not active():
+def average_gradients(grads: Dict[str, torch.Tensor], extras=(), group="data") -> tuple:
+    """(grads, extras) averaged over ``group`` (by default the data group):
+    one flat all-reduce a dtype of every gradient and of the ``extras``
+    scalars (the step's metrics), divided by the group's size. Each rank's
+    gradient is that of its mean loss over equal per-rank batches, so the
+    average is the gradient of the global-batch mean. Unchanged without a
+    process group."""
+    if group == "data":
+        group = data_group()
+    n = group_size(group)
+    if not active() or n == 1:
         return grads, tuple(extras)
     items = list(grads.items())
     tensors = [g for _, g in items] + [torch.as_tensor(e) for e in extras]
-    n = world()
     out = [None] * len(tensors)
     by_dtype: Dict[torch.dtype, list] = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
     for dt, idx in by_dtype.items():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        all_reduce_(flat)
+        all_reduce_(flat, group=group)
         flat = flat / n
         off = 0
         for i in idx:
@@ -247,39 +318,55 @@ def average_gradients(grads: Dict[str, torch.Tensor], extras=()) -> tuple:
             tuple(out[len(items):]))
 
 
-def reduce_min_max(mn: torch.Tensor, mx: torch.Tensor):
-    """(global min, global max) of per-rank scalars (an observer's batch
-    range over the global batch)."""
-    if not active():
+def reduce_min_max(mn: torch.Tensor, mx: torch.Tensor, group="data"):
+    """(global min, global max) of per-rank scalars over ``group`` (by
+    default the data group: an observer's batch range over the global
+    batch; the sequence-parallel group: a range over the token shards)."""
+    if group == "data":
+        group = data_group()
+    if not active() or group_size(group) == 1:
         return mn, mx
-    packed = all_reduce_(torch.stack([-mn.float(), mx.float()]), dist.ReduceOp.MAX)
+    packed = all_reduce_(torch.stack([-mn.float(), mx.float()]), dist.ReduceOp.MAX,
+                         group=group)
     return -packed[0], packed[1]
 
 
-def draw_rand(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+def draw_rand(shape, generator: Optional[torch.Generator], device,
+              shard: Optional[tuple] = None) -> torch.Tensor:
     """``torch.rand(shape)`` drawn as the global batch would draw it:
-    ``shape[0]`` is this rank's share of the batch; with P ranks the draw
-    is (P * shape[0], ...) and the rank keeps rows [rank * n, (rank + 1) *
-    n). One rank draws ``shape`` itself."""
-    p = world()
-    if p <= 1:
+    ``shape[0]`` is this rank's share of the batch; with P data ranks the
+    draw is (P * shape[0], ...) and the rank keeps rows [r * n, (r + 1) *
+    n). ``shard`` (dim, j, k): ``shape[dim]`` is shard j of k of the full
+    tensor's (a tensor-parallel rank's heads or MLP columns): the full
+    width is drawn and the rank keeps its slice. One rank draws ``shape``
+    itself."""
+    p = data_world()
+    full_shape = [shape[0] * p, *shape[1:]]
+    if shard is not None:
+        full_shape[shard[0]] *= shard[2]
+    if tuple(full_shape) == tuple(shape):
         return torch.rand(shape, generator=generator, device=device)
-    full = torch.rand((shape[0] * p,) + tuple(shape[1:]), generator=generator, device=device)
-    return full[global_rows(shape[0])]
+    full = torch.rand(full_shape, generator=generator, device=device)
+    if p > 1:
+        full = full[global_rows(shape[0])]
+    if shard is not None:
+        dim, j, _k = shard
+        full = full.narrow(dim, j * shape[dim], shape[dim])
+    return full
 
 
 def global_rows(n: int) -> slice:
-    """This rank's rows of a global batch of P * ``n`` rows."""
-    r = rank()
+    """This rank's rows of a global batch of P * ``n`` rows (P data ranks)."""
+    r = data_rank()
     return slice(r * n, (r + 1) * n)
 
 
 def roll_batch(t: torch.Tensor) -> torch.Tensor:
     """``torch.roll(global batch, 1, dims=0)``, this rank's rows: each
-    rank's first row is the previous rank's last (rank 0 takes the last
-    rank's)."""
-    p = world()
+    rank's first row is the previous data rank's last (rank 0 takes the
+    last rank's)."""
+    p = data_world()
     if p <= 1:
         return torch.roll(t, 1, dims=0)
-    last = all_gather_tensor(t[-1:])
-    return torch.cat([last[(rank() - 1) % p], t[:-1]])
+    last = all_gather_tensor(t[-1:], group=data_group())
+    return torch.cat([last[(data_rank() - 1) % p], t[:-1]])

@@ -6,10 +6,11 @@ Candidates are the weights still unpruned under ``masks``; exactly
 pruned. The ranking is a stable ascending argsort over the concatenation
 of every masked kernel in sorted-path order, each flattened in the flax
 layout, so ties at the cutoff fall exactly as in the JAX package. The port
-selects the same k without sorting: every score below the k-th smallest
-(``torch.kthvalue``), then the scores equal to it in index order, which is
-where a stable sort puts them (a full stable sort of a ViT-B/16's 86M
-weights takes the host seconds), indexed only when some of them stay.
+selects the same k without a stable sort: every score below the k-th
+smallest (``masks.kth_smallest``), then the scores equal to it in index
+order, which is where a stable sort puts them (a full stable sort of a
+ViT-B/16's 86M weights takes the host seconds), indexed only when some of
+them stay.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def magnitude_prune(params, masks: dict, amount: float = 0.2) -> dict:
         return dict(masks)
     # a NaN ranks last, as in a sort
     ranked = torch.where(mvec & ~torch.isnan(vec), vec, torch.full((), float("inf")))
-    cut = torch.kthvalue(ranked, k).values
+    cut = M.kth_smallest(ranked, k)
     prune = ranked < cut
     tied = ranked == cut
     need = k - int(prune.sum())

@@ -66,6 +66,16 @@ def compute_sparsity_global(params, masks: MaskTree) -> float:
     return 100.0 * zeros / total if total else 0.0
 
 
+def kth_smallest(vec: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th smallest value of a 1-D tensor (1-based, as
+    ``torch.kthvalue``): on the card by one sort of the vector, where
+    ``kthvalue`` over a model's ~10^8 scores costs the host far more
+    (``PERF.md`` §5); the same value."""
+    if vec.is_cuda:
+        return torch.sort(vec).values[k - 1]
+    return torch.kthvalue(vec, k).values
+
+
 def concat_masked_scores(scores: MaskTree):
     """Flatten score tensors into one vector in sorted-path order. Returns
     (vector, layout) with layout = [(path, shape, size)]."""

@@ -56,7 +56,7 @@ def snip_threshold(saliencies: dict, target_sparsity: float) -> torch.Tensor:
         return torch.tensor(float("inf"), dtype=vec.dtype, device=vec.device)
     if k <= 0:
         return torch.tensor(-1.0, dtype=vec.dtype, device=vec.device)
-    return torch.kthvalue(vec, k).values
+    return M.kth_smallest(vec, k)
 
 
 def snip_prune(loss_fn: Callable, params, batch, target_sparsity: float,

@@ -42,10 +42,24 @@ the eval shares are padded with sentinel rows and their sums all-reduced.
 Rank 0 alone writes the checkpoints, ``metrics.jsonl`` and
 ``performance.txt``, and the others wait for it; ``--resume`` reads on
 every rank. ``--data-parallel`` in one process is the plain run (one card
-a process). Tensor and pipeline parallelism are not ported (ROADMAP A10);
-``core.config.refuse_unported`` exits for their flags. ``LAST_RUN`` holds
-the first train and val batches and the times of the last ``run``, for
-callers that check or time it.
+a process).
+
+Model parallelism (``parallel_layout``; ViTs only, the JAX driver's checks
+and messages): ``--model-parallel k`` factors the W processes into data
+W / k x model k (``parallel.tp``: each rank holds H / k heads and F / k MLP
+columns, momentum and masks split with their weights);
+``--pipeline-parallel S [--pp-data D]`` into data D x pipe S
+(``parallel.pp``: each rank one stage of L / S blocks, GPipe over
+``--pp-microbatch``, ``--pp-remat``; the epoch-end eval pipelined too).
+Ranks of one model group or pipeline read the same batch; the data group
+shares the global batch as above. SNIP's saliencies come from rank 0's
+pass of the whole model (gathered) on the gathered global batch, so the
+masks are the one process's bit for bit; that pass needs the whole model
+and the global batch on one card. LRR's threshold comes from the gathered
+weights. A checkpoint is the whole model's (gathered; the keys and shapes
+of a one-process run), and ``--resume`` of any checkpoint cuts it to the
+rank's part. ``LAST_RUN`` holds the first train and val batches and the
+times of the last ``run``, for callers that check or time it.
 """
 
 from __future__ import annotations
@@ -54,17 +68,18 @@ import dataclasses
 import os
 import shutil
 import time
+import types
 from functools import partial
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from vipers_torch.core.checkpoint import load_train_checkpoint, save_train_checkpoint
+from vipers_torch.core.checkpoint import family, load_train_checkpoint, save_train_checkpoint
 from vipers_torch.core.config import TrainConfig, refuse_unported
 from vipers_torch.core.profiling import device_trace, enable_nan_check, nan_errors
 from vipers_torch.core.device import resolve_device
 from vipers_torch.core.metrics import MetricsWriter
-from vipers_torch.core.registry import build_model
+from vipers_torch.core.registry import build_model, build_module
 from vipers_torch.data.imagefolder import ImageFolder, ImageFolderLoader
 from vipers_torch.data.mixup import mixup_cutmix_batch
 from vipers_torch.data.preprocess import eval_decode, make_device_normalize, train_decode
@@ -72,11 +87,15 @@ from vipers_torch.data.sampler import epoch_indices, ra_sampler_indices, shard_i
 from vipers_torch.pruning import compute_sparsity_global, init_masks
 from vipers_torch.models import cnn
 from vipers_torch.parallel import mesh as parallel
+from vipers_torch.parallel.pp import (PipelineParallel, check_pipeline, make_pp_eval_step,
+                                      make_pp_train_step)
+from vipers_torch.parallel.tp import TensorParallel, check_tensor_parallel
 from vipers_torch.pruning.snip import snip_loss, snip_saliency, snip_threshold
 from vipers_torch.pruning.structured import arch_sidecar, write_sidecar
 from vipers_torch.train.ema import ema_decay_for
 from vipers_torch.train.loop import (evaluate, magnitude_pruning_round,
                                      train_model_to_completion)
+from vipers_torch.train.optim import MaskedOptimizer
 from vipers_torch.train.steps import (TrainState, create_train_state, load_weights,
                                       make_eval_step, make_train_step)
 
@@ -103,6 +122,8 @@ class Session:
     # the widths of a session resumed from a slimmed checkpoint: every
     # checkpoint it writes carries them in a .slim.json sidecar
     arch_overrides: Optional[dict] = None
+    # a model-parallel rank's view of the whole model (parallel.tp / .pp)
+    layout: Optional[object] = None
 
 
 def model_spec(cfg: TrainConfig, crop: int, arch_overrides: Optional[dict] = None):
@@ -123,17 +144,41 @@ def model_spec(cfg: TrainConfig, crop: int, arch_overrides: Optional[dict] = Non
     return build_model(cfg.model, **kw)
 
 
+def parallel_layout(cfg: TrainConfig, spec):
+    """The model-parallel layout of ``cfg`` (JAX's checks and messages) with
+    its process grid made: a ``TensorParallel`` for ``--model-parallel``
+    above 1, a ``PipelineParallel`` for ``--pipeline-parallel`` above 1,
+    else None (the grid cleared: data parallelism over every rank)."""
+    w = parallel.world()
+    if cfg.pipeline_parallel > 1:
+        check_pipeline(spec, cfg, w)
+        parallel.make_grid(cfg.pipeline_parallel, "pipe")
+        return PipelineParallel(spec, parallel.inner_group(), parallel.inner_rank(),
+                                cfg.pipeline_parallel, cfg.pp_microbatch, cfg.pp_remat)
+    if cfg.model_parallel > 1:
+        k = cfg.model_parallel
+        check_tensor_parallel(spec, k, w, cfg.model)
+        parallel.make_grid(k, "model")
+        print(f"train mesh: data={w // k} x model={k} over {w} devices, {w} processes")
+        return TensorParallel(spec, parallel.inner_group(), parallel.inner_rank(), k)
+    parallel.make_grid(1)
+    return None
+
+
 def build_session(cfg: TrainConfig, params=None, cmd: str = "train") -> Session:
     """The session of ``cfg``; ``params`` (a flax-layout tree) replaces
     the model's initial weights, which are otherwise drawn from
     ``cfg.seed``; running statistics start at mean 0 and var 1. ``cmd``
-    names the subcommand in ``refuse_unported``'s message."""
+    names the subcommand in ``refuse_unported``'s message; only ``train``
+    takes the model-parallel layouts (``evaluate`` and ``quantize`` run
+    the plain or data-parallel session)."""
     refuse_unported(cfg, cmd)
     dev = resolve_device(cfg.device)
     arch = arch_sidecar(cfg.resume)
     if arch:
         print(f"slim architecture: {arch}")
     spec = model_spec(cfg, cfg.train_crop_size, arch)
+    layout = parallel_layout(cfg, spec) if cmd == "train" else None
     if spec.family in ("vit", "swin") and cfg.val_crop_size != cfg.train_crop_size:
         # pos-embeddings are sized at construction: the epoch-end eval would
         # fail after a full epoch of training (the JAX driver refuses every
@@ -148,11 +193,21 @@ def build_session(cfg: TrainConfig, params=None, cmd: str = "train") -> Session:
     masks = init_masks(params, exclude=spec.prune_exclude)
     train_ds = ImageFolder(os.path.join(cfg.data_path, "train"), cache_dir=cfg.cache_dataset)
     val_ds = ImageFolder(os.path.join(cfg.data_path, "val"), cache_dir=cfg.cache_dataset)
-    # one step takes the global batch (--batch-size is per process)
-    world = parallel.world()
+    # one step takes the global batch (--batch-size is per process and data rank)
+    world = parallel.data_world()
     steps_per_epoch = max(len(train_ds) // (cfg.batch_size * world), 1)
-    state = create_train_state(spec, params, masks, cfg.optim, steps_per_epoch, device=dev,
-                               ema=cfg.model_ema)
+    rank_spec = spec
+    if layout is not None:
+        # this rank's part of the whole model's initial weights and masks
+        fam = family(spec)
+        params = fam.trees(layout.part(fam.state_dict(params)))[0]
+        masks = fam.masks_from_state_dict(layout.part(fam.masks_to_state_dict(masks)))
+        rank_spec = layout.rank_spec
+    state = create_train_state(rank_spec, params, masks, cfg.optim, steps_per_epoch,
+                               device=dev, ema=cfg.model_ema)
+    if layout is not None:
+        layout.wire(state.model)
+        state.opt.sq_norm = layout.sq_norm
     ema_decay = (ema_decay_for(cfg.model_ema_decay, world, cfg.batch_size, cfg.model_ema_steps,
                                cfg.optim.epochs) if cfg.model_ema else None)
     compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
@@ -161,18 +216,22 @@ def build_session(cfg: TrainConfig, params=None, cmd: str = "train") -> Session:
     if cfg.mixup_alpha > 0 or cfg.cutmix_alpha > 0:
         mixup = partial(mixup_cutmix_batch, num_classes=cfg.num_classes,
                         mixup_alpha=cfg.mixup_alpha, cutmix_alpha=cfg.cutmix_alpha)
+    if isinstance(layout, PipelineParallel):
+        train_step = make_pp_train_step(layout, cfg.num_classes, ls, compute_dtype)
+        eval_step = make_pp_eval_step(layout, cfg.num_classes, ls, compute_dtype)
+    else:
+        train_step = make_train_step(cfg.num_classes, ls, compute_dtype, ema_decay=ema_decay,
+                                     ema_every=cfg.model_ema_steps,
+                                     ema_warmup_steps=cfg.optim.lr_warmup_epochs
+                                     * steps_per_epoch, seed=cfg.seed)
+        eval_step = make_eval_step(cfg.num_classes, ls, compute_dtype)
     return Session(
-        cfg=cfg, spec=spec, state=state,
-        train_step=make_train_step(cfg.num_classes, ls, compute_dtype, ema_decay=ema_decay,
-                                   ema_every=cfg.model_ema_steps,
-                                   ema_warmup_steps=cfg.optim.lr_warmup_epochs * steps_per_epoch,
-                                   seed=cfg.seed),
-        eval_step=make_eval_step(cfg.num_classes, ls, compute_dtype),
+        cfg=cfg, spec=spec, state=state, train_step=train_step, eval_step=eval_step,
         eval_step_ema=make_eval_step(cfg.num_classes, ls, compute_dtype, use_ema=True),
         normalize=make_device_normalize(random_erase_prob=cfg.random_erase), mixup=mixup,
         writer=MetricsWriter((cfg.metrics_path or os.path.join(cfg.output_dir, "metrics.jsonl"))
                              if parallel.is_main() else None),
-        train_ds=train_ds, val_ds=val_ds, device=dev, arch_overrides=arch)
+        train_ds=train_ds, val_ds=val_ds, device=dev, arch_overrides=arch, layout=layout)
 
 
 class DeviceBatches:
@@ -204,8 +263,9 @@ def train_loader(cfg: TrainConfig, ds: ImageFolder, epoch: int) -> ImageFolderLo
     """Epoch ``epoch``'s train batches (numpy): the sampler's stream (with
     ``--ra-sampler`` the repeated-augmentation stream), this rank's share in
     a data-parallel run, RandomResizedCrop + flip (+ the auto-augment
-    policy), the last partial batch dropped."""
-    world, rank = parallel.world(), parallel.rank()
+    policy), the last partial batch dropped. The ranks of a model group or
+    pipeline (one data rank) read the same batches."""
+    world, rank = parallel.data_world(), parallel.data_rank()
     if cfg.ra_sampler:
         idx = ra_sampler_indices(len(ds), epoch, seed=cfg.seed, repetitions=cfg.ra_reps,
                                  num_replicas=world, rank=rank)
@@ -231,8 +291,8 @@ def val_loader(cfg: TrainConfig, ds: ImageFolder) -> ImageFolderLoader:
     """The val split in order (numpy): resize, center crop, every image
     (a data-parallel rank's strided share, its tail padded with sentinel
     rows)."""
-    world = parallel.world()
-    idx = shard_indices_for_host(len(ds), world, parallel.rank(), 0, shuffle=False,
+    world = parallel.data_world()
+    idx = shard_indices_for_host(len(ds), world, parallel.data_rank(), 0, shuffle=False,
                                  pad_with_sentinel=world > 1)
     if cfg.native_decode and cfg.interpolation == "bilinear":
         from vipers_torch.data import native
@@ -264,18 +324,83 @@ def _snip_loss_fn(s: Session):
                      batch_stats=s.state.batch_stats, seed=s.cfg.seed)
 
 
-def _flax_params(state: TrainState) -> dict:
-    return state.family.trees(state.params)[0]
+def _whole(s: Session, sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The whole model's entries from this rank's ``sd`` (a collective
+    under a model-parallel layout; ``sd`` itself otherwise)."""
+    return sd if s.layout is None else s.layout.full(sd)
 
 
-def _sparsity(state: TrainState) -> float:
-    return compute_sparsity_global(_flax_params(state),
-                                   state.family.masks_from_state_dict(state.masks))
+def _flax_params(s: Session) -> dict:
+    """The whole model's parameters as a flax tree (gathered under a
+    model-parallel layout: every rank of the group calls it)."""
+    st = s.state
+    return st.family.trees(_whole(s, {k: v.detach() for k, v in st.params.items()}))[0]
+
+
+def _sparsity(s: Session) -> float:
+    return compute_sparsity_global(_flax_params(s),
+                                   s.state.family.masks_from_state_dict(_whole(s, s.state.masks)))
+
+
+def _whole_optimizer(s: Session) -> MaskedOptimizer:
+    """An optimizer over the whole model's parameters on the meta device:
+    the numbering of a one-process checkpoint's optimizer state."""
+    with torch.device("meta"):
+        module = build_module(s.spec)
+    fam = s.state.family
+    return MaskedOptimizer(s.cfg.optim, module, fam.trees(dict(module.named_parameters()))[0],
+                           lambda count: 0.0, fam.state_key)
+
+
+def _map_named_state(named: Dict[str, dict], fn) -> Dict[str, dict]:
+    """``fn`` ({name: tensor} -> {name: tensor}: a layout's ``full`` or
+    ``part``) applied to each per-parameter state tensor of ``named``;
+    scalars (step counts) and None entries are the same for every
+    parameter and carried over."""
+    keys = sorted({k for st in named.values() for k, v in st.items()
+                   if torch.is_tensor(v) and v.dim()})
+    scalars = {k: v for st in named.values() for k, v in st.items() if k not in keys}
+    out: Dict[str, dict] = {}
+    for key in keys:
+        for n, t in fn({n: st[key] for n, st in named.items() if key in st}).items():
+            out.setdefault(n, dict(scalars))[key] = t
+    return out
+
+
+def _whole_state(s: Session):
+    """What ``save_train_checkpoint`` reads of the session's state, for the
+    whole model: the state itself, or under a model-parallel layout its
+    parts gathered (a collective: every rank calls it)."""
+    st, lay = s.state, s.layout
+    if lay is None:
+        return st
+    named = _map_named_state(st.opt.named_state(), lay.full)
+    opt = _whole_optimizer(s).state_dict_from(named, st.opt.count)
+    return types.SimpleNamespace(
+        family=st.family, params=lay.full({k: v.detach() for k, v in st.params.items()}),
+        batch_stats={}, masks=lay.full(st.masks), step=st.step,
+        opt=types.SimpleNamespace(state_dict=lambda: opt),
+        ema_params=None if st.ema_params is None else lay.full(st.ema_params),
+        ema_batch_stats=None)
+
+
+def _link_or_copy(src: str, dst: str):
+    """``dst`` replaced atomically by another name of the file ``src`` (a
+    hard link, or a copy where the file system has none): the rolling
+    latest checkpoint written in the same epoch as the epoch's file."""
+    tmp = dst + ".tmp"
+    if os.path.lexists(tmp):
+        os.remove(tmp)
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
 
 
 def _checkpoint_fn(s: Session, method: str, tag):
     """``save(state, epoch, sparsity, latest=False)``: the epoch's file, or
-    the rolling latest (a copy of the epoch's file when that was just
+    the rolling latest (a hard link to the epoch's file when that was just
     written from the same state); with the session's ``.slim.json``
     sidecar beside it when it was resumed from a slimmed checkpoint."""
     cfg = s.cfg
@@ -285,13 +410,15 @@ def _checkpoint_fn(s: Session, method: str, tag):
         name = (f"{cfg.model}_checkpoint_{method}_{tag}" if latest
                 else f"{cfg.model}_epoch_{epoch}_{method}_{tag}")
         path = os.path.join(cfg.output_dir, name + ".pth")
-        # every rank holds the same state: rank 0 writes, the others wait for the file
+        copy = latest and written.get("epoch") == epoch
+        # the whole model's state (gathered from the ranks' parts under a
+        # model-parallel layout): rank 0 writes, the others wait for the file
+        whole = None if copy else _whole_state(s)
         if parallel.is_main():
-            if latest and written.get("epoch") == epoch:
-                shutil.copyfile(written["path"], path + ".tmp")
-                os.replace(path + ".tmp", path)
+            if copy:
+                _link_or_copy(written["path"], path)
             else:
-                save_train_checkpoint(path, state, epoch, sparsity)
+                save_train_checkpoint(path, whole, epoch, sparsity)
             if s.arch_overrides:
                 write_sidecar(path, cfg.model, s.arch_overrides)
         if not latest:
@@ -314,12 +441,12 @@ def _loop_args(s: Session):
                  expected_eval_samples=len(s.val_ds), mixup_fn=s.mixup, writer=s.writer))
 
 
-def snip_saliencies(s: Session, batch=None) -> dict:
-    """SNIP's saliencies {flax path: |w| * |dL/dw|} of the dense model on
-    ``batch`` (uint8 images, labels), by default epoch 0's first train
-    batch."""
+def snip_saliencies(s: Session, batch=None, params=None) -> dict:
+    """SNIP's saliencies {flax path: |w| * |dL/dw|} of the dense model
+    (``params``, by default the session's) on ``batch`` (uint8 images,
+    labels), by default epoch 0's first train batch."""
     images, labels = next(iter(_train_loader(s, 0))) if batch is None else batch
-    params = _flax_params(s.state)
+    params = _flax_params(s) if params is None else params
     # deterministic: the masks repeat run to run, and on rank 0 of a data-parallel run
     with cnn.exact_f32_convs(), cnn.deterministic_convs():
         return snip_saliency(_snip_loss_fn(s), params, (s.normalize(images), labels),
@@ -337,7 +464,7 @@ def train_snip(s: Session, initial_epoch: int = 0):
     """Train the session's SNIP masks to completion. Returns (sparsity,
     last acc1)."""
     cfg = s.cfg
-    sparsity = _sparsity(s.state)
+    sparsity = _sparsity(s)
     print(f"Sparsity after SNIP pruning: {sparsity:.2f}%")
     s.writer.write("prune", step=0, method="snip", sparsity=sparsity)
     args, kw = _loop_args(s)
@@ -360,17 +487,26 @@ def global_snip_masks(s: Session) -> dict:
     share with the gradients averaged would scale, but the sums' other
     order moves saliencies across the threshold (BatchNorm's f32 variance
     and the ReLU gates amplify it), so its masks would not be the one
-    process's."""
+    process's. Under a model-parallel layout the batch is gathered over the
+    data group, the whole model's weights from the ranks' parts, and each
+    rank keeps its part of the masks: the whole model and the global batch
+    must fit rank 0's card."""
     if parallel.world() <= 1:
         return snip_masks(s, snip_saliencies(s))
     images, labels = next(iter(_train_loader(s, 0)))
-    batch = (torch.cat(parallel.all_gather_tensor(images)),
-             torch.cat(parallel.all_gather_tensor(labels)))
+    group = parallel.data_group()
+    batch = (torch.cat(parallel.all_gather_tensor(images, group=group)),
+             torch.cat(parallel.all_gather_tensor(labels, group=group)))
+    params = _flax_params(s)
     masks = None
     if parallel.is_main():
         with parallel.solo():
-            masks = {k: m.cpu() for k, m in snip_masks(s, snip_saliencies(s, batch)).items()}
-    return {k: m.to(s.device) for k, m in parallel.broadcast_object(masks).items()}
+            masks = {k: m.cpu() for k, m in
+                     snip_masks(s, snip_saliencies(s, batch, params)).items()}
+    masks = parallel.broadcast_object(masks)
+    if s.layout is not None:
+        masks = s.layout.part(masks)
+    return {k: m.to(s.device) for k, m in masks.items()}
 
 
 def run_snip(s: Session, initial_epoch: int = 0):
@@ -389,7 +525,7 @@ def run_magnitude(s: Session, resuming: bool = False, initial_epoch: int = 0):
     ``performance.txt``; returns (sparsity, [(acc1, sparsity) per
     iteration])."""
     cfg = s.cfg
-    sparsity = _sparsity(s.state)
+    sparsity = _sparsity(s)
     it = cfg.starting_pruning_iteration
     rows = []
     first = True
@@ -405,7 +541,7 @@ def run_magnitude(s: Session, resuming: bool = False, initial_epoch: int = 0):
                 *args, cfg.pruning_rate, reset=not cont,
                 initial_epoch=initial_epoch if cont else 0, seed=(cfg.seed, it),
                 checkpoint_fn=_checkpoint_fn(s, "pruning_iteration", f"{it:02d}"),
-                sparsity=sparsity, **kw)
+                sparsity=sparsity, layout=s.layout, **kw)
         rows.append((acc1, sparsity))
         sparsity = pruned
         s.writer.write("prune", step=it, method="magnitude", sparsity=sparsity)
@@ -422,17 +558,26 @@ def resume_session(s: Session, path: str) -> int:
     from. A checkpoint without the port's optimizer state (a reference
     ``.pth``) restores the weights, statistics and masks only."""
     ck = load_train_checkpoint(path, s.spec)
-    st = s.state
+    st, lay = s.state, s.layout
     fam = st.family
-    load_weights(st.model, fam, ck["params"], ck["batch_stats"])
+    part = (lambda sd: sd) if lay is None else lay.part
+    if lay is None:
+        load_weights(st.model, fam, ck["params"], ck["batch_stats"])
+    else:  # a whole model's checkpoint (one process's or gathered): this rank's part
+        st.model.load_state_dict({**dict(st.model.named_buffers()),
+                                  **part(fam.state_dict(ck["params"]))})
     st.masks = {**st.masks, **{k: m.to(s.device)
-                               for k, m in fam.masks_to_state_dict(ck["masks"]).items()}}
+                               for k, m in part(fam.masks_to_state_dict(ck["masks"])).items()}}
     opt = ck["optimizer"]
     if isinstance(opt, dict) and "count" in opt:
-        st.opt.load_state_dict(opt)
+        if lay is None:
+            st.opt.load_state_dict(opt)
+        else:
+            named = _whole_optimizer(s).named_state(opt)
+            st.opt.load_named_state(_map_named_state(named, part), opt["count"])
     st.step = ck["step"]
     if ck["ema_params"] is not None and st.ema_params is not None:
-        ema = fam.state_dict(ck["ema_params"], ck["ema_batch_stats"])
+        ema = part(fam.state_dict(ck["ema_params"], ck["ema_batch_stats"]))
         with torch.no_grad():
             for k, v in ema.items():
                 (st.ema_params if k in st.ema_params else st.ema_batch_stats)[k].copy_(v)
@@ -449,14 +594,17 @@ def run(cfg: TrainConfig):
     LAST_RUN.clear()
     refuse_unported(cfg)
     resolve_device(cfg.device)  # no card and no --device cpu: raise before writing anything
-    if not cfg.debug_nans:
-        return _run(cfg)
-    enable_nan_check(True)
     try:
-        with nan_errors():
+        if not cfg.debug_nans:
             return _run(cfg)
+        enable_nan_check(True)
+        try:
+            with nan_errors():
+                return _run(cfg)
+        finally:
+            enable_nan_check(False)
     finally:
-        enable_nan_check(False)
+        parallel.make_grid(1)  # the next command in this process starts without a grid
 
 
 def _run(cfg: TrainConfig):

@@ -22,7 +22,9 @@ In a data-parallel run (``parallel.mesh``) every rank evaluates its
 strided share of the val split or VOC items, the tail padded with sentinel
 rows (label -1, left out of every sum), the sums are all-reduced
 (``train.loop.evaluate``), and rank 0 alone writes the txt and
-``performance.txt``.
+``performance.txt``. ``--model-parallel`` and the ``--pp-*`` flags are
+accepted and ignored: the sweep runs data-parallel over every rank, as
+the JAX sweep builds a data-only mesh.
 """
 
 from __future__ import annotations

@@ -91,7 +91,7 @@ def evaluate(eval_step, state: TrainState, loader: Iterable, epoch: Optional[int
                                  out["top5"].double(), out["n"].double()]))
     sums = torch.stack(outs).sum(dim=0) if outs else torch.zeros(4, dtype=torch.float64)
     # a data-parallel run's ranks evaluate disjoint shares: every rank prints the global sums
-    loss_sum, top1, top5, n_seen = parallel.all_reduce_(sums).cpu().tolist()
+    loss_sum, top1, top5, n_seen = parallel.all_reduce_(sums, group=parallel.data_group()).cpu().tolist()
     if expected_samples is not None and int(n_seen) != expected_samples:
         print(f"Warning: dataset has {expected_samples} samples but {int(n_seen)} "
               "were used for validation — results may be biased.")
@@ -145,33 +145,42 @@ def reset_for_round(state: TrainState) -> TrainState:
     return state
 
 
-def prune_and_bake(state: TrainState, pruning_rate: float) -> float:
+def prune_and_bake(state: TrainState, pruning_rate: float, layout=None) -> float:
     """One global magnitude round over the still-unpruned weights (ranked in
     the flax layout and path order, as in the JAX package), the new masks
-    baked into the weights; returns the new global sparsity in %."""
+    baked into the weights; returns the new global sparsity in %. Under a
+    ``layout`` (``parallel.tp``, ``parallel.pp``) the whole model's weights
+    and masks are gathered from the ranks' parts, so the threshold is the
+    one process's, and each rank keeps its part of the new masks."""
     fam = state.family
-    masks = magnitude_prune(fam.trees(state.params)[0], fam.masks_from_state_dict(state.masks),
-                            pruning_rate)
-    state.masks = fam.masks_to_state_dict(masks)
-    params = state.params
+    params = {k: v.detach() for k, v in state.params.items()}
+    masks = state.masks
+    if layout is not None:
+        params, masks = layout.full(params), layout.full(masks)
+    full = fam.trees(params)[0]
+    new = magnitude_prune(full, fam.masks_from_state_dict(masks), pruning_rate)
+    sd = fam.masks_to_state_dict(new)
+    dev = next(iter(state.masks.values())).device
+    state.masks = {k: m.to(dev) for k, m in (sd if layout is None else layout.part(sd)).items()}
+    live = state.params
     with torch.no_grad():
         for k, m in state.masks.items():
-            params[k].copy_(torch.where(m, params[k], params[k].new_zeros(())))
-    return compute_sparsity_global(fam.trees(state.params)[0], masks)
+            live[k].copy_(torch.where(m, live[k], live[k].new_zeros(())))
+    return compute_sparsity_global(full, new)
 
 
 def magnitude_pruning_round(train_step, eval_step, state: TrainState,
                             make_train_loader: Callable[[int], Iterable],
                             eval_loader_fn: Callable[[], Iterable], epochs: int,
-                            pruning_rate: float, reset: bool = True, **kw):
+                            pruning_rate: float, reset: bool = True, layout=None, **kw):
     """One LRR iteration of the JAX driver's magnitude path: reset the step
     count and optimizer state (unless ``reset`` is False: a resumed
     iteration), train to completion (``kw`` as ``train_model_to_completion``
     takes them), prune ``pruning_rate`` of the remaining weights by global
-    magnitude, bake the masks. Returns (state, acc1 before pruning,
-    sparsity after)."""
+    magnitude (over the whole model under a ``layout``), bake the masks.
+    Returns (state, acc1 before pruning, sparsity after)."""
     if reset:
         reset_for_round(state)
     state, acc1 = train_model_to_completion(
         train_step, eval_step, state, make_train_loader, eval_loader_fn, epochs, **kw)
-    return state, acc1, prune_and_bake(state, pruning_rate)
+    return state, acc1, prune_and_bake(state, pruning_rate, layout)

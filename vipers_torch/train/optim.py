@@ -118,12 +118,18 @@ def weight_decay_rates(params, cfg: OptimConfig) -> Dict[tuple, float]:
     return rates
 
 
-def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float,
+                         sq_norm: Optional[Callable] = None):
     """In place, as ``optax.clip_by_global_norm``: if the global norm is not
     below ``max_norm``, every gradient becomes ``g / norm * max_norm`` (no
-    epsilon). Decided on the device: no host sync."""
+    epsilon). Decided on the device: no host sync. ``sq_norm(grads)``: the
+    squared global norm where ``grads`` are one rank's part of the model's
+    (tensor or pipeline parallelism)."""
     gs = list(grads.values())
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in gs))
+    if sq_norm is None:
+        norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in gs))
+    else:
+        norm = torch.sqrt(sq_norm(grads))
     keep = norm < max_norm
     for g in gs:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
@@ -138,7 +144,11 @@ class MaskedOptimizer:
     ``flax_params`` is the module's parameter tree in flax paths (e.g.
     ``core.checkpoint.flax_tree_from_vit_state_dict``), which decides the
     decay rate of each parameter; ``state_key`` maps a flax path to the
-    module's parameter name."""
+    module's parameter name. ``sq_norm`` (None: the module's own) gives the
+    clip's squared global norm when the module holds part of the model
+    (``parallel.tp``, ``parallel.pp``)."""
+
+    sq_norm: Optional[Callable] = None
 
     def __init__(self, cfg: OptimConfig, module: torch.nn.Module, flax_params,
                  schedule: Callable[[int], float], state_key: Callable[[tuple], str]):
@@ -182,10 +192,42 @@ class MaskedOptimizer:
         self.opt.load_state_dict(sd["opt"])
         self.count = int(sd["count"])
 
+    def _order(self):
+        """The parameter names in the order ``state_dict`` numbers them."""
+        names = {id(p): n for n, p in self.params.items()}
+        return [names[id(p)] for g in self.opt.param_groups for p in g["params"]]
+
+    def named_state(self, sd: Optional[dict] = None) -> Dict[str, dict]:
+        """{parameter name: its state (momentum or moments)} of this
+        optimizer, or of ``sd`` (a ``state_dict`` of an optimizer over the
+        same parameters)."""
+        if sd is None:
+            names = {id(p): n for n, p in self.params.items()}
+            return {names[id(p)]: st for p, st in self.opt.state.items()}
+        order = self._order()
+        return {order[int(i)]: st for i, st in sd["opt"]["state"].items()}
+
+    def load_named_state(self, named: Dict[str, dict], count: int):
+        """Restore ``named_state``'s form (tensors move to the parameters'
+        device) and the step count."""
+        self.opt.state.clear()
+        for n, st in named.items():
+            p = self.params[n]
+            self.opt.state[p] = {k: (v.to(p.device) if torch.is_tensor(v) and v.dim() else v)
+                                 for k, v in st.items()}
+        self.count = int(count)
+
+    def state_dict_from(self, named: Dict[str, dict], count: int) -> dict:
+        """``state_dict``'s form of ``named`` state for this optimizer's
+        parameters (a whole model's, assembled from its ranks' parts)."""
+        sd = self.opt.state_dict()
+        sd["state"] = {i: named[n] for i, n in enumerate(self._order()) if n in named}
+        return {"opt": sd, "count": int(count)}
+
     def step(self, grads: Dict[str, torch.Tensor], masks: Dict[str, torch.Tensor]):
         grads = mask_gradients(grads, masks)
         if self.cfg.clip_grad_norm is not None:
-            clip_by_global_norm_(grads, self.cfg.clip_grad_norm)
+            clip_by_global_norm_(grads, self.cfg.clip_grad_norm, self.sq_norm)
         for name, p in self.params.items():
             p.grad = grads[name]
         lr = self.schedule(self.count)

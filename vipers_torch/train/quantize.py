@@ -513,10 +513,12 @@ def int8_apply(model, fam, x, q, scales, observers, tensors=None, **kwargs):
         return functional_call(model, qd, (x,), kwargs)
 
 
-def dynamic_qparams(x, token_mask=None):
+def dynamic_qparams(x, token_mask=None, reduce=None):
     """Per-tensor affine uint8 qparams from the live activation (dynamic
     quantization), the range snapped to hold 0; ``token_mask`` (B, T)
-    leaves bucket- and seq-pad rows of a (B, T, C) activation out."""
+    leaves bucket- and seq-pad rows of a (B, T, C) activation out;
+    ``reduce(mn, mx)`` widens the range to other ranks' (the token shards
+    of sequence parallelism)."""
     x32 = x.float()
     if token_mask is not None:
         valid = token_mask[..., None].to(torch.bool)
@@ -526,6 +528,8 @@ def dynamic_qparams(x, token_mask=None):
     else:
         mn = torch.clamp(torch.amin(x32), max=0.0)
         mx = torch.clamp(torch.amax(x32), min=0.0)
+    if reduce is not None:
+        mn, mx = reduce(mn, mx)
     scale = torch.clamp((mx - mn) / (ACT_QMAX - ACT_QMIN), min=1e-9)
     zp = torch.clamp(torch.round(ACT_QMIN - mn / scale), ACT_QMIN, ACT_QMAX)
     return scale, zp
@@ -540,18 +544,25 @@ def int8_dynamic_sites(model, fam, q, scales, exclude=(), qparams_token_masks=No
     ({site: (scale, zp)}, calibrated observers) where given.
     ``qparams_token_masks`` {T: (B, T) mask} leaves pad rows of a (B, T, C)
     input out of its range (give the raw and the seq-padded T). The
-    model's other layers run in its own float dtype."""
+    model's other layers run in its own float dtype. Under sequence
+    parallelism (``parallel.sp``) a token activation's range leaves this
+    rank's pad rows out and spans every rank's tokens."""
+    from vipers_torch.parallel.sp import sequence_axis
+
     def qparams_for(site, xin):
         if any(e in site for e in exclude):
             return None
         if static_qparams is not None and site in static_qparams:
             return static_qparams[site]
         m = None
-        if qparams_token_masks and xin.dim() == 3:
+        seq = sequence_axis()
+        if seq is not None and xin.dim() == 3 and xin.shape[1] == seq.local_t:
+            m = seq.local_mask
+        elif qparams_token_masks and xin.dim() == 3:
             m = qparams_token_masks.get(xin.shape[1])
             if m is not None and m.shape[0] != xin.shape[0]:
                 m = None
-        return dynamic_qparams(xin, m)
+        return dynamic_qparams(xin, m, seq.reduce_min_max if seq is not None else None)
 
     with _int8_sites(model, fam, q, scales, qparams_for):
         yield
@@ -674,6 +685,25 @@ def _save_artifact(state, params, path: str, observers, epoch: Optional[int] = N
     os.replace(path + ".tmp", path)
 
 
+def _refuse_tensor_parallel(cfg):
+    """``--model-parallel`` exits: a CNN has no tensor-parallel spec (the
+    train driver's message); a ViT's QAT observers would have to span the
+    column-split qkv and fc1 outputs, which is not ported yet (A10).
+    ``--pipeline-parallel`` and ``--pp-*`` are ignored, as the JAX
+    quantize driver ignores them."""
+    from vipers_torch.core.config import refuse_unported
+    from vipers_torch.core.registry import build_model
+
+    refuse_unported(cfg, "quantize")
+    spec = build_model(cfg.model)
+    if spec.family != "vit":
+        raise SystemExit("--model-parallel shards ViT attention/MLP features; "
+                         f"model {cfg.model!r} (family {spec.family!r}) has no "
+                         "tensor-parallel spec")
+    raise SystemExit("vipers_torch quantize: --model-parallel (QAT observers over the "
+                     "column-split qkv and fc1 outputs) is not ported yet (ROADMAP A10)")
+
+
 def run_quantize(args) -> int:
     """``vipers_torch quantize``: ``--mode ptq`` calibrates the masked model
     on ``--calibration-batches`` train batches, evaluates it QDQ and in
@@ -691,6 +721,8 @@ def run_quantize(args) -> int:
     from vipers_torch.train.steps import forward_params
 
     cfg = config_from_args(args)
+    if cfg.model_parallel > 1:
+        _refuse_tensor_parallel(cfg)
     resolve_device(cfg.device)
     os.makedirs(cfg.output_dir, exist_ok=True)
     s = build_session(cfg, cmd="quantize")

@@ -13,10 +13,12 @@ update (``train.optim.MaskedOptimizer``), then the EMA. Metrics stay on the
 device; the loops fetch them in groups.
 
 In a data-parallel run (``parallel.mesh``) each rank's gradients and
-metrics are averaged over the ranks before the optimizer (the global-batch
-mean's, as under the JAX package's mesh), so every rank takes the same
-update; BatchNorm's batch statistics are the global batch's
-(``models.cnn``).
+metrics are averaged over the data group before the optimizer (the
+global-batch mean's, as under the JAX package's mesh), so every rank takes
+the same update; BatchNorm's batch statistics are the global batch's
+(``models.cnn``). A tensor-parallel rank (``parallel.tp``) runs the same
+step on its shard module: its split gradients are its shard's, the
+replicated ones whole. The pipelined step is ``parallel.pp``'s.
 
 Parameters and masks are keyed by the module's state-dict names, masks in
 the module's layout (``core.checkpoint.Family.masks_to_state_dict``).
@@ -248,22 +250,28 @@ def make_eval_step(num_classes: int, label_smoothing: float = 0.0,
                                             {"need_attn": False})
         finally:
             model.train(was_training)
-        if labels.dim() == 2:
-            valid = labels.amax(dim=1) >= 0
-            target = labels.float()
-            safe = torch.argmax(labels, dim=1)
-        else:
-            valid = labels >= 0
-            safe = labels.clamp(min=0)
-            target = F.one_hot(safe, num_classes).float()
-        if label_smoothing > 0:
-            target = target * (1.0 - label_smoothing) + label_smoothing / num_classes
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        per_example = -torch.sum(target * logp, dim=-1)
-        loss_sum = torch.where(valid, per_example, per_example.new_zeros(())).sum()
-        correct = (_topk_indices(logits, min(5, logits.shape[-1])) == safe[:, None]) \
-            & valid[:, None]
-        return {"loss_sum": loss_sum, "top1": correct[:, :1].sum(),
-                "top5": correct.sum(), "n": valid.sum()}
+        return eval_sums(logits, labels, num_classes, label_smoothing)
 
     return step
+
+
+def eval_sums(logits, labels, num_classes: int, label_smoothing: float = 0.0) -> dict:
+    """{loss_sum, top1, top5, n} of a batch's logits (device scalars), rows
+    with label -1 (sentinel padding) left out of every sum."""
+    if labels.dim() == 2:
+        valid = labels.amax(dim=1) >= 0
+        target = labels.float()
+        safe = torch.argmax(labels, dim=1)
+    else:
+        valid = labels >= 0
+        safe = labels.clamp(min=0)
+        target = F.one_hot(safe, num_classes).float()
+    if label_smoothing > 0:
+        target = target * (1.0 - label_smoothing) + label_smoothing / num_classes
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    per_example = -torch.sum(target * logp, dim=-1)
+    loss_sum = torch.where(valid, per_example, per_example.new_zeros(())).sum()
+    correct = (_topk_indices(logits, min(5, logits.shape[-1])) == safe[:, None]) \
+        & valid[:, None]
+    return {"loss_sum": loss_sum, "top1": correct[:, :1].sum(),
+            "top5": correct.sum(), "n": valid.sum()}
